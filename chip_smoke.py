@@ -1,0 +1,588 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases, one JSON line each; any failure raises and the exit code is not
+0. Without a CUDA device, or without the repository around it, the
+script fails before it prints a result.
+
+1. device  the card, torch and CUDA versions, nvidia-smi's name and
+           power limit (also printed as its own line before the last).
+2. build   nvcc builds the port's one kernel source from
+           ``src/repro_torch/csrc`` (K1, ``warehouse_agg.cu``).
+3. kernel  K1 against its plain version on the same CUDA tensors over
+           the test matrix at 1M rows (shared- and global-memory
+           accumulators), and against a float64 host oracle.
+4. main    the main path at full size, with the launch counts set to 0
+           just before it and read just after: ``fit(COVID, n_cores=8,
+           days_unlabeled=2.0)``, a 1-day fused run (43,200 segments)
+           into a ``SegmentStore``, the store filled to 256 camera-days
+           (11,059,200 rows), and the README plans plus a window x
+           category ``MultiGroupBy`` on ``out`` and a camera x window
+           one (73,728 groups, global accumulators). Every aggregating
+           query must have taken the kernel, in both accumulator modes.
+5. check   the run against the port's own CPU run (k and c traces
+           exact, floats to 1e-5), each query's result against the
+           engine path's masks, and K1's wrapper against its plain
+           version and a float64 host oracle at each query's shape.
+6. time    CUDA-event medians of K1, its plain version and one
+           ``index_add_``/``scatter_reduce_`` call per main-path query,
+           beside the byte bound at 3.35 TB/s.
+
+Tolerances. Counts, max, min and integer-valued sums are exact. Float
+sums and means: K1 within 1e-4 of each group's sum of magnitudes of its
+plain version run on the same inputs with the value column in float64
+(``fused_segment_agg_ref`` then accumulates in float64), and of a
+float64 numpy oracle. The 1e-4 is the worst-case bound n * 2^-24 of a
+float32 sum of n = 1,600 terms, about what one shared accumulator of K1
+takes before the block-ordered fold (the measured errors are printed
+and far smaller). The plain version is run in float64 for the check
+because its float32 ``index_add_`` (the reference's row-order
+semantics) drifts by about 2% from float64 on groups of millions of
+rows; its float32 form is what ``plain_ms`` times.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
+FLOAT_TOL = 1e-4                    # of the group's sum of magnitudes
+KERNEL_ROWS = 1 << 20
+CAMERAS = 256
+RUN_DAYS = 1.0                      # 43,200 segments of 2 s
+ROTATE = 169                        # segments between cameras' clocks
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def timed(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median of ``reps`` warm runs of ``fn`` timed with CUDA events."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# float64 host oracle of one aggregation
+# ---------------------------------------------------------------------------
+
+def _np_mask(cols, n, filters):
+    mask = np.ones(n, bool)
+    ops = {"eq": np.equal, "ne": np.not_equal, "lt": np.less,
+           "le": np.less_equal, "gt": np.greater, "ge": np.greater_equal}
+    for f in filters:
+        x = cols[f.column][:n]
+        if np.issubdtype(x.dtype, np.integer):
+            mask &= ops[f.op](x.astype(np.float64), np.float64(f.value))
+        else:
+            mask &= ops[f.op](x, np.float32(f.value))
+    return mask
+
+
+def oracle(cols, n, filters, keys, value, agg):
+    """(acc, cnt, scale) in float64: the group sums (or max/min), counts
+    and sums of magnitudes of rows [0, n) under ``filters``."""
+    mask = _np_mask(cols, n, filters)
+    gid, num = None, 1
+    for col, k_num, window in keys:
+        ids = cols[col][:n].astype(np.int64)
+        if window > 1:
+            ids = ids // window
+        ids = np.clip(ids, 0, k_num - 1)
+        gid = ids if gid is None else gid * k_num + ids
+        num *= k_num
+    ids = gid[mask]
+    v = cols[value][:n][mask].astype(np.float64)
+    cnt = np.bincount(ids, minlength=num).astype(np.float64)
+    if agg in ("max", "min"):
+        acc = np.full(num, -np.inf if agg == "max" else np.inf)
+        (np.maximum if agg == "max" else np.minimum).at(acc, ids, v)
+        return acc, cnt, np.abs(acc)
+    if v.ndim == 1:
+        acc = np.bincount(ids, weights=v, minlength=num)
+        scale = np.bincount(ids, weights=np.abs(v), minlength=num)
+    else:
+        acc = np.stack([np.bincount(ids, weights=v[:, d], minlength=num)
+                        for d in range(v.shape[1])], 1)
+        scale = np.stack([np.bincount(ids, weights=np.abs(v[:, d]),
+                                      minlength=num)
+                          for d in range(v.shape[1])], 1)
+    return acc, cnt, scale
+
+
+def host_partial(part):
+    """A partial ``{acc, cnt}`` as host float64 arrays."""
+    return (part["acc"].double().cpu().numpy(),
+            part["cnt"].double().cpu().numpy())
+
+
+def check_partial(what, got, want, agg, slack, exact_sums=False):
+    """Max abs error of the partial ``got`` against ``want`` (host
+    ``(acc, cnt)`` pairs); raise unless counts, max/min and integer sums
+    are equal and float sums lie within ``slack`` (elementwise)."""
+    (g_acc, g_cnt), (w_acc, w_cnt) = got, want
+    if not np.array_equal(g_cnt, w_cnt):
+        raise AssertionError(f"{what}: counts differ by "
+                             f"{np.abs(g_cnt - w_cnt).max()}")
+    finite = np.isfinite(w_acc)
+    if not np.array_equal(np.isfinite(g_acc), finite):
+        raise AssertionError(f"{what}: sentinels differ")
+    diff = np.abs(g_acc[finite] - w_acc[finite])
+    err = float(diff.max(initial=0.0))
+    if agg in ("max", "min") or exact_sums:
+        if not np.array_equal(g_acc, w_acc):
+            raise AssertionError(f"{what}: {agg} must be exact; max error "
+                                 f"{err}")
+        return err
+    if not np.all(diff <= slack[finite]):
+        worst = float((diff / slack[finite]).max())
+        raise AssertionError(f"{what}: {agg} off by {worst:.3g}x its "
+                             f"tolerance (max error {err})")
+    return err
+
+
+def plain64(K, cols, n, fvals, spec):
+    """K1's plain version on the same inputs, the value column in
+    float64, so its sums carry no float32 rounding."""
+    return K.fused_segment_agg_ref(
+        {**cols, spec.value: cols[spec.value][:n].double()}, n, fvals, spec)
+
+
+def hold(name, kernel, plain, oracle_out, agg, exact_sums=False):
+    """The kernel's partial against its plain version in float64 and
+    against the float64 numpy oracle, each within FLOAT_TOL of the
+    group's sum of magnitudes. Returns the max abs errors."""
+    acc, cnt, scale = oracle_out
+    k, p = host_partial(kernel), host_partial(plain)
+    tol = FLOAT_TOL * scale + 1e-6
+    return {
+        "vs_plain": check_partial(f"{name}: kernel vs plain", k, p, agg,
+                                  tol, exact_sums),
+        "vs_f64": check_partial(f"{name}: kernel vs float64", k,
+                                (acc, cnt), agg, tol, exact_sums),
+    }
+
+
+def partial_bytes(cols, n, kept, spec) -> int:
+    """Least bytes one aggregation must move: the filter columns of
+    every live row, the key and value columns of the rows that pass
+    (rows the filter drops need no key or value), the accumulators out."""
+    fcols = {c for c, _, _ in spec.filters}
+    total = 0
+    for name in spec.columns():
+        col = cols[name]
+        row = col.element_size() * (col.shape[1] if col.ndim == 2 else 1)
+        total += row * (n if name in fcols else kept)
+    width = cols[spec.value].shape[1] if cols[spec.value].ndim == 2 else 1
+    return total + spec.num_groups * (width + 1) * 4
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device():
+    smi = nvidia_smi()
+    props = torch.cuda.get_device_properties(0)
+    emit("device", name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), sms=props.multi_processor_count,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         nvidia_smi=smi)
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    _, secs = timed(lambda: build.load("warehouse_agg"))
+    ptxas = {n: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "Compiling entry" in ln]
+             for n, log in build.BUILD_LOG.items()}
+    emit("build", seconds=secs, ptxas=ptxas)
+
+
+def _kernel_cols(n, dev, seed=0, D=9):
+    rng = np.random.default_rng(seed)
+    host = {
+        "stream_id": rng.integers(0, 256, n).astype(np.int32),
+        "t": np.sort(rng.integers(0, 43_200, n)).astype(np.int32),
+        "category": rng.integers(0, 4, n).astype(np.int32),
+        "k": rng.integers(0, D, n).astype(np.int32),
+        "quality": rng.random(n).astype(np.float32),
+        "on_core_s": (rng.random(n) * 20 - 5).astype(np.float32),
+        "buffer_s": (rng.random(n) * 600).astype(np.float32),
+        "out": rng.random((n, D)).astype(np.float32),
+    }
+    return host, {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+
+
+def _kernel_cases():
+    from repro_torch.warehouse import Filter, GroupBy, MultiGroupBy, WindowAgg
+    aggs = ("sum", "mean", "count", "max", "min")
+    for agg in aggs:
+        yield (Filter("quality", "ge", 0.3),
+               GroupBy("category", "on_core_s", agg=agg, num_groups=4))
+        yield (Filter("stream_id", "lt", 99.5), Filter("k", "ne", 3),
+               GroupBy("stream_id", "buffer_s", agg=agg, num_groups=256))
+        yield (WindowAgg(window=150, value="quality", agg=agg,
+                         num_windows=288),)
+        # 73,728 groups: global-memory accumulators
+        yield (Filter("quality", "ge", 0.1),
+               MultiGroupBy(keys=("stream_id", "t"), value="on_core_s",
+                            agg=agg, nums=(256, 288), windows=(0, 150)))
+    for agg in ("sum", "mean", "count"):
+        yield (Filter("k", "le", 6),
+               MultiGroupBy(keys=("t", "category"), value="out", agg=agg,
+                            nums=(288, 4), windows=(150, 0)))
+        # 8,640 groups of 9 lanes: global-memory accumulators
+        yield (MultiGroupBy(keys=("t", "category"), value="out", agg=agg,
+                            nums=(2160, 4), windows=(20, 0)),)
+    yield (GroupBy("category", "k", agg="sum", num_groups=4),)   # integer
+    for v in (-2.0 ** 31 - 0.7, -0.5, 0.0, 6.999, 2.0 ** 31,
+              float("-inf"), float("inf")):
+        for op in ("lt", "ge", "eq", "ne"):
+            yield (Filter("k", op, v),
+                   GroupBy("category", "quality", agg="count",
+                           num_groups=4))
+
+
+def _width(cols, spec) -> int:
+    v = cols[spec.value]
+    return int(v.shape[1]) if v.ndim == 2 else 0
+
+
+def _spec_of(plan, cols):
+    """K1's spec, the hoisted filter operands and the Filter nodes of
+    an aggregating plan."""
+    from repro_torch.warehouse import Filter
+    from repro_torch.warehouse import query as Q
+    spec, fvals = Q.normalize(plan)
+    pre, node, _ = Q.split_plan(spec)
+    aspec = Q._kernel_spec(pre, node, cols)
+    if aspec is None:
+        raise AssertionError(f"no kernel spec for {plan!r}")
+    return aspec, fvals, [nd for nd in plan if isinstance(nd, Filter)]
+
+
+def phase_kernel(dev):
+    """K1 vs its plain version (and a float64 oracle) at 1M rows."""
+    from repro_torch.kernels import warehouse_agg as K
+    host, cols = _kernel_cols(KERNEL_ROWS, dev)
+    worst = {"vs_plain": 0.0, "vs_f64": 0.0}
+    cases, modes = 0, {"shared": 0, "global": 0}
+    for n in (KERNEL_ROWS, KERNEL_ROWS - 12_345, 0):
+        for plan in _kernel_cases():
+            spec, fvals, filters = _spec_of(plan, cols)
+            got = K.fused_segment_agg(cols, n, fvals, spec)
+            plain = plain64(K, cols, n, fvals, spec)
+            modes[K.accumulator_mode(spec, _width(cols, spec))] += 1
+            errs = hold(f"{plan!r} n={n}", got, plain,
+                        oracle(host, n, filters, spec.keys, spec.value,
+                               spec.agg),
+                        spec.agg, exact_sums=spec.value == "k")
+            worst = {k: max(v, errs[k]) for k, v in worst.items()}
+            cases += 1
+    emit("kernel", rows=KERNEL_ROWS, cases=cases, modes=modes,
+         launches=K.LAUNCHES, max_abs_err=worst)
+    return worst
+
+
+def main_plans(store):
+    from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy, TopK,
+                                       WindowAgg, windows_for)
+    nw = windows_for(store, 150)
+    return {
+        # README: the worst five 5-minute windows by mean quality
+        "window_topk": (Filter("quality", "ge", 0.6),
+                        WindowAgg(window=150, value="quality", agg="mean",
+                                  num_windows=nw),
+                        TopK(5, by="quality", largest=False)),
+        # README standing query: mean quality per content category
+        "category_mean": (Filter("quality", "ge", 0.6),
+                          GroupBy("category", "quality", agg="mean",
+                                  num_groups=4)),
+        # window x category over the (T, D) measured-quality vectors
+        "window_x_category": (MultiGroupBy(keys=("t", "category"),
+                                           value="out", agg="mean",
+                                           nums=(nw, 4), windows=(150, 0)),),
+        # the peak buffer fill of every camera
+        "camera_buffer_peak": (GroupBy("stream_id", "buffer_s", agg="max",
+                                       num_groups=CAMERAS),),
+        # camera x 5-minute window mean quality, a per-camera heatmap:
+        # 73,728 groups, past shared memory
+        "camera_x_window": (MultiGroupBy(keys=("stream_id", "t"),
+                                         value="quality", agg="mean",
+                                         nums=(CAMERAS, nw),
+                                         windows=(0, 150)),),
+    }
+
+
+def plan_modes(store):
+    """K1's accumulator mode for each main-path plan."""
+    from repro_torch.kernels import warehouse_agg as K
+    modes = {}
+    for name, plan in main_plans(store).items():
+        spec, _, _ = _spec_of(plan, store.columns)
+        modes[name] = K.accumulator_mode(spec, _width(store.columns, spec))
+    return modes
+
+
+def phase_main(dev):
+    """The main path, counted: returns what the checks need."""
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.core.ingest import run_skyscraper_fused
+    from repro_torch.core.offline import fit
+    from repro_torch.data.stream import generate
+    from repro_torch.kernels import warehouse_agg as K
+    from repro_torch.warehouse import SegmentStore
+    from repro_torch.warehouse import query as Q
+
+    K.LAUNCHES = 0
+    Q.PATHS.update(kernel=0, engine=0)
+    torch.cuda.reset_peak_memory_stats()
+    fitted, fit_s = timed(lambda: fit(COVID, n_cores=8, days_unlabeled=2.0,
+                                      device=dev))
+    stream = generate(COVID, days=RUN_DAYS, seed=99)
+    store = SegmentStore(out_dim=len(fitted.configs), device=dev)
+    kw = dict(n_cores=8, cloud_budget_core_s=15_000.0)
+    res, run_s = timed(lambda: run_skyscraper_fused(
+        fitted, stream, sink=store, device=dev, **kw))
+    T = stream.n_segments
+
+    def fill():
+        # cameras 1..255: camera 0's day, each on a clock rotated by
+        # ROTATE segments more, landed as that camera's fused run
+        day = {k: v[:T].clone() for k, v in store.columns.items()}
+        for cam in range(1, CAMERAS):
+            r = cam * ROTATE
+            traces = {src: day[dst].roll(r) for src, dst in
+                      (("c", "category"), ("k", "k"), ("qual", "quality"),
+                       ("on_s", "on_core_s"), ("cl_s", "cloud_core_s"),
+                       ("buffer_s", "buffer_s"))}
+            store.ingest_fused(traces, day["out"].roll(r, 0),
+                               stream_id=cam)
+
+    _, fill_s = timed(fill)
+    results, query_s = {}, {}
+    for name, plan in main_plans(store).items():
+        results[name], query_s[name] = timed(lambda p=plan: store.query(p))
+    launches, paths = K.LAUNCHES, dict(Q.PATHS)
+    peak = torch.cuda.max_memory_allocated()
+    modes = plan_modes(store)
+    emit("main", segments=T, rows=store.n_rows, capacity=store.capacity,
+         fit_s=fit_s, fused_run_s=run_s, fill_s=fill_s, query_s=query_s,
+         launches=launches, paths=paths, modes=modes, peak_mem_bytes=peak,
+         quality_pct=res.quality_pct, cloud_core_s=res.cloud_core_s,
+         forecast_val_mse=fitted.forecast_metrics["val_mse"])
+    if launches == 0:
+        raise AssertionError("the main path launched no kernel")
+    if paths != {"kernel": len(results), "engine": 0} \
+            or launches != paths["kernel"]:
+        raise AssertionError(f"main-path queries did not all take the "
+                             f"kernel: paths={paths} launches={launches}")
+    if set(modes.values()) != {"shared", "global"}:
+        raise AssertionError(f"the main path must run both accumulator "
+                             f"modes: {modes}")
+    if store.n_rows != CAMERAS * T:
+        raise AssertionError(f"store holds {store.n_rows} rows")
+    return dict(fitted=fitted, stream=stream, store=store, res=res, kw=kw,
+                results=results, launches=launches)
+
+
+def phase_check(m):
+    from repro_torch.core.ingest import run_skyscraper_fused
+    from repro_torch.kernels import warehouse_agg as K
+
+    # --- the card's run against the port's own CPU run ------------------
+    res = m["res"]
+    cpu, cpu_s = timed(lambda: run_skyscraper_fused(
+        m["fitted"].to("cpu"), m["stream"], device="cpu", **m["kw"]))
+    if not (np.array_equal(res.k_trace, cpu.k_trace)
+            and np.array_equal(res.c_trace, cpu.c_trace)):
+        raise AssertionError(
+            f"k/c traces differ from the CPU run at "
+            f"{int(np.sum(res.k_trace != cpu.k_trace))} steps")
+    run_err = 0.0
+    for a, b in [(res.buffer_trace, cpu.buffer_trace)] + \
+            [(x, y) for p, q in zip(res.plans, cpu.plans)
+             for x, y in zip(p, q)]:
+        run_err = max(run_err, float(np.abs(a - b).max()))
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    for key in ("quality_sum", "onprem_core_s", "cloud_core_s",
+                "buffer_peak_s"):
+        np.testing.assert_allclose(getattr(res, key), getattr(cpu, key),
+                                   rtol=1e-5)
+
+    # --- the store's rows --------------------------------------------------
+    store = m["store"]
+    host = store.host_rows()
+    T = m["stream"].n_segments
+    if not (np.array_equal(host["k"][:T], res.k_trace)
+            and np.array_equal(host["category"][:T], res.c_trace)
+            and np.array_equal(host["stream_id"][T:2 * T], np.ones(T))):
+        raise AssertionError("the store's rows are not the run's")
+
+    # --- every main-path query: kernel vs engine path vs float64 -----------
+    errs = {}
+    cols = store.columns
+    for name, plan in main_plans(store).items():
+        table, mask = m["results"][name]
+        spec, fvals, filters = _spec_of(plan, cols)
+        eng, emask = store.query(plan, use_kernel=False)
+        if not torch.equal(mask.cpu(), emask.cpu()):
+            raise AssertionError(f"{name}: masks differ from the engine")
+        for t in (table, eng):
+            for col, x in t.items():
+                if not bool(torch.isfinite(x.float()).all()):
+                    raise AssertionError(f"{name}: non-finite {col}")
+        # the wrapper against its plain version at this query's shape
+        got = K.fused_segment_agg(cols, store.n_rows, fvals, spec)
+        plain = plain64(K, cols, store.n_rows, fvals, spec)
+        acc, cnt, scale = oracle(host, store.n_rows, filters, spec.keys,
+                                 spec.value, spec.agg)
+        errs[name] = {**hold(name, got, plain, (acc, cnt, scale),
+                             spec.agg),
+                      "groups": spec.num_groups,
+                      "kept_rows": int(cnt.sum())}
+        if name == "window_topk":
+            k = len(table["window"])
+            if k != 5 or not bool(mask.all()):
+                raise AssertionError("window_topk must give 5 windows")
+            full = (cnt > 0)
+            means = np.where(full, acc / np.maximum(cnt, 1), np.inf)
+            worst5 = np.sort(means)[:5]
+            np.testing.assert_allclose(
+                np.sort(table["quality"].double().cpu().numpy()), worst5,
+                rtol=FLOAT_TOL)
+    emit("check", cpu_run_s=cpu_s, run_max_abs_err=run_err,
+         traces_equal=True, queries=errs)
+    return errs
+
+
+def _library_call(cols, n, spec, fvals):
+    """One PyTorch call computing the same masked group aggregate, on
+    group ids and masked values prepared beforehand (the yardstick)."""
+    from repro_torch.kernels import warehouse_agg as K
+    mask = torch.ones(n, dtype=torch.bool, device=cols["t"].device)
+    for col, op, idx in spec.filters:
+        mask &= K.filter_pred(cols[col][:n], op, idx, fvals)
+    ids = K.group_ids(cols, n, spec.keys)
+    v = cols[spec.value][:n].float()
+    num = spec.num_groups
+    if spec.agg in ("max", "min"):
+        fill = float("-inf") if spec.agg == "max" else float("inf")
+        vals = torch.where(mask, v, fill)
+        acc = torch.full((num,), fill, device=v.device)
+        red = "amax" if spec.agg == "max" else "amin"
+        return lambda: acc.scatter_reduce_(0, ids, vals, red)
+    vals = torch.where(mask if v.ndim == 1 else mask[:, None], v, 0.0)
+    acc = torch.zeros((num,) + tuple(v.shape[1:]), device=v.device)
+    return lambda: acc.index_add_(0, ids, vals)
+
+
+def phase_time(m, errs):
+    from repro_torch.kernels import warehouse_agg as K
+    store = m["store"]
+    cols, n = store.columns, store.n_rows
+    per = {}
+    for name, plan in main_plans(store).items():
+        spec, fvals, _ = _spec_of(plan, cols)
+        kernel_ms = cuda_ms(lambda: K.fused_segment_agg(cols, n, fvals,
+                                                        spec), 20)
+        plain_ms = cuda_ms(lambda: K.fused_segment_agg_ref(cols, n, fvals,
+                                                           spec), 5)
+        library_ms = cuda_ms(_library_call(cols, n, spec, fvals), 10)
+        nbytes = partial_bytes(cols, n, errs[name]["kept_rows"], spec)
+        per[name] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "groups": spec.num_groups, "agg": spec.agg,
+                     "mode": K.accumulator_mode(spec, _width(cols, spec))}
+    emit("time", rows=n, queries=per)
+    return per
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    smi = phase_device()
+    phase_build()
+    kernel_err = phase_kernel(dev)
+    m = phase_main(dev)
+    errs = phase_check(m)
+    per = phase_time(m, errs)
+    tot = {k: sum(q[k] for q in per.values())
+           for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    max_err = max([kernel_err["vs_plain"]]
+                  + [e["vs_plain"] for e in errs.values()])
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "fused_segment_agg",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/warehouse_agg.cu",
+        "replaces": "src/repro/kernels/warehouse_agg.py:192",
+        "launches": m["launches"],
+        "max_abs_err": max_err,
+        "ms": tot["kernel_ms"],
+        "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": tot["library_ms"],
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,198 @@
+"""Online video ingestion (paper §4): the single-stream fused run.
+
+Port of ``repro/core/ingest.py``'s ``run_skyscraper_fused``. The
+reference compiles the whole run into one program (an outer
+``lax.scan`` over planning windows); here it is a Python loop over
+windows whose body is the same three steps — forecast the category
+mix, solve the window-rationed LP, run the switcher over the window —
+as tensor ops on one device. Nothing is read back to the host inside
+the loop, so on the card the host only enqueues work until the traces
+are copied out at the end.
+
+Tensor division below always divides by a tensor on the same device,
+never by a Python number: CUDA divides a tensor by a CPU scalar through
+a multiplication by its reciprocal, which rounds differently from the
+CPU and from the reference.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.forecaster import forecast_from_labels
+from repro_torch.core.knobs import quality as qfn
+from repro_torch.core.offline import Fitted
+from repro_torch.core.planner import solve_lp_rationed
+from repro_torch.core.switcher import init_state, window_scan
+from repro_torch.data.stream import Stream
+from repro_torch.device import resolve
+
+CLOUD_PREMIUM = 1.8      # App. L
+
+
+@dataclass
+class RunResult:
+    """Aggregate outcome of one simulated stream run: quality sums,
+    core-seconds by tier, buffer peak/overflow, and the config-choice
+    histogram/trace the ablation tables report."""
+    quality_sum: float
+    quality_max_sum: float
+    onprem_core_s: float
+    cloud_core_s: float
+    buffer_peak_s: float
+    overflow: bool
+    k_hist: np.ndarray
+    c_trace: np.ndarray = None
+    k_trace: np.ndarray = None
+    buffer_trace: np.ndarray = None
+    plans: List = field(default_factory=list)
+
+    @property
+    def quality_pct(self) -> float:
+        return 100.0 * self.quality_sum / max(self.quality_max_sum, 1e-9)
+
+    @property
+    def work_core_s(self) -> float:
+        return self.onprem_core_s + self.cloud_core_s
+
+
+def _max_quality(stream: Stream, power: np.ndarray) -> np.ndarray:
+    return qfn(power.max(), stream.difficulty)
+
+
+def _assemble_result(cat: Dict[str, np.ndarray], qmax: np.ndarray, K: int,
+                     plans: List) -> RunResult:
+    """RunResult from a flattened host trace dict (numpy, as the
+    reference assembles it)."""
+    return RunResult(
+        quality_sum=float(cat["qual"].sum()),
+        quality_max_sum=float(qmax.sum()),
+        onprem_core_s=float(cat["on_s"].sum()),
+        cloud_core_s=float(cat["cl_s"].sum()),
+        buffer_peak_s=float(cat["buffer_s"].max()),
+        overflow=False,
+        k_hist=np.bincount(cat["k"], minlength=K),
+        c_trace=cat["c"], k_trace=cat["k"], buffer_trace=cat["buffer_s"],
+        plans=plans)
+
+
+def _oracle_rate(q_w, centers, valid, w_tf):
+    """Nearest-center labels over a window -> valid-masked category
+    rate (W,K) quals vs (C,K) centers -> (C,). The squared distance is
+    summed over K in index order, one add per config, so it rounds the
+    same on every device."""
+    diff = q_w[:, None, :] - centers[None]
+    sq = diff * diff
+    d = sq[..., 0]
+    for k in range(1, sq.shape[-1]):
+        d = d + sq[..., k]
+    oh = torch.nn.functional.one_hot(torch.argmin(d, dim=-1),
+                                     centers.shape[0]).to(torch.float32)
+    return (oh * valid[:, None]).sum(0) / w_tf
+
+
+def _window_layout(T: int, W: int):
+    """Split a T-segment run into ceil(T/W) fixed-length windows: padded
+    layout plus per-window real lengths and cloud rations."""
+    n_w = -(-T // W)
+    pad = n_w * W - T
+    starts = np.arange(n_w) * W
+    wts = np.minimum(W, T - starts).astype(np.int32)
+    fracs = (wts / (T - starts)).astype(np.float32)
+    return n_w, pad, wts, fracs
+
+
+def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
+                         cloud_budget_core_s: float = 0.0,
+                         buffer_gb: float = 4.0,
+                         plan_days: Optional[float] = None,
+                         forecast_mode: str = "model",
+                         seed: int = 0, sink=None, sink_stream_id: int = 0,
+                         sink_t0: int = 0, device=None) -> RunResult:
+    """Run ``stream`` through forecast -> LP -> switcher, one planning
+    window at a time, on ``device`` (``None`` means CUDA). Modes:
+    ``model`` (the forecaster on the rolling label buffer; uniform until
+    the first window has run), ``oracle`` (the window's true category
+    mix) and ``uniform``.
+
+    ``sink``: an optional ``warehouse.SegmentStore`` on the same device.
+    The stacked (n_w, W) traces and the (T, K) measured-quality vectors
+    go to ``sink.ingest_fused`` without leaving the device."""
+    dev = resolve(device)
+    if fitted.device != dev:
+        fitted = fitted.to(dev)
+    if forecast_mode not in ("model", "oracle", "uniform"):
+        raise ValueError(f"unknown forecast_mode {forecast_mode!r}")
+    w = fitted.workload
+    tau = w.segment_seconds
+    plan_days = plan_days or fitted.horizon_segments * tau / 86400
+    W = max(1, int(plan_days * 86400 / tau))
+    tables = fitted.tables(buffer_gb=buffer_gb,
+                           cloud_budget=cloud_budget_core_s)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    quals = f32(stream.quality(fitted.power, seed=seed).astype(np.float32))
+    arrivals = f32(stream.arrival.astype(np.float32))
+    T = stream.n_segments
+    C, K = fitted.centers.shape
+    n_w, pad, wts, fracs = _window_layout(T, W)
+    quals_w = torch.nn.functional.pad(quals, (0, 0, 0, pad)).reshape(n_w, W,
+                                                                     K)
+    arrs_w = torch.nn.functional.pad(arrivals, (0, pad),
+                                     value=1.0).reshape(n_w, W)
+    valid_w = (torch.arange(n_w * W, device=dev) < T).reshape(n_w, W)
+    need = fitted.interval_segments * fitted.n_split
+    buf = torch.zeros((need,), dtype=torch.int64, device=dev)
+    uniform = torch.full((C,), 1.0 / C, dtype=torch.float32, device=dev)
+    core_s, budget = f32(n_cores * tau), f32(cloud_budget_core_s)
+    premium = f32(CLOUD_PREMIUM)
+    state = init_state(tables)
+    n_seen = 0
+    outs_w, rs, alphas = [], [], []
+    for i in range(n_w):
+        w_t = int(wts[i])
+        w_tf = f32(float(w_t))
+        # ---- forecast r (category distribution over the window) -------
+        if forecast_mode == "oracle":
+            r = _oracle_rate(quals_w[i], tables.centers, valid_w[i], w_tf)
+        elif forecast_mode == "model" and n_seen > 0:
+            r = forecast_from_labels(fitted.forecaster, buf, C,
+                                     n_split=fitted.n_split,
+                                     interval=fitted.interval_segments)
+        else:
+            r = uniform
+        # ---- plan: cloud ration computed from the carried spend -------
+        alpha = solve_lp_rationed(
+            tables.centers, tables.cost, r, core_s_per_segment=core_s,
+            cloud_left=budget - state["cloud_spent"], frac=f32(fracs[i]),
+            window_len=w_tf, cloud_premium=premium)
+        # ---- reactive switching over the window -----------------------
+        state, outs = window_scan(state, quals_w[i], arrs_w[i], valid_w[i],
+                                  alpha, tables)
+        # ---- roll the W_t real labels into the history buffer ---------
+        if forecast_mode == "model":
+            buf = torch.cat([buf, outs["c"]])[w_t:w_t + need]
+        n_seen += w_t
+        outs_w.append(outs)
+        rs.append(r)
+        alphas.append(alpha)
+    stacked = {k: torch.stack([o[k] for o in outs_w]) for k in outs_w[0]}
+    if sink is not None:
+        # Load: the (n_w, W) traces and the (T, K) quality vectors stay on
+        # the device on their way into the store
+        sink.ingest_fused(stacked, quals, stream_id=sink_stream_id,
+                          t0=sink_t0)
+    # un-window: padding only ever sits at the very end
+    cat = {k: v.reshape((n_w * W,) + v.shape[2:])[:T].cpu().numpy()
+           for k, v in stacked.items()}
+    for k in ("k", "p", "c"):
+        cat[k] = cat[k].astype(np.int32)
+    rs = torch.stack(rs).cpu().numpy()
+    alphas = torch.stack(alphas).cpu().numpy()
+    return _assemble_result(cat, _max_quality(stream, fitted.power), K,
+                            [(rs[i], alphas[i]) for i in range(n_w)])

@@ -1,0 +1,158 @@
+"""Knob switcher (paper §4.2): the reactive per-segment decision.
+
+Port of ``repro/core/switcher.py``. Per segment:
+ 1. classify current content from the running config's reported quality
+    (Eq. 5 — one KMeans dimension);
+ 2. pick the config with the largest planned-minus-actual usage deficit
+    (Eq. 6);
+ 3. pick the cheapest placement that cannot overflow the buffer,
+    degrading to less-qualitative configs if necessary (a masked argmin),
+    and drop the segment when nothing fits at all.
+
+The reference's ``lax.scan`` over a window becomes a Python loop of
+tensor ops (``window_scan``). Every index into a table goes through
+``index_select`` on a one-element tensor, never through ``tensor[t]``
+with a 0-d tensor, which would read the index back to the host: one
+window runs on the card without a single synchronisation. The decision
+uses only elementwise IEEE operations, comparisons and first-index
+argmin/argmax (as ``jnp.argmin``/``jnp.argmax``), so it is bit-exact
+with the reference and does not depend on the device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+
+BIG = 10 ** 6
+
+
+@dataclass
+class SwitchTables:
+    """Lookup tables the switcher steps against, all tensors on one
+    device (the reference's python-float scalars are 0-d float32
+    tensors here, rounded to float32 as ``jnp.asarray`` rounds them)."""
+    centers: torch.Tensor      # (C, K) mean quality of config k on category c
+    power: torch.Tensor        # (K,)
+    cost: torch.Tensor         # (K,) all-on-prem core-s / segment
+    place_rt: torch.Tensor     # (K, P) wall seconds / segment
+    place_on: torch.Tensor     # (K, P) on-prem core-s
+    place_cl: torch.Tensor     # (K, P) cloud core-s
+    place_valid: torch.Tensor  # (K, P) bool
+    rank_pos: torch.Tensor     # (K,) int64, 0 = most qualitative
+    tau: torch.Tensor          # () segment seconds
+    buffer_cap_s: torch.Tensor  # () buffer size in seconds of video
+    cloud_budget: torch.Tensor  # () total cloud core-s for the run
+
+    @property
+    def n_categories(self):
+        return self.centers.shape[0]
+
+    @property
+    def n_configs(self):
+        return self.centers.shape[1]
+
+
+def init_state(tables: SwitchTables) -> Dict[str, torch.Tensor]:
+    """Fresh switcher state (usage stats, buffer, cloud spend, current
+    config = most qualitative) on the tables' device."""
+    C, K = tables.centers.shape
+    dev = tables.centers.device
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    return {
+        "used": torch.zeros((C, K), dtype=torch.float32, device=dev),
+        "count": torch.zeros((C,), dtype=torch.float32, device=dev),
+        "buffer_s": f32(0.0),
+        "cloud_spent": f32(0.0),
+        "k_cur": torch.argmin(tables.rank_pos),
+        "qual_prev": f32(1.0),
+    }
+
+
+def _at(x: torch.Tensor, i: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``x`` indexed at the 0-d index tensor ``i`` along ``dim``, on the
+    device (no host read of ``i``)."""
+    return torch.index_select(x, dim, i.reshape(1)).squeeze(dim)
+
+
+def _switch(state, qual_row, arrival, alpha, tables: SwitchTables):
+    """One knob-switching decision; returns (new state, outputs) as new
+    tensors (``state`` is not modified)."""
+    tau, cap = tables.tau, tables.buffer_cap_s
+    # 1. classify from previous segment's reported quality (Eq. 5)
+    col = _at(tables.centers, state["k_cur"], dim=1)
+    c = torch.argmin(torch.abs(col - state["qual_prev"]))
+    # 2. usage-deficit pick (Eq. 6)
+    frac = _at(state["used"], c) / torch.clamp_min(_at(state["count"], c),
+                                                   1.0)
+    k_next = torch.argmax(_at(alpha, c) - frac)
+    # 3. placement feasibility
+    rt_eff = tables.place_rt * arrival
+    cl_eff = tables.place_cl * arrival
+    headroom = tau + (cap - state["buffer_s"])
+    feas = (tables.place_valid
+            & (rt_eff <= headroom)
+            & (state["cloud_spent"] + cl_eff <= tables.cloud_budget))
+    feas_k = feas.any(1)
+    cl_masked = torch.where(feas, tables.place_cl, float("inf"))
+    p_best = torch.argmin(cl_masked, dim=1)                      # (K,)
+    eligible = tables.rank_pos >= _at(tables.rank_pos, k_next)
+    cand = feas_k & eligible
+    pos1 = torch.where(cand, tables.rank_pos, BIG)
+    pos2 = torch.where(feas_k, tables.rank_pos, BIG)
+    k_sel = torch.where(cand.any(), torch.argmin(pos1), torch.argmin(pos2))
+    p_sel = _at(p_best, k_sel)
+    # overload shedding: if NO config/placement fits, drop the segment
+    any_feas = feas_k.any()
+    flat = k_sel * tables.place_rt.shape[1] + p_sel
+    rt = torch.where(any_feas, _at(rt_eff.reshape(-1), flat), 0.0)
+    on_s = torch.where(any_feas,
+                       _at(tables.place_on.reshape(-1), flat) * arrival, 0.0)
+    cl_s = torch.where(any_feas, _at(cl_eff.reshape(-1), flat), 0.0)
+    qual = torch.where(any_feas, _at(qual_row, k_sel), 0.0)
+    one = torch.ones((), dtype=torch.float32, device=qual.device)
+    new_state = {
+        "used": state["used"].index_put((c, k_sel), one, accumulate=True),
+        "count": state["count"].index_put((c,), one, accumulate=True),
+        "buffer_s": torch.clamp_min(state["buffer_s"] + rt - tau, 0.0),
+        "cloud_spent": state["cloud_spent"] + cl_s,
+        "k_cur": k_sel,
+        "qual_prev": qual,
+    }
+    out = {"k": k_sel, "p": p_sel, "c": c, "qual": qual, "on_s": on_s,
+           "cl_s": cl_s, "buffer_s": new_state["buffer_s"], "rt": rt,
+           "dropped": ~any_feas}
+    return new_state, out
+
+
+def _masked_switch(state, qual_row, arrival, valid, alpha,
+                   tables: SwitchTables):
+    """``_switch``, but a ``valid=False`` step is an exact no-op: state is
+    untouched and every output is zeroed (padding segments contribute
+    nothing to quality, work, or buffer)."""
+    new_state, out = _switch(state, qual_row, arrival, alpha, tables)
+    new_state = {k: torch.where(valid, new_state[k], state[k])
+                 for k in new_state}
+    zero = {"k": 0, "p": 0, "c": 0, "qual": 0.0, "on_s": 0.0, "cl_s": 0.0,
+            "buffer_s": state["buffer_s"], "rt": 0.0, "dropped": False}
+    out = {k: torch.where(valid, o, zero[k]) for k, o in out.items()}
+    return new_state, out
+
+
+def window_scan(state, quals, arrivals, valid, alpha, tables: SwitchTables):
+    """The masked switch over one planning window, as a loop: quals
+    (W,K), arrivals (W,), valid (W,) bool. Returns (final state, outs)
+    with (W,) output leaves — the reference's ``lax.scan`` ys."""
+    outs = {k: [] for k in ("k", "p", "c", "qual", "on_s", "cl_s",
+                            "buffer_s", "rt", "dropped")}
+    for i in range(quals.shape[0]):
+        state, out = _masked_switch(state, quals[i], arrivals[i], valid[i],
+                                    alpha, tables)
+        for k, v in out.items():
+            outs[k].append(v)
+    return state, {k: torch.stack(v) for k, v in outs.items()}
+

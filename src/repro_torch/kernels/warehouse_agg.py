@@ -1,0 +1,357 @@
+"""Fused filter + group + aggregate over the store's columns (kernel K1).
+
+``fused_segment_agg`` is the port of ``repro/kernels/warehouse_agg.py``'s
+Pallas kernel: ONE pass over the live rows that evaluates the plan's
+filter mask and fused multi-key group id in registers and accumulates
+``{"acc", "cnt"}`` partials — the query engine's partial convention,
+with ∓inf sentinels for max/min, so ``query._seg_finalize`` applies
+unchanged.
+
+On a CUDA tensor the wrapper launches the hand-written Hopper kernel
+``csrc/warehouse_agg.cu`` (built with nvcc at first use, bound through
+ctypes) or raises; it never falls back. The kernel keeps a block's
+accumulators in shared memory when one copy fits there and in global
+memory otherwise, so any group count up to ``GLOBAL_LIMIT`` runs on it. On a CPU tensor it runs the
+plain version ``fused_segment_agg_ref``, built from ``int_pred`` and
+``index_add_``/``scatter_reduce_``. ``LAUNCHES`` counts kernel launches.
+
+Exactness (the reference's contract): count, max, min and integer-valued
+sums are exact on both paths. The plain version's sums add in row order
+(on the CPU) and match the reference's numpy mirror bit for bit; the
+kernel's shared atomics reorder additions within a block, so its float
+sums and means match to float32 rounding of the reordered sum
+(``chip_smoke.py`` holds them within 1e-4 of each group's sum of
+magnitudes of the plain version accumulated in float64). The kernel sums a few thousand rows per
+shared accumulator before a block-ordered fold, so on groups of
+millions of rows it is much closer to float64 than a row-order float32
+sum.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+CMP = {
+    "eq": lambda a, b: a == b,
+    "ne": lambda a, b: a != b,
+    "lt": lambda a, b: a < b,
+    "le": lambda a, b: a <= b,
+    "gt": lambda a, b: a > b,
+    "ge": lambda a, b: a >= b,
+}
+OPS = ("eq", "ne", "lt", "le", "gt", "ge")          # csrc op codes
+AGGS = ("sum", "mean", "count", "max", "min")       # csrc agg codes
+
+# limits of the kernel's by-value spec struct (csrc/warehouse_agg.cu);
+# MAX_FILTERS + MAX_KEYS + 1 value <= MAX_COLS, so the operand columns
+# of a spec within the first two limits always fit the third
+MAX_FILTERS, MAX_KEYS, MAX_COLS = 8, 4, 16
+# shared memory one block may take on sm_90 (227 KB), and the share the
+# wrapper aims to fill with private accumulator copies
+SMEM_LIMIT = 232_448
+SMEM_TARGET = 96 * 1024
+# accumulators past SMEM_LIMIT live in each block's own slice of the
+# partials in global memory: at most GLOBAL_LIMIT bytes for one copy
+# (keeps the kernel's int32 indices in range), and the grid shrinks so
+# that all blocks' copies take at most GLOBAL_SCRATCH bytes
+GLOBAL_LIMIT = 1 << 30
+GLOBAL_SCRATCH = 256 << 20
+THREADS = 256
+WARPS = THREADS // 32
+
+LAUNCHES = 0
+
+
+def int_pred(x: torch.Tensor, op: str, i: int, is_int: bool,
+             oob: int) -> torch.Tensor:
+    """Exact comparison of an INTEGER column ``x`` against a real
+    threshold hoisted host-side as ``(floor(v), integral?, oob)`` (see
+    ``query.normalize``). Closed-form in ``floor(v)`` with no ``±1``
+    arithmetic:
+
+        x >= v  <=>  x >= floor(v)  when v integral, else x > floor(v)
+        x >  v  <=>  x > floor(v)
+        x <= v  <=>  x <= floor(v)
+        x <  v  <=>  x < floor(v)   when v integral, else x <= floor(v)
+
+    ``oob`` (-1/0/+1) marks thresholds outside int32 (incl. ∓inf), where
+    the comparison is constant for every x. The operands are host values,
+    so the branches are taken on the host."""
+    if op not in CMP:
+        raise ValueError(f"unknown filter op {op!r}")
+    if oob != 0:
+        const = {"eq": False, "ne": True, "ge": oob < 0, "gt": oob < 0,
+                 "le": oob > 0, "lt": oob > 0}[op]
+        return torch.full(x.shape, const, dtype=torch.bool, device=x.device)
+    if op in ("eq", "ne") and not is_int:
+        return torch.full(x.shape, op == "ne", dtype=torch.bool,
+                          device=x.device)
+    if op == "ge" and not is_int:
+        op = "gt"
+    elif op == "lt" and not is_int:
+        op = "le"
+    return CMP[op](x, int(i))
+
+
+def filter_pred(x: torch.Tensor, op: str, idx: int, fvals) -> torch.Tensor:
+    """The row predicate of one hoisted filter: ``int_pred`` on integer
+    columns, the float32 comparison on float columns."""
+    vals, floors, isint, oob = fvals
+    if not x.is_floating_point():
+        return int_pred(x, op, int(floors[idx]), bool(isint[idx]),
+                        int(oob[idx]))
+    return CMP[op](x.to(torch.float32),
+                   torch.tensor(vals[idx], dtype=torch.float32))
+
+
+def group_ids(cols, n: int, keys) -> torch.Tensor:
+    """Fused int64 group ids of rows [0, n): each key cast to int32 with
+    truncation, divided (floor) by its window when > 1, clipped into
+    [0, num), and encoded ``gid * num + id``."""
+    gid = None
+    for col, num, window in keys:
+        ids = cols[col][:n].to(torch.int32)
+        if window > 1:
+            ids = torch.div(ids, window, rounding_mode="floor")
+        ids = torch.clamp(ids, 0, num - 1).long()
+        gid = ids if gid is None else gid * num + ids
+    return gid
+
+
+def masked_partial(ids, mask, v, num: int, agg: str) -> Dict:
+    """Masked segment accumulators ``{"acc", "cnt"}`` of value rows ``v``
+    (n,) or (n, D) under group ids ``ids`` and row mask ``mask``.
+    ``index_add_`` adds in row order on the CPU, so sums there are the
+    reference's row-order sums. Values accumulate in float32, or in
+    float64 when ``v`` is float64 (a wider check of the same function;
+    the store holds no float64 column)."""
+    v = v if v.dtype == torch.float64 else v.to(torch.float32)
+    dev = v.device
+    cnt = torch.zeros((num,), dtype=torch.float32, device=dev)
+    cnt.index_add_(0, ids, mask.to(torch.float32))
+    if agg in ("sum", "mean", "count"):
+        m = mask if v.ndim == 1 else mask[:, None]
+        acc = torch.zeros((num,) + tuple(v.shape[1:]), dtype=v.dtype,
+                          device=dev)
+        acc.index_add_(0, ids, torch.where(m, v, 0.0))
+        return {"acc": acc, "cnt": cnt}
+    if v.ndim != 1:
+        raise ValueError(f"agg {agg!r} needs a scalar column")
+    if agg not in ("max", "min"):
+        raise ValueError(f"unknown agg {agg!r}")
+    fill = float("-inf") if agg == "max" else float("inf")
+    acc = torch.full((num,), fill, dtype=v.dtype, device=dev)
+    acc.scatter_reduce_(0, ids, torch.where(mask, v, fill),
+                        "amax" if agg == "max" else "amin")
+    return {"acc": acc, "cnt": cnt}
+
+
+@dataclass(frozen=True)
+class FusedAggSpec:
+    """Static shape of one fused filter+group+aggregate pass — the
+    partial phase of a plan up to and including its first reducing node.
+
+    ``filters[j] = (column, op, idx)`` with ``idx`` indexing the hoisted
+    filter operands; ``keys[j] = (column, num_ids, window)`` is the fused
+    multi-key encoding (``window > 1`` divides the key column first; ids
+    clip into ``[0, num_ids)``), identical to ``query._seg_ids``."""
+    filters: Tuple[Tuple[str, str, int], ...]
+    keys: Tuple[Tuple[str, int, int], ...]
+    value: str
+    agg: str  # sum | mean | count | max | min
+
+    @property
+    def num_groups(self) -> int:
+        return math.prod(n for _, n, _ in self.keys)
+
+    def columns(self) -> Tuple[str, ...]:
+        """Operand columns, each once: filters, keys, then the value."""
+        names = []
+        for col in ([c for c, _, _ in self.filters]
+                    + [c for c, _, _ in self.keys] + [self.value]):
+            if col not in names:
+                names.append(col)
+        return tuple(names)
+
+
+def accumulator_bytes(num: int, width: int) -> int:
+    """Bytes one copy of the accumulators takes: ``num`` groups
+    of ``width`` value lanes (1 for a scalar column) plus a count."""
+    return num * (max(1, width) + 1) * 4
+
+
+def accumulator_mode(spec: FusedAggSpec, width: int) -> str:
+    """Where the kernel keeps a block's accumulators: ``"shared"`` when
+    one copy fits shared memory, else ``"global"``."""
+    return ("shared" if accumulator_bytes(spec.num_groups, width)
+            <= SMEM_LIMIT else "global")
+
+
+def check_kernel(spec: FusedAggSpec, width: int) -> None:
+    """Raise ``ValueError`` naming the limit when the kernel cannot take
+    this spec: more filters or keys than its struct holds, no key,
+    max/min over a wide column, or one accumulator copy larger than
+    ``GLOBAL_LIMIT``."""
+    nbytes = accumulator_bytes(spec.num_groups, width)
+    for bad, what in (
+            (len(spec.filters) > MAX_FILTERS,
+             f"{len(spec.filters)} filters (max {MAX_FILTERS})"),
+            (not spec.keys, "no group key (min 1)"),
+            (len(spec.keys) > MAX_KEYS,
+             f"{len(spec.keys)} keys (max {MAX_KEYS})"),
+            (width and spec.agg in ("max", "min"),
+             f"agg {spec.agg!r} on a column of width {width} (scalar only)"),
+            (nbytes > GLOBAL_LIMIT,
+             f"{nbytes} bytes of accumulators (max {GLOBAL_LIMIT})")):
+        if bad:
+            raise ValueError(f"the kernel cannot take this plan: {what}")
+
+
+def fused_segment_agg_ref(cols, n_rows: int, fvals,
+                          spec: FusedAggSpec) -> Dict:
+    """Plain PyTorch version of the kernel, on any device: the same
+    function over rows [0, n_rows), in row order."""
+    n = int(n_rows)
+    v = cols[spec.value][:n]
+    mask = torch.ones((n,), dtype=torch.bool, device=v.device)
+    for col, op, idx in spec.filters:
+        mask &= filter_pred(cols[col][:n], op, idx, fvals)
+    ids = group_ids(cols, n, spec.keys)
+    if ids is None:
+        raise ValueError("the fused aggregation needs at least one key")
+    return masked_partial(ids, mask, v, spec.num_groups, spec.agg)
+
+
+class _Spec(ctypes.Structure):
+    """ctypes mirror of ``struct AggSpec`` in csrc/warehouse_agg.cu."""
+    _fields_ = [
+        ("cols", ctypes.c_void_p * MAX_COLS),
+        ("col_is_int", ctypes.c_int * MAX_COLS),
+        ("n_filters", ctypes.c_int),
+        ("f_col", ctypes.c_int * MAX_FILTERS),
+        ("f_op", ctypes.c_int * MAX_FILTERS),
+        ("f_val", ctypes.c_float * MAX_FILTERS),
+        ("f_floor", ctypes.c_int * MAX_FILTERS),
+        ("f_isint", ctypes.c_int * MAX_FILTERS),
+        ("f_oob", ctypes.c_int * MAX_FILTERS),
+        ("n_keys", ctypes.c_int),
+        ("k_col", ctypes.c_int * MAX_KEYS),
+        ("k_num", ctypes.c_int * MAX_KEYS),
+        ("k_window", ctypes.c_int * MAX_KEYS),
+        ("v_col", ctypes.c_int),
+        ("width", ctypes.c_int),
+        ("agg", ctypes.c_int),
+        ("num", ctypes.c_int),
+        ("replicas", ctypes.c_int),
+    ("global_acc", ctypes.c_int),
+        ("n_blocks", ctypes.c_int),
+        ("n_rows", ctypes.c_longlong),
+        ("rows_per_block", ctypes.c_longlong),
+    ]
+
+
+def _lib():
+    from repro_torch.kernels import build
+    lib = build.load("warehouse_agg")
+    fn = lib.warehouse_agg
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_column(name, x, dev, n_rows, value=False):
+    if x.device != dev:
+        raise ValueError(f"column {name!r} is on {x.device}, not {dev}")
+    if x.dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"column {name!r} has dtype {x.dtype}; the kernel "
+                        "takes int32 and float32")
+    if not x.is_contiguous():
+        raise ValueError(f"column {name!r} is not contiguous")
+    if x.ndim != 1 and not (value and x.ndim == 2
+                            and x.dtype == torch.float32):
+        raise ValueError(f"column {name!r} has shape {tuple(x.shape)}")
+    if x.shape[0] < n_rows:
+        raise ValueError(f"column {name!r} holds {x.shape[0]} rows, "
+                         f"fewer than n_rows={n_rows}")
+
+
+def fused_segment_agg(cols, n_rows: int, fvals, spec: FusedAggSpec) -> Dict:
+    """Run ONE fused filter+group+aggregate pass over rows [0, n_rows)
+    of ``cols`` (the store's column dict; only the spec's operand
+    columns are read) and return the engine's partial ``{"acc", "cnt"}``.
+    ``fvals`` is ``query.normalize``'s host operand tuple ``(vals,
+    floors, isint, oob)``; ``n_rows`` is a host int, so the grid covers
+    the live rows only.
+
+    CPU columns take the plain version. CUDA columns launch the kernel
+    on the current stream, without synchronising, or raise (see
+    ``check_kernel``); accumulators that fit shared memory live there,
+    larger ones in global memory (``accumulator_mode``)."""
+    global LAUNCHES
+    v = cols[spec.value]
+    if v.device.type == "cpu":
+        return fused_segment_agg_ref(cols, n_rows, fvals, spec)
+    if v.device.type != "cuda":
+        raise ValueError(f"no kernel for device {v.device}")
+    n_rows = int(n_rows)
+    names = spec.columns()
+    width = int(v.shape[1]) if v.ndim == 2 else 0
+    check_kernel(spec, width)
+    for name in names:
+        _check_column(name, cols[name], v.device, n_rows,
+                      value=name == spec.value)
+    vals, floors, isint, oob = (np.asarray(a) for a in fvals)
+    num = spec.num_groups
+    lanes = max(1, width)
+    slot = accumulator_bytes(num, width)
+    in_global = accumulator_mode(spec, width) == "global"
+    n_sm = torch.cuda.get_device_properties(v.device).multi_processor_count
+    n_blocks = max(1, min(-(-n_rows // THREADS), 2 * n_sm))
+    if in_global:
+        n_blocks = max(1, min(n_blocks, GLOBAL_SCRATCH // slot))
+
+    s = _Spec()
+    for j, name in enumerate(names):
+        s.cols[j] = cols[name].data_ptr()
+        s.col_is_int[j] = int(cols[name].dtype == torch.int32)
+    s.n_filters = len(spec.filters)
+    for j, (col, op, idx) in enumerate(spec.filters):
+        s.f_col[j] = names.index(col)
+        s.f_op[j] = OPS.index(op)
+        s.f_val[j] = float(vals[idx])
+        s.f_floor[j] = int(floors[idx])
+        s.f_isint[j] = int(bool(isint[idx]))
+        s.f_oob[j] = int(oob[idx])
+    s.n_keys = len(spec.keys)
+    for j, (col, n_ids, window) in enumerate(spec.keys):
+        s.k_col[j] = names.index(col)
+        s.k_num[j] = int(n_ids)
+        s.k_window[j] = int(window)
+    s.v_col = names.index(spec.value)
+    s.width = width
+    s.agg = AGGS.index(spec.agg)
+    s.num = num
+    s.replicas = 1 if in_global else max(1, min(WARPS, SMEM_TARGET // slot))
+    s.global_acc = int(in_global)
+    s.n_blocks = n_blocks
+    s.n_rows = n_rows
+    s.rows_per_block = max(1, -(-n_rows // n_blocks))
+
+    f32 = dict(dtype=torch.float32, device=v.device)
+    part_acc = torch.empty((n_blocks, num * lanes), **f32)
+    part_cnt = torch.empty((n_blocks, num), **f32)
+    acc = torch.empty((num, width) if width else (num,), **f32)
+    cnt = torch.empty((num,), **f32)
+    err = _lib()(ctypes.addressof(s), part_acc.data_ptr(),
+                 part_cnt.data_ptr(), acc.data_ptr(), cnt.data_ptr(),
+                 torch.cuda.current_stream(v.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warehouse_agg launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return {"acc": acc, "cnt": cnt}

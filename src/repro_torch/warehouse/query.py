@@ -1,0 +1,369 @@
+"""Queries over the warehouse (the paper's "easy to query").
+
+Port of ``repro/warehouse/query.py`` for one store on one device. A
+query is a tuple of plan nodes applied left to right:
+
+    Filter(column, op, value)   row predicate; ANDed into the row mask
+    Project(columns)            keep only the named columns
+    GroupBy(key, value, agg)    per-key aggregation, fixed group count
+    WindowAgg(window, value)    same, keyed by time window t // window
+    MultiGroupBy(keys, value)   multi-key aggregation via fused key ids
+    TopK(k, by)                 the k rows extremal in ``by`` (IEEE total
+                                order, ties by ascending row index)
+
+An aggregating plan runs as partial -> finalize: the rows up to the
+first reducing node reduce to ``{"acc", "cnt"}`` accumulators, which
+``_seg_finalize`` turns into the answer (empty-group contract: 0.0,
+count 0, masked-off row, for every agg), then the nodes after it run on
+the small result table.
+
+The partial has two paths, chosen per plan by ``use_kernel`` (see
+``_resolve_use_kernel``): the fused kernel ``kernels.warehouse_agg``
+(on CUDA the hand-written kernel, on the CPU its plain version), or the
+engine's own ``_seg_partial`` after the row-by-row filter nodes. On the
+card, the engine computes an aggregation only when the caller asks for
+it with ``use_kernel=False``.
+``execute`` returns ``(table, mask)``: tensors on the store's device plus
+a validity mask over their rows.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.warehouse_agg import (CMP as _CMP, FusedAggSpec,
+                                               check_kernel, filter_pred,
+                                               fused_segment_agg, group_ids,
+                                               masked_partial)
+
+# how many aggregating queries took each path through ``execute``
+PATHS = {"kernel": 0, "engine": 0}
+
+
+@dataclass(frozen=True)
+class Filter:
+    """Row predicate plan node: keep rows where ``column <op> value``."""
+    column: str
+    op: str              # eq | ne | lt | le | gt | ge
+    value: float
+
+
+@dataclass(frozen=True)
+class Project:
+    """Column-selection plan node: restrict downstream nodes to
+    ``columns``."""
+    columns: Tuple[str, ...]
+
+
+@dataclass(frozen=True)
+class GroupBy:
+    """Grouped aggregation over an integer key column, fixed
+    ``num_groups`` output rows."""
+    key: str             # integer column holding the group id
+    value: str           # column to aggregate
+    agg: str = "sum"     # sum | mean | count | max | min
+    num_groups: int = 8  # group ids clip into [0, num_groups)
+
+
+@dataclass(frozen=True)
+class WindowAgg:
+    """Time-window aggregation: group rows by ``t // window`` into
+    ``num_windows`` fixed slots."""
+    window: int
+    value: str
+    agg: str = "sum"
+    num_windows: int = 64
+
+
+@dataclass(frozen=True)
+class MultiGroupBy:
+    """Aggregate by SEVERAL integer keys at once, the key tuple fused
+    into one flat id. ``nums[i]`` is the id count of ``keys[i]`` (ids
+    clip into [0, nums[i]) after windowing); ``windows[i] > 1`` divides
+    that key's column first. The result has one decoded id column per
+    key plus the aggregated value and ``count``."""
+    keys: Tuple[str, ...]
+    value: str
+    agg: str = "sum"
+    nums: Tuple[int, ...] = ()
+    windows: Tuple[int, ...] = ()
+
+
+@dataclass(frozen=True)
+class TopK:
+    """Row-level top-k: the ``k`` rows extremal in ``by``."""
+    k: int
+    by: str
+    largest: bool = True
+
+
+PlanNode = Union[Filter, Project, GroupBy, WindowAgg, MultiGroupBy, TopK]
+
+# nodes that reduce rows — a plan splits at the FIRST of these
+_REDUCERS = (GroupBy, WindowAgg, MultiGroupBy, TopK)
+
+
+@dataclass(frozen=True)
+class _FilterRef:
+    """Filter with its value hoisted into the operand vectors."""
+    column: str
+    op: str
+    idx: int
+
+
+def normalize(plan):
+    """Split a plan into its shape (hashable spec) and the filter
+    operands as host numpy vectors: the float32 thresholds (float
+    columns) plus each threshold's float64-computed floor, integrality
+    and out-of-int32-range flag (integer columns; float32 cannot hold
+    ints past 2^24, so they are hoisted at full precision)."""
+    spec, vals, floors, isint, oob = [], [], [], [], []
+    for node in plan:
+        if isinstance(node, Filter):
+            assert node.op in _CMP, f"unknown filter op {node.op!r}"
+            spec.append(_FilterRef(node.column, node.op, len(vals)))
+            v = float(node.value)
+            assert not math.isnan(v), "NaN filter threshold"
+            vals.append(np.float32(v))
+            if v >= 2.0 ** 31:                 # incl. +inf
+                ob, fl, ii = 1, 0, False
+            elif v < -2.0 ** 31:               # incl. -inf
+                ob, fl, ii = -1, 0, False
+            else:
+                ob, fl = 0, math.floor(v)      # in [-2^31, 2^31 - 1]
+                ii = v == fl
+            floors.append(np.int32(fl))
+            isint.append(ii)
+            oob.append(np.int32(ob))
+        else:
+            if isinstance(node, MultiGroupBy):
+                assert len(node.keys) >= 1 and \
+                    len(node.nums) == len(node.keys), \
+                    "MultiGroupBy needs one id count per key"
+                assert not node.windows or \
+                    len(node.windows) == len(node.keys), \
+                    "MultiGroupBy windows must match keys"
+            spec.append(node)
+    return tuple(spec), (np.asarray(vals, np.float32),
+                         np.asarray(floors, np.int32),
+                         np.asarray(isint, bool),
+                         np.asarray(oob, np.int32))
+
+
+def _agg_keys(node):
+    """``(column, num_ids, window)`` per key of an aggregating node."""
+    if isinstance(node, GroupBy):
+        return ((node.key, node.num_groups, 0),)
+    if isinstance(node, WindowAgg):
+        return (("t", node.num_windows, node.window),)
+    wins = node.windows or (0,) * len(node.keys)
+    return tuple(zip(node.keys, node.nums, wins))
+
+
+def _seg_ids(table, node):
+    """Clipped int64 group ids + group count for an agg node."""
+    keys = _agg_keys(node)
+    n = table[keys[0][0]].shape[0]
+    return group_ids(table, n, keys), math.prod(num for _, num, _ in keys)
+
+
+def _seg_partial(table, mask, node):
+    """Masked segment accumulators of an agg node: {"acc", "cnt"}.
+    Filtered and padding rows are exact no-ops."""
+    ids, num = _seg_ids(table, node)
+    return masked_partial(ids, mask, table[node.value], num, node.agg)
+
+
+def _seg_finalize(acc, cnt, agg):
+    """Accumulators -> the agg's answer. Empty-group contract: a group
+    with no surviving rows answers 0.0 with ``count == 0`` for EVERY agg
+    — the ∓inf sentinels of max/min never reach a result table."""
+    if agg == "mean":
+        c = torch.clamp_min(cnt, 1.0)
+        out = acc / (c if acc.ndim == cnt.ndim else c[:, None])
+    elif agg == "count":
+        out = cnt
+    elif agg in ("max", "min"):
+        out = torch.where(cnt > 0, acc, 0.0)
+    else:
+        out = acc
+    return out, cnt
+
+
+def _seg_table(node, out, cnt):
+    """Result table + mask for a finalized aggregation."""
+    dev = cnt.device
+    if isinstance(node, GroupBy):
+        table = {node.key: torch.arange(node.num_groups, dtype=torch.int32,
+                                        device=dev)}
+    elif isinstance(node, WindowAgg):
+        table = {"window": torch.arange(node.num_windows, dtype=torch.int32,
+                                        device=dev)}
+    else:                                            # MultiGroupBy
+        rem = torch.arange(math.prod(node.nums), dtype=torch.int32,
+                           device=dev)
+        decoded = {}
+        for key, n in zip(reversed(node.keys), reversed(node.nums)):
+            decoded[key] = rem % n
+            rem = torch.div(rem, n, rounding_mode="floor")
+        table = {k: decoded[k] for k in node.keys}
+    table[node.value] = out
+    table["count"] = cnt
+    return table, cnt > 0
+
+
+def _topk_idx(score: torch.Tensor, kk: int) -> torch.Tensor:
+    """``lax.top_k``'s order: descending IEEE-754 TOTAL order (``+0.0``
+    above ``-0.0``), ties by ascending row index. Flipping the low 31
+    bits of negative floats makes their int32 bit patterns sort as the
+    floats' total order; a stable descending sort keeps ties in row
+    order."""
+    bits = score.contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return torch.sort(key, descending=True, stable=True).indices[:kk]
+
+
+def _apply_nodes(table, mask, fvals, spec):
+    """Run plan nodes left to right on a table (the engine path)."""
+    for node in spec:
+        if isinstance(node, _FilterRef):
+            mask = mask & filter_pred(table[node.column], node.op, node.idx,
+                                      fvals)
+        elif isinstance(node, Project):
+            table = {c: table[c] for c in node.columns}
+        elif isinstance(node, (GroupBy, WindowAgg, MultiGroupBy)):
+            part = _seg_partial(table, mask, node)
+            out, cnt = _seg_finalize(part["acc"], part["cnt"], node.agg)
+            table, mask = _seg_table(node, out, cnt)
+        elif isinstance(node, TopK):
+            score = torch.where(mask, table[node.by].to(torch.float32),
+                                float("-inf"))
+            if not node.largest:
+                score = torch.where(torch.isfinite(score), -score, score)
+            idx = _topk_idx(score, min(node.k, int(score.shape[0])))
+            table = {c: table[c].index_select(0, idx) for c in table}
+            table["index"] = idx.to(torch.int32)
+            mask = torch.isfinite(score.index_select(0, idx))
+        else:
+            raise TypeError(f"unknown plan node {node!r}")
+    return table, mask
+
+
+def split_plan(spec):
+    """(pre, reduce_node, post): row-local Filter/Project nodes, the
+    first reducing node, and the nodes that run on its result."""
+    for i, node in enumerate(spec):
+        if isinstance(node, _REDUCERS):
+            return spec[:i], node, spec[i + 1:]
+    return spec, None, ()
+
+
+def _kernel_spec(pre, node, cols):
+    """``FusedAggSpec`` for a plan's partial phase, or None when the
+    fused kernel cannot express it: no reducer, a TopK reducer, wide
+    max/min, or a pre-node naming columns the engine path would reject
+    (Project order is honored)."""
+    if node is None or isinstance(node, TopK):
+        return None
+    avail = set(cols)
+    filters = []
+    for nd in pre:
+        if isinstance(nd, _FilterRef):
+            if nd.column not in avail:
+                return None
+            filters.append((nd.column, nd.op, nd.idx))
+        elif isinstance(nd, Project):
+            if not set(nd.columns) <= avail:
+                return None
+            avail = set(nd.columns)
+        else:
+            return None
+    keys = _agg_keys(node)
+    if not {k for k, _, _ in keys} | {node.value} <= avail:
+        return None
+    if cols[node.value].ndim == 2 and node.agg in ("max", "min"):
+        return None
+    return FusedAggSpec(filters=tuple(filters), keys=keys,
+                        value=node.value, agg=node.agg)
+
+
+def _value_width(cols, aspec) -> int:
+    v = cols[aspec.value]
+    return int(v.shape[1]) if v.ndim == 2 else 0
+
+
+def _resolve_use_kernel(flag, pre, node, cols) -> bool:
+    """Which path computes a plan's partial:
+
+    - ``False``: the engine's ``_seg_partial``, on any device;
+    - ``True``: the fused kernel's wrapper; raises ``ValueError`` when
+      the plan has no fused spec (no reducer, TopK reducer, wide
+      max/min) or the kernel cannot take its spec (``check_kernel``
+      names the limit), on the CPU as on the card;
+    - ``None`` with a fused spec: the wrapper. On CUDA columns that is
+      the kernel, or a ``ValueError`` naming the limit the spec passed;
+      never the engine. On CPU columns it is the kernel's plain version.
+    - ``None`` without a fused spec: the engine. Such a plan does not
+      aggregate, reduces by TopK, or asks for max/min of a wide column,
+      which the engine refuses too; none of it is the kernel's work.
+    """
+    if flag is not None and not flag:
+        return False
+    aspec = _kernel_spec(pre, node, cols)
+    if aspec is None:
+        if flag:
+            raise ValueError("use_kernel=True: the fused kernel cannot run "
+                             f"this plan ({node!r})")
+        return False
+    if flag or cols[aspec.value].device.type == "cuda":
+        check_kernel(aspec, _value_width(cols, aspec))
+    return True
+
+
+def _run_plan(cols, n_rows: int, fvals, spec, use_kernel: bool):
+    if use_kernel:
+        pre, node, post = split_plan(spec)
+        part = fused_segment_agg(cols, n_rows, fvals,
+                                 _kernel_spec(pre, node, cols))
+        out, cnt = _seg_finalize(part["acc"], part["cnt"], node.agg)
+        table, mask = _seg_table(node, out, cnt)
+        return _apply_nodes(table, mask, fvals, post)
+    first = cols["t"] if "t" in cols else next(iter(cols.values()))
+    mask = torch.arange(first.shape[0], device=first.device) < n_rows
+    return _apply_nodes(cols, mask, fvals, spec)
+
+
+def _source(store):
+    """(columns, n_rows) from a SegmentStore or a raw (columns, n) pair."""
+    if hasattr(store, "columns") and hasattr(store, "n_rows"):
+        return store.columns, store.n_rows
+    cols, n = store
+    return cols, int(n)
+
+
+def execute(store, plan, *, use_kernel=None):
+    """Run ``plan`` over ``store``; returns ``(table, mask)`` of tensors
+    on the store's device. ``use_kernel`` picks the aggregation path
+    (see ``_resolve_use_kernel``)."""
+    cols, n_rows = _source(store)
+    spec, fvals = normalize(plan)
+    pre, node, _ = split_plan(spec)
+    uk = _resolve_use_kernel(use_kernel, pre, node, cols)
+    if node is not None and not isinstance(node, TopK):
+        PATHS["kernel" if uk else "engine"] += 1
+    return _run_plan(cols, n_rows, fvals, spec, uk)
+
+
+def windows_for(store, window: int) -> int:
+    """Window count covering every stored timestamp."""
+    return max(1, int(store.t_max) // int(window) + 1)
+
+
+def to_host(table, mask) -> Dict[str, np.ndarray]:
+    """Compact a query result to host numpy, dropping masked-off rows."""
+    m = mask.cpu().numpy()
+    return {k: v.cpu().numpy()[m] for k, v in table.items()}

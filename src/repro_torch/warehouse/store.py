@@ -1,0 +1,156 @@
+"""V-ETL *Load*: a device-resident columnar segment store.
+
+Port of ``repro/warehouse/store.py``'s ``SegmentStore``. Append-only and
+columnar: one tensor per column on one device, grown along the fixed
+capacity ladder ``{chunk_rows * 2**j}``. Columns:
+
+    stream_id     int32   which camera/stream produced the segment
+    t             int32   segment index on that stream's timeline
+    category      int32   content category the switcher classified
+    k             int32   knob configuration the switcher chose
+    quality       f32     measured quality of the chosen config
+    on_core_s     f32     on-prem work spent (core-seconds)
+    cloud_core_s  f32     cloud work spent (core-seconds)
+    buffer_s      f32     buffer fill after the segment (seconds)
+    out           f32     fixed-width application output / embedding (D,)
+
+Where the reference rebuilt its immutable column arrays on every write
+(``dynamic_update_slice``), the port writes rows IN PLACE: an ingest is
+one slice assignment per column into the preallocated capacity, and
+growth copies the live rows once into the next rung of the ladder. The
+row count is host state, so queries know the live rows without reading
+the device.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+
+SCALAR_COLUMNS = (
+    ("stream_id", torch.int32),
+    ("t", torch.int32),
+    ("category", torch.int32),
+    ("k", torch.int32),
+    ("quality", torch.float32),
+    ("on_core_s", torch.float32),
+    ("cloud_core_s", torch.float32),
+    ("buffer_s", torch.float32),
+)
+OUT_COLUMN = "out"
+
+# fused-run trace key -> store column
+_RUN_KEYS = (("c", "category"), ("k", "k"), ("qual", "quality"),
+             ("on_s", "on_core_s"), ("cl_s", "cloud_core_s"),
+             ("buffer_s", "buffer_s"))
+
+
+def _empty_columns(cap: int, out_dim: int, device) -> Dict[str, torch.Tensor]:
+    cols = {n: torch.zeros((cap,), dtype=dt, device=device)
+            for n, dt in SCALAR_COLUMNS}
+    cols[OUT_COLUMN] = torch.zeros((cap, out_dim), dtype=torch.float32,
+                                   device=device)
+    return cols
+
+
+def _bucket_cap(need: int, chunk: int) -> int:
+    """Smallest capacity from the fixed ladder ``{chunk * 2**j}`` that
+    fits ``need`` rows (the reference's ladder, so both stores grow
+    through the same capacities)."""
+    units = max(1, -(-need // chunk))
+    return chunk * (1 << (units - 1).bit_length())
+
+
+class SegmentStore:
+    """Append-only columnar store for per-segment V-ETL results on
+    ``device`` (``None`` means CUDA)."""
+
+    def __init__(self, out_dim: int, chunk_rows: int = 8192, device=None):
+        assert out_dim >= 1 and chunk_rows >= 1
+        self.device = resolve(device)
+        self.out_dim = int(out_dim)
+        self.chunk_rows = int(chunk_rows)
+        self.n_rows = 0
+        self.t_max = -1
+        self.columns = _empty_columns(0, out_dim, self.device)
+
+    # -- capacity ------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        return self.columns["t"].shape[0]
+
+    def _reserve(self, n_new: int) -> None:
+        need = self.n_rows + n_new
+        if need <= self.capacity:
+            return
+        cap = _bucket_cap(need, self.chunk_rows)
+        grown = _empty_columns(cap, self.out_dim, self.device)
+        for k, col in grown.items():
+            col[:self.n_rows] = self.columns[k][:self.n_rows]
+        self.columns = grown
+
+    def _write(self, upd: Dict[str, torch.Tensor]) -> None:
+        """Write the update block at row ``n_rows``, in place."""
+        n = upd["t"].shape[0]
+        lo = self.n_rows
+        for k, col in self.columns.items():
+            col[lo:lo + n] = upd[k].to(device=self.device, dtype=col.dtype)
+        self.n_rows += n
+
+    # -- ingestion -----------------------------------------------------
+    def ingest_fused(self, traces, out_vecs, *, stream_id: int = 0,
+                     t0: int = 0) -> int:
+        """Land a full ``run_skyscraper_fused`` run: ``traces`` is the
+        engine's stacked outs dict ((n_w, W) device leaves), ``out_vecs``
+        the (T, D) per-segment output block (e.g. the measured quality
+        vectors). Returns the number of rows appended."""
+        T = int(out_vecs.shape[0])
+        assert out_vecs.ndim == 2 and out_vecs.shape[1] == self.out_dim, \
+            f"out_vecs must be (T, {self.out_dim})"
+        self._reserve(T)
+        upd = {dst: traces[src].reshape(-1)[:T] for src, dst in _RUN_KEYS}
+        upd["stream_id"] = torch.full((T,), stream_id, dtype=torch.int32,
+                                      device=self.device)
+        upd["t"] = t0 + torch.arange(T, dtype=torch.int32,
+                                     device=self.device)
+        upd[OUT_COLUMN] = torch.as_tensor(out_vecs)
+        self._write(upd)
+        self.t_max = max(self.t_max, t0 + T - 1)
+        return T
+
+    def append_rows(self, rows: Dict) -> int:
+        """Generic batched append: ``rows`` maps every column name to an
+        (n,) array or tensor (``out`` to (n, D))."""
+        n = len(rows["t"])
+        assert set(rows) == set(self.columns), \
+            f"need exactly columns {sorted(self.columns)}"
+        self._reserve(n)
+        upd = {k: v if isinstance(v, torch.Tensor)
+               else torch.as_tensor(np.asarray(v)) for k, v in rows.items()}
+        self._write(upd)
+        if n:
+            self.t_max = max(self.t_max, int(upd["t"].max()))
+        return n
+
+    # -- reading -------------------------------------------------------
+    def query(self, plan, **kw):
+        """Run a query plan over the live rows (see ``warehouse.query``;
+        ``use_kernel=`` selects the aggregation path)."""
+        from repro_torch.warehouse import query as Q
+        return Q.execute(self, plan, **kw)
+
+    def host_rows(self) -> Dict[str, np.ndarray]:
+        """All live rows as host numpy (an explicit full transfer)."""
+        return {k: v[:self.n_rows].cpu().numpy()
+                for k, v in self.columns.items()}
+
+    def __len__(self) -> int:
+        return self.n_rows
+
+    def __repr__(self) -> str:
+        return (f"SegmentStore(rows={self.n_rows}, cap={self.capacity}, "
+                f"out_dim={self.out_dim}, chunk={self.chunk_rows}, "
+                f"device={self.device})")

@@ -18,3 +18,10 @@ except ImportError:
     import _hypothesis_fallback as _hf
     sys.modules["hypothesis"] = _hf
     sys.modules["hypothesis.strategies"] = _hf.strategies
+
+
+def pytest_configure(config):
+    # tests of CUDA kernels: they skip, with a reason, where no card is
+    # visible (decided inside the ``cuda`` fixture, never at import)
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")

@@ -1,0 +1,182 @@
+"""Rules the port keeps, checked without a card where possible:
+
+- no file under ``src/repro_torch/`` and no line of ``chip_smoke.py``
+  imports JAX or anything of the reference package ``repro``;
+- importing the port builds nothing (no compiler runs at import);
+- every entry point defaults to CUDA and raises when there is none;
+- ``chip_smoke.py`` fails, and prints no result, without a card;
+- on the card, the K1 wrapper refuses a spec beyond its limits
+  (``cuda``-marked: skips here).
+
+This file imports neither JAX nor ``repro``, so it also runs on a
+machine that has only the port's dependencies.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA; none is visible")
+    return torch.device("cuda")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro", "flax", "optax")
+
+
+def test_port_imports_no_jax_and_no_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [(str(p.relative_to(ROOT)), m) for p in files
+           for m in _imports(p) if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_port_modules_import_without_building():
+    """Every module imports in a fresh process with the compiler out of
+    reach, and nothing is built or loaded."""
+    names = sorted(
+        ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("")
+                 .parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "from repro_torch.kernels import build\n"
+            "assert not build._LIBS and not build.BUILD_LOG\n"
+            "assert not any(m.split('.')[0] in ('jax', 'repro')"
+            " for m in sys.modules)\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env.update(PATH="", PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_defaults_to_cuda_and_raises(monkeypatch):
+    from repro_torch.device import resolve
+    _no_cuda(monkeypatch)
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve(dev)
+    assert resolve("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.convert import forecaster_from_arrays
+    from repro_torch.core.categories import kmeans
+    from repro_torch.core.forecaster import init_forecaster
+    from repro_torch.core.offline import fit
+    from repro_torch.warehouse import SegmentStore
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kmeans([[0.0, 1.0], [1.0, 0.0], [1.0, 1.0]], 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_forecaster(torch.Generator().manual_seed(0), 2, 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SegmentStore(out_dim=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit(COVID, n_cores=8, days_unlabeled=0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        forecaster_from_arrays({"l1": {"w": [[1.0]], "b": [0.0]}})
+
+
+def test_cpu_tensors_take_the_plain_version():
+    from repro_torch.kernels import warehouse_agg as K
+    cols = {"g": torch.tensor([0, 1, 1, 2], dtype=torch.int32),
+            "v": torch.tensor([1.0, 2.0, 3.0, 4.0])}
+    spec = K.FusedAggSpec(filters=(), keys=(("g", 3, 0),), value="v",
+                          agg="sum")
+    before = K.LAUNCHES
+    got = K.fused_segment_agg(cols, 4, ((), (), (), ()), spec)
+    assert K.LAUNCHES == before
+    assert got["acc"].tolist() == [1.0, 5.0, 4.0]
+    assert got["cnt"].tolist() == [1.0, 2.0, 1.0]
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: chip_smoke.py would run")
+    env = dict(os.environ, PYTHONPATH="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """A directory with chip_smoke.py and nothing else of the repo."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    env = dict(os.environ, PYTHONPATH="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def _over_limit_specs(K):
+    f = tuple(("x", "ge", j) for j in range(K.MAX_FILTERS + 1))
+    keys = tuple(("g", 2, 0) for _ in range(K.MAX_KEYS + 1))
+    yield K.FusedAggSpec(filters=f, keys=(("g", 4, 0),), value="x",
+                         agg="sum")
+    yield K.FusedAggSpec(filters=(), keys=keys, value="x", agg="sum")
+    yield K.FusedAggSpec(filters=(), keys=(("g", 1 << 28, 0),), value="x",
+                         agg="sum")
+    yield K.FusedAggSpec(filters=(), keys=(("g", 4, 0),), value="w",
+                         agg="max")
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_specs_beyond_its_limits(cuda):
+    from repro_torch.kernels import warehouse_agg as K
+    n = 64
+    cols = {"x": torch.rand(n, device=cuda),
+            "g": torch.randint(0, 4, (n,), device=cuda, dtype=torch.int32),
+            "w": torch.rand(n, 3, device=cuda)}
+    nf = K.MAX_FILTERS + 1
+    fvals = (torch.zeros(nf).numpy(), torch.zeros(nf).int().numpy(),
+             torch.ones(nf).bool().numpy(), torch.zeros(nf).int().numpy())
+    before = K.LAUNCHES
+    for spec in _over_limit_specs(K):
+        with pytest.raises(ValueError, match="cannot take"):
+            K.fused_segment_agg(cols, n, fvals, spec)
+    with pytest.raises(TypeError):
+        K.fused_segment_agg({**cols, "x": cols["x"].double()}, n, fvals,
+                            K.FusedAggSpec((), (("g", 4, 0),), "x", "sum"))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_segment_agg({**cols, "x": torch.rand(2 * n,
+                                                     device=cuda)[::2]},
+                            n, fvals,
+                            K.FusedAggSpec((), (("g", 4, 0),), "x", "sum"))
+    assert K.LAUNCHES == before
