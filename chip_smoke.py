@@ -7,40 +7,80 @@ Phases, one JSON line each; any failure raises and the exit code is not
 0. Without a CUDA device, or without the repository around it, the
 script fails before it prints a result.
 
-1. device  the card, torch and CUDA versions, nvidia-smi's name and
-           power limit (also printed as its own line before the last).
-2. build   nvcc builds the port's one kernel source from
-           ``src/repro_torch/csrc`` (K1, ``warehouse_agg.cu``).
-3. kernel  K1 against its plain version on the same CUDA tensors over
-           the test matrix at 1M rows (shared- and global-memory
-           accumulators), and against a float64 host oracle.
-4. main    the main path at full size, with the launch counts set to 0
-           just before it and read just after: ``fit(COVID, n_cores=8,
-           days_unlabeled=2.0)``, a 1-day fused run (43,200 segments)
-           into a ``SegmentStore``, the store filled to 256 camera-days
-           (11,059,200 rows), and the README plans plus a window x
-           category ``MultiGroupBy`` on ``out`` and a camera x window
-           one (73,728 groups, global accumulators). Every aggregating
-           query must have taken the kernel, in both accumulator modes.
-5. check   the run against the port's own CPU run (k and c traces
-           exact, floats to 1e-5), each query's result against the
-           engine path's masks, and K1's wrapper against its plain
-           version and a float64 host oracle at each query's shape.
-6. time    CUDA-event medians of K1, its plain version and one
-           ``index_add_``/``scatter_reduce_`` call per main-path query,
-           beside the byte bound at 3.35 TB/s.
+1. device     the card, torch and CUDA versions, the TF32 switches (both
+              off), nvidia-smi's name and power limit (also printed as
+              its own line before the last).
+2. build      one nvcc per kernel source in ``src/repro_torch/csrc``,
+              all started together: K1 ``warehouse_agg.cu``, K2
+              ``frame_preproc.cu``, K3 ``flash_attention.cu``.
+3. kernel     K1 against its plain version on the same CUDA tensors over
+              the test matrix at 1M rows (shared- and global-memory
+              accumulators), and against a float64 host oracle.
+4. kernel_k2  K2 against its plain version: factors 2, 3 and 4, 3-D and
+              4-D frames, float32 and bfloat16, a strided frame axis,
+              and the Transform's (30, 720, 1280, 3) segment.
+5. kernel_k3  K3 against its plain version: causal and not, windows 32
+              and 256, G < H, ragged Sq and Skv, head dims 8 to 128.
+6. main       the single-stream main path at full size, with the launch
+              counts set to 0 just before it and read just after:
+              ``fit(COVID, n_cores=8, days_unlabeled=2.0)``, a 1-day
+              fused run (43,200 segments) into a ``SegmentStore``, the
+              store filled to 256 camera-days (11,059,200 rows), and the
+              README plans plus a window x category ``MultiGroupBy`` on
+              ``out`` and a camera x window one (73,728 groups, global
+              accumulators). Every aggregating query must have taken the
+              kernel, in both accumulator modes.
+7. check      the run against the port's own CPU run (k and c traces
+              exact, floats to 1e-5), each query's result against the
+              engine path's masks, and K1's wrapper against its plain
+              version and a float64 host oracle at each query's shape.
+8. transform  the Transform path, counts set to 0 just before it:
+              ``Skyscraper`` + ``BackboneVETL`` (qwen1.5-0.5b at the
+              reference's SIZES) through ``fit`` on 40 segments and 60
+              ``process`` calls, with the knob domains of
+              ``examples/serve_vetl.py``. A segment is 30 frames of
+              720x1280x3 float32 (2 s of a 720p camera at 15 fps) and
+              (30, 16) tokens, made on the card from a seeded generator.
+              K2 and K3 must both launch; ``proc_fn``'s share of the
+              process time is printed; the card's qualities are held
+              against the same job on the CPU (plain versions).
+9. serve      the serving path, counts set to 0 just before it:
+              ``Model(get("qwen1.5-0.5b"))`` at the published config in
+              float32 answers 2 batches of 4 requests through the port's
+              serve loop (prefill of 2,048 tokens, cache 2,056, 8 tokens
+              generated per request). Then one batch's logits against
+              the same model with K3's plain version on the card.
+10. time      CUDA-event medians of device time (the card spins while
+              the host enqueues each timed call): K1, its plain version
+              and one ``index_add_``/``scatter_reduce_`` call per
+              main-path query,
+              beside the byte bound at 3.35 TB/s; K2 on (30,720,1280,3)
+              at factor 2 beside its byte bound, its plain version and
+              ``F.avg_pool2d`` on an NCHW copy; K3 at B=4, S=2048,
+              H=G=16, D=64, causal beside its operation bound (FP32
+              CUDA-core peak), its plain version and
+              ``F.scaled_dot_product_attention``. The library calls are
+              yardsticks the port never calls.
 
-Tolerances. Counts, max, min and integer-valued sums are exact. Float
-sums and means: K1 within 1e-4 of each group's sum of magnitudes of its
-plain version run on the same inputs with the value column in float64
-(``fused_segment_agg_ref`` then accumulates in float64), and of a
-float64 numpy oracle. The 1e-4 is the worst-case bound n * 2^-24 of a
+Tolerances. K1: counts, max, min and integer-valued sums are exact.
+Float sums and means: K1 within 1e-4 of each group's sum of magnitudes
+of its plain version run on the same inputs with the value column in
+float64 (``fused_segment_agg_ref`` then accumulates in float64), and of
+a float64 numpy oracle. The 1e-4 is the worst-case bound n * 2^-24 of a
 float32 sum of n = 1,600 terms, about what one shared accumulator of K1
 takes before the block-ordered fold (the measured errors are printed
 and far smaller). The plain version is run in float64 for the check
 because its float32 ``index_add_`` (the reference's row-order
 semantics) drifts by about 2% from float64 on groups of millions of
 rows; its float32 form is what ``plain_ms`` times.
+K2: float32 within f^2 * 2^-24 * max|x| (reordering a sum of f^2
+terms), bfloat16 within one bfloat16 ulp (2^-7 relative) of the plain
+version. K3: within Skv * 2^-24 * max|v| of the plain version (the
+worst case of reordering float32 sums over Skv keys). Transform
+qualities: 1e-5 against the CPU run. Serve: logits within 1e-3 of the
+plain-attention model (float32 attention summed in another order moves
+each layer by about 1e-6 relative; 24 layers and the head leave that
+far below 1e-3), and at least 99% of next tokens equal.
 """
 from __future__ import annotations
 
@@ -61,6 +101,17 @@ KERNEL_ROWS = 1 << 20
 CAMERAS = 256
 RUN_DAYS = 1.0                      # 43,200 segments of 2 s
 ROTATE = 169                        # segments between cameras' clocks
+FP32_FLOP_PER_S = 67e12             # H100 SXM FP32 CUDA cores (data sheet)
+SEGMENT = (30, 720, 1280, 3)        # 2 s of a 720p camera at 15 fps
+TOKENS = (30, 16)
+FIT_SEGMENTS = 40
+PROCESS_SEGMENTS = 60
+QUALITY_TOL = 1e-5
+LOGIT_TOL = 1e-3
+TOKEN_AGREEMENT = 0.99
+SERVE = dict(requests=8, batch=4, prompt_len=2048, gen=8)
+ATTN_TIME = (4, 2048, 16, 64)       # B, S, H = G, D of the serve prefill
+SPIN_CYCLES = 40_000_000            # ~20 ms of the card's clock per timing
 
 
 def emit(phase: str, **fields) -> None:
@@ -80,13 +131,18 @@ def timed(fn):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median of ``reps`` warm runs of ``fn`` timed with CUDA events."""
+    """Median of ``reps`` warm runs of ``fn`` timed with CUDA events. The
+    card first spins for about 20 ms (``torch.cuda._sleep``), so the
+    host has enqueued the first event and ``fn``'s launches before the
+    card reaches them: the events time the device work alone, not the
+    wrapper's host-side work in front of an idle card."""
     fn()
     sync()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -227,17 +283,19 @@ def phase_device():
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), sms=props.multi_processor_count,
          torch=torch.__version__, cuda=torch.version.cuda,
+         allow_tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32},
          nvidia_smi=smi)
     return smi
 
 
 def phase_build():
     from repro_torch.kernels import build
-    _, secs = timed(lambda: build.load("warehouse_agg"))
+    _, secs = timed(lambda: build.load_all(build.sources()))
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "Compiling entry" in ln]
              for n, log in build.BUILD_LOG.items()}
-    emit("build", seconds=secs, ptxas=ptxas)
+    emit("build", sources=list(build.sources()), seconds=secs, ptxas=ptxas)
 
 
 def _kernel_cols(n, dev, seed=0, D=9):
@@ -324,6 +382,101 @@ def phase_kernel(dev):
     emit("kernel", rows=KERNEL_ROWS, cases=cases, modes=modes,
          launches=K.LAUNCHES, max_abs_err=worst)
     return worst
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+
+
+def k2_tolerance(plain, frame, factor) -> float:
+    """float32: reordering a sum of f^2 terms moves it by at most
+    f^2 * 2^-24 * max|x|; bfloat16: one bfloat16 ulp of the value."""
+    bound = factor * factor * 2.0 ** -24 * float(frame.float().abs().max())
+    if plain.dtype == torch.bfloat16:
+        bound += 2.0 ** -7 * float(plain.float().abs().max())
+    return bound + 1e-7
+
+
+def _k2_cases(dev, gen):
+    """(name, frames, factor): 3-D and 4-D, float32 and bfloat16,
+    factors 2 to 4, a strided frame axis, and the Transform's segment."""
+    seg = torch.randn(SEGMENT, generator=gen, device=dev)
+    yield "segment_f2", seg, 2
+    yield "segment_f2_bf16", seg.to(torch.bfloat16), 2
+    yield "segment_every2_f2", seg[::2], 2
+    yield "segment_every4_f4", seg[::4], 4
+    yield "frame3d_f4", seg[0], 4
+    small = torch.randn((8, 96, 96, 3), generator=gen, device=dev)
+    for f in (2, 3, 4):
+        yield f"b8_96_f{f}", small, f
+        yield f"b8_96_f{f}_bf16", small.to(torch.bfloat16), f
+        yield f"hw_96_f{f}", small[3], f
+    yield "odd_60x36x5_f3", torch.randn((2, 60, 36, 5), generator=gen,
+                                         device=dev), 3
+
+
+def phase_kernel_k2(dev):
+    """K2 vs its plain version on the same CUDA tensors."""
+    from repro_torch.kernels import frame_preproc as FP
+    gen = torch.Generator(device=dev).manual_seed(2)
+    errs, before = {}, FP.LAUNCHES
+    for name, frames, f in _k2_cases(dev, gen):
+        got = FP.downsample(frames, f)
+        sync()
+        want = FP.downsample_ref(frames, f)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"K2 {name}: {got.shape} {got.dtype} vs "
+                                 f"{want.shape} {want.dtype}")
+        err, tol = _max_err(got, want), k2_tolerance(want, frames, f)
+        if not err <= tol:
+            raise AssertionError(f"K2 {name}: max error {err} > {tol}")
+        errs[name] = err
+    emit("kernel_k2", cases=len(errs), launches=FP.LAUNCHES - before,
+         max_abs_err=errs)
+    return max(errs.values())
+
+
+def _k3_cases():
+    """(B, Sq, Skv, H, G, D, causal, window); every row sees a key."""
+    yield 2, 2048, 2048, 16, 16, 64, True, None       # serve prefill
+    yield 2, 300, 300, 8, 2, 64, True, None           # GQA, ragged
+    yield 2, 200, 333, 4, 4, 16, False, None          # Sq != Skv
+    yield 1, 130, 197, 4, 2, 64, True, None           # causal, Sq < Skv
+    yield 1, 500, 500, 8, 4, 64, True, 32             # window 32
+    yield 1, 1000, 1000, 4, 2, 64, True, 256          # window 256
+    yield 2, 100, 160, 4, 4, 64, True, 40             # window, Sq < Skv
+    yield 4, 77, 77, 4, 4, 12, False, 32              # window, not causal
+    yield 3, 130, 130, 4, 1, 128, True, None          # MQA, D = 128
+    yield 30, 16, 16, 4, 4, 8, True, None             # Transform sizes
+    yield 15, 16, 16, 4, 4, 12, True, None
+    yield 8, 16, 16, 4, 4, 16, True, None
+    yield 2, 1, 9, 4, 4, 64, False, None              # one query
+
+
+def phase_kernel_k3(dev):
+    """K3 vs its plain version on the same CUDA tensors."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs, before = {}, FA.LAUNCHES
+    for B, Sq, Skv, H, G, D, causal, window in _k3_cases():
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev)
+        k = torch.randn((B, Skv, G, D), generator=gen, device=dev)
+        v = torch.randn((B, Skv, G, D), generator=gen, device=dev)
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
+        sync()
+        want = FA.flash_attention_ref(q, k, v, causal=causal, window=window)
+        name = (f"B{B}_Sq{Sq}_Skv{Skv}_H{H}_G{G}_D{D}"
+                f"{'_causal' if causal else ''}"
+                f"{f'_w{window}' if window else ''}")
+        err = _max_err(got, want)
+        tol = Skv * 2.0 ** -24 * float(v.abs().max()) + 1e-6
+        if not err <= tol:
+            raise AssertionError(f"K3 {name}: max error {err} > {tol}")
+        errs[name] = err
+    emit("kernel_k3", cases=len(errs), launches=FA.LAUNCHES - before,
+         max_abs_err=errs)
+    return max(errs.values())
 
 
 def main_plans(store):
@@ -498,6 +651,171 @@ def phase_check(m):
     return errs
 
 
+def _segments(n, seed, dev):
+    """n Transform segments made on the card from one seeded generator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [{"frames": torch.randn(SEGMENT, generator=gen, device=dev),
+             "tokens": torch.randint(0, 200, TOKENS, generator=gen,
+                                     device=dev)} for _ in range(n)]
+
+
+def _skyscraper(dev):
+    """The handle of ``examples/serve_vetl.py``: its resources and knob
+    domains."""
+    from repro_torch.core.api import Skyscraper
+    sky = Skyscraper(segment_seconds=1.0, n_categories=3, device=dev)
+    sky.set_resources(num_cores=2, buffer_gb=0.5)
+    sky.register_knob("sample_every", [1, 2, 4])
+    sky.register_knob("resolution", [1, 2])
+    sky.register_knob("model_size", ["small", "medium", "large"])
+    return sky
+
+
+def phase_transform(dev):
+    """The Transform path, counted: fit + 60 process calls."""
+    from repro_torch.core.vetl_serving import BackboneVETL
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import frame_preproc as FP
+
+    job = BackboneVETL(arch="qwen1.5-0.5b", device=dev)
+    unlabeled = _segments(FIT_SEGMENTS, 11, dev)
+    FP.LAUNCHES = FA.LAUNCHES = 0
+    sky, fit_s = timed(lambda: _skyscraper(dev).fit(
+        unlabeled, job.proc_fn, plan_segments=25))
+    del unlabeled
+    proc_s = [0.0]
+
+    def proc_fn(segment, knobs):
+        t0 = time.perf_counter()
+        out = job.proc_fn(segment, knobs)       # ends in a host read
+        proc_s[0] += time.perf_counter() - t0
+        return out
+
+    sky.proc_fn = proc_fn
+    trace, process_s = [], 0.0
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for _ in range(PROCESS_SEGMENTS):
+        seg = {"frames": torch.randn(SEGMENT, generator=gen, device=dev),
+               "tokens": torch.randint(0, 200, TOKENS, generator=gen,
+                                       device=dev)}
+        sync()
+        (info, out), secs = timed(lambda: sky.process(seg))
+        process_s += secs
+        # the check reads the tokens; one frame keeps the trace small
+        trace.append((info, {"frames": seg["frames"][:1].clone(),
+                             "tokens": seg["tokens"]}))
+    launches = {"downsample": FP.LAUNCHES, "flash_attention": FA.LAUNCHES}
+    sizes = [info["config"]["model_size"] for info, _ in trace]
+    emit("transform", fit_s=fit_s, process_s=process_s,
+         proc_fn_share=proc_s[0] / process_s, launches=launches,
+         configs=len(sky.configs), cost_core_s=sky.cost.tolist(),
+         model_sizes={v: sizes.count(v) for v in sorted(set(sizes))},
+         resolutions=[info["config"]["resolution"] for info, _ in trace],
+         mean_quality=float(np.mean([i["quality"] for i, _ in trace])))
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the Transform path missed a kernel: "
+                             f"{launches}")
+    return dict(job=job, trace=trace, launches=launches)
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def phase_transform_check(t):
+    """Each process call's quality against the same job on the CPU,
+    where K3 is its plain version. The quality reads the tokens only, so
+    the CPU job gets one frame at resolution 1 (K2 is held against its
+    plain version in phase kernel_k2)."""
+    from repro_torch.core.vetl_serving import BackboneVETL
+    cpu = BackboneVETL(arch="qwen1.5-0.5b", device="cpu")
+    for name, (model, params) in t["job"].models.items():
+        cpu.models[name] = (model, _tree_to(params, "cpu"))
+    err = 0.0
+    for info, seg in t["trace"]:
+        one_frame = {k: v.cpu() for k, v in seg.items()}
+        _, q = cpu.proc_fn(one_frame, {**info["config"], "resolution": 1})
+        err = max(err, abs(q - info["quality"]))
+        if not (0.0 < info["quality"] <= 1.0 and abs(q - info["quality"])
+                <= QUALITY_TOL):
+            raise AssertionError(f"Transform quality {info['quality']} vs "
+                                 f"CPU {q}")
+    emit("transform_check", segments=len(t["trace"]), max_abs_err=err)
+    return err
+
+
+class plain_attention:
+    """Within the block, the model's attention calls K3's plain version
+    on the card instead of the kernel (the serve check's comparison)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.models import attention as A
+        self._kernel = A.flash_attention
+        A.flash_attention = FA.flash_attention_ref
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+        A.flash_attention = self._kernel
+
+
+def phase_serve(dev):
+    """The serving path at the published config, counted, then one
+    batch's logits against the plain-attention model."""
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions
+
+    cfg = get("qwen1.5-0.5b")
+    model = Model(cfg, RunOptions(remat="none", layer_loop="scan",
+                                  compute_dtype="float32", q_chunk=64,
+                                  kv_chunk=64))
+    params, init_s = timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    corpus = SyntheticCorpus(cfg.vocab, 0)
+    torch.cuda.reset_peak_memory_stats()
+    FA.LAUNCHES = 0
+    stats = serve(model, params, corpus, log=lambda line: None, **SERVE)
+    launches = FA.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0:
+        raise AssertionError("the serve path launched no attention kernel")
+    out = np.concatenate(stats["outputs"])
+    if out.shape != (SERVE["requests"], SERVE["gen"]) or \
+            not ((out >= 0) & (out < cfg.vocab)).all():
+        raise AssertionError(f"bad generated tokens {out.shape}")
+
+    toks = torch.as_tensor(corpus.batch(SERVE["batch"],
+                                        SERVE["prompt_len"], 0), device=dev)
+    with torch.no_grad():
+        logits = model.forward_logits(params, {"tokens": toks})
+        k_next = logits.argmax(-1)
+        finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+        with plain_attention():
+            plain = model.forward_logits(params, {"tokens": toks})
+        err = float((logits - plain).abs().max())
+        scale = float(plain[..., :cfg.vocab].abs().max())
+        agree = float((k_next == plain.argmax(-1)).float().mean())
+    del logits, plain
+    emit("serve", layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, params=sum(
+             v.numel() for v in [params["embed"], params["final_ln"],
+                                 *params["layers"].values()]),
+         init_s=init_s, seconds=stats["seconds"], tokens=stats["tokens"],
+         tok_per_s=stats["tokens"] / stats["seconds"], launches=launches,
+         peak_mem_bytes=peak, generated_first=out[0].tolist(),
+         logits_max_abs_err=err, logits_max_abs=scale,
+         next_token_agreement=agree)
+    if not finite or not err <= LOGIT_TOL or agree < TOKEN_AGREEMENT:
+        raise AssertionError(f"serve logits: finite={finite} err={err} "
+                             f"agreement={agree}")
+    return dict(launches=launches, err=err)
+
+
 def _library_call(cols, n, spec, fvals):
     """One PyTorch call computing the same masked group aggregate, on
     group ids and masked values prepared beforehand (the yardstick)."""
@@ -541,6 +859,47 @@ def phase_time(m, errs):
     return per
 
 
+
+def phase_time_k2_k3(dev):
+    """K2 and K3 at the main paths' shapes: kernel, plain version and
+    the library yardstick, CUDA-event medians, beside their bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import frame_preproc as FP
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    seg = torch.randn(SEGMENT, generator=gen, device=dev)
+    nchw = seg.permute(0, 3, 1, 2).contiguous()
+    out_bytes = seg.numel() // 4 * seg.element_size()
+    k2_bytes = seg.numel() * seg.element_size() + out_bytes
+    k2 = {"kernel_ms": cuda_ms(lambda: FP.downsample(seg, 2), 50),
+          "plain_ms": cuda_ms(lambda: FP.downsample_ref(seg, 2), 10),
+          "library_ms": cuda_ms(lambda: F.avg_pool2d(nchw, 2), 50),
+          "shape": list(SEGMENT), "factor": 2, "bytes": k2_bytes,
+          "bound_ms": k2_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    del nchw
+
+    B, S, H, D = ATTN_TIME
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    visible = S * (S + 1) // 2                  # causal (q, k) pairs
+    flops = 4 * D * visible * B * H             # QK^T and PV, 2 flop a MAC
+    k3_bytes = 4 * q.numel() * q.element_size()
+    k3 = {"kernel_ms": cuda_ms(lambda: FA.flash_attention(q, k, v), 20),
+          "plain_ms": cuda_ms(lambda: FA.flash_attention_ref(q, k, v), 5),
+          "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+              qt, kt, vt, is_causal=True), 20),
+          "shape": [B, S, H, H, D], "causal": True, "flops": flops,
+          "bytes": k3_bytes,
+          "bound_ms": max(flops / FP32_FLOP_PER_S,
+                          k3_bytes / HBM_BYTES_PER_S) * 1e3,
+          "bound_by": ("operations" if flops / FP32_FLOP_PER_S
+                       > k3_bytes / HBM_BYTES_PER_S else "bytes")}
+    emit("time_k2_k3", downsample=k2, flash_attention=k3)
+    return k2, k3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -556,14 +915,20 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    kernel_err = phase_kernel(dev)
+    k1_err = phase_kernel(dev)
+    k2_err = phase_kernel_k2(dev)
+    k3_err = phase_kernel_k3(dev)
     m = phase_main(dev)
     errs = phase_check(m)
+    t = phase_transform(dev)
+    phase_transform_check(t)
+    sv = phase_serve(dev)
     per = phase_time(m, errs)
+    k2, k3 = phase_time_k2_k3(dev)
     tot = {k: sum(q[k] for q in per.values())
            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-    max_err = max([kernel_err["vs_plain"]]
-                  + [e["vs_plain"] for e in errs.values()])
+    k1_max = max([k1_err["vs_plain"]]
+                 + [e["vs_plain"] for e in errs.values()])
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_segment_agg",
@@ -571,12 +936,36 @@ def main() -> int:
         "source": "src/repro_torch/csrc/warehouse_agg.cu",
         "replaces": "src/repro/kernels/warehouse_agg.py:192",
         "launches": m["launches"],
-        "max_abs_err": max_err,
+        "max_abs_err": k1_max,
         "ms": tot["kernel_ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": "bytes",
         "library_ms": tot["library_ms"],
+    }, {
+        "name": "downsample",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/frame_preproc.cu",
+        "replaces": "src/repro/kernels/frame_preproc.py:26",
+        "launches": t["launches"]["downsample"],
+        "max_abs_err": k2_err,
+        "ms": k2["kernel_ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:67",
+        "launches": t["launches"]["flash_attention"] + sv["launches"],
+        "max_abs_err": k3_err,
+        "ms": k3["kernel_ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,107 @@
+"""Architecture configs: the port's own copy of ``repro/configs/base.py``.
+
+Each architecture module in this package exports ``CONFIG`` with the
+published numbers and registers it; ``get(name)`` looks one up and
+``reduced()`` gives the tiny same-family config the CPU tests use. Only
+the families the port runs have modules here (qwen1.5-0.5b, dense); the
+others come with their slices (ROADMAP, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoECfg:
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class SSMCfg:
+    d_state: int = 128
+    head_dim: int = 64
+    d_inner: int = 0          # 0 -> 2*d_model
+    chunk: int = 256          # SSD chunk length
+    n_groups: int = 1
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str               # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0         # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    mlp: str = "swiglu"       # swiglu | relu2 | gelu
+    window: Optional[int] = None          # sliding-window attention size
+    global_layers: Tuple[int, ...] = ()   # layers with full attention (hybrid)
+    moe: Optional[MoECfg] = None
+    ssm: Optional[SSMCfg] = None
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    n_enc_layers: int = 0
+    max_target_len: int = 448
+    frontend: str = "none"    # modality frontend stub: none | patch | audio
+    frontend_tokens: int = 0
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU tests (the reference's
+        numbers, so both sides build the same shapes)."""
+        kw = dict(
+            n_layers=2,
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=(min(self.n_kv_heads, 4)
+                        if self.n_kv_heads < self.n_heads else 4),
+            d_ff=128,
+            vocab=256,
+            head_dim=16,
+            window=min(self.window, 32) if self.window else None,
+            global_layers=(0,) if self.global_layers else (),
+            frontend_tokens=(min(self.frontend_tokens, 8)
+                             if self.frontend_tokens else 0),
+        )
+        if self.moe is not None:
+            kw["moe"] = MoECfg(n_experts=4, top_k=2)
+        if self.ssm is not None:
+            kw["ssm"] = SSMCfg(d_state=16, head_dim=16, d_inner=128, chunk=16)
+        if self.n_enc_layers:
+            kw["n_enc_layers"] = 2
+            kw["max_target_len"] = 16
+        return dataclasses.replace(self, **kw)
+
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get(name: str) -> ArchConfig:
+    """The registered config ``name``; the architecture modules are
+    imported here for their side effect."""
+    from repro_torch.configs import qwen1_5_0_5b  # noqa: F401
+    if name not in _REGISTRY:
+        raise KeyError(f"{name!r} is not ported yet; the port has "
+                       f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name]

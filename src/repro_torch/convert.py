@@ -46,3 +46,42 @@ def fitted_from_arrays(workload_name: str, arrays: Dict,
                                                     dev),
                   device=dev, **tables,
                   **{k: int(arrays[k]) for k in SCALARS})
+
+
+def params_from_arrays(tree: Dict, device=None) -> Dict:
+    """A model param tree of arrays (the reference's ``Model.init``
+    output through ``jax.tree.map(np.asarray, ...)``) -> the same nested
+    dict of tensors on ``device`` (``None`` means CUDA), dtypes kept."""
+    dev = resolve(device)
+    return {k: (params_from_arrays(v, dev) if isinstance(v, dict)
+                else torch.as_tensor(np.array(v), device=dev))
+            for k, v in tree.items()}
+
+
+def backbone_from_arrays(job, trees: Dict[str, Dict], device=None):
+    """Load one reference param tree per model size (``{"small": tree,
+    ...}``) into the port's ``BackboneVETL`` ``job``, in place; returns
+    ``job``."""
+    for name, tree in trees.items():
+        model, _ = job.models[name]
+        job.models[name] = (model, params_from_arrays(tree, device))
+    return job
+
+
+def fitted_skyscraper(sky, arrays: Dict, proc_fn, *,
+                      plan_segments: int = 512):
+    """Install a reference ``Skyscraper``'s fitted state in the port's
+    handle ``sky`` (after its knobs and resources are set): ``arrays``
+    holds ``configs``, ``cost``, ``power`` (the kept configs' mean
+    qualities, the reference's ``tables.power``), ``centers``,
+    ``forecaster`` (a tree of arrays), ``n_split`` and ``interval``.
+    Returns ``sky``, planned and ready to ``process``."""
+    sky._install(configs=arrays["configs"], cost=np.asarray(arrays["cost"]),
+                 power=np.asarray(arrays["power"]),
+                 centers=np.asarray(arrays["centers"]),
+                 forecaster=forecaster_from_arrays(arrays["forecaster"],
+                                                   sky.device),
+                 n_split=int(arrays["n_split"]),
+                 interval=int(arrays["interval"]), proc_fn=proc_fn,
+                 plan_segments=plan_segments)
+    return sky

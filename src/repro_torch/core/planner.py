@@ -25,22 +25,17 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _spend(r, v):
-    """``sum_c r[c] * v[c]`` in float32, in a fixed order of elementwise
-    ops, so it rounds the same on every device.
-
-    The order is the one the reference's compiled CPU program takes for
-    this multiply-reduce standing alone: a chain of FMAs per vector lane
-    (8 lanes when C is a multiple of 8, 4 when C == 4, else one chain),
-    then the lanes halved pairwise. A one-ulp change of a spend moves the
-    budget blend below, and through it the switcher's deficit argmax, so
-    the order matters. Inside its bisection loop XLA fuses the reduction
-    differently again, so on some inputs the plans still differ from the
-    reference's in their last bits (ROADMAP, Queue 3)."""
+def _lane_sum(r, v, lanes: int):
+    """``sum_c r[c] * v[c]`` in float32 as ``lanes`` vector lanes: r and
+    v zero-padded to a multiple of ``lanes``, one chain of FMAs per lane,
+    then the lanes halved pairwise. ``lanes=1`` is one FMA chain."""
     C = r.shape[0]
-    lanes = 8 if C % 8 == 0 else 4 if C == 4 else 1
+    pad = -C % lanes
+    if pad:
+        r = torch.nn.functional.pad(r, (0, pad))
+        v = torch.nn.functional.pad(v, (0, pad))
     acc = torch.zeros((lanes,), dtype=torch.float32, device=r.device)
-    for j in range(0, C, lanes):
+    for j in range(0, C + pad, lanes):
         acc = _fma(r[j:j + lanes], v[j:j + lanes], acc)
     while acc.shape[0] > 1:
         h = acc.shape[0] // 2
@@ -48,12 +43,39 @@ def _spend(r, v):
     return acc[0]
 
 
-def _pick(qual, cost, r, lam):
+def _outside_lanes(C: int) -> int:
+    """The lanes of the spend of a plan picked outside the bisection
+    loop, in the order the reference's compiled CPU program takes for
+    this multiply-reduce standing alone: 8 when C is a multiple of 8, 4
+    when C == 4, else one chain. A one-ulp change of a spend moves the
+    budget blend below, and through it the switcher's deficit argmax, so
+    the order matters."""
+    return 8 if C % 8 == 0 else 4 if C == 4 else 1
+
+
+def _loop_lanes(C: int, K: int) -> int:
+    """The lanes of the spend inside the bisection loop, as the
+    reference's compiled CPU program takes it (jax 0.9 / XLA CPU).
+
+    XLA hoists a while loop whose buffers are small into one call and
+    compiles its body as a single function (the ``xla_cpu_small_call``
+    attribute, ``xla_cpu_small_while_loop_byte_threshold``). There the
+    spend is one FMA chain. A larger loop runs each fusion as its own
+    kernel, whose spend takes 4 vector lanes for C <= 4 and 8 (zero
+    padded) above. Which loops XLA hoists was read off the compiled
+    programs for C <= 16, K <= 40: exactly those with
+    4*C*K + 5*C + 2*K <= 162."""
+    if 4 * C * K + 5 * C + 2 * K <= 162:
+        return 1
+    return 4 if C <= 4 else 8
+
+
+def _pick(qual, cost, r, lam, lanes: int):
     score = qual - lam * cost[None, :]
     idx = torch.argmax(score, dim=1)
     a = torch.nn.functional.one_hot(idx, qual.shape[1]).to(torch.float32)
     # each row of a*cost holds one non-zero, so its sum is exact
-    return a, _spend(r, (a * cost[None, :]).sum(1))
+    return a, _lane_sum(r, (a * cost[None, :]).sum(1), lanes)
 
 
 def solve_lp_lagrangian(qual, cost, r, budget, iters: int = 64):
@@ -73,7 +95,8 @@ def solve_lp_lagrangian(qual, cost, r, budget, iters: int = 64):
         return torch.ones((C, 1), dtype=torch.float32, device=qual.device)
 
     zero = torch.zeros((), dtype=torch.float32, device=qual.device)
-    a0, s0 = _pick(qual, cost, r, zero)                   # unconstrained opt
+    outside = _outside_lanes(C)
+    a0, s0 = _pick(qual, cost, r, zero, outside)          # unconstrained opt
     # λ large enough that argmax is (near-)min-cost: must beat the largest
     # quality gap across the SMALLEST positive cost gap.
     gaps = torch.diff(torch.sort(cost).values)
@@ -84,11 +107,12 @@ def solve_lp_lagrangian(qual, cost, r, budget, iters: int = 64):
     q_range = qual.max() - qual.min()
     lam_hi = torch.clamp_max((q_range + 1.0) / torch.clamp_min(gap_min, 1e-6),
                              1e7)
-    a_aff, s_aff = _pick(qual, cost, r, lam_hi)           # min-spend plan
+    a_aff, s_aff = _pick(qual, cost, r, lam_hi, outside)  # min-spend plan
     lo, hi, a_un, s_un = zero, lam_hi, a0, s0
+    inside = _loop_lanes(C, K)
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
-        a, s = _pick(qual, cost, r, mid)
+        a, s = _pick(qual, cost, r, mid, inside)
         take = s <= budget
         lo, hi = torch.where(take, lo, mid), torch.where(take, mid, hi)
         a_aff, s_aff = torch.where(take, a, a_aff), torch.where(take, s, s_aff)

@@ -156,3 +156,9 @@ def window_scan(state, quals, arrivals, valid, alpha, tables: SwitchTables):
             outs[k].append(v)
     return state, {k: torch.stack(v) for k, v in outs.items()}
 
+
+def switch_step(state, qual_row, arrival, alpha, tables: SwitchTables):
+    """One knob-switching decision (``_switch`` on one step): qual_row
+    (K,) holds the measured qualities of this segment (only
+    ``qual_row[k_sel]`` is observed by the system)."""
+    return _switch(state, qual_row, arrival, alpha, tables)

@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -41,24 +41,44 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def sources() -> Tuple[str, ...]:
+    """The names of every kernel source under ``csrc/``."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built first if needed:
+    """The ctypes handle of ``csrc/<name>.cu``, built first if needed."""
+    return load_all((name,))[name]
+
+
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """The ctypes handles of ``csrc/<name>.cu`` for each name, building
+    the missing ones with one nvcc process each, all started together.
     nvcc writes a temporary file that is renamed when it is complete,
     and its output (ptxas's register counts) goes to ``BUILD_LOG``."""
-    lib = _LIBS.get(name)
-    if lib is None:
+    builds = []
+    for name in names:
+        if name in _LIBS:
+            continue
         out = _target(name)
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-            BUILD_LOG[name] = proc.stdout
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on csrc/{name}.cu:\n{proc.stdout}")
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        builds.append((name, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, tmp, out, proc in builds:
+        BUILD_LOG[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu:\n{BUILD_LOG[name]}")
+        else:
             os.replace(tmp, out)
-        lib = _LIBS[name] = ctypes.CDLL(str(out))
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(_target(name)))
+    return {name: _LIBS[name] for name in names}

@@ -1,0 +1,99 @@
+"""Attention: RoPE, full / causal GQA attention and one decode step, the
+port of ``repro/models/attention.py``.
+
+- ``mha``: training / prefill attention. On a CUDA tensor it is kernel
+  K3 (``kernels/flash_attention.py``), which streams over kv tiles the
+  way the reference's chunked scan streams over kv chunks; on the CPU
+  it is K3's plain version, one masked softmax.
+- ``decode_attend``: one query step against a (possibly ring-buffer) kv
+  cache with per-slot absolute positions, plain PyTorch (the reference
+  has no kernel for it).
+- ``attend``: the reference's dispatch. Its sliding-window branches run
+  ``banded_mha``, which comes with the first ported model that has a
+  window (ROADMAP, Queue 1); until then they raise.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
+                                                 masked_attention)
+
+
+# ------------------------------- RoPE --------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     exponent)
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x (..., S, H, D); positions broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)               # (D/2,)
+    ang = positions[..., None].float() * freqs                  # (..., S, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------- full / causal MHA ------------------------------
+def mha(q, k, v, *, causal: bool = True, q_offset: int = 0,
+        q_chunk: int = 512, kv_chunk: int = 1024,
+        scale: Optional[float] = None):
+    """q (B,Sq,H,D); k, v (B,Skv,G,D) with H = G*R. Returns (B,Sq,H,D).
+
+    ``q_chunk`` and ``kv_chunk`` are the reference's memory knobs: K3
+    picks its own tiles and the plain version does not chunk. On CUDA,
+    K3 takes queries from position 0 at the default scale D^-0.5; other
+    values raise there."""
+    if k.dtype != q.dtype:            # e.g. a low-precision cache
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    if q.device.type == "cuda":
+        D = q.shape[-1]
+        if q_offset != 0 or (scale is not None and scale != D ** -0.5):
+            raise ValueError("the attention kernel takes q_offset=0 and the "
+                             f"scale D^-0.5, not q_offset={q_offset}, "
+                             f"scale={scale}")
+        return flash_attention(q, k, v, causal=causal)
+    return masked_attention(q, k, v, causal=causal, window=None,
+                            q_offset=q_offset, scale=scale)
+
+
+# ------------------------------- decode ------------------------------------
+def decode_attend(q, k_cache, v_cache, slot_pos, cur_pos, *,
+                  window: Optional[int] = None,
+                  scale: Optional[float] = None):
+    """One decode step. q (B,1,H,D); caches (B,Sc,G,D); slot_pos (B,Sc)
+    absolute position per slot (-1 = empty); cur_pos (B,)."""
+    B, _, H, D = q.shape
+    _, Sc, G, _ = k_cache.shape
+    R = H // G
+    scale = scale or D ** -0.5
+    k_cache = k_cache.to(q.dtype)
+    v_cache = v_cache.to(q.dtype)
+    qg = (q * scale).reshape(B, 1, G, R, D)
+    s = torch.einsum("bqgrd,bsgd->bgrqs", qg, k_cache).float()
+    ok = (slot_pos >= 0) & (slot_pos <= cur_pos[:, None])
+    if window is not None:
+        ok &= slot_pos > (cur_pos[:, None] - window)
+    s = torch.where(ok[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqs,bsgd->bgrqd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def attend(q, k, v, *, causal: bool, window: Optional[int],
+           q_offset: int = 0, q_chunk: int = 512, kv_chunk: int = 1024):
+    """Dispatch: the banded path when a window is set, else ``mha``."""
+    if window is not None and causal:
+        raise NotImplementedError(
+            "sliding-window attention (banded_mha) is not ported yet; it "
+            "comes with the first windowed model (ROADMAP, Queue 1)")
+    return mha(q, k, v, causal=causal, q_offset=q_offset, q_chunk=q_chunk,
+               kv_chunk=kv_chunk)

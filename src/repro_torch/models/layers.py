@@ -1,0 +1,53 @@
+"""Common layers: the port of ``repro/models/layers.py`` for the dense
+path. The reference's ``shard(...)`` constraints are identities on one
+card, so they are gone."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def rms_norm(x, w, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * w).to(dt)
+
+
+def padded_vocab(vocab: int, multiple: int = 256) -> int:
+    return -(-vocab // multiple) * multiple
+
+
+def mlp(params, x, kind: str):
+    """kind: swiglu (w_gate, w_up, w_down) | relu2 / gelu (w_up, w_down,
+    gelu with optional b_up, b_down)."""
+    if kind == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif kind == "relu2":
+        h = torch.relu(x @ params["w_up"]) ** 2
+    elif kind == "gelu":
+        h = x @ params["w_up"]
+        if "b_up" in params:
+            h = h + params["b_up"]
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h, approximate="tanh") @ params["w_down"]
+        return h + params["b_down"] if "b_down" in params else h
+    else:
+        raise ValueError(kind)
+    return h @ params["w_down"]
+
+
+def embed_tokens(table, tokens):
+    """table (Vp, d); tokens (B, S) integer."""
+    return table[tokens.long()]
+
+
+def lm_logits(x, head, vocab: int):
+    """x (..., d) @ head (d, Vp) -> (..., Vp), padded columns at -1e30."""
+    logits = x @ head
+    vp = head.shape[-1]
+    if vp != vocab:
+        logits[..., vocab:] = NEG_INF
+    return logits

@@ -1,6 +1,8 @@
-"""Kernel K1 (``csrc/warehouse_agg.cu``) on the card against its plain
-version on the same CUDA tensors. ``cuda``-marked: every test skips
-where no card is visible. On a machine with one:
+"""Kernels K1 (``csrc/warehouse_agg.cu``), K2 (``csrc/frame_preproc.cu``)
+and K3 (``csrc/flash_attention.cu``) on the card against their plain
+versions on the same CUDA tensors, and the reduced qwen model on the
+card against the same model on the CPU. ``cuda``-marked: every test
+skips where no card is visible. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -8,7 +10,11 @@ Tolerances: counts, max, min and integer-valued sums exactly; float
 sums and means to 1e-5 relative to the sum of magnitudes (the kernel's
 shared-memory atomics add a block's rows in another order than the
 plain version's ``index_add_``; both are float32 sums of at most a few
-thousand terms per group and block here).
+thousand terms per group and block here). K2: float32 within
+f^2 * 2^-24 * max|x| (a sum of f^2 terms in another order), bfloat16
+within one bfloat16 ulp. K3: within Skv * 2^-24 * max|v| (float32 sums
+over Skv keys in another order). The model's logits: 1e-4 (float32
+matmuls and attention in other orders, two layers).
 
 This file imports neither JAX nor ``repro``.
 """
@@ -16,7 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import frame_preproc as FP
 from repro_torch.kernels import warehouse_agg as K
+from repro_torch.models.model import Model
+from repro_torch.models.options import RunOptions
 from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy,
                                    SegmentStore, WindowAgg, execute)
 from repro_torch.warehouse import query as Q
@@ -169,3 +180,116 @@ def test_ragged_and_empty(cuda):
         assert float(part["cnt"].abs().sum()) == 0.0
         fill = {"max": float("-inf"), "min": float("inf")}.get(agg, 0.0)
         assert bool((part["acc"] == fill).all())
+
+
+# ---------------------------------------------------------------- K2 ----
+def _k2_tol(want, x, f):
+    tol = f * f * 2.0 ** -24 * float(x.float().abs().max()) + 1e-7
+    if want.dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * float(want.float().abs().max())
+    return tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", (2, 3, 4))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("shape", ((5, 48, 72, 3), (96, 60, 4)))
+def test_k2_matches_plain(cuda, factor, dtype, shape):
+    x = torch.randn(shape, device=cuda).to(dtype)
+    before = FP.LAUNCHES
+    got = FP.downsample(x, factor)
+    torch.cuda.synchronize()
+    assert FP.LAUNCHES == before + 1
+    want = FP.downsample_ref(x, factor)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= \
+        _k2_tol(want, x, factor)
+
+
+@pytest.mark.cuda
+def test_k2_strided_frame_axis(cuda):
+    x = torch.randn((12, 64, 96, 3), device=cuda)
+    for s in (2, 4):
+        got = FP.downsample(x[::s], 2)
+        want = FP.downsample_ref(x[::s].contiguous(), 2)
+        assert float((got - want).abs().max()) <= _k2_tol(want, x, 2)
+
+
+@pytest.mark.cuda
+def test_k2_refuses(cuda):
+    before = FP.LAUNCHES
+    with pytest.raises(TypeError, match="floating"):
+        FP.downsample(torch.zeros((4, 8, 3), dtype=torch.int32,
+                                  device=cuda), 2)
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
+        FP.downsample(torch.zeros((4, 8, 3), dtype=torch.float16,
+                                  device=cuda), 2)
+    with pytest.raises(ValueError, match="divide"):
+        FP.downsample(torch.zeros((6, 8, 3), device=cuda), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        FP.downsample(torch.zeros((2, 8, 8, 6), device=cuda)[..., ::2], 2)
+    assert FP.LAUNCHES == before
+
+
+# ---------------------------------------------------------------- K3 ----
+K3_CASES = (
+    (2, 300, 300, 8, 2, 64, True, None),
+    (2, 200, 333, 4, 4, 16, False, None),
+    (1, 130, 197, 4, 2, 64, True, None),
+    (1, 500, 500, 8, 4, 64, True, 32),
+    (1, 600, 600, 4, 2, 64, True, 256),
+    (4, 77, 77, 4, 4, 12, False, 32),
+    (3, 130, 130, 4, 1, 128, True, None),
+    (30, 16, 16, 4, 4, 8, True, None),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_matches_plain(cuda, case):
+    B, Sq, Skv, H, G, D, causal, window = case
+    q = torch.randn((B, Sq, H, D), device=cuda)
+    k = torch.randn((B, Skv, G, D), device=cuda)
+    v = torch.randn((B, Skv, G, D), device=cuda)
+    before = FA.LAUNCHES
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1
+    want = FA.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = Skv * 2.0 ** -24 * float(v.abs().max()) + 1e-6
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_k3_refuses(cuda):
+    q = torch.randn((1, 8, 4, 16), device=cuda)
+    before = FA.LAUNCHES
+    with pytest.raises(TypeError, match="float32"):
+        FA.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    big = torch.randn((1, 8, 4, 160), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="group"):
+        kv = q[:, :, :3].contiguous()
+        FA.flash_attention(q, kv, kv)
+    assert FA.LAUNCHES == before
+
+
+# ------------------------------------------------------------ model ----
+@pytest.mark.cuda
+def test_model_on_card_matches_cpu(cuda):
+    model = Model(get("qwen1.5-0.5b").reduced(),
+                  RunOptions(compute_dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in params.items()}
+    tokens = torch.randint(0, 256, (3, 40), generator=torch.Generator()
+                           .manual_seed(1))
+    before = FA.LAUNCHES
+    got = model.forward_logits(on_card, {"tokens": tokens.to(cuda)})
+    assert FA.LAUNCHES == before + model.cfg.n_layers
+    want = model.forward_logits(params, {"tokens": tokens})
+    assert float((got.cpu() - want).abs().max()) <= 1e-4

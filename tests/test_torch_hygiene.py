@@ -5,6 +5,8 @@
 - importing the port builds nothing (no compiler runs at import);
 - every entry point defaults to CUDA and raises when there is none;
 - ``chip_smoke.py`` fails, and prints no result, without a card;
+- on the CPU, every kernel wrapper (K1, K2, K3) takes its plain version
+  and launches nothing;
 - on the card, the K1 wrapper refuses a spec beyond its limits
   (``cuda``-marked: skips here).
 
@@ -94,7 +96,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.convert import forecaster_from_arrays
     from repro_torch.core.categories import kmeans
     from repro_torch.core.forecaster import init_forecaster
+    from repro_torch.configs.base import get
+    from repro_torch.core.api import Skyscraper
     from repro_torch.core.offline import fit
+    from repro_torch.core.vetl_serving import BackboneVETL
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
     from repro_torch.warehouse import SegmentStore
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -107,6 +114,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         fit(COVID, n_cores=8, days_unlabeled=0.5)
     with pytest.raises(RuntimeError, match="CUDA"):
         forecaster_from_arrays({"l1": {"w": [[1.0]], "b": [0.0]}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(get("qwen1.5-0.5b").reduced()).init(
+            torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BackboneVETL()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Skyscraper()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "1", "--prompt-len", "4", "--gen", "2"])
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -120,6 +136,22 @@ def test_cpu_tensors_take_the_plain_version():
     assert K.LAUNCHES == before
     assert got["acc"].tolist() == [1.0, 5.0, 4.0]
     assert got["cnt"].tolist() == [1.0, 2.0, 1.0]
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import frame_preproc as FP
+    frames = torch.arange(2 * 4 * 4 * 1, dtype=torch.float32).reshape(
+        2, 4, 4, 1)
+    before = FP.LAUNCHES
+    down = FP.downsample(frames, 2)
+    assert FP.LAUNCHES == before
+    assert down[0, :, :, 0].tolist() == [[2.5, 4.5], [10.5, 12.5]]
+    q = torch.randn(1, 5, 2, 8, generator=torch.Generator().manual_seed(0))
+    before = FA.LAUNCHES
+    out = FA.flash_attention(q, q[:, :, :1].contiguous(),
+                             q[:, :, :1].contiguous())
+    assert FA.LAUNCHES == before
+    # causal: the first query sees only the first key
+    assert torch.equal(out[0, 0, 0], q[0, 0, 0])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
