@@ -12,7 +12,8 @@ script fails before it prints a result.
               its own line before the last).
 2. build      one nvcc per kernel source in ``src/repro_torch/csrc``,
               all started together: K1 ``warehouse_agg.cu``, K2
-              ``frame_preproc.cu``, K3 ``flash_attention.cu``.
+              ``frame_preproc.cu``, K3 ``flash_attention.cu``, K4
+              ``ssd_scan.cu``.
 3. kernel     K1 against its plain version on the same CUDA tensors over
               the test matrix at 1M rows (shared- and global-memory
               accumulators), and against a float64 host oracle.
@@ -21,6 +22,14 @@ script fails before it prints a result.
               and the Transform's (30, 720, 1280, 3) segment.
 5. kernel_k3  K3 against its plain version: causal and not, windows 32
               and 256, G < H, ragged Sq and Skv, head dims 8 to 128.
+5b. kernel_k4 K4 against its plain version run in float64: G = 1 and
+              G > 1, S past and short of a multiple of the chunk, S below
+              the chunk, chunks 8 to 256, P 8 to 64, N 16 and 128, with
+              and without ``init_state``, and the mamba2-370m serve
+              prefill (B=4, S=2048, H=32, P=64, G=1, N=128, Q=256); y and
+              the final state. Inputs drawn as the model draws them:
+              dt = softplus(dt_bias + z) with dt_bias from the ``dt_bias``
+              init range, A = -exp(A_log) from the ``ssm_a`` range.
 6. main       the single-stream main path at full size, with the launch
               counts set to 0 just before it and read just after:
               ``fit(COVID, n_cores=8, days_unlabeled=2.0)``, a 1-day
@@ -50,6 +59,13 @@ script fails before it prints a result.
               serve loop (prefill of 2,048 tokens, cache 2,056, 8 tokens
               generated per request). Then one batch's logits against
               the same model with K3's plain version on the card.
+9b. serve_ssm the same serving path for the SSM family, counts set to 0
+              just before it: ``Model(get("mamba2-370m"))`` at the
+              published config (48 layers, d_model 1024, d_inner 2048, 32
+              heads of 64, d_state 128) in float32, random weights from
+              seed 0, through ``serve`` with the same requests. K4 must
+              launch once per layer and prefill; then one batch's logits
+              against the same model with K4's plain version on the card.
 10. time      CUDA-event medians of device time (the card spins while
               the host enqueues each timed call): K1, its plain version
               and one ``index_add_``/``scatter_reduce_`` call per
@@ -59,8 +75,10 @@ script fails before it prints a result.
               ``F.avg_pool2d`` on an NCHW copy; K3 at B=4, S=2048,
               H=G=16, D=64, causal beside its operation bound (FP32
               CUDA-core peak), its plain version and
-              ``F.scaled_dot_product_attention``. The library calls are
-              yardsticks the port never calls.
+              ``F.scaled_dot_product_attention``; K4 at the mamba2-370m
+              serve prefill beside its operation bound and its plain
+              version (no PyTorch call computes the SSD scan). The library
+              calls are yardsticks the port never calls.
 
 Tolerances. K1: counts, max, min and integer-valued sums are exact.
 Float sums and means: K1 within 1e-4 of each group's sum of magnitudes
@@ -76,11 +94,17 @@ rows; its float32 form is what ``plain_ms`` times.
 K2: float32 within f^2 * 2^-24 * max|x| (reordering a sum of f^2
 terms), bfloat16 within one bfloat16 ulp (2^-7 relative) of the plain
 version. K3: within Skv * 2^-24 * max|v| of the plain version (the
-worst case of reordering float32 sums over Skv keys). Transform
+worst case of reordering float32 sums over Skv keys). K4: y and the
+final state within ``kernels.ssd.error_bound`` of the plain version in
+float64: 2^-24 * (N + 3 S' + 32 Lambda + 16) times the largest sum of
+magnitudes of one output (S' the padded length, Lambda the largest sum
+of |dt * A| over a chunk; the bound follows the float32 sums' lengths
+and the cumsum's roundings inside each decay exponent). Transform
 qualities: 1e-5 against the CPU run. Serve: logits within 1e-3 of the
 plain-attention model (float32 attention summed in another order moves
 each layer by about 1e-6 relative; 24 layers and the head leave that
-far below 1e-3), and at least 99% of next tokens equal.
+far below 1e-3), and at least 99% of next tokens equal; the same limits
+for mamba2-370m against the plain-SSD model.
 """
 from __future__ import annotations
 
@@ -111,6 +135,7 @@ LOGIT_TOL = 1e-3
 TOKEN_AGREEMENT = 0.99
 SERVE = dict(requests=8, batch=4, prompt_len=2048, gen=8)
 ATTN_TIME = (4, 2048, 16, 64)       # B, S, H = G, D of the serve prefill
+SSD_TIME = (4, 2048, 32, 64, 1, 128, 256)   # B, S, H, P, G, N, Q: mamba2
 SPIN_CYCLES = 40_000_000            # ~20 ms of the card's clock per timing
 
 
@@ -479,6 +504,66 @@ def phase_kernel_k3(dev):
     return max(errs.values())
 
 
+def _k4_cases():
+    """(B, S, H, P, G, N, chunk, init_state)."""
+    yield SSD_TIME + (False,)                        # serve prefill
+    yield 2, 2048, 32, 64, 1, 128, 256, True         # with a state in
+    yield 2, 1000, 8, 64, 1, 128, 256, False         # S % Q != 0
+    yield 2, 100, 8, 64, 2, 128, 256, True           # S < Q, G > 1
+    yield 1, 777, 12, 16, 4, 16, 64, True            # Q 64, P 16, N 16
+    yield 2, 300, 6, 64, 3, 128, 16, False           # Q 16
+    yield 1, 513, 4, 64, 1, 16, 256, False
+    yield 3, 33, 3, 8, 3, 16, 8, True                # test_kernels' uneven
+
+
+def ssd_inputs(B, S, H, P, G, N, gen, dev):
+    """x, dt, A, Bm, Cm and a state drawn as the model draws them:
+    dt = softplus(dt_bias + z) with dt_bias the inverse softplus of
+    U[1e-3, 1e-1], A = -U[1, 16] (= -exp(A_log))."""
+    import torch.nn.functional as F
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    dt_bias = torch.log(torch.expm1(1e-3 + (1e-1 - 1e-3) * rand(H)))
+    dt = F.softplus(dt_bias + randn(B, S, H))
+    A = -(1.0 + 15.0 * rand(H))
+    return (randn(B, S, H, P), dt, A, randn(B, S, G, N), randn(B, S, G, N),
+            randn(B, H, P, N) * 0.5)
+
+
+def phase_kernel_k4(dev):
+    """K4 vs its plain version in float64 on the same CUDA tensors."""
+    from repro_torch.kernels import ssd as SSD
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs, before = {}, SSD.LAUNCHES
+    for B, S, H, P, G, N, chunk, with_init in _k4_cases():
+        *args, init = ssd_inputs(B, S, H, P, G, N, gen, dev)
+        init = init if with_init else None
+        y, state = SSD.ssd_scan(*args, chunk=chunk, init_state=init)
+        sync()
+        want_y, want_state = SSD.ssd_scan_ref(
+            *[a.double() for a in args], chunk=chunk,
+            init_state=None if init is None else init.double())
+        tol_y, tol_state = SSD.error_bound(*args, chunk=chunk,
+                                           init_state=init)
+        name = (f"B{B}_S{S}_H{H}_P{P}_G{G}_N{N}_Q{chunk}"
+                f"{'_init' if with_init else ''}")
+        err_y, err_state = _max_err(y.double(), want_y), \
+            _max_err(state.double(), want_state)
+        if not (err_y <= tol_y and err_state <= tol_state):
+            raise AssertionError(f"K4 {name}: max error y {err_y} > {tol_y} "
+                                 f"or state {err_state} > {tol_state}")
+        errs[name] = {"y": err_y, "state": err_state, "tol_y": tol_y,
+                      "tol_state": tol_state}
+        del args, init, y, state, want_y, want_state
+    emit("kernel_k4", cases=len(errs), launches=SSD.LAUNCHES - before,
+         max_abs_err=errs)
+    return max(max(e["y"], e["state"]) for e in errs.values())
+
+
 def main_plans(store):
     from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy, TopK,
                                        WindowAgg, windows_for)
@@ -760,6 +845,72 @@ class plain_attention:
         A.flash_attention = self._kernel
 
 
+class plain_ssd:
+    """Within the block, the model's SSD scan calls K4's plain version on
+    the card instead of the kernel (the serve_ssm check's comparison)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ssd as SSD
+        from repro_torch.models import ssd as S
+        self._kernel = S.ssd_scan
+        S.ssd_scan = SSD.ssd_scan_ref
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssd as S
+        S.ssd_scan = self._kernel
+
+
+def first_batch(corpus, params):
+    """The serve loop's first batch of prompts, on the params' device."""
+    return torch.as_tensor(corpus.batch(SERVE["batch"], SERVE["prompt_len"],
+                                        0), device=params["embed"].device)
+
+
+def serve_check(cfg, model, params, toks, plain):
+    """The logits of the prompts ``toks`` against the same model inside
+    ``plain`` (a block that swaps a kernel for its plain version): the
+    max error, the largest |logit| and the share of equal next tokens;
+    raise past LOGIT_TOL or below TOKEN_AGREEMENT."""
+    with torch.no_grad():
+        logits = model.forward_logits(params, {"tokens": toks})
+        k_next = logits.argmax(-1)
+        finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+        with plain():
+            ref = model.forward_logits(params, {"tokens": toks})
+        err = float((logits - ref).abs().max())
+        scale = float(ref[..., :cfg.vocab].abs().max())
+        agree = float((k_next == ref.argmax(-1)).float().mean())
+    del logits, ref
+    if not finite or not err <= LOGIT_TOL or agree < TOKEN_AGREEMENT:
+        raise AssertionError(f"{cfg.name} logits: finite={finite} err={err} "
+                             f"agreement={agree}")
+    return err, scale, agree
+
+
+def _check_outputs(cfg, stats):
+    out = np.concatenate(stats["outputs"])
+    if out.shape != (SERVE["requests"], SERVE["gen"]) or \
+            not ((out >= 0) & (out < cfg.vocab)).all():
+        raise AssertionError(f"{cfg.name}: bad generated tokens {out.shape}")
+    return out
+
+
+def serve_split(model, params, toks, stats):
+    """The serve time's parts: drawing prompts on the host (the card idle)
+    and one warm prefill of the prompts ``toks`` alone, ending in a host
+    read of its tokens."""
+    with torch.no_grad():
+        _, prefill_s = timed(lambda: model.prefill(
+            params, {"tokens": toks},
+            cache_len=SERVE["prompt_len"] + SERVE["gen"])[0].cpu())
+    return {"draw_s": stats["draw_seconds"], "prefill_s": prefill_s}
+
+
+def _n_params(params) -> int:
+    return sum(v.numel() for v in [params["embed"], params["final_ln"],
+                                   *params["layers"].values()])
+
+
 def phase_serve(dev):
     """The serving path at the published config, counted, then one
     batch's logits against the plain-attention model."""
@@ -778,41 +929,68 @@ def phase_serve(dev):
         torch.Generator(device=dev).manual_seed(0), dev))
     corpus = SyntheticCorpus(cfg.vocab, 0)
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     FA.LAUNCHES = 0
     stats = serve(model, params, corpus, log=lambda line: None, **SERVE)
     launches = FA.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if launches == 0:
         raise AssertionError("the serve path launched no attention kernel")
-    out = np.concatenate(stats["outputs"])
-    if out.shape != (SERVE["requests"], SERVE["gen"]) or \
-            not ((out >= 0) & (out < cfg.vocab)).all():
-        raise AssertionError(f"bad generated tokens {out.shape}")
-
-    toks = torch.as_tensor(corpus.batch(SERVE["batch"],
-                                        SERVE["prompt_len"], 0), device=dev)
-    with torch.no_grad():
-        logits = model.forward_logits(params, {"tokens": toks})
-        k_next = logits.argmax(-1)
-        finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
-        with plain_attention():
-            plain = model.forward_logits(params, {"tokens": toks})
-        err = float((logits - plain).abs().max())
-        scale = float(plain[..., :cfg.vocab].abs().max())
-        agree = float((k_next == plain.argmax(-1)).float().mean())
-    del logits, plain
+    out = _check_outputs(cfg, stats)
+    toks = first_batch(corpus, params)
+    split = serve_split(model, params, toks, stats)
+    err, scale, agree = serve_check(cfg, model, params, toks,
+                                    plain_attention)
     emit("serve", layers=cfg.n_layers, d_model=cfg.d_model,
-         vocab=cfg.vocab, params=sum(
-             v.numel() for v in [params["embed"], params["final_ln"],
-                                 *params["layers"].values()]),
+         vocab=cfg.vocab, params=_n_params(params),
          init_s=init_s, seconds=stats["seconds"], tokens=stats["tokens"],
-         tok_per_s=stats["tokens"] / stats["seconds"], launches=launches,
-         peak_mem_bytes=peak, generated_first=out[0].tolist(),
+         tok_per_s=stats["tokens"] / stats["seconds"], **split,
+         launches=launches, mem_at_start_bytes=mem0, peak_mem_bytes=peak,
+         generated_first=out[0].tolist(),
          logits_max_abs_err=err, logits_max_abs=scale,
          next_token_agreement=agree)
-    if not finite or not err <= LOGIT_TOL or agree < TOKEN_AGREEMENT:
-        raise AssertionError(f"serve logits: finite={finite} err={err} "
-                             f"agreement={agree}")
+    return dict(launches=launches, err=err)
+
+
+def phase_serve_ssm(dev):
+    """The serving path for mamba2-370m at the published config,
+    counted, then one batch's logits against the plain-SSD model."""
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions
+
+    cfg = get("mamba2-370m")
+    model = Model(cfg, RunOptions(remat="none", layer_loop="scan",
+                                  compute_dtype="float32"))
+    params, init_s = timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    corpus = SyntheticCorpus(cfg.vocab, 0)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    SSD.LAUNCHES = 0
+    stats = serve(model, params, corpus, log=lambda line: None, **SERVE)
+    launches = SSD.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    batches = -(-SERVE["requests"] // SERVE["batch"])
+    if launches != cfg.n_layers * batches:
+        raise AssertionError(f"the mamba2 serve path launched K4 {launches} "
+                             f"times, not once per layer and prefill")
+    out = _check_outputs(cfg, stats)
+    toks = first_batch(corpus, params)
+    split = serve_split(model, params, toks, stats)
+    err, scale, agree = serve_check(cfg, model, params, toks, plain_ssd)
+    emit("serve_ssm", layers=cfg.n_layers, d_model=cfg.d_model,
+         d_inner=cfg.d_inner, heads=cfg.ssm_heads, d_state=cfg.ssm.d_state,
+         vocab=cfg.vocab, params=_n_params(params), init_s=init_s,
+         seconds=stats["seconds"], tokens=stats["tokens"],
+         tok_per_s=stats["tokens"] / stats["seconds"], **split,
+         launches=launches, mem_at_start_bytes=mem0, peak_mem_bytes=peak,
+         generated_first=out[0].tolist(),
+         logits_max_abs_err=err, logits_max_abs=scale,
+         next_token_agreement=agree)
     return dict(launches=launches, err=err)
 
 
@@ -900,6 +1078,39 @@ def phase_time_k2_k3(dev):
     return k2, k3
 
 
+def ssd_work(B, S, H, P, G, N, Q):
+    """(FLOPs, bytes) the SSD scan needs at a shape whose S is a multiple
+    of Q, with no state in: the causal half of C.B^T once per (b, g,
+    chunk), the causal half of the scores times x, C . state and the
+    state update per head (2 FLOPs a MAC); x and y, B and C, dt, A and
+    the final state, each moved once."""
+    nc, pairs = S // Q, Q * (Q + 1) // 2
+    flops = (2 * N * pairs * B * G * nc + 2 * P * pairs * B * H * nc
+             + 2 * 2 * Q * N * P * B * H * nc)
+    nbytes = 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + H
+                  + B * H * P * N)
+    return flops, nbytes
+
+
+def phase_time_k4(dev):
+    """K4 at the mamba2-370m serve prefill: kernel and plain version,
+    CUDA-event medians, beside the operation and byte bounds."""
+    from repro_torch.kernels import ssd as SSD
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, S, H, P, G, N, Q = SSD_TIME
+    *args, _ = ssd_inputs(B, S, H, P, G, N, gen, dev)
+    flops, nbytes = ssd_work(B, S, H, P, G, N, Q)
+    op_ms = flops / FP32_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    k4 = {"kernel_ms": cuda_ms(lambda: SSD.ssd_scan(*args, chunk=Q), 20),
+          "plain_ms": cuda_ms(lambda: SSD.ssd_scan_ref(*args, chunk=Q), 5),
+          "library_ms": None, "shape": list(SSD_TIME), "flops": flops,
+          "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
+          "bound_by": "operations" if op_ms > byte_ms else "bytes"}
+    emit("time_k4", ssd_scan=k4)
+    return k4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -918,13 +1129,16 @@ def main() -> int:
     k1_err = phase_kernel(dev)
     k2_err = phase_kernel_k2(dev)
     k3_err = phase_kernel_k3(dev)
+    k4_err = phase_kernel_k4(dev)
     m = phase_main(dev)
     errs = phase_check(m)
     t = phase_transform(dev)
     phase_transform_check(t)
     sv = phase_serve(dev)
+    ss = phase_serve_ssm(dev)
     per = phase_time(m, errs)
     k2, k3 = phase_time_k2_k3(dev)
+    k4 = phase_time_k4(dev)
     tot = {k: sum(q[k] for q in per.values())
            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
     k1_max = max([k1_err["vs_plain"]]
@@ -966,6 +1180,18 @@ def main() -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd.py:63",
+        "launches": ss["launches"],
+        "max_abs_err": k4_err,
+        "ms": k4["kernel_ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 Each architecture module in this package exports ``CONFIG`` with the
 published numbers and registers it; ``get(name)`` looks one up and
 ``reduced()`` gives the tiny same-family config the CPU tests use. Only
-the families the port runs have modules here (qwen1.5-0.5b, dense); the
-others come with their slices (ROADMAP, Queue 1).
+the families the port runs have modules here (qwen1.5-0.5b, dense;
+mamba2-370m, ssm); the others come with their slices (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -62,6 +62,18 @@ class ArchConfig:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
 
+    @property
+    def d_inner(self) -> int:
+        if self.ssm is None:
+            return 0
+        return self.ssm.d_inner or 2 * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        if self.ssm is None:
+            return 0
+        return self.d_inner // self.ssm.head_dim
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's
         numbers, so both sides build the same shapes)."""
@@ -100,7 +112,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get(name: str) -> ArchConfig:
     """The registered config ``name``; the architecture modules are
     imported here for their side effect."""
-    from repro_torch.configs import qwen1_5_0_5b  # noqa: F401
+    from repro_torch.configs import mamba2_370m, qwen1_5_0_5b  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; the port has "
                        f"{sorted(_REGISTRY)}")

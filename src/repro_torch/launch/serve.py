@@ -4,9 +4,11 @@ port of ``repro/launch/serve.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --requests 16 --prompt-len 32 --gen 8 [--device cpu]
 
-The CLI serves the reduced config, as the reference's does; ``serve``
-runs the same request loop for any model and parameters (``chip_smoke.py``
-calls it at the published config).
+``--arch`` takes any config the port registers (qwen1.5-0.5b, dense;
+mamba2-370m, ssm). The CLI serves the reduced config, as the
+reference's does; ``serve`` runs the same request loop for any model and
+parameters the port runs (``chip_smoke.py`` calls it at the published
+configs).
 """
 from __future__ import annotations
 
@@ -30,13 +32,16 @@ def serve(model: Model, params: Dict, corpus: SyntheticCorpus, *,
     batches of ``batch``: one prefill with room for ``gen`` tokens, then
     ``gen - 1`` decode steps, so ``gen`` tokens per request. Returns the
     token count, the wall seconds (each batch ends in a host read of its
-    tokens) and each batch's generated tokens."""
+    tokens), the part of them spent drawing prompts on the host (the
+    device is idle then) and each batch's generated tokens."""
     dev = params["embed"].device
-    total, outputs = 0, []
+    total, outputs, draw_s = 0, [], 0.0
     t0 = time.time()
     for r0 in range(0, requests, batch):
         b = min(batch, requests - r0)
+        t_draw = time.time()
         toks = torch.as_tensor(corpus.batch(b, prompt_len, r0), device=dev)
+        draw_s += time.time() - t_draw
         nxt, cache = model.prefill(params, {"tokens": toks},
                                    cache_len=prompt_len + gen)
         outs = [nxt]
@@ -47,7 +52,8 @@ def serve(model: Model, params: Dict, corpus: SyntheticCorpus, *,
         total += b * gen
         outputs.append(generated)
         log(f"batch {r0 // batch}: generated {generated[0][:8]}...")
-    return {"tokens": total, "seconds": time.time() - t0, "outputs": outputs}
+    return {"tokens": total, "seconds": time.time() - t0,
+            "draw_seconds": draw_s, "outputs": outputs}
 
 
 def main(argv=None):

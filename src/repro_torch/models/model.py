@@ -32,16 +32,28 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
+_UNIFORM = {"ssm_a": (1.0, 16.0), "dt_bias": (1e-3, 1e-1)}
+
+
 def materialize(meta: ParamMeta, generator: torch.Generator, device):
     """One parameter from its meta, as the reference's init kinds:
-    ``normal`` scaled by 1/sqrt(fan-in), ``embed`` normal x 0.02, and
-    ``zeros`` / ``ones``. Draws come from ``generator`` on its own
-    device, so a seed gives the same weights on every target device."""
+    ``normal`` scaled by 1/sqrt(fan-in), ``embed`` normal x 0.02,
+    ``ssm_a`` (A_log: log of U[1, 16]), ``dt_bias`` (the inverse softplus
+    of U[1e-3, 1e-1]) and ``zeros`` / ``ones``. Draws come from
+    ``generator`` on its own device, so a seed gives the same weights on
+    every target device."""
     dt = getattr(torch, meta.dtype)
     if meta.init == "zeros":
         return torch.zeros(meta.shape, dtype=dt, device=device)
     if meta.init == "ones":
         return torch.ones(meta.shape, dtype=dt, device=device)
+    if meta.init in _UNIFORM:
+        lo, hi = _UNIFORM[meta.init]
+        u = lo + (hi - lo) * torch.rand(meta.shape, generator=generator,
+                                        dtype=torch.float32,
+                                        device=generator.device)
+        x = torch.log(u) if meta.init == "ssm_a" else torch.log(torch.expm1(u))
+        return x.to(device=device, dtype=dt)
     x = torch.randn(meta.shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     if meta.init == "embed":
@@ -115,8 +127,18 @@ class Model:
 
     def cache_meta(self, batch: int, seq_len: int) -> Dict[str, Any]:
         cfg = self.cfg
+        pos = PM((), "zeros", "int32")
+        if cfg.family == "ssm":
+            s, cdt, L = cfg.ssm, self.opts.compute_dtype, cfg.n_layers
+            di, GN, cw = cfg.d_inner, s.n_groups * s.d_state, s.conv_width - 1
+            return {"layers": {
+                "ssm": PM((L, batch, cfg.ssm_heads, s.head_dim, s.d_state),
+                          "zeros", "float32"),
+                "conv_x": PM((L, batch, cw, di), "zeros", cdt),
+                "conv_b": PM((L, batch, cw, GN), "zeros", cdt),
+                "conv_c": PM((L, batch, cw, GN), "zeros", cdt)},
+                "pos": pos}
         kv = PM((cfg.n_layers, batch, self.cache_len(seq_len),
                  cfg.n_kv_heads, cfg.hd), "zeros", self.opts.compute_dtype)
-        return {"layers": {"k": kv, "v": kv},
-                "pos": PM((), "zeros", "int32"),
+        return {"layers": {"k": kv, "v": kv}, "pos": pos,
                 "slot_pos": PM((self.cache_len(seq_len),), "zeros", "int32")}

@@ -1,16 +1,18 @@
-"""Decoder stack, dense path: the port of ``repro/models/transformer.py``
-for the dense (and vlm) family — prefill / forward and decode.
+"""Decoder stack: the port of ``repro/models/transformer.py`` for the
+dense (and vlm) family and the SSM family (mamba2) — prefill / forward
+and decode.
 
 Parameters are a plain dict with the reference's layout: ``embed`` (Vp,
 d), ``final_ln``, optional ``head``, and ``layers`` whose leaves are
 stacked on a leading L axis. The reference's ``lax.scan`` over layers is
-a Python loop over that axis. MoE, SSM, hybrid and encoder-decoder
-models raise until their slices come (ROADMAP, Queue 1).
+a Python loop over that axis. MoE, hybrid and encoder-decoder models
+raise until their slices come (ROADMAP, Queue 1).
 
-Decode updates the kv cache in place (``index_copy_`` at the step's
-slot) instead of returning a copy: a cache of 24 layers at 2,056
-positions is 400 MB, and the reference copies it only because its
-arrays are immutable.
+Decode updates the cache in place instead of returning a copy: the kv
+cache (``index_copy_`` at the step's slot; 24 layers at 2,056 positions
+are 400 MB) and the SSM state and conv caches (``copy_``; mamba2-370m's
+state is 201 MB at a batch of 4). The reference copies them only because
+its arrays are immutable.
 """
 from __future__ import annotations
 
@@ -21,12 +23,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import ssd
 from repro_torch.models.attention import apply_rope, attend, decode_attend
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
                                        padded_vocab, rms_norm)
 from repro_torch.models.options import RunOptions
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "ssm")
 
 
 @dataclass(frozen=True)
@@ -34,7 +37,7 @@ class ParamMeta:
     """Shape, init kind and dtype of one parameter (the reference's
     ``ParamMeta`` without its sharding axes)."""
     shape: Tuple[int, ...]
-    init: str = "normal"             # normal | zeros | ones | embed
+    init: str = "normal"             # normal | zeros | ones | ssm_a | dt_bias | embed
     dtype: str = "float32"
     fan_in_dims: Tuple[int, ...] = (0,)   # dims contracted at use (scale)
 
@@ -83,8 +86,39 @@ def mlp_meta(cfg: ArchConfig) -> Dict[str, PM]:
     return m
 
 
+def ssm_meta(cfg: ArchConfig) -> Dict[str, PM]:
+    """The mamba2 block: projections kept unfused (wx, wz, wb, wc
+    separate, one causal conv per tensor), as the reference lays them
+    out. (The reference's ``di`` and ``own_norm`` serve the hybrid
+    family, which is not ported.)"""
+    s = cfg.ssm
+    d, di, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    GN = s.n_groups * s.d_state
+    return {
+        "ln1": PM((d,), "ones"),
+        "wx": PM((d, di)),
+        "wz": PM((d, di)),
+        "wb": PM((d, GN)),
+        "wc": PM((d, GN)),
+        "wdt": PM((d, H)),
+        "dt_bias": PM((H,), "dt_bias"),
+        "A_log": PM((H,), "ssm_a"),
+        "Dskip": PM((H,), "ones"),
+        "conv_wx": PM((s.conv_width, di)),
+        "conv_bx": PM((di,), "zeros"),
+        "conv_wb": PM((s.conv_width, GN)),
+        "conv_bb": PM((GN,), "zeros"),
+        "conv_wc": PM((s.conv_width, GN)),
+        "conv_bc": PM((GN,), "zeros"),
+        "gln": PM((di,), "ones"),
+        "wout": PM((di, d)),
+    }
+
+
 def layer_meta(cfg: ArchConfig) -> Dict[str, PM]:
     check_family(cfg)
+    if cfg.family == "ssm":
+        return ssm_meta(cfg)
     return {**attn_meta(cfg), **mlp_meta(cfg)}
 
 
@@ -151,6 +185,74 @@ def attn_decode(p, x, cfg: ArchConfig, *, window, kc, vc, slot_pos, cur_pos):
     return x + o.reshape(B, 1, -1) @ p["wo"]
 
 
+def _ssm_pre(p, xn):
+    """Unfused projections. Returns x_in, z (…,di), b, c (…,GN),
+    dt_raw (…,H)."""
+    return (xn @ p["wx"], xn @ p["wz"], xn @ p["wb"], xn @ p["wc"],
+            xn @ p["wdt"])
+
+
+def ssm_apply(p, x, cfg: ArchConfig, opts: RunOptions, *,
+              return_state: bool = False):
+    """Mamba2 block over the full sequence. x (B,S,d). Returns (y, the
+    decode cache or None): with ``return_state`` the final SSM state and
+    the last cw-1 positions of each conv input."""
+    s = cfg.ssm
+    B, S, _ = x.shape
+    di, H, P = cfg.d_inner, cfg.ssm_heads, s.head_dim
+    G, N = s.n_groups, s.d_state
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x_raw, z, b, c, dtr = _ssm_pre(p, xn)
+    x_in = F.silu(ssd.causal_conv(x_raw, p["conv_wx"], p["conv_bx"]))
+    b_c = F.silu(ssd.causal_conv(b, p["conv_wb"], p["conv_bb"]))
+    c_c = F.silu(ssd.causal_conv(c, p["conv_wc"], p["conv_bc"]))
+    Bm = b_c.reshape(B, S, G, N)
+    Cm = c_c.reshape(B, S, G, N)
+    dt = F.softplus(dtr + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    xh = x_in.reshape(B, S, H, P)
+    y, state = ssd.ssd_scan(xh, dt, A, Bm, Cm, chunk=opts.ssd_chunk)
+    y = y + p["Dskip"][None, None, :, None] * xh
+    y = rms_norm(y.reshape(B, S, di) * F.silu(z), p["gln"], cfg.norm_eps)
+    cache = None
+    if return_state:
+        cw = s.conv_width
+        cache = {"ssm": state, "conv_x": x_raw[:, -(cw - 1):],
+                 "conv_b": b[:, -(cw - 1):], "conv_c": c[:, -(cw - 1):]}
+    return x + y @ p["wout"], cache
+
+
+def ssm_decode(p, x, cfg: ArchConfig, cache_l):
+    """One step. x (B,1,d); cache_l holds this layer's ssm (B,H,P,N)
+    float32, conv_x (B,cw-1,di), conv_b and conv_c (B,cw-1,GN), all
+    updated in place."""
+    s = cfg.ssm
+    B = x.shape[0]
+    di, H, P = cfg.d_inner, cfg.ssm_heads, s.head_dim
+    G, N = s.n_groups, s.d_state
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x_raw, z, b, c, dtr = _ssm_pre(p, xn[:, 0])
+    outs = []
+    for name, inp, w, bias in (("conv_x", x_raw, "conv_wx", "conv_bx"),
+                               ("conv_b", b, "conv_wb", "conv_bb"),
+                               ("conv_c", c, "conv_wc", "conv_bc")):
+        o, new = ssd.causal_conv_step(cache_l[name], inp, p[w], p[bias])
+        cache_l[name].copy_(new)
+        outs.append(o)
+    x_in = F.silu(outs[0])
+    Bm = F.silu(outs[1]).reshape(B, G, N)
+    Cm = F.silu(outs[2]).reshape(B, G, N)
+    dt = F.softplus(dtr + p["dt_bias"])                  # (B,H)
+    A = -torch.exp(p["A_log"].float())
+    xh = x_in.reshape(B, H, P)
+    y, new_state = ssd.ssd_decode_step(cache_l["ssm"], xh, dt, A, Bm, Cm)
+    cache_l["ssm"].copy_(new_state)
+    y = y + p["Dskip"][None, :, None] * xh
+    y = rms_norm(y.reshape(B, 1, di) * F.silu(z[:, None]), p["gln"],
+                 cfg.norm_eps)
+    return x + y @ p["wout"]
+
+
 def _ffn(p, x, cfg: ArchConfig, opts: RunOptions):
     if cfg.moe is not None:
         raise NotImplementedError("MoE layers are not ported yet "
@@ -175,6 +277,9 @@ def _layer(params, li: int) -> Dict[str, torch.Tensor]:
 
 
 def _block_fwd(lp, x, cfg, opts, *, window, return_cache):
+    if cfg.family == "ssm":
+        y, c = ssm_apply(lp, x, cfg, opts, return_state=return_cache)
+        return y, c, torch.zeros((), dtype=torch.float32, device=x.device)
     if return_cache:
         y, (k, v) = attn_apply(lp, x, cfg, opts, window=window,
                                return_kv=True)
@@ -188,31 +293,33 @@ def _block_fwd(lp, x, cfg, opts, *, window, return_cache):
 def run_stack(params, x, cfg: ArchConfig, opts: RunOptions, *,
               return_cache: bool = False):
     """Forward through all layers; returns (x, cache | None, aux) with
-    the cache's k and v stacked on L."""
+    each cache entry (k and v, or the ssm state and conv caches) stacked
+    on L."""
     check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
+    caches = []
     for li in range(cfg.n_layers):
         x, c, a = _block_fwd(_layer(params, li), x, cfg, opts,
                              window=_layer_window(cfg, li),
                              return_cache=return_cache)
         aux = aux + a
-        if return_cache:
-            ks.append(c["k"])
-            vs.append(c["v"])
-    cache = ({"k": torch.stack(ks), "v": torch.stack(vs)}
+        caches.append(c)
+    cache = ({k: torch.stack([c[k] for c in caches]) for k in caches[0]}
              if return_cache else None)
     return x, cache, aux
 
 
 def run_stack_decode(params, cache, x, cfg: ArchConfig, opts: RunOptions, *,
                      slot_pos, cur_pos):
-    """One decode step through all layers; ``cache["layers"]`` (k, v
-    stacked on L) is updated in place and returned."""
+    """One decode step through all layers; ``cache["layers"]`` (stacked
+    on L) is updated in place and returned."""
     check_family(cfg)
     layers = cache["layers"]
     for li in range(cfg.n_layers):
         lp = _layer(params, li)
+        if cfg.family == "ssm":
+            x = ssm_decode(lp, x, cfg, {k: v[li] for k, v in layers.items()})
+            continue
         x = attn_decode(lp, x, cfg, window=_layer_window(cfg, li),
                         kc=layers["k"][li], vc=layers["v"][li],
                         slot_pos=slot_pos, cur_pos=cur_pos)
@@ -255,12 +362,16 @@ def lm_prefill(params, cfg: ArchConfig, opts: RunOptions, tokens,
                embeds=None, cache_len: Optional[int] = None):
     """Returns (last-position argmax token (B,) int32, cache). A
     ``cache_len`` past the prompt reserves decode head-room (empty slots
-    at position -1)."""
+    at position -1); the SSM family's cache has no positions, so it
+    ignores ``cache_len`` and has no ``slot_pos``."""
     logits, layer_cache, _ = lm_forward(params, cfg, opts, tokens, embeds,
                                         return_cache=True)
     S_total = logits.shape[1]
     next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     dev = logits.device
+    pos = torch.tensor(S_total, dtype=torch.int32, device=dev)
+    if cfg.family == "ssm":
+        return next_tok, {"layers": layer_cache, "pos": pos}
     Sc = layer_cache["k"].shape[2]
     slot_pos = torch.arange(Sc, dtype=torch.int32, device=dev)
     if cache_len is not None and cache_len > Sc:
@@ -270,25 +381,28 @@ def lm_prefill(params, cfg: ArchConfig, opts: RunOptions, tokens,
         slot_pos = torch.cat([slot_pos, torch.full((pad,), -1,
                                                    dtype=torch.int32,
                                                    device=dev)])
-    return next_tok, {"layers": layer_cache,
-                      "pos": torch.tensor(S_total, dtype=torch.int32,
-                                          device=dev),
+    return next_tok, {"layers": layer_cache, "pos": pos,
                       "slot_pos": slot_pos}
 
 
 def lm_decode_step(params, cfg: ArchConfig, opts: RunOptions, cache, token):
     """token (B,) integer -> (next token (B,) int32, cache). The cache's
-    k, v and slot_pos are updated in place; ``pos`` advances by one."""
+    layers and slot_pos (absent for the SSM family) are updated in
+    place; ``pos`` advances by one."""
     cdt = getattr(torch, opts.compute_dtype)
     params = _compute_params(params, cdt)
     cur = cache["pos"]
     x = embed_tokens(params["embed"], token[:, None]).to(cdt)
-    slot_pos = cache["slot_pos"]
-    slot = torch.remainder(cur.reshape(1), slot_pos.shape[0]).long()
-    slot_pos.index_copy_(0, slot, cur.reshape(1).to(slot_pos.dtype))
+    slot_pos = cache.get("slot_pos")
+    if slot_pos is not None:
+        slot = torch.remainder(cur.reshape(1), slot_pos.shape[0]).long()
+        slot_pos.index_copy_(0, slot, cur.reshape(1).to(slot_pos.dtype))
     x, layers = run_stack_decode(params, cache, x, cfg, opts,
                                  slot_pos=slot_pos, cur_pos=cur)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = lm_logits(x[:, 0], _head(params, cfg), cfg.vocab)
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    return next_tok, {"layers": layers, "pos": cur + 1, "slot_pos": slot_pos}
+    new_cache = {"layers": layers, "pos": cur + 1}
+    if slot_pos is not None:
+        new_cache["slot_pos"] = slot_pos
+    return next_tok, new_cache

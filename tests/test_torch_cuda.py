@@ -1,7 +1,8 @@
-"""Kernels K1 (``csrc/warehouse_agg.cu``), K2 (``csrc/frame_preproc.cu``)
-and K3 (``csrc/flash_attention.cu``) on the card against their plain
-versions on the same CUDA tensors, and the reduced qwen model on the
-card against the same model on the CPU. ``cuda``-marked: every test
+"""Kernels K1 (``csrc/warehouse_agg.cu``), K2 (``csrc/frame_preproc.cu``),
+K3 (``csrc/flash_attention.cu``) and K4 (``csrc/ssd_scan.cu``) on the
+card against their plain versions on the same CUDA tensors, and the
+reduced qwen and mamba2 models on the card against the same models on
+the CPU. ``cuda``-marked: every test
 skips where no card is visible. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -13,8 +14,11 @@ plain version's ``index_add_``; both are float32 sums of at most a few
 thousand terms per group and block here). K2: float32 within
 f^2 * 2^-24 * max|x| (a sum of f^2 terms in another order), bfloat16
 within one bfloat16 ulp. K3: within Skv * 2^-24 * max|v| (float32 sums
-over Skv keys in another order). The model's logits: 1e-4 (float32
-matmuls and attention in other orders, two layers).
+over Skv keys in another order). K4: y and the final state within
+``kernels.ssd.error_bound`` of the plain version run in float64 (the
+float32 sums' lengths times their sums of magnitudes). The models'
+logits: 1e-4 (float32 matmuls, attention and scans in other orders, two
+layers).
 
 This file imports neither JAX nor ``repro``.
 """
@@ -25,6 +29,7 @@ import torch
 from repro_torch.configs.base import get
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import frame_preproc as FP
+from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import warehouse_agg as K
 from repro_torch.models.model import Model
 from repro_torch.models.options import RunOptions
@@ -293,3 +298,75 @@ def test_model_on_card_matches_cpu(cuda):
     assert FA.LAUNCHES == before + model.cfg.n_layers
     want = model.forward_logits(params, {"tokens": tokens})
     assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------- K4 ----
+K4_CASES = (                 # B, S, H, P, G, N, chunk, init_state
+    (2, 300, 4, 64, 1, 128, 256, False),     # S past one chunk, ragged
+    (2, 300, 4, 64, 1, 128, 256, True),
+    (1, 100, 8, 16, 2, 16, 256, True),       # S < chunk, G > 1
+    (2, 130, 6, 64, 3, 16, 64, False),
+    (1, 77, 4, 16, 4, 128, 16, True),        # chunk 16, G = H
+    (3, 33, 3, 8, 3, 16, 8, False),          # test_kernels.py's uneven
+)
+
+
+def _k4_inputs(B, S, H, P, G, N, device, seed=0):
+    """Drawn as the model draws them: dt = softplus(dt_bias + z), dt_bias
+    from the ``dt_bias`` init range, A = -exp(A_log) from ``ssm_a``'s."""
+    gen = torch.Generator().manual_seed(seed)
+    u = 1e-3 + (1e-1 - 1e-3) * torch.rand(H, generator=gen)
+    dt = torch.nn.functional.softplus(
+        torch.log(torch.expm1(u)) + torch.randn(B, S, H, generator=gen))
+    A = -(1.0 + 15.0 * torch.rand(H, generator=gen))
+    args = (torch.randn(B, S, H, P, generator=gen), dt, A,
+            torch.randn(B, S, G, N, generator=gen) * 0.3,
+            torch.randn(B, S, G, N, generator=gen) * 0.3)
+    init = torch.randn(B, H, P, N, generator=gen) * 0.5
+    return [a.to(device) for a in args], init.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_CASES)
+def test_k4_matches_plain(cuda, case):
+    B, S, H, P, G, N, chunk, with_init = case
+    args, init = _k4_inputs(B, S, H, P, G, N, cuda)
+    init = init if with_init else None
+    before = SSD.LAUNCHES
+    y, state = SSD.ssd_scan(*args, chunk=chunk, init_state=init)
+    torch.cuda.synchronize()
+    assert SSD.LAUNCHES == before + 1
+    assert y.shape == (B, S, H, P) and state.shape == (B, H, P, N)
+    want_y, want_state = SSD.ssd_scan_ref(
+        *[a.double() for a in args], chunk=chunk,
+        init_state=None if init is None else init.double())
+    tol_y, tol_state = SSD.error_bound(*args, chunk=chunk, init_state=init)
+    assert float((y.double() - want_y).abs().max()) <= tol_y
+    assert float((state.double() - want_state).abs().max()) <= tol_state
+
+
+@pytest.mark.cuda
+def test_mamba_on_card_matches_cpu(cuda):
+    model = Model(get("mamba2-370m").reduced(),
+                  RunOptions(compute_dtype="float32", ssd_chunk=16))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in params.items()}
+    tokens = torch.randint(0, 256, (3, 40), generator=torch.Generator()
+                           .manual_seed(1))
+    before = SSD.LAUNCHES
+    got = model.forward_logits(on_card, {"tokens": tokens.to(cuda)})
+    assert SSD.LAUNCHES == before + model.cfg.n_layers
+    want = model.forward_logits(params, {"tokens": tokens})
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    # prefill and two decode steps: the same tokens as on the CPU
+    nxt_c, cache_c = model.prefill(on_card, {"tokens": tokens.to(cuda)})
+    nxt, cache = model.prefill(params, {"tokens": tokens})
+    for _ in range(2):
+        assert torch.equal(nxt_c.cpu(), nxt)
+        nxt_c, cache_c = model.decode_step(on_card, cache_c, nxt_c)
+        nxt, cache = model.decode_step(params, cache, nxt)
+    assert torch.equal(nxt_c.cpu(), nxt)
+    assert float((cache_c["layers"]["ssm"].cpu()
+                  - cache["layers"]["ssm"]).abs().max()) <= 1e-4

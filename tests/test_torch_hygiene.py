@@ -5,8 +5,9 @@
 - importing the port builds nothing (no compiler runs at import);
 - every entry point defaults to CUDA and raises when there is none;
 - ``chip_smoke.py`` fails, and prints no result, without a card;
-- on the CPU, every kernel wrapper (K1, K2, K3) takes its plain version
-  and launches nothing;
+- on the CPU, every kernel wrapper (K1, K2, K3, K4) takes its plain
+  version and launches nothing, and the SSM model path (``models/ssd``)
+  runs on it;
 - on the card, the K1 wrapper refuses a spec beyond its limits
   (``cuda``-marked: skips here).
 
@@ -154,6 +155,44 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(out[0, 0, 0], q[0, 0, 0])
 
 
+def test_ssd_cpu_tensors_take_the_plain_version():
+    from repro_torch.kernels import ssd as K
+    from repro_torch.models import ssd as S
+    gen = torch.Generator().manual_seed(0)
+    B, L, H, P, G, N = 1, 5, 2, 4, 1, 3
+    x = torch.randn(B, L, H, P, generator=gen)
+    dt = torch.rand(B, L, H, generator=gen)
+    A = -torch.rand(H, generator=gen) - 0.5
+    Bm = torch.randn(B, L, G, N, generator=gen)
+    Cm = torch.randn(B, L, G, N, generator=gen)
+    before = K.LAUNCHES
+    y, state = S.ssd_scan(x, dt, A, Bm, Cm, chunk=2)
+    assert K.LAUNCHES == before
+    assert S.ssd_scan is K.ssd_scan
+    want, want_state = S.ssd_ref(x, dt, A, Bm, Cm)
+    assert float((y - want).abs().max()) < 1e-5
+    assert float((state - want_state).abs().max()) < 1e-5
+    with pytest.raises(ValueError, match="no kernel"):
+        K.ssd_scan(x.to("meta"), dt.to("meta"), A.to("meta"),
+                   Bm.to("meta"), Cm.to("meta"))
+
+
+def test_ssm_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs.base import get
+    from repro_torch.core.vetl_serving import BackboneVETL
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(get("mamba2-370m").reduced()).init(
+            torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BackboneVETL(arch="mamba2-370m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "mamba2-370m", "--requests", "1",
+                    "--prompt-len", "4", "--gen", "2"])
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is visible: chip_smoke.py would run")
@@ -187,6 +226,37 @@ def _over_limit_specs(K):
                          agg="sum")
     yield K.FusedAggSpec(filters=(), keys=(("g", 4, 0),), value="w",
                          agg="max")
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import ssd as K
+
+    def args(B=1, S=8, H=2, P=4, G=1, N=4, dtype=torch.float32):
+        return (torch.randn(B, S, H, P, device=cuda, dtype=dtype),
+                torch.rand(B, S, H, device=cuda, dtype=dtype),
+                -torch.rand(H, device=cuda, dtype=dtype),
+                torch.randn(B, S, G, N, device=cuda, dtype=dtype),
+                torch.randn(B, S, G, N, device=cuda, dtype=dtype))
+    before = K.LAUNCHES
+    with pytest.raises(TypeError, match="float32"):
+        K.ssd_scan(*args(dtype=torch.float64))
+    with pytest.raises(ValueError, match="head dims"):
+        K.ssd_scan(*args(P=K.MAX_HEAD_DIM + 1))
+    with pytest.raises(ValueError, match="states"):
+        K.ssd_scan(*args(N=K.MAX_STATE + 1))
+    with pytest.raises(ValueError, match="group"):
+        K.ssd_scan(*args(H=3, G=2))
+    with pytest.raises(ValueError, match="chunks"):
+        K.ssd_scan(*args(), chunk=K.MAX_CHUNK + 1)
+    x, dt, A, Bm, Cm = args()
+    with pytest.raises(ValueError, match="contiguous"):
+        K.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                   Bm, Cm)
+    with pytest.raises(ValueError, match="init_state"):
+        K.ssd_scan(x, dt, A, Bm, Cm,
+                   init_state=torch.zeros(1, 2, 4, 5, device=cuda))
+    assert K.LAUNCHES == before
 
 
 @pytest.mark.cuda
