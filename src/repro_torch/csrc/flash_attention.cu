@@ -1,5 +1,6 @@
-// Causal and/or sliding-window GQA attention in float32, for Hopper
-// (sm_90a): the online-softmax ("flash") forward pass.
+// Causal and/or sliding-window GQA attention at float32 accuracy on the
+// tensor cores (3xTF32), for Hopper (sm_90a): the online-softmax
+// ("flash") forward pass.
 //
 // Replaces: repro/kernels/flash_attention.py:_kernel (Pallas, TPU),
 // called through flash_attention. Same function: q (B,Sq,H,D), k and v
@@ -8,36 +9,57 @@
 // keys (the ragged edge past Skv) masked the same way; the output is
 // acc / max(l, 1e-30).
 //
-// Design. The TPU grid (B, H, q tile, kv tile) runs its kv axis in order
-// on one core and carries the softmax state in VMEM scratch. Here one
-// block of 128 threads owns one (b, h, 64-row q tile) and walks the kv
-// tiles in a loop that stands in for that sequential axis. The q tile
-// (scaled) and each k tile are staged transposed in shared memory, v and
-// the probabilities row-major; the running max, sum and the output
-// accumulator stay in registers. Thread (ty, tx) of the 16 x 8 layout
-// owns rows 4ty..4ty+3 of the tile, score columns tx + 8j and output
-// columns tx + 8j; a row's 8 owners are neighbouring lanes of one warp,
-// so its max and sum reduce with three shuffles. D is padded with zeros
-// to DP in {16, 32, 64, 128} (a template), so any D up to 128 runs.
-//
-// The block skips whole kv tiles that the causal or window mask rules
-// out for all its rows. K3 visits them, but a fully masked tile adds
-// exp(-1e30 - m) = 0 to a row that has seen a visible key, and a row that
-// has not yet seen one carries m = -1e30 and takes p = 1 terms that the
-// first visible key washes out (corr = exp(-1e30 - m) = 0), so skipping
-// changes no row that has a visible key. A row with no visible key at all
-// is outside K3's contract (its value there depends on the block size);
-// here it is 0.
-//
 // Bound: operations. At the main path's prefill (B=4, S=2048, H=16,
-// D=64, causal) the causal half of QK^T and PV is 2 * 2*D*S*(S+1)/2
-// FLOPs per (b, h), 34.4 GFLOP, against 34 MB of q, k, v and o: far
-// above the card's ridge point, and on the FP32 CUDA cores (not TF32,
-// so the numbers are the reference's function) the floor is that over
-// about 67 TFLOP/s on an H100 SXM. Present limits (work for a later
-// change): shared-memory loads are scalar (12 loads for 32 FMAs in both
-// inner products); no tensor cores, no cp.async or TMA double buffering;
-// the last q tile of a short sequence is mostly idle.
+// D=64, causal) the causal half of QK^T and PV is 34.4 GFLOP against
+// 34 MB of q, k, v and o. 3xTF32 runs three TF32 products for each
+// float32 one, so the floor is 3 x 34.4 GFLOP over the 495 TFLOP/s dense
+// TF32 peak of an H100 SXM.
+//
+// 3xTF32. Every operand x is split into big = tf32_rna(x) and small =
+// tf32_rna(x - big); a product is big*big + big*small + small*big,
+// accumulated in float32 (the small*small term and the residuals drop
+// about 3 * 2^-22 of |a||b|). Both products use it: S = (q * scale) K^T
+// and O += P V. kernels/flash_attention.py:error_bound states the bound.
+//
+// Design. One block owns one (b, h, q tile) and walks the kv tiles in a
+// loop that stands in for the TPU grid's sequential kv axis. A
+// warpgroup (4 warps) owns 64 q rows; a block holds two (128 rows that
+// share each kv tile) for sequences of 256 rows and more at D <= 64, one
+// otherwise (the Transform's 16-row calls do not pay for a 128-row tile).
+// - Both products are wgmma.mma_async m64nNk8 .tf32 (sm_90a): S = q K^T
+//   with q and K from shared memory (N = the kv tile), O += P V with P
+//   from registers and V from shared memory (N = D padded to 16, 32, 64
+//   or 128). tf32 wgmma reads shared operands K-major only, so q and K
+//   are stored with d contiguous and V transposed, (d, kv), all as 8 x 4
+//   word core matrices without swizzle (descriptors: LBO steps along K,
+//   SBO along M or N).
+// - K and V tiles (64 kv rows, 32 at D = 128) come through a 2-stage ring
+//   of float32 staging buffers filled by cp.async (16-byte copies where
+//   D % 4 == 0 and the bases are aligned, else 4-byte ones; zero-fill past
+//   Skv and D), the next tile in flight while the block computes on this
+//   one. As a tile lands the block splits each element once into big and
+//   small, writing the core-matrix layouts with 16-byte stores (8 lanes
+//   fill one core matrix and read 8 staged rows: no bank conflicts), and
+//   fences the stores for wgmma's asynchronous reads. q is scaled and
+//   split once, before the walk.
+// - P goes from the score accumulators into the PV product as they stand:
+//   an m64nN accumulator holds columns 2t, 2t+1 where the A fragment holds
+//   k = t, t+4, so the PV product takes its summation index k = t as kv
+//   2t and k = t + 4 as kv 2t + 1, and V's kv order within each 8 is
+//   permuted to match.
+// - The online softmax stays in float32 registers as before: row max by
+//   two xor-shuffles over the 4 lanes of a row, per-lane partial sums
+//   reduced at the end.
+//
+// The block skips kv tiles that the causal or window mask rules out for
+// all its rows, and a warpgroup skips those ruled out for its 64 rows. K3
+// visits them, but a fully masked tile adds exp(-1e30 - m) = 0 to a row
+// that has seen a visible key, and a row that has not yet seen one
+// carries m = -1e30 and takes p = 1 terms that the first visible key
+// washes out (corr = exp(-1e30 - m) = 0), so skipping changes no row
+// that has a visible key. A row with no visible key at all is outside
+// K3's contract (its value there depends on the block size); here it is
+// 0.
 //
 // Interface: plain C, loaded with ctypes. flash_attention_fwd() launches
 // on the given stream, does not synchronise, and returns
@@ -46,11 +68,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#define BQ 64                 // q rows per block
-#define BK 64                 // kv rows per tile
-#define THREADS 128           // 16 row groups x 8 column lanes
-#define TSTRIDE (BQ + 1)      // transposed tiles [DP][TSTRIDE]: no bank conflicts
-#define PSTRIDE (BK + 2)      // probabilities [BQ][PSTRIDE]: rows 4 apart hit other banks
 #define NEG_INF (-1e30f)
 #define FULL_MASK 0xffffffffu
 
@@ -63,159 +80,460 @@ struct FaArgs {
   int causal;
   int window;                 // <= 0: no window
   float scale;
+  int vec4;                   // 16-byte copies of k and v rows
 };
 
-static size_t smem_bytes(int dp) {
-  return sizeof(float) *
-         ((size_t)2 * dp * TSTRIDE + (size_t)BK * dp + (size_t)BQ * PSTRIDE);
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-template <int DP>
-__global__ void __launch_bounds__(THREADS) fa_fwd_kernel(FaArgs a) {
-  constexpr int NJ = DP / 8;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qt = smem;                     // [DP][TSTRIDE], q * scale
-  float* Kt = Qt + DP * TSTRIDE;        // [DP][TSTRIDE]
-  float* Vs = Kt + DP * TSTRIDE;        // [BK][DP]
-  float* Ps = Vs + BK * DP;             // [BQ][PSTRIDE]
+// x = big + small (+ about 2^-22 |x|), both TF32
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 7, ty = tid >> 3;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// generic-proxy stores to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulators across
+// the asynchronous products
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, no swizzle: core matrices of 8 rows
+// x 16 bytes stored contiguously (128 bytes); `lbo` bytes between core
+// matrices adjacent in K, `sbo` bytes between those adjacent in M or N.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d += A * B, m64n16k8 tf32, A from registers, B from shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A * B, m64n32k8 tf32, A and B from shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A * B, m64n32k8 tf32, A from registers, B from shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A * B, m64n64k8 tf32, A and B from shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A * B, m64n64k8 tf32, A from registers, B from shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A * B, m64n128k8 tf32, A from registers, B from shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// S's N is the kv tile, 64 (32 at D = 128)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db);
+  else wgmma_ss_n64(d, da, db);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// Shared memory of one block, in 32-bit words. Q (A of S), K (B of S) and
+// V (B of PV) are stored split, big and small apart, as core matrices
+// (8 rows x 4 words) in K-major order: word i of a split tile is element
+// (row, col) with cm = i / 32 the core matrix, row = 8 (cm % rows/8) +
+// (i / 4) % 8 and col = 4 (cm / (rows/8)) + i % 4. V is stored as
+// (d, kv), its kv permuted within each 8 so that a k step's k = t, t + 4
+// are keys 2t, 2t + 1 (see the PV product).
+template <int DP, int BK, int WG>
+struct Tiles {
+  static constexpr int BQ = 64 * WG;
+  static constexpr int SP = DP + 4;           // floats per staged kv row
+  static constexpr int STAGE = 2 * BK * SP;   // floats of a stage (K, V)
+  static constexpr int Q_WORDS = BQ * DP;
+  static constexpr int KV_WORDS = BK * DP;
+  static constexpr int SPLIT = 4 * KV_WORDS;  // K big, K small, V big, V small
+  static constexpr size_t bytes() {
+    return 4 * ((size_t)2 * Q_WORDS + 2 * (size_t)STAGE + (size_t)SPLIT);
+  }
+};
+
+// cp.async of kv rows [k0, k0 + BK) of k and v into a staging stage
+template <int DP, int BK, int THREADS, int SP>
+__device__ __forceinline__ void load_tile(float* st, const float* kb,
+                                          const float* vb, int64_t kv_row,
+                                          int k0, const FaArgs& a) {
+  float* ks = st;
+  float* vs = st + BK * SP;
+  if (a.vec4) {
+    constexpr int CH = DP / 4;
+    for (int i = threadIdx.x; i < BK * CH; i += THREADS) {
+      const int r = i / CH, c = i % CH, s = k0 + r;
+      const bool ok = s < a.Skv && 4 * c < a.D;
+      const int64_t off = ok ? s * kv_row + 4 * c : 0;
+      cp_async16(ks + r * SP + 4 * c, kb + off, ok ? 16 : 0);
+      cp_async16(vs + r * SP + 4 * c, vb + off, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BK * DP; i += THREADS) {
+      const int r = i / DP, d = i % DP, s = k0 + r;
+      const bool ok = s < a.Skv && d < a.D;
+      const int64_t off = ok ? s * kv_row + d : 0;
+      cp_async4(ks + r * SP + d, kb + off, ok ? 4 : 0);
+      cp_async4(vs + r * SP + d, vb + off, ok ? 4 : 0);
+    }
+  }
+}
+
+// Split the staged tile into `dst` (K big, K small, V big, V small), each
+// element once, 4 at a time: a thread takes 4 words of one core-matrix
+// row and writes them with one 16-byte store each for big and small;
+// K's 4 are one staged float4 (kv, d..d+3), V's the keys 2p + h of one
+// d. 8 lanes fill one core matrix and read 8 staged rows: no bank
+// conflicts either side. The stores are fenced for wgmma's reads.
+template <int DP, int BK, int THREADS>
+__device__ __forceinline__ void split_tile(const float* stage,
+                                           uint32_t* dst) {
+  using T = Tiles<DP, BK, 1>;
+  constexpr int SP = T::SP, NB = BK / 8, DB = DP / 8, W = T::KV_WORDS;
+  const float* ks = stage;
+  const float* vs = stage + BK * SP;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < W / 4; i += THREADS) {
+    const int cm = i >> 3, row = i & 7;
+    const int kv = 8 * (cm % NB) + row, dq = cm / NB;
+    const float4 x = *(const float4*)(ks + kv * SP + 4 * dq);
+    uint4 big, small;
+    split(x.x, big.x, small.x);
+    split(x.y, big.y, small.y);
+    split(x.z, big.z, small.z);
+    split(x.w, big.w, small.w);
+    *(uint4*)(dst + 4 * i) = big;
+    *(uint4*)(dst + W + 4 * i) = small;
+    const int jh = cm / DB;
+    const int d = 8 * (cm % DB) + row;
+    const float* vc = vs + (8 * (jh >> 1) + (jh & 1)) * SP + d;
+    split(vc[0], big.x, small.x);
+    split(vc[2 * SP], big.y, small.y);
+    split(vc[4 * SP], big.z, small.z);
+    split(vc[6 * SP], big.w, small.w);
+    *(uint4*)(dst + 2 * W + 4 * i) = big;
+    *(uint4*)(dst + 3 * W + 4 * i) = small;
+  }
+  fence_async_smem();
+}
+
+template <int DP, int BK, int WG>
+__global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
+  using T = Tiles<DP, BK, WG>;
+  constexpr int THREADS = WG * 128;
+  constexpr int BQ = T::BQ, SP = T::SP;
+  constexpr int MB = BQ / 8, NB = BK / 8, DB = DP / 8;
+  extern __shared__ __align__(128) uint32_t smem[];
+  uint32_t* Qb = smem;                                  // A of S, big
+  uint32_t* Qs = Qb + T::Q_WORDS;                       // ... small
+  float* stage = (float*)(Qs + T::Q_WORDS);             // [2][K, V][BK][SP]
+  uint32_t* Kb = (uint32_t*)(stage + 2 * T::STAGE);     // the split tile
+  uint32_t* Ks = Kb + T::KV_WORDS;
+  uint32_t* Vb = Ks + T::KV_WORDS;
+  uint32_t* Vs = Vb + T::KV_WORDS;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (a.H / a.G);
+  const int kvh = h / (a.H / a.G);
   const int D = a.D;
   const int64_t q_row = (int64_t)a.H * D;      // elements between q rows
   const int64_t kv_row = (int64_t)a.G * D;
   const float* qb = a.q + ((int64_t)b * a.Sq * a.H + h) * D;
-  const float* kb = a.k + ((int64_t)b * a.Skv * a.G + g) * D;
-  const float* vb = a.v + ((int64_t)b * a.Skv * a.G + g) * D;
+  const float* kb = a.k + ((int64_t)b * a.Skv * a.G + kvh) * D;
+  const float* vb = a.v + ((int64_t)b * a.Skv * a.G + kvh) * D;
   float* ob = a.o + ((int64_t)b * a.Sq * a.H + h) * D;
 
-  for (int i = tid; i < BQ * DP; i += THREADS) {
-    const int r = i / DP, d = i % DP, s = q0 + r;
-    Qt[d * TSTRIDE + r] = (s < a.Sq && d < D) ? qb[s * q_row + d] * a.scale
-                                              : 0.f;
-  }
-
-  // the kv range any row of this tile can see
+  // the kv range any row of this block can see
   const int q_last = min(q0 + BQ, a.Sq) - 1;
   const int k_hi = a.causal ? min(a.Skv - 1, q_last) : a.Skv - 1;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int t_first = k_lo / BK;
+  const int n_tiles = k_hi >= k_lo ? k_hi / BK - t_first + 1 : 0;
 
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  if (n_tiles > 0)
+    load_tile<DP, BK, THREADS, SP>(stage, kb, vb, kv_row, t_first * BK, a);
+  cp_commit();
+  if (n_tiles > 1)
+    load_tile<DP, BK, THREADS, SP>(stage + T::STAGE, kb, vb, kv_row,
+                                   (t_first + 1) * BK, a);
+  cp_commit();
+
+  // q tile, scaled, split once into the A layout
+  for (int i = threadIdx.x; i < T::Q_WORDS; i += THREADS) {
+    const int cm = i >> 5;
+    const int r = 8 * (cm % MB) + ((i >> 2) & 7);
+    const int d = 4 * (cm / MB) + (i & 3);
+    const int row = q0 + r;
+    const float x = (row < a.Sq && d < D) ? qb[row * q_row + d] * a.scale : 0.f;
+    split(x, Qb[i], Qs[i]);
   }
+  fence_async_smem();
 
-  for (int k0 = (k_lo / BK) * BK; k0 <= k_hi; k0 += BK) {
-    __syncthreads();          // the last tile's Vs and Ps are consumed
-    for (int i = tid; i < BK * DP; i += THREADS) {
-      const int r = i / DP, d = i % DP, s = k0 + r;
-      const bool in = s < a.Skv && d < D;
-      Kt[d * TSTRIDE + r] = in ? kb[s * kv_row + d] : 0.f;
-      Vs[r * DP + d] = in ? vb[s * kv_row + d] : 0.f;
+  // this warpgroup's 64 rows; this thread's rows g and g + 8 of its warp's 16
+  const int wq = q0 + 64 * wg;
+  const int wq_last = min(wq + 63, a.Sq - 1);
+  const bool wg_live = wq < a.Sq;
+  const int row0 = wq + 16 * wl + g;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_wait_all_but_one();            // tile it has landed ...
+    __syncthreads();                  // ... for every thread; K, V free
+    split_tile<DP, BK, THREADS>(stage + (it & 1) * T::STAGE, Kb);
+    __syncthreads();                  // split tile ready; stage it & 1 free
+    if (it + 2 < n_tiles)
+      load_tile<DP, BK, THREADS, SP>(stage + (it & 1) * T::STAGE, kb, vb,
+                                     kv_row, (t_first + it + 2) * BK, a);
+    cp_commit();
+
+    const int k0 = (t_first + it) * BK;
+    if (!wg_live || (a.causal && k0 > wq_last) ||
+        (a.window > 0 && k0 + BK - 1 <= wq - a.window))
+      continue;
+
+    // S = q K^T for the warpgroup's 64 rows: per k step, small*big,
+    // big*small, big*big
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    pin(sc);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 8; ++ks) {
+      if (8 * ks >= D) break;
+      const int qa = (2 * ks * MB + 8 * wg) * 32, kk = 2 * ks * NB * 32;
+      const uint64_t qbd = smem_desc(Qb + qa, MB * 128, 128);
+      const uint64_t qsd = smem_desc(Qs + qa, MB * 128, 128);
+      const uint64_t kbd = smem_desc(Kb + kk, NB * 128, 128);
+      const uint64_t ksd = smem_desc(Ks + kk, NB * 128, 128);
+      wgmma_ss<BK>(sc, qsd, kbd);
+      wgmma_ss<BK>(sc, qbd, ksd);
+      wgmma_ss<BK>(sc, qbd, kbd);
     }
-    __syncthreads();
+    wg_commit();
+    wg_wait_all();
+    pin(sc);
 
-    float s[4][8];
+    // online softmax; sc[4j + 2r + c] is row row0 + 8r, key k0 + 8j + 2t + c
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qt[d * TSTRIDE + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Kt[d * TSTRIDE + tx + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row0 + 8 * r;
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        bool ok = kpos < a.Skv;
-        if (a.causal) ok = ok && kpos <= qpos;
-        if (a.window > 0) ok = ok && kpos > qpos - a.window;
-        if (!ok) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kpos = k0 + 8 * j + 2 * t + c;
+          bool ok = kpos < a.Skv;
+          if (a.causal) ok = ok && kpos <= qpos;
+          if (a.window > 0) ok = ok && kpos > qpos - a.window;
+          if (!ok) sc[4 * j + 2 * r + c] = NEG_INF;
+          mx = fmaxf(mx, sc[4 * j + 2 * r + c]);
+        }
       mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = expf(m[r] - m_new);
+      m[r] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = expf(sc[4 * j + 2 * r + c] - m_new);
+          sc[4 * j + 2 * r + c] = p;
+          rs += p;
+        }
+      l[r] = l[r] * corr + rs;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[4 * n + 2 * r] *= corr;
+        o[4 * n + 2 * r + 1] *= corr;
       }
-      rs += __shfl_xor_sync(FULL_MASK, rs, 1);
-      rs += __shfl_xor_sync(FULL_MASK, rs, 2);
-      rs += __shfl_xor_sync(FULL_MASK, rs, 4);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        Ps[(ty * 4 + i) * PSTRIDE + tx + 8 * j] = s[i][j];
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
+    // O += P V: k step j takes keys k0 + 8j + {2t, 2t + 1} as k = t, t + 4,
+    // so P's A fragment is the score accumulator as it stands
+    uint32_t pb[BK / 8][4], ps[BK / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * PSTRIDE + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[kk * DP + tx + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
+    for (int j = 0; j < BK / 8; ++j) {
+      split(sc[4 * j + 0], pb[j][0], ps[j][0]);
+      split(sc[4 * j + 2], pb[j][1], ps[j][1]);
+      split(sc[4 * j + 1], pb[j][2], ps[j][2]);
+      split(sc[4 * j + 3], pb[j][3], ps[j][3]);
     }
+    pin(o);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int vv = 2 * j * DB * 32;
+      const uint64_t vbd = smem_desc(Vb + vv, DB * 128, 128);
+      const uint64_t vsd = smem_desc(Vs + vv, DB * 128, 128);
+      wgmma_rs<DP>(o, ps[j], vbd);
+      wgmma_rs<DP>(o, pb[j], vsd);
+      wgmma_rs<DP>(o, pb[j], vbd);
+    }
+    wg_commit();
+    wg_wait_all();
+    pin(o);
   }
 
+  if (!wg_live) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(FULL_MASK, lr, 1);
+    lr += __shfl_xor_sync(FULL_MASK, lr, 2);
+    const int qpos = row0 + 8 * r;
     if (qpos >= a.Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 8 * j;
-      if (d < D) ob[qpos * q_row + d] = acc[i][j] / denom;
-    }
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = 8 * n + 2 * t + c;
+        if (d < D) ob[qpos * q_row + d] = o[4 * n + 2 * r + c] * inv;
+      }
   }
 }
 
-template <int DP>
+template <int DP, int WG>
 static int launch(const FaArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(DP);
+  constexpr int BK = DP == 128 ? 32 : 64;
+  auto kern = fa_fwd_kernel<DP, BK, WG>;
+  const size_t smem = Tiles<DP, BK, WG>::bytes();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fa_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  fa_fwd_kernel<DP><<<grid, THREADS, smem, stream>>>(a);
+  dim3 grid((a.Sq + 64 * WG - 1) / (64 * WG), a.H, a.B);
+  kern<<<grid, WG * 128, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int DP>
+static int launch_rows(const FaArgs& a, cudaStream_t stream) {
+  // two warpgroups (128 q rows) share each kv tile; short sequences, and
+  // D = 128 (whose shared memory holds one), take one
+  if (DP < 128 && a.Sq >= 256) return launch<DP, 2>(a, stream);
+  return launch<DP, 1>(a, stream);
 }
 
 // q (B,Sq,H,D), k and v (B,Skv,G,D), o (B,Sq,H,D), all contiguous
@@ -227,10 +545,12 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
                                    int window, float scale,
                                    cudaStream_t stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
-  FaArgs a{q, k, v, o, B, Sq, Skv, H, G, D, causal, window, scale};
-  if (D <= 16) return launch<16>(a, stream);
-  if (D <= 32) return launch<32>(a, stream);
-  if (D <= 64) return launch<64>(a, stream);
-  if (D <= 128) return launch<128>(a, stream);
+  const int vec4 = D % 4 == 0 && ((uintptr_t)k % 16) == 0 &&
+                   ((uintptr_t)v % 16) == 0;
+  FaArgs a{q, k, v, o, B, Sq, Skv, H, G, D, causal, window, scale, vec4};
+  if (D <= 16) return launch_rows<16>(a, stream);
+  if (D <= 32) return launch_rows<32>(a, stream);
+  if (D <= 64) return launch_rows<64>(a, stream);
+  if (D <= 128) return launch_rows<128>(a, stream);
   return -1;
 }

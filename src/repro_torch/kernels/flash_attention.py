@@ -10,13 +10,16 @@ runs the plain version ``flash_attention_ref``, the reference's
 ``ref.flash_attention_ref`` written in PyTorch: one masked softmax over
 the whole score matrix. ``LAUNCHES`` counts kernel launches.
 
-The kernel takes float32 only and computes on the FP32 CUDA cores (no
-TF32), D up to ``MAX_HEAD_DIM``. It skips kv tiles the mask rules out,
-which changes no row that sees at least one key; a row that sees none
-is outside K3's contract (there the TPU kernel's value depends on its
-block size, the plain version's is the mean of v, the kernel's is 0).
-Tolerance against the plain version: both are float32 softmaxes summed
-in other orders, so they agree to about 1e-6 relative on O(1) inputs.
+The kernel takes float32 only, D up to ``MAX_HEAD_DIM``, and computes
+both products on the tensor cores in 3xTF32: each operand is split into
+two TF32 numbers (``tf32_round``) and each product is the sum of three
+TF32 products, accumulated in float32; ``attention_tf32`` is a float64
+model of that arithmetic and ``error_bound`` the stated bound against
+the plain version. The switches for ``torch.matmul`` stay off: only this
+kernel uses TF32, inside its own code. It skips kv tiles the mask rules
+out, which changes no row that sees at least one key; a row that sees
+none is outside K3's contract (there the TPU kernel's value depends on
+its block size, the plain version's is the mean of v, the kernel's is 0).
 """
 from __future__ import annotations
 
@@ -59,6 +62,108 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None):
     """The plain version (``ref.flash_attention_ref``)."""
     return masked_attention(q, k, v, causal=causal, window=window)
+
+
+def _visible(Sq: int, Skv: int, causal: bool, window: Optional[int],
+             device) -> torch.Tensor:
+    """(Sq, Skv) mask of the keys each query sees."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return mask
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 explicit mantissa bits) to the
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32`` does: add half
+    a unit of the 13 dropped bits to the magnitude, then clear them."""
+    bits = x.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def _products(a, b, passes: int, eq: str):
+    """float64 sum of the TF32 products of ``a`` and ``b`` (float32):
+    big*big with ``passes`` = 1, plus big*small + small*big with 3."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    out = torch.einsum(eq, ab.double(), bb.double())
+    if passes == 3:
+        out = out + torch.einsum(eq, ab.double(), bs.double()) \
+            + torch.einsum(eq, as_.double(), bb.double())
+    return out
+
+
+def attention_tf32(q, k, v, *, causal: bool = True,
+                   window: Optional[int] = None, passes: int = 3):
+    """A float64 model of the kernel's arithmetic: q scaled in float32,
+    every operand of S = q K^T and of O = P V split into TF32 parts, the
+    ``passes`` TF32 products of each (3: 3xTF32, the kernel; 1: plain
+    TF32) summed exactly, the softmax in float64 with the kernel's masks.
+    It leaves out the float32 roundings of the sums, which
+    ``error_bound`` counts separately. Returns (B,Sq,H,D) in float64."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, not {passes}")
+    B, Sq, H, D = q.shape
+    _, Skv, G, _ = k.shape
+    R = H // G
+    qg = q.reshape(B, Sq, G, R, D).float() * D ** -0.5
+    s = _products(qg, k.float(), passes, "bqgrd,bsgd->bgrqs")
+    mask = _visible(Sq, Skv, causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    o = _products(p.float(), v.float(), passes, "bgrqs,bsgd->bgrqd") / l
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+# 3xTF32 drops the small*small term and the two residuals of the split:
+# at most about 3 * 2^-22 of |a||b| per product
+PRODUCT_ERR = 3 * 2.0 ** -22
+
+
+def error_bound(q, k, v, *, causal: bool = True,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Bound on |kernel - plain version| per output row, (B, Sq, H, 1)
+    float32, broadcast over D.
+
+    Derivation. Let sigma_ij = sum_d |q_id k_jd| * D^-0.5 (the scaled
+    magnitudes of one score). The kernel's score differs from the exact
+    one by at most PRODUCT_ERR * sigma_ij (3xTF32) plus D * 2^-24 *
+    sigma_ij (a float32 sum of D terms in any order), and the plain
+    version's float32 score by the last term again, so the two scores
+    differ by delta_ij = (PRODUCT_ERR + 2 D 2^-24) sigma_ij, and by at
+    most Delta_i = max_j delta_ij over the keys row i sees. Moving every
+    score of a row by at most Delta_i moves each softmax weight w_ij by
+    a factor within exp(+-2 Delta_i) (numerator and normaliser), so the
+    output sum_j w_ij v_j moves by at most (exp(2 Delta_i) - 1) max|v|.
+    The PV product in 3xTF32 adds PRODUCT_ERR * sum_j w_ij |v_j| <=
+    PRODUCT_ERR max|v|, and the float32 sums over Skv keys in another
+    order Skv * 2^-24 * max|v| (the reordering term this kernel was held
+    to before it used the tensor cores). 1e-6 absolute covers outputs
+    near 0. A plain 1xTF32 kernel (about 2^-11 per operand) breaks this
+    bound (``tests/test_torch_attention.py``)."""
+    B, Sq, H, D = q.shape
+    _, Skv, G, _ = k.shape
+    R = H // G
+    qa = q.reshape(B, Sq, G, R, D).float().abs() * D ** -0.5
+    sigma = torch.einsum("bqgrd,bsgd->bgrqs", qa, k.float().abs())
+    mask = _visible(Sq, Skv, causal, window, q.device)
+    sig_max = torch.where(mask, sigma, 0.0).amax(-1)        # (B,G,R,Sq)
+    delta = (PRODUCT_ERR + 2 * D * 2.0 ** -24) * sig_max.double()
+    vmax = float(v.abs().max()) if v.numel() else 0.0
+    bound = (torch.expm1(2 * delta) + PRODUCT_ERR
+             + Skv * 2.0 ** -24) * vmax + 1e-6
+    return bound.permute(0, 3, 1, 2).reshape(B, Sq, H, 1).float()
 
 
 def _lib():

@@ -9,22 +9,25 @@ unchanged.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel
 ``csrc/warehouse_agg.cu`` (built with nvcc at first use, bound through
-ctypes) or raises; it never falls back. The kernel keeps a block's
-accumulators in shared memory when one copy fits there and in global
-memory otherwise, so any group count up to ``GLOBAL_LIMIT`` runs on it. On a CPU tensor it runs the
-plain version ``fused_segment_agg_ref``, built from ``int_pred`` and
-``index_add_``/``scatter_reduce_``. ``LAUNCHES`` counts kernel launches.
+ctypes) or raises; it never falls back. The kernel reads strips of 4
+rows with 16-byte loads and combines values by group inside each warp
+before one atomic per (group, warp); its accumulators live in shared
+memory when one copy fits there and in one global copy otherwise, so
+any group count up to ``GLOBAL_LIMIT`` runs on it (``geometry`` sizes
+the launch, ``vector_head`` finds the first aligned strip). On a CPU
+tensor it runs the plain version ``fused_segment_agg_ref``, built from
+``int_pred`` and ``index_add_``/``scatter_reduce_``. ``LAUNCHES`` counts
+kernel launches.
 
 Exactness (the reference's contract): count, max, min and integer-valued
 sums are exact on both paths. The plain version's sums add in row order
 (on the CPU) and match the reference's numpy mirror bit for bit; the
-kernel's shared atomics reorder additions within a block, so its float
-sums and means match to float32 rounding of the reordered sum
+kernel's atomics add warp partials in another order, so its float sums
+and means match to float32 rounding of the reordered sum
 (``chip_smoke.py`` holds them within 1e-4 of each group's sum of
-magnitudes of the plain version accumulated in float64). The kernel sums a few thousand rows per
-shared accumulator before a block-ordered fold, so on groups of
-millions of rows it is much closer to float64 than a row-order float32
-sum.
+magnitudes of the plain version accumulated in float64). Each atomic
+adds a partial of up to 128 rows, so on groups of millions of rows the
+kernel is much closer to float64 than a row-order float32 sum.
 """
 from __future__ import annotations
 
@@ -51,18 +54,23 @@ AGGS = ("sum", "mean", "count", "max", "min")       # csrc agg codes
 # MAX_FILTERS + MAX_KEYS + 1 value <= MAX_COLS, so the operand columns
 # of a spec within the first two limits always fit the third
 MAX_FILTERS, MAX_KEYS, MAX_COLS = 8, 4, 16
-# shared memory one block may take on sm_90 (227 KB), and the share the
-# wrapper aims to fill with private accumulator copies
+# shared memory one block may take on sm_90 (227 KB), all of an SM's
+# (228 KB) and what the runtime keeps for each resident block
 SMEM_LIMIT = 232_448
-SMEM_TARGET = 96 * 1024
-# accumulators past SMEM_LIMIT live in each block's own slice of the
-# partials in global memory: at most GLOBAL_LIMIT bytes for one copy
-# (keeps the kernel's int32 indices in range), and the grid shrinks so
-# that all blocks' copies take at most GLOBAL_SCRATCH bytes
+SM_SMEM = 233_472
+BLOCK_RESERVED = 1024
+# the kernel's launch bound: up to 1024 threads a block, so at most 64
+# registers a thread; an SM holds 2048 threads and 65,536 registers
+MAX_THREADS = 1024
+REGS = 64
+SM_THREADS, SM_REGS = 2048, 65_536
+# resident warps an SM should hold to keep enough loads in flight
+MIN_WARPS = 32
+# accumulators past SMEM_LIMIT live in one copy in global memory: at
+# most GLOBAL_LIMIT bytes (keeps the kernel's int32 indices in range)
 GLOBAL_LIMIT = 1 << 30
-GLOBAL_SCRATCH = 256 << 20
-THREADS = 256
-WARPS = THREADS // 32
+THREADS = 256                       # a block's threads unless it must grow
+ROWS_PER_STRIP = 4                  # one 16-byte load per scalar column
 
 LAUNCHES = 0
 
@@ -185,11 +193,150 @@ def accumulator_bytes(num: int, width: int) -> int:
     return num * (max(1, width) + 1) * 4
 
 
+def staging_bytes(width: int) -> int:
+    """Shared memory a warp stages a wide column through: its 128 rows
+    of ``width`` floats and the 256 words of their sort by group (none
+    for a scalar column)."""
+    return (128 * width + 256) * 4 if width else 0
+
+
 def accumulator_mode(spec: FusedAggSpec, width: int) -> str:
-    """Where the kernel keeps a block's accumulators: ``"shared"`` when
-    one copy fits shared memory, else ``"global"``."""
-    return ("shared" if accumulator_bytes(spec.num_groups, width)
-            <= SMEM_LIMIT else "global")
+    """Where the kernel keeps its accumulators: ``"shared"`` when one
+    copy, and one warp's staging of a wide column, fit a block's shared
+    memory; else ``"global"`` (one copy in global memory for the whole
+    grid)."""
+    need = accumulator_bytes(spec.num_groups, width) + staging_bytes(width)
+    return "shared" if need <= SMEM_LIMIT else "global"
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """How the kernel is launched for one pass."""
+    mode: str               # "shared" | "global"
+    threads: int            # per block
+    blocks: int
+    replicas: int           # shared accumulator copies per block
+    smem_bytes: int         # dynamic shared memory per block
+    blocks_per_sm: int      # resident blocks an SM can hold
+
+    @property
+    def resident_warps(self) -> int:
+        return self.blocks_per_sm * self.threads // 32
+
+
+def _blocks_per_sm(threads: int, smem: int) -> int:
+    return min(SM_THREADS // threads, SM_REGS // (REGS * threads),
+               SM_SMEM // (smem + BLOCK_RESERVED))
+
+
+def _smem(copy: int, replicas: int, warps: int, width: int) -> int:
+    acc = -(-copy * replicas // 16) * 16          # the slabs start 16-aligned
+    return acc + warps * staging_bytes(width)
+
+
+def geometry(n_rows: int, spec: FusedAggSpec, width: int,
+             n_sm: int) -> Geometry:
+    """Blocks, threads, replicas and accumulator mode of one pass over
+    ``n_rows`` rows on a card with ``n_sm`` SMs. Shared mode takes the
+    largest block (1024, 512 or 256 threads, fewer only when a large wide
+    copy leaves room for few warps' staging) whose accumulators and
+    staging fit, so that an SM holds ``MIN_WARPS`` resident warps in as
+    few blocks, and as few partial slices to fold, as it can; replicas
+    take the shared memory left at that residency, up to one per warp.
+    Global mode has no slices and takes blocks of ``THREADS``. The grid
+    is one wave of resident blocks, or fewer when the rows are few."""
+    mode = accumulator_mode(spec, width)
+    copy = accumulator_bytes(spec.num_groups, width)
+    strips = -(-max(0, int(n_rows)) // ROWS_PER_STRIP)
+    best = None
+    sizes = ((MAX_THREADS, 512, 256, 128, 64, 32) if mode == "shared"
+             else (THREADS,))
+    for threads in sizes:
+        warps = threads // 32
+        if mode == "global":
+            replicas, smem = 1, warps * staging_bytes(width)
+        else:
+            smem = _smem(copy, 1, warps, width)
+            if smem > SMEM_LIMIT:
+                continue
+            per_sm = _blocks_per_sm(threads, smem)
+            replicas = 1
+            while (replicas < warps
+                   and _smem(copy, replicas + 1, warps, width) <= SMEM_LIMIT
+                   and _blocks_per_sm(threads, _smem(copy, replicas + 1,
+                                                     warps, width)) == per_sm):
+                replicas += 1
+            smem = _smem(copy, replicas, warps, width)
+        per_sm = _blocks_per_sm(threads, smem)
+        blocks = max(1, min(-(-strips // threads), per_sm * n_sm))
+        g = Geometry(mode, threads, blocks, replicas, smem, per_sm)
+        if best is None or g.resident_warps > best.resident_warps:
+            best = g
+        if g.resident_warps >= MIN_WARPS:
+            break
+    return best
+
+
+def vector_head(ptrs, widths) -> int:
+    """The first row from which every operand column's strips of 4 rows
+    start 16-byte aligned (0 to 3), or -1 when no row aligns them all.
+    ``ptrs`` are the columns' byte addresses, ``widths`` their floats per
+    row (1 for a scalar column)."""
+    for head in range(ROWS_PER_STRIP):
+        if all(p % 4 == 0 and (p // 4 + head * w) % 4 == 0
+               for p, w in zip(ptrs, widths)):
+            return head
+    return -1
+
+
+def strip_plan(n_rows: int, head: int, blocks: int) -> Tuple[int, int, int]:
+    """(head, n_strips, strips_per_block) as the kernel takes them: strips
+    of 4 rows from ``head`` (``vector_head``) while 4 rows remain, cut
+    into ``blocks`` contiguous runs; the rows before ``head`` and after the
+    last strip take the kernel's scalar path. head -1 (no strip): every
+    row is scalar."""
+    n_strips = (n_rows - head) // ROWS_PER_STRIP if 0 <= head <= n_rows else 0
+    if n_strips == 0:
+        head = -1
+    return head, n_strips, max(1, -(-n_strips // blocks))
+
+
+def div_magic(w: int) -> Tuple[int, int]:
+    """(magic, shift) with ``u // w == (umulhi(magic, u) + u) >> shift``
+    for every ``0 <= u < 2**31`` and ``w >= 2`` (the kernel's window
+    division): shift = ceil(log2 w), magic = floor(2^32 (2^shift - w) /
+    w) + 1 (Granlund and Montgomery's round-up method)."""
+    if w < 2:
+        raise ValueError(f"window {w} has no magic (needs >= 2)")
+    shift = (w - 1).bit_length()
+    return ((1 << 32) * ((1 << shift) - w)) // w + 1, shift
+
+
+def floor_div(a: int, w: int) -> int:
+    """The kernel's floor(a / w) for an int32 ``a`` and ``w >= 2``, in
+    plain Python: ``~a`` stands in for a negative ``a``."""
+    magic, shift = div_magic(w)
+    u = ~a if a < 0 else a
+    q = (((magic * u) >> 32) + u) >> shift
+    return ~q if a < 0 else q
+
+
+def ordered_int(x: float) -> int:
+    """The kernel's order-preserving map of a float32 to an int32 (max and
+    min are integer atomics on it): non-negative floats keep their bits,
+    negative ones flip the low 31 bits, and -0 maps to +0, so ``a < b``
+    if and only if ``ordered_int(a) < ordered_int(b)`` for non-NaN
+    float32 values."""
+    b = int(np.array(x, np.float32).view(np.int32))
+    if b == -2 ** 31:
+        b = 0
+    return b if b >= 0 else b ^ 0x7FFFFFFF
+
+
+def from_ordered_int(b: int) -> float:
+    """The inverse of ``ordered_int`` (-0 comes back as +0)."""
+    b = b if b >= 0 else b ^ 0x7FFFFFFF
+    return float(np.array(b, np.int32).view(np.float32))
 
 
 def check_kernel(spec: FusedAggSpec, width: int) -> None:
@@ -248,10 +395,18 @@ class _Spec(ctypes.Structure):
         ("agg", ctypes.c_int),
         ("num", ctypes.c_int),
         ("replicas", ctypes.c_int),
-    ("global_acc", ctypes.c_int),
+        ("global_acc", ctypes.c_int),
         ("n_blocks", ctypes.c_int),
+        ("threads", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
+        ("n_scalar", ctypes.c_int),
+        ("prefetch", ctypes.c_int),
         ("n_rows", ctypes.c_longlong),
-        ("rows_per_block", ctypes.c_longlong),
+        ("head", ctypes.c_longlong),
+        ("n_strips", ctypes.c_longlong),
+        ("strips_per_block", ctypes.c_longlong),
+        ("k_magic", ctypes.c_uint * MAX_KEYS),
+        ("k_shift", ctypes.c_int * MAX_KEYS),
     ]
 
 
@@ -292,7 +447,7 @@ def fused_segment_agg(cols, n_rows: int, fvals, spec: FusedAggSpec) -> Dict:
     CPU columns take the plain version. CUDA columns launch the kernel
     on the current stream, without synchronising, or raise (see
     ``check_kernel``); accumulators that fit shared memory live there,
-    larger ones in global memory (``accumulator_mode``)."""
+    larger ones in global memory (``accumulator_mode``, ``geometry``)."""
     global LAUNCHES
     v = cols[spec.value]
     if v.device.type == "cpu":
@@ -309,12 +464,14 @@ def fused_segment_agg(cols, n_rows: int, fvals, spec: FusedAggSpec) -> Dict:
     vals, floors, isint, oob = (np.asarray(a) for a in fvals)
     num = spec.num_groups
     lanes = max(1, width)
-    slot = accumulator_bytes(num, width)
-    in_global = accumulator_mode(spec, width) == "global"
     n_sm = torch.cuda.get_device_properties(v.device).multi_processor_count
-    n_blocks = max(1, min(-(-n_rows // THREADS), 2 * n_sm))
-    if in_global:
-        n_blocks = max(1, min(n_blocks, GLOBAL_SCRATCH // slot))
+    geo = geometry(n_rows, spec, width, n_sm)
+    # the wide value is the last operand column: filters and keys are 1-D
+    n_scalar = len(names) - (1 if width else 0)
+    head = vector_head([cols[c].data_ptr() for c in names],
+                       [width if width and c == spec.value else 1
+                        for c in names])
+    head, n_strips, per_block = strip_plan(n_rows, head, geo.blocks)
 
     s = _Spec()
     for j, name in enumerate(names):
@@ -333,19 +490,31 @@ def fused_segment_agg(cols, n_rows: int, fvals, spec: FusedAggSpec) -> Dict:
         s.k_col[j] = names.index(col)
         s.k_num[j] = int(n_ids)
         s.k_window[j] = int(window)
+        if window > 1:
+            s.k_magic[j], s.k_shift[j] = div_magic(int(window))
     s.v_col = names.index(spec.value)
     s.width = width
     s.agg = AGGS.index(spec.agg)
     s.num = num
-    s.replicas = 1 if in_global else max(1, min(WARPS, SMEM_TARGET // slot))
-    s.global_acc = int(in_global)
-    s.n_blocks = n_blocks
+    s.replicas = geo.replicas
+    s.global_acc = int(geo.mode == "global")
+    s.n_blocks = geo.blocks
+    s.threads = geo.threads
+    s.smem_bytes = geo.smem_bytes
+    s.n_scalar = n_scalar
+    # filter columns load before the filter runs; with no filter, all do
+    s.prefetch = (sum(1 << names.index(c) for c in {c for c, _, _ in
+                                                     spec.filters})
+                  if spec.filters else (1 << n_scalar) - 1)
     s.n_rows = n_rows
-    s.rows_per_block = max(1, -(-n_rows // n_blocks))
+    s.head = head
+    s.n_strips = n_strips
+    s.strips_per_block = per_block
 
     f32 = dict(dtype=torch.float32, device=v.device)
-    part_acc = torch.empty((n_blocks, num * lanes), **f32)
-    part_cnt = torch.empty((n_blocks, num), **f32)
+    slices = geo.blocks if geo.mode == "shared" else 0
+    part_acc = torch.empty((slices, num * lanes), **f32)
+    part_cnt = torch.empty((slices, num), dtype=torch.int32, device=v.device)
     acc = torch.empty((num, width) if width else (num,), **f32)
     cnt = torch.empty((num,), **f32)
     err = _lib()(ctypes.addressof(s), part_acc.data_ptr(),

@@ -130,3 +130,91 @@ def test_attend_dispatch():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PA.attend(*_t(q, k, v), causal=True, window=6)
+
+
+# ------------------------------------------- the kernel's 3xTF32 numbers ----
+# the card tests' K3 shapes (tests/test_torch_cuda.py) and a stress case
+K3_SHAPES = (
+    # B, Sq, Skv, H, G, D, causal, window
+    (2, 300, 300, 8, 2, 64, True, None),
+    (2, 200, 333, 4, 4, 16, False, None),
+    (1, 130, 197, 4, 2, 64, True, None),
+    (1, 500, 500, 8, 4, 64, True, 32),
+    (1, 600, 600, 4, 2, 64, True, 256),
+    (4, 77, 77, 4, 4, 12, False, 32),
+    (3, 130, 130, 4, 1, 128, True, None),
+    (30, 16, 16, 4, 4, 8, True, None),
+)
+STRESS = (1, 256, 256, 4, 2, 64, True, None)        # |q|, |k| up to 8
+
+
+def _stress_qkv(seed=0):
+    B, Sq, Skv, H, G, D, _, _ = STRESS
+    rng = np.random.default_rng(seed)
+    return _t(rng.uniform(-8, 8, (B, Sq, H, D)).astype(np.float32),
+              rng.uniform(-8, 8, (B, Skv, G, D)).astype(np.float32),
+              rng.normal(0, 1, (B, Skv, G, D)).astype(np.float32))
+
+
+def _tf32_rna(x):
+    """Round-to-nearest, ties away from zero, to 10 mantissa bits, by
+    float64 arithmetic on the significand."""
+    x = np.float64(x)
+    if not np.isfinite(x) or x == 0:
+        return x
+    m, e = np.frexp(x)                      # x = m * 2^e, 0.5 <= |m| < 1
+    scaled = m * 2.0 ** 11                  # 11 significant bits
+    r = np.sign(scaled) * np.floor(np.abs(scaled) + 0.5)
+    return float(np.float32(np.ldexp(r, e - 11)))
+
+
+def test_tf32_round_is_rna():
+    """``tf32_round`` against round-to-nearest-ties-away on values at,
+    beside and between TF32 neighbours, signs, infinities and zeros."""
+    ulp = 2.0 ** -10
+    xs = [0.0, -0.0, 1.0, -1.0, float("inf"), float("-inf"), 3.14159,
+          -2.71828, 1e-30, -1e30, 65504.0, 3.0e38]
+    for k in range(6):
+        for frac in (0.5, 0.25, 0.75, 0.4999, 0.5001):
+            xs += [1.0 + (k + frac) * ulp, -(1.0 + (k + frac) * ulp)]
+    xs += list(np.random.default_rng(0).normal(0, 100, 200))
+    x = torch.tensor(np.array(xs, np.float32))
+    got = FA.tf32_round(x).numpy()
+    want = np.array([_tf32_rna(v) for v in x.numpy()], np.float32)
+    np.testing.assert_array_equal(got, want)
+    # the low 13 bits are clear, and the split is exact in float32
+    assert not (FA.tf32_round(x).view(torch.int32) & 0x1FFF).any()
+    big = FA.tf32_round(x[torch.isfinite(x)])
+    small = FA.tf32_round(x[torch.isfinite(x)] - big)
+    resid = (x[torch.isfinite(x)] - big - small).abs()
+    assert bool((resid <= 2.0 ** -22 * x[torch.isfinite(x)].abs()).all())
+
+
+@pytest.mark.parametrize("case", K3_SHAPES + (STRESS,))
+def test_tf32_model_within_error_bound(case):
+    """The float64 model of the kernel's 3xTF32 arithmetic lies within
+    ``error_bound`` of the plain version (float32) on the card tests'
+    shapes and the stress case."""
+    B, Sq, Skv, H, G, D, causal, window = case
+    q, k, v = _stress_qkv() if case == STRESS else \
+        _t(*_qkv(B, Sq, Skv, H, G, D, seed=5))
+    want = FA.flash_attention_ref(q, k, v, causal=causal,
+                                  window=window).double()
+    bound = FA.error_bound(q, k, v, causal=causal, window=window)
+    assert bound.shape == (B, Sq, H, 1)
+    model = FA.attention_tf32(q, k, v, causal=causal, window=window)
+    assert bool(((model - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("case", (STRESS, K3_SHAPES[0], K3_SHAPES[-1]))
+def test_error_bound_is_not_vacuous(case):
+    """Plain TF32 products (one pass, about 2^-11 per operand) break the
+    bound that 3xTF32 meets."""
+    B, Sq, Skv, H, G, D, causal, window = case
+    q, k, v = _stress_qkv() if case == STRESS else \
+        _t(*_qkv(B, Sq, Skv, H, G, D, seed=5))
+    want = FA.flash_attention_ref(q, k, v, causal=causal,
+                                  window=window).double()
+    bound = FA.error_bound(q, k, v, causal=causal, window=window)
+    one = FA.attention_tf32(q, k, v, causal=causal, window=window, passes=1)
+    assert float(((one - want).abs() / bound).max()) > 1.0

@@ -187,6 +187,113 @@ def test_ragged_and_empty(cuda):
         assert bool((part["acc"] == fill).all())
 
 
+def _k1_vs_plain(cols, n, fvals, spec):
+    """K1 against its plain version run with the value column in float64:
+    counts, max and min exactly, float sums within 1e-5 of each group's
+    sum of magnitudes."""
+    got = K.fused_segment_agg(cols, n, fvals, spec)
+    v64 = cols[spec.value][:n].double()
+    want = K.fused_segment_agg_ref({**cols, spec.value: v64}, n, fvals, spec)
+    assert torch.equal(got["cnt"].cpu(), want["cnt"].cpu())
+    g, w = got["acc"].double().cpu(), want["acc"].double().cpu()
+    if spec.agg in ("max", "min"):
+        assert torch.equal(g, w)
+    else:
+        scale = K.fused_segment_agg_ref({**cols, spec.value: v64.abs()}, n,
+                                        fvals, spec)["acc"].cpu()
+        assert bool(((g - w).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", (1, 2, 3))
+def test_k1_unaligned_column_views(cuda, shift):
+    """Columns viewed from row ``shift``: bases off 16 bytes, a head of
+    scalar rows before the first aligned strip; and a column whose
+    alignment no row can match the others' (every row scalar)."""
+    store = _store(cuda, n=5000)
+    cols = {k: v[shift:] for k, v in store.columns.items()}
+    n = 5000 - shift
+    for agg in AGGS:
+        for value, keys in (("buffer_s", (("category", 4, 0),)),
+                            ("out", (("t", 267, 150), ("category", 4, 0)))):
+            if value == "out" and agg in ("max", "min"):
+                continue
+            spec = K.FusedAggSpec((("quality", "ge", 0),), keys, value, agg)
+            _, fvals = Q.normalize((Filter("quality", "ge", 0.3),))
+            _k1_vs_plain(cols, n, fvals, spec)
+    mixed = dict(store.columns)
+    mixed["buffer_s"] = store.columns["buffer_s"][1:]
+    spec = K.FusedAggSpec((), (("category", 4, 0),), "buffer_s", "max")
+    _k1_vs_plain(mixed, 4000, ((), (), (), ()), spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 3, 5, 4 * 1000 + 3))
+def test_k1_short_and_ragged_row_counts(cuda, n):
+    """Row counts that leave a scalar tail, with columns holding exactly
+    ``n`` rows (no slack past the live rows)."""
+    store = _store(cuda, n=n, seed=n)
+    cols = {k: v[:n].contiguous() for k, v in store.columns.items()}
+    for agg in AGGS:
+        spec = K.FusedAggSpec((("quality", "ge", 0),),
+                              (("category", 4, 0),), "on_core_s", agg)
+        _, fvals = Q.normalize((Filter("quality", "ge", 0.2),))
+        _k1_vs_plain(cols, n, fvals, spec)
+    wide = K.FusedAggSpec((), (("category", 4, 0),), "out", "sum")
+    _k1_vs_plain(cols, n, ((), (), (), ()), wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", AGGS)
+def test_k1_warp_group_patterns(cuda, agg):
+    """Every warp's rows in 32 (and 128) different groups, and every
+    row in one group, for scalar and wide values."""
+    n = 1 << 14
+    rng = np.random.default_rng(3)
+    cols = {"g_all": torch.arange(n, dtype=torch.int32, device=cuda),
+            "g_one": torch.zeros(n, dtype=torch.int32, device=cuda),
+            "g_mix": torch.as_tensor((np.arange(n) // 3 * 7919 % 997)
+                                     .astype(np.int32), device=cuda),
+            "x": torch.as_tensor(rng.normal(0, 1, n).astype(np.float32),
+                                 device=cuda),
+            "w": torch.as_tensor(rng.normal(0, 1, (n, 5)).astype(np.float32),
+                                 device=cuda)}
+    for key, num in (("g_all", n), ("g_one", 1), ("g_mix", 997)):
+        for value in ("x", "w"):
+            if value == "w" and agg in ("max", "min"):
+                continue
+            spec = K.FusedAggSpec((), ((key, num, 0),), value, agg)
+            _k1_vs_plain(cols, n, ((), (), (), ()), spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ("max", "min"))
+def test_k1_max_min_signed_zeros_infinities_global(cuda, agg):
+    """max and min through the ordered-int atomics: groups holding only
+    -0.0 and +0.0, only -inf or +inf, negatives and NaN rows, in shared
+    and in global mode."""
+    n = 4096
+    vals = np.array([-0.0, 0.0, -np.inf, np.inf, -3.5, -1e-38, 2.5, np.nan],
+                    np.float32)
+    x = np.resize(vals, n).astype(np.float32)
+    for num in (8, 70_000):
+        g = (np.arange(n) % 8) * (num // 8)
+        g[::5] = (np.arange(n)[::5] // 5) % num    # other groups mix values
+        cols = {"g": torch.as_tensor(g.astype(np.int32), device=cuda),
+                "x": torch.as_tensor(x, device=cuda)}
+        spec = K.FusedAggSpec((), (("g", num, 0),), "x", agg)
+        assert K.accumulator_mode(spec, 0) == ("shared" if num == 8
+                                               else "global")
+        got = K.fused_segment_agg(cols, n, ((), (), (), ()), spec)
+        acc = np.full(num, -np.inf if agg == "max" else np.inf)
+        fold = np.fmax if agg == "max" else np.fmin        # NaN skipped
+        for gi, xi in zip(g, x.astype(np.float64)):
+            acc[gi] = fold(acc[gi], xi)
+        np.testing.assert_array_equal(got["acc"].cpu().numpy(), acc)
+        np.testing.assert_array_equal(got["cnt"].cpu().numpy(),
+                                      np.bincount(g, minlength=num))
+
+
 # ---------------------------------------------------------------- K2 ----
 def _k2_tol(want, x, f):
     tol = f * f * 2.0 ** -24 * float(x.float().abs().max()) + 1e-7
@@ -246,6 +353,7 @@ K3_CASES = (
     (4, 77, 77, 4, 4, 12, False, 32),
     (3, 130, 130, 4, 1, 128, True, None),
     (30, 16, 16, 4, 4, 8, True, None),
+    (1, 300, 333, 4, 2, 128, True, 100),        # D = 128, ragged window
 )
 
 
@@ -261,8 +369,22 @@ def test_k3_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert FA.LAUNCHES == before + 1
     want = FA.flash_attention_ref(q, k, v, causal=causal, window=window)
-    tol = Skv * 2.0 ** -24 * float(v.abs().max()) + 1e-6
-    assert float((got - want).abs().max()) <= tol
+    bound = FA.error_bound(q, k, v, causal=causal, window=window)
+    assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_k3_stress_within_error_bound(cuda):
+    """|q|, |k| up to 8: scores up to about 60, a sharp softmax."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, Sq, Skv, H, G, D = 1, 256, 256, 4, 2, 64
+    q = 16 * torch.rand((B, Sq, H, D), generator=gen, device=cuda) - 8
+    k = 16 * torch.rand((B, Skv, G, D), generator=gen, device=cuda) - 8
+    v = torch.randn((B, Skv, G, D), generator=gen, device=cuda)
+    got = FA.flash_attention(q, k, v, causal=True)
+    want = FA.flash_attention_ref(q, k, v, causal=True)
+    bound = FA.error_bound(q, k, v, causal=True)
+    assert bool(((got - want).abs() <= bound).all())
 
 
 @pytest.mark.cuda

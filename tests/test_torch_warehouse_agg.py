@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from _torch_parity import ref_plan
 from repro.kernels.warehouse_agg import FusedAggSpec as RSpec
@@ -288,3 +290,158 @@ def test_kernel_limits_and_accumulator_mode():
     for sp, width, match in bad:
         with pytest.raises(ValueError, match=match):
             K.check_kernel(sp, width)
+
+
+# ------------------------------------------------- the kernel's geometry ----
+N_SM = 132                                  # H100 SXM
+MAIN_ROWS = 256 * 43_200                    # the main path's store
+
+
+def _main_specs():
+    """The five main-path plans' kernel specs and value widths."""
+    f = (("quality", "ge", 0),)
+    return {
+        "window_topk": (K.FusedAggSpec(f, (("t", 288, 150),), "quality",
+                                       "mean"), 0),
+        "category_mean": (K.FusedAggSpec(f, (("category", 4, 0),),
+                                         "quality", "mean"), 0),
+        "window_x_category": (K.FusedAggSpec((), (("t", 288, 150),
+                                                  ("category", 4, 0)),
+                                             "out", "mean"), 9),
+        "camera_buffer_peak": (K.FusedAggSpec((), (("stream_id", 256, 0),),
+                                              "buffer_s", "max"), 0),
+        "camera_x_window": (K.FusedAggSpec((), (("stream_id", 256, 0),
+                                                ("t", 288, 150)),
+                                           "quality", "mean"), 0),
+    }
+
+
+def _geometry_specs():
+    yield from _main_specs().values()
+    for num in (1, 4, 1000, 7000, K.SMEM_LIMIT // 8, K.SMEM_LIMIT // 8 + 1,
+                64_000, 2 ** 20):
+        for width in (0, 3, 9):
+            if width and num > 2 ** 19:
+                continue
+            yield K.FusedAggSpec((), (("g", num, 0),), "x", "sum"), width
+
+
+@pytest.mark.parametrize("n_rows", (0, 1, 3, 5, 1027, 4 * 10_000 + 3,
+                                    MAIN_ROWS))
+def test_geometry_grid_covers_every_row(n_rows):
+    """Strips of 4 rows from the aligned head, cut into the grid's blocks,
+    plus the scalar rows before and after them, are every row once."""
+    for spec, width in _geometry_specs():
+        geo = K.geometry(n_rows, spec, width, N_SM)
+        assert geo.blocks >= 1 and geo.threads % 32 == 0
+        assert 32 <= geo.threads <= K.MAX_THREADS
+        for head in (-1, 0, 1, 2, 3):
+            h, n_strips, per_block = K.strip_plan(n_rows, head, geo.blocks)
+            assert geo.blocks * per_block >= n_strips
+            front = n_rows if h < 0 else h
+            tail = n_rows - (front + 4 * n_strips)
+            assert tail >= 0 and (h < 0 or tail < 4)
+            assert front + 4 * n_strips + tail == n_rows
+            if head >= 0 and n_rows >= head + 4:
+                assert h == head and n_strips > 0
+
+
+def test_geometry_shared_memory_and_mode_boundary():
+    """Shared mode fits a block's 227 KB (replicas, and one warp's
+    staging of a wide column, included); the mode changes where one copy
+    of the accumulators stops fitting, as ``accumulator_mode`` says."""
+    for spec, width in _geometry_specs():
+        geo = K.geometry(MAIN_ROWS, spec, width, N_SM)
+        assert geo.mode == K.accumulator_mode(spec, width)
+        assert geo.smem_bytes <= K.SMEM_LIMIT
+        assert geo.blocks_per_sm >= 1
+        if geo.mode == "shared":
+            copy = K.accumulator_bytes(spec.num_groups, width)
+            assert 1 <= geo.replicas <= geo.threads // 32
+            assert geo.smem_bytes >= geo.replicas * copy
+        else:
+            assert geo.replicas == 1
+            assert geo.smem_bytes == geo.threads // 32 * K.staging_bytes(width)
+    for width in (0, 9):
+        per_group = (max(1, width) + 1) * 4
+        fit = (K.SMEM_LIMIT - K.staging_bytes(width)) // per_group
+        spec = K.FusedAggSpec((), (("g", fit, 0),), "x", "sum")
+        assert K.geometry(MAIN_ROWS, spec, width, N_SM).mode == "shared"
+        spec = K.FusedAggSpec((), (("g", fit + 1, 0),), "x", "sum")
+        assert K.geometry(MAIN_ROWS, spec, width, N_SM).mode == "global"
+
+
+@pytest.mark.parametrize("plan", sorted(_main_specs()))
+def test_geometry_resident_warps_on_the_main_path(plan):
+    """Every main-path plan keeps at least 32 warps resident on an SM,
+    and the grid fills every SM."""
+    spec, width = _main_specs()[plan]
+    geo = K.geometry(MAIN_ROWS, spec, width, N_SM)
+    assert geo.resident_warps >= K.MIN_WARPS
+    assert geo.blocks == geo.blocks_per_sm * N_SM
+    want = "global" if plan == "camera_x_window" else "shared"
+    assert geo.mode == want
+
+
+def test_vector_head():
+    """The first row at which every column's 4-row strip is 16-byte
+    aligned: scalar columns step 4 bytes a row, a (rows, D) column 4D."""
+    base = 1 << 20
+    assert K.vector_head([base, base + 64], [1, 1]) == 0
+    assert K.vector_head([base + 4, base + 4], [1, 1]) == 3
+    assert K.vector_head([base + 4, base + 36], [1, 9]) == 3
+    assert K.vector_head([base + 4, base + 8], [1, 1]) == -1
+    assert K.vector_head([base + 4, base], [1, 2]) == -1
+    assert K.vector_head([base + 2], [1]) == -1
+
+
+_F32_EDGES = np.array(
+    [0.0, -0.0, np.inf, -np.inf, 1.0, -1.0, 1.5, -1.5, 2.0, -2.0,
+     np.finfo(np.float32).max, -np.finfo(np.float32).max,
+     np.finfo(np.float32).tiny, -np.finfo(np.float32).tiny,
+     np.float32(1e-45), np.float32(-1e-45), np.float32(3e-39),
+     np.float32(-3e-39), np.nextafter(np.float32(1), np.float32(2)),
+     np.nextafter(np.float32(1), np.float32(0)), 0.3, -0.3, 6e5, -6e5],
+    np.float32)
+
+
+def test_ordered_int_orders_like_the_floats():
+    """``ordered_int(a) < ordered_int(b)`` if and only if ``a < b``, and
+    equal ints for equal floats (+0 and -0 included), over every pair of
+    float32 edge values; the map inverts (with -0 as +0)."""
+    ints = [K.ordered_int(float(x)) for x in _F32_EDGES]
+    assert all(-2 ** 31 <= i < 2 ** 31 for i in ints)
+    for a, ia in zip(_F32_EDGES, ints):
+        back = K.from_ordered_int(ia)
+        assert back == a and np.float32(back).tobytes() == (
+            np.float32(a) + np.float32(0)).tobytes()
+        for b, ib in zip(_F32_EDGES, ints):
+            assert (ia < ib) == (a < b), (a, b)
+            assert (ia == ib) == (a == b), (a, b)
+
+
+@given(st.floats(width=32, allow_nan=False),
+       st.floats(width=32, allow_nan=False))
+@settings(max_examples=300, deadline=None)
+def test_ordered_int_property(a, b):
+    ia, ib = K.ordered_int(a), K.ordered_int(b)
+    assert (ia < ib) == (a < b)
+    assert (ia == ib) == (a == b)
+
+
+def test_window_division_magic():
+    """The kernel's floor division by a window (a multiply-high by a host
+    magic number, ``~a`` for negative ``a``) equals ``a // w`` over int32
+    edge values and random ones, for windows from 2 to 2^31 - 1."""
+    rng = np.random.default_rng(4)
+    xs = [0, 1, -1, 2, -2, 149, 150, 151, -150, -151, 43_199, 2 ** 30,
+          2 ** 31 - 1, -2 ** 31, -2 ** 31 + 1]
+    xs += [int(x) for x in rng.integers(-2 ** 31, 2 ** 31, 2000)]
+    for w in (2, 3, 5, 7, 10, 20, 150, 255, 256, 600, 43_200, 65_537,
+              2 ** 20 + 1, 2 ** 30 + 3, 2 ** 31 - 1):
+        magic, shift = K.div_magic(w)
+        assert 0 <= magic < 2 ** 32 and 1 <= shift <= 31
+        for a in xs:
+            assert K.floor_div(a, w) == a // w, (a, w)
+    with pytest.raises(ValueError):
+        K.div_magic(1)
