@@ -14,7 +14,8 @@ script fails before it prints a result.
 2. build      one nvcc per kernel source in ``src/repro_torch/csrc``,
               all started together: K1 ``warehouse_agg.cu``, K2
               ``frame_preproc.cu``, K3 ``flash_attention.cu``, K4
-              ``ssd_scan.cu``.
+              ``ssd_scan.cu`` (K3 and K4 include the shared
+              ``hopper.cuh``).
 3. kernel     K1 against its plain version on the same CUDA tensors over
               the test matrix at 1M rows (shared- and global-memory
               accumulators), and against a float64 host oracle; then
@@ -30,12 +31,16 @@ script fails before it prints a result.
               windows 32 to 256, G < H, ragged Sq and Skv, head dims 8
               to 128 (a D = 128 ragged window), and a stress case with
               |q|, |k| up to 8.
-5b. kernel_k4 K4 against its plain version run in float64: G = 1 and
+5b. kernel_k4 K4 (five passes) against its plain version run in
+              float64 within ``kernels.ssd.error_bound``, and each pass
+              against its own plain version within the bound
+              ``kernels.ssd.pass_errors`` states for it: G = 1 and
               G > 1, S past and short of a multiple of the chunk, S below
               the chunk, chunks 8 to 256, P 8 to 64, N 16 and 128, with
               and without ``init_state``, and the mamba2-370m serve
               prefill (B=4, S=2048, H=32, P=64, G=1, N=128, Q=256); y and
-              the final state. Inputs drawn as the model draws them:
+              the final state, the largest error printed as a share of
+              its bound. Inputs drawn as the model draws them:
               dt = softplus(dt_bias + z) with dt_bias from the ``dt_bias``
               init range, A = -exp(A_log) from the ``ssm_a`` range.
 6. main       the single-stream main path at full size, with the launch
@@ -86,8 +91,10 @@ script fails before it prints a result.
               (3xTF32 at the dense TF32 peak, the kernel's; FP32
               CUDA-core peak, a float32 kernel's), its plain version and
               ``F.scaled_dot_product_attention``; K4 at the mamba2-370m
-              serve prefill beside its operation bound and its plain
-              version (no PyTorch call computes the SSD scan). The library
+              serve prefill beside both operation bounds (3xTF32, its
+              arithmetic and its bound; FP32) and its plain version (no
+              PyTorch call computes the SSD scan), each of its five
+              passes alone and the bytes of its scratch. The library
               calls are yardsticks the port never calls.
 
 Tolerances. K1: counts, max, min and integer-valued sums are exact.
@@ -110,10 +117,12 @@ max|v| (the bound of the FP32 kernel before it), plus the 3xTF32 terms,
 the softmax (with the float32 score sums over D) and of max|v| on each
 output. K4: y and the
 final state within ``kernels.ssd.error_bound`` of the plain version in
-float64: 2^-24 * (N + 3 S' + 32 Lambda + 16) times the largest sum of
-magnitudes of one output (S' the padded length, Lambda the largest sum
-of |dt * A| over a chunk; the bound follows the float32 sums' lengths
-and the cumsum's roundings inside each decay exponent). Transform
+float64: 2^-24 * (N + 3 S' + 32 Lambda + 16 + 24) times the largest sum
+of magnitudes of one output (S' the padded length, Lambda the largest
+sum of |dt * A| over a chunk; the bound follows the float32 sums'
+lengths, the cumsum's roundings inside each decay exponent and, the
+24, two 3xTF32 products in a row at 3 * 2^-22 each); each pass within
+its own bound of the same kind (``kernels.ssd.pass_errors``). Transform
 qualities: 1e-5 against the CPU run. Serve: logits within 1e-3 of the
 plain-attention model (3xTF32 attention summed in another order moves
 each layer by about 1e-6 relative, as float32 did; 24 layers and the
@@ -633,13 +642,15 @@ def ssd_inputs(B, S, H, P, G, N, gen, dev):
 
 
 def phase_kernel_k4(dev):
-    """K4 vs its plain version in float64 on the same CUDA tensors."""
+    """K4 vs its plain version in float64 on the same CUDA tensors, and
+    each of its passes vs its own plain version."""
     from repro_torch.kernels import ssd as SSD
     gen = torch.Generator(device=dev).manual_seed(4)
     errs, before = {}, SSD.LAUNCHES
     for B, S, H, P, G, N, chunk, with_init in _k4_cases():
         *args, init = ssd_inputs(B, S, H, P, G, N, gen, dev)
         init = init if with_init else None
+        passes = SSD.pass_errors(*args, chunk=chunk, init_state=init)
         y, state = SSD.ssd_scan(*args, chunk=chunk, init_state=init)
         sync()
         want_y, want_state = SSD.ssd_scan_ref(
@@ -654,10 +665,19 @@ def phase_kernel_k4(dev):
         if not (err_y <= tol_y and err_state <= tol_state):
             raise AssertionError(f"K4 {name}: max error y {err_y} > {tol_y} "
                                  f"or state {err_state} > {tol_state}")
+        bad = {k: v for k, v in passes.items() if not v <= 1.0}
+        if bad:
+            raise AssertionError(f"K4 {name}: passes beyond their bounds "
+                                 f"(shares) {bad}")
         errs[name] = {"y": err_y, "state": err_state, "tol_y": tol_y,
-                      "tol_state": tol_state}
+                      "tol_state": tol_state,
+                      "of_bound": max(err_y / tol_y, err_state / tol_state),
+                      "passes_of_bound": passes}
         del args, init, y, state, want_y, want_state
     emit("kernel_k4", cases=len(errs), launches=SSD.LAUNCHES - before,
+         max_of_bound=max(e["of_bound"] for e in errs.values()),
+         max_pass_of_bound=max(max(e["passes_of_bound"].values())
+                               for e in errs.values()),
          max_abs_err=errs)
     return max(max(e["y"], e["state"]) for e in errs.values())
 
@@ -1206,20 +1226,37 @@ def ssd_work(B, S, H, P, G, N, Q):
 
 
 def phase_time_k4(dev):
-    """K4 at the mamba2-370m serve prefill: kernel and plain version,
-    CUDA-event medians, beside the operation and byte bounds."""
+    """K4 at the mamba2-370m serve prefill: the five passes together and
+    each alone, and the plain version, CUDA-event medians, beside both
+    operation bounds (3xTF32 at the dense TF32 peak, the kernels'
+    arithmetic and their bound; the FP32 CUDA-core bound of a float32
+    kernel) and the byte bound, with the bytes of the scratch."""
     from repro_torch.kernels import ssd as SSD
     gen = torch.Generator(device=dev).manual_seed(6)
     B, S, H, P, G, N, Q = SSD_TIME
     *args, _ = ssd_inputs(B, S, H, P, G, N, gen, dev)
+    x, Bm = args[0], args[3]
     flops, nbytes = ssd_work(B, S, H, P, G, N, Q)
-    op_ms = flops / FP32_FLOP_PER_S * 1e3
+    tf32_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    fp32_ms = flops / FP32_FLOP_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, N), device=dev)
+    scr = SSD.scratch(x, Bm, Q)
+    for name in SSD.PASSES:              # the scratch holds every input
+        SSD.launch(name, *args, None, y, state, scr, Q)
+    passes = {name: cuda_ms(lambda: SSD.launch(
+        name, *args, None, y, state, scr, Q), 20) for name in SSD.PASSES}
     k4 = {"kernel_ms": cuda_ms(lambda: SSD.ssd_scan(*args, chunk=Q), 20),
           "plain_ms": cuda_ms(lambda: SSD.ssd_scan_ref(*args, chunk=Q), 5),
           "library_ms": None, "shape": list(SSD_TIME), "flops": flops,
-          "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
-          "bound_by": "operations" if op_ms > byte_ms else "bytes"}
+          "bytes": nbytes, "bound_ms": max(tf32_ms, byte_ms),
+          "bound_by": "operations" if tf32_ms > byte_ms else "bytes",
+          "bound_3xtf32_ms": max(tf32_ms, byte_ms),
+          "bound_fp32_ms": max(fp32_ms, byte_ms),
+          "pass_ms": passes,
+          "scratch_bytes": sum(t.numel() * t.element_size()
+                               for t in scr.values())}
     emit("time_k4", ssd_scan=k4)
     return k4
 

@@ -15,6 +15,14 @@ part taken out.
   H=G=16, D=64, causal: ``no_split`` (tiles not split into TF32
   halves), ``no_softmax`` (scores go to PV as they are), ``one_pass``
   (big*big only, the two small 3xTF32 terms dropped).
+- K4 (``csrc/ssd_scan.cu``) at the mamba2-370m serve prefill, B=4,
+  S=2048, H=32, P=64, G=1, N=128, Q=256: each of its five passes timed
+  alone, then the whole scan and each pass again with ``one_pass``
+  (big*big only, the two small 3xTF32 terms dropped), ``no_split``
+  (staged tiles not split into TF32 halves), ``no_inter`` (the C . S_in
+  term dropped from the chunk scan), ``no_load`` (no tile loads after
+  each block's first two steps: the copies' cost) and ``no_exp`` (the
+  chunk scan's weights without their decay, CB as it stands).
 - K1 (``csrc/warehouse_agg.cu``) on a window x category plan over a
   (rows, 9) column of 11,059,200 rows with the category changing from
   row to row: ``no_add`` (the wide value's reduction taken out),
@@ -42,6 +50,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as C                                     # noqa: E402
 from repro_torch.kernels import build                      # noqa: E402
 from repro_torch.kernels import flash_attention as FA      # noqa: E402
+from repro_torch.kernels import ssd as SSD                 # noqa: E402
 from repro_torch.kernels import warehouse_agg as K         # noqa: E402
 
 OUT = ROOT / "build" / "ablate"
@@ -56,6 +65,23 @@ K3_CUTS = {
                   "      wgmma_ss<BK>(sc, qbd, ksd);\n", ""),
                  ("      wgmma_rs<DP>(o, ps[j], vbd);\n"
                   "      wgmma_rs<DP>(o, pb[j], vsd);\n", "")],
+}
+K4_CUTS = {
+    "one_pass": [("    wgmma_ss_n64(acc, as, bb);\n"
+                  "    wgmma_ss_n64(acc, ab, bs);\n", ""),
+                 ("      wgmma_rs_n64(acc, as[j], xb);\n"
+                  "      wgmma_rs_n64(acc, ab[j], xsd);\n", ""),
+                 ("      wgmma_rs_n64(acc, as[j], bb);\n"
+                  "      wgmma_rs_n64(acc, ab[j], bsd);\n", "")],
+    "no_split": [("for (int i = threadIdx.x; i < W / 4; i += NT) {",
+                  "for (int i = threadIdx.x; i < 0; i += NT) {")],
+    "no_inter": [("const int nk = (c == 0 && a.init == nullptr) ? 0 : "
+                  "(a.N + KI - 1) / KI;", "const int nk = 0;")],
+    "no_load": [("    if (it + 2 < steps) load(it + 2, st);\n", "")],
+    "no_exp": [("v.x * (expf(ct - cumv[s]) * dtv[s])", "v.x"),
+               ("v.y * (expf(ct - cumv[s + 1]) * dtv[s + 1])", "v.y"),
+               ("v.x * (rf * colv[sl])", "v.x"),
+               ("v.y * (rf * colv[sl + 1])", "v.y")],
 }
 K1_CUTS = {
     "no_add": [("  wide_add(sink, run, slab, order, gq, lane);\n"
@@ -73,12 +99,11 @@ def ablated(name: str, cut: str, edits) -> ctypes.CDLL:
         if old not in src:
             raise RuntimeError(f"{name}:{cut}: the source no longer has "
                                f"{old[:50]!r}")
-        src = src.replace(old, new)
+        src = src.replace(old, new)          # every occurrence
     OUT.mkdir(parents=True, exist_ok=True)
     cu, so = OUT / f"{name}_{cut}.cu", OUT / f"{name}_{cut}.so"
     cu.write_text(src)
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                   check=True, capture_output=True)
+    subprocess.run(build.command(cu, so), check=True, capture_output=True)
     return ctypes.CDLL(str(so))
 
 
@@ -98,6 +123,36 @@ def k3(dev) -> dict:
             S, H, H, D, 1, 0, D ** -0.5,
             torch.cuda.current_stream().cuda_stream), 20)
     return res
+
+
+def k4(dev) -> dict:
+    B, S, H, P, G, N, Q = C.SSD_TIME
+    gen = torch.Generator(device=dev).manual_seed(0)
+    *args, _ = C.ssd_inputs(B, S, H, P, G, N, gen, dev)
+    x, Bm = args[0], args[3]
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, N), device=dev)
+    scr = SSD.scratch(x, Bm, Q)
+
+    def times() -> dict:
+        for name in SSD.PASSES:          # the scratch holds every input
+            SSD.launch(name, *args, None, y, state, scr, Q)
+        res = {"scan": C.cuda_ms(lambda: SSD.ssd_scan(*args, chunk=Q), 20)}
+        for name in SSD.PASSES:
+            res[name] = C.cuda_ms(lambda: SSD.launch(
+                name, *args, None, y, state, scr, Q), 20)
+        return res
+
+    out = {"kernel": times()}
+    real = SSD._lib
+    try:
+        for cut, edits in K4_CUTS.items():
+            fns = SSD.bind(ablated("ssd_scan", cut, edits))
+            SSD._lib = lambda fns=fns: fns
+            out[cut] = times()
+    finally:
+        SSD._lib = real
+    return out
 
 
 def k1(dev) -> dict:
@@ -131,7 +186,8 @@ def main() -> int:
         print("chip_ablate: no CUDA device is visible", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    print(json.dumps({"device": C.nvidia_smi(), "k3_ms": k3(dev),
+    print(json.dumps({"device": C.nvidia_smi(), "k4_ms": k4(dev),
+                      "k3_ms": k3(dev),
                       "k1_window_x_category_ms": k1(dev)}), flush=True)
     return 0
 

@@ -1,70 +1,102 @@
-// The Mamba2 SSD chunked scan in float32, for Hopper (sm_90a).
+// The Mamba2 SSD chunked scan at float32 accuracy on the tensor cores
+// (3xTF32), for Hopper (sm_90a), in five passes.
 //
 // Replaces: repro/kernels/ssd.py:_kernel (Pallas, TPU), called through
 // ssd_scan, with the model path's signature (repro/models/ssd.py:
 // ssd_scan): the state may come in (init_state) and the final state goes
 // out. For each (b, h) with group g = h / (H/G), a (P,N) state S is
-// carried across chunks of Q positions; within a chunk, with
-// cum_t = sum_{u<=t} dt_u * A_h (inclusive, inside the chunk):
+// carried across chunks of Q positions; within chunk c, with
+// cum_t = sum_{u<=t} dt_u * A_h (inclusive, inside the chunk) and
+// total_c = cum_{Q-1}:
 //   y_t   = sum_{s<=t} (C_t . B_s) exp(cum_t - cum_s) dt_s x_s
-//           + exp(cum_t) C_t . S
-//   S    <- exp(cum_Q) S + sum_s exp(cum_Q - cum_s) dt_s x_s (x) B_s
+//           + exp(cum_t) C_t . S_in[c]
+//   S_in[c+1] = exp(total_c) S_in[c]
+//               + sum_s exp(total_c - cum_s) dt_s x_s (x) B_s
 // Positions past S are the reference's padding: dt = 0 and x = B = C = 0,
 // so they decay the state by exp(0) = 1 and add nothing.
 //
-// Design. The TPU grid (B, H, chunk) runs its chunk axis in order on one
-// core and keeps the state in VMEM scratch. Here one block of 256 threads
-// owns one (b, h) and walks the chunks in a loop that stands in for that
-// sequential axis; the state stays in shared memory for the whole walk
-// (64 x 128 floats, 32 KB). Per chunk:
-//   1. dt and the inclusive cumsum of dt * A over the chunk's (at most
-//      256) positions, one per thread: a warp shuffle scan, then the
-//      warps' totals added in order;
-//   2. for each 64-row t tile: the inter part exp(cum_t) C_t . S^T from
-//      the state entering the chunk, then for each 64-row s tile with
-//      s <= t (tiles above the diagonal are skipped) the scores
-//      C_t . B_s^T, masked BEFORE the exp (exp(cum_t - cum_s) for s > t
-//      can overflow, and inf * 0 is NaN), weighted by dt_s, and times
-//      the x_s tile;
-//   3. the state update from every s tile of the chunk.
-// Each product is a 64 x 64 (or 64 x 128) output tile, 4 x 4 (4 x 8)
-// per thread of a 16 x 16 layout; tiles are row-major with rows padded
-// by one float, so a half-warp's 16 column lanes hit 16 banks and the
-// two row groups of a warp read broadcasts. P and N are zero-padded to
-// 64 and 128 and any chunk length up to 256 runs: rows of a tile past
-// the chunk or the sequence are zeros and are not written.
-//
 // Bound: operations. At the serve prefill of mamba2-370m (B=4, S=2048,
-// H=32, P=64, G=1, N=128, Q=256) the necessary work is about 13.2 GFLOP
-// (the causal half of C.B^T once per (b, g, chunk), the causal half of
-// the scores times x, C . state and the state update, per head) against
-// about 148 MB of x, y, B, C, dt and the state: far above the ridge
-// point, so on the FP32 CUDA cores (not TF32, so the numbers are the
-// reference's function) the floor is that over about 67 TFLOP/s on an
-// H100 SXM. This kernel does more: it computes C . B^T again for every
-// head of a group and its diagonal tiles in full, about 24.6 GFLOP at
-// that shape. B*H = 128 blocks are one wave on 132 SMs at one block per
-// SM (131 KB of shared memory each). Present limits (work for a later
-// change): C . B^T per head, scalar shared-memory loads (8 loads per 16
-// FMAs in the score and PV products), 8 warps per SM, no tensor cores,
-// no cp.async or TMA double buffering, one sequential walk per (b, h)
-// (a two-pass design would compute chunk states in parallel).
+// H=32, P=64, G=1, N=128, Q=256) the necessary work is 13.17 GFLOP (the
+// causal half of C.B^T once per (b, g, chunk), the causal half of the
+// weights times x, C . S_in and the state update, per head) against about
+// 148 MB of x, y, B, C, dt and the state. 3xTF32 runs three TF32 products
+// for each float32 one, so the floor is 3 x 13.17 GFLOP over the 495
+// TFLOP/s dense TF32 peak of an H100 SXM.
 //
-// Interface: plain C, loaded with ctypes. ssd_scan_fwd() launches on the
-// given stream, does not synchronise, and returns cudaGetLastError() (or
-// the error of raising the shared-memory limit).
+// Design: the layout of the Mamba2 authors' GPU kernels (chunk cumsum,
+// C.B^T per group, chunk states, state passing, chunk scan). The TPU grid
+// walks the chunks of one (b, h) in order with the state in VMEM; here
+// only the state passing (pass 4, elementwise) is serial over chunks, and
+// every product runs for all chunks at once.
+//   1. ssd_cumsum: dt and cum per (b, h, chunk) into (B,H,nc,QP) scratch
+//      (QP = Q rounded up to 64; padding has dt = 0 and a flat cum). Every
+//      later pass reads these, so all agree on every decay exponent.
+//   2. ssd_bmm: CB = C_c . B_c^T once per (b, chunk, g), the 64 x 64 tiles
+//      on and below the diagonal only, into (B,nc,G,QP,QP) scratch; the
+//      heads of a group read it from L2.
+//   3. ssd_chunk_state: upd_c = sum_s (x_s exp(total_c - cum_s) dt_s) (x)
+//      B_s per (b, h, chunk), a (Q x N)^T.(Q x P) product (K = s), into
+//      the (B,H,nc,P,N) states scratch.
+//   4. ssd_state_passing: S_in[c] over the chunks in order, elementwise
+//      over (b, h, p, n), written over upd_c in place; the final state.
+//   5. ssd_chunk_scan: per (b, h, chunk, 64-row t tile), the inter term
+//      exp(cum_t) C_t . S_in[c]^T, then the s tiles on and below the
+//      diagonal: W = CB[t,s] exp(cum_t - cum_s) dt_s, masked BEFORE the
+//      exp (s > t may overflow, and inf * 0 is NaN), times x_s. The t
+//      tiles of one (b, h, chunk) run side by side, the heaviest first.
+// Every product is wgmma.mma_async m64nNk8 .tf32 in 3xTF32 (see
+// hopper.cuh): each operand x is split into big = tf32(x) and small =
+// tf32(x - big) and a product is small*big + big*small + big*big,
+// accumulated in float32; the split is integer arithmetic on the bits
+// (split_bits: cvt.rna's rounding without the conversions).
+// kernels/ssd.py:error_bound states the bound.
+// - One warpgroup (128 threads) per block in pass 2, two in passes 3 and
+//   5 (more warps to hide the latency of the splits). Operand
+//   tiles come through a 2-stage ring of float32 staging buffers filled
+//   by cp.async (16-byte copies where P and N are multiples of 4 and the
+//   bases are aligned; zero-fill past the chunk, P and N): the next
+//   step's tile is in flight while the block multiplies this one.
+// - tf32 wgmma reads shared operands K-major only, as core matrices of 8
+//   rows x 4 words without swizzle (K3's layout and descriptors). C, B
+//   and S_in are stored with the K index (n) contiguous and split as they
+//   stand; x (s, p) has the K index s strided, so passes 3 and 5
+//   transpose it as they split it (pass 3 scaling it by its decay, pass
+//   5 with K3's V permutation: a k step's k = t, t + 4 are positions 2t,
+//   2t + 1).
+// - The register operand, split in registers: pass 5's weights W, formed
+//   from the staged CB tile (a float2 per lane and row, which the
+//   permutation makes the A fragment), and C in its inter steps; pass
+//   3's B (rows n, K = s), read from the staged chunk as it stands. In
+//   pass 3 each warpgroup owns 64 of the state's n rows; in pass 5 the
+//   two take halves of each step's K and add their sums at the end.
+// Shared memory per block: pass 2 69 KB (3 blocks per SM), pass 3 71 KB
+// and pass 5 106 KB (2 blocks of 256 threads, at most 128 registers a
+// thread).
+//
+// Interface: plain C, loaded with ctypes. Every pass takes the same
+// arguments, launches on the given stream, does not synchronise, and
+// returns cudaGetLastError() (or the error of raising the shared-memory
+// limit); -1 for a shape the kernels do not take.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include "hopper.cuh"
 
-#define T 64                  // rows per t and s tile
-#define PMAX 64               // head dim P, zero-padded
-#define NMAX 128              // state dim N, zero-padded
-#define QMAX 256              // chunk length Q: one position per thread
-#define THREADS 256           // 16 row groups x 16 column lanes
-#define NS (NMAX + 1)         // row stride of the C, B and state tiles
-#define SS (T + 1)            // row stride of the score tile
+#define T 64                  // rows of a t or s tile; the wgmma M
+#define PMAX 64               // head dim P, zero-padded: wgmma N of y, upd^T
+#define NMAX 128              // state dim N, zero-padded: 2 x 64 rows of upd^T
+#define QMAX 256              // chunk length Q
+#define KC 32                 // n per step of the C.B^T product
+#define KI 64                 // n per step of the C.S_in product
+#define SC 32                 // positions per step of the chunk states
+#define THREADS 128           // one warpgroup (pass 2)
+#define THREADS2 256          // two warpgroups (passes 3 and 5)
+#define SPK (KC + 4)          // staged row stride of a K-contiguous chunk
+#define SPI (KI + 4)          // ... of C and S_in in the chunk scan
+#define SPT (T + 8)           // of a staged CB or x tile (float2 reads of CB)
+#define SPB (NMAX + 8)        // of a staged B chunk (pass 3's A fragments)
 #define FULL_MASK 0xffffffffu
+static_assert(KI == T, "an inter step's split S_in is as large as x's");
 
 struct SsdArgs {
   const float* x;             // (B,S,H,P)
@@ -75,258 +107,658 @@ struct SsdArgs {
   const float* init;          // (B,H,P,N) or null: zeros
   float* y;                   // (B,S,H,P)
   float* state;               // (B,H,P,N)
-  int B, S, H, P, G, N, Q;
+  float* dts;                 // (B,H,nc,QP) scratch: dt, zeros past the chunk
+  float* cum;                 // (B,H,nc,QP) scratch: inclusive cumsum of dt*A
+  float* cb;                  // (B,nc,G,QP,QP) scratch: C.B^T, lower tiles
+  float* states;              // (B,H,nc,P,N) scratch: upd_c, then S_in[c]
+  int B, S, H, P, G, N, Q, QP, nc;
+  int vec4;                   // 16-byte copies of x, y, B, C and state rows
 };
 
-static size_t smem_bytes() {
-  return sizeof(float) * ((size_t)2 * T * NS + (size_t)PMAX * NS +
-                          (size_t)T * PMAX + (size_t)T * SS + 2 * QMAX + 8);
+// cp.async, by NT threads, of rows [0, ROWS) x columns [0, COLS) of a
+// row-major matrix at src (row stride ld floats) into st (row stride SP
+// floats); rows past
+// rows_ok and columns past cols_ok are zeros. With vec4, cols_ok and ld
+// are multiples of 4 and src is 16-byte aligned.
+template <int NT, int ROWS, int COLS, int SP>
+__device__ __forceinline__ void load_tile(float* st, const float* src,
+                                          int64_t ld, int rows_ok,
+                                          int cols_ok, int vec4) {
+  if (vec4) {
+    constexpr int CH = COLS / 4;
+    for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+      const int r = i / CH, c = 4 * (i % CH);
+      const bool ok = r < rows_ok && c < cols_ok;
+      cp_async16(st + r * SP + c, ok ? src + r * ld + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += NT) {
+      const int r = i / COLS, c = i % COLS;
+      const bool ok = r < rows_ok && c < cols_ok;
+      cp_async4(st + r * SP + c, ok ? src + r * ld + c : src, ok ? 4 : 0);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(THREADS) ssd_scan_kernel(SsdArgs a) {
-  extern __shared__ float smem[];
-  float* Cs = smem;                     // [T][NS]     C rows of the t tile
-  float* Bs = Cs + T * NS;              // [T][NS]     B rows of the s tile
-  float* St = Bs + T * NS;              // [PMAX][NS]  the state
-  float* Xs = St + PMAX * NS;           // [T][PMAX]   x rows of the s tile
-  float* Sc = Xs + T * PMAX;            // [T][SS]     weighted scores
-  float* cum = Sc + T * SS;             // [QMAX]
-  float* dts = cum + QMAX;              // [QMAX]
-  float* wsum = dts + QMAX;             // [8]         warp totals
+// Split a staged R x KW operand into the K-major core-matrix layout, big
+// at dst and small at dst + R * KW (word i: core matrix cm = i / 32, row
+// 8 (cm % (R/8)) + (i / 4) % 8, k 4 (cm / (R/8)) + i % 4), by NT threads.
+// A thread writes one core-matrix row of 4 words with one 16-byte store
+// each.
+// split_rows: element (row, k) is st[row * SP + k], K contiguous.
+template <int NT, int R, int KW, int SP>
+__device__ __forceinline__ void split_rows(const float* st, uint32_t* dst) {
+  constexpr int RB = R / 8, W = R * KW;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < W / 4; i += NT) {
+    const int cm = i >> 3, row = 8 * (cm % RB) + (i & 7), kg = cm / RB;
+    const float4 v = *(const float4*)(st + row * SP + 4 * kg);
+    uint4 big, small;
+    split_bits(v.x, big.x, small.x);
+    split_bits(v.y, big.y, small.y);
+    split_bits(v.z, big.z, small.z);
+    split_bits(v.w, big.w, small.w);
+    *(uint4*)(dst + 4 * i) = big;
+    *(uint4*)(dst + W + 4 * i) = small;
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int g = h / (a.H / a.G);
-  const int P = a.P, N = a.N, Q = a.Q;
-  const float A = a.A[h];
-  const int64_t x_row = (int64_t)a.H * P;      // elements between positions
-  const int64_t bc_row = (int64_t)a.G * N;
-  const float* xb = a.x + (int64_t)b * a.S * x_row + (int64_t)h * P;
-  float* yb = a.y + (int64_t)b * a.S * x_row + (int64_t)h * P;
-  const float* dtb = a.dt + (int64_t)b * a.S * a.H + h;
-  const float* Bb = a.Bm + (int64_t)b * a.S * bc_row + (int64_t)g * N;
-  const float* Cb = a.Cm + (int64_t)b * a.S * bc_row + (int64_t)g * N;
-  const int64_t st_off = ((int64_t)b * a.H + h) * P * N;
+// split_cols: element (row, k) is st[k * SP + row] (times kscale[k] with
+// SCALE), transposed as it is split; 8 lanes read 8 consecutive rows of
+// one k (no bank conflicts). PERM: a k step's k = t, t + 4 are staged
+// rows 2t, 2t + 1 of its 8.
+template <int NT, int R, int KW, int SP, bool PERM, bool SCALE = false>
+__device__ __forceinline__ void split_cols(const float* st, uint32_t* dst,
+                                           const float* kscale = nullptr) {
+  constexpr int RB = R / 8, W = R * KW, KS = PERM ? 2 : 1;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < W / 4; i += NT) {
+    const int cm = i >> 3, row = 8 * (cm % RB) + (i & 7), kg = cm / RB;
+    const int k0 = PERM ? 8 * (kg >> 1) + (kg & 1) : 4 * kg;
+    const float* p = st + k0 * SP + row;
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[q] = p[q * KS * SP];
+      if constexpr (SCALE) v[q] *= kscale[k0 + q * KS];
+    }
+    uint4 big, small;
+    split_bits(v[0], big.x, small.x);
+    split_bits(v[1], big.y, small.y);
+    split_bits(v[2], big.z, small.z);
+    split_bits(v[3], big.w, small.w);
+    *(uint4*)(dst + 4 * i) = big;
+    *(uint4*)(dst + W + 4 * i) = small;
+  }
+}
 
-  for (int i = tid; i < PMAX * NMAX; i += THREADS) {
-    const int p = i / NMAX, n = i % NMAX;
-    St[p * NS + n] = (a.init != nullptr && p < P && n < N)
-                         ? a.init[st_off + (int64_t)p * N + n] : 0.f;
+// acc (m64n64) += A . B^T over one KC-wide step: A and B are split 64 x KC
+// K-major tiles at sa and sb (big, then small)
+__device__ __forceinline__ void nt_step(float (&acc)[32], const uint32_t* sa,
+                                        const uint32_t* sb) {
+  constexpr int W = T * KC;
+#pragma unroll
+  for (int ks = 0; ks < KC / 8; ++ks) {
+    const int o = 2 * ks * (T / 8) * 32;
+    const uint64_t ab = smem_desc(sa + o, (T / 8) * 128, 128);
+    const uint64_t as = smem_desc(sa + W + o, (T / 8) * 128, 128);
+    const uint64_t bb = smem_desc(sb + o, (T / 8) * 128, 128);
+    const uint64_t bs = smem_desc(sb + W + o, (T / 8) * 128, 128);
+    wgmma_ss_n64(acc, as, bb);
+    wgmma_ss_n64(acc, ab, bs);
+    wgmma_ss_n64(acc, ab, bb);
+  }
+}
+
+__device__ __forceinline__ int chunk_len(const SsdArgs& a, int c) {
+  return (int)min((int64_t)a.Q, (int64_t)a.S - (int64_t)c * a.Q);
+}
+
+// ---------------------------------------------------------------- 1 ----
+// grid (nc * H, B), QP threads: dt and the inclusive cumsum of dt * A
+// (a warp shuffle scan, then the warps' totals added in order)
+__global__ void ssd_cumsum_kernel(SsdArgs a) {
+  __shared__ float wsum[QMAX / 32];
+  const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
+  const int h = blockIdx.x % a.H, c = blockIdx.x / a.H, b = blockIdx.y;
+  const int64_t c0 = (int64_t)c * a.Q;
+  const int len = chunk_len(a, c);
+  const float d = i < len ? a.dt[((int64_t)b * a.S + c0 + i) * a.H + h] : 0.f;
+  float v = d * a.A[h];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(FULL_MASK, v, o);
+    if (lane >= o) v += u;
+  }
+  if (lane == 31) wsum[warp] = v;
+  __syncthreads();
+  float off = 0.f;
+  for (int w = 0; w < warp; ++w) off += wsum[w];
+  const int64_t o = (((int64_t)b * a.H + h) * a.nc + c) * a.QP + i;
+  a.cum[o] = off + v;
+  a.dts[o] = d;
+}
+
+// ---------------------------------------------------------------- 2 ----
+// grid (tiles * nc * G, B): CB tile (ti, si), si <= ti, of chunk c and
+// group g; K = n in steps of KC through the ring
+__global__ void __launch_bounds__(THREADS) ssd_bmm_kernel(SsdArgs a) {
+  extern __shared__ __align__(128) uint32_t smem[];
+  constexpr int STAGE = 2 * T * SPK;
+  float* stage = (float*)smem;                          // [2][C, B][T][SPK]
+  uint32_t* sp = smem + 2 * STAGE;                      // C split, B split
+  const int ntri = (a.QP / T) * (a.QP / T + 1) / 2;
+  const int tile = blockIdx.x % ntri, rest = blockIdx.x / ntri;
+  const int g = rest % a.G, c = rest / a.G, b = blockIdx.y;
+  int ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= tile) ++ti;
+  const int si = tile - ti * (ti + 1) / 2;
+  const int len = chunk_len(a, c);
+  if (ti * T >= len) return;                 // past the chunk: never read
+  const int64_t ld = (int64_t)a.G * a.N;
+  const int64_t c0 = (int64_t)c * a.Q;
+  const float* cs = a.Cm + ((int64_t)b * a.S + c0 + ti * T) * ld + g * a.N;
+  const float* bs = a.Bm + ((int64_t)b * a.S + c0 + si * T) * ld + g * a.N;
+  const int c_rows = min(T, len - ti * T), b_rows = min(T, len - si * T);
+  const int steps = (a.N + KC - 1) / KC;
+  auto load = [&](int it, float* st) {
+    const int k0 = it * KC;
+    load_tile<THREADS, T, KC, SPK>(st, cs + k0, ld, c_rows, a.N - k0,
+                                   a.vec4);
+    load_tile<THREADS, T, KC, SPK>(st + T * SPK, bs + k0, ld, b_rows,
+                                   a.N - k0, a.vec4);
+  };
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  load(0, stage);
+  cp_commit();
+  if (steps > 1) load(1, stage + STAGE);
+  cp_commit();
+  for (int it = 0; it < steps; ++it) {
+    float* st = stage + (it & 1) * STAGE;
+    cp_wait_all_but_one();
+    __syncthreads();
+    split_rows<THREADS, T, KC, SPK>(st, sp);
+    split_rows<THREADS, T, KC, SPK>(st + T * SPK, sp + 2 * T * KC);
+    fence_async_smem();
+    __syncthreads();
+    pin(acc);
+    wg_fence();
+    nt_step(acc, sp, sp + 2 * T * KC);
+    wg_commit();
+    if (it + 2 < steps) load(it + 2, st);
+    cp_commit();
+    wg_wait_all();
+    pin(acc);
   }
 
-  const int nc = (a.S + Q - 1) / Q;
-  const int ntiles = (Q + T - 1) / T;
-  for (int c = 0; c < nc; ++c) {
-    const int64_t c0 = (int64_t)c * Q;
-    const int len = (int)min((int64_t)Q, (int64_t)a.S - c0);
-
-    // 1. dt and the inclusive cumsum of dt * A (zeros past len)
-    const float d = tid < len ? dtb[(c0 + tid) * a.H] : 0.f;
-    float v = d * A;
+  const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  float* out = a.cb + (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP +
+               (int64_t)(ti * T) * a.QP + si * T;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float u = __shfl_up_sync(FULL_MASK, v, o);
-      if (lane >= o) v += u;
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * wl + g8 + 8 * r, col = 8 * j + 2 * t4;
+      *(float2*)(out + (int64_t)row * a.QP + col) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
-    __syncthreads();          // the last chunk's readers of cum are done
-    if (lane == 31) wsum[warp] = v;
+}
+
+// ---------------------------------------------------------------- 3 ----
+// grid (H * nc, B), two warpgroups: upd_c^T (N x P) = sum_s B_s (x) x'_s,
+// x'_s = x_s exp(total_c - cum_s) dt_s; M = n (warpgroup w: n in [64w,
+// 64w + 64)), N = p, K = s in steps of SC. B is the register operand
+// (read from the staged chunk as it stands), x' the shared one, scaled
+// and transposed as it is split.
+__global__ void __launch_bounds__(THREADS2, 2)
+    ssd_chunk_state_kernel(SsdArgs a) {
+  extern __shared__ __align__(128) uint32_t smem[];
+  constexpr int XS = SC * SPT, STAGE = XS + SC * SPB;
+  float* stage = (float*)smem;                          // [2][x, B]
+  uint32_t* sp = smem + 2 * STAGE;                      // x' split (p, s)
+  float* wv = (float*)(sp + 2 * PMAX * SC);             // [QP] decay * dt
+  const int h = blockIdx.x % a.H, c = blockIdx.x / a.H, b = blockIdx.y;
+  const int g = h / (a.H / a.G);
+  const int len = chunk_len(a, c);
+  const int64_t c0 = (int64_t)c * a.Q;
+  const int64_t xld = (int64_t)a.H * a.P, bld = (int64_t)a.G * a.N;
+  const float* xs = a.x + ((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P;
+  const float* bs = a.Bm + ((int64_t)b * a.S + c0) * bld + g * a.N;
+  const int64_t v0 = (((int64_t)b * a.H + h) * a.nc + c) * a.QP;
+  const float total = a.cum[v0 + a.QP - 1];
+  for (int i = threadIdx.x; i < a.QP; i += THREADS2)
+    wv[i] = expf(total - a.cum[v0 + i]) * a.dts[v0 + i];
+  const int steps = (len + SC - 1) / SC;
+  auto load = [&](int it, float* st) {
+    const int s0 = it * SC;
+    load_tile<THREADS2, SC, PMAX, SPT>(st, xs + s0 * xld, xld, len - s0, a.P,
+                                       a.vec4);
+    load_tile<THREADS2, SC, NMAX, SPB>(st + XS, bs + s0 * bld, bld, len - s0,
+                                       a.N, a.vec4);
+  };
+
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int lane = tw & 31, wl = tw >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int n0 = 64 * wg + 16 * wl + g8;     // this thread's rows n0, n0 + 8
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  load(0, stage);
+  cp_commit();
+  if (steps > 1) load(1, stage + STAGE);
+  cp_commit();
+  for (int it = 0; it < steps; ++it) {
+    float* st = stage + (it & 1) * STAGE;
+    const int s0 = it * SC;
+    cp_wait_all_but_one();
     __syncthreads();
-    float off = 0.f;
-    for (int w = 0; w < warp; ++w) off += wsum[w];
-    cum[tid] = off + v;
-    dts[tid] = d;
+    split_cols<THREADS2, PMAX, SC, SPT, false, true>(st, sp, wv + s0);
+    fence_async_smem();
     __syncthreads();
-    const float total = cum[QMAX - 1];       // flat past len
+    // A fragment of k step j: (n0, s0 + 8j + t4), (n0 + 8, ...),
+    // (n0, s0 + 8j + t4 + 4), (n0 + 8, ...)
+    uint32_t ab[SC / 8][4], as[SC / 8][4];
+#pragma unroll
+    for (int j = 0; j < SC / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split_bits(
+            st[XS + (8 * j + t4 + 4 * (q >> 1)) * SPB + n0 + 8 * (q & 1)],
+            ab[j][q], as[j][q]);
+    pin(acc);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < SC / 8; ++j) {
+      const int o = 2 * j * (PMAX / 8) * 32;
+      const uint64_t xb = smem_desc(sp + o, (PMAX / 8) * 128, 128);
+      const uint64_t xsd = smem_desc(sp + PMAX * SC + o, (PMAX / 8) * 128, 128);
+      wgmma_rs_n64(acc, as[j], xb);
+      wgmma_rs_n64(acc, ab[j], xsd);
+      wgmma_rs_n64(acc, ab[j], xb);
+    }
+    wg_commit();
+    __syncthreads();                  // every read of stage it & 1 is done
+    if (it + 2 < steps) load(it + 2, st);
+    cp_commit();
+    wg_wait_all();
+    pin(acc);
+  }
 
-    // 2. y, one 64-row t tile at a time
-    for (int tt = 0; tt < ntiles; ++tt) {
-      const int t0 = tt * T;
-      if (t0 >= len) break;
-      __syncthreads();        // the last tile's readers of Cs are done
-      for (int i = tid; i < T * NMAX; i += THREADS) {
-        const int r = i / NMAX, n = i % NMAX, row = t0 + r;
-        Cs[r * NS + n] = (row < len && n < N)
-                             ? Cb[(c0 + row) * bc_row + n] : 0.f;
+  // acc[4j + 2r + e] is upd[p = 8j + 2 t4 + e][n = n0 + 8r]; a store
+  // instruction's lanes fill 32-byte sectors (8 consecutive n)
+  float* out = a.states + (((int64_t)b * a.H + h) * a.nc + c) * a.P * a.N;
+#pragma unroll
+  for (int j = 0; j < PMAX / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = 8 * j + 2 * t4 + e, n = n0 + 8 * r;
+        if (p < a.P && n < a.N) out[p * a.N + n] = acc[4 * j + 2 * r + e];
       }
-      __syncthreads();
+}
 
-      float acc[4][4];
+// ---------------------------------------------------------------- 4 ----
+// grid (ceil(P*N / (256 V)) * H, B), 256 threads of V elements each
+// (V = 4: float4 rows): S_in over the chunks in order, written over upd_c;
+// the final state. The loads of CG chunks are in flight together.
+template <int V>
+__global__ void __launch_bounds__(256) ssd_state_passing_kernel(SsdArgs a) {
+  constexpr int CG = 8;
+  const int nv = a.P * a.N / V, per = (nv + 255) / 256;
+  const int h = blockIdx.x / per, b = blockIdx.y;
+  const int e = (blockIdx.x % per) * 256 + threadIdx.x;
+  if (e >= nv) return;
+  const int64_t bh = (int64_t)b * a.H + h;
+  const int64_t pn = (int64_t)a.P * a.N;
+  float s[V];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int v = 0; v < V; ++v)
+    s[v] = a.init != nullptr ? a.init[bh * pn + (int64_t)V * e + v] : 0.f;
+  for (int c0 = 0; c0 < a.nc; c0 += CG) {
+    float u[CG][V], tot[CG];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      // inter: C_t . S^T over the state entering the chunk
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty * 4 + i) * NS + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sv[j] = St[(tx + 16 * j) * NS + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cv[i], sv[j], acc[i][j]);
+    for (int k = 0; k < CG; ++k) {
+      if (c0 + k >= a.nc) break;
+      const int64_t bhc = bh * a.nc + c0 + k;
+      tot[k] = a.cum[bhc * a.QP + a.QP - 1];
+      const float* src = a.states + bhc * pn + (int64_t)V * e;
+      if constexpr (V == 4) {
+        const float4 f = *(const float4*)src;
+        u[k][0] = f.x; u[k][1] = f.y; u[k][2] = f.z; u[k][3] = f.w;
+      } else {
+        u[k][0] = src[0];
       }
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = expf(cum[t0 + ty * 4 + i]);
+    for (int k = 0; k < CG; ++k) {
+      if (c0 + k >= a.nc) break;
+      float* dst = a.states + (bh * a.nc + c0 + k) * pn + (int64_t)V * e;
+      if constexpr (V == 4) *(float4*)dst = make_float4(s[0], s[1], s[2], s[3]);
+      else dst[0] = s[0];
+      const float d = expf(tot[k]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= e;
+      for (int v = 0; v < V; ++v) s[v] = fmaf(d, s[v], u[k][v]);
+    }
+  }
+  float* out = a.state + bh * pn + (int64_t)V * e;
+#pragma unroll
+  for (int v = 0; v < V; ++v) out[v] = s[v];
+}
+
+// ---------------------------------------------------------------- 5 ----
+// grid (tiles * H * nc * B): y for 64 rows of one (b, h, chunk); the t
+// tiles of one (b, h, chunk) are neighbours, heaviest first, so its x
+// tiles and S_in are read again from L2. Every step is acc += A . B with
+// A (rows t, K) in registers and B (rows p, K) split in shared memory;
+// the two warpgroups take the step's k steps 0-3 and 4-7 into partial
+// sums, added at the end. Steps 0 .. nk-1:
+// C_t (registers) times S_in^T over KI values of n (S_in K-major as
+// stored); then s tiles 0 .. tt: W (registers) times x_s (split
+// transposed, with the permutation). W on a tile below the diagonal is
+// cb * exp(cum_t - ref) * (exp(ref - cum_s) dt_s), ref = cum at the
+// tile's last position, both factors at most 1 (the column factors once
+// per step in shared memory); on the diagonal tile exp(cum_t - cum_s) is
+// taken per element, masked first.
+__global__ void __launch_bounds__(THREADS2, 2)
+    ssd_chunk_scan_kernel(SsdArgs a) {
+  extern __shared__ __align__(128) uint32_t smem[];
+  constexpr int STAGE = 2 * T * SPT;                    // >= 2 * T * SPI
+  float* stage = (float*)smem;               // [2][CB, x] or [2][C, S_in]
+  uint32_t* sp = smem + 2 * STAGE;           // S_in or x, split
+  float* cumv = (float*)(sp + 2 * T * T);    // [QP]
+  float* dtv = cumv + a.QP;                  // [QP]
+  float* colv = dtv + a.QP;                  // [T] column factors
+  const int ntiles = a.QP / T;
+  const int tt = ntiles - 1 - (int)(blockIdx.x % ntiles);
+  const int rest = blockIdx.x / ntiles;
+  const int h = rest % a.H, c = (rest / a.H) % a.nc, b = rest / (a.H * a.nc);
+  const int g = h / (a.H / a.G);
+  const int len = chunk_len(a, c);
+  const int t0 = tt * T;
+  if (t0 >= len) return;
+  const int64_t c0 = (int64_t)c * a.Q;
+  const int64_t xld = (int64_t)a.H * a.P, cld = (int64_t)a.G * a.N;
+  const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
+  const float* xs = a.x + ((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P;
+  const float* cs = a.Cm + ((int64_t)b * a.S + c0 + t0) * cld + g * a.N;
+  const float* ss = a.states + bhc * a.P * a.N;
+  const float* cbs = a.cb + (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP +
+                     (int64_t)t0 * a.QP;
+  for (int i = threadIdx.x; i < a.QP; i += THREADS2) {
+    cumv[i] = a.cum[bhc * a.QP + i];
+    dtv[i] = a.dts[bhc * a.QP + i];
+  }
+  // S_in[0] is zero without an initial state: no inter steps
+  const int nk = (c == 0 && a.init == nullptr) ? 0 : (a.N + KI - 1) / KI;
+  const int steps = nk + tt + 1;
+  auto load = [&](int it, float* st) {
+    if (it < nk) {
+      const int k0 = it * KI;
+      load_tile<THREADS2, T, KI, SPI>(st, cs + k0, cld, len - t0, a.N - k0,
+                                      a.vec4);
+      load_tile<THREADS2, T, KI, SPI>(st + T * SPI, ss + k0, a.N, a.P,
+                                      a.N - k0, a.vec4);
+    } else {
+      const int s0 = (it - nk) * T;
+      load_tile<THREADS2, T, T, SPT>(st, cbs + s0, a.QP, T, T, 1);
+      load_tile<THREADS2, T, PMAX, SPT>(st + T * SPT, xs + s0 * xld, xld,
+                                        len - s0, a.P, a.vec4);
+    }
+  };
+
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int lane = tw & 31, wl = tw >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * wl + g8;               // this thread's rows r0, r0 + 8
+  const int j0 = 4 * wg;                     // its warpgroup's k steps
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  load(0, stage);
+  cp_commit();
+  if (steps > 1) load(1, stage + STAGE);
+  cp_commit();
+  for (int it = 0; it < steps; ++it) {
+    float* st = stage + (it & 1) * STAGE;
+    const int st_i = it - nk;                // the s tile, if >= 0
+    const int s0 = st_i * T;
+    cp_wait_all_but_one();
+    __syncthreads();
+    if (st_i < 0) {
+      split_rows<THREADS2, PMAX, KI, SPI>(st + T * SPI, sp);
+    } else {
+      split_cols<THREADS2, PMAX, T, SPT, true>(st + T * SPT, sp);
+      if (st_i < tt && threadIdx.x < T) {
+        const float ref = cumv[s0 + T - 1];
+        colv[threadIdx.x] = expf(ref - cumv[s0 + threadIdx.x]) *
+                            dtv[s0 + threadIdx.x];
       }
-
-      // intra: the s tiles on and below the diagonal
-      for (int st = 0; st <= tt; ++st) {
-        const int s0 = st * T;
-        __syncthreads();      // the last s tile's readers are done
-        for (int i = tid; i < T * NMAX; i += THREADS) {
-          const int r = i / NMAX, n = i % NMAX, row = s0 + r;
-          Bs[r * NS + n] = (row < len && n < N)
-                               ? Bb[(c0 + row) * bc_row + n] : 0.f;
-        }
-        for (int i = tid; i < T * PMAX; i += THREADS) {
-          const int r = i / PMAX, p = i % PMAX, row = s0 + r;
-          Xs[r * PMAX + p] = (row < len && p < P)
-                                 ? xb[(c0 + row) * x_row + p] : 0.f;
-        }
-        __syncthreads();
-
-        float sc[4][4];
+    }
+    fence_async_smem();
+    __syncthreads();
+    // A fragment of k step j0 + j (rows r0, r0 + 8):
+    // inter: k = t4, t4 + 4 are n = k0 + 8 (j0 + j) + t4, + 4;
+    // intra: k = t4, t4 + 4 are positions s0 + 8 (j0 + j) + 2 t4, + 1
+    uint32_t ab[4][4], as[4][4];
+    if (st_i < 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
+        for (int q = 0; q < 4; ++q)
+          split_bits(st[(r0 + 8 * (q & 1)) * SPI + 8 * (j0 + j) + t4 +
+                        4 * (q >> 1)],
+                     ab[j][q], as[j][q]);
+    } else if (st_i < tt) {
+      const float ref = cumv[s0 + T - 1];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty * 4 + i) * NS + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * NS + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(cv[i], bv[j], sc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int t = t0 + ty * 4 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = s0 + tx + 16 * j;
-            // mask before the exp: s > t may overflow
-            const float w = s <= t ? expf(cum[t] - cum[s]) * dts[s] : 0.f;
-            Sc[(ty * 4 + i) * SS + tx + 16 * j] = sc[i][j] * w;
-          }
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int s = 0; s < T; ++s) {
-          float pv[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pv[i] = Sc[(ty * 4 + i) * SS + s];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xv[j] = Xs[s * PMAX + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], xv[j], acc[i][j]);
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = t0 + ty * 4 + i;
-        if (t >= len) continue;
+      for (int r = 0; r < 2; ++r) {
+        const float rf = expf(cumv[t0 + r0 + 8 * r] - ref);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int p = tx + 16 * j;
-          if (p < P) yb[(c0 + t) * x_row + p] = acc[i][j];
+          const int sl = 8 * (j0 + j) + 2 * t4;
+          const float2 v = *(const float2*)(st + (r0 + 8 * r) * SPT + sl);
+          split_bits(v.x * (rf * colv[sl]), ab[j][r], as[j][r]);
+          split_bits(v.y * (rf * colv[sl + 1]), ab[j][2 + r], as[j][2 + r]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = t0 + r0 + 8 * r;
+        const float ct = cumv[t];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int sl = 8 * (j0 + j) + 2 * t4;
+          const float2 v = *(const float2*)(st + (r0 + 8 * r) * SPT + sl);
+          const int s = s0 + sl;
+          // mask before the exp: s > t may overflow
+          const float w0 = s <= t ? v.x * (expf(ct - cumv[s]) * dtv[s]) : 0.f;
+          const float w1 =
+              s + 1 <= t ? v.y * (expf(ct - cumv[s + 1]) * dtv[s + 1]) : 0.f;
+          split_bits(w0, ab[j][r], as[j][r]);
+          split_bits(w1, ab[j][2 + r], as[j][2 + r]);
         }
       }
     }
-
-    // 3. the state update: S <- exp(total) S + sum_s xs_s (x) B_s with
-    //    xs_s = x_s exp(total - cum_s) dt_s; thread (ty, tx) owns rows
-    //    p = 4ty..4ty+3 and columns n = tx + 16j
-    float sa[4][8];
+    pin(acc);
+    wg_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      const int o = 2 * (j0 + j) * (PMAX / 8) * 32;
+      const uint64_t bb = smem_desc(sp + o, (PMAX / 8) * 128, 128);
+      const uint64_t bsd = smem_desc(sp + PMAX * T + o, (PMAX / 8) * 128,
+                                     128);
+      wgmma_rs_n64(acc, as[j], bb);
+      wgmma_rs_n64(acc, ab[j], bsd);
+      wgmma_rs_n64(acc, ab[j], bb);
+    }
+    wg_commit();
+    __syncthreads();                  // every read of stage it & 1 is done
+    if (it + 2 < steps) load(it + 2, st);
+    cp_commit();
+    wg_wait_all();
+    pin(acc);
+    if (it == nk - 1) {               // the inter term, times exp(cum_t)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sa[i][j] = 0.f;
-    for (int st = 0; st < ntiles; ++st) {
-      const int s0 = st * T;
-      if (s0 >= len) break;
-      __syncthreads();        // the last tile's readers of Bs, Xs are done
-      for (int i = tid; i < T * NMAX; i += THREADS) {
-        const int r = i / NMAX, n = i % NMAX, row = s0 + r;
-        Bs[r * NS + n] = (row < len && n < N)
-                             ? Bb[(c0 + row) * bc_row + n] : 0.f;
-      }
-      for (int i = tid; i < T * PMAX; i += THREADS) {
-        const int r = i / PMAX, p = i % PMAX, row = s0 + r;
-        Xs[r * PMAX + p] =
-            (row < len && p < P)
-                ? xb[(c0 + row) * x_row + p] *
-                      (expf(total - cum[row]) * dts[row])
-                : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int s = 0; s < T; ++s) {
-        float xv[4], bv[8];
+      for (int r = 0; r < 2; ++r) {
+        const float e = expf(cumv[t0 + r0 + 8 * r]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = Xs[s * PMAX + ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = Bs[s * NS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) sa[i][j] = fmaf(xv[i], bv[j], sa[i][j]);
+        for (int j = 0; j < PMAX / 8; ++j) {
+          acc[4 * j + 2 * r] *= e;
+          acc[4 * j + 2 * r + 1] *= e;
+        }
       }
     }
-    __syncthreads();          // every t tile's reads of St are done
-    const float et = expf(total);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float* s = &St[(ty * 4 + i) * NS + tx + 16 * j];
-        *s = fmaf(et, *s, sa[i][j]);
-      }
-    __syncthreads();
   }
 
-  float* out = a.state + st_off;
-  for (int i = tid; i < P * N; i += THREADS) {
-    const int p = i / N, n = i % N;
-    out[i] = St[p * NS + n];
+  // the two warpgroups' partial sums added in a shared tile, then y
+  // written from it a row of 16-byte stores at a time
+  __syncthreads();
+  float* red = stage;                        // [T][SPT]
+  if (wg == 1) {
+#pragma unroll
+    for (int j = 0; j < PMAX / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *(float2*)(red + (r0 + 8 * r) * SPT + 8 * j + 2 * t4) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int j = 0; j < PMAX / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2* q = (float2*)(red + (r0 + 8 * r) * SPT + 8 * j + 2 * t4);
+        const float2 v = *q;
+        *q = make_float2(v.x + acc[4 * j + 2 * r],
+                         v.y + acc[4 * j + 2 * r + 1]);
+      }
+  }
+  __syncthreads();
+  const int rows = min(T, len - t0);
+  float* yt = a.y + ((int64_t)b * a.S + c0 + t0) * xld + (int64_t)h * a.P;
+  if (a.vec4) {
+    for (int i = threadIdx.x; i < rows * (PMAX / 4); i += THREADS2) {
+      const int r = i / (PMAX / 4), c = 4 * (i % (PMAX / 4));
+      if (c < a.P)
+        *(float4*)(yt + r * xld + c) = *(const float4*)(red + r * SPT + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * PMAX; i += THREADS2) {
+      const int r = i / PMAX, c = i % PMAX;
+      if (c < a.P) yt[r * xld + c] = red[r * SPT + c];
+    }
   }
 }
 
-// x (B,S,H,P), dt (B,S,H), A (H,), Bm and Cm (B,S,G,N), init (B,H,P,N) or
-// null, y (B,S,H,P), state (B,H,P,N), all contiguous float32 on the
-// device. P <= 64, N <= 128, 1 <= Q <= 256, H % G == 0, B <= 65535.
-// Returns a cudaError_t (0 on success); -1 for a shape the kernel does
-// not take.
-extern "C" int ssd_scan_fwd(const float* x, const float* dt, const float* A,
-                            const float* Bm, const float* Cm,
-                            const float* init, float* y, float* state, int B,
-                            int S, int H, int P, int G, int N, int Q,
-                            cudaStream_t stream) {
-  if (B == 0 || H == 0) return 0;
+// ------------------------------------------------------------ launch ----
+static size_t bmm_smem() {
+  return 4 * ((size_t)2 * 2 * T * SPK + 2 * 2 * T * KC);
+}
+static size_t chunk_state_smem() {
+  return 4 * ((size_t)2 * (SC * SPT + SC * SPB) + 2 * PMAX * SC + QMAX);
+}
+static size_t chunk_scan_smem() {
+  return 4 * ((size_t)2 * 2 * T * SPT + 2 * T * T + 2 * QMAX + T);
+}
+
+template <typename K>
+static int raise_smem(K kern, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+static bool make_args(SsdArgs& a, const float* x, const float* dt,
+                      const float* A, const float* Bm, const float* Cm,
+                      const float* init, float* y, float* state, float* dts,
+                      float* cum, float* cb, float* states, int B, int S,
+                      int H, int P, int G, int N, int Q) {
   if (P < 1 || P > PMAX || N < 1 || N > NMAX || Q < 1 || Q > QMAX ||
-      G < 1 || H % G != 0 || B > 65535)
+      S < 1 || G < 1 || H % G != 0 || B > 65535)
+    return false;
+  const int QP = (Q + T - 1) / T * T;
+  const int nc = (S + Q - 1) / Q;
+  auto al = [](const void* p) { return ((uintptr_t)p % 16) == 0; };
+  const int vec4 = P % 4 == 0 && N % 4 == 0 && al(x) && al(Bm) && al(Cm) &&
+                   al(y) && al(states);
+  a = SsdArgs{x, dt, A, Bm, Cm, init, y, state, dts, cum, cb, states,
+              B, S, H, P, G, N, Q, QP, nc, vec4};
+  return true;
+}
+
+#define SSD_PASS(name)                                                      \
+  extern "C" int name(const float* x, const float* dt, const float* A,     \
+                      const float* Bm, const float* Cm, const float* init, \
+                      float* y, float* state, float* dts, float* cum,      \
+                      float* cb, float* states, int B, int S, int H, int P, \
+                      int G, int N, int Q, cudaStream_t stream)
+
+// Arguments of every pass: x (B,S,H,P), dt (B,S,H), A (H,), Bm and Cm
+// (B,S,G,N), init (B,H,P,N) or null, y (B,S,H,P), state (B,H,P,N), and
+// the scratch dts and cum (B,H,nc,QP), cb (B,nc,G,QP,QP) and states
+// (B,H,nc,P,N), nc = ceil(S/Q), QP = Q rounded up to 64; all contiguous
+// float32 on the device. P <= 64, N <= 128, 1 <= Q <= 256, H % G == 0,
+// B <= 65535. The passes run in order: cumsum, bmm, chunk_state,
+// state_passing, chunk_scan.
+#define SSD_ARGS                                                            \
+  if (B == 0 || H == 0) return 0;                                           \
+  SsdArgs a;                                                                \
+  if (!make_args(a, x, dt, A, Bm, Cm, init, y, state, dts, cum, cb, states, \
+                 B, S, H, P, G, N, Q))                                      \
     return -1;
-  const size_t smem = smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(
-      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  SsdArgs a{x, dt, A, Bm, Cm, init, y, state, B, S, H, P, G, N, Q};
-  ssd_scan_kernel<<<dim3(H, B), THREADS, smem, stream>>>(a);
+
+SSD_PASS(ssd_cumsum) {
+  SSD_ARGS
+  ssd_cumsum_kernel<<<dim3(a.nc * H, B), a.QP, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+SSD_PASS(ssd_bmm) {
+  SSD_ARGS
+  const int e = raise_smem(ssd_bmm_kernel, bmm_smem());
+  if (e != 0) return e;
+  const int nt = a.QP / T;
+  ssd_bmm_kernel<<<dim3(nt * (nt + 1) / 2 * a.nc * G, B), THREADS,
+                   bmm_smem(), stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+SSD_PASS(ssd_chunk_state) {
+  SSD_ARGS
+  const int e = raise_smem(ssd_chunk_state_kernel, chunk_state_smem());
+  if (e != 0) return e;
+  ssd_chunk_state_kernel<<<dim3(H * a.nc, B), THREADS2, chunk_state_smem(),
+                           stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+SSD_PASS(ssd_state_passing) {
+  SSD_ARGS
+  // float4 rows where P * N is a multiple of 4 and the state in is aligned
+  if ((P * N) % 4 == 0 && ((uintptr_t)init % 16) == 0) {
+    const int per = (P * N / 4 + 255) / 256;
+    ssd_state_passing_kernel<4><<<dim3(per * H, B), 256, 0, stream>>>(a);
+  } else {
+    const int per = (P * N + 255) / 256;
+    ssd_state_passing_kernel<1><<<dim3(per * H, B), 256, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+SSD_PASS(ssd_chunk_scan) {
+  SSD_ARGS
+  const int e = raise_smem(ssd_chunk_scan_kernel, chunk_scan_smem());
+  if (e != 0) return e;
+  const long long blocks = (long long)(a.QP / T) * H * a.nc * B;
+  if (blocks > 0x7fffffffLL) return -1;
+  ssd_chunk_scan_kernel<<<(unsigned)blocks, THREADS2, chunk_scan_smem(),
+                          stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 ``nvcc`` into ``build/repro_torch/<name>-<hash>.so`` at the repository
-root; the hash covers the source and the flags, so an edited source
-builds anew and an unchanged one loads from the last build. No PyTorch
-header is included, which keeps a build to seconds.
+root; the hash covers the source, the shared headers ``csrc/*.cuh``
+(found through ``-I csrc``) and the flags, so an edited source or
+header builds anew and an unchanged one loads from the last build. No
+PyTorch header is included, which keeps a build to seconds.
 """
 from __future__ import annotations
 
@@ -35,9 +36,16 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def command(src: Path, out: Path) -> list:
+    """The nvcc command line that builds ``src`` into ``out``."""
+    return [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -65,10 +73,9 @@ def load_all(names) -> Dict[str, ctypes.CDLL]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         builds.append((name, tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+            command(CSRC / f"{name}.cu", tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, tmp, out, proc in builds:
         BUILD_LOG[name] = proc.communicate()[0]

@@ -92,7 +92,7 @@ def _split(x: torch.Tensor):
     return big, tf32_round(x - big)
 
 
-def _products(a, b, passes: int, eq: str):
+def tf32_products(a, b, passes: int, eq: str):
     """float64 sum of the TF32 products of ``a`` and ``b`` (float32):
     big*big with ``passes`` = 1, plus big*small + small*big with 3."""
     (ab, as_), (bb, bs) = _split(a), _split(b)
@@ -117,12 +117,12 @@ def attention_tf32(q, k, v, *, causal: bool = True,
     _, Skv, G, _ = k.shape
     R = H // G
     qg = q.reshape(B, Sq, G, R, D).float() * D ** -0.5
-    s = _products(qg, k.float(), passes, "bqgrd,bsgd->bgrqs")
+    s = tf32_products(qg, k.float(), passes, "bqgrd,bsgd->bgrqs")
     mask = _visible(Sq, Skv, causal, window, q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = p.sum(-1, keepdim=True)
-    o = _products(p.float(), v.float(), passes, "bgrqs,bsgd->bgrqd") / l
+    o = tf32_products(p.float(), v.float(), passes, "bgrqs,bsgd->bgrqd") / l
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 

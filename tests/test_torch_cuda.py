@@ -16,9 +16,12 @@ f^2 * 2^-24 * max|x| (a sum of f^2 terms in another order), bfloat16
 within one bfloat16 ulp. K3: within Skv * 2^-24 * max|v| (float32 sums
 over Skv keys in another order). K4: y and the final state within
 ``kernels.ssd.error_bound`` of the plain version run in float64 (the
-float32 sums' lengths times their sums of magnitudes). The models'
-logits: 1e-4 (float32 matmuls, attention and scans in other orders, two
-layers).
+float32 sums' lengths times their sums of magnitudes, the cumsum's
+roundings in each decay exponent and the 3xTF32 products' terms); each
+of K4's five passes within the bound ``kernels.ssd.pass_errors`` states
+for it, against its plain version in float64 on the same inputs. The
+models' logits: 1e-4 (float32 matmuls, attention and scans in other
+orders, two layers).
 
 This file imports neither JAX nor ``repro``.
 """
@@ -430,6 +433,8 @@ K4_CASES = (                 # B, S, H, P, G, N, chunk, init_state
     (2, 130, 6, 64, 3, 16, 64, False),
     (1, 77, 4, 16, 4, 128, 16, True),        # chunk 16, G = H
     (3, 33, 3, 8, 3, 16, 8, False),          # test_kernels.py's uneven
+    (2, 150, 8, 64, 2, 128, 256, True),      # S < chunk, G > 1, full widths
+    (2, 61, 4, 16, 2, 32, 8, True),          # ragged last chunk at Q = 8
 )
 
 
@@ -465,6 +470,22 @@ def test_k4_matches_plain(cuda, case):
     tol_y, tol_state = SSD.error_bound(*args, chunk=chunk, init_state=init)
     assert float((y.double() - want_y).abs().max()) <= tol_y
     assert float((state.double() - want_state).abs().max()) <= tol_state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_CASES)
+def test_k4_passes_match_plain(cuda, case):
+    """Each pass against its plain version in float64, fed the kernels'
+    own outputs of the passes before it; launching passes one by one
+    counts no ``ssd_scan`` call."""
+    B, S, H, P, G, N, chunk, with_init = case
+    args, init = _k4_inputs(B, S, H, P, G, N, cuda, seed=1)
+    before = SSD.LAUNCHES
+    shares = SSD.pass_errors(*args, chunk=chunk,
+                             init_state=init if with_init else None)
+    assert SSD.LAUNCHES == before
+    assert set(shares) == set(SSD.PASSES)
+    assert max(shares.values()) <= 1.0, shares
 
 
 @pytest.mark.cuda

@@ -10,7 +10,15 @@ reference on the CPU, on inputs drawn with numpy from seeds.
   G > 1 among them);
 - ``ssd_decode_step``, ``causal_conv`` and ``causal_conv_step`` against
   the reference;
-- the plain version in float64, and the state carried across two calls.
+- the plain version in float64, and the state carried across two calls;
+- the plain versions of the kernel's five passes (``cumsum_ref``,
+  ``bmm_ref``, ``chunk_state_ref``, ``state_passing_ref``,
+  ``chunk_scan_ref``), composed, against ``ssd_scan_ref`` and the
+  reference's chunked scan;
+- the restated ``error_bound`` against the float64 model of the
+  kernel's 3xTF32 arithmetic (``ssd_scan_tf32``): the model lies within
+  it, and the same model with plain TF32 products (one pass) does not,
+  so the bound is not vacuous.
 
 Tolerances: 1e-5 times max(1, the largest magnitude of the expected
 output) against the reference's chunked scan and its decode step and
@@ -89,6 +97,53 @@ def test_scan_matches_reference_chunked_scan(shape, with_init):
     assert p_y.dtype == p_state.dtype == torch.float32
     _near(p_y, r_y)
     _near(p_state, r_state)
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_passes_compose_to_the_scan(shape, with_init):
+    """The five passes' plain versions, composed in the kernel's order of
+    work (chunk cumsum, C.B^T per group, chunk states, state passing,
+    chunk scan), give the chunked scan of both packages."""
+    B, S, H, P, G, N, chunk = shape
+    d = _inputs(B, S, H, P, G, N, seed=9)
+    p_init = torch.from_numpy(d["init"]) if with_init else None
+    y, state = K.ssd_scan_passes(*_args(d, "torch"), chunk=chunk,
+                                 init_state=p_init)
+    assert y.shape == (B, S, H, P) and state.shape == (B, H, P, N)
+    want_y, want_state = K.ssd_scan_ref(*_args(d, "torch"), chunk=chunk,
+                                        init_state=p_init)
+    _near(y, want_y)
+    _near(state, want_state)
+    r_y, r_state = RS.ssd_scan(*_args(d, "jax"), chunk=chunk,
+                               init_state=(jnp.asarray(d["init"])
+                                           if with_init else None))
+    _near(y, r_y)
+    _near(state, r_state)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_error_bound_holds_3xtf32_and_breaks_1xtf32(shape):
+    """The float64 model of the kernel's arithmetic lies within
+    ``error_bound`` of the exact scan with 3xTF32 products, and outside
+    it with plain TF32 products: the 3xTF32 terms are what the bound
+    allows for, not slack that would hide a one-pass kernel."""
+    B, S, H, P, G, N, chunk = shape
+    d = _inputs(B, S, H, P, G, N, seed=10)
+    args = _args(d, "torch")
+    init = torch.from_numpy(d["init"])
+    exact_y, exact_state = K.ssd_scan_ref(
+        *(a.double() for a in args), chunk=chunk, init_state=init.double())
+    tol_y, tol_state = K.error_bound(*args, chunk=chunk, init_state=init)
+    errs = {}
+    for passes in (3, 1):
+        y, state = K.ssd_scan_tf32(*args, chunk=chunk, init_state=init,
+                                   passes=passes)
+        assert y.dtype == state.dtype == torch.float64
+        errs[passes] = (float((y - exact_y).abs().max()) / tol_y,
+                        float((state - exact_state).abs().max()) / tol_state)
+    assert max(errs[3]) <= 1.0, errs
+    assert max(errs[1]) > 1.0, errs
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
