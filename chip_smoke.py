@@ -20,9 +20,10 @@ script fails before it prints a result.
               the test matrix at 1M rows (shared- and global-memory
               accumulators), and against a float64 host oracle; then
               the vector path's edges: column views whose base is not
-              16-byte aligned, 1, 3, 5 and 4k+3 rows, warps whose rows
-              fall in 32 groups or in one, max and min over +-0 and
-              +-inf in both modes.
+              16-byte aligned, the standing fold's delta blocks [lo:lo+n]
+              (lo % 4 of 1 to 3, n of 0, 1, 3 and 4,093), 1, 3, 5 and
+              4k+3 rows, warps whose rows fall in 32 groups or in one, max
+              and min over +-0 and +-inf in both modes.
 4. kernel_k2  K2 against its plain version: factors 2, 3 and 4, 3-D and
               4-D frames, float32 and bfloat16, a strided frame axis,
               and the Transform's (30, 720, 1280, 3) segment.
@@ -30,7 +31,9 @@ script fails before it prints a result.
               ``kernels.flash_attention.error_bound``: causal and not,
               windows 32 to 256, G < H, ragged Sq and Skv, head dims 8
               to 128 (a D = 128 ragged window), and a stress case with
-              |q|, |k| up to 8.
+              |q|, |k| up to 8; then bfloat16 q, k, v (the serve
+              prefill, GQA, a window, D = 128, 8 and 12), the output in
+              bfloat16 against the plain version on the widened inputs.
 5b. kernel_k4 K4 (five passes) against its plain version run in
               float64 within ``kernels.ssd.error_bound``, and each pass
               against its own plain version within the bound
@@ -42,7 +45,11 @@ script fails before it prints a result.
               the final state, the largest error printed as a share of
               its bound. Inputs drawn as the model draws them:
               dt = softplus(dt_bias + z) with dt_bias from the ``dt_bias``
-              init range, A = -exp(A_log) from the ``ssm_a`` range.
+              init range, A = -exp(A_log) from the ``ssm_a`` range. Then
+              bfloat16 x, B and C (dt in bfloat16 as the model passes it,
+              or float32; a bfloat16 state in): the serve prefill, a
+              state in, S % Q != 0, G > 1, Q 16, and P 12, N 20; y in
+              bfloat16, the state in float32.
 6. main       the single-stream main path at full size, with the launch
               counts set to 0 just before it and read just after:
               ``fit(COVID, n_cores=8, days_unlabeled=2.0)``, a 1-day
@@ -51,11 +58,26 @@ script fails before it prints a result.
               README plans plus a window x category ``MultiGroupBy`` on
               ``out`` and a camera x window one (73,728 groups, global
               accumulators). Every aggregating query must have taken the
-              kernel, in both accumulator modes.
+              kernel, in both accumulator modes. A ``StandingQueries``
+              registry is attached before camera 0's run, with the five
+              plans and one subscription (a camera's cloud spend at 90%
+              of its budget) registered, so that camera 0's run and each
+              of the fill's 255 ingests fold their rows through K1 (one
+              call per query and ingest, counted apart from the
+              queries'); after the fill one more plan (on-prem seconds
+              per knob configuration) backfills over all 11,059,200
+              rows.
 7. check      the run against the port's own CPU run (k and c traces
               exact, floats to 1e-5), each query's result against the
               engine path's masks, and K1's wrapper against its plain
               version and a float64 host oracle at each query's shape.
+7b. standing  every standing answer against ``store.query`` and its
+              accumulators against the float64 oracle; the alert mask
+              against its predicate; ``answer``'s and ``store.query``'s
+              wall milliseconds per plan; the fill of cameras 1..255 timed
+              on fresh stores with and without a registry, in turns
+              (bare, registry, registry, bare), and the fold's cost per
+              ingest.
 8. transform  the Transform path, counts set to 0 just before it:
               ``Skyscraper`` + ``BackboneVETL`` (qwen1.5-0.5b at the
               reference's SIZES) through ``fit`` on 40 segments and 60
@@ -71,14 +93,19 @@ script fails before it prints a result.
               float32 answers 2 batches of 4 requests through the port's
               serve loop (prefill of 2,048 tokens, cache 2,056, 8 tokens
               generated per request). Then one batch's logits against
-              the same model with K3's plain version on the card.
+              the same model with K3's plain version on the card. Then
+              the model at its default RunOptions (bfloat16 compute): one
+              warm prefill, counted and timed, 7 decode steps from its
+              cache, the prefill with K3's plain version, and the logits
+              against the plain-attention model in bfloat16.
 9b. serve_ssm the same serving path for the SSM family, counts set to 0
               just before it: ``Model(get("mamba2-370m"))`` at the
               published config (48 layers, d_model 1024, d_inner 2048, 32
               heads of 64, d_state 128) in float32, random weights from
               seed 0, through ``serve`` with the same requests. K4 must
               launch once per layer and prefill; then one batch's logits
-              against the same model with K4's plain version on the card.
+              against the same model with K4's plain version on the card;
+              then the bfloat16 prefill and check as for qwen.
 10. time      CUDA-event medians of device time (the card spins while
               the host enqueues each timed call): K1, its plain version
               and one ``index_add_``/``scatter_reduce_`` call per
@@ -90,12 +117,15 @@ script fails before it prints a result.
               Sq=Skv=16, H=G=4, D=8, causal beside both operation bounds
               (3xTF32 at the dense TF32 peak, the kernel's; FP32
               CUDA-core peak, a float32 kernel's), its plain version and
-              ``F.scaled_dot_product_attention``; K4 at the mamba2-370m
+              ``F.scaled_dot_product_attention``, and at the serve
+              prefill in bfloat16 beside the dense bf16 bound; K4 at the
+              mamba2-370m
               serve prefill beside both operation bounds (3xTF32, its
               arithmetic and its bound; FP32) and its plain version (no
               PyTorch call computes the SSD scan), each of its five
-              passes alone and the bytes of its scratch. The library
-              calls are yardsticks the port never calls.
+              passes alone and the bytes of its scratch, and in bfloat16
+              beside the dense bf16 bound. The library calls are
+              yardsticks the port never calls.
 
 Tolerances. K1: counts, max, min and integer-valued sums are exact.
 Float sums and means: K1 within 1e-4 of each group's sum of magnitudes
@@ -127,7 +157,14 @@ qualities: 1e-5 against the CPU run. Serve: logits within 1e-3 of the
 plain-attention model (3xTF32 attention summed in another order moves
 each layer by about 1e-6 relative, as float32 did; 24 layers and the
 head leave that far below 1e-3), and at least 99% of next tokens equal; the same limits
-for mamba2-370m against the plain-SSD model.
+for mamba2-370m against the plain-SSD model. bfloat16: K3 and K4 within
+their bound on the widened inputs plus the rounding of the output to
+bfloat16, half an ulp (2^-8) of the value; the bfloat16 logits within
+``models.options.bf16_logit_tolerance``, (L + 2) bfloat16 ulps (2^-7)
+of the largest |logit| (one ulp per layer boundary and for the logits'
+own rounding; derived in its docstring). Standing answers: their
+accumulators within FLOAT_TOL of the float64 oracle, as K1's; their
+tables within twice that of ``store.query``'s, max and min exactly.
 """
 from __future__ import annotations
 
@@ -150,6 +187,7 @@ RUN_DAYS = 1.0                      # 43,200 segments of 2 s
 ROTATE = 169                        # segments between cameras' clocks
 FP32_FLOP_PER_S = 67e12             # H100 SXM FP32 CUDA cores (data sheet)
 TF32_FLOP_PER_S = 495e12            # H100 SXM dense TF32 tensor cores
+BF16_FLOP_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
 SEGMENT = (30, 720, 1280, 3)        # 2 s of a 720p camera at 15 fps
 TOKENS = (30, 16)
 FIT_SEGMENTS = 40
@@ -162,6 +200,8 @@ ATTN_TIME = (4, 2048, 16, 64)       # B, S, H = G, D of the serve prefill
 ATTN_SMALL = (30, 16, 4, 8)         # the Transform's calls (model small)
 SSD_TIME = (4, 2048, 32, 64, 1, 128, 256)   # B, S, H, P, G, N, Q: mamba2
 SPIN_CYCLES = 40_000_000            # ~20 ms of the card's clock per timing
+WINDOW = 150                        # segments in a 5-minute window
+ALERT_CLOUD_S = 13_500.0            # 90% of a camera-day's cloud budget
 
 
 def emit(phase: str, **fields) -> None:
@@ -439,7 +479,9 @@ def phase_kernel(dev):
 def _k1_edge_checks(K, dev):
     """K1 against its plain version (float64) where the kernel's vector
     path has edges: column views whose base is not 16-byte aligned (a
-    scalar head, and columns no row can align together), row counts that
+    scalar head, and columns no row can align together), the standing
+    fold's delta blocks [lo:lo + n] (lo % 4 of 1 to 3, n of 0 to 4,093;
+    n = 0 gives the identities), row counts that
     leave a scalar tail on columns holding exactly those rows, warps whose
     rows fall in 32 groups or in one, and max/min over +-0 and +-inf in
     shared and global mode. Returns (cases, max abs error)."""
@@ -458,6 +500,15 @@ def _k1_edge_checks(K, dev):
                 filt, (("category", 4, 0),), "buffer_s", agg)))
         runs.append((view, n, f03, K.FusedAggSpec(
             filt, (("t", 288, 150), ("category", 4, 0)), "out", "mean")))
+    # the standing fold's delta blocks: every column sliced [lo:lo + n]
+    for lo in (1, 2, 3):
+        for n in (0, 1, 3, 4093):
+            block = {k: v[lo:lo + n] for k, v in cols.items()}
+            for agg in ("sum", "max", "min"):
+                runs.append((block, n, f03, K.FusedAggSpec(
+                    filt, (("category", 4, 0),), "buffer_s", agg)))
+            runs.append((block, n, f03, K.FusedAggSpec(
+                filt, (("t", 288, 150), ("category", 4, 0)), "out", "sum")))
     mixed = {**cols, "buffer_s": cols["buffer_s"][1:]}
     runs.append((mixed, 50_000, none, K.FusedAggSpec(
         (), (("stream_id", 256, 0),), "buffer_s", "max")))
@@ -576,6 +627,17 @@ def _k3_cases():
 
 
 K3_STRESS = (1, 256, 256, 4, 2, 64, True, None)     # |q|, |k| up to 8
+# bfloat16 q, k, v (the models' default compute dtype): the serve prefill,
+# GQA, windows, D = 128, the Transform's D = 8, D = 12 (no 16-byte loads)
+K3_BF16_CASES = (
+    (2, 2048, 2048, 16, 16, 64, True, None),
+    (2, 300, 300, 8, 2, 64, True, None),
+    (1, 500, 500, 8, 4, 64, True, 32),
+    (3, 130, 130, 4, 1, 128, True, None),
+    (30, 16, 16, 4, 4, 8, True, None),
+    (4, 77, 77, 4, 4, 12, False, 32),
+    (2, 1, 9, 4, 4, 64, False, None),
+)
 
 
 def phase_kernel_k3(dev):
@@ -606,6 +668,29 @@ def phase_kernel_k3(dev):
                                  f"{ratio:.3g}x error_bound")
         errs[name] = {"err": err, "of_bound": ratio}
         del q, k, v, got, want, bound
+    for B, Sq, Skv, H, G, D, causal, window in K3_BF16_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16) for shape in
+                   ((B, Sq, H, D), (B, Skv, G, D), (B, Skv, G, D)))
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
+        sync()
+        qf, kf, vf = q.float(), k.float(), v.float()
+        want = FA.flash_attention_ref(qf, kf, vf, causal=causal,
+                                      window=window)
+        name = (f"B{B}_Sq{Sq}_Skv{Skv}_H{H}_G{G}_D{D}"
+                f"{'_causal' if causal else ''}"
+                f"{f'_w{window}' if window else ''}_bf16")
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"K3 {name}: output in {got.dtype}")
+        err = _max_err(got, want)
+        bound = FA.error_bound(qf, kf, vf, causal=causal, window=window,
+                               ref=want)
+        ratio = float(((got.float() - want).abs() / bound).max())
+        if not ratio <= 1.0:
+            raise AssertionError(f"K3 {name}: max error {err}, "
+                                 f"{ratio:.3g}x error_bound")
+        errs[name] = {"err": err, "of_bound": ratio}
+        del q, k, v, qf, kf, vf, got, want, bound
     emit("kernel_k3", cases=len(errs), launches=FA.LAUNCHES - before,
          max_abs_err=errs)
     return max(e["err"] for e in errs.values())
@@ -621,6 +706,19 @@ def _k4_cases():
     yield 2, 300, 6, 64, 3, 128, 16, False           # Q 16
     yield 1, 513, 4, 64, 1, 16, 256, False
     yield 3, 33, 3, 8, 3, 16, 8, True                # test_kernels' uneven
+
+
+def _k4_bf16_cases():
+    """(B, S, H, P, G, N, chunk, init_state, dt dtype) with bfloat16 x, B
+    and C (and state in): the serve prefill as the model passes it (dt in
+    bfloat16), a state in, S % Q != 0 with dt in float32, G > 1, Q 16, and
+    P = 12, N = 20 (no 16-byte loads)."""
+    yield SSD_TIME + (False, "bfloat16")
+    yield 2, 2048, 32, 64, 1, 128, 256, True, "bfloat16"
+    yield 2, 1000, 8, 64, 1, 128, 256, False, "float32"
+    yield 2, 100, 8, 64, 2, 128, 256, True, "bfloat16"
+    yield 2, 300, 6, 64, 3, 128, 16, False, "bfloat16"
+    yield 2, 200, 4, 12, 2, 20, 64, True, "bfloat16"
 
 
 def ssd_inputs(B, S, H, P, G, N, gen, dev):
@@ -674,18 +772,50 @@ def phase_kernel_k4(dev):
                       "of_bound": max(err_y / tol_y, err_state / tol_state),
                       "passes_of_bound": passes}
         del args, init, y, state, want_y, want_state
+    for B, S, H, P, G, N, chunk, with_init, dt_type in _k4_bf16_cases():
+        x, dt, A, Bm, Cm, init = ssd_inputs(B, S, H, P, G, N, gen, dev)
+        bf = torch.bfloat16
+        x, Bm, Cm = x.to(bf), Bm.to(bf), Cm.to(bf)
+        dt = dt.to(getattr(torch, dt_type))
+        init = init.to(bf) if with_init else None
+        y, state = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                                init_state=init)
+        sync()
+        wide = [t.float() for t in (x, dt, A, Bm, Cm)]
+        init_w = None if init is None else init.float()
+        want_y, want_state = SSD.ssd_scan_ref(
+            *[t.double() for t in wide], chunk=chunk,
+            init_state=None if init_w is None else init_w.double())
+        tol_y, tol_state = SSD.error_bound(*wide, chunk=chunk,
+                                           init_state=init_w, ref_y=want_y)
+        name = (f"B{B}_S{S}_H{H}_P{P}_G{G}_N{N}_Q{chunk}"
+                f"{'_init' if with_init else ''}_bf16_dt_{dt_type}")
+        if y.dtype != bf or state.dtype != torch.float32:
+            raise AssertionError(f"K4 {name}: y {y.dtype}, state "
+                                 f"{state.dtype}")
+        err_y, err_state = _max_err(y.double(), want_y), \
+            _max_err(state.double(), want_state)
+        of_y = float(((y.double() - want_y).abs() / tol_y).max())
+        if not (of_y <= 1.0 and err_state <= tol_state):
+            raise AssertionError(f"K4 {name}: y at {of_y:.3g}x its bound "
+                                 f"or state {err_state} > {tol_state}")
+        errs[name] = {"y": err_y, "state": err_state,
+                      "tol_state": tol_state,
+                      "of_bound": max(of_y, err_state / tol_state)}
+        del x, dt, A, Bm, Cm, init, wide, y, state, want_y, want_state, tol_y
     emit("kernel_k4", cases=len(errs), launches=SSD.LAUNCHES - before,
          max_of_bound=max(e["of_bound"] for e in errs.values()),
          max_pass_of_bound=max(max(e["passes_of_bound"].values())
-                               for e in errs.values()),
+                               for e in errs.values()
+                               if "passes_of_bound" in e),
          max_abs_err=errs)
     return max(max(e["y"], e["state"]) for e in errs.values())
 
 
-def main_plans(store):
+def main_plans(nw):
+    """The main path's plans over a store of ``nw`` 5-minute windows."""
     from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy, TopK,
-                                       WindowAgg, windows_for)
-    nw = windows_for(store, 150)
+                                       WindowAgg)
     return {
         # README: the worst five 5-minute windows by mean quality
         "window_topk": (Filter("quality", "ge", 0.6),
@@ -712,76 +842,131 @@ def main_plans(store):
     }
 
 
+def store_plans(store):
+    from repro_torch.warehouse import windows_for
+    return main_plans(windows_for(store, WINDOW))
+
+
+def standing_extra(n_configs):
+    """The standing subscription (a camera's cloud spend over the day at
+    ALERT_CLOUD_S or more) and the plan registered after the fill
+    (on-prem core-seconds per knob configuration over kept segments)."""
+    from repro_torch.warehouse import Filter, GroupBy
+    sub = (GroupBy("stream_id", "cloud_core_s", agg="sum",
+                   num_groups=CAMERAS),)
+    late = (Filter("quality", "ge", 0.6),
+            GroupBy("k", "on_core_s", agg="sum", num_groups=n_configs))
+    return sub, Filter("cloud_core_s", "ge", ALERT_CLOUD_S), late
+
+
 def plan_modes(store):
     """K1's accumulator mode for each main-path plan."""
     from repro_torch.kernels import warehouse_agg as K
     modes = {}
-    for name, plan in main_plans(store).items():
+    for name, plan in store_plans(store).items():
         spec, _, _ = _spec_of(plan, store.columns)
         modes[name] = K.accumulator_mode(spec, _width(store.columns, spec))
     return modes
 
 
+_RUN_COLUMNS = (("c", "category"), ("k", "k"), ("qual", "quality"),
+                ("on_s", "on_core_s"), ("cl_s", "cloud_core_s"),
+                ("buffer_s", "buffer_s"))
+
+
+def fill(store, day):
+    """Cameras 1..255: camera 0's day (``day``, its rows), each on a clock
+    rotated by ROTATE segments more, landed as that camera's fused run."""
+    for cam in range(1, CAMERAS):
+        r = cam * ROTATE
+        traces = {src: day[dst].roll(r) for src, dst in _RUN_COLUMNS}
+        store.ingest_fused(traces, day["out"].roll(r, 0), stream_id=cam)
+
+
 def phase_main(dev):
-    """The main path, counted: returns what the checks need."""
+    """The main path, counted: returns what the checks need. A
+    ``StandingQueries`` registry is attached to the store before camera
+    0's run, with every main plan and one subscription registered, so
+    every ingest folds its rows through K1; after the fill one more plan
+    registers (a backfill over every row)."""
     from repro_torch.configs.workloads import COVID
     from repro_torch.core.ingest import run_skyscraper_fused
     from repro_torch.core.offline import fit
     from repro_torch.data.stream import generate
     from repro_torch.kernels import warehouse_agg as K
-    from repro_torch.warehouse import SegmentStore
+    from repro_torch.warehouse import SegmentStore, StandingQueries
     from repro_torch.warehouse import query as Q
+    from repro_torch.warehouse import standing as ST
 
     K.LAUNCHES = 0
     Q.PATHS.update(kernel=0, engine=0)
+    ST.FOLDS.update(kernel=0, engine=0)
     torch.cuda.reset_peak_memory_stats()
     fitted, fit_s = timed(lambda: fit(COVID, n_cores=8, days_unlabeled=2.0,
                                       device=dev))
     stream = generate(COVID, days=RUN_DAYS, seed=99)
+    T = stream.n_segments
     store = SegmentStore(out_dim=len(fitted.configs), device=dev)
+    reg = StandingQueries(store)
+    plans = main_plans((T - 1) // WINDOW + 1)
+    handles = {name: reg.register(plan) for name, plan in plans.items()}
+    sub_plan, predicate, late_plan = standing_extra(len(fitted.configs))
+    sid = reg.subscribe(sub_plan, predicate, name="cloud_spend")
     kw = dict(n_cores=8, cloud_budget_core_s=15_000.0)
     res, run_s = timed(lambda: run_skyscraper_fused(
         fitted, stream, sink=store, device=dev, **kw))
-    T = stream.n_segments
-
-    def fill():
-        # cameras 1..255: camera 0's day, each on a clock rotated by
-        # ROTATE segments more, landed as that camera's fused run
-        day = {k: v[:T].clone() for k, v in store.columns.items()}
-        for cam in range(1, CAMERAS):
-            r = cam * ROTATE
-            traces = {src: day[dst].roll(r) for src, dst in
-                      (("c", "category"), ("k", "k"), ("qual", "quality"),
-                       ("on_s", "on_core_s"), ("cl_s", "cloud_core_s"),
-                       ("buffer_s", "buffer_s"))}
-            store.ingest_fused(traces, day["out"].roll(r, 0),
-                               stream_id=cam)
-
-    _, fill_s = timed(fill)
+    day = {k: v[:T].clone() for k, v in store.columns.items()}
+    _, fill_s = timed(lambda: fill(store, day))
+    late, backfill_s = timed(lambda: reg.register(late_plan, name="late"))
+    alerts = reg.poll()
+    fold_launches = K.LAUNCHES          # every K1 launch so far is a fold
     results, query_s = {}, {}
-    for name, plan in main_plans(store).items():
+    for name, plan in store_plans(store).items():
         results[name], query_s[name] = timed(lambda p=plan: store.query(p))
-    launches, paths = K.LAUNCHES, dict(Q.PATHS)
+    launches, paths, folds = K.LAUNCHES, dict(Q.PATHS), dict(ST.FOLDS)
+    query_launches = launches - fold_launches
     peak = torch.cuda.max_memory_allocated()
     modes = plan_modes(store)
     emit("main", segments=T, rows=store.n_rows, capacity=store.capacity,
          fit_s=fit_s, fused_run_s=run_s, fill_s=fill_s, query_s=query_s,
-         launches=launches, paths=paths, modes=modes, peak_mem_bytes=peak,
+         standing_backfill_s=backfill_s, launches=launches,
+         query_launches=query_launches, fold_launches=fold_launches,
+         paths=paths, standing_folds=folds, modes=modes, peak_mem_bytes=peak,
          quality_pct=res.quality_pct, cloud_core_s=res.cloud_core_s,
+         run_alerts=[a.n_fired for a in res.alerts],
          forecast_val_mse=fitted.forecast_metrics["val_mse"])
     if launches == 0:
         raise AssertionError("the main path launched no kernel")
+    # the standing folds: one K1 call per registered query and ingest
+    # (camera 0's run and the 255 cameras of the fill), and the late
+    # plan's backfill
+    want_folds = CAMERAS * (len(plans) + 1) + 1
+    if folds != {"kernel": want_folds, "engine": 0} \
+            or fold_launches != folds["kernel"]:
+        raise AssertionError(f"the standing folds did not all take K1 "
+                             f"once per query and ingest: {folds}, "
+                             f"{fold_launches} launches, {want_folds} "
+                             f"expected")
     if paths != {"kernel": len(results), "engine": 0} \
-            or launches != paths["kernel"]:
+            or query_launches != paths["kernel"]:
         raise AssertionError(f"main-path queries did not all take the "
-                             f"kernel: paths={paths} launches={launches}")
+                             f"kernel: paths={paths} "
+                             f"launches={query_launches}")
+    if len(res.alerts) != 1 or [a.sub for a in alerts] != [sid]:
+        raise AssertionError("the subscription was not polled after the "
+                             "fused run and after the fill")
     if set(modes.values()) != {"shared", "global"}:
         raise AssertionError(f"the main path must run both accumulator "
                              f"modes: {modes}")
     if store.n_rows != CAMERAS * T:
         raise AssertionError(f"store holds {store.n_rows} rows")
+    handles.update(cloud_spend=reg._subs[sid].handle, late=late)
     return dict(fitted=fitted, stream=stream, store=store, res=res, kw=kw,
-                results=results, launches=launches)
+                results=results, launches=launches, reg=reg,
+                handles=handles, alerts=alerts, fill_s=fill_s, day=day,
+                folds=folds["kernel"],
+                standing_plans={**plans, "cloud_spend": sub_plan,
+                                "late": late_plan})
 
 
 def phase_check(m):
@@ -820,7 +1005,7 @@ def phase_check(m):
     # --- every main-path query: kernel vs engine path vs float64 -----------
     errs = {}
     cols = store.columns
-    for name, plan in main_plans(store).items():
+    for name, plan in store_plans(store).items():
         table, mask = m["results"][name]
         spec, fvals, filters = _spec_of(plan, cols)
         eng, emask = store.query(plan, use_kernel=False)
@@ -852,6 +1037,113 @@ def phase_check(m):
     emit("check", cpu_run_s=cpu_s, run_max_abs_err=run_err,
          traces_equal=True, queries=errs)
     return errs
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``reps`` warm calls of ``fn``, each
+    ending in a synchronise: what a caller waits for the result."""
+    fn()
+    return statistics.median(timed(fn)[1] * 1e3 for _ in range(reps))
+
+
+def hold_table(name, got, want, node, acc, cnt, scale):
+    """A standing answer ``got`` against ``store.query``'s ``want`` (both
+    (table, mask)): masks, counts and group keys equal; max and min
+    exact; sums and means within 2 FLOAT_TOL of the group's sum of
+    magnitudes (per row for a mean), since each is within FLOAT_TOL of
+    the float64 oracle; after a TopK, the selected values sorted."""
+    (gt, gm), (wt, wm) = got, want
+    if not torch.equal(gm.cpu(), wm.cpu()):
+        raise AssertionError(f"standing {name}: masks differ from query's")
+    g = {k: v.double().cpu().numpy() for k, v in gt.items()}
+    w = {k: v.double().cpu().numpy() for k, v in wt.items()}
+    if "index" in g:                        # a TopK after the reducer
+        a, b = np.sort(g[node.value]), np.sort(w[node.value])
+        if not np.allclose(a, b, rtol=2 * FLOAT_TOL, atol=2e-6):
+            raise AssertionError(f"standing {name}: top values {a} vs {b}")
+        return float(np.abs(a - b).max())
+    for k in g:
+        if k != node.value and not np.array_equal(g[k], w[k]):
+            raise AssertionError(f"standing {name}: column {k} differs")
+    if node.agg in ("max", "min", "count"):
+        if not np.array_equal(g[node.value], w[node.value]):
+            raise AssertionError(f"standing {name}: {node.agg} not exact")
+        return 0.0
+    if node.agg == "mean":
+        c = np.maximum(cnt, 1)
+        scale = scale / (c if scale.ndim == 1 else c[:, None])
+    diff = np.abs(g[node.value] - w[node.value])
+    if not np.all(diff <= 2 * FLOAT_TOL * scale + 2e-6):
+        raise AssertionError(f"standing {name}: {node.agg} off by "
+                             f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def phase_standing(m):
+    """Every standing answer against ``store.query`` and against the
+    float64 oracle (its accumulators), the subscription's alerts, the
+    answer's time against the query's, and the fill's time with and
+    without a registry attached (bare, registry, registry, bare)."""
+    from repro_torch.warehouse import SegmentStore, StandingQueries
+    from repro_torch.warehouse import query as Q
+    store, reg = m["store"], m["reg"]
+    host, n, cols = store.host_rows(), store.n_rows, store.columns
+    per = {}
+    for name, plan in m["standing_plans"].items():
+        h = m["handles"][name]
+        q = reg._queries[h]
+        g = reg._group_of(q)
+        state = {k: v[q.slot] for k, v in g.state.items()}
+        spec, fvals, filters = _spec_of(plan, cols)
+        acc, cnt, scale = oracle(host, n, filters, spec.keys, spec.value,
+                                 spec.agg)
+        err_f64 = check_partial(f"standing {name} vs float64",
+                                host_partial(state), (acc, cnt), spec.agg,
+                                FLOAT_TOL * scale + 1e-6)
+        _, node, _ = Q.split_plan(plan)
+        want = m["results"].get(name) or store.query(plan)
+        err_q = hold_table(name, reg.answer(h), want, node, acc, cnt, scale)
+        per[name] = {"groups": spec.num_groups, "agg": spec.agg,
+                     "vs_f64": err_f64, "vs_query": err_q,
+                     "answer_ms": wall_ms(lambda: reg.answer(h), 20),
+                     "query_ms": wall_ms(lambda: store.query(plan), 20)}
+    # the subscription: fired where the answer's spend reaches the mark
+    (alert,) = m["alerts"]
+    sub = reg._subs[alert.sub]
+    spend = alert.table["cloud_core_s"].astype(np.float64)
+    if not np.array_equal(alert.fired, (alert.table["count"] > 0)
+                          & (spend >= sub.predicate.value)):
+        raise AssertionError("the alert mask is not the predicate's")
+
+    day, T = m["day"], m["stream"].n_segments
+
+    def fresh(with_registry):
+        s = SegmentStore(out_dim=store.out_dim, device=store.device)
+        s.ingest_fused({src: day[dst] for src, dst in _RUN_COLUMNS},
+                       day["out"], stream_id=0)
+        if with_registry:
+            r = StandingQueries(s)
+            for name, plan in m["standing_plans"].items():
+                if name != "late":
+                    r.register(plan)
+        _, secs = timed(lambda: fill(s, day))
+        if s.n_rows != CAMERAS * T:
+            raise AssertionError("the timed fill landed the wrong rows")
+        del s
+        torch.cuda.empty_cache()
+        return secs
+
+    turns = [fresh(w) for w in (False, True, True, False)]
+    bare = statistics.mean(turns[0::3])
+    folded = statistics.mean(turns[1:3])
+    emit("standing", queries=per, plans=len(per),
+         fold_launches=m["folds"], alerts_fired=alert.n_fired,
+         alerts_checked=store.obs["alerts_checked"],
+         standing_refreshes=store.obs["standing_refreshes"],
+         main_fill_s=m["fill_s"], fill_turns_s=turns,
+         fill_bare_s=bare, fill_registry_s=folded,
+         fold_s_per_ingest=(folded - bare) / (CAMERAS - 1))
+    return per
 
 
 def _segments(n, seed, dev):
@@ -1005,6 +1297,71 @@ def serve_check(cfg, model, params, toks, plain):
     return err, scale, agree
 
 
+def serve_bf16(cfg, params, toks, plain, kernel):
+    """The same model at the default RunOptions (bfloat16 compute): one
+    warm prefill of the prompts ``toks``, counted (``kernel``'s launches
+    set to 0 just before it) and timed, then decode steps from its cache
+    (tokens in the vocabulary), then the prefill with the plain version
+    (``plain``); the logits against the plain-version model's, on the
+    card in bfloat16, within ``bf16_logit_tolerance``."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions, bf16_logit_tolerance
+    model = Model(cfg, RunOptions())
+    if model.opts.compute_dtype != "bfloat16":
+        raise AssertionError("the default compute dtype is not bfloat16")
+
+    def prefill(keep=None):
+        nxt, cache = model.prefill(params, {"tokens": toks}, cache_len=SERVE[
+            "prompt_len"] + SERVE["gen"])
+        if keep is not None:
+            keep.append(cache)
+        return nxt.cpu()
+
+    def decode(nxt, cache):
+        out = [nxt]
+        for _ in range(SERVE["gen"] - 1):
+            nxt, cache = model.decode_step(params, cache, nxt)
+            out.append(nxt)
+        return torch.stack(out, 1).cpu()
+
+    with torch.no_grad():
+        prefill()
+        kernel.LAUNCHES = 0
+        caches = []
+        nxt, prefill_s = timed(lambda: prefill(caches))
+        launches = kernel.LAUNCHES
+        gen, decode_s = timed(lambda: decode(nxt.to(toks.device),
+                                             caches.pop()))
+        with plain():
+            prefill()
+            nxt_plain, plain_s = timed(prefill)
+        logits = model.forward_logits(params, {"tokens": toks})
+        with plain():
+            ref = model.forward_logits(params, {"tokens": toks})
+        logits, ref = logits[..., :cfg.vocab], ref[..., :cfg.vocab]
+        finite = bool(torch.isfinite(logits).all())
+        err = float((logits.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    del logits, ref
+    tol = bf16_logit_tolerance(cfg.n_layers, scale)
+    in_vocab = bool(((gen >= 0) & (gen < cfg.vocab)).all())
+    if launches != cfg.n_layers or not finite or not err <= tol \
+            or not in_vocab or gen.shape != (len(toks), SERVE["gen"]):
+        raise AssertionError(f"{cfg.name} bfloat16: launches={launches} "
+                             f"finite={finite} err={err} tol={tol} "
+                             f"decoded {tuple(gen.shape)} in "
+                             f"vocabulary={in_vocab}")
+    return {"prefill_bf16_s": prefill_s, "prefill_bf16_plain_s": plain_s,
+            "decode_bf16_s": decode_s, "decode_bf16_steps": SERVE["gen"] - 1,
+            "generated_bf16_first": gen[0].tolist(),
+            "launches_bf16": launches, "logits_bf16_max_abs_err": err,
+            "logits_bf16_tol": tol, "logits_bf16_max_abs": scale,
+            "next_token_agreement_bf16": agree,
+            "prefill_bf16_next_equal": float((nxt == nxt_plain).float()
+                                             .mean())}
+
+
 def _check_outputs(cfg, stats):
     out = np.concatenate(stats["outputs"])
     if out.shape != (SERVE["requests"], SERVE["gen"]) or \
@@ -1059,6 +1416,7 @@ def phase_serve(dev):
     split = serve_split(model, params, toks, stats)
     err, scale, agree = serve_check(cfg, model, params, toks,
                                     plain_attention)
+    bf16 = serve_bf16(cfg, params, toks, plain_attention, FA)
     emit("serve", layers=cfg.n_layers, d_model=cfg.d_model,
          vocab=cfg.vocab, params=_n_params(params),
          init_s=init_s, seconds=stats["seconds"], tokens=stats["tokens"],
@@ -1066,8 +1424,8 @@ def phase_serve(dev):
          launches=launches, mem_at_start_bytes=mem0, peak_mem_bytes=peak,
          generated_first=out[0].tolist(),
          logits_max_abs_err=err, logits_max_abs=scale,
-         next_token_agreement=agree)
-    return dict(launches=launches, err=err)
+         next_token_agreement=agree, **bf16)
+    return dict(launches=launches + bf16["launches_bf16"], err=err)
 
 
 def phase_serve_ssm(dev):
@@ -1100,6 +1458,7 @@ def phase_serve_ssm(dev):
     toks = first_batch(corpus, params)
     split = serve_split(model, params, toks, stats)
     err, scale, agree = serve_check(cfg, model, params, toks, plain_ssd)
+    bf16 = serve_bf16(cfg, params, toks, plain_ssd, SSD)
     emit("serve_ssm", layers=cfg.n_layers, d_model=cfg.d_model,
          d_inner=cfg.d_inner, heads=cfg.ssm_heads, d_state=cfg.ssm.d_state,
          vocab=cfg.vocab, params=_n_params(params), init_s=init_s,
@@ -1108,8 +1467,8 @@ def phase_serve_ssm(dev):
          launches=launches, mem_at_start_bytes=mem0, peak_mem_bytes=peak,
          generated_first=out[0].tolist(),
          logits_max_abs_err=err, logits_max_abs=scale,
-         next_token_agreement=agree)
-    return dict(launches=launches, err=err)
+         next_token_agreement=agree, **bf16)
+    return dict(launches=launches + bf16["launches_bf16"], err=err)
 
 
 def _library_call(cols, n, spec, fvals):
@@ -1138,7 +1497,7 @@ def phase_time(m, errs):
     store = m["store"]
     cols, n = store.columns, store.n_rows
     per = {}
-    for name, plan in main_plans(store).items():
+    for name, plan in store_plans(store).items():
         spec, fvals, _ = _spec_of(plan, cols)
         kernel_ms = cuda_ms(lambda: K.fused_segment_agg(cols, n, fvals,
                                                         spec), 20)
@@ -1179,18 +1538,22 @@ def phase_time_k2_k3(dev):
 
     k3 = _time_k3(FA, F, ATTN_TIME, gen, dev, reps=20)
     k3["transform_shape"] = _time_k3(FA, F, ATTN_SMALL, gen, dev, reps=200)
+    k3["bf16"] = _time_k3(FA, F, ATTN_TIME, gen, dev, reps=20,
+                          dtype=torch.bfloat16)
     emit("time_k2_k3", downsample=k2, flash_attention=k3)
     return k2, k3
 
 
-def _time_k3(FA, F, shape, gen, dev, reps):
+def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32):
     """K3, its plain version and SDPA at (B, S, H = G, D), causal, beside
     both bounds: 3xTF32 (three TF32 products per float32 one, on the
     tensor cores: the kernel's arithmetic, and its bound) and the FP32
-    CUDA-core bound of a kernel in float32 products."""
+    CUDA-core bound of a kernel in float32 products. For bfloat16
+    operands the bound is the dense bf16 peak's (the least time the card
+    could take for the same function), beside the 3xTF32 one."""
     B, S, H, D = shape
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
-               for _ in range(3))
+               .to(dtype) for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     visible = S * (S + 1) // 2                  # causal (q, k) pairs
     flops = 4 * D * visible * B * H             # QK^T and PV, 2 flop a MAC
@@ -1198,30 +1561,34 @@ def _time_k3(FA, F, shape, gen, dev, reps):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     tf32_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
     fp32_ms = flops / FP32_FLOP_PER_S * 1e3
-    return {"kernel_ms": cuda_ms(lambda: FA.flash_attention(q, k, v), reps),
+    least_ms = (flops / BF16_FLOP_PER_S * 1e3 if dtype == torch.bfloat16
+                else tf32_ms)
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "kernel_ms": cuda_ms(lambda: FA.flash_attention(q, k, v), reps),
             "plain_ms": cuda_ms(lambda: FA.flash_attention_ref(q, k, v),
                                 max(5, reps // 4)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), reps),
             "shape": [B, S, H, H, D], "causal": True, "flops": flops,
             "bytes": nbytes,
-            "bound_ms": max(tf32_ms, byte_ms),
-            "bound_by": "operations" if tf32_ms > byte_ms else "bytes",
+            "bound_ms": max(least_ms, byte_ms),
+            "bound_by": "operations" if least_ms > byte_ms else "bytes",
             "bound_3xtf32_ms": max(tf32_ms, byte_ms),
             "bound_fp32_ms": max(fp32_ms, byte_ms)}
 
 
-def ssd_work(B, S, H, P, G, N, Q):
+def ssd_work(B, S, H, P, G, N, Q, width=4):
     """(FLOPs, bytes) the SSD scan needs at a shape whose S is a multiple
     of Q, with no state in: the causal half of C.B^T once per (b, g,
     chunk), the causal half of the scores times x, C . state and the
-    state update per head (2 FLOPs a MAC); x and y, B and C, dt, A and
-    the final state, each moved once."""
+    state update per head (2 FLOPs a MAC); x and y, B and C, dt (``width``
+    bytes each: 4 for float32, 2 for bfloat16), A and the final state
+    (float32), each moved once."""
     nc, pairs = S // Q, Q * (Q + 1) // 2
     flops = (2 * N * pairs * B * G * nc + 2 * P * pairs * B * H * nc
              + 2 * 2 * Q * N * P * B * H * nc)
-    nbytes = 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + H
-                  + B * H * P * N)
+    nbytes = (width * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H)
+              + 4 * (H + B * H * P * N))
     return flops, nbytes
 
 
@@ -1257,6 +1624,19 @@ def phase_time_k4(dev):
           "pass_ms": passes,
           "scratch_bytes": sum(t.numel() * t.element_size()
                                for t in scr.values())}
+    # bfloat16 x, dt, B and C, as the model passes them at its defaults;
+    # the least time for the same function is at the dense bf16 peak
+    bf = [a.to(torch.bfloat16) if i != 2 else a for i, a in enumerate(args)]
+    flops, nbytes = ssd_work(B, S, H, P, G, N, Q, width=2)
+    least_ms = flops / BF16_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    k4["bf16"] = {
+        "kernel_ms": cuda_ms(lambda: SSD.ssd_scan(*bf, chunk=Q), 20),
+        "plain_ms": cuda_ms(lambda: SSD.ssd_scan_ref(*bf, chunk=Q), 5),
+        "library_ms": None, "bytes": nbytes,
+        "bound_ms": max(least_ms, byte_ms),
+        "bound_by": "operations" if least_ms > byte_ms else "bytes",
+        "bound_3xtf32_ms": max(tf32_ms, byte_ms)}
     emit("time_k4", ssd_scan=k4)
     return k4
 
@@ -1282,6 +1662,7 @@ def main() -> int:
     k4_err = phase_kernel_k4(dev)
     m = phase_main(dev)
     errs = phase_check(m)
+    phase_standing(m)
     t = phase_transform(dev)
     phase_transform_check(t)
     sv = phase_serve(dev)

@@ -49,6 +49,9 @@ class RunResult:
     k_trace: np.ndarray = None
     buffer_trace: np.ndarray = None
     plans: List = field(default_factory=list)
+    # fired standing-query alerts from the sink's registry (one Alert per
+    # subscription; empty without a sink or subscriptions)
+    alerts: List = field(default_factory=list)
 
     @property
     def quality_pct(self) -> float:
@@ -57,6 +60,17 @@ class RunResult:
     @property
     def work_core_s(self) -> float:
         return self.onprem_core_s + self.cloud_core_s
+
+
+def _notify_standing(sink):
+    """Poll the sink's standing-query subscriptions right after a run's
+    rows landed (the ingest already folded them into the registered
+    partials); the fired alerts, [] when the sink has no registry or no
+    subscription."""
+    reg = getattr(sink, "standing", None)
+    if reg is None or not reg.has_subscriptions:
+        return []
+    return reg.poll()
 
 
 def _max_quality(stream: Stream, power: np.ndarray) -> np.ndarray:
@@ -182,11 +196,14 @@ def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
         rs.append(r)
         alphas.append(alpha)
     stacked = {k: torch.stack([o[k] for o in outs_w]) for k in outs_w[0]}
+    alerts = []
     if sink is not None:
         # Load: the (n_w, W) traces and the (T, K) quality vectors stay on
-        # the device on their way into the store
+        # the device on their way into the store (which folds them into
+        # its standing queries)
         sink.ingest_fused(stacked, quals, stream_id=sink_stream_id,
                           t0=sink_t0)
+        alerts = _notify_standing(sink)
     # un-window: padding only ever sits at the very end
     cat = {k: v.reshape((n_w * W,) + v.shape[2:])[:T].cpu().numpy()
            for k, v in stacked.items()}
@@ -194,5 +211,7 @@ def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
         cat[k] = cat[k].astype(np.int32)
     rs = torch.stack(rs).cpu().numpy()
     alphas = torch.stack(alphas).cpu().numpy()
-    return _assemble_result(cat, _max_quality(stream, fitted.power), K,
-                            [(rs[i], alphas[i]) for i in range(n_w)])
+    res = _assemble_result(cat, _max_quality(stream, fitted.power), K,
+                           [(rs[i], alphas[i]) for i in range(n_w)])
+    res.alerts = alerts
+    return res

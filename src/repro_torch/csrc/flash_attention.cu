@@ -21,6 +21,16 @@
 // about 3 * 2^-22 of |a||b|). Both products use it: S = (q * scale) K^T
 // and O += P V. kernels/flash_attention.py:error_bound states the bound.
 //
+// Operands: q, k and v all float32, or all bfloat16 (the models' default
+// compute dtype). A bfloat16 operand is widened to float32 as its tile
+// lands, and everything after the load is the float32 kernel's: the
+// 3xTF32 splits (a widened bfloat16 splits exactly, small half 0), the
+// float32 accumulators and softmax. The output is written in the
+// operands' type (bfloat16 rounded to nearest even). bfloat16 k and v
+// tiles come through registers (16-byte loads, 8 values each, widened
+// and stored to the float32 staging buffer), issued after the tile's S
+// product so that the loads overlap it.
+//
 // Design. One block owns one (b, h, q tile) and walks the kv tiles in a
 // loop that stands in for the TPU grid's sequential kv axis. A
 // warpgroup (4 warps) owns 64 q rows; a block holds two (128 rows that
@@ -36,9 +46,11 @@
 // - K and V tiles (64 kv rows, 32 at D = 128) come through a 2-stage ring
 //   of float32 staging buffers filled by cp.async (16-byte copies where
 //   D % 4 == 0 and the bases are aligned, else 4-byte ones; zero-fill past
-//   Skv and D), the next tile in flight while the block computes on this
-//   one. As a tile lands the block splits each element once into big and
-//   small, writing the core-matrix layouts with 16-byte stores (8 lanes
+//   Skv and D; bfloat16: 16-byte loads where D % 8 == 0 and the bases are
+//   aligned, else one value at a time), the next tile in flight while the
+//   block computes on this one. As a tile lands the block splits each
+//   element once into big and small, writing the core-matrix layouts
+//   with 16-byte stores (8 lanes
 //   fill one core matrix and read 8 staged rows: no bank conflicts), and
 //   fences the stores for wgmma's asynchronous reads. q is scaled and
 //   split once, before the walk.
@@ -73,15 +85,15 @@
 #define FULL_MASK 0xffffffffu
 
 struct FaArgs {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const void* q;              // float or bf16, as k, v and o
+  const void* k;
+  const void* v;
+  void* o;
   int B, Sq, Skv, H, G, D;
   int causal;
   int window;                 // <= 0: no window
   float scale;
-  int vec4;                   // 16-byte copies of k and v rows
+  int vec;                    // 16-byte copies of k and v rows
 };
 
 // Shared memory of one block, in 32-bit words. Q (A of S), K (B of S) and
@@ -111,7 +123,7 @@ __device__ __forceinline__ void load_tile(float* st, const float* kb,
                                           int k0, const FaArgs& a) {
   float* ks = st;
   float* vs = st + BK * SP;
-  if (a.vec4) {
+  if (a.vec) {
     constexpr int CH = DP / 4;
     for (int i = threadIdx.x; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = i % CH, s = k0 + r;
@@ -127,6 +139,47 @@ __device__ __forceinline__ void load_tile(float* st, const float* kb,
       const int64_t off = ok ? s * kv_row + d : 0;
       cp_async4(ks + r * SP + d, kb + off, ok ? 4 : 0);
       cp_async4(vs + r * SP + d, vb + off, ok ? 4 : 0);
+    }
+  }
+}
+
+// bfloat16 kv rows [k0, k0 + BK) of k and v, widened into a staging stage
+// (the same float32 layout): every 16-byte load of the thread issued
+// before the first store
+template <int DP, int BK, int THREADS, int SP>
+__device__ __forceinline__ void load_tile(float* st, const bf16* kb,
+                                          const bf16* vb, int64_t kv_row,
+                                          int k0, const FaArgs& a) {
+  float* ks = st;
+  float* vs = st + BK * SP;
+  if (a.vec) {
+    constexpr int CH = DP / 8;
+    constexpr int PER = (BK * CH + THREADS - 1) / THREADS;
+    uint4 ku[PER], vu[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      const int r = i / CH, c = i % CH, s = k0 + r;
+      const bool ok = i < BK * CH && s < a.Skv && 8 * c < a.D;
+      const int64_t off = ok ? s * kv_row + 8 * c : 0;
+      ku[j] = ok ? ld16(kb + off) : make_uint4(0u, 0u, 0u, 0u);
+      vu[j] = ok ? ld16(vb + off) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i >= BK * CH) break;
+      const int r = i / CH, c = i % CH;
+      store_widened8(ks + r * SP + 8 * c, ku[j]);
+      store_widened8(vs + r * SP + 8 * c, vu[j]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BK * DP; i += THREADS) {
+      const int r = i / DP, d = i % DP, s = k0 + r;
+      const bool ok = s < a.Skv && d < a.D;
+      const int64_t off = ok ? s * kv_row + d : 0;
+      ks[r * SP + d] = ok ? widen(kb[off]) : 0.f;
+      vs[r * SP + d] = ok ? widen(vb[off]) : 0.f;
     }
   }
 }
@@ -169,7 +222,7 @@ __device__ __forceinline__ void split_tile(const float* stage,
   fence_async_smem();
 }
 
-template <int DP, int BK, int WG>
+template <typename In, int DP, int BK, int WG>
 __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
   using T = Tiles<DP, BK, WG>;
   constexpr int THREADS = WG * 128;
@@ -193,10 +246,10 @@ __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
   const int D = a.D;
   const int64_t q_row = (int64_t)a.H * D;      // elements between q rows
   const int64_t kv_row = (int64_t)a.G * D;
-  const float* qb = a.q + ((int64_t)b * a.Sq * a.H + h) * D;
-  const float* kb = a.k + ((int64_t)b * a.Skv * a.G + kvh) * D;
-  const float* vb = a.v + ((int64_t)b * a.Skv * a.G + kvh) * D;
-  float* ob = a.o + ((int64_t)b * a.Sq * a.H + h) * D;
+  const In* qb = (const In*)a.q + ((int64_t)b * a.Sq * a.H + h) * D;
+  const In* kb = (const In*)a.k + ((int64_t)b * a.Skv * a.G + kvh) * D;
+  const In* vb = (const In*)a.v + ((int64_t)b * a.Skv * a.G + kvh) * D;
+  In* ob = (In*)a.o + ((int64_t)b * a.Sq * a.H + h) * D;
 
   // the kv range any row of this block can see
   const int q_last = min(q0 + BQ, a.Sq) - 1;
@@ -219,7 +272,8 @@ __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
     const int r = 8 * (cm % MB) + ((i >> 2) & 7);
     const int d = 4 * (cm / MB) + (i & 3);
     const int row = q0 + r;
-    const float x = (row < a.Sq && d < D) ? qb[row * q_row + d] * a.scale : 0.f;
+    const float x =
+        (row < a.Sq && d < D) ? widen(qb[row * q_row + d]) * a.scale : 0.f;
     split(x, Qb[i], Qs[i]);
   }
   fence_async_smem();
@@ -239,15 +293,24 @@ __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
     __syncthreads();                  // ... for every thread; K, V free
     split_tile<DP, BK, THREADS>(stage + (it & 1) * T::STAGE, Kb);
     __syncthreads();                  // split tile ready; stage it & 1 free
-    if (it + 2 < n_tiles)
-      load_tile<DP, BK, THREADS, SP>(stage + (it & 1) * T::STAGE, kb, vb,
-                                     kv_row, (t_first + it + 2) * BK, a);
-    cp_commit();
 
+    // tile it + 2: float32 tiles by cp.async before this tile's products;
+    // bfloat16 tiles by loads through registers once the S product is
+    // issued, so that they overlap it (a warpgroup that skips the tile
+    // loads its share at once)
+    constexpr bool LOAD_AFTER_S = sizeof(In) == 2;
+    const bool more = it + 2 < n_tiles;
+    float* next = stage + (it & 1) * T::STAGE;
+    const int k_next = (t_first + it + 2) * BK;
     const int k0 = (t_first + it) * BK;
-    if (!wg_live || (a.causal && k0 > wq_last) ||
-        (a.window > 0 && k0 + BK - 1 <= wq - a.window))
-      continue;
+    const bool skip = !wg_live || (a.causal && k0 > wq_last) ||
+                      (a.window > 0 && k0 + BK - 1 <= wq - a.window);
+    if (!LOAD_AFTER_S || skip) {
+      if (more)
+        load_tile<DP, BK, THREADS, SP>(next, kb, vb, kv_row, k_next, a);
+      cp_commit();
+    }
+    if (skip) continue;
 
     // S = q K^T for the warpgroup's 64 rows: per k step, small*big,
     // big*small, big*big
@@ -269,6 +332,8 @@ __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
       wgmma_ss<BK>(sc, qbd, kbd);
     }
     wg_commit();
+    if (LOAD_AFTER_S && more)
+      load_tile<DP, BK, THREADS, SP>(next, kb, vb, kv_row, k_next, a);
     wg_wait_all();
     pin(sc);
 
@@ -350,15 +415,16 @@ __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int d = 8 * n + 2 * t + c;
-        if (d < D) ob[qpos * q_row + d] = o[4 * n + 2 * r + c] * inv;
+        if (d < D)
+          ob[qpos * q_row + d] = narrow<In>(o[4 * n + 2 * r + c] * inv);
       }
   }
 }
 
-template <int DP, int WG>
+template <typename In, int DP, int WG>
 static int launch(const FaArgs& a, cudaStream_t stream) {
   constexpr int BK = DP == 128 ? 32 : 64;
-  auto kern = fa_fwd_kernel<DP, BK, WG>;
+  auto kern = fa_fwd_kernel<In, DP, BK, WG>;
   const size_t smem = Tiles<DP, BK, WG>::bytes();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -370,29 +436,37 @@ static int launch(const FaArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+template <typename In, int DP>
 static int launch_rows(const FaArgs& a, cudaStream_t stream) {
   // two warpgroups (128 q rows) share each kv tile; short sequences, and
   // D = 128 (whose shared memory holds one), take one
-  if (DP < 128 && a.Sq >= 256) return launch<DP, 2>(a, stream);
-  return launch<DP, 1>(a, stream);
+  if (DP < 128 && a.Sq >= 256) return launch<In, DP, 2>(a, stream);
+  return launch<In, DP, 1>(a, stream);
 }
 
-// q (B,Sq,H,D), k and v (B,Skv,G,D), o (B,Sq,H,D), all contiguous
-// float32 on the device. D <= 128, H % G == 0, Skv >= 1. Returns a
-// cudaError_t (0 on success); -1 for a D the kernel does not take.
-extern "C" int flash_attention_fwd(const float* q, const float* k,
-                                   const float* v, float* o, int B, int Sq,
+template <typename In>
+static int launch_dims(const FaArgs& a, cudaStream_t stream) {
+  if (a.D <= 16) return launch_rows<In, 16>(a, stream);
+  if (a.D <= 32) return launch_rows<In, 32>(a, stream);
+  if (a.D <= 64) return launch_rows<In, 64>(a, stream);
+  if (a.D <= 128) return launch_rows<In, 128>(a, stream);
+  return -1;
+}
+
+// q (B,Sq,H,D), k and v (B,Skv,G,D), o (B,Sq,H,D), all contiguous on the
+// device, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1). D <= 128,
+// H % G == 0, Skv >= 1. Returns a cudaError_t (0 on success); -1 for a
+// D the kernel does not take.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* o, int B, int Sq,
                                    int Skv, int H, int G, int D, int causal,
-                                   int window, float scale,
+                                   int window, int bf16_in, float scale,
                                    cudaStream_t stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
-  const int vec4 = D % 4 == 0 && ((uintptr_t)k % 16) == 0 &&
-                   ((uintptr_t)v % 16) == 0;
-  FaArgs a{q, k, v, o, B, Sq, Skv, H, G, D, causal, window, scale, vec4};
-  if (D <= 16) return launch_rows<16>(a, stream);
-  if (D <= 32) return launch_rows<32>(a, stream);
-  if (D <= 64) return launch_rows<64>(a, stream);
-  if (D <= 128) return launch_rows<128>(a, stream);
-  return -1;
+  const int lanes = bf16_in ? 8 : 4;          // values in 16 bytes
+  const int vec = D % lanes == 0 && ((uintptr_t)k % 16) == 0 &&
+                  ((uintptr_t)v % 16) == 0;
+  FaArgs a{q, k, v, o, B, Sq, Skv, H, G, D, causal, window, scale, vec};
+  return bf16_in ? launch_dims<bf16>(a, stream)
+                 : launch_dims<float>(a, stream);
 }

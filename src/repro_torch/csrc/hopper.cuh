@@ -1,14 +1,59 @@
 // Hopper (sm_90a) device helpers shared by the port's tensor-core kernels:
-// TF32 rounding and the 3xTF32 split (two ways), cp.async, the wgmma
-// fences, the shared-memory matrix descriptor and the m64nNk8 tf32 wgmma
-// wrappers.
+// TF32 rounding and the 3xTF32 split (two ways), bfloat16 operands
+// widened to float32 as they land, cp.async, the wgmma fences, the
+// shared-memory matrix descriptor and the m64nNk8 tf32 wgmma wrappers.
 //
 // Layout the descriptors assume (settled on the card for K3): no swizzle,
 // core matrices of 8 rows x 4 32-bit words (16 bytes a row, 128 bytes a
 // matrix) stored contiguously; tf32 wgmma reads both shared operands
 // K-major only. Included by csrc/flash_attention.cu and csrc/ssd_scan.cu.
 #pragma once
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+// Operand types: float32, or bfloat16 widened to float32 on load (exact:
+// a bfloat16 is a float32 with the low 16 bits zero, so its TF32 split
+// has a zero small half). Outputs are written in the operands' type,
+// bfloat16 rounded to nearest even.
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T narrow(float x);
+template <> __device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 narrow<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// 4 float32 results stored in the output's type at p (16-byte aligned for
+// float, 8-byte for bfloat16)
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *(float4*)p = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *(uint2*)p = make_uint2(*(const uint32_t*)&lo, *(const uint32_t*)&hi);
+}
+
+// 16 bytes of global memory (8 bfloat16), read-only path
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg((const uint4*)p);
+}
+
+// 8 bfloat16 (one 16-byte load, element 0 in the low half of u.x)
+// widened and stored as two float4 at dst (16-byte aligned)
+__device__ __forceinline__ void store_widened8(float* dst, uint4 u) {
+  *(float4*)dst = make_float4(
+      __uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+  *(float4*)(dst + 4) = make_float4(
+      __uint_as_float(u.z << 16), __uint_as_float(u.z & 0xFFFF0000u),
+      __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xFFFF0000u));
+}
 
 __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;

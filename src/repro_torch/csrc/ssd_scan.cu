@@ -56,6 +56,16 @@
 //   by cp.async (16-byte copies where P and N are multiples of 4 and the
 //   bases are aligned; zero-fill past the chunk, P and N): the next
 //   step's tile is in flight while the block multiplies this one.
+// - Operands: x, B and C all float32 or all bfloat16 (the models' default
+//   compute dtype), dt float32 or in x's dtype, A float32, the state in
+//   float32 or bfloat16. A bfloat16 tile is widened to float32 as it
+//   lands: 16-byte loads of 8 values into registers (P and N multiples
+//   of 8, aligned bases; else one value at a time), stored widened to the
+//   same float32 staging buffer, issued after the step's products so
+//   that they overlap them. Everything after the load is the float32
+//   kernels' (a widened bfloat16 splits exactly, small half 0); y is
+//   written in x's dtype (bfloat16 rounded to nearest even), the final
+//   state and the scratch in float32.
 // - tf32 wgmma reads shared operands K-major only, as core matrices of 8
 //   rows x 4 words without swizzle (K3's layout and descriptors). C, B
 //   and S_in are stored with the K index (n) contiguous and split as they
@@ -99,21 +109,32 @@
 static_assert(KI == T, "an inter step's split S_in is as large as x's");
 
 struct SsdArgs {
-  const float* x;             // (B,S,H,P)
-  const float* dt;            // (B,S,H)
+  const void* x;              // (B,S,H,P), float or bf16 as Bm, Cm and y
+  const void* dt;             // (B,S,H), float or bf16 (dt_bf16)
   const float* A;             // (H,)
-  const float* Bm;            // (B,S,G,N)
-  const float* Cm;            // (B,S,G,N)
-  const float* init;          // (B,H,P,N) or null: zeros
-  float* y;                   // (B,S,H,P)
+  const void* Bm;             // (B,S,G,N)
+  const void* Cm;             // (B,S,G,N)
+  const void* init;           // (B,H,P,N), float or bf16 (init_bf16), or
+                              // null: zeros
+  void* y;                    // (B,S,H,P)
   float* state;               // (B,H,P,N)
   float* dts;                 // (B,H,nc,QP) scratch: dt, zeros past the chunk
   float* cum;                 // (B,H,nc,QP) scratch: inclusive cumsum of dt*A
   float* cb;                  // (B,nc,G,QP,QP) scratch: C.B^T, lower tiles
   float* states;              // (B,H,nc,P,N) scratch: upd_c, then S_in[c]
   int B, S, H, P, G, N, Q, QP, nc;
-  int vec4;                   // 16-byte copies of x, y, B, C and state rows
+  int vec;                    // 16-byte copies of x, y, B, C and state rows
+  int dt_bf16, init_bf16;
 };
+
+__device__ __forceinline__ float load_dt(const SsdArgs& a, int64_t i) {
+  return a.dt_bf16 ? widen(((const bf16*)a.dt)[i]) : ((const float*)a.dt)[i];
+}
+
+__device__ __forceinline__ float load_init(const SsdArgs& a, int64_t i) {
+  return a.init_bf16 ? widen(((const bf16*)a.init)[i])
+                     : ((const float*)a.init)[i];
+}
 
 // cp.async, by NT threads, of rows [0, ROWS) x columns [0, COLS) of a
 // row-major matrix at src (row stride ld floats) into st (row stride SP
@@ -136,6 +157,39 @@ __device__ __forceinline__ void load_tile(float* st, const float* src,
       const int r = i / COLS, c = i % COLS;
       const bool ok = r < rows_ok && c < cols_ok;
       cp_async4(st + r * SP + c, ok ? src + r * ld + c : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// The same tile of a bfloat16 matrix, widened into the float32 staging:
+// with vec8 (cols_ok and ld multiples of 8, src 16-byte aligned) every
+// 16-byte load of the thread is issued before the first store.
+template <int NT, int ROWS, int COLS, int SP>
+__device__ __forceinline__ void load_tile(float* st, const bf16* src,
+                                          int64_t ld, int rows_ok,
+                                          int cols_ok, int vec8) {
+  if (vec8) {
+    constexpr int CH = COLS / 8;
+    constexpr int PER = (ROWS * CH + NT - 1) / NT;
+    uint4 u[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = threadIdx.x + j * NT;
+      const int r = i / CH, c = 8 * (i % CH);
+      const bool ok = i < ROWS * CH && r < rows_ok && c < cols_ok;
+      u[j] = ok ? ld16(src + r * ld + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = threadIdx.x + j * NT;
+      if (i >= ROWS * CH) break;
+      store_widened8(st + (i / CH) * SP + 8 * (i % CH), u[j]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += NT) {
+      const int r = i / COLS, c = i % COLS;
+      const bool ok = r < rows_ok && c < cols_ok;
+      st[r * SP + c] = ok ? widen(src[r * ld + c]) : 0.f;
     }
   }
 }
@@ -223,7 +277,8 @@ __global__ void ssd_cumsum_kernel(SsdArgs a) {
   const int h = blockIdx.x % a.H, c = blockIdx.x / a.H, b = blockIdx.y;
   const int64_t c0 = (int64_t)c * a.Q;
   const int len = chunk_len(a, c);
-  const float d = i < len ? a.dt[((int64_t)b * a.S + c0 + i) * a.H + h] : 0.f;
+  const float d = i < len ? load_dt(a, ((int64_t)b * a.S + c0 + i) * a.H + h)
+                          : 0.f;
   float v = d * a.A[h];
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -242,6 +297,7 @@ __global__ void ssd_cumsum_kernel(SsdArgs a) {
 // ---------------------------------------------------------------- 2 ----
 // grid (tiles * nc * G, B): CB tile (ti, si), si <= ti, of chunk c and
 // group g; K = n in steps of KC through the ring
+template <typename In>
 __global__ void __launch_bounds__(THREADS) ssd_bmm_kernel(SsdArgs a) {
   extern __shared__ __align__(128) uint32_t smem[];
   constexpr int STAGE = 2 * T * SPK;
@@ -257,16 +313,18 @@ __global__ void __launch_bounds__(THREADS) ssd_bmm_kernel(SsdArgs a) {
   if (ti * T >= len) return;                 // past the chunk: never read
   const int64_t ld = (int64_t)a.G * a.N;
   const int64_t c0 = (int64_t)c * a.Q;
-  const float* cs = a.Cm + ((int64_t)b * a.S + c0 + ti * T) * ld + g * a.N;
-  const float* bs = a.Bm + ((int64_t)b * a.S + c0 + si * T) * ld + g * a.N;
+  const In* cs =
+      (const In*)a.Cm + ((int64_t)b * a.S + c0 + ti * T) * ld + g * a.N;
+  const In* bs =
+      (const In*)a.Bm + ((int64_t)b * a.S + c0 + si * T) * ld + g * a.N;
   const int c_rows = min(T, len - ti * T), b_rows = min(T, len - si * T);
   const int steps = (a.N + KC - 1) / KC;
   auto load = [&](int it, float* st) {
     const int k0 = it * KC;
     load_tile<THREADS, T, KC, SPK>(st, cs + k0, ld, c_rows, a.N - k0,
-                                   a.vec4);
+                                   a.vec);
     load_tile<THREADS, T, KC, SPK>(st + T * SPK, bs + k0, ld, b_rows,
-                                   a.N - k0, a.vec4);
+                                   a.N - k0, a.vec);
   };
 
   float acc[32];
@@ -314,6 +372,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bmm_kernel(SsdArgs a) {
 // 64w + 64)), N = p, K = s in steps of SC. B is the register operand
 // (read from the staged chunk as it stands), x' the shared one, scaled
 // and transposed as it is split.
+template <typename In>
 __global__ void __launch_bounds__(THREADS2, 2)
     ssd_chunk_state_kernel(SsdArgs a) {
   extern __shared__ __align__(128) uint32_t smem[];
@@ -326,8 +385,9 @@ __global__ void __launch_bounds__(THREADS2, 2)
   const int len = chunk_len(a, c);
   const int64_t c0 = (int64_t)c * a.Q;
   const int64_t xld = (int64_t)a.H * a.P, bld = (int64_t)a.G * a.N;
-  const float* xs = a.x + ((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P;
-  const float* bs = a.Bm + ((int64_t)b * a.S + c0) * bld + g * a.N;
+  const In* xs =
+      (const In*)a.x + ((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P;
+  const In* bs = (const In*)a.Bm + ((int64_t)b * a.S + c0) * bld + g * a.N;
   const int64_t v0 = (((int64_t)b * a.H + h) * a.nc + c) * a.QP;
   const float total = a.cum[v0 + a.QP - 1];
   for (int i = threadIdx.x; i < a.QP; i += THREADS2)
@@ -336,9 +396,9 @@ __global__ void __launch_bounds__(THREADS2, 2)
   auto load = [&](int it, float* st) {
     const int s0 = it * SC;
     load_tile<THREADS2, SC, PMAX, SPT>(st, xs + s0 * xld, xld, len - s0, a.P,
-                                       a.vec4);
+                                       a.vec);
     load_tile<THREADS2, SC, NMAX, SPB>(st + XS, bs + s0 * bld, bld, len - s0,
-                                       a.N, a.vec4);
+                                       a.N, a.vec);
   };
 
   const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
@@ -419,7 +479,8 @@ __global__ void __launch_bounds__(256) ssd_state_passing_kernel(SsdArgs a) {
   float s[V];
 #pragma unroll
   for (int v = 0; v < V; ++v)
-    s[v] = a.init != nullptr ? a.init[bh * pn + (int64_t)V * e + v] : 0.f;
+    s[v] = a.init != nullptr ? load_init(a, bh * pn + (int64_t)V * e + v)
+                             : 0.f;
   for (int c0 = 0; c0 < a.nc; c0 += CG) {
     float u[CG][V], tot[CG];
 #pragma unroll
@@ -465,6 +526,7 @@ __global__ void __launch_bounds__(256) ssd_state_passing_kernel(SsdArgs a) {
 // tile's last position, both factors at most 1 (the column factors once
 // per step in shared memory); on the diagonal tile exp(cum_t - cum_s) is
 // taken per element, masked first.
+template <typename In>
 __global__ void __launch_bounds__(THREADS2, 2)
     ssd_chunk_scan_kernel(SsdArgs a) {
   extern __shared__ __align__(128) uint32_t smem[];
@@ -485,8 +547,10 @@ __global__ void __launch_bounds__(THREADS2, 2)
   const int64_t c0 = (int64_t)c * a.Q;
   const int64_t xld = (int64_t)a.H * a.P, cld = (int64_t)a.G * a.N;
   const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
-  const float* xs = a.x + ((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P;
-  const float* cs = a.Cm + ((int64_t)b * a.S + c0 + t0) * cld + g * a.N;
+  const In* xs =
+      (const In*)a.x + ((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P;
+  const In* cs =
+      (const In*)a.Cm + ((int64_t)b * a.S + c0 + t0) * cld + g * a.N;
   const float* ss = a.states + bhc * a.P * a.N;
   const float* cbs = a.cb + (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP +
                      (int64_t)t0 * a.QP;
@@ -501,14 +565,14 @@ __global__ void __launch_bounds__(THREADS2, 2)
     if (it < nk) {
       const int k0 = it * KI;
       load_tile<THREADS2, T, KI, SPI>(st, cs + k0, cld, len - t0, a.N - k0,
-                                      a.vec4);
+                                      a.vec);
       load_tile<THREADS2, T, KI, SPI>(st + T * SPI, ss + k0, a.N, a.P,
-                                      a.N - k0, a.vec4);
+                                      a.N - k0, a.vec);
     } else {
       const int s0 = (it - nk) * T;
       load_tile<THREADS2, T, T, SPT>(st, cbs + s0, a.QP, T, T, 1);
       load_tile<THREADS2, T, PMAX, SPT>(st + T * SPT, xs + s0 * xld, xld,
-                                        len - s0, a.P, a.vec4);
+                                        len - s0, a.P, a.vec);
     }
   };
 
@@ -643,17 +707,17 @@ __global__ void __launch_bounds__(THREADS2, 2)
   }
   __syncthreads();
   const int rows = min(T, len - t0);
-  float* yt = a.y + ((int64_t)b * a.S + c0 + t0) * xld + (int64_t)h * a.P;
-  if (a.vec4) {
+  In* yt = (In*)a.y + ((int64_t)b * a.S + c0 + t0) * xld + (int64_t)h * a.P;
+  if (a.vec) {
     for (int i = threadIdx.x; i < rows * (PMAX / 4); i += THREADS2) {
       const int r = i / (PMAX / 4), c = 4 * (i % (PMAX / 4));
       if (c < a.P)
-        *(float4*)(yt + r * xld + c) = *(const float4*)(red + r * SPT + c);
+        store4(yt + r * xld + c, *(const float4*)(red + r * SPT + c));
     }
   } else {
     for (int i = threadIdx.x; i < rows * PMAX; i += THREADS2) {
       const int r = i / PMAX, c = i % PMAX;
-      if (c < a.P) yt[r * xld + c] = red[r * SPT + c];
+      if (c < a.P) yt[r * xld + c] = narrow<In>(red[r * SPT + c]);
     }
   }
 }
@@ -675,43 +739,47 @@ static int raise_smem(K kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-static bool make_args(SsdArgs& a, const float* x, const float* dt,
-                      const float* A, const float* Bm, const float* Cm,
-                      const float* init, float* y, float* state, float* dts,
+static bool make_args(SsdArgs& a, const void* x, const void* dt,
+                      const float* A, const void* Bm, const void* Cm,
+                      const void* init, void* y, float* state, float* dts,
                       float* cum, float* cb, float* states, int B, int S,
-                      int H, int P, int G, int N, int Q) {
+                      int H, int P, int G, int N, int Q, int in_bf16,
+                      int dt_bf16, int init_bf16) {
   if (P < 1 || P > PMAX || N < 1 || N > NMAX || Q < 1 || Q > QMAX ||
       S < 1 || G < 1 || H % G != 0 || B > 65535)
     return false;
   const int QP = (Q + T - 1) / T * T;
   const int nc = (S + Q - 1) / Q;
   auto al = [](const void* p) { return ((uintptr_t)p % 16) == 0; };
-  const int vec4 = P % 4 == 0 && N % 4 == 0 && al(x) && al(Bm) && al(Cm) &&
-                   al(y) && al(states);
+  const int lanes = in_bf16 ? 8 : 4;          // values in 16 bytes
+  const int vec = P % lanes == 0 && N % lanes == 0 && al(x) && al(Bm) &&
+                  al(Cm) && al(y) && al(states);
   a = SsdArgs{x, dt, A, Bm, Cm, init, y, state, dts, cum, cb, states,
-              B, S, H, P, G, N, Q, QP, nc, vec4};
+              B, S, H, P, G, N, Q, QP, nc, vec, dt_bf16, init_bf16};
   return true;
 }
 
 #define SSD_PASS(name)                                                      \
-  extern "C" int name(const float* x, const float* dt, const float* A,     \
-                      const float* Bm, const float* Cm, const float* init, \
-                      float* y, float* state, float* dts, float* cum,      \
+  extern "C" int name(const void* x, const void* dt, const float* A,       \
+                      const void* Bm, const void* Cm, const void* init,    \
+                      void* y, float* state, float* dts, float* cum,       \
                       float* cb, float* states, int B, int S, int H, int P, \
-                      int G, int N, int Q, cudaStream_t stream)
+                      int G, int N, int Q, int in_bf16, int dt_bf16,       \
+                      int init_bf16, cudaStream_t stream)
 
 // Arguments of every pass: x (B,S,H,P), dt (B,S,H), A (H,), Bm and Cm
 // (B,S,G,N), init (B,H,P,N) or null, y (B,S,H,P), state (B,H,P,N), and
 // the scratch dts and cum (B,H,nc,QP), cb (B,nc,G,QP,QP) and states
 // (B,H,nc,P,N), nc = ceil(S/Q), QP = Q rounded up to 64; all contiguous
-// float32 on the device. P <= 64, N <= 128, 1 <= Q <= 256, H % G == 0,
-// B <= 65535. The passes run in order: cumsum, bmm, chunk_state,
-// state_passing, chunk_scan.
+// on the device, float32 except x, Bm, Cm and y, bfloat16 with in_bf16,
+// dt with dt_bf16 and init with init_bf16. P <= 64, N <= 128,
+// 1 <= Q <= 256, H % G == 0, B <= 65535. The passes run in order:
+// cumsum, bmm, chunk_state, state_passing, chunk_scan.
 #define SSD_ARGS                                                            \
   if (B == 0 || H == 0) return 0;                                           \
   SsdArgs a;                                                                \
   if (!make_args(a, x, dt, A, Bm, Cm, init, y, state, dts, cum, cb, states, \
-                 B, S, H, P, G, N, Q))                                      \
+                 B, S, H, P, G, N, Q, in_bf16, dt_bf16, init_bf16))         \
     return -1;
 
 SSD_PASS(ssd_cumsum) {
@@ -720,23 +788,34 @@ SSD_PASS(ssd_cumsum) {
   return (int)cudaGetLastError();
 }
 
-SSD_PASS(ssd_bmm) {
-  SSD_ARGS
-  const int e = raise_smem(ssd_bmm_kernel, bmm_smem());
+template <typename In>
+static int bmm(const SsdArgs& a, cudaStream_t stream) {
+  const int e = raise_smem(ssd_bmm_kernel<In>, bmm_smem());
   if (e != 0) return e;
   const int nt = a.QP / T;
-  ssd_bmm_kernel<<<dim3(nt * (nt + 1) / 2 * a.nc * G, B), THREADS,
-                   bmm_smem(), stream>>>(a);
+  ssd_bmm_kernel<In><<<dim3(nt * (nt + 1) / 2 * a.nc * a.G, a.B), THREADS,
+                       bmm_smem(), stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+SSD_PASS(ssd_bmm) {
+  SSD_ARGS
+  return in_bf16 ? bmm<bf16>(a, stream) : bmm<float>(a, stream);
+}
+
+template <typename In>
+static int chunk_state(const SsdArgs& a, cudaStream_t stream) {
+  const int e = raise_smem(ssd_chunk_state_kernel<In>, chunk_state_smem());
+  if (e != 0) return e;
+  ssd_chunk_state_kernel<In><<<dim3(a.H * a.nc, a.B), THREADS2,
+                               chunk_state_smem(), stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 SSD_PASS(ssd_chunk_state) {
   SSD_ARGS
-  const int e = raise_smem(ssd_chunk_state_kernel, chunk_state_smem());
-  if (e != 0) return e;
-  ssd_chunk_state_kernel<<<dim3(H * a.nc, B), THREADS2, chunk_state_smem(),
-                           stream>>>(a);
-  return (int)cudaGetLastError();
+  return in_bf16 ? chunk_state<bf16>(a, stream)
+                 : chunk_state<float>(a, stream);
 }
 
 SSD_PASS(ssd_state_passing) {
@@ -752,13 +831,18 @@ SSD_PASS(ssd_state_passing) {
   return (int)cudaGetLastError();
 }
 
+template <typename In>
+static int chunk_scan(const SsdArgs& a, cudaStream_t stream) {
+  const int e = raise_smem(ssd_chunk_scan_kernel<In>, chunk_scan_smem());
+  if (e != 0) return e;
+  const long long blocks = (long long)(a.QP / T) * a.H * a.nc * a.B;
+  if (blocks > 0x7fffffffLL) return -1;
+  ssd_chunk_scan_kernel<In><<<(unsigned)blocks, THREADS2, chunk_scan_smem(),
+                              stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 SSD_PASS(ssd_chunk_scan) {
   SSD_ARGS
-  const int e = raise_smem(ssd_chunk_scan_kernel, chunk_scan_smem());
-  if (e != 0) return e;
-  const long long blocks = (long long)(a.QP / T) * H * a.nc * B;
-  if (blocks > 0x7fffffffLL) return -1;
-  ssd_chunk_scan_kernel<<<(unsigned)blocks, THREADS2, chunk_scan_smem(),
-                          stream>>>(a);
-  return (int)cudaGetLastError();
+  return in_bf16 ? chunk_scan<bf16>(a, stream) : chunk_scan<float>(a, stream);
 }

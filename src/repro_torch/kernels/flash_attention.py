@@ -10,15 +10,21 @@ runs the plain version ``flash_attention_ref``, the reference's
 ``ref.flash_attention_ref`` written in PyTorch: one masked softmax over
 the whole score matrix. ``LAUNCHES`` counts kernel launches.
 
-The kernel takes float32 only, D up to ``MAX_HEAD_DIM``, and computes
-both products on the tensor cores in 3xTF32: each operand is split into
-two TF32 numbers (``tf32_round``) and each product is the sum of three
-TF32 products, accumulated in float32; ``attention_tf32`` is a float64
-model of that arithmetic and ``error_bound`` the stated bound against
-the plain version. The switches for ``torch.matmul`` stay off: only this
-kernel uses TF32, inside its own code. It skips kv tiles the mask rules
-out, which changes no row that sees at least one key; a row that sees
-none is outside K3's contract (there the TPU kernel's value depends on
+The kernel takes q, k and v all in float32 or all in bfloat16 (the
+models' default compute dtype; the reference's kernel takes any float
+dtype, float16 is still to come here), D up to ``MAX_HEAD_DIM``. A
+bfloat16 operand is widened to float32 as its tile lands and the output
+is written in the input dtype, as the reference widens inside and
+writes ``o`` in q's dtype. Both products run on the tensor cores in
+3xTF32: each operand is split into two TF32 numbers (``tf32_round``)
+and each product is the sum of three TF32 products, accumulated in
+float32 (a widened bfloat16 splits exactly, with a zero small half);
+``attention_tf32`` is a float64 model of that arithmetic and
+``error_bound`` the stated bound against the plain version. The switches
+for ``torch.matmul`` stay off: only this kernel uses TF32, inside its
+own code. It skips kv tiles the mask rules out, which changes no row
+that sees at least one key; a row that sees none is outside K3's
+contract (there the TPU kernel's value depends on
 its block size, the plain version's is the mean of v, the kernel's is 0).
 """
 from __future__ import annotations
@@ -31,6 +37,11 @@ import torch
 LAUNCHES = 0
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30
+DTYPES = (torch.float32, torch.bfloat16)      # the kernel's operand dtypes
+# half an ulp of bfloat16 relative to the value, at most: the rounding of
+# a float32 result written in bfloat16 (8 significant bits, so an ulp is
+# up to 2^-7 of the value)
+BF16_ROUND = 2.0 ** -8
 
 
 def masked_attention(q, k, v, *, causal: bool, window: Optional[int],
@@ -132,9 +143,10 @@ PRODUCT_ERR = 3 * 2.0 ** -22
 
 
 def error_bound(q, k, v, *, causal: bool = True,
-                window: Optional[int] = None) -> torch.Tensor:
+                window: Optional[int] = None, ref=None) -> torch.Tensor:
     """Bound on |kernel - plain version| per output row, (B, Sq, H, 1)
-    float32, broadcast over D.
+    float32, broadcast over D, on float32 q, k, v (bfloat16 ones widened:
+    the kernel and the plain version both compute on the widened values).
 
     Derivation. Let sigma_ij = sum_d |q_id k_jd| * D^-0.5 (the scaled
     magnitudes of one score). The kernel's score differs from the exact
@@ -151,7 +163,13 @@ def error_bound(q, k, v, *, causal: bool = True,
     order Skv * 2^-24 * max|v| (the reordering term this kernel was held
     to before it used the tensor cores). 1e-6 absolute covers outputs
     near 0. A plain 1xTF32 kernel (about 2^-11 per operand) breaks this
-    bound (``tests/test_torch_attention.py``)."""
+    bound (``tests/test_torch_attention.py``).
+
+    bfloat16 output. For bfloat16 q, k, v the kernel rounds its float32
+    result to bfloat16, off by at most half an ulp, BF16_ROUND times the
+    result's magnitude. With ``ref``, the plain version's float32 output
+    on the widened inputs, the bound against ``ref`` adds BF16_ROUND
+    (|ref| + the float32 bound) per element, and is then (B, Sq, H, D)."""
     B, Sq, H, D = q.shape
     _, Skv, G, _ = k.shape
     R = H // G
@@ -163,24 +181,30 @@ def error_bound(q, k, v, *, causal: bool = True,
     vmax = float(v.abs().max()) if v.numel() else 0.0
     bound = (torch.expm1(2 * delta) + PRODUCT_ERR
              + Skv * 2.0 ** -24) * vmax + 1e-6
-    return bound.permute(0, 3, 1, 2).reshape(B, Sq, H, 1).float()
+    bound = bound.permute(0, 3, 1, 2).reshape(B, Sq, H, 1).float()
+    if ref is None:
+        return bound
+    return bound + BF16_ROUND * (ref.float().abs() + bound)
 
 
 def _lib():
     from repro_torch.kernels import build
     fn = build.load("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check(q, k, v, window) -> None:
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the attention kernel takes float32 or bfloat16; "
+                        f"q is {q.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"the attention kernel takes float32; {name} is "
-                            f"{x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"the attention kernel takes q, k and v in one "
+                            f"dtype; q is {q.dtype}, {name} {x.dtype}")
         if x.ndim != 4:
             raise ValueError(f"{name} must be 4-D, not {tuple(x.shape)}")
         if x.device != q.device:
@@ -208,7 +232,8 @@ def _check(q, k, v, window) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
-    """q (B,Sq,H,D); k, v (B,Skv,G,D). Returns (B,Sq,H,D)."""
+    """q (B,Sq,H,D); k, v (B,Skv,G,D), all float32 or all bfloat16.
+    Returns (B,Sq,H,D) in q's dtype."""
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -220,7 +245,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Skv, H, G, D, int(causal), int(window or 0),
-                 D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+                 int(q.dtype == torch.bfloat16), D ** -0.5,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -25,13 +25,18 @@ CPU path keeps the reference's arithmetic order.
 Each pass has its plain version here (``cumsum_ref``, ``bmm_ref``,
 ``chunk_state_ref``, ``state_passing_ref``, ``chunk_scan_ref``), on the
 kernels' scratch layouts; ``ssd_scan_passes`` composes them. The
-kernels take float32 only, P up to ``MAX_HEAD_DIM``, N up to
-``MAX_STATE``, ``chunk`` up to ``MAX_CHUNK``, and run every product on
-the tensor cores in 3xTF32 (each operand split into two TF32 numbers,
-three TF32 products per float32 one); ``ssd_scan_tf32`` is a float64
-model of that arithmetic and ``error_bound`` states how far the kernels
-may lie from the exact scan (``chip_smoke.py`` and the card tests hold
-them so).
+kernels take x, Bm and Cm all in float32 or all in bfloat16 (the models'
+default compute dtype), dt in float32 or in x's dtype, A in float32 and
+``init_state`` in float32 or bfloat16 (the reference's kernel takes any
+float dtype; float16 is still to come here). A bfloat16 operand is
+widened to float32 as its tile lands; y comes back in x's dtype and the
+final state in float32, as the reference writes them. The kernels take
+P up to ``MAX_HEAD_DIM``, N up to ``MAX_STATE``, ``chunk`` up to
+``MAX_CHUNK``, and run every product on the tensor cores in 3xTF32 (each
+operand split into two TF32 numbers, three TF32 products per float32
+one); ``ssd_scan_tf32`` is a float64 model of that arithmetic and
+``error_bound`` states how far the kernels may lie from the exact scan
+(``chip_smoke.py`` and the card tests hold them so).
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import PRODUCT_ERR, tf32_products
+from repro_torch.kernels.flash_attention import (BF16_ROUND, DTYPES,
+                                                 PRODUCT_ERR, tf32_products)
 
 LAUNCHES = 0
 MAX_HEAD_DIM = 64       # P: the kernels' x, y and state tiles
@@ -233,9 +239,12 @@ def ssd_scan_tf32(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
         passes=passes)
 
 
-def error_bound(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
+def error_bound(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
+                ref_y=None):
     """The kernels' error against the exact scan, as (bound on y, bound
-    on the final state): u * L * M with u = 2^-24, M the largest sum of
+    on the final state), on float32 inputs (bfloat16 ones widened: the
+    kernels and the plain version both compute on the widened values):
+    u * L * M with u = 2^-24, M the largest sum of
     magnitudes of the products that make up one output (the plain
     version in float64 on |x|, |Bm|, |Cm| and |init_state|: every decay
     weight and dt is positive) and L = N + 3 S' + 32 Lambda + 16 +
@@ -261,7 +270,13 @@ def error_bound(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
     the weights times x; the decayed x times B then C times S_in), so
     3xTF32 adds at most 2 PRODUCT_ERR times the term's magnitude, 24 u
     on M. A plain TF32 product (big*big, about 2^-10 of |a||b|) breaks
-    this bound (``tests/test_torch_ssd.py``)."""
+    this bound (``tests/test_torch_ssd.py``).
+
+    bfloat16 y. For a bfloat16 x the kernels round y to bfloat16, off by
+    at most half an ulp, BF16_ROUND times its magnitude. With ``ref_y``,
+    the exact y (the plain version in float64), the bound on y against
+    it adds BF16_ROUND (|ref_y| + the float32 bound) per element, and is
+    then a tensor of y's shape; the final state stays float32."""
     B, S, H, P = x.shape
     N = Bm.shape[3]
     Q = min(chunk, S)
@@ -275,14 +290,17 @@ def error_bound(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
         init_state=None if init_state is None else init_state.double().abs())
     u = 2.0 ** -24
     L = N + 3 * nc * Q + 32 * lam + 16 + 2 * PRODUCT_ERR / u
-    return u * L * float(mag_y.max()), u * L * float(mag_state.max())
+    bound_y = u * L * float(mag_y.max())
+    if ref_y is not None:
+        bound_y = bound_y + BF16_ROUND * (ref_y.double().abs() + bound_y)
+    return bound_y, u * L * float(mag_state.max())
 
 
 def bind(lib) -> Dict[str, object]:
     """The passes of a loaded ``ssd_scan`` library, typed for ctypes."""
     fns = {name: getattr(lib, name) for name in PASSES}
     for fn in fns.values():
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fns
@@ -303,10 +321,17 @@ def _check(x, dt, A, Bm, Cm, chunk, init_state) -> None:
              ("Cm", Cm, 4)]
     if init_state is not None:
         named.append(("init_state", init_state, 4))
+    if x.dtype not in DTYPES:
+        raise TypeError(f"the SSD kernel takes x in float32 or bfloat16, "
+                        f"not {x.dtype}")
+    allowed = {"x": (x.dtype,), "Bm": (x.dtype,), "Cm": (x.dtype,),
+               "dt": (torch.float32, x.dtype), "A": (torch.float32,),
+               "init_state": DTYPES}
     for name, t, ndim in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"the SSD kernel takes float32; {name} is "
-                            f"{t.dtype}")
+        if t.dtype not in allowed[name]:
+            raise TypeError(f"the SSD kernel takes {name} in "
+                            f"{' or '.join(map(str, allowed[name]))}, "
+                            f"not {t.dtype}")
         if t.ndim != ndim:
             raise ValueError(f"{name} must be {ndim}-D, not "
                              f"{tuple(t.shape)}")
@@ -367,6 +392,8 @@ def launch(name: str, x, dt, A, Bm, Cm, init_state, y, state,
         y.data_ptr(), state.data_ptr(), scr["dts"].data_ptr(),
         scr["cum"].data_ptr(), scr["cb"].data_ptr(),
         scr["states"].data_ptr(), B, S, H, P, G, N, min(chunk, S),
+        int(x.dtype == torch.bfloat16), int(dt.dtype == torch.bfloat16),
+        int(init_state is not None and init_state.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan pass {name} failed: cudaError {err}")
@@ -454,8 +481,8 @@ def pass_errors(x, dt, A, Bm, Cm, *, chunk: int = 256,
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
     """x (B,S,H,P); dt (B,S,H) post-softplus; A (H,) negative; Bm, Cm
-    (B,S,G,N); init_state (B,H,P,N) or None. Returns y (B,S,H,P) and the
-    final state (B,H,P,N), float32."""
+    (B,S,G,N); init_state (B,H,P,N) or None. Returns y (B,S,H,P) in x's
+    dtype and the final state (B,H,P,N) in float32."""
     global LAUNCHES
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,

@@ -131,32 +131,48 @@ def group_ids(cols, n: int, keys) -> torch.Tensor:
     return gid
 
 
-def masked_partial(ids, mask, v, num: int, agg: str) -> Dict:
-    """Masked segment accumulators ``{"acc", "cnt"}`` of value rows ``v``
-    (n,) or (n, D) under group ids ``ids`` and row mask ``mask``.
-    ``index_add_`` adds in row order on the CPU, so sums there are the
-    reference's row-order sums. Values accumulate in float32, or in
-    float64 when ``v`` is float64 (a wider check of the same function;
-    the store holds no float64 column)."""
-    v = v if v.dtype == torch.float64 else v.to(torch.float32)
-    dev = v.device
-    cnt = torch.zeros((num,), dtype=torch.float32, device=dev)
-    cnt.index_add_(0, ids, mask.to(torch.float32))
+def identity(agg: str) -> float:
+    """The accumulator's empty value: -inf for max, +inf for min, else 0."""
+    return {"max": float("-inf"), "min": float("inf")}.get(agg, 0.0)
+
+
+def masked_fold(part, ids, mask, v, agg: str) -> Dict:
+    """Fold value rows ``v`` (n,) or (n, D) under group ids ``ids`` and
+    row mask ``mask`` into the accumulators ``part = {"acc", "cnt"}``,
+    IN PLACE, and return ``part``. ``index_add_`` adds in row order on
+    the CPU, so each group's float32 addition sequence continues where
+    ``part`` left it: folding rows in batches gives the same bits as
+    folding them at once. Values accumulate in ``part["acc"]``'s dtype."""
+    acc, cnt = part["acc"], part["cnt"]
+    v = v.to(acc.dtype)
+    cnt.index_add_(0, ids, mask.to(cnt.dtype))
     if agg in ("sum", "mean", "count"):
         m = mask if v.ndim == 1 else mask[:, None]
-        acc = torch.zeros((num,) + tuple(v.shape[1:]), dtype=v.dtype,
-                          device=dev)
         acc.index_add_(0, ids, torch.where(m, v, 0.0))
-        return {"acc": acc, "cnt": cnt}
+        return part
     if v.ndim != 1:
         raise ValueError(f"agg {agg!r} needs a scalar column")
     if agg not in ("max", "min"):
         raise ValueError(f"unknown agg {agg!r}")
-    fill = float("-inf") if agg == "max" else float("inf")
-    acc = torch.full((num,), fill, dtype=v.dtype, device=dev)
+    fill = identity(agg)
     acc.scatter_reduce_(0, ids, torch.where(mask, v, fill),
                         "amax" if agg == "max" else "amin")
-    return {"acc": acc, "cnt": cnt}
+    return part
+
+
+def masked_partial(ids, mask, v, num: int, agg: str) -> Dict:
+    """Masked segment accumulators ``{"acc", "cnt"}`` of value rows ``v``
+    (n,) or (n, D): ``masked_fold`` into fresh accumulators. Sums there
+    are the reference's row-order sums on the CPU. Values accumulate in
+    float32, or in float64 when ``v`` is float64 (a wider check of the
+    same function; the store holds no float64 column)."""
+    dt = torch.float64 if v.dtype == torch.float64 else torch.float32
+    if agg in ("max", "min") and v.ndim != 1:
+        raise ValueError(f"agg {agg!r} needs a scalar column")
+    part = {"acc": torch.full((num,) + tuple(v.shape[1:]), identity(agg),
+                              dtype=dt, device=v.device),
+            "cnt": torch.zeros((num,), dtype=torch.float32, device=v.device)}
+    return masked_fold(part, ids, mask, v, agg)
 
 
 @dataclass(frozen=True)

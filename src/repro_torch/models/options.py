@@ -1,6 +1,8 @@
 """Runtime options (orthogonal to ``ArchConfig``): the port's copy of
 ``repro/models/options.py`` with the fields a one-card run reads.
-Sharding rules and MoE knobs come with the slices that need them."""
+Sharding rules and MoE knobs come with the slices that need them. Also
+the stated tolerance of logits at the default bfloat16 compute dtype
+(``bf16_logit_tolerance``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -15,3 +17,27 @@ class RunOptions:
     q_chunk: int = 512             # the reference's attention chunking;
     kv_chunk: int = 1024           # K3 picks its own tiles
     ssd_chunk: int = 256           # SSD chunk length (K4's Q)
+
+
+# one ulp of bfloat16 relative to the value, at most (8 significant bits)
+BF16_ULP = 2.0 ** -7
+
+
+def bf16_logit_tolerance(n_layers: int, max_abs_logit: float) -> float:
+    """How far two bfloat16 forwards of the same model and params may put
+    their logits apart when they differ only in their float32 arithmetic
+    (sums in another order, 3xTF32 products in a kernel).
+
+    Derivation. Inside a layer both forwards accumulate in float32 (the
+    matmuls, K3, K4), so before a rounding their values differ by far less
+    than a bfloat16 ulp. The residual stream is rounded to bfloat16 at
+    each layer boundary: the two round to the same value or to neighbours
+    one ulp apart, at most BF16_ULP of the value. A difference in the
+    stream is carried by the later layers at a gain of about one
+    (pre-norm residual blocks whose branches are scaled by 1/sqrt(fan-in))
+    and adds to those of later boundaries: the embedding's and the
+    ``n_layers`` boundaries leave the final stream at most n_layers + 1
+    ulps apart, which the head carries into the logits as that many ulps
+    of their magnitude; the logits' own rounding to bfloat16 adds one
+    more. So |logits - logits'| <= (n_layers + 2) BF16_ULP max|logit|."""
+    return (n_layers + 2) * BF16_ULP * max_abs_logit

@@ -74,5 +74,6 @@ def causal_conv(x, w, b):
 def causal_conv_step(conv_state, x_t, w, b):
     """conv_state (B,cw-1,C); x_t (B,C). Returns (y_t, new_state)."""
     hist = torch.cat([conv_state, x_t[:, None]], dim=1)      # (B,cw,C)
-    y = torch.einsum("bic,ic->bc", hist.float(), w) + b
+    # in float32, as the reference's einsum promotes bfloat16 weights
+    y = torch.einsum("bic,ic->bc", hist.float(), w.float()) + b
     return y.to(x_t.dtype), hist[:, 1:]

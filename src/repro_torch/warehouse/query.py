@@ -38,7 +38,7 @@ import torch
 from repro_torch.kernels.warehouse_agg import (CMP as _CMP, FusedAggSpec,
                                                check_kernel, filter_pred,
                                                fused_segment_agg, group_ids,
-                                               masked_partial)
+                                               masked_fold, masked_partial)
 
 # how many aggregating queries took each path through ``execute``
 PATHS = {"kernel": 0, "engine": 0}
@@ -176,6 +176,28 @@ def _seg_partial(table, mask, node):
     Filtered and padding rows are exact no-ops."""
     ids, num = _seg_ids(table, node)
     return masked_partial(ids, mask, table[node.value], num, node.agg)
+
+
+def _seg_fold(part, table, mask, node):
+    """Fold a batch of NEW rows into a stored partial, in place: the
+    scatter ``_seg_partial`` runs over fresh accumulators runs here over
+    the STORED ones, so each group's float32 addition sequence continues
+    where the last fold stopped. A backfill and any number of later folds
+    therefore give the accumulators one ``_seg_partial`` over all rows in
+    ingest order would, bit for bit (the standing queries' exactness
+    contract, ``warehouse.standing``); max, min and count are exact in
+    any order."""
+    ids, _ = _seg_ids(table, node)
+    return masked_fold(part, ids, mask, table[node.value], node.agg)
+
+
+def _num_groups(node) -> int:
+    """Result rows of an aggregating node."""
+    if isinstance(node, GroupBy):
+        return node.num_groups
+    if isinstance(node, WindowAgg):
+        return node.num_windows
+    return math.prod(node.nums)                      # MultiGroupBy
 
 
 def _seg_finalize(acc, cnt, agg):

@@ -20,6 +20,14 @@ one slice assignment per column into the preallocated capacity, and
 growth copies the live rows once into the next rung of the ladder. The
 row count is host state, so queries know the live rows without reading
 the device.
+
+A ``StandingQueries`` registry (``warehouse.standing``) attached to the
+store is refreshed inside ``ingest_fused`` and ``append_rows``: right
+after a block lands, its rows, read back as the slices ``[lo:lo + n]``
+of the store's columns (so as the store holds them, cast to the column
+dtypes), fold into every registered plan's accumulators, as the
+reference's ``_write_and_fold`` folds them in the ingest dispatch.
+``obs`` holds the registry's counters.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.warehouse.standing import _fold_all
 
 SCALAR_COLUMNS = (
     ("stream_id", torch.int32),
@@ -76,6 +85,12 @@ class SegmentStore:
         self.n_rows = 0
         self.t_max = -1
         self.columns = _empty_columns(0, out_dim, self.device)
+        # the counters the standing-query registry updates (the rest of
+        # the reference's StoreTelemetry comes with the telemetry slice)
+        self.obs = {"standing_refreshes": 0, "alerts_checked": 0,
+                    "alerts_fired": 0}
+        # StandingQueries registry (attached by its constructor)
+        self.standing = None
 
     # -- capacity ------------------------------------------------------
     @property
@@ -93,12 +108,25 @@ class SegmentStore:
         self.columns = grown
 
     def _write(self, upd: Dict[str, torch.Tensor]) -> None:
-        """Write the update block at row ``n_rows``, in place."""
+        """Write the update block at row ``n_rows``, in place, then fold
+        it into the attached standing queries."""
         n = upd["t"].shape[0]
         lo = self.n_rows
         for k, col in self.columns.items():
             col[lo:lo + n] = upd[k].to(device=self.device, dtype=col.dtype)
         self.n_rows += n
+        self._fold(lo, n)
+
+    def _fold(self, lo: int, n: int) -> None:
+        """Fold rows [lo, lo + n), as stored, into every registered
+        standing query (none registered: nothing runs)."""
+        reg = self.standing
+        if reg is None or not len(reg):
+            return
+        block = {k: col[lo:lo + n] for k, col in self.columns.items()}
+        mask = torch.ones((n,), dtype=torch.bool, device=self.device)
+        sstates, sfvals, sspecs = reg.kernel_args()
+        reg.absorb(_fold_all(sstates, sfvals, block, mask, n, sspecs))
 
     # -- ingestion -----------------------------------------------------
     def ingest_fused(self, traces, out_vecs, *, stream_id: int = 0,

@@ -21,7 +21,14 @@ roundings in each decay exponent and the 3xTF32 products' terms); each
 of K4's five passes within the bound ``kernels.ssd.pass_errors`` states
 for it, against its plain version in float64 on the same inputs. The
 models' logits: 1e-4 (float32 matmuls, attention and scans in other
-orders, two layers).
+orders, two layers). bfloat16 operands: K3 and K4 within their
+``error_bound`` on the widened inputs plus the rounding of the output to
+bfloat16 (``BF16_ROUND``, half an ulp, times |out|); the reduced models
+at the default RunOptions (bfloat16) on the card against the port's CPU
+run within ``models.options.bf16_logit_tolerance``. Standing answers on
+the card (K1's delta folds) against ``store.query`` on the same rows:
+masks, counts, max and min exactly, float sums and means within 1e-5 of
+each group's sum of magnitudes.
 
 This file imports neither JAX nor ``repro``.
 """
@@ -35,10 +42,12 @@ from repro_torch.kernels import frame_preproc as FP
 from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import warehouse_agg as K
 from repro_torch.models.model import Model
-from repro_torch.models.options import RunOptions
+from repro_torch.models.options import RunOptions, bf16_logit_tolerance
 from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy,
-                                   SegmentStore, WindowAgg, execute)
+                                   SegmentStore, StandingQueries, TopK,
+                                   WindowAgg, execute)
 from repro_torch.warehouse import query as Q
+from repro_torch.warehouse import standing as ST
 
 AGGS = ("sum", "mean", "count", "max", "min")
 
@@ -394,8 +403,10 @@ def test_k3_stress_within_error_bound(cuda):
 def test_k3_refuses(cuda):
     q = torch.randn((1, 8, 4, 16), device=cuda)
     before = FA.LAUNCHES
-    with pytest.raises(TypeError, match="float32"):
-        FA.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        FA.flash_attention(q, q.bfloat16(), q.bfloat16())
     big = torch.randn((1, 8, 4, 160), device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         FA.flash_attention(big, big, big)
@@ -513,3 +524,180 @@ def test_mamba_on_card_matches_cpu(cuda):
     assert torch.equal(nxt_c.cpu(), nxt)
     assert float((cache_c["layers"]["ssm"].cpu()
                   - cache["layers"]["ssm"]).abs().max()) <= 1e-4
+
+
+# ------------------------------------------------------- bfloat16 ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_bfloat16_within_error_bound(cuda, case):
+    """bfloat16 q, k, v: the output in bfloat16, within the float32 bound
+    on the widened inputs plus its rounding, against the plain version
+    on the widened inputs in float32."""
+    B, Sq, Skv, H, G, D, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               .to(torch.bfloat16) for shape in
+               ((B, Sq, H, D), (B, Skv, G, D), (B, Skv, G, D)))
+    before = FA.LAUNCHES
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref = FA.flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+    bound = FA.error_bound(qf, kf, vf, causal=causal, window=window,
+                           ref=ref)
+    assert bool(((got.float() - ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_CASES)
+@pytest.mark.parametrize("dt_dtype", ("bfloat16", "float32"))
+def test_k4_bfloat16_within_error_bound(cuda, case, dt_dtype):
+    """bfloat16 x, B, C (dt in bfloat16 as the model passes it, or in
+    float32; the state in, where there is one, in bfloat16): y in
+    bfloat16 within the float32 bound on the widened inputs plus its
+    rounding, the final state in float32 within its bound."""
+    B, S, H, P, G, N, chunk, with_init = case
+    (x, dt, A, Bm, Cm), init = _k4_inputs(B, S, H, P, G, N, cuda, seed=2)
+    bf = torch.bfloat16
+    x, Bm, Cm = x.to(bf), Bm.to(bf), Cm.to(bf)
+    dt = dt.to(getattr(torch, dt_dtype))
+    init = init.to(bf) if with_init else None
+    before = SSD.LAUNCHES
+    y, state = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=init)
+    torch.cuda.synchronize()
+    assert SSD.LAUNCHES == before + 1
+    assert y.dtype == bf and state.dtype == torch.float32
+    wide = [t.float() for t in (x, dt, A, Bm, Cm)]
+    init_w = None if init is None else init.float()
+    want_y, want_state = SSD.ssd_scan_ref(
+        *[t.double() for t in wide], chunk=chunk,
+        init_state=None if init_w is None else init_w.double())
+    tol_y, tol_state = SSD.error_bound(*wide, chunk=chunk, init_state=init_w,
+                                       ref_y=want_y)
+    assert bool(((y.double() - want_y).abs() <= tol_y).all())
+    assert float((state.double() - want_state).abs().max()) <= tol_state
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_other_dtypes_by_name(cuda):
+    """float16, which the reference's kernels take, is refused by name,
+    and so is a mix the model path never passes."""
+    (x, dt, A, Bm, Cm), _ = _k4_inputs(1, 16, 2, 8, 1, 8, cuda)
+    h = torch.float16
+    before = SSD.LAUNCHES
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        SSD.ssd_scan(x.to(h), dt.to(h), A, Bm.to(h), Cm.to(h))
+    with pytest.raises(TypeError, match="Bm"):
+        SSD.ssd_scan(x.bfloat16(), dt, A, Bm, Cm.bfloat16())
+    with pytest.raises(TypeError, match="A in"):
+        SSD.ssd_scan(x, dt, A.bfloat16(), Bm, Cm)
+    with pytest.raises(TypeError, match="dt in"):
+        SSD.ssd_scan(x, dt.bfloat16(), A, Bm, Cm)
+    assert SSD.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "mamba2-370m"))
+def test_models_at_default_options_on_card_match_cpu(cuda, arch):
+    """The reduced models at the default RunOptions (bfloat16 compute)
+    through K3 / K4 on the card, against the port's CPU run (the plain
+    versions), within ``bf16_logit_tolerance``; then a prefill and two
+    decode steps."""
+    model = Model(get(arch).reduced(), RunOptions())
+    assert model.opts.compute_dtype == "bfloat16"
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in params.items()}
+    tokens = torch.randint(0, 256, (3, 40), generator=torch.Generator()
+                           .manual_seed(1))
+    kernel = FA if model.cfg.family == "dense" else SSD
+    before = kernel.LAUNCHES
+    got = model.forward_logits(on_card, {"tokens": tokens.to(cuda)})
+    assert kernel.LAUNCHES == before + model.cfg.n_layers
+    assert got.dtype == torch.bfloat16
+    want = model.forward_logits(params, {"tokens": tokens}).float()
+    tol = bf16_logit_tolerance(model.cfg.n_layers, float(want.abs().max()))
+    assert float((got.float().cpu() - want).abs().max()) <= tol
+    nxt, cache = model.prefill(on_card, {"tokens": tokens.to(cuda)},
+                               cache_len=48)
+    assert kernel.LAUNCHES == before + 2 * model.cfg.n_layers
+    for _ in range(2):
+        nxt, cache = model.decode_step(on_card, cache, nxt)
+    assert nxt.shape == (3,)
+    assert bool(((nxt >= 0) & (nxt < model.cfg.vocab)).all())
+
+
+# ------------------------------------------- K1 on delta blocks ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo", (1, 2, 3, 4 * 100 + 1))
+@pytest.mark.parametrize("n", (0, 1, 3, 4093))
+def test_k1_on_offset_slices(cuda, lo, n):
+    """The standing fold's delta blocks: every column sliced [lo:lo+n],
+    the (n, 9) ``out`` column included, with lo % 4 in {1, 2, 3} (bases
+    off 16 bytes, a head of scalar rows) and n from 0 (the identities:
+    zeros, -inf / +inf for max / min) to 4,093."""
+    store = _store(cuda, n=5000, seed=lo + n)
+    cols = {k: v[lo:lo + n] for k, v in store.columns.items()}
+    _, fvals = Q.normalize((Filter("quality", "ge", 0.3),))
+    for agg in AGGS:
+        for value, keys in (("buffer_s", (("category", 4, 0),)),
+                            ("out", (("t", 267, 150), ("category", 4, 0)))):
+            if value == "out" and agg in ("max", "min"):
+                continue
+            spec = K.FusedAggSpec((("quality", "ge", 0),), keys, value, agg)
+            before = K.LAUNCHES
+            _k1_vs_plain(cols, n, fvals, spec)
+            assert K.LAUNCHES == before + 1
+            if n == 0:
+                part = K.fused_segment_agg(cols, 0, fvals, spec)
+                assert float(part["cnt"].abs().sum()) == 0.0
+                assert bool((part["acc"] == K.identity(agg)).all())
+
+
+@pytest.mark.cuda
+def test_standing_answers_on_card_match_query(cuda):
+    """Standing queries folded by K1 on the card (a backfill, then
+    ingests of 1, 4,093, 0 and 4,906 rows) against ``store.query`` over
+    the same rows: masks and counts equal, max and min exact, sums and
+    means within 1e-5 relative (every summed column here is
+    non-negative, so that is 1e-5 of each group's sum of magnitudes);
+    one K1 call per (query, batch), and no query path taken."""
+    store = _store(cuda, n=20_000, seed=5)
+    reg = StandingQueries(store)
+    plans = [
+        (Filter("quality", "ge", 0.3),
+         GroupBy("category", "quality", agg="mean", num_groups=4)),
+        (GroupBy("stream_id", "buffer_s", agg="max", num_groups=16),),
+        (GroupBy("category", "on_core_s", agg="min", num_groups=4),
+         TopK(2, by="on_core_s")),
+        (MultiGroupBy(keys=("t", "category"), value="out", agg="sum",
+                      nums=(300, 4), windows=(150, 0)),),
+        (WindowAgg(window=1000, value="cloud_core_s", agg="sum",
+                   num_windows=41),),
+    ]
+    ST.FOLDS.update(kernel=0, engine=0)
+    Q.PATHS.update(kernel=0, engine=0)
+    before = K.LAUNCHES
+    handles = [reg.register(p) for p in plans]
+    sid = reg.subscribe(plans[0], Filter("quality", "gt", 0.62))
+    extra = _store(cuda, n=9_000, seed=6).host_rows()
+    batches = ((0, 1), (1, 4094), (4094, 4094), (4094, 9000))
+    for a, b in batches:
+        store.append_rows({k: v[a:b] for k, v in extra.items()})
+    n_q = len(plans) + 1
+    assert ST.FOLDS == {"kernel": n_q * (1 + len(batches)), "engine": 0}
+    assert K.LAUNCHES - before == ST.FOLDS["kernel"]
+    assert Q.PATHS == {"kernel": 0, "engine": 0}
+    for h, plan in zip(handles, plans):
+        table, mask = reg.answer(h)
+        want, wmask = store.query(plan, use_kernel=False)
+        assert torch.equal(mask.cpu(), wmask.cpu()), plan
+        assert torch.equal(table["count"].cpu(), want["count"].cpu())
+        node = next(nd for nd in plan if not isinstance(nd, (Filter, TopK)))
+        exact = node.agg in ("max", "min")
+        _close(table[node.value], want[node.value], exact)
+    (alert,) = reg.poll()
+    assert alert.sub == sid and alert.fired.shape == (4,)
+    assert store.obs["alerts_checked"] == 1

@@ -1,7 +1,9 @@
 """Rules the port keeps, checked without a card where possible:
 
-- no file under ``src/repro_torch/`` and no line of ``chip_smoke.py``
-  imports JAX or anything of the reference package ``repro``;
+- no file under ``src/repro_torch/`` and no line of ``chip_smoke.py`` or
+  of the chip scripts (``scripts/chip_ablate.py``,
+  ``scripts/chip_compare.py``) imports JAX or anything of the reference
+  package ``repro``;
 - importing the port builds nothing (no compiler runs at import);
 - every entry point defaults to CUDA and raises when there is none;
 - ``chip_smoke.py`` fails, and prints no result, without a card;
@@ -50,8 +52,9 @@ def _forbidden(name: str) -> bool:
 
 
 def test_port_imports_no_jax_and_no_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                           ROOT / "scripts" / "chip_ablate.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "chip_ablate.py",
+        ROOT / "scripts" / "chip_compare.py"]
     assert len(files) > 15
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if _forbidden(m)]

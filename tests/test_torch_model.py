@@ -10,7 +10,8 @@ and the k/v caches, padded to a longer ``cache_len``) and 4
 its attention (q_chunk = kv_chunk = 16 below a 40-token prompt); the
 port's CPU path is one masked softmax. Tolerance: 2e-5 absolute on
 logits and caches (float32 matmuls and softmax sums in other orders);
-tokens exactly.
+tokens exactly. At the default RunOptions (bfloat16 compute) the logits
+are held to ``models.options.bf16_logit_tolerance``.
 """
 import jax
 import jax.numpy as jnp
@@ -25,7 +26,7 @@ from repro_torch.configs.base import get
 from repro_torch.convert import params_from_arrays
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
-from repro_torch.models.options import RunOptions
+from repro_torch.models.options import RunOptions, bf16_logit_tolerance
 
 OPTS = dict(remat="none", layer_loop="scan", compute_dtype="float32",
             q_chunk=16, kv_chunk=16)
@@ -160,3 +161,51 @@ def test_corpus_matches_reference():
         np.testing.assert_array_equal(
             SyntheticCorpus(vocab, seed).batch(3, 20, 7),
             RefCorpus(vocab, seed).batch(3, 20, 7))
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+def test_forward_logits_match_at_default_options(seed):
+    """The models' default RunOptions: bfloat16 compute. The port's logits
+    against the reference's within ``bf16_logit_tolerance`` (derived in
+    its docstring from the bfloat16 roundings at each layer boundary and
+    the float32 accumulation inside each layer)."""
+    arch = "qwen1.5-0.5b"
+    ref = RefModel(ref_get(arch).reduced(), RefOptions())
+    port = Model(get(arch).reduced(), RunOptions())
+    assert port.opts.compute_dtype == ref.opts.compute_dtype == "bfloat16"
+    rp = ref.init(jax.random.PRNGKey(0))
+    pp = params_from_arrays(jax.tree.map(np.asarray, rp), device="cpu")
+    tokens = np.random.default_rng(seed).integers(0, 256, (3, 40))
+    want = np.asarray(ref.forward_logits(rp, {"tokens": jnp.asarray(tokens)})
+                      .astype(jnp.float32))
+    got = port.forward_logits(pp, {"tokens": torch.from_numpy(tokens)})
+    assert got.dtype == torch.bfloat16
+    tol = bf16_logit_tolerance(port.cfg.n_layers, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+def test_prefill_and_decode_run_at_default_options():
+    """bfloat16 prefill, then decode steps, on both sides (the decode
+    step's caches and conv windows mix bfloat16 activations with float32
+    state): the port's prefill caches within ``bf16_logit_tolerance``'s
+    ulp rule of the reference's, every decoded token in the vocabulary."""
+    arch = "qwen1.5-0.5b"
+    ref = RefModel(ref_get(arch).reduced(), RefOptions())
+    port = Model(get(arch).reduced(), RunOptions())
+    rp = ref.init(jax.random.PRNGKey(0))
+    pp = params_from_arrays(jax.tree.map(np.asarray, rp), device="cpu")
+    tokens = np.random.default_rng(2).integers(0, 256, (3, 40))
+    _, r_cache = ref.prefill(rp, {"tokens": jnp.asarray(tokens)},
+                             cache_len=48)
+    nxt, cache = port.prefill(pp, {"tokens": torch.from_numpy(tokens)},
+                              cache_len=48)
+    for name, got in cache["layers"].items():
+        want = np.asarray(r_cache["layers"][name].astype(jnp.float32))
+        tol = bf16_logit_tolerance(port.cfg.n_layers,
+                                   float(np.abs(want).max()))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=tol, err_msg=name)
+    for _ in range(2):
+        nxt, cache = port.decode_step(pp, cache, nxt)
+        assert nxt.shape == (3,)
+        assert bool(((nxt >= 0) & (nxt < port.cfg.vocab)).all())

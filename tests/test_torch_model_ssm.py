@@ -19,7 +19,8 @@ matmuls, scans and cumsums in other orders, two layers; the largest
 measured differences are 4e-7 on logits and 1.4e-6 on caches of
 magnitude up to 3.4); 1e-5 on the Transform's qualities
 (mean top-1 probabilities, as ``test_torch_vetl_serving.py``); tokens
-exactly.
+exactly. At the default RunOptions (bfloat16 compute, the default SSD
+chunk) the logits are held to ``models.options.bf16_logit_tolerance``.
 """
 import dataclasses
 
@@ -35,7 +36,7 @@ from repro.models.options import RunOptions as RefOptions
 from repro_torch.configs.base import get
 from repro_torch.convert import params_from_arrays
 from repro_torch.models.model import Model
-from repro_torch.models.options import RunOptions
+from repro_torch.models.options import RunOptions, bf16_logit_tolerance
 
 ARCH = "mamba2-370m"
 OPTS = dict(remat="none", layer_loop="scan", compute_dtype="float32",
@@ -216,3 +217,48 @@ def test_backbone_vetl_with_the_ssm_backbone():
                               {"model_size": name})
         assert 0.0 < got <= 1.0
         assert abs(got - want) <= 1e-5, name
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+def test_forward_logits_match_at_default_options(seed):
+    """The models' default RunOptions: bfloat16 compute, so K4's plain
+    version gets bfloat16 x, dt, B and C and float32 A. The port's logits
+    against the reference's within ``bf16_logit_tolerance``."""
+    ref = RefModel(ref_get(ARCH).reduced(), RefOptions())
+    port = Model(get(ARCH).reduced(), RunOptions())
+    assert port.opts.compute_dtype == ref.opts.compute_dtype == "bfloat16"
+    rp = ref.init(jax.random.PRNGKey(0))
+    pp = params_from_arrays(jax.tree.map(np.asarray, rp), device="cpu")
+    tokens = np.random.default_rng(seed).integers(0, 256, (3, 40))
+    want = np.asarray(ref.forward_logits(rp, {"tokens": jnp.asarray(tokens)})
+                      .astype(jnp.float32))
+    got = port.forward_logits(pp, {"tokens": torch.from_numpy(tokens)})
+    assert got.dtype == torch.bfloat16
+    tol = bf16_logit_tolerance(port.cfg.n_layers, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+def test_prefill_and_decode_run_at_default_options():
+    """bfloat16 prefill, then decode steps, on both sides (the decode
+    step's caches and conv windows mix bfloat16 activations with float32
+    state): the port's prefill caches within ``bf16_logit_tolerance``'s
+    ulp rule of the reference's, every decoded token in the vocabulary."""
+    ref = RefModel(ref_get(ARCH).reduced(), RefOptions())
+    port = Model(get(ARCH).reduced(), RunOptions())
+    rp = ref.init(jax.random.PRNGKey(0))
+    pp = params_from_arrays(jax.tree.map(np.asarray, rp), device="cpu")
+    tokens = np.random.default_rng(2).integers(0, 256, (3, 40))
+    _, r_cache = ref.prefill(rp, {"tokens": jnp.asarray(tokens)},
+                             cache_len=48)
+    nxt, cache = port.prefill(pp, {"tokens": torch.from_numpy(tokens)},
+                              cache_len=48)
+    for name, got in cache["layers"].items():
+        want = np.asarray(r_cache["layers"][name].astype(jnp.float32))
+        tol = bf16_logit_tolerance(port.cfg.n_layers,
+                                   float(np.abs(want).max()))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=tol, err_msg=name)
+    for _ in range(2):
+        nxt, cache = port.decode_step(pp, cache, nxt)
+        assert nxt.shape == (3,)
+        assert bool(((nxt >= 0) & (nxt < port.cfg.vocab)).all())
