@@ -30,10 +30,12 @@ script fails before it prints a result.
 5. kernel_k3  K3 against its plain version within
               ``kernels.flash_attention.error_bound``: causal and not,
               windows 32 to 256, G < H, ragged Sq and Skv, head dims 8
-              to 128 (a D = 128 ragged window), and a stress case with
-              |q|, |k| up to 8; then bfloat16 q, k, v (the serve
-              prefill, GQA, a window, D = 128, 8 and 12), the output in
-              bfloat16 against the plain version on the widened inputs.
+              to 128 (a D = 128 ragged window), hymba-1.5b's prefill
+              (B=4, S=2048, 25 heads over 5 kv heads, D=64) with its
+              window of 1,024 and causal, and a stress case with |q|, |k|
+              up to 8; then bfloat16 q, k, v (the serve prefills, GQA, a
+              window, D = 128, 8 and 12), the output in bfloat16 against
+              the plain version on the widened inputs.
 5b. kernel_k4 K4 (five passes) against its plain version run in
               float64 within ``kernels.ssd.error_bound``, and each pass
               against its own plain version within the bound
@@ -41,13 +43,14 @@ script fails before it prints a result.
               G > 1, S past and short of a multiple of the chunk, S below
               the chunk, chunks 8 to 256, P 8 to 64, N 16 and 128, with
               and without ``init_state``, and the mamba2-370m serve
-              prefill (B=4, S=2048, H=32, P=64, G=1, N=128, Q=256); y and
+              prefill (B=4, S=2048, H=32, P=64, G=1, N=128, Q=256) and
+              hymba-1.5b's (B=4, S=2048, H=25, P=64, G=1, N=16, Q=256); y and
               the final state, the largest error printed as a share of
               its bound. Inputs drawn as the model draws them:
               dt = softplus(dt_bias + z) with dt_bias from the ``dt_bias``
               init range, A = -exp(A_log) from the ``ssm_a`` range. Then
               bfloat16 x, B and C (dt in bfloat16 as the model passes it,
-              or float32; a bfloat16 state in): the serve prefill, a
+              or float32; a bfloat16 state in): both serve prefills, a
               state in, S % Q != 0, G > 1, Q 16, and P 12, N 20; y in
               bfloat16, the state in float32.
 6. main       the single-stream main path at full size, with the launch
@@ -66,9 +69,14 @@ script fails before it prints a result.
               call per query and ingest, counted apart from the
               queries'); after the fill one more plan (on-prem seconds
               per knob configuration) backfills over all 11,059,200
-              rows.
+              rows. The fused run carries the flight recorder
+              (``telemetry=True``); the store's counters are printed.
 7. check      the run against the port's own CPU run (k and c traces
-              exact, floats to 1e-5), each query's result against the
+              exact, floats to 1e-5); its seven flight-recorder counters
+              and their window snapshots against the CPU run's and
+              ``obs.telemetry_ref`` of its own rows, bit for bit; the
+              store's counters (rows, ingests, lag, standing queries and
+              refreshes); each query's result against the
               engine path's masks, and K1's wrapper against its plain
               version and a float64 host oracle at each query's shape.
 7b. standing  every standing answer against ``store.query`` and its
@@ -106,6 +114,19 @@ script fails before it prints a result.
               launch once per layer and prefill; then one batch's logits
               against the same model with K4's plain version on the card;
               then the bfloat16 prefill and check as for qwen.
+9c. serve_hybrid  the same serving path for the hybrid family, counts
+              set to 0 just before it: ``Model(get("hymba-1.5b"))`` at
+              the published config (32 layers, d_model 1600, 25 heads
+              over 5 kv heads of 64, window 1,024 with layers 0, 15 and
+              31 global, an SSM branch of 25 heads of 64 with d_state 16;
+              d_ff 5,504, vocab 32,001) in float32, random weights from
+              seed 0. K3 and K4 must launch once per layer and prefill,
+              K3 with the window in 29 layers of 32; then one batch's
+              logits against the same model with both plain versions on
+              the card, that prefill's time, and the bfloat16 prefill,
+              decode and check as for qwen. Prints the phase's wall
+              time, the prompt draw, each prefill and the decode steps,
+              and peak memory.
 10. time      CUDA-event medians of device time (the card spins while
               the host enqueues each timed call): K1, its plain version
               and one ``index_add_``/``scatter_reduce_`` call per
@@ -124,7 +145,11 @@ script fails before it prints a result.
               arithmetic and its bound; FP32) and its plain version (no
               PyTorch call computes the SSD scan), each of its five
               passes alone and the bytes of its scratch, and in bfloat16
-              beside the dense bf16 bound. The library calls are
+              beside the dense bf16 bound; then K3 at hymba-1.5b's
+              prefill with its window and in its global layers (SDPA
+              given the same band as a boolean mask, with
+              ``enable_gqa``) and K4 at its prefill, in float32 and
+              bfloat16, each beside its bounds. The library calls are
               yardsticks the port never calls.
 
 Tolerances. K1: counts, max, min and integer-valued sums are exact.
@@ -157,7 +182,8 @@ qualities: 1e-5 against the CPU run. Serve: logits within 1e-3 of the
 plain-attention model (3xTF32 attention summed in another order moves
 each layer by about 1e-6 relative, as float32 did; 24 layers and the
 head leave that far below 1e-3), and at least 99% of next tokens equal; the same limits
-for mamba2-370m against the plain-SSD model. bfloat16: K3 and K4 within
+for mamba2-370m against the plain-SSD model and for hymba-1.5b against
+the model with both plain versions. The flight recorder: bit for bit. bfloat16: K3 and K4 within
 their bound on the widened inputs plus the rounding of the output to
 bfloat16, half an ulp (2^-8) of the value; the bfloat16 logits within
 ``models.options.bf16_logit_tolerance``, (L + 2) bfloat16 ulps (2^-7)
@@ -199,6 +225,8 @@ SERVE = dict(requests=8, batch=4, prompt_len=2048, gen=8)
 ATTN_TIME = (4, 2048, 16, 64)       # B, S, H = G, D of the serve prefill
 ATTN_SMALL = (30, 16, 4, 8)         # the Transform's calls (model small)
 SSD_TIME = (4, 2048, 32, 64, 1, 128, 256)   # B, S, H, P, G, N, Q: mamba2
+HYMBA_ATTN = (4, 2048, 25, 5, 64, 1024)     # B, S, H, G, D, window: hymba
+HYMBA_SSD = (4, 2048, 25, 64, 1, 16, 256)   # B, S, H, P, G, N, Q: hymba
 SPIN_CYCLES = 40_000_000            # ~20 ms of the card's clock per timing
 WINDOW = 150                        # segments in a 5-minute window
 ALERT_CLOUD_S = 13_500.0            # 90% of a camera-day's cloud budget
@@ -624,13 +652,18 @@ def _k3_cases():
     yield 8, 16, 16, 4, 4, 16, True, None
     yield 2, 1, 9, 4, 4, 64, False, None              # one query
     yield 1, 300, 333, 4, 2, 128, True, 100           # D = 128, ragged window
+    yield 4, 2048, 2048, 25, 5, 64, True, 1024        # hymba-1.5b, window
+    yield 4, 2048, 2048, 25, 5, 64, True, None        # hymba-1.5b, global
 
 
 K3_STRESS = (1, 256, 256, 4, 2, 64, True, None)     # |q|, |k| up to 8
 # bfloat16 q, k, v (the models' default compute dtype): the serve prefill,
-# GQA, windows, D = 128, the Transform's D = 8, D = 12 (no 16-byte loads)
+# hymba-1.5b's windowed and global prefill, GQA, windows, D = 128, the
+# Transform's D = 8, D = 12 (no 16-byte loads)
 K3_BF16_CASES = (
     (2, 2048, 2048, 16, 16, 64, True, None),
+    (4, 2048, 2048, 25, 5, 64, True, 1024),
+    (4, 2048, 2048, 25, 5, 64, True, None),
     (2, 300, 300, 8, 2, 64, True, None),
     (1, 500, 500, 8, 4, 64, True, 32),
     (3, 130, 130, 4, 1, 128, True, None),
@@ -699,6 +732,7 @@ def phase_kernel_k3(dev):
 def _k4_cases():
     """(B, S, H, P, G, N, chunk, init_state)."""
     yield SSD_TIME + (False,)                        # serve prefill
+    yield HYMBA_SSD + (False,)                       # hymba-1.5b's prefill
     yield 2, 2048, 32, 64, 1, 128, 256, True         # with a state in
     yield 2, 1000, 8, 64, 1, 128, 256, False         # S % Q != 0
     yield 2, 100, 8, 64, 2, 128, 256, True           # S < Q, G > 1
@@ -710,10 +744,11 @@ def _k4_cases():
 
 def _k4_bf16_cases():
     """(B, S, H, P, G, N, chunk, init_state, dt dtype) with bfloat16 x, B
-    and C (and state in): the serve prefill as the model passes it (dt in
-    bfloat16), a state in, S % Q != 0 with dt in float32, G > 1, Q 16, and
+    and C (and state in): the serve prefills of mamba2-370m and
+    hymba-1.5b as the model passes them (dt in bfloat16), a state in, S % Q != 0 with dt in float32, G > 1, Q 16, and
     P = 12, N = 20 (no 16-byte loads)."""
     yield SSD_TIME + (False, "bfloat16")
+    yield HYMBA_SSD + (False, "bfloat16")
     yield 2, 2048, 32, 64, 1, 128, 256, True, "bfloat16"
     yield 2, 1000, 8, 64, 1, 128, 256, False, "float32"
     yield 2, 100, 8, 64, 2, 128, 256, True, "bfloat16"
@@ -914,7 +949,7 @@ def phase_main(dev):
     sid = reg.subscribe(sub_plan, predicate, name="cloud_spend")
     kw = dict(n_cores=8, cloud_budget_core_s=15_000.0)
     res, run_s = timed(lambda: run_skyscraper_fused(
-        fitted, stream, sink=store, device=dev, **kw))
+        fitted, stream, sink=store, telemetry=True, device=dev, **kw))
     day = {k: v[:T].clone() for k, v in store.columns.items()}
     _, fill_s = timed(lambda: fill(store, day))
     late, backfill_s = timed(lambda: reg.register(late_plan, name="late"))
@@ -933,6 +968,8 @@ def phase_main(dev):
          query_launches=query_launches, fold_launches=fold_launches,
          paths=paths, standing_folds=folds, modes=modes, peak_mem_bytes=peak,
          quality_pct=res.quality_pct, cloud_core_s=res.cloud_core_s,
+         telemetry=res.telemetry.summary(),
+         store_telemetry=store.telemetry().summary(),
          run_alerts=[a.n_fired for a in res.alerts],
          forecast_val_mse=fitted.forecast_metrics["val_mse"])
     if launches == 0:
@@ -976,7 +1013,8 @@ def phase_check(m):
     # --- the card's run against the port's own CPU run ------------------
     res = m["res"]
     cpu, cpu_s = timed(lambda: run_skyscraper_fused(
-        m["fitted"].to("cpu"), m["stream"], device="cpu", **m["kw"]))
+        m["fitted"].to("cpu"), m["stream"], telemetry=True, device="cpu",
+        **m["kw"]))
     if not (np.array_equal(res.k_trace, cpu.k_trace)
             and np.array_equal(res.c_trace, cpu.c_trace)):
         raise AssertionError(
@@ -1034,9 +1072,47 @@ def phase_check(m):
             np.testing.assert_allclose(
                 np.sort(table["quality"].double().cpu().numpy()), worst5,
                 rtol=FLOAT_TOL)
+    tel = check_telemetry(m, res, cpu)
     emit("check", cpu_run_s=cpu_s, run_max_abs_err=run_err,
-         traces_equal=True, queries=errs)
+         traces_equal=True, telemetry=tel, queries=errs)
     return errs
+
+
+def check_telemetry(m, res, cpu):
+    """The card run's flight-recorder counters against ``telemetry_ref``
+    of its own traces (camera 0's rows in the store: k, buffer, on-prem
+    and cloud seconds; no segment dropped) and against the CPU run's,
+    bit for bit, the window snapshots included; and the store's
+    counters."""
+    from repro_torch.obs import TEL_KEYS, telemetry_ref
+    tel, day, T = res.telemetry, m["day"], m["stream"].n_segments
+    if tel.dropped != 0.0 or tel.segments != T:
+        raise AssertionError(f"telemetry: {tel.summary()}")
+    replay = telemetry_ref(
+        {"k": day["k"].cpu().numpy(), "dropped": np.zeros(T, np.float32),
+         "buffer_s": day["buffer_s"].cpu().numpy(),
+         "on_s": day["on_core_s"].cpu().numpy(),
+         "cl_s": day["cloud_core_s"].cpu().numpy()},
+        int(np.argmax(m["fitted"].power)))
+    for key in TEL_KEYS:
+        if not (np.array_equal(tel.counters[key], replay[key])
+                and np.array_equal(tel.per_window[key],
+                                   cpu.telemetry.per_window[key])):
+            raise AssertionError(f"telemetry {key}: card "
+                                 f"{tel.counters[key]}, replay "
+                                 f"{replay[key]}, CPU "
+                                 f"{cpu.telemetry.counters[key]}")
+    stel = m["store"].telemetry()
+    want = dict(n_rows=CAMERAS * T, ingest_dispatches=CAMERAS,
+                lag_max_ticks=T - 1, standing_queries=len(
+                    m["standing_plans"]),
+                standing_refreshes=CAMERAS)
+    got = {k: getattr(stel, k) for k in want}
+    if got != want:
+        raise AssertionError(f"store telemetry {got}, expected {want}")
+    return {"counters": {k: float(v) for k, v in tel.counters.items()},
+            "windows": len(tel.per_window["seg_total"]),
+            "bit_exact_vs_replay_and_cpu": True, "store": stel.summary()}
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -1270,6 +1346,20 @@ class plain_ssd:
         S.ssd_scan = self._kernel
 
 
+class plain_hybrid:
+    """Both swaps at once: the hybrid's attention and SSD branches on
+    their plain versions (the serve_hybrid check's comparison)."""
+
+    def __enter__(self):
+        self._parts = (plain_attention(), plain_ssd())
+        for part in self._parts:
+            part.__enter__()
+
+    def __exit__(self, *exc):
+        for part in reversed(self._parts):
+            part.__exit__(*exc)
+
+
 def first_batch(corpus, params):
     """The serve loop's first batch of prompts, on the params' device."""
     return torch.as_tensor(corpus.batch(SERVE["batch"], SERVE["prompt_len"],
@@ -1297,10 +1387,27 @@ def serve_check(cfg, model, params, toks, plain):
     return err, scale, agree
 
 
-def serve_bf16(cfg, params, toks, plain, kernel):
+def _counts(kernels):
+    """The launches of each of ``kernels`` ({name: wrapper module}), K3's
+    windowed ones also apart."""
+    out = {name: k.LAUNCHES for name, k in kernels.items()}
+    if "flash_attention" in kernels:
+        out["flash_attention_window"] = kernels[
+            "flash_attention"].WINDOW_LAUNCHES
+    return out
+
+
+def _zero(kernels):
+    for k in kernels.values():
+        k.LAUNCHES = 0
+        if hasattr(k, "WINDOW_LAUNCHES"):
+            k.WINDOW_LAUNCHES = 0
+
+
+def serve_bf16(cfg, params, toks, plain, kernels, want):
     """The same model at the default RunOptions (bfloat16 compute): one
-    warm prefill of the prompts ``toks``, counted (``kernel``'s launches
-    set to 0 just before it) and timed, then decode steps from its cache
+    warm prefill of the prompts ``toks``, counted (the ``kernels``'
+    launches set to 0 just before it, held to ``want``) and timed, then decode steps from its cache
     (tokens in the vocabulary), then the prefill with the plain version
     (``plain``); the logits against the plain-version model's, on the
     card in bfloat16, within ``bf16_logit_tolerance``."""
@@ -1326,10 +1433,10 @@ def serve_bf16(cfg, params, toks, plain, kernel):
 
     with torch.no_grad():
         prefill()
-        kernel.LAUNCHES = 0
+        _zero(kernels)
         caches = []
         nxt, prefill_s = timed(lambda: prefill(caches))
-        launches = kernel.LAUNCHES
+        launches = _counts(kernels)
         gen, decode_s = timed(lambda: decode(nxt.to(toks.device),
                                              caches.pop()))
         with plain():
@@ -1346,7 +1453,7 @@ def serve_bf16(cfg, params, toks, plain, kernel):
     del logits, ref
     tol = bf16_logit_tolerance(cfg.n_layers, scale)
     in_vocab = bool(((gen >= 0) & (gen < cfg.vocab)).all())
-    if launches != cfg.n_layers or not finite or not err <= tol \
+    if launches != want or not finite or not err <= tol \
             or not in_vocab or gen.shape != (len(toks), SERVE["gen"]):
         raise AssertionError(f"{cfg.name} bfloat16: launches={launches} "
                              f"finite={finite} err={err} tol={tol} "
@@ -1371,19 +1478,27 @@ def _check_outputs(cfg, stats):
 
 
 def serve_split(model, params, toks, stats):
-    """The serve time's parts: drawing prompts on the host (the card idle)
-    and one warm prefill of the prompts ``toks`` alone, ending in a host
-    read of its tokens."""
+    """The serve time's parts: drawing prompts on the host (the card idle),
+    one warm prefill of the prompts ``toks`` alone, ending in a host read
+    of its tokens, and the decode steps from its cache."""
     with torch.no_grad():
-        _, prefill_s = timed(lambda: model.prefill(
+        (nxt, cache), prefill_s = timed(lambda: model.prefill(
             params, {"tokens": toks},
-            cache_len=SERVE["prompt_len"] + SERVE["gen"])[0].cpu())
-    return {"draw_s": stats["draw_seconds"], "prefill_s": prefill_s}
+            cache_len=SERVE["prompt_len"] + SERVE["gen"]))
+
+        def decode():
+            n, c = nxt, cache
+            for _ in range(SERVE["gen"] - 1):
+                n, c = model.decode_step(params, c, n)
+            return n.cpu()
+        _, decode_s = timed(decode)
+    return {"draw_s": stats["draw_seconds"], "prefill_s": prefill_s,
+            "decode_s": decode_s, "decode_steps": SERVE["gen"] - 1}
 
 
 def _n_params(params) -> int:
-    return sum(v.numel() for v in [params["embed"], params["final_ln"],
-                                   *params["layers"].values()])
+    return sum(v.numel() for k, v in params.items() if k != "layers") + \
+        sum(v.numel() for v in params["layers"].values())
 
 
 def phase_serve(dev):
@@ -1416,7 +1531,10 @@ def phase_serve(dev):
     split = serve_split(model, params, toks, stats)
     err, scale, agree = serve_check(cfg, model, params, toks,
                                     plain_attention)
-    bf16 = serve_bf16(cfg, params, toks, plain_attention, FA)
+    bf16 = serve_bf16(cfg, params, toks, plain_attention,
+                      {"flash_attention": FA},
+                      {"flash_attention": cfg.n_layers,
+                       "flash_attention_window": 0})
     emit("serve", layers=cfg.n_layers, d_model=cfg.d_model,
          vocab=cfg.vocab, params=_n_params(params),
          init_s=init_s, seconds=stats["seconds"], tokens=stats["tokens"],
@@ -1425,7 +1543,8 @@ def phase_serve(dev):
          generated_first=out[0].tolist(),
          logits_max_abs_err=err, logits_max_abs=scale,
          next_token_agreement=agree, **bf16)
-    return dict(launches=launches + bf16["launches_bf16"], err=err)
+    return dict(launches=launches + bf16["launches_bf16"]["flash_attention"],
+                err=err)
 
 
 def phase_serve_ssm(dev):
@@ -1458,7 +1577,8 @@ def phase_serve_ssm(dev):
     toks = first_batch(corpus, params)
     split = serve_split(model, params, toks, stats)
     err, scale, agree = serve_check(cfg, model, params, toks, plain_ssd)
-    bf16 = serve_bf16(cfg, params, toks, plain_ssd, SSD)
+    bf16 = serve_bf16(cfg, params, toks, plain_ssd, {"ssd_scan": SSD},
+                      {"ssd_scan": cfg.n_layers})
     emit("serve_ssm", layers=cfg.n_layers, d_model=cfg.d_model,
          d_inner=cfg.d_inner, heads=cfg.ssm_heads, d_state=cfg.ssm.d_state,
          vocab=cfg.vocab, params=_n_params(params), init_s=init_s,
@@ -1468,7 +1588,80 @@ def phase_serve_ssm(dev):
          generated_first=out[0].tolist(),
          logits_max_abs_err=err, logits_max_abs=scale,
          next_token_agreement=agree, **bf16)
-    return dict(launches=launches + bf16["launches_bf16"], err=err)
+    return dict(launches=launches + bf16["launches_bf16"]["ssd_scan"],
+                err=err)
+
+
+def phase_serve_hybrid(dev):
+    """The serving path for hymba-1.5b at the published config, counted:
+    K3 and K4 once per layer and prefill, K3 with the window in every
+    layer but the three global ones; then one batch's logits against the
+    same model with both plain versions on the card, the prefill with
+    them, and the bfloat16 prefill and check."""
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions
+    from repro_torch.models.transformer import _layer_window
+
+    t0 = time.perf_counter()
+    cfg = get("hymba-1.5b")
+    model = Model(cfg, RunOptions(remat="none", layer_loop="scan",
+                                  compute_dtype="float32"))
+    params, init_s = timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    corpus = SyntheticCorpus(cfg.vocab, 0)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    kernels = {"flash_attention": FA, "ssd_scan": SSD}
+    _zero(kernels)
+    stats = serve(model, params, corpus, log=lambda line: None, **SERVE)
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    windowed = sum(_layer_window(cfg, li) is not None
+                   for li in range(cfg.n_layers))
+    per_prefill = {"flash_attention": cfg.n_layers,
+                   "flash_attention_window": windowed,
+                   "ssd_scan": cfg.n_layers}
+    batches = -(-SERVE["requests"] // SERVE["batch"])
+    if launches != {k: v * batches for k, v in per_prefill.items()}:
+        raise AssertionError(f"the hymba serve path launched {launches}, "
+                             f"not {per_prefill} per prefill")
+    out = _check_outputs(cfg, stats)
+    toks = first_batch(corpus, params)
+    split = serve_split(model, params, toks, stats)
+    err, scale, agree = serve_check(cfg, model, params, toks, plain_hybrid)
+    with torch.no_grad(), plain_hybrid():
+        def prefill():
+            return model.prefill(params, {"tokens": toks}, cache_len=SERVE[
+                "prompt_len"] + SERVE["gen"])[0].cpu()
+        prefill()
+        _, plain_s = timed(prefill)
+    bf16 = serve_bf16(cfg, params, toks, plain_hybrid, kernels, per_prefill)
+    emit("serve_hybrid", layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, window=cfg.window,
+         global_layers=list(cfg.global_layers), windowed_layers=windowed,
+         ssm_heads=cfg.n_heads * cfg.hd // cfg.ssm.head_dim,
+         d_state=cfg.ssm.d_state, vocab=cfg.vocab, params=_n_params(params),
+         param_count=cfg.param_count(), init_s=init_s,
+         seconds=stats["seconds"], tokens=stats["tokens"],
+         tok_per_s=stats["tokens"] / stats["seconds"], **split,
+         prefill_plain_s=plain_s, launches=launches,
+         launches_per_prefill=per_prefill, mem_at_start_bytes=mem0,
+         peak_mem_bytes=peak, generated_first=out[0].tolist(),
+         logits_max_abs_err=err, logits_max_abs=scale,
+         next_token_agreement=agree, **bf16,
+         phase_s=time.perf_counter() - t0)
+    k3 = launches["flash_attention"] + bf16["launches_bf16"][
+        "flash_attention"]
+    k3_window = launches["flash_attention_window"] + bf16["launches_bf16"][
+        "flash_attention_window"]
+    return dict(k3_window=k3_window, k3_global=k3 - k3_window,
+                k4=launches["ssd_scan"] + bf16["launches_bf16"]["ssd_scan"],
+                err=err)
 
 
 def _library_call(cols, n, spec, fvals):
@@ -1544,33 +1737,44 @@ def phase_time_k2_k3(dev):
     return k2, k3
 
 
-def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32):
-    """K3, its plain version and SDPA at (B, S, H = G, D), causal, beside
+def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32, *,
+             kv_heads=None, window=None):
+    """K3, its plain version and SDPA at (B, S, H, D) with ``kv_heads``
+    kv heads (H by default), causal, with ``window`` if given, beside
     both bounds: 3xTF32 (three TF32 products per float32 one, on the
     tensor cores: the kernel's arithmetic, and its bound) and the FP32
     CUDA-core bound of a kernel in float32 products. For bfloat16
     operands the bound is the dense bf16 peak's (the least time the card
-    could take for the same function), beside the 3xTF32 one."""
+    could take for the same function), beside the 3xTF32 one. SDPA gets
+    the same band: ``is_causal`` without a window, else the band as a
+    boolean ``attn_mask``, with ``enable_gqa`` for fewer kv heads."""
     B, S, H, D = shape
-    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
-               .to(dtype) for _ in range(3))
+    G = kv_heads or H
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, S, G, D), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    visible = S * (S + 1) // 2                  # causal (q, k) pairs
+    band = FA._visible(S, S, True, window, dev)
+    visible = int(band.sum())                   # (q, k) pairs seen
     flops = 4 * D * visible * B * H             # QK^T and PV, 2 flop a MAC
-    nbytes = 4 * q.numel() * q.element_size()
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     tf32_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
     fp32_ms = flops / FP32_FLOP_PER_S * 1e3
     least_ms = (flops / BF16_FLOP_PER_S * 1e3 if dtype == torch.bfloat16
                 else tf32_ms)
+    sdpa = ({"is_causal": True} if window is None else {"attn_mask": band})
+    if G != H:
+        sdpa["enable_gqa"] = True
     return {"dtype": str(dtype).replace("torch.", ""),
-            "kernel_ms": cuda_ms(lambda: FA.flash_attention(q, k, v), reps),
-            "plain_ms": cuda_ms(lambda: FA.flash_attention_ref(q, k, v),
-                                max(5, reps // 4)),
+            "kernel_ms": cuda_ms(lambda: FA.flash_attention(
+                q, k, v, window=window), reps),
+            "plain_ms": cuda_ms(lambda: FA.flash_attention_ref(
+                q, k, v, window=window), max(5, reps // 4)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), reps),
-            "shape": [B, S, H, H, D], "causal": True, "flops": flops,
-            "bytes": nbytes,
+                qt, kt, vt, **sdpa), reps),
+            "shape": [B, S, H, G, D], "causal": True, "window": window,
+            "flops": flops, "bytes": nbytes,
             "bound_ms": max(least_ms, byte_ms),
             "bound_by": "operations" if least_ms > byte_ms else "bytes",
             "bound_3xtf32_ms": max(tf32_ms, byte_ms),
@@ -1592,21 +1796,48 @@ def ssd_work(B, S, H, P, G, N, Q, width=4):
     return flops, nbytes
 
 
+def _time_ssd(SSD, args, shape, reps=20):
+    """K4 and its plain version at ``shape`` (B, S, H, P, G, N, Q) on
+    ``args`` (x, dt, A, B, C in float32), then on bfloat16 x, dt, B and C
+    as the model passes them at its defaults, CUDA-event medians beside
+    the bounds: float32 at both operation bounds (3xTF32 at the dense
+    TF32 peak, the kernels' arithmetic and their bound; FP32 CUDA cores)
+    and the byte bound; bfloat16 at the dense bf16 peak (the least time
+    for the same function) and its bytes."""
+    B, S, H, P, G, N, Q = shape
+    flops, nbytes = ssd_work(B, S, H, P, G, N, Q)
+    tf32_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    fp32_ms = flops / FP32_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"kernel_ms": cuda_ms(lambda: SSD.ssd_scan(*args, chunk=Q), reps),
+           "plain_ms": cuda_ms(lambda: SSD.ssd_scan_ref(*args, chunk=Q), 5),
+           "library_ms": None, "shape": list(shape), "flops": flops,
+           "bytes": nbytes, "bound_ms": max(tf32_ms, byte_ms),
+           "bound_by": "operations" if tf32_ms > byte_ms else "bytes",
+           "bound_3xtf32_ms": max(tf32_ms, byte_ms),
+           "bound_fp32_ms": max(fp32_ms, byte_ms)}
+    bf = [a.to(torch.bfloat16) if i != 2 else a for i, a in enumerate(args)]
+    flops, nbytes = ssd_work(B, S, H, P, G, N, Q, width=2)
+    least_ms = flops / BF16_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out["bf16"] = {
+        "kernel_ms": cuda_ms(lambda: SSD.ssd_scan(*bf, chunk=Q), reps),
+        "plain_ms": cuda_ms(lambda: SSD.ssd_scan_ref(*bf, chunk=Q), 5),
+        "library_ms": None, "bytes": nbytes,
+        "bound_ms": max(least_ms, byte_ms),
+        "bound_by": "operations" if least_ms > byte_ms else "bytes",
+        "bound_3xtf32_ms": out["bound_3xtf32_ms"]}
+    return out
+
+
 def phase_time_k4(dev):
-    """K4 at the mamba2-370m serve prefill: the five passes together and
-    each alone, and the plain version, CUDA-event medians, beside both
-    operation bounds (3xTF32 at the dense TF32 peak, the kernels'
-    arithmetic and their bound; the FP32 CUDA-core bound of a float32
-    kernel) and the byte bound, with the bytes of the scratch."""
+    """K4 at the mamba2-370m serve prefill (``_time_ssd``), and each of
+    its five passes alone, with the bytes of its scratch."""
     from repro_torch.kernels import ssd as SSD
     gen = torch.Generator(device=dev).manual_seed(6)
     B, S, H, P, G, N, Q = SSD_TIME
     *args, _ = ssd_inputs(B, S, H, P, G, N, gen, dev)
     x, Bm = args[0], args[3]
-    flops, nbytes = ssd_work(B, S, H, P, G, N, Q)
-    tf32_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
-    fp32_ms = flops / FP32_FLOP_PER_S * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), device=dev)
     scr = SSD.scratch(x, Bm, Q)
@@ -1614,31 +1845,35 @@ def phase_time_k4(dev):
         SSD.launch(name, *args, None, y, state, scr, Q)
     passes = {name: cuda_ms(lambda: SSD.launch(
         name, *args, None, y, state, scr, Q), 20) for name in SSD.PASSES}
-    k4 = {"kernel_ms": cuda_ms(lambda: SSD.ssd_scan(*args, chunk=Q), 20),
-          "plain_ms": cuda_ms(lambda: SSD.ssd_scan_ref(*args, chunk=Q), 5),
-          "library_ms": None, "shape": list(SSD_TIME), "flops": flops,
-          "bytes": nbytes, "bound_ms": max(tf32_ms, byte_ms),
-          "bound_by": "operations" if tf32_ms > byte_ms else "bytes",
-          "bound_3xtf32_ms": max(tf32_ms, byte_ms),
-          "bound_fp32_ms": max(fp32_ms, byte_ms),
-          "pass_ms": passes,
-          "scratch_bytes": sum(t.numel() * t.element_size()
-                               for t in scr.values())}
-    # bfloat16 x, dt, B and C, as the model passes them at its defaults;
-    # the least time for the same function is at the dense bf16 peak
-    bf = [a.to(torch.bfloat16) if i != 2 else a for i, a in enumerate(args)]
-    flops, nbytes = ssd_work(B, S, H, P, G, N, Q, width=2)
-    least_ms = flops / BF16_FLOP_PER_S * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    k4["bf16"] = {
-        "kernel_ms": cuda_ms(lambda: SSD.ssd_scan(*bf, chunk=Q), 20),
-        "plain_ms": cuda_ms(lambda: SSD.ssd_scan_ref(*bf, chunk=Q), 5),
-        "library_ms": None, "bytes": nbytes,
-        "bound_ms": max(least_ms, byte_ms),
-        "bound_by": "operations" if least_ms > byte_ms else "bytes",
-        "bound_3xtf32_ms": max(tf32_ms, byte_ms)}
+    k4 = _time_ssd(SSD, args, SSD_TIME)
+    k4.update(pass_ms=passes,
+              scratch_bytes=sum(t.numel() * t.element_size()
+                                for t in scr.values()))
     emit("time_k4", ssd_scan=k4)
     return k4
+
+
+def phase_time_hybrid(dev):
+    """K3 with hymba-1.5b's window and in its global layers, and K4, at
+    its serve prefill, in float32 and bfloat16: kernel, plain version
+    and (K3) SDPA given the same band, beside their bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd as SSD
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, S, H, G, D, W = HYMBA_ATTN
+    k3 = {}
+    for name, window in (("window", W), ("global", None)):
+        k3[name] = _time_k3(FA, F, (B, S, H, D), gen, dev, reps=20,
+                            kv_heads=G, window=window)
+        k3[name]["bf16"] = _time_k3(FA, F, (B, S, H, D), gen, dev, reps=20,
+                                    dtype=torch.bfloat16, kv_heads=G,
+                                    window=window)
+    B, S, H, P, G, N, Q = HYMBA_SSD
+    *args, _ = ssd_inputs(B, S, H, P, G, N, gen, dev)
+    k4 = _time_ssd(SSD, args, HYMBA_SSD)
+    emit("time_hybrid", flash_attention=k3, ssd_scan=k4)
+    return k3, k4
 
 
 def main() -> int:
@@ -1652,8 +1887,16 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    run(torch.device("cuda"))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
+
+def run(dev) -> None:
+    """Every phase on ``dev``, then the card's name and power limit and
+    the kernels line."""
     smi = phase_device()
     phase_build()
     k1_err = phase_kernel(dev)
@@ -1667,9 +1910,11 @@ def main() -> int:
     phase_transform_check(t)
     sv = phase_serve(dev)
     ss = phase_serve_ssm(dev)
+    sh = phase_serve_hybrid(dev)
     per = phase_time(m, errs)
     k2, k3 = phase_time_k2_k3(dev)
     k4 = phase_time_k4(dev)
+    h3, h4 = phase_time_hybrid(dev)
     tot = {k: sum(q[k] for q in per.values())
            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
     k1_max = max([k1_err["vs_plain"]]
@@ -1723,11 +1968,31 @@ def main() -> int:
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
+    }] + [{
+        "name": f"flash_attention[hymba-1.5b {kind}]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:67",
+        "launches": sh[f"k3_{kind}"],
+        "max_abs_err": k3_err,
+        "ms": h3[kind]["kernel_ms"],
+        "plain_ms": h3[kind]["plain_ms"],
+        "bound_ms": h3[kind]["bound_ms"],
+        "bound_by": h3[kind]["bound_by"],
+        "library_ms": h3[kind]["library_ms"],
+    } for kind in ("window", "global")] + [{
+        "name": "ssd_scan[hymba-1.5b]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd.py:63",
+        "launches": sh["k4"],
+        "max_abs_err": k4_err,
+        "ms": h4["kernel_ms"],
+        "plain_ms": h4["plain_ms"],
+        "bound_ms": h4["bound_ms"],
+        "bound_by": h4["bound_by"],
+        "library_ms": h4["library_ms"],
     }]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ Each architecture module in this package exports ``CONFIG`` with the
 published numbers and registers it; ``get(name)`` looks one up and
 ``reduced()`` gives the tiny same-family config the CPU tests use. Only
 the families the port runs have modules here (qwen1.5-0.5b, dense;
-mamba2-370m, ssm); the others come with their slices (ROADMAP, Queue 1).
+mamba2-370m, ssm; hymba-1.5b, hybrid); the others come with their slices
+(ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -74,6 +75,52 @@ class ArchConfig:
             return 0
         return self.d_inner // self.ssm.head_dim
 
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's analytic count: the projections, the MLP (or
+        the experts and router), the SSM block's projections, conv and
+        per-head vectors, and the embedding and head; norms are left
+        out."""
+        d = self.d_model
+        n = 0
+        if self.family == "ssm":
+            n += self._ssm_layer_params() * self.n_layers
+        elif self.family == "hybrid":
+            n += (self._attn_params() + self._ssm_layer_params(hybrid=True)
+                  + self._mlp_params()) * self.n_layers
+        else:
+            n += (self._attn_params() + self._mlp_params(active_only)) \
+                * self.n_layers
+        if self.n_enc_layers:
+            # encoder layers (attention and MLP), and the decoder's
+            # cross-attention
+            enc = 4 * d * d + self._mlp_params()
+            n += self.n_enc_layers * enc + 4 * d * d * self.n_layers
+        n += self.vocab * d * (1 if self.tie_embeddings else 2)
+        return n
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.hd
+        return (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                + self.n_heads * hd * d)
+
+    def _mlp_params(self, active_only: bool = False) -> int:
+        d = self.d_model
+        dense = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff
+        if self.moe is None:
+            return dense
+        e = self.moe.top_k if active_only else self.moe.n_experts
+        return e * dense + d * self.moe.n_experts
+
+    def _ssm_layer_params(self, hybrid: bool = False) -> int:
+        """One mamba2 block (the hybrid's at di = n_heads * hd; the pure
+        SSM family has no separate MLP)."""
+        d, s = self.d_model, self.ssm
+        di = self.n_heads * self.hd if hybrid else self.d_inner
+        nh = di // s.head_dim
+        in_proj = d * (2 * di + 2 * s.n_groups * s.d_state + nh)
+        conv = s.conv_width * (di + 2 * s.n_groups * s.d_state)
+        return in_proj + di * d + conv + nh
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's
         numbers, so both sides build the same shapes)."""
@@ -112,7 +159,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get(name: str) -> ArchConfig:
     """The registered config ``name``; the architecture modules are
     imported here for their side effect."""
-    from repro_torch.configs import mamba2_370m, qwen1_5_0_5b  # noqa: F401
+    from repro_torch.configs import (hymba_1_5b, mamba2_370m,  # noqa: F401
+                                     qwen1_5_0_5b)
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; the port has "
                        f"{sorted(_REGISTRY)}")

@@ -29,6 +29,7 @@ from repro_torch.core.planner import solve_lp_rationed
 from repro_torch.core.switcher import init_state, window_scan
 from repro_torch.data.stream import Stream
 from repro_torch.device import resolve
+from repro_torch.obs.telemetry import Telemetry, tel_init, window_scan_tel
 
 CLOUD_PREMIUM = 1.8      # App. L
 
@@ -49,6 +50,8 @@ class RunResult:
     k_trace: np.ndarray = None
     buffer_trace: np.ndarray = None
     plans: List = field(default_factory=list)
+    # the flight recorder's counters (``telemetry=True``), else None
+    telemetry: Optional[Telemetry] = None
     # fired standing-query alerts from the sink's registry (one Alert per
     # subscription; empty without a sink or subscriptions)
     alerts: List = field(default_factory=list)
@@ -125,7 +128,8 @@ def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
                          plan_days: Optional[float] = None,
                          forecast_mode: str = "model",
                          seed: int = 0, sink=None, sink_stream_id: int = 0,
-                         sink_t0: int = 0, device=None) -> RunResult:
+                         sink_t0: int = 0, telemetry: bool = False,
+                         device=None) -> RunResult:
     """Run ``stream`` through forecast -> LP -> switcher, one planning
     window at a time, on ``device`` (``None`` means CUDA). Modes:
     ``model`` (the forecaster on the rolling label buffer; uniform until
@@ -134,7 +138,13 @@ def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
 
     ``sink``: an optional ``warehouse.SegmentStore`` on the same device.
     The stacked (n_w, W) traces and the (T, K) measured-quality vectors
-    go to ``sink.ingest_fused`` without leaving the device."""
+    go to ``sink.ingest_fused`` without leaving the device.
+
+    ``telemetry=True`` carries the flight recorder's counters
+    (``obs.telemetry``) through the window loop beside the switcher state
+    and snapshots them at each window boundary; ``RunResult.telemetry``
+    holds them, bit-exact against ``obs.telemetry_ref`` of the run's
+    traces. ``False`` runs exactly the loop it runs without the flag."""
     dev = resolve(device)
     if fitted.device != dev:
         fitted = fitted.to(dev)
@@ -166,8 +176,9 @@ def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
     core_s, budget = f32(n_cores * tau), f32(cloud_budget_core_s)
     premium = f32(CLOUD_PREMIUM)
     state = init_state(tables)
+    tel = tel_init(state) if telemetry else None
     n_seen = 0
-    outs_w, rs, alphas = [], [], []
+    outs_w, rs, alphas, tels = [], [], [], []
     for i in range(n_w):
         w_t = int(wts[i])
         w_tf = f32(float(w_t))
@@ -186,8 +197,14 @@ def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
             cloud_left=budget - state["cloud_spent"], frac=f32(fracs[i]),
             window_len=w_tf, cloud_premium=premium)
         # ---- reactive switching over the window -----------------------
-        state, outs = window_scan(state, quals_w[i], arrs_w[i], valid_w[i],
-                                  alpha, tables)
+        if telemetry:
+            (state, tel), outs = window_scan_tel(state, tel, quals_w[i],
+                                                 arrs_w[i], valid_w[i],
+                                                 alpha, tables)
+            tels.append(tel)
+        else:
+            state, outs = window_scan(state, quals_w[i], arrs_w[i],
+                                      valid_w[i], alpha, tables)
         # ---- roll the W_t real labels into the history buffer ---------
         if forecast_mode == "model":
             buf = torch.cat([buf, outs["c"]])[w_t:w_t + need]
@@ -213,5 +230,8 @@ def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
     alphas = torch.stack(alphas).cpu().numpy()
     res = _assemble_result(cat, _max_quality(stream, fitted.power), K,
                            [(rs[i], alphas[i]) for i in range(n_w)])
+    if telemetry:
+        res.telemetry = Telemetry.from_device(
+            {k: torch.stack([t[k] for t in tels]) for k in tels[0]})
     res.alerts = alerts
     return res

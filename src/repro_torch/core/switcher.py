@@ -143,15 +143,20 @@ def _masked_switch(state, qual_row, arrival, valid, alpha,
     return new_state, out
 
 
-def window_scan(state, quals, arrivals, valid, alpha, tables: SwitchTables):
+def window_scan(state, quals, arrivals, valid, alpha, tables: SwitchTables,
+                step=None):
     """The masked switch over one planning window, as a loop: quals
     (W,K), arrivals (W,), valid (W,) bool. Returns (final state, outs)
-    with (W,) output leaves — the reference's ``lax.scan`` ys."""
+    with (W,) output leaves — the reference's ``lax.scan`` ys. ``step``
+    (default ``_masked_switch``) is the loop's body, with the same
+    arguments and the carry first: ``obs.telemetry.masked_switch_tel``
+    carries (state, counters)."""
+    step = step or _masked_switch
     outs = {k: [] for k in ("k", "p", "c", "qual", "on_s", "cl_s",
                             "buffer_s", "rt", "dropped")}
     for i in range(quals.shape[0]):
-        state, out = _masked_switch(state, quals[i], arrivals[i], valid[i],
-                                    alpha, tables)
+        state, out = step(state, quals[i], arrivals[i], valid[i], alpha,
+                          tables)
         for k, v in out.items():
             outs[k].append(v)
     return state, {k: torch.stack(v) for k, v in outs.items()}

@@ -8,7 +8,8 @@ Hopper kernel ``csrc/flash_attention.cu`` (built with nvcc at first use,
 bound through ctypes) or raises; it never falls back. On a CPU tensor it
 runs the plain version ``flash_attention_ref``, the reference's
 ``ref.flash_attention_ref`` written in PyTorch: one masked softmax over
-the whole score matrix. ``LAUNCHES`` counts kernel launches.
+the whole score matrix. ``LAUNCHES`` counts kernel launches, and
+``WINDOW_LAUNCHES`` those of them with a sliding window.
 
 The kernel takes q, k and v all in float32 or all in bfloat16 (the
 models' default compute dtype; the reference's kernel takes any float
@@ -35,6 +36,7 @@ from typing import Optional
 import torch
 
 LAUNCHES = 0
+WINDOW_LAUNCHES = 0
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)      # the kernel's operand dtypes
@@ -234,7 +236,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """q (B,Sq,H,D); k, v (B,Skv,G,D), all float32 or all bfloat16.
     Returns (B,Sq,H,D) in q's dtype."""
-    global LAUNCHES
+    global LAUNCHES, WINDOW_LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -250,4 +252,5 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     LAUNCHES += 1
+    WINDOW_LAUNCHES += window is not None
     return out

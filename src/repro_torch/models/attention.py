@@ -8,15 +8,18 @@ port of ``repro/models/attention.py``.
 - ``decode_attend``: one query step against a (possibly ring-buffer) kv
   cache with per-slot absolute positions, plain PyTorch (the reference
   has no kernel for it).
-- ``attend``: the reference's dispatch. Its sliding-window branches run
-  ``banded_mha``, which comes with the first ported model that has a
-  window (ROADMAP, Queue 1); until then they raise.
+- ``banded_mha``: causal sliding-window prefill. On a CUDA tensor it is
+  K3 with its window; on the CPU the reference's banded form, each query
+  chunk against its gathered kv band ``[qs - W, qs + qc)``.
+- ``attend``: the reference's dispatch, the banded path for a causal
+  window and ``mha`` otherwise.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
                                                  masked_attention)
@@ -88,12 +91,66 @@ def decode_attend(q, k_cache, v_cache, slot_pos, cur_pos, *,
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
+def _gqa_scores(qg, kc):
+    """qg (B,qc,G,R,D) x kc (B,kc,G,D) -> (B,G,R,qc,kc) in float32."""
+    return torch.einsum("bqgrd,bsgd->bgrqs", qg.float(), kc.float())
+
+
+def banded_mha(q, k, v, *, window: int, q_chunk: int = 512,
+               scale: Optional[float] = None):
+    """Causal sliding-window attention: query i sees keys (i - window,
+    i]. q (B,Sq,H,D); k, v (B,Skv,G,D). Off the CPU it is K3 with
+    ``window`` (the kernel skips the kv tiles outside the band and picks
+    its own tiles; the scale must be D^-0.5). On the CPU, the reference's
+    form: each query chunk [qs, qs + qc) attends to the kv band
+    [qs - window, qs + qc) of kv left-padded by ``window`` and right-padded
+    to whole chunks, masked to the causal window and the real keys."""
+    B, Sq, H, D = q.shape
+    _, Skv, G, _ = k.shape
+    R = H // G
+    if q.device.type != "cpu":          # K3 or its wrapper's error
+        if scale is not None and scale != D ** -0.5:
+            raise ValueError(f"the attention kernel takes the scale D^-0.5, "
+                             f"not {scale}")
+        return flash_attention(q, k, v, causal=True, window=window)
+    scale = scale or D ** -0.5
+    q_chunk = min(q_chunk, Sq)
+    nq = -(-Sq // q_chunk)
+    pad_q = nq * q_chunk - Sq
+    q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    band = window + q_chunk
+    kp = F.pad(k, (0, 0, 0, 0, window, pad_q))
+    vp = F.pad(v, (0, 0, 0, 0, window, pad_q))
+    qr = (q * scale).reshape(B, nq, q_chunk, G, R, D)
+    outs = []
+    for qi in range(nq):
+        qs = qi * q_chunk
+        s = _gqa_scores(qr[:, qi], kp[:, qs:qs + band])  # (B,G,R,qc,band)
+        q_pos = qs + torch.arange(q_chunk, device=q.device)
+        k_pos = qs - window + torch.arange(band, device=q.device)
+        mask = ((k_pos[None, :] <= q_pos[:, None])
+                & (k_pos[None, :] > q_pos[:, None] - window)
+                & (k_pos[None, :] >= 0) & (k_pos[None, :] < Skv))
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        v_blk = vp[:, qs:qs + band]
+        o = torch.einsum("bgrqs,bsgd->bgrqd", p.to(v_blk.dtype).float(),
+                         v_blk.float())
+        outs.append(o.permute(0, 3, 1, 2, 4))            # (B,qc,G,R,D)
+    out = torch.stack(outs, 1).reshape(B, nq * q_chunk, H, D)
+    return out[:, :Sq].to(q.dtype)
+
+
 def attend(q, k, v, *, causal: bool, window: Optional[int],
            q_offset: int = 0, q_chunk: int = 512, kv_chunk: int = 1024):
-    """Dispatch: the banded path when a window is set, else ``mha``."""
+    """Dispatch, as the reference's: the banded path for a causal window
+    (chunks of at most the window past 2W queries, else at most Sq),
+    ``mha`` otherwise."""
+    Sq = q.shape[1]
+    if window is not None and causal and Sq > 2 * window:
+        return banded_mha(q, k, v, window=window,
+                          q_chunk=min(q_chunk, window))
     if window is not None and causal:
-        raise NotImplementedError(
-            "sliding-window attention (banded_mha) is not ported yet; it "
-            "comes with the first windowed model (ROADMAP, Queue 1)")
+        return banded_mha(q, k, v, window=window, q_chunk=min(q_chunk, Sq))
     return mha(q, k, v, causal=causal, q_offset=q_offset, q_chunk=q_chunk,
                kv_chunk=kv_chunk)

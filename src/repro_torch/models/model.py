@@ -126,19 +126,26 @@ class Model:
         return seq_len
 
     def cache_meta(self, batch: int, seq_len: int) -> Dict[str, Any]:
-        cfg = self.cfg
+        cfg, cdt = self.cfg, self.opts.compute_dtype
+        L = cfg.n_layers
         pos = PM((), "zeros", "int32")
-        if cfg.family == "ssm":
-            s, cdt, L = cfg.ssm, self.opts.compute_dtype, cfg.n_layers
-            di, GN, cw = cfg.d_inner, s.n_groups * s.d_state, s.conv_width - 1
-            return {"layers": {
-                "ssm": PM((L, batch, cfg.ssm_heads, s.head_dim, s.d_state),
-                          "zeros", "float32"),
+        Sc = self.cache_len(seq_len)
+
+        def ssm_pm(di):
+            s = cfg.ssm
+            GN, cw = s.n_groups * s.d_state, s.conv_width - 1
+            return {
+                "ssm": PM((L, batch, di // s.head_dim, s.head_dim,
+                           s.d_state), "zeros", "float32"),
                 "conv_x": PM((L, batch, cw, di), "zeros", cdt),
                 "conv_b": PM((L, batch, cw, GN), "zeros", cdt),
-                "conv_c": PM((L, batch, cw, GN), "zeros", cdt)},
-                "pos": pos}
-        kv = PM((cfg.n_layers, batch, self.cache_len(seq_len),
-                 cfg.n_kv_heads, cfg.hd), "zeros", self.opts.compute_dtype)
-        return {"layers": {"k": kv, "v": kv}, "pos": pos,
-                "slot_pos": PM((self.cache_len(seq_len),), "zeros", "int32")}
+                "conv_c": PM((L, batch, cw, GN), "zeros", cdt)}
+
+        if cfg.family == "ssm":
+            return {"layers": ssm_pm(cfg.d_inner), "pos": pos}
+        kv = PM((L, batch, Sc, cfg.n_kv_heads, cfg.hd), "zeros", cdt)
+        layers = {"k": kv, "v": kv}
+        if cfg.family == "hybrid":
+            layers.update(ssm_pm(cfg.n_heads * cfg.hd))
+        return {"layers": layers, "pos": pos,
+                "slot_pos": PM((Sc,), "zeros", "int32")}

@@ -1,12 +1,15 @@
 """Decoder stack: the port of ``repro/models/transformer.py`` for the
-dense (and vlm) family and the SSM family (mamba2) — prefill / forward
-and decode.
+dense (and vlm) family, the SSM family (mamba2) and the hybrid family
+(hymba: attention and mamba heads in parallel in every layer) — prefill
+/ forward and decode.
 
 Parameters are a plain dict with the reference's layout: ``embed`` (Vp,
 d), ``final_ln``, optional ``head``, and ``layers`` whose leaves are
 stacked on a leading L axis. The reference's ``lax.scan`` over layers is
-a Python loop over that axis. MoE, hybrid and encoder-decoder models
-raise until their slices come (ROADMAP, Queue 1).
+a Python loop over that axis, which gives each layer its own window, so
+the reference's grouped scan of same-window layers (``_layer_groups``)
+has no counterpart here. MoE and encoder-decoder models raise until
+their slices come (ROADMAP, Queue 1).
 
 Decode updates the cache in place instead of returning a copy: the kv
 cache (``index_copy_`` at the step's slot; 24 layers at 2,056 positions
@@ -29,7 +32,7 @@ from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
                                        padded_vocab, rms_norm)
 from repro_torch.models.options import RunOptions
 
-PORTED_FAMILIES = ("dense", "vlm", "ssm")
+PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -86,16 +89,21 @@ def mlp_meta(cfg: ArchConfig) -> Dict[str, PM]:
     return m
 
 
-def ssm_meta(cfg: ArchConfig) -> Dict[str, PM]:
+def ssm_meta(cfg: ArchConfig, di: Optional[int] = None,
+             own_norm: bool = True) -> Dict[str, PM]:
     """The mamba2 block: projections kept unfused (wx, wz, wb, wc
     separate, one causal conv per tensor), as the reference lays them
-    out. (The reference's ``di`` and ``own_norm`` serve the hybrid
-    family, which is not ported.)"""
+    out. ``di`` is the inner width (``cfg.d_inner`` by default; the
+    hybrid's SSM branch takes n_heads * hd), with di / head_dim SSM heads.
+    ``own_norm=False`` (the hybrid) drops the block's ``ln1`` and
+    ``wout``: the layer around it norms the input and projects the
+    output."""
     s = cfg.ssm
-    d, di, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    d = cfg.d_model
+    di = di or cfg.d_inner
+    H = di // s.head_dim
     GN = s.n_groups * s.d_state
-    return {
-        "ln1": PM((d,), "ones"),
+    m = {
         "wx": PM((d, di)),
         "wz": PM((d, di)),
         "wb": PM((d, GN)),
@@ -111,14 +119,24 @@ def ssm_meta(cfg: ArchConfig) -> Dict[str, PM]:
         "conv_wc": PM((s.conv_width, GN)),
         "conv_bc": PM((GN,), "zeros"),
         "gln": PM((di,), "ones"),
-        "wout": PM((di, d)),
     }
+    if own_norm:
+        m["ln1"] = PM((d,), "ones")
+        m["wout"] = PM((di, d))
+    return m
 
 
 def layer_meta(cfg: ArchConfig) -> Dict[str, PM]:
     check_family(cfg)
     if cfg.family == "ssm":
         return ssm_meta(cfg)
+    if cfg.family == "hybrid":
+        di = cfg.n_heads * cfg.hd
+        m = {**attn_meta(cfg), **mlp_meta(cfg),
+             **ssm_meta(cfg, di=di, own_norm=False)}
+        m["norm_attn"] = PM((di,), "ones")
+        m["norm_ssm"] = PM((di,), "ones")
+        return m
     return {**attn_meta(cfg), **mlp_meta(cfg)}
 
 
@@ -153,26 +171,35 @@ def _qkv(p, xn, cfg: ArchConfig):
             v.reshape(B, S, G, hd))
 
 
-def attn_apply(p, x, cfg: ArchConfig, opts: RunOptions, *,
-               window: Optional[int], pos_offset: int = 0,
-               return_kv: bool = False):
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+def _attention(p, xn, cfg: ArchConfig, opts: RunOptions, *,
+               window: Optional[int], pos_offset: int = 0):
+    """The attention of the normed input xn (B,S,d), before ``wo``:
+    (o (B,S,H*hd), k, v) with RoPE applied to q and k."""
     q, k, v = _qkv(p, xn, cfg)
-    B, S = x.shape[:2]
-    positions = pos_offset + torch.arange(S, device=x.device)
+    B, S = xn.shape[:2]
+    positions = pos_offset + torch.arange(S, device=xn.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = attend(q, k, v, causal=True, window=window,
                q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
-    out = x + o.reshape(B, S, -1) @ p["wo"]
+    return o.reshape(B, S, -1), k, v
+
+
+def attn_apply(p, x, cfg: ArchConfig, opts: RunOptions, *,
+               window: Optional[int], pos_offset: int = 0,
+               return_kv: bool = False):
+    o, k, v = _attention(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg, opts,
+                         window=window, pos_offset=pos_offset)
+    out = x + o @ p["wo"]
     return (out, (k, v)) if return_kv else out
 
 
-def attn_decode(p, x, cfg: ArchConfig, *, window, kc, vc, slot_pos, cur_pos):
-    """x (B,1,d); kc, vc (B,Sc,G,hd), written in place at slot
+def _attention_step(p, xn, cfg: ArchConfig, *, window, kc, vc, slot_pos,
+                    cur_pos):
+    """One decode step's attention of the normed input xn (B,1,d), before
+    ``wo``: (B,1,H*hd). kc, vc (B,Sc,G,hd) are written in place at slot
     ``cur_pos % Sc``; slot_pos (Sc,); cur_pos () integer tensor."""
-    B = x.shape[0]
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    B = xn.shape[0]
     q, k, v = _qkv(p, xn, cfg)
     pos = cur_pos.reshape(1)
     q = apply_rope(q, pos, cfg.rope_theta)
@@ -182,7 +209,14 @@ def attn_decode(p, x, cfg: ArchConfig, *, window, kc, vc, slot_pos, cur_pos):
     vc.index_copy_(1, slot, v.to(vc.dtype))
     o = decode_attend(q, kc, vc, slot_pos[None, :], cur_pos.expand(B),
                       window=window)
-    return x + o.reshape(B, 1, -1) @ p["wo"]
+    return o.reshape(B, 1, -1)
+
+
+def attn_decode(p, x, cfg: ArchConfig, *, window, kc, vc, slot_pos, cur_pos):
+    """x (B,1,d); the caches as in ``_attention_step``."""
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    return x + _attention_step(p, xn, cfg, window=window, kc=kc, vc=vc,
+                               slot_pos=slot_pos, cur_pos=cur_pos) @ p["wo"]
 
 
 def _ssm_pre(p, xn):
@@ -192,16 +226,19 @@ def _ssm_pre(p, xn):
             xn @ p["wdt"])
 
 
-def ssm_apply(p, x, cfg: ArchConfig, opts: RunOptions, *,
-              return_state: bool = False):
-    """Mamba2 block over the full sequence. x (B,S,d). Returns (y, the
-    decode cache or None): with ``return_state`` the final SSM state and
-    the last cw-1 positions of each conv input."""
+def ssm_apply(p, x, cfg: ArchConfig, opts: RunOptions, *, di: int,
+              own_norm: bool = True, return_state: bool = False):
+    """Mamba2 block over the full sequence. x (B,S,d); ``di`` the inner
+    width, with di / head_dim heads. Returns (y, the decode cache or
+    None): with ``return_state`` the final SSM state and the last cw-1
+    positions of each conv input. ``own_norm=False`` (the hybrid's SSM
+    branch): x is already normed, and y is the gated, normed (B,S,di)
+    branch output, without ``wout`` or the residual."""
     s = cfg.ssm
     B, S, _ = x.shape
-    di, H, P = cfg.d_inner, cfg.ssm_heads, s.head_dim
+    H, P = di // s.head_dim, s.head_dim
     G, N = s.n_groups, s.d_state
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps) if own_norm else x
     x_raw, z, b, c, dtr = _ssm_pre(p, xn)
     x_in = F.silu(ssd.causal_conv(x_raw, p["conv_wx"], p["conv_bx"]))
     b_c = F.silu(ssd.causal_conv(b, p["conv_wb"], p["conv_bb"]))
@@ -219,18 +256,21 @@ def ssm_apply(p, x, cfg: ArchConfig, opts: RunOptions, *,
         cw = s.conv_width
         cache = {"ssm": state, "conv_x": x_raw[:, -(cw - 1):],
                  "conv_b": b[:, -(cw - 1):], "conv_c": c[:, -(cw - 1):]}
-    return x + y @ p["wout"], cache
+    if own_norm:
+        y = x + y @ p["wout"]
+    return y, cache
 
 
-def ssm_decode(p, x, cfg: ArchConfig, cache_l):
+def ssm_decode(p, x, cfg: ArchConfig, cache_l, *, di: int,
+               own_norm: bool = True):
     """One step. x (B,1,d); cache_l holds this layer's ssm (B,H,P,N)
     float32, conv_x (B,cw-1,di), conv_b and conv_c (B,cw-1,GN), all
-    updated in place."""
+    updated in place. ``di`` and ``own_norm`` as in ``ssm_apply``."""
     s = cfg.ssm
     B = x.shape[0]
-    di, H, P = cfg.d_inner, cfg.ssm_heads, s.head_dim
+    H, P = di // s.head_dim, s.head_dim
     G, N = s.n_groups, s.d_state
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps) if own_norm else x
     x_raw, z, b, c, dtr = _ssm_pre(p, xn[:, 0])
     outs = []
     for name, inp, w, bias in (("conv_x", x_raw, "conv_wx", "conv_bx"),
@@ -250,7 +290,47 @@ def ssm_decode(p, x, cfg: ArchConfig, cache_l):
     y = y + p["Dskip"][None, :, None] * xh
     y = rms_norm(y.reshape(B, 1, di) * F.silu(z[:, None]), p["gln"],
                  cfg.norm_eps)
-    return x + y @ p["wout"]
+    return x + y @ p["wout"] if own_norm else y
+
+
+def _combine(p, o_attn, y_ssm, cfg: ArchConfig):
+    """The hybrid's mix: each branch through its own RMSNorm, averaged,
+    then the output projection."""
+    comb = 0.5 * (rms_norm(o_attn, p["norm_attn"], cfg.norm_eps)
+                  + rms_norm(y_ssm, p["norm_ssm"], cfg.norm_eps))
+    return comb @ p["wo"]
+
+
+def hybrid_parallel(p, x, cfg: ArchConfig, opts: RunOptions, *,
+                    window: Optional[int], pos_offset: int = 0,
+                    return_cache: bool = False):
+    """Hymba: attention and mamba heads in parallel on the same normed
+    input, their outputs normed and averaged, then the FFN. Returns (x,
+    the layer's cache {k, v, ssm, conv_x, conv_b, conv_c} or None, aux)."""
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    o_attn, k, v = _attention(p, xn, cfg, opts, window=window,
+                              pos_offset=pos_offset)
+    y_ssm, ssm_cache = ssm_apply(p, xn, cfg, opts, di=cfg.n_heads * cfg.hd,
+                                 own_norm=False, return_state=return_cache)
+    x = x + _combine(p, o_attn, y_ssm, cfg)
+    x, aux = _ffn(p, x, cfg, opts)
+    cache = {"k": k, "v": v, **ssm_cache} if return_cache else None
+    return x, cache, aux
+
+
+def hybrid_decode(p, x, cfg: ArchConfig, opts: RunOptions, *, window,
+                  cache_l, slot_pos, cur_pos):
+    """One hybrid step. x (B,1,d); cache_l holds this layer's k, v (written
+    at slot ``cur_pos % Sc``), ssm and conv caches, all updated in place."""
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    o_attn = _attention_step(p, xn, cfg, window=window, kc=cache_l["k"],
+                             vc=cache_l["v"], slot_pos=slot_pos,
+                             cur_pos=cur_pos)
+    y_ssm = ssm_decode(p, xn, cfg, cache_l, di=cfg.n_heads * cfg.hd,
+                       own_norm=False)
+    x = x + _combine(p, o_attn, y_ssm, cfg)
+    x, _ = _ffn(p, x, cfg, opts)
+    return x
 
 
 def _ffn(p, x, cfg: ArchConfig, opts: RunOptions):
@@ -278,8 +358,12 @@ def _layer(params, li: int) -> Dict[str, torch.Tensor]:
 
 def _block_fwd(lp, x, cfg, opts, *, window, return_cache):
     if cfg.family == "ssm":
-        y, c = ssm_apply(lp, x, cfg, opts, return_state=return_cache)
+        y, c = ssm_apply(lp, x, cfg, opts, di=cfg.d_inner,
+                         return_state=return_cache)
         return y, c, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        return hybrid_parallel(lp, x, cfg, opts, window=window,
+                               return_cache=return_cache)
     if return_cache:
         y, (k, v) = attn_apply(lp, x, cfg, opts, window=window,
                                return_kv=True)
@@ -317,11 +401,17 @@ def run_stack_decode(params, cache, x, cfg: ArchConfig, opts: RunOptions, *,
     layers = cache["layers"]
     for li in range(cfg.n_layers):
         lp = _layer(params, li)
+        cache_l = {k: v[li] for k, v in layers.items()}
         if cfg.family == "ssm":
-            x = ssm_decode(lp, x, cfg, {k: v[li] for k, v in layers.items()})
+            x = ssm_decode(lp, x, cfg, cache_l, di=cfg.d_inner)
+            continue
+        if cfg.family == "hybrid":
+            x = hybrid_decode(lp, x, cfg, opts, window=_layer_window(cfg, li),
+                              cache_l=cache_l, slot_pos=slot_pos,
+                              cur_pos=cur_pos)
             continue
         x = attn_decode(lp, x, cfg, window=_layer_window(cfg, li),
-                        kc=layers["k"][li], vc=layers["v"][li],
+                        kc=cache_l["k"], vc=cache_l["v"],
                         slot_pos=slot_pos, cur_pos=cur_pos)
         x, _ = _ffn(lp, x, cfg, opts)
     return x, layers
@@ -361,9 +451,11 @@ def lm_forward(params, cfg: ArchConfig, opts: RunOptions, tokens,
 def lm_prefill(params, cfg: ArchConfig, opts: RunOptions, tokens,
                embeds=None, cache_len: Optional[int] = None):
     """Returns (last-position argmax token (B,) int32, cache). A
-    ``cache_len`` past the prompt reserves decode head-room (empty slots
-    at position -1); the SSM family's cache has no positions, so it
-    ignores ``cache_len`` and has no ``slot_pos``."""
+    ``cache_len`` past the prompt reserves decode head-room in ``k`` and
+    ``v`` (empty slots at position -1), as the reference's ``pad_kv``:
+    the hybrid's SSM state and conv caches keep their shapes. The SSM
+    family's cache has no positions, so it ignores ``cache_len`` and has
+    no ``slot_pos``."""
     logits, layer_cache, _ = lm_forward(params, cfg, opts, tokens, embeds,
                                         return_cache=True)
     S_total = logits.shape[1]
@@ -376,7 +468,8 @@ def lm_prefill(params, cfg: ArchConfig, opts: RunOptions, tokens,
     slot_pos = torch.arange(Sc, dtype=torch.int32, device=dev)
     if cache_len is not None and cache_len > Sc:
         pad = cache_len - Sc
-        layer_cache = {k: F.pad(v, (0, 0, 0, 0, 0, pad))
+        layer_cache = {k: (F.pad(v, (0, 0, 0, 0, 0, pad))
+                           if k in ("k", "v") else v)
                        for k, v in layer_cache.items()}
         slot_pos = torch.cat([slot_pos, torch.full((pad,), -1,
                                                    dtype=torch.int32,

@@ -331,6 +331,7 @@ class StandingQueries:
                    tuple(np.asarray(a) for a in fvals), g.q)
         g.add(q)
         self._queries[handle] = q
+        self.host.obs["standing_queries"] = len(self._queries)
         return handle
 
     def subscribe(self, plan, predicate: Filter, *,

@@ -27,7 +27,11 @@ after a block lands, its rows, read back as the slices ``[lo:lo + n]``
 of the store's columns (so as the store holds them, cast to the column
 dtypes), fold into every registered plan's accumulators, as the
 reference's ``_write_and_fold`` folds them in the ingest dispatch.
-``obs`` holds the registry's counters.
+
+``obs`` is the store's flight recorder (``obs.telemetry``): ingest and
+query dispatches, the ingest-to-queryable lag of each batch, and the
+standing registry's counters, all host metadata; ``telemetry()``
+returns them as a ``StoreTelemetry``.
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.obs.telemetry import (StoreTelemetry, store_obs_batch,
+                                       store_obs_init, store_obs_tick)
 from repro_torch.warehouse.standing import _fold_all
 
 SCALAR_COLUMNS = (
@@ -85,10 +91,8 @@ class SegmentStore:
         self.n_rows = 0
         self.t_max = -1
         self.columns = _empty_columns(0, out_dim, self.device)
-        # the counters the standing-query registry updates (the rest of
-        # the reference's StoreTelemetry comes with the telemetry slice)
-        self.obs = {"standing_refreshes": 0, "alerts_checked": 0,
-                    "alerts_fired": 0}
+        # host-side flight-recorder counters (see ``telemetry()``)
+        self.obs = store_obs_init()
         # StandingQueries registry (attached by its constructor)
         self.standing = None
 
@@ -147,6 +151,7 @@ class SegmentStore:
         upd[OUT_COLUMN] = torch.as_tensor(out_vecs)
         self._write(upd)
         self.t_max = max(self.t_max, t0 + T - 1)
+        store_obs_batch(self.obs, 1, T)
         return T
 
     def append_rows(self, rows: Dict) -> int:
@@ -161,6 +166,7 @@ class SegmentStore:
         self._write(upd)
         if n:
             self.t_max = max(self.t_max, int(upd["t"].max()))
+        store_obs_tick(self.obs, n)
         return n
 
     # -- reading -------------------------------------------------------
@@ -168,7 +174,15 @@ class SegmentStore:
         """Run a query plan over the live rows (see ``warehouse.query``;
         ``use_kernel=`` selects the aggregation path)."""
         from repro_torch.warehouse import query as Q
+        self.obs["query_dispatches"] += 1
         return Q.execute(self, plan, **kw)
+
+    def telemetry(self) -> StoreTelemetry:
+        """The store's flight recorder: rows, ingest and query dispatch
+        counts, ingest-to-queryable lag and the standing registry's
+        counters, all from host metadata (no device read)."""
+        return StoreTelemetry(rows_by_shard=np.asarray([self.n_rows]),
+                              **self.obs)
 
     def host_rows(self) -> Dict[str, np.ndarray]:
         """All live rows as host numpy (an explicit full transfer)."""

@@ -128,8 +128,14 @@ def test_attend_dispatch():
     got = PA.attend(*_t(q, k, v), causal=False, window=6).numpy()
     want = np.asarray(RA.attend(*_j(q, k, v), causal=False, window=6))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PA.attend(*_t(q, k, v), causal=True, window=6)
+    # a causal window takes the banded path: chunks of at most the window
+    # past 2W queries (24 > 2 * 6), else of at most Sq
+    for window in (6, 16, 30):
+        got = PA.attend(*_t(q, k, v), causal=True, window=window, q_chunk=8,
+                        kv_chunk=8).numpy()
+        want = np.asarray(RA.attend(*_j(q, k, v), causal=True,
+                                    window=window, q_chunk=8, kv_chunk=8))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 # ------------------------------------------- the kernel's 3xTF32 numbers ----

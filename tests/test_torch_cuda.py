@@ -1,8 +1,9 @@
 """Kernels K1 (``csrc/warehouse_agg.cu``), K2 (``csrc/frame_preproc.cu``),
 K3 (``csrc/flash_attention.cu``) and K4 (``csrc/ssd_scan.cu``) on the
-card against their plain versions on the same CUDA tensors, and the
-reduced qwen and mamba2 models on the card against the same models on
-the CPU. ``cuda``-marked: every test
+card against their plain versions on the same CUDA tensors (hymba-1.5b's
+prefill shapes among them), the reduced qwen, mamba2 and hymba models on
+the card against the same models on the CPU, and a short fused run's
+flight-recorder counters against ``obs.telemetry_ref``. ``cuda``-marked: every test
 skips where no card is visible. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -366,6 +367,11 @@ K3_CASES = (
     (3, 130, 130, 4, 1, 128, True, None),
     (30, 16, 16, 4, 4, 8, True, None),
     (1, 300, 333, 4, 2, 128, True, 100),        # D = 128, ragged window
+    # hymba-1.5b's prefill (B cut to 1): 25 heads over 5 kv heads (R = 5),
+    # its window of 1,024 and its global layers; a ragged S
+    (1, 2048, 2048, 25, 5, 64, True, 1024),
+    (1, 2048, 2048, 25, 5, 64, True, None),
+    (1, 1500, 1500, 25, 5, 64, True, 1024),
 )
 
 
@@ -446,6 +452,8 @@ K4_CASES = (                 # B, S, H, P, G, N, chunk, init_state
     (3, 33, 3, 8, 3, 16, 8, False),          # test_kernels.py's uneven
     (2, 150, 8, 64, 2, 128, 256, True),      # S < chunk, G > 1, full widths
     (2, 61, 4, 16, 2, 32, 8, True),          # ragged last chunk at Q = 8
+    (2, 2048, 25, 64, 1, 16, 256, False),    # hymba-1.5b's prefill, B = 2
+    (1, 1500, 25, 64, 1, 16, 256, True),     # the same, ragged, a state in
 )
 
 
@@ -526,6 +534,39 @@ def test_mamba_on_card_matches_cpu(cuda):
                   - cache["layers"]["ssm"]).abs().max()) <= 1e-4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", (37, 80))
+def test_hybrid_on_card_matches_cpu(cuda, S):
+    """The reduced hymba in float32 (layer 0 global, layer 1 with a window
+    of 32: S = 37 is short of 2W, S = 80 past it): K3 and K4 once per
+    layer, the logits within 1e-4 of the CPU run, then a prefill and two
+    decode steps with the same tokens as on the CPU."""
+    model = Model(get("hymba-1.5b").reduced(),
+                  RunOptions(compute_dtype="float32", ssd_chunk=16))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in params.items()}
+    tokens = torch.randint(0, 256, (3, S), generator=torch.Generator()
+                           .manual_seed(1))
+    before = FA.LAUNCHES, SSD.LAUNCHES
+    got = model.forward_logits(on_card, {"tokens": tokens.to(cuda)})
+    assert (FA.LAUNCHES - before[0], SSD.LAUNCHES - before[1]) == (2, 2)
+    want = model.forward_logits(params, {"tokens": tokens})
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    nxt_c, cache_c = model.prefill(on_card, {"tokens": tokens.to(cuda)},
+                                   cache_len=S + 3)
+    nxt, cache = model.prefill(params, {"tokens": tokens}, cache_len=S + 3)
+    for _ in range(2):
+        assert torch.equal(nxt_c.cpu(), nxt)
+        nxt_c, cache_c = model.decode_step(on_card, cache_c, nxt_c)
+        nxt, cache = model.decode_step(params, cache, nxt)
+    assert torch.equal(nxt_c.cpu(), nxt)
+    for name, leaf in cache["layers"].items():
+        assert float((cache_c["layers"][name].cpu() - leaf).abs().max()) \
+            <= 1e-4, name
+
+
 # ------------------------------------------------------- bfloat16 ----
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", K3_CASES)
@@ -598,12 +639,13 @@ def test_kernels_refuse_other_dtypes_by_name(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "mamba2-370m"))
+@pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "mamba2-370m",
+                                  "hymba-1.5b"))
 def test_models_at_default_options_on_card_match_cpu(cuda, arch):
     """The reduced models at the default RunOptions (bfloat16 compute)
-    through K3 / K4 on the card, against the port's CPU run (the plain
-    versions), within ``bf16_logit_tolerance``; then a prefill and two
-    decode steps."""
+    through K3 / K4 (the hybrid: both, K3 with its window in layer 1) on
+    the card, against the port's CPU run (the plain versions), within
+    ``bf16_logit_tolerance``; then a prefill and two decode steps."""
     model = Model(get(arch).reduced(), RunOptions())
     assert model.opts.compute_dtype == "bfloat16"
     params = model.init(torch.Generator().manual_seed(0), "cpu")
@@ -612,17 +654,20 @@ def test_models_at_default_options_on_card_match_cpu(cuda, arch):
                for k, v in params.items()}
     tokens = torch.randint(0, 256, (3, 40), generator=torch.Generator()
                            .manual_seed(1))
-    kernel = FA if model.cfg.family == "dense" else SSD
-    before = kernel.LAUNCHES
+    kernels = {"dense": (FA,), "ssm": (SSD,),
+               "hybrid": (FA, SSD)}[model.cfg.family]
+    before = [kn.LAUNCHES for kn in kernels]
     got = model.forward_logits(on_card, {"tokens": tokens.to(cuda)})
-    assert kernel.LAUNCHES == before + model.cfg.n_layers
+    assert [kn.LAUNCHES - b for kn, b in zip(kernels, before)] == \
+        [model.cfg.n_layers] * len(kernels)
     assert got.dtype == torch.bfloat16
     want = model.forward_logits(params, {"tokens": tokens}).float()
     tol = bf16_logit_tolerance(model.cfg.n_layers, float(want.abs().max()))
     assert float((got.float().cpu() - want).abs().max()) <= tol
     nxt, cache = model.prefill(on_card, {"tokens": tokens.to(cuda)},
                                cache_len=48)
-    assert kernel.LAUNCHES == before + 2 * model.cfg.n_layers
+    assert [kn.LAUNCHES - b for kn, b in zip(kernels, before)] == \
+        [2 * model.cfg.n_layers] * len(kernels)
     for _ in range(2):
         nxt, cache = model.decode_step(on_card, cache, nxt)
     assert nxt.shape == (3,)
@@ -701,3 +746,41 @@ def test_standing_answers_on_card_match_query(cuda):
     (alert,) = reg.poll()
     assert alert.sub == sid and alert.fired.shape == (4,)
     assert store.obs["alerts_checked"] == 1
+
+
+# ------------------------------------------------------ telemetry ----
+@pytest.mark.cuda
+def test_fused_run_telemetry_on_card(cuda):
+    """A short fused run on the card with the flight recorder: its
+    counters equal ``telemetry_ref`` of its own traces (the store's rows,
+    no drops) and the same run's on the CPU, bit for bit, and its
+    decisions are those of the run without telemetry."""
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.core.ingest import run_skyscraper_fused
+    from repro_torch.core.offline import fit
+    from repro_torch.data.stream import generate
+    from repro_torch.obs import TEL_KEYS, telemetry_ref
+    fitted = fit(COVID, n_cores=8, days_unlabeled=0.5, device=cuda)
+    stream = generate(COVID, days=0.05, seed=7)
+    kw = dict(n_cores=8, cloud_budget_core_s=3000.0, plan_days=0.01)
+    store = SegmentStore(out_dim=len(fitted.configs), device=cuda)
+    res = run_skyscraper_fused(fitted, stream, sink=store, telemetry=True,
+                               device=cuda, **kw)
+    bare = run_skyscraper_fused(fitted, stream, device=cuda, **kw)
+    cpu = run_skyscraper_fused(fitted.to("cpu"), stream, telemetry=True,
+                               device="cpu", **kw)
+    tel, T = res.telemetry, stream.n_segments
+    assert np.array_equal(res.k_trace, bare.k_trace)
+    assert tel.segments == T and tel.dropped == 0.0
+    h = store.host_rows()
+    want = telemetry_ref({"k": h["k"], "dropped": np.zeros(T, np.float32),
+                          "buffer_s": h["buffer_s"], "on_s": h["on_core_s"],
+                          "cl_s": h["cloud_core_s"]},
+                         int(np.argmax(fitted.power)))
+    for key in TEL_KEYS:
+        assert np.array_equal(tel.counters[key], want[key]), key
+        assert np.array_equal(tel.per_window[key],
+                              cpu.telemetry.per_window[key]), key
+    stel = store.telemetry()
+    assert (stel.n_rows, stel.ingest_dispatches, stel.lag_max_ticks) == \
+        (T, 1, T - 1)

@@ -2,14 +2,15 @@
 
 - no file under ``src/repro_torch/`` and no line of ``chip_smoke.py`` or
   of the chip scripts (``scripts/chip_ablate.py``,
-  ``scripts/chip_compare.py``) imports JAX or anything of the reference
-  package ``repro``;
+  ``scripts/chip_compare.py``, ``scripts/chip_profile.py``) imports
+  JAX or anything of the reference package ``repro``;
 - importing the port builds nothing (no compiler runs at import);
 - every entry point defaults to CUDA and raises when there is none;
 - ``chip_smoke.py`` fails, and prints no result, without a card;
 - on the CPU, every kernel wrapper (K1, K2, K3, K4) takes its plain
   version and launches nothing, and the SSM model path (``models/ssd``)
-  runs on it;
+  and the windowed attention path (``models/attention.banded_mha``) run
+  on it;
 - on the card, the K1 wrapper refuses a spec beyond its limits
   (``cuda``-marked: skips here).
 
@@ -54,7 +55,8 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax_and_no_reference():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "chip_ablate.py",
-        ROOT / "scripts" / "chip_compare.py"]
+        ROOT / "scripts" / "chip_compare.py",
+        ROOT / "scripts" / "chip_profile.py"]
     assert len(files) > 15
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if _forbidden(m)]
@@ -195,6 +197,40 @@ def test_ssm_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "mamba2-370m", "--requests", "1",
                     "--prompt-len", "4", "--gen", "2"])
+
+
+def test_hybrid_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs.base import get
+    from repro_torch.core.vetl_serving import BackboneVETL
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(get("hymba-1.5b").reduced()).init(
+            torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BackboneVETL(arch="hymba-1.5b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "hymba-1.5b", "--requests", "1",
+                    "--prompt-len", "4", "--gen", "2"])
+
+
+def test_windowed_attention_on_cpu_takes_the_plain_version():
+    """The banded path on CPU tensors is plain PyTorch (no K3 launch); on
+    a device without a kernel it raises, it never falls back."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as A
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn(1, 20, 4, 8, generator=gen)
+    k = torch.randn(1, 20, 2, 8, generator=gen)
+    v = torch.randn(1, 20, 2, 8, generator=gen)
+    before = FA.LAUNCHES
+    got = A.attend(q, k, v, causal=True, window=6, q_chunk=4)
+    assert FA.LAUNCHES == before
+    want = FA.flash_attention_ref(q, k, v, causal=True, window=6)
+    assert float((got - want).abs().max()) < 1e-5
+    with pytest.raises(ValueError, match="no kernel"):
+        A.banded_mha(q.to("meta"), k.to("meta"), v.to("meta"), window=6)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -163,6 +163,21 @@ def test_corpus_matches_reference():
             RefCorpus(vocab, seed).batch(3, 20, 7))
 
 
+@pytest.mark.parametrize("vocab", (1000, 32001, 151936))
+@pytest.mark.parametrize("seed", (0, 1, 2))
+@pytest.mark.parametrize("step", (0, 1, 7))
+def test_corpus_draw_pinned_to_reference(vocab, seed, step):
+    """The port draws unigram tokens through a CDF built once
+    (``searchsorted`` of uniform draws) where the reference calls
+    ``rng.choice(vocab, p=unigram)`` at every position: the same tokens,
+    which pins numpy's ``Generator.choice`` to that construction."""
+    from repro.data.tokens import SyntheticCorpus as RefCorpus
+    from repro_torch.data.tokens import SyntheticCorpus
+    np.testing.assert_array_equal(
+        SyntheticCorpus(vocab, seed).batch(4, 24, step),
+        RefCorpus(vocab, seed).batch(4, 24, step))
+
+
 @pytest.mark.parametrize("seed", (0, 1))
 def test_forward_logits_match_at_default_options(seed):
     """The models' default RunOptions: bfloat16 compute. The port's logits

@@ -241,8 +241,12 @@ def test_subscription_fires_fixed_shape_and_counts():
     (alert,) = pair.preg.poll()
     _alerts_equal([alert], pair.rreg.poll())
     assert alert.n_fired == 1 and bool(alert.fired[2])
-    assert pair.port.obs == {"standing_refreshes": 2, "alerts_checked": 2,
-                             "alerts_fired": 1}
+    assert {k: pair.port.obs[k] for k in ("standing_refreshes",
+                                          "alerts_checked",
+                                          "alerts_fired")} == \
+        {"standing_refreshes": 2, "alerts_checked": 2, "alerts_fired": 1}
+    # the store's whole flight recorder (ingests, lag, the standing gauge)
+    assert pair.port.obs == pair.ref.obs
     tel = pair.ref.telemetry()
     assert (tel.alerts_checked, tel.alerts_fired,
             tel.standing_refreshes) == (2, 1, 2)
