@@ -151,6 +151,42 @@ script fails before it prints a result.
               ``enable_gqa``) and K4 at its prefill, in float32 and
               bfloat16, each beside its bounds. The library calls are
               yardsticks the port never calls.
+11. multi     the multi-stream path, K1's counts set to 0 just before
+              it: ``run_skyscraper_multi`` over 256 COVID streams of
+              10,800 segments (the main fit, one joint LP of 1,024 rows
+              per 2,160-segment window, the flight recorder on) into a
+              store with a registry (the five main plans and one
+              subscription), so its one ingest folds 2,764,800 rows
+              through K1 once per plan; then the main plans as queries.
+11b. multi_check  the same call on the card machine's CPU: rows and
+              per-stream counters bit for bit, the counters against
+              ``obs.telemetry_ref``; each standing query's folded
+              accumulators and each query's answer against the float64
+              oracle of the store's rows, and each standing answer
+              against ``store.query``'s.
+12. pool      ``SkyscraperPool`` over the transform phase's job fitted
+              again with pinned runtimes (the same configs every run),
+              segments standing for categories: 200 ticks through slot
+              caps 512, 1,024 and 2,048 with churn, then the capacity
+              squeezed to 60% of the demand under the joint plan with 4
+              priority bands; a sink with a shed-watch subscription, so
+              K1 folds each tick's rows.
+12b. pool_check  the script replayed on the CPU: statuses, counters and
+              sink rows bit for bit; the shed-watch's accumulators,
+              answer and alerts against the CPU registry's and the
+              float64 oracle, exactly (a min); then, plans pinned, each
+              stream of a small pool against ``switch_step`` alone.
+13. tiers     the main store in a ``TieredStore``, all but the newest
+              camera-day spilled to int8; the main plans over the
+              two-tier view through K1, against the float64 oracle of
+              the view and within the quantization bound of the
+              unspilled answers; the standing answers unchanged.
+14. time_many K1 at these paths' shapes, each call also held against
+              its plain version and the oracle: the main plans over the
+              multi-stream store and the two-tier view, and the pool's
+              fold of one tick's rows into 2,048 min accumulators (each
+              section's last tick), beside its plain version, the
+              library call and the byte bound.
 
 Tolerances. K1: counts, max, min and integer-valued sums are exact.
 Float sums and means: K1 within 1e-4 of each group's sum of magnitudes
@@ -230,6 +266,14 @@ HYMBA_SSD = (4, 2048, 25, 64, 1, 16, 256)   # B, S, H, P, G, N, Q: hymba
 SPIN_CYCLES = 40_000_000            # ~20 ms of the card's clock per timing
 WINDOW = 150                        # segments in a 5-minute window
 ALERT_CLOUD_S = 13_500.0            # 90% of a camera-day's cloud budget
+MULTI_STREAMS = 256                 # as many camera-days as the main store
+MULTI_DAYS = 0.25                   # 10,800 segments per stream
+MULTI_PLAN_DAYS = 0.05              # 5 planning windows of 2,160
+POOL_BUCKETS = (384, 512, 513, 1100)  # live streams: slot caps 512-2048
+POOL_TICKS = (40, 30, 40, 30, 60)   # per section; the last is the squeeze
+POOL_SQUEEZE = 0.6                  # capacity, of the unconstrained demand
+POOL_BANDS = 4                      # priority bands 1..4
+POOL_PINNED = (24, 30)              # streams, ticks of the oracle check
 
 
 def emit(phase: str, **fields) -> None:
@@ -1286,7 +1330,7 @@ def phase_transform(dev):
     if min(launches.values()) == 0:
         raise AssertionError(f"the Transform path missed a kernel: "
                              f"{launches}")
-    return dict(job=job, trace=trace, launches=launches)
+    return dict(job=job, trace=trace, launches=launches, sky=sky)
 
 
 def _tree_to(tree, dev):
@@ -1876,6 +1920,716 @@ def phase_time_hybrid(dev):
     return k3, k4
 
 
+# ---------------------------------------------------------------------------
+# many streams: the multi-stream run, the serving pool, the cold tier
+# ---------------------------------------------------------------------------
+
+def _k1_counts():
+    from repro_torch.kernels import warehouse_agg as K
+    from repro_torch.warehouse import query as Q
+    from repro_torch.warehouse import standing as ST
+    return K.LAUNCHES, dict(Q.PATHS), dict(ST.FOLDS)
+
+
+def _k1_zero():
+    from repro_torch.kernels import warehouse_agg as K
+    from repro_torch.warehouse import query as Q
+    from repro_torch.warehouse import standing as ST
+    K.LAUNCHES = 0
+    Q.PATHS.update(kernel=0, engine=0)
+    ST.FOLDS.update(kernel=0, engine=0)
+
+
+def _multi_run(fitted, streams, dev, sink):
+    from repro_torch.core.ingest import run_skyscraper_multi
+    return run_skyscraper_multi(
+        [fitted] * len(streams), streams, n_cores_each=8,
+        cloud_budget_core_s=len(streams) * 15_000.0 / 4,
+        plan_days=MULTI_PLAN_DAYS, sink=sink, telemetry=True, device=dev)
+
+
+def phase_multi(dev, m):
+    """The multi-stream path, counted: ``run_skyscraper_multi`` over 256
+    COVID streams of 10,800 segments (the main phase's fit, one joint
+    plan per 2,160-segment window, the flight recorder on) into a store
+    with a standing registry (the main plans and one subscription), so
+    its one ingest folds 2,764,800 rows through K1; then the main plans
+    as queries."""
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.data.stream import generate
+    from repro_torch.warehouse import SegmentStore, StandingQueries
+    streams = [generate(COVID, days=MULTI_DAYS, seed=1000 + v)
+               for v in range(MULTI_STREAMS)]
+    T = min(s.n_segments for s in streams)
+    fitted = m["fitted"]
+    store = SegmentStore(out_dim=len(fitted.configs), device=dev)
+    reg = StandingQueries(store)
+    plans = main_plans((T - 1) // WINDOW + 1)
+    handles = {name: reg.register(plan) for name, plan in plans.items()}
+    sub_plan, predicate, _ = standing_extra(len(fitted.configs))
+    sid = reg.subscribe(sub_plan, predicate, name="cloud_spend")
+    handles["cloud_spend"] = reg._subs[sid].handle
+    plans["cloud_spend"] = sub_plan
+    _k1_zero()
+    torch.cuda.reset_peak_memory_stats()
+    out, run_s = timed(lambda: _multi_run(fitted, streams, dev, store))
+    fold_launches, _, folds = _k1_counts()
+    results = {}
+    for name, plan in main_plans((T - 1) // WINDOW + 1).items():
+        results[name] = store.query(plan)
+    launches, paths, _ = _k1_counts()
+    peak = torch.cuda.max_memory_allocated()
+    pct = np.asarray(out["per_stream_pct"])
+    tel = out["telemetry"]
+    emit("multi", streams=MULTI_STREAMS, segments=T, rows=store.n_rows,
+         windows=-(-T // int(MULTI_PLAN_DAYS * 86400 /
+                             COVID.segment_seconds)),
+         run_s=run_s, s_per_step=run_s / T, launches=launches,
+         fold_launches=fold_launches, query_launches=launches -
+         fold_launches, standing_folds=folds, paths=paths,
+         peak_mem_bytes=peak, quality_pct=out["quality_pct"],
+         per_stream_pct={"min": float(pct.min()), "max": float(pct.max()),
+                         "std": float(pct.std())},
+         telemetry=tel.summary(), store_telemetry=store.telemetry().summary(),
+         alerts=[a.n_fired for a in out.get("alerts", [])])
+    if store.n_rows != MULTI_STREAMS * T:
+        raise AssertionError(f"the multi store holds {store.n_rows} rows")
+    if fold_launches == 0 or folds != {"kernel": len(plans), "engine": 0} \
+            or fold_launches != len(plans):
+        raise AssertionError(f"the multi-stream ingest did not fold once "
+                             f"per registered plan through K1: {folds}, "
+                             f"{fold_launches} launches")
+    if paths != {"kernel": len(results), "engine": 0} \
+            or launches - fold_launches != len(results):
+        raise AssertionError(f"multi-stream queries did not all take K1: "
+                             f"{paths}")
+    return dict(out=out, store=store, reg=reg, handles=handles, plans=plans,
+                streams=streams, T=T, run_s=run_s, launches=launches,
+                results=results, fitted=fitted)
+
+
+def phase_multi_check(mm):
+    """The card's multi-stream run against the same call on the card
+    machine's CPU: every stored row (k, c, buffer, spend, quality) and
+    every per-stream counter bit for bit; the counters against
+    ``obs.telemetry_ref`` of each stream's rows. Then K1 on this path
+    against the float64 oracle of the store's rows: each standing
+    query's accumulators (the ingest's folds), each counted query's
+    answer, and each standing answer against ``store.query``'s.
+    Returns the largest error against the oracle."""
+    from repro_torch.obs import TEL_KEYS, telemetry_ref
+    from repro_torch.warehouse import SegmentStore
+    from repro_torch.warehouse import query as Q
+    store, out, T = mm["store"], mm["out"], mm["T"]
+    V = MULTI_STREAMS
+    cpu_store = SegmentStore(out_dim=store.out_dim, device="cpu")
+    cpu, cpu_s = timed(lambda: _multi_run(mm["fitted"].to("cpu"),
+                                          mm["streams"], "cpu", cpu_store))
+    host, chost = store.host_rows(), cpu_store.host_rows()
+    for k in host:
+        if not np.array_equal(host[k], chost[k]):
+            raise AssertionError(f"multi: column {k} differs from the CPU "
+                                 f"run at {int(np.sum(host[k] != chost[k]))}"
+                                 f" rows")
+    tel, ctel = out["telemetry"], cpu["telemetry"]
+    if tel.dropped != 0.0:
+        raise AssertionError(f"multi: {tel.summary()}")
+    replay = telemetry_ref(
+        {"k": host["k"].reshape(V, T),
+         "dropped": np.zeros((V, T), np.float32),
+         "buffer_s": host["buffer_s"].reshape(V, T),
+         "on_s": host["on_core_s"].reshape(V, T),
+         "cl_s": host["cloud_core_s"].reshape(V, T)},
+        int(np.argmax(mm["fitted"].power)))
+    for key in TEL_KEYS:
+        if not (np.array_equal(tel.counters[key], ctel.counters[key])
+                and np.array_equal(tel.per_window[key], ctel.per_window[key])
+                and np.array_equal(tel.counters[key], replay[key])):
+            raise AssertionError(f"multi telemetry {key} differs")
+    if out["per_stream_pct"] != cpu["per_stream_pct"]:
+        raise AssertionError("multi: per-stream qualities differ")
+    n, cols, reg = store.n_rows, store.columns, mm["reg"]
+    errs = {}
+    for name, plan in mm["plans"].items():
+        spec, _, filters = _spec_of(plan, cols)
+        acc, cnt, scale = oracle(host, n, filters, spec.keys, spec.value,
+                                 spec.agg)
+        _, node, post = Q.split_plan(plan)
+        q = reg._queries[mm["handles"][name]]
+        state = {k: v[q.slot] for k, v in reg._group_of(q).state.items()}
+        e = {"fold_vs_f64": check_partial(
+            f"multi {name}: folded state vs float64", host_partial(state),
+            (acc, cnt), spec.agg, FLOAT_TOL * scale + 1e-6)}
+        if name in mm["results"]:
+            e["query_vs_f64"] = hold_oracle(
+                f"multi {name}: query vs float64", mm["results"][name],
+                node, post, acc, cnt, scale)
+        want = mm["results"].get(name) or store.query(plan)
+        e["standing_vs_query"] = hold_table(
+            f"multi {name}", reg.answer(mm["handles"][name]), want, node,
+            acc, cnt, scale)
+        errs[name] = e
+    emit("multi_check", cpu_run_s=cpu_s, rows_equal=True,
+         telemetry_bit_exact=True, k1_vs_f64=errs)
+    return max(max(e["fold_vs_f64"], e.get("query_vs_f64", 0.0))
+               for e in errs.values())
+
+
+_MODEL_COST = {"small": 1.0, "medium": 2.0, "large": 4.0}
+
+
+def _pinned_runtime(knobs) -> float:
+    """A fixed model of one Transform call's seconds: the frames it
+    keeps, their pixels and the backbone's relative size."""
+    return (1e-3 * _MODEL_COST[knobs["model_size"]]
+            / knobs["sample_every"] / knobs["resolution"] ** 2)
+
+
+def _pinned_fit(job, dev):
+    """The transform phase's fit again (its job, its 40 seeded segments,
+    ``plan_segments=25``), each config's profiled runtime pinned to
+    ``_pinned_runtime``: the port's ``fit`` times ``proc_fn`` on the
+    wall clock, and a clock that advances only by the pinned runtimes
+    makes the Pareto filter keep the same configs in every run."""
+    from unittest import mock
+    from repro_torch.core import api as A
+
+    class Clock:
+        now = 0.0
+
+        def perf_counter(self):
+            return self.now
+
+    clock = Clock()
+
+    def proc(seg, knobs):
+        clock.now += _pinned_runtime(knobs)
+        return job.proc_fn(seg, knobs)
+
+    unlabeled = _segments(FIT_SEGMENTS, 11, dev)
+    with mock.patch.object(A, "time", clock):
+        sky = _skyscraper(dev).fit(unlabeled, proc, plan_segments=25)
+    del unlabeled
+    torch.cuda.empty_cache()
+    return sky
+
+
+def _profile_proc(sky):
+    """The pool's Transform stand-in: a segment is a content category,
+    and the quality of a config on it is the fitted profile's
+    (``sky.centers``), so the host does no Transform work."""
+    index = {tuple(sorted(c.items())): k for k, c in enumerate(sky.configs)}
+    centers = np.asarray(sky.centers, np.float32)
+
+    def proc(seg, knobs):
+        return None, float(centers[seg, index[tuple(sorted(knobs.items()))]])
+    return proc
+
+
+def _sky_on(sky, dev):
+    """The same fitted handle on ``dev`` (its state installed as it is),
+    with the profile's qualities as its Transform."""
+    from repro_torch.core.api import Skyscraper
+    out = Skyscraper(fps=sky.fps, segment_seconds=sky.tau,
+                     n_categories=sky.n_categories, seed=sky.seed,
+                     device=dev)
+    out.set_resources(num_cores=sky.num_cores, buffer_gb=sky.buffer_gb,
+                      cloud_budget_core_s=sky.cloud_budget)
+    out.knobs = dict(sky.knobs)
+    out._install(configs=sky.configs, cost=sky.cost,
+                 power=sky.tables.power.cpu().numpy(), centers=sky.centers,
+                 forecaster=_tree_to(sky.forecaster, dev),
+                 n_split=sky.n_split, interval=sky.interval,
+                 proc_fn=_profile_proc(sky), plan_segments=sky._plan_every)
+    return out
+
+
+def _prio(sid):
+    return float(1 + sid % POOL_BANDS)
+
+
+def pool_script(sky, dev, sink):
+    """The pool's script: 384 streams, 512, then churn to 513 and 1,100
+    live streams (every seventh admission retires the oldest stream),
+    through slot caps 512, 1,024 and 2,048; then the capacity squeezed to
+    60% of the last tick's demand under the joint plan. Each tick's
+    segments are categories drawn per stream from one seeded generator.
+    Returns (log of statuses per tick, pool, per-section seconds and
+    ticks, the squeeze's capacity)."""
+    from repro_torch.core.api import SkyscraperPool
+    C = sky.centers.shape[0]
+    pool = SkyscraperPool(sky, n_streams=POOL_BUCKETS[0], sink=sink,
+                          telemetry=True, device=dev,
+                          priorities=[_prio(v) for v in
+                                      range(POOL_BUCKETS[0])])
+    rng = np.random.default_rng(2024)
+    nxt, admitted = [POOL_BUCKETS[0]], [POOL_BUCKETS[0]]
+    log, sections, capacity = [], [], None
+
+    def grow_to(live):
+        while pool.V < live:
+            pool.admit(nxt[0], priority=_prio(nxt[0]))
+            nxt[0] += 1
+            admitted[0] += 1
+            if admitted[0] % 7 == 0:
+                pool.retire(pool.streams[0])
+
+    def ticks(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            log.append(pool.process(list(rng.integers(0, C, pool.V)))[0])
+        return time.perf_counter() - t0
+
+    for live, n in zip(POOL_BUCKETS, POOL_TICKS):
+        grow_to(live)
+        secs = ticks(n - 1)
+        # the demand of the section's last tick (the squeeze's base)
+        before = pool._tel.counters["onprem_core_s"].astype(np.float64).sum()
+        secs += ticks(1)
+        sections.append({"live": pool.V, "cap": pool.cap, "ticks": n,
+                         "seconds": secs})
+    demand = pool._tel.counters["onprem_core_s"].astype(np.float64).sum() \
+        - before
+    capacity = POOL_SQUEEZE * demand
+    pool.capacity_core_s = capacity
+    pool.joint_plan = True
+    sections.append({"live": pool.V, "cap": pool.cap,
+                     "ticks": POOL_TICKS[-1],
+                     "seconds": ticks(POOL_TICKS[-1])})
+    return log, pool, sections, capacity, admitted[0]
+
+
+def _replan_ms(pool, joint):
+    from repro_torch.core import api as PA
+    sky = pool.sky
+    budget = sky._f32(sky.num_cores * sky.tau)
+    if joint:
+        fn = lambda: PA._pool_replan_stacked(                   # noqa: E731
+            sky.forecaster, pool._bufs, pool._centers, sky.tables.cost,
+            sky._f32(pool.capacity_core_s), True, pool._active,
+            pool._priority, n_split=sky.n_split, interval=sky.interval)
+    else:
+        fn = lambda: PA._pool_replan(                           # noqa: E731
+            sky.forecaster, pool._bufs, pool._centers, sky.tables.cost,
+            budget, True, n_split=sky.n_split, interval=sky.interval)
+    return wall_ms(fn, 5)
+
+
+def phase_pool(dev, t):
+    """The serving pool, counted: ``SkyscraperPool`` over the transform
+    phase's job fitted with pinned runtimes (``_pinned_fit``) through
+    ``pool_script`` (200 ticks) with the flight recorder and a sink
+    store carrying a standing subscription, so every tick folds its rows
+    through K1."""
+    from repro_torch.warehouse import SegmentStore
+    fitted, fit_s = timed(lambda: _pinned_fit(t["job"], dev))
+    sky = _sky_on(fitted, dev)
+    sink = SegmentStore(out_dim=len(sky.configs), device=dev)
+    reg, watch, handle = _shed_watch(sink)
+    _k1_zero()
+    torch.cuda.reset_peak_memory_stats()
+    (log, pool, sections, capacity, admitted), secs = timed(
+        lambda: pool_script(sky, dev, sink))
+    launches, _, folds = _k1_counts()
+    peak = torch.cuda.max_memory_allocated()
+    replan_ms = {"independent": _replan_ms(pool, False),
+                 "joint": _replan_ms(pool, True)}
+    # the squeeze: shed share per band, and no band shed above a kept one
+    squeeze = log[-POOL_TICKS[-1]:]
+    bands = {b: [0, 0] for b in range(1, POOL_BANDS + 1)}
+    for tick in squeeze:
+        shed = [s["stream_id"] for s in tick if s["shed"]]
+        kept = [s["stream_id"] for s in tick if not s["dropped"]]
+        if shed and kept and max(_prio(x) for x in shed) > \
+                min(_prio(x) for x in kept):
+            raise AssertionError("a higher band was shed while a lower "
+                                 "one was kept")
+        for s in tick:
+            bands[int(_prio(s["stream_id"]))][0] += s["shed"]
+            bands[int(_prio(s["stream_id"]))][1] += 1
+    n_ticks = len(log)
+    emit("pool", fit_s=fit_s, configs=len(sky.configs),
+         cost_core_s=sky.cost.tolist(), ticks=n_ticks, seconds=secs,
+         admitted=admitted,
+         sections=[{**sec, "ticks_per_s": sec["ticks"] / sec["seconds"]}
+                   for sec in sections],
+         replan_ms=replan_ms, capacity_core_s=capacity,
+         shed_share={b: v[0] / max(v[1], 1) for b, v in bands.items()},
+         rows=sink.n_rows, launches=launches, fold_launches=folds["kernel"],
+         peak_mem_bytes=peak, telemetry=pool.telemetry().summary(),
+         alerts_fired=[a.n_fired for a in pool.alerts])
+    caps = sorted({sec["cap"] for sec in sections})
+    if n_ticks != sum(POOL_TICKS) or len(caps) != 3:
+        raise AssertionError(f"pool: {n_ticks} ticks through caps {caps}")
+    if not sum(v[0] for v in bands.values()):
+        raise AssertionError("the squeeze shed nothing")
+    if folds != {"kernel": n_ticks, "engine": 0} or launches != n_ticks:
+        raise AssertionError(f"the pool's ticks did not each fold once "
+                             f"through K1: {folds}, {launches}")
+    return dict(log=log, pool=pool, sink=sink, sky=fitted, reg=reg,
+                handle=handle, launches=launches, watch=watch)
+
+
+def _shed_watch(sink):
+    """A registry on ``sink`` with the pool's one subscription: each
+    stream's lowest quality, fired where a segment was shed. Returns
+    (registry, plan, the plan's handle)."""
+    from repro_torch.warehouse import Filter, GroupBy, StandingQueries
+    reg = StandingQueries(sink)
+    watch = (GroupBy("stream_id", "quality", agg="min", num_groups=2048),)
+    sid = reg.subscribe(watch, Filter("quality", "le", 0.0),
+                        name="shed-watch")
+    return reg, watch, reg._subs[sid].handle
+
+
+def phase_pool_check(pp, dev):
+    """The pool's script replayed on the CPU: every status, every
+    flight-recorder counter and every sink row bit for bit; then, plans
+    pinned, each stream's trajectory in a small pool on the card against
+    the single-stream ``switch_step`` run alone. K1 on this path: the
+    shed-watch's accumulators, folded by K1 once per tick, against the
+    CPU registry's (plain versions) and the float64 oracle of the sink's
+    rows, exactly (a min), and its alerts against the CPU's. Returns the
+    largest error against the oracle."""
+    from repro_torch.core.api import SkyscraperPool
+    from repro_torch.core.switcher import init_state, switch_step
+    from repro_torch.warehouse import SegmentStore
+    sky = _sky_on(pp["sky"], "cpu")
+    cpu_sink = SegmentStore(out_dim=len(sky.configs), device="cpu")
+    cpu_reg, _, cpu_handle = _shed_watch(cpu_sink)
+    (log, pool, _, _, _), cpu_s = timed(
+        lambda: pool_script(sky, "cpu", cpu_sink))
+    if log != pp["log"]:
+        bad = next(i for i, (a, b) in enumerate(zip(log, pp["log"]))
+                   if a != b)
+        raise AssertionError(f"pool: tick {bad} differs from the CPU")
+    a, b = pp["pool"]._tel.counters, pool._tel.counters
+    for key in a:
+        if not np.array_equal(a[key], b[key]):
+            raise AssertionError(f"pool telemetry {key} differs")
+    ha, hb = pp["sink"].host_rows(), cpu_sink.host_rows()
+    for key in ha:
+        if not np.array_equal(ha[key], hb[key]):
+            raise AssertionError(f"pool sink column {key} differs")
+    fold_err = _hold_shed_watch(pp, ha, cpu_reg, cpu_handle, pool)
+    # pinned plans: each stream alone through the single-stream switch
+    card = _sky_on(pp["sky"], dev)
+    card._plan_every = 10 ** 9
+    V, n_ticks = POOL_PINNED
+    small = SkyscraperPool(card, n_streams=V, slot_chunk=8, device=dev)
+    state = {v: init_state(card.tables) for v in range(V)}
+    pending = {v: None for v in range(V)}
+    rng = np.random.default_rng(5)
+    steps = 0
+    for tick in range(n_ticks):
+        if tick % 5 == 4:
+            sid = 1000 + tick
+            small.admit(sid, priority=_prio(sid))
+            state[sid], pending[sid] = init_state(card.tables), None
+        if tick % 7 == 6:
+            gone = small.streams[tick % small.V]
+            small.retire(gone)
+            del state[gone], pending[gone]
+        mults = {s: float(np.float32(0.5 + rng.random()))
+                 for s in small.streams}
+        segs = {s: int(rng.integers(0, card.centers.shape[0]))
+                for s in small.streams}
+        statuses, _ = small.process(segs, arrival_mults=mults)
+        for st in statuses:
+            sid = st["stream_id"]
+            cur = dict(state[sid])
+            if pending[sid] is not None:
+                cur["qual_prev"] = card._f32(pending[sid])
+            cur, o = switch_step(cur, torch.zeros(len(card.configs),
+                                                  device=dev),
+                                 card._f32(mults[sid]), card.alpha,
+                                 card.tables)
+            state[sid] = cur
+            if (st["k"], st["category"], st["dropped"]) != (
+                    int(o["k"]), int(o["c"]), bool(o["dropped"])) or \
+                    np.float32(st["buffer_s"]) != \
+                    o["buffer_s"].cpu().numpy():
+                raise AssertionError(f"pool stream {sid} left its "
+                                     f"single-stream trajectory")
+            pending[sid] = None if st["dropped"] else st["quality"]
+            steps += 1
+    emit("pool_check", cpu_s=cpu_s, statuses_equal=True,
+         telemetry_bit_exact=True, sink_rows_equal=True,
+         shed_watch_vs_f64=fold_err, pinned_oracle_steps=steps)
+    return fold_err
+
+
+def _hold_shed_watch(pp, host, cpu_reg, cpu_handle, cpu_pool):
+    """The card's shed-watch (K1 folds) against the CPU's (plain-version
+    folds) and the float64 oracle of the sink's rows: accumulators,
+    counts and answer equal, and the last tick's alerts the same."""
+    reg, sink = pp["reg"], pp["sink"]
+    q = reg._queries[pp["handle"]]
+    state = {k: v[q.slot] for k, v in reg._group_of(q).state.items()}
+    cq = cpu_reg._queries[cpu_handle]
+    cstate = {k: v[cq.slot] for k, v in cpu_reg._group_of(cq).state.items()}
+    spec, _, filters = _spec_of(pp["watch"], sink.columns)
+    acc, cnt, scale = oracle(host, sink.n_rows, filters, spec.keys,
+                             spec.value, spec.agg)
+    err = check_partial("pool shed-watch vs float64", host_partial(state),
+                        (acc, cnt), spec.agg, FLOAT_TOL * scale + 1e-6)
+    check_partial("pool shed-watch vs the CPU's", host_partial(state),
+                  host_partial(cstate), spec.agg, np.zeros_like(scale))
+    (t1, m1), (t0, m0) = reg.answer(pp["handle"]), cpu_reg.answer(cpu_handle)
+    if not (torch.equal(m1.cpu(), m0) and all(torch.equal(t1[c].cpu(), t0[c])
+                                              for c in t0)):
+        raise AssertionError("pool shed-watch: answer differs from the CPU")
+    card_alerts, cpu_alerts = pp["pool"].alerts, cpu_pool.alerts
+    if [a.name for a in card_alerts] != [a.name for a in cpu_alerts] or \
+            not all(np.array_equal(a.fired, b.fired)
+                    for a, b in zip(card_alerts, cpu_alerts)):
+        raise AssertionError("pool shed-watch: alerts differ from the CPU")
+    if int(cnt.sum()) != sink.n_rows or not card_alerts:
+        raise AssertionError("pool shed-watch: the squeeze fired nothing")
+    return err
+
+
+def phase_tiers(m):
+    """The main store (11,059,200 rows, its registry attached) wrapped
+    in a ``TieredStore``: everything but the newest camera-day spilled
+    to int8, the main plans over the two-tier view through K1, each
+    answer within the quantization bound of the unspilled one (the
+    largest chunk scale times the rows a group sums, plus K1's own
+    FLOAT_TOL), the standing answers unchanged bit for bit, and the
+    tier's counters."""
+    from repro_torch.warehouse import TieredStore
+    from repro_torch.warehouse import query as Q
+    store, reg, T = m["store"], m["reg"], m["stream"].n_segments
+    host, n = store.host_rows(), store.n_rows
+    before = {name: reg.answer(h) for name, h in m["handles"].items()}
+    before = {k: ({c: v.clone() for c, v in t.items()}, mk.clone())
+              for k, (t, mk) in before.items()}
+    tiered = TieredStore(store, seed=0, device=store.device)
+    _k1_zero()
+    torch.cuda.reset_peak_memory_stats()
+    spilled, spill_s = timed(lambda: tiered.spill(keep_hot=T))
+    (cols, rows), mat_s = timed(tiered.materialize)
+    plans = main_plans((T - 1) // WINDOW + 1)
+    results, plan_ms = {}, {}
+    for name, plan in plans.items():
+        results[name], secs = timed(lambda p=plan: tiered.query(p))
+        plan_ms[name] = secs * 1e3
+    launches, paths, _ = _k1_counts()
+    peak = torch.cuda.max_memory_allocated()
+    bound = tiered.max_cold_scale()
+    view = {k: v[:rows].cpu().numpy() for k, v in cols.items()}
+    errs, oracle_errs = {"elements": _tier_elements(tiered, view, host)}, {}
+    for name, plan in plans.items():
+        oracle_errs[name], errs[name] = _tier_answer(
+            name, plan, results[name], m["results"][name], cols, view, host,
+            n, bound)
+    for name, h in m["handles"].items():
+        t1, m1 = reg.answer(h)
+        t0, m0 = before[name]
+        if not (torch.equal(m0, m1) and all(torch.equal(t0[c], t1[c])
+                                            for c in t0)):
+            raise AssertionError(f"tiers: the standing answer {name} moved")
+    tel = tiered.telemetry()
+    want = dict(spill_events=1, spilled_rows=spilled, dequantize_events=1,
+                n_rows=n)
+    got = {k: getattr(tel, k) for k in want}
+    if got != want or spilled < n - T - store.chunk_rows:
+        raise AssertionError(f"tier counters {got}, expected {want}")
+    if paths != {"kernel": len(plans), "engine": 0} \
+            or launches != len(plans):
+        raise AssertionError(f"two-tier queries did not all take K1: "
+                             f"{paths}")
+    cold_bytes = sum(v.numel() * v.element_size() for d in
+                     (tiered.cold_q, tiered.cold_scales, tiered.cold_int)
+                     for v in d.values())
+    emit("tiers", rows=n, spilled_rows=spilled, hot_rows=tiered.hot.n_rows,
+         spill_s=spill_s, materialize_s=mat_s, plan_ms=plan_ms,
+         max_cold_scale=bound, vs_unspilled=errs, vs_f64=oracle_errs,
+         cold_bytes=cold_bytes,
+         launches=launches, peak_mem_bytes=peak,
+         store_telemetry=tel.summary(), standing_unchanged=True)
+    return dict(tiered=tiered, launches=launches, cols=cols, rows=rows,
+                err=max(oracle_errs.values()))
+
+
+def _tier_elements(tiered, view, host):
+    """Every cold value within its chunk's scale of the value it
+    replaced; integer columns and hot rows unchanged. Returns the
+    largest error as a share of its scale."""
+    chunk, n_cold = tiered.hot.chunk_rows, tiered.n_cold
+    worst = 0.0
+    for name, orig in host.items():
+        got = view[name]
+        if name not in tiered.cold_scales:
+            if not np.array_equal(got, orig):
+                raise AssertionError(f"tiers: integer column {name} moved")
+            continue
+        if not np.array_equal(got[n_cold:], orig[n_cold:]):
+            raise AssertionError(f"tiers: hot rows of {name} moved")
+        sc = tiered.cold_scales[name].cpu().numpy().astype(np.float64)
+        row_scale = np.repeat(sc, chunk)
+        if orig.ndim == 2:
+            row_scale = row_scale[:, None]
+        err = np.abs(got[:n_cold].astype(np.float64) - orig[:n_cold])
+        share = float((err / row_scale).max())
+        if share > 1.0 + 2.0 ** -20:
+            raise AssertionError(f"tiers: {name} off by {share} scales")
+        worst = max(worst, share)
+    return worst
+
+
+def _oracle_table(node, acc, cnt):
+    """The plan's answer column from the float64 oracle's partials."""
+    if node.agg == "count":
+        return cnt.astype(np.float64)
+    if node.agg == "mean":
+        c = np.maximum(cnt, 1)
+        return acc / (c if acc.ndim == 1 else c[:, None])
+    return acc
+
+
+def hold_oracle(what, got, node, post, acc, cnt, scale):
+    """A query's answer ``got`` (table, mask) against the float64
+    oracle's partials of the same rows: the mask and counts exact, max
+    and min exact, sums within FLOAT_TOL of the group's sum of
+    magnitudes (per row for a mean); after a TopK, the selected values
+    against the oracle's lowest. Returns the max abs error."""
+    from repro_torch.warehouse import TopK
+    gt, gm = got
+    want = _oracle_table(node, acc, cnt)
+    g = gt[node.value].double().cpu().numpy()
+    if any(isinstance(nd, TopK) for nd in post):
+        worst = np.sort(np.where(cnt > 0, want, np.inf))[:len(g)]
+        if not np.allclose(np.sort(g), worst, rtol=FLOAT_TOL, atol=1e-6):
+            raise AssertionError(f"{what}: top values vs the oracle")
+        return float(np.abs(np.sort(g) - worst).max())
+    mask = gm.cpu().numpy()
+    if not np.array_equal(mask, cnt > 0):
+        raise AssertionError(f"{what}: mask vs the oracle")
+    c = np.maximum(cnt, 1).astype(np.float64)
+    if acc.ndim == 2:
+        c = c[:, None]
+    tol = FLOAT_TOL * (scale / c if node.agg == "mean" else scale) + 1e-6
+    if node.agg in ("count", "max", "min"):
+        tol = np.zeros_like(scale)
+    diff = np.abs(g - want)[mask]
+    if not np.all(diff <= np.broadcast_to(tol, want.shape)[mask]):
+        raise AssertionError(f"{what}: {node.agg} off the oracle by "
+                             f"{float(diff.max())}")
+    return float(diff.max(initial=0.0))
+
+
+def _tier_answer(name, plan, got, unspilled, cols, view, host, n, bound):
+    """One plan over the two-tier view: against the float64 oracle of
+    the view's rows (``hold_oracle``), and, where no filter reads a
+    quantized column, against the unspilled answer within the
+    quantization bound: the largest chunk scale per summed row for a
+    sum, one scale for a mean, max or min, none for a count. Returns the
+    error against the oracle and the largest difference to the unspilled
+    answer."""
+    from repro_torch.warehouse import TopK
+    from repro_torch.warehouse import query as Q
+    (gt, gm), (ut, um) = got, unspilled
+    spec, _, filters = _spec_of(plan, cols)
+    _, node, post = Q.split_plan(plan)
+    acc, cnt, scale = oracle(view, n, filters, spec.keys, spec.value,
+                             spec.agg)
+    oracle_err = hold_oracle(f"tiers {name} vs the view's oracle", got,
+                             node, post, acc, cnt, scale)
+    g = gt[node.value].double().cpu().numpy()
+    c = np.maximum(cnt, 1).astype(np.float64)
+    if acc.ndim == 2:
+        c = c[:, None]
+    quantized = [f for f in filters if view[f.column].dtype == np.float32]
+    u = ut[node.value].double().cpu().numpy()
+    if any(isinstance(nd, TopK) for nd in post):
+        g, u = np.sort(g), np.sort(u)
+    diff = float(np.abs(g - u).max())
+    if not quantized:
+        if not torch.equal(gm.cpu(), um.cpu()):
+            raise AssertionError(f"tiers {name}: masks differ")
+        per = {"sum": c, "count": 0.0}.get(node.agg, 1.0)
+        _, _, uscale = oracle(host, n, filters, spec.keys, spec.value,
+                              spec.agg)
+        mag = uscale / c if node.agg == "mean" else uscale
+        tol = bound * per + 2 * FLOAT_TOL * mag + 1e-6
+        if not np.all(np.abs(g - u) <= tol):
+            raise AssertionError(f"tiers {name}: {diff} off the unspilled "
+                                 f"answer")
+    return oracle_err, diff
+
+
+def time_k1(cols, n, plans, host):
+    """K1 over ``plans`` on (cols, n), each held against its plain
+    version in float64 and the float64 oracle (``hold``): summed kernel,
+    plain-version and library milliseconds beside the byte bound, as
+    ``phase_time``, and the largest error against the plain version."""
+    from repro_torch.kernels import warehouse_agg as K
+    tot = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "max_abs_err": 0.0}
+    for name, plan in plans.items():
+        spec, fvals, filters = _spec_of(plan, cols)
+        acc, cnt, scale = oracle(host, n, filters, spec.keys, spec.value,
+                                 spec.agg)
+        kept = int(cnt.sum())
+        err = hold(name, K.fused_segment_agg(cols, n, fvals, spec),
+                   plain64(K, cols, n, fvals, spec), (acc, cnt, scale),
+                   spec.agg)
+        tot["max_abs_err"] = max(tot["max_abs_err"], err["vs_plain"])
+        tot["kernel_ms"] += cuda_ms(lambda: K.fused_segment_agg(
+            cols, n, fvals, spec), 20)
+        tot["plain_ms"] += cuda_ms(lambda: K.fused_segment_agg_ref(
+            cols, n, fvals, spec), 5)
+        tot["library_ms"] += cuda_ms(_library_call(cols, n, spec, fvals),
+                                     10)
+        tot["bound_ms"] += partial_bytes(cols, n, kept, spec) \
+            / HBM_BYTES_PER_S * 1e3
+    return tot
+
+
+def _tick_blocks(sink):
+    """Each pool section's last tick as the fold saw it: its rows of the
+    sink, a (columns, rows) block. Tick t landed its rows together, with
+    ``t`` in their column."""
+    t = sink.host_rows()["t"]
+    blocks = []
+    for tick in np.cumsum(POOL_TICKS) - 1:
+        rows = np.flatnonzero(t == tick)
+        lo, n = int(rows[0]), len(rows)
+        blocks.append(({k: v[lo:lo + n] for k, v in sink.columns.items()},
+                       n, lo))
+    return blocks
+
+
+def phase_time_many(mm, pp, tt):
+    """K1 at the new paths' shapes, each call held against its plain
+    version and the float64 oracle: the main plans over the multi-stream
+    store and over the two-tier view, and the pool's fold at the shape it
+    runs, one tick's new rows into the shed-watch's 2,048 min
+    accumulators (the last tick of each of the five sections: the mean
+    of their times)."""
+    store = mm["store"]
+    per = {"multi": time_k1(store.columns, store.n_rows,
+                            main_plans((mm["T"] - 1) // WINDOW + 1),
+                            store.host_rows())}
+    hot = tt["tiered"]
+    host = {k: v[:tt["rows"]].cpu().numpy() for k, v in tt["cols"].items()}
+    per["tiers"] = time_k1(tt["cols"], tt["rows"],
+                           main_plans(hot.t_max // WINDOW + 1), host)
+    ticks = []
+    for cols, n, lo in _tick_blocks(pp["sink"]):
+        host = {k: v.cpu().numpy() for k, v in cols.items()}
+        ticks.append({"rows": n, "lo": lo,
+                      **time_k1(cols, n, {"watch": pp["watch"]}, host)})
+    per["pool"] = {k: statistics.mean(x[k] for x in ticks)
+                   for k in ("kernel_ms", "plain_ms", "library_ms",
+                             "bound_ms", "rows")}
+    per["pool"].update(max_abs_err=max(x["max_abs_err"] for x in ticks),
+                       ticks=ticks)
+    emit("time_many", queries=per)
+    return per
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1915,6 +2669,17 @@ def run(dev) -> None:
     k2, k3 = phase_time_k2_k3(dev)
     k4 = phase_time_k4(dev)
     h3, h4 = phase_time_hybrid(dev)
+    mm = phase_multi(dev, m)
+    multi_err = phase_multi_check(mm)
+    pp = phase_pool(dev, t)
+    pool_err = phase_pool_check(pp, dev)
+    tt = phase_tiers(m)
+    many = phase_time_many(mm, pp, tt)
+    # each K1 path's error: its calls against the plain version at the
+    # path's shapes, and its folds and answers against the float64 oracle
+    path_err = {"multi": max(many["multi"]["max_abs_err"], multi_err),
+                "pool": max(many["pool"]["max_abs_err"], pool_err),
+                "tiers": max(many["tiers"]["max_abs_err"], tt["err"])}
     tot = {k: sum(q[k] for q in per.values())
            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
     k1_max = max([k1_err["vs_plain"]]
@@ -1992,7 +2757,21 @@ def run(dev) -> None:
         "bound_ms": h4["bound_ms"],
         "bound_by": h4["bound_by"],
         "library_ms": h4["library_ms"],
-    }]}), flush=True)
+    }] + [{
+        "name": f"fused_segment_agg[{path}]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/warehouse_agg.cu",
+        "replaces": "src/repro/kernels/warehouse_agg.py:192",
+        "launches": launches,
+        "max_abs_err": path_err[path],
+        "ms": many[path]["kernel_ms"],
+        "plain_ms": many[path]["plain_ms"],
+        "bound_ms": many[path]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": many[path]["library_ms"],
+    } for path, launches in (("multi", mm["launches"]),
+                             ("pool", pp["launches"]),
+                             ("tiers", tt["launches"]))]}), flush=True)
 
 
 if __name__ == "__main__":

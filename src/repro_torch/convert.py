@@ -85,3 +85,59 @@ def fitted_skyscraper(sky, arrays: Dict, proc_fn, *,
                  interval=int(arrays["interval"]), proc_fn=proc_fn,
                  plan_segments=plan_segments)
     return sky
+
+
+def switch_tables_from_arrays(fields: Dict, device=None):
+    """A reference ``SwitchTables`` (one stream's, or V streams' stacked
+    by ``stack_tables``) as ``{field: array}`` -> the port's
+    ``SwitchTables`` on ``device``: float fields float32, ``place_valid``
+    bool, ``rank_pos`` int64."""
+    from repro_torch.core.switcher import SwitchTables
+    dev = resolve(device)
+
+    def t(name):
+        a = np.asarray(fields[name])
+        dtype = {"place_valid": torch.bool,
+                 "rank_pos": torch.int64}.get(name, torch.float32)
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+    return SwitchTables(**{f: t(f) for f in SwitchTables.__dataclass_fields__})
+
+
+def pool_state_from_arrays(pool, arrays: Dict) -> None:
+    """Load a reference ``SkyscraperPool``'s carried state into the
+    port's ``pool`` of the same slot capacity, in place: ``arrays``
+    holds ``tables`` ({field: (cap, ...) array}), ``state`` ({leaf:
+    array}), ``bufs``, ``alpha``, ``active`` and ``priority``."""
+    cap = pool.cap
+    tables = switch_tables_from_arrays(arrays["tables"], pool.device)
+    for f in type(tables).__dataclass_fields__:
+        assert getattr(tables, f).shape[0] == cap, f
+        getattr(pool.tables, f).copy_(getattr(tables, f))
+    for k, v in arrays["state"].items():
+        pool.state[k].copy_(torch.as_tensor(np.array(v)).to(
+            pool.state[k].dtype))
+    pool._bufs.copy_(torch.as_tensor(np.array(arrays["bufs"])).to(
+        pool._bufs.dtype))
+    pool._alpha.copy_(torch.as_tensor(np.array(arrays["alpha"],
+                                               np.float32)))
+    pool._active_np[:] = np.asarray(arrays["active"], bool)
+    pool._priority_np[:] = np.asarray(arrays["priority"], np.float32)
+    pool._active.copy_(torch.as_tensor(pool._active_np))
+    pool._priority.copy_(torch.as_tensor(pool._priority_np))
+
+
+def cold_tier_from_arrays(tiered, codes: Dict, scales: Dict, ints: Dict
+                          ) -> None:
+    """Install a reference ``TieredStore``'s cold tier (int8 ``codes``
+    and per-chunk ``scales`` of each float column, the integer columns
+    ``ints``, all as arrays) in the port's ``tiered``, in place; its hot
+    tier is left as it is."""
+    dev = tiered.hot.device
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+    tiered.cold_q = {k: t(v, torch.int8) for k, v in codes.items()}
+    tiered.cold_scales = {k: t(v, torch.float32) for k, v in scales.items()}
+    tiered.cold_int = {k: t(v) for k, v in ints.items()}
+    tiered.n_cold = int(next(iter(ints.values())).shape[0])
+    tiered._mat_cache = None

@@ -50,13 +50,13 @@ def forecast(params, hist: torch.Tensor) -> torch.Tensor:
 
 def history_histogram(label_buf: torch.Tensor, n_categories: int, *,
                       n_split: int, interval: int) -> torch.Tensor:
-    """(n_split * interval,) most recent labels, oldest first -> the
-    (n_split, |C|) per-sub-interval category histograms. The mean is a
-    sum of 0/1 values (exact in any order) divided by ``interval``, as
-    ``jnp.mean`` does."""
+    """(..., n_split * interval) most recent labels, oldest first -> the
+    (..., n_split, |C|) per-sub-interval category histograms (a leading
+    axis batches streams). The mean is a sum of 0/1 values (exact in any
+    order) divided by ``interval``, as ``jnp.mean`` does."""
     oh = torch.nn.functional.one_hot(label_buf.long(), n_categories)
-    counts = oh.to(torch.float32).reshape(n_split, interval,
-                                          n_categories).sum(1)
+    counts = oh.to(torch.float32).reshape(
+        label_buf.shape[:-1] + (n_split, interval, n_categories)).sum(-2)
     # a tensor divisor: CUDA divides by a Python number through its
     # reciprocal, which rounds differently
     return counts / torch.tensor(float(interval), device=counts.device)
@@ -64,8 +64,9 @@ def history_histogram(label_buf: torch.Tensor, n_categories: int, *,
 
 def forecast_from_labels(params, label_buf: torch.Tensor, n_categories: int,
                          *, n_split: int, interval: int) -> torch.Tensor:
-    """``forecast`` on a fixed-shape rolling label buffer, evaluated in
-    float64 and rounded to float32 once at the end.
+    """``forecast`` on a fixed-shape rolling label buffer ((hist,) or
+    (V, hist) for V streams at once), evaluated in float64 and rounded
+    to float32 once at the end.
 
     The card and the CPU sum a float32 matmul in different orders and
     round ``exp`` differently, and a last-bit change of the forecast can

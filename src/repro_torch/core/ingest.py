@@ -1,13 +1,18 @@
-"""Online video ingestion (paper §4): the single-stream fused run.
+"""Online video ingestion (paper §4): the fused run of one stream and of
+many.
 
-Port of ``repro/core/ingest.py``'s ``run_skyscraper_fused``. The
+Port of ``repro/core/ingest.py``'s ``run_skyscraper_fused`` and
+``run_skyscraper_multi`` (with its windowed host loop). The
 reference compiles the whole run into one program (an outer
 ``lax.scan`` over planning windows); here it is a Python loop over
 windows whose body is the same three steps — forecast the category
 mix, solve the window-rationed LP, run the switcher over the window —
 as tensor ops on one device. Nothing is read back to the host inside
 the loop, so on the card the host only enqueues work until the traces
-are copied out at the end.
+are copied out at the end. The multi-stream run (paper App. D, scenario
+1) plans all V streams jointly in each window (the window's category
+mix of each stream, then one stacked LP under the shared budget) and
+switches them in one batched step per segment.
 
 Tensor division below always divides by a tensor on the same device,
 never by a Python number: CUDA divides a tensor by a CPU scalar through
@@ -25,11 +30,17 @@ import torch
 from repro_torch.core.forecaster import forecast_from_labels
 from repro_torch.core.knobs import quality as qfn
 from repro_torch.core.offline import Fitted
-from repro_torch.core.planner import solve_lp_rationed
-from repro_torch.core.switcher import init_state, window_scan
+from repro_torch.core.planner import (solve_lp_rationed, solve_lp_stacked,
+                                      solve_multi_stream)
+from repro_torch.core.switcher import (init_state, init_state_multi,
+                                       pad_window_multi, run_window_multi,
+                                       stack_tables, window_scan,
+                                       window_scan_multi)
 from repro_torch.data.stream import Stream
 from repro_torch.device import resolve
-from repro_torch.obs.telemetry import Telemetry, tel_init, window_scan_tel
+from repro_torch.obs.telemetry import (Telemetry, tel_init,
+                                       window_scan_multi_tel,
+                                       window_scan_tel)
 
 CLOUD_PREMIUM = 1.8      # App. L
 
@@ -98,17 +109,19 @@ def _assemble_result(cat: Dict[str, np.ndarray], qmax: np.ndarray, K: int,
 
 def _oracle_rate(q_w, centers, valid, w_tf):
     """Nearest-center labels over a window -> valid-masked category
-    rate (W,K) quals vs (C,K) centers -> (C,). The squared distance is
-    summed over K in index order, one add per config, so it rounds the
-    same on every device."""
-    diff = q_w[:, None, :] - centers[None]
+    rate: (..., W, K) quals vs (..., C, K) centers -> (..., C), with or
+    without a leading stream axis. The squared distance is summed over K
+    in index order, one add per config, so it rounds the same on every
+    device; sentinel padding rows never win the argmin, so padded
+    categories get rate 0."""
+    diff = q_w[..., :, None, :] - centers[..., None, :, :]
     sq = diff * diff
     d = sq[..., 0]
     for k in range(1, sq.shape[-1]):
         d = d + sq[..., k]
     oh = torch.nn.functional.one_hot(torch.argmin(d, dim=-1),
-                                     centers.shape[0]).to(torch.float32)
-    return (oh * valid[:, None]).sum(0) / w_tf
+                                     centers.shape[-2]).to(torch.float32)
+    return (oh * valid[..., None]).sum(-2) / w_tf
 
 
 def _window_layout(T: int, W: int):
@@ -235,3 +248,202 @@ def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
             {k: torch.stack([t[k] for t in tels]) for k in tels[0]})
     res.alerts = alerts
     return res
+
+
+# ---------------------------------------------------------------------------
+# many streams (paper App. D, scenario 1)
+# ---------------------------------------------------------------------------
+
+def _multi_prep(fitteds, streams, *, buffer_gb, cloud_budget_core_s, seed,
+                dev):
+    """Shared multi-stream setup: each stream's tables (its share of the
+    cloud budget), the category tables sentinel-padded to a common
+    C_max, and the stacked stream data (V, T, K) / (V, T)."""
+    V = len(fitteds)
+    T = min(s.n_segments for s in streams)
+    K = len(fitteds[0].configs)
+    assert all(len(f.configs) == K for f in fitteds), \
+        "joint plan shares one cost table: config counts must match"
+    Cs = [f.centers.shape[0] for f in fitteds]
+    C_max = max(Cs)
+    tables = []
+    for f, C_v in zip(fitteds, Cs):
+        tb = f.tables(buffer_gb=buffer_gb,
+                      cloud_budget=cloud_budget_core_s / V)
+        if C_v < C_max:
+            # sentinel rows: |center - qual| is huge, so argmin never
+            # classifies a segment into a padding category
+            pad = torch.full((C_max - C_v, K), 1e6, dtype=torch.float32,
+                             device=dev)
+            tb.centers = torch.cat([tb.centers, pad])
+        tables.append(tb)
+    quals = torch.as_tensor(np.stack(
+        [s.quality(f.power, seed=seed)[:T].astype(np.float32)
+         for s, f in zip(streams, fitteds)]), device=dev)         # (V,T,K)
+    arrs = torch.as_tensor(np.stack(
+        [s.arrival[:T].astype(np.float32) for s in streams]),
+        device=dev)                                               # (V,T)
+    qmax = np.stack([np.asarray(_max_quality(s, f.power))[:T]
+                     for s, f in zip(streams, fitteds)]).sum(axis=1)
+    return V, T, K, Cs, C_max, tables, quals, arrs, qmax
+
+
+def _fused_run_multi(state, quals_w, arrs_w, valid_w, wts, tables, cost,
+                     core_s_total, cloud_ration, *,
+                     with_traces: bool = False, telemetry: bool = False):
+    """The whole multi-stream run, window by window: each window's
+    per-stream oracle category mix -> one joint stacked LP under the
+    shared per-segment budget -> the batched V-stream window loop.
+    quals_w (n_w, V, W, K); arrs_w / valid_w (n_w, V, W); wts (n_w,)
+    real window lengths. Returns (final carry, ys) as the reference's
+    scan: ys are the per-window traces ((n_w, V, W) leaves, padding
+    zeroed) with ``with_traces``, else the per-window per-stream quality
+    sums (n_w, V); with ``telemetry`` the carry is (state, counters) and
+    ys (res, per-window counter snapshots). Nothing is read back to the
+    host."""
+    centers = tables.centers                              # (V, C_max, K)
+    dev = centers.device
+    budget = core_s_total + cloud_ration
+    carry = (state, tel_init(state)) if telemetry else state
+    res, tels = [], []
+    for i in range(quals_w.shape[0]):
+        q_w, a_w, valid = quals_w[i], arrs_w[i], valid_w[i]
+        w_tf = torch.as_tensor(float(wts[i]), dtype=torch.float32,
+                               device=dev)
+        # per-stream oracle r over the window (App. D Eqs. 7-9)
+        r = _oracle_rate(q_w, centers, valid, w_tf)
+        alpha = solve_lp_stacked(centers, cost, r, budget)
+        if telemetry:
+            carry, outs = window_scan_multi_tel(*carry, q_w, a_w, valid,
+                                                alpha, tables)
+            tels.append(carry[1])
+        else:
+            carry, outs = window_scan_multi(carry, q_w, a_w, valid, alpha,
+                                            tables)
+        res.append(outs if with_traces else outs["qual"].sum(1))
+    if with_traces:
+        res = {k: torch.stack([o[k] for o in res]) for k in res[0]}
+    else:
+        res = torch.stack(res)
+    if telemetry:
+        tels = {k: torch.stack([t[k] for t in tels]) for k in tels[0]}
+        return carry, (res, tels)
+    return carry, res
+
+
+def run_skyscraper_multi(fitteds, streams, *, n_cores_each: int,
+                         cloud_budget_core_s: float = 0.0,
+                         buffer_gb: float = 4.0,
+                         plan_days: float = 0.25, seed: int = 0,
+                         sink=None, sink_stream_base: int = 0,
+                         sink_t0: int = 0, telemetry: bool = False,
+                         device=None):
+    """Multi-stream ingestion (paper App. D, scenario 1) on ``device``
+    (``None`` means CUDA): each stream has its own cores and buffer; the
+    cloud budget and the knob PLAN are joint, one LP over all streams'
+    categories, so the shared budget flows to the stream where it buys
+    the most quality.
+
+    ``sink``: an optional ``warehouse.SegmentStore`` on the same device;
+    every stream's per-segment traces land there without leaving the
+    device (rows stream-major, stream ids from ``sink_stream_base``),
+    folded into its standing queries by the ingest.
+
+    ``telemetry=True`` adds a ``"telemetry"`` key: a ``Telemetry`` with
+    per-stream (V,) counters, bit-exact against ``telemetry_ref``.
+    Returns ``{"quality_pct", "per_stream_pct"[, "alerts", "telemetry"]}``.
+    """
+    dev = resolve(device)
+    fitteds = [f if f.device == dev else f.to(dev) for f in fitteds]
+    tau = fitteds[0].workload.segment_seconds
+    W = max(1, int(plan_days * 86400 / tau))
+    V, T, K, _, _, tables, quals, arrs, qmax = _multi_prep(
+        fitteds, streams, buffer_gb=buffer_gb,
+        cloud_budget_core_s=cloud_budget_core_s, seed=seed, dev=dev)
+    n_w, pad, wts, _ = _window_layout(T, W)
+    quals_w = torch.nn.functional.pad(quals, (0, 0, 0, pad)) \
+        .reshape(V, n_w, W, K).transpose(0, 1)           # (n_w, V, W, K)
+    arrs_w = torch.nn.functional.pad(arrs, (0, pad), value=1.0) \
+        .reshape(V, n_w, W).transpose(0, 1)               # (n_w, V, W)
+    valid_w = (torch.arange(n_w * W, device=dev) < T) \
+        .reshape(n_w, 1, W).expand(n_w, V, W)
+
+    def f32(x):
+        return torch.as_tensor(np.float32(x), device=dev)
+
+    _, ys = _fused_run_multi(
+        init_state_multi(tables), quals_w, arrs_w, valid_w, wts,
+        stack_tables(tables), tables[0].cost,
+        f32(V * n_cores_each * tau),
+        f32(cloud_budget_core_s / (CLOUD_PREMIUM * max(T, 1))),
+        with_traces=sink is not None, telemetry=telemetry)
+    res, tel = ys if telemetry else (ys, None)
+    alerts = []
+    if sink is not None:
+        sink.ingest_fused_multi(res, quals, stream_base=sink_stream_base,
+                                t0=sink_t0)
+        alerts = _notify_standing(sink)
+        # padded segments are exact no-ops, so summing over (n_w, W) is
+        # the per-stream quality total
+        sums = res["qual"].cpu().numpy().sum(axis=(0, 2))
+    else:
+        sums = res.cpu().numpy().sum(axis=0)
+    out = {"quality_pct": 100.0 * sums.sum() / max(qmax.sum(), 1e-9),
+           "per_stream_pct": (100.0 * sums
+                              / np.maximum(qmax, 1e-9)).tolist()}
+    if alerts:
+        out["alerts"] = alerts
+    if telemetry:
+        out["telemetry"] = Telemetry.from_device(tel)
+    return out
+
+
+def run_skyscraper_multi_windowed(fitteds, streams, *, n_cores_each: int,
+                                  cloud_budget_core_s: float = 0.0,
+                                  buffer_gb: float = 4.0,
+                                  plan_days: float = 0.25, seed: int = 0,
+                                  device=None):
+    """The windowed host loop the fused multi-stream run replaced: the
+    forecast (each stream's true category mix, on the host) and the
+    joint LP between windows, one batched window loop per window. Kept
+    as the baseline the fused run is held to."""
+    dev = resolve(device)
+    fitteds = [f if f.device == dev else f.to(dev) for f in fitteds]
+    tau = fitteds[0].workload.segment_seconds
+    W = max(1, int(plan_days * 86400 / tau))
+    V, T, K, Cs, C_max, tables, quals, arrs, qmax = _multi_prep(
+        fitteds, streams, buffer_gb=buffer_gb,
+        cloud_budget_core_s=cloud_budget_core_s, seed=seed, dev=dev)
+    tab_stack = stack_tables(tables)
+    state = init_state_multi(tables)
+    quals_h = quals.cpu().numpy()
+    sums = np.zeros(V)
+    t = 0
+    while t < T:
+        W_t = min(W, T - t)
+        # joint plan: per-stream oracle r over the window (App. D Eq. 7-9)
+        rs, qs = [], []
+        for v in range(V):
+            q_true = quals_h[v, t:t + W_t]
+            d = ((q_true[:, None, :] - fitteds[v].centers[None]) ** 2).sum(-1)
+            rs.append(np.bincount(d.argmin(1), minlength=Cs[v]) / W_t)
+            qs.append(fitteds[v].centers)
+        budget = V * n_cores_each * tau + (cloud_budget_core_s
+                                           / (CLOUD_PREMIUM * T))
+        alphas = solve_multi_stream(
+            [torch.as_tensor(q, device=dev) for q in qs],
+            torch.as_tensor(fitteds[0].cost, device=dev), rs,
+            np.float32(budget))
+        a_stack = torch.zeros((V, C_max, K), dtype=torch.float32, device=dev)
+        for v, a in enumerate(alphas):
+            a_stack[v, :Cs[v]] = a
+        # pad the tail window to W (masked steps are exact no-ops)
+        q_w, a_w, valid = pad_window_multi(quals[:, t:t + W_t],
+                                           arrs[:, t:t + W_t], W)
+        state, outs = run_window_multi(state, q_w, a_w, a_stack, tab_stack,
+                                       valid=valid)
+        sums += outs["qual"].cpu().numpy().sum(axis=1)
+        t += W_t
+    return {"quality_pct": 100.0 * sums.sum() / max(qmax.sum(), 1e-9),
+            "per_stream_pct": (100.0 * sums
+                               / np.maximum(qmax, 1e-9)).tolist()}

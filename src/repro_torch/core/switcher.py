@@ -17,11 +17,22 @@ window runs on the card without a single synchronisation. The decision
 uses only elementwise IEEE operations, comparisons and first-index
 argmin/argmax (as ``jnp.argmin``/``jnp.argmax``), so it is bit-exact
 with the reference and does not depend on the device.
+
+Many streams (paper App. D): ``stack_tables`` stacks V streams' tables
+field by field onto a leading (V,) axis and ``init_state_multi`` their
+states. ``_switch_multi`` is the reference's ``jax.vmap(_switch)`` as
+one chain of tensor ops over that axis: each stream's row, column or
+entry of a table is read with ``take_along_dim`` at its own index
+tensor, and the usage counts are added at ``(arange(V), c, k)`` with
+``index_put`` (adds of +1.0 to float32 counts, so exact). It is
+bit-exact with the reference's batched decision, on any device.
+``window_scan_multi`` runs V streams through one planning window, one
+batched step per segment.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -167,3 +178,157 @@ def switch_step(state, qual_row, arrival, alpha, tables: SwitchTables):
     (K,) holds the measured qualities of this segment (only
     ``qual_row[k_sel]`` is observed by the system)."""
     return _switch(state, qual_row, arrival, alpha, tables)
+
+
+# ---------------------------------------------------------------------------
+# many streams: a leading (V,) axis on tables, state, alpha and outputs
+# ---------------------------------------------------------------------------
+
+def stack_tables(tables: List[SwitchTables]) -> SwitchTables:
+    """Stack V streams' tables field by field onto a leading (V,) axis
+    (the scalar fields become (V,) float32 tensors, so streams may have
+    their own budgets)."""
+    return SwitchTables(**{
+        f: torch.stack([getattr(t, f) for t in tables])
+        for f in SwitchTables.__dataclass_fields__})
+
+
+def init_state_multi(tables: List[SwitchTables]) -> Dict[str, torch.Tensor]:
+    """Batched state for V streams: each leaf gains a leading (V,) axis."""
+    states = [init_state(t) for t in tables]
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _row(x: torch.Tensor, i: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """``x[v, ..., i[v], ...]`` for every stream v: ``x`` indexed along
+    ``dim`` at each stream's own index (i is (V,)), on the device."""
+    shape = [x.shape[0]] + [1] * (x.dim() - 1)
+    idx = i.reshape(shape).expand(
+        *[x.shape[d] if d != dim else 1 for d in range(x.dim())])
+    return torch.take_along_dim(x, idx, dim=dim).squeeze(dim)
+
+
+def _switch_multi(state, qual_rows, arrivals, alpha, tables: SwitchTables):
+    """One decision for V streams at once (the reference's
+    ``jax.vmap(_switch)``): state leaves (V, ...), qual_rows (V, K),
+    arrivals (V,), alpha (V, C, K), tables stacked. Returns (new state,
+    outputs with (V,) leaves); ``state`` is not modified."""
+    V = qual_rows.shape[0]
+    tau, cap = tables.tau, tables.buffer_cap_s
+    ar = arrivals[:, None, None]
+    # 1. classify from previous segment's reported quality (Eq. 5)
+    col = _row(tables.centers, state["k_cur"], dim=2)             # (V, C)
+    c = torch.argmin(torch.abs(col - state["qual_prev"][:, None]), dim=1)
+    # 2. usage-deficit pick (Eq. 6)
+    frac = _row(state["used"], c) / torch.clamp_min(
+        _row(state["count"], c), 1.0)[:, None]
+    k_next = torch.argmax(_row(alpha, c) - frac, dim=1)
+    # 3. placement feasibility
+    rt_eff = tables.place_rt * ar
+    cl_eff = tables.place_cl * ar
+    headroom = tau + (cap - state["buffer_s"])
+    feas = (tables.place_valid
+            & (rt_eff <= headroom[:, None, None])
+            & (state["cloud_spent"][:, None, None] + cl_eff
+               <= tables.cloud_budget[:, None, None]))
+    feas_k = feas.any(2)                                          # (V, K)
+    cl_masked = torch.where(feas, tables.place_cl, float("inf"))
+    p_best = torch.argmin(cl_masked, dim=2)                       # (V, K)
+    eligible = tables.rank_pos >= _row(tables.rank_pos, k_next)[:, None]
+    cand = feas_k & eligible
+    pos1 = torch.where(cand, tables.rank_pos, BIG)
+    pos2 = torch.where(feas_k, tables.rank_pos, BIG)
+    k_sel = torch.where(cand.any(1), torch.argmin(pos1, dim=1),
+                        torch.argmin(pos2, dim=1))
+    p_sel = _row(p_best, k_sel)
+    # overload shedding: if NO config/placement fits, drop the segment
+    any_feas = feas_k.any(1)
+    flat = k_sel * tables.place_rt.shape[2] + p_sel
+
+    def at_flat(x):
+        return _row(x.reshape(V, -1), flat)
+
+    rt = torch.where(any_feas, at_flat(rt_eff), 0.0)
+    on_s = torch.where(any_feas, at_flat(tables.place_on) * arrivals, 0.0)
+    cl_s = torch.where(any_feas, at_flat(cl_eff), 0.0)
+    qual = torch.where(any_feas, _row(qual_rows, k_sel), 0.0)
+    v = torch.arange(V, device=qual_rows.device)
+    one = torch.ones((V,), dtype=torch.float32, device=qual_rows.device)
+    new_state = {
+        "used": state["used"].index_put((v, c, k_sel), one, accumulate=True),
+        "count": state["count"].index_put((v, c), one, accumulate=True),
+        "buffer_s": torch.clamp_min(state["buffer_s"] + rt - tau, 0.0),
+        "cloud_spent": state["cloud_spent"] + cl_s,
+        "k_cur": k_sel,
+        "qual_prev": qual,
+    }
+    out = {"k": k_sel, "p": p_sel, "c": c, "qual": qual, "on_s": on_s,
+           "cl_s": cl_s, "buffer_s": new_state["buffer_s"], "rt": rt,
+           "dropped": ~any_feas}
+    return new_state, out
+
+
+def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (V,) mask shaped to broadcast against a (V, ...) leaf."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - 1))
+
+
+def _masked_switch_multi(state, qual_rows, arrivals, valid, alpha,
+                         tables: SwitchTables):
+    """``_switch_multi`` where each stream whose ``valid`` (V,) is False
+    takes an exact no-op step: its state is untouched and its outputs
+    are zeroed (the reference's ``jax.vmap(_masked_switch)``)."""
+    new_state, out = _switch_multi(state, qual_rows, arrivals, alpha,
+                                   tables)
+    new_state = {k: torch.where(_bcast(valid, v), v, state[k])
+                 for k, v in new_state.items()}
+    zero = {"k": 0, "p": 0, "c": 0, "qual": 0.0, "on_s": 0.0, "cl_s": 0.0,
+            "buffer_s": state["buffer_s"], "rt": 0.0, "dropped": False}
+    out = {k: torch.where(valid, o, zero[k]) for k, o in out.items()}
+    return new_state, out
+
+
+def switch_step_multi(state, qual_rows, arrivals, alpha,
+                      tables: SwitchTables):
+    """One batched decision for V live streams: state from
+    ``init_state_multi``, qual_rows (V,K), arrivals (V,), alpha (V,C,K),
+    tables from ``stack_tables``."""
+    return _switch_multi(state, qual_rows, arrivals, alpha, tables)
+
+
+def pad_window_multi(quals, arrivals, W: int):
+    """Pad a (V,T,K)/(V,T) window to length W along time, returning
+    (quals, arrivals, valid (V,W))."""
+    V, T = arrivals.shape
+    valid = (torch.arange(W, device=arrivals.device) < T).expand(V, W)
+    if T == W:
+        return quals, arrivals, valid
+    quals = torch.nn.functional.pad(quals, (0, 0, 0, W - T))
+    arrivals = torch.nn.functional.pad(arrivals, (0, W - T), value=1.0)
+    return quals, arrivals, valid
+
+
+def window_scan_multi(state, quals, arrivals, valid, alpha,
+                      tables: SwitchTables, step=None):
+    """V streams through one planning window, one batched step per
+    segment: quals (V,W,K), arrivals (V,W), valid (V,W) bool. Returns
+    (final state, outs with (V,W) leaves). ``step`` (default
+    ``_masked_switch_multi``) is the loop's body, with the carry first:
+    ``obs.telemetry.masked_switch_multi_tel`` carries (state, counters)."""
+    step = step or _masked_switch_multi
+    outs = []
+    for t in range(arrivals.shape[1]):
+        state, out = step(state, quals[:, t], arrivals[:, t], valid[:, t],
+                          alpha, tables)
+        outs.append(out)
+    return state, {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}
+
+
+def run_window_multi(state, quals, arrivals, alpha, tables: SwitchTables,
+                     valid: Optional[torch.Tensor] = None):
+    """``window_scan_multi`` with every step valid unless ``valid``
+    (V,T) marks padding."""
+    if valid is None:
+        valid = torch.ones(arrivals.shape, dtype=torch.bool,
+                           device=arrivals.device)
+    return window_scan_multi(state, quals, arrivals, valid, alpha, tables)

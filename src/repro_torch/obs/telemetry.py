@@ -25,12 +25,18 @@ Counter semantics (all float32):
     config_switches    valid steps whose chosen config differs from the
                        previous step's (dropped segments still switch)
 
+Many streams: ``window_scan_multi_tel`` carries (V,) counters beside
+the batched switcher state (``switcher.window_scan_multi``), one update
+per stream and segment in time order, so each stream's counters are
+bit-exact against ``telemetry_ref`` of its own traces. ``HostTelemetry``
+is the serving pool's recorder: the same float32 updates on the host,
+from the per-tick outputs the pool reads back anyway.
+
 ``StoreTelemetry`` and ``store_obs_*`` are the store's counters,
 computed from host metadata only: ingest and query dispatches, the
-ingest-to-queryable lag in ticks, and the standing registry's gauges.
-The reference's multi-stream parts (``window_scan_multi_tel``,
-``HostTelemetry``), its tier counters (spills, dequantizes, left at 0
-here) and shard balance past one shard come with those slices.
+ingest-to-queryable lag in ticks, the standing registry's gauges and
+the cold tier's spills and dequantizes (``warehouse.tiers``). Shard
+balance past one shard comes with the sharded store.
 """
 from __future__ import annotations
 
@@ -40,7 +46,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.switcher import _masked_switch, window_scan
+from repro_torch.core.switcher import (_masked_switch,
+                                      _masked_switch_multi, window_scan,
+                                      window_scan_multi)
 
 TEL_KEYS = ("seg_total", "seg_dropped", "buffer_hwm_s",
             "buffer_occ_sum_s", "onprem_core_s", "cloud_core_s",
@@ -96,6 +104,24 @@ def window_scan_tel(state, tel, quals, arrivals, valid, alpha, tables):
                        step=masked_switch_tel)
 
 
+def masked_switch_multi_tel(carry, qual_rows, arrivals, valid, alpha,
+                            tables):
+    """``switcher._masked_switch_multi`` with (V,) counters carried
+    beside the batched state."""
+    state, tel = carry
+    new_state, out = _masked_switch_multi(state, qual_rows, arrivals, valid,
+                                          alpha, tables)
+    return (new_state, tel_step(tel, state["k_cur"], out, valid)), out
+
+
+def window_scan_multi_tel(state, tel, quals, arrivals, valid, alpha,
+                          tables):
+    """``switcher.window_scan_multi`` with the per-stream counters:
+    returns ((state, tel), outs with (V, W) leaves)."""
+    return window_scan_multi((state, tel), quals, arrivals, valid, alpha,
+                             tables, step=masked_switch_multi_tel)
+
+
 # ---------------------------------------------------------------------------
 # host side: the run's telemetry and its numpy mirror
 # ---------------------------------------------------------------------------
@@ -104,13 +130,15 @@ def window_scan_tel(state, tel, quals, arrivals, valid, alpha, tables):
 class Telemetry:
     """Flight-recorder counters of one run, on the host.
 
-    ``counters`` holds the final cumulative float32 values, and
-    ``per_window`` the cumulative snapshots at each window boundary
-    ((n_w,) arrays). The raw counters are the bit-exactness contract;
-    the derived views (means, deltas) are for display. (The reference's
-    ``extras``, the serving pool's host counts, come with the pool.)"""
+    ``counters`` holds the final cumulative float32 values (scalars for
+    one stream, (V,) arrays for many), and ``per_window`` the cumulative
+    snapshots at each window boundary ((n_w,) or (n_w, V) arrays);
+    ``extras`` carries the serving pool's host counts (ticks, replans).
+    The raw counters are the bit-exactness contract; the derived views
+    (means, deltas) are for display."""
     counters: Dict[str, np.ndarray]
     per_window: Dict[str, np.ndarray] = field(default_factory=dict)
+    extras: Dict[str, float] = field(default_factory=dict)
 
     @classmethod
     def from_device(cls, tel_windows) -> "Telemetry":
@@ -229,6 +257,65 @@ def telemetry_ref(traces: Dict[str, np.ndarray], k0,
     if single:
         counters = {key: v[0] for key, v in counters.items()}
     return counters
+
+
+class HostTelemetry:
+    """The serving pool's flight recorder: sequential float32 counters
+    per slot, updated on the host from the per-tick switch outputs the
+    pool already reads back (``_accumulate``, the same updates as the
+    device loop), so it adds no device work."""
+
+    def __init__(self, n_streams: int, k0: int):
+        self.V = int(n_streams)
+        self.k0 = int(k0)
+        self.counters = {k: np.zeros((self.V,), np.float32)
+                         for k in TEL_KEYS}
+        self._k_prev = np.full((self.V,), int(k0), np.int64)
+        self.ticks = 0
+        self.replans = 0
+
+    def update(self, outs, valid=None) -> None:
+        """One pool tick: ``outs`` holds (V,) host arrays;
+        ``valid`` (V,) bool masks the slots that took no step (retired or
+        empty), whose counters stay as they were."""
+        self._k_prev = _accumulate(
+            self.counters, self._k_prev, outs["k"], outs["dropped"],
+            outs["buffer_s"], outs["on_s"], outs["cl_s"],
+            np.ones((self.V,), bool) if valid is None
+            else np.asarray(valid, bool))
+        self.ticks += 1
+
+    def grow(self, n_streams: int) -> None:
+        """Widen to ``n_streams`` slots (the pool's bucket growth): the
+        counters kept, new slots zeroed with ``k_prev = k0``."""
+        n = int(n_streams)
+        if n <= self.V:
+            return
+        pad = n - self.V
+        self.counters = {k: np.concatenate([v, np.zeros((pad,), np.float32)])
+                         for k, v in self.counters.items()}
+        self._k_prev = np.concatenate(
+            [self._k_prev, np.full((pad,), self.k0, np.int64)])
+        self.V = n
+
+    def reset_slot(self, v: int) -> None:
+        """Zero one slot's counters (a freed slot re-admitted for another
+        stream starts afresh)."""
+        for arr in self.counters.values():
+            arr[v] = np.float32(0.0)
+        self._k_prev[v] = self.k0
+
+    def snapshot(self, select=None) -> Telemetry:
+        """The counters, restricted to the slots ``select`` when given
+        (the pool passes its active slots)."""
+        if select is None:
+            counters = {k: v.copy() for k, v in self.counters.items()}
+        else:
+            idx = np.asarray(select, np.int64)
+            counters = {k: v[idx].copy() for k, v in self.counters.items()}
+        return Telemetry(counters=counters,
+                         extras={"ticks": float(self.ticks),
+                                 "replans": float(self.replans)})
 
 
 # ---------------------------------------------------------------------------

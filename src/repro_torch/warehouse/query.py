@@ -360,7 +360,10 @@ def _run_plan(cols, n_rows: int, fvals, spec, use_kernel: bool):
 
 
 def _source(store):
-    """(columns, n_rows) from a SegmentStore or a raw (columns, n) pair."""
+    """(columns, n_rows) from a SegmentStore, a TieredStore (its two-tier
+    view, ``materialize``) or a raw (columns, n) pair."""
+    if hasattr(store, "materialize"):
+        return store.materialize()
     if hasattr(store, "columns") and hasattr(store, "n_rows"):
         return store.columns, store.n_rows
     cols, n = store

@@ -263,8 +263,10 @@ class StandingQueries:
     """
 
     def __init__(self, store):
+        # a TieredStore's registry attaches to its hot tier, whose ingests
+        # fold, while backfills scan the wrapper's two-tier view
         self.store = store
-        self.host = store
+        self.host = getattr(store, "hot", store)
         assert getattr(self.host, "standing", None) is None, \
             "store already has a StandingQueries registry attached"
         self.host.standing = self
@@ -365,11 +367,12 @@ class StandingQueries:
         self.host.obs["standing_refreshes"] += 1
 
     def _source(self):
-        """(columns, live rows) for a backfill, or None when the store is
-        empty."""
+        """(columns, live rows) for a backfill (a tiered store's two-tier
+        view), or None when the store is empty."""
         if self.store.n_rows == 0:
             return None
-        return self.store.columns, self.store.n_rows
+        from repro_torch.warehouse.query import _source as q_source
+        return q_source(self.store)
 
     # -- answers -------------------------------------------------------
     def group_answers(self, group: _Group):

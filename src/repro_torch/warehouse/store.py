@@ -21,8 +21,13 @@ growth copies the live rows once into the next rung of the ladder. The
 row count is host state, so queries know the live rows without reading
 the device.
 
+``ingest_fused_multi`` lands a multi-stream run's (n_w, V, W) traces
+stream-major, and ``ingest_tick`` one row per live stream of a serving
+pool's tick; the elastic pool's masked tick compacts its active slots
+to consecutive rows carrying their real stream ids.
+
 A ``StandingQueries`` registry (``warehouse.standing``) attached to the
-store is refreshed inside ``ingest_fused`` and ``append_rows``: right
+store is refreshed inside every ingest and ``append_rows``: right
 after a block lands, its rows, read back as the slices ``[lo:lo + n]``
 of the store's columns (so as the store holds them, cast to the column
 dtypes), fold into every registered plan's accumulators, as the
@@ -154,6 +159,63 @@ class SegmentStore:
         store_obs_batch(self.obs, 1, T)
         return T
 
+    def ingest_fused_multi(self, traces, out_vecs, *, stream_base: int = 0,
+                           t0: int = 0) -> int:
+        """Land a full ``run_skyscraper_multi`` run: traces have
+        (n_w, V, W) device leaves, ``out_vecs`` is (V, T, D). Rows land
+        stream-major (stream 0's T rows, then stream 1's, ...), stream
+        ids from ``stream_base``."""
+        V, T = int(out_vecs.shape[0]), int(out_vecs.shape[1])
+        assert out_vecs.ndim == 3 and out_vecs.shape[2] == self.out_dim
+        self._reserve(V * T)
+
+        def flat(x):                              # (n_w, V, W) -> (V*T,)
+            return x.transpose(0, 1).reshape(V, -1)[:, :T].reshape(-1)
+
+        upd = {dst: flat(traces[src]) for src, dst in _RUN_KEYS}
+        ar = torch.arange(T, dtype=torch.int32, device=self.device)
+        upd["stream_id"] = stream_base + torch.arange(
+            V, dtype=torch.int32, device=self.device).repeat_interleave(T)
+        upd["t"] = (t0 + ar).repeat(V)
+        upd[OUT_COLUMN] = torch.as_tensor(out_vecs).reshape(V * T, -1)
+        self._write(upd)
+        self.t_max = max(self.t_max, t0 + T - 1)
+        store_obs_batch(self.obs, V, T)
+        return V * T
+
+    def ingest_tick(self, traces, *, quality, out_vecs, t: int,
+                    stream_ids=None, valid=None) -> int:
+        """Land one serving-pool tick: traces have (V,) device leaves (a
+        ``switch_step_multi`` outs dict); ``quality`` (V,) is the quality
+        the user's Transform measured.
+
+        The elastic pool passes ``stream_ids`` (V,), the real stream id
+        behind each slot, and ``valid`` (V,) host bool: inactive slots
+        land no row, and the active ones land at consecutive rows in
+        slot order. Without them slot v is stream v and every slot
+        lands."""
+        V = int(out_vecs.shape[0])
+        assert out_vecs.ndim == 2 and out_vecs.shape[1] == self.out_dim
+        upd = {dst: traces[src] for src, dst in _RUN_KEYS}
+        upd["quality"] = torch.as_tensor(quality)
+        upd["stream_id"] = (torch.arange(V, dtype=torch.int32)
+                            if stream_ids is None
+                            else torch.as_tensor(np.asarray(stream_ids)))
+        upd["t"] = torch.full((V,), t, dtype=torch.int32)
+        upd[OUT_COLUMN] = torch.as_tensor(out_vecs)
+        upd = {k: v.to(self.device) for k, v in upd.items()}
+        if valid is not None:
+            keep = np.flatnonzero(np.asarray(valid, bool))
+            idx = torch.as_tensor(keep, device=self.device)
+            upd = {k: v.index_select(0, idx) for k, v in upd.items()}
+        n_new = int(upd["t"].shape[0])
+        self._reserve(n_new)
+        self._write(upd)
+        if n_new:
+            self.t_max = max(self.t_max, t)
+        store_obs_tick(self.obs, n_new)
+        return n_new
+
     def append_rows(self, rows: Dict) -> int:
         """Generic batched append: ``rows`` maps every column name to an
         (n,) array or tensor (``out`` to (n, D))."""
@@ -185,8 +247,10 @@ class SegmentStore:
                               **self.obs)
 
     def host_rows(self) -> Dict[str, np.ndarray]:
-        """All live rows as host numpy (an explicit full transfer)."""
-        return {k: v[:self.n_rows].cpu().numpy()
+        """All live rows as host numpy (an explicit full transfer; a copy
+        on the CPU too, since the store writes its columns in place)."""
+        return {k: (v[:self.n_rows].cpu() if v.is_cuda
+                    else v[:self.n_rows].clone()).numpy()
                 for k, v in self.columns.items()}
 
     def __len__(self) -> int:

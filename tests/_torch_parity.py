@@ -37,3 +37,10 @@ def ref_plan(plan):
     """The same plan built from the reference's node classes."""
     return tuple(getattr(RW, type(n).__name__)(**dataclasses.asdict(n))
                  for n in plan)
+
+
+def table_arrays(tables):
+    """A reference ``SwitchTables`` (one stream's or stacked) as the
+    ``{field: array}`` that ``convert.switch_tables_from_arrays`` takes."""
+    return {f.name: np.asarray(getattr(tables, f.name))
+            for f in dataclasses.fields(tables)}

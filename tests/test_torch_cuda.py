@@ -29,7 +29,11 @@ at the default RunOptions (bfloat16) on the card against the port's CPU
 run within ``models.options.bf16_logit_tolerance``. Standing answers on
 the card (K1's delta folds) against ``store.query`` on the same rows:
 masks, counts, max and min exactly, float sums and means within 1e-5 of
-each group's sum of magnitudes.
+each group's sum of magnitudes. The batched switch, a short
+multi-stream run, the pool's ticks and a spill of the cold tier on the
+card against the same on the CPU: decisions, states, counters, rows
+and tier codes bit for bit (elementwise float32 operations and exact
+count adds only).
 
 This file imports neither JAX nor ``repro``.
 """
@@ -784,3 +788,158 @@ def test_fused_run_telemetry_on_card(cuda):
     stel = store.telemetry()
     assert (stel.n_rows, stel.ingest_dispatches, stel.lag_max_ticks) == \
         (T, 1, T - 1)
+
+
+# ---------------------------------------------------------------------------
+# many streams, the serving pool and the cold tier: the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _cpu_fit():
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.core.offline import fit
+    return fit(COVID, n_cores=8, days_unlabeled=0.5, device="cpu")
+
+
+@pytest.mark.cuda
+def test_switch_multi_on_card_matches_cpu(cuda):
+    from repro_torch.core import switcher as PS
+    fitted = _cpu_fit()
+    rng = np.random.default_rng(0)
+    V = 64
+    tabs = [fitted.tables(buffer_gb=float(rng.choice([4.0, 0.002])),
+                          cloud_budget=float(rng.choice([0.0, 400.0])))
+            for _ in range(V)]
+    C, K = fitted.centers.shape
+    quals = torch.tensor(rng.random((V, 40, K)), dtype=torch.float32)
+    arrs = torch.tensor(np.where(rng.random((V, 40)) < 0.1, 4000.0,
+                                 1.0 + rng.random((V, 40))),
+                        dtype=torch.float32)
+    valid = torch.tensor(rng.random((V, 40)) < 0.9)
+    alpha = torch.tensor(rng.random((V, C, K)), dtype=torch.float32)
+    alpha = alpha / alpha.sum(-1, keepdim=True)
+    outs = {}
+    for dev in ("cpu", cuda):
+        st = {k: v.to(dev) for k, v in PS.init_state_multi(tabs).items()}
+        tb = PS.stack_tables([PS.SwitchTables(**{
+            f: getattr(t, f).to(dev) for f in PS.SwitchTables.__dataclass_fields__})
+            for t in tabs])
+        st, out = PS.window_scan_multi(st, quals.to(dev), arrs.to(dev),
+                                       valid.to(dev), alpha.to(dev), tb)
+        outs[str(dev)] = ({k: v.cpu() for k, v in st.items()},
+                          {k: v.cpu() for k, v in out.items()})
+    (s_c, o_c), (s_g, o_g) = outs["cpu"], outs[str(cuda)]
+    assert o_c["dropped"].any()
+    for k in o_c:
+        assert torch.equal(o_c[k], o_g[k]), k
+    for k in s_c:
+        assert torch.equal(s_c[k], s_g[k]), k
+
+
+@pytest.mark.cuda
+def test_multi_run_on_card_matches_cpu(cuda):
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.core.ingest import run_skyscraper_multi
+    from repro_torch.data.stream import generate
+    from repro_torch.obs import TEL_KEYS
+    fitted = _cpu_fit()
+    streams = [generate(COVID, days=0.03, seed=60 + v) for v in range(8)]
+    kw = dict(n_cores_each=8, cloud_budget_core_s=4000.0, plan_days=0.01,
+              telemetry=True)
+    got = {}
+    for dev in ("cpu", cuda):
+        store = SegmentStore(out_dim=len(fitted.configs), device=dev)
+        reg = StandingQueries(store)
+        h = reg.register((GroupBy("stream_id", "quality", agg="sum",
+                                  num_groups=8),))
+        before = K.LAUNCHES
+        out = run_skyscraper_multi([fitted.to(dev)] * 8, streams,
+                                   sink=store, device=dev, **kw)
+        got[str(dev)] = (out, store.host_rows(), reg.answer(h),
+                         K.LAUNCHES - before)
+    (oc, hc, ac, _), (og, hg, ag, launches) = got["cpu"], got[str(cuda)]
+    assert launches >= 1
+    for k in hc:
+        assert np.array_equal(hc[k], hg[k]), k
+    for key in TEL_KEYS:
+        assert np.array_equal(oc["telemetry"].counters[key],
+                              og["telemetry"].counters[key]), key
+    assert oc["per_stream_pct"] == og["per_stream_pct"]
+    _close(ag[0]["quality"], ac[0]["quality"], exact=False)
+
+
+@pytest.mark.cuda
+def test_pool_ticks_on_card_match_cpu(cuda):
+    from repro_torch.core.api import Skyscraper, SkyscraperPool
+
+    def proc(seg, kv):
+        return seg, float(np.clip(1 - seg * (1 - 1.0 / kv["det"]), 0, 1))
+    skies = {}
+    for dev in ("cpu", cuda):
+        sky = Skyscraper(segment_seconds=2.0, n_categories=3, device=dev)
+        sky.set_resources(num_cores=4)
+        sky.register_knob("det", [1, 5, 10])
+        if not skies:
+            sky.fit(list(np.linspace(0, 1, 40)), proc, plan_segments=16)
+            base = sky
+        else:
+            sky._install(configs=base.configs, cost=base.cost,
+                         power=base.tables.power.cpu().numpy(),
+                         centers=base.centers,
+                         forecaster={n: {p: t.to(dev) for p, t in l.items()}
+                                     for n, l in base.forecaster.items()},
+                         n_split=base.n_split, interval=base.interval,
+                         proc_fn=proc, plan_segments=16)
+        skies[str(dev)] = sky
+    runs = {}
+    for dev, sky in skies.items():
+        pool = SkyscraperPool(sky, n_streams=12, telemetry=True,
+                              priorities=list(range(1, 13)), device=dev)
+        rng = np.random.default_rng(4)
+        log = []
+        for t in range(60):
+            if t == 20:
+                pool.capacity_core_s = float(np.min(sky.cost)) * 7.5
+            if t % 9 == 8:
+                pool.admit(100 + t, priority=float(t % 4), force=True)
+            if t % 13 == 12:
+                pool.retire(pool.streams[0])
+            log.append(pool.process(list(rng.random(pool.V)))[0])
+        runs[dev] = (log, pool.telemetry())
+    (lc, tc), (lg, tg) = runs["cpu"], runs[str(cuda)]
+    assert lc == lg
+    assert any(s["shed"] for tick in lc for s in tick)
+    for k in tc.counters:
+        assert np.array_equal(tc.counters[k], tg.counters[k]), k
+
+
+@pytest.mark.cuda
+def test_tier_spill_on_card_matches_cpu(cuda):
+    from repro_torch.warehouse import TieredStore
+    rng = np.random.default_rng(8)
+    n = 20_000
+    rows = {"stream_id": rng.integers(0, 4, n).astype(np.int32),
+            "t": np.arange(n, dtype=np.int32),
+            "category": rng.integers(0, 4, n).astype(np.int32),
+            "k": rng.integers(0, 3, n).astype(np.int32),
+            "quality": rng.random(n).astype(np.float32),
+            "on_core_s": rng.random(n).astype(np.float32),
+            "cloud_core_s": rng.random(n).astype(np.float32),
+            "buffer_s": rng.random(n).astype(np.float32),
+            "out": rng.random((n, 3)).astype(np.float32)}
+    tiers = {}
+    for dev in ("cpu", cuda):
+        store = SegmentStore(out_dim=3, chunk_rows=1024, device=dev)
+        store.append_rows(rows)
+        ts = TieredStore(store, seed=3, device=dev)
+        ts.spill(keep_hot=3000)
+        tiers[str(dev)] = ts
+    tc, tg = tiers["cpu"], tiers[str(cuda)]
+    for k in tc.cold_q:
+        assert torch.equal(tc.cold_q[k], tg.cold_q[k].cpu()), k
+        assert torch.equal(tc.cold_scales[k], tg.cold_scales[k].cpu()), k
+    plan = (GroupBy("category", "quality", agg="mean", num_groups=4),)
+    before = K.LAUNCHES
+    got, _ = tg.query(plan)
+    assert K.LAUNCHES == before + 1
+    want, _ = tc.query(plan)
+    _close(got["quality"], want["quality"], exact=False)

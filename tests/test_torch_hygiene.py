@@ -5,7 +5,8 @@
   ``scripts/chip_compare.py``, ``scripts/chip_profile.py``) imports
   JAX or anything of the reference package ``repro``;
 - importing the port builds nothing (no compiler runs at import);
-- every entry point defaults to CUDA and raises when there is none;
+- every entry point defaults to CUDA and raises when there is none
+  (the multi-stream run, the serving pool and the cold tier among them);
 - ``chip_smoke.py`` fails, and prints no result, without a card;
 - on the CPU, every kernel wrapper (K1, K2, K3, K4) takes its plain
   version and launches nothing, and the SSM model path (``models/ssd``)
@@ -322,3 +323,55 @@ def test_kernel_refuses_specs_beyond_its_limits(cuda):
                             n, fvals,
                             K.FusedAggSpec((), (("g", 4, 0),), "x", "sum"))
     assert K.LAUNCHES == before
+
+
+def test_multi_stream_pool_and_tier_entry_points_raise_without_cuda(
+        monkeypatch):
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.core import ingest
+    from repro_torch.core.api import SkyscraperPool
+    from repro_torch.warehouse import SegmentStore, TieredStore
+    store = SegmentStore(out_dim=2, device="cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ingest.run_skyscraper_multi([], [], n_cores_each=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ingest.run_skyscraper_multi_windowed([], [], n_cores_each=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TieredStore(store)
+
+    class _Sky:                      # a fitted handle on the CPU
+        _fitted = True
+        device = torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SkyscraperPool(_Sky(), n_streams=2)
+    assert COVID.name
+
+
+def test_batched_switch_and_prefix_sum_on_cpu_tensors():
+    """The batched decision, the stacked LP and the pool's prefix sum run
+    on CPU tensors with the port's dependencies alone."""
+    from repro_torch.core import api, planner, switcher
+    V, C, K = 3, 2, 3
+    tables = switcher.SwitchTables(
+        centers=torch.tensor([[0.2, 0.5, 0.9], [0.1, 0.3, 0.6]]),
+        power=torch.tensor([0.3, 0.6, 0.9]),
+        cost=torch.tensor([1.0, 2.0, 4.0]),
+        place_rt=torch.tensor([[0.5], [1.0], [2.0]]),
+        place_on=torch.tensor([[1.0], [2.0], [4.0]]),
+        place_cl=torch.zeros(3, 1), place_valid=torch.ones(3, 1, dtype=bool),
+        rank_pos=torch.tensor([2, 1, 0]), tau=torch.tensor(2.0),
+        buffer_cap_s=torch.tensor(10.0), cloud_budget=torch.tensor(0.0))
+    stacked = switcher.stack_tables([tables] * V)
+    state = switcher.init_state_multi([tables] * V)
+    alpha = planner.solve_lp_stacked(stacked.centers, tables.cost,
+                                     torch.full((V, C), 0.5), 6.0)
+    assert alpha.shape == (V, C, K)
+    torch.testing.assert_close(alpha.sum(-1), torch.ones(V, C))
+    state, outs = switcher.run_window_multi(
+        state, torch.rand(V, 4, K, generator=torch.Generator()
+                          .manual_seed(0)),
+        torch.ones(V, 4), alpha, stacked)
+    assert outs["k"].shape == (V, 4) and not outs["dropped"].any()
+    x = torch.arange(40, dtype=torch.float32)
+    assert torch.equal(api._prefix_sum(x), torch.cumsum(x, 0))

@@ -11,7 +11,18 @@ reference fit's tables carried across.
   uniform plan the fused run starts from and on the rationed entry
   point; and vs ``solve_lp_scipy`` by plan value, as
   tests/test_planner.py checks, including K=1 and infeasible budgets.
+- The stacked and batched LPs of the multi-stream run and the serving
+  pool, bit for bit on a seeded grid (V in {1, 2, 3, 8, 16, 64}, C in
+  2..8, K from 3 to 24): ``solve_lp_stacked`` (one LP of V*C rows, with
+  and without priority weights) against the reference's, and
+  ``solve_lp_batched`` against ``jax.vmap(solve_lp_lagrangian)``, the
+  pool's replan, whose XLA program adds its spends in other orders. A
+  budget one float32 step either side of the unconstrained plan's
+  spend pins the order of the spends outside the bisection loop too.
+- The pool's shed prefix sum (``api._prefix_sum``) against the
+  reference's compiled ``jnp.cumsum``, bit for bit.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +31,7 @@ import torch
 from _torch_parity import port_fitted, ref_fitted
 from repro.core import planner as RP
 from repro.core import switcher as RS
+from repro_torch.core import api as PA
 from repro_torch.core import planner as PP
 from repro_torch.core import switcher as PS
 
@@ -156,3 +168,197 @@ def test_lp_rationed_matches_reference():
                                    torch.tensor(f.cost), torch.tensor(r),
                                    **kw).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# stacked and batched LPs (the multi-stream run and the serving pool)
+# ---------------------------------------------------------------------------
+
+GRID_V = (1, 2, 3, 8, 16, 64)
+GRID_CK = [(C, K) for C in range(2, 9) for K in (3, 8, 17, 24)]
+
+
+def _stacked_case(seed, V, C, K, joint=True):
+    rng = np.random.default_rng(seed)
+    qual = rng.random((V, C, K)).astype(np.float32)
+    cost = np.sort(rng.random(K) * 10 + 0.1).astype(np.float32)
+    r = rng.random((V, C)).astype(np.float32) + 0.01
+    r /= r.sum(1, keepdims=True)
+    scale = V if joint else 1
+    budgets = (np.float32(rng.random() * 12 * scale),
+               np.float32(rng.random() * 6 * scale))
+    w = (rng.random(V) * 3 + 0.5).astype(np.float32)
+    return qual, cost, r, budgets, w
+
+
+@pytest.mark.parametrize("V", GRID_V)
+def test_lp_stacked_matches_reference(V):
+    """The joint LP of V streams (``_fused_run_multi``'s plan): V*C rows
+    reach XLA's tree-reduced spend past 32 and its vectorised kernels
+    below; each budget's plan bit-exact."""
+    for C, K in GRID_CK:
+        qual, cost, r, budgets, _ = _stacked_case(V * 1000 + C * 31 + K, V,
+                                                  C, K)
+        for b in budgets:
+            want = np.asarray(RP.solve_lp_stacked(
+                jnp.asarray(qual), jnp.asarray(cost), jnp.asarray(r), b))
+            got = PP.solve_lp_stacked(torch.tensor(qual), torch.tensor(cost),
+                                      torch.tensor(r), b).numpy()
+            np.testing.assert_array_equal(got, want, err_msg=str((C, K, b)))
+
+
+@pytest.mark.parametrize("V", (1, 3, 8, 16))
+def test_lp_stacked_weighted_matches_reference(V):
+    """The pool's priority-weighted joint LP (``_pool_replan_stacked``):
+    outside the loop XLA contracts the weighting into the score."""
+    f = jax.jit(lambda q, c, r, b, w: RP.solve_lp_stacked(q, c, r, b,
+                                                          weights=w))
+    for C, K in GRID_CK[::2]:
+        qual, cost, r, budgets, w = _stacked_case(V * 977 + C * 13 + K, V,
+                                                  C, K)
+        for b in budgets:
+            want = np.asarray(f(jnp.asarray(qual), jnp.asarray(cost),
+                                jnp.asarray(r), b, jnp.asarray(w)))
+            got = PP.solve_lp_stacked(torch.tensor(qual), torch.tensor(cost),
+                                      torch.tensor(r), b,
+                                      weights=torch.tensor(w)).numpy()
+            np.testing.assert_array_equal(got, want, err_msg=str((C, K, b)))
+
+
+def _vmapped():
+    return jax.jit(lambda q, c, r, b: jax.vmap(
+        lambda rv: RP.solve_lp_lagrangian(q, c, rv, b))(r))
+
+
+@pytest.mark.parametrize("V", GRID_V)
+def test_lp_batched_matches_vmapped_reference(V):
+    """The pool's independent replans (``_pool_replan`` vmaps the solver
+    over the slots): each stream's plan bit-exact, where a per-stream
+    loop of the plain solver differs (XLA hoists and vectorises the
+    batched program's spends otherwise)."""
+    f = _vmapped()
+    for C, K in GRID_CK:
+        qual, cost, r, budgets, _ = _stacked_case(V * 733 + C * 7 + K, V, C,
+                                                  K, joint=False)
+        for b in budgets:
+            want = np.asarray(f(jnp.asarray(qual[0]), jnp.asarray(cost),
+                                jnp.asarray(r), b))
+            got = PP.solve_lp_batched(torch.tensor(qual[0]),
+                                      torch.tensor(cost), torch.tensor(r),
+                                      b).numpy()
+            np.testing.assert_array_equal(got, want, err_msg=str((C, K, b)))
+
+
+@pytest.mark.parametrize("kind", ("stacked", "batched"))
+def test_lp_outside_spend_order(kind):
+    """The unconstrained plan's spend s0 decides ``s0 <= budget``: with
+    the budget at the port's s0 the plan is that plan, one float32 step
+    below it the blend; the reference must agree at both, so its s0 is
+    the port's to the bit."""
+    f = _vmapped()
+    for V in (1, 2, 3, 8, 16, 64):
+        for C in range(1, 9):
+            K = 3 + (V + C) % 10
+            rng = np.random.default_rng(V * 100 + C)
+            qual = rng.random((V, C, K)).astype(np.float32)
+            cost = np.sort(rng.random(K) * 10 + 0.1).astype(np.float32)
+            r = rng.random((V, C)).astype(np.float32) + 0.01
+            r /= r.sum(1, keepdims=True)
+            if kind == "stacked":
+                _, s0 = PP._pick(torch.tensor(qual).reshape(1, V * C, K),
+                                 torch.tensor(cost),
+                                 torch.tensor(r).reshape(1, V * C),
+                                 torch.zeros(1), False)
+            else:
+                _, s0 = PP._pick(torch.tensor(qual[0]).expand(V, C, K),
+                                 torch.tensor(cost), torch.tensor(r),
+                                 torch.zeros(V), V > 1)
+            top = np.float32(s0.max())
+            for b in (top, np.nextafter(top, np.float32(-np.inf))):
+                if kind == "stacked":
+                    want = np.asarray(RP.solve_lp_stacked(
+                        jnp.asarray(qual), jnp.asarray(cost),
+                        jnp.asarray(r), b))
+                    got = PP.solve_lp_stacked(
+                        torch.tensor(qual), torch.tensor(cost),
+                        torch.tensor(r), b).numpy()
+                else:
+                    want = np.asarray(f(jnp.asarray(qual[0]),
+                                        jnp.asarray(cost), jnp.asarray(r),
+                                        b))
+                    got = PP.solve_lp_batched(
+                        torch.tensor(qual[0]), torch.tensor(cost),
+                        torch.tensor(r), b).numpy()
+                np.testing.assert_array_equal(got, want,
+                                              err_msg=str((V, C, K, b)))
+
+
+def test_lp_batched_is_one_chain_of_tensor_ops():
+    """The batched solver costs the same number of tensor ops for 2 and
+    for 64 streams (no Python loop over streams)."""
+    def n_ops(V):
+        q = torch.rand(4, 6, generator=torch.Generator().manual_seed(0))
+        c = torch.linspace(1.0, 3.0, 6)
+        r = torch.full((V, 4), 0.25)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) as prof:
+            PP.solve_lp_batched(q, c, r, 2.0, iters=8)
+        return sum(e.count for e in prof.key_averages())
+    assert n_ops(2) == n_ops(64)
+
+
+@pytest.mark.parametrize("n", (1, 5, 16, 17, 100, 256, 257, 1000, 4096))
+def test_prefix_sum_matches_xla_cumsum(n):
+    """XLA's CPU cumsum is a blocked scan of 16 (its reduce-window
+    rewrite), not a sequential sum past 16 values; the port's prefix sum
+    takes that order, in elementwise adds."""
+    f = jax.jit(jnp.cumsum)
+    for seed in range(3):
+        rng = np.random.default_rng(seed * 10_000 + n)
+        x = (rng.random(n) * 10.0 ** rng.integers(-1, 4)).astype(np.float32)
+        np.testing.assert_array_equal(
+            PA._prefix_sum(torch.tensor(x)).numpy(),
+            np.asarray(f(jnp.asarray(x))))
+
+
+# the LPs at the card's sizes: the multi-stream run's joint plan (256
+# streams x 4 categories = 1,024 rows, 32 windows of 32), one past it that
+# is no multiple of 32 (1,100 rows: a padded window), and the pool's
+# replans at its top slot bucket (2,048 slots x 3 categories: 6,144 rows,
+# past 32 windows, so the tree reduction recurses)
+CARD_SHAPES = [("stacked", 256, 4, 8), ("stacked", 275, 4, 8),
+               ("stacked", 2048, 3, 3), ("weighted", 512, 3, 3),
+               ("weighted", 275, 4, 8), ("weighted", 2048, 3, 3),
+               ("batched", 512, 3, 3), ("batched", 2048, 3, 3)]
+
+
+@pytest.mark.parametrize("kind,V,C,K", CARD_SHAPES)
+def test_lp_matches_reference_at_card_shapes(kind, V, C, K):
+    """Bit-exact plans at the sizes the card runs, for binding budgets
+    (the blend reads every in-loop spend) and at the unconstrained
+    plan's spend and one float32 step below it (the outside spend)."""
+    qual, cost, r, budgets, w = _stacked_case(V * 11 + C + K, V, C, K,
+                                              joint=kind != "batched")
+    tq, tc, tr = torch.tensor(qual), torch.tensor(cost), torch.tensor(r)
+    if kind == "batched":
+        f = _vmapped()
+        ref = lambda b: f(jnp.asarray(qual[0]), jnp.asarray(cost),  # noqa
+                          jnp.asarray(r), b)
+        port = lambda b: PP.solve_lp_batched(tq[0], tc, tr, b)      # noqa
+        _, s0 = PP._pick(tq[0].expand(V, C, K), tc, tr, torch.zeros(V), True)
+    else:
+        wj = jnp.asarray(w) if kind == "weighted" else None
+        wt = torch.tensor(w) if kind == "weighted" else None
+        f = jax.jit(lambda q, c, rr, b, ww: RP.solve_lp_stacked(
+            q, c, rr, b, weights=ww))
+        ref = lambda b: f(jnp.asarray(qual), jnp.asarray(cost),     # noqa
+                          jnp.asarray(r), b, wj)
+        port = lambda b: PP.solve_lp_stacked(tq, tc, tr, b,         # noqa
+                                             weights=wt)
+        wq = tq if wt is None else tq * wt[:, None, None]
+        _, s0 = PP._pick(wq.reshape(1, V * C, K), tc, tr.reshape(1, V * C),
+                         torch.zeros(1), False)
+    top = np.float32(s0.max())
+    for b in budgets + (top, np.nextafter(top, np.float32(-np.inf))):
+        np.testing.assert_array_equal(port(b).numpy(), np.asarray(ref(b)),
+                                      err_msg=str((kind, V, C, K, b)))
