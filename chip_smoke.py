@@ -176,6 +176,28 @@ script fails before it prints a result.
               answer and alerts against the CPU registry's and the
               float64 oracle, exactly (a min); then, plans pinned, each
               stream of a small pool against ``switch_step`` alone.
+12c. sharded  the sharded warehouse, K1's counts set to 0 just before
+              each of its two driven parts: an 8-shard ``ShardedStore``
+              of the main phase's 256 camera-days (32 a shard), landed
+              camera by camera with the main plans and subscription
+              registered, so each ingest folds its rows through K1 on
+              their shard; the five plans through ``execute_sharded`` (8
+              K1 partials each) held against the single store's answers
+              and the float64 oracle, a compressed sum of ``out`` within
+              S (max|ref| / 127 + 1e-3), a row TopK and a row plan equal
+              to the single store's rows; the standing answers against
+              the main registry's; ``rebalance`` to 4 shards (each new
+              shard the old shards' rows in order, bit for bit; plans and
+              the replayed registry); the multi phase's run landed again
+              in an 8-shard sink and the pool script run again into a
+              4-shard sink, each shard the single sink's rows of its
+              streams in order, the pool's statuses and alerts equal; a
+              ``TieredStore`` of 8 camera-days saved and loaded (every
+              array bit for bit, the answers bit for bit on the CPU's
+              plain path); then a ``ShardedTieredStore`` with one
+              camera-day hot per shard, the plans over its view within
+              the quantization bound, the standing answers unchanged.
+              K1 timed as one shard's partial (1,382,400 rows).
 13. tiers     the main store in a ``TieredStore``, all but the newest
               camera-day spilled to int8; the main plans over the
               two-tier view through K1, against the float64 oracle of
@@ -230,6 +252,7 @@ tables within twice that of ``store.query``'s, max and min exactly.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -274,6 +297,10 @@ POOL_TICKS = (40, 30, 40, 30, 60)   # per section; the last is the squeeze
 POOL_SQUEEZE = 0.6                  # capacity, of the unconstrained demand
 POOL_BANDS = 4                      # priority bands 1..4
 POOL_PINNED = (24, 30)              # streams, ticks of the oracle check
+SHARDS = 8                          # the sharded store: 32 cameras a shard
+REBALANCE_SHARDS = 4
+POOL_SHARDS = 4                     # the pool's sharded sink
+CKPT_DAYS = 8                       # camera-days in the saved warehouse
 
 
 def emit(phase: str, **fields) -> None:
@@ -953,10 +980,11 @@ _RUN_COLUMNS = (("c", "category"), ("k", "k"), ("qual", "quality"),
                 ("buffer_s", "buffer_s"))
 
 
-def fill(store, day):
-    """Cameras 1..255: camera 0's day (``day``, its rows), each on a clock
-    rotated by ROTATE segments more, landed as that camera's fused run."""
-    for cam in range(1, CAMERAS):
+def fill(store, day, cameras=None):
+    """Cameras 1..cameras-1 (CAMERAS by default): camera 0's day
+    (``day``, its rows), each on a clock rotated by ROTATE segments more,
+    landed as that camera's fused run."""
+    for cam in range(1, cameras or CAMERAS):
         r = cam * ROTATE
         traces = {src: day[dst].roll(r) for src, dst in _RUN_COLUMNS}
         store.ingest_fused(traces, day["out"].roll(r, 0), stream_id=cam)
@@ -1174,27 +1202,27 @@ def hold_table(name, got, want, node, acc, cnt, scale):
     the float64 oracle; after a TopK, the selected values sorted."""
     (gt, gm), (wt, wm) = got, want
     if not torch.equal(gm.cpu(), wm.cpu()):
-        raise AssertionError(f"standing {name}: masks differ from query's")
+        raise AssertionError(f"{name}: masks differ")
     g = {k: v.double().cpu().numpy() for k, v in gt.items()}
     w = {k: v.double().cpu().numpy() for k, v in wt.items()}
     if "index" in g:                        # a TopK after the reducer
         a, b = np.sort(g[node.value]), np.sort(w[node.value])
         if not np.allclose(a, b, rtol=2 * FLOAT_TOL, atol=2e-6):
-            raise AssertionError(f"standing {name}: top values {a} vs {b}")
+            raise AssertionError(f"{name}: top values {a} vs {b}")
         return float(np.abs(a - b).max())
     for k in g:
         if k != node.value and not np.array_equal(g[k], w[k]):
-            raise AssertionError(f"standing {name}: column {k} differs")
+            raise AssertionError(f"{name}: column {k} differs")
     if node.agg in ("max", "min", "count"):
         if not np.array_equal(g[node.value], w[node.value]):
-            raise AssertionError(f"standing {name}: {node.agg} not exact")
+            raise AssertionError(f"{name}: {node.agg} not exact")
         return 0.0
     if node.agg == "mean":
         c = np.maximum(cnt, 1)
         scale = scale / (c if scale.ndim == 1 else c[:, None])
     diff = np.abs(g[node.value] - w[node.value])
     if not np.all(diff <= 2 * FLOAT_TOL * scale + 2e-6):
-        raise AssertionError(f"standing {name}: {node.agg} off by "
+        raise AssertionError(f"{name}: {node.agg} off by "
                              f"{float(diff.max())}")
     return float(diff.max())
 
@@ -1222,7 +1250,8 @@ def phase_standing(m):
                                 FLOAT_TOL * scale + 1e-6)
         _, node, _ = Q.split_plan(plan)
         want = m["results"].get(name) or store.query(plan)
-        err_q = hold_table(name, reg.answer(h), want, node, acc, cnt, scale)
+        err_q = hold_table(f"standing {name} vs query", reg.answer(h), want,
+                           node, acc, cnt, scale)
         per[name] = {"groups": spec.num_groups, "agg": spec.agg,
                      "vs_f64": err_f64, "vs_query": err_q,
                      "answer_ms": wall_ms(lambda: reg.answer(h), 20),
@@ -1940,6 +1969,20 @@ def _k1_zero():
     ST.FOLDS.update(kernel=0, engine=0)
 
 
+def _keep_multi_ingest(store):
+    """Keep what the run hands ``store.ingest_fused_multi`` (its traces,
+    output vectors and stream base), which the sharded phase lands again
+    in a sharded sink; the ingest itself runs as before."""
+    kept = {}
+    ingest = store.ingest_fused_multi
+
+    def keep(traces, out_vecs, **kw):
+        kept.update(traces=traces, out_vecs=out_vecs, kw=kw)
+        return ingest(traces, out_vecs, **kw)
+    store.ingest_fused_multi = keep
+    return kept
+
+
 def _multi_run(fitted, streams, dev, sink):
     from repro_torch.core.ingest import run_skyscraper_multi
     return run_skyscraper_multi(
@@ -1965,11 +2008,9 @@ def phase_multi(dev, m):
     store = SegmentStore(out_dim=len(fitted.configs), device=dev)
     reg = StandingQueries(store)
     plans = main_plans((T - 1) // WINDOW + 1)
-    handles = {name: reg.register(plan) for name, plan in plans.items()}
-    sub_plan, predicate, _ = standing_extra(len(fitted.configs))
-    sid = reg.subscribe(sub_plan, predicate, name="cloud_spend")
-    handles["cloud_spend"] = reg._subs[sid].handle
-    plans["cloud_spend"] = sub_plan
+    handles = _registered(reg, plans, len(fitted.configs))
+    plans["cloud_spend"] = standing_extra(len(fitted.configs))[0]
+    kept = _keep_multi_ingest(store)
     _k1_zero()
     torch.cuda.reset_peak_memory_stats()
     out, run_s = timed(lambda: _multi_run(fitted, streams, dev, store))
@@ -2005,7 +2046,7 @@ def phase_multi(dev, m):
                              f"{paths}")
     return dict(out=out, store=store, reg=reg, handles=handles, plans=plans,
                 streams=streams, T=T, run_s=run_s, launches=launches,
-                results=results, fitted=fitted)
+                results=results, fitted=fitted, kept=kept)
 
 
 def phase_multi_check(mm):
@@ -2066,7 +2107,8 @@ def phase_multi_check(mm):
                 node, post, acc, cnt, scale)
         want = mm["results"].get(name) or store.query(plan)
         e["standing_vs_query"] = hold_table(
-            f"multi {name}", reg.answer(mm["handles"][name]), want, node,
+            f"multi standing {name} vs query",
+            reg.answer(mm["handles"][name]), want, node,
             acc, cnt, scale)
         errs[name] = e
     emit("multi_check", cpu_run_s=cpu_s, rows_equal=True,
@@ -2389,6 +2431,340 @@ def _hold_shed_watch(pp, host, cpu_reg, cpu_handle, cpu_pool):
     return err
 
 
+def _registered(reg, plans, n_configs):
+    """Register ``plans`` and the cloud-spend subscription on ``reg``;
+    returns their handles by name."""
+    handles = {name: reg.register(plan) for name, plan in plans.items()}
+    sub_plan, predicate, _ = standing_extra(n_configs)
+    sid = reg.subscribe(sub_plan, predicate, name="cloud_spend")
+    handles["cloud_spend"] = reg._subs[sid].handle
+    return handles
+
+
+def _land_days(store, day, cameras):
+    """Cameras 0..cameras-1: camera 0's day, then ``fill``."""
+    store.ingest_fused({src: day[dst] for src, dst in _RUN_COLUMNS},
+                       day["out"], stream_id=0)
+    fill(store, day, cameras)
+
+
+def _same_layout(what, got, want_cols, want_counts, rows_of):
+    """Each shard of ``got`` holds, bit for bit and in order, the rows
+    ``rows_of(s)`` (a device index) of ``want_cols``."""
+    for s in range(got.n_shards):
+        idx = rows_of(s)
+        if int(got.n_rows_by_shard[s]) != len(idx):
+            raise AssertionError(f"{what}: shard {s} holds "
+                                 f"{got.n_rows_by_shard[s]} rows, "
+                                 f"{len(idx)} expected")
+        for k, col in got.columns.items():
+            if not torch.equal(col[s, :len(idx)],
+                               want_cols[k].index_select(0, idx)):
+                raise AssertionError(f"{what}: shard {s} column {k} "
+                                     "differs")
+    if int(np.sum(got.n_rows_by_shard)) != want_counts:
+        raise AssertionError(f"{what}: {got.n_rows} rows, {want_counts} "
+                             "expected")
+
+
+def _shard_view_host(cols, counts):
+    """A stacked view's live rows, shard-major, as host numpy."""
+    return {k: np.concatenate([v[s, :n].cpu().numpy()
+                               for s, n in enumerate(counts)])
+            for k, v in cols.items()}
+
+
+def phase_sharded(dev, m, mm, pp):
+    """The sharded warehouse, K1's counts set to 0 just before each of
+    its two driven parts and read just after: an 8-shard
+    ``ShardedStore`` of the main phase's 256 camera-days (32 cameras a
+    shard), the main plans and subscription registered first so each
+    ingest folds through K1; the five plans through ``execute_sharded``
+    (one K1 partial per shard), a compressed sum, a row TopK and a row
+    plan; ``rebalance`` to 4 shards; the multi phase's kept run landed in
+    an 8-shard sink and the pool script again into a 4-shard sink; a
+    ``TieredStore`` of 8 camera-days saved and loaded; then (the second
+    part) a ``ShardedTieredStore`` keeping one camera-day hot per shard
+    and the plans over its two-tier view. Everything is held, and timed,
+    outside the counted parts."""
+    from repro_torch.runtime.elastic import rebalance
+    from repro_torch.warehouse import (Filter, GroupBy, Project,
+                                       SegmentStore, ShardedStore,
+                                       ShardedTieredStore, StandingQueries,
+                                       TieredStore, TopK, load_warehouse,
+                                       save_warehouse, to_host)
+    from repro_torch.warehouse import query as Q
+    t_phase = time.perf_counter()
+    main, day, T = m["store"], m["day"], m["stream"].n_segments
+    D = main.out_dim
+    plans = main_plans((T - 1) // WINDOW + 1)
+    sec = {}
+    # -- the first counted part ------------------------------------------
+    store = ShardedStore(out_dim=D, n_shards=SHARDS, device=dev)
+    reg = StandingQueries(store)
+    handles = _registered(reg, plans, D)
+    _k1_zero()
+    torch.cuda.reset_peak_memory_stats()
+    _, sec["fill"] = timed(lambda: _land_days(store, day, CAMERAS))
+    fold_launches, _, folds = _k1_counts()
+    results = {name: store.query(plan) for name, plan in plans.items()}
+    query_launches = _k1_counts()[0] - fold_launches
+    wide = (GroupBy("category", "out", agg="sum", num_groups=4),)
+    compressed = store.query(wide, compressed=True, seed=1)
+    topk = (Filter("stream_id", "eq", 7), TopK(16, by="on_core_s"))
+    rowplan = (Filter("stream_id", "eq", 7), Filter("t", "lt", 600),
+               Project(("t", "k", "quality", "buffer_s")))
+    row_answers = {"topk": store.query(topk), "rows": store.query(rowplan)}
+    alerts = reg.poll()
+    new, sec["rebalance"] = timed(lambda: rebalance(store, REBALANCE_SHARDS,
+                                                    device=dev))
+    re_results = {name: new.query(plan) for name, plan in plans.items()}
+    msink = ShardedStore(out_dim=mm["store"].out_dim, n_shards=SHARDS,
+                         device=dev)
+    kept = mm.pop("kept")
+    _, sec["multi_sink"] = timed(lambda: msink.ingest_fused_multi(
+        kept["traces"], kept["out_vecs"], **kept["kw"]))
+    psink = ShardedStore(out_dim=pp["sink"].out_dim, n_shards=POOL_SHARDS,
+                         device=dev)
+    preg, _, phandle = _shed_watch(psink)
+    (plog, ppool, _, _, _), sec["pool"] = timed(
+        lambda: pool_script(_sky_on(pp["sky"], dev), dev, psink))
+    small = SegmentStore(out_dim=D, device=dev)
+    _land_days(small, day, CKPT_DAYS)
+    ts = TieredStore(small, seed=0, device=dev)
+    ts.spill(keep_hot=T)
+    path = ROOT / "build" / "chip_smoke_warehouse.rsk"
+    _, sec["save"] = timed(lambda: save_warehouse(str(path), ts))
+    back, sec["load"] = timed(lambda: load_warehouse(str(path), device=dev))
+    ck_card = {name: (ts.query(p), back.query(p))
+               for name, p in plans.items()}
+    launches, paths, _ = _k1_counts()
+    host, n = store.host_rows(), store.n_rows
+    counts = store.n_rows_by_shard.copy()
+    answers = {name: reg.answer(h) for name, h in handles.items()}
+    answers = {k: ({c: v.clone() for c, v in t.items()}, mk.clone())
+               for k, (t, mk) in answers.items()}
+    plan_ms = {name: {"sharded": wall_ms(lambda p=p: store.query(p), 5),
+                      "single": wall_ms(lambda p=p: main.query(p), 5),
+                      "rebalanced": wall_ms(lambda p=p: new.query(p), 5)}
+               for name, p in plans.items()}
+    k1 = time_shards(store, plans, host)
+    # rebalance: new shard j holds old shards j, j + 4, ... in order
+    cap = store.capacity
+    _same_layout("rebalance", new,
+                 {k: v.reshape((-1,) + v.shape[2:])
+                  for k, v in store.columns.items()}, n,
+                 lambda j: torch.cat([
+                     torch.arange(s * cap, s * cap + int(counts[s]),
+                                  device=dev)
+                     for s in range(j, SHARDS, REBALANCE_SHARDS)]))
+    # -- the second counted part: the two-tier view ----------------------
+    tiered = ShardedTieredStore(store, seed=0, device=dev)
+    _k1_zero()
+    spilled, sec["spill"] = timed(lambda: tiered.spill(keep_hot=T))
+    (vcols, vcounts), sec["view"] = timed(tiered.shard_source)
+    tier_results = {name: tiered.query(plan) for name, plan in plans.items()}
+    tier_launches, tier_paths, _ = _k1_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name, p in plans.items():
+        plan_ms[name]["two_tier"] = wall_ms(lambda p=p: tiered.query(p), 5)
+    file_bytes = path.stat().st_size
+
+    # -- hold ------------------------------------------------------------
+    errs = {}
+    want_folds = CAMERAS * len(handles)
+    if folds != {"kernel": want_folds, "engine": 0} \
+            or fold_launches != want_folds:
+        raise AssertionError(f"sharded: the ingests did not each fold "
+                             f"once per query through K1: {folds}, "
+                             f"{fold_launches} launches")
+    if query_launches != SHARDS * len(plans) \
+            or tier_launches != SHARDS * len(plans) \
+            or tier_paths != {"kernel": len(plans), "engine": 0}:
+        raise AssertionError(f"sharded: {query_launches} and "
+                             f"{tier_launches} K1 launches for "
+                             f"{len(plans)} plans over {SHARDS} shards")
+    if not (n == main.n_rows == CAMERAS * T
+            and np.all(counts == CAMERAS // SHARDS * T)):
+        raise AssertionError(f"sharded: {store!r}")
+    shard0 = {k: v[0] for k, v in store.columns.items()}
+    oracles = {}
+    for name, plan in {**plans, "cloud_spend": m["standing_plans"][
+            "cloud_spend"]}.items():
+        spec, _, filters = _spec_of(plan, shard0)
+        oracles[name] = oracle(host, n, filters, spec.keys, spec.value,
+                               spec.agg)
+    for name, plan in plans.items():
+        _, node, post = Q.split_plan(plan)
+        acc, cnt, scale = oracles[name]
+        errs[name] = {
+            "vs_f64": hold_oracle(f"sharded {name} vs float64",
+                                  results[name], node, post, acc, cnt,
+                                  scale),
+            "vs_single": hold_table(f"sharded {name} vs the single store",
+                                    results[name], m["results"][name], node,
+                                    acc, cnt, scale),
+            "rebalanced_vs_f64": hold_oracle(
+                f"rebalanced {name} vs float64", re_results[name], node,
+                post, acc, cnt, scale)}
+    for name, h in handles.items():
+        _, node, _ = Q.split_plan(m["standing_plans"][name])
+        acc, cnt, scale = oracles[name]
+        errs.setdefault(name, {})["standing_vs_single"] = hold_table(
+            f"sharded standing {name} vs the single registry",
+            answers[name], m["reg"].answer(m["handles"][name]), node, acc,
+            cnt, scale)
+        errs[name]["rebalanced_standing"] = hold_table(
+            f"rebalanced standing {name}", new.standing.answer(h),
+            answers[name], node, acc, cnt, scale)
+        t1, m1 = reg.answer(h)                    # after the spill
+        t0, m0 = answers[name]
+        if not (torch.equal(m0, m1) and all(torch.equal(t0[c], t1[c])
+                                            for c in t0)):
+            raise AssertionError(f"sharded tiers: the standing answer "
+                                 f"{name} moved")
+    (alert,) = alerts
+    spend = alert.table["cloud_core_s"].astype(np.float64)
+    if not np.array_equal(alert.fired, (alert.table["count"] > 0)
+                          & (spend >= reg._subs[alert.sub].predicate.value)):
+        raise AssertionError("sharded: the alert mask is not the predicate's")
+    # the compressed sum: counts exact, within S (max|ref| / 127 + 1e-3)
+    acc, cnt, _ = oracle(host, n, [], (("category", 4, 0),), "out", "sum")
+    ct = compressed[0]
+    if not np.array_equal(ct["count"].cpu().numpy(), cnt):
+        raise AssertionError("sharded: compressed counts differ")
+    comp_err = float(np.abs(ct["out"].double().cpu().numpy() - acc).max())
+    comp_bound = SHARDS * (float(np.abs(acc).max()) / 127 + 1e-3)
+    if comp_err > comp_bound:
+        raise AssertionError(f"sharded: compressed sum off by {comp_err} "
+                             f"(bound {comp_bound})")
+    # the row TopK and the row plan: the single store's rows exactly
+    for what, plan in (("topk", topk), ("rows", rowplan)):
+        got, want = to_host(*row_answers[what]), to_host(*main.query(plan))
+        for k in want:
+            if k != "index" and not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"sharded {what}: column {k} differs")
+    # the two-tier view: within the quantization bound, the counters
+    bound = tiered.max_cold_scale()
+    view = _shard_view_host(vcols, vcounts)
+    vshard = {k: v[0] for k, v in vcols.items()}
+    tier_errs = {name: _tier_answer(f"sharded {name}", plan,
+                                    tier_results[name], results[name],
+                                    vshard, view, host, n, bound)
+                 for name, plan in plans.items()}
+    tel = tiered.telemetry()
+    if (tel.spill_events, tel.spilled_rows, tel.dequantize_events,
+            tel.n_rows) != (1, spilled, 1, n) or \
+            spilled < n - SHARDS * (T + store.chunk_rows):
+        raise AssertionError(f"sharded tier counters: {tel.summary()}")
+    # the multi sink: shard s holds streams s, s + 8, ... in order
+    MT = mm["T"]
+    _same_layout("multi sink", msink,
+                 {k: v[:mm["store"].n_rows]
+                  for k, v in mm["store"].columns.items()},
+                 mm["store"].n_rows, lambda s: torch.cat([
+                     torch.arange(v * MT, (v + 1) * MT, device=dev)
+                     for v in range(s, MULTI_STREAMS, SHARDS)]))
+    # the pool sink: the same statuses, each shard the single sink's rows
+    # of its streams in order, the same alerts and shed-watch answer
+    if plog != pp["log"]:
+        raise AssertionError("sharded pool: statuses differ")
+    ph = pp["sink"].host_rows()
+    owner = ph["stream_id"] % POOL_SHARDS
+    _same_layout("pool sink", psink,
+                 {k: torch.as_tensor(v, device=dev) for k, v in ph.items()},
+                 pp["sink"].n_rows,
+                 lambda s: torch.as_tensor(np.flatnonzero(owner == s),
+                                           device=dev))
+    card_alerts = pp["pool"].alerts
+    if [a.name for a in ppool.alerts] != [a.name for a in card_alerts] or \
+            not all(np.array_equal(a.fired, b.fired)
+                    for a, b in zip(ppool.alerts, card_alerts)):
+        raise AssertionError("sharded pool: alerts differ")
+    (t1, m1), (t0, m0) = preg.answer(phandle), pp["reg"].answer(pp["handle"])
+    if not (torch.equal(m1, m0) and all(torch.equal(t1[c], t0[c])
+                                        for c in t0)):
+        raise AssertionError("sharded pool: the shed-watch differs")
+    # the checkpoint: every array bit for bit, the answers on the card
+    # within tolerance, and bit for bit on the CPU's plain path
+    for mine, theirs in ((back.hot.columns, ts.hot.columns),
+                         (back.cold_q, ts.cold_q),
+                         (back.cold_scales, ts.cold_scales),
+                         (back.cold_int, ts.cold_int)):
+        for k, v in theirs.items():
+            if not torch.equal(mine[k], v):
+                raise AssertionError(f"checkpoint: {k} differs")
+    if (back.n_cold, back.hot.n_rows, back.hot.t_max) != (
+            ts.n_cold, ts.hot.n_rows, ts.hot.t_max):
+        raise AssertionError("checkpoint: the tier's counts differ")
+    cpu_back = load_warehouse(str(path), device="cpu")
+    path.unlink()
+    vc, vn = ts.materialize()
+    cpu_view = ({k: v.cpu() for k, v in vc.items()}, vn)
+    vhost = {k: v[:vn].numpy() for k, v in cpu_view[0].items()}
+    for name, plan in plans.items():
+        spec, _, filters = _spec_of(plan, small.columns)
+        acc, cnt, scale = oracle(vhost, vn, filters, spec.keys, spec.value,
+                                 spec.agg)
+        _, node, _ = Q.split_plan(plan)
+        a0, a1 = ck_card[name]
+        hold_table(f"checkpoint {name} on the card", a1, a0, node, acc, cnt,
+                   scale)
+        (g, gm), (w, wm) = cpu_back.query(plan), Q.execute(cpu_view, plan)
+        if not (torch.equal(gm, wm) and all(torch.equal(g[c], w[c])
+                                            for c in w)):
+            raise AssertionError(f"checkpoint {name}: not bit-identical")
+    stel = store.telemetry()
+    emit("sharded", phase_s=time.perf_counter() - t_phase, shards=SHARDS,
+         rows=n, rows_by_shard=counts.tolist(),
+         imbalance=float(np.max(counts) / np.mean(counts)),
+         capacity=store.capacity, seconds=sec,
+         fill_s_per_ingest=sec["fill"] / CAMERAS, main_fill_s=m["fill_s"],
+         launches=launches + tier_launches, fold_launches=fold_launches,
+         query_launches=query_launches, tier_launches=tier_launches,
+         paths=paths, plan_ms=plan_ms, errors=errs, tier_errors=tier_errs,
+         compressed={"max_abs_err": comp_err, "bound": comp_bound},
+         spilled_rows=spilled, max_cold_scale=bound,
+         rebalanced={"shards": REBALANCE_SHARDS, "capacity": new.capacity,
+                     "rows_by_shard": new.n_rows_by_shard.tolist()},
+         multi_sink_rows=msink.n_rows_by_shard.tolist(),
+         pool_sink_rows=psink.n_rows_by_shard.tolist(),
+         checkpoint={"rows": ts.n_rows, "cold_rows": ts.n_cold,
+                     "file_bytes": file_bytes, "save_s": sec["save"],
+                     "load_s": sec["load"]},
+         peak_mem_bytes=peak, store_telemetry=stel.summary(),
+         tier_telemetry=tel.summary(), alerts_fired=alert.n_fired,
+         k1_shard=k1)
+    worst = max(max(e.get("vs_f64", 0.0), e.get("rebalanced_vs_f64", 0.0))
+                for e in errs.values())
+    del new, msink, psink, tiered, vcols
+    torch.cuda.empty_cache()
+    return dict(launches=launches + tier_launches, k1=k1,
+                err=max(worst, k1["max_abs_err"],
+                        max(e[0] for e in tier_errs.values())))
+
+
+def time_shards(store, plans, host):
+    """K1 as one shard's partial at the main plans' shape: every shard's
+    five partials timed together (kernel only; the median over the
+    shards is the kernel's ms), and shard 0's held against its plain
+    version and the float64 oracle with its plain-version, library and
+    byte-bound times (``time_k1``)."""
+    from repro_torch.kernels import warehouse_agg as K
+    per_shard = []
+    for s in range(store.n_shards):
+        cols = {k: v[s] for k, v in store.columns.items()}
+        n = int(store.n_rows_by_shard[s])
+        calls = [_spec_of(plan, cols)[:2] for plan in plans.values()]
+        per_shard.append(cuda_ms(lambda: [K.fused_segment_agg(
+            cols, n, fvals, spec) for spec, fvals in calls], 20))
+    n0 = int(store.n_rows_by_shard[0])
+    shard0 = time_k1({k: v[0] for k, v in store.columns.items()}, n0, plans,
+                     {k: v[:n0] for k, v in host.items()})
+    return {**shard0, "kernel_ms": statistics.median(per_shard),
+            "shard_kernel_ms": per_shard, "shard_rows": n0}
+
+
 def phase_tiers(m):
     """The main store (11,059,200 rows, its registry attached) wrapped
     in a ``TieredStore``: everything but the newest camera-day spilled
@@ -2673,6 +3049,8 @@ def run(dev) -> None:
     multi_err = phase_multi_check(mm)
     pp = phase_pool(dev, t)
     pool_err = phase_pool_check(pp, dev)
+    sd = phase_sharded(dev, m, mm, pp)
+    gc.collect()            # its stores and registries refer to each other
     tt = phase_tiers(m)
     many = phase_time_many(mm, pp, tt)
     # each K1 path's error: its calls against the plain version at the
@@ -2771,7 +3149,19 @@ def run(dev) -> None:
         "library_ms": many[path]["library_ms"],
     } for path, launches in (("multi", mm["launches"]),
                              ("pool", pp["launches"]),
-                             ("tiers", tt["launches"]))]}), flush=True)
+                             ("tiers", tt["launches"]))] + [{
+        "name": "fused_segment_agg[sharded]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/warehouse_agg.cu",
+        "replaces": "src/repro/kernels/warehouse_agg.py:192",
+        "launches": sd["launches"],
+        "max_abs_err": sd["err"],
+        "ms": sd["k1"]["kernel_ms"],
+        "plain_ms": sd["k1"]["plain_ms"],
+        "bound_ms": sd["k1"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": sd["k1"]["library_ms"],
+    }]}), flush=True)
 
 
 if __name__ == "__main__":

@@ -389,11 +389,12 @@ class SkyscraperPool:
     before the tick's decisions are read back, so on the card it runs
     while the host does the Transform work.
 
-    ``sink``: an optional ``warehouse.SegmentStore`` on the same device
-    (``out_dim == len(sky.configs)``); every tick lands one row per
-    active stream with its real id, folded into the store's standing
-    queries, and each tick's fired subscriptions surface in
-    ``pool.alerts``. ``device=None`` means CUDA, and must be the
+    ``sink``: an optional ``warehouse.SegmentStore`` or
+    ``ShardedStore`` on the same device (``out_dim ==
+    len(sky.configs)``); every tick lands one row per active stream with
+    its real id (on a sharded sink, on shard ``id % n_shards``), folded
+    into the store's standing queries, and each tick's fired
+    subscriptions surface in ``pool.alerts``. ``device=None`` means CUDA, and must be the
     Skyscraper's device. ``telemetry=True`` attaches the host flight
     recorder (``obs.telemetry.HostTelemetry``), read with
     ``telemetry()`` and ``shed_stats()``.

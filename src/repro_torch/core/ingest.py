@@ -149,9 +149,12 @@ def run_skyscraper_fused(fitted: Fitted, stream: Stream, *, n_cores: int,
     the first window has run), ``oracle`` (the window's true category
     mix) and ``uniform``.
 
-    ``sink``: an optional ``warehouse.SegmentStore`` on the same device.
-    The stacked (n_w, W) traces and the (T, K) measured-quality vectors
-    go to ``sink.ingest_fused`` without leaving the device.
+    ``sink``: an optional ``warehouse.SegmentStore`` or
+    ``ShardedStore`` on the same device. The stacked (n_w, W) traces and
+    the (T, K) measured-quality vectors go to ``sink.ingest_fused``
+    without leaving the device (a sharded sink lands them on shard
+    ``sink_stream_id % n_shards``), folded into its standing queries;
+    their fired alerts are ``RunResult.alerts``.
 
     ``telemetry=True`` carries the flight recorder's counters
     (``obs.telemetry``) through the window loop beside the switcher state
@@ -344,10 +347,12 @@ def run_skyscraper_multi(fitteds, streams, *, n_cores_each: int,
     categories, so the shared budget flows to the stream where it buys
     the most quality.
 
-    ``sink``: an optional ``warehouse.SegmentStore`` on the same device;
-    every stream's per-segment traces land there without leaving the
-    device (rows stream-major, stream ids from ``sink_stream_base``),
-    folded into its standing queries by the ingest.
+    ``sink``: an optional ``warehouse.SegmentStore`` or
+    ``ShardedStore`` on the same device; every stream's per-segment
+    traces land there without leaving the device (rows stream-major,
+    stream ids from ``sink_stream_base``; a sharded sink routes each
+    stream to shard ``id % n_shards``), folded into its standing queries
+    by the ingest, their fired alerts under ``"alerts"``.
 
     ``telemetry=True`` adds a ``"telemetry"`` key: a ``Telemetry`` with
     per-stream (V,) counters, bit-exact against ``telemetry_ref``.

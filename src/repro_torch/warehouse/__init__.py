@@ -1,15 +1,20 @@
-"""V-ETL Load on one device: the columnar store, its queries, its
-standing queries and its int8 cold tier (see store.py / query.py /
+"""V-ETL Load on one device: the columnar store, single or stream-hash
+sharded on a stacked shard axis, its queries, its standing queries, its
+int8 cold tier and its checkpoints (see store.py / query.py /
 standing.py / tiers.py)."""
 from repro_torch.warehouse.query import (Filter, GroupBy, MultiGroupBy,
                                          Project, TopK, WindowAgg, execute,
-                                         to_host, windows_for)
+                                         execute_sharded, to_host,
+                                         windows_for)
 from repro_torch.warehouse.standing import Alert, StandingQueries
-from repro_torch.warehouse.store import SegmentStore
-from repro_torch.warehouse.tiers import TieredStore
+from repro_torch.warehouse.store import SegmentStore, ShardedStore
+from repro_torch.warehouse.tiers import (ShardedTieredStore, TieredStore,
+                                         load_warehouse, save_warehouse)
 
 __all__ = [
-    "SegmentStore", "Filter", "Project", "GroupBy", "WindowAgg",
-    "MultiGroupBy", "TopK", "execute", "to_host", "windows_for",
-    "StandingQueries", "Alert", "TieredStore",
+    "SegmentStore", "ShardedStore", "TieredStore", "ShardedTieredStore",
+    "StandingQueries", "Alert",
+    "Filter", "Project", "GroupBy", "WindowAgg", "MultiGroupBy", "TopK",
+    "execute", "execute_sharded", "to_host", "windows_for",
+    "save_warehouse", "load_warehouse",
 ]

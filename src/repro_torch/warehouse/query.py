@@ -1,7 +1,7 @@
 """Queries over the warehouse (the paper's "easy to query").
 
-Port of ``repro/warehouse/query.py`` for one store on one device. A
-query is a tuple of plan nodes applied left to right:
+Port of ``repro/warehouse/query.py`` on one device. A query is a tuple
+of plan nodes applied left to right:
 
     Filter(column, op, value)   row predicate; ANDed into the row mask
     Project(columns)            keep only the named columns
@@ -25,16 +25,25 @@ card, the engine computes an aggregation only when the caller asks for
 it with ``use_kernel=False``.
 ``execute`` returns ``(table, mask)``: tensors on the store's device plus
 a validity mask over their rows.
+
+A sharded store (``ShardedStore``, ``ShardedTieredStore``) runs through
+``execute_sharded``: one partial per shard over its stacked columns
+(on CUDA columns K1, one launch per shard), merged by sum / max / min
+over the shard axis, or by concatenation for TopK candidates and row
+plans; then the same finalize and post nodes. The reference's stacked
+single-device path, in its merge order.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from fractions import Fraction
 from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.distribution.compression import quantize_int8
 from repro_torch.kernels.warehouse_agg import (CMP as _CMP, FusedAggSpec,
                                                check_kernel, filter_pred,
                                                fused_segment_agg, group_ids,
@@ -359,6 +368,152 @@ def _run_plan(cols, n_rows: int, fvals, spec, use_kernel: bool):
     return _apply_nodes(cols, mask, fvals, spec)
 
 
+# ---------------------------------------------------------------------------
+# sharded execution: per-shard partials + their merge
+# ---------------------------------------------------------------------------
+
+def _merge_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading shard axis in shard order, ((p0 + p1) + p2)
+    + ..., the order the reference's stacked axis-0 sum compiles to, so
+    float sums at one shard count match it bit for bit."""
+    out = x[0].clone()
+    for p in x[1:]:
+        out += p
+    return out
+
+
+def _round32(x: Fraction) -> np.float32:
+    """The float32 nearest the exact value ``x`` (ties to even)."""
+    r = np.float32(float(x))
+    near = [np.nextafter(r, np.float32(-np.inf)), r,
+            np.nextafter(r, np.float32(np.inf))]
+    return min(near, key=lambda y: (abs(Fraction(float(y)) - x),
+                                    int(y.view(np.int32)) & 1))
+
+
+def _scale_sum(absmax: np.ndarray) -> np.float32:
+    """``sum(max(m, 1e-12) / 127)`` over the shards as the reference's
+    compiled program computes it: each scale's product with float32(1 /
+    127) contracted into the running sum, one fused multiply-add per
+    shard in shard order."""
+    inv = Fraction(float(np.float32(1.0) / np.float32(127.0)))
+    total = np.float32(0.0)
+    for m in absmax:
+        total = _round32(Fraction(float(max(m, np.float32(1e-12)))) * inv
+                         + Fraction(float(total)))
+    return total
+
+
+def _compressed_sum(acc: torch.Tensor, draws: torch.Tensor) -> torch.Tensor:
+    """Merge the stacked (S, ...) float partial sums through int8: each
+    shard's whole partial quantized with one scale (``quantize_int8`` on
+    the flattened partial, stochastic rounding from ``draws``), the codes
+    summed exactly in int32, times the MEAN scale — the reference's
+    stacked ``_compressed_sum``. Its ``sum(scale) / S`` compiles to the
+    fused sum of ``_scale_sum`` times float32(1 / S), taken here on the
+    host from the S partials' largest magnitudes."""
+    S = acc.shape[0]
+    flat = acc.reshape(S, -1)
+    q, _ = quantize_int8(flat, draws.reshape(S, -1).to(acc.device))
+    total = q.to(torch.int32).sum(0).to(torch.float32).reshape(acc.shape[1:])
+    absmax = flat.abs().amax(1).cpu().numpy()
+    mean = np.float32(_scale_sum(absmax) * (np.float32(1.0) / np.float32(S)))
+    return total * torch.tensor(mean, device=acc.device)
+
+
+def _shard_partial(cols, n_valid: int, fvals, shard_id: int, *, pre, node,
+                   use_kernel: bool):
+    """ONE shard's partial: K1's ``{acc, cnt}`` when ``use_kernel``; else
+    the engine's row-local nodes, then the reducer's accumulators, a
+    TopK's candidates (their ``index`` the global row ``row + shard_id *
+    cap``) or, for a row plan, the masked rows themselves."""
+    if use_kernel:
+        return fused_segment_agg(cols, n_valid, fvals,
+                                 _kernel_spec(pre, node, cols))
+    first = next(iter(cols.values()))
+    cap = int(first.shape[0])
+    mask = torch.arange(cap, device=first.device) < n_valid
+    table, mask = _apply_nodes(cols, mask, fvals, pre)
+    if node is None:
+        return {"table": table, "mask": mask}
+    if isinstance(node, TopK):
+        # the global top k lies among the union of the shards' top k
+        score = torch.where(mask, table[node.by].to(torch.float32),
+                            float("-inf"))
+        if not node.largest:
+            score = torch.where(torch.isfinite(score), -score, score)
+        idx = _topk_idx(score, min(node.k, cap))
+        cand = {c: table[c].index_select(0, idx) for c in table}
+        cand["index"] = (idx + shard_id * cap).to(torch.int32)
+        return {"table": cand, "score": score.index_select(0, idx)}
+    return _seg_partial(table, mask, node)
+
+
+def _merge_partials(parts, node, post, fvals, compressed: bool, draws):
+    """The merge: concatenate row plans and TopK candidates (in shard
+    order), or combine aggregating partials by sum / max / min over the
+    shards (counts by sum, exact), finalize, then the post nodes.
+    ``draws()`` gives the compressed sum's uniforms."""
+    def cat(key):
+        return {c: torch.cat([p[key][c] for p in parts])
+                for c in parts[0][key]}
+
+    if node is None:                                 # pure row plan
+        return cat("table"), torch.cat([p["mask"] for p in parts])
+    if isinstance(node, TopK):
+        score = torch.cat([p["score"] for p in parts])
+        cand = cat("table")
+        idx = _topk_idx(score, min(node.k, int(score.shape[0])))
+        table = {c: v.index_select(0, idx) for c, v in cand.items()}
+        mask = torch.isfinite(score.index_select(0, idx))
+    else:
+        acc = torch.stack([p["acc"] for p in parts])
+        if node.agg == "max":
+            acc = acc.amax(0)
+        elif node.agg == "min":
+            acc = acc.amin(0)
+        elif compressed and acc.dtype == torch.float32:
+            acc = _compressed_sum(acc, draws(acc.shape))
+        else:
+            acc = _merge_sum(acc)
+        cnt = _merge_sum(torch.stack([p["cnt"] for p in parts]))
+        out, cnt = _seg_finalize(acc, cnt, node.agg)
+        table, mask = _seg_table(node, out, cnt)
+    return _apply_nodes(table, mask, fvals, post)
+
+
+def execute_sharded(store, plan, *, compressed: bool = False, seed: int = 0,
+                    draws=None, use_kernel=None):
+    """Run ``plan`` over a sharded store: one partial per shard over the
+    stacked columns, then their merge (the reference's single-device
+    path). ``use_kernel`` picks each shard's partial as ``execute`` picks
+    a query's (``_resolve_use_kernel`` on one shard's columns): on CUDA
+    columns K1, one launch per shard. ``compressed=True`` merges float
+    partial sums through int8 (``_compressed_sum``: exact counts, lossy
+    sums); its rounding uniforms are ``draws`` (S, *partial shape), e.g.
+    the reference's, else a CPU ``torch.Generator`` seeded with ``seed``.
+    Returns ``(table, mask)`` on the store's device."""
+    cols, n_valid = store.shard_source()
+    spec, fvals = normalize(plan)
+    pre, node, post = split_plan(spec)
+    shards = [{k: v[s] for k, v in cols.items()}
+              for s in range(len(n_valid))]
+    uk = _resolve_use_kernel(use_kernel, pre, node, shards[0])
+    if node is not None and not isinstance(node, TopK):
+        PATHS["kernel" if uk else "engine"] += 1
+    parts = [_shard_partial(c, int(n), fvals, s, pre=pre, node=node,
+                            use_kernel=uk)
+             for s, (c, n) in enumerate(zip(shards, n_valid))]
+
+    def uniforms(shape):
+        if draws is not None:
+            return draws if isinstance(draws, torch.Tensor) \
+                else torch.tensor(np.asarray(draws))
+        return torch.rand(tuple(shape),
+                          generator=torch.Generator().manual_seed(seed))
+    return _merge_partials(parts, node, post, fvals, compressed, uniforms)
+
+
 def _source(store):
     """(columns, n_rows) from a SegmentStore, a TieredStore (its two-tier
     view, ``materialize``) or a raw (columns, n) pair."""
@@ -373,7 +528,10 @@ def _source(store):
 def execute(store, plan, *, use_kernel=None):
     """Run ``plan`` over ``store``; returns ``(table, mask)`` of tensors
     on the store's device. ``use_kernel`` picks the aggregation path
-    (see ``_resolve_use_kernel``)."""
+    (see ``_resolve_use_kernel``). Sharded stores route to
+    ``execute_sharded``."""
+    if hasattr(store, "shard_source"):
+        return execute_sharded(store, plan, use_kernel=use_kernel)
     cols, n_rows = _source(store)
     spec, fvals = normalize(plan)
     pre, node, _ = split_plan(spec)

@@ -1,13 +1,14 @@
 """Standing queries: registered plans kept fresh AT INGEST RATE.
 
-Port of the single-store half of ``repro/warehouse/standing.py``.
+Port of ``repro/warehouse/standing.py``.
 ``store.query(plan)`` rescans every stored row. An aggregating plan,
 though, reduces to fixed-shape ``{"acc", "cnt"}`` accumulators (the
 query engine's partial), and those can be kept current: fold each
 ingest's NEW rows into the stored accumulators and the answer is an
 O(result) finalize, with no rescan.
 
-``StandingQueries`` is that registry, attached to one ``SegmentStore``:
+``StandingQueries`` is that registry, attached to one store
+(``SegmentStore``, ``ShardedStore`` or a tiered wrapper of either):
 
 - ``register(plan)`` splits the plan at its aggregating reducer
   (GroupBy / WindowAgg / MultiGroupBy; row plans and a TopK reducer have
@@ -44,8 +45,18 @@ registration by ``use_kernel`` with ``execute``'s rules
   rounding and the kernel's order of addition, so they are held to a
   tolerance, as the query path's are.
 
-Left for later slices (ROADMAP): the sharded fold, the tiered store's
-spills, and the rest of the store's flight recorder.
+On a ``ShardedStore`` the state carries a leading shard axis ``(S, Qb,
+groups[, D])``: after every ingest each shard folds the rows it just
+received (a contiguous slice of its columns, since the router lands a
+shard's rows in update order), on the path the group chose with
+``_resolve_use_kernel`` on one shard's columns; the registration
+backfill folds each shard's live rows; an answer merges the shards by
+sum / max / min (``query._merge_sum``, in shard order) before it
+finalizes. The reference folds each shard's owned rows under an
+ownership mask over the whole block, which adds only identities for the
+rows it does not own, so the engine path (``use_kernel=False``) is
+bit-exact with it on the CPU; K1's path regroups the sums as on one
+store.
 """
 from __future__ import annotations
 
@@ -59,10 +70,11 @@ from repro_torch.kernels.warehouse_agg import CMP as _CMP
 from repro_torch.kernels.warehouse_agg import fused_segment_agg, identity
 from repro_torch.warehouse.query import (Filter, GroupBy, TopK, WindowAgg,
                                          _apply_nodes, _FilterRef,
-                                         _kernel_spec, _num_groups,
-                                         _resolve_use_kernel, _seg_finalize,
-                                         _seg_fold, _seg_table, normalize,
-                                         split_plan, to_host)
+                                         _kernel_spec, _merge_sum,
+                                         _num_groups, _resolve_use_kernel,
+                                         _seg_finalize, _seg_fold,
+                                         _seg_table, normalize, split_plan,
+                                         to_host)
 
 # how many (query, batch) folds took each path: one K1 call per kernel fold
 FOLDS = {"kernel": 0, "engine": 0}
@@ -73,8 +85,9 @@ def _bucket(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
-def _slot(state, i: int):
-    return {k: v[i] for k, v in state.items()}
+def _slot(state, i: int, sharded: bool = False):
+    """Query slot ``i`` of a stacked state (its shard axis kept)."""
+    return {k: (v[:, i] if sharded else v[i]) for k, v in state.items()}
 
 
 def _fvals_of(fvals, i: int):
@@ -131,22 +144,29 @@ def _backfill(cols, n_rows: int, fvals, state, *, sspec):
                        use_kernel=use_kernel)
 
 
-def _answer(st, fv, *, spec):
-    """O(result) answer of one query: finalize its accumulators ``st``
-    and run the post-reduction nodes. Reads only the state, never the
-    stored rows; the answer owns its tensors (the folds update the state
-    in place, and a sum's finalize would otherwise hand out the
-    accumulator itself)."""
+def _answer(st, fv, *, spec, sharded: bool = False):
+    """O(result) answer of one query: merge its per-shard accumulators
+    when ``sharded`` (sum / max / min over the leading shard axis), then
+    finalize and run the post-reduction nodes. Reads only the state,
+    never the stored rows; the answer owns its tensors (the folds update
+    the state in place, and a sum's finalize would otherwise hand out
+    the accumulator itself)."""
     _pre, node, post = split_plan(spec)
-    out, cnt = _seg_finalize(st["acc"].clone(), st["cnt"].clone(), node.agg)
+    acc, cnt = st["acc"], st["cnt"]
+    if sharded:
+        acc = {"max": lambda a: a.amax(0),
+               "min": lambda a: a.amin(0)}.get(node.agg, _merge_sum)(acc)
+        cnt = _merge_sum(cnt)
+    out, cnt = _seg_finalize(acc.clone(), cnt.clone(), node.agg)
     table, mask = _seg_table(node, out, cnt)
     return _apply_nodes(table, mask, fv, post)
 
 
-def _answer_kernel(state, fvals, *, spec):
+def _answer_kernel(state, fvals, *, spec, sharded: bool = False):
     """``_answer`` for each query row of ``fvals``, the result tables
     stacked on a leading query axis."""
-    answers = [_answer(_slot(state, i), _fvals_of(fvals, i), spec=spec)
+    answers = [_answer(_slot(state, i, sharded), _fvals_of(fvals, i),
+                       spec=spec, sharded=sharded)
                for i in range(len(fvals[0]))]
     return ({k: torch.stack([t[k] for t, _ in answers])
              for k in answers[0][0]},
@@ -194,7 +214,7 @@ class _Query:
 
 class _Group:
     """All registered queries of one plan SHAPE: one spec, stacked
-    ``(Q, F)`` filter operands, stacked ``(Qb, groups[, D])``
+    ``(Q, F)`` filter operands, stacked ``([S,] Qb, groups[, D])``
     accumulators."""
 
     def __init__(self, reg: "StandingQueries", spec, use_kernel: bool):
@@ -217,11 +237,12 @@ class _Group:
 
     def _init_state(self, qb: Optional[int] = None):
         qb = self.qb if qb is None else qb
-        node, store = self.node, self.reg.host
+        node, store, sharded = self.node, self.reg.host, self.reg.sharded
         vcol = store.columns[node.value]
-        lead = (qb, _num_groups(node))
+        lead = ((store.n_shards,) if sharded else ()) + (
+            qb, _num_groups(node))
         kw = dict(dtype=torch.float32, device=store.device)
-        return {"acc": torch.full(lead + tuple(vcol.shape[1:]),
+        return {"acc": torch.full(lead + tuple(vcol.shape[1 + sharded:]),
                                   identity(node.agg), **kw),
                 "cnt": torch.zeros(lead, **kw)}
 
@@ -234,7 +255,10 @@ class _Group:
             if old is not None:
                 # folded history cannot be rebuilt from the rows later
                 for k in grown:
-                    grown[k][:old_qb] = old[k]
+                    if self.reg.sharded:
+                        grown[k][:, :old_qb] = old[k]
+                    else:
+                        grown[k][:old_qb] = old[k]
             self.state = grown
         self.fvals = tuple(np.stack([q.fvals[i] for q in self.queries])
                            for i in range(4))
@@ -247,10 +271,17 @@ class _Group:
             return
         cols, n_rows = src
         fv1 = tuple(a[None] for a in query.fvals)
-        bf = _backfill(cols, n_rows, fv1, self._init_state(qb=1),
-                       sspec=self.sspec)
+        bf = self._init_state(qb=1)
+        if not self.reg.sharded:
+            _backfill(cols, n_rows, fv1, bf, sspec=self.sspec)
+            for k in self.state:
+                self.state[k][query.slot] = bf[k][0]
+            return
+        for s, n in enumerate(n_rows):       # each shard's live rows
+            _backfill({k: v[s] for k, v in cols.items()}, int(n), fv1,
+                      _slot(bf, s), sspec=self.sspec)
         for k in self.state:
-            self.state[k][query.slot] = bf[k][0]
+            self.state[k][:, query.slot] = bf[k][:, 0]
 
 
 class StandingQueries:
@@ -270,6 +301,7 @@ class StandingQueries:
         assert getattr(self.host, "standing", None) is None, \
             "store already has a StandingQueries registry attached"
         self.host.standing = self
+        self.sharded = hasattr(self.host, "n_shards")
         self._groups: Dict[tuple, _Group] = {}
         self._queries: Dict[int, _Query] = {}
         self._subs: Dict[int, _Sub] = {}
@@ -324,8 +356,11 @@ class StandingQueries:
         g = self._groups.get(spec)
         if g is None:
             pre, node, _post = split_plan(spec)
+            cols = self.host.columns
+            if self.sharded:                 # the path of one shard's rows
+                cols = {k: v[0] for k, v in cols.items()}
             g = _Group(self, spec, _resolve_use_kernel(
-                use_kernel, pre, node, self.host.columns))
+                use_kernel, pre, node, cols))
             self._groups[spec] = g
         handle = self._next
         self._next += 1
@@ -368,16 +403,20 @@ class StandingQueries:
 
     def _source(self):
         """(columns, live rows) for a backfill (a tiered store's two-tier
-        view), or None when the store is empty."""
+        view; per-shard counts for a sharded store), or None when the
+        store is empty."""
         if self.store.n_rows == 0:
             return None
+        if self.sharded:
+            return self.store.shard_source()
         from repro_torch.warehouse.query import _source as q_source
         return q_source(self.store)
 
     # -- answers -------------------------------------------------------
     def group_answers(self, group: _Group):
         """Stacked (Q, ...) answer tables of one group's queries."""
-        return _answer_kernel(group.state, group.fvals, spec=group.spec)
+        return _answer_kernel(group.state, group.fvals, spec=group.spec,
+                              sharded=self.sharded)
 
     def answer(self, handle: int):
         """(table, mask) of one standing query, tensors on the store's
@@ -385,7 +424,8 @@ class StandingQueries:
         rescan."""
         q = self._queries[handle]
         g = self._group_of(q)
-        return _answer(_slot(g.state, q.slot), q.fvals, spec=g.spec)
+        return _answer(_slot(g.state, q.slot, self.sharded), q.fvals,
+                       spec=g.spec, sharded=self.sharded)
 
     def _group_of(self, q: _Query) -> _Group:
         return self._groups[q.spec]

@@ -26,6 +26,13 @@ stream-major, and ``ingest_tick`` one row per live stream of a serving
 pool's tick; the elastic pool's masked tick compacts its active slots
 to consecutive rows carrying their real stream ids.
 
+``ShardedStore`` partitions the same columns by ``stream_id %
+n_shards`` on a stacked ``(n_shards, cap, ...)`` axis on one device
+(the reference's single-device layout, ``mesh is None``): each ingest
+routes every row to its owner shard on the host, where the stream ids
+are known, and queries run through the per-shard partial and merge of
+``warehouse.query.execute_sharded``.
+
 A ``StandingQueries`` registry (``warehouse.standing``) attached to the
 store is refreshed inside every ingest and ``append_rows``: right
 after a block lands, its rows, read back as the slices ``[lo:lo + n]``
@@ -48,7 +55,7 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.obs.telemetry import (StoreTelemetry, store_obs_batch,
                                        store_obs_init, store_obs_tick)
-from repro_torch.warehouse.standing import _fold_all
+from repro_torch.warehouse.standing import _fold_all, _slot
 
 SCALAR_COLUMNS = (
     ("stream_id", torch.int32),
@@ -82,6 +89,46 @@ def _bucket_cap(need: int, chunk: int) -> int:
     through the same capacities)."""
     units = max(1, -(-need // chunk))
     return chunk * (1 << (units - 1).bit_length())
+
+
+def _multi_rows(traces, out_vecs, stream_base: int, t0: int, device):
+    """A multi-stream run's update block: the (n_w, V, W) traces and the
+    (V, T, D) output vectors flattened stream-major (stream 0's T rows,
+    then stream 1's, ...), stream ids from ``stream_base``."""
+    V, T = int(out_vecs.shape[0]), int(out_vecs.shape[1])
+
+    def flat(x):                                  # (n_w, V, W) -> (V*T,)
+        return x.transpose(0, 1).reshape(V, -1)[:, :T].reshape(-1)
+
+    upd = {dst: flat(traces[src]) for src, dst in _RUN_KEYS}
+    ar = torch.arange(T, dtype=torch.int32, device=device)
+    upd["stream_id"] = stream_base + torch.arange(
+        V, dtype=torch.int32, device=device).repeat_interleave(T)
+    upd["t"] = (t0 + ar).repeat(V)
+    upd[OUT_COLUMN] = torch.as_tensor(out_vecs).reshape(V * T, -1)
+    return upd
+
+
+def _tick_rows(traces, quality, out_vecs, t: int, stream_ids, device):
+    """A pool tick's update block on ``device``: one row per slot, slot v
+    standing for stream v unless ``stream_ids`` names the real ids."""
+    V = int(out_vecs.shape[0])
+    upd = {dst: traces[src] for src, dst in _RUN_KEYS}
+    upd["quality"] = torch.as_tensor(quality)
+    upd["stream_id"] = (torch.arange(V, dtype=torch.int32)
+                        if stream_ids is None
+                        else torch.as_tensor(np.asarray(stream_ids)))
+    upd["t"] = torch.full((V,), t, dtype=torch.int32)
+    upd[OUT_COLUMN] = torch.as_tensor(out_vecs)
+    return {k: v.to(device) for k, v in upd.items()}
+
+
+def _host_ints(x) -> np.ndarray:
+    """An id column given as a tensor (on any device) or an array, as
+    host int64."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x, np.int64)
 
 
 class SegmentStore:
@@ -168,17 +215,8 @@ class SegmentStore:
         V, T = int(out_vecs.shape[0]), int(out_vecs.shape[1])
         assert out_vecs.ndim == 3 and out_vecs.shape[2] == self.out_dim
         self._reserve(V * T)
-
-        def flat(x):                              # (n_w, V, W) -> (V*T,)
-            return x.transpose(0, 1).reshape(V, -1)[:, :T].reshape(-1)
-
-        upd = {dst: flat(traces[src]) for src, dst in _RUN_KEYS}
-        ar = torch.arange(T, dtype=torch.int32, device=self.device)
-        upd["stream_id"] = stream_base + torch.arange(
-            V, dtype=torch.int32, device=self.device).repeat_interleave(T)
-        upd["t"] = (t0 + ar).repeat(V)
-        upd[OUT_COLUMN] = torch.as_tensor(out_vecs).reshape(V * T, -1)
-        self._write(upd)
+        self._write(_multi_rows(traces, out_vecs, stream_base, t0,
+                                self.device))
         self.t_max = max(self.t_max, t0 + T - 1)
         store_obs_batch(self.obs, V, T)
         return V * T
@@ -196,14 +234,8 @@ class SegmentStore:
         lands."""
         V = int(out_vecs.shape[0])
         assert out_vecs.ndim == 2 and out_vecs.shape[1] == self.out_dim
-        upd = {dst: traces[src] for src, dst in _RUN_KEYS}
-        upd["quality"] = torch.as_tensor(quality)
-        upd["stream_id"] = (torch.arange(V, dtype=torch.int32)
-                            if stream_ids is None
-                            else torch.as_tensor(np.asarray(stream_ids)))
-        upd["t"] = torch.full((V,), t, dtype=torch.int32)
-        upd[OUT_COLUMN] = torch.as_tensor(out_vecs)
-        upd = {k: v.to(self.device) for k, v in upd.items()}
+        upd = _tick_rows(traces, quality, out_vecs, t, stream_ids,
+                         self.device)
         if valid is not None:
             keep = np.flatnonzero(np.asarray(valid, bool))
             idx = torch.as_tensor(keep, device=self.device)
@@ -260,3 +292,221 @@ class SegmentStore:
         return (f"SegmentStore(rows={self.n_rows}, cap={self.capacity}, "
                 f"out_dim={self.out_dim}, chunk={self.chunk_rows}, "
                 f"device={self.device})")
+
+
+# ---------------------------------------------------------------------------
+# sharded store: stream-hash partitioned rows on a stacked shard axis
+# ---------------------------------------------------------------------------
+
+class ShardedStore:
+    """Stream-hash partitioned ``SegmentStore`` on one device (``None``
+    means CUDA): columns are stacked ``(n_shards, cap, ...)`` tensors and
+    row ``r`` of stream ``sid`` lives on shard ``sid % n_shards``.
+
+    Every ingest routes by owner on the host, where the stream ids are
+    known: each shard's owned rows land at consecutive positions from
+    that shard's row count, in the update block's order, and rows whose
+    ``valid`` is false land nowhere. Every shard grows together, along
+    the ``_bucket_cap`` ladder, so all shards share one capacity (the
+    reference's, which a row-level TopK's global row id ``shard * cap +
+    row`` depends on). Queries run through the per-shard partial and
+    its merge (``warehouse.query.execute_sharded``).
+
+    A ``StandingQueries`` registry attached to the store keeps one
+    accumulator slice per shard: right after an ingest lands, each
+    shard folds the rows it just received (the contiguous slice
+    ``[n_old, n_old + c)`` of its columns), as the reference folds each
+    shard's owned rows in its ingest dispatch."""
+
+    def __init__(self, out_dim: int, n_shards: int, chunk_rows: int = 8192,
+                 device=None):
+        assert out_dim >= 1 and n_shards >= 1 and chunk_rows >= 1
+        self.device = resolve(device)
+        self.out_dim = int(out_dim)
+        self.n_shards = int(n_shards)
+        self.chunk_rows = int(chunk_rows)
+        self.t_max = -1
+        self.n_rows_by_shard = np.zeros(self.n_shards, np.int64)
+        self.columns = self._empty(0)
+        self.obs = store_obs_init()
+        self.standing = None
+
+    @classmethod
+    def _from_parts(cls, *, columns, n_rows_by_shard, t_max, **kw):
+        """Adopt already-partitioned columns without an ingest (what
+        ``runtime.elastic.rebalance`` builds its result with); the
+        flight-recorder counters and the standing registry start fresh.
+        ``kw`` are the constructor's arguments."""
+        self = cls(**kw)
+        self.columns, self.t_max = columns, int(t_max)
+        self.n_rows_by_shard = np.asarray(n_rows_by_shard, np.int64).copy()
+        return self
+
+    def _empty(self, cap: int) -> Dict[str, torch.Tensor]:
+        cols = {n: torch.zeros((self.n_shards, cap), dtype=dt,
+                               device=self.device)
+                for n, dt in SCALAR_COLUMNS}
+        cols[OUT_COLUMN] = torch.zeros((self.n_shards, cap, self.out_dim),
+                                       dtype=torch.float32,
+                                       device=self.device)
+        return cols
+
+    # -- capacity ------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        """Per-shard row capacity."""
+        return self.columns["t"].shape[1]
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.n_rows_by_shard.sum())
+
+    def _reserve(self, incoming_by_shard: np.ndarray) -> None:
+        """Grow every shard's capacity together, along the chunk ladder,
+        to fit the incoming per-shard row counts."""
+        need = int((self.n_rows_by_shard + incoming_by_shard).max())
+        if need <= self.capacity:
+            return
+        grown = self._empty(_bucket_cap(need, self.chunk_rows))
+        for k, col in grown.items():
+            col[:, :self.capacity] = self.columns[k]
+        self.columns = grown
+
+    # -- ingestion -----------------------------------------------------
+    def _owner_counts(self, stream_ids) -> np.ndarray:
+        return np.bincount(_host_ints(stream_ids) % self.n_shards,
+                           minlength=self.n_shards)
+
+    def _route(self, upd: Dict[str, torch.Tensor], owner: np.ndarray
+               ) -> np.ndarray:
+        """Write each shard's rows of the update block (``owner[i]`` is
+        row i's shard, ``n_shards`` for a row that lands nowhere) at
+        consecutive rows from that shard's count, in block order, then
+        fold them into the standing queries. Returns the per-shard
+        counts."""
+        counts = np.bincount(owner, minlength=self.n_shards + 1)[
+            :self.n_shards]
+        self._reserve(counts)
+        upd = {k: upd[k].to(device=self.device, dtype=col.dtype)
+               for k, col in self.columns.items()}
+        lo = self.n_rows_by_shard.copy()
+        for s in np.flatnonzero(counts):
+            rows = np.flatnonzero(owner == s)
+            idx = (None if len(rows) == len(owner)    # the whole block
+                   else torch.as_tensor(rows, device=self.device))
+            for k, col in self.columns.items():
+                col[s, lo[s]:lo[s] + counts[s]] = (
+                    upd[k] if idx is None else upd[k].index_select(0, idx))
+        self.n_rows_by_shard += counts
+        self._fold(lo, counts)
+        return counts
+
+    def _fold(self, lo: np.ndarray, counts: np.ndarray) -> None:
+        """Fold each shard's new rows ``[lo, lo + count)``, as stored,
+        into that shard's slice of every registered standing query."""
+        reg = self.standing
+        if reg is None or not len(reg):
+            return
+        sstates, sfvals, sspecs = reg.kernel_args()
+        for s in np.flatnonzero(counts):
+            c = int(counts[s])
+            block = {k: col[s, lo[s]:lo[s] + c]
+                     for k, col in self.columns.items()}
+            mask = torch.ones((c,), dtype=torch.bool, device=self.device)
+            _fold_all(tuple(_slot(st, s) for st in sstates), sfvals, block,
+                      mask, c, sspecs)
+        reg.absorb(sstates)                  # folded in place
+
+    def ingest_fused(self, traces, out_vecs, *, stream_id: int = 0,
+                     t0: int = 0) -> int:
+        """Land a full single-stream fused run ((n_w, W) trace leaves):
+        all T rows go to shard ``stream_id % n_shards``."""
+        assert out_vecs.ndim == 2 and out_vecs.shape[1] == self.out_dim
+        sub = {src: traces[src][:, None] for src, _ in _RUN_KEYS}
+        return self._ingest_multi(sub, torch.as_tensor(out_vecs)[None],
+                                  stream_base=stream_id, t0=t0)
+
+    def ingest_fused_multi(self, traces, out_vecs, *, stream_base: int = 0,
+                           t0: int = 0) -> int:
+        """Land a full multi-stream fused run ((n_w, V, W) leaves):
+        stream ``v``'s rows go to shard ``(stream_base + v) % n_shards``."""
+        assert out_vecs.ndim == 3 and out_vecs.shape[2] == self.out_dim
+        return self._ingest_multi(traces, out_vecs, stream_base=stream_base,
+                                  t0=t0)
+
+    def _ingest_multi(self, traces, out_vecs, *, stream_base, t0) -> int:
+        V, T = int(out_vecs.shape[0]), int(out_vecs.shape[1])
+        owner = np.repeat((stream_base + np.arange(V)) % self.n_shards, T)
+        self._route(_multi_rows(traces, out_vecs, stream_base, t0,
+                                self.device), owner)
+        self.t_max = max(self.t_max, t0 + T - 1)
+        store_obs_batch(self.obs, V, T)
+        return V * T
+
+    def ingest_tick(self, traces, *, quality, out_vecs, t: int,
+                    stream_ids=None, valid=None) -> int:
+        """Land one serving-pool tick (slot v is stream v unless
+        ``stream_ids`` names the real ids): each row goes to the shard
+        owning its stream id, and slots whose ``valid`` is false land
+        nothing."""
+        V = int(out_vecs.shape[0])
+        assert out_vecs.ndim == 2 and out_vecs.shape[1] == self.out_dim
+        ids = np.arange(V) if stream_ids is None else _host_ints(stream_ids)
+        owner = ids % self.n_shards
+        if valid is not None:
+            owner = np.where(np.asarray(valid, bool), owner, self.n_shards)
+        n_new = int(self._route(_tick_rows(traces, quality, out_vecs, t,
+                                           stream_ids, self.device),
+                                owner).sum())
+        if n_new:
+            self.t_max = max(self.t_max, t)
+        store_obs_tick(self.obs, n_new)
+        return n_new
+
+    def append_rows(self, rows: Dict) -> int:
+        """Generic batched append, routed by the rows' own stream ids."""
+        n = len(rows["t"])
+        assert set(rows) == {c for c, _ in SCALAR_COLUMNS} | {OUT_COLUMN}, \
+            "need exactly the store's columns"
+        upd = {k: v if isinstance(v, torch.Tensor)
+               else torch.as_tensor(np.asarray(v)) for k, v in rows.items()}
+        self._route(upd, _host_ints(upd["stream_id"]) % self.n_shards)
+        if n:
+            self.t_max = max(self.t_max, int(upd["t"].max()))
+        store_obs_tick(self.obs, n)
+        return n
+
+    # -- reading -------------------------------------------------------
+    def shard_source(self):
+        """(stacked columns, per-shard live row counts as host ints):
+        what the sharded query engine reads."""
+        return self.columns, self.n_rows_by_shard.copy()
+
+    def query(self, plan, **kw):
+        """Run a query plan through the per-shard partial and its merge
+        (``warehouse.query.execute_sharded``)."""
+        from repro_torch.warehouse import query as Q
+        self.obs["query_dispatches"] += 1
+        return Q.execute_sharded(self, plan, **kw)
+
+    def telemetry(self) -> StoreTelemetry:
+        """The flight recorder with each shard's rows (its imbalance,
+        max / mean shard rows, comes from the host counts)."""
+        return StoreTelemetry(rows_by_shard=self.n_rows_by_shard.copy(),
+                              **self.obs)
+
+    def host_rows(self) -> Dict[str, np.ndarray]:
+        """All live rows as host numpy, shard-major (an explicit full
+        transfer)."""
+        return {k: np.concatenate([v[s, :n].cpu().numpy() for s, n in
+                                   enumerate(self.n_rows_by_shard)])
+                for k, v in self.columns.items()}
+
+    def __len__(self) -> int:
+        return self.n_rows
+
+    def __repr__(self) -> str:
+        return (f"ShardedStore(shards={self.n_shards}[stacked], "
+                f"rows={self.n_rows_by_shard.tolist()}, "
+                f"cap={self.capacity}, out_dim={self.out_dim}, "
+                f"chunk={self.chunk_rows}, device={self.device})")

@@ -33,7 +33,12 @@ each group's sum of magnitudes. The batched switch, a short
 multi-stream run, the pool's ticks and a spill of the cold tier on the
 card against the same on the CPU: decisions, states, counters, rows
 and tier codes bit for bit (elementwise float32 operations and exact
-count adds only).
+count adds only). The sharded store: each shard's K1 partial (empty
+shards and fold views at unaligned rows among them) against the plain
+version as above; the store on the card against the same batches on the
+CPU, rows, rebalanced rows and cold codes bit for bit, answers within
+the tolerance above; a warehouse saved on the card loads on the CPU bit
+for bit.
 
 This file imports neither JAX nor ``repro``.
 """
@@ -943,3 +948,148 @@ def test_tier_spill_on_card_matches_cpu(cuda):
     assert K.LAUNCHES == before + 1
     want, _ = tc.query(plan)
     _close(got["quality"], want["quality"], exact=False)
+
+
+def _sharded_rows(n, seed, streams=(0, 4)):
+    """Rows of the given streams only, so the other shards stay empty."""
+    rng = np.random.default_rng(seed)
+    return {"stream_id": np.asarray(streams, np.int32)[
+                rng.integers(0, len(streams), n)],
+            "t": np.arange(n, dtype=np.int32),
+            "category": rng.integers(0, 4, n).astype(np.int32),
+            "k": rng.integers(0, 3, n).astype(np.int32),
+            "quality": rng.random(n).astype(np.float32),
+            "on_core_s": (rng.random(n) * 20 - 5).astype(np.float32),
+            "cloud_core_s": rng.random(n).astype(np.float32),
+            "buffer_s": (rng.random(n) * 40).astype(np.float32),
+            "out": rng.random((n, 3)).astype(np.float32)}
+
+
+SHARD_PLANS = tuple(
+    (Filter("quality", "ge", 0.3),
+     GroupBy("category", "on_core_s", agg=agg, num_groups=4))
+    for agg in AGGS) + (
+    (MultiGroupBy(keys=("t", "category"), value="out", agg="mean",
+                  nums=(8, 4), windows=(4096, 0)),),
+    (WindowAgg(window=1000, value="buffer_s", agg="max", num_windows=40),))
+
+
+@pytest.mark.cuda
+def test_k1_per_shard_partials_with_empty_shards(cuda):
+    """Each shard's K1 partial on a stacked 8-shard store whose streams
+    hash onto shards 0 and 4 only, against the plain version in float64;
+    then the merged answers (8 launches a plan) against the engine's on
+    the same store."""
+    from repro_torch.warehouse import ShardedStore, execute_sharded
+    store = ShardedStore(out_dim=3, n_shards=8, chunk_rows=4096,
+                         device=cuda)
+    store.append_rows(_sharded_rows(30_000, seed=1))
+    cols, counts = store.shard_source()
+    assert counts[[1, 2, 3, 5, 6, 7]].sum() == 0
+    for plan in SHARD_PLANS:
+        spec, fvals = Q.normalize(plan)
+        pre, node, _ = Q.split_plan(spec)
+        for s in range(8):
+            shard = {k: v[s] for k, v in cols.items()}
+            _k1_vs_plain(shard, int(counts[s]), fvals,
+                         Q._kernel_spec(pre, node, shard))
+        before = K.LAUNCHES
+        tk, mk = execute_sharded(store, plan)
+        assert K.LAUNCHES == before + 8
+        tp, mp = execute_sharded(store, plan, use_kernel=False)
+        assert torch.equal(mk.cpu(), mp.cpu())
+        _close(tk["count"], tp["count"], exact=True)
+        _close(tk[node.value], tp[node.value],
+               exact=node.agg in ("count", "max", "min"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo", (1, 2, 3, 4))
+def test_k1_fold_views_at_unaligned_rows(cuda, lo):
+    """The sharded fold's delta block: a shard's rows [lo, lo + n) as
+    views into its stacked columns, their bases off 16 bytes."""
+    from repro_torch.warehouse import ShardedStore
+    store = ShardedStore(out_dim=3, n_shards=2, chunk_rows=4096,
+                         device=cuda)
+    store.append_rows(_sharded_rows(9_000, seed=2, streams=(0, 1)))
+    for n in (1, 3, 4_093):
+        block = {k: v[1, lo:lo + n] for k, v in store.columns.items()}
+        for plan in SHARD_PLANS:
+            spec, fvals = Q.normalize(plan)
+            pre, node, _ = Q.split_plan(spec)
+            _k1_vs_plain(block, n, fvals, Q._kernel_spec(pre, node, block))
+
+
+@pytest.mark.cuda
+def test_sharded_store_on_card_matches_cpu(cuda):
+    """The same batches into a 4-shard store on the card and on the CPU,
+    a registry on each (K1 folds on the card, the engine on the CPU):
+    rows bit for bit, answers and standing answers within tolerance,
+    rebalanced rows and a spill's cold codes bit for bit."""
+    from repro_torch.runtime.elastic import rebalance
+    from repro_torch.warehouse import (ShardedStore, ShardedTieredStore,
+                                       execute_sharded)
+    stores, regs = {}, {}
+    for dev in ("cpu", cuda):
+        store = ShardedStore(out_dim=3, n_shards=4, chunk_rows=2048,
+                             device=dev)
+        store.append_rows(_sharded_rows(5_000, seed=3, streams=range(6)))
+        reg = StandingQueries(store)
+        hs = [reg.register(p, use_kernel=str(dev) != "cpu")
+              for p in SHARD_PLANS[:5]]
+        for i in range(3):
+            rows = _sharded_rows(3_001 + i, seed=4 + i, streams=range(7))
+            rows["t"] += 5_000 + 4_000 * i
+            store.append_rows(rows)
+        stores[str(dev)], regs[str(dev)] = store, (reg, hs)
+    sc, sg = stores["cpu"], stores[str(cuda)]
+    hc, hg = sc.host_rows(), sg.host_rows()
+    for k in hc:
+        assert np.array_equal(hc[k], hg[k]), k
+    (rc, hsc), (rg, hsg) = regs["cpu"], regs[str(cuda)]
+    for h_c, h_g, plan in zip(hsc, hsg, SHARD_PLANS):
+        agg = plan[-1].agg
+        for got, want in ((rg.answer(h_g), rc.answer(h_c)),
+                          (execute_sharded(sg, plan),
+                           execute_sharded(sc, plan))):
+            assert torch.equal(got[1].cpu(), want[1])
+            _close(got[0]["count"], want[0]["count"], exact=True)
+            _close(got[0]["on_core_s"], want[0]["on_core_s"],
+                   exact=agg in ("count", "max", "min"))
+    topk = (Filter("quality", "ge", 0.5), TopK(9, by="on_core_s"))
+    (tg, mg), (tc, mc) = sg.query(topk), sc.query(topk)
+    assert torch.equal(mg.cpu(), mc)
+    for k in tc:
+        assert torch.equal(tg[k].cpu(), tc[k]), k
+    bg, bc = rebalance(sg, 3), rebalance(sc, 3, device="cpu")
+    for k, v in bc.host_rows().items():
+        assert np.array_equal(bg.host_rows()[k], v), k
+    tg_, tc_ = (ShardedTieredStore(sg, seed=5, device=cuda),
+                ShardedTieredStore(sc, seed=5, device="cpu"))
+    assert tg_.spill(keep_hot=1000) == tc_.spill(keep_hot=1000) > 0
+    for k in tc_.cold_q:
+        assert torch.equal(tg_.cold_q[k].cpu(), tc_.cold_q[k]), k
+        assert torch.equal(tg_.cold_scales[k].cpu(), tc_.cold_scales[k]), k
+
+
+@pytest.mark.cuda
+def test_warehouse_saved_on_card_loads_on_cpu(cuda, tmp_path):
+    from repro_torch.warehouse import (TieredStore, load_warehouse,
+                                       save_warehouse)
+    store = SegmentStore(out_dim=3, chunk_rows=1024, device=cuda)
+    store.append_rows(_sharded_rows(9_000, seed=6, streams=range(4)))
+    ts = TieredStore(store, seed=2, device=cuda)
+    ts.spill(keep_hot=2_000)
+    back = load_warehouse(save_warehouse(str(tmp_path / "w.rsk"), ts),
+                          device="cpu")
+    assert (back.n_cold, back.hot.n_rows) == (ts.n_cold, ts.hot.n_rows)
+    for mine, theirs in ((back.hot.columns, ts.hot.columns),
+                         (back.cold_q, ts.cold_q),
+                         (back.cold_scales, ts.cold_scales),
+                         (back.cold_int, ts.cold_int)):
+        for k in theirs:
+            assert torch.equal(mine[k], theirs[k].cpu()), k
+    plan = (GroupBy("category", "quality", agg="mean", num_groups=4),)
+    (tc, mc), (tg, mg) = back.query(plan), ts.query(plan)
+    assert torch.equal(mc, mg.cpu())
+    _close(tg["quality"], tc["quality"], exact=False)

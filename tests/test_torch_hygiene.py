@@ -6,7 +6,8 @@
   JAX or anything of the reference package ``repro``;
 - importing the port builds nothing (no compiler runs at import);
 - every entry point defaults to CUDA and raises when there is none
-  (the multi-stream run, the serving pool and the cold tier among them);
+  (the multi-stream run, the serving pool, the cold tier, the sharded
+  store and tier, ``rebalance`` and the checkpoint readers among them);
 - ``chip_smoke.py`` fails, and prints no result, without a card;
 - on the CPU, every kernel wrapper (K1, K2, K3, K4) takes its plain
   version and launches nothing, and the SSM model path (``models/ssd``)
@@ -214,6 +215,34 @@ def test_hybrid_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "hymba-1.5b", "--requests", "1",
                     "--prompt-len", "4", "--gen", "2"])
+
+
+def test_sharded_warehouse_entry_points_raise_without_cuda(monkeypatch,
+                                                         tmp_path):
+    """The sharded store, its tier, ``rebalance`` and the checkpoint
+    readers default to CUDA and raise without it; the store and file
+    they are handed are on the CPU."""
+    import numpy as np
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.runtime.elastic import rebalance
+    from repro_torch.warehouse import (SegmentStore, ShardedStore,
+                                       ShardedTieredStore, TieredStore,
+                                       load_warehouse, save_warehouse)
+    store = ShardedStore(out_dim=2, n_shards=2, device="cpu")
+    path = save_warehouse(str(tmp_path / "w.rsk"), TieredStore(
+        SegmentStore(out_dim=2, device="cpu"), device="cpu"))
+    ckpt.save(str(tmp_path / "c.rsk"), {"x": np.zeros(2, np.int32)})
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedStore(out_dim=2, n_shards=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedTieredStore(store)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rebalance(store, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_warehouse(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ckpt.restore(str(tmp_path / "c.rsk"))
 
 
 def test_windowed_attention_on_cpu_takes_the_plain_version():
