@@ -35,7 +35,9 @@ script fails before it prints a result.
               window of 1,024 and causal, and a stress case with |q|, |k|
               up to 8; then bfloat16 q, k, v (the serve prefills, GQA, a
               window, D = 128, 8 and 12), the output in bfloat16 against
-              the plain version on the widened inputs.
+              the plain version on the widened inputs; mixtral-8x7b's
+              prefill (B=4, S=2048, 32 heads over 8 kv heads, D=128,
+              window 4,096) in both dtypes.
 5b. kernel_k4 K4 (five passes) against its plain version run in
               float64 within ``kernels.ssd.error_bound``, and each pass
               against its own plain version within the bound
@@ -86,6 +88,18 @@ script fails before it prints a result.
               on fresh stores with and without a registry, in turns
               (bare, registry, registry, bare), and the fold's cost per
               ingest.
+7c. compare   the paper's comparisons on the main fit and camera 0's
+              day, every kernel's count set to 0 just before and read
+              just after (no kernel is on this path): the per-window
+              loop ``run_skyscraper`` (plan_days 0.25, cloud budget
+              15,000 core-s; forecast, LP and window runs on the card),
+              Static at ``best_static_config``, VideoStorm-like,
+              Chameleon* (host numpy) and ``run_optimum`` (its LP at
+              43,200 rows on the card), one line each with quality,
+              core-s, buffer peak, overflow and dollars as
+              ``benchmarks/cost_quality.py`` reckons them; the loop's
+              traces and the optimum's selection against the card
+              machine's CPU run, and Skyscraper's buffer and budget.
 8. transform  the Transform path, counts set to 0 just before it:
               ``Skyscraper`` + ``BackboneVETL`` (qwen1.5-0.5b at the
               reference's SIZES) through ``fit`` on 40 segments and 60
@@ -127,6 +141,19 @@ script fails before it prints a result.
               decode and check as for qwen. Prints the phase's wall
               time, the prompt draw, each prefill and the decode steps,
               and peak memory.
+9d. serve_moe the same serving path for the MoE family, counts set to 0
+              just before it: ``get("mixtral-8x7b")`` at its published
+              width (d_model 4,096, 32 heads over 8 kv heads of 128,
+              window 4,096, 8 experts top-2 of d_ff 14,336, vocab
+              32,000), its 32 layers cut to 4 (the whole model is 187
+              GB in float32), float32, random weights from seed 0. K3
+              must launch once per layer and prefill, every launch
+              windowed; then one batch's logits against the same model
+              with K3's plain version, that model routing every token
+              to the experts the kernel model chose (a top-k choice can
+              flip on a last-bit change; the free-running difference
+              and each layer's share of equal choices are printed), and
+              the bfloat16 prefill, decode and check as for qwen.
 10. time      CUDA-event medians of device time (the card spins while
               the host enqueues each timed call): K1, its plain version
               and one ``index_add_``/``scatter_reduce_`` call per
@@ -149,7 +176,11 @@ script fails before it prints a result.
               prefill with its window and in its global layers (SDPA
               given the same band as a boolean mask, with
               ``enable_gqa``) and K4 at its prefill, in float32 and
-              bfloat16, each beside its bounds. The library calls are
+              bfloat16, each beside its bounds; then (``time_moe``) K3
+              at mixtral-8x7b's prefill in both dtypes beside SDPA
+              (``enable_gqa``, causal: the window covers the prompt) and
+              the bounds. Every timed K3 output is held against its
+              plain version on the same inputs. The library calls are
               yardsticks the port never calls.
 11. multi     the multi-stream path, K1's counts set to 0 just before
               it: ``run_skyscraper_multi`` over 256 COVID streams of
@@ -241,7 +272,11 @@ plain-attention model (3xTF32 attention summed in another order moves
 each layer by about 1e-6 relative, as float32 did; 24 layers and the
 head leave that far below 1e-3), and at least 99% of next tokens equal; the same limits
 for mamba2-370m against the plain-SSD model and for hymba-1.5b against
-the model with both plain versions. The flight recorder: bit for bit. bfloat16: K3 and K4 within
+the model with both plain versions, and for mixtral-8x7b against the
+plain-attention model on the same expert choices (each layer's
+free-running choices agreeing on at least 97% of tokens). The
+comparisons: the loop's traces and the optimum's selection bit for bit
+against the CPU, its sums within 1e-5. The flight recorder: bit for bit. bfloat16: K3 and K4 within
 their bound on the widened inputs plus the rounding of the output to
 bfloat16, half an ulp (2^-8) of the value; the bfloat16 logits within
 ``models.options.bf16_logit_tolerance``, (L + 2) bfloat16 ulps (2^-7)
@@ -286,6 +321,10 @@ ATTN_SMALL = (30, 16, 4, 8)         # the Transform's calls (model small)
 SSD_TIME = (4, 2048, 32, 64, 1, 128, 256)   # B, S, H, P, G, N, Q: mamba2
 HYMBA_ATTN = (4, 2048, 25, 5, 64, 1024)     # B, S, H, G, D, window: hymba
 HYMBA_SSD = (4, 2048, 25, 64, 1, 16, 256)   # B, S, H, P, G, N, Q: hymba
+MOE_LAYERS = 4                      # mixtral-8x7b's 32 layers cut to 4
+MOE_ATTN = (4, 2048, 32, 8, 128, 4096)      # B, S, H, G, D, window: mixtral
+ROUTE_AGREEMENT = 0.97              # float32 free-running expert choices
+COMPARE_PLAN_DAYS = 0.25            # the paper's loop: 4 windows of 10,800
 SPIN_CYCLES = 40_000_000            # ~20 ms of the card's clock per timing
 WINDOW = 150                        # segments in a 5-minute window
 ALERT_CLOUD_S = 13_500.0            # 90% of a camera-day's cloud budget
@@ -725,16 +764,19 @@ def _k3_cases():
     yield 1, 300, 333, 4, 2, 128, True, 100           # D = 128, ragged window
     yield 4, 2048, 2048, 25, 5, 64, True, 1024        # hymba-1.5b, window
     yield 4, 2048, 2048, 25, 5, 64, True, None        # hymba-1.5b, global
+    yield 4, 2048, 2048, 32, 8, 128, True, 4096       # mixtral-8x7b
 
 
 K3_STRESS = (1, 256, 256, 4, 2, 64, True, None)     # |q|, |k| up to 8
 # bfloat16 q, k, v (the models' default compute dtype): the serve prefill,
-# hymba-1.5b's windowed and global prefill, GQA, windows, D = 128, the
+# hymba-1.5b's windowed and global prefill, mixtral-8x7b's prefill, GQA,
+# windows, D = 128, the
 # Transform's D = 8, D = 12 (no 16-byte loads)
 K3_BF16_CASES = (
     (2, 2048, 2048, 16, 16, 64, True, None),
     (4, 2048, 2048, 25, 5, 64, True, 1024),
     (4, 2048, 2048, 25, 5, 64, True, None),
+    (4, 2048, 2048, 32, 8, 128, True, 4096),
     (2, 300, 300, 8, 2, 64, True, None),
     (1, 500, 500, 8, 4, 64, True, 32),
     (3, 130, 130, 4, 1, 128, True, None),
@@ -1295,6 +1337,108 @@ def phase_standing(m):
     return per
 
 
+def _all_kernels():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import frame_preproc as FP
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import warehouse_agg as K
+    return {"fused_segment_agg": K, "downsample": FP,
+            "flash_attention": FA, "ssd_scan": SSD}
+
+
+def phase_compare(dev, m):
+    """The paper's comparisons (Fig. 4 / Table 2, §5.3, ablation 2c) on
+    the main fit and camera 0's day (43,200 segments, seed 99), every
+    kernel's count set to 0 just before and read just after (none is on
+    this path: no sink): the per-window loop ``run_skyscraper`` at
+    ``plan_days`` 0.25 (4 windows; forecast, LP and window runs on the
+    card) with the main run's cloud budget, Static at
+    ``best_static_config``, VideoStorm-like, Chameleon* (the baselines
+    host numpy, without cloud budget, as ``benchmarks/cost_quality.py``
+    runs them) and ``run_optimum`` (its LP at 43,200 rows on the card).
+    One line per method: quality, core-s on-prem and in the cloud, the
+    buffer's peak, overflow and dollars as ``benchmarks/cost_quality.py``
+    reckons them (8 cores at the server grid's price over the stream's
+    hours, less the on-prem discount, plus the cloud core-s). Held: the
+    loop's k and c traces and ``k_hist`` equal to the same call on the
+    card machine's CPU, its sums within 1e-5; the optimum's ``k_hist``
+    equal to the CPU's; Skyscraper's buffer peak within the buffer, its
+    cloud spend within the budget, and no overflow."""
+    from repro_torch.configs.workloads import (CLOUD_COST_PER_CORE_S,
+                                               ONPREM_DISCOUNT, SERVER_GRID)
+    from repro_torch.core import ingest as IG
+
+    fitted, stream = m["fitted"], m["stream"]
+    cores, budget = m["kw"]["n_cores"], m["kw"]["cloud_budget_core_s"]
+    kw = dict(n_cores=cores, cloud_budget_core_s=budget)
+    kernels = _all_kernels()
+    _zero(kernels)
+    k_static = IG.best_static_config(fitted, cores)
+    drive = {
+        "skyscraper": lambda: IG.run_skyscraper(
+            fitted, stream, plan_days=COMPARE_PLAN_DAYS, device=dev, **kw),
+        "static": lambda: IG.run_static(fitted, stream, k_static,
+                                        n_cores=cores),
+        "videostorm": lambda: IG.run_videostorm_like(fitted, stream,
+                                                     n_cores=cores),
+        "chameleon*": lambda: IG.run_chameleon_star(fitted, stream,
+                                                    n_cores=cores),
+        "optimum": lambda: IG.run_optimum(fitted, stream, device=dev, **kw),
+    }
+    runs, secs = {}, {}
+    for name, fn in drive.items():
+        runs[name], secs[name] = timed(fn)
+    launches = _counts(kernels)
+    cpu_fit = fitted.to("cpu")
+    sky_cpu, cpu_s = timed(lambda: IG.run_skyscraper(
+        cpu_fit, stream, plan_days=COMPARE_PLAN_DAYS, device="cpu", **kw))
+    opt_cpu, opt_cpu_s = timed(lambda: IG.run_optimum(
+        cpu_fit, stream, device="cpu", **kw))
+
+    tau = fitted.workload.segment_seconds
+    hours = stream.n_segments * tau / 3600
+    server_usd = dict(SERVER_GRID)[cores] * hours / ONPREM_DISCOUNT
+    for name, res in runs.items():
+        cloud_usd = res.cloud_core_s * CLOUD_COST_PER_CORE_S
+        emit("compare", method=name, quality_pct=res.quality_pct,
+             onprem_core_s=res.onprem_core_s, cloud_core_s=res.cloud_core_s,
+             buffer_peak_s=res.buffer_peak_s, overflow=res.overflow,
+             server_usd=server_usd, cloud_usd=cloud_usd,
+             usd=server_usd + cloud_usd, seconds=secs[name],
+             k_hist=res.k_hist.tolist())
+
+    sky, cap_s = runs["skyscraper"], 4.0 * 1e9 / 90e3
+    if not (np.array_equal(sky.k_trace, sky_cpu.k_trace)
+            and np.array_equal(sky.c_trace, sky_cpu.c_trace)
+            and np.array_equal(sky.k_hist, sky_cpu.k_hist)):
+        raise AssertionError(
+            f"the loop's traces differ from the CPU run at "
+            f"{int(np.sum(sky.k_trace != sky_cpu.k_trace))} steps")
+    for key in ("quality_sum", "onprem_core_s", "cloud_core_s",
+                "buffer_peak_s"):
+        np.testing.assert_allclose(getattr(sky, key), getattr(sky_cpu, key),
+                                   rtol=1e-5)
+    if not np.array_equal(runs["optimum"].k_hist, opt_cpu.k_hist):
+        raise AssertionError("the optimum's selection differs from the "
+                             "CPU's")
+    if sky.overflow or not sky.buffer_peak_s <= cap_s + 1e-3 \
+            or not sky.cloud_core_s <= budget + 1e-3:
+        raise AssertionError(f"Skyscraper broke its guarantee: overflow="
+                             f"{sky.overflow} peak={sky.buffer_peak_s} "
+                             f"cloud={sky.cloud_core_s}")
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched on the comparisons' path: "
+                             f"{launches}")
+    emit("compare_check", segments=stream.n_segments,
+         windows=len(sky.plans), loop_s=secs["skyscraper"],
+         loop_ms_per_step=secs["skyscraper"] / stream.n_segments * 1e3,
+         cpu_loop_s=cpu_s, optimum_s=secs["optimum"],
+         cpu_optimum_s=opt_cpu_s, traces_equal=True,
+         buffer_cap_s=cap_s, cloud_budget_core_s=budget,
+         launches=launches, static_config=k_static)
+    return {"runs": runs, "seconds": secs}
+
+
 def _segments(n, seed, dev):
     """n Transform segments made on the card from one seeded generator."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1439,25 +1583,77 @@ def first_batch(corpus, params):
                                         0), device=params["embed"].device)
 
 
-def serve_check(cfg, model, params, toks, plain):
-    """The logits of the prompts ``toks`` against the same model inside
-    ``plain`` (a block that swaps a kernel for its plain version): the
-    max error, the largest |logit| and the share of equal next tokens;
-    raise past LOGIT_TOL or below TOKEN_AGREEMENT."""
-    with torch.no_grad():
+def routed(model, params, toks, pinned=None):
+    """The logits of the prompts ``toks`` and each MoE layer's expert
+    choices, (B, S, K) indices a layer; with ``pinned`` (such a list)
+    every layer's router takes those choices instead, its gates its own
+    probabilities at them."""
+    from repro_torch.models import moe
+    seen, route = [], moe.route
+
+    def hook(probs, k):
+        if pinned is None:
+            vals, idx = route(probs, k)
+        else:
+            idx = pinned[len(seen)]
+            vals = torch.gather(probs, -1, idx)
+        seen.append(idx)
+        return vals, idx
+
+    moe.route = hook
+    try:
         logits = model.forward_logits(params, {"tokens": toks})
-        k_next = logits.argmax(-1)
-        finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+    finally:
+        moe.route = route
+    return logits, seen
+
+
+def logit_pair(model, params, toks, plain):
+    """The logits of the prompts ``toks`` through the kernels and inside
+    ``plain`` (a block that swaps a kernel for its plain version). For a
+    MoE model the plain run takes the kernel run's expert choices: a
+    router's top-k is a discrete choice that a last-bit change can flip,
+    moving a token's FFN output by a whole expert's, so the pair is
+    compared where only the kernels differ. Then also the plain run's
+    free-running logits (their max difference) and each layer's share of
+    tokens whose experts agree free-running."""
+    if model.cfg.moe is None:
+        logits = model.forward_logits(params, {"tokens": toks})
         with plain():
             ref = model.forward_logits(params, {"tokens": toks})
+        return logits, ref, {}
+    logits, routes = routed(model, params, toks)
+    with plain():
+        ref, _ = routed(model, params, toks, pinned=routes)
+        free, free_routes = routed(model, params, toks)
+    err_free = float((logits.float() - free.float()).abs().max())
+    del free
+    same = [float((a.sort(-1).values == b.sort(-1).values).all(-1)
+                  .float().mean()) for a, b in zip(routes, free_routes)]
+    return logits, ref, {"logits_free_max_abs_err": err_free,
+                         "route_agreement": same}
+
+
+def serve_check(cfg, model, params, toks, plain):
+    """The logits of the prompts ``toks`` against the same model inside
+    ``plain`` (``logit_pair``): the max error, the largest |logit|, the
+    share of equal next tokens and, for a MoE model, the free-running
+    comparison; raise past LOGIT_TOL, below TOKEN_AGREEMENT or, for a
+    MoE model, below ROUTE_AGREEMENT in a layer."""
+    with torch.no_grad():
+        logits, ref, extra = logit_pair(model, params, toks, plain)
+        k_next = logits.argmax(-1)
+        finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
         err = float((logits - ref).abs().max())
         scale = float(ref[..., :cfg.vocab].abs().max())
         agree = float((k_next == ref.argmax(-1)).float().mean())
     del logits, ref
-    if not finite or not err <= LOGIT_TOL or agree < TOKEN_AGREEMENT:
+    routes_ok = min(extra.get("route_agreement", [1.0])) >= ROUTE_AGREEMENT
+    if not finite or not err <= LOGIT_TOL or agree < TOKEN_AGREEMENT \
+            or not routes_ok:
         raise AssertionError(f"{cfg.name} logits: finite={finite} err={err} "
-                             f"agreement={agree}")
-    return err, scale, agree
+                             f"agreement={agree} {extra}")
+    return err, scale, agree, extra
 
 
 def _counts(kernels):
@@ -1483,7 +1679,8 @@ def serve_bf16(cfg, params, toks, plain, kernels, want):
     launches set to 0 just before it, held to ``want``) and timed, then decode steps from its cache
     (tokens in the vocabulary), then the prefill with the plain version
     (``plain``); the logits against the plain-version model's, on the
-    card in bfloat16, within ``bf16_logit_tolerance``."""
+    card in bfloat16, within ``bf16_logit_tolerance`` (a MoE model's
+    plain run on the kernel run's expert choices: ``logit_pair``)."""
     from repro_torch.models.model import Model
     from repro_torch.models.options import RunOptions, bf16_logit_tolerance
     model = Model(cfg, RunOptions())
@@ -1515,9 +1712,7 @@ def serve_bf16(cfg, params, toks, plain, kernels, want):
         with plain():
             prefill()
             nxt_plain, plain_s = timed(prefill)
-        logits = model.forward_logits(params, {"tokens": toks})
-        with plain():
-            ref = model.forward_logits(params, {"tokens": toks})
+        logits, ref, extra = logit_pair(model, params, toks, plain)
         logits, ref = logits[..., :cfg.vocab], ref[..., :cfg.vocab]
         finite = bool(torch.isfinite(logits).all())
         err = float((logits.float() - ref.float()).abs().max())
@@ -1539,7 +1734,8 @@ def serve_bf16(cfg, params, toks, plain, kernels, want):
             "logits_bf16_tol": tol, "logits_bf16_max_abs": scale,
             "next_token_agreement_bf16": agree,
             "prefill_bf16_next_equal": float((nxt == nxt_plain).float()
-                                             .mean())}
+                                             .mean()),
+            **{f"{k}_bf16": v for k, v in extra.items()}}
 
 
 def _check_outputs(cfg, stats):
@@ -1602,7 +1798,7 @@ def phase_serve(dev):
     out = _check_outputs(cfg, stats)
     toks = first_batch(corpus, params)
     split = serve_split(model, params, toks, stats)
-    err, scale, agree = serve_check(cfg, model, params, toks,
+    err, scale, agree, _ = serve_check(cfg, model, params, toks,
                                     plain_attention)
     bf16 = serve_bf16(cfg, params, toks, plain_attention,
                       {"flash_attention": FA},
@@ -1649,7 +1845,7 @@ def phase_serve_ssm(dev):
     out = _check_outputs(cfg, stats)
     toks = first_batch(corpus, params)
     split = serve_split(model, params, toks, stats)
-    err, scale, agree = serve_check(cfg, model, params, toks, plain_ssd)
+    err, scale, agree, _ = serve_check(cfg, model, params, toks, plain_ssd)
     bf16 = serve_bf16(cfg, params, toks, plain_ssd, {"ssd_scan": SSD},
                       {"ssd_scan": cfg.n_layers})
     emit("serve_ssm", layers=cfg.n_layers, d_model=cfg.d_model,
@@ -1706,7 +1902,7 @@ def phase_serve_hybrid(dev):
     out = _check_outputs(cfg, stats)
     toks = first_batch(corpus, params)
     split = serve_split(model, params, toks, stats)
-    err, scale, agree = serve_check(cfg, model, params, toks, plain_hybrid)
+    err, scale, agree, _ = serve_check(cfg, model, params, toks, plain_hybrid)
     with torch.no_grad(), plain_hybrid():
         def prefill():
             return model.prefill(params, {"tokens": toks}, cache_len=SERVE[
@@ -1735,6 +1931,84 @@ def phase_serve_hybrid(dev):
     return dict(k3_window=k3_window, k3_global=k3 - k3_window,
                 k4=launches["ssd_scan"] + bf16["launches_bf16"]["ssd_scan"],
                 err=err)
+
+
+def phase_serve_moe(dev):
+    """The serving path for the MoE family, counted: mixtral-8x7b at its
+    published width (d_model 4,096, 32 heads over 8 kv heads of 128,
+    window 4,096, 8 experts top-2 of d_ff 14,336, vocab 32,000), its 32
+    layers cut to MOE_LAYERS (46.7B parameters are 187 GB in float32),
+    random weights from seed 0, float32, through ``serve``. K3 must launch
+    once per layer and prefill, every launch with the window; then one
+    batch's logits against the same model with K3's plain version on the
+    kernel model's expert choices (``logit_pair``), that prefill's time,
+    and the bfloat16 prefill, decode and check as for qwen."""
+    import dataclasses
+
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full = get("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    model = Model(cfg, RunOptions(remat="none", layer_loop="scan",
+                                  compute_dtype="float32"))
+    params, init_s = timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    corpus = SyntheticCorpus(cfg.vocab, 0)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    kernels = {"flash_attention": FA}
+    _zero(kernels)
+    stats = serve(model, params, corpus, log=lambda line: None, **SERVE)
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    per_prefill = {"flash_attention": cfg.n_layers,
+                   "flash_attention_window": cfg.n_layers}
+    batches = -(-SERVE["requests"] // SERVE["batch"])
+    if launches != {k: v * batches for k, v in per_prefill.items()}:
+        raise AssertionError(f"the mixtral serve path launched {launches}, "
+                             f"not {per_prefill} per prefill")
+    out = _check_outputs(cfg, stats)
+    toks = first_batch(corpus, params)
+    split = serve_split(model, params, toks, stats)
+    err, scale, agree, routing = serve_check(cfg, model, params, toks,
+                                             plain_attention)
+    with torch.no_grad(), plain_attention():
+        def prefill():
+            return model.prefill(params, {"tokens": toks}, cache_len=SERVE[
+                "prompt_len"] + SERVE["gen"])[0].cpu()
+        prefill()
+        _, plain_s = timed(prefill)
+    bf16 = serve_bf16(cfg, params, toks, plain_attention, kernels,
+                      per_prefill)
+    emit("serve_moe", layers=cfg.n_layers, published_layers=full.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.hd, window=cfg.window, experts=cfg.moe.n_experts,
+         top_k=cfg.moe.top_k, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         capacity_factor=model.opts.capacity_factor,
+         params=_n_params(params), param_count=cfg.param_count(),
+         published_param_count=full.param_count(), init_s=init_s,
+         seconds=stats["seconds"], tokens=stats["tokens"],
+         tok_per_s=stats["tokens"] / stats["seconds"], **split,
+         prefill_plain_s=plain_s, launches=launches,
+         launches_per_prefill=per_prefill, mem_at_start_bytes=mem0,
+         peak_mem_bytes=peak, generated_first=out[0].tolist(),
+         logits_max_abs_err=err, logits_max_abs=scale,
+         next_token_agreement=agree, **routing, **bf16,
+         peak_mem_phase_bytes=torch.cuda.max_memory_allocated(),
+         phase_s=time.perf_counter() - t0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches["flash_attention"]
+                + bf16["launches_bf16"]["flash_attention"], err=err)
 
 
 def _library_call(cols, n, spec, fvals):
@@ -1820,7 +2094,12 @@ def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32, *,
     operands the bound is the dense bf16 peak's (the least time the card
     could take for the same function), beside the 3xTF32 one. SDPA gets
     the same band: ``is_causal`` without a window, else the band as a
-    boolean ``attn_mask``, with ``enable_gqa`` for fewer kv heads."""
+    boolean ``attn_mask``, with ``enable_gqa`` for fewer kv heads (a
+    window of S or more is the causal mask, and SDPA gets ``is_causal``).
+    The kernel's output on the timed inputs is held against the plain
+    version's within ``error_bound`` (bfloat16: on the widened inputs,
+    the output's rounding added), and SDPA's distance from the plain
+    version is reported."""
     B, S, H, D = shape
     G = kv_heads or H
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
@@ -1836,10 +2115,24 @@ def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32, *,
     fp32_ms = flops / FP32_FLOP_PER_S * 1e3
     least_ms = (flops / BF16_FLOP_PER_S * 1e3 if dtype == torch.bfloat16
                 else tf32_ms)
-    sdpa = ({"is_causal": True} if window is None else {"attn_mask": band})
+    sdpa = ({"is_causal": True} if window is None or window >= S
+            else {"attn_mask": band})
     if G != H:
         sdpa["enable_gqa"] = True
-    return {"dtype": str(dtype).replace("torch.", ""),
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = FA.flash_attention_ref(qf, kf, vf, window=window)
+    got = FA.flash_attention(q, k, v, window=window)
+    bound = FA.error_bound(qf, kf, vf, causal=True, window=window,
+                           ref=want if dtype == torch.bfloat16 else None)
+    ratio = float(((got.float() - want).abs() / bound).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"K3 at {list(shape)} G={G} w={window} "
+                             f"{dtype}: {ratio:.3g}x error_bound")
+    lib = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+    held = {"max_abs_err": _max_err(got, want), "of_bound": ratio,
+            "library_max_abs_err": _max_err(lib.transpose(1, 2), want)}
+    del qf, kf, vf, want, got, bound, lib
+    return {"dtype": str(dtype).replace("torch.", ""), **held,
             "kernel_ms": cuda_ms(lambda: FA.flash_attention(
                 q, k, v, window=window), reps),
             "plain_ms": cuda_ms(lambda: FA.flash_attention_ref(
@@ -1947,6 +2240,24 @@ def phase_time_hybrid(dev):
     k4 = _time_ssd(SSD, args, HYMBA_SSD)
     emit("time_hybrid", flash_attention=k3, ssd_scan=k4)
     return k3, k4
+
+
+def phase_time_moe(dev):
+    """K3 at mixtral-8x7b's serve prefill (B=4, S=2048, 32 heads over 8
+    kv heads of 128, window 4,096: every key of the prompt, the causal
+    half), float32 and bfloat16: kernel, plain version and SDPA
+    (``enable_gqa``, causal), each kernel output held against the plain
+    version, beside the bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, S, H, G, D, W = MOE_ATTN
+    k3 = _time_k3(FA, F, (B, S, H, D), gen, dev, reps=20, kv_heads=G,
+                  window=W)
+    k3["bf16"] = _time_k3(FA, F, (B, S, H, D), gen, dev, reps=20,
+                          dtype=torch.bfloat16, kv_heads=G, window=W)
+    emit("time_moe", flash_attention=k3)
+    return k3
 
 
 # ---------------------------------------------------------------------------
@@ -3036,15 +3347,18 @@ def run(dev) -> None:
     m = phase_main(dev)
     errs = phase_check(m)
     phase_standing(m)
+    phase_compare(dev, m)
     t = phase_transform(dev)
     phase_transform_check(t)
     sv = phase_serve(dev)
     ss = phase_serve_ssm(dev)
     sh = phase_serve_hybrid(dev)
+    sm = phase_serve_moe(dev)
     per = phase_time(m, errs)
     k2, k3 = phase_time_k2_k3(dev)
     k4 = phase_time_k4(dev)
     h3, h4 = phase_time_hybrid(dev)
+    m3 = phase_time_moe(dev)
     mm = phase_multi(dev, m)
     multi_err = phase_multi_check(mm)
     pp = phase_pool(dev, t)
@@ -3124,6 +3438,18 @@ def run(dev) -> None:
         "bound_by": h3[kind]["bound_by"],
         "library_ms": h3[kind]["library_ms"],
     } for kind in ("window", "global")] + [{
+        "name": "flash_attention[mixtral-8x7b]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:67",
+        "launches": sm["launches"],
+        "max_abs_err": max(m3["max_abs_err"], m3["bf16"]["max_abs_err"]),
+        "ms": m3["kernel_ms"],
+        "plain_ms": m3["plain_ms"],
+        "bound_ms": m3["bound_ms"],
+        "bound_by": m3["bound_by"],
+        "library_ms": m3["library_ms"],
+    }] + [{
         "name": "ssd_scan[hymba-1.5b]",
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",

@@ -4,8 +4,8 @@ Each architecture module in this package exports ``CONFIG`` with the
 published numbers and registers it; ``get(name)`` looks one up and
 ``reduced()`` gives the tiny same-family config the CPU tests use. Only
 the families the port runs have modules here (qwen1.5-0.5b, dense;
-mamba2-370m, ssm; hymba-1.5b, hybrid); the others come with their slices
-(ROADMAP, Queue 1).
+mixtral-8x7b and mixtral-8x22b, moe; mamba2-370m, ssm; hymba-1.5b,
+hybrid); the others come with their slices (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -160,6 +160,7 @@ def get(name: str) -> ArchConfig:
     """The registered config ``name``; the architecture modules are
     imported here for their side effect."""
     from repro_torch.configs import (hymba_1_5b, mamba2_370m,  # noqa: F401
+                                     mixtral_8x7b, mixtral_8x22b,
                                      qwen1_5_0_5b)
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; the port has "

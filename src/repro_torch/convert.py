@@ -51,7 +51,10 @@ def fitted_from_arrays(workload_name: str, arrays: Dict,
 def params_from_arrays(tree: Dict, device=None) -> Dict:
     """A model param tree of arrays (the reference's ``Model.init``
     output through ``jax.tree.map(np.asarray, ...)``) -> the same nested
-    dict of tensors on ``device`` (``None`` means CUDA), dtypes kept."""
+    dict of tensors on ``device`` (``None`` means CUDA), dtypes kept.
+    Every family's leaves go across by name, the MoE's stacked router
+    (L,d,E) and experts' ``w_gate``, ``w_up`` (L,E,d,f) and ``w_down``
+    (L,E,f,d) among them."""
     dev = resolve(device)
     return {k: (params_from_arrays(v, dev) if isinstance(v, dict)
                 else torch.as_tensor(np.array(v), device=dev))

@@ -1,18 +1,30 @@
-"""Online video ingestion (paper §4): the fused run of one stream and of
-many.
+"""Online video ingestion (paper §4): the per-window loop, the fused run
+of one stream and of many, and the paper's baselines.
 
-Port of ``repro/core/ingest.py``'s ``run_skyscraper_fused`` and
-``run_skyscraper_multi`` (with its windowed host loop). The
-reference compiles the whole run into one program (an outer
-``lax.scan`` over planning windows); here it is a Python loop over
-windows whose body is the same three steps — forecast the category
-mix, solve the window-rationed LP, run the switcher over the window —
-as tensor ops on one device. Nothing is read back to the host inside
-the loop, so on the card the host only enqueues work until the traces
-are copied out at the end. The multi-stream run (paper App. D, scenario
-1) plans all V streams jointly in each window (the window's category
-mix of each stream, then one stacked LP under the shared budget) and
-switches them in one batched step per segment.
+Port of ``repro/core/ingest.py``.
+
+- ``run_skyscraper`` is the paper's online loop, one planning window at
+  a time: the forecast (the forecaster on the labels seen so far, the
+  window's true category mix, or uniform), the Lagrangian LP and the
+  switcher's window run on the device; the budget, the labels seen and
+  the App. E.2 online fine-tuning of the forecaster are the reference's
+  per-window bookkeeping on the host, so each window ends in a read of
+  its traces.
+- ``run_skyscraper_fused`` and ``run_skyscraper_multi`` are the fused
+  runs. The reference compiles each whole run into one program (an
+  outer ``lax.scan`` over planning windows); here it is a Python loop
+  over windows whose body is the same three steps — forecast the
+  category mix, solve the window-rationed LP, run the switcher over the
+  window — as tensor ops on one device. Nothing is read back to the
+  host inside the loop, so on the card the host only enqueues work
+  until the traces are copied out at the end. The multi-stream run
+  (paper App. D, scenario 1) plans all V streams jointly in each window
+  (the window's category mix of each stream, then one stacked LP under
+  the shared budget) and switches them in one batched step per segment.
+- The baselines (Static, Chameleon*, VideoStorm-like) are the
+  reference's per-segment numpy loops on the host; ``run_optimum``, the
+  ground-truth knapsack, solves its LP (one category per segment) on
+  the device.
 
 Tensor division below always divides by a tensor on the same device,
 never by a Python number: CUDA divides a tensor by a CPU scalar through
@@ -27,13 +39,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.forecaster import forecast_from_labels
+from repro_torch.core.forecaster import (forecast_from_labels, make_dataset,
+                                         train_forecaster)
 from repro_torch.core.knobs import quality as qfn
 from repro_torch.core.offline import Fitted
-from repro_torch.core.planner import (solve_lp_rationed, solve_lp_stacked,
-                                      solve_multi_stream)
+from repro_torch.core.planner import (solve_lp_lagrangian, solve_lp_rationed,
+                                      solve_lp_stacked, solve_multi_stream)
 from repro_torch.core.switcher import (init_state, init_state_multi,
-                                       pad_window_multi, run_window_multi,
+                                       pad_window, pad_window_multi,
+                                       run_window, run_window_multi,
                                        stack_tables, window_scan,
                                        window_scan_multi)
 from repro_torch.data.stream import Stream
@@ -122,6 +136,110 @@ def _oracle_rate(q_w, centers, valid, w_tf):
     oh = torch.nn.functional.one_hot(torch.argmin(d, dim=-1),
                                      centers.shape[-2]).to(torch.float32)
     return (oh * valid[..., None]).sum(-2) / w_tf
+
+
+def run_skyscraper(fitted: Fitted, stream: Stream, *, n_cores: int,
+                   cloud_budget_core_s: float = 0.0, buffer_gb: float = 4.0,
+                   plan_days: Optional[float] = None,
+                   forecast_mode: str = "model",   # model | oracle | uniform
+                   online_finetune: bool = False,  # App. E.2
+                   seed: int = 0, device=None) -> RunResult:
+    """The paper's online loop on ``device`` (``None`` means CUDA): plan
+    each window with the chosen forecast mode, then switch over its
+    segments; returns the run's ``RunResult``, equal to the reference's.
+
+    Per window, as the reference: the forecast ``r`` (``model``: the
+    forecaster on the last ``n_split * interval`` labels, zero-padded in
+    front, once a window has run; ``oracle``: the window's true category
+    mix, from the host's float32 qualities; else uniform); the budget in
+    Python float64 from the cloud spend read back after the last window,
+    with the cloud share ``W_t / (T - t)`` of the rest of the stream,
+    divided by W_t, rounded to float32 once and solved by the plain
+    Lagrangian LP; the window padded to W (``pad_window``) and run. With
+    ``online_finetune`` the forecaster is trained 3 more epochs on the
+    labels seen once there are ``interval * (n_split + 2)``, and the
+    result replaces ``fitted.forecaster`` (the caller's, on its
+    device), as the reference's loop replaces it."""
+    dev = resolve(device)
+    if forecast_mode not in ("model", "oracle", "uniform"):
+        raise ValueError(f"unknown forecast_mode {forecast_mode!r}")
+    caller = fitted
+    if fitted.device != dev:
+        fitted = fitted.to(dev)
+    w = fitted.workload
+    tau = w.segment_seconds
+    plan_days = plan_days or fitted.horizon_segments * tau / 86400
+    W = max(1, int(plan_days * 86400 / tau))
+    tables = fitted.tables(buffer_gb=buffer_gb,
+                           cloud_budget=cloud_budget_core_s)
+    quals_h = stream.quality(fitted.power, seed=seed).astype(np.float32)
+    quals = torch.as_tensor(quals_h, device=dev)
+    arrivals = torch.as_tensor(stream.arrival.astype(np.float32), device=dev)
+    T = stream.n_segments
+    C, K = fitted.centers.shape
+    need = fitted.interval_segments * fitted.n_split
+
+    state = init_state(tables)
+    buf = torch.zeros((need,), dtype=torch.int64, device=dev)
+    labels_hist: List[np.ndarray] = []
+    outs_all = {k: [] for k in ("k", "c", "qual", "on_s", "cl_s", "buffer_s")}
+    plans = []
+    t = 0
+    while t < T:
+        W_t = min(W, T - t)
+        # ---- forecast r (category distribution over the window) ---------
+        if forecast_mode == "oracle":
+            q_true = quals_h[t:t + W_t]
+            d = ((q_true[:, None, :] - fitted.centers[None]) ** 2).sum(-1)
+            r = np.bincount(d.argmin(1), minlength=C) / W_t
+            r_dev = torch.as_tensor(r, dtype=torch.float32, device=dev)
+        elif forecast_mode == "model" and labels_hist:
+            r_dev = forecast_from_labels(fitted.forecaster, buf, C,
+                                         n_split=fitted.n_split,
+                                         interval=fitted.interval_segments)
+            r = r_dev.cpu().numpy()
+        else:
+            r = np.full(C, 1.0 / C)
+            r_dev = torch.as_tensor(r, dtype=torch.float32, device=dev)
+        # ---- plan (budget = on-prem + rationed cloud, in core-s) --------
+        cloud_left = cloud_budget_core_s - float(state["cloud_spent"])
+        frac = W_t / (T - t)
+        budget = n_cores * tau * W_t + max(cloud_left, 0.0) * frac \
+            / CLOUD_PREMIUM
+        # LP cost is per segment; hand the planner the per-segment budget
+        alpha = solve_lp_lagrangian(tables.centers, tables.cost, r_dev,
+                                    np.float32(budget / W_t))
+        plans.append((r, alpha.cpu().numpy()))
+        # ---- reactive switching over the window (padded to W) ----------
+        q_w, a_w, valid = pad_window(quals[t:t + W_t], arrivals[t:t + W_t],
+                                     W)
+        state, outs = run_window(state, q_w, a_w, alpha, tables, valid=valid)
+        host = {k: outs[k][:W_t].cpu().numpy() for k in outs_all}
+        for k in ("k", "c"):
+            host[k] = host[k].astype(np.int32)
+        for k in outs_all:
+            outs_all[k].append(host[k])
+        labels_hist.append(host["c"])
+        if forecast_mode == "model":
+            buf = torch.cat([buf, outs["c"][:W_t]])[W_t:]
+        t += W_t
+        # App. E.2: continuous online fine-tuning of the forecaster on
+        # the categories the switcher itself has been recording
+        if online_finetune and forecast_mode == "model":
+            lab = np.concatenate(labels_hist)
+            if len(lab) >= fitted.interval_segments * (fitted.n_split + 2):
+                X, Y = make_dataset(lab, C,
+                                    interval=fitted.interval_segments,
+                                    n_split=fitted.n_split,
+                                    horizon=min(W, len(lab) // 4))
+                if len(X) >= 8:
+                    fitted.forecaster, _ = train_forecaster(
+                        fitted.forecaster, X, Y, epochs=3, seed=seed)
+    if online_finetune and forecast_mode == "model":
+        caller.forecaster = fitted.to(caller.device).forecaster
+    cat = {k: np.concatenate(v) for k, v in outs_all.items()}
+    return _assemble_result(cat, _max_quality(stream, fitted.power), K,
+                            plans)
 
 
 def _window_layout(T: int, W: int):
@@ -452,3 +570,148 @@ def run_skyscraper_multi_windowed(fitteds, streams, *, n_cores_each: int,
     return {"quality_pct": 100.0 * sums.sum() / max(qmax.sum(), 1e-9),
             "per_stream_pct": (100.0 * sums
                                / np.maximum(qmax, 1e-9)).tolist()}
+
+
+# ---------------------------------------------------------------------------
+# the paper's baselines (host numpy, as the reference) and the optimum
+# ---------------------------------------------------------------------------
+
+def _run_fixed_policy(fitted: Fitted, stream: Stream, pick_k, *,
+                      n_cores: int, buffer_gb: float = 4.0,
+                      cloud_budget_core_s: float = 0.0,
+                      extra_backlog: Optional[np.ndarray] = None,
+                      seed: int = 0) -> RunResult:
+    """Shared numpy loop for Static / Chameleon* / VideoStorm baselines.
+    pick_k(t, measured_qualities) -> config index, called before step
+    t's ``extra_backlog[t]`` is read. Buffer-agnostic policies may
+    overflow: overflowing segments are dropped (quality 0)."""
+    tau = fitted.workload.segment_seconds
+    cap_s = buffer_gb * 1e9 / 90e3
+    quals = stream.quality(fitted.power, seed=seed)
+    K = len(fitted.configs)
+    b = 0.0
+    cloud = 0.0
+    on_sum = cl_sum = q_sum = 0.0
+    peak = 0.0
+    overflow = False
+    k_hist = np.zeros(K, np.int64)
+    for t in range(stream.n_segments):
+        k = pick_k(t, quals[t])
+        m = stream.arrival[t]
+        # cheapest placement that fits buffer + cloud budget
+        rts = fitted.place_rt[k] * m
+        cls_ = fitted.place_cl[k] * m
+        ons = fitted.place_on[k] * m
+        feas = fitted.place_valid[k] & (rts <= tau + (cap_s - b)) \
+            & (cloud + cls_ <= cloud_budget_core_s)
+        if feas.any():
+            p = np.where(feas, cls_, np.inf).argmin()
+            rt, on_s, cl_s = rts[p], ons[p], cls_[p]
+            q = quals[t, k]
+        else:
+            # buffer-agnostic baseline would overflow: drop the segment
+            overflow = True
+            rt, on_s, cl_s, q = 0.0, 0.0, 0.0, 0.0
+        if extra_backlog is not None:
+            b += extra_backlog[t] / n_cores
+        b = max(0.0, b + rt - tau)
+        peak = max(peak, b)
+        cloud += cl_s
+        on_sum += on_s
+        cl_sum += cl_s
+        q_sum += q
+        k_hist[k] += 1
+    qmax = _max_quality(stream, fitted.power)
+    return RunResult(q_sum, float(qmax.sum()), on_sum, cl_sum, peak,
+                     overflow, k_hist)
+
+
+def run_static(fitted: Fitted, stream: Stream, k: int, **kw) -> RunResult:
+    """Ablation baseline: run the whole stream pinned to config ``k``."""
+    return _run_fixed_policy(fitted, stream, lambda t, q: k, **kw)
+
+
+def best_static_config(fitted: Fitted, n_cores: int) -> int:
+    """Most qualitative config that runs real-time all-on-prem (ablation 1a)."""
+    tau = fitted.workload.segment_seconds
+    ok = (fitted.cost / n_cores) <= tau
+    if not ok.any():
+        return int(np.argmin(fitted.cost))
+    return int(np.argmax(np.where(ok, fitted.power, -1)))
+
+
+def run_videostorm_like(fitted: Fitted, stream: Stream, *, n_cores: int,
+                        **kw) -> RunResult:
+    """Query-load adaptive (VideoStorm): most qualitative config whose
+    cheapest placement currently fits — content-agnostic, greedy buffer."""
+    order = np.argsort(-fitted.power)
+    tau = fitted.workload.segment_seconds
+    cap_s = kw.get("buffer_gb", 4.0) * 1e9 / 90e3
+    state = {"b": 0.0}
+
+    def pick(t, q):
+        m = stream.arrival[t]
+        for k in order:
+            rts = fitted.place_rt[k] * m
+            feas = fitted.place_valid[k] & (rts <= tau + (cap_s - state["b"]))
+            if feas.any():
+                state["b"] = max(0.0, state["b"]
+                                 + rts[np.where(feas, fitted.place_cl[k],
+                                                np.inf).argmin()] - tau)
+                return int(k)
+        return int(np.argmin(fitted.cost))
+
+    return _run_fixed_policy(fitted, stream, pick, n_cores=n_cores, **kw)
+
+
+def run_chameleon_star(fitted: Fitted, stream: Stream, *, n_cores: int,
+                       epoch_segments: int = 50, profile_top: int = 6,
+                       quality_floor: float = 0.9, seed: int = 0,
+                       **kw) -> RunResult:
+    """Chameleon* (§5.3): periodic profiling of the top configs (the
+    profiling work is real and added to the backlog), then the cheapest
+    config within ``quality_floor`` of the best profiled quality. Buffer
+    added (vs. original Chameleon) but unmanaged. ``pick`` writes the
+    profiling work into ``extra`` at step t before the loop reads
+    ``extra[t]``."""
+    quals = stream.quality(fitted.power, seed=seed)
+    by_pow = np.argsort(-fitted.power)[:profile_top]
+    current = {"k": int(np.argmin(fitted.cost))}
+    extra = np.zeros(stream.n_segments)
+
+    def pick(t, q):
+        if t % epoch_segments == 0:
+            prof = quals[t, by_pow]
+            extra[min(t, len(extra) - 1)] = fitted.cost[by_pow].sum()
+            ok = by_pow[prof >= quality_floor * prof.max()]
+            current["k"] = int(ok[np.argmin(fitted.cost[ok])])
+        return current["k"]
+
+    return _run_fixed_policy(fitted, stream, pick, n_cores=n_cores,
+                             extra_backlog=extra, seed=seed, **kw)
+
+
+def run_optimum(fitted: Fitted, stream: Stream, *, n_cores: int,
+                cloud_budget_core_s: float = 0.0, seed: int = 0,
+                chunk: int = 40_000, device=None) -> RunResult:
+    """Ground-truth knapsack (ablation 2c): per-segment config choice
+    maximizing total quality under the total work budget — the LP bound,
+    solved exactly with the Lagrangian planner on ``device`` (``None``
+    means CUDA), one category per segment (T rows). ``chunk`` is the
+    reference's, unused there too."""
+    dev = resolve(device)
+    tau = fitted.workload.segment_seconds
+    T = stream.n_segments
+    quals = stream.quality(fitted.power, seed=seed)      # (T,K)
+    budget = n_cores * tau * T + cloud_budget_core_s / CLOUD_PREMIUM
+    r = torch.full((T,), 1.0 / T, dtype=torch.float32, device=dev)
+    alpha = solve_lp_lagrangian(
+        torch.as_tensor(quals.astype(np.float32), device=dev),
+        torch.as_tensor(fitted.cost, dtype=torch.float32, device=dev), r,
+        np.float32(budget / T))
+    k_sel = alpha.cpu().numpy().argmax(1)
+    q_sum = float(quals[np.arange(T), k_sel].sum())
+    work = float(fitted.cost[k_sel].sum())
+    qmax = _max_quality(stream, fitted.power)
+    return RunResult(q_sum, float(qmax.sum()), work, 0.0, 0.0, False,
+                     np.bincount(k_sel, minlength=len(fitted.configs)))

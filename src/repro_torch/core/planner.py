@@ -11,10 +11,39 @@ a 1-D piecewise-linear function of the budget multiplier λ, so bisect λ
 prefer-cheap / prefer-expensive endpoint plans to exhaust the budget.
 Every step is a tensor op on the inputs' device, with no host read, so
 the solver runs between switcher windows without a synchronisation.
+``solve_lp_scipy`` is the paper's approach, an off-the-shelf LP (HiGHS)
+on the host in float64, kept as the oracle the exact solver is held to.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def solve_lp_scipy(qual, cost, r, budget):
+    """The LP through ``scipy.optimize.linprog(method="highs")`` on the
+    host in float64, as the reference solves it: qual (C,K), cost (K,),
+    r (C,) host arrays, budget a float. Returns alpha (C,K) float64
+    numpy; when no plan is feasible, every category gets the cheapest
+    config."""
+    from scipy.optimize import linprog
+    qual = np.asarray(qual, np.float64)
+    cost = np.asarray(cost, np.float64)
+    r = np.asarray(r, np.float64)
+    C, K = qual.shape
+    c_obj = -(r[:, None] * qual).reshape(-1)             # maximize
+    A_ub = (r[:, None] * cost[None, :]).reshape(1, -1)
+    A_eq = np.zeros((C, C * K))
+    for ci in range(C):
+        A_eq[ci, ci * K:(ci + 1) * K] = 1.0
+    res = linprog(c_obj, A_ub=A_ub, b_ub=[budget], A_eq=A_eq,
+                  b_eq=np.ones(C), bounds=(0, 1), method="highs")
+    if not res.success:
+        # infeasible budget: everyone gets the cheapest config
+        alpha = np.zeros((C, K))
+        alpha[:, int(np.argmin(cost))] = 1.0
+        return alpha
+    return res.x.reshape(C, K)
 
 
 def _fma(a, b, c):

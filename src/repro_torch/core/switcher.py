@@ -10,7 +10,8 @@ Port of ``repro/core/switcher.py``. Per segment:
     and drop the segment when nothing fits at all.
 
 The reference's ``lax.scan`` over a window becomes a Python loop of
-tensor ops (``window_scan``). Every index into a table goes through
+tensor ops (``window_scan``; ``run_window`` and ``pad_window`` are the
+reference's entry and padding around it). Every index into a table goes through
 ``index_select`` on a one-element tensor, never through ``tensor[t]``
 with a 0-d tensor, which would read the index back to the host: one
 window runs on the card without a single synchronisation. The decision
@@ -171,6 +172,30 @@ def window_scan(state, quals, arrivals, valid, alpha, tables: SwitchTables,
         for k, v in out.items():
             outs[k].append(v)
     return state, {k: torch.stack(v) for k, v in outs.items()}
+
+
+def run_window(state, quals, arrivals, alpha, tables: SwitchTables,
+               valid: Optional[torch.Tensor] = None):
+    """``window_scan`` over one planning window (the reference's jitted
+    ``run_window``): quals (T,K), arrivals (T,), every step valid unless
+    ``valid`` (T,) bool marks padding (exact no-ops)."""
+    if valid is None:
+        valid = torch.ones(quals.shape[:1], dtype=torch.bool,
+                           device=quals.device)
+    return window_scan(state, quals, arrivals, valid, alpha, tables)
+
+
+def pad_window(quals, arrivals, W: int):
+    """Pad a (T,K)/(T,) window to length W, returning (quals, arrivals,
+    valid (W,)): quals padded with 0, arrivals with 1.0, as the
+    reference pads them."""
+    T = quals.shape[0]
+    valid = torch.arange(W, device=quals.device) < T
+    if T == W:
+        return quals, arrivals, valid
+    quals = torch.nn.functional.pad(quals, (0, 0, 0, W - T))
+    arrivals = torch.nn.functional.pad(arrivals, (0, W - T), value=1.0)
+    return quals, arrivals, valid
 
 
 def switch_step(state, qual_row, arrival, alpha, tables: SwitchTables):

@@ -5,7 +5,8 @@ port of ``repro/launch/serve.py``.
         --requests 16 --prompt-len 32 --gen 8 [--device cpu]
 
 ``--arch`` takes any config the port registers (qwen1.5-0.5b, dense;
-mamba2-370m, ssm; hymba-1.5b, hybrid). The CLI serves the reduced config, as the
+mixtral-8x7b and mixtral-8x22b, moe; mamba2-370m, ssm; hymba-1.5b,
+hybrid). The CLI serves the reduced config, as the
 reference's does; ``serve`` runs the same request loop for any model and
 parameters the port runs (``chip_smoke.py`` calls it at the published
 configs).

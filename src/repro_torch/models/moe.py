@@ -1,0 +1,84 @@
+"""Top-k MoE FFN: the port of ``repro/models/moe.py``, GShard/Switch-style
+capacity dispatch through one-hot einsums.
+
+The router runs in float32 (x and the router in x's dtype, widened, so
+a bfloat16 product is exact and summed in float32, as the reference's
+``preferred_element_type``), then softmax, top-k with renormalised
+gates and the Switch load-balance loss. Each expert keeps
+C = ceil(K * S * capacity_factor / E) slots; a token's slot is its
+place in a float32 cumsum over the batch row, first choices counted
+before second ones, and a token past an expert's capacity is dropped
+there. The expert products are ``torch.einsum``, as the reference
+computes them outside any kernel. The reference's ``shard`` annotations
+have no counterpart on one card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def route(probs: torch.Tensor, k: int):
+    """The router's choice: the ``k`` largest of ``probs`` along the last
+    axis, largest first, ties toward the lower index, as
+    ``jax.lax.top_k`` orders them (a stable descending sort;
+    ``torch.topk`` promises no order on ties). Returns (values, int64
+    indices)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(p, x, *, n_experts: int, top_k: int,
+            capacity_factor: float = 1.25,
+            group_size: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,d). p: router (d,E), w_gate/w_up (E,d,f), w_down (E,f,d).
+    Returns (y (B,S,d) in x's dtype, the float32 aux load-balance loss).
+
+    ``group_size`` splits a sequence longer than it (and a multiple of
+    it) into token groups before dispatch (GShard's group dim), so the
+    dispatch tensors scale with the group, not S."""
+    B0, S0, d = x.shape
+    regroup = group_size and S0 > group_size and S0 % group_size == 0
+    if regroup:
+        x = x.reshape(B0 * (S0 // group_size), group_size, d)
+    B, S, _ = x.shape
+    E, K = n_experts, top_k
+    C = max(1, int(-(-K * S * capacity_factor // E)))
+
+    logits = x.float() @ p["router"].to(x.dtype).float()        # (B,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = route(probs, K)                                 # (B,S,K)
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+
+    # load-balance aux loss (Switch): E * sum_e fraction_e * prob_e
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+
+    onehot = F.one_hot(idx, E).float()                          # (B,S,K,E)
+    # dispatch position: first-choice slots counted before second-choice
+    oh_flat = onehot.permute(0, 2, 1, 3).reshape(B, K * S, E)
+    pos = torch.cumsum(oh_flat, dim=1) - 1.0                    # (B,K*S,E)
+    pos = pos.reshape(B, K, S, E).permute(0, 2, 1, 3)           # (B,S,K,E)
+    keep = (pos < C) & (onehot > 0)
+    # one-hot of a float position (-1 and positions past C: all zero)
+    cs = torch.arange(C, dtype=torch.float32, device=x.device)
+    slot = (pos[..., None] == cs).to(x.dtype)                   # (B,S,K,E,C)
+    disp_k = torch.where(keep[..., None], slot, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+    dispatch = disp_k.sum(dim=2)                                # (B,S,E,C)
+    combine = (disp_k * gate[..., None, None].to(x.dtype)).sum(dim=2)
+    del slot, disp_k
+
+    xe = torch.einsum("bsec,bsd->ebcd", dispatch, x)            # (E,B,C,d)
+    g = torch.einsum("ebcd,edf->ebcf", xe, p["w_gate"].to(x.dtype))
+    u = torch.einsum("ebcd,edf->ebcf", xe, p["w_up"].to(x.dtype))
+    h = F.silu(g) * u
+    del g, u
+    ye = torch.einsum("ebcf,efd->ebcd", h, p["w_down"].to(x.dtype))
+    y = torch.einsum("bsec,ebcd->bsd", combine, ye)
+    if regroup:
+        y = y.reshape(B0, S0, d)
+    return y, aux.float()

@@ -1,8 +1,9 @@
 """Runtime options (orthogonal to ``ArchConfig``): the port's copy of
-``repro/models/options.py`` with the fields a one-card run reads.
-Sharding rules and MoE knobs come with the slices that need them. Also
-the stated tolerance of logits at the default bfloat16 compute dtype
-(``bf16_logit_tolerance``)."""
+``repro/models/options.py`` with the fields a one-card run reads, the
+MoE's capacity factor and token-group size among them. The reference's
+mesh-only knobs (``moe_sharding``, ``fsdp``, ``rules()`` and the like)
+have no counterpart on one card. Also the stated tolerance of logits at
+the default bfloat16 compute dtype (``bf16_logit_tolerance``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -17,6 +18,8 @@ class RunOptions:
     q_chunk: int = 512             # the reference's attention chunking;
     kv_chunk: int = 1024           # K3 picks its own tiles
     ssd_chunk: int = 256           # SSD chunk length (K4's Q)
+    moe_group: int = 0             # GShard token-group size (0 = whole seq)
+    capacity_factor: float = 1.25  # MoE expert capacity, of K * S / E
 
 
 # one ulp of bfloat16 relative to the value, at most (8 significant bits)

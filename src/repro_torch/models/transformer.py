@@ -1,15 +1,16 @@
 """Decoder stack: the port of ``repro/models/transformer.py`` for the
-dense (and vlm) family, the SSM family (mamba2) and the hybrid family
-(hymba: attention and mamba heads in parallel in every layer) — prefill
-/ forward and decode.
+dense (and vlm) family, the MoE family (mixtral: GQA attention with a
+sliding window and a top-k expert FFN, ``models/moe.py``), the SSM
+family (mamba2) and the hybrid family (hymba: attention and mamba heads
+in parallel in every layer) — prefill / forward and decode.
 
 Parameters are a plain dict with the reference's layout: ``embed`` (Vp,
 d), ``final_ln``, optional ``head``, and ``layers`` whose leaves are
 stacked on a leading L axis. The reference's ``lax.scan`` over layers is
 a Python loop over that axis, which gives each layer its own window, so
 the reference's grouped scan of same-window layers (``_layer_groups``)
-has no counterpart here. MoE and encoder-decoder models raise until
-their slices come (ROADMAP, Queue 1).
+has no counterpart here. Encoder-decoder models raise until their
+slice comes (ROADMAP, Queue 1).
 
 Decode updates the cache in place instead of returning a copy: the kv
 cache (``index_copy_`` at the step's slot; 24 layers at 2,056 positions
@@ -30,9 +31,10 @@ from repro_torch.models import ssd
 from repro_torch.models.attention import apply_rope, attend, decode_attend
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
                                        padded_vocab, rms_norm)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.options import RunOptions
 
-PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -89,6 +91,19 @@ def mlp_meta(cfg: ArchConfig) -> Dict[str, PM]:
     return m
 
 
+def moe_meta(cfg: ArchConfig) -> Dict[str, PM]:
+    """The expert FFN: a router and E experts' SwiGLU matrices, each
+    expert's scaled by its own fan-in (dim 1: d, or f for ``w_down``)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    return {
+        "ln2": PM((d,), "ones"),
+        "router": PM((d, E)),
+        "w_gate": PM((E, d, f), fan_in_dims=(1,)),
+        "w_up": PM((E, d, f), fan_in_dims=(1,)),
+        "w_down": PM((E, f, d), fan_in_dims=(1,)),
+    }
+
+
 def ssm_meta(cfg: ArchConfig, di: Optional[int] = None,
              own_norm: bool = True) -> Dict[str, PM]:
     """The mamba2 block: projections kept unfused (wx, wz, wb, wc
@@ -130,6 +145,8 @@ def layer_meta(cfg: ArchConfig) -> Dict[str, PM]:
     check_family(cfg)
     if cfg.family == "ssm":
         return ssm_meta(cfg)
+    if cfg.family == "moe":
+        return {**attn_meta(cfg), **moe_meta(cfg)}
     if cfg.family == "hybrid":
         di = cfg.n_heads * cfg.hd
         m = {**attn_meta(cfg), **mlp_meta(cfg),
@@ -334,11 +351,17 @@ def hybrid_decode(p, x, cfg: ArchConfig, opts: RunOptions, *, window,
 
 
 def _ffn(p, x, cfg: ArchConfig, opts: RunOptions):
+    """The FFN block with its residual: (x + FFN(norm(x)), the float32 aux
+    loss, 0 without experts)."""
+    xn = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet "
-                                  "(ROADMAP, Queue 1)")
-    y = mlp(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
-    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+        y, aux = moe_ffn(p, xn, n_experts=cfg.moe.n_experts,
+                         top_k=cfg.moe.top_k,
+                         capacity_factor=opts.capacity_factor,
+                         group_size=opts.moe_group)
+        return x + y, aux
+    return x + mlp(p, xn, cfg.mlp), torch.zeros((), dtype=torch.float32,
+                                                 device=x.device)
 
 
 # ===========================================================================

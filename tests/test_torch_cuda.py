@@ -1,9 +1,11 @@
 """Kernels K1 (``csrc/warehouse_agg.cu``), K2 (``csrc/frame_preproc.cu``),
 K3 (``csrc/flash_attention.cu``) and K4 (``csrc/ssd_scan.cu``) on the
 card against their plain versions on the same CUDA tensors (hymba-1.5b's
-prefill shapes among them), the reduced qwen, mamba2 and hymba models on
-the card against the same models on the CPU, and a short fused run's
-flight-recorder counters against ``obs.telemetry_ref``. ``cuda``-marked: every test
+and mixtral-8x7b's prefill shapes among them), the reduced qwen,
+mamba2, hymba and mixtral models on the card against the same models on
+the CPU, a short fused run's flight-recorder counters against
+``obs.telemetry_ref``, and the per-window loop and the optimum on the
+card against the CPU. ``cuda``-marked: every test
 skips where no card is visible. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -26,7 +28,12 @@ orders, two layers). bfloat16 operands: K3 and K4 within their
 ``error_bound`` on the widened inputs plus the rounding of the output to
 bfloat16 (``BF16_ROUND``, half an ulp, times |out|); the reduced models
 at the default RunOptions (bfloat16) on the card against the port's CPU
-run within ``models.options.bf16_logit_tolerance``. Standing answers on
+run within ``models.options.bf16_logit_tolerance`` (mixtral's with its
+routing pinned to the CPU run's choices: a bfloat16 ulp can move a
+token to another expert, a discrete change the tolerance does not
+cover; ``tests/test_torch_moe.py`` says more). The per-window loop:
+k and c traces and ``k_hist`` equal to the CPU run's, the sums within
+1e-5 relative; the optimum's selection equal. Standing answers on
 the card (K1's delta folds) against ``store.query`` on the same rows:
 masks, counts, max and min exactly, float sums and means within 1e-5 of
 each group's sum of magnitudes. The batched switch, a short
@@ -381,6 +388,11 @@ K3_CASES = (
     (1, 2048, 2048, 25, 5, 64, True, 1024),
     (1, 2048, 2048, 25, 5, 64, True, None),
     (1, 1500, 1500, 25, 5, 64, True, 1024),
+    # D = 128 with GQA 4 and a window (mixtral: 32 heads over 8 kv heads,
+    # its window of 4,096 past the prefill's 2,048, B cut to 1), and a
+    # window inside S
+    (1, 2048, 2048, 32, 8, 128, True, 4096),
+    (1, 700, 700, 8, 2, 128, True, 200),
 )
 
 
@@ -1093,3 +1105,129 @@ def test_warehouse_saved_on_card_loads_on_cpu(cuda, tmp_path):
     (tc, mc), (tg, mg) = back.query(plan), ts.query(plan)
     assert torch.equal(mc, mg.cpu())
     _close(tg["quality"], tc["quality"], exact=False)
+
+
+# ------------------------------------------------------- mixtral ----
+def _on_card(params, cuda):
+    return {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+                if isinstance(v, dict) else v.to(cuda))
+            for k, v in params.items()}
+
+
+def _routed(model, params, tokens, pinned=None):
+    """Logits and each layer's expert choices; with ``pinned`` the router
+    takes those choices (the gates its own probabilities at them)."""
+    from repro_torch.models import moe
+    seen, route = [], moe.route
+
+    def hook(probs, k):
+        if pinned is None:
+            vals, idx = route(probs, k)
+        else:
+            idx = pinned[len(seen)].to(probs.device)
+            vals = torch.gather(probs, -1, idx)
+        seen.append(idx.cpu())
+        return vals, idx
+
+    moe.route = hook
+    try:
+        logits = model.forward_logits(params, {"tokens": tokens})
+    finally:
+        moe.route = route
+    return logits, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", (37, 80))
+def test_mixtral_on_card_matches_cpu(cuda, S):
+    """The reduced mixtral in float32 (window 32, 4 experts top-2): K3
+    with the window once per layer, the routing and logits (within 1e-4)
+    equal to the CPU run's, then a prefill and two decode steps with the
+    same tokens as on the CPU."""
+    model = Model(get("mixtral-8x7b").reduced(),
+                  RunOptions(compute_dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = _on_card(params, cuda)
+    tokens = torch.randint(0, 256, (3, S), generator=torch.Generator()
+                           .manual_seed(1))
+    before = FA.LAUNCHES, FA.WINDOW_LAUNCHES
+    got, routes = _routed(model, on_card, tokens.to(cuda))
+    assert (FA.LAUNCHES - before[0], FA.WINDOW_LAUNCHES - before[1]) == \
+        (2, 2)
+    want, want_routes = _routed(model, params, tokens)
+    for a, b in zip(routes, want_routes):
+        assert torch.equal(a, b)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    nxt_c, cache_c = model.prefill(on_card, {"tokens": tokens.to(cuda)},
+                                   cache_len=S + 3)
+    nxt, cache = model.prefill(params, {"tokens": tokens}, cache_len=S + 3)
+    for _ in range(2):
+        assert torch.equal(nxt_c.cpu(), nxt)
+        nxt_c, cache_c = model.decode_step(on_card, cache_c, nxt_c)
+        nxt, cache = model.decode_step(params, cache, nxt)
+    assert torch.equal(nxt_c.cpu(), nxt)
+
+
+@pytest.mark.cuda
+def test_mixtral_at_default_options_on_card_matches_cpu(cuda):
+    """The reduced mixtral at the default RunOptions (bfloat16) on the
+    card, its routing pinned to the CPU run's choices, within
+    ``bf16_logit_tolerance``; free-running, at least 97% of each layer's
+    tokens choose the same experts."""
+    model = Model(get("mixtral-8x7b").reduced(), RunOptions())
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = _on_card(params, cuda)
+    tokens = torch.randint(0, 256, (3, 80), generator=torch.Generator()
+                           .manual_seed(1))
+    want, routes = _routed(model, params, tokens)
+    got, _ = _routed(model, on_card, tokens.to(cuda), pinned=routes)
+    assert got.dtype == torch.bfloat16
+    tol = bf16_logit_tolerance(model.cfg.n_layers,
+                               float(want.float().abs().max()))
+    assert float((got.float().cpu() - want.float()).abs().max()) <= tol
+    _, free = _routed(model, on_card, tokens.to(cuda))
+    for a, b in zip(free, routes):
+        same = (a.sort(-1).values == b.sort(-1).values).all(-1)
+        assert float(same.float().mean()) >= 0.97
+
+
+# -------------------------------------- the paper's comparisons ----
+@pytest.fixture(scope="module")
+def small_fit():
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.core.offline import fit
+    return fit(COVID, n_cores=8, days_unlabeled=0.5, seed=0, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("model", "oracle", "uniform"))
+def test_per_window_loop_on_card_matches_cpu(cuda, small_fit, mode):
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.core import ingest
+    from repro_torch.data.stream import generate
+    stream = generate(COVID, days=0.05, seed=3)
+    kw = dict(n_cores=8, cloud_budget_core_s=300.0, plan_days=0.01,
+              forecast_mode=mode)
+    got = ingest.run_skyscraper(small_fit, stream, device=cuda, **kw)
+    want = ingest.run_skyscraper(small_fit, stream, device="cpu", **kw)
+    for name in ("k_trace", "c_trace", "k_hist"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
+    for name in ("quality_sum", "onprem_core_s", "cloud_core_s",
+                 "buffer_peak_s"):
+        assert getattr(got, name) == pytest.approx(getattr(want, name),
+                                                   rel=1e-5), name
+    assert small_fit.device == torch.device("cpu")
+
+
+@pytest.mark.cuda
+def test_optimum_on_card_matches_cpu(cuda, small_fit):
+    from repro_torch.configs.workloads import COVID
+    from repro_torch.core import ingest
+    from repro_torch.data.stream import generate
+    stream = generate(COVID, days=1.0, seed=4)
+    got = ingest.run_optimum(small_fit, stream, n_cores=8,
+                             cloud_budget_core_s=5_000.0, device=cuda)
+    want = ingest.run_optimum(small_fit, stream, n_cores=8,
+                              cloud_budget_core_s=5_000.0, device="cpu")
+    assert np.array_equal(got.k_hist, want.k_hist)
+    assert got.quality_sum == want.quality_sum

@@ -7,7 +7,8 @@
 - importing the port builds nothing (no compiler runs at import);
 - every entry point defaults to CUDA and raises when there is none
   (the multi-stream run, the serving pool, the cold tier, the sharded
-  store and tier, ``rebalance`` and the checkpoint readers among them);
+  store and tier, ``rebalance``, the checkpoint readers, the per-window
+  loop, the optimum and the MoE family among them);
 - ``chip_smoke.py`` fails, and prints no result, without a card;
 - on the CPU, every kernel wrapper (K1, K2, K3, K4) takes its plain
   version and launches nothing, and the SSM model path (``models/ssd``)
@@ -215,6 +216,54 @@ def test_hybrid_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "hymba-1.5b", "--requests", "1",
                     "--prompt-len", "4", "--gen", "2"])
+
+
+def test_comparison_and_moe_entry_points_raise_without_cuda(monkeypatch):
+    """The per-window loop and the optimum (their device work: the LP,
+    the window runs, the forecast) and the MoE family default to CUDA
+    and raise without it; the host-numpy baselines take no device."""
+    from repro_torch.configs.base import get
+    from repro_torch.core import ingest
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ingest.run_skyscraper(None, None, n_cores=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ingest.run_optimum(None, None, n_cores=8)
+    for arch in ("mixtral-8x7b", "mixtral-8x22b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Model(get(arch).reduced()).init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "mixtral-8x7b", "--requests", "1",
+                    "--prompt-len", "4", "--gen", "2"])
+
+
+def test_moe_runs_on_cpu_tensors_with_the_port_alone():
+    """The expert FFN on CPU tensors, with the port's dependencies alone:
+    every token kept at a capacity factor of E / K, gates summing to one
+    (y is then the gate-weighted sum of two experts' outputs)."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(0)
+    d, E, f = 8, 4, 12
+    p = {"router": torch.randn(d, E, generator=g),
+         "w_gate": torch.randn(E, d, f, generator=g),
+         "w_up": torch.randn(E, d, f, generator=g),
+         "w_down": torch.randn(E, f, d, generator=g)}
+    x = torch.randn(2, 6, d, generator=g)
+    y, aux = moe.moe_ffn(p, x, n_experts=E, top_k=2, capacity_factor=2.0)
+    probs = torch.softmax(x @ p["router"], -1)
+    gate, idx = moe.route(probs, 2)
+    gate = gate / gate.sum(-1, keepdim=True)
+
+    def expert(e, t):
+        h = torch.nn.functional.silu(t @ p["w_gate"][e]) * (t @ p["w_up"][e])
+        return h @ p["w_down"][e]
+    want = torch.stack([torch.stack([
+        sum(gate[b, s, j] * expert(int(idx[b, s, j]), x[b, s])
+            for j in range(2)) for s in range(6)]) for b in range(2)])
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+    assert aux.dtype == torch.float32 and float(aux) > 0
 
 
 def test_sharded_warehouse_entry_points_raise_without_cuda(monkeypatch,

@@ -121,11 +121,16 @@ def test_cache_meta_and_families(pair):
     assert port.cache_len(100) == ref.cache_len(100) == 100
     meta = port.cache_meta(3, 48)
     assert meta["layers"]["k"].shape == (2, 3, 48, 4, 16)
-    from repro_torch.configs.base import ArchConfig
+    from repro_torch.configs.base import ArchConfig, MoECfg
     moe = ArchConfig(name="m", family="moe", n_layers=1, d_model=8,
-                     n_heads=2, n_kv_heads=2, d_ff=8, vocab=16)
+                     n_heads=2, n_kv_heads=2, d_ff=8, vocab=16,
+                     moe=MoECfg(n_experts=2, top_k=1))
+    assert Model(moe).cfg.family == "moe"          # ported in its slice
+    encdec = ArchConfig(name="e", family="encdec", n_layers=1, d_model=8,
+                        n_heads=2, n_kv_heads=2, d_ff=8, vocab=16,
+                        n_enc_layers=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(moe)
+        Model(encdec)
 
 
 def test_serve_loop_matches_reference(capsys):
