@@ -119,7 +119,12 @@ script fails before it prints a result.
               the model at its default RunOptions (bfloat16 compute): one
               warm prefill, counted and timed, 7 decode steps from its
               cache, the prefill with K3's plain version, and the logits
-              against the plain-attention model in bfloat16.
+              against the plain-attention model in bfloat16. Then the
+              float8 kv cache (``kv_cache_dtype="float8_e4m3fn"``): one
+              warm bfloat16 prefill, K3 counted once per layer, its k and
+              v codes against the float8 cast of the bfloat16 cache's on
+              this card, bit for bit, and 7 decode steps from each cache
+              (the share of equal generated tokens reported, not held).
 9b. serve_ssm the same serving path for the SSM family, counts set to 0
               just before it: ``Model(get("mamba2-370m"))`` at the
               published config (48 layers, d_model 1024, d_inner 2048, 32
@@ -154,6 +159,23 @@ script fails before it prints a result.
               flip on a last-bit change; the free-running difference
               and each layer's share of equal choices are printed), and
               the bfloat16 prefill, decode and check as for qwen.
+9e. serve_encdec the same serving path for the encoder-decoder family,
+              counts set to 0 just before it: ``get("whisper-large-v3")``
+              at its published config, full depth (32 encoder and 32
+              decoder layers, d_model 1,280, 20 heads of 64, d_ff 5,120,
+              vocab 51,866; 1.6B parameters, 6.4 GB in float32), float32,
+              random weights from seed 0; each batch's (4, 1,500, 1,280)
+              encoder frames from a generator seeded by its first
+              request (the audio frontend is a stub), prompts of 440
+              tokens and 8 generated (448 = max_target_len). K3 must
+              launch 96 times a prefill (the encoder's self-attention and
+              the prefill's cross-attention over the 1,500 frames, not
+              causal; the decoder's causal self-attention) and 32 times a
+              decode step (one query against the frames), none windowed:
+              640 in the loop. Then one batch's logits against the
+              plain-attention model, that prefill's time, and the
+              bfloat16 prefill, decode and check as for qwen (the logits
+              from the weights cast as the prefill casts them).
 10. time      CUDA-event medians of device time (the card spins while
               the host enqueues each timed call): K1, its plain version
               and one ``index_add_``/``scatter_reduce_`` call per
@@ -179,9 +201,20 @@ script fails before it prints a result.
               bfloat16, each beside its bounds; then (``time_moe``) K3
               at mixtral-8x7b's prefill in both dtypes beside SDPA
               (``enable_gqa``, causal: the window covers the prompt) and
-              the bounds. Every timed K3 output is held against its
-              plain version on the same inputs. The library calls are
-              yardsticks the port never calls.
+              the bounds; then (``time_encdec``) K3 at whisper-large-v3's
+              four shapes in both dtypes: the encoder's self-attention
+              (B=4, 1,500 x 1,500, 20 heads of 64), the decoder's causal
+              self-attention (440 x 440), the prefill's cross-attention
+              (440 x 1,500) and one decode query against the frames (1 x
+              1,500), each beside SDPA and the bounds, and their sum over
+              one served batch (each time by its launches there); then
+              llama3-8b at its published width (d_model 4,096, 32 heads
+              over 8 kv heads of 128, vocab 128,256), 2 of its 32 layers,
+              one bfloat16 prefill of the serve batch, K3 once per layer
+              at head dim 128 with no window, its logits against the
+              plain-attention model. Every timed K3 output is held
+              against its plain version on the same inputs. The library
+              calls are yardsticks the port never calls.
 11. multi     the multi-stream path, K1's counts set to 0 just before
               it: ``run_skyscraper_multi`` over 256 COVID streams of
               10,800 segments (the main fit, one joint LP of 1,024 rows
@@ -274,14 +307,20 @@ head leave that far below 1e-3), and at least 99% of next tokens equal; the same
 for mamba2-370m against the plain-SSD model and for hymba-1.5b against
 the model with both plain versions, and for mixtral-8x7b against the
 plain-attention model on the same expert choices (each layer's
-free-running choices agreeing on at least 97% of tokens). The
+free-running choices agreeing on at least 97% of tokens), and for
+whisper-large-v3 (64 layers in all) against the plain-attention model.
+The float8 cache: its codes bit for bit against the float8 cast of the
+bfloat16 cache's. The
 comparisons: the loop's traces and the optimum's selection bit for bit
 against the CPU, its sums within 1e-5. The flight recorder: bit for bit. bfloat16: K3 and K4 within
 their bound on the widened inputs plus the rounding of the output to
 bfloat16, half an ulp (2^-8) of the value; the bfloat16 logits within
 ``models.options.bf16_logit_tolerance``, (L + 2) bfloat16 ulps (2^-7)
 of the largest |logit| (one ulp per layer boundary and for the logits'
-own rounding; derived in its docstring). Standing answers: their
+own rounding; derived in its docstring), where an encoder-decoder
+model's L also counts the encoder's layers and two more roundings
+(``models.options.bf16_boundaries``: 66 for whisper-large-v3).
+Standing answers: their
 accumulators within FLOAT_TOL of the float64 oracle, as K1's; their
 tables within twice that of ``store.query``'s, max and min exactly.
 """
@@ -324,6 +363,19 @@ HYMBA_SSD = (4, 2048, 25, 64, 1, 16, 256)   # B, S, H, P, G, N, Q: hymba
 MOE_LAYERS = 4                      # mixtral-8x7b's 32 layers cut to 4
 MOE_ATTN = (4, 2048, 32, 8, 128, 4096)      # B, S, H, G, D, window: mixtral
 ROUTE_AGREEMENT = 0.97              # float32 free-running expert choices
+FP8 = "float8_e4m3fn"               # the float8 kv cache's dtype
+# whisper-large-v3: 2 batches of 4, prompts of 440 tokens and 8 generated,
+# 448 = max_target_len; each request's 1,500 encoder frames
+WHISPER_SERVE = dict(requests=8, batch=4, prompt_len=440, gen=8)
+# K3 at whisper's shapes (B, Sq, Skv, H = G, D, causal) and its launches
+# per layer in one served batch of WHISPER_SERVE
+WHISPER_ATTN = {
+    "encoder_self": ((4, 1500, 1500, 20, 64, False), 1),
+    "decoder_self": ((4, 440, 440, 20, 64, True), 1),
+    "prefill_cross": ((4, 440, 1500, 20, 64, False), 1),
+    "decode_cross": ((4, 1, 1500, 20, 64, False), WHISPER_SERVE["gen"] - 1),
+}
+LLAMA_LAYERS = 2                    # llama3-8b's 32 layers cut to 2
 COMPARE_PLAN_DAYS = 0.25            # the paper's loop: 4 windows of 10,800
 SPIN_CYCLES = 40_000_000            # ~20 ms of the card's clock per timing
 WINDOW = 150                        # segments in a 5-minute window
@@ -1577,6 +1629,12 @@ class plain_hybrid:
             part.__exit__(*exc)
 
 
+def _inputs(toks):
+    """The batch ``Model`` takes: the prompts ``toks``, or a dict that
+    holds them already (whisper's ``{"frames", "tokens"}``)."""
+    return toks if isinstance(toks, dict) else {"tokens": toks}
+
+
 def first_batch(corpus, params):
     """The serve loop's first batch of prompts, on the params' device."""
     return torch.as_tensor(corpus.batch(SERVE["batch"], SERVE["prompt_len"],
@@ -1602,7 +1660,7 @@ def routed(model, params, toks, pinned=None):
 
     moe.route = hook
     try:
-        logits = model.forward_logits(params, {"tokens": toks})
+        logits = model.forward_logits(params, _inputs(toks))
     finally:
         moe.route = route
     return logits, seen
@@ -1618,9 +1676,9 @@ def logit_pair(model, params, toks, plain):
     free-running logits (their max difference) and each layer's share of
     tokens whose experts agree free-running."""
     if model.cfg.moe is None:
-        logits = model.forward_logits(params, {"tokens": toks})
+        logits = model.forward_logits(params, _inputs(toks))
         with plain():
-            ref = model.forward_logits(params, {"tokens": toks})
+            ref = model.forward_logits(params, _inputs(toks))
         return logits, ref, {}
     logits, routes = routed(model, params, toks)
     with plain():
@@ -1673,30 +1731,40 @@ def _zero(kernels):
             k.WINDOW_LAUNCHES = 0
 
 
-def serve_bf16(cfg, params, toks, plain, kernels, want):
+def serve_bf16(cfg, params, toks, plain, kernels, want, sv=SERVE):
     """The same model at the default RunOptions (bfloat16 compute): one
     warm prefill of the prompts ``toks``, counted (the ``kernels``'
-    launches set to 0 just before it, held to ``want``) and timed, then decode steps from its cache
-    (tokens in the vocabulary), then the prefill with the plain version
-    (``plain``); the logits against the plain-version model's, on the
-    card in bfloat16, within ``bf16_logit_tolerance`` (a MoE model's
-    plain run on the kernel run's expert choices: ``logit_pair``)."""
+    launches set to 0 just before it, held to ``want``) and timed, then
+    decode steps from its cache (tokens in the vocabulary), then the
+    prefill with the plain version (``plain``); the logits against the
+    plain-version model's, on the card in bfloat16, within
+    ``bf16_logit_tolerance`` of ``bf16_boundaries`` (a MoE model's plain
+    run on the kernel run's expert choices: ``logit_pair``). An
+    encoder-decoder model's ``forward_logits`` leaves its float32 weights
+    uncast, as the reference's does, so its logits are taken from the
+    weights cast as its prefill casts them: the prefill's bfloat16
+    arithmetic, K3 on bfloat16 operands. ``sv`` gives the prompt and
+    generation lengths."""
+    from repro_torch.models import transformer
     from repro_torch.models.model import Model
-    from repro_torch.models.options import RunOptions, bf16_logit_tolerance
+    from repro_torch.models.options import (RunOptions, bf16_boundaries,
+                                            bf16_logit_tolerance)
     model = Model(cfg, RunOptions())
     if model.opts.compute_dtype != "bfloat16":
         raise AssertionError("the default compute dtype is not bfloat16")
+    batch = _inputs(toks)
+    n_req = batch["tokens"].shape[0]
 
     def prefill(keep=None):
-        nxt, cache = model.prefill(params, {"tokens": toks}, cache_len=SERVE[
-            "prompt_len"] + SERVE["gen"])
+        nxt, cache = model.prefill(params, batch, cache_len=sv[
+            "prompt_len"] + sv["gen"])
         if keep is not None:
             keep.append(cache)
         return nxt.cpu()
 
     def decode(nxt, cache):
         out = [nxt]
-        for _ in range(SERVE["gen"] - 1):
+        for _ in range(sv["gen"] - 1):
             nxt, cache = model.decode_step(params, cache, nxt)
             out.append(nxt)
         return torch.stack(out, 1).cpu()
@@ -1707,28 +1775,31 @@ def serve_bf16(cfg, params, toks, plain, kernels, want):
         caches = []
         nxt, prefill_s = timed(lambda: prefill(caches))
         launches = _counts(kernels)
-        gen, decode_s = timed(lambda: decode(nxt.to(toks.device),
-                                             caches.pop()))
+        gen, decode_s = timed(lambda: decode(
+            nxt.to(params["embed"].device), caches.pop()))
         with plain():
             prefill()
             nxt_plain, plain_s = timed(prefill)
-        logits, ref, extra = logit_pair(model, params, toks, plain)
+        lp = (transformer._compute_params(params, torch.bfloat16)
+              if cfg.family == "encdec" else params)
+        logits, ref, extra = logit_pair(model, lp, toks, plain)
+        del lp
         logits, ref = logits[..., :cfg.vocab], ref[..., :cfg.vocab]
         finite = bool(torch.isfinite(logits).all())
         err = float((logits.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
         agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
     del logits, ref
-    tol = bf16_logit_tolerance(cfg.n_layers, scale)
+    tol = bf16_logit_tolerance(bf16_boundaries(cfg), scale)
     in_vocab = bool(((gen >= 0) & (gen < cfg.vocab)).all())
     if launches != want or not finite or not err <= tol \
-            or not in_vocab or gen.shape != (len(toks), SERVE["gen"]):
+            or not in_vocab or gen.shape != (n_req, sv["gen"]):
         raise AssertionError(f"{cfg.name} bfloat16: launches={launches} "
                              f"finite={finite} err={err} tol={tol} "
                              f"decoded {tuple(gen.shape)} in "
                              f"vocabulary={in_vocab}")
     return {"prefill_bf16_s": prefill_s, "prefill_bf16_plain_s": plain_s,
-            "decode_bf16_s": decode_s, "decode_bf16_steps": SERVE["gen"] - 1,
+            "decode_bf16_s": decode_s, "decode_bf16_steps": sv["gen"] - 1,
             "generated_bf16_first": gen[0].tolist(),
             "launches_bf16": launches, "logits_bf16_max_abs_err": err,
             "logits_bf16_tol": tol, "logits_bf16_max_abs": scale,
@@ -1738,36 +1809,35 @@ def serve_bf16(cfg, params, toks, plain, kernels, want):
             **{f"{k}_bf16": v for k, v in extra.items()}}
 
 
-def _check_outputs(cfg, stats):
+def _check_outputs(cfg, stats, sv=SERVE):
     out = np.concatenate(stats["outputs"])
-    if out.shape != (SERVE["requests"], SERVE["gen"]) or \
+    if out.shape != (sv["requests"], sv["gen"]) or \
             not ((out >= 0) & (out < cfg.vocab)).all():
         raise AssertionError(f"{cfg.name}: bad generated tokens {out.shape}")
     return out
 
 
-def serve_split(model, params, toks, stats):
+def serve_split(model, params, toks, stats, sv=SERVE):
     """The serve time's parts: drawing prompts on the host (the card idle),
     one warm prefill of the prompts ``toks`` alone, ending in a host read
     of its tokens, and the decode steps from its cache."""
     with torch.no_grad():
         (nxt, cache), prefill_s = timed(lambda: model.prefill(
-            params, {"tokens": toks},
-            cache_len=SERVE["prompt_len"] + SERVE["gen"]))
+            params, _inputs(toks), cache_len=sv["prompt_len"] + sv["gen"]))
 
         def decode():
             n, c = nxt, cache
-            for _ in range(SERVE["gen"] - 1):
+            for _ in range(sv["gen"] - 1):
                 n, c = model.decode_step(params, c, n)
             return n.cpu()
         _, decode_s = timed(decode)
     return {"draw_s": stats["draw_seconds"], "prefill_s": prefill_s,
-            "decode_s": decode_s, "decode_steps": SERVE["gen"] - 1}
+            "decode_s": decode_s, "decode_steps": sv["gen"] - 1}
 
 
 def _n_params(params) -> int:
-    return sum(v.numel() for k, v in params.items() if k != "layers") + \
-        sum(v.numel() for v in params["layers"].values())
+    return sum(_n_params(v) if isinstance(v, dict) else v.numel()
+               for v in params.values())
 
 
 def phase_serve(dev):
@@ -1804,6 +1874,7 @@ def phase_serve(dev):
                       {"flash_attention": FA},
                       {"flash_attention": cfg.n_layers,
                        "flash_attention_window": 0})
+    fp8 = serve_fp8(cfg, params, toks)
     emit("serve", layers=cfg.n_layers, d_model=cfg.d_model,
          vocab=cfg.vocab, params=_n_params(params),
          init_s=init_s, seconds=stats["seconds"], tokens=stats["tokens"],
@@ -1811,9 +1882,66 @@ def phase_serve(dev):
          launches=launches, mem_at_start_bytes=mem0, peak_mem_bytes=peak,
          generated_first=out[0].tolist(),
          logits_max_abs_err=err, logits_max_abs=scale,
-         next_token_agreement=agree, **bf16)
-    return dict(launches=launches + bf16["launches_bf16"]["flash_attention"],
-                err=err)
+         next_token_agreement=agree, **bf16, **fp8)
+    return dict(launches=launches + bf16["launches_bf16"]["flash_attention"]
+                + fp8["launches_fp8"], err=err)
+
+
+def serve_fp8(cfg, params, toks):
+    """The model at the default RunOptions with ``kv_cache_dtype``
+    float8_e4m3fn: one warm bfloat16 prefill of the prompts ``toks``,
+    K3's count set to 0 just before it and held to once per layer, timed;
+    its k and v codes against the float8 cast of the bfloat16 cache's
+    prefill on this card, bit for bit (the cast is the only difference);
+    then SERVE["gen"] - 1 decode steps from each cache, and the share of
+    generated tokens the two agree on, reported and not held (a float8
+    cache is another result, not a faster one)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions
+    fp8 = getattr(torch, FP8)
+    cache_len = SERVE["prompt_len"] + SERVE["gen"]
+
+    def run(model, keep):
+        nxt, cache = model.prefill(params, {"tokens": toks},
+                                   cache_len=cache_len)
+        keep.append(cache)
+        return nxt
+
+    def decode(model, nxt, cache):
+        out = [nxt]
+        for _ in range(SERVE["gen"] - 1):
+            nxt, cache = model.decode_step(params, cache, nxt)
+            out.append(nxt)
+        return torch.stack(out, 1).cpu()
+
+    wide, narrow = Model(cfg, RunOptions()), Model(cfg, RunOptions(
+        kv_cache_dtype=FP8))
+    with torch.no_grad():
+        caches = []
+        nxt_w = run(wide, caches)
+        run(narrow, [])
+        FA.LAUNCHES = 0
+        nxt_n, prefill_s = timed(lambda: run(narrow, caches))
+        launches = FA.LAUNCHES
+        cache_w, cache_n = caches
+        codes = {name: cache_n["layers"][name].dtype == fp8 and torch.equal(
+            cache_n["layers"][name].view(torch.uint8),
+            cache_w["layers"][name].to(fp8).view(torch.uint8))
+            for name in ("k", "v")}
+        nbytes = sum(cache_n["layers"][n].numel() for n in ("k", "v"))
+        gen_n, decode_s = timed(lambda: decode(narrow, nxt_n, cache_n))
+        gen_w = decode(wide, nxt_w, cache_w)
+    del caches, cache_w, cache_n
+    if launches != cfg.n_layers or not all(codes.values()):
+        raise AssertionError(f"{cfg.name} float8 cache: launches={launches}"
+                             f" codes equal={codes}")
+    return {"prefill_fp8_s": prefill_s, "decode_fp8_s": decode_s,
+            "launches_fp8": launches, "kv_fp8_bytes": nbytes,
+            "kv_fp8_codes_equal": codes,
+            "generated_fp8_agreement": float((gen_n == gen_w).float()
+                                             .mean()),
+            "generated_fp8_first": gen_n[0].tolist()}
 
 
 def phase_serve_ssm(dev):
@@ -2011,6 +2139,102 @@ def phase_serve_moe(dev):
                 + bf16["launches_bf16"]["flash_attention"], err=err)
 
 
+def whisper_frames(b, row0, dev):
+    """The encoder frames of ``b`` requests from request ``row0``: (b,
+    1,500, d_model) float32 on ``dev``, drawn from a generator seeded with
+    ``row0`` (the audio frontend is a stub: frames are the input)."""
+    from repro_torch.configs.base import get
+    from repro_torch.models.model import WHISPER_ENC_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(row0)
+    return torch.randn((b, WHISPER_ENC_FRAMES, get("whisper-large-v3")
+                        .d_model), generator=gen, device=dev)
+
+
+def phase_serve_encdec(dev):
+    """The serving path for the encoder-decoder family, counted:
+    whisper-large-v3 at its published config, full depth (32 encoder and
+    32 decoder layers, d_model 1,280, 20 heads of 64, d_ff 5,120, vocab
+    51,866), random weights from seed 0, float32, through ``serve`` with
+    each batch's 1,500 encoder frames (``whisper_frames``): 2 batches of
+    4 requests, prompts of 440 tokens, 8 tokens generated. K3 launches
+    96 times a prefill (the encoder's self-attention over the frames, the
+    decoder's causal self-attention and its cross-attention over the
+    frames, all but the decoder's self non-causal) and 32 times a decode
+    step (one query against the frames), none windowed. Then one batch's
+    logits against the same model with K3's plain version, that
+    prefill's time, and the bfloat16 prefill, decode and check."""
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sv = WHISPER_SERVE
+    cfg = get("whisper-large-v3")
+    model = Model(cfg, RunOptions(remat="none", layer_loop="scan",
+                                  compute_dtype="float32"))
+    params, init_s = timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    corpus = SyntheticCorpus(cfg.vocab, 0)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    kernels = {"flash_attention": FA}
+    _zero(kernels)
+    stats = serve(model, params, corpus, log=lambda line: None,
+                  frames=lambda b, r0: whisper_frames(b, r0, dev), **sv)
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    per_prefill = {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
+                   "flash_attention_window": 0}
+    batches = -(-sv["requests"] // sv["batch"])
+    want = {"flash_attention": batches * (
+        per_prefill["flash_attention"] + (sv["gen"] - 1) * cfg.n_layers),
+        "flash_attention_window": 0}
+    if launches != want:
+        raise AssertionError(f"the whisper serve path launched {launches}, "
+                             f"not {want}")
+    out = _check_outputs(cfg, stats, sv)
+    batch = {"frames": whisper_frames(sv["batch"], 0, dev),
+             "tokens": torch.as_tensor(corpus.batch(
+                 sv["batch"], sv["prompt_len"], 0), device=dev)}
+    split = serve_split(model, params, batch, stats, sv)
+    err, scale, agree, _ = serve_check(cfg, model, params, batch,
+                                       plain_attention)
+    with torch.no_grad(), plain_attention():
+        def prefill():
+            return model.prefill(params, batch, cache_len=sv[
+                "prompt_len"] + sv["gen"])[0].cpu()
+        prefill()
+        _, plain_s = timed(prefill)
+    bf16 = serve_bf16(cfg, params, batch, plain_attention, kernels,
+                      per_prefill, sv)
+    emit("serve_encdec", layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, head_dim=cfg.hd,
+         d_ff=cfg.d_ff, vocab=cfg.vocab,
+         enc_frames=int(batch["frames"].shape[1]),
+         max_target_len=cfg.max_target_len, params=_n_params(params),
+         param_count=cfg.param_count(), init_s=init_s,
+         seconds=stats["seconds"], tokens=stats["tokens"],
+         tok_per_s=stats["tokens"] / stats["seconds"], **split,
+         prefill_plain_s=plain_s, launches=launches,
+         launches_per_prefill=per_prefill,
+         launches_per_decode_step=cfg.n_layers, mem_at_start_bytes=mem0,
+         peak_mem_bytes=peak, generated_first=out[0].tolist(),
+         logits_max_abs_err=err, logits_max_abs=scale,
+         next_token_agreement=agree, **bf16,
+         peak_mem_phase_bytes=torch.cuda.max_memory_allocated(),
+         phase_s=time.perf_counter() - t0)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches["flash_attention"]
+                + bf16["launches_bf16"]["flash_attention"], err=err)
+
+
 def _library_call(cols, n, spec, fvals):
     """One PyTorch call computing the same masked group aggregate, on
     group ids and masked values prepared beforehand (the yardstick)."""
@@ -2085,28 +2309,30 @@ def phase_time_k2_k3(dev):
 
 
 def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32, *,
-             kv_heads=None, window=None):
+             kv_heads=None, window=None, skv=None, causal=True):
     """K3, its plain version and SDPA at (B, S, H, D) with ``kv_heads``
-    kv heads (H by default), causal, with ``window`` if given, beside
+    kv heads (H by default), ``skv`` keys (S by default), causal unless
+    ``causal`` is False, with ``window`` if given, beside
     both bounds: 3xTF32 (three TF32 products per float32 one, on the
     tensor cores: the kernel's arithmetic, and its bound) and the FP32
     CUDA-core bound of a kernel in float32 products. For bfloat16
     operands the bound is the dense bf16 peak's (the least time the card
     could take for the same function), beside the 3xTF32 one. SDPA gets
-    the same band: ``is_causal`` without a window, else the band as a
-    boolean ``attn_mask``, with ``enable_gqa`` for fewer kv heads (a
-    window of S or more is the causal mask, and SDPA gets ``is_causal``).
+    the same band: ``is_causal`` without a window, no mask where K3 sees
+    every key, else the band as a boolean ``attn_mask``, with
+    ``enable_gqa`` for fewer kv heads (a window of S or more is the
+    causal mask, and SDPA gets ``is_causal``).
     The kernel's output on the timed inputs is held against the plain
     version's within ``error_bound`` (bfloat16: on the widened inputs,
     the output's rounding added), and SDPA's distance from the plain
     version is reported."""
     B, S, H, D = shape
-    G = kv_heads or H
+    G, Skv = kv_heads or H, skv or S
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
-    k, v = (torch.randn((B, S, G, D), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, Skv, G, D), generator=gen, device=dev).to(dtype)
             for _ in range(2))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    band = FA._visible(S, S, True, window, dev)
+    band = FA._visible(S, Skv, causal, window, dev)
     visible = int(band.sum())                   # (q, k) pairs seen
     flops = 4 * D * visible * B * H             # QK^T and PV, 2 flop a MAC
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
@@ -2115,31 +2341,35 @@ def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32, *,
     fp32_ms = flops / FP32_FLOP_PER_S * 1e3
     least_ms = (flops / BF16_FLOP_PER_S * 1e3 if dtype == torch.bfloat16
                 else tf32_ms)
-    sdpa = ({"is_causal": True} if window is None or window >= S
-            else {"attn_mask": band})
+    if window is not None and window < S:
+        sdpa = {"attn_mask": band}
+    else:
+        sdpa = {"is_causal": True} if causal else {}
     if G != H:
         sdpa["enable_gqa"] = True
     qf, kf, vf = q.float(), k.float(), v.float()
-    want = FA.flash_attention_ref(qf, kf, vf, window=window)
-    got = FA.flash_attention(q, k, v, window=window)
-    bound = FA.error_bound(qf, kf, vf, causal=True, window=window,
+    want = FA.flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    bound = FA.error_bound(qf, kf, vf, causal=causal, window=window,
                            ref=want if dtype == torch.bfloat16 else None)
     ratio = float(((got.float() - want).abs() / bound).max())
     if not ratio <= 1.0:
-        raise AssertionError(f"K3 at {list(shape)} G={G} w={window} "
-                             f"{dtype}: {ratio:.3g}x error_bound")
+        raise AssertionError(f"K3 at {list(shape)} Skv={Skv} G={G} "
+                             f"w={window} causal={causal} {dtype}: "
+                             f"{ratio:.3g}x error_bound")
     lib = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
     held = {"max_abs_err": _max_err(got, want), "of_bound": ratio,
             "library_max_abs_err": _max_err(lib.transpose(1, 2), want)}
     del qf, kf, vf, want, got, bound, lib
     return {"dtype": str(dtype).replace("torch.", ""), **held,
             "kernel_ms": cuda_ms(lambda: FA.flash_attention(
-                q, k, v, window=window), reps),
+                q, k, v, causal=causal, window=window), reps),
             "plain_ms": cuda_ms(lambda: FA.flash_attention_ref(
-                q, k, v, window=window), max(5, reps // 4)),
+                q, k, v, causal=causal, window=window), max(5, reps // 4)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, **sdpa), reps),
-            "shape": [B, S, H, G, D], "causal": True, "window": window,
+            "shape": [B, S, H, G, D] if skv is None else [B, S, Skv, H, G, D],
+            "causal": causal, "window": window,
             "flops": flops, "bytes": nbytes,
             "bound_ms": max(least_ms, byte_ms),
             "bound_by": "operations" if least_ms > byte_ms else "bytes",
@@ -2258,6 +2488,79 @@ def phase_time_moe(dev):
                           dtype=torch.bfloat16, kv_heads=G, window=W)
     emit("time_moe", flash_attention=k3)
     return k3
+
+
+def phase_time_encdec(dev):
+    """K3 at whisper-large-v3's shapes (``WHISPER_ATTN``: the encoder's
+    self-attention over 1,500 frames, the decoder's causal
+    self-attention over a 440-token prompt, the prefill's cross-attention
+    over the frames, one decode query against them), float32 and
+    bfloat16: kernel, plain version and SDPA, each kernel output held
+    against the plain version, beside the bounds; then the per-batch sum
+    (each shape's time times its launches in one served batch). Then
+    ``llama_prefill``: K3 at head dim 128 with no window on a model
+    path."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get
+    from repro_torch.kernels import flash_attention as FA
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(10)
+    layers = get("whisper-large-v3").n_layers
+    k3, batch = {}, {"launches": 0}
+    for name, ((B, Sq, Skv, H, D, causal), per_layer) in WHISPER_ATTN.items():
+        k3[name] = _time_k3(FA, F, (B, Sq, H, D), gen, dev, reps=20, skv=Skv,
+                            causal=causal)
+        k3[name]["bf16"] = _time_k3(FA, F, (B, Sq, H, D), gen, dev, reps=20,
+                                    dtype=torch.bfloat16, skv=Skv,
+                                    causal=causal)
+        n = layers * per_layer
+        k3[name]["launches_per_batch"] = n
+        batch["launches"] += n
+        for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms"):
+            batch[key] = batch.get(key, 0.0) + n * k3[name][key]
+    batch["max_abs_err"] = max(max(e["max_abs_err"], e["bf16"]["max_abs_err"])
+                               for e in k3.values())
+    ops = sum(e["launches_per_batch"] * e["bound_ms"] for e in k3.values()
+              if e["bound_by"] == "operations")
+    batch["bound_by"] = ("operations" if ops > batch["bound_ms"] / 2
+                         else "bytes")
+    llama = llama_prefill(dev)
+    emit("time_encdec", flash_attention=k3, per_batch=batch,
+         llama3_8b=llama, phase_s=time.perf_counter() - t0)
+    return batch
+
+
+def llama_prefill(dev):
+    """llama3-8b at its published width (d_model 4,096, 32 heads over 8
+    kv heads of 128, d_ff 14,336, vocab 128,256, RoPE theta 500,000), its
+    32 layers cut to LLAMA_LAYERS, random weights from seed 0, at the
+    default RunOptions: ``serve_bf16`` on the serve loop's first batch
+    (4 x 2,048 tokens), K3 once per layer with no window, its logits
+    against the plain-attention model within ``bf16_logit_tolerance``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.model import Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get("llama3-8b")
+    cfg = dataclasses.replace(full, n_layers=LLAMA_LAYERS)
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    toks = first_batch(SyntheticCorpus(cfg.vocab, 0), params)
+    out = serve_bf16(cfg, params, toks, plain_attention,
+                     {"flash_attention": FA},
+                     {"flash_attention": cfg.n_layers,
+                      "flash_attention_window": 0})
+    out.update(layers=cfg.n_layers, published_layers=full.n_layers,
+               d_model=cfg.d_model, heads=cfg.n_heads,
+               kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, vocab=cfg.vocab,
+               params=_n_params(params))
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3354,11 +3657,13 @@ def run(dev) -> None:
     ss = phase_serve_ssm(dev)
     sh = phase_serve_hybrid(dev)
     sm = phase_serve_moe(dev)
+    se = phase_serve_encdec(dev)
     per = phase_time(m, errs)
     k2, k3 = phase_time_k2_k3(dev)
     k4 = phase_time_k4(dev)
     h3, h4 = phase_time_hybrid(dev)
     m3 = phase_time_moe(dev)
+    e3 = phase_time_encdec(dev)
     mm = phase_multi(dev, m)
     multi_err = phase_multi_check(mm)
     pp = phase_pool(dev, t)
@@ -3449,6 +3754,18 @@ def run(dev) -> None:
         "bound_ms": m3["bound_ms"],
         "bound_by": m3["bound_by"],
         "library_ms": m3["library_ms"],
+    }] + [{
+        "name": "flash_attention[encdec]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:67",
+        "launches": se["launches"],
+        "max_abs_err": e3["max_abs_err"],
+        "ms": e3["kernel_ms"],
+        "plain_ms": e3["plain_ms"],
+        "bound_ms": e3["bound_ms"],
+        "bound_by": e3["bound_by"],
+        "library_ms": e3["library_ms"],
     }] + [{
         "name": "ssd_scan[hymba-1.5b]",
         "route": "cuda",

@@ -2,10 +2,11 @@
 
 Each architecture module in this package exports ``CONFIG`` with the
 published numbers and registers it; ``get(name)`` looks one up and
-``reduced()`` gives the tiny same-family config the CPU tests use. Only
-the families the port runs have modules here (qwen1.5-0.5b, dense;
-mixtral-8x7b and mixtral-8x22b, moe; mamba2-370m, ssm; hymba-1.5b,
-hybrid); the others come with their slices (ROADMAP, Queue 1).
+``reduced()`` gives the tiny same-family config the CPU tests use. The
+zoo is the reference's ten: qwen1.5-0.5b, llama3-8b, nemotron-4-15b and
+qwen1.5-110b (dense), internvl2-26b (vlm), mixtral-8x7b and
+mixtral-8x22b (moe), mamba2-370m (ssm), hymba-1.5b (hybrid) and
+whisper-large-v3 (encdec).
 """
 from __future__ import annotations
 
@@ -156,13 +157,20 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
+def registry() -> Dict[str, ArchConfig]:
+    """Every config by name; the architecture modules are imported here
+    for their side effect."""
+    from repro_torch.configs import (  # noqa: F401
+        hymba_1_5b, internvl2_26b, llama3_8b, mamba2_370m, mixtral_8x7b,
+        mixtral_8x22b, nemotron_4_15b, qwen1_5_0_5b, qwen1_5_110b,
+        whisper_large_v3)
+    return dict(_REGISTRY)
+
+
 def get(name: str) -> ArchConfig:
-    """The registered config ``name``; the architecture modules are
-    imported here for their side effect."""
-    from repro_torch.configs import (hymba_1_5b, mamba2_370m,  # noqa: F401
-                                     mixtral_8x7b, mixtral_8x22b,
-                                     qwen1_5_0_5b)
-    if name not in _REGISTRY:
-        raise KeyError(f"{name!r} is not ported yet; the port has "
-                       f"{sorted(_REGISTRY)}")
-    return _REGISTRY[name]
+    """The registered config ``name``."""
+    configs = registry()
+    if name not in configs:
+        raise KeyError(f"{name!r} is not a config of the zoo; it has "
+                       f"{sorted(configs)}")
+    return configs[name]

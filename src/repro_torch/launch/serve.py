@@ -4,18 +4,20 @@ port of ``repro/launch/serve.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --requests 16 --prompt-len 32 --gen 8 [--device cpu]
 
-``--arch`` takes any config the port registers (qwen1.5-0.5b, dense;
-mixtral-8x7b and mixtral-8x22b, moe; mamba2-370m, ssm; hymba-1.5b,
-hybrid). The CLI serves the reduced config, as the
-reference's does; ``serve`` runs the same request loop for any model and
-parameters the port runs (``chip_smoke.py`` calls it at the published
-configs).
+``--arch`` takes any decoder config of the zoo (dense, vlm, moe, ssm,
+hybrid). The CLI serves the reduced config, as the reference's does;
+``serve`` runs the same request loop for any model and parameters the
+port runs (``chip_smoke.py`` calls it at the published configs). The
+CLI refuses the encoder-decoder family (whisper-large-v3) by name: its
+prefill needs encoder frames, which the CLI does not draw (the
+reference's CLI fails on it with ``KeyError: 'frames'``). ``serve``
+takes them from a ``frames`` callable.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -28,13 +30,20 @@ from repro_torch.models.options import RunOptions
 
 def serve(model: Model, params: Dict, corpus: SyntheticCorpus, *,
           requests: int, batch: int, prompt_len: int, gen: int,
+          frames: Optional[Callable[[int, int], torch.Tensor]] = None,
           log: Callable[[str], None] = print) -> Dict:
     """Answer ``requests`` prompts of ``prompt_len`` corpus tokens in
     batches of ``batch``: one prefill with room for ``gen`` tokens, then
-    ``gen - 1`` decode steps, so ``gen`` tokens per request. Returns the
-    token count, the wall seconds (each batch ends in a host read of its
-    tokens), the part of them spent drawing prompts on the host (the
-    device is idle then) and each batch's generated tokens."""
+    ``gen - 1`` decode steps, so ``gen`` tokens per request. An
+    encoder-decoder model needs ``frames``: ``frames(b, row0)`` gives the
+    (b, S_enc, d_model) encoder frames of the batch of b requests from
+    request ``row0``, and the prefill takes ``{"frames", "tokens"}``.
+    Returns the token count, the wall seconds (each batch ends in a host
+    read of its tokens), the part of them spent drawing prompts on the
+    host (the device is idle then) and each batch's generated tokens."""
+    if model.cfg.family == "encdec" and frames is None:
+        raise ValueError(f"{model.cfg.name} is an encoder-decoder model: "
+                         "serve needs its encoder frames (frames=)")
     dev = params["embed"].device
     total, outputs, draw_s = 0, [], 0.0
     t0 = time.time()
@@ -43,7 +52,10 @@ def serve(model: Model, params: Dict, corpus: SyntheticCorpus, *,
         t_draw = time.time()
         toks = torch.as_tensor(corpus.batch(b, prompt_len, r0), device=dev)
         draw_s += time.time() - t_draw
-        nxt, cache = model.prefill(params, {"tokens": toks},
+        inputs = {"tokens": toks}
+        if frames is not None:
+            inputs["frames"] = frames(b, r0)
+        nxt, cache = model.prefill(params, inputs,
                                    cache_len=prompt_len + gen)
         outs = [nxt]
         for _ in range(gen - 1):
@@ -68,8 +80,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    dev = resolve(args.device)
     cfg = get(args.arch).reduced()
+    if cfg.family == "encdec":
+        raise ValueError(f"the serve CLI does not serve {args.arch}: an "
+                         "encoder-decoder model needs encoder frames, which "
+                         "the CLI does not draw; call serve(..., frames=)")
+    dev = resolve(args.device)
     opts = RunOptions(remat="none", layer_loop="scan",
                       compute_dtype="float32", q_chunk=64, kv_chunk=64)
     model = Model(cfg, opts)

@@ -52,12 +52,12 @@ def mha(q, k, v, *, causal: bool = True, q_offset: int = 0,
     """q (B,Sq,H,D); k, v (B,Skv,G,D) with H = G*R. Returns (B,Sq,H,D).
 
     ``q_chunk`` and ``kv_chunk`` are the reference's memory knobs: K3
-    picks its own tiles and the plain version does not chunk. On CUDA,
-    K3 takes queries from position 0 at the default scale D^-0.5; other
-    values raise there."""
+    picks its own tiles and the plain version does not chunk. Off the
+    CPU it is K3 (or its wrapper's error), which takes queries from
+    position 0 at the default scale D^-0.5; other values raise there."""
     if k.dtype != q.dtype:            # e.g. a low-precision cache
         k, v = k.to(q.dtype), v.to(q.dtype)
-    if q.device.type == "cuda":
+    if q.device.type != "cpu":
         D = q.shape[-1]
         if q_offset != 0 or (scale is not None and scale != D ** -0.5):
             raise ValueError("the attention kernel takes q_offset=0 and the "

@@ -1,6 +1,7 @@
-"""Common layers: the port of ``repro/models/layers.py`` for the dense
-path. The reference's ``shard(...)`` constraints are identities on one
-card, so they are gone."""
+"""Common layers: the port of ``repro/models/layers.py`` (norms, MLP
+variants, embeddings, logits and the sinusoidal positions). The
+reference's ``shard(...)`` constraints are identities on one card, so
+they are gone."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +15,16 @@ def rms_norm(x, w, eps: float = 1e-5):
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return (x * w).to(dt)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """The reference's formula: float32 upcast, mean, the biased variance
+    ``((x - mu) ** 2).mean``, ``rsqrt``; the result in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * w + b).to(dt)
 
 
 def padded_vocab(vocab: int, multiple: int = 256) -> int:
@@ -51,3 +62,21 @@ def lm_logits(x, head, vocab: int):
     if vp != vocab:
         logits[..., vocab:] = NEG_INF
     return logits
+
+
+def sinusoid_div(d: int, device=None):
+    """(d/2,) float32 frequencies exp(-2i log(10000) / d), the log and the
+    division in float32 as the reference computes them."""
+    c = -torch.log(torch.tensor(10000.0, device=device)) / d
+    return torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=device) * c)
+
+
+def sinusoidal_positions(n: int, d: int, device=None):
+    """(n, d) float32: sin at the even columns, cos at the odd ones."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    ang = pos * sinusoid_div(d, device)
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe

@@ -1,5 +1,8 @@
-"""Model facade: init / forward / prefill / decode, the port of
-``repro/models/model.py`` for the families the port runs."""
+"""Model facade: init / forward / prefill / decode and the cache, the
+port of ``repro/models/model.py`` for every family of the zoo (the
+encoder-decoder one through ``models/whisper.py``). The reference's
+``input_specs`` and ``batch_shardings`` are XLA and mesh stand-ins with
+no counterpart on one card."""
 from __future__ import annotations
 
 import math
@@ -10,10 +13,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve
 from repro_torch.models import transformer as tf
+from repro_torch.models import whisper as wp
 from repro_torch.models.options import RunOptions
 from repro_torch.models.transformer import ParamMeta
 
 PM = ParamMeta
+WHISPER_ENC_FRAMES = 1500   # cross-attention source length of the cache
 
 
 def _leaves(tree, prefix=()):
@@ -75,7 +80,8 @@ class Model:
 
     # ----------------------------- params --------------------------------
     def meta(self) -> Dict[str, Any]:
-        m = tf.model_meta(self.cfg)
+        m = (wp.model_meta(self.cfg) if self.cfg.family == "encdec"
+             else tf.model_meta(self.cfg))
         if self.opts.param_dtype != "float32":
             # serving-mode weights (e.g. bf16): matrices only, norms fp32
             def cast(tree):
@@ -102,7 +108,17 @@ class Model:
     def _tokens(params, tokens):
         return torch.as_tensor(tokens, device=params["embed"].device)
 
+    def _encdec_batch(self, params, batch):
+        return {"frames": torch.as_tensor(batch["frames"],
+                                          device=params["embed"].device),
+                "tokens": self._tokens(params, batch["tokens"])}
+
     def forward_logits(self, params, batch):
+        if self.cfg.family == "encdec":
+            b = self._encdec_batch(params, batch)
+            enc = wp.encode(params, self.cfg, self.opts, b["frames"])
+            return wp.decode_train(params, self.cfg, self.opts, b["tokens"],
+                                   enc)
         embeds = batch.get("embeds")
         logits, _, _ = tf.lm_forward(params, self.cfg, self.opts,
                                      self._tokens(params, batch["tokens"]),
@@ -110,13 +126,19 @@ class Model:
         return logits
 
     def prefill(self, params, batch, cache_len: Optional[int] = None):
+        if self.cfg.family == "encdec":
+            return wp.prefill(params, self.cfg, self.opts,
+                              self._encdec_batch(params, batch),
+                              cache_len=cache_len)
         return tf.lm_prefill(params, self.cfg, self.opts,
                              self._tokens(params, batch["tokens"]),
                              batch.get("embeds"), cache_len=cache_len)
 
     def decode_step(self, params, cache, token):
-        return tf.lm_decode_step(params, self.cfg, self.opts, cache,
-                                 self._tokens(params, token))
+        step = (wp.decode_step if self.cfg.family == "encdec"
+                else tf.lm_decode_step)
+        return step(params, self.cfg, self.opts, cache,
+                    self._tokens(params, token))
 
     # ------------------------- cache metadata ----------------------------
     def cache_len(self, seq_len: int) -> int:
@@ -126,10 +148,17 @@ class Model:
         return seq_len
 
     def cache_meta(self, batch: int, seq_len: int) -> Dict[str, Any]:
+        """Shapes and dtypes of the cache ``prefill`` returns for a
+        ``seq_len`` cache: k and v in ``opts.kv_cache_dtype`` (the compute
+        dtype when unset), whisper's xk and xv (L, batch, 1,500, H, hd) in
+        the compute dtype."""
         cfg, cdt = self.cfg, self.opts.compute_dtype
         L = cfg.n_layers
         pos = PM((), "zeros", "int32")
         Sc = self.cache_len(seq_len)
+        slot = PM((Sc,), "zeros", "int32")
+        kv = PM((L, batch, Sc, cfg.n_kv_heads, cfg.hd), "zeros",
+                self.opts.kv_cache_dtype or cdt)
 
         def ssm_pm(di):
             s = cfg.ssm
@@ -143,9 +172,30 @@ class Model:
 
         if cfg.family == "ssm":
             return {"layers": ssm_pm(cfg.d_inner), "pos": pos}
-        kv = PM((L, batch, Sc, cfg.n_kv_heads, cfg.hd), "zeros", cdt)
+        if cfg.family == "encdec":
+            xkv = PM((L, batch, WHISPER_ENC_FRAMES, cfg.n_heads, cfg.hd),
+                     "zeros", cdt)
+            return {"k": kv, "v": kv, "xk": xkv, "xv": xkv, "pos": pos,
+                    "slot_pos": slot}
         layers = {"k": kv, "v": kv}
         if cfg.family == "hybrid":
             layers.update(ssm_pm(cfg.n_heads * cfg.hd))
-        return {"layers": layers, "pos": pos,
-                "slot_pos": PM((Sc,), "zeros", "int32")}
+        return {"layers": layers, "pos": pos, "slot_pos": slot}
+
+    def init_cache(self, batch: int, seq_len: int, device=None) -> Dict:
+        """Zeros of ``cache_meta``'s shapes and dtypes on ``device``
+        (``None`` means CUDA)."""
+        dev = resolve(device)
+        cache: Dict = {}
+        for path, meta in _leaves(self.cache_meta(batch, seq_len)):
+            _set(cache, path, materialize(meta, None, dev))
+        return cache
+
+
+def build(arch_name: str, opts: RunOptions = RunOptions(),
+          reduced: bool = False) -> Model:
+    from repro_torch.configs.base import get
+    cfg = get(arch_name)
+    if reduced:
+        cfg = cfg.reduced()
+    return Model(cfg, opts)

@@ -9,14 +9,16 @@ d), ``final_ln``, optional ``head``, and ``layers`` whose leaves are
 stacked on a leading L axis. The reference's ``lax.scan`` over layers is
 a Python loop over that axis, which gives each layer its own window, so
 the reference's grouped scan of same-window layers (``_layer_groups``)
-has no counterpart here. Encoder-decoder models raise until their
-slice comes (ROADMAP, Queue 1).
+has no counterpart here. The encoder-decoder family (whisper) is
+``models/whisper.py``.
 
 Decode updates the cache in place instead of returning a copy: the kv
-cache (``index_copy_`` at the step's slot; 24 layers at 2,056 positions
+cache (``write_slot`` at the step's slot; 24 layers at 2,056 positions
 are 400 MB) and the SSM state and conv caches (``copy_``; mamba2-370m's
 state is 201 MB at a batch of 4). The reference copies them only because
-its arrays are immutable.
+its arrays are immutable. ``RunOptions.kv_cache_dtype`` (float8_e4m3fn,
+say) stores k and v in that dtype from the prefill on; decode widens
+them at the product.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.options import RunOptions
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 @dataclass(frozen=True)
@@ -157,10 +159,12 @@ def layer_meta(cfg: ArchConfig) -> Dict[str, PM]:
     return {**attn_meta(cfg), **mlp_meta(cfg)}
 
 
-def _stack(meta: Dict[str, PM], L: int) -> Dict[str, PM]:
-    return {k: PM((L,) + m.shape, m.init, m.dtype,
-                  tuple(d + 1 for d in m.fan_in_dims))
-            for k, m in meta.items()}
+def _stack(meta, L: int):
+    """Every leaf of the (nested) ``meta`` stacked on a leading L axis."""
+    if isinstance(meta, dict):
+        return {k: _stack(m, L) for k, m in meta.items()}
+    return PM((L,) + meta.shape, meta.init, meta.dtype,
+              tuple(d + 1 for d in meta.fan_in_dims))
 
 
 def model_meta(cfg: ArchConfig) -> Dict[str, Any]:
@@ -211,6 +215,17 @@ def attn_apply(p, x, cfg: ArchConfig, opts: RunOptions, *,
     return (out, (k, v)) if return_kv else out
 
 
+def write_slot(cache, slot, x) -> None:
+    """cache[:, slot] = x in cache's dtype, in place; cache (B,Sc,G,hd),
+    x (B,1,G,hd), slot (1,) integer tensor. ``index_copy_`` has no
+    float8 kernel, so a float8 cache takes the codes of x's cast through
+    uint8 views of both: the same bytes, and no wider copy."""
+    x = x.to(cache.dtype)
+    if cache.is_floating_point() and cache.element_size() == 1:
+        cache, x = cache.view(torch.uint8), x.view(torch.uint8)
+    cache.index_copy_(1, slot, x)
+
+
 def _attention_step(p, xn, cfg: ArchConfig, *, window, kc, vc, slot_pos,
                     cur_pos):
     """One decode step's attention of the normed input xn (B,1,d), before
@@ -222,8 +237,8 @@ def _attention_step(p, xn, cfg: ArchConfig, *, window, kc, vc, slot_pos,
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     slot = torch.remainder(pos, kc.shape[1]).long()
-    kc.index_copy_(1, slot, k.to(kc.dtype))
-    vc.index_copy_(1, slot, v.to(vc.dtype))
+    write_slot(kc, slot, k)
+    write_slot(vc, slot, v)
     o = decode_attend(q, kc, vc, slot_pos[None, :], cur_pos.expand(B),
                       window=window)
     return o.reshape(B, 1, -1)
@@ -448,13 +463,13 @@ def _head(params, cfg: ArchConfig):
 
 
 def _compute_params(params, dtype):
-    """float32 matrices (every leaf of more than one dimension, stacked
-    norms included) in the compute dtype, as the reference casts them."""
-    def cast(a):
-        return a.to(dtype) if a.dtype == torch.float32 and a.ndim > 1 else a
-    out = {k: cast(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = {k: cast(v) for k, v in params["layers"].items()}
-    return out
+    """float32 matrices (every leaf of more than one dimension of the
+    nested ``params``, stacked norms and biases included) in the compute
+    dtype, as the reference casts them."""
+    return {k: (_compute_params(v, dtype) if isinstance(v, dict) else
+                v.to(dtype) if v.dtype == torch.float32 and v.ndim > 1
+                else v)
+            for k, v in params.items()}
 
 
 def lm_forward(params, cfg: ArchConfig, opts: RunOptions, tokens,
@@ -473,7 +488,8 @@ def lm_forward(params, cfg: ArchConfig, opts: RunOptions, tokens,
 
 def lm_prefill(params, cfg: ArchConfig, opts: RunOptions, tokens,
                embeds=None, cache_len: Optional[int] = None):
-    """Returns (last-position argmax token (B,) int32, cache). A
+    """Returns (last-position argmax token (B,) int32, cache), k and v
+    in ``opts.kv_cache_dtype`` when it is set. A
     ``cache_len`` past the prompt reserves decode head-room in ``k`` and
     ``v`` (empty slots at position -1), as the reference's ``pad_kv``:
     the hybrid's SSM state and conv caches keep their shapes. The SSM
@@ -485,6 +501,10 @@ def lm_prefill(params, cfg: ArchConfig, opts: RunOptions, tokens,
     next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     dev = logits.device
     pos = torch.tensor(S_total, dtype=torch.int32, device=dev)
+    if opts.kv_cache_dtype:
+        kvdt = getattr(torch, opts.kv_cache_dtype)
+        layer_cache = {k: (v.to(kvdt) if k in ("k", "v") else v)
+                       for k, v in layer_cache.items()}
     if cfg.family == "ssm":
         return next_tok, {"layers": layer_cache, "pos": pos}
     Sc = layer_cache["k"].shape[2]

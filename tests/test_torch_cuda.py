@@ -5,7 +5,9 @@ and mixtral-8x7b's prefill shapes among them), the reduced qwen,
 mamba2, hymba and mixtral models on the card against the same models on
 the CPU, a short fused run's flight-recorder counters against
 ``obs.telemetry_ref``, and the per-window loop and the optimum on the
-card against the CPU. ``cuda``-marked: every test
+card against the CPU, the reduced whisper on the card against the CPU
+(K3 at whisper's full-size shapes too) and the float8 kv cache's writes
+on the card. ``cuda``-marked: every test
 skips where no card is visible. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1231,3 +1233,119 @@ def test_optimum_on_card_matches_cpu(cuda, small_fit):
                               cloud_budget_core_s=5_000.0, device="cpu")
     assert np.array_equal(got.k_hist, want.k_hist)
     assert got.quality_sum == want.quality_sum
+
+
+# ------------------------------------------------- whisper, float8 ----
+# whisper-large-v3's K3 shapes (B, Sq, Skv, H, G, D, causal, window): the
+# encoder's self-attention over 1,500 frames, the prefill's
+# cross-attention of a 440-token prompt over them, one decode query
+# against them, all non-causal; and the decoder's causal self-attention
+WHISPER_K3 = ((4, 1500, 1500, 20, 20, 64, False, None),
+              (4, 440, 1500, 20, 20, 64, False, None),
+              (4, 1, 1500, 20, 20, 64, False, None),
+              (4, 440, 440, 20, 20, 64, True, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("case", WHISPER_K3)
+def test_k3_at_whisper_shapes(cuda, case, dtype):
+    """K3 at whisper's shapes within ``error_bound`` of the plain version
+    (bfloat16: on the widened inputs, the output's rounding added)."""
+    B, Sq, Skv, H, G, D, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               .to(getattr(torch, dtype)) for shape in
+               ((B, Sq, H, D), (B, Skv, G, D), (B, Skv, G, D)))
+    before = FA.LAUNCHES
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1 and got.dtype == q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = FA.flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+    bound = FA.error_bound(qf, kf, vf, causal=causal, window=window,
+                           ref=want if dtype == "bfloat16" else None)
+    assert bool(((got.float() - want).abs() <= bound).all())
+
+
+def _tree_to(tree, device):
+    return {k: (_tree_to(v, device) if isinstance(v, dict) else
+                v.to(device)) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_whisper_on_card_matches_cpu(cuda):
+    """The reduced whisper in float32 on the card against the CPU run of
+    the same params: K3 once per encoder layer and twice per decoder
+    layer (self and cross) in a forward and a prefill, once per decoder
+    layer (cross) in a decode step; logits and caches within 1e-4, the
+    same tokens over 4 decode steps."""
+    model = Model(get("whisper-large-v3").reduced(),
+                  RunOptions(compute_dtype="float32"))
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = _tree_to(params, cuda)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"frames": torch.randn(3, 50, cfg.d_model, generator=gen),
+             "tokens": torch.randint(0, 256, (3, 12), generator=gen)}
+    card_batch = _tree_to(batch, cuda)
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    before = FA.LAUNCHES
+    got = model.forward_logits(on_card, card_batch)
+    assert FA.LAUNCHES == before + per_prefill
+    want = model.forward_logits(params, batch)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    nxt_c, cache_c = model.prefill(on_card, card_batch, cache_len=16)
+    nxt, cache = model.prefill(params, batch, cache_len=16)
+    assert FA.LAUNCHES == before + 2 * per_prefill
+    for _ in range(4):
+        assert torch.equal(nxt_c.cpu(), nxt)
+        before = FA.LAUNCHES
+        nxt_c, cache_c = model.decode_step(on_card, cache_c, nxt_c)
+        assert FA.LAUNCHES == before + cfg.n_layers
+        nxt, cache = model.decode_step(params, cache, nxt)
+    assert torch.equal(nxt_c.cpu(), nxt)
+    for name in ("k", "v", "xk", "xv"):
+        assert float((cache_c[name].cpu() - cache[name]).abs().max()) \
+            <= 1e-4, name
+    assert torch.equal(cache_c["slot_pos"].cpu(), cache["slot_pos"])
+
+
+@pytest.mark.cuda
+def test_float8_cache_on_card(cuda):
+    """``write_slot`` into a float8 cache on the card, byte for byte as
+    on the CPU (``index_copy_`` has no float8 kernel: the codes go through
+    uint8 views); then the reduced qwen at ``kv_cache_dtype`` float8 on
+    the card: its prefill's codes equal the float8 cast of the default
+    (bfloat16) cache's on the same card, K3 once per layer, and decode
+    steps run from it."""
+    from repro_torch.models.transformer import write_slot
+    gen = torch.Generator().manual_seed(3)
+    fp8 = torch.float8_e4m3fn
+    cache = torch.randn(2, 9, 4, 16, generator=gen).to(fp8)
+    x = 3 * torch.randn(2, 1, 4, 16, generator=gen)
+    want = cache.clone()
+    write_slot(want, torch.tensor([5]), x)
+    got = cache.to(cuda)
+    write_slot(got, torch.tensor([5], device=cuda), x.to(cuda))
+    assert got.dtype == fp8
+    assert torch.equal(got.view(torch.uint8).cpu(), want.view(torch.uint8))
+
+    cfg = get("qwen1.5-0.5b").reduced()
+    params = _tree_to(Model(cfg).init(torch.Generator().manual_seed(0),
+                                      "cpu"), cuda)
+    tokens = torch.randint(0, 256, (3, 40), generator=gen).to(cuda)
+    _, ref = Model(cfg, RunOptions()).prefill(params, {"tokens": tokens},
+                                              cache_len=48)
+    before = FA.LAUNCHES
+    model = Model(cfg, RunOptions(kv_cache_dtype="float8_e4m3fn"))
+    nxt, cache = model.prefill(params, {"tokens": tokens}, cache_len=48)
+    assert FA.LAUNCHES == before + cfg.n_layers
+    for name in ("k", "v"):
+        assert cache["layers"][name].dtype == fp8
+        assert torch.equal(cache["layers"][name].view(torch.uint8),
+                           ref["layers"][name].to(fp8).view(torch.uint8))
+    for _ in range(3):
+        nxt, cache = model.decode_step(params, cache, nxt)
+    assert cache["layers"]["k"].dtype == fp8
+    assert bool(((nxt >= 0) & (nxt < cfg.vocab)).all())

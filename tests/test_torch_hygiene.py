@@ -8,12 +8,15 @@
 - every entry point defaults to CUDA and raises when there is none
   (the multi-stream run, the serving pool, the cold tier, the sharded
   store and tier, ``rebalance``, the checkpoint readers, the per-window
-  loop, the optimum and the MoE family among them);
+  loop, the optimum, the MoE family and the encoder-decoder family with
+  ``init_cache`` among them), and the serve CLI refuses the
+  encoder-decoder family by name;
 - ``chip_smoke.py`` fails, and prints no result, without a card;
 - on the CPU, every kernel wrapper (K1, K2, K3, K4) takes its plain
-  version and launches nothing, and the SSM model path (``models/ssd``)
-  and the windowed attention path (``models/attention.banded_mha``) run
-  on it;
+  version and launches nothing, and the SSM model path (``models/ssd``),
+  the windowed attention path (``models/attention.banded_mha``) and the
+  encoder-decoder model (``models/whisper``) run on it; off the CPU and
+  the card, attention raises;
 - on the card, the K1 wrapper refuses a spec beyond its limits
   (``cuda``-marked: skips here).
 
@@ -237,6 +240,70 @@ def test_comparison_and_moe_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "mixtral-8x7b", "--requests", "1",
                     "--prompt-len", "4", "--gen", "2"])
+
+
+def test_encdec_entry_points_raise_without_cuda(monkeypatch):
+    """whisper's init and ``init_cache`` default to CUDA and raise without
+    it; the serve CLI refuses the family by name whatever the device
+    (its prefill needs encoder frames the CLI does not draw), and so
+    does ``serve`` without ``frames``."""
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    _no_cuda(monkeypatch)
+    model = Model(get("whisper-large-v3").reduced())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(1, 8)
+    for device in ("cuda", "cpu"):
+        with pytest.raises(ValueError, match="frames"):
+            serve.main(["--arch", "whisper-large-v3", "--requests", "1",
+                        "--prompt-len", "4", "--gen", "2",
+                        "--device", device])
+    with pytest.raises(ValueError, match="frames"):
+        serve.serve(model, {}, SyntheticCorpus(256, 0), requests=1,
+                    batch=1, prompt_len=4, gen=2)
+
+
+def test_encdec_runs_on_cpu_tensors_with_the_port_alone():
+    """Reduced whisper through ``serve`` on CPU tensors, with the port's
+    dependencies alone: K3's wrapper takes its plain version (no
+    launch), the cross k and v keep the frames' length, and a decode
+    step matches the forward pass over the grown prompt. On a device
+    with no kernel the cross-attention raises; it never falls back."""
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions
+    model = Model(get("whisper-large-v3").reduced(),
+                  RunOptions(compute_dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    frames = torch.randn(2, 20, 64, generator=gen)
+    before = FA.LAUNCHES
+    stats = serve(model, params, SyntheticCorpus(256, 0), requests=3,
+                  batch=2, prompt_len=6, gen=3, log=lambda line: None,
+                  frames=lambda b, r0: frames[:b])
+    assert FA.LAUNCHES == before
+    assert [o.shape for o in stats["outputs"]] == [(2, 3), (1, 3)]
+    tokens = torch.randint(0, 256, (2, 6), generator=gen)
+    nxt, cache = model.prefill(params, {"frames": frames,
+                                        "tokens": tokens}, cache_len=7)
+    assert cache["xk"].shape == (2, 2, 20, 4, 16)
+    nxt2, _ = model.decode_step(params, cache, nxt)
+    grown = torch.cat([tokens, nxt[:, None].long()], 1)
+    logits = model.forward_logits(params, {"frames": frames,
+                                           "tokens": grown})
+    assert torch.equal(nxt2, logits[:, -1].argmax(-1).to(torch.int32))
+    q = torch.randn(1, 1, 4, 16, generator=gen)
+    kv = torch.randn(1, 20, 4, 16, generator=gen)
+    with pytest.raises(ValueError, match="no kernel"):
+        A.mha(q.to("meta"), kv.to("meta"), kv.to("meta"), causal=False)
 
 
 def test_moe_runs_on_cpu_tensors_with_the_port_alone():

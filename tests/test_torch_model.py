@@ -129,8 +129,12 @@ def test_cache_meta_and_families(pair):
     encdec = ArchConfig(name="e", family="encdec", n_layers=1, d_model=8,
                         n_heads=2, n_kv_heads=2, d_ff=8, vocab=16,
                         n_enc_layers=1)
+    assert Model(encdec).cfg.family == "encdec"    # ported in its slice
+    made_up = ArchConfig(name="x", family="retrieval", n_layers=1,
+                         d_model=8, n_heads=2, n_kv_heads=2, d_ff=8,
+                         vocab=16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(encdec)
+        Model(made_up)
 
 
 def test_serve_loop_matches_reference(capsys):
