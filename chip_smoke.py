@@ -13,9 +13,9 @@ script fails before it prints a result.
               power limit (also printed as its own line before the last).
 2. build      one nvcc per kernel source in ``src/repro_torch/csrc``,
               all started together: K1 ``warehouse_agg.cu``, K2
-              ``frame_preproc.cu``, K3 ``flash_attention.cu``, K4
-              ``ssd_scan.cu`` (K3 and K4 include the shared
-              ``hopper.cuh``).
+              ``frame_preproc.cu``, K3 ``flash_attention.cu`` and its
+              backward ``flash_attention_bwd.cu``, K4 ``ssd_scan.cu``
+              (K3 and K4 include the shared ``hopper.cuh``).
 3. kernel     K1 against its plain version on the same CUDA tensors over
               the test matrix at 1M rows (shared- and global-memory
               accumulators), and against a float64 host oracle; then
@@ -38,6 +38,19 @@ script fails before it prints a result.
               the plain version on the widened inputs; mixtral-8x7b's
               prefill (B=4, S=2048, 32 heads over 8 kv heads, D=128,
               window 4,096) in both dtypes.
+5a. kernel_k3_bwd  K3's backward (``csrc/flash_attention_bwd.cu``)
+              against its plain version ``flash_attention_bwd_ref`` run in
+              float64 on the same CUDA tensors and the forward's own o
+              and log-sum-exp, within ``bwd_error_bound``, float32 and
+              bfloat16: qwen1.5-0.5b's training shape (B=4, S=2,048,
+              H=G=16, D=64, causal), hymba-1.5b's (25 heads over 5, a
+              window of 1,024, and global), mixtral-8x7b's (32 over 8,
+              D=128, window 4,096), whisper-large-v3's encoder (1,500 x
+              1,500) and cross attention (440 x 1,500), not causal, rows
+              that see no key, and ``_k3_cases``' uneven shapes; the
+              forward's log-sum-exp within ``lse_error_bound`` of the
+              float64 plain one (+inf exactly where a row sees no key);
+              one finite-difference check of the float32 gradient.
 5b. kernel_k4 K4 (five passes) against its plain version run in
               float64 within ``kernels.ssd.error_bound``, and each pass
               against its own plain version within the bound
@@ -176,6 +189,28 @@ script fails before it prints a result.
               plain-attention model, that prefill's time, and the
               bfloat16 prefill, decode and check as for qwen (the logits
               from the weights cast as the prefill casts them).
+9f. train     training, counts set to 0 just before the steps and read
+              just after: qwen1.5-0.5b at its published config (24
+              layers, d_model 1,024, 16 heads of 64, vocab 151,936, tied
+              embeddings; 464M parameters) from random weights, through
+              the launcher's step (``launch.train.train_options``: remat
+              none, float32; AdamW, the clip and the warmup-cosine
+              schedule at a peak rate of 1e-2) at batch 4 x 2,048 tokens
+              for 8 steps. K3's forward and backward kernels must each
+              launch once per layer and step; the loss must be finite and
+              fall from the first step to the last. Prints the losses,
+              each step's time, the tokens per second (the first step
+              apart), the peak device memory. Then the first step's loss
+              and per-leaf gradients at full width cut to 4 layers
+              against the same step with the attention on its plain
+              version (autograd through it), and a reduced config's train
+              state saved at step 4 and restored bit for bit, then
+              resumed by the launcher to step 6.
+9g. train_families  one train step each of reduced whisper-large-v3,
+              mixtral-8x7b (a window of 32 over 64 tokens, the aux loss)
+              and internvl2-26b (``embeds``) on the card against the same
+              step on the card machine's CPU; reduced mamba2-370m must
+              refuse the gradient by name (K4 has no backward yet).
 10. time      CUDA-event medians of device time (the card spins while
               the host enqueues each timed call): K1, its plain version
               and one ``index_add_``/``scatter_reduce_`` call per
@@ -212,7 +247,13 @@ script fails before it prints a result.
               over 8 kv heads of 128, vocab 128,256), 2 of its 32 layers,
               one bfloat16 prefill of the serve batch, K3 once per layer
               at head dim 128 with no window, its logits against the
-              plain-attention model. Every timed K3 output is held
+              plain-attention model; then (``time_k3_bwd``) K3's
+              backward at qwen1.5-0.5b's training shape and whisper's
+              encoder shape in both dtypes, beside its launches per
+              train step, its plain version, the backward alone of
+              ``F.scaled_dot_product_attention`` and its bound (the five
+              products of the gradient at the FP32 CUDA cores' rate, the
+              arithmetic it uses). Every timed K3 output is held
               against its plain version on the same inputs. The library
               calls are yardsticks the port never calls.
 11. multi     the multi-stream path, K1's counts set to 0 just before
@@ -323,6 +364,17 @@ model's L also counts the encoder's layers and two more roundings
 Standing answers: their
 accumulators within FLOAT_TOL of the float64 oracle, as K1's; their
 tables within twice that of ``store.query``'s, max and min exactly.
+K3's backward: within ``kernels.flash_attention.bwd_error_bound`` of
+its plain version in float64: per element, the float32 sums' lengths
+(Sq R terms for dk and dv, Skv for dq) times their sums of magnitudes,
+plus the error of each recomputed P (the D-term score sums, expf's 2
+ulp) and dS carried through them; bfloat16 adds the outputs' rounding.
+Training: the full-width 4-layer step against the plain-attention step,
+the loss within 1e-5 relative and each gradient leaf within 1e-3 of its
+largest magnitude (``TRAIN_GRAD_TOL``: both kernels' float32 sums over
+2,048 terms, 1.2e-4 each, through 4 layers); the reduced families on
+the card against the CPU within 1e-5 (the CPU parity tests' tolerance
+of ``Model.loss``).
 """
 from __future__ import annotations
 
@@ -376,6 +428,23 @@ WHISPER_ATTN = {
     "decode_cross": ((4, 1, 1500, 20, 64, False), WHISPER_SERVE["gen"] - 1),
 }
 LLAMA_LAYERS = 2                    # llama3-8b's 32 layers cut to 2
+# training: qwen1.5-0.5b at its published config, the launcher's step
+TRAIN = dict(batch=4, seq=2048, steps=8, lr=1e-2)
+TRAIN_CHECK_LAYERS = 4              # the gradient check's cut of 24 layers
+# of each leaf's largest |gradient|: the backward's float32 sums over
+# Sq R = 2,048 terms (bwd_error_bound) and the forward's over Skv = 2,048
+# keys (error_bound) are each about 2,048 * 2^-24 = 1.2e-4 of their sums
+# of magnitudes; each of the 4 layers hands both on to the layers below
+# at a gain of about one: 4 x 2 x 1.2e-4 ~ 1e-3
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LOSS_TOL = 1e-5               # relative, kernel vs plain attention
+FAMILY_TOL = 1e-5                   # the CPU parity tests' Model.loss tolerance
+FAMILY_SEQ = 64                     # past reduced mixtral's window of 32
+# the backward timed at the training shapes, with its launches per step
+K3_BWD_TIME = {
+    "qwen_train": ((4, 2048, 2048, 16, 16, 64, True, None), 24),
+    "whisper_encoder": ((4, 1500, 1500, 20, 20, 64, False, None), 32),
+}
 COMPARE_PLAN_DAYS = 0.25            # the paper's loop: 4 windows of 10,800
 SPIN_CYCLES = 40_000_000            # ~20 ms of the card's clock per timing
 WINDOW = 150                        # segments in a 5-minute window
@@ -891,6 +960,128 @@ def phase_kernel_k3(dev):
         del q, k, v, qf, kf, vf, got, want, bound
     emit("kernel_k3", cases=len(errs), launches=FA.LAUNCHES - before,
          max_abs_err=errs)
+    return max(e["err"] for e in errs.values())
+
+
+def _k3_bwd_cases():
+    """(B, Sq, Skv, H, G, D, causal, window): the training shapes of the
+    K3 models, rows that see no key, and ``_k3_cases``' uneven shapes."""
+    yield 4, 2048, 2048, 16, 16, 64, True, None       # qwen1.5-0.5b train
+    yield 4, 2048, 2048, 25, 5, 64, True, 1024        # hymba-1.5b, window
+    yield 4, 2048, 2048, 25, 5, 64, True, None        # hymba-1.5b, global
+    yield 4, 2048, 2048, 32, 8, 128, True, 4096       # mixtral-8x7b
+    yield 4, 1500, 1500, 20, 20, 64, False, None      # whisper encoder
+    yield 4, 440, 1500, 20, 20, 64, False, None       # whisper cross
+    yield 1, 90, 20, 2, 1, 32, False, 8               # rows 27.. see no key
+    for case in _k3_cases():
+        if case[1] != 2048:
+            yield case
+
+
+def _ratio(err, bound):
+    """The largest err / bound, 0 where both are 0 (a row that sees no
+    key: no gradient on either side)."""
+    return float(torch.where(err == 0, torch.zeros_like(err),
+                             err / bound).max())
+
+
+def _k3_bwd_fd(FA, dev):
+    """The float32 kernel's gradient, through ``flash_attention`` as a
+    model takes it, against central differences of the plain forward in
+    float64 at a tiny shape, along 4 random directions: |finite
+    difference - <grad, direction>| within 1e-5 of sum |grad| |direction|
+    (the kernel's float32 sums over at most 24 terms are about 1e-6 of
+    it; the float64 difference with step 1e-4 is off by about 1e-8)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shapes = ((1, 24, 4, 16), (1, 24, 2, 16), (1, 24, 2, 16))
+    x = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    w = torch.randn(shapes[0], generator=gen, device=dev)
+    t = [a.clone().requires_grad_(True) for a in x]
+    o = FA.flash_attention(*t, causal=True, window=10)
+    grads = torch.autograd.grad((o * w).sum(), t)
+    x64 = [a.double() for a in x]
+
+    def f(xs):
+        return float((FA.flash_attention_ref(*xs, causal=True, window=10)
+                      * w.double()).sum())
+    worst, eps = 0.0, 1e-4
+    for _ in range(4):
+        d = [torch.randn(a.shape, generator=gen, device=dev).double()
+             for a in x]
+        fd = (f([a + eps * b for a, b in zip(x64, d)])
+              - f([a - eps * b for a, b in zip(x64, d)])) / (2 * eps)
+        an = sum(float((g.double() * b).sum()) for g, b in zip(grads, d))
+        mag = sum(float((g.double().abs() * b.abs()).sum())
+                  for g, b in zip(grads, d))
+        worst = max(worst, abs(fd - an) / mag)
+    if not worst <= 1e-5:
+        raise AssertionError(f"K3 backward: finite differences off by "
+                             f"{worst:.3g} of sum |grad||direction|")
+    return worst
+
+
+def phase_kernel_k3_bwd(dev):
+    """K3's backward against its plain version ``flash_attention_bwd_ref``
+    run in float64 on the same CUDA tensors (q, k, v, dO and the
+    forward's o and log-sum-exp), within ``bwd_error_bound``, float32 and
+    bfloat16 (bfloat16: on the widened inputs, the rounding of dq, dk and
+    dv added); the forward's log-sum-exp against ``lse_ref`` in float64
+    within ``lse_error_bound`` (+inf exactly where a row sees no key);
+    then one finite-difference check of the float32 gradient."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(12)
+    errs, before = {}, FA.BWD_LAUNCHES
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Sq, Skv, H, G, D, causal, window in _k3_bwd_cases():
+            q, do = (torch.randn((B, Sq, H, D), generator=gen, device=dev)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, Skv, G, D), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                                window=window)
+            got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                         window=window)
+            sync()
+            name = (f"B{B}_Sq{Sq}_Skv{Skv}_H{H}_G{G}_D{D}"
+                    f"{'_causal' if causal else ''}"
+                    f"{f'_w{window}' if window else ''}"
+                    f"{'_bf16' if dtype == torch.bfloat16 else ''}")
+            l64 = FA.lse_ref(q.double(), k.double(), causal=causal,
+                             window=window)
+            fin = torch.isfinite(l64)
+            if not bool((torch.isinf(lse) == ~fin).all()):
+                raise AssertionError(f"K3 {name}: lse is not +inf exactly "
+                                     f"where a row sees no key")
+            lse_ratio = _ratio((lse.double() - l64).abs().where(fin, 0.0),
+                               FA.lse_error_bound(q.float(), k.float(), l64,
+                                                  causal=causal,
+                                                  window=window))
+            want = FA.flash_attention_bwd_ref(
+                *(x.double() for x in (q, k, v, o, do)), lse.double(),
+                causal=causal, window=window)
+            bound = FA.bwd_error_bound(
+                q.float(), k.float(), v.float(), o.float(), do.float(), lse,
+                causal=causal, window=window,
+                refs=want if dtype == torch.bfloat16 else None)
+            ratios = [_ratio((a.double() - b).abs(), c)
+                      for a, b, c in zip(got, want, bound)]
+            err = max(float((a.double() - b).abs().max())
+                      for a, b in zip(got, want))
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            if not (finite and lse_ratio <= 1.0 and max(ratios) <= 1.0) \
+                    or any(a.dtype != dtype for a in got):
+                raise AssertionError(
+                    f"K3 backward {name}: finite={finite} lse "
+                    f"{lse_ratio:.3g}x its bound, dq dk dv "
+                    f"{[round(r, 4) for r in ratios]}x bwd_error_bound")
+            errs[name] = {"err": err, "of_bound": max(ratios),
+                          "lse_of_bound": lse_ratio}
+            del q, k, v, do, o, lse, got, want, bound, l64
+    fd = _k3_bwd_fd(FA, dev)
+    emit("kernel_k3_bwd", cases=len(errs),
+         launches=FA.BWD_LAUNCHES - before, finite_difference=fd,
+         phase_s=time.perf_counter() - t0, max_abs_err=errs)
     return max(e["err"] for e in errs.values())
 
 
@@ -2567,6 +2758,299 @@ def llama_prefill(dev):
 # many streams: the multi-stream run, the serving pool, the cold tier
 # ---------------------------------------------------------------------------
 
+def _leaf_errs(got, want):
+    """Per leaf (in ``optim.adamw.leaves`` order): max |got - want| as a
+    share of max |want|."""
+    return [float((a.float().cpu() - b.float().cpu()).abs().max()
+                  / b.float().abs().max().clamp_min(1e-30).cpu())
+            for a, b in zip(got, want)]
+
+
+def _train_step(step_fn, state, batch):
+    """One train step, ending in a host read of its loss."""
+    state, met = step_fn(state, batch)
+    return state, {k: float(v) for k, v in met.items()}
+
+
+def phase_train(dev):
+    """Training on the card, counts set to 0 just before the steps and
+    read just after: qwen1.5-0.5b at its published config (24 layers,
+    d_model 1,024, 16 heads of 64, vocab 151,936, tied embeddings),
+    random weights from a seed, through the launcher's step
+    (``launch.train.train_options``: remat none, float32) at batch 4 x
+    2,048 tokens for TRAIN["steps"] steps, each K3's forward and its
+    backward kernel once per layer. Then ``train_grad_check`` and
+    ``train_resume``."""
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import make_batch_iter
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = get("qwen1.5-0.5b")
+    model = Model(cfg, LT.train_options(TRAIN["seq"]))
+    state, init_s = timed(lambda: init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = _n_params(state["params"])
+    step_fn = make_train_step(model, peak_lr=TRAIN["lr"], warmup=LT.WARMUP,
+                              total_steps=TRAIN["steps"])
+    it = make_batch_iter(cfg, global_batch=TRAIN["batch"],
+                         seq_len=TRAIN["seq"], seed=0, device=dev)
+    batches = [next(it) for _ in range(TRAIN["steps"])]
+    torch.cuda.reset_peak_memory_stats()
+    FA.LAUNCHES = FA.WINDOW_LAUNCHES = FA.BWD_LAUNCHES = 0
+    metrics, secs, per_step = [], [], []
+    for batch in batches:
+        f0, b0 = FA.LAUNCHES, FA.BWD_LAUNCHES
+        (state, met), sec = timed(lambda: _train_step(step_fn, state, batch))
+        metrics.append(met)
+        secs.append(sec)
+        per_step.append([FA.LAUNCHES - f0, FA.BWD_LAUNCHES - b0])
+    fwd, bwd = FA.LAUNCHES, FA.BWD_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [m["loss"] for m in metrics]
+    per_layer = [cfg.n_layers, cfg.n_layers]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
+            or any(p != per_layer for p in per_step):
+        raise AssertionError(f"train: losses {losses}, K3 launches per step "
+                             f"{per_step} (want {per_layer})")
+    step_s = statistics.median(secs[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    grads = train_grad_check(dev, cfg)
+    resume = train_resume(dev)
+    emit("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, params=n_params, batch=TRAIN["batch"],
+         seq=TRAIN["seq"], microbatches=1, remat="none",
+         compute_dtype="float32", lr=TRAIN["lr"], init_s=init_s,
+         losses=losses, gnorms=[m["gnorm"] for m in metrics],
+         lrs=[m["lr"] for m in metrics], step_s=secs,
+         first_step_s=secs[0], step_s_median=step_s,
+         tok_per_s=tokens / step_s, peak_mem_bytes=peak,
+         k3_launches_per_step=per_step, k3_fwd_launches=fwd,
+         k3_bwd_launches=bwd, grad_check=grads, resume=resume,
+         phase_s=time.perf_counter() - t0)
+    return {"fwd_launches": fwd, "bwd_launches": bwd, "step_s": step_s}
+
+
+def train_grad_check(dev, cfg):
+    """The first step's loss and per-leaf gradients at full width cut to
+    TRAIN_CHECK_LAYERS layers, through K3 both ways, against the same
+    step with the attention on its plain version (``plain_attention``,
+    autograd through it): the loss within TRAIN_LOSS_TOL relative, each
+    leaf within TRAIN_GRAD_TOL of its largest magnitude."""
+    import dataclasses
+    from repro_torch.data.tokens import make_batch_iter
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import value_and_grad
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    model = Model(cut, LT.train_options(TRAIN["seq"]))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = next(make_batch_iter(cut, global_batch=TRAIN["batch"],
+                                 seq_len=TRAIN["seq"], seed=0, device=dev))
+    b0 = FA.BWD_LAUNCHES
+    loss, grads = value_and_grad(model, params, batch)
+    launches = FA.BWD_LAUNCHES - b0
+    with plain_attention():
+        loss_p, grads_p = value_and_grad(model, params, batch)
+    rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    errs = _leaf_errs(grads, grads_p)
+    del params, grads, grads_p
+    torch.cuda.empty_cache()
+    if launches != TRAIN_CHECK_LAYERS or not rel <= TRAIN_LOSS_TOL \
+            or not max(errs) <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"train grads vs plain attention: loss rel "
+                             f"{rel}, leaves {errs}, K3 backward "
+                             f"launches {launches}")
+    return {"layers": TRAIN_CHECK_LAYERS, "loss": float(loss),
+            "loss_rel_err": rel, "grad_rel_err_max": max(errs),
+            "grad_rel_err": errs, "tol": TRAIN_GRAD_TOL}
+
+
+def train_resume(dev):
+    """A reduced qwen1.5-0.5b train state after 4 of the launcher's steps
+    on the card, saved under ``build/`` and restored: every leaf equal,
+    dtype and bits; then the launcher resumes from it to step 6."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import make_batch_iter
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    d = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(d, ignore_errors=True)
+    cfg = get("qwen1.5-0.5b").reduced()
+    model = Model(cfg, LT.train_options(64))
+    state = init_train_state(model, torch.Generator().manual_seed(0), dev)
+    step_fn = make_train_step(model, peak_lr=TRAIN["lr"], warmup=LT.WARMUP,
+                              total_steps=6)
+    it = make_batch_iter(cfg, global_batch=4, seq_len=64, seed=0, device=dev)
+    for _ in range(4):
+        state, _ = step_fn(state, next(it))
+    CK.save(str(d), state, step=4)
+    back = CK.restore(str(d), 4, device=dev)
+    a, b = leaves(state), leaves(back)
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(a, b))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        losses = LT.main(["--device", str(dev), "--arch", "qwen1.5-0.5b",
+                          "--reduced", "--steps",
+                          "6", "--batch", "4", "--seq", "64", "--lr",
+                          str(TRAIN["lr"]), "--ckpt-dir", str(d),
+                          "--ckpt-every", "2", "--log-every", "1"])
+    log = out.getvalue()
+    final = CK.restore(str(d), 6, device=dev)
+    if not same or "resumed from step 4" not in log or len(losses) != 2 \
+            or not all(np.isfinite(losses)) or int(final["step"]) != 6 \
+            or int(final["opt"]["count"]) != 6:
+        raise AssertionError(f"train resume: restored equal={same}, "
+                             f"log {log!r}")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"leaves": len(a), "restored_bit_equal": same,
+            "resumed_losses": losses}
+
+
+def phase_train_families(dev):
+    """One train step each of reduced whisper-large-v3 (K3 non-causal in
+    the encoder and the cross attention, both ways), mixtral-8x7b (a
+    window of 32 over 64 tokens, the MoE aux loss) and internvl2-26b
+    (``embeds``) on the card against the same step on the card machine's
+    CPU (plain versions), weights from one seed on the CPU: the loss, and
+    the step's loss and clipped norm, within FAMILY_TOL relative, each
+    gradient leaf within FAMILY_TOL of its largest magnitude. Then
+    reduced mamba2-370m on the card must refuse the gradient by name (K4
+    has no backward yet)."""
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import make_batch_iter
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import (init_train_state, make_train_step,
+                                           value_and_grad)
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in ("whisper-large-v3", "mixtral-8x7b", "internvl2-26b"):
+        cfg = get(arch).reduced()
+        model = Model(cfg, LT.train_options(FAMILY_SEQ))
+        runs = []
+        for d in (cpu, dev):
+            state = init_train_state(model, torch.Generator().manual_seed(0),
+                                     d)
+            batch = next(make_batch_iter(cfg, global_batch=2,
+                                         seq_len=FAMILY_SEQ, seed=0,
+                                         device=d))
+            f0, b0 = FA.LAUNCHES, FA.BWD_LAUNCHES
+            loss, grads = value_and_grad(model, state["params"], batch)
+            _, met = _train_step(make_train_step(
+                model, peak_lr=TRAIN["lr"], warmup=LT.WARMUP,
+                total_steps=10), state, batch)
+            runs.append((float(loss), grads, met,
+                         [FA.LAUNCHES - f0, FA.BWD_LAUNCHES - b0]))
+        (lc, gc_, mc, _), (lg, gg, mg, launches) = runs
+        rel = max(abs(lg - lc) / abs(lc),
+                  *(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss",
+                                                             "gnorm")))
+        errs = _leaf_errs(gg, gc_)
+        if not rel <= FAMILY_TOL or not max(errs) <= FAMILY_TOL \
+                or min(launches) == 0:
+            raise AssertionError(f"train {arch}: rel {rel}, leaves {errs}, "
+                                 f"K3 launches {launches}")
+        out[arch] = {"loss": lg, "loss_cpu": lc, "rel_err": rel,
+                     "grad_rel_err_max": max(errs), "gnorm": mg["gnorm"],
+                     "k3_launches": launches}
+    cfg = get("mamba2-370m").reduced()
+    model = Model(cfg, LT.train_options(FAMILY_SEQ))
+    state = init_train_state(model, torch.Generator().manual_seed(0), dev)
+    batch = next(make_batch_iter(cfg, global_batch=2, seq_len=FAMILY_SEQ,
+                                 seed=0, device=dev))
+    try:
+        value_and_grad(model, state["params"], batch)
+        refused = ""
+    except RuntimeError as e:       # the refusal this check expects
+        refused = str(e)
+    if "has no backward" not in refused or "SSD" not in refused:
+        raise AssertionError(f"mamba2 on the card did not refuse the "
+                             f"gradient by name: {refused!r}")
+    emit("train_families", tol=FAMILY_TOL, seq=FAMILY_SEQ, families=out,
+         mamba2_refusal=refused)
+    return out
+
+
+def phase_time_k3_bwd(dev):
+    """K3's backward at the training shapes (``K3_BWD_TIME``), float32
+    and bfloat16: the kernel, its plain version and the library's
+    backward (``scaled_dot_product_attention``'s, through
+    ``torch.autograd.grad``), CUDA-event medians, beside its launches per
+    train step and its bound: the five products of the gradient (2.5
+    times the forward's QK^T and PV) over the pairs the mask lets
+    through, 2 flops a MAC, at the card's peak for the operands' type
+    (float32 at 3xTF32, three TF32 products for each float32 one on the
+    tensor cores, as K3's forward is bounded; bfloat16 at the dense bf16
+    rate), or its bytes (q, k, v, o, dO and lse read once, dq, dk and dv
+    written once) at HBM bandwidth, whichever is larger. Also, as a
+    second number, the bound at the FP32 CUDA cores' rate, the
+    arithmetic the kernel uses today."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for name, ((B, Sq, Skv, H, G, D, causal, window), per_step) in \
+            K3_BWD_TIME.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn((B, Sq, H, D), generator=gen, device=dev)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, Skv, G, D), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                                window=window)
+            visible = int(FA._visible(Sq, Skv, causal, window, dev).sum())
+            flops = 10 * D * visible * B * H
+            nbytes = (3 * q.numel() + 2 * k.numel()) * q.element_size() \
+                + (q.numel() + 2 * k.numel()) * q.element_size() \
+                + lse.numel() * 4
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            fp32_ms = flops / FP32_FLOP_PER_S * 1e3
+            op_ms = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
+                     else flops / BF16_FLOP_PER_S) * 1e3
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            lib_o = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=G != H)
+            lib_do = do.transpose(1, 2).contiguous()
+            e = {"dtype": str(dtype).replace("torch.", ""),
+                 "shape": [B, Sq, Skv, H, G, D], "causal": causal,
+                 "launches_per_step": per_step,
+                 "kernel_ms": cuda_ms(lambda: FA.flash_attention_bwd(
+                     q, k, v, o, do, lse, causal=causal, window=window), 20),
+                 "plain_ms": cuda_ms(lambda: FA.flash_attention_bwd_ref(
+                     q, k, v, o, do, lse, causal=causal, window=window), 5),
+                 "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                     lib_o, (qt, kt, vt), lib_do, retain_graph=True), 20),
+                 "flops": flops, "bytes": nbytes,
+                 "bound_ms": max(op_ms, byte_ms),
+                 "bound_by": "operations" if op_ms > byte_ms else "bytes",
+                 "bound_fp32_cores_ms": max(fp32_ms, byte_ms)}
+            e["per_step_ms"] = per_step * e["kernel_ms"]
+            out[name if dtype == torch.float32 else name + "_bf16"] = e
+            del q, k, v, do, o, lse, qt, kt, vt, lib_o, lib_do
+    emit("time_k3_bwd", flash_attention_bwd=out)
+    return out["qwen_train"]
+
+
 def _k1_counts():
     from repro_torch.kernels import warehouse_agg as K
     from repro_torch.warehouse import query as Q
@@ -3646,6 +4130,7 @@ def run(dev) -> None:
     k1_err = phase_kernel(dev)
     k2_err = phase_kernel_k2(dev)
     k3_err = phase_kernel_k3(dev)
+    k3b_err = phase_kernel_k3_bwd(dev)
     k4_err = phase_kernel_k4(dev)
     m = phase_main(dev)
     errs = phase_check(m)
@@ -3658,12 +4143,15 @@ def run(dev) -> None:
     sh = phase_serve_hybrid(dev)
     sm = phase_serve_moe(dev)
     se = phase_serve_encdec(dev)
+    tr = phase_train(dev)
+    phase_train_families(dev)
     per = phase_time(m, errs)
     k2, k3 = phase_time_k2_k3(dev)
     k4 = phase_time_k4(dev)
     h3, h4 = phase_time_hybrid(dev)
     m3 = phase_time_moe(dev)
     e3 = phase_time_encdec(dev)
+    k3b = phase_time_k3_bwd(dev)
     mm = phase_multi(dev, m)
     multi_err = phase_multi_check(mm)
     pp = phase_pool(dev, t)
@@ -3711,7 +4199,8 @@ def run(dev) -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:67",
-        "launches": t["launches"]["flash_attention"] + sv["launches"],
+        "launches": (t["launches"]["flash_attention"] + sv["launches"]
+                     + tr["fwd_launches"]),
         "max_abs_err": k3_err,
         "ms": k3["kernel_ms"],
         "plain_ms": k3["plain_ms"],
@@ -3730,6 +4219,19 @@ def run(dev) -> None:
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": ("XLA's gradient of src/repro/models/attention.py:50 "
+                     "(no Pallas kernel)"),
+        "launches": tr["bwd_launches"],
+        "max_abs_err": k3b_err,
+        "ms": k3b["kernel_ms"],
+        "plain_ms": k3b["plain_ms"],
+        "bound_ms": k3b["bound_ms"],
+        "bound_by": k3b["bound_by"],
+        "library_ms": k3b["library_ms"],
     }] + [{
         "name": f"flash_attention[hymba-1.5b {kind}]",
         "route": "cuda",

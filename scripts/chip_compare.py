@@ -17,8 +17,11 @@ serve prefill (B=4, S=2048, H=G=16, D=64, causal) and at the
 Transform's shape (B=30, S=16, H=G=4, D=8), K4 at the mamba2-370m serve
 prefill (B=4, S=2048, H=32, P=64, G=1, N=128, Q=256), each in float32
 and, where the tree's wrapper takes them, with bfloat16 operands (K4:
-x, dt, B and C). Prints one JSON line per tree, then the card's name and
-power limit.
+x, dt, B and C). Then the serve path end to end: qwen1.5-0.5b at its
+published config in float32 (random weights from seed 0), a warm prefill
+of 4 x 2,048 tokens and 7 decode steps from its cache, each the median
+of 3 on the host clock ending in a host read. Prints one JSON line per
+tree, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -60,6 +63,43 @@ B, S, H, P, G, N, Q = C.SSD_TIME
 out["k4"] = C.cuda_ms(lambda: SSD.ssd_scan(*args, chunk=Q), 30)
 bf = [a if i == 2 else a.bfloat16() for i, a in enumerate(args)]
 out["k4_bf16"] = time_or_none(lambda: SSD.ssd_scan(*bf, chunk=Q), 30)
+del args, bf
+
+import statistics
+import time
+from repro_torch.configs.base import get
+from repro_torch.models.model import Model
+from repro_torch.models.options import RunOptions
+cfg = get("qwen1.5-0.5b")
+model = Model(cfg, RunOptions(remat="none", compute_dtype="float32",
+                              q_chunk=64, kv_chunk=64))
+params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+toks = torch.randint(0, cfg.vocab, (4, 2048), generator=gen, device=dev)
+
+
+def host_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+with torch.no_grad():
+    host_s(lambda: model.prefill(params, {"tokens": toks}, cache_len=2056))
+    pre, dec = [], []
+    for _ in range(3):
+        s, (nxt, cache) = host_s(lambda: model.prefill(
+            params, {"tokens": toks}, cache_len=2056))
+        pre.append(s)
+
+        def decode(nxt=nxt, cache=cache):
+            for _ in range(7):
+                nxt, cache = model.decode_step(params, cache, nxt)
+            return nxt.cpu()
+        dec.append(host_s(decode)[0])
+out["serve_prefill_s"] = statistics.median(pre)
+out["serve_decode7_s"] = statistics.median(dec)
 print(json.dumps(out), flush=True)
 """
 

@@ -112,7 +112,8 @@ def save(path: str, tree, step: Optional[int] = None, keep: int = 3,
     assert _META_KEY not in flat, f"{_META_KEY!r} is a reserved tree key"
     payload = {}
     for k, v in flat.items():
-        arr = np.ascontiguousarray(_host(v))
+        h = _host(v)
+        arr = np.ascontiguousarray(h).reshape(h.shape)   # 0-d stays 0-d
         payload[k] = {"dtype": str(arr.dtype), "shape": list(arr.shape),
                       "data": arr.tobytes()}
     if meta is not None:

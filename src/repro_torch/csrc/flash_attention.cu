@@ -9,6 +9,13 @@
 // keys (the ragged edge past Skv) masked the same way; the output is
 // acc / max(l, 1e-30).
 //
+// Log-sum-exp. On request (a non-null lse, (B,H,Sq) float32) the epilogue
+// also writes each row's log-sum-exp of its scaled scores, m + log(l) with
+// m the running max kept in the scaled domain (q is scaled before the
+// walk): the backward (csrc/flash_attention_bwd.cu) recomputes P as
+// exp(scale q k - lse). The kernel is compiled both ways (the LSE
+// template flag), so without it the serve path's code is unchanged.
+//
 // Bound: operations. At the main path's prefill (B=4, S=2048, H=16,
 // D=64, causal) the causal half of QK^T and PV is 34.4 GFLOP against
 // 34 MB of q, k, v and o. 3xTF32 runs three TF32 products for each
@@ -69,9 +76,12 @@
 // that has seen a visible key, and a row that has not yet seen one
 // carries m = -1e30 and takes p = 1 terms that the first visible key
 // washes out (corr = exp(-1e30 - m) = 0), so skipping changes no row
-// that has a visible key. A row with no visible key at all is outside
-// K3's contract (its value there depends on the block size); here it is
-// 0.
+// that has a visible key. A row with no visible key at all (its running
+// max never leaves -1e30) is outside K3's contract when no log-sum-exp is
+// asked for (its value there depends on the block size, as the TPU
+// kernel's does); with the log-sum-exp it is written as 0 with lse =
+// +inf, and the backward gives it P = 0: no gradient, nothing to dk and
+// dv.
 //
 // Interface: plain C, loaded with ctypes. flash_attention_fwd() launches
 // on the given stream, does not synchronise, and returns
@@ -89,6 +99,7 @@ struct FaArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                 // (B, H, Sq) or null
   int B, Sq, Skv, H, G, D;
   int causal;
   int window;                 // <= 0: no window
@@ -222,7 +233,7 @@ __device__ __forceinline__ void split_tile(const float* stage,
   fence_async_smem();
 }
 
-template <typename In, int DP, int BK, int WG>
+template <typename In, int DP, int BK, int WG, bool LSE>
 __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
   using T = Tiles<DP, BK, WG>;
   constexpr int THREADS = WG * 128;
@@ -409,7 +420,14 @@ __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
     lr += __shfl_xor_sync(FULL_MASK, lr, 2);
     const int qpos = row0 + 8 * r;
     if (qpos >= a.Sq) continue;
-    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    // a row that has seen no visible key: 0 and lse = +inf where the
+    // log-sum-exp is written; the serve path's epilogue stays as it was
+    // (the select slowed its float32 forward by about 2%: PERF.md, §6)
+    const bool blind = LSE && !(m[r] > NEG_INF);
+    const float inv = blind ? 0.f : 1.f / fmaxf(lr, 1e-30f);
+    if (LSE && t == 0)
+      a.lse[((int64_t)b * a.H + h) * a.Sq + qpos] =
+          blind ? INFINITY : m[r] + logf(lr);
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
@@ -421,10 +439,10 @@ __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
   }
 }
 
-template <typename In, int DP, int WG>
-static int launch(const FaArgs& a, cudaStream_t stream) {
+template <typename In, int DP, int WG, bool LSE>
+static int launch_lse(const FaArgs& a, cudaStream_t stream) {
   constexpr int BK = DP == 128 ? 32 : 64;
-  auto kern = fa_fwd_kernel<In, DP, BK, WG>;
+  auto kern = fa_fwd_kernel<In, DP, BK, WG, LSE>;
   const size_t smem = Tiles<DP, BK, WG>::bytes();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -434,6 +452,13 @@ static int launch(const FaArgs& a, cudaStream_t stream) {
   dim3 grid((a.Sq + 64 * WG - 1) / (64 * WG), a.H, a.B);
   kern<<<grid, WG * 128, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the kernel with the log-sum-exp's stores compiled in only where asked
+template <typename In, int DP, int WG>
+static int launch(const FaArgs& a, cudaStream_t stream) {
+  return a.lse ? launch_lse<In, DP, WG, true>(a, stream)
+               : launch_lse<In, DP, WG, false>(a, stream);
 }
 
 template <typename In, int DP>
@@ -454,11 +479,13 @@ static int launch_dims(const FaArgs& a, cudaStream_t stream) {
 }
 
 // q (B,Sq,H,D), k and v (B,Skv,G,D), o (B,Sq,H,D), all contiguous on the
-// device, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1). D <= 128,
+// device, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1); lse (B,H,Sq)
+// float32, or null for no log-sum-exp. D <= 128,
 // H % G == 0, Skv >= 1. Returns a cudaError_t (0 on success); -1 for a
 // D the kernel does not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int Sq,
+                                   const void* v, void* o, float* lse,
+                                   int B, int Sq,
                                    int Skv, int H, int G, int D, int causal,
                                    int window, int bf16_in, float scale,
                                    cudaStream_t stream) {
@@ -466,7 +493,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const int lanes = bf16_in ? 8 : 4;          // values in 16 bytes
   const int vec = D % lanes == 0 && ((uintptr_t)k % 16) == 0 &&
                   ((uintptr_t)v % 16) == 0;
-  FaArgs a{q, k, v, o, B, Sq, Skv, H, G, D, causal, window, scale, vec};
+  FaArgs a{q, k, v, o, lse, B, Sq, Skv, H, G, D, causal, window, scale, vec};
   return bf16_in ? launch_dims<bf16>(a, stream)
                  : launch_dims<float>(a, stream);
 }

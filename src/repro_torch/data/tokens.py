@@ -1,6 +1,7 @@
 """Token data for the LM paths: the port's copy of ``repro/data/tokens.py``'s
-deterministic synthetic corpus (zipfian unigrams with a learnable bigram
-structure). Numpy, so both packages draw the same tokens from a seed.
+training batch iterator (``make_batch_iter``) and deterministic
+synthetic corpus (zipfian unigrams with a learnable bigram structure).
+Numpy, so both packages draw the same tokens from a seed.
 
 The reference draws each unigram token with ``rng.choice(vocab,
 p=unigram)``, which rebuilds the unigram's CDF on every call. The port
@@ -11,7 +12,12 @@ draws through the same CDF, so the same tokens, without the per-step
 work over the whole vocabulary."""
 from __future__ import annotations
 
+from typing import Dict, Iterator
+
 import numpy as np
+import torch
+
+from repro_torch.device import resolve
 
 
 class SyntheticCorpus:
@@ -44,3 +50,34 @@ class SyntheticCorpus:
             uni = self._unigram(rng, batch)
             out[:, t] = np.where(use_bigram, succ_pick, uni)
         return out
+
+
+def make_batch_iter(cfg, *, global_batch: int, seq_len: int, seed: int = 0,
+                    device=None) -> Iterator[Dict[str, torch.Tensor]]:
+    """Yields the training batches of ``Model.loss`` on ``device``
+    (``None`` means CUDA), drawn as the reference's ``make_batch_iter``
+    draws them: the corpus's tokens for step 0, 1, ..., and for the
+    frontend stubs ``default_rng(seed + 1)`` normals, the encoder's
+    (B, seq_len, d_model) ``frames`` with min(max_target_len, seq_len)
+    decoder tokens, or a vlm's (B, F, d_model) ``embeds`` with seq_len - F
+    tokens. The reference's mesh and shardings have no counterpart on
+    one card."""
+    dev = resolve(device)
+    corpus = SyntheticCorpus(cfg.vocab, seed)
+    rng = np.random.default_rng(seed + 1)
+    step = 0
+    while True:
+        if cfg.family == "encdec":
+            dec = min(cfg.max_target_len, seq_len)
+            b = {"frames": rng.normal(0, 1, (global_batch, seq_len,
+                                             cfg.d_model)).astype(np.float32),
+                 "tokens": corpus.batch(global_batch, dec, step)}
+        elif cfg.frontend_tokens:
+            F = cfg.frontend_tokens
+            b = {"embeds": rng.normal(0, 1, (global_batch, F, cfg.d_model)
+                                      ).astype(np.float32),
+                 "tokens": corpus.batch(global_batch, seq_len - F, step)}
+        else:
+            b = {"tokens": corpus.batch(global_batch, seq_len, step)}
+        yield {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        step += 1

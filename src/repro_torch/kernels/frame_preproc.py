@@ -24,6 +24,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.nograd import refuse_grad
+
 LAUNCHES = 0
 KERNEL_DTYPES = {torch.float32: "downsample_f32",
                  torch.bfloat16: "downsample_bf16"}
@@ -76,6 +78,7 @@ def downsample(frame: torch.Tensor, factor: int, *,
         return downsample_ref(frame, factor)
     if frame.device.type != "cuda":
         raise ValueError(f"no kernel for device {frame.device}")
+    refuse_grad("the downsample kernel (K2)", frame)
     if frame.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the downsample kernel takes float32 and bfloat16 "
                         f"frames, not {frame.dtype}")

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import (BF16_ROUND, DTYPES,
                                                  PRODUCT_ERR, tf32_products)
+from repro_torch.kernels.nograd import refuse_grad
 
 LAUNCHES = 0
 MAX_HEAD_DIM = 64       # P: the kernels' x, y and state tiles
@@ -383,7 +384,9 @@ def scratch(x, Bm, chunk: int) -> Dict[str, torch.Tensor]:
 def launch(name: str, x, dt, A, Bm, Cm, init_state, y, state,
            scr: Dict[str, torch.Tensor], chunk: int) -> None:
     """Launch one pass (a name in ``PASSES``) on the current stream and
-    raise on its launch error. Counts nothing (``ssd_scan`` counts)."""
+    raise on its launch error. Counts nothing (``ssd_scan`` counts).
+    Refuses inputs that need a gradient (``refuse_grad``)."""
+    refuse_grad("the SSD kernel (K4)", x, dt, A, Bm, Cm, init_state)
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     err = _lib()[name](
@@ -489,6 +492,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
                             init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    refuse_grad("the SSD kernel (K4)", x, dt, A, Bm, Cm, init_state)
     _check(x, dt, A, Bm, Cm, chunk, init_state)
     B, S, H, P = x.shape
     N = Bm.shape[3]

@@ -39,6 +39,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.nograd import refuse_grad
+
 CMP = {
     "eq": lambda a, b: a == b,
     "ne": lambda a, b: a != b,
@@ -472,6 +474,8 @@ def fused_segment_agg(cols, n_rows: int, fvals, spec: FusedAggSpec) -> Dict:
         raise ValueError(f"no kernel for device {v.device}")
     n_rows = int(n_rows)
     names = spec.columns()
+    refuse_grad("the fused_segment_agg kernel (K1)",
+                *(cols.get(n) for n in names))
     width = int(v.shape[1]) if v.ndim == 2 else 0
     check_kernel(spec, width)
     for name in names:

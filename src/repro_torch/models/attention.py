@@ -3,8 +3,9 @@ port of ``repro/models/attention.py``.
 
 - ``mha``: training / prefill attention. On a CUDA tensor it is kernel
   K3 (``kernels/flash_attention.py``), which streams over kv tiles the
-  way the reference's chunked scan streams over kv chunks; on the CPU
-  it is K3's plain version, one masked softmax.
+  way the reference's chunked scan streams over kv chunks, and K3's
+  backward kernel when autograd needs the gradient; on the CPU it is
+  K3's plain version, one masked softmax, which autograd differentiates.
 - ``decode_attend``: one query step against a (possibly ring-buffer) kv
   cache with per-slot absolute positions, plain PyTorch (the reference
   has no kernel for it).

@@ -64,6 +64,18 @@ def lm_logits(x, head, vocab: int):
     return logits
 
 
+def softmax_xent(logits, labels, vocab: int):
+    """Mean next-token cross entropy in float32: logits (B,S,Vp), their
+    padded columns at -1e30 (``lm_logits``), labels (B,S) integer. The
+    reference's formula: log-sum-exp minus the gold logit. ``vocab`` is
+    the reference's argument; the padded columns need no further mask."""
+    del vocab
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
 def sinusoid_div(d: int, device=None):
     """(d/2,) float32 frequencies exp(-2i log(10000) / d), the log and the
     division in float32 as the reference computes them."""

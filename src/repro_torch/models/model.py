@@ -1,4 +1,4 @@
-"""Model facade: init / forward / prefill / decode and the cache, the
+"""Model facade: init / loss / forward / prefill / decode and the cache, the
 port of ``repro/models/model.py`` for every family of the zoo (the
 encoder-decoder one through ``models/whisper.py``). The reference's
 ``input_specs`` and ``batch_shardings`` are XLA and mesh stand-ins with
@@ -112,6 +112,20 @@ class Model:
         return {"frames": torch.as_tensor(batch["frames"],
                                           device=params["embed"].device),
                 "tokens": self._tokens(params, batch["tokens"])}
+
+    def loss(self, params, batch):
+        """The training loss of ``batch`` (the reference's ``Model.loss``):
+        ``{"tokens"}``, with ``"embeds"`` for a vlm and ``"frames"`` for
+        the encoder-decoder family, arrays or tensors, taken to the
+        params' device. A float32 scalar that autograd differentiates."""
+        if self.cfg.family == "encdec":
+            return wp.loss_fn(params, self.cfg, self.opts,
+                              self._encdec_batch(params, batch))
+        b = {"tokens": self._tokens(params, batch["tokens"])}
+        if batch.get("embeds") is not None:
+            b["embeds"] = torch.as_tensor(batch["embeds"],
+                                          device=params["embed"].device)
+        return tf.lm_loss(params, self.cfg, self.opts, b)
 
     def forward_logits(self, params, batch):
         if self.cfg.family == "encdec":

@@ -1,6 +1,7 @@
 """Runtime options (orthogonal to ``ArchConfig``): the port's copy of
 ``repro/models/options.py`` with the fields a one-card run reads, the
-kv cache's dtype and the MoE's capacity factor and token-group size
+kv cache's dtype, the MoE's capacity factor and token-group size, and
+the training knobs (``remat``, ``microbatches``, ``aux_loss_weight``)
 among them. The reference's
 mesh-only knobs (``moe_sharding``, ``fsdp``, ``rules()`` and the like)
 have no counterpart on one card. Also the stated tolerance of logits at
@@ -16,13 +17,16 @@ class RunOptions:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     kv_cache_dtype: str = ""       # "" -> compute_dtype; e.g. float8_e4m3fn
-    remat: str = "full"            # none | full | dots (training only)
+    remat: str = "full"            # none | full | dots (training only;
+                                   # transformer.remat)
     layer_loop: str = "scan"       # scan | unroll: both are a layer loop here
     q_chunk: int = 512             # the reference's attention chunking;
     kv_chunk: int = 1024           # K3 picks its own tiles
     ssd_chunk: int = 256           # SSD chunk length (K4's Q)
+    microbatches: int = 1          # train step: gradient accumulation
     moe_group: int = 0             # GShard token-group size (0 = whole seq)
     capacity_factor: float = 1.25  # MoE expert capacity, of K * S / E
+    aux_loss_weight: float = 0.01  # the MoE load-balance loss in lm_loss
 
 
 # one ulp of bfloat16 relative to the value, at most (8 significant bits)

@@ -22,17 +22,19 @@ them at the product.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssd
 from repro_torch.models.attention import apply_rope, attend, decode_attend
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
-                                       padded_vocab, rms_norm)
+                                       padded_vocab, rms_norm, softmax_xent)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.options import RunOptions
 
@@ -412,18 +414,72 @@ def _block_fwd(lp, x, cfg, opts, *, window, return_cache):
     return y, None, aux
 
 
+# the products whose outputs ``remat="dots"`` keeps (the reference's
+# ``checkpoint_dots`` policy): every matmul, einsum and linear lowers to one
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, mode: str):
+    """``fn`` under the reference's ``_wrap_remat``: ``none`` as it is,
+    ``full`` recomputed in the backward from its inputs
+    (``torch.utils.checkpoint``, non-reentrant), ``dots`` recomputed but
+    for the products' outputs, which are kept (selective checkpointing).
+    Only where autograd records: when no argument needs a gradient (a
+    prefill, a forward under ``torch.no_grad``) ``fn`` runs as it is."""
+    if mode not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, not {mode!r}")
+    if mode == "none":
+        return fn
+    kw = {} if mode == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _dots_policy)}
+
+    def wrapped(*args, **kwargs):
+        if not (torch.is_grad_enabled() and _needs_grad(args)):
+            return fn(*args, **kwargs)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs,
+                               **kw)
+    return wrapped
+
+
+def _needs_grad(args) -> bool:
+    """A tensor among ``args`` (dicts searched) requires a gradient."""
+    return any(_needs_grad(a.values()) if isinstance(a, dict) else
+               isinstance(a, torch.Tensor) and a.requires_grad
+               for a in args)
+
+
+def unbind_layers(tree, L: int) -> list:
+    """The L per-layer dicts of a (nested) dict of leaves stacked on a
+    leading L axis, each leaf unbound once: autograd then stacks the
+    layers' gradients in one step instead of adding one full-size stack
+    per layer, as indexing each layer would."""
+    cols = {k: (unbind_layers(v, L) if isinstance(v, dict)
+                else torch.unbind(v)) for k, v in tree.items()}
+    return [{k: c[li] for k, c in cols.items()} for li in range(L)]
+
+
 def run_stack(params, x, cfg: ArchConfig, opts: RunOptions, *,
               return_cache: bool = False):
     """Forward through all layers; returns (x, cache | None, aux) with
     each cache entry (k and v, or the ssm state and conv caches) stacked
-    on L."""
+    on L. Each layer runs under ``remat(opts.remat)`` when there is no
+    cache to return (training)."""
     check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
-    for li in range(cfg.n_layers):
-        x, c, a = _block_fwd(_layer(params, li), x, cfg, opts,
-                             window=_layer_window(cfg, li),
-                             return_cache=return_cache)
+    for li, lp in enumerate(unbind_layers(params["layers"], cfg.n_layers)):
+        block = functools.partial(_block_fwd, cfg=cfg, opts=opts,
+                                  window=_layer_window(cfg, li),
+                                  return_cache=return_cache)
+        if not return_cache:
+            block = remat(block, opts.remat)
+        x, c, a = block(lp, x)
         aux = aux + a
         caches.append(c)
     cache = ({k: torch.stack([c[k] for c in caches]) for k in caches[0]}
@@ -484,6 +540,20 @@ def lm_forward(params, cfg: ArchConfig, opts: RunOptions, tokens,
     x, cache, aux = run_stack(params, x, cfg, opts, return_cache=return_cache)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return lm_logits(x, _head(params, cfg), cfg.vocab), cache, aux
+
+
+def lm_loss(params, cfg: ArchConfig, opts: RunOptions, batch):
+    """The reference's ``lm_loss``: batch {"tokens" (B,S), optional
+    "embeds" (B,F,d)}; logit position F+i predicts tokens[:, i+1]; the
+    mean cross entropy plus ``opts.aux_loss_weight`` times the MoE aux
+    loss. A float32 scalar."""
+    tokens = batch["tokens"]
+    embeds = batch.get("embeds")
+    logits, _, aux = lm_forward(params, cfg, opts, tokens, embeds)
+    F_ = 0 if embeds is None else embeds.shape[1]
+    S = tokens.shape[1]
+    loss = softmax_xent(logits[:, F_:F_ + S - 1], tokens[:, 1:], cfg.vocab)
+    return loss + opts.aux_loss_weight * aux
 
 
 def lm_prefill(params, cfg: ArchConfig, opts: RunOptions, tokens,

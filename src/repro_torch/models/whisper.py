@@ -38,10 +38,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attend, decode_attend, mha
 from repro_torch.models.layers import (embed_tokens, layer_norm, lm_logits,
                                        padded_vocab, sinusoid_div,
-                                       sinusoidal_positions)
+                                       sinusoidal_positions, softmax_xent)
 from repro_torch.models.options import RunOptions
 from repro_torch.models.transformer import (ParamMeta, _compute_params,
-                                            _stack, write_slot)
+                                            _stack, remat, unbind_layers,
+                                            write_slot)
 
 PM = ParamMeta
 
@@ -108,6 +109,12 @@ def _layer(tree, li: int):
             for k, v in tree.items()}
 
 
+def _remat(opts: RunOptions) -> str:
+    """The reference checkpoints whisper's blocks whole for any remat
+    other than none (``jax.checkpoint`` without a policy)."""
+    return "full" if opts.remat == "dots" else opts.remat
+
+
 def _ln(x, p, cfg: ArchConfig):
     return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
 
@@ -149,11 +156,15 @@ def encode(params, cfg: ArchConfig, opts: RunOptions, frames):
     cdt = getattr(torch, opts.compute_dtype)
     x = frames.to(cdt) + sinusoidal_positions(
         frames.shape[1], cfg.d_model, frames.device).to(cdt)
-    for li in range(cfg.n_enc_layers):
-        lp = _layer(params["enc_layers"], li)
+
+    def block(lp, x):
         xn = _ln(x, lp["ln"], cfg)
         x = x + _attn(lp, xn, xn, cfg, opts, causal=False)
-        x = _ffn(lp, x, cfg)
+        return _ffn(lp, x, cfg)
+
+    block = remat(block, _remat(opts))
+    for lp in unbind_layers(params["enc_layers"], cfg.n_enc_layers):
+        x = block(lp, x)
     return _ln(x, params["enc_ln"], cfg)
 
 
@@ -176,11 +187,22 @@ def decode_train(params, cfg: ArchConfig, opts: RunOptions, tokens,
     cdt = getattr(torch, opts.compute_dtype)
     x = embed_tokens(params["embed"], tokens).to(cdt)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(cdt)
-    for li in range(cfg.n_layers):
-        x = _dec_block(_layer(params["dec_layers"], li), x, enc_out, cfg,
-                       opts)
+    block = remat(lambda lp, x, enc: _dec_block(lp, x, enc, cfg, opts),
+                  _remat(opts))
+    for lp in unbind_layers(params["dec_layers"], cfg.n_layers):
+        x = block(lp, x, enc_out)
     x = _ln(x, params["final_ln"], cfg)
     return lm_logits(x, params["head"], cfg.vocab)
+
+
+def loss_fn(params, cfg: ArchConfig, opts: RunOptions, batch):
+    """The reference's ``loss_fn``: the weights cast to the compute
+    dtype, the frames encoded, the decoder's logits at position i
+    predicting tokens[:, i+1]; the mean cross entropy, float32."""
+    params = _compute_params(params, getattr(torch, opts.compute_dtype))
+    enc_out = encode(params, cfg, opts, batch["frames"])
+    logits = decode_train(params, cfg, opts, batch["tokens"], enc_out)
+    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
 
 
 # ===========================================================================

@@ -6,8 +6,12 @@ mamba2, hymba and mixtral models on the card against the same models on
 the CPU, a short fused run's flight-recorder counters against
 ``obs.telemetry_ref``, and the per-window loop and the optimum on the
 card against the CPU, the reduced whisper on the card against the CPU
-(K3 at whisper's full-size shapes too) and the float8 kv cache's writes
-on the card. ``cuda``-marked: every test
+(K3 at whisper's full-size shapes too), the float8 kv cache's writes
+on the card, K3's backward kernel against its plain version
+(``bwd_error_bound``), gradients through K3 on the card (the kernel's,
+nonzero), the kernels without a backward refusing a gradient by name,
+and one train step of the reduced dense, MoE, vlm and encoder-decoder
+models on the card against the CPU (1e-5). ``cuda``-marked: every test
 skips where no card is visible. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1349,3 +1353,133 @@ def test_float8_cache_on_card(cuda):
         nxt, cache = model.decode_step(params, cache, nxt)
     assert cache["layers"]["k"].dtype == fp8
     assert bool(((nxt >= 0) & (nxt < cfg.vocab)).all())
+
+
+# ------------------------------------------------ K3's backward, training
+K3_BWD_CASES = (
+    # B, Sq, Skv, H, G, D, causal, window
+    (2, 300, 300, 8, 2, 64, True, None),
+    (2, 200, 333, 4, 4, 16, False, None),
+    (1, 500, 500, 8, 4, 64, True, 32),
+    (3, 130, 130, 4, 1, 128, True, None),
+    (1, 300, 333, 4, 2, 128, True, 100),
+    (1, 90, 20, 2, 1, 32, False, 8),            # rows 27.. see no key
+    (1, 1500, 1500, 4, 4, 64, False, None),     # whisper's encoder length
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", K3_BWD_CASES)
+def test_k3_backward_within_its_bound(cuda, case, dtype):
+    """The backward kernel against ``flash_attention_bwd_ref`` in float64
+    on the same inputs and the forward's o and lse, within
+    ``bwd_error_bound`` (bfloat16: plus the outputs' rounding)."""
+    B, Sq, Skv, H, G, D, causal, window = case
+    q, do = (torch.randn((B, Sq, H, D), device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, Skv, G, D), device=cuda).to(dtype)
+            for _ in range(2))
+    o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                        window=window)
+    before = FA.BWD_LAUNCHES
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert FA.BWD_LAUNCHES == before + 1
+    want = FA.flash_attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
+                                      lse.double(), causal=causal,
+                                      window=window)
+    bound = FA.bwd_error_bound(q.float(), k.float(), v.float(), o.float(),
+                               do.float(), lse, causal=causal, window=window,
+                               refs=want if dtype == torch.bfloat16 else None)
+    for a, b, c in zip(got, want, bound):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        assert bool(((a.double() - b).abs() <= c).all())
+    blind = ~FA._visible(Sq, Skv, causal, window, cuda).any(-1)
+    if bool(blind.any()):
+        assert bool(torch.isinf(lse[:, :, blind]).all())
+        assert float(got[0][:, blind].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_k3_gradients_on_card_flow_through_the_kernel(cuda):
+    """The repaired fault: a gradient through K3 on a CUDA tensor is the
+    backward kernel's, nonzero, and equal to the plain version's within
+    the tolerance of the models' logits (1e-4 of each gradient's
+    largest magnitude)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = [torch.randn(s, generator=gen, device=cuda)
+         for s in ((2, 128, 4, 64), (2, 128, 2, 64), (2, 128, 2, 64))]
+    w = torch.randn((2, 128, 4, 64), generator=gen, device=cuda)
+    t = [a.clone().requires_grad_(True) for a in x]
+    f0, b0 = FA.LAUNCHES, FA.BWD_LAUNCHES
+    got = torch.autograd.grad((FA.flash_attention(*t, causal=True,
+                                                  window=40) * w).sum(), t)
+    assert (FA.LAUNCHES, FA.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    t = [a.clone().requires_grad_(True) for a in x]
+    want = torch.autograd.grad((FA.flash_attention_ref(
+        *t, causal=True, window=40) * w).sum(), t)
+    for a, b in zip(got, want):
+        assert float(a.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    # without a gradient the serve path writes no log-sum-exp
+    with torch.no_grad():
+        o = FA.flash_attention(*t, causal=True)
+    assert o.grad_fn is None and FA.BWD_LAUNCHES == b0 + 1
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_gradients(cuda):
+    x = torch.randn((1, 32, 2, 16), device=cuda, requires_grad=True)
+    dt = torch.rand((1, 32, 2), device=cuda)
+    A = -torch.rand(2, device=cuda)
+    Bm = torch.randn((1, 32, 1, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="SSD kernel.*no backward"):
+        SSD.ssd_scan(x, dt, A, Bm, Bm, chunk=16)
+    with pytest.raises(RuntimeError, match="SSD kernel.*no backward"):
+        SSD.launch("ssd_cumsum", x, dt, A, Bm, Bm, None, x, x, {}, 16)
+    with torch.no_grad():
+        y, _ = SSD.ssd_scan(x, dt, A, Bm, Bm, chunk=16)
+    assert y.shape == x.shape
+    frame = torch.rand((2, 8, 8, 3), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="downsample kernel.*no backward"):
+        FP.downsample(frame, 2)
+    cfg = get("mamba2-370m").reduced()
+    model = Model(cfg, RunOptions(remat="none", compute_dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    tokens = torch.randint(0, 256, (2, 32), device=cuda)
+    from repro_torch.runtime.steps import value_and_grad
+    with pytest.raises(RuntimeError, match="SSD kernel.*no backward"):
+        value_and_grad(model, params, {"tokens": tokens})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "mixtral-8x7b",
+                                  "internvl2-26b", "whisper-large-v3"))
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One step of the launcher's train step on the card (K3 both ways)
+    against the same step on the CPU: loss within 1e-5 relative, each
+    gradient leaf within 1e-5 of its largest magnitude."""
+    from repro_torch.data.tokens import make_batch_iter
+    from repro_torch.launch.train import train_options
+    from repro_torch.runtime.steps import (init_train_state,
+                                           make_train_step, value_and_grad)
+    cfg = get(arch).reduced()
+    model = Model(cfg, train_options(64))
+    runs = []
+    for dev in ("cpu", cuda):
+        state = init_train_state(model, torch.Generator().manual_seed(0), dev)
+        batch = next(make_batch_iter(cfg, global_batch=2, seq_len=64,
+                                     seed=0, device=dev))
+        b0 = FA.BWD_LAUNCHES
+        loss, grads = value_and_grad(model, state["params"], batch)
+        _, met = make_train_step(model)(state, batch)
+        runs.append((float(loss), grads, float(met["gnorm"]),
+                     FA.BWD_LAUNCHES - b0))
+    (lc, gc, nc, _), (lg, gg, ng, launches) = runs
+    assert launches > 0
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(ng - nc) <= 1e-5 * nc
+    for a, b in zip(gg, gc):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+            b.abs().max().clamp_min(1e-30))

@@ -9,8 +9,10 @@
   (the multi-stream run, the serving pool, the cold tier, the sharded
   store and tier, ``rebalance``, the checkpoint readers, the per-window
   loop, the optimum, the MoE family and the encoder-decoder family with
-  ``init_cache`` among them), and the serve CLI refuses the
-  encoder-decoder family by name;
+  ``init_cache``, the train launcher, ``init_train_state`` and
+  ``make_batch_iter`` among them; ``Model.loss`` and the train step run
+  on CPU params), and the serve CLI refuses the encoder-decoder family
+  by name;
 - ``chip_smoke.py`` fails, and prints no result, without a card;
 - on the CPU, every kernel wrapper (K1, K2, K3, K4) takes its plain
   version and launches nothing, and the SSM model path (``models/ssd``),
@@ -265,6 +267,38 @@ def test_encdec_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(ValueError, match="frames"):
         serve.serve(model, {}, SyntheticCorpus(256, 0), requests=1,
                     batch=1, prompt_len=4, gen=2)
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    """The launcher, ``init_train_state`` and ``make_batch_iter`` default
+    to CUDA and raise without it; ``Model.loss`` and the train step run
+    on CPU params with the port alone (its batch goes to the params'
+    device, never to a card); the launcher refuses a model axis past
+    one card by name."""
+    from repro_torch.configs.base import get
+    from repro_torch.data.tokens import make_batch_iter
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    _no_cuda(monkeypatch)
+    cfg = get("qwen1.5-0.5b").reduced()
+    model = Model(cfg, train.train_options(16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1", "--batch", "2", "--seq",
+                    "16"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(model, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(make_batch_iter(cfg, global_batch=2, seq_len=16))
+    with pytest.raises(ValueError, match="one card"):
+        train.main(["--device", "cpu", "--model-axis", "2"])
+    state = init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    batch = next(make_batch_iter(cfg, global_batch=2, seq_len=16,
+                                 device="cpu"))
+    loss = model.loss(state["params"], {"tokens": batch["tokens"].numpy()})
+    assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
+    state, met = make_train_step(model)(state, batch)
+    assert int(state["step"]) == 1 and bool(torch.isfinite(met["loss"]))
 
 
 def test_encdec_runs_on_cpu_tensors_with_the_port_alone():
