@@ -50,7 +50,8 @@ script fails before it prints a result.
               that see no key, and ``_k3_cases``' uneven shapes; the
               forward's log-sum-exp within ``lse_error_bound`` of the
               float64 plain one (+inf exactly where a row sees no key);
-              one finite-difference check of the float32 gradient.
+              each case launched twice, the same bits both times; one
+              finite-difference check of the float32 gradient.
 5b. kernel_k4 K4 (five passes) against its plain version run in
               float64 within ``kernels.ssd.error_bound``, and each pass
               against its own plain version within the bound
@@ -248,12 +249,13 @@ script fails before it prints a result.
               one bfloat16 prefill of the serve batch, K3 once per layer
               at head dim 128 with no window, its logits against the
               plain-attention model; then (``time_k3_bwd``) K3's
-              backward at qwen1.5-0.5b's training shape and whisper's
-              encoder shape in both dtypes, beside its launches per
-              train step, its plain version, the backward alone of
+              backward at qwen1.5-0.5b's training shape, whisper's
+              encoder shape and mixtral-8x7b's (D = 128, window 4,096)
+              in both dtypes, beside its launches per train step, its
+              plain version, the backward alone of
               ``F.scaled_dot_product_attention`` and its bound (the five
-              products of the gradient at the FP32 CUDA cores' rate, the
-              arithmetic it uses). Every timed K3 output is held
+              products of the gradient at 3xTF32's rate for float32, the
+              dense bf16 rate for bfloat16). Every timed K3 output is held
               against its plain version on the same inputs. The library
               calls are yardsticks the port never calls.
 11. multi     the multi-stream path, K1's counts set to 0 just before
@@ -441,9 +443,11 @@ TRAIN_LOSS_TOL = 1e-5               # relative, kernel vs plain attention
 FAMILY_TOL = 1e-5                   # the CPU parity tests' Model.loss tolerance
 FAMILY_SEQ = 64                     # past reduced mixtral's window of 32
 # the backward timed at the training shapes, with its launches per step
+# at the published depth (train_families' reduced configs launch fewer)
 K3_BWD_TIME = {
     "qwen_train": ((4, 2048, 2048, 16, 16, 64, True, None), 24),
     "whisper_encoder": ((4, 1500, 1500, 20, 20, 64, False, None), 32),
+    "mixtral_train": ((4, 2048, 2048, 32, 8, 128, True, 4096), 32),
 }
 COMPARE_PLAN_DAYS = 0.25            # the paper's loop: 4 windows of 10,800
 SPIN_CYCLES = 40_000_000            # ~20 ms of the card's clock per timing
@@ -964,8 +968,10 @@ def phase_kernel_k3(dev):
 
 
 def _k3_bwd_cases():
-    """(B, Sq, Skv, H, G, D, causal, window): the training shapes of the
-    K3 models, rows that see no key, and ``_k3_cases``' uneven shapes."""
+    """(B, Sq, Skv, H, G, D, causal, window, shift): the training shapes
+    of the K3 models, rows that see no key, inputs whose rows take no
+    16-byte copies, and ``_k3_cases``' uneven shapes; q, k, v and dO
+    start ``shift`` values past an aligned base (0 where not given)."""
     yield 4, 2048, 2048, 16, 16, 64, True, None       # qwen1.5-0.5b train
     yield 4, 2048, 2048, 25, 5, 64, True, 1024        # hymba-1.5b, window
     yield 4, 2048, 2048, 25, 5, 64, True, None        # hymba-1.5b, global
@@ -973,6 +979,8 @@ def _k3_bwd_cases():
     yield 4, 1500, 1500, 20, 20, 64, False, None      # whisper encoder
     yield 4, 440, 1500, 20, 20, 64, False, None       # whisper cross
     yield 1, 90, 20, 2, 1, 32, False, 8               # rows 27.. see no key
+    yield 1, 70, 50, 4, 2, 10, True, None             # D = 10
+    yield 2, 100, 120, 4, 2, 64, True, None, 1        # bases off 16 bytes
     for case in _k3_cases():
         if case[1] != 2048:
             yield case
@@ -1027,25 +1035,35 @@ def phase_kernel_k3_bwd(dev):
     bfloat16 (bfloat16: on the widened inputs, the rounding of dq, dk and
     dv added); the forward's log-sum-exp against ``lse_ref`` in float64
     within ``lse_error_bound`` (+inf exactly where a row sees no key);
-    then one finite-difference check of the float32 gradient."""
+    each case launched twice, the same bits both times (no atomics); then
+    one finite-difference check of the float32 gradient."""
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(12)
     errs, before = {}, FA.BWD_LAUNCHES
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
-        for B, Sq, Skv, H, G, D, causal, window in _k3_bwd_cases():
-            q, do = (torch.randn((B, Sq, H, D), generator=gen, device=dev)
-                     .to(dtype) for _ in range(2))
-            k, v = (torch.randn((B, Skv, G, D), generator=gen, device=dev)
-                    .to(dtype) for _ in range(2))
+        for B, Sq, Skv, H, G, D, causal, window, *sh in _k3_bwd_cases():
+            shift = sh[0] if sh else 0
+
+            def randn(shape, shift=shift, dtype=dtype):
+                n = int(np.prod(shape))
+                return torch.randn(n + shift, generator=gen, device=dev) \
+                    .to(dtype)[shift:].view(shape)
+            q, do = randn((B, Sq, H, D)), randn((B, Sq, H, D))
+            k, v = randn((B, Skv, G, D)), randn((B, Skv, G, D))
             o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
                                                 window=window)
             got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                          window=window)
+            again = FA.flash_attention_bwd(q, k, v, o, do, lse,
+                                           causal=causal, window=window)
             sync()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
             name = (f"B{B}_Sq{Sq}_Skv{Skv}_H{H}_G{G}_D{D}"
                     f"{'_causal' if causal else ''}"
                     f"{f'_w{window}' if window else ''}"
+                    f"{f'_shift{shift}' if shift else ''}"
                     f"{'_bf16' if dtype == torch.bfloat16 else ''}")
             l64 = FA.lse_ref(q.double(), k.double(), causal=causal,
                              window=window)
@@ -1069,12 +1087,14 @@ def phase_kernel_k3_bwd(dev):
             err = max(float((a.double() - b).abs().max())
                       for a, b in zip(got, want))
             finite = all(bool(torch.isfinite(a).all()) for a in got)
-            if not (finite and lse_ratio <= 1.0 and max(ratios) <= 1.0) \
+            if not (finite and same and lse_ratio <= 1.0
+                    and max(ratios) <= 1.0) \
                     or any(a.dtype != dtype for a in got):
                 raise AssertionError(
-                    f"K3 backward {name}: finite={finite} lse "
-                    f"{lse_ratio:.3g}x its bound, dq dk dv "
-                    f"{[round(r, 4) for r in ratios]}x bwd_error_bound")
+                    f"K3 backward {name}: finite={finite} same bits on a "
+                    f"second launch={same} lse {lse_ratio:.3g}x its bound, "
+                    f"dq dk dv {[round(r, 4) for r in ratios]}x "
+                    f"bwd_error_bound")
             errs[name] = {"err": err, "of_bound": max(ratios),
                           "lse_of_bound": lse_ratio}
             del q, k, v, do, o, lse, got, want, bound, l64
@@ -2990,20 +3010,20 @@ def phase_train_families(dev):
     return out
 
 
-def phase_time_k3_bwd(dev):
-    """K3's backward at the training shapes (``K3_BWD_TIME``), float32
-    and bfloat16: the kernel, its plain version and the library's
-    backward (``scaled_dot_product_attention``'s, through
-    ``torch.autograd.grad``), CUDA-event medians, beside its launches per
-    train step and its bound: the five products of the gradient (2.5
-    times the forward's QK^T and PV) over the pairs the mask lets
-    through, 2 flops a MAC, at the card's peak for the operands' type
-    (float32 at 3xTF32, three TF32 products for each float32 one on the
-    tensor cores, as K3's forward is bounded; bfloat16 at the dense bf16
-    rate), or its bytes (q, k, v, o, dO and lse read once, dq, dk and dv
-    written once) at HBM bandwidth, whichever is larger. Also, as a
-    second number, the bound at the FP32 CUDA cores' rate, the
-    arithmetic the kernel uses today."""
+def phase_time_k3_bwd(dev, fam):
+    """K3's backward at the training shapes (``K3_BWD_TIME``: qwen1.5-0.5b,
+    whisper-large-v3's encoder, mixtral-8x7b at D = 128), float32 and
+    bfloat16: the kernel, its plain version and the library's backward
+    (``scaled_dot_product_attention``'s, through ``torch.autograd.grad``),
+    CUDA-event medians, beside its launches per train step at the
+    published depth (mixtral's also as counted in ``train_families``,
+    ``fam``) and its bound: the five products of the gradient (2.5 times
+    the forward's QK^T and PV) over the pairs the mask lets through, 2
+    flops a MAC, at the card's peak for the operands' type (float32 at
+    3xTF32, three TF32 products for each float32 one on the tensor cores,
+    the kernel's arithmetic; bfloat16 at the dense bf16 rate), or its
+    bytes (q, k, v, o, dO and lse read once, dq, dk and dv written once)
+    at HBM bandwidth, whichever is larger."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -3023,7 +3043,6 @@ def phase_time_k3_bwd(dev):
                 + (q.numel() + 2 * k.numel()) * q.element_size() \
                 + lse.numel() * 4
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            fp32_ms = flops / FP32_FLOP_PER_S * 1e3
             op_ms = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
                      else flops / BF16_FLOP_PER_S) * 1e3
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
@@ -3042,9 +3061,11 @@ def phase_time_k3_bwd(dev):
                      lib_o, (qt, kt, vt), lib_do, retain_graph=True), 20),
                  "flops": flops, "bytes": nbytes,
                  "bound_ms": max(op_ms, byte_ms),
-                 "bound_by": "operations" if op_ms > byte_ms else "bytes",
-                 "bound_fp32_cores_ms": max(fp32_ms, byte_ms)}
+                 "bound_by": "operations" if op_ms > byte_ms else "bytes"}
             e["per_step_ms"] = per_step * e["kernel_ms"]
+            if name == "mixtral_train":
+                e["train_families_launches_per_step"] = \
+                    fam["mixtral-8x7b"]["k3_launches"][1]
             out[name if dtype == torch.float32 else name + "_bf16"] = e
             del q, k, v, do, o, lse, qt, kt, vt, lib_o, lib_do
     emit("time_k3_bwd", flash_attention_bwd=out)
@@ -4144,14 +4165,14 @@ def run(dev) -> None:
     sm = phase_serve_moe(dev)
     se = phase_serve_encdec(dev)
     tr = phase_train(dev)
-    phase_train_families(dev)
+    fam = phase_train_families(dev)
     per = phase_time(m, errs)
     k2, k3 = phase_time_k2_k3(dev)
     k4 = phase_time_k4(dev)
     h3, h4 = phase_time_hybrid(dev)
     m3 = phase_time_moe(dev)
     e3 = phase_time_encdec(dev)
-    k3b = phase_time_k3_bwd(dev)
+    k3b = phase_time_k3_bwd(dev, fam)
     mm = phase_multi(dev, m)
     multi_err = phase_multi_check(mm)
     pp = phase_pool(dev, t)

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by ablation, on one NVIDIA card.
 
-    python3 scripts/chip_ablate.py        # from the repository root
+    python3 scripts/chip_ablate.py [k4 k3 k3_bwd k1]   # from the repo root
+
+With no names it runs all four.
 
 The card's machine has no profiler that reads kernel counters, so this
 script builds edited copies of a kernel source (a loop bound set to 0,
@@ -23,6 +25,16 @@ part taken out.
   term dropped from the chunk scan), ``no_load`` (no tile loads after
   each block's first two steps: the copies' cost) and ``no_exp`` (the
   chunk scan's weights without their decay, CB as it stands).
+- K3's backward (``csrc/flash_attention_bwd.cu``) at each shape of
+  ``chip_smoke.K3_BWD_TIME`` (qwen1.5-0.5b's and mixtral-8x7b's training
+  shapes, whisper-large-v3's encoder), float32 and bfloat16. Its cuts
+  are the design's alternatives, each computing the same function:
+  ``wg1`` (one warpgroup a block everywhere, no second warpgroup
+  sharing the streamed tile), ``dead`` (a branch that skips a
+  warpgroup's products on a tile the mask rules out for all its rows)
+  and ``cvt_split`` (the TF32 split by two ``cvt.rna`` instead of
+  ``split_bits``' integer arithmetic). Each reports whether it gave the
+  kernel's bits.
 - K1 (``csrc/warehouse_agg.cu``) on a window x category plan over a
   (rows, 9) column of 11,059,200 rows with the category changing from
   row to row: ``no_add`` (the wide value's reduction taken out),
@@ -83,6 +95,19 @@ K4_CUTS = {
                ("v.x * (rf * colv[sl])", "v.x"),
                ("v.y * (rf * colv[sl + 1])", "v.y")],
 }
+K3_BWD_CUTS = {
+    "wg1": [("constexpr int WG = sizeof(In) == 4 && DP == 128 ? 1 : 2;",
+             "constexpr int WG = 1;")],
+    "dead": [("    const int c0 = tile_row(it);\n",
+              "    const int c0 = tile_row(it);\n"
+              "    const bool dead = DKDV\n"
+              "        ? f0 >= a.Skv || (a.causal && c0 + N - 1 < f0) ||\n"
+              "              (a.window > 0 && c0 - a.window >= f0 + 63)\n"
+              "        : f0 >= a.Sq || (a.causal && c0 > f0 + 63) ||\n"
+              "              (a.window > 0 && c0 + N - 1 <= f0 - a.window);\n"
+              "    if (dead) continue;\n")],
+    "cvt_split": [("split_bits(", "split(")],
+}
 K1_CUTS = {
     "no_add": [("  wide_add(sink, run, slab, order, gq, lane);\n"
                 "  __syncwarp();               // the slabs",
@@ -123,6 +148,52 @@ def k3(dev) -> dict:
             S, H, H, D, 1, 0, D ** -0.5,
             torch.cuda.current_stream().cuda_stream), 20)
     return res
+
+
+def k3_bwd(dev) -> dict:
+    fns = {}
+    for cut, edits in K3_BWD_CUTS.items():
+        fn = ablated("flash_attention_bwd", cut, edits).flash_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[cut] = fn
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, (shape, _) in C.K3_BWD_TIME.items():
+        B, Sq, Skv, H, G, D, causal, window = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn((B, Sq, H, D), generator=gen, device=dev)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, Skv, G, D), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                                window=window)
+            want = FA.flash_attention_bwd(q, k, v, o, do, lse,
+                                          causal=causal, window=window)
+            got = [torch.empty_like(x) for x in (q, k, v)]
+            delta = torch.empty((B, H, Sq), device=dev)
+
+            def cut_call(fn):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         delta.data_ptr(), *(x.data_ptr() for x in got), B,
+                         Sq, Skv, H, G, D, int(causal), int(window or 0),
+                         int(dtype == torch.bfloat16), D ** -0.5,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"K3 backward cut: cudaError {err}")
+            res = {"kernel": C.cuda_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, o, do, lse, causal=causal, window=window), 20)}
+            for cut, fn in fns.items():
+                cut_call(fn)
+                C.sync()
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                res[cut] = C.cuda_ms(lambda: cut_call(fn), 20)
+                res[cut + "_same_bits"] = same
+            out[f"{name}_{str(dtype)[6:]}"] = res
+            del q, k, v, o, do, lse, want, got, delta
+    return out
 
 
 def k4(dev) -> dict:
@@ -186,9 +257,18 @@ def main() -> int:
         print("chip_ablate: no CUDA device is visible", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    print(json.dumps({"device": C.nvidia_smi(), "k4_ms": k4(dev),
-                      "k3_ms": k3(dev),
-                      "k1_window_x_category_ms": k1(dev)}), flush=True)
+    parts = {"k4": ("k4_ms", k4), "k3": ("k3_ms", k3),
+             "k3_bwd": ("k3_bwd_ms", k3_bwd),
+             "k1": ("k1_window_x_category_ms", k1)}
+    names = sys.argv[1:] or list(parts)
+    if not set(names) <= set(parts):
+        print(f"chip_ablate: unknown names {names}", file=sys.stderr)
+        return 2
+    out = {"device": C.nvidia_smi()}
+    for name in names:
+        key, fn = parts[name]
+        out[key] = fn(dev)
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -6,7 +6,8 @@
 // Layout the descriptors assume (settled on the card for K3): no swizzle,
 // core matrices of 8 rows x 4 32-bit words (16 bytes a row, 128 bytes a
 // matrix) stored contiguously; tf32 wgmma reads both shared operands
-// K-major only. Included by csrc/flash_attention.cu and csrc/ssd_scan.cu.
+// K-major only. Included by csrc/flash_attention.cu,
+// csrc/flash_attention_bwd.cu and csrc/ssd_scan.cu.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -148,6 +149,17 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A * B, m64n16k8 tf32, A and B from shared memory
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d += A * B, m64n32k8 tf32, A and B from shared memory
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
                                              uint64_t db) {
@@ -207,11 +219,13 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 
-// S's N is the kv tile, 64 (32 at D = 128)
+// N of a product with both operands in shared memory: 16, 32 or 64 (K3's
+// scores: the forward's kv tile, the backward's streamed tile)
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db) {
-  if constexpr (N == 32) wgmma_ss_n32(d, da, db);
+  if constexpr (N == 16) wgmma_ss_n16(d, da, db);
+  else if constexpr (N == 32) wgmma_ss_n32(d, da, db);
   else wgmma_ss_n64(d, da, db);
 }
 

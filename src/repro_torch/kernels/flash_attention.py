@@ -38,8 +38,11 @@ q, and it gives nothing to k and v. Without the log-sum-exp (serving)
 the kernel leaves that row outside its contract, as before (its value
 there depends on the block size, as the TPU kernel's does).
 
-The backward (``flash_attention_bwd``) runs in float32 on the CUDA
-cores; ``flash_attention_bwd_ref`` is its plain version (the explicit
+The backward (``flash_attention_bwd``) runs its seven products on the
+tensor cores too: 3xTF32 for float32 operands; for bfloat16 ones S and
+dP take one TF32 product and dV, dK, dQ two (P and dS are float32), the
+same numbers as three. ``attention_bwd_tf32`` is a float64 model of that
+arithmetic, ``flash_attention_bwd_ref`` its plain version (the explicit
 formula, float64-capable) and ``bwd_error_bound`` its stated bound.
 """
 from __future__ import annotations
@@ -142,12 +145,14 @@ def _split(x: torch.Tensor):
 
 def tf32_products(a, b, passes: int, eq: str):
     """float64 sum of the TF32 products of ``a`` and ``b`` (float32):
-    big*big with ``passes`` = 1, plus big*small + small*big with 3."""
+    big*big with ``passes`` = 1, plus small*big (``a``'s small half) with
+    2, plus big*small too with 3."""
     (ab, as_), (bb, bs) = _split(a), _split(b)
     out = torch.einsum(eq, ab.double(), bb.double())
     if passes == 3:
-        out = out + torch.einsum(eq, ab.double(), bs.double()) \
-            + torch.einsum(eq, as_.double(), bb.double())
+        out = out + torch.einsum(eq, ab.double(), bs.double())
+    if passes >= 2:
+        out = out + torch.einsum(eq, as_.double(), bb.double())
     return out
 
 
@@ -172,6 +177,50 @@ def attention_tf32(q, k, v, *, causal: bool = True,
     l = p.sum(-1, keepdim=True)
     o = tf32_products(p.float(), v.float(), passes, "bgrqs,bsgd->bgrqd") / l
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def attention_bwd_tf32(q, k, v, o, do, lse, *, causal: bool = True,
+                       window: Optional[int] = None, passes: int = 3):
+    """A float64 model of the backward kernel's arithmetic: (dq, dk, dv) in
+    float64 from float32 q, k, v, o, do (bfloat16 ones widened) and the
+    forward's lse. S = q K^T and dP = dO V^T (each computed by both of the
+    kernel's passes, the same products), then dV = P^T dO, dK = scale dS^T
+    Q and dQ = scale dS K with P and dS rounded to float32, as the kernel
+    holds them; every product through ``tf32_products``. ``passes`` 3:
+    3xTF32 throughout (float32 operands); 2: the bfloat16 kernel's, S and
+    dP one TF32 product (a widened bfloat16's small half is 0), dV, dK
+    and dQ two (big*big + small*big of P or dS); 1: one TF32 product
+    throughout (plain TF32). P = exp(scale S - lse) where the mask lets
+    the key through, else 0, and dS = P (dP - delta) in float64. It leaves
+    out the float32 roundings of the sums, of exp and of delta, which
+    ``bwd_error_bound`` counts separately. One batch row at a time."""
+    if passes not in (1, 2, 3):
+        raise ValueError(f"passes must be 1, 2 or 3, not {passes}")
+    B, Sq, Skv, H, G, R, D = _groups(q, k)
+    scale = D ** -0.5
+    first = 1 if passes == 2 else passes          # S and dP
+    mask = _visible(Sq, Skv, causal, window, q.device)
+    f64 = torch.float64
+    dq = torch.empty((B, Sq, H, D), dtype=f64, device=q.device)
+    dk = torch.empty((B, Skv, G, D), dtype=f64, device=q.device)
+    dv = torch.empty_like(dk)
+    for b in range(B):
+        qb = q[b].float().reshape(Sq, G, R, D)
+        dob = do[b].float().reshape(Sq, G, R, D)
+        kb, vb = k[b].float(), v[b].float()
+        s = tf32_products(qb, kb, first, "qgrd,sgd->grqs") * scale
+        lb = lse[b].to(f64).reshape(G, R, Sq, 1)
+        p = torch.where(mask, torch.exp(torch.where(mask, s - lb, 0.0)), 0.0)
+        dp = tf32_products(dob, vb, first, "qgrd,sgd->grqs")
+        delta = (do[b].to(f64) * o[b].to(f64)).sum(-1).T.reshape(G, R, Sq, 1)
+        ds = (p * (dp - delta)).float()
+        p = p.float()
+        del s, dp
+        dv[b] = tf32_products(p, dob, passes, "grqs,qgrd->sgd")
+        dk[b] = scale * tf32_products(ds, qb, passes, "grqs,qgrd->sgd")
+        dq[b] = (scale * tf32_products(ds, kb, passes, "grqs,sgd->qgrd")
+                 ).reshape(Sq, H, D)
+    return dq, dk, dv
 
 
 # 3xTF32 drops the small*small term and the two residuals of the split:
@@ -302,36 +351,44 @@ def bwd_error_bound(q, k, v, o, do, lse, *, causal: bool = True,
     (bfloat16 ones widened: the kernel and the plain version both compute
     on the widened values) and the same o and lse.
 
-    Derivation, u = 2^-24, every operation of the kernel in float32 with
-    fmaf chains. Let sigma_ij = scale sum_d |q_id k_jd|, tau_ij = sum_d
-    |do_id v_jd|, rho_i = sum_d |do_id o_id| and T = tau + rho.
-    - P: the score is a D-term chain times scale, (D + 2) u sigma off
-      (the chain, the product, the float32 scale); minus lse, u |x| with
-      x = s - lse; expf, 2 ulp (EXP_ERR) and TINY32 absolute where it
-      leaves the normal range. So |P~ - P| <= pe = P e_p + TINY32, with
-      e_p = exp((D + 2) u sigma + u |x|) (1 + EXP_ERR) - 1.
-    - dP - delta: two D-term sums and a difference, (D + 2) u T.
-    - dS = P (dP - delta) rounded: |dS~ - dS| <= E = (P + pe) T k - P T,
-      k = (1 + (D + 2) u)(1 + u).
-    - dV = sum_i P dO over N = Sq R terms (the R heads of the group):
-      sum_i pe |dO| + N u sum_i (P + pe) |dO|.
-    - dK = scale sum_i dS Q over N = Sq R terms, and dQ = scale sum_j dS K
-      over N = Skv terms: scale (A + (N + 2) u (C + A)), with A the sum of
-      E times the magnitudes and C that of |dS| (the chain, the product
-      by scale, and scale's own rounding).
-    All sums of magnitudes are taken in float64. For bfloat16 outputs,
-    ``refs`` = the plain version's (dq, dk, dv) in float64 on the widened
-    inputs, and each bound adds BF16_ROUND (|ref| + bound): the rounding
-    of the float32 result to bfloat16."""
+    Derivation, u = 2^-24, e = PRODUCT_ERR (each term of a 3xTF32
+    product is off by at most e of its magnitude; a one- or two-product
+    term on bfloat16 operands is off by less), every sum in float32 in
+    any order (u per term, the forward's model). Let sigma_ij =
+    scale sum_d |q_id k_jd|, tau_ij = sum_d |do_id v_jd|, rho_i = sum_d
+    |do_id o_id| and T = tau + rho.
+    - P: the score is a D-term product on the tensor cores, (e + D u)
+      sigma off, times scale in float32 (u sigma); minus lse, u |x| with x
+      = s - lse; expf, 2 ulp (EXP_ERR) and TINY32 absolute where it leaves
+      the normal range. So |P~ - P| <= pe = P e_p + TINY32, with e_p =
+      exp((e + (D + 2) u) sigma + u |x|) (1 + EXP_ERR) - 1.
+    - dP - delta: dP a D-term product, (e + D u) tau; delta a D-term fmaf
+      chain (the delta pass), D u rho; the difference, u: within (e + (D +
+      2) u) T.
+    - dS = P (dP - delta) rounded: |dS~ - dS| <= E = (P + pe) T kk - P T,
+      kk = (1 + e + (D + 2) u)(1 + u).
+    - dV = sum_i P dO over n = Sq R terms (the R heads of the group), a
+      product of P (float32, split) and dO: sum_i pe |dO| + (e + n u)
+      sum_i (P + pe) |dO|.
+    - dK = scale sum_i dS Q over n = Sq R terms, and dQ = scale sum_j dS K
+      over n = Skv terms: scale (A + (e + (n + 2) u) (C + A)), with A the
+      sum of E times the magnitudes and C that of |dS| (the product's
+      terms, the sum, the product by scale and scale's own rounding).
+    With e = 0 this is the bound of a kernel whose products are exact
+    float32 fmaf chains (the first version of this kernel). All sums of
+    magnitudes are taken in float64. For bfloat16 outputs, ``refs`` = the
+    plain version's (dq, dk, dv) in float64 on the widened inputs, and
+    each bound adds BF16_ROUND (|ref| + bound): the rounding of the float32
+    result to bfloat16."""
     B, Sq, Skv, H, G, R, D = _groups(q, k)
     f64 = torch.float64
     scale = D ** -0.5
-    u = U32
+    u, e = U32, PRODUCT_ERR
     mask = _visible(Sq, Skv, causal, window, q.device)
     bq = torch.empty((B, Sq, H, D), dtype=f64, device=q.device)
     bk = torch.empty((B, Skv, G, D), dtype=f64, device=q.device)
     bv = torch.empty_like(bk)
-    kk = (1 + (D + 2) * u) * (1 + u)
+    kk = (1 + e + (D + 2) * u) * (1 + u)
     for b in range(B):
         qa = q[b].to(f64).reshape(Sq, G, R, D)
         ka, va = k[b].to(f64), v[b].to(f64)
@@ -341,8 +398,8 @@ def bwd_error_bound(q, k, v, o, do, lse, *, causal: bool = True,
         lb = lse[b].to(f64).reshape(G, R, Sq, 1)
         x = torch.where(mask, s - lb, 0.0)
         p = torch.where(mask, torch.exp(x), 0.0)
-        e_p = torch.expm1((D + 2) * u * sigma + u * x.abs()) * (1 + EXP_ERR) \
-            + EXP_ERR
+        e_p = torch.expm1((e + (D + 2) * u) * sigma + u * x.abs()) \
+            * (1 + EXP_ERR) + EXP_ERR
         pe = torch.where(mask, p * e_p + TINY32, 0.0)
         del s, sigma, x, e_p
         rho = (do[b].to(f64) * o[b].to(f64)).abs().sum(-1)   # (Sq, H)
@@ -357,13 +414,13 @@ def bwd_error_bound(q, k, v, o, do, lse, *, causal: bool = True,
         n = Sq * R
         m0 = torch.einsum("grqs,qgrd->sgd", p + pe, doa.abs())
         m1 = torch.einsum("grqs,qgrd->sgd", pe, doa.abs())
-        bv[b] = m1 + n * u * m0
+        bv[b] = m1 + (e + n * u) * m0
         A = torch.einsum("grqs,qgrd->sgd", E, qa.abs())
         C = torch.einsum("grqs,qgrd->sgd", ds, qa.abs())
-        bk[b] = scale * (A + (n + 2) * u * (C + A))
+        bk[b] = scale * (A + (e + (n + 2) * u) * (C + A))
         A = torch.einsum("grqs,sgd->qgrd", E, ka.abs()).reshape(Sq, H, D)
         C = torch.einsum("grqs,sgd->qgrd", ds, ka.abs()).reshape(Sq, H, D)
-        bq[b] = scale * (A + (Skv + 2) * u * (C + A))
+        bq[b] = scale * (A + (e + (Skv + 2) * u) * (C + A))
         del p, pe, E, ds, A, C
     if refs is None:
         return bq, bk, bv

@@ -14,6 +14,12 @@
   held to on the card) against autograd through ``flash_attention_ref``,
   both in float64, given ``lse_ref``: within 1e-10, including rows that
   see no key (no gradient to their q, nothing to k and v, no NaN).
+- ``attention_bwd_tf32``, the float64 model of the backward kernel's
+  3xTF32 arithmetic, within ``bwd_error_bound`` of
+  ``flash_attention_bwd_ref`` at the card tests' shapes (rows cut to at
+  most 300); one TF32 product (``passes=1``) breaks the bound, so it is
+  not vacuous; on bfloat16-representable inputs the bfloat16 kernel's
+  one and two products (``passes=2``) give exactly the three's numbers.
 
 Inputs are N(0,1) from numpy seeds.
 """
@@ -174,3 +180,85 @@ def test_bwd_wrapper_on_the_cpu_is_the_plain_version():
                                       window=6)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert FA.BWD_LAUNCHES == before
+
+
+# tests/test_torch_cuda.py's K3_BWD_CASES, rows cut to at most 300
+MODEL_CASES = (
+    # B, Sq, Skv, H, G, D, causal, window
+    (2, 300, 300, 8, 2, 64, True, None),
+    (2, 200, 300, 4, 4, 16, False, None),
+    (1, 300, 300, 8, 4, 64, True, 32),
+    (3, 130, 130, 4, 1, 128, True, None),
+    (1, 300, 300, 4, 2, 128, True, 100),
+    (1, 90, 20, 2, 1, 32, False, 8),            # rows 27.. see no key
+    (1, 300, 300, 4, 4, 64, False, None),       # whisper's encoder, cut
+    (1, 77, 93, 10, 2, 32, True, 20),           # R = 5, ragged rows
+    (1, 70, 50, 3, 3, 12, False, None),         # D = 12 in a 16-wide tile
+    (1, 100, 100, 4, 2, 40, True, None),        # D = 40 in a 64-wide tile
+)
+
+
+def _bwd_inputs(case, seed, bf16=False):
+    """q, k, v, do, the plain forward's o and lse (float32, as the
+    forward kernel writes them) and the plain backward in float64."""
+    B, Sq, Skv, H, G, D, causal, window = case
+    rng = np.random.default_rng(seed)
+    q, do = (torch.tensor(rng.standard_normal((B, Sq, H, D),
+                                              dtype=np.float32))
+             for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((B, Skv, G, D),
+                                             dtype=np.float32))
+            for _ in range(2))
+    if bf16:
+        q, k, v, do = (x.bfloat16().float() for x in (q, k, v, do))
+    o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                        window=window)
+    ref = FA.flash_attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
+                                     lse.double(), causal=causal,
+                                     window=window)
+    return (q, k, v, o, do, lse), ref
+
+
+def _model(args, case, passes):
+    return FA.attention_bwd_tf32(*args, causal=case[6], window=case[7],
+                                 passes=passes)
+
+
+def _bound(args, case, **kw):
+    return FA.bwd_error_bound(*args, causal=case[6], window=case[7], **kw)
+
+
+def _ratio(got, want, bound):
+    """The largest |got - want| / bound, 0 where the two agree (a kv row
+    that no query sees: no gradient and a bound of 0)."""
+    err = (got - want).abs()
+    return float(torch.where(err == 0, 0.0, err / bound).max())
+
+
+@pytest.mark.parametrize("case", MODEL_CASES)
+def test_bwd_model_within_its_bound(case):
+    args, ref = _bwd_inputs(case, 5)
+    bound = _bound(args, case)
+    for name, got, want, c in zip("qkv", _model(args, case, 3), ref, bound):
+        assert bool(torch.isfinite(got).all()), name
+        ratio = _ratio(got, want, c)
+        assert ratio <= 1.0, (name, ratio)
+
+
+@pytest.mark.parametrize("case", MODEL_CASES[:2] + MODEL_CASES[3:4])
+def test_bwd_bound_is_not_vacuous(case):
+    # one TF32 product (about 2^-11 of each operand) breaks the bound
+    args, ref = _bwd_inputs(case, 6)
+    bound = _bound(args, case)
+    worst = max(_ratio(got, want, c)
+                for got, want, c in zip(_model(args, case, 1), ref, bound))
+    assert worst > 1.0, worst
+
+
+@pytest.mark.parametrize("case", MODEL_CASES[1:3] + MODEL_CASES[7:9])
+def test_bwd_bf16_products_equal_three(case):
+    # a widened bfloat16 has a zero small half: the products it leaves out
+    # are exact zeros
+    args, _ = _bwd_inputs(case, 7, bf16=True)
+    for a, b in zip(_model(args, case, 2), _model(args, case, 3)):
+        assert torch.equal(a, b)

@@ -8,7 +8,8 @@ the CPU, a short fused run's flight-recorder counters against
 card against the CPU, the reduced whisper on the card against the CPU
 (K3 at whisper's full-size shapes too), the float8 kv cache's writes
 on the card, K3's backward kernel against its plain version
-(``bwd_error_bound``), gradients through K3 on the card (the kernel's,
+(``bwd_error_bound``) at every head dim and tile, the same bits on two
+launches, gradients through K3 on the card (the kernel's,
 nonzero), the kernels without a backward refusing a gradient by name,
 and one train step of the reduced dense, MoE, vlm and encoder-decoder
 models on the card against the CPU (1e-5). ``cuda``-marked: every test
@@ -1365,7 +1366,32 @@ K3_BWD_CASES = (
     (1, 300, 333, 4, 2, 128, True, 100),
     (1, 90, 20, 2, 1, 32, False, 8),            # rows 27.. see no key
     (1, 1500, 1500, 4, 4, 64, False, None),     # whisper's encoder length
+    (1, 77, 93, 10, 2, 32, True, 20),           # R = 5, rows off every tile
+    # D = 12: 16-byte copies in float32, one value at a time in bfloat16
+    (1, 70, 50, 3, 3, 12, False, None),
+    (1, 100, 100, 4, 2, 40, True, None),        # D = 40 in a 64-wide tile
+    # D = 10: 4-byte copies in float32, one value at a time in bfloat16
+    (1, 70, 50, 4, 2, 10, True, None),
+    # q, k, v and dO one value past a 16-byte boundary (the last element:
+    # the offset, in values): 4-byte copies in float32 at D = 64, one
+    # value at a time in bfloat16
+    (2, 100, 120, 4, 2, 64, True, None, 1),
 )
+
+
+def _k3_bwd_inputs(case, dtype, device):
+    """q, k, v, dO for a ``K3_BWD_CASES`` case, each a view ``shift``
+    values into a fresh buffer (0: the buffer's aligned start)."""
+    B, Sq, Skv, H, G, D, causal, window, *shift = case
+    shift = shift[0] if shift else 0
+
+    def randn(shape):
+        n = int(np.prod(shape))
+        return torch.randn(n + shift, device=device).to(dtype)[shift:] \
+            .view(shape)
+    q, do = randn((B, Sq, H, D)), randn((B, Sq, H, D))
+    k, v = randn((B, Skv, G, D)), randn((B, Skv, G, D))
+    return q, k, v, do
 
 
 @pytest.mark.cuda
@@ -1375,11 +1401,8 @@ def test_k3_backward_within_its_bound(cuda, case, dtype):
     """The backward kernel against ``flash_attention_bwd_ref`` in float64
     on the same inputs and the forward's o and lse, within
     ``bwd_error_bound`` (bfloat16: plus the outputs' rounding)."""
-    B, Sq, Skv, H, G, D, causal, window = case
-    q, do = (torch.randn((B, Sq, H, D), device=cuda).to(dtype)
-             for _ in range(2))
-    k, v = (torch.randn((B, Skv, G, D), device=cuda).to(dtype)
-            for _ in range(2))
+    B, Sq, Skv, H, G, D, causal, window = case[:8]
+    q, k, v, do = _k3_bwd_inputs(case, dtype, cuda)
     o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
                                         window=window)
     before = FA.BWD_LAUNCHES
@@ -1400,6 +1423,24 @@ def test_k3_backward_within_its_bound(cuda, case, dtype):
     if bool(blind.any()):
         assert bool(torch.isinf(lse[:, :, blind]).all())
         assert float(got[0][:, blind].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", K3_BWD_CASES[:1] + K3_BWD_CASES[3:5]
+                         + K3_BWD_CASES[7:8])
+def test_k3_backward_same_bits_on_every_launch(cuda, case, dtype):
+    """No atomics: each output is written once by the block that owns it,
+    so two launches on the same inputs give the same bits."""
+    causal, window = case[6], case[7]
+    q, k, v, do = _k3_bwd_inputs(case, dtype, cuda)
+    o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                        window=window)
+    first = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                   window=window)
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                   window=window)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
