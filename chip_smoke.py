@@ -14,8 +14,9 @@ script fails before it prints a result.
 2. build      one nvcc per kernel source in ``src/repro_torch/csrc``,
               all started together: K1 ``warehouse_agg.cu``, K2
               ``frame_preproc.cu``, K3 ``flash_attention.cu`` and its
-              backward ``flash_attention_bwd.cu``, K4 ``ssd_scan.cu``
-              (K3 and K4 include the shared ``hopper.cuh``).
+              backward ``flash_attention_bwd.cu``, K4 ``ssd_scan.cu`` and
+              its backward ``ssd_scan_bwd.cu`` (K3 and K4 include the
+              shared ``hopper.cuh``).
 3. kernel     K1 against its plain version on the same CUDA tensors over
               the test matrix at 1M rows (shared- and global-memory
               accumulators), and against a float64 host oracle; then
@@ -69,6 +70,20 @@ script fails before it prints a result.
               or float32; a bfloat16 state in): both serve prefills, a
               state in, S % Q != 0, G > 1, Q 16, and P 12, N 20; y in
               bfloat16, the state in float32.
+5c. kernel_k4_bwd  K4's backward (``csrc/ssd_scan_bwd.cu``, seven
+              passes) on the forward kernels' own scratch against its
+              plain version ``ssd_scan_bwd_ref`` run in float64 on the
+              same CUDA tensors, dx, ddt, dA, dB, dC and d(init_state)
+              each within ``bwd_error_bound`` and in its operand's
+              dtype: mamba2-370m's training shape (B=4, S=2,048, H=32,
+              P=64, G=1, N=128, Q=256) and hymba-1.5b's (B=1, H=25,
+              N=16), S % Q != 0, S < Q, G > 1, R = 25 heads a group, Q 8
+              to 256, P 8 to 64, N 16 to 128, with and without a state
+              in and a d(final state); then bfloat16 x, B, C and dy (dt
+              in bfloat16 or float32, a bfloat16 state in); each case
+              launched twice, the same bits both times; one
+              finite-difference check of the float32 gradient through
+              ``ssd_scan`` as a model takes it.
 6. main       the single-stream main path at full size, with the launch
               counts set to 0 just before it and read just after:
               ``fit(COVID, n_cores=8, days_unlabeled=2.0)``, a 1-day
@@ -207,11 +222,27 @@ script fails before it prints a result.
               version (autograd through it), and a reduced config's train
               state saved at step 4 and restored bit for bit, then
               resumed by the launcher to step 6.
-9g. train_families  one train step each of reduced whisper-large-v3,
-              mixtral-8x7b (a window of 32 over 64 tokens, the aux loss)
-              and internvl2-26b (``embeds``) on the card against the same
-              step on the card machine's CPU; reduced mamba2-370m must
-              refuse the gradient by name (K4 has no backward yet).
+9g. train_ssm  the same for the SSM family: mamba2-370m at its
+              published config (48 layers, d_model 1,024, d_inner 2,048,
+              32 heads of 64, d_state 128, chunk 256, vocab 50,280) from
+              random weights, 8 steps at 4 x 2,048 tokens, K4's forward
+              and backward kernels once per layer and step; the 4-layer
+              gradient check against the plain-SSD model's (autograd
+              through ``ssd_scan_ref`` on the card). Prints the losses,
+              each step's time, tokens per second and peak memory.
+9h. train_hybrid  the same for the hybrid family: hymba-1.5b at its
+              published config, full depth (32 layers, window 1,024 with
+              layers 0, 15 and 31 global), 8 steps at 1 x 2,048 tokens at
+              the launcher's default peak rate of 3e-4 (at 1e-2 the
+              loss spikes, on the plain versions too), K3 (windowed in
+              29 layers) and K4 both ways once per layer
+              and step; the 4-layer gradient check against the model
+              with both plain versions.
+9i. train_families  one train step each of reduced whisper-large-v3,
+              mixtral-8x7b (a window of 32 over 64 tokens, the aux loss),
+              internvl2-26b (``embeds``), mamba2-370m and hymba-1.5b on
+              the card against the same step on the card machine's CPU,
+              each family's kernels launched both ways.
 10. time      CUDA-event medians of device time (the card spins while
               the host enqueues each timed call): K1, its plain version
               and one ``index_add_``/``scatter_reduce_`` call per
@@ -255,9 +286,18 @@ script fails before it prints a result.
               plain version, the backward alone of
               ``F.scaled_dot_product_attention`` and its bound (the five
               products of the gradient at 3xTF32's rate for float32, the
-              dense bf16 rate for bfloat16). Every timed K3 output is held
-              against its plain version on the same inputs. The library
-              calls are yardsticks the port never calls.
+              dense bf16 rate for bfloat16); then (``time_k4_bwd``) K4's
+              backward at mamba2-370m's and hymba-1.5b's training shapes
+              (B=4 and B=1, S=2,048) in both dtypes, the seven passes
+              together and each alone, beside its launches per train
+              step, its plain version and its bound (the gradient's
+              products at 3xTF32's rate for float32, the dense bf16 rate
+              for bfloat16, or its bytes; the FP32 CUDA-core time, the
+              kernel's arithmetic, beside it; no PyTorch call computes
+              it). Every timed K3 output
+              and K4 gradient is held against its plain version on the
+              same inputs. The library calls are yardsticks the port
+              never calls.
 11. multi     the multi-stream path, K1's counts set to 0 just before
               it: ``run_skyscraper_multi`` over 256 COVID streams of
               10,800 segments (the main fit, one joint LP of 1,024 rows
@@ -371,12 +411,18 @@ its plain version in float64: per element, the float32 sums' lengths
 (Sq R terms for dk and dv, Skv for dq) times their sums of magnitudes,
 plus the error of each recomputed P (the D-term score sums, expf's 2
 ulp) and dS carried through them; bfloat16 adds the outputs' rounding.
+K4's backward: within ``kernels.ssd.bwd_error_bound`` of its plain
+version in float64, per element: 2^-24 times the gradient's sum of
+magnitudes times L, the longest chain of float32 roundings (the forward
+scratch's and the backward's sums over Q, N, P, the R heads and the
+chunks, the decays' exponents); bfloat16 adds the outputs' rounding.
 Training: the full-width 4-layer step against the plain-attention step,
 the loss within 1e-5 relative and each gradient leaf within 1e-3 of its
 largest magnitude (``TRAIN_GRAD_TOL``: both kernels' float32 sums over
-2,048 terms, 1.2e-4 each, through 4 layers); the reduced families on
-the card against the CPU within 1e-5 (the CPU parity tests' tolerance
-of ``Model.loss``).
+2,048 terms, 1.2e-4 each, through 4 layers), and so mamba2's against
+the plain-SSD step and hymba's against both plain versions; the reduced
+families on the card against the CPU within 1e-5 (the CPU parity
+tests' tolerance of ``Model.loss``).
 """
 from __future__ import annotations
 
@@ -432,6 +478,16 @@ WHISPER_ATTN = {
 LLAMA_LAYERS = 2                    # llama3-8b's 32 layers cut to 2
 # training: qwen1.5-0.5b at its published config, the launcher's step
 TRAIN = dict(batch=4, seq=2048, steps=8, lr=1e-2)
+TRAIN_SSM = 4                       # mamba2-370m's batch of 2,048 tokens
+TRAIN_HYBRID = 1                    # hymba-1.5b's
+# hymba-1.5b's peak rate: the launcher's default (``--lr``). At TRAIN's
+# 1e-2 its loss spikes within 8 steps of one sequence, through the plain
+# versions just as through the kernels
+TRAIN_HYBRID_LR = 3e-4
+K4_BWD_TIME = {                     # B, S, H, P, G, N, Q of train_*
+    "mamba2_train": (TRAIN_SSM, 2048, 32, 64, 1, 128, 256),
+    "hymba_train": (TRAIN_HYBRID, 2048, 25, 64, 1, 16, 256),
+}
 TRAIN_CHECK_LAYERS = 4              # the gradient check's cut of 24 layers
 # of each leaf's largest |gradient|: the backward's float32 sums over
 # Sq R = 2,048 terms (bwd_error_bound) and the forward's over Skv = 2,048
@@ -1221,6 +1277,145 @@ def phase_kernel_k4(dev):
                                if "passes_of_bound" in e),
          max_abs_err=errs)
     return max(max(e["y"], e["state"]) for e in errs.values())
+
+
+def _k4_bwd_cases():
+    """(B, S, H, P, G, N, chunk, init_state, d(final state), dt dtype or
+    None for float32 operands): the training shapes of mamba2-370m and
+    hymba-1.5b, S % Q != 0, S < Q, G > 1, G = 1 with R = 25 heads, Q 16
+    and 64, P 8 and 12, N 16, 20 and 128, with and without a state in
+    and a d(final state); then bfloat16 x, B, C and dy (dt in bfloat16 as
+    the model passes it, or float32; a bfloat16 state in)."""
+    yield 4, 2048, 32, 64, 1, 128, 256, False, False, None   # mamba2 train
+    yield 1, 2048, 25, 64, 1, 16, 256, False, False, None    # hymba train
+    yield 2, 1000, 8, 64, 1, 128, 256, True, True, None      # S % Q != 0
+    yield 2, 100, 8, 64, 2, 128, 256, True, False, None      # S < Q, G > 1
+    yield 1, 777, 25, 64, 1, 16, 64, False, True, None       # R = 25
+    yield 2, 300, 6, 64, 3, 128, 16, True, True, None        # Q 16
+    yield 2, 200, 4, 12, 2, 20, 64, True, False, None        # P 12, N 20
+    yield 3, 33, 3, 8, 3, 16, 8, True, True, None            # uneven
+    yield 4, 2048, 32, 64, 1, 128, 256, False, False, "bfloat16"
+    yield 1, 2048, 25, 64, 1, 16, 256, False, False, "bfloat16"
+    yield 2, 1000, 8, 64, 1, 128, 256, True, True, "float32"
+    yield 1, 777, 25, 64, 1, 16, 64, True, True, "bfloat16"
+    yield 2, 200, 4, 12, 2, 20, 64, True, False, "bfloat16"
+
+
+def _k4_bwd_fd(SSD, dev):
+    """The float32 kernels' gradient, through ``ssd_scan`` as a model
+    takes it (``SsdScanFn``: the forward passes, then the backward
+    kernel), against central differences of the plain forward in float64
+    at a tiny shape with a state in and both outputs used, along 4 random
+    directions: |finite difference - <grad, direction>| within 1e-5 of
+    sum |grad| |direction| (the kernels' float32 sums over at most 40
+    terms are about 1e-6 of it; the float64 difference with step 1e-4 is
+    off by about 1e-8)."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    *x, init = ssd_inputs(1, 40, 4, 8, 2, 16, gen, dev)
+    x.append(init)
+    wy = torch.randn(x[0].shape, generator=gen, device=dev)
+    ws = torch.randn(init.shape, generator=gen, device=dev)
+    t = [a.clone().requires_grad_(True) for a in x]
+    b0 = SSD.BWD_LAUNCHES
+    y, state = SSD.ssd_scan(*t[:5], chunk=16, init_state=t[5])
+    grads = torch.autograd.grad((y * wy).sum() + (state * ws).sum(), t)
+    if SSD.BWD_LAUNCHES != b0 + 1:
+        raise AssertionError("K4's gradient did not come from its kernel")
+    x64 = [a.double() for a in x]
+
+    def f(xs):
+        y, s = SSD.ssd_scan_ref(*xs[:5], chunk=16, init_state=xs[5])
+        return float((y * wy.double()).sum() + (s * ws.double()).sum())
+    worst, eps = 0.0, 1e-4
+    for _ in range(4):
+        d = [torch.randn(a.shape, generator=gen, device=dev).double()
+             for a in x]
+        fd = (f([a + eps * b for a, b in zip(x64, d)])
+              - f([a - eps * b for a, b in zip(x64, d)])) / (2 * eps)
+        an = sum(float((g.double() * b).sum()) for g, b in zip(grads, d))
+        mag = sum(float((g.double().abs() * b.abs()).sum())
+                  for g, b in zip(grads, d))
+        worst = max(worst, abs(fd - an) / mag)
+    if not worst <= 1e-5:
+        raise AssertionError(f"K4 backward: finite differences off by "
+                             f"{worst:.3g} of sum |grad||direction|")
+    return worst
+
+
+def phase_kernel_k4_bwd(dev):
+    """K4's backward (``csrc/ssd_scan_bwd.cu``, its seven passes) on the
+    forward kernels' own scratch against its plain version
+    ``ssd_scan_bwd_ref`` run in float64 on the same CUDA tensors, every
+    gradient (dx, ddt, dA, dB, dC, d(init_state)) within
+    ``bwd_error_bound`` at every element and in its operand's dtype (dA
+    float32), each case launched twice, the same bits both times (no
+    atomics); then one finite-difference check of the float32 gradient
+    (``_k4_bwd_fd``)."""
+    from repro_torch.kernels import ssd as SSD
+    gen = torch.Generator(device=dev).manual_seed(14)
+    errs, before = {}, SSD.BWD_LAUNCHES
+    t0 = time.perf_counter()
+    names = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+    def f64(a):
+        return None if a is None else a.double()
+    for B, S, H, P, G, N, chunk, with_init, with_dfinal, dt_type in \
+            _k4_bwd_cases():
+        x, dt, A, Bm, Cm, init = ssd_inputs(B, S, H, P, G, N, gen, dev)
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+        dfinal = (torch.randn(init.shape, generator=gen, device=dev)
+                  if with_dfinal else None)
+        init = init if with_init else None
+        if dt_type is not None:
+            bf = torch.bfloat16
+            x, Bm, Cm, dy = (a.to(bf) for a in (x, Bm, Cm, dy))
+            dt = dt.to(getattr(torch, dt_type))
+            init = None if init is None else init.to(bf)
+        _, _, scr = SSD._forward(x, dt, A, Bm, Cm, init, chunk)
+        got = SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfinal, scr,
+                               chunk=chunk, init_state=init)
+        again = SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfinal, scr,
+                                 chunk=chunk, init_state=init)
+        sync()
+        same = all(a is None or torch.equal(a, b)
+                   for a, b in zip(got, again))
+        del again, scr
+        want = SSD.ssd_scan_bwd_ref(*map(f64, (x, dt, A, Bm, Cm, dy, dfinal)),
+                                    chunk=chunk, init_state=f64(init))
+        bound = SSD.bwd_error_bound(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk,
+                                    init_state=init, refs=want)
+        ratios = {n: _ratio((g.double() - w).abs(), b)
+                  for n, g, w, b in zip(names, got, want, bound)
+                  if g is not None}
+        dtypes = [x.dtype, dt.dtype, torch.float32, x.dtype, x.dtype,
+                  None if init is None else init.dtype]
+        ok_types = all((g is None and t is None) or g.dtype == t
+                       for g, t in zip(got, dtypes))
+        finite = all(bool(torch.isfinite(g).all()) for g in got
+                     if g is not None)
+        name = (f"B{B}_S{S}_H{H}_P{P}_G{G}_N{N}_Q{chunk}"
+                f"{'_init' if with_init else ''}"
+                f"{'_dfinal' if with_dfinal else ''}"
+                f"{f'_bf16_dt_{dt_type}' if dt_type else ''}")
+        if not (finite and same and ok_types
+                and max(ratios.values()) <= 1.0):
+            raise AssertionError(
+                f"K4 backward {name}: finite={finite} same bits on a second "
+                f"launch={same} dtypes={ok_types}, of bwd_error_bound "
+                f"{ {k: round(v, 4) for k, v in ratios.items()} }")
+        errs[name] = {"err": max(float((g.double() - w).abs().max())
+                                 for g, w in zip(got, want)
+                                 if g is not None),
+                      "of_bound": max(ratios.values()),
+                      "of_bound_by_gradient": ratios}
+        del x, dt, A, Bm, Cm, init, dy, dfinal, got, want, bound
+    fd = _k4_bwd_fd(SSD, dev)
+    torch.cuda.empty_cache()
+    emit("kernel_k4_bwd", cases=len(errs),
+         launches=SSD.BWD_LAUNCHES - before, finite_difference=fd,
+         max_of_bound=max(e["of_bound"] for e in errs.values()),
+         phase_s=time.perf_counter() - t0, max_abs_err=errs)
+    return max(e["err"] for e in errs.values())
 
 
 def main_plans(nw):
@@ -2792,6 +2987,69 @@ def _train_step(step_fn, state, batch):
     return state, {k: float(v) for k, v in met.items()}
 
 
+def _train_steps(dev, cfg, batch, seq, kernels, lr=TRAIN["lr"]):
+    """TRAIN["steps"] steps of the launcher's train step
+    (``launch.train.train_options``: remat none, float32; AdamW, the clip
+    and the warmup-cosine schedule at peak rate ``lr``) on ``cfg`` from
+    random weights (seed 0) at ``batch`` x ``seq`` tokens, the launches
+    of ``kernels`` ({name: wrapper module}: the forward's LAUNCHES and the
+    backward's BWD_LAUNCHES) set to 0 just before the steps and read
+    after each. Returns the run's numbers; the state is dropped."""
+    from repro_torch.data.tokens import make_batch_iter
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    model = Model(cfg, LT.train_options(seq))
+    state, init_s = timed(lambda: init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = _n_params(state["params"])
+    step_fn = make_train_step(model, peak_lr=lr, warmup=LT.WARMUP,
+                              total_steps=TRAIN["steps"])
+    it = make_batch_iter(cfg, global_batch=batch, seq_len=seq, seed=0,
+                         device=dev)
+    batches = [next(it) for _ in range(TRAIN["steps"])]
+
+    def counts():
+        return [n for k in kernels.values()
+                for n in (k.LAUNCHES, k.BWD_LAUNCHES)]
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.LAUNCHES = k.BWD_LAUNCHES = 0
+        if hasattr(k, "WINDOW_LAUNCHES"):
+            k.WINDOW_LAUNCHES = 0
+    metrics, secs, per_step = [], [], []
+    for b in batches:
+        c0 = counts()
+        (state, met), sec = timed(lambda: _train_step(step_fn, state, b))
+        metrics.append(met)
+        secs.append(sec)
+        per_step.append([n - m for n, m in zip(counts(), c0)])
+    totals = counts()
+    peak = torch.cuda.max_memory_allocated()
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = statistics.median(secs[1:])
+    return {"params": n_params, "init_s": init_s,
+            "losses": [m["loss"] for m in metrics],
+            "gnorms": [m["gnorm"] for m in metrics],
+            "lrs": [m["lr"] for m in metrics], "step_s": secs,
+            "first_step_s": secs[0], "step_s_median": step_s,
+            "tok_per_s": batch * seq / step_s, "peak_mem_bytes": peak,
+            "per_step": per_step, "totals": totals}
+
+
+def _check_train(what, run, per_layer):
+    """The losses finite and falling from the first step to the last,
+    and each step's launches ``per_layer``."""
+    losses = run["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
+            or any(p != per_layer for p in run["per_step"]):
+        raise AssertionError(f"{what}: losses {losses}, launches per step "
+                             f"{run['per_step']} (want {per_layer})")
+
+
 def phase_train(dev):
     """Training on the card, counts set to 0 just before the steps and
     read just after: qwen1.5-0.5b at its published config (24 layers,
@@ -2802,67 +3060,40 @@ def phase_train(dev):
     backward kernel once per layer. Then ``train_grad_check`` and
     ``train_resume``."""
     from repro_torch.configs.base import get
-    from repro_torch.data.tokens import make_batch_iter
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch import train as LT
-    from repro_torch.models.model import Model
-    from repro_torch.runtime.steps import init_train_state, make_train_step
 
     t0 = time.perf_counter()
     cfg = get("qwen1.5-0.5b")
-    model = Model(cfg, LT.train_options(TRAIN["seq"]))
-    state, init_s = timed(lambda: init_train_state(
-        model, torch.Generator(device=dev).manual_seed(0), dev))
-    n_params = _n_params(state["params"])
-    step_fn = make_train_step(model, peak_lr=TRAIN["lr"], warmup=LT.WARMUP,
-                              total_steps=TRAIN["steps"])
-    it = make_batch_iter(cfg, global_batch=TRAIN["batch"],
-                         seq_len=TRAIN["seq"], seed=0, device=dev)
-    batches = [next(it) for _ in range(TRAIN["steps"])]
-    torch.cuda.reset_peak_memory_stats()
-    FA.LAUNCHES = FA.WINDOW_LAUNCHES = FA.BWD_LAUNCHES = 0
-    metrics, secs, per_step = [], [], []
-    for batch in batches:
-        f0, b0 = FA.LAUNCHES, FA.BWD_LAUNCHES
-        (state, met), sec = timed(lambda: _train_step(step_fn, state, batch))
-        metrics.append(met)
-        secs.append(sec)
-        per_step.append([FA.LAUNCHES - f0, FA.BWD_LAUNCHES - b0])
-    fwd, bwd = FA.LAUNCHES, FA.BWD_LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
-    del state, batches
-    gc.collect()
-    torch.cuda.empty_cache()
-    losses = [m["loss"] for m in metrics]
-    per_layer = [cfg.n_layers, cfg.n_layers]
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
-            or any(p != per_layer for p in per_step):
-        raise AssertionError(f"train: losses {losses}, K3 launches per step "
-                             f"{per_step} (want {per_layer})")
-    step_s = statistics.median(secs[1:])
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+    run = _train_steps(dev, cfg, TRAIN["batch"], TRAIN["seq"],
+                       {"flash_attention": FA})
+    _check_train("train", run, [cfg.n_layers, cfg.n_layers])
+    fwd, bwd = run["totals"]
     grads = train_grad_check(dev, cfg)
     resume = train_resume(dev)
     emit("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-         vocab=cfg.vocab, params=n_params, batch=TRAIN["batch"],
+         vocab=cfg.vocab, params=run["params"], batch=TRAIN["batch"],
          seq=TRAIN["seq"], microbatches=1, remat="none",
-         compute_dtype="float32", lr=TRAIN["lr"], init_s=init_s,
-         losses=losses, gnorms=[m["gnorm"] for m in metrics],
-         lrs=[m["lr"] for m in metrics], step_s=secs,
-         first_step_s=secs[0], step_s_median=step_s,
-         tok_per_s=tokens / step_s, peak_mem_bytes=peak,
-         k3_launches_per_step=per_step, k3_fwd_launches=fwd,
+         compute_dtype="float32", lr=TRAIN["lr"], init_s=run["init_s"],
+         losses=run["losses"], gnorms=run["gnorms"], lrs=run["lrs"],
+         step_s=run["step_s"], first_step_s=run["first_step_s"],
+         step_s_median=run["step_s_median"], tok_per_s=run["tok_per_s"],
+         peak_mem_bytes=run["peak_mem_bytes"],
+         k3_launches_per_step=run["per_step"], k3_fwd_launches=fwd,
          k3_bwd_launches=bwd, grad_check=grads, resume=resume,
          phase_s=time.perf_counter() - t0)
-    return {"fwd_launches": fwd, "bwd_launches": bwd, "step_s": step_s}
+    return {"fwd_launches": fwd, "bwd_launches": bwd,
+            "step_s": run["step_s_median"]}
 
 
-def train_grad_check(dev, cfg):
+def train_grad_check(dev, cfg, batch=TRAIN["batch"], plain=None,
+                     kernels=None):
     """The first step's loss and per-leaf gradients at full width cut to
-    TRAIN_CHECK_LAYERS layers, through K3 both ways, against the same
-    step with the attention on its plain version (``plain_attention``,
-    autograd through it): the loss within TRAIN_LOSS_TOL relative, each
-    leaf within TRAIN_GRAD_TOL of its largest magnitude."""
+    TRAIN_CHECK_LAYERS layers, through the kernels both ways, against the
+    same step with them on their plain versions (``plain``, by default
+    ``plain_attention``; autograd through them): the loss within
+    TRAIN_LOSS_TOL relative, each leaf within TRAIN_GRAD_TOL of its
+    largest magnitude, each backward kernel of ``kernels`` (by default
+    K3's) launched once per layer."""
     import dataclasses
     from repro_torch.data.tokens import make_batch_iter
     from repro_torch.kernels import flash_attention as FA
@@ -2870,28 +3101,109 @@ def train_grad_check(dev, cfg):
     from repro_torch.models.model import Model
     from repro_torch.runtime.steps import value_and_grad
 
+    plain = plain or plain_attention
+    kernels = kernels or {"flash_attention": FA}
     cut = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
     model = Model(cut, LT.train_options(TRAIN["seq"]))
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    batch = next(make_batch_iter(cut, global_batch=TRAIN["batch"],
+    batch = next(make_batch_iter(cut, global_batch=batch,
                                  seq_len=TRAIN["seq"], seed=0, device=dev))
-    b0 = FA.BWD_LAUNCHES
+    b0 = {n: k.BWD_LAUNCHES for n, k in kernels.items()}
     loss, grads = value_and_grad(model, params, batch)
-    launches = FA.BWD_LAUNCHES - b0
-    with plain_attention():
+    launches = {n: k.BWD_LAUNCHES - b0[n] for n, k in kernels.items()}
+    with plain():
         loss_p, grads_p = value_and_grad(model, params, batch)
     rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
     errs = _leaf_errs(grads, grads_p)
     del params, grads, grads_p
+    gc.collect()
     torch.cuda.empty_cache()
-    if launches != TRAIN_CHECK_LAYERS or not rel <= TRAIN_LOSS_TOL \
-            or not max(errs) <= TRAIN_GRAD_TOL:
-        raise AssertionError(f"train grads vs plain attention: loss rel "
-                             f"{rel}, leaves {errs}, K3 backward "
+    if any(n != TRAIN_CHECK_LAYERS for n in launches.values()) \
+            or not rel <= TRAIN_LOSS_TOL or not max(errs) <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"{cfg.name} train grads vs plain versions: "
+                             f"loss rel {rel}, leaves {errs}, backward "
                              f"launches {launches}")
     return {"layers": TRAIN_CHECK_LAYERS, "loss": float(loss),
             "loss_rel_err": rel, "grad_rel_err_max": max(errs),
-            "grad_rel_err": errs, "tol": TRAIN_GRAD_TOL}
+            "grad_rel_err": errs, "tol": TRAIN_GRAD_TOL,
+            "bwd_launches": launches}
+
+
+def phase_train_ssm(dev):
+    """Training the SSM family on the card, counts set to 0 just before
+    the steps and read after each: mamba2-370m at its published config
+    (48 layers, d_model 1,024, d_inner 2,048, 32 heads of 64, d_state
+    128, chunk 256, vocab 50,280), random weights from a seed, through
+    the launcher's step at batch TRAIN_SSM x 2,048 tokens for
+    TRAIN["steps"] steps, K4's forward and its backward kernel once per
+    layer and step. Then the 4-layer gradient check against the step with
+    the SSD scan on its plain version (autograd through
+    ``ssd_scan_ref`` on the card)."""
+    from repro_torch.configs.base import get
+    from repro_torch.kernels import ssd as SSD
+
+    t0 = time.perf_counter()
+    cfg = get("mamba2-370m")
+    run = _train_steps(dev, cfg, TRAIN_SSM, TRAIN["seq"], {"ssd_scan": SSD})
+    _check_train("train_ssm", run, [cfg.n_layers, cfg.n_layers])
+    grads = train_grad_check(dev, cfg, TRAIN_SSM, plain_ssd,
+                             {"ssd_scan": SSD})
+    fwd, bwd = run["totals"]
+    emit("train_ssm", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, d_inner=cfg.ssm.d_inner,
+         ssm_heads=cfg.ssm.d_inner // cfg.ssm.head_dim,
+         d_state=cfg.ssm.d_state, chunk=cfg.ssm.chunk, vocab=cfg.vocab,
+         batch=TRAIN_SSM, seq=TRAIN["seq"], remat="none",
+         compute_dtype="float32", lr=TRAIN["lr"],
+         k4_launches_per_step=run.pop("per_step"), k4_fwd_launches=fwd,
+         k4_bwd_launches=bwd, **run, grad_check=grads,
+         phase_s=time.perf_counter() - t0)
+    return {"fwd_launches": fwd, "bwd_launches": bwd}
+
+
+def phase_train_hybrid(dev):
+    """Training the hybrid family on the card, counts set to 0 just
+    before the steps and read after each: hymba-1.5b at its published
+    config (32 layers, d_model 1,600, 25 heads over 5 kv heads of 64,
+    window 1,024 with layers 0, 15 and 31 global, an SSM branch of 25
+    heads of 64 with d_state 16; vocab 32,001), full depth, random
+    weights from a seed, through the launcher's step at TRAIN_HYBRID x
+    2,048 tokens for TRAIN["steps"] steps at peak rate TRAIN_HYBRID_LR:
+    K3 both ways (windowed in 29 layers) and K4 both ways, each once per
+    layer and step. Then the
+    4-layer gradient check against the step with both on their plain
+    versions."""
+    from repro_torch.configs.base import get
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models.transformer import _layer_window
+
+    t0 = time.perf_counter()
+    cfg = get("hymba-1.5b")
+    run = _train_steps(dev, cfg, TRAIN_HYBRID, TRAIN["seq"],
+                       {"flash_attention": FA, "ssd_scan": SSD},
+                       lr=TRAIN_HYBRID_LR)
+    _check_train("train_hybrid", run, [cfg.n_layers] * 4)
+    windowed = sum(_layer_window(cfg, li) is not None
+                   for li in range(cfg.n_layers))
+    if FA.WINDOW_LAUNCHES != windowed * TRAIN["steps"]:
+        raise AssertionError(f"train_hybrid: {FA.WINDOW_LAUNCHES} windowed "
+                             f"K3 launches, not {windowed} a step")
+    grads = train_grad_check(dev, cfg, TRAIN_HYBRID, plain_hybrid,
+                             {"flash_attention": FA, "ssd_scan": SSD})
+    k3_fwd, k3_bwd, k4_fwd, k4_bwd = run["totals"]
+    emit("train_hybrid", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         window=cfg.window, global_layers=list(cfg.global_layers),
+         windowed_layers=windowed, d_state=cfg.ssm.d_state,
+         vocab=cfg.vocab, batch=TRAIN_HYBRID, seq=TRAIN["seq"],
+         remat="none", compute_dtype="float32", lr=TRAIN_HYBRID_LR,
+         launches_per_step=run.pop("per_step"),
+         launches_order=["k3_fwd", "k3_bwd", "k4_fwd", "k4_bwd"],
+         k3_window_launches=FA.WINDOW_LAUNCHES, **run, grad_check=grads,
+         phase_s=time.perf_counter() - t0)
+    return {"k3_fwd": k3_fwd, "k3_bwd": k3_bwd, "k4_fwd": k4_fwd,
+            "k4_bwd": k4_bwd}
 
 
 def train_resume(dev):
@@ -2947,23 +3259,28 @@ def train_resume(dev):
 def phase_train_families(dev):
     """One train step each of reduced whisper-large-v3 (K3 non-causal in
     the encoder and the cross attention, both ways), mixtral-8x7b (a
-    window of 32 over 64 tokens, the MoE aux loss) and internvl2-26b
-    (``embeds``) on the card against the same step on the card machine's
+    window of 32 over 64 tokens, the MoE aux loss), internvl2-26b
+    (``embeds``), mamba2-370m (K4 both ways) and hymba-1.5b (K3 and K4
+    both ways) on the card against the same step on the card machine's
     CPU (plain versions), weights from one seed on the CPU: the loss, and
     the step's loss and clipped norm, within FAMILY_TOL relative, each
-    gradient leaf within FAMILY_TOL of its largest magnitude. Then
-    reduced mamba2-370m on the card must refuse the gradient by name (K4
-    has no backward yet)."""
+    gradient leaf within FAMILY_TOL of its largest magnitude, each of the
+    family's kernels launched both ways."""
     from repro_torch.configs.base import get
     from repro_torch.data.tokens import make_batch_iter
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.launch import train as LT
     from repro_torch.models.model import Model
     from repro_torch.runtime.steps import (init_train_state, make_train_step,
                                            value_and_grad)
     cpu = torch.device("cpu")
     out = {}
-    for arch in ("whisper-large-v3", "mixtral-8x7b", "internvl2-26b"):
+    for arch, kernels in (("whisper-large-v3", {"k3": FA}),
+                          ("mixtral-8x7b", {"k3": FA}),
+                          ("internvl2-26b", {"k3": FA}),
+                          ("mamba2-370m", {"k4": SSD}),
+                          ("hymba-1.5b", {"k3": FA, "k4": SSD})):
         cfg = get(arch).reduced()
         model = Model(cfg, LT.train_options(FAMILY_SEQ))
         runs = []
@@ -2973,40 +3290,27 @@ def phase_train_families(dev):
             batch = next(make_batch_iter(cfg, global_batch=2,
                                          seq_len=FAMILY_SEQ, seed=0,
                                          device=d))
-            f0, b0 = FA.LAUNCHES, FA.BWD_LAUNCHES
+            c0 = {n: (k.LAUNCHES, k.BWD_LAUNCHES) for n, k in kernels.items()}
             loss, grads = value_and_grad(model, state["params"], batch)
             _, met = _train_step(make_train_step(
                 model, peak_lr=TRAIN["lr"], warmup=LT.WARMUP,
                 total_steps=10), state, batch)
-            runs.append((float(loss), grads, met,
-                         [FA.LAUNCHES - f0, FA.BWD_LAUNCHES - b0]))
+            runs.append((float(loss), grads, met, {
+                n: [k.LAUNCHES - c0[n][0], k.BWD_LAUNCHES - c0[n][1]]
+                for n, k in kernels.items()}))
         (lc, gc_, mc, _), (lg, gg, mg, launches) = runs
         rel = max(abs(lg - lc) / abs(lc),
                   *(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss",
                                                              "gnorm")))
         errs = _leaf_errs(gg, gc_)
         if not rel <= FAMILY_TOL or not max(errs) <= FAMILY_TOL \
-                or min(launches) == 0:
+                or min(min(v) for v in launches.values()) == 0:
             raise AssertionError(f"train {arch}: rel {rel}, leaves {errs}, "
-                                 f"K3 launches {launches}")
+                                 f"launches {launches}")
         out[arch] = {"loss": lg, "loss_cpu": lc, "rel_err": rel,
                      "grad_rel_err_max": max(errs), "gnorm": mg["gnorm"],
-                     "k3_launches": launches}
-    cfg = get("mamba2-370m").reduced()
-    model = Model(cfg, LT.train_options(FAMILY_SEQ))
-    state = init_train_state(model, torch.Generator().manual_seed(0), dev)
-    batch = next(make_batch_iter(cfg, global_batch=2, seq_len=FAMILY_SEQ,
-                                 seed=0, device=dev))
-    try:
-        value_and_grad(model, state["params"], batch)
-        refused = ""
-    except RuntimeError as e:       # the refusal this check expects
-        refused = str(e)
-    if "has no backward" not in refused or "SSD" not in refused:
-        raise AssertionError(f"mamba2 on the card did not refuse the "
-                             f"gradient by name: {refused!r}")
-    emit("train_families", tol=FAMILY_TOL, seq=FAMILY_SEQ, families=out,
-         mamba2_refusal=refused)
+                     **{f"{n}_launches": v for n, v in launches.items()}}
+    emit("train_families", tol=FAMILY_TOL, seq=FAMILY_SEQ, families=out)
     return out
 
 
@@ -3070,6 +3374,95 @@ def phase_time_k3_bwd(dev, fam):
             del q, k, v, do, o, lse, qt, kt, vt, lib_o, lib_do
     emit("time_k3_bwd", flash_attention_bwd=out)
     return out["qwen_train"]
+
+
+def ssd_bwd_work(B, S, H, P, G, N, Q, width=4):
+    """(FLOPs, bytes) the SSD scan's gradient needs at a shape whose S is
+    a multiple of Q, with no state in or out: per (b, chunk), 2 FLOPs a
+    MAC, the causal half of D = dy . x and of dx's intra term per head (P
+    per pair of positions each), dstates, dC's inter term, dB's state
+    term and dx's state term per head (Q P N each), and the causal half
+    of dcb times B and times C per group (N per pair each); x, dy and dx,
+    B, C, dB and dC, dt and ddt (``width`` bytes each), A and dA
+    (float32), each moved once."""
+    nc, pairs = S // Q, Q * (Q + 1) // 2
+    macs = (H * (4 * Q * P * N + 2 * P * pairs) + G * 2 * N * pairs) * B * nc
+    nbytes = (width * (3 * B * S * H * P + 4 * B * S * G * N + 2 * B * S * H)
+              + 4 * 2 * H)
+    return 2 * macs, nbytes
+
+
+def phase_time_k4_bwd(dev, ssm, hybrid):
+    """K4's backward at the training shapes (``K4_BWD_TIME``: mamba2-370m
+    at B=4 and hymba-1.5b at B=1, S=2,048, as ``train_ssm`` and
+    ``train_hybrid`` run them), float32 and bfloat16 operands: the seven
+    passes together (``ssd_scan_bwd``) and each alone on the same
+    scratch, and the plain version ``ssd_scan_bwd_ref``, CUDA-event
+    medians, beside the launches per train step (as counted in
+    ``train_ssm`` and ``train_hybrid``) and the bound: the products of
+    ``ssd_bwd_work`` at the card's peak for the operands' type (float32
+    at 3xTF32, three TF32 products for each float32 one on the tensor
+    cores; bfloat16 at the dense bf16 rate), as ``time_k3_bwd`` counts
+    them, or its bytes at HBM bandwidth, whichever is larger. The same
+    products at the FP32 CUDA-core peak, the arithmetic this kernel
+    uses, stand beside it as ``fp32_core_ms``. No one PyTorch call
+    computes this gradient: library_ms is null. Every timed gradient is
+    held against the plain version's within ``bwd_error_bound``
+    (``err_of_bwd_error_bound``, the largest share of it)."""
+    from repro_torch.kernels import ssd as SSD
+    gen = torch.Generator(device=dev).manual_seed(16)
+    per_step = {"mamba2_train": ssm["bwd_launches"] // TRAIN["steps"],
+                "hymba_train": hybrid["k4_bwd"] // TRAIN["steps"]}
+    out = {}
+    for name, (B, S, H, P, G, N, Q) in K4_BWD_TIME.items():
+        x, dt, A, Bm, Cm, _ = ssd_inputs(B, S, H, P, G, N, gen, dev)
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [x, dt, A, Bm, Cm, dy]
+            if dtype == torch.bfloat16:
+                args = [a.to(dtype) if i != 2 else a
+                        for i, a in enumerate(args)]
+            _, _, scr = SSD._forward(*args[:5], None, Q)
+            got = SSD.ssd_scan_bwd(*args, None, scr, chunk=Q)
+            want = SSD.ssd_scan_bwd_ref(*(a.double() for a in args),
+                                        chunk=Q)
+            bound = SSD.bwd_error_bound(*args, chunk=Q, refs=want)
+            err_share = max(_ratio((g.double() - w).abs(), b)
+                            for g, w, b in zip(got, want, bound)
+                            if g is not None)
+            if not err_share <= 1.0:
+                raise AssertionError(f"time_k4_bwd {name}: the gradient at "
+                                     f"{err_share:.3g}x its bound")
+            del want, bound
+            work = SSD.bwd_scratch(args[0], args[3], Q)
+            passes = {p: cuda_ms(lambda p=p: SSD.launch_bwd(
+                p, *args, None, scr, got, work, Q), 10)
+                for p in SSD.BWD_PASSES}
+            flops, nbytes = ssd_bwd_work(B, S, H, P, G, N, Q,
+                                         width=dtype.itemsize)
+            op_ms = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
+                     else flops / BF16_FLOP_PER_S) * 1e3
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            e = {"dtype": str(dtype).replace("torch.", ""),
+                 "shape": [B, S, H, P, G, N, Q],
+                 "launches_per_step": per_step[name],
+                 "kernel_ms": cuda_ms(lambda: SSD.ssd_scan_bwd(
+                     *args, None, scr, chunk=Q), 20),
+                 "plain_ms": cuda_ms(lambda: SSD.ssd_scan_bwd_ref(
+                     *args, chunk=Q), 5),
+                 "library_ms": None, "pass_ms": passes,
+                 "flops": flops, "bytes": nbytes,
+                 "bound_ms": max(op_ms, byte_ms),
+                 "bound_by": "operations" if op_ms > byte_ms else "bytes",
+                 "fp32_core_ms": flops / FP32_FLOP_PER_S * 1e3,
+                 "err_of_bwd_error_bound": err_share}
+            e["per_step_ms"] = per_step[name] * e["kernel_ms"]
+            out[name if dtype == torch.float32 else name + "_bf16"] = e
+            del args, scr, got, work
+        del x, dt, A, Bm, Cm, dy
+    torch.cuda.empty_cache()
+    emit("time_k4_bwd", ssd_scan_bwd=out)
+    return out
 
 
 def _k1_counts():
@@ -4153,6 +4546,7 @@ def run(dev) -> None:
     k3_err = phase_kernel_k3(dev)
     k3b_err = phase_kernel_k3_bwd(dev)
     k4_err = phase_kernel_k4(dev)
+    k4b_err = phase_kernel_k4_bwd(dev)
     m = phase_main(dev)
     errs = phase_check(m)
     phase_standing(m)
@@ -4165,6 +4559,8 @@ def run(dev) -> None:
     sm = phase_serve_moe(dev)
     se = phase_serve_encdec(dev)
     tr = phase_train(dev)
+    tssm = phase_train_ssm(dev)
+    thyb = phase_train_hybrid(dev)
     fam = phase_train_families(dev)
     per = phase_time(m, errs)
     k2, k3 = phase_time_k2_k3(dev)
@@ -4173,6 +4569,7 @@ def run(dev) -> None:
     m3 = phase_time_moe(dev)
     e3 = phase_time_encdec(dev)
     k3b = phase_time_k3_bwd(dev, fam)
+    k4b = phase_time_k4_bwd(dev, tssm, thyb)
     mm = phase_multi(dev, m)
     multi_err = phase_multi_check(mm)
     pp = phase_pool(dev, t)
@@ -4233,7 +4630,7 @@ def run(dev) -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd.py:63",
-        "launches": ss["launches"],
+        "launches": ss["launches"] + tssm["fwd_launches"],
         "max_abs_err": k4_err,
         "ms": k4["kernel_ms"],
         "plain_ms": k4["plain_ms"],
@@ -4254,6 +4651,21 @@ def run(dev) -> None:
         "bound_by": k3b["bound_by"],
         "library_ms": k3b["library_ms"],
     }] + [{
+        "name": f"ssd_scan_bwd{suffix}",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": ("XLA's gradient of src/repro/models/ssd.py:53 "
+                     "(no Pallas kernel)"),
+        "launches": launches,
+        "max_abs_err": k4b_err,
+        "ms": k4b[shape]["kernel_ms"],
+        "plain_ms": k4b[shape]["plain_ms"],
+        "bound_ms": k4b[shape]["bound_ms"],
+        "bound_by": k4b[shape]["bound_by"],
+        "library_ms": k4b[shape]["library_ms"],
+    } for suffix, shape, launches in (
+        ("", "mamba2_train", tssm["bwd_launches"]),
+        ("[hymba-1.5b]", "hymba_train", thyb["k4_bwd"]))] + [{
         "name": f"flash_attention[hymba-1.5b {kind}]",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -1,7 +1,7 @@
-"""The guard of a kernel launch that has no backward (K1, K2 and K4, and
-K3's forward called alone): its wrapper fills its result through ctypes,
-so autograd would see a result with no gradient and hand zeros upstream
-without a word."""
+"""The guard of a kernel launch that has no backward (K1, K2, K4's passes
+launched one at a time, and K3's forward called alone): its wrapper
+fills its result through ctypes, so autograd would see a result with no
+gradient and hand zeros upstream without a word."""
 from __future__ import annotations
 
 import torch

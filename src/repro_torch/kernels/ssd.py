@@ -37,6 +37,19 @@ operand split into two TF32 numbers, three TF32 products per float32
 one); ``ssd_scan_tf32`` is a float64 model of that arithmetic and
 ``error_bound`` states how far the kernels may lie from the exact scan
 (``chip_smoke.py`` and the card tests hold them so).
+
+The gradient. On a CUDA tensor that needs one, ``ssd_scan`` runs
+``SsdScanFn``: the five passes, their scratch (dts, cum, cb and S_in per
+chunk) kept for the backward kernel ``csrc/ssd_scan_bwd.cu``, seven
+passes on FP32 CUDA cores (``BWD_PASSES``; ``BWD_LAUNCHES`` counts its
+calls), which writes dx, ddt, dA, dB, dC and d(init_state) in their
+operands' dtypes (dA float32) with no atomics, the same bits on every
+launch. Its plain version ``ssd_scan_bwd_ref`` composes the five passes
+reversed (``chunk_scan_bwd_ref``, ``state_passing_bwd_ref``,
+``chunk_state_bwd_ref``, ``bmm_bwd_ref``, ``cumsum_bwd_ref``), each the
+vector-Jacobian product of its forward pass's plain version;
+``bwd_error_bound`` states how far the kernel may lie from the exact
+gradient. The one-pass entry ``launch`` still refuses a gradient.
 """
 from __future__ import annotations
 
@@ -69,8 +82,11 @@ def ssd_chunk_body(x_c, dt_c, la_c, B_c, C_c, state):
     CB = torch.einsum("bqgn,bsgn->bgqs", C_c, B_c)       # (B,G,Q,Q)
     seg = cum[:, :, None] - cum[:, None, :]              # (B,Q,S,G,R) t,s
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                device=x_c.device))
-    w = torch.where(tri[None, :, :, None, None], torch.exp(seg), 0.0)
+                                device=x_c.device))[None, :, :, None, None]
+    # masked before the exp, as the kernels do: above the diagonal seg may
+    # overflow, and autograd's gradient there would be 0 * inf = NaN (the
+    # same values forward)
+    w = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)), 0.0)
     w = w * dt_c[:, None]                                # * dt_s
     y_intra = torch.einsum("bgts,btsgr,bsgrp->btgrp", CB, w, x_c)
     # inter-chunk
@@ -223,6 +239,174 @@ def ssd_scan_passes(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
     return y, final
 
 
+def _unchunk(t, S: int, Q: int):
+    """(B, nc, QP, ...) -> (B, S, ...): the inverse of ``_chunked``."""
+    B, nc = t.shape[:2]
+    return t[:, :, :Q].reshape(B, nc * Q, *t.shape[3:])[:, :S]
+
+
+def _heads(t, R: int, Q: int, nc: int, QP: int):
+    """(B, S, G, N) -> (B, H, nc, QP, N): chunked, each group's rows
+    repeated for its R heads."""
+    c = _chunked(t, Q, nc, QP).repeat_interleave(R, dim=3)
+    return c.permute(0, 3, 1, 2, 4)
+
+
+def _group_sum(t, G: int):
+    """(B, H, nc, QP, N) -> (B, nc, QP, G, N): the sum over the R heads of
+    each group, in head order."""
+    B, H, nc, QP, N = t.shape
+    return t.reshape(B, G, H // G, nc, QP, N).sum(2).permute(0, 2, 3, 1, 4)
+
+
+def chunk_scan_bwd_ref(x, Cm, dts, cum, cb, s_in, dy, *, chunk: int = 256,
+                       passes: Optional[int] = None, mag: bool = False):
+    """The gradient of pass 5 (``chunk_scan_ref``) at dy: (dx (B,S,H,P),
+    dCm (B,S,G,N) through the inter term, ddts and dcum (B,H,nc,QP), dcb
+    (B,nc,G,QP,QP), ds_in (B,H,nc,P,N): the per-chunk dstates,
+    sum_t exp(cum_t) dy_t (x) C_t). With the weights W = cb L dt_s, L =
+    exp(cum_t - cum_s) masked before the exp, and D = dy_t . x_s: dx_s =
+    sum_t W dy_t; dcb = sum over the group's heads of L dt_s D; ddts_s =
+    sum_t cb L D; dcum_t = sum_{s<t} M - sum_{s>t} M^T (M = W D, the
+    diagonal cancelling) plus I_t = dy_t . exp(cum_t) S_in C_t, the inter
+    term. ``mag``: the same with the difference taken as a sum (the
+    bound's sums of magnitudes)."""
+    B, S, H, P = x.shape
+    G = Cm.shape[2]
+    Q, nc, QP = geometry(S, chunk)
+    xc = _chunked(x, Q, nc, QP).permute(0, 3, 1, 2, 4)     # (B,H,nc,QP,P)
+    dyc = _chunked(dy, Q, nc, QP).permute(0, 3, 1, 2, 4)
+    Ch = _heads(Cm, H // G, Q, nc, QP)                      # (B,H,nc,QP,N)
+    E = torch.exp(cum)[..., None]
+    ds_in = _prod("bhctp,bhctn->bhcpn", dyc * E, Ch, passes)
+    dch = _prod("bhctp,bhcpn->bhctn", dyc, s_in, passes) * E
+    inter = (dch * Ch).sum(-1)                              # I_t
+    mask = torch.tril(torch.ones((QP, QP), dtype=torch.bool,
+                                 device=x.device))
+    seg = torch.where(mask, cum[..., :, None] - cum[..., None, :], 0.0)
+    L = torch.where(mask, torch.exp(seg), 0.0)              # (B,H,nc,t,s)
+    cbh = cb.repeat_interleave(H // G, dim=2).transpose(1, 2)
+    D = _prod("bhctp,bhcsp->bhcts", dyc, xc, passes)
+    Z = torch.where(mask, cbh * L * D, 0.0)
+    ddts = Z.sum(-2)
+    M = torch.where(torch.tril(mask, -1), Z * dts[..., None, :], 0.0)
+    dcum = (M.sum(-1) + M.sum(-2) if mag else M.sum(-1) - M.sum(-2)) + inter
+    W = torch.where(mask, cbh * L * dts[..., None, :], 0.0)
+    dxc = _prod("bhcts,bhctp->bhcsp", W, dyc, passes)
+    dcbh = L * dts[..., None, :] * D
+    dcb = dcbh.reshape(B, G, H // G, nc, QP, QP).sum(2).transpose(1, 2)
+    dx = _unchunk(dxc.permute(0, 2, 3, 1, 4), S, Q)
+    return (dx, _unchunk(_group_sum(dch, G), S, Q), ddts, dcum, dcb, ds_in)
+
+
+def state_passing_bwd_ref(s_in, cum, dfinal, ds_in):
+    """The gradient of pass 4 (``state_passing_ref``) given its output
+    s_in, at ds_in (the chunks' dstates) and dfinal (d(final state), or
+    None): (dupd (B,H,nc,P,N), dcum (B,H,nc,QP), dinit (B,H,P,N)). With
+    G_c the gradient of the state leaving chunk c (G_{nc-1} = dfinal,
+    G_{c-1} = exp(total_c) G_c + ds_in[c]): dupd_c = G_c, dcum at the
+    chunk's last slot exp(total_c) <G_c, S_in[c]>, dinit = G_{-1}."""
+    decay = torch.exp(cum[..., -1])                          # (B,H,nc)
+    g = (torch.zeros_like(s_in[:, :, 0]) if dfinal is None
+         else dfinal.to(s_in.dtype))
+    dupd = torch.empty_like(s_in)
+    dcum = torch.zeros_like(cum)
+    for c in reversed(range(s_in.shape[2])):
+        dupd[:, :, c] = g
+        dcum[:, :, c, -1] = decay[:, :, c] * (g * s_in[:, :, c]).sum((-2, -1))
+        g = decay[:, :, c, None, None] * g + ds_in[:, :, c]
+    return dupd, dcum, g
+
+
+def chunk_state_bwd_ref(x, Bm, dts, cum, dupd, *, chunk: int = 256,
+                        passes: Optional[int] = None, mag: bool = False):
+    """The gradient of pass 3 (``chunk_state_ref``) at dupd: (dx
+    (B,S,H,P), dBm (B,S,G,N), ddts and dcum (B,H,nc,QP)). With w_s =
+    exp(total - cum_s) dt_s and K_s = w_s x_s . (dupd B_s): dx_s = w_s
+    dupd B_s, dB_s = sum over the group's heads of w_s dupd^T x_s, ddts_s
+    = K_s / dt_s (formed without the division), dcum_s = -K_s and, at the
+    chunk's last slot (total), + sum_s K_s. ``mag``: -K_s taken as +K_s."""
+    B, S, H, P = x.shape
+    G = Bm.shape[2]
+    Q, nc, QP = geometry(S, chunk)
+    decay = torch.exp(cum[..., -1:] - cum)
+    w = (decay * dts)[..., None]
+    xc = _chunked(x, Q, nc, QP).permute(0, 3, 1, 2, 4)     # (B,H,nc,QP,P)
+    Bh = _heads(Bm, H // G, Q, nc, QP)
+    xg = _prod("bhcsn,bhcpn->bhcsp", Bh, dupd, passes)      # dupd B_s
+    bg = _prod("bhcsp,bhcpn->bhcsn", xc, dupd, passes)      # dupd^T x_s
+    gw = (xg * xc).sum(-1)
+    K = gw * w[..., 0]
+    dcum = K if mag else -K
+    dcum[..., -1] += K.sum(-1)
+    dx = _unchunk((w * xg).permute(0, 2, 3, 1, 4), S, Q)
+    return dx, _unchunk(_group_sum(w * bg, G), S, Q), gw * decay, dcum
+
+
+def bmm_bwd_ref(Bm, Cm, dcb, *, chunk: int = 256,
+                passes: Optional[int] = None):
+    """The gradient of pass 2 (``bmm_ref``) at dcb: (dBm, dCm) (B,S,G,N),
+    dC_t = sum_s dcb[t,s] B_s and dB_s = sum_t dcb[t,s] C_t."""
+    S = Bm.shape[1]
+    Q, nc, QP = geometry(S, chunk)
+    Bc, Cc = _chunked(Bm, Q, nc, QP), _chunked(Cm, Q, nc, QP)
+    dC = _prod("bcgts,bcsgn->bctgn", dcb, Bc, passes)
+    dB = _prod("bcgts,bctgn->bcsgn", dcb, Cc, passes)
+    return _unchunk(dB, S, Q), _unchunk(dC, S, Q)
+
+
+def cumsum_bwd_ref(ddts, dcum, dt, A, *, chunk: int = 256,
+                   mag: bool = False):
+    """The gradient of pass 1 (``cumsum_ref``) at (ddts, dcum): (ddt
+    (B,S,H), dA (H,)). dla = the reverse cumsum of dcum within each chunk
+    (cum_t = sum_{u<=t} dt_u A), ddt = ddts + A dla, dA = sum over (b, s)
+    of dt dla. ``mag``: |A| for A."""
+    S = dt.shape[1]
+    Q, nc, QP = geometry(S, chunk)
+    d = _chunked(dt, Q, nc, QP).permute(0, 3, 1, 2).to(dcum.dtype)
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    a = (A.abs() if mag else A).to(dcum.dtype)[None, :, None, None]
+    ddt = _unchunk((ddts + a * dla).permute(0, 2, 3, 1), S, Q)
+    return ddt, (d * dla).sum((0, 2, 3))
+
+
+def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate=None, *, chunk: int = 256,
+                     init_state=None, passes: Optional[int] = None,
+                     mag: bool = False):
+    """The plain backward: the gradient of ``ssd_scan_ref`` at (dy,
+    dstate), dstate = d(final state) or None. The forward's passes
+    (their plain versions) recomputed for cum, cb and S_in, then the
+    five passes reversed: ``chunk_scan_bwd_ref`` (dx, dC, dcb, dW's
+    share of dcum, the per-chunk dstates), ``state_passing_bwd_ref``
+    (the states' gradients across chunks, d(init_state)),
+    ``chunk_state_bwd_ref``, ``bmm_bwd_ref`` and ``cumsum_bwd_ref`` (ddt,
+    dA). Computes in float32 (float64 for float64 inputs); returns (dx,
+    ddt, dA, dBm, dCm, dinit) in the dtypes of x, dt, A, Bm, Cm and
+    init_state (dinit None without one). ``passes``: every product as
+    ``_prod`` forms it (the TF32 model); ``mag``: the sums of magnitudes
+    (on |x|, |Bm|, |Cm|, |dy|, |dstate|, |init_state|, the real dt and A),
+    which ``bwd_error_bound`` scales."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Af, Bf, Cf, dyf = (t.to(ct) for t in (x, dt, A, Bm, Cm, dy))
+    init = None if init_state is None else init_state.to(ct)
+    dts, cum = cumsum_ref(dtf, Af, chunk=chunk)
+    cb = bmm_ref(Bf, Cf, chunk=chunk, passes=passes)
+    upd = chunk_state_ref(xf, Bf, dts, cum, chunk=chunk, passes=passes)
+    s_in, _ = state_passing_ref(upd, cum, init)
+    dx1, dC1, ddts1, dcum1, dcb, ds_in = chunk_scan_bwd_ref(
+        xf, Cf, dts, cum, cb, s_in, dyf, chunk=chunk, passes=passes, mag=mag)
+    dupd, dcum2, dinit = state_passing_bwd_ref(
+        s_in, cum, None if dstate is None else dstate.to(ct), ds_in)
+    dx2, dB2, ddts2, dcum3 = chunk_state_bwd_ref(
+        xf, Bf, dts, cum, dupd, chunk=chunk, passes=passes, mag=mag)
+    dB3, dC3 = bmm_bwd_ref(Bf, Cf, dcb, chunk=chunk, passes=passes)
+    ddt, dA = cumsum_bwd_ref(ddts1 + ddts2, dcum1 + dcum2 + dcum3, dtf, Af,
+                             chunk=chunk, mag=mag)
+    return ((dx1 + dx2).to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            (dB2 + dB3).to(Bm.dtype), (dC1 + dC3).to(Cm.dtype),
+            None if init_state is None else dinit.to(init_state.dtype))
+
+
 def ssd_scan_tf32(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
                   passes: int = 3):
     """A float64 model of the kernels' arithmetic: the passes in float64,
@@ -297,6 +481,84 @@ def error_bound(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
     return bound_y, u * L * float(mag_state.max())
 
 
+def bwd_error_bound(x, dt, A, Bm, Cm, dy, dstate=None, *, chunk: int = 256,
+                    init_state=None, refs=None):
+    """Bounds on |backward kernel - exact gradient| for (dx, ddt, dA, dBm,
+    dCm, dinit) (dinit None without ``init_state``), per element and in
+    their shapes, float64; inputs in the kernel's dtypes (bfloat16 ones
+    widened: the kernel widens them exactly). u * L * M, with u = 2^-24,
+    M the sums of magnitudes of each gradient's terms
+    (``ssd_scan_bwd_ref`` in float64 with ``mag``: |x|, |Bm|, |Cm|, |dy|,
+    |dstate|, |init_state|, the real dt and A for the decays, |A| as a
+    factor, each difference of dcum taken as a sum) and
+
+        L = 2N + P + R + 3 S' + 2 QP + 72 Lambda + nc (13 Lambda + 6)
+            + 104 + ceil(P N / 1024) + 2 PRODUCT_ERR / u,
+
+    plus B nc + QP for dA (S' = nc Q, R = H / G, Lambda the largest sum
+    of |dt * A| over one chunk, as ``error_bound``'s).
+
+    Derivation, terms in units of u on a term's magnitude, every sum in
+    float32 in any order (n - 1 roundings for n terms). The forward's
+    scratch: cum within 13 Lambda (``error_bound``), so each decay
+    exp(cum_t - cum_s) or exp(total - cum_s) within 26 Lambda + 4 (expf's
+    2 ulp) + 1, exp(cum_t) and exp(total) within 13 Lambda + 5; cb within
+    N + 14 (one 3xTF32 product, ``pass_errors``); S_in within the forward
+    state's N + 3 S' + 32 Lambda + 40. The backward's FP32 products: the
+    dstates, Q-term sums (QP); the states' gradients G_c, one fma and one
+    exp(total_c) a chunk, nc (13 Lambda + 6); dx, its intra sum over t
+    (QP) and its state term over n (N); D over p (P) and dcb over the R
+    heads; dB and dC their intra sums over QP terms and their per-head
+    terms over P and R; dcum's row and column sums (QP each), I and K
+    (N and P terms), <G_c, S_in> (4-term runs, a 256-thread tree and
+    ceil(P N / 1024) slices in order), and its reverse cumsum (QP). The
+    longest chain of these is bounded by L: the forward's S_in into I
+    and dC (N + 3 S' + 32 Lambda + 40, then P + N + R + 13 Lambda + 5 +
+    2 QP for the dcum sums and the cumsum), or the state term's chain
+    (QP + 13 Lambda + 5, nc (13 Lambda + 6), N + 26 Lambda + 5, R + P),
+    with slack for the few products and adds that join the parts. dA
+    adds its sum over the B nc chunks and, within one, its QP terms.
+
+    bfloat16 outputs (dx, dB, dC for bfloat16 x; ddt for bfloat16 dt;
+    dinit for a bfloat16 state in): the rounding to bfloat16, BF16_ROUND
+    (|exact| + the float32 bound); the exact gradients are ``refs``
+    (``ssd_scan_bwd_ref`` in float64 on the widened inputs), or computed
+    here when needed. A plain TF32 product (about 2^-10 of |a||b|) breaks
+    this bound (``tests/test_torch_ssd_grad.py``)."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q, nc, QP = geometry(S, chunk)
+    la = F.pad((dt.double() * A.double()[None, None, :]).abs(),
+               (0, 0, 0, nc * Q - S))
+    lam = float(la.reshape(B, nc, Q, H).sum(2).max())
+
+    def d64(t, mag=True):
+        return None if t is None else (t.double().abs() if mag
+                                       else t.double())
+    mags = ssd_scan_bwd_ref(d64(x), d64(dt, False), d64(A, False), d64(Bm),
+                            d64(Cm), d64(dy), d64(dstate), chunk=chunk,
+                            init_state=d64(init_state), mag=True)
+    u = 2.0 ** -24
+    L = (2 * N + P + H // G + 3 * nc * Q + 2 * QP + 72 * lam
+         + nc * (13 * lam + 6) + 104 + -(-P * N // 1024)
+         + 2 * PRODUCT_ERR / u)
+    bounds = [None if m is None else u * L * m for m in mags]
+    bounds[2] = u * (L + B * nc + QP) * mags[2]
+    bf = [x.dtype, dt.dtype, None, x.dtype, x.dtype,
+          None if init_state is None else init_state.dtype]
+    if any(t == torch.bfloat16 for t in bf):
+        if refs is None:
+            refs = ssd_scan_bwd_ref(
+                d64(x, False), d64(dt, False), d64(A, False),
+                d64(Bm, False), d64(Cm, False), d64(dy, False),
+                d64(dstate, False), chunk=chunk,
+                init_state=d64(init_state, False))
+        bounds = [bd if t != torch.bfloat16 else
+                  bd + BF16_ROUND * (r.double().abs() + bd)
+                  for bd, r, t in zip(bounds, refs, bf)]
+    return tuple(bounds)
+
+
 def bind(lib) -> Dict[str, object]:
     """The passes of a loaded ``ssd_scan`` library, typed for ctypes."""
     fns = {name: getattr(lib, name) for name in PASSES}
@@ -367,18 +629,21 @@ def _check(x, dt, A, Bm, Cm, chunk, init_state) -> None:
                          f"batches, not {B}")
 
 
-def scratch(x, Bm, chunk: int) -> Dict[str, torch.Tensor]:
-    """The passes' scratch for one call, uninitialised (``torch.empty``):
-    dts and cum (B,H,nc,QP), cb (B,nc,G,QP,QP) and states
-    (B,H,nc,P,N)."""
+def scratch_shapes(x, Bm, chunk: int) -> Dict[str, tuple]:
+    """The shapes of the passes' scratch: dts and cum (B,H,nc,QP), cb
+    (B,nc,G,QP,QP) and states (B,H,nc,P,N)."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     _, nc, QP = geometry(S, chunk)
-    kw = dict(dtype=torch.float32, device=x.device)
-    return {"dts": torch.empty((B, H, nc, QP), **kw),
-            "cum": torch.empty((B, H, nc, QP), **kw),
-            "cb": torch.empty((B, nc, G, QP, QP), **kw),
-            "states": torch.empty((B, H, nc, P, N), **kw)}
+    return {"dts": (B, H, nc, QP), "cum": (B, H, nc, QP),
+            "cb": (B, nc, G, QP, QP), "states": (B, H, nc, P, N)}
+
+
+def scratch(x, Bm, chunk: int) -> Dict[str, torch.Tensor]:
+    """The passes' scratch for one call (``scratch_shapes``), float32,
+    uninitialised (``torch.empty``)."""
+    return {k: torch.empty(v, dtype=torch.float32, device=x.device)
+            for k, v in scratch_shapes(x, Bm, chunk).items()}
 
 
 def launch(name: str, x, dt, A, Bm, Cm, init_state, y, state,
@@ -482,17 +747,119 @@ def pass_errors(x, dt, A, Bm, Cm, *, chunk: int = 256,
     return out
 
 
-def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
-    """x (B,S,H,P); dt (B,S,H) post-softplus; A (H,) negative; Bm, Cm
-    (B,S,G,N); init_state (B,H,P,N) or None. Returns y (B,S,H,P) in x's
-    dtype and the final state (B,H,P,N) in float32."""
-    global LAUNCHES
+BWD_PASSES = ("ssd_bwd_dstates", "ssd_bwd_state_passing", "ssd_bwd_dcb",
+              "ssd_bwd_dx", "ssd_bwd_dbc", "ssd_bwd_ddt", "ssd_bwd_dA")
+BWD_LAUNCHES = 0
+_BWD_FNS: Dict[str, object] = {}
+
+
+def bind_bwd(lib) -> Dict[str, object]:
+    """The passes of a loaded ``ssd_scan_bwd`` library, typed for
+    ctypes."""
+    fns = {name: getattr(lib, name) for name in BWD_PASSES}
+    for fn in fns.values():
+        fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def _bwd_lib() -> Dict[str, object]:
+    if not _BWD_FNS:
+        from repro_torch.kernels import build
+        _BWD_FNS.update(bind_bwd(build.load("ssd_scan_bwd")))
+    return _BWD_FNS
+
+
+def bwd_scratch(x, Bm, chunk: int) -> Dict[str, torch.Tensor]:
+    """The backward passes' scratch, uninitialised: dst (B,H,nc,P,N),
+    dcb (B,nc,G,QP,QP), rs and cs (B,H,nc,QP/64,QP), pI, pK and pD
+    (B,H,nc,QP), ep (B,H,nc,ceil(P*N/1024)) and dap (B,H,nc)."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    _, nc, QP = geometry(S, chunk)
+    kw = dict(dtype=torch.float32, device=x.device)
+    pos = torch.empty((3, B, H, nc, QP), **kw)
+    return {"dst": torch.empty((B, H, nc, P, N), **kw),
+            "dcb": torch.empty((B, nc, G, QP, QP), **kw),
+            "rs": torch.empty((B, H, nc, QP // TILE, QP), **kw),
+            "cs": torch.empty((B, H, nc, QP // TILE, QP), **kw),
+            "pI": pos[0], "pK": pos[1], "pD": pos[2],
+            "ep": torch.empty((B, H, nc, -(-P * N // 1024)), **kw),
+            "dap": torch.empty((B, H, nc), **kw)}
+
+
+def launch_bwd(name: str, x, dt, A, Bm, Cm, dy, dstate, scr, grads, work,
+               chunk: int) -> None:
+    """Launch one backward pass (a name in ``BWD_PASSES``) on the current
+    stream and raise on its launch error: the forward's operands and
+    scratch ``scr`` (after its five passes), dy and dstate (or None), the
+    gradients ``grads`` (dx, ddt, dA, dBm, dCm, dinit or None) and the
+    backward's scratch ``work`` (``bwd_scratch``). Counts nothing."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = _bwd_lib()[name](
+        *(ptr(t) for t in (x, dt, A, Bm, Cm, dy, dstate, scr["dts"],
+                           scr["cum"], scr["cb"], scr["states"], *grads)),
+        *(work[k].data_ptr() for k in ("dst", "dcb", "rs", "cs", "pI", "pK",
+                                       "pD", "ep", "dap")),
+        B, S, H, P, G, N, min(chunk, S), int(x.dtype == torch.bfloat16),
+        int(dt.dtype == torch.bfloat16),
+        int(grads[5] is not None and grads[5].dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward pass {name} failed: "
+                           f"cudaError {err}")
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None, scr=None, *,
+                 chunk: int = 256, init_state=None):
+    """The gradient of ``ssd_scan`` at (dy, dstate) (dstate = d(final
+    state) or None): (dx, ddt, dA, dBm, dCm, dinit) in the dtypes of x,
+    dt, A, Bm, Cm and init_state (dinit None without one). On a CUDA
+    tensor it launches ``csrc/ssd_scan_bwd.cu``'s seven passes on the
+    forward's scratch ``scr`` (``scratch``, after the five forward passes)
+    or raises; on a CPU tensor it is ``ssd_scan_bwd_ref``."""
+    global BWD_LAUNCHES
     if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
-                            init_state=init_state)
+        return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate, chunk=chunk,
+                                init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    refuse_grad("the SSD kernel (K4)", x, dt, A, Bm, Cm, init_state)
+    _check(x, dt, A, Bm, Cm, chunk, init_state)
+    B, S, H, P = x.shape
+    N = Bm.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"dy must be a contiguous {x.dtype} tensor of x's "
+                         f"shape {tuple(x.shape)} on {x.device}")
+    if dstate is not None and (
+            tuple(dstate.shape) != (B, H, P, N)
+            or dstate.dtype != torch.float32 or dstate.device != x.device
+            or not dstate.is_contiguous()):
+        raise ValueError(f"dstate must be a contiguous float32 tensor of "
+                         f"shape {(B, H, P, N)} on {x.device}")
+    if scr is None or any(tuple(scr[k].shape) != v for k, v in
+                          scratch_shapes(x, Bm, chunk).items()):
+        raise ValueError("the backward needs the forward's scratch of this "
+                         "call (ssd.scratch after its five passes)")
+    grads = (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
+             torch.empty_like(Bm), torch.empty_like(Cm),
+             None if init_state is None else torch.empty_like(init_state))
+    work = bwd_scratch(x, Bm, chunk)
+    for name in BWD_PASSES:
+        launch_bwd(name, x, dt, A, Bm, Cm, dy, dstate, scr, grads, work,
+                   chunk)
+    BWD_LAUNCHES += 1
+    return grads
+
+
+def _forward(x, dt, A, Bm, Cm, init_state, chunk: int):
+    """The five passes: (y, state, their scratch). Counts one launch."""
+    global LAUNCHES
     _check(x, dt, A, Bm, Cm, chunk, init_state)
     B, S, H, P = x.shape
     N = Bm.shape[3]
@@ -502,4 +869,52 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
     for name in PASSES:
         launch(name, x, dt, A, Bm, Cm, init_state, y, state, scr, chunk)
     LAUNCHES += 1
-    return y, state
+    return y, state, scr
+
+
+class SsdScanFn(torch.autograd.Function):
+    """K4 with its gradient: the five forward passes, keeping their
+    scratch (dts, cum, cb and S_in per chunk) for the backward kernel. On
+    CPU tensors the plain versions both ways (``ssd_scan_ref``,
+    ``ssd_scan_bwd_ref``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk: int):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        if x.device.type == "cpu":
+            y, state = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                                    init_state=init_state)
+            ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+            return y, state
+        y, state, scr = _forward(x, dt, A, Bm, Cm, init_state, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state, scr["dts"],
+                              scr["cum"], scr["cb"], scr["states"])
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm, init, *saved = ctx.saved_tensors
+        scr = dict(zip(("dts", "cum", "cb", "states"), saved)) or None
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = ssd_scan_bwd(x, dt, A, Bm, Cm, dy,
+                             None if dstate is None else dstate.contiguous(),
+                             scr, chunk=ctx.chunk, init_state=init)
+        return (*grads, None)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
+    """x (B,S,H,P); dt (B,S,H) post-softplus; A (H,) negative; Bm, Cm
+    (B,S,G,N); init_state (B,H,P,N) or None. Returns y (B,S,H,P) in x's
+    dtype and the final state (B,H,P,N) in float32. On a CUDA tensor
+    that needs a gradient, through ``SsdScanFn``."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                            init_state=init_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        return SsdScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk)
+    return _forward(x, dt, A, Bm, Cm, init_state, chunk)[:2]

@@ -14,10 +14,10 @@ compute, microbatches from ``--microbatches``, a warmup of 20 steps. One
 card, so ``--model-axis`` must be 1 (the reference's elastic reshard onto
 a new mesh has no counterpart). ``--device`` defaults to CUDA, as every
 entry point of the port; the weights are drawn from ``--seed`` on the
-CPU, so a seed gives the same model on either device. On the card the
-attention runs kernel K3 both ways (the forward and its backward
-kernel); the SSM and hybrid families' K4 has no backward yet and refuses
-a gradient, so they train on the CPU only.
+CPU, so a seed gives the same model on either device. On the card every
+family trains: the attention runs kernel K3 both ways (the forward and
+its backward kernel), the SSM and hybrid families' scan kernel K4 both
+ways (its five forward passes and its backward kernel).
 """
 from __future__ import annotations
 

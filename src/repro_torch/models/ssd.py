@@ -7,8 +7,9 @@ Math (per head h, state S in R^{P x N}):
     y_t = C_t . S_t + D_h * x_t
 
 ``ssd_scan`` is kernel K4 (``kernels/ssd.py``): the hand-written Hopper
-kernels (five passes) on a CUDA tensor, the plain chunked form
-(``ssd_chunk_body`` looped over chunks) on the CPU. ``ssd_decode_step``, ``causal_conv`` and
+kernels (five passes, and the backward kernel's seven where a gradient
+is needed) on a CUDA tensor, the plain chunked form (``ssd_chunk_body``
+looped over chunks) on the CPU. ``ssd_decode_step``, ``causal_conv`` and
 ``causal_conv_step`` are plain PyTorch, as the reference has no kernel
 for them; ``causal_conv`` keeps the reference's loop over the conv width
 (not ``F.conv1d``), so its sums run in the reference's order.

@@ -10,9 +10,12 @@ card against the CPU, the reduced whisper on the card against the CPU
 on the card, K3's backward kernel against its plain version
 (``bwd_error_bound``) at every head dim and tile, the same bits on two
 launches, gradients through K3 on the card (the kernel's,
-nonzero), the kernels without a backward refusing a gradient by name,
-and one train step of the reduced dense, MoE, vlm and encoder-decoder
-models on the card against the CPU (1e-5). ``cuda``-marked: every test
+nonzero), K4's backward kernel (``csrc/ssd_scan_bwd.cu``) within its
+``bwd_error_bound`` with the same bits on two launches, the kernels
+without a backward refusing a gradient by name (K2, and K4's one-pass
+``launch``), and one train step of the reduced dense, MoE, vlm,
+encoder-decoder, SSM and hybrid models on the card against the CPU
+(1e-5). ``cuda``-marked: every test
 skips where no card is visible. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1472,17 +1475,20 @@ def test_k3_gradients_on_card_flow_through_the_kernel(cuda):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_gradients(cuda):
+    """K2 and K4's one-pass ``launch`` refuse a gradient by name; K4's
+    ``ssd_scan`` takes it through ``SsdScanFn`` (its backward kernel),
+    and so mamba2's ``value_and_grad`` runs on the card."""
     x = torch.randn((1, 32, 2, 16), device=cuda, requires_grad=True)
     dt = torch.rand((1, 32, 2), device=cuda)
     A = -torch.rand(2, device=cuda)
     Bm = torch.randn((1, 32, 1, 16), device=cuda)
     with pytest.raises(RuntimeError, match="SSD kernel.*no backward"):
-        SSD.ssd_scan(x, dt, A, Bm, Bm, chunk=16)
-    with pytest.raises(RuntimeError, match="SSD kernel.*no backward"):
         SSD.launch("ssd_cumsum", x, dt, A, Bm, Bm, None, x, x, {}, 16)
+    y, _ = SSD.ssd_scan(x, dt, A, Bm, Bm, chunk=16)
+    assert y.grad_fn is not None
     with torch.no_grad():
         y, _ = SSD.ssd_scan(x, dt, A, Bm, Bm, chunk=16)
-    assert y.shape == x.shape
+    assert y.shape == x.shape and y.grad_fn is None
     frame = torch.rand((2, 8, 8, 3), device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="downsample kernel.*no backward"):
         FP.downsample(frame, 2)
@@ -1491,17 +1497,97 @@ def test_kernels_without_a_backward_refuse_gradients(cuda):
     params = model.init(torch.Generator().manual_seed(0), cuda)
     tokens = torch.randint(0, 256, (2, 32), device=cuda)
     from repro_torch.runtime.steps import value_and_grad
-    with pytest.raises(RuntimeError, match="SSD kernel.*no backward"):
-        value_and_grad(model, params, {"tokens": tokens})
+    b0 = SSD.BWD_LAUNCHES
+    loss, grads = value_and_grad(model, params, {"tokens": tokens})
+    assert SSD.BWD_LAUNCHES == b0 + cfg.n_layers
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("full", "dots"))
+def test_k4_backward_under_remat_on_card(cuda, mode):
+    """mamba2's ``value_and_grad`` on the card with ``remat`` full or
+    dots: the forward launched again in the backward (two launches a
+    layer), the backward once a layer, the gradients those without remat
+    within 1e-6 of each leaf's largest magnitude (the same kernels; the
+    products around them recomputed)."""
+    from repro_torch.runtime.steps import value_and_grad
+    cfg = get("mamba2-370m").reduced()
+    tokens = torch.randint(0, 256, (2, 64), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(0))
+    out = {}
+    for remat in ("none", mode):
+        model = Model(cfg, RunOptions(remat=remat, compute_dtype="float32"))
+        params = model.init(torch.Generator().manual_seed(0), cuda)
+        n0 = (SSD.LAUNCHES, SSD.BWD_LAUNCHES)
+        loss, grads = value_and_grad(model, params, {"tokens": tokens})
+        out[remat] = (grads, SSD.LAUNCHES - n0[0], SSD.BWD_LAUNCHES - n0[1])
+    L = cfg.n_layers
+    assert out["none"][1:] == (L, L) and out[mode][1:] == (2 * L, L)
+    for a, b in zip(out[mode][0], out["none"][0]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(
+            b.abs().max().clamp_min(1e-30))
+
+
+K4_BWD_CASES = (             # B, S, H, P, G, N, chunk, init, d(final)
+    (2, 300, 4, 64, 1, 128, 256, True, True),    # S % Q != 0
+    (1, 100, 8, 16, 2, 16, 256, False, True),    # S < Q, G > 1
+    (1, 200, 25, 64, 1, 16, 64, True, False),    # R = 25, N = 16
+    (2, 61, 4, 12, 2, 20, 8, False, False),      # Q 8, P 12, N 20
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", K4_BWD_CASES)
+def test_k4_backward_within_its_bound_same_bits(cuda, case, dtype):
+    """K4's backward kernel on the forward kernels' scratch: every
+    gradient within ``bwd_error_bound`` of the plain version in float64,
+    in its operand's dtype, and the same bits on a second launch."""
+    B, S, H, P, G, N, chunk, with_init, with_dfinal = case
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    x, dy = randn(B, S, H, P).to(dtype), randn(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H) - 3).to(dtype)
+    A = -(1 + 15 * torch.rand(H, generator=gen, device=cuda))
+    Bm, Cm = randn(B, S, G, N).to(dtype), randn(B, S, G, N).to(dtype)
+    init = randn(B, H, P, N).to(dtype) if with_init else None
+    dfinal = randn(B, H, P, N) if with_dfinal else None
+    _, _, scr = SSD._forward(x, dt, A, Bm, Cm, init, chunk)
+    got = SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfinal, scr, chunk=chunk,
+                           init_state=init)
+    again = SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfinal, scr, chunk=chunk,
+                             init_state=init)
+    torch.cuda.synchronize()
+
+    def f64(t):
+        return None if t is None else t.double()
+    want = SSD.ssd_scan_bwd_ref(*map(f64, (x, dt, A, Bm, Cm, dy, dfinal)),
+                                chunk=chunk, init_state=f64(init))
+    bound = SSD.bwd_error_bound(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk,
+                                init_state=init, refs=want)
+    types = (dtype, dtype, torch.float32, dtype, dtype, dtype)
+    assert (got[5] is None) == (init is None)
+    for g, h, w, b, t in zip(got, again, want, bound, types):
+        if g is None:
+            continue
+        assert g.dtype == t and torch.equal(g, h)
+        assert bool(((g.double() - w).abs() <= b).all())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "mixtral-8x7b",
-                                  "internvl2-26b", "whisper-large-v3"))
+                                  "internvl2-26b", "whisper-large-v3",
+                                  "mamba2-370m", "hymba-1.5b"))
 def test_train_step_on_card_matches_cpu(cuda, arch):
-    """One step of the launcher's train step on the card (K3 both ways)
-    against the same step on the CPU: loss within 1e-5 relative, each
-    gradient leaf within 1e-5 of its largest magnitude."""
+    """One step of the launcher's train step on the card (K3 both ways;
+    K4 both ways for mamba2 and hymba) against the same step on the CPU:
+    loss within 1e-5 relative, each gradient leaf within 1e-5 of its
+    largest magnitude."""
     from repro_torch.data.tokens import make_batch_iter
     from repro_torch.launch.train import train_options
     from repro_torch.runtime.steps import (init_train_state,
@@ -1513,13 +1599,14 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
         state = init_train_state(model, torch.Generator().manual_seed(0), dev)
         batch = next(make_batch_iter(cfg, global_batch=2, seq_len=64,
                                      seed=0, device=dev))
-        b0 = FA.BWD_LAUNCHES
+        b0 = (FA.BWD_LAUNCHES, SSD.BWD_LAUNCHES)
         loss, grads = value_and_grad(model, state["params"], batch)
         _, met = make_train_step(model)(state, batch)
         runs.append((float(loss), grads, float(met["gnorm"]),
-                     FA.BWD_LAUNCHES - b0))
+                     (FA.BWD_LAUNCHES - b0[0], SSD.BWD_LAUNCHES - b0[1])))
     (lc, gc, nc, _), (lg, gg, ng, launches) = runs
-    assert launches > 0
+    uses = {"mamba2-370m": (False, True), "hymba-1.5b": (True, True)}
+    assert tuple(n > 0 for n in launches) == uses.get(arch, (True, False))
     assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(ng - nc) <= 1e-5 * nc
     for a, b in zip(gg, gc):
         assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
