@@ -70,8 +70,9 @@ script fails before it prints a result.
               or float32; a bfloat16 state in): both serve prefills, a
               state in, S % Q != 0, G > 1, Q 16, and P 12, N 20; y in
               bfloat16, the state in float32.
-5c. kernel_k4_bwd  K4's backward (``csrc/ssd_scan_bwd.cu``, seven
-              passes) on the forward kernels' own scratch against its
+5c. kernel_k4_bwd  K4's backward (``csrc/ssd_scan_bwd.cu``, nine
+              passes, 3xTF32 ``wgmma``) on the forward kernels' own
+              scratch against its
               plain version ``ssd_scan_bwd_ref`` run in float64 on the
               same CUDA tensors, dx, ddt, dA, dB, dC and d(init_state)
               each within ``bwd_error_bound`` and in its operand's
@@ -288,13 +289,13 @@ script fails before it prints a result.
               products of the gradient at 3xTF32's rate for float32, the
               dense bf16 rate for bfloat16); then (``time_k4_bwd``) K4's
               backward at mamba2-370m's and hymba-1.5b's training shapes
-              (B=4 and B=1, S=2,048) in both dtypes, the seven passes
+              (B=4 and B=1, S=2,048) in both dtypes, the nine passes
               together and each alone, beside its launches per train
               step, its plain version and its bound (the gradient's
               products at 3xTF32's rate for float32, the dense bf16 rate
-              for bfloat16, or its bytes; the FP32 CUDA-core time, the
-              kernel's arithmetic, beside it; no PyTorch call computes
-              it). Every timed K3 output
+              for bfloat16, or its bytes; the same products at the FP32
+              CUDA-core peak beside it; no PyTorch call computes it).
+              Every timed K3 output
               and K4 gradient is held against its plain version on the
               same inputs. The library calls are yardsticks the port
               never calls.
@@ -1343,7 +1344,7 @@ def _k4_bwd_fd(SSD, dev):
 
 
 def phase_kernel_k4_bwd(dev):
-    """K4's backward (``csrc/ssd_scan_bwd.cu``, its seven passes) on the
+    """K4's backward (``csrc/ssd_scan_bwd.cu``, its nine passes) on the
     forward kernels' own scratch against its plain version
     ``ssd_scan_bwd_ref`` run in float64 on the same CUDA tensors, every
     gradient (dx, ddt, dA, dB, dC, d(init_state)) within
@@ -3395,19 +3396,20 @@ def ssd_bwd_work(B, S, H, P, G, N, Q, width=4):
 def phase_time_k4_bwd(dev, ssm, hybrid):
     """K4's backward at the training shapes (``K4_BWD_TIME``: mamba2-370m
     at B=4 and hymba-1.5b at B=1, S=2,048, as ``train_ssm`` and
-    ``train_hybrid`` run them), float32 and bfloat16 operands: the seven
-    passes together (``ssd_scan_bwd``) and each alone on the same
-    scratch, and the plain version ``ssd_scan_bwd_ref``, CUDA-event
-    medians, beside the launches per train step (as counted in
-    ``train_ssm`` and ``train_hybrid``) and the bound: the products of
-    ``ssd_bwd_work`` at the card's peak for the operands' type (float32
-    at 3xTF32, three TF32 products for each float32 one on the tensor
-    cores; bfloat16 at the dense bf16 rate), as ``time_k3_bwd`` counts
-    them, or its bytes at HBM bandwidth, whichever is larger. The same
-    products at the FP32 CUDA-core peak, the arithmetic this kernel
-    uses, stand beside it as ``fp32_core_ms``. No one PyTorch call
-    computes this gradient: library_ms is null. Every timed gradient is
-    held against the plain version's within ``bwd_error_bound``
+    ``train_hybrid`` run them), float32 and bfloat16 operands: the nine
+    passes together (``ssd_scan_bwd``) and each alone (by name, as
+    ``BWD_PASSES`` lists them) on the same scratch, and the plain version
+    ``ssd_scan_bwd_ref``, CUDA-event medians, beside the launches per
+    train step (as counted in ``train_ssm`` and ``train_hybrid``) and the
+    bound: the products of ``ssd_bwd_work`` at the card's peak for the
+    operands' type (float32 at 3xTF32, three TF32 products for each
+    float32 one on the tensor cores; bfloat16 at the dense bf16 rate), as
+    ``time_k3_bwd`` counts them, or its bytes at HBM bandwidth, whichever
+    is larger. The same products at the FP32 CUDA-core peak stand beside
+    it as ``fp32_core_ms`` (the floor of a kernel that keeps them off the
+    tensor cores). No one PyTorch call computes this gradient: library_ms
+    is null. Every timed gradient is held against the plain version's
+    within ``bwd_error_bound``
     (``err_of_bwd_error_bound``, the largest share of it)."""
     from repro_torch.kernels import ssd as SSD
     gen = torch.Generator(device=dev).manual_seed(16)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by ablation, on one NVIDIA card.
 
-    python3 scripts/chip_ablate.py [k4 k3 k3_bwd k1]   # from the repo root
+    python3 scripts/chip_ablate.py [k4 k3 k3_bwd k4_bwd k1]   # repo root
 
-With no names it runs all four.
+With no names it runs all five.
 
 The card's machine has no profiler that reads kernel counters, so this
 script builds edited copies of a kernel source (a loop bound set to 0,
@@ -35,6 +35,16 @@ part taken out.
   and ``cvt_split`` (the TF32 split by two ``cvt.rna`` instead of
   ``split_bits``' integer arithmetic). Each reports whether it gave the
   kernel's bits.
+- K4's backward (``csrc/ssd_scan_bwd.cu``) at each shape of
+  ``chip_smoke.K4_BWD_TIME`` (mamba2-370m's and hymba-1.5b's training
+  shapes), float32 and bfloat16, the whole gradient and each of its
+  nine passes: ``hs1`` (one head slice a group: each block of the dcb
+  and heads passes loops over all the group's heads, the same function
+  summed in another order), ``one_pass`` (big*big only, the small
+  3xTF32 terms dropped), ``no_exp`` (the decays of the dx pass's
+  weights and of dcb taken as 1) and ``ring2`` (the dx pass with a
+  2-stage ring of staging, 108 KB: two blocks an SM instead of three,
+  the same function). Each reports whether it gave the kernel's bits.
 - K1 (``csrc/warehouse_agg.cu``) on a window x category plan over a
   (rows, 9) column of 11,059,200 rows with the category changing from
   row to row: ``no_add`` (the wide value's reduction taken out),
@@ -108,6 +118,46 @@ K3_BWD_CUTS = {
               "    if (dead) continue;\n")],
     "cvt_split": [("split_bits(", "split(")],
 }
+K4_BWD_CUTS = {
+    "hs1": [("#define HSMAX 4 ", "#define HSMAX 1 ")],
+    "one_pass": [
+        ("  if constexpr (SA) wgmma_rs_n64(acc, as, bb);\n", ""),
+        ("  if constexpr (SB) wgmma_rs_n64(acc, ab, smem_desc(sb + W, "
+         "(T / 8) * 128,\n" + " " * 52 + "128));\n", ""),
+        ("        wgmma_ss_n64(d, smem_desc(ay + W + o, (T / 8) * 128, "
+         "128), bb);\n        wgmma_ss_n64(d, ab, smem_desc(bx + W + "
+         "o, (T / 8) * 128, 128));\n", "")],
+    "no_exp": [("st[tl * SPT + sl] * expf(cumv[t] - cumv[s])",
+                "st[tl * SPT + sl]"),
+               ("z = d[i] * (expf(ct - v[T + sl]) * v[2 * T + sl]);",
+                "z = d[i] * v[2 * T + sl];"),
+               ("const float rf = ti > si ? expf(ct - ref) : 0.f;",
+                "const float rf = 1.f;"),
+               ("expf(ref - v[T + threadIdx.x]) * v[2 * T + threadIdx.x]",
+                "v[2 * T + threadIdx.x]")],
+}
+K4_BWD_CUTS["ring2"] = [
+    ("  float* stage = (float*)(sp + 2 * W);       // [B or cb, G or dy]\n"
+     "  float* cumv = stage + STAGE;               // [QP]",
+     "  float* stage = (float*)(sp + 2 * W);\n"
+     "  float* cumv = stage + 2 * STAGE;"),
+    ("  float* st = stage;\n  load(0, st);\n  cp_commit();\n"
+     "  for (int it = 0; it < steps; ++it) {\n"
+     "    const bool state = it < ns;\n    cp_wait_all();\n"
+     "    __syncthreads();                  // step it's tiles are in "
+     "(cumv, dtv)",
+     "  load(0, stage);\n  cp_commit();\n"
+     "  if (steps > 1) load(1, stage + STAGE);\n  cp_commit();\n"
+     "  for (int it = 0; it < steps; ++it) {\n"
+     "    float* st = stage + (it & 1) * STAGE;\n"
+     "    const bool state = it < ns;\n    cp_wait_all_but_one();\n"
+     "    __syncthreads();"),
+    ("    if (it + 1 < steps) load(it + 1, st);   // in flight with the "
+     "products\n",
+     "    __syncthreads();\n    if (it + 2 < steps) load(it + 2, st);\n"),
+    ("return 4 * ((size_t)2 * PMAX * T + 2 * T * SPT + 2 * QMAX);",
+     "return 4 * ((size_t)2 * PMAX * T + 2 * 2 * T * SPT + 2 * QMAX);"),
+]
 K1_CUTS = {
     "no_add": [("  wide_add(sink, run, slab, order, gq, lane);\n"
                 "  __syncwarp();               // the slabs",
@@ -226,6 +276,46 @@ def k4(dev) -> dict:
     return out
 
 
+def k4_bwd(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cuts = {cut: SSD.bind_bwd(ablated("ssd_scan_bwd", cut, edits))
+            for cut, edits in K4_BWD_CUTS.items()}
+    out = {}
+    real = SSD._bwd_lib
+    try:
+        for name, (B, S, H, P, G, N, Q) in C.K4_BWD_TIME.items():
+            x, dt, A, Bm, Cm, _ = C.ssd_inputs(B, S, H, P, G, N, gen, dev)
+            dy = torch.randn(x.shape, generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                args = [a.to(dtype) if i != 2 else a
+                        for i, a in enumerate((x, dt, A, Bm, Cm, dy))]
+                _, _, scr = SSD._forward(*args[:5], None, Q)
+                want = SSD.ssd_scan_bwd(*args, None, scr, chunk=Q)
+
+                def times() -> dict:
+                    got = SSD.ssd_scan_bwd(*args, None, scr, chunk=Q)
+                    C.sync()
+                    work = SSD.bwd_scratch(args[0], args[3], Q)
+                    res = {"same_bits": all(a is None or torch.equal(a, b)
+                                            for a, b in zip(got, want)),
+                           "all": C.cuda_ms(lambda: SSD.ssd_scan_bwd(
+                               *args, None, scr, chunk=Q), 20)}
+                    for p in SSD.BWD_PASSES:
+                        res[p] = C.cuda_ms(lambda p=p: SSD.launch_bwd(
+                            p, *args, None, scr, got, work, Q), 20)
+                    return res
+                res = {"kernel": times()}
+                for cut, fns in cuts.items():
+                    SSD._bwd_lib = lambda fns=fns: fns
+                    res[cut] = times()
+                    SSD._bwd_lib = real
+                out[f"{name}_{str(dtype)[6:]}"] = res
+                del args, scr, want
+    finally:
+        SSD._bwd_lib = real
+    return out
+
+
 def k1(dev) -> dict:
     T, cams = 43_200, C.CAMERAS
     n = T * cams
@@ -259,6 +349,7 @@ def main() -> int:
     dev = torch.device("cuda")
     parts = {"k4": ("k4_ms", k4), "k3": ("k3_ms", k3),
              "k3_bwd": ("k3_bwd_ms", k3_bwd),
+             "k4_bwd": ("k4_bwd_ms", k4_bwd),
              "k1": ("k1_window_x_category_ms", k1)}
     names = sys.argv[1:] or list(parts)
     if not set(names) <= set(parts):

@@ -1,5 +1,5 @@
-// The gradient of the Mamba2 SSD chunked scan (K4's backward) on FP32
-// CUDA cores, for Hopper (sm_90a), in seven passes.
+// The gradient of the Mamba2 SSD chunked scan (K4's backward) on the
+// tensor cores (wgmma, 3xTF32), for Hopper (sm_90a), in nine passes.
 //
 // Replaces: XLA's gradient of repro/models/ssd.py:ssd_scan (the reference
 // trains through autodiff of its jnp scan; it has no Pallas backward).
@@ -9,8 +9,8 @@
 // d(init_state), each in its operand's dtype and dA in float32. Within
 // chunk c of head h (group g), with L[t,s] = exp(cum_t - cum_s) for
 // s <= t (masked BEFORE the exp: s > t may overflow, and inf * 0 is NaN),
-// W = cb L dt_s, D[t,s] = dy_t . x_s, M = W D and G_c the gradient of the
-// state leaving chunk c:
+// D[t,s] = dy_t . x_s, M = cb L dt_s D and G_c the gradient of the state
+// leaving chunk c:
 //   dstates_c = sum_t exp(cum_t) dy_t (x) C_t
 //   G_{nc-1} = d(final), G_{c-1} = exp(total_c) G_c + dstates_c,
 //   d(init) = G_{-1}
@@ -33,58 +33,119 @@
 // intra term per head (P Q(Q+1)/2 MACs each), dstates, dC's inter term,
 // dB's state term and dx's state term per head (Q P N each), and the
 // causal half of dcb times B and times C per group (N Q(Q+1)/2 each):
-// 26.3 GFLOP (chip_smoke.ssd_bwd_work). The bytes it must move (x, dy,
-// dx, B, C, dB, dC, dt, ddt, A and dA, each once) are about 220 MB, 0.066
-// ms at 3.35 TB/s. The floor is the card's peak for the operands' type,
-// as for K3's backward: float32 at 3xTF32 (three TF32 products for each
-// float32 one, 495 TFLOP/s dense on an H100 SXM) takes 0.160 ms, so
-// float32 is bound by operations; bfloat16 at 989 TFLOP/s takes 0.027
-// ms, below its 110 MB at 0.033 ms, so bfloat16 is bound by bytes. The
-// FP32 CUDA cores this kernel uses (67 TFLOP/s) would need 0.39 ms for
-// the same products: moving them to wgmma is the way to the floor.
+// 26.3 GFLOP (chip_smoke.ssd_bwd_work). At 3xTF32 (three TF32 products
+// for each float32 one, 495 TFLOP/s dense on an H100 SXM) that is 0.160
+// ms, above the 220 MB it must move (0.066 ms at 3.35 TB/s): float32 is
+// bound by operations; bfloat16 (989 TFLOP/s: 0.027 ms) by its 110 MB
+// at 0.033 ms.
 //
-// Design: a right kernel first. Every product runs on FP32 CUDA cores
-// from 64-wide tiles staged in shared memory (16 x 16 threads, each 4 x 4
-// or 4 x 8 outputs, K in steps of 32 or 64). The layout follows the
-// Mamba2 authors' GPU backward (dstates, state passing backward, the
-// chunk scan's and the chunk state's gradients, the cumsum's reverse),
-// not block by block:
-//   1. ssd_bwd_dstates: dstates per (b, h, chunk), (P x Q).(Q x N).
-//   2. ssd_bwd_state_passing: G_c over the chunks in reverse, written
-//      over dstates in place; d(init); per block the partial <G_c, S_in>.
-//   3. ssd_bwd_dcb: per (b, chunk, group, tile pair t >= s), the group's
-//      heads in order: D, then dcb summed over the heads in registers, and
-//      each head's row and column sums of M off the diagonal.
-//   4. ssd_bwd_dx: per (b, h, chunk, s tile): dx, ddts and K.
-//   5. ssd_bwd_dbc: per (b, chunk, group, tile), dC (t tiles) or dB (s
-//      tiles), the group's heads in order; I per head for dC's tiles.
-//   6. ssd_bwd_ddt: per (b, h, chunk): dcum, its reverse cumsum, ddt and
-//      the chunk's share of dA.
-//   7. ssd_bwd_dA: dA per head, the (b, chunk) shares in order.
-// No atomics: every sum over heads, tiles, slices or chunks runs in a
-// fixed order, so every launch gives the same bits. Positions past S in
-// the last chunk (dt = 0, x = B = C = dy = 0) get nothing written.
-// Operands: x, B, C and dy all float32 or all bfloat16 (in_bf16), dt in
-// float32 or bfloat16 (dt_bf16), d(init) in init's dtype (init_bf16); a
-// bfloat16 value is widened as it is loaded.
+// Design. The passes of the Mamba2 authors' GPU backward (dstates, the
+// state passing backward, the chunk scan's and the chunk state's
+// gradients, the cumsum's reverse), each product on the tensor cores:
+//   1. dstates: per (b, h, chunk, 64 of N), dstates^T (n x p) = C^T .
+//      (exp(cum) dy), K = t in steps of KT through a 2-stage ring: the
+//      forward's chunk state pass with C for B and exp(cum_t) dy_t for
+//      its decayed x.
+//   2. state_passing: G_c over the chunks in reverse, elementwise, written
+//      over dstates in place, the loads of CG chunks in flight together;
+//      d(init); per block the partial exp(total) <G_c, S_in>.
+//   3. dcb: per (b, chunk, group, tile pair t >= s, head slice): for each
+//      head of the slice D = dy_t . x_s^T (K = p), dcb's partial sum
+//      over the slice's heads in registers, each head's row and column
+//      sums of M (rs, cs). The next head's tiles load while this one's
+//      products run. Below the diagonal L dt_s = exp(cum_t - ref)
+//      (exp(ref - cum_s) dt_s), ref = cum at the s tile's last position,
+//      both factors at most 1, the column factors once per head in
+//      shared memory; on the diagonal per element, masked first.
+//   4. dx: per (b, h, chunk, s tile), the chunk scan pass transposed:
+//      the state term B_s . G_c^T (K = n, skipped where G_c is zero: the
+//      last chunk without a d(final)), then exp(total - cum_s) and K_s;
+//      then the intra term over the t tiles >= s, W^T . dy with W = cb L
+//      formed in registers from the staged cb tile (K = t); dx = dt_s
+//      times their sum, ddts = x . that. One stage of staging, the next
+//      step's tiles in flight with this step's products: 72 KB, three
+//      blocks an SM (a 2-stage ring held it to two and ran slower).
+//   5. heads: per (b, chunk, group, 64-row tile, dC or dB, 64 of N, head
+//      slice), each head's term of dC (dy_t . S_in, scaled by exp(cum_t),
+//      and I_t's share of this N) or dB (x_s . G_c, by exp(total -
+//      cum_s) dt_s; skipped where G_c is zero), K = p, summed over the
+//      slice's heads in registers into a float32 partial (pbc). Computed
+//      transposed (n x rows), so that S_in and G_c, staged as they are
+//      stored (p rows of n), are the register operand; the column
+//      factors once per head in shared memory.
+//   6. sum: the head slices' partials of dcb and of the head terms added
+//      in slice order into slice 0 (elementwise; none for one slice).
+//   7. dbc: per (b, chunk, group, tile, dC or dB, 64 of N): the head
+//      terms, then the intra term dcb . B (dC, K = s <= t) or dcb^T . C
+//      (dB, K = t >= s); dB and dC written in their dtype.
+//   8. ddt: per (b, h, chunk): dcum from the partial sums (rs over the s
+//      tiles in order, cs over the live t tiles in order, I over the N
+//      halves, K, and at the last slot sum K + the ep shares), its
+//      reverse cumsum dla, ddt = ddts + A dla, each chunk's share of dA.
+//   9. dA: per head, the (b, chunk) shares in order.
+// Head slices. Passes 3 and 5 spread a group's R heads over HS = min(R,
+// 4) slices of about R/HS heads each (a grid axis), instead of one block
+// looping over all R: at hymba-1.5b's B = 1 that turns 80 and 64 blocks
+// into 320 and 256. Each slice writes float32 partials, dcb's
+// (HS,B,nc,G,QP,QP) and the per-head terms' (2,HS,B,nc,QP,G,N), 34 MB
+// each at mamba2-370m's shape; pass 6 adds them in slice order. No
+// atomics: every sum over heads, slices, tiles, lanes or chunks runs in
+// a fixed order, so every launch gives the same bits.
+// Products. Every one is wgmma.mma_async m64n64k8 .tf32, one warpgroup
+// (128 threads) a block. A float32 operand x is split into big =
+// tf32(x) and small = tf32(x - big) (split_bits) and a product is
+// small*big + big*small + big*big, accumulated in float32. A bfloat16
+// operand widened to float32 is its own TF32 big half, its small half 0:
+// D = dy . x^T on two bfloat16 operands is one TF32 product, exact; a
+// product of a bfloat16 operand and a float32 one (W, exp(cum) dy, G_c,
+// S_in, dcb) is two (PR 24's rule for K3's backward), bit for bit what
+// three would give. kernels/ssd.py:ssd_scan_bwd_ref(..., passes=3) is a
+// float64 model of these products.
+// Layouts. tf32 wgmma reads shared operands K-major only, as 8 x 4-word
+// core matrices without swizzle (hopper.cuh, csrc/ssd_tiles.cuh). The
+// operand that is K-major as stored is split as it stands (split_rows);
+// the other is transposed as it is split (split_cols) or read from the
+// staging into registers as the A fragment, which takes any order.
+// Staged rows are 68 floats apart where lanes read them a row per lane
+// group (split_rows' sources, the A fragments of B and dy), 72 where
+// lanes read a column per lane group (the A fragments of cb, C, S_in, G):
+// no bank conflicts either way.
+// Tried and slower on an H100 (PERF.md, section 6, PR 26): two
+// warpgroups a block in dx, each on half of every step's K as in the
+// forward's chunk scan (capped at 128 registers for two blocks an SM, it
+// spilled); dx's decays taken once per block below the diagonal instead
+// of per element. Not taken: dstates fused into the state passing would
+// leave B H blocks (25 at hymba-1.5b's B = 1) to walk the chunks in
+// order; ddt fused into dx needs dcum at every later position of the
+// chunk, which other blocks write.
+// Shared memory per block (bytes) and registers a thread (ptxas -v, nvcc
+// 12.8, sm_90a), float32 / bfloat16, no spills:
+//       pass        dstates   dcb             dx        heads           dbc
+//       smem        54,272    103,168/70,400  71,680    88,352/71,968   68,608
+//       registers   168/128   204/208         156/161   216/248         149/132
+// and 108 (state passing), 32 (sum, ddt), 30 (dA) registers.
 //
 // Interface: plain C, loaded with ctypes. Every pass takes the same
 // arguments, launches on the given stream, does not synchronise, and
-// returns cudaGetLastError(); -1 for a shape it does not take.
+// returns cudaGetLastError() (or the error of raising the shared-memory
+// limit); -1 for a shape it does not take.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include "hopper.cuh"
+#include "ssd_tiles.cuh"
 
-#define T 64                  // rows of a t or s tile
-#define PMAX 64               // head dim P
-#define NMAX 128              // state dim N
+#define T 64                  // rows of a t or s tile; the wgmma M and N
+#define PMAX 64               // head dim P, zero-padded
+#define NMAX 128              // state dim N: up to two 64-wide halves
 #define QMAX 256              // chunk length Q
-#define NT 256                // threads of the tiled passes, 16 x 16
-#define KS 32                 // K per staged step of passes 1 and 5
-#define SP (T + 1)            // staged row of a 64-wide tile
-#define SN (NMAX + 1)         // staged row of a 128-wide tile
+#define NT 128                // one warpgroup a block (passes 1, 3-6)
+#define KT 32                 // positions per step of pass 1
+#define HSMAX 4               // head slices of a group (passes 3 and 5)
+#define SPA (T + 4)           // staged row read a row per lane group
+#define SPT (T + 8)           // staged row read a column per lane group
 #define SLICE 1024            // (p, n) elements per state-passing block
+#define CG 8                  // chunks in flight in the state passing
 #define FULL_MASK 0xffffffffu
 
 struct BwdArgs {
@@ -106,20 +167,25 @@ struct BwdArgs {
   void* dC;                   // (B,S,G,N), in_bf16
   void* dinit;                // (B,H,P,N), init_bf16, or null: not wanted
   float* dst;                 // (B,H,nc,P,N) scratch: dstates, then G_c
-  float* dcb;                 // (B,nc,G,QP,QP) scratch, lower tiles
+  float* dcbp;                // (HS,B,nc,G,QP,QP): dcb per slice, lower tiles
   float* rs;                  // (B,H,nc,nt,QP): row sums of M by s tile
   float* cs;                  // (B,H,nc,nt,QP): column sums by t tile
-  float* pI;                  // (B,H,nc,QP): I_t
+  float* pI;                  // (NH,B,H,nc,QP): I_t by 64 of N
   float* pK;                  // (B,H,nc,QP): K_s
   float* pD;                  // (B,H,nc,QP): ddts
+  float* pbc;                 // (2,HS,B,nc,QP,G,N): dC's, dB's head terms
   float* ep;                  // (B,H,nc,nsl): partial <G_c, S_in[c]>
   float* dap;                 // (B,H,nc): each chunk's share of dA
-  int B, S, H, P, G, N, Q, QP, nc, nt, nsl;
+  int B, S, H, P, G, N, Q, QP, nc, nt, nsl, HS, NH;
   int in_bf16, dt_bf16, init_bf16;
+  int vx;                     // 16-byte copies of x and dy rows
+  int vbc;                    // ... of B and C rows
+  int v4n;                    // ... of float32 rows of N (G_c, S_in)
 };
 
-__device__ __forceinline__ float ld(const void* p, int64_t i, int bf) {
-  return bf ? widen(((const bf16*)p)[i]) : ((const float*)p)[i];
+template <typename In>
+__device__ __forceinline__ float ldv(const void* p, int64_t i) {
+  return widen(((const In*)p)[i]);
 }
 
 __device__ __forceinline__ void st(void* p, int64_t i, float v, int bf) {
@@ -131,15 +197,798 @@ __device__ __forceinline__ int chunk_len(const BwdArgs& a, int c) {
   return (int)min((int64_t)a.Q, (int64_t)a.S - (int64_t)c * a.Q);
 }
 
-// the sum of v over the block's n <= NT threads, in a fixed tree order
-// (slots past n hold zeros); every thread gets it (red: NT floats of
-// shared memory)
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the first head of slice hs of group g (R heads in HS slices)
+__device__ __forceinline__ int slice_head(const BwdArgs& a, int g, int hs) {
+  const int R = a.H / a.G;
+  return g * R + hs * R / a.HS;
+}
+
+// one k step of acc (m64n64) += A . B^T, A's fragment in registers (ab,
+// as) and B split at sb (big, then small W words on): small*big,
+// big*small, big*big, leaving out the products of an operand with no
+// small half (SA, SB false: a widened bfloat16)
+template <bool SA, bool SB>
+__device__ __forceinline__ void step_rs(float (&acc)[32],
+                                        const uint32_t (&ab)[4],
+                                        const uint32_t (&as)[4],
+                                        const uint32_t* sb, int W) {
+  const uint64_t bb = smem_desc(sb, (T / 8) * 128, 128);
+  if constexpr (SA) wgmma_rs_n64(acc, as, bb);
+  if constexpr (SB) wgmma_rs_n64(acc, ab, smem_desc(sb + W, (T / 8) * 128,
+                                                    128));
+  wgmma_rs_n64(acc, ab, bb);
+}
+
+// the A fragment of the k step starting at k0 from a staged tile:
+// element (row, k) at st[row * RS + k * KS], rows r0 and r0 + 8, k = k0 +
+// t4 and k0 + t4 + 4, split into big and small
+template <int RS, int KS>
+__device__ __forceinline__ void frag(const float* st, int r0, int k0, int t4,
+                                     uint32_t (&ab)[4], uint32_t (&as)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    split_bits(st[(r0 + 8 * (q & 1)) * RS + (k0 + t4 + 4 * (q >> 1)) * KS],
+               ab[q], as[q]);
+}
+
+// ---------------------------------------------------------------- 1 ----
+// grid (H * nc, B, NH): dstates^T rows n in [64 nh, 64 nh + 64) (M), p
+// (N), K = t in steps of KT. C is the register operand (rows n, read from
+// the staged chunk as it stands), exp(cum_t) dy_t the shared one, scaled
+// and transposed as it is split.
+template <typename In>
+__global__ void __launch_bounds__(NT) ssd_bwd_dstates_kernel(BwdArgs a) {
+  constexpr bool F32 = sizeof(In) == 4;
+  extern __shared__ __align__(128) uint32_t smem[];
+  constexpr int XS = KT * SPT, STAGE = 2 * XS, W = PMAX * KT;
+  uint32_t* sp = smem;                                  // dy' split (p, t)
+  float* stage = (float*)(sp + 2 * W);                  // [2][dy, C]
+  float* ev = stage + 2 * STAGE;                        // [QP] exp(cum)
+  const int h = blockIdx.x % a.H, c = blockIdx.x / a.H, b = blockIdx.y;
+  const int nh = blockIdx.z, g = h / (a.H / a.G);
+  const int len = chunk_len(a, c);
+  const int64_t c0 = (int64_t)c * a.Q;
+  const int64_t xld = (int64_t)a.H * a.P, bld = (int64_t)a.G * a.N;
+  const In* ys = (const In*)a.dy + ((int64_t)b * a.S + c0) * xld +
+                 (int64_t)h * a.P;
+  const In* cs = (const In*)a.Cm + ((int64_t)b * a.S + c0) * bld +
+                 (int64_t)g * a.N + T * nh;
+  const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
+  for (int i = threadIdx.x; i < a.QP; i += NT)
+    ev[i] = expf(a.cum[bhc * a.QP + i]);
+  const int steps = (len + KT - 1) / KT;
+  auto load = [&](int it, float* st) {
+    const int t0 = it * KT;
+    load_tile<NT, KT, PMAX, SPT>(st, ys + t0 * xld, xld, len - t0, a.P, a.vx);
+    load_tile<NT, KT, T, SPT>(st + XS, cs + t0 * bld, bld, len - t0,
+                              a.N - T * nh, a.vbc);
+  };
+
+  const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * wl + g8;              // this thread's rows n: r0, r0 + 8
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  load(0, stage);
+  cp_commit();
+  if (steps > 1) load(1, stage + STAGE);
+  cp_commit();
+  for (int it = 0; it < steps; ++it) {
+    float* st = stage + (it & 1) * STAGE;
+    cp_wait_all_but_one();
+    __syncthreads();
+    split_cols<NT, PMAX, KT, SPT, false, true>(st, sp, ev + it * KT);
+    fence_async_smem();
+    __syncthreads();
+    // element (n, t) of C^T is st[XS + t * SPT + n]
+    uint32_t ab[KT / 8][4], as[KT / 8][4];
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+      frag<1, SPT>(st + XS, r0, 8 * j, t4, ab[j], as[j]);
+    pin(acc);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+      step_rs<F32, true>(acc, ab[j], as[j], sp + 2 * j * (PMAX / 8) * 32, W);
+    wg_commit();
+    __syncthreads();                  // every read of stage it & 1 is done
+    if (it + 2 < steps) load(it + 2, st);
+    cp_commit();
+    wg_wait_all();
+    pin(acc);
+  }
+
+  // acc[4j + 2r + e] is dstates[p = 8j + 2 t4 + e][n = 64 nh + r0 + 8r]
+  float* out = a.dst + bhc * a.P * a.N;
+#pragma unroll
+  for (int j = 0; j < PMAX / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = 8 * j + 2 * t4 + e, n = T * nh + r0 + 8 * r;
+        if (p < a.P && n < a.N) out[p * a.N + n] = acc[4 * j + 2 * r + e];
+      }
+}
+
+// ---------------------------------------------------------------- 2 ----
+// grid (nsl * H, B), 256 threads of 4 elements each: G_c over the chunks
+// in reverse, written over dstates_c; ep = the block's share of <G_c,
+// S_in[c]> times exp(total_c) (a warp's butterfly sum, then its 8 warps'
+// in a fixed tree); d(init)
+__global__ void __launch_bounds__(256) ssd_bwd_state_passing_kernel(
+    BwdArgs a) {
+  __shared__ float wred[2][8];
+  const int sl = blockIdx.x % a.nsl, h = blockIdx.x / a.nsl, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t bh = (int64_t)b * a.H + h;
+  const int64_t pn = (int64_t)a.P * a.N;
+  int64_t idx[4];
+  float g[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    idx[v] = (int64_t)sl * SLICE + threadIdx.x + v * 256;
+    g[v] = a.dfinal != nullptr && idx[v] < pn ? a.dfinal[bh * pn + idx[v]]
+                                              : 0.f;
+  }
+  int done = 0;
+  for (int c1 = a.nc - 1; c1 >= 0; c1 -= CG) {
+    float ds[CG][4], si[CG][4], dec[CG];
+#pragma unroll
+    for (int k = 0; k < CG; ++k) {
+      if (c1 - k < 0) break;
+      const int64_t bhc = bh * a.nc + c1 - k;
+      dec[k] = expf(a.cum[bhc * a.QP + a.QP - 1]);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const bool ok = idx[v] < pn;
+        ds[k][v] = ok ? a.dst[bhc * pn + idx[v]] : 0.f;
+        si[k][v] = ok ? a.s_in[bhc * pn + idx[v]] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CG; ++k) {
+      if (c1 - k < 0) break;
+      const int64_t bhc = bh * a.nc + c1 - k;
+      float part = 0.f;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        part = fmaf(g[v], si[k][v], part);
+        if (idx[v] < pn) a.dst[bhc * pn + idx[v]] = g[v];
+        g[v] = fmaf(dec[k], g[v], ds[k][v]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        part += __shfl_xor_sync(FULL_MASK, part, o);
+      float* w = wred[done & 1];
+      if (lane == 0) w[warp] = part;
+      __syncthreads();
+      if (threadIdx.x == 0)
+        a.ep[bhc * a.nsl + sl] =
+            dec[k] * (((w[0] + w[1]) + (w[2] + w[3])) +
+                      ((w[4] + w[5]) + (w[6] + w[7])));
+      ++done;
+    }
+  }
+  if (a.dinit != nullptr) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      if (idx[v] < pn) st(a.dinit, bh * pn + idx[v], g[v], a.init_bf16);
+  }
+}
+
+// ---------------------------------------------------------------- 3 ----
+// grid (ntri * HS, nc * G, B): the tile pair (ti, si), si <= ti, of chunk
+// c and group g, heads of slice hs. Per head: D (t x s) = dy_t . x_s^T
+// (K = p, both split as they stand), then dcb += L dt_s D, and M = cb L
+// dt_s D summed along each row (s < t) into rs[si] and each column
+// (t > s) into cs[ti]. A thread's accumulator rows t = r0, r0 + 8,
+// columns s = 8j + 2 t4 + e.
+template <typename In>
+__global__ void __launch_bounds__(NT) ssd_bwd_dcb_kernel(BwdArgs a) {
+  constexpr bool F32 = sizeof(In) == 4;
+  constexpr int SPL = F32 ? 2 : 1, W = T * PMAX;
+  extern __shared__ __align__(128) uint32_t smem[];
+  uint32_t* ay = smem;                       // dy split (t, p)
+  uint32_t* bx = ay + SPL * W;               // x split (s, p)
+  float* sdy = (float*)(bx + SPL * W);       // [T][SPA] dy rows t
+  float* sx = sdy + T * SPA;                 // [T][SPA] x rows s
+  float* vt = sx + T * SPA;                  // [2][cum_t, cum_s, dt_s][T]
+  float* red = vt + 6 * T;                   // [4][T] column sums by warp
+  float* cf = red + 4 * T;                   // [T] exp(ref - cum_s) dt_s
+  const int ntri = a.nt * (a.nt + 1) / 2;
+  const int tile = blockIdx.x % ntri, hs = blockIdx.x / ntri;
+  const int g = blockIdx.y % a.G, c = blockIdx.y / a.G, b = blockIdx.z;
+  int ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= tile) ++ti;
+  const int si = tile - ti * (ti + 1) / 2;
+  const int len = chunk_len(a, c);
+  if (ti * T >= len) return;                 // past the chunk: never read
+  const int h_lo = slice_head(a, g, hs), h_hi = slice_head(a, g, hs + 1);
+  const int64_t c0 = (int64_t)c * a.Q;
+  const int64_t xld = (int64_t)a.H * a.P;
+  const int64_t cbo = (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP +
+                      (int64_t)(ti * T) * a.QP + si * T;
+  const In* dys = (const In*)a.dy + ((int64_t)b * a.S + c0 + ti * T) * xld;
+  const In* xs = (const In*)a.x + ((int64_t)b * a.S + c0 + si * T) * xld;
+  auto issue = [&](int h, float* v) {
+    load_tile<NT, T, PMAX, SPA>(sdy, dys + (int64_t)h * a.P, xld,
+                                len - ti * T, a.P, a.vx);
+    load_tile<NT, T, PMAX, SPA>(sx, xs + (int64_t)h * a.P, xld, len - si * T,
+                                a.P, a.vx);
+    const float* cu = a.cum + (((int64_t)b * a.H + h) * a.nc + c) * a.QP;
+    const float* dd = a.dts + (((int64_t)b * a.H + h) * a.nc + c) * a.QP;
+    for (int i = threadIdx.x; i < 3 * T; i += NT) {
+      const float* src = i < T ? cu + ti * T + i
+                               : i < 2 * T ? cu + si * T + i - T
+                                           : dd + si * T + i - 2 * T;
+      cp_async4(v + i, src, 4);
+    }
+  };
+
+  const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * wl + g8;
+  issue(h_lo, vt);
+  cp_commit();
+  float cbv[32], dcb[32];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 v = *(const float2*)(a.cb + cbo +
+                                        (int64_t)(r0 + 8 * r) * a.QP + 8 * j +
+                                        2 * t4);
+      cbv[4 * j + 2 * r] = v.x;
+      cbv[4 * j + 2 * r + 1] = v.y;
+      dcb[4 * j + 2 * r] = dcb[4 * j + 2 * r + 1] = 0.f;
+    }
+  for (int h = h_lo; h < h_hi; ++h) {
+    const int k = h - h_lo;
+    cp_wait_all();
+    __syncthreads();                  // head h's tiles are in; red is read
+    const float* v = vt + (k & 1) * 3 * T;
+    const float ref = v[2 * T - 1];   // cum at the s tile's last position
+    if (ti > si && threadIdx.x < T)
+      cf[threadIdx.x] = expf(ref - v[T + threadIdx.x]) * v[2 * T + threadIdx.x];
+    split_rows<NT, T, PMAX, SPA, F32>(sdy, ay);
+    split_rows<NT, T, PMAX, SPA, F32>(sx, bx);
+    fence_async_smem();
+    __syncthreads();                  // splits ready; the staging is free
+    float d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
+    pin(d);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < PMAX / 8; ++kk) {
+      const int o = 2 * kk * (T / 8) * 32;
+      const uint64_t ab = smem_desc(ay + o, (T / 8) * 128, 128);
+      const uint64_t bb = smem_desc(bx + o, (T / 8) * 128, 128);
+      if constexpr (F32) {
+        wgmma_ss_n64(d, smem_desc(ay + W + o, (T / 8) * 128, 128), bb);
+        wgmma_ss_n64(d, ab, smem_desc(bx + W + o, (T / 8) * 128, 128));
+      }
+      wgmma_ss_n64(d, ab, bb);
+    }
+    wg_commit();
+    if (h + 1 < h_hi) issue(h + 1, vt + ((k + 1) & 1) * 3 * T);
+    cp_commit();
+    wg_wait_all();
+    pin(d);
+
+    // L dt_s: below the diagonal exp(cum_t - ref) (exp(ref - cum_s)
+    // dt_s), both factors at most 1; on it per element, masked first
+    float rsum[2] = {0.f, 0.f}, csum[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) csum[q] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tl = r0 + 8 * r, t = ti * T + tl;
+      const float ct = v[tl];
+      const float rf = ti > si ? expf(ct - ref) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int sl = 8 * j + 2 * t4 + e, s = si * T + sl;
+          const int i = 4 * j + 2 * r + e;
+          float z = 0.f, m = 0.f;
+          if (ti > si) {
+            z = d[i] * (rf * cf[sl]);
+            m = cbv[i] * z;
+          } else if (s <= t) {               // mask before the exp
+            z = d[i] * (expf(ct - v[T + sl]) * v[2 * T + sl]);
+            if (s < t) m = cbv[i] * z;
+          }
+          dcb[i] += z;
+          rsum[r] += m;
+          csum[2 * j + e] += m;
+        }
+    }
+    const int64_t o = (((int64_t)b * a.H + h) * a.nc + c) * a.nt * a.QP;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {             // row t: over the 4 lanes t4
+      rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 2);
+      if (t4 == 0) a.rs[o + (int64_t)si * a.QP + ti * T + r0 + 8 * r] = rsum[r];
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {            // column s: over the 8 lanes g8
+      csum[q] += __shfl_xor_sync(FULL_MASK, csum[q], 4);
+      csum[q] += __shfl_xor_sync(FULL_MASK, csum[q], 8);
+      csum[q] += __shfl_xor_sync(FULL_MASK, csum[q], 16);
+    }
+    if (g8 == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          red[wl * T + 8 * j + 2 * t4 + e] = csum[2 * j + e];
+    }
+    __syncthreads();
+    if (threadIdx.x < T)                      // then over the 4 warps
+      a.cs[o + (int64_t)ti * a.QP + si * T + threadIdx.x] =
+          (red[threadIdx.x] + red[T + threadIdx.x]) +
+          (red[2 * T + threadIdx.x] + red[3 * T + threadIdx.x]);
+  }
+  float* out = a.dcbp +
+               ((((int64_t)hs * a.B + b) * a.nc + c) * a.G + g) * a.QP *
+                   a.QP + (int64_t)(ti * T) * a.QP + si * T;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *(float2*)(out + (int64_t)(r0 + 8 * r) * a.QP + 8 * j + 2 * t4) =
+          make_float2(dcb[4 * j + 2 * r], dcb[4 * j + 2 * r + 1]);
+}
+
+// ---------------------------------------------------------------- 4 ----
+// grid (nt, H * nc, B): the s tile si of (b, h, chunk), the forward's
+// chunk scan transposed; rows s = r0, r0 + 8 of a thread, columns p = 8j
+// + 2 t4 + e. Steps 0 .. ns-1: the state term B_s (registers, K = n, 64
+// a step) times G_c (split as stored, rows p); then exp(total - cum_s)
+// and K_s; steps ns ..: the t tiles ti >= si, W^T (W = cb L, formed in
+// registers from the staged cb tile, K = t; L per element, masked first)
+// times dy (split transposed, rows p). One stage of staging: the next
+// step's tiles load while this step's products run. Then dx = dt_s
+// dxdt, ddts = x . dxdt.
+template <typename In>
+__global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(BwdArgs a) {
+  constexpr bool F32 = sizeof(In) == 4;
+  constexpr int W = PMAX * T, STAGE = 2 * T * SPT;
+  extern __shared__ __align__(128) uint32_t smem[];
+  uint32_t* sp = smem;                       // G or dy^T split (p, k)
+  float* stage = (float*)(sp + 2 * W);       // [B or cb, G or dy]
+  float* cumv = stage + STAGE;               // [QP]
+  float* dtv = cumv + QMAX;                  // [QP]
+  const int si = blockIdx.x;                 // the longest walks first
+  const int h = blockIdx.y % a.H, c = blockIdx.y / a.H, b = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int len = chunk_len(a, c);
+  if (si * T >= len) return;
+  const int64_t c0 = (int64_t)c * a.Q;
+  const int64_t xld = (int64_t)a.H * a.P, bld = (int64_t)a.G * a.N;
+  const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
+  const int64_t pn = (int64_t)a.P * a.N;
+  const In* bs = (const In*)a.Bm + ((int64_t)b * a.S + c0 + si * T) * bld +
+                 (int64_t)g * a.N;
+  const In* ys = (const In*)a.dy + ((int64_t)b * a.S + c0) * xld +
+                 (int64_t)h * a.P;
+  const In* xs = (const In*)a.x + ((int64_t)b * a.S + c0) * xld +
+                 (int64_t)h * a.P;
+  const float* gc = a.dst + bhc * pn;
+  const float* cbs = a.cb + (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP +
+                     si * T;
+  for (int i = threadIdx.x; i < a.QP; i += NT) {
+    cumv[i] = a.cum[bhc * a.QP + i];
+    dtv[i] = a.dts[bhc * a.QP + i];
+  }
+  // G_c is zero in the last chunk without a d(final): no state steps
+  const int ns = (c == a.nc - 1 && a.dfinal == nullptr) ? 0
+                                                        : (a.N + T - 1) / T;
+  const int last = (len - 1) / T;
+  const int steps = ns + last - si + 1;
+  auto load = [&](int it, float* st) {
+    if (it < ns) {
+      const int n0 = it * T;
+      load_tile<NT, T, T, SPA>(st, bs + n0, bld, len - si * T, a.N - n0,
+                               a.vbc);
+      load_tile<NT, PMAX, T, SPA>(st + T * SPT, gc + n0, a.N, a.P, a.N - n0,
+                                  a.v4n);
+    } else {
+      const int t0 = (si + it - ns) * T;
+      load_tile<NT, T, T, SPT>(st, cbs + (int64_t)t0 * a.QP, a.QP, T, T, 1);
+      load_tile<NT, T, PMAX, SPT>(st + T * SPT, ys + t0 * xld, xld, len - t0,
+                                  a.P, a.vx);
+    }
+  };
+
+  const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * wl + g8;
+  float acc[32], kp[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float* st = stage;
+  load(0, st);
+  cp_commit();
+  for (int it = 0; it < steps; ++it) {
+    const bool state = it < ns;
+    cp_wait_all();
+    __syncthreads();                  // step it's tiles are in (cumv, dtv)
+    uint32_t ab[8][4], as[8][4];
+    if (state) {
+      split_rows<NT, PMAX, T, SPA>(st + T * SPT, sp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) frag<SPA, 1>(st, r0, 8 * j, t4, ab[j], as[j]);
+    } else {
+      const int ti = si + it - ns;
+      split_cols<NT, PMAX, T, SPT, false, false, F32>(st + T * SPT, sp);
+      // A[s][t] = cb[t][s] exp(cum_t - cum_s), s <= t < len
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int sl = r0 + 8 * (q & 1), tl = 8 * j + t4 + 4 * (q >> 1);
+          const int s = si * T + sl, t = ti * T + tl;
+          const float w = s <= t && t < len
+                              ? st[tl * SPT + sl] * expf(cumv[t] - cumv[s])
+                              : 0.f;
+          split_bits(w, ab[j][q], as[j][q]);
+        }
+    }
+    fence_async_smem();
+    __syncthreads();                  // split ready; the staging is free
+    pin(acc);
+    wg_fence();
+    if (state) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        step_rs<F32, true>(acc, ab[j], as[j], sp + 2 * j * (PMAX / 8) * 32, W);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        step_rs<true, F32>(acc, ab[j], as[j], sp + 2 * j * (PMAX / 8) * 32, W);
+    }
+    wg_commit();
+    if (it + 1 < steps) load(it + 1, st);   // in flight with the products
+    cp_commit();
+    wg_wait_all();
+    pin(acc);
+    if (it == ns - 1) {               // the state term: decay, then K_s
+      const float total = cumv[a.QP - 1];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int s = si * T + r0 + 8 * r;
+        const float e = expf(total - cumv[s]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int i = 4 * j + 2 * r + q, p = 8 * j + 2 * t4 + q;
+            acc[i] *= e;
+            if (s < len && p < a.P)
+              kp[r] = fmaf(ldv<In>(xs, (int64_t)s * xld + p), acc[i], kp[r]);
+          }
+        kp[r] *= dtv[s];
+      }
+    }
+  }
+
+  // acc[4j + 2r + e] is dxdt[s = si T + r0 + 8r][p = 8j + 2 t4 + e]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = si * T + r0 + 8 * r;
+    const float d = dtv[s];
+    float pd = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int p = 8 * j + 2 * t4 + q;
+        if (s < len && p < a.P) {
+          const int64_t o = (int64_t)s * xld + p;
+          const float dxdt = acc[4 * j + 2 * r + q];
+          ((In*)a.dx)[((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P + o] =
+              narrow<In>(d * dxdt);
+          pd = fmaf(ldv<In>(xs, o), dxdt, pd);
+        }
+      }
+    pd += __shfl_xor_sync(FULL_MASK, pd, 1);
+    pd += __shfl_xor_sync(FULL_MASK, pd, 2);
+    float k = kp[r];
+    k += __shfl_xor_sync(FULL_MASK, k, 1);
+    k += __shfl_xor_sync(FULL_MASK, k, 2);
+    if (t4 == 0) {
+      a.pD[bhc * a.QP + s] = pd;
+      a.pK[bhc * a.QP + s] = k;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- 5 ----
+// grid (nt * 2 * NH * HS, nc * G, B): the 64-row tile of chunk c, group g,
+// z = 0 dC (rows t) or 1 dB (rows s), n in [64 nh, 64 nh + 64), heads of
+// slice hs. Computed transposed, acc[n][u] with M = n and N = u: per head,
+// S_in (dC) or G_c (dB) (registers, rows n, K = p, read from the staged
+// p x n tile) times dy (dC) or x (dB) (split as stored, rows u). Each
+// head's sum is scaled per column, exp(cum_t) (dC) or exp(total - cum_s)
+// dt_s (dB), and added in head order; for dC, I_t's share of these 64 n.
+template <typename In>
+__global__ void __launch_bounds__(NT) ssd_bwd_heads_kernel(BwdArgs a) {
+  constexpr bool F32 = sizeof(In) == 4;
+  constexpr int W = T * PMAX;
+  extern __shared__ __align__(128) uint32_t smem[];
+  uint32_t* sp = smem;                       // dy or x split (u, p)
+  float* sv = (float*)(sp + (F32 ? 2 : 1) * W);   // [T][SPA] dy or x rows u
+  float* sm = sv + T * SPA;                  // [PMAX][SPT] S_in or G_c
+  float* sc = sm + PMAX * SPT;               // [T][SPA] C rows t (dC)
+  float* vt = sc + T * SPA;                  // [2][cum, dts][T], total
+  float* red = vt + 2 * (2 * T + 4);         // [4][T]
+  float* fv = red + 4 * T;                   // [T] a head's column factors
+  const int tile = blockIdx.x % a.nt;
+  int rest = blockIdx.x / a.nt;
+  const int z = rest % 2;
+  rest /= 2;
+  const int nh = rest % a.NH, hs = rest / a.NH;
+  const int g = blockIdx.y % a.G, c = blockIdx.y / a.G, b = blockIdx.z;
+  const int len = chunk_len(a, c);
+  if (tile * T >= len) return;
+  const int h_lo = slice_head(a, g, hs);
+  const int64_t c0 = (int64_t)c * a.Q;
+  const int64_t xld = (int64_t)a.H * a.P, bld = (int64_t)a.G * a.N;
+  const int64_t pn = (int64_t)a.P * a.N;
+  const int u0 = tile * T, n0 = T * nh;
+  // G_c is zero in the last chunk without a d(final): dB gets nothing
+  const int h_hi = z == 1 && c == a.nc - 1 && a.dfinal == nullptr
+                       ? h_lo : slice_head(a, g, hs + 1);
+  const In* vs = (const In*)(z == 0 ? a.dy : a.x) +
+                 ((int64_t)b * a.S + c0 + u0) * xld;
+  const float* ms = z == 0 ? a.s_in : a.dst;
+  auto issue = [&](int h, float* v) {
+    const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
+    load_tile<NT, T, PMAX, SPA>(sv, vs + (int64_t)h * a.P, xld, len - u0, a.P,
+                                a.vx);
+    load_tile<NT, PMAX, T, SPT>(sm, ms + bhc * pn + n0, a.N, a.P, a.N - n0,
+                                a.v4n);
+    for (int i = threadIdx.x; i < 2 * T + 1; i += NT) {
+      const float* src = i < T ? a.cum + bhc * a.QP + u0 + i
+                               : i < 2 * T ? a.dts + bhc * a.QP + u0 + i - T
+                                           : a.cum + bhc * a.QP + a.QP - 1;
+      cp_async4(v + i, src, 4);
+    }
+  };
+
+  const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * wl + g8;               // rows n0 + r0, + 8
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  if (z == 0)
+    load_tile<NT, T, T, SPA>(sc, (const In*)a.Cm + ((int64_t)b * a.S + c0 +
+                                                    u0) * bld +
+                                     (int64_t)g * a.N + n0,
+                             bld, len - u0, a.N - n0, a.vbc);
+  if (h_lo < h_hi) issue(h_lo, vt);
+  cp_commit();
+  for (int h = h_lo; h < h_hi; ++h) {
+    const int k = h - h_lo;
+    const float* v = vt + (k & 1) * (2 * T + 4);
+    float hacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hacc[i] = 0.f;
+    cp_wait_all();
+    __syncthreads();                  // head h's tiles are in; red is read
+    if (threadIdx.x < T)
+      fv[threadIdx.x] = z == 0 ? expf(v[threadIdx.x])
+                               : expf(v[2 * T] - v[threadIdx.x]) *
+                                     v[T + threadIdx.x];
+    split_rows<NT, T, PMAX, SPA, F32>(sv, sp);
+    // element (n, p) of the register operand is sm[p * SPT + n]
+    uint32_t ab[8][4], as[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) frag<1, SPT>(sm, r0, 8 * j, t4, ab[j], as[j]);
+    fence_async_smem();
+    __syncthreads();                  // split ready; the staging is free
+    pin(hacc);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      step_rs<true, F32>(hacc, ab[j], as[j], sp + 2 * j * (T / 8) * 32, W);
+    wg_commit();
+    if (h + 1 < h_hi) issue(h + 1, vt + ((k + 1) & 1) * (2 * T + 4));
+    cp_commit();
+    wg_wait_all();
+    pin(hacc);
+    // hacc[4j + 2r + e] is row n = n0 + r0 + 8r, column u = 8j + 2 t4 + e
+    float ip[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int u = 8 * j + 2 * t4 + e;
+        const float f = fv[u];
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          const float w = hacc[i] * f;
+          acc[i] += w;
+          if (z == 0) s = fmaf(w, sc[u * SPA + r0 + 8 * r], s);
+        }
+        ip[2 * j + e] = s;
+      }
+    if (z == 0) {                    // I_t: over the 8 lanes g8, the warps
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        ip[q] += __shfl_xor_sync(FULL_MASK, ip[q], 4);
+        ip[q] += __shfl_xor_sync(FULL_MASK, ip[q], 8);
+        ip[q] += __shfl_xor_sync(FULL_MASK, ip[q], 16);
+      }
+      if (g8 == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            red[wl * T + 8 * j + 2 * t4 + e] = ip[2 * j + e];
+      }
+      __syncthreads();
+      if (threadIdx.x < T) {
+        const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
+        const int u = threadIdx.x;
+        a.pI[(int64_t)nh * a.B * a.H * a.nc * a.QP + bhc * a.QP + u0 + u] =
+            (red[u] + red[T + u]) + (red[2 * T + u] + red[3 * T + u]);
+      }
+    }
+  }
+  float* out = a.pbc + ((((int64_t)(z * a.HS + hs) * a.B + b) * a.nc + c) *
+                            a.QP + u0) * bld + (int64_t)g * a.N;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + r0 + 8 * r, u = 8 * j + 2 * t4 + e;
+        if (n < a.N) out[(int64_t)u * bld + n] = acc[4 * j + 2 * r + e];
+      }
+}
+
+// ---------------------------------------------------------------- 6 ----
+// grid (ceil(max(G QP^2, QP G N) / 1024), B * nc, 3), 256 threads of 4
+// values: the head slices' partials added in slice order into slice 0,
+// z = 0 dcb's lower tiles (G QP^2 values a (b, chunk)), z = 1 and 2 dC's
+// and dB's head terms (QP G N values a (b, chunk)). Launched for HS > 1.
+__global__ void __launch_bounds__(256) ssd_bwd_sum_kernel(BwdArgs a) {
+  const int z = blockIdx.z;
+  const int64_t bc = blockIdx.y;             // b nc + c
+  const int64_t per = z == 0 ? (int64_t)a.G * a.QP * a.QP
+                             : (int64_t)a.QP * a.G * a.N;
+  const int64_t i = 4 * ((int64_t)blockIdx.x * 256 + threadIdx.x);
+  if (i >= per) return;
+  if (z == 0) {                              // an upper tile: never written
+    const int64_t e = i % ((int64_t)a.QP * a.QP);
+    if ((e % a.QP) / T > (e / a.QP) / T) return;
+  }
+  const int64_t stride = (int64_t)a.B * a.nc * per;
+  float* p = (z == 0 ? a.dcbp : a.pbc + (int64_t)(z - 1) * a.HS * stride) +
+             bc * per + i;
+  float4 s = *(const float4*)p;
+  for (int hs = 1; hs < a.HS; ++hs) {
+    const float4 w = *(const float4*)(p + hs * stride);
+    s.x += w.x;
+    s.y += w.y;
+    s.z += w.z;
+    s.w += w.w;
+  }
+  *(float4*)p = s;
+}
+
+// ---------------------------------------------------------------- 7 ----
+// grid (nt * 2 * NH, nc * G, B): the tile of chunk c, group g, z = 0 dC
+// (rows t) or 1 dB (rows s), n in [64 nh, 64 nh + 64): acc[n][u] starts
+// as the head terms (the slices' sum, pass 6), then over the K tiles
+// (dC: s tiles <= ti; dB: t tiles >= si) B^T or C^T (registers, rows n,
+// read from the staged tile) times dcb or dcb^T (split, rows u).
+template <typename In>
+__global__ void __launch_bounds__(NT) ssd_bwd_dbc_kernel(BwdArgs a) {
+  constexpr bool F32 = sizeof(In) == 4;
+  constexpr int W = T * T;
+  extern __shared__ __align__(128) uint32_t smem[];
+  uint32_t* sp = smem;                       // dcb or dcb^T split (u, k)
+  float* sv = (float*)(sp + 2 * W);          // [T][SPT] B or C rows k
+  float* sd = sv + T * SPT;                  // [T][SPA] dcb rows t
+  const int tile = blockIdx.x % a.nt;
+  const int z = (blockIdx.x / a.nt) % 2, nh = blockIdx.x / a.nt / 2;
+  const int g = blockIdx.y % a.G, c = blockIdx.y / a.G, b = blockIdx.z;
+  const int len = chunk_len(a, c);
+  if (tile * T >= len) return;
+  const int64_t c0 = (int64_t)c * a.Q;
+  const int64_t bld = (int64_t)a.G * a.N;
+  const int u0 = tile * T, n0 = T * nh;
+  const int last = (len - 1) / T;
+  const In* vs = (const In*)(z == 0 ? a.Bm : a.Cm) +
+                 ((int64_t)b * a.S + c0) * bld + (int64_t)g * a.N + n0;
+  const float* dcb0 = a.dcbp + (((int64_t)b * a.nc + c) * a.G + g) * a.QP *
+                                   a.QP;
+
+  const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * wl + g8;
+  float acc[32];
+  const float* part = a.pbc + (int64_t)z * a.HS * a.B * a.nc * a.QP * bld +
+                      (((int64_t)b * a.nc + c) * a.QP + u0) * bld +
+                      (int64_t)g * a.N;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + r0 + 8 * r, u = 8 * j + 2 * t4 + e;
+        acc[4 * j + 2 * r + e] = n < a.N ? part[(int64_t)u * bld + n] : 0.f;
+      }
+  const int k_lo = z == 0 ? 0 : tile, k_hi = z == 0 ? tile : last;
+  for (int kt = k_lo; kt <= k_hi; ++kt) {
+    load_tile<NT, T, T, SPT>(sv, vs + (int64_t)(kt * T) * bld, bld,
+                             len - kt * T, a.N - n0, a.vbc);
+    // the dcb tile (t tile, s tile): (ti, kt) for dC, (kt, si) for dB
+    load_tile<NT, T, T, SPA>(sd, dcb0 + (int64_t)((z == 0 ? tile : kt) * T) *
+                                            a.QP + (z == 0 ? kt : tile) * T,
+                             a.QP, T, T, 1);
+    cp_commit();
+    cp_wait_all();
+    __syncthreads();
+    if (z == 0)                       // rows t, K = s: as stored
+      split_rows<NT, T, T, SPA>(sd, sp);
+    else                              // rows s, K = t: transposed
+      split_cols<NT, T, T, SPA, false>(sd, sp);
+    // element (n, k) of the register operand is sv[k * SPT + n]
+    uint32_t ab[8][4], as[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) frag<1, SPT>(sv, r0, 8 * j, t4, ab[j], as[j]);
+    fence_async_smem();
+    __syncthreads();
+    pin(acc);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      step_rs<F32, true>(acc, ab[j], as[j], sp + 2 * j * (T / 8) * 32, W);
+    wg_commit();
+    wg_wait_all();
+    pin(acc);
+    __syncthreads();                  // the staging is free again
+  }
+  In* out = (In*)(z == 0 ? a.dC : a.dB) + ((int64_t)b * a.S + c0 + u0) * bld +
+            (int64_t)g * a.N;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + r0 + 8 * r, u = 8 * j + 2 * t4 + e;
+        if (n < a.N && u0 + u < len)
+          out[(int64_t)u * bld + n] = narrow<In>(acc[4 * j + 2 * r + e]);
+      }
+}
+
+// ---------------------------------------------------------------- 8 ----
+// the sum of v over the block's QP threads in a fixed tree order (slots
+// past n hold zeros); every thread gets it (red: QMAX floats)
 __device__ __forceinline__ float block_sum(float v, float* red, int n) {
   const int u = threadIdx.x;
   red[u] = v;
-  for (int i = n + u; i < NT; i += n) red[i] = 0.f;
+  for (int i = n + u; i < QMAX; i += n) red[i] = 0.f;
   __syncthreads();
-  for (int o = NT / 2; o > 0; o >>= 1) {
+  for (int o = QMAX / 2; o > 0; o >>= 1) {
     for (int i = u; i < o; i += n) red[i] += red[i + o];
     __syncthreads();
   }
@@ -148,497 +997,14 @@ __device__ __forceinline__ float block_sum(float v, float* red, int n) {
   return s;
 }
 
-// rows of 16 partial sums (red[r * 17 + tx]) added in order by thread r
-__device__ __forceinline__ float row16(const float* red, int r) {
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) s += red[r * 17 + k];
-  return s;
-}
-
-// ---------------------------------------------------------------- 1 ----
-// grid (H * nc, B): dstates[p][n] = sum_t exp(cum_t) dy[t][p] C[t][n];
-// thread rows p = ty + 16 i, columns n = tx + 16 j; K = t in steps of KS
-__global__ void __launch_bounds__(NT) ssd_bwd_dstates_kernel(BwdArgs a) {
-  __shared__ float sa[KS][SP];               // exp(cum_t) dy[t][p]
-  __shared__ float sb[KS][SN];               // C[t][n]
-  const int h = blockIdx.x % a.H, c = blockIdx.x / a.H, b = blockIdx.y;
-  const int g = h / (a.H / a.G);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int len = chunk_len(a, c);
-  const int64_t c0 = (int64_t)c * a.Q;
-  const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
-  const int64_t xld = (int64_t)a.H * a.P, cld = (int64_t)a.G * a.N;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int t0 = 0; t0 < len; t0 += KS) {
-    for (int e = threadIdx.x; e < KS * PMAX; e += NT) {
-      const int k = e / PMAX, p = e % PMAX, t = t0 + k;
-      sa[k][p] = t < len && p < a.P
-                     ? expf(a.cum[bhc * a.QP + t]) *
-                           ld(a.dy, ((int64_t)b * a.S + c0 + t) * xld +
-                                        (int64_t)h * a.P + p, a.in_bf16)
-                     : 0.f;
-    }
-    for (int e = threadIdx.x; e < KS * NMAX; e += NT) {
-      const int k = e / NMAX, n = e % NMAX, t = t0 + k;
-      sb[k][n] = t < len && n < a.N
-                     ? ld(a.Cm, ((int64_t)b * a.S + c0 + t) * cld +
-                                    (int64_t)g * a.N + n, a.in_bf16)
-                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KS; ++k) {
-      float av[4], bv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sa[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = sb[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = a.dst + bhc * a.P * a.N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int p = ty + 16 * i, n = tx + 16 * j;
-      if (p < a.P && n < a.N) out[p * a.N + n] = acc[i][j];
-    }
-}
-
-// ---------------------------------------------------------------- 2 ----
-// grid (nsl * H, B), NT threads of 4 elements each: G_c over the chunks in
-// reverse, written over dstates_c; ep = the block's share of <G_c, S_in[c]>
-// (times exp(total_c)); d(init)
-__global__ void __launch_bounds__(NT) ssd_bwd_state_passing_kernel(
-    BwdArgs a) {
-  __shared__ float red[NT];
-  const int sl = blockIdx.x % a.nsl, h = blockIdx.x / a.nsl, b = blockIdx.y;
-  const int64_t bh = (int64_t)b * a.H + h;
-  const int64_t pn = (int64_t)a.P * a.N;
-  int64_t idx[4];
-  float g[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    idx[k] = (int64_t)sl * SLICE + threadIdx.x + k * NT;
-    g[k] = a.dfinal != nullptr && idx[k] < pn ? a.dfinal[bh * pn + idx[k]]
-                                              : 0.f;
-  }
-  for (int c = a.nc - 1; c >= 0; --c) {
-    const int64_t bhc = bh * a.nc + c;
-    const float dec = expf(a.cum[bhc * a.QP + a.QP - 1]);
-    float part = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (idx[k] >= pn) continue;
-      float* d = a.dst + bhc * pn + idx[k];
-      const float ds = *d;
-      part = fmaf(g[k], a.s_in[bhc * pn + idx[k]], part);
-      *d = g[k];
-      g[k] = fmaf(dec, g[k], ds);
-    }
-    const float tot = block_sum(part, red, NT);
-    if (threadIdx.x == 0) a.ep[bhc * a.nsl + sl] = dec * tot;
-  }
-  if (a.dinit != nullptr) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (idx[k] < pn) st(a.dinit, bh * pn + idx[k], g[k], a.init_bf16);
-  }
-}
-
-// ---------------------------------------------------------------- 3 ----
-// grid (ntri * nc * G, B): the tile pair (ti, si), si <= ti, of chunk c
-// and group g; thread rows t = ty + 16 i, columns s = tx + 16 j. For each
-// head of the group in order: D = dy_t . x_s (K = p), dcb += L dt_s D, and
-// M = cb L dt_s D summed along each row (s < t) into rs[si] and each
-// column (t > s) into cs[ti].
-__global__ void __launch_bounds__(NT) ssd_bwd_dcb_kernel(BwdArgs a) {
-  __shared__ float sdy[PMAX][SP];            // dy[t][p] as [p][t]; then M
-  __shared__ float sx[PMAX][SP];             // x[s][p] as [p][s]
-  __shared__ float vc[2 * T + T];            // cum_t, cum_s, dt_s
-  const int ntri = a.nt * (a.nt + 1) / 2;
-  const int tile = blockIdx.x % ntri, rest = blockIdx.x / ntri;
-  const int g = rest % a.G, c = rest / a.G, b = blockIdx.y;
-  int ti = 0;
-  while ((ti + 1) * (ti + 2) / 2 <= tile) ++ti;
-  const int si = tile - ti * (ti + 1) / 2;
-  const int len = chunk_len(a, c);
-  if (ti * T >= len) return;                 // past the chunk: never read
-  const int R = a.H / a.G;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t c0 = (int64_t)c * a.Q;
-  const int64_t xld = (int64_t)a.H * a.P;
-  const int64_t cbo = (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP;
-  float cbv[4][4], dcb[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      cbv[i][j] = a.cb[cbo + (int64_t)(ti * T + ty + 16 * i) * a.QP +
-                       si * T + tx + 16 * j];
-      dcb[i][j] = 0.f;
-    }
-  for (int r = 0; r < R; ++r) {
-    const int h = g * R + r;
-    const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
-    for (int e = threadIdx.x; e < T * PMAX; e += NT) {
-      const int k = e / PMAX, p = e % PMAX;
-      const int t = ti * T + k, s = si * T + k;
-      const int64_t row =
-          ((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P + p;
-      sdy[p][k] =
-          t < len && p < a.P ? ld(a.dy, row + t * xld, a.in_bf16) : 0.f;
-      sx[p][k] = s < len && p < a.P ? ld(a.x, row + s * xld, a.in_bf16) : 0.f;
-    }
-    if (threadIdx.x < T) {
-      vc[threadIdx.x] = a.cum[bhc * a.QP + ti * T + threadIdx.x];
-      vc[T + threadIdx.x] = a.cum[bhc * a.QP + si * T + threadIdx.x];
-      vc[2 * T + threadIdx.x] = a.dts[bhc * a.QP + si * T + threadIdx.x];
-    }
-    __syncthreads();
-    float d[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) d[i][j] = 0.f;
-#pragma unroll 4
-    for (int p = 0; p < PMAX; ++p) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sdy[p][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sx[p][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) d[i][j] = fmaf(av[i], bv[j], d[i][j]);
-    }
-    __syncthreads();                         // sdy is free: M goes there
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int tl = ty + 16 * i, sc = tx + 16 * j;
-        const int t = ti * T + tl, s = si * T + sc;
-        float m = 0.f;
-        if (s <= t) {                        // mask before the exp
-          const float v = d[i][j] * (expf(vc[tl] - vc[T + sc]) *
-                                     vc[2 * T + sc]);
-          dcb[i][j] += v;
-          if (s < t) m = cbv[i][j] * v;
-        }
-        sdy[tl][sc] = m;
-      }
-    __syncthreads();
-    const int64_t o = bhc * a.nt * a.QP;
-    if (threadIdx.x < T) {                   // row t: sum over s
-      float v = 0.f;
-      for (int k = 0; k < T; ++k) v += sdy[threadIdx.x][k];
-      a.rs[o + (int64_t)si * a.QP + ti * T + threadIdx.x] = v;
-    } else if (threadIdx.x < 2 * T) {        // column s: sum over t
-      const int k0 = threadIdx.x - T;
-      float v = 0.f;
-      for (int k = 0; k < T; ++k) v += sdy[k][k0];
-      a.cs[o + (int64_t)ti * a.QP + si * T + k0] = v;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a.dcb[cbo + (int64_t)(ti * T + ty + 16 * i) * a.QP + si * T + tx +
-            16 * j] = dcb[i][j];
-}
-
-// ---------------------------------------------------------------- 4 ----
-// grid (nt * H * nc, B): the s tile si of (b, h, chunk); thread rows
-// s = ty + 16 i, columns p = tx + 16 j. The intra term sum_{t >= s}
-// cb L dy_t over the t tiles ti >= si (K = t), the state term G_c B_s
-// (K = n in steps of 64), then dx, ddts = x . dxdt and K.
-__global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(BwdArgs a) {
-  __shared__ float s1[T][SP];                // W[t][s], then B[n][s]
-  __shared__ float s2[T][SP];                // dy[t][p], then G[n][p]
-  __shared__ float vc[2 * QMAX];             // cum, dts of the chunk
-  __shared__ float red[2][T * 17];
-  const int si = blockIdx.x % a.nt, rest = blockIdx.x / a.nt;
-  const int h = rest % a.H, c = rest / a.H, b = blockIdx.y;
-  const int g = h / (a.H / a.G);
-  const int len = chunk_len(a, c);
-  if (si * T >= len) return;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t c0 = (int64_t)c * a.Q;
-  const int64_t xld = (int64_t)a.H * a.P, bld = (int64_t)a.G * a.N;
-  const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
-  const int64_t cbo = (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP;
-  for (int i = threadIdx.x; i < a.QP; i += NT) {
-    vc[i] = a.cum[bhc * a.QP + i];
-    vc[QMAX + i] = a.dts[bhc * a.QP + i];
-  }
-  __syncthreads();
-  float acc[4][4], acc2[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = acc2[i][j] = 0.f;
-  const int last = (len - 1) / T;
-  for (int ti = si; ti <= last; ++ti) {
-    for (int e = threadIdx.x; e < T * T; e += NT) {
-      const int tl = e / T, sc = e % T;
-      const int t = ti * T + tl, s = si * T + sc;
-      s1[tl][sc] = s <= t && t < len
-                       ? a.cb[cbo + (int64_t)t * a.QP + s] *
-                             expf(vc[t] - vc[s])
-                       : 0.f;
-      s2[tl][sc] = t < len && sc < a.P
-                       ? ld(a.dy, ((int64_t)b * a.S + c0 + t) * xld +
-                                      (int64_t)h * a.P + sc, a.in_bf16)
-                       : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < T; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = s1[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = s2[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const float* gc = a.dst + bhc * a.P * a.N;
-  for (int n0 = 0; n0 < a.N; n0 += T) {
-    for (int e = threadIdx.x; e < T * T; e += NT) {
-      const int k = e % T, q = e / T;        // q: s (B) or p (G)
-      const int n = n0 + k, s = si * T + q;
-      s1[k][q] = n < a.N && s < len
-                     ? ld(a.Bm, ((int64_t)b * a.S + c0 + s) * bld +
-                                    (int64_t)g * a.N + n, a.in_bf16)
-                     : 0.f;
-      s2[k][q] = n < a.N && q < a.P ? gc[(int64_t)q * a.N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < T; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = s1[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = s2[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc2[i][j] = fmaf(av[i], bv[j], acc2[i][j]);
-    }
-    __syncthreads();
-  }
-  const float total = vc[a.QP - 1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int sl = ty + 16 * i, s = si * T + sl;
-    const float e = expf(total - vc[s]), d = vc[QMAX + s];
-    float pd = 0.f, pk = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = tx + 16 * j;
-      if (s < len && p < a.P) {
-        const int64_t o = ((int64_t)b * a.S + c0 + s) * xld +
-                          (int64_t)h * a.P + p;
-        const float xv = ld(a.x, o, a.in_bf16);
-        const float st_term = e * acc2[i][j];
-        const float dxdt = acc[i][j] + st_term;
-        st(a.dx, o, d * dxdt, a.in_bf16);
-        pd = fmaf(xv, dxdt, pd);
-        pk = fmaf(xv, st_term, pk);
-      }
-    }
-    red[0][sl * 17 + tx] = pd;
-    red[1][sl * 17 + tx] = d * pk;
-  }
-  __syncthreads();
-  if (threadIdx.x < T) {
-    const int s = si * T + threadIdx.x;
-    a.pD[bhc * a.QP + s] = row16(red[0], threadIdx.x);
-    a.pK[bhc * a.QP + s] = row16(red[1], threadIdx.x);
-  }
-}
-
-// ---------------------------------------------------------------- 5 ----
-// grid (nt * nc * G, B, 2): z = 0 the t tile of dC, z = 1 the s tile of
-// dB, for (b, chunk, group); thread rows ty + 16 i, columns n = tx + 16 j.
-// dC: sum_{si <= ti} dcb[t][s] B_s (K = s), then per head exp(cum_t)
-//     dy_t S_in (K = p), and I_t = C_t . that;
-// dB: sum_{ti >= si} dcb[t][s] C_t (K = t), then per head exp(total -
-//     cum_s) dt_s x_s G_c (K = p).
-__global__ void __launch_bounds__(NT) ssd_bwd_dbc_kernel(BwdArgs a) {
-  __shared__ float sa[KS][SP];               // the K x 64 row operand
-  __shared__ float sb[KS][SN];               // the K x N column operand
-  __shared__ float vr[T];                    // a head's row factors
-  __shared__ float red[T * 17];
-  const int tile = blockIdx.x % a.nt, rest = blockIdx.x / a.nt;
-  const int g = rest % a.G, c = rest / a.G, b = blockIdx.y;
-  const int isB = blockIdx.z;
-  const int len = chunk_len(a, c);
-  if (tile * T >= len) return;
-  const int R = a.H / a.G;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t c0 = (int64_t)c * a.Q;
-  const int64_t xld = (int64_t)a.H * a.P, bld = (int64_t)a.G * a.N;
-  const int64_t cbo = (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP;
-  const int r0 = tile * T;                   // this tile's first row
-  const void* other = isB ? a.Cm : a.Bm;     // the intra term's operand
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  // intra: K runs over the other index's tiles (s <= t for dC, t >= s
-  // for dB), KS at a time
-  const int last = (len - 1) / T;
-  const int k_lo = isB ? r0 : 0, k_hi = isB ? (last + 1) * T : r0 + T;
-  for (int k0 = k_lo; k0 < k_hi; k0 += KS) {
-    for (int e = threadIdx.x; e < KS * T; e += NT) {
-      // q: this tile's row; the read along dcb's rows is the faster one
-      const int k = isB ? e / T : e % KS, q = isB ? e % T : e / KS;
-      const int kk = k0 + k;
-      // dC: dcb[r0 + q][kk]; dB: dcb[kk][r0 + q]; lower tiles only
-      const int t = isB ? kk : r0 + q, s = isB ? r0 + q : kk;
-      sa[k][q] = s <= t && t < len && s < len
-                     ? a.dcb[cbo + (int64_t)t * a.QP + s] : 0.f;
-    }
-    for (int e = threadIdx.x; e < KS * NMAX; e += NT) {
-      const int k = e / NMAX, n = e % NMAX, kk = k0 + k;
-      sb[k][n] = kk < len && n < a.N
-                     ? ld(other, ((int64_t)b * a.S + c0 + kk) * bld +
-                                     (int64_t)g * a.N + n, a.in_bf16)
-                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KS; ++k) {
-      float av[4], bv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sa[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = sb[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  // dC's C_t, for I
-  float cv[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int t = r0 + ty + 16 * i, n = tx + 16 * j;
-      cv[i][j] = !isB && t < len && n < a.N
-                     ? ld(a.Cm, ((int64_t)b * a.S + c0 + t) * bld +
-                                    (int64_t)g * a.N + n, a.in_bf16)
-                     : 0.f;
-    }
-  for (int r = 0; r < R; ++r) {
-    const int h = g * R + r;
-    const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
-    // dC: dy_t S_in (S_in[p][n]); dB: x_s G_c (G[p][n])
-    const float* mat = (isB ? a.dst : a.s_in) + bhc * a.P * a.N;
-    const void* vec = isB ? a.x : a.dy;
-    if (threadIdx.x < T) {
-      const int q = r0 + threadIdx.x;
-      const float cq = a.cum[bhc * a.QP + q];
-      vr[threadIdx.x] = isB ? expf(a.cum[bhc * a.QP + a.QP - 1] - cq) *
-                                  a.dts[bhc * a.QP + q]
-                            : expf(cq);
-    }
-    float hacc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) hacc[i][j] = 0.f;
-    for (int p0 = 0; p0 < a.P; p0 += KS) {
-      for (int e = threadIdx.x; e < KS * T; e += NT) {
-        const int k = e % KS, q = e / KS, p = p0 + k, row = r0 + q;
-        sa[k][q] = row < len && p < a.P
-                       ? ld(vec, ((int64_t)b * a.S + c0 + row) * xld +
-                                     (int64_t)h * a.P + p, a.in_bf16)
-                       : 0.f;
-      }
-      for (int e = threadIdx.x; e < KS * NMAX; e += NT) {
-        const int k = e / NMAX, n = e % NMAX, p = p0 + k;
-        sb[k][n] = p < a.P && n < a.N ? mat[(int64_t)p * a.N + n] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < KS; ++k) {
-        float av[4], bv[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = sa[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = sb[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            hacc[i][j] = fmaf(av[i], bv[j], hacc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float f = vr[ty + 16 * i];
-      float pi = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float v = hacc[i][j] * f;
-        acc[i][j] += v;
-        pi = fmaf(v, cv[i][j], pi);
-      }
-      if (!isB) red[(ty + 16 * i) * 17 + tx] = pi;
-    }
-    __syncthreads();
-    if (!isB && threadIdx.x < T)
-      a.pI[bhc * a.QP + r0 + threadIdx.x] = row16(red, threadIdx.x);
-    __syncthreads();
-  }
-  void* out = isB ? a.dB : a.dC;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int row = r0 + ty + 16 * i, n = tx + 16 * j;
-      if (row < len && n < a.N)
-        st(out, ((int64_t)b * a.S + c0 + row) * bld + (int64_t)g * a.N + n,
-           acc[i][j], a.in_bf16);
-    }
-}
-
-// ---------------------------------------------------------------- 6 ----
 // grid (H * nc, B), QP threads: dcum from the partial sums (rs over the s
-// tiles in order, cs over the live t tiles in order, I, K, and at the
-// last slot sum K + the ep shares), its reverse cumsum dla (a warp
-// shuffle scan from the chunk's end, then the warps' totals in order),
-// ddt = ddts + A dla, and dap = sum_u dts_u dla_u.
+// tiles in order, cs over the live t tiles in order, I over the halves of
+// N in order, K, and at the last slot sum K + the ep shares), its reverse
+// cumsum dla (a warp shuffle scan from the chunk's end, then the warps'
+// totals in order), ddt = ddts + A dla, and dap = sum_u dts_u dla_u.
 __global__ void __launch_bounds__(QMAX) ssd_bwd_ddt_kernel(BwdArgs a) {
   __shared__ float wsum[QMAX / 32];
-  __shared__ float red[NT];
+  __shared__ float red[QMAX];
   const int u = threadIdx.x, lane = u & 31, warp = u >> 5;
   const int h = blockIdx.x % a.H, c = blockIdx.x / a.H, b = blockIdx.y;
   const int len = chunk_len(a, c);
@@ -647,11 +1013,13 @@ __global__ void __launch_bounds__(QMAX) ssd_bwd_ddt_kernel(BwdArgs a) {
   float K = 0.f, dc = 0.f;
   if (u < len) {
     const int tu = u / T, last = (len - 1) / T;
-    float rs = 0.f, cs = 0.f;
+    float rs = 0.f, cs = 0.f, I = 0.f;
     for (int k = 0; k <= tu; ++k) rs += a.rs[(bhc * a.nt + k) * a.QP + u];
     for (int k = tu; k <= last; ++k) cs += a.cs[(bhc * a.nt + k) * a.QP + u];
+    for (int k = 0; k < a.NH; ++k)
+      I += a.pI[(int64_t)k * a.B * a.H * a.nc * a.QP + o + u];
     K = a.pK[o + u];
-    dc = rs - cs + a.pI[o + u] - K;
+    dc = rs - cs + I - K;
   }
   const float ksum = block_sum(K, red, a.QP);
   if (u == a.QP - 1) {
@@ -680,10 +1048,10 @@ __global__ void __launch_bounds__(QMAX) ssd_bwd_ddt_kernel(BwdArgs a) {
   if (u == 0) a.dap[bhc] = dap;
 }
 
-// ---------------------------------------------------------------- 7 ----
-// grid ceil(H / NT): dA[h] = the (b, chunk) shares in order
-__global__ void __launch_bounds__(NT) ssd_bwd_dA_kernel(BwdArgs a) {
-  const int h = blockIdx.x * NT + threadIdx.x;
+// ---------------------------------------------------------------- 9 ----
+// grid ceil(H / 256): dA[h] = the (b, chunk) shares in order
+__global__ void __launch_bounds__(256) ssd_bwd_dA_kernel(BwdArgs a) {
+  const int h = blockIdx.x * 256 + threadIdx.x;
   if (h >= a.H) return;
   float s = 0.f;
   for (int b = 0; b < a.B; ++b)
@@ -693,67 +1061,137 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dA_kernel(BwdArgs a) {
 }
 
 // ------------------------------------------------------------ launch ----
+// dynamic shared memory of the tensor-core passes, in bytes
+static size_t dstates_smem() {
+  return 4 * ((size_t)2 * PMAX * KT + 2 * 2 * KT * SPT + QMAX);
+}
+static size_t dcb_smem(bool f32) {
+  return 4 * ((size_t)2 * (f32 ? 2 : 1) * T * PMAX + 2 * T * SPA + 6 * T +
+              4 * T + T);
+}
+static size_t dx_smem() {
+  return 4 * ((size_t)2 * PMAX * T + 2 * T * SPT + 2 * QMAX);
+}
+static size_t heads_smem(bool f32) {
+  return 4 * ((size_t)(f32 ? 2 : 1) * T * PMAX + T * SPA + PMAX * SPT +
+              T * SPA + 2 * (2 * T + 4) + 4 * T + T);
+}
+static size_t dbc_smem() {
+  return 4 * ((size_t)2 * T * T + T * SPT + T * SPA);
+}
+
+template <typename K>
+static int launch_smem(K kern, dim3 grid, size_t bytes, const BwdArgs& a,
+                       cudaStream_t stream) {
+  const int e = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != 0) return e;
+  kern<<<grid, NT, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 #define BWD_PASS(name)                                                      \
   extern "C" int name(                                                      \
       const void* x, const void* dt, const float* A, const void* Bm,       \
       const void* Cm, const void* dy, const float* dfinal, const float* dts, \
       const float* cum, const float* cb, const float* s_in, void* dx,       \
       void* ddt, float* dA, void* dB, void* dC, void* dinit, float* dst,   \
-      float* dcb, float* rs, float* cs, float* pI, float* pK, float* pD,   \
-      float* ep, float* dap, int B, int S, int H, int P, int G, int N,     \
-      int Q, int in_bf16, int dt_bf16, int init_bf16, cudaStream_t stream)
+      float* dcbp, float* rs, float* cs, float* pI, float* pK, float* pD,  \
+      float* pbc, float* ep, float* dap, int B, int S, int H, int P, int G, \
+      int N, int Q, int in_bf16, int dt_bf16, int init_bf16,               \
+      cudaStream_t stream)
 
 // Arguments of every pass: the forward's operands x (B,S,H,P), dt (B,S,H),
 // A (H,), Bm and Cm (B,S,G,N); dy (B,S,H,P) in x's dtype; dfinal
 // (B,H,P,N) float32 or null; the forward's scratch dts and cum
 // (B,H,nc,QP), cb (B,nc,G,QP,QP) and S_in (B,H,nc,P,N) after its five
 // passes; the gradients dx, ddt, dA (H,) float32, dB, dC and dinit (or
-// null) in their operands' dtypes; the scratch dst (B,H,nc,P,N), dcb
-// (B,nc,G,QP,QP), rs and cs (B,H,nc,QP/64,QP), pI, pK and pD (B,H,nc,QP),
-// ep (B,H,nc,ceil(P*N/1024)) and dap (B,H,nc), float32. nc = ceil(S/Q),
-// QP = Q rounded up to 64; P <= 64, N <= 128, 1 <= Q <= 256, H % G == 0,
-// B <= 65535. The passes run in order: dstates, state_passing, dcb, dx,
-// dbc, ddt, dA.
+// null) in their operands' dtypes; the scratch dst (B,H,nc,P,N), dcbp
+// (HS,B,nc,G,QP,QP), rs and cs (B,H,nc,QP/64,QP), pI (NH,B,H,nc,QP), pK
+// and pD (B,H,nc,QP), pbc (2,HS,B,nc,QP,G,N), ep (B,H,nc,ceil(P*N/1024))
+// and dap (B,H,nc), float32; nc = ceil(S/Q), QP = Q rounded up to 64, HS
+// = min(H/G, 4) head slices, NH = ceil(N/64). P <= 64, N <= 128, 1 <= Q
+// <= 256, H % G == 0, B <= 65535, nc G <= 65535. The passes run in order:
+// dstates, state_passing, dcb, dx, heads, sum, dbc, ddt, dA.
 #define BWD_ARGS                                                            \
   if (B == 0 || H == 0) return 0;                                           \
   if (P < 1 || P > PMAX || N < 1 || N > NMAX || Q < 1 || Q > QMAX ||        \
-      S < 1 || G < 1 || H % G != 0 || B > 65535)                            \
+      S < 1 || G < 1 || H % G != 0 || B > 65535 ||                          \
+      (int64_t)((S + Q - 1) / Q) * G > 65535)                               \
     return -1;                                                              \
   const int QP = (Q + T - 1) / T * T, nc = (S + Q - 1) / Q;                 \
+  auto al = [](const void* p) { return ((uintptr_t)p % 16) == 0; };         \
+  const int lanes = in_bf16 ? 8 : 4;                                        \
   const BwdArgs a{x,  dt,  A,  Bm, Cm, dy, dfinal, dts, cum, cb, s_in, dx,   \
-                  ddt, dA, dB, dC, dinit, dst, dcb, rs, cs, pI, pK, pD, ep, \
-                  dap, B, S, H, P, G, N, Q, QP, nc, QP / T,                 \
-                  (P * N + SLICE - 1) / SLICE, in_bf16, dt_bf16, init_bf16};
+                  ddt, dA, dB, dC, dinit, dst, dcbp, rs, cs, pI, pK, pD,    \
+                  pbc, ep, dap, B, S, H, P, G, N, Q, QP, nc, QP / T,        \
+                  (P * N + SLICE - 1) / SLICE,                              \
+                  H / G < HSMAX ? H / G : HSMAX, (N + T - 1) / T,           \
+                  in_bf16, dt_bf16, init_bf16,                              \
+                  P % lanes == 0 && al(x) && al(dy),                        \
+                  N % lanes == 0 && al(Bm) && al(Cm),                       \
+                  N % 4 == 0 && al(dst) && al(s_in)};
 
 BWD_PASS(ssd_bwd_dstates) {
   BWD_ARGS
-  ssd_bwd_dstates_kernel<<<dim3(H * a.nc, B), NT, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  const dim3 grid(H * a.nc, B, a.NH);
+  return in_bf16 ? launch_smem(ssd_bwd_dstates_kernel<bf16>, grid,
+                               dstates_smem(), a, stream)
+                 : launch_smem(ssd_bwd_dstates_kernel<float>, grid,
+                               dstates_smem(), a, stream);
 }
 
 BWD_PASS(ssd_bwd_state_passing) {
   BWD_ARGS
-  ssd_bwd_state_passing_kernel<<<dim3(a.nsl * H, B), NT, 0, stream>>>(a);
+  ssd_bwd_state_passing_kernel<<<dim3(a.nsl * H, B), 256, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 BWD_PASS(ssd_bwd_dcb) {
   BWD_ARGS
-  ssd_bwd_dcb_kernel<<<dim3(a.nt * (a.nt + 1) / 2 * a.nc * G, B), NT, 0,
-                       stream>>>(a);
-  return (int)cudaGetLastError();
+  const dim3 grid(a.nt * (a.nt + 1) / 2 * a.HS, a.nc * G, B);
+  return in_bf16 ? launch_smem(ssd_bwd_dcb_kernel<bf16>, grid,
+                               dcb_smem(false), a, stream)
+                 : launch_smem(ssd_bwd_dcb_kernel<float>, grid,
+                               dcb_smem(true), a, stream);
 }
 
 BWD_PASS(ssd_bwd_dx) {
   BWD_ARGS
-  ssd_bwd_dx_kernel<<<dim3(a.nt * H * a.nc, B), NT, 0, stream>>>(a);
+  const dim3 grid(a.nt, H * a.nc, B);
+  if (H * a.nc > 65535) return -1;
+  return in_bf16 ? launch_smem(ssd_bwd_dx_kernel<bf16>, grid, dx_smem(), a,
+                               stream)
+                 : launch_smem(ssd_bwd_dx_kernel<float>, grid, dx_smem(), a,
+                               stream);
+}
+
+BWD_PASS(ssd_bwd_heads) {
+  BWD_ARGS
+  const dim3 grid(a.nt * 2 * a.NH * a.HS, a.nc * G, B);
+  return in_bf16 ? launch_smem(ssd_bwd_heads_kernel<bf16>, grid,
+                               heads_smem(false), a, stream)
+                 : launch_smem(ssd_bwd_heads_kernel<float>, grid,
+                               heads_smem(true), a, stream);
+}
+
+BWD_PASS(ssd_bwd_sum) {
+  BWD_ARGS
+  if (a.HS == 1) return 0;
+  if ((int64_t)B * a.nc > 65535) return -1;
+  const int64_t most = (int64_t)QP * G * (QP > N ? QP : N);
+  ssd_bwd_sum_kernel<<<dim3((unsigned)((most + 1023) / 1024), B * a.nc, 3),
+                       256, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 BWD_PASS(ssd_bwd_dbc) {
   BWD_ARGS
-  ssd_bwd_dbc_kernel<<<dim3(a.nt * a.nc * G, B, 2), NT, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  const dim3 grid(a.nt * 2 * a.NH, a.nc * G, B);
+  return in_bf16 ? launch_smem(ssd_bwd_dbc_kernel<bf16>, grid, dbc_smem(), a,
+                               stream)
+                 : launch_smem(ssd_bwd_dbc_kernel<float>, grid, dbc_smem(), a,
+                               stream);
 }
 
 BWD_PASS(ssd_bwd_ddt) {
@@ -764,6 +1202,6 @@ BWD_PASS(ssd_bwd_ddt) {
 
 BWD_PASS(ssd_bwd_dA) {
   BWD_ARGS
-  ssd_bwd_dA_kernel<<<(H + NT - 1) / NT, NT, 0, stream>>>(a);
+  ssd_bwd_dA_kernel<<<(H + 255) / 256, 256, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

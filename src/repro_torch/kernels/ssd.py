@@ -40,12 +40,15 @@ one); ``ssd_scan_tf32`` is a float64 model of that arithmetic and
 
 The gradient. On a CUDA tensor that needs one, ``ssd_scan`` runs
 ``SsdScanFn``: the five passes, their scratch (dts, cum, cb and S_in per
-chunk) kept for the backward kernel ``csrc/ssd_scan_bwd.cu``, seven
-passes on FP32 CUDA cores (``BWD_PASSES``; ``BWD_LAUNCHES`` counts its
-calls), which writes dx, ddt, dA, dB, dC and d(init_state) in their
-operands' dtypes (dA float32) with no atomics, the same bits on every
-launch. Its plain version ``ssd_scan_bwd_ref`` composes the five passes
-reversed (``chunk_scan_bwd_ref``, ``state_passing_bwd_ref``,
+chunk) kept for the backward kernel ``csrc/ssd_scan_bwd.cu``, nine
+passes with every product on the tensor cores in 3xTF32 (one or two
+TF32 products where an operand is bfloat16), a group's heads spread
+over up to ``BWD_HEAD_SLICES`` slices whose partial sums are added in a
+fixed order (``BWD_PASSES``; ``BWD_LAUNCHES`` counts its calls), which
+writes dx, ddt, dA, dB, dC and d(init_state) in their operands' dtypes
+(dA float32) with no atomics, the same bits on every launch. Its plain
+version ``ssd_scan_bwd_ref`` composes the five passes reversed
+(``chunk_scan_bwd_ref``, ``state_passing_bwd_ref``,
 ``chunk_state_bwd_ref``, ``bmm_bwd_ref``, ``cumsum_bwd_ref``), each the
 vector-Jacobian product of its forward pass's plain version;
 ``bwd_error_bound`` states how far the kernel may lie from the exact
@@ -504,27 +507,52 @@ def bwd_error_bound(x, dt, A, Bm, Cm, dy, dstate=None, *, chunk: int = 256,
     exp(cum_t - cum_s) or exp(total - cum_s) within 26 Lambda + 4 (expf's
     2 ulp) + 1, exp(cum_t) and exp(total) within 13 Lambda + 5; cb within
     N + 14 (one 3xTF32 product, ``pass_errors``); S_in within the forward
-    state's N + 3 S' + 32 Lambda + 40. The backward's FP32 products: the
-    dstates, Q-term sums (QP); the states' gradients G_c, one fma and one
+    state's N + 3 S' + 32 Lambda + 40. The backward's sums: the dstates,
+    Q-term sums (QP); the states' gradients G_c, one fma and one
     exp(total_c) a chunk, nc (13 Lambda + 6); dx, its intra sum over t
     (QP) and its state term over n (N); D over p (P) and dcb over the R
-    heads; dB and dC their intra sums over QP terms and their per-head
-    terms over P and R; dcum's row and column sums (QP each), I and K
-    (N and P terms), <G_c, S_in> (4-term runs, a 256-thread tree and
-    ceil(P N / 1024) slices in order), and its reverse cumsum (QP). The
-    longest chain of these is bounded by L: the forward's S_in into I
-    and dC (N + 3 S' + 32 Lambda + 40, then P + N + R + 13 Lambda + 5 +
-    2 QP for the dcum sums and the cumsum), or the state term's chain
-    (QP + 13 Lambda + 5, nc (13 Lambda + 6), N + 26 Lambda + 5, R + P),
-    with slack for the few products and adds that join the parts. dA
-    adds its sum over the B nc chunks and, within one, its QP terms.
+    heads (within a slice, then the slices in order); dB and dC their
+    intra sums over QP terms and their per-head terms over P and R (the
+    same way); dcum's row and column sums (QP each), I and K (N and P
+    terms; I over 64 of N, then the halves), <G_c, S_in> (4-term runs,
+    a warp's and a block's trees and ceil(P N / 1024) slices in order),
+    and its reverse cumsum (QP). The longest chain of these is bounded
+    by L: the forward's S_in into I and dC (N + 3 S' + 32 Lambda + 40,
+    then P + N + R + 13 Lambda + 5 + 2 QP for the dcum sums and the
+    cumsum), or the state term's chain (QP + 13 Lambda + 5, nc (13
+    Lambda + 6), N + 26 Lambda + 5, R + P), with slack for the few
+    products and adds that join the parts (dcb's decay below the
+    diagonal is taken as exp(cum_t - ref) exp(ref - cum_s), ref between
+    the two: its exponents' errors add up to the same, plus one more
+    expf and one more product's rounding). dA adds its sum over the B
+    nc chunks and, within one, its QP terms.
+
+    The products, 3xTF32 in both directions: every product of the
+    forward (cb, the chunk states) and of the backward (D, dstates, dx's
+    two terms, dC's and dB's per-head and intra terms) drops at most
+    PRODUCT_ERR = 3 * 2^-22 (12 u) of each term's |a||b|: the small*small
+    term and the residuals of the two splits. Each gradient's terms pass
+    through at most two products in a row: cb -> W -> W^T dy (dx's intra
+    term) and cb . D into M (dcum); D -> dcb -> dcb . B and dcb^T . C (dC,
+    dB); dstates -> G_c -> B G_c^T (dx's state term, K) and x . G_c (dB),
+    and G_c . S_in (the last slot's dcum); x . B (S_in) -> dy . S_in
+    (dC's inter term, I). A product whose input a term already carries
+    e relative error adds e more, so 2 PRODUCT_ERR bounds each term's
+    share, 2 PRODUCT_ERR / u = 24 in L. bfloat16 operands: a widened
+    bfloat16 is its own TF32 value (small half 0), so the kernel runs one
+    TF32 product where both operands are bfloat16 (D = dy . x^T: exact)
+    and two where one is float32 (small*big and big*big), leaving out only
+    products that are zero: the same terms as 3xTF32 on those values,
+    within the same PRODUCT_ERR. ``ssd_scan_bwd_ref(..., passes=3)``
+    models these products in float64 and lies within this bound;
+    ``passes=1`` (one TF32 product, about 2^-10 of |a||b|) breaks it
+    (``tests/test_torch_ssd_grad.py``).
 
     bfloat16 outputs (dx, dB, dC for bfloat16 x; ddt for bfloat16 dt;
     dinit for a bfloat16 state in): the rounding to bfloat16, BF16_ROUND
     (|exact| + the float32 bound); the exact gradients are ``refs``
     (``ssd_scan_bwd_ref`` in float64 on the widened inputs), or computed
-    here when needed. A plain TF32 product (about 2^-10 of |a||b|) breaks
-    this bound (``tests/test_torch_ssd_grad.py``)."""
+    here when needed."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q, nc, QP = geometry(S, chunk)
@@ -748,7 +776,11 @@ def pass_errors(x, dt, A, Bm, Cm, *, chunk: int = 256,
 
 
 BWD_PASSES = ("ssd_bwd_dstates", "ssd_bwd_state_passing", "ssd_bwd_dcb",
-              "ssd_bwd_dx", "ssd_bwd_dbc", "ssd_bwd_ddt", "ssd_bwd_dA")
+              "ssd_bwd_dx", "ssd_bwd_heads", "ssd_bwd_sum", "ssd_bwd_dbc",
+              "ssd_bwd_ddt", "ssd_bwd_dA")
+# the most slices a group's heads are spread over: csrc/ssd_scan_bwd.cu's
+# HSMAX, which sizes the partial sums' scratch here
+BWD_HEAD_SLICES = 4
 BWD_LAUNCHES = 0
 _BWD_FNS: Dict[str, object] = {}
 
@@ -758,7 +790,7 @@ def bind_bwd(lib) -> Dict[str, object]:
     ctypes."""
     fns = {name: getattr(lib, name) for name in BWD_PASSES}
     for fn in fns.values():
-        fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fns
@@ -772,19 +804,28 @@ def _bwd_lib() -> Dict[str, object]:
 
 
 def bwd_scratch(x, Bm, chunk: int) -> Dict[str, torch.Tensor]:
-    """The backward passes' scratch, uninitialised: dst (B,H,nc,P,N),
-    dcb (B,nc,G,QP,QP), rs and cs (B,H,nc,QP/64,QP), pI, pK and pD
-    (B,H,nc,QP), ep (B,H,nc,ceil(P*N/1024)) and dap (B,H,nc)."""
+    """The backward passes' scratch, uninitialised, float32: dst
+    (B,H,nc,P,N); dcbp (HS,B,nc,G,QP,QP), dcb's partial sum over each of
+    HS = min(H/G, ``BWD_HEAD_SLICES``) slices of a group's heads; rs and
+    cs (B,H,nc,QP/64,QP); pI (NH,B,H,nc,QP), I_t by 64 of N (NH =
+    ceil(N/64)); pK and pD (B,H,nc,QP); pbc (2,HS,B,nc,QP,G,N), dC's and
+    dB's per-head terms summed over each slice; ep
+    (B,H,nc,ceil(P*N/1024)) and dap (B,H,nc). At mamba2-370m's training
+    shape (B=4, S=2,048, H=32, G=1, N=128, HS=4) dcbp and pbc take 34 MB
+    each."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     _, nc, QP = geometry(S, chunk)
+    HS = min(H // G, BWD_HEAD_SLICES)
     kw = dict(dtype=torch.float32, device=x.device)
-    pos = torch.empty((3, B, H, nc, QP), **kw)
+    pos = torch.empty((2, B, H, nc, QP), **kw)
     return {"dst": torch.empty((B, H, nc, P, N), **kw),
-            "dcb": torch.empty((B, nc, G, QP, QP), **kw),
+            "dcbp": torch.empty((HS, B, nc, G, QP, QP), **kw),
             "rs": torch.empty((B, H, nc, QP // TILE, QP), **kw),
             "cs": torch.empty((B, H, nc, QP // TILE, QP), **kw),
-            "pI": pos[0], "pK": pos[1], "pD": pos[2],
+            "pI": torch.empty((-(-N // TILE), B, H, nc, QP), **kw),
+            "pK": pos[0], "pD": pos[1],
+            "pbc": torch.empty((2, HS, B, nc, QP, G, N), **kw),
             "ep": torch.empty((B, H, nc, -(-P * N // 1024)), **kw),
             "dap": torch.empty((B, H, nc), **kw)}
 
@@ -804,8 +845,8 @@ def launch_bwd(name: str, x, dt, A, Bm, Cm, dy, dstate, scr, grads, work,
     err = _bwd_lib()[name](
         *(ptr(t) for t in (x, dt, A, Bm, Cm, dy, dstate, scr["dts"],
                            scr["cum"], scr["cb"], scr["states"], *grads)),
-        *(work[k].data_ptr() for k in ("dst", "dcb", "rs", "cs", "pI", "pK",
-                                       "pD", "ep", "dap")),
+        *(work[k].data_ptr() for k in ("dst", "dcbp", "rs", "cs", "pI", "pK",
+                                       "pD", "pbc", "ep", "dap")),
         B, S, H, P, G, N, min(chunk, S), int(x.dtype == torch.bfloat16),
         int(dt.dtype == torch.bfloat16),
         int(grads[5] is not None and grads[5].dtype == torch.bfloat16),
@@ -820,7 +861,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None, scr=None, *,
     """The gradient of ``ssd_scan`` at (dy, dstate) (dstate = d(final
     state) or None): (dx, ddt, dA, dBm, dCm, dinit) in the dtypes of x,
     dt, A, Bm, Cm and init_state (dinit None without one). On a CUDA
-    tensor it launches ``csrc/ssd_scan_bwd.cu``'s seven passes on the
+    tensor it launches ``csrc/ssd_scan_bwd.cu``'s nine passes on the
     forward's scratch ``scr`` (``scratch``, after the five forward passes)
     or raises; on a CPU tensor it is ``ssd_scan_bwd_ref``."""
     global BWD_LAUNCHES

@@ -25,6 +25,9 @@ from repro.kernels import ops, ref
 from repro.models import attention as RA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import attention as PA
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 CASES = (
     # B, Sq, Skv, H, G, D, bq, bk, causal, window

@@ -33,6 +33,9 @@ from repro.kernels import ref
 from repro.models import attention as RA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import attention as PA
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 TOL = 1e-5
 TOL64 = 1e-10

@@ -40,6 +40,9 @@ from repro_torch.warehouse import (Filter, GroupBy, SegmentStore,
                                    windows_for)
 from test_torch_sharded import _eq, _rows, _same_answer
 from test_torch_tiers import _ref_draws
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 INTS = [0, 1, 127, 128, 255, 256, 65535, 65536, 2 ** 32 - 1, 2 ** 32,
         2 ** 64 - 1, -1, -32, -33, -128, -129, -32768, -32769, -2 ** 31,

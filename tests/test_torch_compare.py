@@ -50,6 +50,9 @@ from repro_torch.core import ingest as PI
 from repro_torch.core import switcher as PS
 from repro_torch.core.planner import solve_lp_scipy
 from repro_torch.data.stream import generate as p_generate
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 KW = dict(n_cores=8, cloud_budget_core_s=3000.0, plan_days=0.02)
 MODES = ("model", "oracle", "uniform")

@@ -7,6 +7,9 @@ from repro_torch.configs.workloads import COVID
 from repro_torch.core import ingest as IG
 from repro_torch.core.offline import fit
 from repro_torch.data.stream import generate
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def test_quality_monotone_in_resources():

@@ -75,6 +75,9 @@ from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy,
                                    WindowAgg, execute)
 from repro_torch.warehouse import query as Q
 from repro_torch.warehouse import standing as ST
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 AGGS = ("sum", "mean", "count", "max", "min")
 
@@ -1536,6 +1539,7 @@ K4_BWD_CASES = (             # B, S, H, P, G, N, chunk, init, d(final)
     (1, 100, 8, 16, 2, 16, 256, False, True),    # S < Q, G > 1
     (1, 200, 25, 64, 1, 16, 64, True, False),    # R = 25, N = 16
     (2, 61, 4, 12, 2, 20, 8, False, False),      # Q 8, P 12, N 20
+    (1, 512, 32, 64, 1, 128, 256, False, False),  # R = 32: 4 head slices
 )
 
 

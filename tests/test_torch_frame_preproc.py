@@ -19,6 +19,9 @@ import torch
 from repro.kernels import ops, ref
 from repro_torch.kernels import frame_preproc as FP
 from repro_torch.kernels import ops as port_ops
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SHAPES = (
     ((2, 96, 128, 3), 2, 16),

@@ -33,6 +33,9 @@ from pathlib import Path
 
 import pytest
 import torch
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

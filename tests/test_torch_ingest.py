@@ -26,6 +26,9 @@ from repro.data.stream import generate
 from repro_torch.configs.workloads import COVID as P_COVID
 from repro_torch.core import ingest as PI
 from repro_torch.data.stream import generate as p_generate
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 KW = dict(n_cores=8, cloud_budget_core_s=3000.0, plan_days=0.02)
 

@@ -46,6 +46,9 @@ from repro_torch.models import whisper as W
 from repro_torch.models.model import Model
 from repro_torch.models.options import (RunOptions, bf16_boundaries,
                                         bf16_logit_tolerance)
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ARCH = "whisper-large-v3"
 OPTS = dict(remat="none", layer_loop="unroll", compute_dtype="float32",

@@ -42,6 +42,9 @@ from repro_torch.convert import params_from_arrays
 from repro_torch.models import attention as PA
 from repro_torch.models.model import Model
 from repro_torch.models.options import RunOptions, bf16_logit_tolerance
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ARCH = "hymba-1.5b"
 OPTS = dict(remat="none", layer_loop="scan", compute_dtype="float32",

@@ -51,6 +51,9 @@ from repro_torch.data.stream import generate as p_generate
 from repro_torch.obs import telemetry as PT
 from repro_torch.warehouse import (Filter, GroupBy, SegmentStore,
                                    StandingQueries, WindowAgg)
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 LEAVES = ("k", "p", "c", "qual", "on_s", "cl_s", "buffer_s", "rt",
           "dropped")

@@ -35,6 +35,9 @@ from repro_torch.core import forecaster as PF
 from repro_torch.core import knobs as PK
 from repro_torch.core.offline import fit
 from repro_torch.data import stream as PD
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 @functools.lru_cache(maxsize=None)

@@ -16,6 +16,9 @@ from repro.configs.workloads import WORKLOADS as R_WORKLOADS
 from repro.core import placement as RP
 from repro_torch.configs.workloads import WORKLOADS
 from repro_torch.core import placement as PP
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _both(dag):

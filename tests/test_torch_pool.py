@@ -46,6 +46,9 @@ from repro_torch.core import switcher as PS
 from repro_torch.obs import telemetry as PT
 from repro_torch.warehouse import (Filter, GroupBy, SegmentStore,
                                    StandingQueries)
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _quality_of(knobs):

@@ -61,6 +61,9 @@ from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy, Project,
                                    StandingQueries, TopK, WindowAgg, to_host,
                                    windows_for)
 from repro_torch.warehouse import query as Q
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 D = 3
 

@@ -31,6 +31,9 @@ from repro_torch.warehouse import (Filter, GroupBy, ShardedStore,
                                    ShardedTieredStore, StandingQueries, TopK,
                                    WindowAgg)
 from test_torch_sharded import _eq, _rows, _same_answer
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 D = 2
 

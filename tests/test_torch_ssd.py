@@ -39,6 +39,9 @@ from repro.kernels import ops as ref_ops
 from repro.models import ssd as RS
 from repro_torch.kernels import ssd as K
 from repro_torch.models import ssd as PS
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SHAPES = [                   # B, S, H, P, G, N, chunk (test_kernels.py's)
     (2, 64, 4, 16, 2, 32, 8),

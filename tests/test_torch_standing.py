@@ -37,6 +37,9 @@ from repro_torch.warehouse import (Alert, Filter, GroupBy, MultiGroupBy,
                                    WindowAgg)
 from repro_torch.warehouse import query as Q
 from repro_torch.warehouse import standing as S
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 D = 3
 

@@ -31,6 +31,9 @@ from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy, Project,
                                    to_host, windows_for)
 from repro_torch.warehouse import query as Q
 from repro_torch.warehouse import store as PS
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 CHUNK = 512
 KW = dict(n_cores=8, cloud_budget_core_s=2000.0, plan_days=0.02)

@@ -34,6 +34,9 @@ from repro.core import switcher as RS
 from repro_torch.core import api as PA
 from repro_torch.core import planner as PP
 from repro_torch.core import switcher as PS
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 LEAVES = ("k", "p", "c", "qual", "on_s", "cl_s", "buffer_s", "rt",
           "dropped")

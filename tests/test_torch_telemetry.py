@@ -39,6 +39,9 @@ from repro_torch.data.stream import generate as p_generate
 from repro_torch.obs import telemetry as PT
 from repro_torch.warehouse import (Filter, GroupBy, SegmentStore,
                                    StandingQueries)
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 TRACE_KEYS = ("k", "dropped", "buffer_s", "on_s", "cl_s")
 # (T, W, seed, kind): run length, window, draw seed, table variant

@@ -32,6 +32,9 @@ from repro_torch.convert import cold_tier_from_arrays
 from repro_torch.distribution import compression as PC
 from repro_torch.warehouse import (Filter, GroupBy, SegmentStore,
                                    StandingQueries, TieredStore, WindowAgg)
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 D = 3
 

@@ -50,6 +50,9 @@ from repro_torch.models.model import Model
 from repro_torch.models.options import RunOptions
 from repro_torch.optim import adamw as A
 from repro_torch.runtime import steps as S
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 OPTS = dict(remat="none", layer_loop="scan", compute_dtype="float32",

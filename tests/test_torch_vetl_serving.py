@@ -31,6 +31,9 @@ from repro.core.vetl_serving import BackboneVETL as RefJob
 from repro_torch.convert import backbone_from_arrays, fitted_skyscraper
 from repro_torch.core import api as PA
 from repro_torch.core.vetl_serving import SIZES, BackboneVETL
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 KNOBS = {"sample_every": (1, 2, 4), "resolution": (1, 2),
          "model_size": ("small", "medium", "large")}

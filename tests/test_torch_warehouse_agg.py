@@ -29,6 +29,9 @@ from repro_torch.kernels import warehouse_agg as K
 from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy,
                                    SegmentStore, TopK, WindowAgg, execute)
 from repro_torch.warehouse import query as Q
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 AGGS = ("sum", "mean", "count", "max", "min")
 

@@ -37,6 +37,9 @@ from repro_torch.configs import shapes
 from repro_torch.convert import params_from_arrays
 from repro_torch.models.model import Model, build
 from repro_torch.models.options import RunOptions
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 OPTS = dict(remat="none", layer_loop="scan", compute_dtype="float32",
             q_chunk=16, kv_chunk=16)
