@@ -357,6 +357,18 @@ script fails before it prints a result.
               fold of one tick's rows into 2,048 min accumulators (each
               section's last tick), beside its plain version, the
               library call and the byte bound.
+15. obs       the dispatch tracer (``repro_torch.obs.run_obs``, 3 warm
+              calls) over the port's 54 engines, the reference tracer's
+              at its examples' tiny sizes: a valid Chrome trace, the
+              report clean against itself, no warm library load, no
+              skipped engine, K1 launched by every ``*pallas*`` engine;
+              each engine's warm span, host synchronisations (under
+              ``torch.cuda.set_sync_debug_mode("warn")``) and device idle
+              share (one warm call each in one ``torch.profiler``
+              session, inside a ``record_function`` range of its name:
+              1 - the device time of the kernels in its range over the
+              median warm span, as ``scripts/chip_profile.py`` takes
+              it), and the five largest spans.
 
 Tolerances. K1: counts, max, min and integer-valued sums are exact.
 Float sums and means: K1 within 1e-4 of each group's sum of magnitudes
@@ -4520,6 +4532,92 @@ def phase_time_many(mm, pp, tt):
     return per
 
 
+def idle_shares(calls, walls_us, dev):
+    """Each ``calls[name]()`` once under one ``torch.profiler`` session,
+    inside a ``record_function`` range of its name: 1 - the device time
+    of the kernels and copies that start inside its range over
+    ``walls_us[name]``, its unprofiled wall time (one stream: the
+    kernels do not overlap; each call ends in a synchronisation, so its
+    device work ends inside its range). Read from the raw profiler
+    events: building the profiler's event tree for these calls takes
+    longer than the calls."""
+    import bisect
+    from torch.profiler import ProfilerActivity, profile, record_function
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        for name, call in calls.items():
+            with record_function(f"obs::{name}"):
+                call()
+    cpu = torch.autograd.DeviceType.CPU
+    raw = list(prof.profiler.kineto_results.events())
+    ranges = sorted((e.start_ns(), e.start_ns() + e.duration_ns(),
+                     e.name()[5:]) for e in raw
+                    if e.name().startswith("obs::") and e.device_type() == cpu)
+    starts = [r[0] for r in ranges]
+    busy_ns = dict.fromkeys(calls, 0)
+    for e in raw:
+        if e.device_type() == cpu or e.is_user_annotation():
+            continue
+        i = bisect.bisect_right(starts, e.start_ns()) - 1
+        if i >= 0 and e.start_ns() < ranges[i][1]:
+            busy_ns[ranges[i][2]] += e.duration_ns()
+    if dev.type == "cuda" and not any(busy_ns.values()):
+        raise AssertionError("obs: the profiler recorded no device time")
+    return {n: 1.0 - busy_ns[n] / 1e3 / walls_us[n] for n in calls}
+
+
+def phase_obs(dev):
+    """The dispatch tracer over every engine of ``obs.engines``, its
+    gates, and each engine's host syncs and device idle share."""
+    from repro_torch.obs import engines as E
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.obs.run import compare, run_obs
+    (report, trace), secs = timed(lambda: run_obs(device=dev, reps=3))
+    problems = validate_chrome_trace(trace)
+    if problems:
+        raise AssertionError(f"obs: the Chrome trace is invalid: "
+                             f"{problems[:5]}")
+    if compare(report, report):
+        raise AssertionError("obs: the report fails against itself")
+    recs = report["engines"]
+    skipped = sorted(n for n, r in recs.items() if "skipped" in r)
+    if skipped:
+        raise AssertionError(f"obs: engines skipped on the card: {skipped}")
+    if set(recs) != set(E.ENGINES):
+        raise AssertionError("obs: the report misses engines")
+    for name, rec in recs.items():
+        if rec["recompiles"]:
+            raise AssertionError(f"obs: {name} loaded a library warm")
+        if "pallas" in name and rec["launches"].get("K1", 0) < 1:
+            raise AssertionError(f"obs: {name} launched no K1: "
+                                 f"{rec['launches']}")
+    calls = {}
+    for name in recs:
+        ex = E.build(name, dev)
+
+        def call(ex=ex):
+            ex.fn(*ex.args, **ex.kwargs)
+            sync()
+        call()                                       # warm
+        calls[name] = call
+    t0 = time.perf_counter()
+    idle = idle_shares(calls, {n: r["span_us"] for n, r in recs.items()},
+                       dev)
+    profile_secs = time.perf_counter() - t0
+    per = {n: {"span_us": r["span_us"], "host_syncs": r["host_transfers"],
+               "idle_share": idle[n], "launches": r["launches"]}
+           for n, r in recs.items()}
+    top = sorted(per, key=lambda n: -per[n]["span_us"])[:5]
+    emit("obs", seconds=secs, profile_seconds=profile_secs,
+         traced=len(recs) - len(skipped),
+         skipped=skipped, topology=report["topology"],
+         warm_span_sum_us=sum(p["span_us"] for p in per.values()),
+         host_syncs_sum=sum(p["host_syncs"] for p in per.values()),
+         largest=[[n, per[n]["span_us"]] for n in top], engines=per)
+    return per
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4580,6 +4678,7 @@ def run(dev) -> None:
     gc.collect()            # its stores and registries refer to each other
     tt = phase_tiers(m)
     many = phase_time_many(mm, pp, tt)
+    phase_obs(dev)
     # each K1 path's error: its calls against the plain version at the
     # path's shapes, and its folds and answers against the float64 oracle
     path_err = {"multi": max(many["multi"]["max_abs_err"], multi_err),

@@ -4,8 +4,8 @@ int8 cold tier and its checkpoints (see store.py / query.py /
 standing.py / tiers.py)."""
 from repro_torch.warehouse.query import (Filter, GroupBy, MultiGroupBy,
                                          Project, TopK, WindowAgg, execute,
-                                         execute_sharded, to_host,
-                                         windows_for)
+                                         execute_ref, execute_sharded,
+                                         to_host, windows_for)
 from repro_torch.warehouse.standing import Alert, StandingQueries
 from repro_torch.warehouse.store import SegmentStore, ShardedStore
 from repro_torch.warehouse.tiers import (ShardedTieredStore, TieredStore,
@@ -15,6 +15,6 @@ __all__ = [
     "SegmentStore", "ShardedStore", "TieredStore", "ShardedTieredStore",
     "StandingQueries", "Alert",
     "Filter", "Project", "GroupBy", "WindowAgg", "MultiGroupBy", "TopK",
-    "execute", "execute_sharded", "to_host", "windows_for",
-    "save_warehouse", "load_warehouse",
+    "execute", "execute_sharded", "execute_ref", "to_host",
+    "windows_for", "save_warehouse", "load_warehouse",
 ]

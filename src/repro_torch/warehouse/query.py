@@ -550,3 +550,130 @@ def to_host(table, mask) -> Dict[str, np.ndarray]:
     """Compact a query result to host numpy, dropping masked-off rows."""
     m = mask.cpu().numpy()
     return {k: v.cpu().numpy()[m] for k, v in table.items()}
+
+
+# ---------------------------------------------------------------------------
+# numpy reference (tests and examples' correctness baseline)
+# ---------------------------------------------------------------------------
+
+def _np_seg_ids(table, node):
+    """Clipped int64 group ids + group count for an agg node, in numpy."""
+    if isinstance(node, GroupBy):
+        ids, num = table[node.key], node.num_groups
+    elif isinstance(node, WindowAgg):
+        ids, num = table["t"] // node.window, node.num_windows
+    else:                                            # MultiGroupBy
+        wins = node.windows or (0,) * len(node.keys)
+        fused = None
+        for key, n, w in zip(node.keys, node.nums, wins):
+            ids = np.asarray(table[key], np.int64)
+            if w and w > 1:
+                ids = ids // w
+            ids = np.clip(ids, 0, n - 1)
+            fused = ids if fused is None else fused * n + ids
+        return fused, math.prod(node.nums)
+    return np.clip(np.asarray(ids, np.int64), 0, num - 1), num
+
+
+def _np_aggregate(table, mask, node):
+    """(finalized values, counts) of an agg node over the masked rows."""
+    ids, num = _np_seg_ids(table, node)
+    v = np.asarray(table[node.value], np.float32)
+    agg = node.agg
+    cnt = np.zeros(num, np.float32)
+    np.add.at(cnt, ids[mask], np.float32(1.0))
+    if agg == "count":
+        out = cnt
+    elif agg in ("sum", "mean"):
+        out = np.zeros((num,) + v.shape[1:], np.float32)
+        # np.add.at accumulates in row order: the float32 addition
+        # sequence of the engine's scatter, so one store's sums match
+        # bit for bit
+        np.add.at(out, ids[mask], v[mask])
+        if agg == "mean":
+            c = np.maximum(cnt, 1.0)
+            out = out / (c if out.ndim == 1 else c[:, None])
+    elif agg == "max":
+        assert v.ndim == 1, "max needs a scalar column"
+        out = np.full(num, -np.inf, np.float32)
+        np.maximum.at(out, ids[mask], v[mask])
+        out = np.where(cnt > 0, out, 0.0).astype(np.float32)
+    elif agg == "min":
+        assert v.ndim == 1, "min needs a scalar column"
+        out = np.full(num, np.inf, np.float32)
+        np.minimum.at(out, ids[mask], v[mask])
+        out = np.where(cnt > 0, out, 0.0).astype(np.float32)
+    else:
+        raise ValueError(agg)
+    return out, cnt
+
+
+def _np_seg_table(node, out, cnt):
+    """Result table + mask for a finalized aggregation, in numpy."""
+    if isinstance(node, GroupBy):
+        table = {node.key: np.arange(node.num_groups, dtype=np.int32)}
+    elif isinstance(node, WindowAgg):
+        table = {"window": np.arange(node.num_windows, dtype=np.int32)}
+    else:
+        num = math.prod(node.nums)
+        rem = np.arange(num, dtype=np.int64)
+        decoded = {}
+        for key, n in zip(reversed(node.keys), reversed(node.nums)):
+            decoded[key] = (rem % n).astype(np.int32)
+            rem = rem // n
+        table = {k: decoded[k] for k in node.keys}
+    table[node.value] = out
+    table["count"] = cnt
+    return table, cnt > 0
+
+
+def _np_topk_idx(score, kk: int) -> np.ndarray:
+    """``_topk_idx`` in numpy: descending IEEE-754 total order (``+0.0``
+    above ``-0.0``), ties at identical bit patterns by ascending row
+    index. Non-negative floats set the sign bit and negative floats
+    invert all bits, so the uint32 keys sort in float total order."""
+    bits = np.ascontiguousarray(np.asarray(score, np.float32)) \
+        .view(np.uint32)
+    key = np.where(bits & np.uint32(0x80000000), ~bits,
+                   bits | np.uint32(0x80000000))
+    return np.argsort(~key, kind="stable")[:kk].astype(np.int32)
+
+
+def execute_ref(cols: Dict[str, np.ndarray], n_rows: int, plan):
+    """Plain-numpy mirror of ``execute`` (the same clipping, masking and
+    summation order, ``_seg_finalize``'s empty-group contract: 0.0 /
+    count 0 / masked row for every agg, and ``_topk_idx``'s total-order
+    tie-break). Returns ``(table, mask)`` in numpy."""
+    cap = len(next(iter(cols.values())))
+    mask = np.arange(cap) < n_rows
+    table = {k: np.asarray(v) for k, v in cols.items()}
+    for node in plan:
+        if isinstance(node, Filter):
+            x = table[node.column]
+            if np.issubdtype(x.dtype, np.integer):
+                # exact: int32 values and the threshold both embed in
+                # float64 (as the kernels' ``int_pred``)
+                mask = mask & _CMP[node.op](x.astype(np.float64),
+                                            np.float64(node.value))
+            else:
+                mask = mask & _CMP[node.op](x.astype(np.float32),
+                                            np.float32(node.value))
+        elif isinstance(node, Project):
+            table = {c: table[c] for c in node.columns}
+        elif isinstance(node, (GroupBy, WindowAgg, MultiGroupBy)):
+            out, cnt = _np_aggregate(table, mask, node)
+            table, mask = _np_seg_table(node, out, cnt)
+        elif isinstance(node, TopK):
+            score = np.where(mask, table[node.by].astype(np.float32),
+                             -np.inf)
+            if not node.largest:
+                score = np.where(np.isfinite(score), -score, score)
+            kk = min(node.k, len(score))
+            idx = _np_topk_idx(score, kk)
+            top = score[idx]
+            table = {c: np.take(table[c], idx, axis=0) for c in table}
+            table["index"] = idx
+            mask = np.isfinite(top)
+        else:
+            raise TypeError(f"unknown plan node {node!r}")
+    return table, mask

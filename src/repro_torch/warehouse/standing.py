@@ -35,8 +35,8 @@ registration by ``use_kernel`` with ``execute``'s rules
   scatter seeded with the stored accumulator. Each group's float32
   addition sequence continues where the last fold stopped, so a backfill
   plus any interleaving of folds is bit-exact with one rescan in ingest
-  order: on the CPU, standing answers equal the reference's
-  ``execute_ref`` bit for bit, float sums included.
+  order: on the CPU, standing answers equal ``query.execute_ref`` (and
+  the reference's) bit for bit, float sums included.
 - K1 (``use_kernel=None`` or ``True`` where the plan has a fused spec):
   ``fused_segment_agg`` over the new rows gives a delta partial (on CUDA
   the kernel, on the CPU its plain version), which combines with the

@@ -111,13 +111,14 @@ def _multi_rows(traces, out_vecs, stream_base: int, t0: int, device):
 
 def _tick_rows(traces, quality, out_vecs, t: int, stream_ids, device):
     """A pool tick's update block on ``device``: one row per slot, slot v
-    standing for stream v unless ``stream_ids`` names the real ids."""
+    standing for stream v unless ``stream_ids`` (an array, or a tensor on
+    any device) names the real ids."""
     V = int(out_vecs.shape[0])
     upd = {dst: traces[src] for src, dst in _RUN_KEYS}
     upd["quality"] = torch.as_tensor(quality)
     upd["stream_id"] = (torch.arange(V, dtype=torch.int32)
                         if stream_ids is None
-                        else torch.as_tensor(np.asarray(stream_ids)))
+                        else torch.as_tensor(stream_ids))
     upd["t"] = torch.full((V,), t, dtype=torch.int32)
     upd[OUT_COLUMN] = torch.as_tensor(out_vecs)
     return {k: v.to(device) for k, v in upd.items()}

@@ -15,7 +15,8 @@ nonzero), K4's backward kernel (``csrc/ssd_scan_bwd.cu``) within its
 without a backward refusing a gradient by name (K2, and K4's one-pass
 ``launch``), and one train step of the reduced dense, MoE, vlm,
 encoder-decoder, SSM and hybrid models on the card against the CPU
-(1e-5). ``cuda``-marked: every test
+(1e-5), the dispatch tracer's host-synchronisation counter and its K1
+engines' launch counts. ``cuda``-marked: every test
 skips where no card is visible. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1615,3 +1616,56 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
     for a, b in zip(gg, gc):
         assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
             b.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+def test_host_sync_counter_on_card(cuda):
+    """The tracer's host-synchronisation counter: a ``.item()`` counts
+    one, device-only work counts none, and the debug mode is restored."""
+    from repro_torch.obs.trace import host_syncs
+    x = torch.arange(8.0, device=cuda)
+    mode = torch.cuda.get_sync_debug_mode()
+    assert host_syncs(lambda: x.sum().item(), cuda) == 1
+    assert host_syncs(lambda: (x * 2).add_(1), cuda) == 0
+    assert torch.cuda.get_sync_debug_mode() == mode
+
+
+@pytest.mark.cuda
+def test_tracer_on_card_launches_k1(cuda):
+    """The tracer over the K1 engines on the card: one K1 launch per
+    warm call of a single-store query or backfill, one per shard of a
+    sharded query, no library loaded by a warm call, a valid trace."""
+    from repro_torch.obs import engines as E
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.obs.trace import trace_all
+    records, trace = trace_all(only="pallas", reps=2, device=cuda)
+    assert len(records) == 6
+    assert validate_chrome_trace(trace) == []
+    for name, rec in records.items():
+        want = E.N_SHARDS if "sharded" in name else 1
+        if name == "standing_backfill_pallas":
+            want = E.Q_STAND                # one delta per query slot
+        assert rec["launches"] == {"K1": want}, (name, rec["launches"])
+        assert rec["recompiles"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded", (False, True))
+def test_ingest_tick_takes_stream_ids_on_the_card(cuda, sharded):
+    """A tick's ``stream_ids`` given as a CUDA tensor (as the tracer's
+    masked-tick engines pass them) land as the same rows as host ids."""
+    from repro_torch.warehouse import ShardedStore
+    stores = [ShardedStore(out_dim=2, n_shards=2, chunk_rows=8, device=cuda)
+              if sharded else SegmentStore(out_dim=2, chunk_rows=8,
+                                           device=cuda) for _ in range(2)]
+    traces = {k: torch.arange(3, device=cuda).to(torch.float32)
+              for k in ("c", "k", "qual", "on_s", "cl_s", "buffer_s")}
+    ids = np.asarray([5, 2, 7], np.int32)
+    for store, sid in zip(stores, (ids, torch.as_tensor(ids, device=cuda))):
+        store.ingest_tick(traces, quality=torch.ones(3, device=cuda),
+                          out_vecs=torch.zeros((3, 2), device=cuda), t=4,
+                          stream_ids=sid, valid=np.asarray([1, 0, 1], bool))
+    a, b = (s.host_rows() for s in stores)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert sorted(a["stream_id"].tolist()) == [5, 7]

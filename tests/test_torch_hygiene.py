@@ -1,9 +1,11 @@
 """Rules the port keeps, checked without a card where possible:
 
-- no file under ``src/repro_torch/`` and no line of ``chip_smoke.py`` or
+- no file under ``src/repro_torch/`` and no line of ``chip_smoke.py``,
   of the chip scripts (``scripts/chip_ablate.py``,
-  ``scripts/chip_compare.py``, ``scripts/chip_profile.py``) imports
-  JAX or anything of the reference package ``repro``;
+  ``scripts/chip_compare.py``, ``scripts/chip_profile.py``,
+  ``scripts/chip_examples.py``) or of the
+  port's examples (``examples/*_torch.py``) imports JAX or anything of
+  the reference package ``repro``;
 - importing the port builds nothing (no compiler runs at import);
 - every entry point defaults to CUDA and raises when there is none
   (the multi-stream run, the serving pool, the cold tier, the sharded
@@ -67,8 +69,11 @@ def test_port_imports_no_jax_and_no_reference():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "chip_ablate.py",
         ROOT / "scripts" / "chip_compare.py",
-        ROOT / "scripts" / "chip_profile.py"]
+        ROOT / "scripts" / "chip_profile.py",
+        ROOT / "scripts" / "chip_examples.py"] + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 15
+    assert len(list((ROOT / "examples").glob("*_torch.py"))) == 8
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if _forbidden(m)]
     assert not bad, bad
