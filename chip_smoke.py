@@ -346,6 +346,32 @@ script fails before it prints a result.
               camera-day hot per shard, the plans over its view within
               the quantization bound, the standing answers unchanged.
               K1 timed as one shard's partial (1,382,400 rows).
+12d. dist     the sharded warehouse across cards: one NCCL rank per
+              visible card (as many as divide the 8 shards; one on a
+              one-card machine), spawned under a deadline
+              (``launch.mesh.spawn_world``), each loading the K1 library
+              the build phase made and holding its block of the 8
+              shards on its card; K1's counts set to 0 in each rank just
+              before its fill and read after its queries, and again
+              around the two-tier view. The ranks land the 256
+              camera-days with the main plans and subscription
+              registered, run the five plans (each rank's shards'
+              partials through K1, every shard's gathered in shard
+              order), the compressed sum, the row TopK and row plan, the
+              poll and standing answers, ``rebalance`` to 4 shards and a
+              ``ShardedTieredStore`` spill, and are held against the
+              ``sharded`` phase's stacked store: every answer the same on
+              every rank, bit for bit; stored rows, counts, capacity, TopK
+              rows with their global ids, the row plan, alert masks, the
+              rebalanced rows and every cold array bit for bit; counts,
+              keys, max and min exact and float sums within the
+              ``sharded`` phase's tolerance where they are not bit-equal
+              (K1 adds with atomics, so a second launch of the stacked
+              store's own partials may round them otherwise; the share
+              bit-equal is printed). Prints the world size, fill, each
+              plan's ms (median of 5), rebalance and spill seconds, K1's
+              launches and the bytes gathered per plan per rank, peak
+              memory, and the card's name and power limit.
 13. tiers     the main store in a ``TieredStore``, all but the newest
               camera-day spilled to int8; the main plans over the
               two-tier view through K1, against the float64 oracle of
@@ -440,6 +466,7 @@ tests' tolerance of ``Model.loss``).
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import statistics
 import subprocess
@@ -534,6 +561,8 @@ SHARDS = 8                          # the sharded store: 32 cameras a shard
 REBALANCE_SHARDS = 4
 POOL_SHARDS = 4                     # the pool's sharded sink
 CKPT_DAYS = 8                       # camera-days in the saved warehouse
+DIST_TIMEOUT = 120                  # s a collective of the dist phase waits
+DIST_DEADLINE = 300                 # s before its world of ranks is killed
 
 
 def emit(phase: str, **fields) -> None:
@@ -3957,6 +3986,20 @@ def _hold_shed_watch(pp, host, cpu_reg, cpu_handle, cpu_pool):
     return err
 
 
+def wide_plan():
+    """The compressed sum's plan: ``out`` summed per category."""
+    from repro_torch.warehouse import GroupBy
+    return (GroupBy("category", "out", agg="sum", num_groups=4),)
+
+
+def row_plans():
+    """A row TopK and a row plan over camera 7."""
+    from repro_torch.warehouse import Filter, Project, TopK
+    return {"topk": (Filter("stream_id", "eq", 7), TopK(16, by="on_core_s")),
+            "rows": (Filter("stream_id", "eq", 7), Filter("t", "lt", 600),
+                     Project(("t", "k", "quality", "buffer_s")))}
+
+
 def _registered(reg, plans, n_configs):
     """Register ``plans`` and the cloud-spend subscription on ``reg``;
     returns their handles by name."""
@@ -4014,10 +4057,9 @@ def phase_sharded(dev, m, mm, pp):
     and the plans over its two-tier view. Everything is held, and timed,
     outside the counted parts."""
     from repro_torch.runtime.elastic import rebalance
-    from repro_torch.warehouse import (Filter, GroupBy, Project,
-                                       SegmentStore, ShardedStore,
+    from repro_torch.warehouse import (SegmentStore, ShardedStore,
                                        ShardedTieredStore, StandingQueries,
-                                       TieredStore, TopK, load_warehouse,
+                                       TieredStore, load_warehouse,
                                        save_warehouse, to_host)
     from repro_torch.warehouse import query as Q
     t_phase = time.perf_counter()
@@ -4035,12 +4077,8 @@ def phase_sharded(dev, m, mm, pp):
     fold_launches, _, folds = _k1_counts()
     results = {name: store.query(plan) for name, plan in plans.items()}
     query_launches = _k1_counts()[0] - fold_launches
-    wide = (GroupBy("category", "out", agg="sum", num_groups=4),)
-    compressed = store.query(wide, compressed=True, seed=1)
-    topk = (Filter("stream_id", "eq", 7), TopK(16, by="on_core_s"))
-    rowplan = (Filter("stream_id", "eq", 7), Filter("t", "lt", 600),
-               Project(("t", "k", "quality", "buffer_s")))
-    row_answers = {"topk": store.query(topk), "rows": store.query(rowplan)}
+    compressed = store.query(wide_plan(), compressed=True, seed=1)
+    row_answers = {k: store.query(p) for k, p in row_plans().items()}
     alerts = reg.poll()
     new, sec["rebalance"] = timed(lambda: rebalance(store, REBALANCE_SHARDS,
                                                     device=dev))
@@ -4155,7 +4193,9 @@ def phase_sharded(dev, m, mm, pp):
                           & (spend >= reg._subs[alert.sub].predicate.value)):
         raise AssertionError("sharded: the alert mask is not the predicate's")
     # the compressed sum: counts exact, within S (max|ref| / 127 + 1e-3)
-    acc, cnt, _ = oracle(host, n, [], (("category", 4, 0),), "out", "sum")
+    oracles["wide"] = oracle(host, n, [], (("category", 4, 0),), "out",
+                             "sum")
+    acc, cnt, _ = oracles["wide"]
     ct = compressed[0]
     if not np.array_equal(ct["count"].cpu().numpy(), cnt):
         raise AssertionError("sharded: compressed counts differ")
@@ -4165,7 +4205,7 @@ def phase_sharded(dev, m, mm, pp):
         raise AssertionError(f"sharded: compressed sum off by {comp_err} "
                              f"(bound {comp_bound})")
     # the row TopK and the row plan: the single store's rows exactly
-    for what, plan in (("topk", topk), ("rows", rowplan)):
+    for what, plan in row_plans().items():
         got, want = to_host(*row_answers[what]), to_host(*main.query(plan))
         for k in want:
             if k != "index" and not np.array_equal(got[k], want[k]):
@@ -4263,11 +4303,322 @@ def phase_sharded(dev, m, mm, pp):
          k1_shard=k1)
     worst = max(max(e.get("vs_f64", 0.0), e.get("rebalanced_vs_f64", 0.0))
                 for e in errs.values())
+    want = {"plans": _on_host(results), "compressed": _on_host(compressed),
+            "rows": {k: to_host(*a) for k, a in row_answers.items()},
+            "alerts": [(a.name, a.fired) for a in alerts],
+            "standing": _on_host(answers), "oracles": oracles,
+            "store": {"counts": counts, "capacity": store.capacity,
+                      "digests": _host_digests(host, counts)},
+            "rebalanced": {"plans": _on_host(re_results),
+                           "standing": _on_host({
+                               name: new.standing.answer(h)
+                               for name, h in handles.items()}),
+                           "counts": new.n_rows_by_shard.copy(),
+                           "capacity": new.capacity,
+                           "digests": _shard_digests(new)},
+            "tier": {"plans": _on_host(tier_results), "spilled": spilled,
+                     "digests": _cold_digests(tiered),
+                     "max_cold_scale": bound}}
     del new, msink, psink, tiered, vcols
     torch.cuda.empty_cache()
     return dict(launches=launches + tier_launches, k1=k1,
                 err=max(worst, k1["max_abs_err"],
-                        max(e[0] for e in tier_errs.values())))
+                        max(e[0] for e in tier_errs.values())), want=want)
+
+
+def _on_host(answers):
+    """Query answers ``{name: (table, mask)}`` (or one answer) as CPU
+    tensors."""
+    if isinstance(answers, tuple):
+        table, mask = answers
+        return {k: v.cpu() for k, v in table.items()}, mask.cpu()
+    return {k: _on_host(a) for k, a in answers.items()}
+
+
+def _digest(x) -> str:
+    """sha256 of a tensor's or an array's bytes."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def _host_digests(host, counts):
+    """``{shard: {column: digest}}`` of shard-major host rows."""
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    return {s: {k: _digest(v[starts[s]:starts[s + 1]])
+                for k, v in host.items()} for s in range(len(counts))}
+
+
+def _shard_digests(store):
+    """``{shard: {column: digest of its live rows}}`` for the shards this
+    process holds."""
+    return {s: {k: _digest(v[j, :int(store.n_rows_by_shard[s])])
+                for k, v in store.columns.items()}
+            for j, s in enumerate(store.shards)}
+
+
+def _cold_digests(tiered):
+    """``{shard: {array: digest}}`` of a tier's cold codes, scales and
+    integer columns (the rows past a shard's depth too) and hot columns,
+    for the shards this process holds."""
+    arrays = {**{f"q.{k}": v for k, v in tiered.cold_q.items()},
+              **{f"scale.{k}": v for k, v in tiered.cold_scales.items()},
+              **{f"int.{k}": v for k, v in tiered.cold_int.items()},
+              **{f"hot.{k}": v for k, v in tiered.hot.columns.items()}}
+    return {s: {k: _digest(v[j]) for k, v in arrays.items()}
+            for j, s in enumerate(tiered.shards)}
+
+
+def _dist_world() -> int:
+    """One rank per visible card: the most cards, at least one, whose
+    count divides the shards."""
+    n = torch.cuda.device_count()
+    return max(w for w in range(1, n + 1) if SHARDS % w == 0)
+
+
+def _dist_rank(rank, world, tmp, T):
+    """One rank of the ``dist`` phase, in its own process (spawned): it
+    joins the NCCL group through a file under ``tmp``, drives the
+    sharded warehouse on its card and writes what it saw to
+    ``tmp/rank<r>.pt``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_shard_group
+    tmp = Path(tmp)
+    dev = init_shard_group(init_method=f"file://{tmp / 'pg_init'}",
+                           rank=rank, world_size=world,
+                           timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    try:
+        torch.save(_dist_drive(dev, world, tmp, T), tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_drive(dev, world, tmp, T):
+    """The ``sharded`` phase's first counted part and its two-tier view
+    on a store spread over the ranks: K1's counts set to 0 just before
+    the fill and read after the queries, and again around the view's
+    queries. Returns host copies, digests, counts and times."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    from repro_torch.runtime.elastic import rebalance
+    from repro_torch.warehouse import (ShardedStore, ShardedTieredStore,
+                                       StandingQueries, to_host)
+    group = dist.group.WORLD
+    day = {k: v.to(dev) for k, v in torch.load(tmp / "day.pt").items()}
+    D = day["out"].shape[1]
+    plans = main_plans((T - 1) // WINDOW + 1)
+    sec = {}
+    store = ShardedStore(out_dim=D, n_shards=SHARDS, device=dev, group=group)
+    reg = StandingQueries(store)
+    handles = _registered(reg, plans, D)
+    torch.cuda.reset_peak_memory_stats()
+    _k1_zero()
+    _, sec["fill"] = timed(lambda: _land_days(store, day, CAMERAS))
+    fold_launches, _, folds = _k1_counts()
+    results, gathered = {}, {}
+    for name, plan in plans.items():
+        mesh.GATHERED.update(calls=0, bytes=0)
+        results[name] = store.query(plan)
+        gathered[name] = dict(mesh.GATHERED)
+    query_launches = _k1_counts()[0] - fold_launches
+    compressed = store.query(wide_plan(), compressed=True, seed=1)
+    row_answers = {k: store.query(p) for k, p in row_plans().items()}
+    alerts = reg.poll()
+    answers = {name: reg.answer(h) for name, h in handles.items()}
+    plan_ms = {name: wall_ms(lambda p=p: store.query(p), 5)
+               for name, p in plans.items()}
+    again = {name: _same_answer(store.query(p), results[name])
+             for name, p in plans.items()}
+    host, counts = store.host_rows(), store.n_rows_by_shard.copy()
+    telemetry = store.telemetry().summary()
+    g4 = group if REBALANCE_SHARDS % world == 0 else dist.new_group(
+        list(range(REBALANCE_SHARDS)))
+    new, sec["rebalance"] = timed(lambda: rebalance(
+        store, REBALANCE_SHARDS, device=dev, group=g4))
+    rebalanced = None if new is None else {
+        "plans": _on_host({n: new.query(p) for n, p in plans.items()}),
+        "standing": _on_host({n: new.standing.answer(h)
+                              for n, h in handles.items()}),
+        "counts": new.n_rows_by_shard.copy(), "capacity": new.capacity,
+        "digests": _shard_digests(new)}
+    del new
+    tiered = ShardedTieredStore(store, seed=0, device=dev)
+    _k1_zero()
+    spilled, sec["spill"] = timed(lambda: tiered.spill(keep_hot=T))
+    tier_results = {n: tiered.query(p) for n, p in plans.items()}
+    tier_launches = _k1_counts()[0]
+    return {
+        "shards": store.shards, "counts": counts,
+        "capacity": store.capacity, "digests": _host_digests(host, counts),
+        "plans": _on_host(results), "again": again,
+        "compressed": _on_host(compressed),
+        "rows": {k: to_host(*a) for k, a in row_answers.items()},
+        "alerts": [(a.name, a.fired) for a in alerts],
+        "standing": _on_host(answers), "rebalanced": rebalanced,
+        "tier": {"plans": _on_host(tier_results), "spilled": spilled,
+                 "digests": _cold_digests(tiered),
+                 "max_cold_scale": tiered.max_cold_scale()},
+        "launches": {"folds": fold_launches, "fold_paths": folds,
+                     "queries": query_launches, "tier": tier_launches},
+        "gathered": gathered, "plan_ms": plan_ms, "seconds": sec,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "telemetry": telemetry}
+
+
+def _same_answer(a, b) -> bool:
+    """Two answers ``(table, mask)`` bit for bit."""
+    (ta, ma), (tb, mb) = a, b
+    return torch.equal(ma.cpu(), mb.cpu()) and set(ta) == set(tb) and all(
+        torch.equal(ta[k].cpu().view(torch.uint8) if ta[k].is_floating_point()
+                    else ta[k].cpu(),
+                    tb[k].cpu().view(torch.uint8) if tb[k].is_floating_point()
+                    else tb[k].cpu()) for k in ta)
+
+
+def phase_dist(m, sd, smi):
+    """The sharded warehouse across cards: one NCCL rank per visible card
+    (``_dist_world``), spawned under a deadline, each holding its block
+    of the 8 shards. The ranks land the ``sharded`` phase's 256
+    camera-days with its plans and subscription registered, so each
+    ingest folds through K1 on the rank that owns its shard; then the
+    five plans (each rank gathers every shard's partial in shard order),
+    the compressed sum, the row TopK and row plan, the alerts and
+    standing answers, ``rebalance`` to 4 shards and the two-tier view.
+
+    Held, against the ``sharded`` phase's stacked store: every answer
+    the same on every rank, bit for bit; every stored row, the counts
+    and capacity, the row TopK (its global row ids) and row plan, the
+    alert masks, the rebalanced rows and every cold array bit for bit;
+    counts, keys, masks, max and min of every answer exactly, and float
+    sums bit for bit or, where K1's atomics added a shard's rows in
+    another order than the stacked store's launch did, within the
+    ``sharded`` phase's own tolerance (``hold_table``); each rank's K1
+    launches (its own shards' folds and partials). Prints the world,
+    the fill, each plan's ms (median of 5), the rebalance seconds, K1's
+    launches and the bytes gathered per plan per rank, the card."""
+    import shutil
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.warehouse import query as Q
+    t_phase = time.perf_counter()
+    want, T = sd["want"], m["stream"].n_segments
+    world = _dist_world()
+    tmp = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    torch.save({k: v.cpu() for k, v in m["day"].items()}, tmp / "day.pt")
+    _, spawn_s = timed(lambda: spawn_world(
+        _dist_rank, world, (world, str(tmp), T), deadline=DIST_DEADLINE))
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    shutil.rmtree(tmp)
+    plans = main_plans((T - 1) // WINDOW + 1)
+    oracles, k = want["oracles"], SHARDS // world
+    names = list(want["standing"])
+    bit_equal, errs = {}, {}
+    for r, got in enumerate(ranks):
+        if (got["shards"] != range(r * k, (r + 1) * k)
+                or not np.array_equal(got["counts"], want["store"]["counts"])
+                or got["capacity"] != want["store"]["capacity"]
+                or got["digests"] != want["store"]["digests"]):
+            raise AssertionError(f"dist: rank {r}'s rows differ from the "
+                                 "stacked store's")
+        for part in ("plans", "compressed", "standing"):
+            first = ranks[0][part]
+            pairs = ({"wide": (got[part], first)} if part == "compressed"
+                     else {n: (got[part][n], first[n]) for n in first})
+            for n, (a, b) in pairs.items():
+                if not _same_answer(a, b):
+                    raise AssertionError(f"dist: rank {r}'s {part} {n} "
+                                         "differs from rank 0's")
+        for what, rows in want["rows"].items():
+            g = got["rows"][what]
+            if set(g) != set(rows) or not all(
+                    np.array_equal(g[c], rows[c]) for c in rows):
+                raise AssertionError(f"dist: rank {r}'s {what} differs")
+        if [(a, f.tolist()) for a, f in got["alerts"]] != \
+                [(a, f.tolist()) for a, f in want["alerts"]]:
+            raise AssertionError(f"dist: rank {r}'s alerts differ")
+        lc = got["launches"]
+        want_folds = CAMERAS // world * len(names)
+        if (lc["folds"] != want_folds
+                or lc["fold_paths"] != {"kernel": want_folds, "engine": 0}
+                or lc["queries"] != k * len(plans)
+                or lc["tier"] != k * len(plans)):
+            raise AssertionError(f"dist: rank {r}'s K1 launches {lc}")
+        if got["tier"]["spilled"] != want["tier"]["spilled"] or \
+                got["tier"]["max_cold_scale"] != want["tier"]["max_cold_scale"]:
+            raise AssertionError(f"dist: rank {r}'s spill differs")
+    got = ranks[0]
+    for name, plan in plans.items():
+        _, node, _ = Q.split_plan(plan)
+        acc, cnt, scale = oracles[name]
+        for what, a, b in (
+                ("plan", got["plans"][name], want["plans"][name]),
+                ("rebalanced", ranks[0]["rebalanced"]["plans"][name],
+                 want["rebalanced"]["plans"][name]),
+                ("tier", got["tier"]["plans"][name],
+                 want["tier"]["plans"][name])):
+            bit_equal[f"{what} {name}"] = _same_answer(a, b)
+            errs[f"{what} {name}"] = hold_table(
+                f"dist {what} {name} vs the stacked store", a, b, node, acc,
+                cnt, scale)
+    for name in names:
+        _, node, _ = Q.split_plan(m["standing_plans"][name])
+        acc, cnt, scale = oracles[name]
+        for what, a, b in (
+                ("standing", got["standing"][name], want["standing"][name]),
+                ("rebalanced standing",
+                 ranks[0]["rebalanced"]["standing"][name],
+                 want["rebalanced"]["standing"][name])):
+            bit_equal[f"{what} {name}"] = _same_answer(a, b)
+            errs[f"{what} {name}"] = hold_table(
+                f"dist {what} {name} vs the stacked store", a, b, node, acc,
+                cnt, scale)
+    # the compressed sum: counts exact, within S (max|ref| / 127 + 1e-3)
+    acc, cnt, _ = oracles["wide"]
+    ct = got["compressed"][0]
+    comp_err = float(np.abs(ct["out"].double().numpy() - acc).max())
+    comp_bound = SHARDS * (float(np.abs(acc).max()) / 127 + 1e-3)
+    if not np.array_equal(ct["count"].numpy(), cnt) or comp_err > comp_bound:
+        raise AssertionError(f"dist: compressed sum off by {comp_err} "
+                             f"(bound {comp_bound})")
+    bit_equal["compressed"] = _same_answer(got["compressed"],
+                                           want["compressed"])
+    # the rebalanced rows and the cold arrays: every shard, bit for bit
+    members = [g for g in ranks if g["rebalanced"] is not None]
+    for what, key, mine in (
+            ("rebalanced rows", "rebalanced",
+             {s: d for g in members
+              for s, d in g["rebalanced"]["digests"].items()}),
+            ("cold arrays", "tier",
+             {s: d for g in ranks for s, d in g["tier"]["digests"].items()})):
+        if mine != want[key]["digests"]:
+            raise AssertionError(f"dist: the {what} differ")
+    for g in members:
+        if not (np.array_equal(g["rebalanced"]["counts"],
+                               want["rebalanced"]["counts"])
+                and g["rebalanced"]["capacity"]
+                == want["rebalanced"]["capacity"]):
+            raise AssertionError("dist: the rebalanced layout differs")
+    emit("dist", phase_s=time.perf_counter() - t_phase, world=world,
+         backend="nccl", shards=SHARDS, shards_per_rank=k,
+         rows=int(np.sum(want["store"]["counts"])), spawn_s=spawn_s,
+         seconds=[g["seconds"] for g in ranks],
+         fill_s_per_ingest=[g["seconds"]["fill"] / CAMERAS for g in ranks],
+         plan_ms=[g["plan_ms"] for g in ranks],
+         k1_launches=[g["launches"] for g in ranks],
+         gathered_per_plan=[g["gathered"] for g in ranks],
+         bit_equal=bit_equal,
+         bit_equal_float=sum(bit_equal.values()),
+         answers_held=len(bit_equal),
+         rerun_bit_equal=[g["again"] for g in ranks],
+         errors=errs, compressed={"max_abs_err": comp_err,
+                                  "bound": comp_bound},
+         peak_mem_bytes=[g["peak_mem_bytes"] for g in ranks],
+         telemetry=got["telemetry"], nvidia_smi=smi)
+    return {"launches": sum(g["launches"]["folds"] + g["launches"]["queries"]
+                            + g["launches"]["tier"] for g in ranks)}
 
 
 def time_shards(store, plans, host):
@@ -4676,6 +5027,7 @@ def run(dev) -> None:
     pool_err = phase_pool_check(pp, dev)
     sd = phase_sharded(dev, m, mm, pp)
     gc.collect()            # its stores and registries refer to each other
+    phase_dist(m, sd, smi)
     tt = phase_tiers(m)
     many = phase_time_many(mm, pp, tt)
     phase_obs(dev)

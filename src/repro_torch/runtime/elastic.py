@@ -10,22 +10,32 @@ rows 0, 1, .... Every new shard is sized for the whole store
 row ids a TopK reports (``shard * cap + row``) are the reference's; it
 costs ``s_new`` times the store's bytes.
 
-The mesh helpers of the reference's module (``make_mesh_from``,
-``shrink_mesh``, ``restore_elastic``) belong to training on JAX meshes
-and are not ported here.
+A store spread over a ``torch.distributed`` group moves the same way:
+one gather of the live rows over the old group (the reference
+replicates them onto the new mesh), after which each rank of the new
+group cuts its own block of new shards out of them. The new group may
+differ from the old; ranks outside it get ``None``.
+
+The reference module's mesh helpers for training (``make_mesh_from``,
+``shrink_mesh``, ``restore_elastic``) are not here: they wait for
+training across cards.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve
 
 
-def _repartition(cols, n_rows_by_shard, s_new: int, cap_new: int):
-    """New stacked (s_new, cap_new, ...) columns and per-shard counts:
-    the old live rows, shard-major, each sent to shard ``stream_id %
-    s_new`` in that order."""
+def _repartition(cols, n_rows_by_shard, s_new: int, cap_new: int,
+                 keep: range = None):
+    """New stacked (len(keep), cap_new, ...) columns of the new shards
+    ``keep`` (all ``s_new`` by default) and every new shard's count: the
+    old live rows, shard-major, each sent to shard ``stream_id % s_new``
+    in that order."""
+    keep = range(s_new) if keep is None else keep
     s_old, cap_old = cols["t"].shape[:2]
     dev = cols["t"].device
     live = (torch.arange(cap_old, device=dev)[None, :]
@@ -37,18 +47,18 @@ def _repartition(cols, n_rows_by_shard, s_new: int, cap_new: int):
     order = torch.argsort(owner, stable=True)     # by shard, then row order
     counts = torch.bincount(owner, minlength=s_new + 1)[:s_new].cpu() \
         .numpy().astype(np.int64)
-    new = {k: torch.zeros((s_new, cap_new) + v.shape[1:], dtype=v.dtype,
-                          device=dev) for k, v in flat.items()}
-    start = 0
-    for s, c in enumerate(counts):
-        idx = order[start:start + c]
+    new = {k: torch.zeros((len(keep), cap_new) + v.shape[1:],
+                          dtype=v.dtype, device=dev)
+           for k, v in flat.items()}
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    for j, s in enumerate(keep):
+        idx = order[starts[s]:starts[s + 1]]
         for k, v in flat.items():
-            new[k][s, :c] = v.index_select(0, idx)
-        start += c
+            new[k][j, :counts[s]] = v.index_select(0, idx)
     return new, counts
 
 
-def rebalance(store, new_shards: int, *, device=None):
+def rebalance(store, new_shards: int, *, device=None, group=None):
     """Re-partition a ``ShardedStore`` onto ``new_shards`` shards on
     ``device`` (``None`` means CUDA; it must be the store's device).
     Returns a NEW store; the input is untouched. Row payloads move bit
@@ -59,23 +69,35 @@ def rebalance(store, new_shards: int, *, device=None):
     the new store in handle order, subscriptions included (each group on
     the path it took), so existing handles stay valid against
     ``new_store.standing``; the registration backfills rebuild their
-    state from the moved rows."""
+    state from the moved rows.
+
+    On a store spread over a group this is a collective of the old
+    group: its live rows are gathered onto every rank, and the new
+    store spreads over ``group`` (``None``: the stacked store on every
+    rank). ``new_shards`` must be a multiple of the new group's size
+    (``ValueError``); a rank outside the new group (``dist.new_group``'s
+    ``GroupMember.NON_GROUP_MEMBER``) takes part in the gather and gets
+    ``None``."""
     from repro_torch.warehouse.standing import StandingQueries
-    from repro_torch.warehouse.store import ShardedStore, _bucket_cap
+    from repro_torch.warehouse.store import (ShardedStore, _bucket_cap,
+                                             all_shards)
     assert new_shards >= 1
     assert isinstance(store, ShardedStore), "rebalance takes a ShardedStore"
     dev = resolve(device)
     if dev != store.device:
         raise ValueError(f"rebalance runs on {dev} and the store is on "
                          f"{store.device}")
+    # every old shard's live rows on this rank (a gather on a group)
+    cols = all_shards(store.columns, store.n_rows_by_shard, store.group)
+    if group is dist.GroupMember.NON_GROUP_MEMBER:
+        return None
+    new = ShardedStore(out_dim=store.out_dim, n_shards=new_shards,
+                       chunk_rows=store.chunk_rows, device=dev, group=group)
     # one shard could own every row: size each for the whole store
     cap_new = _bucket_cap(max(store.n_rows, 1), store.chunk_rows)
-    cols, counts = _repartition(store.columns, store.n_rows_by_shard,
-                                new_shards, cap_new)
-    new = ShardedStore._from_parts(
-        out_dim=store.out_dim, n_shards=new_shards,
-        chunk_rows=store.chunk_rows, device=dev, columns=cols,
-        n_rows_by_shard=counts, t_max=store.t_max)
+    new.columns, new.n_rows_by_shard = _repartition(
+        cols, store.n_rows_by_shard, new_shards, cap_new, keep=new.shards)
+    new.t_max = store.t_max
     old = store.standing
     if old is not None and len(old._queries):
         reg = StandingQueries(new)

@@ -1,7 +1,8 @@
-"""V-ETL Load on one device: the columnar store, single or stream-hash
-sharded on a stacked shard axis, its queries, its standing queries, its
-int8 cold tier and its checkpoints (see store.py / query.py /
-standing.py / tiers.py)."""
+"""V-ETL Load: the columnar store, single or stream-hash sharded (on a
+stacked shard axis on one device, or over a ``torch.distributed`` group
+of ranks, one a card: ``launch.mesh``), its queries, its standing
+queries, its int8 cold tier and its checkpoints (see store.py /
+query.py / standing.py / tiers.py)."""
 from repro_torch.warehouse.query import (Filter, GroupBy, MultiGroupBy,
                                          Project, TopK, WindowAgg, execute,
                                          execute_ref, execute_sharded,

@@ -31,7 +31,13 @@ A sharded store (``ShardedStore``, ``ShardedTieredStore``) runs through
 (on CUDA columns K1, one launch per shard), merged by sum / max / min
 over the shard axis, or by concatenation for TopK candidates and row
 plans; then the same finalize and post nodes. The reference's stacked
-single-device path, in its merge order.
+single-device path, in its merge order. On a store spread over a
+``torch.distributed`` group each rank computes its own shards'
+partials and gathers every shard's in shard order
+(``launch.mesh.all_gather_blocks``) before the same merge, so every
+rank's answer is the stacked store's bit for bit: the reference's
+``shard_map`` path with its psum / pmax / all_gather, but with float
+sums added in shard order (an all-reduce adds in the backend's order).
 """
 from __future__ import annotations
 
@@ -404,21 +410,29 @@ def _scale_sum(absmax: np.ndarray) -> np.float32:
     return total
 
 
-def _compressed_sum(acc: torch.Tensor, draws: torch.Tensor) -> torch.Tensor:
-    """Merge the stacked (S, ...) float partial sums through int8: each
-    shard's whole partial quantized with one scale (``quantize_int8`` on
-    the flattened partial, stochastic rounding from ``draws``), the codes
-    summed exactly in int32, times the MEAN scale — the reference's
+def _quantized(part, draws: torch.Tensor):
+    """One shard's partial for the compressed merge: its float ``acc``
+    quantized to int8 with one scale (``quantize_int8`` on the flattened
+    partial, stochastic rounding from ``draws``, the shard's uniforms) as
+    ``q``, and its largest magnitude as ``absmax``; ``cnt`` kept. What
+    crosses the shards is int8."""
+    flat = part["acc"].reshape(1, -1)
+    q, _ = quantize_int8(flat, draws.reshape(1, -1).to(flat.device))
+    return {"q": q.reshape(part["acc"].shape), "cnt": part["cnt"],
+            "absmax": flat.abs().amax(1)}
+
+
+def _code_sum(parts) -> torch.Tensor:
+    """The compressed merge of the shards' ``_quantized`` partials: the
+    codes summed exactly in int32, times the MEAN scale — the reference's
     stacked ``_compressed_sum``. Its ``sum(scale) / S`` compiles to the
     fused sum of ``_scale_sum`` times float32(1 / S), taken here on the
     host from the S partials' largest magnitudes."""
-    S = acc.shape[0]
-    flat = acc.reshape(S, -1)
-    q, _ = quantize_int8(flat, draws.reshape(S, -1).to(acc.device))
-    total = q.to(torch.int32).sum(0).to(torch.float32).reshape(acc.shape[1:])
-    absmax = flat.abs().amax(1).cpu().numpy()
+    S = len(parts)
+    total = torch.stack([p["q"] for p in parts]).to(torch.int32).sum(0)
+    absmax = torch.cat([p["absmax"] for p in parts]).cpu().numpy()
     mean = np.float32(_scale_sum(absmax) * (np.float32(1.0) / np.float32(S)))
-    return total * torch.tensor(mean, device=acc.device)
+    return total.to(torch.float32) * torch.tensor(mean, device=total.device)
 
 
 def _shard_partial(cols, n_valid: int, fvals, shard_id: int, *, pre, node,
@@ -449,11 +463,11 @@ def _shard_partial(cols, n_valid: int, fvals, shard_id: int, *, pre, node,
     return _seg_partial(table, mask, node)
 
 
-def _merge_partials(parts, node, post, fvals, compressed: bool, draws):
+def _merge_partials(parts, node, post, fvals):
     """The merge: concatenate row plans and TopK candidates (in shard
     order), or combine aggregating partials by sum / max / min over the
-    shards (counts by sum, exact), finalize, then the post nodes.
-    ``draws()`` gives the compressed sum's uniforms."""
+    shards (counts by sum, exact), or ``_quantized`` ones by
+    ``_code_sum``, finalize, then the post nodes."""
     def cat(key):
         return {c: torch.cat([p[key][c] for p in parts])
                 for c in parts[0][key]}
@@ -467,19 +481,64 @@ def _merge_partials(parts, node, post, fvals, compressed: bool, draws):
         table = {c: v.index_select(0, idx) for c, v in cand.items()}
         mask = torch.isfinite(score.index_select(0, idx))
     else:
-        acc = torch.stack([p["acc"] for p in parts])
-        if node.agg == "max":
-            acc = acc.amax(0)
+        if "q" in parts[0]:
+            acc = _code_sum(parts)
+        elif node.agg == "max":
+            acc = torch.stack([p["acc"] for p in parts]).amax(0)
         elif node.agg == "min":
-            acc = acc.amin(0)
-        elif compressed and acc.dtype == torch.float32:
-            acc = _compressed_sum(acc, draws(acc.shape))
+            acc = torch.stack([p["acc"] for p in parts]).amin(0)
         else:
-            acc = _merge_sum(acc)
+            acc = _merge_sum(torch.stack([p["acc"] for p in parts]))
         cnt = _merge_sum(torch.stack([p["cnt"] for p in parts]))
         out, cnt = _seg_finalize(acc, cnt, node.agg)
         table, mask = _seg_table(node, out, cnt)
     return _apply_nodes(table, mask, fvals, post)
+
+
+def _gather_parts(parts, node, group):
+    """Every shard's partial, in shard order, from this rank's: one
+    collective of fixed-shape blocks (``acc`` / ``cnt``, quantized codes,
+    TopK candidates and scores), or for a row plan the shards' row
+    counts first, then their masked rows padded to the largest count
+    (each shard's rows come back compacted, their mask all true)."""
+    from repro_torch.launch.mesh import all_gather_blocks
+
+    def gather(blocks):
+        # one level of nesting (a part's "table") flattened to key pairs
+        flat = [{(k, c): x for k, v in b.items() for c, x in (
+            v.items() if isinstance(v, dict) else ((None, v),))}
+            for b in blocks]
+        keys = list(flat[0])
+        got = all_gather_blocks([torch.stack([f[k] for f in flat])
+                                 for k in keys], group)
+        out = []
+        for row in zip(*[g.unbind(0) for g in got]):
+            part = {}
+            for (k, c), x in zip(keys, row):
+                if c is None:
+                    part[k] = x
+                else:
+                    part.setdefault(k, {})[c] = x
+            out.append(part)
+        return out
+
+    if node is not None:
+        return gather(parts)
+    dev = parts[0]["mask"].device
+    rows = [{c: v[p["mask"]] for c, v in p["table"].items()} for p in parts]
+    n = torch.stack([p["mask"].sum() for p in parts])
+    counts = all_gather_blocks([n], group)[0].tolist()
+    m = max(counts + [1])            # at least a row: no empty transfer
+    pad = []
+    for r in rows:
+        z = {c: torch.zeros((m,) + v.shape[1:], dtype=v.dtype, device=dev)
+             for c, v in r.items()}
+        for c, v in r.items():
+            z[c][:len(v)] = v
+        pad.append({"table": z})
+    return [{"table": {c: v[:k] for c, v in p["table"].items()},
+             "mask": torch.ones(k, dtype=torch.bool, device=dev)}
+            for p, k in zip(gather(pad), counts)]
 
 
 def execute_sharded(store, plan, *, compressed: bool = False, seed: int = 0,
@@ -489,29 +548,43 @@ def execute_sharded(store, plan, *, compressed: bool = False, seed: int = 0,
     path). ``use_kernel`` picks each shard's partial as ``execute`` picks
     a query's (``_resolve_use_kernel`` on one shard's columns): on CUDA
     columns K1, one launch per shard. ``compressed=True`` merges float
-    partial sums through int8 (``_compressed_sum``: exact counts, lossy
-    sums); its rounding uniforms are ``draws`` (S, *partial shape), e.g.
-    the reference's, else a CPU ``torch.Generator`` seeded with ``seed``.
-    Returns ``(table, mask)`` on the store's device."""
+    partial sums through int8 (``_quantized`` and ``_code_sum``: exact
+    counts, lossy sums); its rounding uniforms are ``draws`` (S, *partial
+    shape), e.g. the reference's, else a CPU ``torch.Generator`` seeded
+    with ``seed``. Returns ``(table, mask)`` on the store's device.
+
+    On a store spread over a group (``store.group``) this is a
+    collective: each rank computes its own shards' partials and gathers
+    every shard's in shard order before the merge, and every rank gets
+    the stacked store's answer bit for bit; the compressed merge
+    quantizes each shard's partial on its rank and gathers the int8
+    codes. A row plan's answer is then the surviving rows alone, in
+    shard order, the mask all true (the stacked store's ``to_host``)."""
     cols, n_valid = store.shard_source()
     spec, fvals = normalize(plan)
     pre, node, post = split_plan(spec)
     shards = [{k: v[s] for k, v in cols.items()}
               for s in range(len(n_valid))]
+    lo = store.shards.start
     uk = _resolve_use_kernel(use_kernel, pre, node, shards[0])
     if node is not None and not isinstance(node, TopK):
         PATHS["kernel" if uk else "engine"] += 1
-    parts = [_shard_partial(c, int(n), fvals, s, pre=pre, node=node,
+    parts = [_shard_partial(c, int(n), fvals, lo + j, pre=pre, node=node,
                             use_kernel=uk)
-             for s, (c, n) in enumerate(zip(shards, n_valid))]
-
-    def uniforms(shape):
-        if draws is not None:
-            return draws if isinstance(draws, torch.Tensor) \
+             for j, (c, n) in enumerate(zip(shards, n_valid))]
+    if (compressed and node is not None and not isinstance(node, TopK)
+            and node.agg not in ("max", "min")
+            and parts[0]["acc"].dtype == torch.float32):
+        if draws is None:
+            u = torch.rand((store.n_shards,) + tuple(parts[0]["acc"].shape),
+                           generator=torch.Generator().manual_seed(seed))
+        else:
+            u = draws if isinstance(draws, torch.Tensor) \
                 else torch.tensor(np.asarray(draws))
-        return torch.rand(tuple(shape),
-                          generator=torch.Generator().manual_seed(seed))
-    return _merge_partials(parts, node, post, fvals, compressed, uniforms)
+        parts = [_quantized(p, u[lo + j]) for j, p in enumerate(parts)]
+    if store.group is not None:
+        parts = _gather_parts(parts, node, store.group)
+    return _merge_partials(parts, node, post, fvals)
 
 
 def _source(store):

@@ -52,7 +52,12 @@ shard's rows in update order), on the path the group chose with
 ``_resolve_use_kernel`` on one shard's columns; the registration
 backfill folds each shard's live rows; an answer merges the shards by
 sum / max / min (``query._merge_sum``, in shard order) before it
-finalizes. The reference folds each shard's owned rows under an
+finalizes. On a store spread over a ``torch.distributed`` group the
+state holds the rank's own ``k`` shards, ``(k, Qb, groups[, D])``, and
+``answer`` / ``answer_host`` / ``poll`` gather every shard's
+accumulators in shard order first (collectives: every rank calls them
+together), so every rank returns the stacked store's answers and fires
+its alerts. The reference folds each shard's owned rows under an
 ownership mask over the whole block, which adds only identities for the
 rows it does not own, so the engine path (``use_kernel=False``) is
 bit-exact with it on the CPU; K1's path regroups the sums as on one
@@ -239,7 +244,7 @@ class _Group:
         qb = self.qb if qb is None else qb
         node, store, sharded = self.node, self.reg.host, self.reg.sharded
         vcol = store.columns[node.value]
-        lead = ((store.n_shards,) if sharded else ()) + (
+        lead = ((len(store.shards),) if sharded else ()) + (
             qb, _num_groups(node))
         kw = dict(dtype=torch.float32, device=store.device)
         return {"acc": torch.full(lead + tuple(vcol.shape[1 + sharded:]),
@@ -413,10 +418,20 @@ class StandingQueries:
         return q_source(self.store)
 
     # -- answers -------------------------------------------------------
+    def _all_shards(self, state):
+        """``state`` with every shard's accumulators, in shard order: a
+        gather over the store's group, or the state itself."""
+        group = getattr(self.host, "group", None)
+        if group is None:
+            return state
+        from repro_torch.launch.mesh import all_gather_blocks
+        return dict(zip(state, all_gather_blocks(list(state.values()),
+                                                 group)))
+
     def group_answers(self, group: _Group):
         """Stacked (Q, ...) answer tables of one group's queries."""
-        return _answer_kernel(group.state, group.fvals, spec=group.spec,
-                              sharded=self.sharded)
+        return _answer_kernel(self._all_shards(group.state), group.fvals,
+                              spec=group.spec, sharded=self.sharded)
 
     def answer(self, handle: int):
         """(table, mask) of one standing query, tensors on the store's
@@ -424,8 +439,9 @@ class StandingQueries:
         rescan."""
         q = self._queries[handle]
         g = self._group_of(q)
-        return _answer(_slot(g.state, q.slot, self.sharded), q.fvals,
-                       spec=g.spec, sharded=self.sharded)
+        return _answer(self._all_shards(_slot(g.state, q.slot,
+                                               self.sharded)),
+                       q.fvals, spec=g.spec, sharded=self.sharded)
 
     def _group_of(self, q: _Query) -> _Group:
         return self._groups[q.spec]

@@ -27,11 +27,18 @@ pool's tick; the elastic pool's masked tick compacts its active slots
 to consecutive rows carrying their real stream ids.
 
 ``ShardedStore`` partitions the same columns by ``stream_id %
-n_shards`` on a stacked ``(n_shards, cap, ...)`` axis on one device
-(the reference's single-device layout, ``mesh is None``): each ingest
-routes every row to its owner shard on the host, where the stream ids
-are known, and queries run through the per-shard partial and merge of
-``warehouse.query.execute_sharded``.
+n_shards``. Without a group it holds every shard on a stacked
+``(n_shards, cap, ...)`` axis on one device (the reference's
+single-device layout, ``mesh is None``). Given a ``torch.distributed``
+group (``launch.mesh``) it is the reference's mesh layout: each rank
+holds its block of ``k = n_shards / W`` shards on its own card, stacked
+``(k, cap, ...)``, and every rank calls the same methods with the same
+arguments. Each ingest routes every row to its owner shard on the host,
+where the stream ids are known, so every rank knows every shard's count
+with no collective and writes only its own shards' rows; queries run
+through the per-shard partial and merge of
+``warehouse.query.execute_sharded``, which gathers the shards' partials
+in shard order on a group.
 
 A ``StandingQueries`` registry (``warehouse.standing``) attached to the
 store is refreshed inside every ingest and ``append_rows``: right
@@ -299,9 +306,22 @@ class SegmentStore:
 # sharded store: stream-hash partitioned rows on a stacked shard axis
 # ---------------------------------------------------------------------------
 
+def all_shards(columns, n_rows_by_shard, group):
+    """Every shard's columns ``(n_shards, m, ...)``, ``m`` the largest
+    shard's live rows, from this rank's ``(k, cap, ...)`` columns: one
+    collective on a group, a view of the live prefix without one."""
+    m = int(np.max(n_rows_by_shard, initial=0))
+    live = {k: v[:, :m] for k, v in columns.items()}
+    if group is None:
+        return live
+    from repro_torch.launch.mesh import all_gather_blocks
+    return dict(zip(live, all_gather_blocks(list(live.values()), group)))
+
+
 class ShardedStore:
     """Stream-hash partitioned ``SegmentStore`` on one device (``None``
-    means CUDA): columns are stacked ``(n_shards, cap, ...)`` tensors and
+    means CUDA), or over a group's ranks: columns are stacked
+    ``(n_shards, cap, ...)`` tensors (a rank's ``(k, cap, ...)``) and
     row ``r`` of stream ``sid`` lives on shard ``sid % n_shards``.
 
     Every ingest routes by owner on the host, where the stream ids are
@@ -317,15 +337,32 @@ class ShardedStore:
     accumulator slice per shard: right after an ingest lands, each
     shard folds the rows it just received (the contiguous slice
     ``[n_old, n_old + c)`` of its columns), as the reference folds each
-    shard's owned rows in its ingest dispatch."""
+    shard's owned rows in its ingest dispatch.
+
+    ``group`` (a ``torch.distributed`` process group, e.g.
+    ``launch.mesh.make_shard_group``'s) spreads the shards over its
+    ranks: this rank holds shards ``shards`` (``columns`` is ``(k, cap,
+    ...)`` for them) and every rank must make the same calls in the same
+    order. ``n_rows_by_shard``, ``capacity``, ``t_max`` and
+    ``telemetry()`` stay global and the same on every rank;
+    ``host_rows()`` and queries are collectives. The group's backend
+    must fit ``device`` (NCCL for CUDA, gloo for the CPU) and
+    ``n_shards`` must be a multiple of its size, else ``ValueError``."""
 
     def __init__(self, out_dim: int, n_shards: int, chunk_rows: int = 8192,
-                 device=None):
+                 device=None, group=None):
         assert out_dim >= 1 and n_shards >= 1 and chunk_rows >= 1
         self.device = resolve(device)
         self.out_dim = int(out_dim)
         self.n_shards = int(n_shards)
         self.chunk_rows = int(chunk_rows)
+        self.group = group
+        self.shards = range(self.n_shards)
+        if group is not None:
+            from repro_torch.launch.mesh import check_backend, \
+                make_shard_group
+            check_backend(group, self.device)
+            _, self.shards = make_shard_group(self.n_shards, group)
         self.t_max = -1
         self.n_rows_by_shard = np.zeros(self.n_shards, np.int64)
         self.columns = self._empty(0)
@@ -334,8 +371,8 @@ class ShardedStore:
 
     @classmethod
     def _from_parts(cls, *, columns, n_rows_by_shard, t_max, **kw):
-        """Adopt already-partitioned columns without an ingest (what
-        ``runtime.elastic.rebalance`` builds its result with); the
+        """Adopt already-partitioned columns without an ingest (what the
+        tracer's engines, ``obs.engines``, build their stores with); the
         flight-recorder counters and the standing registry start fresh.
         ``kw`` are the constructor's arguments."""
         self = cls(**kw)
@@ -344,10 +381,10 @@ class ShardedStore:
         return self
 
     def _empty(self, cap: int) -> Dict[str, torch.Tensor]:
-        cols = {n: torch.zeros((self.n_shards, cap), dtype=dt,
-                               device=self.device)
+        k = len(self.shards)
+        cols = {n: torch.zeros((k, cap), dtype=dt, device=self.device)
                 for n, dt in SCALAR_COLUMNS}
-        cols[OUT_COLUMN] = torch.zeros((self.n_shards, cap, self.out_dim),
+        cols[OUT_COLUMN] = torch.zeros((k, cap, self.out_dim),
                                        dtype=torch.float32,
                                        device=self.device)
         return cols
@@ -383,7 +420,8 @@ class ShardedStore:
         """Write each shard's rows of the update block (``owner[i]`` is
         row i's shard, ``n_shards`` for a row that lands nowhere) at
         consecutive rows from that shard's count, in block order, then
-        fold them into the standing queries. Returns the per-shard
+        fold them into the standing queries. Only this rank's shards
+        are written; every shard's count moves. Returns the per-shard
         counts."""
         counts = np.bincount(owner, minlength=self.n_shards + 1)[
             :self.n_shards]
@@ -391,30 +429,37 @@ class ShardedStore:
         upd = {k: upd[k].to(device=self.device, dtype=col.dtype)
                for k, col in self.columns.items()}
         lo = self.n_rows_by_shard.copy()
-        for s in np.flatnonzero(counts):
+        for s in self._local(counts):
             rows = np.flatnonzero(owner == s)
             idx = (None if len(rows) == len(owner)    # the whole block
                    else torch.as_tensor(rows, device=self.device))
+            j = s - self.shards.start
             for k, col in self.columns.items():
-                col[s, lo[s]:lo[s] + counts[s]] = (
+                col[j, lo[s]:lo[s] + counts[s]] = (
                     upd[k] if idx is None else upd[k].index_select(0, idx))
         self.n_rows_by_shard += counts
         self._fold(lo, counts)
         return counts
 
+    def _local(self, counts: np.ndarray) -> np.ndarray:
+        """This rank's shards among those with a nonzero count."""
+        s = np.flatnonzero(counts)
+        return s[(s >= self.shards.start) & (s < self.shards.stop)]
+
     def _fold(self, lo: np.ndarray, counts: np.ndarray) -> None:
-        """Fold each shard's new rows ``[lo, lo + count)``, as stored,
-        into that shard's slice of every registered standing query."""
+        """Fold each of this rank's shards' new rows ``[lo, lo + count)``,
+        as stored, into that shard's slice of every registered standing
+        query."""
         reg = self.standing
         if reg is None or not len(reg):
             return
         sstates, sfvals, sspecs = reg.kernel_args()
-        for s in np.flatnonzero(counts):
-            c = int(counts[s])
-            block = {k: col[s, lo[s]:lo[s] + c]
+        for s in self._local(counts):
+            c, j = int(counts[s]), s - self.shards.start
+            block = {k: col[j, lo[s]:lo[s] + c]
                      for k, col in self.columns.items()}
             mask = torch.ones((c,), dtype=torch.bool, device=self.device)
-            _fold_all(tuple(_slot(st, s) for st in sstates), sfvals, block,
+            _fold_all(tuple(_slot(st, j) for st in sstates), sfvals, block,
                       mask, c, sspecs)
         reg.absorb(sstates)                  # folded in place
 
@@ -479,9 +524,10 @@ class ShardedStore:
 
     # -- reading -------------------------------------------------------
     def shard_source(self):
-        """(stacked columns, per-shard live row counts as host ints):
-        what the sharded query engine reads."""
-        return self.columns, self.n_rows_by_shard.copy()
+        """(stacked columns of this rank's shards, their live row counts
+        as host ints): what the sharded query engine reads."""
+        return self.columns, self.n_rows_by_shard[
+            self.shards.start:self.shards.stop].copy()
 
     def query(self, plan, **kw):
         """Run a query plan through the per-shard partial and its merge
@@ -498,16 +544,20 @@ class ShardedStore:
 
     def host_rows(self) -> Dict[str, np.ndarray]:
         """All live rows as host numpy, shard-major (an explicit full
-        transfer)."""
+        transfer). On a group a collective: every rank gathers every
+        shard's rows and returns them all."""
+        cols = all_shards(self.columns, self.n_rows_by_shard, self.group)
         return {k: np.concatenate([v[s, :n].cpu().numpy() for s, n in
                                    enumerate(self.n_rows_by_shard)])
-                for k, v in self.columns.items()}
+                for k, v in cols.items()}
 
     def __len__(self) -> int:
         return self.n_rows
 
     def __repr__(self) -> str:
-        return (f"ShardedStore(shards={self.n_shards}[stacked], "
+        held = ("stacked" if self.group is None else
+                 f"{self.shards.start}:{self.shards.stop}")
+        return (f"ShardedStore(shards={self.n_shards}[{held}], "
                 f"rows={self.n_rows_by_shard.tolist()}, "
                 f"cap={self.capacity}, out_dim={self.out_dim}, "
                 f"chunk={self.chunk_rows}, device={self.device})")

@@ -23,6 +23,9 @@ error bound is the same).
 spills its own oldest whole chunks (ragged depths, its own scales), the
 cold blocks live in one stacked array with a per-shard valid depth, and
 each shard's two-tier rows are its cold rows followed by its hot rows.
+Over a store spread on a ``torch.distributed`` group each rank spills
+and holds its own shards, with the same per-shard draws, so the codes
+are the stacked tier's bit for bit.
 ``save_warehouse`` / ``load_warehouse`` write and read a ``TieredStore``
 in the reference's checkpoint format (``checkpoint.ckpt``), so either
 package restores the other's files.
@@ -299,7 +302,12 @@ class ShardedTieredStore:
 
     The rounding draws come from a CPU ``torch.Generator`` per shard,
     seeded from the tier's seed, its spill count and the shard; a test
-    passes the reference's through ``spill(draws=)``."""
+    passes the reference's through ``spill(draws=)``.
+
+    Over a hot store spread on a group, each rank spills and holds its
+    own shards (``cold_*`` are ``(k, ...)``); the per-shard counts,
+    ``telemetry()`` and ``max_cold_scale()`` stay global, and every rank
+    makes the same calls."""
 
     def __init__(self, hot: ShardedStore, seed: int = 0, device=None):
         if resolve(device) != hot.device:
@@ -320,6 +328,19 @@ class ShardedTieredStore:
         return self.hot.n_shards
 
     @property
+    def shards(self) -> range:
+        """The shards this rank holds (all of them without a group)."""
+        return self.hot.shards
+
+    @property
+    def group(self):
+        return self.hot.group
+
+    def _mine(self, per_shard: np.ndarray) -> np.ndarray:
+        """This rank's slice of a per-shard host array."""
+        return per_shard[self.shards.start:self.shards.stop]
+
+    @property
     def n_rows(self) -> int:
         return int(self.n_cold_by_shard.sum()) + self.hot.n_rows
 
@@ -337,7 +358,7 @@ class ShardedTieredStore:
         cap = self.cold_capacity
         if need <= cap:
             return
-        chunk, S = self.hot.chunk_rows, self.n_shards
+        chunk, S = self.hot.chunk_rows, len(self.shards)
         new_cap = _bucket_cap(need, chunk)
 
         def grown(old, shape, dtype, rows):
@@ -361,12 +382,12 @@ class ShardedTieredStore:
                                             cap)
 
     def _draws(self) -> Callable:
-        """This spill's rounding draws: one CPU generator per shard,
-        seeded from the tier's seed, its spill count and the shard; each
-        float column draws in column order."""
+        """This spill's rounding draws: one CPU generator per shard this
+        rank holds, seeded from the tier's seed, its spill count and the
+        shard; each float column draws in column order."""
         gens = [torch.Generator().manual_seed(
             (self.seed * 1_000_003 + self._spills) * 1_009 + s)
-            for s in range(self.n_shards)]
+            for s in self.shards]
 
         def draw(name, S, n_chunks, width):
             return torch.stack([torch.rand((n_chunks, width), generator=g)
@@ -376,9 +397,10 @@ class ShardedTieredStore:
     def spill(self, keep_hot: int, draws: Callable = None) -> int:
         """Move each shard's oldest whole chunks to its cold tier until at
         most ``keep_hot`` rows (rounded up to a chunk) stay hot on it.
-        Returns the rows spilled. ``draws(name, S, n_chunks, width)``
-        overrides the tier's own uniforms (a test passes the
-        reference's).
+        Returns the rows spilled (on every shard).
+        ``draws(name, S, n_chunks, width)`` overrides the tier's own
+        uniforms with every shard's (a test passes the reference's); a
+        rank takes its own shards' rows of them.
 
         Every shard quantizes the deepest shard's depth (the reference's
         fixed block), written at its own cold offset: the rows past its
@@ -394,14 +416,19 @@ class ShardedTieredStore:
         if d_max <= 0:
             return 0
         self._cold_reserve(int((self.n_cold_by_shard + d_max).max()))
+        draw = self._draws()
+        if draws is not None:
+            def draw(name, S, n_chunks, width):
+                return draws(name, self.n_shards, n_chunks, width)[
+                    self.shards.start:self.shards.stop]
         q, scales, ints = _quantize_chunks_sharded(
-            self.hot.columns, draws or self._draws(), n=d_max, chunk=chunk)
+            self.hot.columns, draw, n=d_max, chunk=chunk)
         self._spills += 1
-        off = self.n_cold_by_shard
+        off = self._mine(self.n_cold_by_shard)
         _cold_write(self.cold_q, q, off)
         _cold_write(self.cold_int, ints, off)
         _cold_write(self.cold_scales, scales, off // chunk)
-        _compact_ragged(self.hot.columns, d)
+        _compact_ragged(self.hot.columns, self._mine(d))
         self.hot.n_rows_by_shard = self.hot.n_rows_by_shard - d
         self.n_cold_by_shard = self.n_cold_by_shard + d
         self.tier_obs["spill_events"] += 1
@@ -409,12 +436,12 @@ class ShardedTieredStore:
         return int(d.sum())
 
     def shard_source(self):
-        """(stacked columns spanning both tiers, per-shard live row
-        counts): each shard's rows are its cold rows, then its hot rows.
-        Memoized until the next ingest or spill."""
+        """(stacked columns of this rank's shards spanning both tiers,
+        their live row counts): each shard's rows are its cold rows, then
+        its hot rows. Memoized until the next ingest or spill."""
         if not self.n_cold_by_shard.any():
             return self.hot.shard_source()
-        counts = self.n_cold_by_shard + self.hot.n_rows_by_shard
+        counts = self._mine(self.n_cold_by_shard + self.hot.n_rows_by_shard)
         key = (id(self.hot.columns), tuple(self.hot.n_rows_by_shard),
                tuple(self.n_cold_by_shard))
         c = self._mat_cache
@@ -422,7 +449,7 @@ class ShardedTieredStore:
             return c[1], counts
         cols = _materialize_sharded(self.cold_q, self.cold_scales,
                                     self.cold_int, self.hot.columns,
-                                    self.n_cold_by_shard,
+                                    self._mine(self.n_cold_by_shard),
                                     chunk=self.hot.chunk_rows)
         self._mat_cache = (key, cols)
         self.tier_obs["dequantize_events"] += 1
@@ -450,10 +477,15 @@ class ShardedTieredStore:
 
     def max_cold_scale(self) -> float:
         """The largest (shard, chunk) scale of the cold tier: the bound
-        on a cold value's quantization error."""
+        on a cold value's quantization error (over every rank's shards:
+        a collective on a group)."""
         if not self.cold_scales:
             return 0.0
-        return max(float(v.max()) for v in self.cold_scales.values())
+        top = torch.stack([v.max() for v in self.cold_scales.values()]).max()
+        if self.group is not None:
+            from repro_torch.launch.mesh import all_gather_blocks
+            top = all_gather_blocks([top[None]], self.group)[0].max()
+        return float(top)
 
     def __repr__(self) -> str:
         return (f"ShardedTieredStore(shards={self.n_shards}, "

@@ -1,0 +1,529 @@
+"""Worlds of gloo ranks for the port's distributed warehouse tests.
+
+``run_world(fn, world, tmp)`` spawns ``world`` ranks
+(``launch.mesh.spawn_world``, under a deadline), each with one torch
+thread, joined through a ``file://`` store under ``tmp`` with a short
+collective timeout; rank ``r`` runs ``fn(r, world, **kw)`` and its
+result is written to a file that the test process reads back, one per
+rank.
+
+``scenario(store, ...)`` is the sequence of calls the tests hold a
+distributed store to: the same calls on the stacked store in the test
+process (``group=None``) and on every rank of a world (``group`` the
+world) give results that must be equal bit for bit. The op log
+(``op_log``) is numpy, so the test process also replays it on the
+reference's store.
+
+Spawned ranks import this module by name: it imports numpy, torch and
+``repro_torch`` only, never JAX (the card's machine has none).
+"""
+from __future__ import annotations
+
+import datetime
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import (check_backend, init_shard_group,
+                                     spawn_world)
+from repro_torch.runtime.elastic import rebalance
+from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy, Project,
+                                   ShardedStore, ShardedTieredStore,
+                                   StandingQueries, TopK, WindowAgg,
+                                   to_host, windows_for)
+from repro_torch.warehouse import query as Q
+
+D = 3
+SHARDS = 8
+TIMEOUT_S = 60          # a collective that waits longer fails its rank
+DEADLINE_S = 240        # a world still running after this is killed
+
+
+# ---------------------------------------------------------------------------
+# worlds
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank, fn, world, init_file, out_dir, kw, timeout_s, device):
+    torch.set_num_threads(1)
+    init_shard_group(device, init_method=f"file://{init_file}", rank=rank,
+                     world_size=world,
+                     timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        result = fn(rank, world, **kw)
+        torch.save(result, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(fn, world, tmp, *, deadline=DEADLINE_S, timeout_s=TIMEOUT_S,
+              device="cpu", **kw):
+    """``fn(rank, world, **kw)`` on ``world`` ranks (gloo on the CPU;
+    ``device=None``: NCCL, a card a rank); the ranks' results in rank
+    order and the world's wall seconds."""
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    init_file = tmp / "pg_init"
+    if init_file.exists():
+        init_file.unlink()
+    t0 = time.monotonic()
+    spawn_world(_rank_main, world, (fn, world, str(init_file), str(tmp), kw,
+                                    timeout_s, device), deadline=deadline)
+    results = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+               for r in range(world)]
+    return results, time.monotonic() - t0
+
+
+def same(got, want, path="answer"):
+    """Bit-for-bit equality of nested results (dicts, lists, tuples,
+    arrays of the same dtype and shape, scalars)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), (path, set(got) ^ set(want))
+        for k in want:
+            same(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            same(g, w, f"{path}/{i}")
+    elif isinstance(want, np.ndarray):
+        got = np.asarray(got)
+        assert got.dtype == want.dtype and got.shape == want.shape, \
+            (path, got.dtype, want.dtype, got.shape, want.shape)
+        assert np.array_equal(got.view(np.uint8), want.view(np.uint8)), \
+            path
+    else:
+        assert got == want, (path, got, want)
+
+
+def cat_ranks(locals_):
+    """The ranks' local tier arrays (``_tier_arrays``) joined along the
+    shard axis in rank order; every rank's per-shard depths must agree."""
+    first = locals_[0]
+    out = {part: {k: np.concatenate([loc[part][k] for loc in locals_])
+                  for k in first[part]}
+           for part in ("cold_q", "cold_scales", "cold_int", "hot")}
+    for loc in locals_:
+        same(loc["n_cold_by_shard"], first["n_cold_by_shard"])
+    out["n_cold_by_shard"] = first["n_cold_by_shard"]
+    return out
+
+
+def close(got, want, path="answer", rtol=1e-5):
+    """``same``, but float arrays within ``rtol`` of ``want``, relative
+    (the answers of nonnegative columns, where that is relative to the
+    sum of magnitudes)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            close(got[k], want[k], f"{path}/{k}", rtol)
+    elif isinstance(want, np.ndarray) and want.dtype.kind == "f":
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=0,
+                                   err_msg=path)
+    else:
+        same(got, want, path)
+
+
+def same_ranks(ranks, want, exact_views=True):
+    """Every rank's ``scenario`` result equals ``want`` (the stacked
+    store's), the ranks' local tier arrays joined in rank order. With
+    ``exact_views`` false, the answers over the tiers' two-tier views
+    (dequantized values, whose float32 sums depend on their order) are
+    held within ``close``'s tolerance instead."""
+    def split(res):
+        res = dict(res)
+        local = res.pop("tier_local")
+        res["ref_tier"] = dict(res["ref_tier"])
+        views = {}
+        if not exact_views:
+            res["tier"] = dict(res["tier"])
+            views = {k: res["tier"].pop(k) for k in list(res["tier"])
+                     if k.startswith("plan")}
+            views["ref"] = res["ref_tier"].pop("answers")
+        return res, local, res["ref_tier"].pop("local"), views
+    glob, local, ref_local, views = split(want)
+    parts = [split(r) for r in ranks]
+    for g, _, _, v in parts:
+        same(g, glob)
+        close(v, views, "views")
+    same(cat_ranks([p[1] for p in parts]), local, "tier_local")
+    same(cat_ranks([p[2] for p in parts]), ref_local, "ref_tier/local")
+
+
+# ---------------------------------------------------------------------------
+# the op log and the plans
+# ---------------------------------------------------------------------------
+
+def rows(n, seed=0, t0=0, d=D, streams=None):
+    """``tests/test_warehouse.py``'s ``_random_rows`` (numpy)."""
+    rng = np.random.default_rng(seed)
+    out = {
+        "stream_id": rng.integers(0, 4, n).astype(np.int32),
+        "t": (t0 + np.arange(n)).astype(np.int32),
+        "category": rng.integers(0, 4, n).astype(np.int32),
+        "k": rng.integers(0, d, n).astype(np.int32),
+        "quality": rng.random(n).astype(np.float32),
+        "on_core_s": (rng.random(n) * 20).astype(np.float32),
+        "cloud_core_s": (rng.random(n) * 5).astype(np.float32),
+        "buffer_s": (rng.random(n) * 40).astype(np.float32),
+        "out": rng.random((n, d)).astype(np.float32),
+    }
+    if streams is not None:
+        out["stream_id"] = (np.arange(n, dtype=np.int32) * 7) % streams
+    return out
+
+
+def _traces(rng, shape, d=D):
+    return {"c": rng.integers(0, 4, shape).astype(np.int32),
+            "k": rng.integers(0, d, shape).astype(np.int32),
+            "qual": rng.random(shape).astype(np.float32),
+            "on_s": (rng.random(shape) * 20).astype(np.float32),
+            "cl_s": (rng.random(shape) * 5).astype(np.float32),
+            "buffer_s": (rng.random(shape) * 40).astype(np.float32)}
+
+
+def op_log(seed=0, grid=None):
+    """Every kind of ingest, as ``(method, kwargs)`` in numpy: rows from
+    16 streams, a single-stream fused run, a 5-stream fused run, pool
+    ticks (slot v as stream v, and real ids with inactive slots), more
+    rows. The first op lands before the registry is attached. ``grid``
+    snaps every float to a multiple of ``1 / grid``, so that every sum
+    of them is exact in float32, whatever its order."""
+    rng = np.random.default_rng(seed)
+    ops = [("append_rows", {"rows": rows(700, seed=seed + 1, streams=16)})]
+    T = 130
+    ops.append(("ingest_fused", {
+        "traces": _traces(rng, (3, 50)),
+        "out_vecs": rng.random((T, D)).astype(np.float32),
+        "stream_id": 13, "t0": 700}))
+    ops.append(("ingest_fused_multi", {
+        "traces": _traces(rng, (2, 5, 40)),
+        "out_vecs": rng.random((5, 70, D)).astype(np.float32),
+        "stream_base": 3, "t0": 900}))
+    for t in range(4):
+        V = 6
+        kw = {"traces": _traces(rng, (V,)),
+              "quality": rng.random(V).astype(np.float32),
+              "out_vecs": rng.random((V, D)).astype(np.float32),
+              "t": 1000 + t}
+        if t % 2:
+            kw["stream_ids"] = rng.permutation(40)[:V].astype(np.int32)
+            kw["valid"] = rng.random(V) < 0.6
+        ops.append(("ingest_tick", kw))
+    ops.append(("append_rows", {"rows": rows(500, seed=seed + 2, t0=1100,
+                                             streams=24)}))
+    if grid is None:
+        return ops
+
+    def snap(x):
+        if isinstance(x, dict):
+            return {k: snap(v) for k, v in x.items()}
+        if isinstance(x, np.ndarray) and x.dtype == np.float32:
+            return (np.round(x * grid) / grid).astype(np.float32)
+        return x
+    return [(method, snap(kw)) for method, kw in ops]
+
+
+def apply(store, op, convert):
+    """Run one logged op on ``store``, arrays through ``convert``."""
+    method, kw = op
+    kw = {k: ({c: convert(x) for c, x in v.items()} if isinstance(v, dict)
+              else convert(v) if isinstance(v, np.ndarray)
+              and k not in ("valid", "stream_ids") else v)
+          for k, v in kw.items()}
+    if method == "append_rows":
+        return store.append_rows(kw["rows"])
+    return getattr(store, method)(**kw)
+
+
+def plans(nw):
+    """test_torch_sharded's plans: TopK, row plans, every agg."""
+    return (
+        (Filter("quality", "ge", 0.4), Filter("stream_id", "ne", 3),
+         WindowAgg(window=250, value="on_core_s", agg="mean",
+                   num_windows=nw), TopK(7, by="on_core_s")),
+        (Filter("buffer_s", "lt", 30.0),
+         GroupBy("category", "cloud_core_s", agg="sum", num_groups=4)),
+        (Project(("t", "quality", "k")), Filter("quality", "le", 0.9),
+         TopK(11, by="quality", largest=False)),
+        (Filter("stream_id", "eq", 5), TopK(9, by="quality")),
+        (Filter("quality", "ge", 0.5), Project(("t", "quality"))),
+        (Filter("quality", "gt", 2.0), Project(("t", "k"))),
+        (Filter("quality", "ge", 0.3),
+         MultiGroupBy(keys=("t", "category"), value="on_core_s", agg="mean",
+                      nums=(nw, 4), windows=(500, 0)),
+         TopK(5, by="on_core_s")),
+        (GroupBy("category", "out", agg="sum", num_groups=4),),
+        (GroupBy("category", "k", agg="sum", num_groups=4),),
+    ) + tuple((Filter("quality", "ge", 0.2),
+               GroupBy("category", "on_core_s", agg=agg, num_groups=4))
+              for agg in ("sum", "mean", "count", "max", "min"))
+
+
+# the compressed merge's plans and their partials' shapes
+COMPRESSED = (((GroupBy("category", "out", agg="sum", num_groups=4),),
+               (4, D)),
+              ((WindowAgg(500, "quality", agg="mean", num_windows=8),),
+               (8,)))
+
+STANDING = (
+    (Filter("quality", "ge", 0.3),
+     GroupBy("category", "quality", agg="sum", num_groups=4)),
+    (GroupBy("category", "quality", agg="max", num_groups=4),),
+    (WindowAgg(window=128, value="on_core_s", agg="count", num_windows=16),),
+    (MultiGroupBy(keys=("k", "category"), value="out", agg="mean",
+                  nums=(D, 4), windows=(0, 0)),),
+)
+# a plan on K1's path (its plain version here): the port's stores only
+KERNEL_STANDING = (Filter("quality", "lt", 0.8),
+                   GroupBy("stream_id", "on_core_s", agg="sum",
+                           num_groups=64))
+SUB = ((GroupBy("stream_id", "buffer_s", agg="max", num_groups=64),),
+       Filter("buffer_s", "ge", 30.0))
+
+
+def is_row_plan(plan) -> bool:
+    return Q.split_plan(Q.normalize(plan)[0])[1] is None
+
+
+def host_answer(plan, answer):
+    """An answer as host numpy: a row plan's surviving rows
+    (``to_host``), else the whole table and its mask."""
+    table, mask = answer
+    if is_row_plan(plan):
+        return to_host(table, mask)
+    return {**{k: v.cpu().numpy() for k, v in table.items()},
+            "__mask__": mask.cpu().numpy()}
+
+
+# ---------------------------------------------------------------------------
+# the scenario
+# ---------------------------------------------------------------------------
+
+class TableDraws:
+    """A tier's ``spill(draws=)`` from precomputed uniforms (every
+    shard's, by column name): what a rank is given in place of the
+    reference's ``jax.random`` draws."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def __call__(self, name, S, n_chunks, width):
+        u = self.table[name]
+        assert u.shape == (S, n_chunks, width), (name, u.shape)
+        return u
+
+
+def _store(group, n_shards=SHARDS, chunk=64, d=D, device="cpu"):
+    return ShardedStore(out_dim=d, n_shards=n_shards, chunk_rows=chunk,
+                        device=device, group=group)
+
+
+def fill(store, ops, convert=torch.as_tensor):
+    """The op log into ``store`` with a registry attached after the first
+    op; returns the registry and its handles."""
+    apply(store, ops[0], convert)
+    reg = StandingQueries(store)
+    handles = [reg.register(p, use_kernel=False) for p in STANDING]
+    handles.append(reg.register(KERNEL_STANDING))
+    reg.subscribe(SUB[0], SUB[1], name="buffer-watch", use_kernel=False)
+    for op in ops[1:]:
+        apply(store, op, convert)
+    return reg, handles
+
+
+def _store_state(store, reg, handles, nw):
+    out = {"rows": store.host_rows(), "counts": store.n_rows_by_shard.copy(),
+           "capacity": store.capacity, "t_max": store.t_max,
+           "telemetry": store.telemetry().summary()}
+    for i, p in enumerate(plans(nw)):
+        for uk in (False, None):
+            out[f"plan{i}/{uk}"] = host_answer(p, store.query(
+                p, use_kernel=uk))
+    if reg is not None:
+        for h in handles:
+            out[f"standing{h}"] = host_answer(STANDING[0],
+                                              reg.answer(h))
+        out["alerts"] = [(a.name, a.fired, a.table) for a in reg.poll()]
+    return out
+
+
+def scenario(group, ops, *, compressed_draws, tier_draws, halves=None,
+             device="cpu"):
+    """Every call the tests hold, on an 8-shard store on ``device``
+    (stacked when ``group`` is None); returns ``{case: host numpy}``.
+    ``halves`` is the group of the first half of the ranks
+    (``rebalance`` onto it)."""
+    store = _store(group, device=device)
+    reg, handles = fill(store, ops)
+    nw = windows_for(store, 250)
+    res = {"main": _store_state(store, reg, handles, nw)}
+    for i, (p, _) in enumerate(COMPRESSED):
+        res[f"compressed{i}/seed"] = host_answer(p, store.query(
+            p, compressed=True, seed=3))
+        for uk in (False, None):
+            res[f"compressed{i}/ref/{uk}"] = host_answer(p, store.query(
+                p, compressed=True, draws=compressed_draws[i],
+                use_kernel=uk))
+    # rebalance 8 -> 4 -> 8, registry replayed each time
+    four = rebalance(store, 4, device=device, group=group)
+    res["rebalance4"] = _store_state(four, four.standing, handles, nw)
+    eight = rebalance(four, 8, device=device, group=group)
+    res["rebalance8"] = _store_state(eight, eight.standing, handles, nw)
+    if halves is not None:
+        half = rebalance(store, 4, device=device, group=halves)
+        res["rebalance_half"] = None if half is None else {
+            "rows": half.host_rows(), "counts": half.n_rows_by_shard.copy(),
+            "capacity": half.capacity, "shards": half.shards}
+    # the tier with its own draws over the main store: answers over the
+    # two-tier view, standing answers unmoved by the spill
+    tier = ShardedTieredStore(store, seed=5, device=device)
+    res["spilled"] = tier.spill(keep_hot=64)
+    res["tier"] = {f"plan{i}": host_answer(p, tier.query(p))
+                   for i, p in enumerate(plans(nw))}
+    res["tier"]["standing"] = [host_answer(STANDING[0], reg.answer(h))
+                               for h in handles]
+    res["tier"]["max_cold_scale"] = tier.max_cold_scale()
+    res["tier"]["telemetry"] = tier.telemetry().summary()
+    res["tier_local"] = _tier_arrays(tier)
+    # the reference's draws: a fresh store, two spills
+    res["ref_tier"] = ref_tier_case(group, tier_draws, device)
+    return res
+
+
+def _tier_arrays(tier):
+    """This rank's cold arrays and hot columns (the test concatenates the
+    ranks' in rank order)."""
+    def host(arrays):
+        return {k: v.cpu().numpy().copy() for k, v in arrays.items()}
+    return {"cold_q": host(tier.cold_q), "cold_scales": host(tier.cold_scales),
+            "cold_int": host(tier.cold_int), "hot": host(tier.hot.columns),
+            "n_cold_by_shard": tier.n_cold_by_shard.copy()}
+
+
+TIER_CHUNK = 32
+
+
+def tier_rows():
+    """The reference-draw tier's two batches: ragged, an empty shard."""
+    a = rows(700, seed=31, d=2)
+    a["stream_id"] = (np.arange(700, dtype=np.int32) % 7) * 1
+    b = rows(300, seed=32, t0=700, d=2, streams=5)
+    return a, b
+
+
+def ref_tier_case(group, tier_draws, device="cpu"):
+    """Two batches and two spills (keep_hot 64, then 32) on a 2-wide
+    store, ``tier_draws[i]`` the i-th spill's ``draws``; the tier's
+    arrays, the view's answers and its telemetry."""
+    store = _store(group, chunk=TIER_CHUNK, d=2, device=device)
+    tier = ShardedTieredStore(store, seed=7, device=device)
+    a, b = tier_rows()
+    out = {}
+    store.append_rows(a)
+    out["spill0"] = tier.spill(64, draws=tier_draws[0])
+    store.append_rows(b)
+    out["spill1"] = tier.spill(32, draws=tier_draws[1])
+    out["local"] = _tier_arrays(tier)
+    nw = tier.t_max // 256 + 1
+    out["answers"] = {i: host_answer(p, tier.query(p, use_kernel=uk))
+                      for i, (p, uk) in enumerate(
+                          (p, uk) for p in tier_plans(nw)
+                          for uk in (False, None))}
+    out["telemetry"] = tier.telemetry().summary()
+    return out
+
+
+def tier_plans(nw):
+    return ((GroupBy("category", "quality", agg="mean", num_groups=4),),
+            (Filter("on_core_s", "gt", 5.0),
+             GroupBy("k", "buffer_s", agg="sum", num_groups=4)),
+            (WindowAgg(256, "cloud_core_s", agg="max", num_windows=nw),),
+            (GroupBy("category", "out", agg="sum", num_groups=4),),
+            (Filter("quality", "ge", 0.5), TopK(6, by="on_core_s")))
+
+
+# ---------------------------------------------------------------------------
+# rank entry points
+# ---------------------------------------------------------------------------
+
+def rank_scenario(rank, world, *, ops, compressed_draws, tier_draws):
+    """``scenario`` on this world, plus the refusals: a group's size that
+    does not divide the shards, a backend that does not fit the device,
+    a rebalance onto a count the group does not divide."""
+    halves = dist.new_group(ranks=list(range(world // 2)))
+    res = scenario(dist.group.WORLD, ops, compressed_draws=compressed_draws,
+                   tier_draws=tier_draws, halves=halves)
+    errors = {}
+    for what, call in (
+            ("shards", lambda: _store(dist.group.WORLD,
+                                      n_shards=world + 1)),
+            ("backend", lambda: check_backend(dist.group.WORLD,
+                                              torch.device("cuda"))),
+            ("rebalance", lambda: rebalance(_store(dist.group.WORLD), world
+                                            + 1, device="cpu",
+                                            group=dist.group.WORLD))):
+        try:
+            call()
+            errors[what] = None
+        except ValueError as e:
+            errors[what] = str(e)
+    res["errors"] = errors
+    res["shards"] = _store(dist.group.WORLD).shards
+    return res
+
+
+def rank_card(rank, world, *, ops, compressed_draws):
+    """``scenario`` on CUDA over this NCCL world (the tiers with their own
+    draws), and the refusals of a gloo group by a CUDA store and of the
+    NCCL group by a CPU store."""
+    res = {"scenario": scenario(dist.group.WORLD, ops,
+                                compressed_draws=compressed_draws,
+                                tier_draws=[None, None], device="cuda")}
+    gloo = dist.new_group(backend="gloo")
+    for what, group, device in (("gloo", gloo, "cuda"),
+                                ("nccl", dist.group.WORLD, "cpu")):
+        try:
+            _store(group, device=device)
+            res[what] = None
+        except ValueError as e:
+            res[what] = str(e)
+    return res
+
+
+def rank_fails(rank, world, *, how, wait):
+    """A world where rank 1 breaks: it raises before the first
+    collective (``raise``), or skips it and sleeps ``wait`` seconds
+    (``skip``) while the others wait in it until their timeout."""
+    store = _store(dist.group.WORLD)
+    store.append_rows(rows(100))
+    if rank == 1:
+        if how == "raise":
+            raise RuntimeError("rank 1 fails on purpose")
+        time.sleep(wait)
+    store.host_rows()
+    return {}
+
+
+def rank_psum(rank, world, *, cases):
+    """``compressed_psum`` over the world for each case ``(x, r, err)``
+    (every rank's inputs stacked on a leading axis; this rank takes its
+    own row): its ``(mean, new residual)`` per case."""
+    from repro_torch.distribution.compression import compressed_psum
+    return [tuple(v.numpy() for v in compressed_psum(
+        torch.as_tensor(x[rank]), torch.as_tensor(r[rank]),
+        torch.as_tensor(e[rank]))) for x, r, e in cases]
+
+
+def rank_grads(rank, world, *, grads, errs, draws):
+    """``compress_grads_across_pods`` of numpy leaves over the world."""
+    from repro_torch.distribution.compression import \
+        compress_grads_across_pods
+
+    def tensors(d):
+        return {k: torch.as_tensor(v) for k, v in d.items()}
+    g, e = compress_grads_across_pods(tensors(grads), tensors(errs),
+                                      tensors(draws))
+    return ({k: v.numpy() for k, v in g.items()},
+            {k: v.numpy() for k, v in e.items()})

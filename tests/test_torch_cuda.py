@@ -56,7 +56,9 @@ shards and fold views at unaligned rows among them) against the plain
 version as above; the store on the card against the same batches on the
 CPU, rows, rebalanced rows and cold codes bit for bit, answers within
 the tolerance above; a warehouse saved on the card loads on the CPU bit
-for bit.
+for bit. The store spread over a world of NCCL ranks (one a card)
+against the stacked store on the card, bit for bit on rows whose sums
+are exact.
 
 This file imports neither JAX nor ``repro``.
 """
@@ -1669,3 +1671,34 @@ def test_ingest_tick_takes_stream_ids_on_the_card(cuda, sharded):
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert sorted(a["stream_id"].tolist()) == [5, 7]
+
+
+@pytest.mark.cuda
+def test_store_over_nccl_ranks_equals_the_stacked_store(cuda, tmp_path):
+    """A world of NCCL ranks, one a card (as many cards as divide the 8
+    shards: one on a one-card machine), spawned under a deadline, runs
+    ``tests/_torch_dist.py``'s scenario on an 8-shard store spread over
+    it; this process runs it on the stacked store on card 0: every row,
+    answer (K1's partials and folds, the engine's, TopK ids, row plans,
+    the compressed merge), standing answer, alert, rebalanced store and
+    tier array bit for bit. The op log's floats lie on a grid of 1/16,
+    so every sum is exact in float32 and K1's atomics cannot move a
+    bit; the answers over the tiers' views, whose dequantized values
+    are off that grid, within 1e-5 (this file's K1 tolerance). A CUDA
+    store refuses a gloo group, a CPU store the NCCL group."""
+    import _torch_dist as TD
+    world = max(w for w in range(1, torch.cuda.device_count() + 1)
+                if TD.SHARDS % w == 0)
+    ops = TD.op_log(grid=16)
+    draws = [np.random.default_rng(i).random((TD.SHARDS,) + shape)
+             .astype(np.float32) for i, (_, shape) in enumerate(TD.COMPRESSED)]
+    want = TD.scenario(None, ops, compressed_draws=draws,
+                       tier_draws=[None, None], device="cuda")
+    ranks, _ = TD.run_world(TD.rank_card, world, tmp_path, device=None,
+                            ops=ops, compressed_draws=draws)
+    TD.same_ranks([r["scenario"] for r in ranks], want, exact_views=False)
+    for r in ranks:
+        assert r["gloo"] == ("a store on cuda needs a nccl group; this "
+                             "group's backend is gloo")
+        assert r["nccl"] == ("a store on cpu needs a gloo group; this "
+                             "group's backend is nccl")

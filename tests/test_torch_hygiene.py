@@ -3,9 +3,10 @@
 - no file under ``src/repro_torch/`` and no line of ``chip_smoke.py``,
   of the chip scripts (``scripts/chip_ablate.py``,
   ``scripts/chip_compare.py``, ``scripts/chip_profile.py``,
-  ``scripts/chip_examples.py``) or of the
-  port's examples (``examples/*_torch.py``) imports JAX or anything of
-  the reference package ``repro``;
+  ``scripts/chip_examples.py``), of the
+  port's examples (``examples/*_torch.py``) or of the distributed tests'
+  rank helper (``tests/_torch_dist.py``, which spawned ranks import)
+  imports JAX or anything of the reference package ``repro``;
 - importing the port builds nothing (no compiler runs at import);
 - every entry point defaults to CUDA and raises when there is none
   (the multi-stream run, the serving pool, the cold tier, the sharded
@@ -70,7 +71,8 @@ def test_port_imports_no_jax_and_no_reference():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "chip_ablate.py",
         ROOT / "scripts" / "chip_compare.py",
         ROOT / "scripts" / "chip_profile.py",
-        ROOT / "scripts" / "chip_examples.py"] + sorted(
+        ROOT / "scripts" / "chip_examples.py",
+        ROOT / "tests" / "_torch_dist.py"] + sorted(
         (ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 15
     assert len(list((ROOT / "examples").glob("*_torch.py"))) == 8
@@ -401,6 +403,20 @@ def test_sharded_warehouse_entry_points_raise_without_cuda(monkeypatch,
         load_warehouse(path)
     with pytest.raises(RuntimeError, match="CUDA"):
         ckpt.restore(str(tmp_path / "c.rsk"))
+
+
+def test_shard_group_defaults_to_cuda_and_raises(monkeypatch):
+    """``init_shard_group`` takes a card (and NCCL) unless the CPU is
+    asked for by name; without a card it raises before it joins any
+    group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import BACKENDS, init_shard_group
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_shard_group(init_method="tcp://localhost:1", rank=0,
+                         world_size=1)
+    assert not dist.is_initialized()
+    assert BACKENDS == {"cuda": "nccl", "cpu": "gloo"}
 
 
 def test_windowed_attention_on_cpu_takes_the_plain_version():
