@@ -372,6 +372,27 @@ script fails before it prints a result.
               plan's ms (median of 5), rebalance and spill seconds, K1's
               launches and the bytes gathered per plan per rank, peak
               memory, and the card's name and power limit.
+12e. train_dist  training across cards: one NCCL rank per visible card
+              (as many as divide the global batch of 4 rows; one on a
+              one-card machine), spawned under a deadline, each loading
+              the K3 and K4 libraries the build phase made, laying the
+              world out as (world, 1) over ("data", "model") and keeping
+              its blocks of the train state (ZeRO-3 over "data"); its
+              rows of each global batch through the launcher's step with
+              ``mesh=`` (each leaf gathered at use a layer at a time, the
+              gradients reduce-scattered), K3's and K4's counts set to 0
+              just before each part's steps and read just after. (a)
+              llama3-8b at its published width cut to 4 of 32 layers
+              (1.9B parameters), float32, 3 steps at 4 x 2,048 tokens
+              from CPU draws, then the same steps without a mesh on each
+              card from the same draws; (b) with four cards, llama3-8b at
+              full depth (8.03B parameters, 128 GB of float32 state),
+              each leaf drawn on the card and cut; on fewer cards it
+              prints that it is skipped and why; (c) mamba2-370m cut to 4
+              of 48 layers, as (a), K4 both ways. Prints each part's
+              losses, seconds a step (the first apart), tokens per
+              second, peak memory and bytes gathered and reduced a step
+              per rank, and the launches per rank.
 13. tiers     the main store in a ``TieredStore``, all but the newest
               camera-day spilled to int8; the main plans over the
               two-tier view through K1, against the float64 oracle of
@@ -462,12 +483,26 @@ largest magnitude (``TRAIN_GRAD_TOL``: both kernels' float32 sums over
 the plain-SSD step and hymba's against both plain versions; the reduced
 families on the card against the CPU within 1e-5 (the CPU parity
 tests' tolerance of ``Model.loss``).
+Training across cards: at one rank every collective is the identity,
+so the sharded steps equal the steps without a mesh bit for bit (the
+losses, the norms, every param and both AdamW moments); at more, the
+losses and norms within 1e-5 relative (``TRAIN_LOSS_TOL``: the
+gradients' float32 sums over W partial batches in another order, and
+cuBLAS's products over fewer rows), every rank's blocks of the AdamW
+moments within 1e-3 of each leaf's largest magnitude for m and 2e-3 for
+v (``DIST_MOMENT_TOL``: m is linear in the steps' gradients and v in
+their squares, so a gradient block summed or placed wrongly shows
+there), and every param within one float32 ulp of its leaf's largest
+magnitude an update plus the sum over the updates of ``_update_bound``:
+how far an AdamW step may move when the moments are within their
+tolerances.
 """
 from __future__ import annotations
 
 import gc
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -563,6 +598,18 @@ POOL_SHARDS = 4                     # the pool's sharded sink
 CKPT_DAYS = 8                       # camera-days in the saved warehouse
 DIST_TIMEOUT = 120                  # s a collective of the dist phase waits
 DIST_DEADLINE = 300                 # s before its world of ranks is killed
+# llama3-8b's batch, 4 of its 32 layers, the launcher's default peak rate
+TRAIN_DIST = dict(batch=4, seq=2048, steps=3, layers=4, lr=3e-4)
+TRAIN_DIST_FULL = 4                 # ranks part (b) needs (128 GB of state)
+# of a leaf's largest |m| (twice that for v, the gradients' squares): a
+# gradient's float32 sum over the batch's 8,192 tokens in another order
+# (W partial sums added by the collectives) may move by up to 8,192 x
+# 2^-24 = 4.9e-4 of its terms' sum of magnitudes, above the sum itself
+# where they cancel, and cuBLAS's products over fewer rows add their own
+# (TRAIN_GRAD_TOL's reasoning); the CPU tests' 1e-5 at reduced size is
+# not enough at full width (mamba2's m at four cards: 1.6e-5)
+DIST_MOMENT_TOL = 1e-3
+TRAIN_DIST_DEADLINE = 900           # s before the train_dist world is killed
 
 
 def emit(phase: str, **fields) -> None:
@@ -4369,11 +4416,11 @@ def _cold_digests(tiered):
             for j, s in enumerate(tiered.shards)}
 
 
-def _dist_world() -> int:
+def _dist_world(n_split: int = SHARDS) -> int:
     """One rank per visible card: the most cards, at least one, whose
-    count divides the shards."""
+    count divides ``n_split`` (the shards, or a global batch's rows)."""
     n = torch.cuda.device_count()
-    return max(w for w in range(1, n + 1) if SHARDS % w == 0)
+    return max(w for w in range(1, n + 1) if n_split % w == 0)
 
 
 def _dist_rank(rank, world, tmp, T):
@@ -4619,6 +4666,333 @@ def phase_dist(m, sd, smi):
          telemetry=got["telemetry"], nvidia_smi=smi)
     return {"launches": sum(g["launches"]["folds"] + g["launches"]["queries"]
                             + g["launches"]["tier"] for g in ranks)}
+
+
+def _train_dist_rank(rank, world, tmp):
+    """One rank of the ``train_dist`` phase, in its own process
+    (spawned): it joins the NCCL group through a file under ``tmp``,
+    runs the phase's parts on its card and writes what it saw to
+    ``tmp/rank<r>.pt``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_shard_group
+    tmp = Path(tmp)
+    dev = init_shard_group(init_method=f"file://{tmp / 'pg_init'}",
+                           rank=rank, world_size=world,
+                           timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    try:
+        torch.save(_train_dist_drive(dev, world), tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_dist_drive(dev, world):
+    """Parts (a) and (c) on every machine, (b) with TRAIN_DIST_FULL ranks
+    or more."""
+    import dataclasses
+    import datetime
+    from repro_torch.configs.base import get
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, dev, datetime.timedelta(seconds=DIST_TIMEOUT))
+    llama, mamba = get("llama3-8b"), get("mamba2-370m")
+    cut = TRAIN_DIST["layers"]
+    out = {"rank": mesh.rank, "shape": list(mesh.devices.shape)}
+    out["a"] = _dist_part(mesh, dataclasses.replace(llama, n_layers=cut),
+                          TRAIN_DIST["batch"], {"k3": FA}, compare=True)
+    out["c"] = _dist_part(mesh, dataclasses.replace(mamba, n_layers=cut),
+                          TRAIN_SSM, {"k4": SSD}, compare=True)
+    if world >= TRAIN_DIST_FULL:
+        out["b"] = _dist_part(mesh, llama, TRAIN_DIST["batch"], {"k3": FA},
+                              compare=False)
+    return out
+
+
+def _dist_part(mesh, cfg, batch, kernels, *, compare):
+    """``TRAIN_DIST["steps"]`` sharded steps of the launcher's step on
+    ``cfg`` at ``batch`` x 2,048 tokens over ``mesh``, this rank's rows,
+    the counts of ``kernels`` set to 0 just before the steps and read
+    just after. With ``compare`` the weights are drawn on the CPU (seed
+    0) and the same steps run after without a mesh on this card, from the
+    same draws: the losses, norms and this rank's blocks of the params
+    and the AdamW moments are compared (``_dist_compare``). Without it each leaf is drawn whole
+    on the card (``torch.Generator("cuda")``, seed 0: other draws than the
+    CPU's) and this rank keeps its block."""
+    from repro_torch.data.tokens import local_rows, make_batch_iter
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import adamw_init, leaves
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    dev, steps, seq = mesh.device, TRAIN_DIST["steps"], TRAIN_DIST["seq"]
+    model = Model(cfg, LT.train_options(seq))
+    axes = model.batch_axes(mesh)
+    rows = torch.as_tensor(local_rows(batch, mesh.index(axes),
+                                      mesh.axis_size(axes)), device=dev)
+    it = make_batch_iter(cfg, global_batch=batch, seq_len=seq, seed=0,
+                         device=dev)
+    batches = [next(it) for _ in range(steps)]
+    t0 = time.perf_counter()
+    if compare:
+        full = model.init(torch.Generator().manual_seed(0), "cpu")
+        params = shd.shard_tree(full, model.param_shardings(mesh))
+        state = {"params": params, "opt": adamw_init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    else:
+        state = init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0), dev, mesh)
+    sync()
+    init_s = time.perf_counter() - t0
+    step_fn = make_train_step(model, peak_lr=TRAIN_DIST["lr"],
+                              warmup=LT.WARMUP, total_steps=steps,
+                              mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.LAUNCHES = k.BWD_LAUNCHES = 0
+    metrics, secs = [], []
+    for b in batches:
+        rb = {k: v.index_select(0, rows) for k, v in b.items()}
+        (state, met), sec = timed(lambda: _train_step(step_fn, state, rb))
+        metrics.append(met)
+        secs.append(sec)
+    launches = {n: [k.LAUNCHES, k.BWD_LAUNCHES] for n, k in kernels.items()}
+    run = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "rows": len(rows), "params": _n_params(full)
+           if compare else None, "init_s": init_s, "metrics": metrics,
+           "step_s": secs, "launches": launches,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "bytes_per_step": {k: v / steps
+                              for k, v in step_fn.layout.bytes.items()},
+           "local_param_bytes": sum(x.numel() * x.element_size()
+                                    for x in leaves(state["params"]))}
+    mine = ({k: [x.cpu() for x in leaves(t)] for k, t in (
+        ("params", state["params"]), ("m", state["opt"]["m"]),
+        ("v", state["opt"]["v"]))} if compare else None)
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    if compare:
+        run["plain"] = _dist_compare(model, mesh, full, batches, mine)
+    return run
+
+
+def _update_bound(m, v, count, lr):
+    """Per element, how far one AdamW update (b1 0.9, b2 0.95, eps 1e-8)
+    at rate ``lr`` may move from this one when the moments, ``m`` and
+    ``v`` after step ``count``, are within DIST_MOMENT_TOL and twice that
+    of their leaf's largest magnitude: the update is p - lr (s + wd p), s = m^ /
+    (sqrt(v^) + eps) with m^ and v^ the moments over their bias
+    corrections bc1 and bc2, so s moves by at most (t_m / bc1 + |m^|
+    sqrt(t_v / bc2) / d) / d, d = max(sqrt(v^) - sqrt(t_v / bc2), 0) +
+    eps (the CPU tests' ``update_bound``). Where sqrt(v^) is about eps (a
+    gradient of 1e-8) this allows about lr: there the step follows the
+    gradient's size, which sums in another order move by a large
+    share."""
+    bc1, bc2 = 1 - 0.9 ** count, 1 - 0.95 ** count
+    t_m = DIST_MOMENT_TOL * float(m.abs().max()) / bc1
+    t_s = math.sqrt(2 * DIST_MOMENT_TOL * float(v.abs().max()) / bc2)
+    d = (torch.sqrt(v / bc2) - t_s).clamp_min(0.0) + 1e-8
+    return lr * (t_m + (m / bc1).abs() * t_s / d) / d
+
+
+def _dist_compare(model, mesh, full, batches, mine):
+    """The same steps without a mesh on this card from the CPU draws
+    ``full``, and this rank's blocks of their params and moments held
+    against the sharded run's (``mine``: ``leaves`` order each, on the
+    host), leaf by leaf on the card: bit for bit, each leaf's largest
+    error and, with more than one rank, each kind's largest error over
+    its tolerance (DIST_MOMENT_TOL of the leaf's largest magnitude for m,
+    twice that for v; for the params one float32 ulp of the leaf's
+    largest magnitude a step, their rounding, plus the sum of
+    ``_update_bound`` over the steps, this rank's block of it summed on the host as the steps
+    run: a whole leaf's sum on the card would not fit beside the step at
+    one rank, where the check is bit for bit alone)."""
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch import train as LT
+    from repro_torch.optim.adamw import adamw_init, leaves, tree_map
+    from repro_torch.runtime.steps import make_train_step
+    dev, held = mesh.device, mesh.size > 1
+    params = tree_map(lambda x: x.to(dev), full)
+    state = {"params": params, "opt": adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step_fn = make_train_step(model, peak_lr=TRAIN_DIST["lr"],
+                              warmup=LT.WARMUP,
+                              total_steps=TRAIN_DIST["steps"])
+    metrics = []
+    specs = shd.tree_leaves(model.param_specs(mesh))
+    bound = [torch.zeros(x.shape) for x in mine["params"]] if held else None
+    for t, b in enumerate(batches, 1):
+        state, met = _train_step(step_fn, state, b)
+        metrics.append(met)
+        if held:
+            with torch.no_grad():
+                for acc, spec, m, v in zip(bound, specs,
+                                           leaves(state["opt"]["m"]),
+                                           leaves(state["opt"]["v"])):
+                    acc += shd.shard_tensor(
+                        _update_bound(m, v, t, met["lr"]), spec,
+                        mesh).cpu()
+            torch.cuda.empty_cache()
+    want = {"params": leaves(state["params"]), "m": leaves(state["opt"]["m"]),
+            "v": leaves(state["opt"]["v"])}
+    same, errs = True, {}
+    worst = {k: 0.0 for k in want} if held else None
+    for kind, xs in want.items():
+        errs[kind] = []
+        for i, (x, spec, got) in enumerate(zip(xs, specs, mine[kind])):
+            block, got = shd.shard_tensor(x, spec, mesh), got.to(dev)
+            same = same and torch.equal(got.view(torch.uint8),
+                                        block.view(torch.uint8))
+            err = (got - block).abs()
+            errs[kind].append(float(err.max()))
+            if held:
+                top = float(x.abs().max())
+                tol = max({"m": DIST_MOMENT_TOL * top,
+                           "v": 2 * DIST_MOMENT_TOL * top,
+                           "params": len(batches) * 2.0 ** -23 * top}[kind],
+                          1e-30)
+                if kind == "params":
+                    tol = bound[i].to(dev) + tol
+                worst[kind] = max(worst[kind], float((err / tol).max()))
+            del block, got, err
+    del state, step_fn, params, bound, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "bit_equal": same, "abs_err": errs,
+            "err_over_tol": worst}
+
+
+def _held_dist(what, world, runs):
+    """A part's runs on every rank: the same metrics on every rank, K3 or
+    K4 launched once per layer and step both ways, finite losses; against
+    the steps without a mesh, bit for bit at one rank (metrics, params
+    and moments), else the losses and norms within TRAIN_LOSS_TOL
+    relative and every rank's params and moments within their
+    tolerances (``_dist_compare``). Returns the part's summary."""
+    first = runs[0]
+    per = first["layers"] * TRAIN_DIST["steps"]
+    for r, run in enumerate(runs):
+        if run["metrics"] != first["metrics"] or any(
+                v != [per, per] for v in run["launches"].values()) \
+                or not all(np.isfinite(m["loss"]) for m in run["metrics"]):
+            raise AssertionError(f"train_dist {what}: rank {r}: metrics "
+                                 f"{run['metrics']}, launches "
+                                 f"{run['launches']} (want {per} each way)")
+    out = {"arch": first["arch"], "layers": first["layers"],
+           "batch": first["batch"], "seq": first["seq"],
+           "rows_per_rank": first["rows"], "params": first["params"],
+           "losses": [m["loss"] for m in first["metrics"]],
+           "gnorms": [m["gnorm"] for m in first["metrics"]],
+           "lrs": [m["lr"] for m in first["metrics"]],
+           "init_s": [r["init_s"] for r in runs],
+           "step_s": [r["step_s"] for r in runs],
+           "step_s_median": statistics.median(
+               [s for r in runs for s in r["step_s"][1:]]),
+           "peak_mem_bytes": [r["peak_mem_bytes"] for r in runs],
+           "local_param_bytes": [r["local_param_bytes"] for r in runs],
+           "bytes_per_step": [r["bytes_per_step"] for r in runs],
+           "launches": [r["launches"] for r in runs]}
+    out["tok_per_s"] = (first["batch"] * first["seq"]
+                        / out["step_s_median"])
+    if "plain" not in first:
+        return out
+    plain = first["plain"]["metrics"]
+    rel = max(abs(m[k] - p[k]) / abs(p[k]) for m, p in
+              zip(first["metrics"], plain) for k in ("loss", "gnorm"))
+    worst = ({k: max(r["plain"]["err_over_tol"][k] for r in runs)
+              for k in ("params", "m", "v")} if world > 1 else None)
+    err = {k: max(e for r in runs for e in r["plain"]["abs_err"][k])
+           for k in ("params", "m", "v")}
+    bit = all(r["plain"]["bit_equal"] for r in runs) and \
+        first["metrics"] == plain
+    if (world == 1 and not bit) or rel > TRAIN_LOSS_TOL or \
+            (worst and max(worst.values()) > 1.0):
+        raise AssertionError(f"train_dist {what} vs the steps without a "
+                             f"mesh: bit-equal {bit}, metrics rel {rel}, "
+                             f"largest error over its tolerance {worst}, "
+                             f"abs {err}")
+    out.update(plain_losses=[m["loss"] for m in plain], bit_equal=bit,
+               metrics_rel_err=rel, tol=TRAIN_LOSS_TOL,
+               moment_tol=DIST_MOMENT_TOL, abs_err=err, err_over_tol=worst)
+    return out
+
+
+def phase_train_dist(smi):
+    """Training across cards: one NCCL rank per visible card
+    (``_dist_world``: as many as divide the global batch of 4 rows),
+    spawned under a deadline, each loading the K3 and K4 libraries the
+    build phase made. Each rank lays the world out as (world, 1) over
+    ``("data", "model")`` (``make_host_mesh``), keeps its blocks of the
+    train state (ZeRO-3 over ``"data"``) and runs its rows of each
+    global batch through the launcher's step with ``mesh=``; the kernels'
+    counts are set to 0 just before each part's steps and read just
+    after.
+
+    (a) llama3-8b at its published width (d_model 4,096, 32 heads over 8
+        kv heads of 128, d_ff 14,336, vocab 128,256) cut to 4 of its 32
+        layers (1.9B parameters), float32, weights drawn on the CPU from
+        seed 0, 3 steps at 4 x 2,048 tokens at the launcher's default
+        peak rate of 3e-4; then the same steps without a mesh on each
+        rank's card from the same draws. K3 once per layer and step both
+        ways on every rank.
+    (b) with 4 or more cards: all 32 layers (8.03B parameters, 128 GB of
+        float32 parameters, gradients and moments: more than one card
+        holds), each leaf drawn on the card and cut, 3 steps; on fewer
+        cards it prints that it is skipped and why.
+    (c) mamba2-370m at its published width cut to 4 of 48 layers, 3 steps
+        at 4 x 2,048 tokens against the steps without a mesh, K4 once per
+        layer and step both ways.
+
+    Held: every rank's losses and norms the same; at one rank the sharded
+    steps bit for bit the steps without a mesh (losses, norms, every
+    param and moment); at more, the losses and norms within
+    TRAIN_LOSS_TOL relative and every rank's blocks of the moments and
+    params within their tolerances (``_dist_compare``). Prints each part's
+    losses, seconds a step (the first apart), tokens per second, peak
+    memory, bytes gathered and reduced per step, and the launches per
+    rank; the card's name and power limit."""
+    import shutil
+    from repro_torch.launch.mesh import spawn_world
+    t_phase = time.perf_counter()
+    world = _dist_world(TRAIN_DIST["batch"])
+    tmp = ROOT / "build" / "chip_smoke_train_dist"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    _, spawn_s = timed(lambda: spawn_world(
+        _train_dist_rank, world, (world, str(tmp)),
+        deadline=TRAIN_DIST_DEADLINE))
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    shutil.rmtree(tmp)
+    parts, misses = {}, []
+    for p in ("a", "c", "b"):
+        if p not in ranks[0]:
+            continue
+        try:
+            parts[p] = _held_dist(p, world, [g[p] for g in ranks])
+        except AssertionError as e:     # raised below, after the line
+            misses.append(str(e))
+            parts[p] = {"miss": str(e)}
+    if world < TRAIN_DIST_FULL:
+        parts["b"] = {"skipped": (
+            f"{world} card(s): llama3-8b's 32 layers hold 8.03B parameters, "
+            "128 GB of float32 parameters, gradients and AdamW moments; "
+            f"the part needs {TRAIN_DIST_FULL} cards (32 GB of state each)")}
+        print(f"train_dist (b): skipped, {parts['b']['skipped']}",
+              flush=True)
+    emit("train_dist", world=world, backend="nccl",
+         mesh=ranks[0]["shape"], spawn_s=spawn_s,
+         phase_s=time.perf_counter() - t_phase, parts=parts,
+         nvidia_smi=smi)
+    if misses:
+        raise AssertionError("; ".join(misses))
+    k3 = [sum(g[p]["launches"]["k3"][i] for g in ranks
+              for p in ("a", "b") if p in g) for i in (0, 1)]
+    k4 = [sum(g["c"]["launches"]["k4"][i] for g in ranks) for i in (0, 1)]
+    return {"k3_fwd": k3[0], "k3_bwd": k3[1], "k4_fwd": k4[0],
+            "k4_bwd": k4[1]}
 
 
 def time_shards(store, plans, host):
@@ -5028,6 +5402,7 @@ def run(dev) -> None:
     sd = phase_sharded(dev, m, mm, pp)
     gc.collect()            # its stores and registries refer to each other
     phase_dist(m, sd, smi)
+    td = phase_train_dist(smi)
     tt = phase_tiers(m)
     many = phase_time_many(mm, pp, tt)
     phase_obs(dev)
@@ -5071,7 +5446,7 @@ def run(dev) -> None:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:67",
         "launches": (t["launches"]["flash_attention"] + sv["launches"]
-                     + tr["fwd_launches"]),
+                     + tr["fwd_launches"] + td["k3_fwd"]),
         "max_abs_err": k3_err,
         "ms": k3["kernel_ms"],
         "plain_ms": k3["plain_ms"],
@@ -5083,7 +5458,7 @@ def run(dev) -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd.py:63",
-        "launches": ss["launches"] + tssm["fwd_launches"],
+        "launches": ss["launches"] + tssm["fwd_launches"] + td["k4_fwd"],
         "max_abs_err": k4_err,
         "ms": k4["kernel_ms"],
         "plain_ms": k4["plain_ms"],
@@ -5096,7 +5471,7 @@ def run(dev) -> None:
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": ("XLA's gradient of src/repro/models/attention.py:50 "
                      "(no Pallas kernel)"),
-        "launches": tr["bwd_launches"],
+        "launches": tr["bwd_launches"] + td["k3_bwd"],
         "max_abs_err": k3b_err,
         "ms": k3b["kernel_ms"],
         "plain_ms": k3b["plain_ms"],
@@ -5117,7 +5492,7 @@ def run(dev) -> None:
         "bound_by": k4b[shape]["bound_by"],
         "library_ms": k4b[shape]["library_ms"],
     } for suffix, shape, launches in (
-        ("", "mamba2_train", tssm["bwd_launches"]),
+        ("", "mamba2_train", tssm["bwd_launches"] + td["k4_bwd"]),
         ("[hymba-1.5b]", "hymba_train", thyb["k4_bwd"]))] + [{
         "name": f"flash_attention[hymba-1.5b {kind}]",
         "route": "cuda",

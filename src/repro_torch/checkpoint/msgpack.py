@@ -6,7 +6,10 @@ width, float (float64), bool, None and arrays (list, tuple), each in the
 smallest encoding that holds it, so a checkpoint the port saves is byte
 for byte the reference's. ``unpackb`` reads those types back (str keys
 and values as ``str``, bin as ``bytes``, arrays as lists), plus float32;
-anything else raises ``ValueError``.
+anything else raises ``ValueError``. ``map_header`` and ``bin_header``
+write the heads of a map and a bin alone, and ``StreamReader`` reads
+from a source of bytes in order, so a checkpoint streams one entry at a
+time both ways.
 """
 from __future__ import annotations
 
@@ -69,19 +72,33 @@ def _pack(out: bytearray, obj) -> None:
         out += raw
     elif isinstance(obj, (bytes, bytearray, memoryview)):
         raw = bytes(obj)
-        _head(out, len(raw), None, 0, (0xC4, 0xC5, 0xC6))
+        out += bin_header(len(raw))
         out += raw
     elif isinstance(obj, (list, tuple)):
         _head(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
         for v in obj:
             _pack(out, v)
     elif isinstance(obj, dict):
-        _head(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        out += map_header(len(obj))
         for k, v in obj.items():
             _pack(out, k)
             _pack(out, v)
     else:
         raise ValueError(f"cannot pack {type(obj).__name__}")
+
+
+def map_header(n: int) -> bytes:
+    """The head of a map of ``n`` pairs (its pairs follow it)."""
+    out = bytearray()
+    _head(out, n, 0x80, 16, (None, 0xDE, 0xDF))
+    return bytes(out)
+
+
+def bin_header(n: int) -> bytes:
+    """The head of a bin of ``n`` bytes (its bytes follow it)."""
+    out = bytearray()
+    _head(out, n, None, 0, (0xC4, 0xC5, 0xC6))
+    return bytes(out)
 
 
 def packb(obj) -> bytes:
@@ -138,12 +155,29 @@ class _Reader:
             return [self.obj() for _ in range(n)]
         return self.map(n)
 
+    def map_len(self) -> int:
+        """The length of the map whose head comes next."""
+        b = self.num(">B")
+        if b & 0xF0 == 0x80:
+            return b & 0x0F
+        if b in (0xDE, 0xDF):
+            return self.num(">H" if b == 0xDE else ">I")
+        raise ValueError(f"msgpack type byte 0x{b:02x} is not a map's")
+
     def map(self, n: int) -> dict:
         out = {}
         for _ in range(n):
             k = self.obj()
             out[k] = self.obj()
         return out
+
+
+class StreamReader(_Reader):
+    """A ``_Reader`` over a source: ``take(n)`` gives its next ``n``
+    bytes (a bin comes back as that, a ``bytearray``)."""
+
+    def __init__(self, take):
+        self.take = take
 
 
 def unpackb(buf: bytes):

@@ -25,15 +25,30 @@ rank's blocks of fixed shapes, concatenated in rank order, so the
 shards' pieces arrive in shard order and every rank merges them as the
 stacked store does.
 
-The helpers for ``make_production_mesh`` / ``make_host_mesh`` belong to
-training across cards and are not here.
+Training lays its ranks out as the reference lays devices: a
+``MeshShape`` is the layout alone, the ranks in ``np.reshape`` order
+over named axes (``("data", "model")`` or ``("pod", "data", "model")``),
+usable without a world (the production meshes' specs are computed on
+the CPU from ``production_shape``). A ``TrainMesh`` is a layout over
+this world's ranks: this rank's device and place on it, and a group for
+every set of axes larger than one rank (the port's counterpart of
+``make_mesh_compat``'s mesh; the gathers of a spec entry such as
+``("pod", "data")`` need a group over both axes, which a per-axis
+``DeviceMesh`` does not give). ``make_host_mesh`` lays the world out
+as (world / model, model), ``make_production_mesh`` as the reference's
+(16, 16) or (2, 16, 16); a mesh that needs more ranks than the world has
+raises, naming both.
 """
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import os
 import time
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -159,3 +174,160 @@ def spawn_world(fn: Callable, nprocs: int, args: tuple = (), *,
                 p.join(timeout=10)
             raise TimeoutError(f"{nprocs} ranks still running after "
                                f"{deadline} s; killed")
+
+
+# ---------------------------------------------------------------------------
+# training meshes
+# ---------------------------------------------------------------------------
+class MeshShape:
+    """Ranks laid out over named axes: ``devices`` holds them in
+    ``np.reshape`` order of ``shape`` (the ranks ``0 .. n - 1`` unless
+    given), as the reference's ``Mesh`` holds devices. ``shape`` maps
+    each axis name to its size, as ``Mesh.shape`` does."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 devices: Sequence[int] = None):
+        shape, names = tuple(int(n) for n in shape), tuple(axis_names)
+        if len(shape) != len(names):
+            raise ValueError(f"a mesh of shape {shape} needs "
+                             f"{len(shape)} axis names, not {names}")
+        n = math.prod(shape)
+        ranks = np.arange(n) if devices is None else np.asarray(devices)
+        if ranks.size != n:
+            raise ValueError(f"a {shape} mesh needs {n} ranks, not "
+                             f"{ranks.size}")
+        self.devices = ranks.reshape(shape)
+        self.axis_names = names
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    def axis_size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """The place of ``rank`` on the mesh, axis by axis."""
+        at = np.argwhere(self.devices == rank)
+        if not len(at):
+            raise ValueError(f"rank {rank} is not on this mesh")
+        return dict(zip(self.axis_names, (int(i) for i in at[0])))
+
+    def __repr__(self):
+        return (f"{type(self).__name__}({self.devices.shape}, "
+                f"{self.axis_names})")
+
+
+class TrainMesh(MeshShape):
+    """A ``MeshShape`` over this world: ``device`` is this rank's
+    (``None`` means CUDA, the card ``init_shard_group`` chose; ``"cpu"``
+    asked for by name), ``rank`` its global rank. Every rank of the world
+    must build it alike (each group is made by every rank); ``timeout``
+    bounds every collective of its groups, as ``init_shard_group``'s
+    bounds the world's. Raises ``ValueError`` when the layout needs more
+    ranks than the world has, and when the world's backend does not fit
+    the device."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 devices: Sequence[int] = None, device=None,
+                 timeout: datetime.timedelta = TIMEOUT):
+        dev = resolve(device)
+        super().__init__(shape, axis_names, devices)
+        if not dist.is_initialized():
+            raise RuntimeError("a training mesh needs a world: join one "
+                               "first (init_shard_group)")
+        world = dist.get_world_size()
+        if self.size > world or int(self.devices.max()) >= world:
+            raise ValueError(f"a {tuple(self.devices.shape)} mesh over "
+                             f"{self.axis_names} needs {self.size} ranks; "
+                             f"the world has {world}")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        check_backend(dist.group.WORLD, dev)
+        self.device = dev
+        self.rank = dist.get_rank()
+        self._at = (self.coords(self.rank)
+                    if self.rank in self.devices else None)
+        self._groups = {}
+        names = self.axis_names
+        for k in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, k):
+                if self.axis_size(axes) == 1:
+                    continue
+                rest = [a for a in names if a not in axes]
+                # one group per place on the other axes, ranks in
+                # row-major order over ``axes``
+                for fixed in itertools.product(
+                        *(range(self.shape[a]) for a in rest)):
+                    pick = tuple(
+                        fixed[rest.index(a)] if a in rest else slice(None)
+                        for a in names)
+                    ranks = [int(r) for r in self.devices[pick].reshape(-1)]
+                    if ranks != sorted(ranks):
+                        raise ValueError(f"the ranks of a mesh must rise "
+                                         f"along every axis: {ranks}")
+                    g = dist.new_group(ranks, timeout=timeout)
+                    if self.rank in ranks:
+                        self._groups[axes] = g
+
+    def group(self, axes: Sequence[str]):
+        """This rank's group over ``axes`` (in the mesh's axis order), or
+        None when they hold one rank."""
+        axes = tuple(axes)
+        if [a for a in self.axis_names if a in axes] != list(axes):
+            raise ValueError(f"axes {axes} are not in the mesh's order "
+                             f"{self.axis_names}")
+        if self.axis_size(axes) == 1:
+            return None
+        return self._groups[axes]
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's block along ``axes``: its coordinates over them,
+        row-major (the first axis the slowest), as a ``PartitionSpec``
+        entry of several axes numbers its blocks."""
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self._at[a]
+        return i
+
+
+def make_train_mesh(layout: MeshShape, device=None,
+                    timeout: datetime.timedelta = TIMEOUT) -> TrainMesh:
+    """``layout`` over this world (``TrainMesh``)."""
+    return TrainMesh(layout.devices.shape, layout.axis_names,
+                     layout.devices.reshape(-1), device, timeout)
+
+
+def make_host_mesh(model_axis: int = 1, device=None,
+                   timeout: datetime.timedelta = TIMEOUT) -> TrainMesh:
+    """The world laid out as (world / model_axis, model_axis) over
+    ``("data", "model")``. Raises ``ValueError`` when the world does not
+    divide by ``model_axis`` (the reference's host mesh shrinks the model
+    axis to the devices it finds instead)."""
+    dev = resolve(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if model_axis < 1 or world % model_axis:
+        raise ValueError(f"a world of {world} ranks does not divide by "
+                         f"the model axis {model_axis}")
+    return TrainMesh((world // model_axis, model_axis), ("data", "model"),
+                     device=dev, timeout=timeout)
+
+
+def production_shape(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production layout: (16, 16) over ``("data",
+    "model")``, or (2, 16, 16) over ``("pod", "data", "model")``."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         timeout: datetime.timedelta = TIMEOUT
+                         ) -> TrainMesh:
+    """``production_shape`` over this world (256 or 512 ranks)."""
+    return make_train_mesh(production_shape(multi_pod=multi_pod), device,
+                           timeout)

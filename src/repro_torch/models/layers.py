@@ -1,7 +1,7 @@
 """Common layers: the port of ``repro/models/layers.py`` (norms, MLP
 variants, embeddings, logits and the sinusoidal positions). The
-reference's ``shard(...)`` constraints are identities on one card, so
-they are gone."""
+reference's ``shard(...)`` constraints change no value, so they are gone
+(across cards each rank runs its own rows: ``distribution/sharding.py``)."""
 from __future__ import annotations
 
 import torch

@@ -1,8 +1,10 @@
 """Model facade: init / loss / forward / prefill / decode and the cache, the
 port of ``repro/models/model.py`` for every family of the zoo (the
-encoder-decoder one through ``models/whisper.py``). The reference's
-``input_specs`` and ``batch_shardings`` are XLA and mesh stand-ins with
-no counterpart on one card."""
+encoder-decoder one through ``models/whisper.py``), with the layout of
+its parameters and inputs on a mesh: ``abstract_params`` and
+``input_specs`` (tensors on the ``meta`` device: shapes and dtypes, no
+memory) and the specs and placements of ``distribution/sharding.py``
+(``param_specs``, ``param_shardings``, ``batch_shardings``)."""
 from __future__ import annotations
 
 import math
@@ -11,11 +13,14 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import resolve
+from repro_torch.distribution import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.models import whisper as wp
 from repro_torch.models.options import RunOptions
 from repro_torch.models.transformer import ParamMeta
+from repro_torch.optim.adamw import tree_map
 
 PM = ParamMeta
 WHISPER_ENC_FRAMES = 1500   # cross-attention source length of the cache
@@ -87,7 +92,7 @@ class Model:
             def cast(tree):
                 return {k: cast(v) if isinstance(v, dict) else
                         (PM(v.shape, v.init, self.opts.param_dtype,
-                            v.fan_in_dims)
+                            v.fan_in_dims, v.axes)
                          if len(v.shape) >= 2 and v.dtype == "float32"
                          else v)
                         for k, v in tree.items()}
@@ -103,6 +108,24 @@ class Model:
             _set(params, path, materialize(meta, generator, dev))
         return params
 
+    def abstract_params(self) -> Dict:
+        """The params' shapes and dtypes as tensors on ``meta``."""
+        return tree_map(lambda m: torch.empty(
+            m.shape, dtype=getattr(torch, m.dtype), device="meta"),
+            self.meta())
+
+    def param_specs(self, mesh) -> Dict:
+        return shd.spec_tree(self.meta(), mesh, self.opts.rules())
+
+    def param_shardings(self, mesh) -> Dict:
+        return shd.sharding_tree(self.meta(), mesh, self.opts.rules())
+
+    def batch_axes(self, mesh):
+        """The mesh axes a batch's rows are split over (the ``batch``
+        rule's, as the mesh has them)."""
+        with shd.use_mesh(mesh, self.opts.rules()) as c:
+            return c.physical("batch")
+
     # ----------------------------- steps ---------------------------------
     @staticmethod
     def _tokens(params, tokens):
@@ -113,19 +136,25 @@ class Model:
                                           device=params["embed"].device),
                 "tokens": self._tokens(params, batch["tokens"])}
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, layout=None):
         """The training loss of ``batch`` (the reference's ``Model.loss``):
         ``{"tokens"}``, with ``"embeds"`` for a vlm and ``"frames"`` for
         the encoder-decoder family, arrays or tensors, taken to the
-        params' device. A float32 scalar that autograd differentiates."""
+        params' device. A float32 scalar that autograd differentiates.
+
+        With a ``layout`` (``sharding.StepLayout``) ``params`` are this
+        rank's blocks, gathered at use, and ``batch`` this rank's rows:
+        the result is this rank's share of the global batch's loss (the
+        shares of the ranks over the batch's axes sum to it)."""
         if self.cfg.family == "encdec":
             return wp.loss_fn(params, self.cfg, self.opts,
-                              self._encdec_batch(params, batch))
+                              self._encdec_batch(params, batch),
+                              layout=layout)
         b = {"tokens": self._tokens(params, batch["tokens"])}
         if batch.get("embeds") is not None:
             b["embeds"] = torch.as_tensor(batch["embeds"],
                                           device=params["embed"].device)
-        return tf.lm_loss(params, self.cfg, self.opts, b)
+        return tf.lm_loss(params, self.cfg, self.opts, b, layout=layout)
 
     def forward_logits(self, params, batch):
         if self.cfg.family == "encdec":
@@ -170,25 +199,28 @@ class Model:
         L = cfg.n_layers
         pos = PM((), "zeros", "int32")
         Sc = self.cache_len(seq_len)
-        slot = PM((Sc,), "zeros", "int32")
+        slot = PM((Sc,), "zeros", "int32", axes=(None,))
         kv = PM((L, batch, Sc, cfg.n_kv_heads, cfg.hd), "zeros",
-                self.opts.kv_cache_dtype or cdt)
+                self.opts.kv_cache_dtype or cdt,
+                axes=(None, "batch", "cache_seq", None, None))
 
         def ssm_pm(di):
             s = cfg.ssm
             GN, cw = s.n_groups * s.d_state, s.conv_width - 1
+            conv = (None, "batch", None, "tensor")
             return {
                 "ssm": PM((L, batch, di // s.head_dim, s.head_dim,
-                           s.d_state), "zeros", "float32"),
-                "conv_x": PM((L, batch, cw, di), "zeros", cdt),
-                "conv_b": PM((L, batch, cw, GN), "zeros", cdt),
-                "conv_c": PM((L, batch, cw, GN), "zeros", cdt)}
+                           s.d_state), "zeros", "float32",
+                          axes=(None, "batch", "tensor", None, None)),
+                "conv_x": PM((L, batch, cw, di), "zeros", cdt, axes=conv),
+                "conv_b": PM((L, batch, cw, GN), "zeros", cdt, axes=conv),
+                "conv_c": PM((L, batch, cw, GN), "zeros", cdt, axes=conv)}
 
         if cfg.family == "ssm":
             return {"layers": ssm_pm(cfg.d_inner), "pos": pos}
         if cfg.family == "encdec":
             xkv = PM((L, batch, WHISPER_ENC_FRAMES, cfg.n_heads, cfg.hd),
-                     "zeros", cdt)
+                     "zeros", cdt, axes=(None, "batch", None, None, None))
             return {"k": kv, "v": kv, "xk": xkv, "xv": xkv, "pos": pos,
                     "slot_pos": slot}
         layers = {"k": kv, "v": kv}
@@ -204,6 +236,52 @@ class Model:
         for path, meta in _leaves(self.cache_meta(batch, seq_len)):
             _set(cache, path, materialize(meta, None, dev))
         return cache
+
+    # ------------------------- input specs -------------------------------
+    def input_specs(self, shape: ShapeSpec) -> Dict[str, Any]:
+        """Stand-ins on ``meta`` for every step input of ``shape`` and
+        their logical axes: ``{"batch", "axes"}`` for a train or prefill
+        shape; for decode, ``{"cache", "cache_meta", "token",
+        "token_axes"}``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        cdt = getattr(torch, self.opts.compute_dtype)
+
+        def t(*s, dtype=torch.int32):
+            return torch.empty(s, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            if cfg.family == "encdec":
+                return {"batch": {"frames": t(B, S, cfg.d_model, dtype=cdt),
+                                  "tokens": t(B, min(cfg.max_target_len,
+                                                     S))},
+                        "axes": {"frames": ("batch", None, None),
+                                 "tokens": ("batch", None)}}
+            if cfg.frontend_tokens:
+                F = cfg.frontend_tokens
+                return {"batch": {"embeds": t(B, F, cfg.d_model, dtype=cdt),
+                                  "tokens": t(B, S - F)},
+                        "axes": {"embeds": ("batch", None, None),
+                                 "tokens": ("batch", None)}}
+            return {"batch": {"tokens": t(B, S)},
+                    "axes": {"tokens": ("batch", None)}}
+        cm = self.cache_meta(B, S)
+        return {"cache": tree_map(lambda m: t(*m.shape, dtype=getattr(
+                    torch, m.dtype)), cm),
+                "cache_meta": cm, "token": t(B), "token_axes": ("batch",)}
+
+    def batch_shardings(self, shape: ShapeSpec, mesh) -> Dict[str, Any]:
+        """A ``Placement`` for every input of ``input_specs(shape)``."""
+        spec = self.input_specs(shape)
+        rules = self.opts.rules()
+        if shape.kind in ("train", "prefill"):
+            return {k: shd.Placement(mesh, shd.spec_for(
+                        tuple(v.shape), spec["axes"][k], mesh, rules))
+                    for k, v in spec["batch"].items()}
+        return {"cache": shd.sharding_tree(spec["cache_meta"], mesh, rules),
+                "token": shd.Placement(mesh, shd.spec_for(
+                    (shape.global_batch,), spec["token_axes"], mesh,
+                    rules))}
 
 
 def build(arch_name: str, opts: RunOptions = RunOptions(),

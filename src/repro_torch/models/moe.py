@@ -10,7 +10,16 @@ place in a float32 cumsum over the batch row, first choices counted
 before second ones, and a token past an expert's capacity is dropped
 there. The expert products are ``torch.einsum``, as the reference
 computes them outside any kernel. The reference's ``shard`` annotations
-have no counterpart on one card.
+change no value and are not ported (``distribution/sharding.py``).
+
+Across ranks (a ``layout`` whose batch is split over n > 1 ranks) the
+load-balance loss stays the global batch's: a product of means is not
+the mean of the ranks' products, so the token count and the per-expert
+first-choice counts are summed over the batch's ranks first, and each
+rank returns its share, E * sum_e (its probs' sum_e / N) (count_e / N)
+with N the global token count; the shares sum to the global loss and
+their gradients to its gradient. The capacity is per sequence, so the
+dispatch is each rank's own.
 """
 from __future__ import annotations
 
@@ -31,8 +40,8 @@ def route(probs: torch.Tensor, k: int):
 
 
 def moe_ffn(p, x, *, n_experts: int, top_k: int,
-            capacity_factor: float = 1.25,
-            group_size: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+            capacity_factor: float = 1.25, group_size: int = 0,
+            layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d). p: router (d,E), w_gate/w_up (E,d,f), w_down (E,f,d).
     Returns (y (B,S,d) in x's dtype, the float32 aux load-balance loss).
 
@@ -53,8 +62,16 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int,
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
 
     # load-balance aux loss (Switch): E * sum_e fraction_e * prob_e
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    if layout is None or layout.n_batch == 1:
+        me = probs.mean(dim=(0, 1))
+        ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    else:       # this rank's share of the global batch's loss
+        sums = layout.batch_sum(torch.cat([
+            F.one_hot(idx[..., 0], E).float().sum(dim=(0, 1)),
+            torch.full((1,), B * S, dtype=torch.float32,
+                       device=x.device)]))
+        me = probs.sum(dim=(0, 1)) / sums[E]
+        ce = sums[:E] / sums[E]
     aux = E * torch.sum(me * ce)
 
     onehot = F.one_hot(idx, E).float()                          # (B,S,K,E)

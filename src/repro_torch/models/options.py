@@ -1,12 +1,20 @@
 """Runtime options (orthogonal to ``ArchConfig``): the port's copy of
-``repro/models/options.py`` with the fields a one-card run reads, the
-kv cache's dtype, the MoE's capacity factor and token-group size, and
-the training knobs (``remat``, ``microbatches``, ``aux_loss_weight``)
-among them. The reference's
-mesh-only knobs (``moe_sharding``, ``fsdp``, ``rules()`` and the like)
-have no counterpart on one card. Also the stated tolerance of logits at
-the default bfloat16 compute dtype (``bf16_logit_tolerance``, with
-``bf16_boundaries``)."""
+``repro/models/options.py``, the reference's fields but two: the kv
+cache's dtype, the MoE's capacity factor and token-group size, the
+training knobs (``remat``, ``microbatches``, ``aux_loss_weight``) and
+the mesh knobs with ``rules()``, the logical-axis overrides that
+``distribution/sharding.py`` resolves onto a mesh (the train state's
+layout across cards). Also the stated tolerance of logits at the
+default bfloat16 compute dtype (``bf16_logit_tolerance``, with
+``bf16_boundaries``).
+
+Two of the reference's fields are left out, since nothing in the port
+would read them: ``compress_pod_grads`` (read by no step in the
+reference either) and ``seq_shard_activations``, whose only effect
+there is the ``"seq"`` rule of the activations' ``shard()``
+constraints, which the port does not put into its models. Passing
+either raises ``TypeError``; the layout of every parameter, train
+state and batch is the same with or without them."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -24,9 +32,29 @@ class RunOptions:
     kv_chunk: int = 1024           # K3 picks its own tiles
     ssd_chunk: int = 256           # SSD chunk length (K4's Q)
     microbatches: int = 1          # train step: gradient accumulation
+    # MoE sharding: 'tp' = expert d_ff over model (baseline); 'cap' =
+    # capacity dim over model; 'ep' = expert dim over model
+    moe_sharding: str = "tp"
     moe_group: int = 0             # GShard token-group size (0 = whole seq)
+    fsdp: bool = True              # ZeRO-3 params over 'data' (off: pure TP)
+    fsdp_pods: bool = False        # shard params over ('pod','data')
     capacity_factor: float = 1.25  # MoE expert capacity, of K * S / E
     aux_loss_weight: float = 0.01  # the MoE load-balance loss in lm_loss
+
+    def rules(self) -> dict:
+        """The reference's overrides of ``sharding.DEFAULT_RULES``."""
+        r = {"expert": (), "expert_ff": (), "moe_cap": ()}
+        if self.moe_sharding == "ep":
+            r["expert"] = ("model",)
+        elif self.moe_sharding == "cap":
+            r["moe_cap"] = ("model",)
+        else:
+            r["expert_ff"] = ("model",)
+        if not self.fsdp:
+            r["fsdp"] = ()
+        elif self.fsdp_pods:
+            r["fsdp"] = ("pod", "data")
+        return r
 
 
 # one ulp of bfloat16 relative to the value, at most (8 significant bits)

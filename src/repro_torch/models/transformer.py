@@ -43,12 +43,15 @@ PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 @dataclass(frozen=True)
 class ParamMeta:
-    """Shape, init kind and dtype of one parameter (the reference's
-    ``ParamMeta`` without its sharding axes)."""
+    """Shape, init kind, dtype and logical axes of one parameter: the
+    reference's ``ParamMeta`` with ``axes`` (a logical axis or None per
+    dim, resolved onto a mesh by ``distribution/sharding.py``) moved to
+    the last field, so positional calls keep their meaning."""
     shape: Tuple[int, ...]
     init: str = "normal"             # normal | zeros | ones | ssm_a | dt_bias | embed
     dtype: str = "float32"
     fan_in_dims: Tuple[int, ...] = (0,)   # dims contracted at use (scale)
+    axes: Tuple = ()                 # logical axis (or None) per dim
 
 
 PM = ParamMeta
@@ -67,31 +70,31 @@ def check_family(cfg: ArchConfig) -> None:
 def attn_meta(cfg: ArchConfig) -> Dict[str, PM]:
     d, H, G, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     m = {
-        "ln1": PM((d,), "ones"),
-        "wq": PM((d, H * hd)),
-        "wk": PM((d, G * hd)),
-        "wv": PM((d, G * hd)),
-        "wo": PM((H * hd, d)),
+        "ln1": PM((d,), "ones", axes=(None,)),
+        "wq": PM((d, H * hd), axes=("fsdp", "tensor")),
+        "wk": PM((d, G * hd), axes=("fsdp", "tensor")),
+        "wv": PM((d, G * hd), axes=("fsdp", "tensor")),
+        "wo": PM((H * hd, d), axes=("tensor", "fsdp")),
     }
     if cfg.qkv_bias:
-        m["bq"] = PM((H * hd,), "zeros")
-        m["bk"] = PM((G * hd,), "zeros")
-        m["bv"] = PM((G * hd,), "zeros")
+        m["bq"] = PM((H * hd,), "zeros", axes=("tensor",))
+        m["bk"] = PM((G * hd,), "zeros", axes=("tensor",))
+        m["bv"] = PM((G * hd,), "zeros", axes=("tensor",))
     return m
 
 
 def mlp_meta(cfg: ArchConfig) -> Dict[str, PM]:
     d, f = cfg.d_model, cfg.d_ff
-    m = {"ln2": PM((d,), "ones")}
+    m = {"ln2": PM((d,), "ones", axes=(None,))}
     if cfg.mlp == "swiglu":
-        m["w_gate"] = PM((d, f))
-        m["w_up"] = PM((d, f))
+        m["w_gate"] = PM((d, f), axes=("fsdp", "tensor"))
+        m["w_up"] = PM((d, f), axes=("fsdp", "tensor"))
     else:
-        m["w_up"] = PM((d, f))
+        m["w_up"] = PM((d, f), axes=("fsdp", "tensor"))
         if cfg.mlp == "gelu":
-            m["b_up"] = PM((f,), "zeros")
-            m["b_down"] = PM((d,), "zeros")
-    m["w_down"] = PM((f, d))
+            m["b_up"] = PM((f,), "zeros", axes=("tensor",))
+            m["b_down"] = PM((d,), "zeros", axes=(None,))
+    m["w_down"] = PM((f, d), axes=("tensor", "fsdp"))
     return m
 
 
@@ -100,11 +103,14 @@ def moe_meta(cfg: ArchConfig) -> Dict[str, PM]:
     expert's scaled by its own fan-in (dim 1: d, or f for ``w_down``)."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
     return {
-        "ln2": PM((d,), "ones"),
-        "router": PM((d, E)),
-        "w_gate": PM((E, d, f), fan_in_dims=(1,)),
-        "w_up": PM((E, d, f), fan_in_dims=(1,)),
-        "w_down": PM((E, f, d), fan_in_dims=(1,)),
+        "ln2": PM((d,), "ones", axes=(None,)),
+        "router": PM((d, E), axes=("fsdp", None)),
+        "w_gate": PM((E, d, f), fan_in_dims=(1,),
+                     axes=("expert", "fsdp", "expert_ff")),
+        "w_up": PM((E, d, f), fan_in_dims=(1,),
+                   axes=("expert", "fsdp", "expert_ff")),
+        "w_down": PM((E, f, d), fan_in_dims=(1,),
+                     axes=("expert", "expert_ff", "fsdp")),
     }
 
 
@@ -123,25 +129,25 @@ def ssm_meta(cfg: ArchConfig, di: Optional[int] = None,
     H = di // s.head_dim
     GN = s.n_groups * s.d_state
     m = {
-        "wx": PM((d, di)),
-        "wz": PM((d, di)),
-        "wb": PM((d, GN)),
-        "wc": PM((d, GN)),
-        "wdt": PM((d, H)),
-        "dt_bias": PM((H,), "dt_bias"),
-        "A_log": PM((H,), "ssm_a"),
-        "Dskip": PM((H,), "ones"),
-        "conv_wx": PM((s.conv_width, di)),
-        "conv_bx": PM((di,), "zeros"),
-        "conv_wb": PM((s.conv_width, GN)),
-        "conv_bb": PM((GN,), "zeros"),
-        "conv_wc": PM((s.conv_width, GN)),
-        "conv_bc": PM((GN,), "zeros"),
-        "gln": PM((di,), "ones"),
+        "wx": PM((d, di), axes=("fsdp", "tensor")),
+        "wz": PM((d, di), axes=("fsdp", "tensor")),
+        "wb": PM((d, GN), axes=("fsdp", "tensor")),
+        "wc": PM((d, GN), axes=("fsdp", "tensor")),
+        "wdt": PM((d, H), axes=("fsdp", "tensor")),
+        "dt_bias": PM((H,), "dt_bias", axes=(None,)),
+        "A_log": PM((H,), "ssm_a", axes=(None,)),
+        "Dskip": PM((H,), "ones", axes=(None,)),
+        "conv_wx": PM((s.conv_width, di), axes=(None, "tensor")),
+        "conv_bx": PM((di,), "zeros", axes=("tensor",)),
+        "conv_wb": PM((s.conv_width, GN), axes=(None, "tensor")),
+        "conv_bb": PM((GN,), "zeros", axes=("tensor",)),
+        "conv_wc": PM((s.conv_width, GN), axes=(None, "tensor")),
+        "conv_bc": PM((GN,), "zeros", axes=("tensor",)),
+        "gln": PM((di,), "ones", axes=("tensor",)),
     }
     if own_norm:
-        m["ln1"] = PM((d,), "ones")
-        m["wout"] = PM((di, d))
+        m["ln1"] = PM((d,), "ones", axes=(None,))
+        m["wout"] = PM((di, d), axes=("tensor", "fsdp"))
     return m
 
 
@@ -155,29 +161,33 @@ def layer_meta(cfg: ArchConfig) -> Dict[str, PM]:
         di = cfg.n_heads * cfg.hd
         m = {**attn_meta(cfg), **mlp_meta(cfg),
              **ssm_meta(cfg, di=di, own_norm=False)}
-        m["norm_attn"] = PM((di,), "ones")
-        m["norm_ssm"] = PM((di,), "ones")
+        m["norm_attn"] = PM((di,), "ones", axes=("tensor",))
+        m["norm_ssm"] = PM((di,), "ones", axes=("tensor",))
         return m
     return {**attn_meta(cfg), **mlp_meta(cfg)}
 
 
 def _stack(meta, L: int):
-    """Every leaf of the (nested) ``meta`` stacked on a leading L axis."""
+    """Every leaf of the (nested) ``meta`` stacked on a leading L axis,
+    whose logical axis is None."""
     if isinstance(meta, dict):
         return {k: _stack(m, L) for k, m in meta.items()}
     return PM((L,) + meta.shape, meta.init, meta.dtype,
-              tuple(d + 1 for d in meta.fan_in_dims))
+              tuple(d + 1 for d in meta.fan_in_dims),
+              (None,) + tuple(meta.axes))
 
 
 def model_meta(cfg: ArchConfig) -> Dict[str, Any]:
     d = cfg.d_model
     meta: Dict[str, Any] = {
-        "embed": PM((padded_vocab(cfg.vocab), d), "embed"),
-        "final_ln": PM((d,), "ones"),
+        "embed": PM((padded_vocab(cfg.vocab), d), "embed",
+                    axes=("vocab", "fsdp")),
+        "final_ln": PM((d,), "ones", axes=(None,)),
         "layers": _stack(layer_meta(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
-        meta["head"] = PM((d, padded_vocab(cfg.vocab)))
+        meta["head"] = PM((d, padded_vocab(cfg.vocab)),
+                          axes=("fsdp", "vocab"))
     return meta
 
 
@@ -367,15 +377,16 @@ def hybrid_decode(p, x, cfg: ArchConfig, opts: RunOptions, *, window,
     return x
 
 
-def _ffn(p, x, cfg: ArchConfig, opts: RunOptions):
+def _ffn(p, x, cfg: ArchConfig, opts: RunOptions, layout=None):
     """The FFN block with its residual: (x + FFN(norm(x)), the float32 aux
-    loss, 0 without experts)."""
+    loss, 0 without experts; with a ``layout``, this rank's share of the
+    global batch's aux loss, ``moe_ffn``)."""
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
         y, aux = moe_ffn(p, xn, n_experts=cfg.moe.n_experts,
                          top_k=cfg.moe.top_k,
                          capacity_factor=opts.capacity_factor,
-                         group_size=opts.moe_group)
+                         group_size=opts.moe_group, layout=layout)
         return x + y, aux
     return x + mlp(p, xn, cfg.mlp), torch.zeros((), dtype=torch.float32,
                                                  device=x.device)
@@ -396,7 +407,9 @@ def _layer(params, li: int) -> Dict[str, torch.Tensor]:
     return {k: v[li] for k, v in params["layers"].items()}
 
 
-def _block_fwd(lp, x, cfg, opts, *, window, return_cache):
+def _block_fwd(lp, x, cfg, opts, *, window, return_cache, layout=None):
+    if layout is not None:
+        lp = layout.layer(lp)
     if cfg.family == "ssm":
         y, c = ssm_apply(lp, x, cfg, opts, di=cfg.d_inner,
                          return_state=return_cache)
@@ -410,7 +423,7 @@ def _block_fwd(lp, x, cfg, opts, *, window, return_cache):
         y, aux = _ffn(lp, y, cfg, opts)
         return y, {"k": k, "v": v}, aux
     y = attn_apply(lp, x, cfg, opts, window=window)
-    y, aux = _ffn(lp, y, cfg, opts)
+    y, aux = _ffn(lp, y, cfg, opts, layout)
     return y, None, aux
 
 
@@ -465,18 +478,21 @@ def unbind_layers(tree, L: int) -> list:
 
 
 def run_stack(params, x, cfg: ArchConfig, opts: RunOptions, *,
-              return_cache: bool = False):
+              return_cache: bool = False, layout=None):
     """Forward through all layers; returns (x, cache | None, aux) with
     each cache entry (k and v, or the ssm state and conv caches) stacked
     on L. Each layer runs under ``remat(opts.remat)`` when there is no
-    cache to return (training)."""
+    cache to return (training). With a ``layout`` (a train step across
+    ranks) each layer's leaves are this rank's blocks, gathered inside
+    the remat region, so ``remat="full"`` gathers them again in the
+    backward."""
     check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for li, lp in enumerate(unbind_layers(params["layers"], cfg.n_layers)):
         block = functools.partial(_block_fwd, cfg=cfg, opts=opts,
                                   window=_layer_window(cfg, li),
-                                  return_cache=return_cache)
+                                  return_cache=return_cache, layout=layout)
         if not return_cache:
             block = remat(block, opts.remat)
         x, c, a = block(lp, x)
@@ -529,30 +545,39 @@ def _compute_params(params, dtype):
 
 
 def lm_forward(params, cfg: ArchConfig, opts: RunOptions, tokens,
-               embeds=None, *, return_cache: bool = False):
+               embeds=None, *, return_cache: bool = False, layout=None):
     """tokens (B,S) integer; embeds (B,F,d) optional frontend stub output.
-    Returns (logits (B,S,Vp), cache | None, aux)."""
+    Returns (logits (B,S,Vp), cache | None, aux). With a ``layout`` the
+    params are this rank's blocks, gathered at use (``run_stack``)."""
     cdt = getattr(torch, opts.compute_dtype)
     params = _compute_params(params, cdt)
+    if layout is not None:
+        params = layout.top(params)
     x = embed_tokens(params["embed"], tokens).to(cdt)
     if embeds is not None:
         x = torch.cat([embeds.to(cdt), x], dim=1)
-    x, cache, aux = run_stack(params, x, cfg, opts, return_cache=return_cache)
+    x, cache, aux = run_stack(params, x, cfg, opts, return_cache=return_cache,
+                              layout=layout)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return lm_logits(x, _head(params, cfg), cfg.vocab), cache, aux
 
 
-def lm_loss(params, cfg: ArchConfig, opts: RunOptions, batch):
+def lm_loss(params, cfg: ArchConfig, opts: RunOptions, batch, layout=None):
     """The reference's ``lm_loss``: batch {"tokens" (B,S), optional
     "embeds" (B,F,d)}; logit position F+i predicts tokens[:, i+1]; the
     mean cross entropy plus ``opts.aux_loss_weight`` times the MoE aux
-    loss. A float32 scalar."""
+    loss. A float32 scalar. With a ``layout`` whose batch is split over
+    n ranks, this rank's share: its rows' mean over n, plus its share of
+    the global aux loss."""
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
-    logits, _, aux = lm_forward(params, cfg, opts, tokens, embeds)
+    logits, _, aux = lm_forward(params, cfg, opts, tokens, embeds,
+                                layout=layout)
     F_ = 0 if embeds is None else embeds.shape[1]
     S = tokens.shape[1]
     loss = softmax_xent(logits[:, F_:F_ + S - 1], tokens[:, 1:], cfg.vocab)
+    if layout is not None and layout.n_batch > 1:
+        loss = loss / layout.n_batch
     return loss + opts.aux_loss_weight * aux
 
 

@@ -51,20 +51,21 @@ PM = ParamMeta
 # Parameter metadata
 # ===========================================================================
 def _ln_meta(d):
-    return {"w": PM((d,), "ones"), "b": PM((d,), "zeros")}
+    return {"w": PM((d,), "ones", axes=(None,)),
+            "b": PM((d,), "zeros", axes=(None,))}
 
 
 def _attn_meta(cfg: ArchConfig, prefix: str = "") -> Dict[str, Any]:
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
     return {
         prefix + "ln": _ln_meta(d),
-        prefix + "wq": PM((d, H * hd)),
-        prefix + "bq": PM((H * hd,), "zeros"),
-        prefix + "wk": PM((d, H * hd)),
-        prefix + "wv": PM((d, H * hd)),
-        prefix + "bv": PM((H * hd,), "zeros"),
-        prefix + "wo": PM((H * hd, d)),
-        prefix + "bo": PM((d,), "zeros"),
+        prefix + "wq": PM((d, H * hd), axes=("fsdp", "tensor")),
+        prefix + "bq": PM((H * hd,), "zeros", axes=("tensor",)),
+        prefix + "wk": PM((d, H * hd), axes=("fsdp", "tensor")),
+        prefix + "wv": PM((d, H * hd), axes=("fsdp", "tensor")),
+        prefix + "bv": PM((H * hd,), "zeros", axes=("tensor",)),
+        prefix + "wo": PM((H * hd, d), axes=("tensor", "fsdp")),
+        prefix + "bo": PM((d,), "zeros", axes=(None,)),
     }
 
 
@@ -72,10 +73,10 @@ def _mlp_meta(cfg: ArchConfig) -> Dict[str, Any]:
     d, f = cfg.d_model, cfg.d_ff
     return {
         "ln2": _ln_meta(d),
-        "w_up": PM((d, f)),
-        "b_up": PM((f,), "zeros"),
-        "w_down": PM((f, d)),
-        "b_down": PM((d,), "zeros"),
+        "w_up": PM((d, f), axes=("fsdp", "tensor")),
+        "b_up": PM((f,), "zeros", axes=("tensor",)),
+        "w_down": PM((f, d), axes=("tensor", "fsdp")),
+        "b_down": PM((d,), "zeros", axes=(None,)),
     }
 
 
@@ -86,12 +87,12 @@ def model_meta(cfg: ArchConfig) -> Dict[str, Any]:
     dec_layer = {**_attn_meta(cfg), **_attn_meta(cfg, "x_"),
                  **_mlp_meta(cfg)}
     return {
-        "embed": PM((Vp, d), "embed"),
+        "embed": PM((Vp, d), "embed", axes=("vocab", "fsdp")),
         "enc_layers": _stack(enc_layer, cfg.n_enc_layers),
         "dec_layers": _stack(dec_layer, cfg.n_layers),
         "enc_ln": _ln_meta(d),
         "final_ln": _ln_meta(d),
-        "head": PM((d, Vp)),
+        "head": PM((d, Vp), axes=("fsdp", "vocab")),
     }
 
 
@@ -150,14 +151,17 @@ def _ffn(p, x, cfg: ArchConfig):
     return x + (_mm(h, p["w_down"]) + p["b_down"])
 
 
-def encode(params, cfg: ArchConfig, opts: RunOptions, frames):
+def encode(params, cfg: ArchConfig, opts: RunOptions, frames, layout=None):
     """frames (B, S_enc, d) precomputed embeddings (frontend stub) ->
-    the encoder's output (B, S_enc, d)."""
+    the encoder's output (B, S_enc, d). With a ``layout`` each layer's
+    leaves are this rank's blocks, gathered inside the remat region."""
     cdt = getattr(torch, opts.compute_dtype)
     x = frames.to(cdt) + sinusoidal_positions(
         frames.shape[1], cfg.d_model, frames.device).to(cdt)
 
     def block(lp, x):
+        if layout is not None:
+            lp = layout.layer(lp, "enc_layers")
         xn = _ln(x, lp["ln"], cfg)
         x = x + _attn(lp, xn, xn, cfg, opts, causal=False)
         return _ffn(lp, x, cfg)
@@ -182,27 +186,41 @@ def _dec_block(lp, x, enc_out, cfg: ArchConfig, opts: RunOptions, *,
 
 
 def decode_train(params, cfg: ArchConfig, opts: RunOptions, tokens,
-                 enc_out):
-    """tokens (B,S) integer, enc_out (B,S_enc,d) -> logits (B,S,Vp)."""
+                 enc_out, layout=None):
+    """tokens (B,S) integer, enc_out (B,S_enc,d) -> logits (B,S,Vp). With
+    a ``layout`` each layer's leaves are this rank's blocks, gathered
+    inside the remat region (the others already whole)."""
     cdt = getattr(torch, opts.compute_dtype)
     x = embed_tokens(params["embed"], tokens).to(cdt)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(cdt)
-    block = remat(lambda lp, x, enc: _dec_block(lp, x, enc, cfg, opts),
-                  _remat(opts))
+
+    def dec(lp, x, enc):
+        if layout is not None:
+            lp = layout.layer(lp, "dec_layers")
+        return _dec_block(lp, x, enc, cfg, opts)
+    block = remat(dec, _remat(opts))
     for lp in unbind_layers(params["dec_layers"], cfg.n_layers):
         x = block(lp, x, enc_out)
     x = _ln(x, params["final_ln"], cfg)
     return lm_logits(x, params["head"], cfg.vocab)
 
 
-def loss_fn(params, cfg: ArchConfig, opts: RunOptions, batch):
+def loss_fn(params, cfg: ArchConfig, opts: RunOptions, batch, layout=None):
     """The reference's ``loss_fn``: the weights cast to the compute
     dtype, the frames encoded, the decoder's logits at position i
-    predicting tokens[:, i+1]; the mean cross entropy, float32."""
+    predicting tokens[:, i+1]; the mean cross entropy, float32. With a
+    ``layout`` whose batch is split over n ranks, params are this rank's
+    blocks (gathered at use) and the result its rows' mean over n."""
     params = _compute_params(params, getattr(torch, opts.compute_dtype))
-    enc_out = encode(params, cfg, opts, batch["frames"])
-    logits = decode_train(params, cfg, opts, batch["tokens"], enc_out)
-    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
+    if layout is not None:
+        params = layout.top(params)
+    enc_out = encode(params, cfg, opts, batch["frames"], layout)
+    logits = decode_train(params, cfg, opts, batch["tokens"], enc_out,
+                          layout)
+    loss = softmax_xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
+    if layout is not None and layout.n_batch > 1:
+        loss = loss / layout.n_batch
+    return loss
 
 
 # ===========================================================================

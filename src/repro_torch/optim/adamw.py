@@ -17,6 +17,13 @@ the params, the moments and the gradients in place, under
 A tree is a nested dict of tensors; its leaves are taken in sorted key
 order (``jax.tree.leaves``'s order), which fixes the order of the global
 norm's sum.
+
+On a train state sharded across ranks each rank holds a block of every
+leaf: the update is elementwise, so on a block it is the reference's
+update element by element, and the clip's global norm sums each leaf's
+sum of squares over the ranks its leaf is sharded on (``sums``, the
+step layout's ``norm_sums``) before the sum over leaves, so a leaf
+replicated over an axis is counted once.
 """
 from __future__ import annotations
 
@@ -50,17 +57,23 @@ def adamw_init(params) -> Dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares, float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+def global_norm(tree, sums=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares, float32;
+    ``sums`` (the list of those, in ``leaves`` order -> the same, each
+    summed over the ranks that hold its leaf's blocks) for a sharded
+    tree."""
+    sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if sums is not None:
+        sq = sums(sq)
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sums=None):
     """Scale ``grads`` in place by min(1, max_norm / max(g, 1e-9)), g their
-    global norm. Returns (grads, g)."""
-    g = global_norm(grads)
+    global norm (``global_norm``'s ``sums`` for a sharded tree). Returns
+    (grads, g)."""
+    g = global_norm(grads, sums)
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
     torch._foreach_mul_(leaves(grads), scale)
     return grads, g

@@ -1,6 +1,20 @@
-"""The warehouse's elastic move: ``rebalance`` re-partitions a
-``ShardedStore`` onto another shard count (the port of
-``repro/runtime/elastic.py``'s ``rebalance`` and ``_rebalance_kernel``).
+"""Elastic scaling: the port of ``repro/runtime/elastic.py``.
+
+Training. Checkpoints are mesh-agnostic (the whole state, whichever
+mesh wrote it), so recovery after losing cards is: lay the surviving
+ranks out as a new mesh, derive its placements from the same logical
+rules, and restore (``restore_elastic``). ``shrink_mesh`` picks the
+largest (data' x model) grid that fits the survivors while keeping the
+model axis (its degree is a property of the step; the data degree is
+elastic). In the port a lost rank ends its world, so the survivors
+restart as a new world (``torchrun``) and lay themselves out again;
+``make_mesh_from`` and ``shrink_mesh`` give the layout (a
+``launch.mesh.MeshShape``), ``launch.mesh.make_train_mesh`` puts it on
+the world.
+
+The warehouse: ``rebalance`` re-partitions a ``ShardedStore`` onto
+another shard count (the reference's ``rebalance`` and
+``_rebalance_kernel``).
 
 The old shards' live rows, read shard-major (shard 0's rows in order,
 then shard 1's, ...), are routed under the new count's ownership rule
@@ -15,18 +29,61 @@ one gather of the live rows over the old group (the reference
 replicates them onto the new mesh), after which each rank of the new
 group cuts its own block of new shards out of them. The new group may
 differ from the old; ranks outside it get ``None``.
-
-The reference module's mesh helpers for training (``make_mesh_from``,
-``shrink_mesh``, ``restore_elastic``) are not here: they wait for
-training across cards.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve
+from repro_torch.launch.mesh import MeshShape
+
+
+def make_mesh_from(ranks: Sequence[int], model_axis: int,
+                   pod_axis: int = 1) -> MeshShape:
+    """``ranks`` laid out as (data, model), or (pod, data, model) when
+    ``pod_axis`` > 1, data = n / (model * pod), the first ranks taken in
+    ``np.reshape`` order. Raises ``ValueError`` when n does not divide by
+    ``model_axis``."""
+    n = len(ranks)
+    if n % model_axis:
+        raise ValueError(f"{n} devices not divisible by model={model_axis}")
+    data_axis = n // (model_axis * pod_axis)
+    if pod_axis > 1:
+        shape, names = ((pod_axis, data_axis, model_axis),
+                        ("pod", "data", "model"))
+    else:
+        shape, names = (data_axis, model_axis), ("data", "model")
+    return MeshShape(shape, names,
+                     list(ranks)[:pod_axis * data_axis * model_axis])
+
+
+def shrink_mesh(old: MeshShape, surviving: Sequence[int]) -> MeshShape:
+    """The largest elastic mesh on the survivors with ``old``'s model
+    degree. Raises ``RuntimeError`` when they cannot hold one model
+    shard."""
+    model_axis = old.shape.get("model", 1)
+    usable = (len(surviving) // model_axis) * model_axis
+    if usable == 0:
+        raise RuntimeError("not enough devices for one model shard")
+    return make_mesh_from(list(surviving)[:usable], model_axis)
+
+
+def restore_elastic(ckpt_dir: str, model, mesh, step=None):
+    """``(state, step)``: the latest checkpoint (or ``step``) under
+    ``ckpt_dir`` as this rank's blocks on ``mesh`` (a ``TrainMesh``), or
+    ``(None, None)`` when there is none."""
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.runtime.steps import train_state_shardings
+    step = CK.latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        return None, None
+    state = CK.restore(ckpt_dir, step, mesh=mesh,
+                       shardings=train_state_shardings(model, mesh))
+    return state, step
 
 
 def _repartition(cols, n_rows_by_shard, s_new: int, cap_new: int,

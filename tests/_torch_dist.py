@@ -527,3 +527,241 @@ def rank_grads(rank, world, *, grads, errs, draws):
                                       tensors(draws))
     return ({k: v.numpy() for k, v in g.items()},
             {k: v.numpy() for k, v in e.items()})
+
+
+# ---------------------------------------------------------------------------
+# training across ranks
+# ---------------------------------------------------------------------------
+
+# the train step's tolerances (tests/test_torch_train.py): the loss and
+# the clipped norm relative, the moments of each leaf's largest magnitude;
+# the rate within one float32 ulp
+LOSS_TOL = GRAD_TOL = 1e-5
+ULP32 = 2.0 ** -23
+
+
+def flat(tree, prefix=""):
+    """{path: numpy} of a nested dict of arrays or tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat(tree[k], f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu().numpy()
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def update_bound(m, v, count, lr):
+    """Per element, how far one AdamW update (b1 0.9, b2 0.95, eps 1e-8)
+    may move from the reference's when the moments are within GRAD_TOL
+    of each leaf's largest magnitude of the reference's ``m`` and ``v``.
+
+    The update is p - lr (s + wd p), s = m^ / (sqrt(v^) + eps), m^ and v^
+    the moments over their bias corrections bc1 and bc2. With the moments
+    within t_m and t_v, s moves by at most (t_m / bc1 + |m^| sqrt(t_v /
+    bc2) / d) / d, d = max(sqrt(v^) - sqrt(t_v / bc2), 0) + eps."""
+    m, v = m.astype(np.float64), v.astype(np.float64)
+    bc1, bc2 = 1 - 0.9 ** count, 1 - 0.95 ** count
+    t_m = GRAD_TOL * float(np.abs(m).max()) / bc1
+    t_s = np.sqrt(GRAD_TOL * float(np.abs(v).max()) / bc2)
+    d = np.maximum(np.sqrt(v / bc2) - t_s, 0.0) + 1e-8
+    return lr * (t_m + np.abs(m / bc1) * t_s / d) / d
+
+
+def close_state(got, want, lr, what):
+    """The moments within GRAD_TOL of each leaf's largest magnitude, the
+    params within that plus ``update_bound`` of the one update at rate
+    ``lr``; counts equal."""
+    g, w = flat(got), flat(want)
+    assert g.keys() == w.keys(), what
+    count = int(w["opt/count"])
+    for k in w:
+        assert g[k].shape == w[k].shape and g[k].dtype == w[k].dtype, \
+            (what, k)
+        if w[k].dtype.kind == "i":
+            np.testing.assert_array_equal(g[k], w[k], err_msg=f"{what} {k}")
+            continue
+        if not w[k].size:
+            continue
+        err = np.abs(g[k].astype(np.float64) - w[k])
+        tol = GRAD_TOL * float(np.abs(w[k]).max())
+        if k.startswith("params/"):
+            tol = tol + update_bound(w["opt/m/" + k[7:]],
+                                     w["opt/v/" + k[7:]], count, lr)
+        bad = err > tol
+        assert not bad.any(), (what, k, float(err.max()),
+                               float(np.max(err - tol)))
+
+
+def held(run, ref, what):
+    """A sharded run's metrics and whole state against the reference's:
+    runs whose updates but the last have rate 0."""
+    for n, (m, r) in enumerate(zip(run["metrics"], ref["metrics"])):
+        for key, tol in (("loss", LOSS_TOL), ("gnorm", LOSS_TOL),
+                         ("lr", ULP32)):
+            assert abs(m[key] - r[key]) <= tol * abs(r[key]) + 1e-30, \
+                (what, n, key, m[key], r[key])
+    assert all(r["lr"] == 0 for r in ref["metrics"][:-1]), what
+    close_state(run["state"], ref["state"], ref["metrics"][-1]["lr"], what)
+
+
+def same_bits(a, b, what):
+    fa, fb = flat(a), flat(b)
+    assert fa.keys() == fb.keys(), what
+    for k in fa:
+        x, y = np.atleast_1d(fa[k]), np.atleast_1d(fb[k])
+        assert x.dtype == y.dtype and np.array_equal(
+            x.view(np.uint8), y.view(np.uint8)), (what, k)
+
+
+def train_setup(arch, opts, mesh_shape, names=("data", "model"),
+                device="cpu"):
+    """The reduced ``arch`` with run options ``opts`` (a dict) and a
+    ``TrainMesh`` of ``mesh_shape`` over this world."""
+    from repro_torch.configs.base import get
+    from repro_torch.launch.mesh import TrainMesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions
+    model = Model(get(arch).reduced(), RunOptions(**opts))
+    return model, TrainMesh(mesh_shape, names, device=device)
+
+
+def my_rows(model, mesh, batch):
+    """This rank's rows of a global numpy batch, as tensors on the mesh's
+    device."""
+    from repro_torch.data.tokens import local_rows
+    axes = model.batch_axes(mesh)
+    rows = local_rows(len(next(iter(batch.values()))), mesh.index(axes),
+                      mesh.axis_size(axes), model.opts.microbatches)
+    return {k: torch.as_tensor(v[rows], device=mesh.device)
+            for k, v in batch.items()}
+
+
+def whole_state(model, state, mesh):
+    """Every leaf of a sharded train state gathered whole: numpy on rank
+    0, None elsewhere (every rank must call it)."""
+    from repro_torch.checkpoint.ckpt import _flatten, _unflatten
+    from repro_torch.distribution.sharding import full_tensor
+    from repro_torch.runtime.steps import train_state_shardings
+    out = {}
+    for (k, x), pl in zip(_flatten(state).items(),
+                          _flatten(train_state_shardings(model, mesh))
+                          .values()):
+        full = full_tensor(x, pl.spec, pl.mesh)
+        out[k] = full.cpu().numpy().copy()
+    return _unflatten(out) if dist.get_rank() == 0 else None
+
+
+def host(tree):
+    """A tree of tensors as numpy."""
+    if isinstance(tree, dict):
+        return {k: host(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
+def sharded_steps(case, device="cpu"):
+    """``case``: ``arch``, ``opts``, ``mesh`` (its shape, over ``("data",
+    "model")`` unless ``names``), ``state`` (a whole train state, numpy),
+    ``batches`` (global, numpy) and ``kw`` (the step's arguments). The
+    sharded step from that state over those batches: each step's metrics
+    (the same on every rank), the bytes the step moved, and the whole
+    final state (rank 0)."""
+    from repro_torch.convert import params_from_arrays
+    from repro_torch.runtime.steps import make_train_step, shard_train_state
+    model, mesh = train_setup(case["arch"], case["opts"], case["mesh"],
+                              case.get("names", ("data", "model")), device)
+    state = shard_train_state(model, params_from_arrays(case["state"], "cpu"),
+                              mesh)
+    step = make_train_step(model, mesh=mesh, **case["kw"])
+    metrics = []
+    for b in case["batches"]:
+        state, m = step(state, my_rows(model, mesh, b))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "bytes": dict(step.layout.bytes),
+            "state": whole_state(model, state, mesh)}
+
+
+def plain_steps(case, device="cpu"):
+    """The same steps without a mesh, on this rank's device."""
+    from repro_torch.configs.base import get
+    from repro_torch.convert import params_from_arrays
+    from repro_torch.models.model import Model
+    from repro_torch.models.options import RunOptions
+    from repro_torch.runtime.steps import make_train_step
+    model = Model(get(case["arch"]).reduced(), RunOptions(**case["opts"]))
+    state = params_from_arrays(case["state"], device)
+    step = make_train_step(model, **case["kw"])
+    metrics = []
+    for b in case["batches"]:
+        state, m = step(state, {k: torch.as_tensor(v, device=device)
+                                for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "state": host(state)}
+
+
+def rank_train(rank, world, *, cases, plain=False):
+    """``sharded_steps`` of every case (and, with ``plain``, the same
+    steps without a mesh, in this rank)."""
+    return [{**sharded_steps(c), **({"plain": plain_steps(c)} if plain
+                                    else {})} for c in cases]
+
+
+def rank_train_card(rank, world, *, cases):
+    """``sharded_steps`` of every case on this rank's card over NCCL."""
+    return [sharded_steps(c, device=None) for c in cases]
+
+
+def rank_elastic_save(rank, world, *, arch, opts, mesh, ckpt_dir, batch,
+                      kw):
+    """A fresh sharded state (``init_train_state(..., mesh=)``, seed 0),
+    one step, saved whole under ``ckpt_dir`` at step 1; the whole state
+    (rank 0)."""
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.runtime.steps import (init_train_state, make_train_step,
+                                           train_state_shardings)
+    model, m = train_setup(arch, opts, mesh)
+    state = init_train_state(model, torch.Generator().manual_seed(0), "cpu",
+                             m)
+    state, _ = make_train_step(model, mesh=m, **kw)(state,
+                                                    my_rows(model, m, batch))
+    CK.save(ckpt_dir, state, step=1,
+            shardings=train_state_shardings(model, m))
+    return whole_state(model, state, m)
+
+
+def rank_elastic_restore(rank, world, *, arch, opts, mesh, ckpt_dir, batch,
+                         kw):
+    """``restore_elastic`` onto ``mesh``: this rank's blocks, the whole
+    restored state (rank 0), then one step's metrics and state; and the
+    refusals of the production meshes, larger than this world."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.runtime.elastic import restore_elastic
+    from repro_torch.runtime.steps import make_train_step
+    model, m = train_setup(arch, opts, mesh)
+    state, step = restore_elastic(ckpt_dir, model, m)
+    out = {"step": step, "local": host(state),
+           "restored": whole_state(model, state, m), "refused": []}
+    for multi_pod in (False, True):
+        try:
+            make_production_mesh(multi_pod=multi_pod, device="cpu")
+        except ValueError as e:
+            out["refused"].append(str(e))
+    state, met = make_train_step(model, mesh=m, **kw)(
+        state, my_rows(model, m, batch))
+    out["metrics"] = {k: float(v) for k, v in met.items()}
+    out["state"] = whole_state(model, state, m)
+    return out
+
+
+def rank_raises(rank, world, *, arch, opts, batch, kw):
+    """Rank 1 raises before its first step; the others wait for it in the
+    step's first gather until the world is ended."""
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    model, m = train_setup(arch, opts, (world, 1))
+    state = init_train_state(model, torch.Generator().manual_seed(0), "cpu",
+                             m)
+    if rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    make_train_step(model, mesh=m, **kw)(state, my_rows(model, m, batch))
+    return {}

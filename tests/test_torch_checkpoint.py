@@ -149,6 +149,44 @@ def test_zstd_files_raise_by_name(tmp_path):
     assert ckpt.restore(path, device="cpu", return_meta=True) == ({}, {"a": 1})
 
 
+def test_streams_a_leaf_at_a_time(tmp_path, monkeypatch):
+    """Save and restore stream: read and inflated a few bytes at a time
+    (``_CHUNK`` of 7, so every head and leaf spans pieces), the reference's
+    file and the port's restore alike, untagged streams too; the heads
+    written alone are ``packb``'s."""
+    for n in SIZES + [2 ** 16 + 3]:
+        assert PM.map_header(n) == MP.packb({i: 0 for i in range(n)})[
+            :len(PM.map_header(n))]
+        assert PM.bin_header(n) + b"\x01" * n == MP.packb(b"\x01" * n)
+    monkeypatch.setattr(RCK, "zstd", None)
+    monkeypatch.setattr(ckpt, "_CHUNK", 7)
+    tree = _tree()
+    mine = ckpt.save(str(tmp_path / "port.rsk"), tree, meta=_meta())
+    theirs = RCK.save(str(tmp_path / "ref.rsk"), tree, meta=_meta())
+    with open(mine, "rb") as a, open(theirs, "rb") as b:
+        raw = a.read()
+        assert raw == b.read()
+    untagged = str(tmp_path / "untagged.rsk")
+    with open(untagged, "wb") as f:
+        f.write(raw[5:])
+    for path in (mine, untagged):
+        back, meta = ckpt.restore(path, device="cpu", return_meta=True)
+        assert meta == _meta()
+        _eq(back["w"], tree["w"])
+        _eq(back["layers"][0]["b"], tree["layers"][0]["b"])
+        assert back["layers"][1]["b"].shape == (2, 0)
+    with open(untagged, "wb") as f:
+        f.write(raw[5:-9])
+    with pytest.raises(ValueError, match="ends early"):
+        ckpt.restore(untagged, device="cpu")
+    # a leaf of 4 GiB is refused before anything is written (a view
+    # that holds no memory of its own)
+    huge = torch.zeros(1, dtype=torch.uint8).expand(1 << 32)
+    with pytest.raises(ValueError, match="4 GiB"):
+        ckpt.save(str(tmp_path / "huge.rsk"), {"x": huge})
+    assert not os.path.exists(tmp_path / "huge.rsk")
+
+
 # ---------------------------------------------------------------------------
 # the warehouse
 # ---------------------------------------------------------------------------

@@ -73,6 +73,7 @@ from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import warehouse_agg as K
 from repro_torch.models.model import Model
 from repro_torch.models.options import RunOptions, bf16_logit_tolerance
+from repro_torch.runtime import steps as S
 from repro_torch.warehouse import (Filter, GroupBy, MultiGroupBy,
                                    SegmentStore, StandingQueries, TopK,
                                    WindowAgg, execute)
@@ -1702,3 +1703,44 @@ def test_store_over_nccl_ranks_equals_the_stacked_store(cuda, tmp_path):
                              "group's backend is gloo")
         assert r["nccl"] == ("a store on cpu needs a gloo group; this "
                              "group's backend is nccl")
+
+
+@pytest.mark.cuda
+def test_train_step_over_nccl_ranks_matches_the_unsharded_step(cuda,
+                                                               tmp_path):
+    """A world of NCCL ranks, one a card (as many cards as divide the
+    global batch of 4 rows: one on a one-card machine), each holding its
+    blocks of the train state (``make_train_step(..., mesh=)``, K3 and K4
+    both ways on every rank), against the same two steps without a mesh
+    on card 0 from the same state: bit for bit at one rank, else within
+    ``tests/_torch_dist.held``'s train-step tolerances (the moments
+    within 1e-5 of each leaf's largest magnitude, the params within that
+    plus the bound of the one update)."""
+    import _torch_dist as TD
+    world = max(w for w in range(1, torch.cuda.device_count() + 1)
+                if 4 % w == 0)
+    rng = np.random.default_rng(0)
+    opts = dict(remat="none", compute_dtype="float32")
+    kw = dict(peak_lr=1e-2, warmup=2, total_steps=10)
+    cases = []
+    for arch in ("qwen1.5-0.5b", "mixtral-8x7b", "hymba-1.5b"):
+        cfg = get(arch).reduced()
+        model = Model(cfg, RunOptions(**opts))
+        init = S.init_train_state(model, torch.Generator().manual_seed(0),
+                                  "cpu")
+        cases.append({"arch": arch, "opts": opts, "mesh": (world, 1),
+                      "state": TD.host(init), "kw": kw, "batches": [
+                          {"tokens": rng.integers(0, cfg.vocab, (4, 64))}
+                          for _ in range(2)]})
+    ranks, _ = TD.run_world(TD.rank_train_card, world, tmp_path,
+                            device=None, cases=cases)
+    for i, case in enumerate(cases):
+        want = TD.plain_steps(case, device="cuda")
+        got = ranks[0][i]
+        for r in ranks[1:]:
+            assert r[i]["metrics"] == got["metrics"]
+        if world == 1:
+            assert got["metrics"] == want["metrics"]
+            TD.same_bits(got["state"], want["state"], case["arch"])
+        else:
+            TD.held(got, want, (case["arch"], world))

@@ -72,6 +72,7 @@ def test_port_imports_no_jax_and_no_reference():
         ROOT / "scripts" / "chip_compare.py",
         ROOT / "scripts" / "chip_profile.py",
         ROOT / "scripts" / "chip_examples.py",
+        ROOT / "scripts" / "chip_train_dist.py",
         ROOT / "tests" / "_torch_dist.py"] + sorted(
         (ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 15
@@ -283,8 +284,8 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     """The launcher, ``init_train_state`` and ``make_batch_iter`` default
     to CUDA and raise without it; ``Model.loss`` and the train step run
     on CPU params with the port alone (its batch goes to the params'
-    device, never to a card); the launcher refuses a model axis past
-    one card by name."""
+    device, never to a card); the launcher refuses a model axis that
+    does not divide its world of one rank."""
     from repro_torch.configs.base import get
     from repro_torch.data.tokens import make_batch_iter
     from repro_torch.launch import train
@@ -300,7 +301,7 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
         init_train_state(model, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         next(make_batch_iter(cfg, global_batch=2, seq_len=16))
-    with pytest.raises(ValueError, match="one card"):
+    with pytest.raises(ValueError, match="does not divide by --model-axis 2"):
         train.main(["--device", "cpu", "--model-axis", "2"])
     state = init_train_state(model, torch.Generator().manual_seed(0), "cpu")
     batch = next(make_batch_iter(cfg, global_batch=2, seq_len=16,
@@ -417,6 +418,25 @@ def test_shard_group_defaults_to_cuda_and_raises(monkeypatch):
                          world_size=1)
     assert not dist.is_initialized()
     assert BACKENDS == {"cuda": "nccl", "cpu": "gloo"}
+
+
+def test_training_mesh_defaults_to_cuda_and_raises(monkeypatch):
+    """A training mesh (``TrainMesh``, ``make_host_mesh``,
+    ``make_production_mesh``) takes a card unless the CPU is asked for by
+    name: without a card each raises before it looks for a world; on the
+    CPU without a world it says to join one."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (TrainMesh, make_host_mesh,
+                                         make_production_mesh)
+    _no_cuda(monkeypatch)
+    for make in (lambda: TrainMesh((1, 1), ("data", "model")),
+                 make_host_mesh,
+                 lambda: make_production_mesh(multi_pod=True)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="join one first"):
+        TrainMesh((1, 1), ("data", "model"), device="cpu")
 
 
 def test_windowed_attention_on_cpu_takes_the_plain_version():

@@ -303,7 +303,7 @@ def test_launcher_loss_decreases():
                       "64", "--lr", "3e-3", "--log-every", "10"])
     assert len(losses) == 7 and all(np.isfinite(losses))
     assert losses[-1] < losses[0] - 0.3, losses
-    with pytest.raises(ValueError, match="one card"):
+    with pytest.raises(ValueError, match="does not divide by --model-axis 2"):
         LT.main(["--device", "cpu", "--model-axis", "2"])
 
 
