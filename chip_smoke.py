@@ -389,10 +389,24 @@ script fails before it prints a result.
               full depth (8.03B parameters, 128 GB of float32 state),
               each leaf drawn on the card and cut; on fewer cards it
               prints that it is skipped and why; (c) mamba2-370m cut to 4
-              of 48 layers, as (a), K4 both ways. Prints each part's
-              losses, seconds a step (the first apart), tokens per
-              second, peak memory and bytes gathered and reduced a step
-              per rank, and the launches per rank.
+              of 48 layers, as (a), K4 both ways. (d) the model axis
+              computed: two ranks on card 0 joined through gloo (NCCL
+              refuses a card twice) laid out as (1, 2), llama3-8b cut to
+              2 layers, each rank its own 16 of 32 heads (K3 both ways
+              at H = 16, G = 4), half the hidden columns and the vocab
+              rows, joined by the all-reduces of f and g, against the
+              same steps without a mesh (one rank at a time). With four
+              cards also (a) and (c) at (1, 4) and (2, 2), (e)
+              mixtral-8x7b cut to 2 layers at (1, 4) under
+              moe_sharding="ep" (each rank 2 of 8 experts), and (b) at
+              (2, 2). Prints each part's losses, seconds a step (the
+              first apart), tokens per second, peak memory and bytes
+              gathered, reduced and moved over "model" a step per rank,
+              and the launches per rank. Then ``time_split``: K3 and K4,
+              both ways, at the split's local shapes (llama3-8b at m = 4:
+              B 4, S 2,048, H 8, G 2, D 128; mamba2-370m's 8 of 32
+              heads), each held against its plain version, beside its
+              plain version's time, the library call's and the bound.
 13. tiers     the main store in a ``TieredStore``, all but the newest
               camera-day spilled to int8; the main plans over the
               two-tier view through K1, against the float64 oracle of
@@ -610,6 +624,21 @@ TRAIN_DIST_FULL = 4                 # ranks part (b) needs (128 GB of state)
 # not enough at full width (mamba2's m at four cards: 1.6e-5)
 DIST_MOMENT_TOL = 1e-3
 TRAIN_DIST_DEADLINE = 900           # s before the train_dist world is killed
+# the model axis's split: part (d), llama3-8b cut to 2 layers at (1, 2),
+# two gloo ranks on one card (NCCL refuses a card twice); with four
+# cards, part (e), mixtral-8x7b cut to 2 layers at (1, 4) under
+# moe_sharding="ep"
+TRAIN_DIST_SPLIT_LAYERS = 2
+TRAIN_DIST_SHARED = 2               # ranks on the one card of part (d)
+# part (b)'s mesh: at (1, 4) a rank would hold 32.1 GB of state and the
+# activations of all 4 rows at a quarter of the width (reckoned 1.43 GB a
+# layer, 45.9 GB for 32, over 80 GB with the logits: PERF.md, PR 30)
+TRAIN_DIST_B_MESH = (2, 2)
+# K3 and K4 (forward and backward) at the split's local shapes: llama3-8b
+# at m = 4 (B, S, H, G, D) and mamba2-370m's 8 of 32 heads (B, S, H, P,
+# G, N, Q)
+SPLIT_K3 = (4, 2048, 8, 2, 128)
+SPLIT_K4 = (4, 2048, 8, 64, 1, 128, 256)
 
 
 def emit(phase: str, **fields) -> None:
@@ -3417,52 +3446,58 @@ def phase_time_k3_bwd(dev, fam):
     the kernel's arithmetic; bfloat16 at the dense bf16 rate), or its
     bytes (q, k, v, o, dO and lse read once, dq, dk and dv written once)
     at HBM bandwidth, whichever is larger."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(13)
     out = {}
-    for name, ((B, Sq, Skv, H, G, D, causal, window), per_step) in \
-            K3_BWD_TIME.items():
+    for name, (shape, per_step) in K3_BWD_TIME.items():
         for dtype in (torch.float32, torch.bfloat16):
-            q, do = (torch.randn((B, Sq, H, D), generator=gen, device=dev)
-                     .to(dtype) for _ in range(2))
-            k, v = (torch.randn((B, Skv, G, D), generator=gen, device=dev)
-                    .to(dtype) for _ in range(2))
-            o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
-                                                window=window)
-            visible = int(FA._visible(Sq, Skv, causal, window, dev).sum())
-            flops = 10 * D * visible * B * H
-            nbytes = (3 * q.numel() + 2 * k.numel()) * q.element_size() \
-                + (q.numel() + 2 * k.numel()) * q.element_size() \
-                + lse.numel() * 4
-            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            op_ms = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
-                     else flops / BF16_FLOP_PER_S) * 1e3
-            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                          for x in (q, k, v))
-            lib_o = F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=G != H)
-            lib_do = do.transpose(1, 2).contiguous()
-            e = {"dtype": str(dtype).replace("torch.", ""),
-                 "shape": [B, Sq, Skv, H, G, D], "causal": causal,
-                 "launches_per_step": per_step,
-                 "kernel_ms": cuda_ms(lambda: FA.flash_attention_bwd(
-                     q, k, v, o, do, lse, causal=causal, window=window), 20),
-                 "plain_ms": cuda_ms(lambda: FA.flash_attention_bwd_ref(
-                     q, k, v, o, do, lse, causal=causal, window=window), 5),
-                 "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                     lib_o, (qt, kt, vt), lib_do, retain_graph=True), 20),
-                 "flops": flops, "bytes": nbytes,
-                 "bound_ms": max(op_ms, byte_ms),
-                 "bound_by": "operations" if op_ms > byte_ms else "bytes"}
+            e = _time_k3_bwd(shape, gen, dev, dtype)
+            e["launches_per_step"] = per_step
             e["per_step_ms"] = per_step * e["kernel_ms"]
             if name == "mixtral_train":
                 e["train_families_launches_per_step"] = \
                     fam["mixtral-8x7b"]["k3_launches"][1]
             out[name if dtype == torch.float32 else name + "_bf16"] = e
-            del q, k, v, do, o, lse, qt, kt, vt, lib_o, lib_do
     emit("time_k3_bwd", flash_attention_bwd=out)
     return out["qwen_train"]
+
+
+def _time_k3_bwd(shape, gen, dev, dtype):
+    """K3's backward at ``shape`` (B, Sq, Skv, H, G, D, causal, window)
+    in ``dtype`` (``phase_time_k3_bwd``'s account): kernel, plain version
+    and SDPA's backward, CUDA-event medians, beside the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    B, Sq, Skv, H, G, D, causal, window = shape
+    q, do = (torch.randn((B, Sq, H, D), generator=gen, device=dev)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Skv, G, D), generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
+    o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                        window=window)
+    visible = int(FA._visible(Sq, Skv, causal, window, dev).sum())
+    flops = 10 * D * visible * B * H
+    nbytes = (3 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + (q.numel() + 2 * k.numel()) * q.element_size() \
+        + lse.numel() * 4
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
+             else flops / BF16_FLOP_PER_S) * 1e3
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_o = F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=G != H)
+    lib_do = do.transpose(1, 2).contiguous()
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "shape": [B, Sq, Skv, H, G, D], "causal": causal,
+            "kernel_ms": cuda_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, o, do, lse, causal=causal, window=window), 20),
+            "plain_ms": cuda_ms(lambda: FA.flash_attention_bwd_ref(
+                q, k, v, o, do, lse, causal=causal, window=window), 5),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                lib_o, (qt, kt, vt), lib_do, retain_graph=True), 20),
+            "flops": flops, "bytes": nbytes,
+            "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms > byte_ms else "bytes"}
 
 
 def ssd_bwd_work(B, S, H, P, G, N, Q, width=4):
@@ -3499,61 +3534,63 @@ def phase_time_k4_bwd(dev, ssm, hybrid):
     is null. Every timed gradient is held against the plain version's
     within ``bwd_error_bound``
     (``err_of_bwd_error_bound``, the largest share of it)."""
-    from repro_torch.kernels import ssd as SSD
     gen = torch.Generator(device=dev).manual_seed(16)
     per_step = {"mamba2_train": ssm["bwd_launches"] // TRAIN["steps"],
                 "hymba_train": hybrid["k4_bwd"] // TRAIN["steps"]}
     out = {}
-    for name, (B, S, H, P, G, N, Q) in K4_BWD_TIME.items():
-        x, dt, A, Bm, Cm, _ = ssd_inputs(B, S, H, P, G, N, gen, dev)
-        dy = torch.randn(x.shape, generator=gen, device=dev)
+    for name, shape in K4_BWD_TIME.items():
         for dtype in (torch.float32, torch.bfloat16):
-            args = [x, dt, A, Bm, Cm, dy]
-            if dtype == torch.bfloat16:
-                args = [a.to(dtype) if i != 2 else a
-                        for i, a in enumerate(args)]
-            _, _, scr = SSD._forward(*args[:5], None, Q)
-            got = SSD.ssd_scan_bwd(*args, None, scr, chunk=Q)
-            want = SSD.ssd_scan_bwd_ref(*(a.double() for a in args),
-                                        chunk=Q)
-            bound = SSD.bwd_error_bound(*args, chunk=Q, refs=want)
-            err_share = max(_ratio((g.double() - w).abs(), b)
-                            for g, w, b in zip(got, want, bound)
-                            if g is not None)
-            if not err_share <= 1.0:
-                raise AssertionError(f"time_k4_bwd {name}: the gradient at "
-                                     f"{err_share:.3g}x its bound")
-            del want, bound
-            work = SSD.bwd_scratch(args[0], args[3], Q)
-            passes = {p: cuda_ms(lambda p=p: SSD.launch_bwd(
-                p, *args, None, scr, got, work, Q), 10)
-                for p in SSD.BWD_PASSES}
-            flops, nbytes = ssd_bwd_work(B, S, H, P, G, N, Q,
-                                         width=dtype.itemsize)
-            op_ms = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
-                     else flops / BF16_FLOP_PER_S) * 1e3
-            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            e = {"dtype": str(dtype).replace("torch.", ""),
-                 "shape": [B, S, H, P, G, N, Q],
-                 "launches_per_step": per_step[name],
-                 "kernel_ms": cuda_ms(lambda: SSD.ssd_scan_bwd(
-                     *args, None, scr, chunk=Q), 20),
-                 "plain_ms": cuda_ms(lambda: SSD.ssd_scan_bwd_ref(
-                     *args, chunk=Q), 5),
-                 "library_ms": None, "pass_ms": passes,
-                 "flops": flops, "bytes": nbytes,
-                 "bound_ms": max(op_ms, byte_ms),
-                 "bound_by": "operations" if op_ms > byte_ms else "bytes",
-                 "fp32_core_ms": flops / FP32_FLOP_PER_S * 1e3,
-                 "err_of_bwd_error_bound": err_share}
+            e = _time_k4_bwd(name, shape, gen, dev, dtype)
+            e["launches_per_step"] = per_step[name]
             e["per_step_ms"] = per_step[name] * e["kernel_ms"]
             out[name if dtype == torch.float32 else name + "_bf16"] = e
-            del args, scr, got, work
-        del x, dt, A, Bm, Cm, dy
     torch.cuda.empty_cache()
     emit("time_k4_bwd", ssd_scan_bwd=out)
     return out
 
+
+def _time_k4_bwd(name, shape, gen, dev, dtype):
+    """K4's backward at ``shape`` (B, S, H, P, G, N, Q) in ``dtype``
+    (``phase_time_k4_bwd``'s account): the nine passes together and each
+    alone, the plain version, CUDA-event medians, beside the bound; the
+    gradient held against the plain version's in float64 within
+    ``bwd_error_bound``."""
+    from repro_torch.kernels import ssd as SSD
+    B, S, H, P, G, N, Q = shape
+    x, dt, A, Bm, Cm, _ = ssd_inputs(B, S, H, P, G, N, gen, dev)
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    args = [x, dt, A, Bm, Cm, dy]
+    if dtype == torch.bfloat16:
+        args = [a.to(dtype) if i != 2 else a for i, a in enumerate(args)]
+    _, _, scr = SSD._forward(*args[:5], None, Q)
+    got = SSD.ssd_scan_bwd(*args, None, scr, chunk=Q)
+    want = SSD.ssd_scan_bwd_ref(*(a.double() for a in args), chunk=Q)
+    bound = SSD.bwd_error_bound(*args, chunk=Q, refs=want)
+    err_share = max(_ratio((g.double() - w).abs(), b)
+                    for g, w, b in zip(got, want, bound) if g is not None)
+    if not err_share <= 1.0:
+        raise AssertionError(f"time_k4_bwd {name}: the gradient at "
+                             f"{err_share:.3g}x its bound")
+    del want, bound
+    work = SSD.bwd_scratch(args[0], args[3], Q)
+    passes = {p: cuda_ms(lambda p=p: SSD.launch_bwd(
+        p, *args, None, scr, got, work, Q), 10) for p in SSD.BWD_PASSES}
+    flops, nbytes = ssd_bwd_work(B, S, H, P, G, N, Q, width=dtype.itemsize)
+    op_ms = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
+             else flops / BF16_FLOP_PER_S) * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "shape": [B, S, H, P, G, N, Q],
+            "kernel_ms": cuda_ms(lambda: SSD.ssd_scan_bwd(
+                *args, None, scr, chunk=Q), 20),
+            "plain_ms": cuda_ms(lambda: SSD.ssd_scan_bwd_ref(
+                *args, chunk=Q), 5),
+            "library_ms": None, "pass_ms": passes,
+            "flops": flops, "bytes": nbytes,
+            "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms > byte_ms else "bytes",
+            "fp32_core_ms": flops / FP32_FLOP_PER_S * 1e3,
+            "err_of_bwd_error_bound": err_share}
 
 def _k1_counts():
     from repro_torch.kernels import warehouse_agg as K
@@ -4687,38 +4724,91 @@ def _train_dist_rank(rank, world, tmp):
 
 
 def _train_dist_drive(dev, world):
-    """Parts (a) and (c) on every machine, (b) with TRAIN_DIST_FULL ranks
-    or more."""
+    """Parts (a) and (c) at (W, 1) on every machine; with TRAIN_DIST_FULL
+    ranks or more, (a) and (c) again at (1, 4) and (2, 2) (the model
+    axis split), (e) and (b)."""
     import dataclasses
     import datetime
     from repro_torch.configs.base import get
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd as SSD
     from repro_torch.launch.mesh import make_host_mesh
-    mesh = make_host_mesh(1, dev, datetime.timedelta(seconds=DIST_TIMEOUT))
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT)
+    mesh = make_host_mesh(1, dev, timeout)
     llama, mamba = get("llama3-8b"), get("mamba2-370m")
     cut = TRAIN_DIST["layers"]
+    llama_cut = dataclasses.replace(llama, n_layers=cut)
+    mamba_cut = dataclasses.replace(mamba, n_layers=cut)
     out = {"rank": mesh.rank, "shape": list(mesh.devices.shape)}
-    out["a"] = _dist_part(mesh, dataclasses.replace(llama, n_layers=cut),
-                          TRAIN_DIST["batch"], {"k3": FA}, compare=True)
-    out["c"] = _dist_part(mesh, dataclasses.replace(mamba, n_layers=cut),
-                          TRAIN_SSM, {"k4": SSD}, compare=True)
+    out["a"] = _dist_part(mesh, llama_cut, TRAIN_DIST["batch"], {"k3": FA},
+                          compare=True)
+    out["c"] = _dist_part(mesh, mamba_cut, TRAIN_SSM, {"k4": SSD},
+                          compare=True)
     if world >= TRAIN_DIST_FULL:
-        out["b"] = _dist_part(mesh, llama, TRAIN_DIST["batch"], {"k3": FA},
+        for m in (4, 2):
+            split = make_host_mesh(m, dev, timeout)
+            at = tuple(split.devices.shape)
+            out[f"a {at}"] = _dist_part(split, llama_cut, TRAIN_DIST["batch"],
+                                        {"k3": FA}, compare=True)
+            out[f"c {at}"] = _dist_part(split, mamba_cut, TRAIN_SSM,
+                                        {"k4": SSD}, compare=True)
+        out["e"] = _dist_part(
+            make_host_mesh(4, dev, timeout),
+            dataclasses.replace(get("mixtral-8x7b"),
+                                n_layers=TRAIN_DIST_SPLIT_LAYERS),
+            TRAIN_DIST["batch"], {"k3": FA}, compare=True, moe="ep")
+        out["b"] = _dist_part(make_host_mesh(TRAIN_DIST_B_MESH[1], dev,
+                                             timeout),
+                              llama, TRAIN_DIST["batch"], {"k3": FA},
                               compare=False)
     return out
 
 
-def _dist_part(mesh, cfg, batch, kernels, *, compare):
+def _train_dist_shared_rank(rank, world, tmp):
+    """One rank of part (d), in its own process (spawned): ``world``
+    ranks on card 0 joined through gloo (NCCL refuses a card twice),
+    laid out as (1, world) over ("data", "model"), llama3-8b cut to
+    TRAIN_DIST_SPLIT_LAYERS layers; what it saw goes to
+    ``tmp/rank<r>.pt``."""
+    import dataclasses
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs.base import get
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import TrainMesh, init_shard_group
+    tmp = Path(tmp)
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT)
+    dev = init_shard_group(init_method=f"file://{tmp / 'pg_init'}",
+                           rank=rank, world_size=world, timeout=timeout,
+                           backend="gloo")
+    try:
+        mesh = TrainMesh((1, world), ("data", "model"), device=dev,
+                         timeout=timeout, backend="gloo")
+        cfg = dataclasses.replace(get("llama3-8b"),
+                                  n_layers=TRAIN_DIST_SPLIT_LAYERS)
+        torch.save({"rank": mesh.rank, "shape": [1, world],
+                    "d": _dist_part(mesh, cfg, TRAIN_DIST["batch"],
+                                    {"k3": FA}, compare=True, turns=True)},
+                   tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_part(mesh, cfg, batch, kernels, *, compare, moe=None,
+               turns=False):
     """``TRAIN_DIST["steps"]`` sharded steps of the launcher's step on
     ``cfg`` at ``batch`` x 2,048 tokens over ``mesh``, this rank's rows,
     the counts of ``kernels`` set to 0 just before the steps and read
     just after. With ``compare`` the weights are drawn on the CPU (seed
     0) and the same steps run after without a mesh on this card, from the
     same draws: the losses, norms and this rank's blocks of the params
-    and the AdamW moments are compared (``_dist_compare``). Without it each leaf is drawn whole
-    on the card (``torch.Generator("cuda")``, seed 0: other draws than the
-    CPU's) and this rank keeps its block."""
+    and the AdamW moments are compared (``_dist_compare``; with ``turns``,
+    where the ranks share a card, one rank at a time). Without it each
+    leaf is drawn whole on the card (``torch.Generator("cuda")``, seed 0:
+    other draws than the CPU's) and this rank keeps its block. ``moe``:
+    the run options' ``moe_sharding``."""
+    import dataclasses
+    import torch.distributed as dist
     from repro_torch.data.tokens import local_rows, make_batch_iter
     from repro_torch.distribution import sharding as shd
     from repro_torch.launch import train as LT
@@ -4727,7 +4817,10 @@ def _dist_part(mesh, cfg, batch, kernels, *, compare):
     from repro_torch.runtime.steps import init_train_state, make_train_step
 
     dev, steps, seq = mesh.device, TRAIN_DIST["steps"], TRAIN_DIST["seq"]
-    model = Model(cfg, LT.train_options(seq))
+    opts = LT.train_options(seq)
+    if moe is not None:
+        opts = dataclasses.replace(opts, moe_sharding=moe)
+    model = Model(cfg, opts)
     axes = model.batch_axes(mesh)
     rows = torch.as_tensor(local_rows(batch, mesh.index(axes),
                                       mesh.axis_size(axes)), device=dev)
@@ -4759,7 +4852,8 @@ def _dist_part(mesh, cfg, batch, kernels, *, compare):
         secs.append(sec)
     launches = {n: [k.LAUNCHES, k.BWD_LAUNCHES] for n, k in kernels.items()}
     run = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
-           "seq": seq, "rows": len(rows), "params": _n_params(full)
+           "seq": seq, "mesh": list(mesh.devices.shape), "moe": moe,
+           "rows": len(rows), "params": _n_params(full)
            if compare else None, "init_s": init_s, "metrics": metrics,
            "step_s": secs, "launches": launches,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -4773,7 +4867,13 @@ def _dist_part(mesh, cfg, batch, kernels, *, compare):
     del state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
-    if compare:
+    if compare and turns:
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                run["plain"] = _dist_compare(model, mesh, full, batches,
+                                             mine)
+            dist.barrier()
+    elif compare:
         run["plain"] = _dist_compare(model, mesh, full, batches, mine)
     return run
 
@@ -4944,37 +5044,61 @@ def phase_train_dist(smi):
     (c) mamba2-370m at its published width cut to 4 of 48 layers, 3 steps
         at 4 x 2,048 tokens against the steps without a mesh, K4 once per
         layer and step both ways.
+    (d) the model axis computed (``sharding.ModelSplit``): a second world
+        of TRAIN_DIST_SHARED ranks on card 0 through gloo (which carries
+        CUDA tensors through the host; NCCL refuses a card twice), laid
+        out as (1, 2): llama3-8b cut to 2 layers, each rank its own heads
+        (K3 both ways at 16 of 32 query heads over 4 of 8 kv heads),
+        hidden columns and vocab rows, 3 steps against the steps without
+        a mesh (the ranks take turns on the card). Its seconds a step
+        are two processes sharing one card and the host's copies of
+        every all-reduce: not a speed.
+    With four cards also (a) and (c) at (1, 4) and (2, 2) (the split
+    over 4 and over 2 ranks with ZeRO-3 over 2), (e) mixtral-8x7b cut
+    to 2 layers at (1, 4) under ``moe_sharding="ep"`` against the steps
+    without a mesh, and (b) at TRAIN_DIST_B_MESH.
 
     Held: every rank's losses and norms the same; at one rank the sharded
     steps bit for bit the steps without a mesh (losses, norms, every
     param and moment); at more, the losses and norms within
     TRAIN_LOSS_TOL relative and every rank's blocks of the moments and
-    params within their tolerances (``_dist_compare``). Prints each part's
-    losses, seconds a step (the first apart), tokens per second, peak
-    memory, bytes gathered and reduced per step, and the launches per
-    rank; the card's name and power limit."""
+    params within their tolerances (``_dist_compare``); K3 or K4 once a
+    layer and step both ways on every rank. Prints each part's losses,
+    seconds a step (the first apart), tokens per second, peak memory,
+    bytes gathered, reduced and moved over ``"model"`` per step, and the
+    launches per rank; the card's name and power limit."""
     import shutil
     from repro_torch.launch.mesh import spawn_world
     t_phase = time.perf_counter()
     world = _dist_world(TRAIN_DIST["batch"])
-    tmp = ROOT / "build" / "chip_smoke_train_dist"
-    shutil.rmtree(tmp, ignore_errors=True)
-    tmp.mkdir(parents=True)
-    _, spawn_s = timed(lambda: spawn_world(
-        _train_dist_rank, world, (world, str(tmp)),
-        deadline=TRAIN_DIST_DEADLINE))
-    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
-             for r in range(world)]
-    shutil.rmtree(tmp)
-    parts, misses = {}, []
-    for p in ("a", "c", "b"):
-        if p not in ranks[0]:
-            continue
-        try:
-            parts[p] = _held_dist(p, world, [g[p] for g in ranks])
-        except AssertionError as e:     # raised below, after the line
-            misses.append(str(e))
-            parts[p] = {"miss": str(e)}
+    parts, misses, k3, k4 = {}, [], [0, 0], [0, 0]
+    spawn_s = {}
+    for name, fn, n in (("nccl", _train_dist_rank, world),
+                        ("gloo", _train_dist_shared_rank,
+                         TRAIN_DIST_SHARED)):
+        tmp = ROOT / "build" / f"chip_smoke_train_dist_{name}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir(parents=True)
+        _, spawn_s[name] = timed(lambda: spawn_world(
+            fn, n, (n, str(tmp)), deadline=TRAIN_DIST_DEADLINE))
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(n)]
+        shutil.rmtree(tmp)
+        for p in ranks[0]:
+            if p in ("rank", "shape"):
+                continue
+            runs = [g[p] for g in ranks]
+            for g in runs:
+                for i in (0, 1):
+                    k3[i] += g["launches"].get("k3", [0, 0])[i]
+                    k4[i] += g["launches"].get("k4", [0, 0])[i]
+            try:
+                parts[p] = _held_dist(p, n, runs)
+            except AssertionError as e:     # raised below, after the line
+                misses.append(str(e))
+                parts[p] = {"miss": str(e)}
+            parts[p]["mesh"] = runs[0]["mesh"]
+            parts[p]["backend"] = name
     if world < TRAIN_DIST_FULL:
         parts["b"] = {"skipped": (
             f"{world} card(s): llama3-8b's 32 layers hold 8.03B parameters, "
@@ -4982,17 +5106,47 @@ def phase_train_dist(smi):
             f"the part needs {TRAIN_DIST_FULL} cards (32 GB of state each)")}
         print(f"train_dist (b): skipped, {parts['b']['skipped']}",
               flush=True)
-    emit("train_dist", world=world, backend="nccl",
-         mesh=ranks[0]["shape"], spawn_s=spawn_s,
+    emit("train_dist", world=world, backend="nccl; (d) gloo, "
+         f"{TRAIN_DIST_SHARED} ranks on card 0", spawn_s=spawn_s,
          phase_s=time.perf_counter() - t_phase, parts=parts,
          nvidia_smi=smi)
     if misses:
         raise AssertionError("; ".join(misses))
-    k3 = [sum(g[p]["launches"]["k3"][i] for g in ranks
-              for p in ("a", "b") if p in g) for i in (0, 1)]
-    k4 = [sum(g["c"]["launches"]["k4"][i] for g in ranks) for i in (0, 1)]
     return {"k3_fwd": k3[0], "k3_bwd": k3[1], "k4_fwd": k4[0],
-            "k4_bwd": k4[1]}
+            "k4_bwd": k4[1],
+            "split": {p: parts[p]["launches"][0]
+                      for p in ("d", "a (1, 4)", "c (1, 4)") if p in parts}}
+
+
+def phase_time_split(dev, td):
+    """K3 and K4, forward and backward, at the model axis's local shapes
+    (``SPLIT_K3``: llama3-8b's 32 heads over 8 kv heads cut by m = 4, B
+    = 4, S = 2,048, D = 128, causal; ``SPLIT_K4``: mamba2-370m's 8 of 32
+    heads), float32: kernel, plain version and library call (SDPA and
+    its backward; none for K4), CUDA-event medians, each output held
+    against its plain version (``_time_k3``, ``_time_ssd``,
+    ``_time_k3_bwd``, ``_time_k4_bwd``), beside the bounds and the
+    launches a rank in ``train_dist``'s split parts (``td["split"]``:
+    (d) at m = 2 on one card, and (a) and (c) at (1, 4) with four
+    cards)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd as SSD
+    gen = torch.Generator(device=dev).manual_seed(30)
+    B, S, H, G, D = SPLIT_K3
+    k3 = _time_k3(FA, F, (B, S, H, D), gen, dev, reps=20, kv_heads=G)
+    k3_bwd = _time_k3_bwd((B, S, S, H, G, D, True, None), gen, dev,
+                          torch.float32)
+    *args, _ = ssd_inputs(*SPLIT_K4[:6], gen, dev)
+    k4 = _time_ssd(SSD, args, SPLIT_K4)
+    del args
+    k4_bwd = _time_k4_bwd("split", SPLIT_K4, gen, dev, torch.float32)
+    torch.cuda.empty_cache()
+    out = {"flash_attention": k3, "flash_attention_bwd": k3_bwd,
+           "ssd_scan": k4, "ssd_scan_bwd": k4_bwd,
+           "launches_per_rank": td["split"]}
+    emit("time_split", **out)
+    return out
 
 
 def time_shards(store, plans, host):
@@ -5403,6 +5557,7 @@ def run(dev) -> None:
     gc.collect()            # its stores and registries refer to each other
     phase_dist(m, sd, smi)
     td = phase_train_dist(smi)
+    phase_time_split(dev, td)
     tt = phase_tiers(m)
     many = phase_time_many(mm, pp, tt)
     phase_obs(dev)

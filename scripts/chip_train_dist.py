@@ -5,11 +5,15 @@
     python3 scripts/chip_train_dist.py       # from the repository root
 
 One NCCL rank per visible card (as many as divide the global batch of
-4 rows): on one card parts (a) and (c) of ``train_dist``; with four
-cards also (b), llama3-8b at full depth. ``chip_smoke.py`` runs the same
-phase among all the others; this script is the short way to run it on
-a machine with several cards. Prints the phases' JSON lines and the
-tests' summary; exits non-zero on any failure.
+4 rows): on one card parts (a) and (c) of ``train_dist`` and part (d),
+the model axis split over two gloo ranks on the card; with four cards
+also (a) and (c) at (1, 4) and (2, 2), (e), mixtral-8x7b at (1, 4)
+under ``moe_sharding="ep"``, and (b), llama3-8b at full depth; then
+``time_split`` (K3 and K4 both ways at the split's local shapes).
+``chip_smoke.py`` runs the same phases among all the others; this script
+is the short way to run them on a machine with several cards. Prints
+the phases' JSON lines and the tests' summary; exits non-zero on any
+failure.
 """
 import os
 import subprocess
@@ -32,7 +36,9 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = C.phase_device()
     C.phase_build()
-    print("launches", C.phase_train_dist(smi), flush=True)
+    td = C.phase_train_dist(smi)
+    print("launches", td, flush=True)
+    C.phase_time_split(torch.device("cuda"), td)
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
          "-m", "cuda", "tests/test_torch_cuda.py", "-k", "nccl"],

@@ -30,10 +30,33 @@ that its place on the mesh selects (``shard_tensor``).
   load-balance counts); ``norm_sums`` sums each leaf's sum of squares
   over the axes it is sharded on (the global-norm clip).
 
-A deliberate difference: the reference's ``shard()`` constraints on
-activations change no value, and the port does not put them into the
-models. It lays the batch out itself (``data/tokens.local_rows``): each
-rank runs its own rows through the whole model.
+The model axis is computed, not only stored (``ModelSplit``, the
+layout's ``split`` where ``"model"`` holds more than one rank). The
+reference's ``shard()`` constraints on activations (heads, the hidden
+``"tensor"`` columns, the ``"vocab"`` logits, the experts) make GSPMD
+give each device of a model group its own part of each product; the
+port writes that split into the models as Megatron's pair of
+collectives over ``"model"``: ``f``, the identity forward whose
+backward all-reduces the gradient, where a replicated activation enters
+a column-parallel product, and ``g``, an all-reduce forward with the
+identity backward, after each row-parallel product. A leaf the split
+consumes is used at its use in one of three ways (``leaf``'s ``mode``):
+
+- ``"local"``: its ``"model"`` dim stays this rank's block (only its
+  other axes are gathered), and so does its gradient;
+- ``"shared"``: a leaf whose rows every rank of the model group reads
+  only in part (the SSM's per-head ``(H,)`` leaves, replicated in the
+  reference; the expert weights under ``moe_sharding="cap"``; the kv
+  projections where the kv heads do not split): gathered as before, its
+  gradient summed over ``"model"`` (a reduce-scatter where the
+  ``"model"`` dim is gathered, else an all-reduce);
+- ``None``: gathered whole (the replicated leaves that feed ``f``, whose
+  gradients come back equal on every rank, and every leaf of a block
+  whose counts do not split).
+
+The batch's rows are laid out by the port itself
+(``data/tokens.local_rows``): each rank of a model group runs the same
+rows, its own part of each product.
 """
 from __future__ import annotations
 
@@ -62,6 +85,7 @@ DEFAULT_RULES = {
 }
 # the stacked layer trees, gathered a layer at a time
 LAYER_KEYS = ("layers", "enc_layers", "dec_layers")
+MODEL = "model"           # the mesh axis the split computes over
 
 
 class Spec(tuple):
@@ -258,8 +282,12 @@ class _SumGrad(torch.autograd.Function):
 
 @dataclass(frozen=True)
 class _Plan:
-    dims: Tuple        # (dim, group, n, index, summed) of each sharded dim
-    rest: Tuple[str, ...]   # batch axes the leaf is not sharded on
+    dims: Tuple        # (dim, group, n, index, summed) of each gathered dim
+    rest: Tuple[str, ...]   # axes its gradient is summed over, unsharded
+
+
+# a leaf's use under the model axis's split (``StepLayout.leaf``)
+MODES = (None, "local", "shared")
 
 
 class StepLayout:
@@ -270,8 +298,16 @@ class StepLayout:
     the same order: each gather and each reduction is a collective.
 
     ``bytes`` counts what this rank moved since it was made: the bytes
-    each gather returned (``gathered``), and the bytes each
-    reduce-scatter and all-reduce took in (``reduced``)."""
+    each gather of a leaf returned (``gathered``), the bytes each
+    reduce-scatter and all-reduce of a leaf's gradient took in
+    (``reduced``), and the bytes the model axis's collectives on
+    activations took in (``model``: ``f``'s and ``g``'s all-reduces,
+    the split norms' and cross entropy's, the SSM's gathers of B and C
+    and their reduce-scatters).
+
+    ``split`` is the model axis's ``ModelSplit`` where ``"model"`` holds
+    more than one rank, else None (every leaf then gathered whole, the
+    step without the split, bit for bit)."""
 
     def __init__(self, mesh, specs: Dict, batch_axes: Tuple[str, ...]):
         self.mesh = mesh
@@ -280,20 +316,29 @@ class StepLayout:
         self.n_batch = mesh.axis_size(self.batch_axes)
         self.layer_specs = {k: tree_map(lambda s: Spec(s[1:]), specs[k])
                             for k in LAYER_KEYS if k in specs}
-        self.bytes = {"gathered": 0, "reduced": 0}
-        self._plans: Dict[Spec, _Plan] = {}
+        self.bytes = {"gathered": 0, "reduced": 0, "model": 0}
+        self._plans: Dict[Tuple[Spec, Optional[str]], _Plan] = {}
         self._full = weakref.WeakValueDictionary()
+        self.split = (ModelSplit(self) if mesh.shape.get(MODEL, 1) > 1
+                      else None)
 
     # ------------------------------ plans ---------------------------------
-    def plan(self, spec: Spec) -> _Plan:
-        p = self._plans.get(spec)
+    def plan(self, spec: Spec, mode: Optional[str] = None) -> _Plan:
+        """How a leaf of ``spec`` is gathered at a use of ``mode``
+        (``MODES``) and how its gradient comes back."""
+        p = self._plans.get((spec, mode))
         if p is None:
+            if mode not in MODES:
+                raise ValueError(f"a leaf's mode is one of {MODES}, not "
+                                 f"{mode!r}")
             dims = []
             for d, axes in spec.dims():
                 group = self.mesh.group(axes)
-                if group is None:
+                if group is None or (mode == "local" and MODEL in axes):
                     continue
-                summed = [a in self.batch_axes for a in axes]
+                summed = [a in self.batch_axes
+                          or (mode == "shared" and a == MODEL)
+                          for a in axes]
                 if any(summed) and not all(summed):
                     raise NotImplementedError(
                         f"dim {d} of {spec} mixes the batch's axes "
@@ -301,8 +346,12 @@ class StepLayout:
                 dims.append((d, group, self.mesh.axis_size(axes),
                              self.mesh.index(axes), all(summed)))
             sharded = spec.axes()
-            rest = tuple(a for a in self.batch_axes if a not in sharded)
-            p = self._plans[spec] = _Plan(
+            rest = set(self.batch_axes)
+            if mode == "shared":
+                rest.add(MODEL)
+            rest = tuple(a for a in self.mesh.axis_names
+                         if a in rest and a not in sharded)
+            p = self._plans[(spec, mode)] = _Plan(
                 tuple(dims), rest if self.mesh.group(rest) else ())
         return p
 
@@ -329,12 +378,15 @@ class StepLayout:
         return g
 
     # ------------------------------- use ----------------------------------
-    def leaf(self, x: torch.Tensor, spec: Spec) -> torch.Tensor:
+    def leaf(self, x: torch.Tensor, spec: Spec,
+             mode: Optional[str] = None) -> torch.Tensor:
         """The whole leaf from this rank's block ``x`` (autograd: the
         gradient comes back summed over the batch's axes, as this rank's
-        block). ``x`` itself when nothing is sharded over more than one
-        rank and the batch is not split."""
-        plan = self.plan(spec)
+        block), but for its ``"model"`` dim where ``mode`` is
+        ``"local"``, and summed over ``"model"`` too where it is
+        ``"shared"`` (``MODES``). ``x`` itself when nothing is gathered
+        and nothing summed."""
+        plan = self.plan(spec, mode)
         if plan.rest:
             x = _SumGrad.apply(x, self, plan.rest)
         if not plan.dims:
@@ -344,18 +396,25 @@ class StepLayout:
         self._full[full.untyped_storage().data_ptr()] = full
         return full
 
-    def tree(self, tree, specs):
-        return ({k: self.tree(v, specs[k]) for k, v in tree.items()}
+    def tree(self, tree, specs, modes=None):
+        """``leaf`` of every leaf of ``tree``; ``modes`` maps a key of
+        its first level to that leaf's mode (absent: None)."""
+        modes = modes or {}
+        return ({k: (self.tree(v, specs[k]) if isinstance(v, dict) else
+                     self.leaf(v, specs[k], modes.get(k)))
+                 for k, v in tree.items()}
                 if isinstance(tree, dict) else self.leaf(tree, specs))
 
-    def top(self, params):
-        """Every leaf of ``params`` outside the stacked layers, whole."""
-        return {k: (v if k in LAYER_KEYS else self.tree(v, self.specs[k]))
-                for k, v in params.items()}
+    def top(self, params, modes=None):
+        """Every leaf of ``params`` outside the stacked layers, whole
+        (or as ``modes`` says, as in ``tree``)."""
+        rest = {k: v for k, v in params.items() if k not in LAYER_KEYS}
+        return {**params, **self.tree(rest, self.specs, modes)}
 
-    def layer(self, lp, key: str = "layers"):
-        """One layer's leaves (unbound from the stack ``key``), whole."""
-        return self.tree(lp, self.layer_specs[key])
+    def layer(self, lp, key: str = "layers", modes=None):
+        """One layer's leaves (unbound from the stack ``key``), whole
+        (or as ``modes`` says, as in ``tree``)."""
+        return self.tree(lp, self.layer_specs[key], modes)
 
     @torch.no_grad()
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -409,3 +468,119 @@ class StepLayout:
 
         with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
             yield
+
+
+# ---------------------------------------------------------------------------
+# the model axis's compute split
+# ---------------------------------------------------------------------------
+class _F(torch.autograd.Function):
+    """Megatron's f: the identity; the backward all-reduces the gradient
+    over the model group (each rank's part of a column-parallel product
+    gives a part of its input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.all_reduce(g), None
+
+
+class _G(torch.autograd.Function):
+    """Megatron's g: the all-reduce of the row-parallel products' parts;
+    the backward is the identity (the gradient of the sum is every
+    rank's)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        return split.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Sum(torch.autograd.Function):
+    """A sum over the model group that each rank then uses in its own
+    way (a split norm's sum of squares): all-reduced both ways."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return split.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.all_reduce(g), None
+
+
+class _GatherLast(torch.autograd.Function):
+    """Every rank's columns along the last dim, in rank order; the
+    backward sums each rank's gradient of the whole and keeps this
+    rank's columns (a reduce-scatter: every rank's heads read them)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        out = _all_gather(x, x.dim() - 1, split.group, split.m)
+        split.layout.bytes[MODEL] += out.numel() * out.element_size()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        split = ctx.split
+        split.layout.bytes[MODEL] += g.numel() * g.element_size()
+        return _reduce_scatter(g, g.dim() - 1, split.group, split.m), None
+
+
+class ModelSplit:
+    """One rank's part of the model group (the ranks that differ only on
+    ``"model"``): ``m`` ranks, this one the ``index``-th. Each rank of
+    the group runs the same rows; the models split each product of a
+    block whose counts divide by ``m`` (heads, hidden columns, experts,
+    capacity slots, vocab rows) and join them with ``f`` and ``g``.
+    Every collective is one of the group's, counted in the layout's
+    ``bytes["model"]``."""
+
+    def __init__(self, layout: "StepLayout"):
+        mesh = layout.mesh
+        self.layout = layout
+        self.m = mesh.shape[MODEL]
+        self.index = mesh.index((MODEL,))
+        self.group = mesh.group((MODEL,))
+
+    def part(self, n: int) -> Tuple[int, int]:
+        """This rank's block [lo, hi) of ``n`` rows cut into ``m`` equal
+        blocks (``n`` a multiple of ``m``)."""
+        if n % self.m:
+            raise ValueError(f"{n} does not split over {self.m} ranks")
+        size = n // self.m
+        return self.index * size, (self.index + 1) * size
+
+    def span(self, n: int) -> Tuple[int, int]:
+        """This rank's share [lo, hi) of ``n`` rows cut as evenly as
+        they go (the first ranks' shares one smaller where ``m`` does not
+        divide ``n``)."""
+        return n * self.index // self.m, n * (self.index + 1) // self.m
+
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        """``x`` reduced over the group (a new tensor; no gradient)."""
+        x = x.detach().clone()
+        self.layout.bytes[MODEL] += x.numel() * x.element_size()
+        dist.all_reduce(x, op=op, group=self.group)
+        return x
+
+    def f(self, x: torch.Tensor) -> torch.Tensor:
+        return _F.apply(x, self)
+
+    def g(self, x: torch.Tensor) -> torch.Tensor:
+        return _G.apply(x, self)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return _Sum.apply(x, self)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherLast.apply(x, self)

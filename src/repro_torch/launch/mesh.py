@@ -69,8 +69,8 @@ GATHERED = {"calls": 0, "bytes": 0}
 
 def init_shard_group(device=None, *, init_method: str = "env://",
                      rank: int = None, world_size: int = None,
-                     timeout: datetime.timedelta = TIMEOUT
-                     ) -> torch.device:
+                     timeout: datetime.timedelta = TIMEOUT,
+                     backend: str = None) -> torch.device:
     """Join this process to the default group and return its device.
 
     ``device`` ``None`` means CUDA (``repro_torch.device.resolve``: no
@@ -82,7 +82,10 @@ def init_shard_group(device=None, *, init_method: str = "env://",
     ``file:///path`` or ``tcp://localhost:PORT`` with ``rank`` and
     ``world_size``. ``timeout`` bounds every collective of the group, so
     a rank that never arrives fails the others instead of hanging
-    them."""
+    them. ``backend="gloo"`` asked for by name on the card carries CUDA
+    tensors through the host: several ranks on one card, where NCCL
+    refuses a card twice (a ``TrainMesh`` must then be given the same
+    ``backend``)."""
     dev = resolve(device)
     if rank is None:
         rank = int(os.environ.get("RANK", 0))
@@ -93,19 +96,24 @@ def init_shard_group(device=None, *, init_method: str = "env://",
         dev = torch.device("cuda", local)
     kw = {} if world_size is None else {"rank": rank,
                                         "world_size": world_size}
-    dist.init_process_group(BACKENDS[dev.type], init_method=init_method,
-                            timeout=timeout, **kw)
+    if backend not in (None, BACKENDS[dev.type], "gloo"):
+        raise ValueError(f"a rank on {dev} joins through "
+                         f"{BACKENDS[dev.type]} or gloo, not {backend}")
+    dist.init_process_group(backend or BACKENDS[dev.type],
+                            init_method=init_method, timeout=timeout, **kw)
     return dev
 
 
-def check_backend(group, device: torch.device) -> None:
-    """Raise ``ValueError`` unless ``group`` talks through the backend of
-    ``device`` (NCCL for CUDA, gloo for the CPU), naming both."""
-    backend = dist.get_backend(group)
-    if backend != BACKENDS[device.type]:
-        raise ValueError(f"a store on {device} needs a "
-                         f"{BACKENDS[device.type]} group; this group's "
-                         f"backend is {backend}")
+def check_backend(group, device: torch.device, backend: str = None
+                  ) -> None:
+    """Raise ``ValueError`` unless ``group`` talks through ``backend``
+    (None: the backend of ``device``, NCCL for CUDA, gloo for the CPU),
+    naming both."""
+    want = backend or BACKENDS[device.type]
+    got = dist.get_backend(group)
+    if got != want:
+        raise ValueError(f"a store on {device} needs a {want} group; this "
+                         f"group's backend is {got}")
 
 
 def make_shard_group(n_shards: int, group=None) -> Tuple[object, range]:
@@ -230,11 +238,13 @@ class TrainMesh(MeshShape):
     bounds every collective of its groups, as ``init_shard_group``'s
     bounds the world's. Raises ``ValueError`` when the layout needs more
     ranks than the world has, and when the world's backend does not fit
-    the device."""
+    the device (or is not ``backend``, asked for by name: gloo for
+    several ranks on one card, ``init_shard_group``)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  devices: Sequence[int] = None, device=None,
-                 timeout: datetime.timedelta = TIMEOUT):
+                 timeout: datetime.timedelta = TIMEOUT,
+                 backend: str = None):
         dev = resolve(device)
         super().__init__(shape, axis_names, devices)
         if not dist.is_initialized():
@@ -247,7 +257,7 @@ class TrainMesh(MeshShape):
                              f"the world has {world}")
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        check_backend(dist.group.WORLD, dev)
+        check_backend(dist.group.WORLD, dev, backend)
         self.device = dev
         self.rank = dist.get_rank()
         self._at = (self.coords(self.rank)

@@ -14,14 +14,17 @@
 Across cards, one process a card under ``torchrun``:
 
     torchrun --nproc-per-node=N -m repro_torch.launch.train \
-        --arch llama3-8b --model-axis 1 ...
+        --arch llama3-8b --model-axis 2 ...
 
 With ``WORLD_SIZE`` > 1 in the environment the process joins the world
 (``launch.mesh.init_shard_group``: NCCL on the card, gloo with
 ``--device cpu``), lays it out as (world / model axis, model axis)
 (``make_host_mesh``; the world must divide by ``--model-axis``), cuts
 the train state into its blocks (``runtime/steps.py``) and runs its
-rows of each global batch. Rank 0 prints the log.
+rows of each global batch; the ranks of a model group split each
+layer's heads, hidden columns and vocab between them. Rank 0 prints the
+log, each logged step with the bytes a rank gathered, reduced and moved
+over ``"model"`` a step so far.
 
 The reference's flags and run options: ``remat="none"``, float32
 compute, microbatches from ``--microbatches``, a warmup of 20 steps.
@@ -135,9 +138,12 @@ def _run(args, dev, world):
         if (step + 1) % args.log_every == 0 or step == start:
             loss = float(metrics["loss"])
             losses.append(loss)
+            moved = "" if mesh is None else " bytes/step " + " ".join(
+                f"{k} {v / (step + 1 - start):.0f}"
+                for k, v in step_fn.layout.bytes.items())
             say(f"step {step + 1:5d} loss {loss:8.4f} "
                 f"gnorm {float(metrics['gnorm']):7.3f} "
-                f"({(time.time() - t0):.1f}s)", flush=True)
+                f"({(time.time() - t0):.1f}s){moved}", flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             CK.save(args.ckpt_dir, state, step=step + 1,
                     shardings=shardings)

@@ -20,6 +20,24 @@ rank returns its share, E * sum_e (its probs' sum_e / N) (count_e / N)
 with N the global token count; the shares sum to the global loss and
 their gradients to its gradient. The capacity is per sequence, so the
 dispatch is each rank's own.
+
+Across the model group (``sp``, the train step's
+``sharding.ModelSplit``) every rank holds the same tokens, so the
+routing, the dispatch positions and the aux loss are computed alike on
+each, and each of the reference's ``RunOptions.moe_sharding`` rules
+reduces to a partial of ``y`` on each rank and one ``g``:
+
+- ``"tp"``: each rank's ``expert_ff`` columns of every expert;
+- ``"cap"``: each rank's share of the C capacity slots (the expert
+  weights whole on every rank, their gradients summed over the group);
+- ``"ep"``: each rank's E / m experts.
+
+The experts' input enters through ``f``, and so does the gate, so the
+router's gradient through the combine weights, a part on each rank,
+comes out whole. The reference's ``"expert"`` rule would want an
+all-to-all only if the batch's rows ran over ``"model"``; they do not
+(the rules put ``"batch"`` on ``("pod", "data")``), so each rank
+dispatches the tokens it already has to its own experts.
 """
 from __future__ import annotations
 
@@ -41,13 +59,18 @@ def route(probs: torch.Tensor, k: int):
 
 def moe_ffn(p, x, *, n_experts: int, top_k: int,
             capacity_factor: float = 1.25, group_size: int = 0,
-            layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            layout=None, sp=None, sharding: str = "tp"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d). p: router (d,E), w_gate/w_up (E,d,f), w_down (E,f,d).
     Returns (y (B,S,d) in x's dtype, the float32 aux load-balance loss).
 
     ``group_size`` splits a sequence longer than it (and a multiple of
     it) into token groups before dispatch (GShard's group dim), so the
-    dispatch tensors scale with the group, not S."""
+    dispatch tensors scale with the group, not S. With ``sp`` the
+    experts' products are this rank's part under ``sharding`` (the
+    module's docstring): w_gate, w_up and w_down its ``expert_ff``
+    columns (``"tp"``) or its experts (``"ep"``), or whole
+    (``"cap"``)."""
     B0, S0, d = x.shape
     regroup = group_size and S0 > group_size and S0 % group_size == 0
     if regroup:
@@ -60,6 +83,9 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int,
     probs = torch.softmax(logits, dim=-1)
     gate, idx = route(probs, K)                                 # (B,S,K)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    xd = x if sp is None else sp.f(x)     # the experts' input
+    if sp is not None:
+        gate = sp.f(gate)
 
     # load-balance aux loss (Switch): E * sum_e fraction_e * prob_e
     if layout is None or layout.n_batch == 1:
@@ -89,13 +115,22 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int,
     combine = (disp_k * gate[..., None, None].to(x.dtype)).sum(dim=2)
     del slot, disp_k
 
-    xe = torch.einsum("bsec,bsd->ebcd", dispatch, x)            # (E,B,C,d)
+    if sp is not None and sharding == "ep":       # this rank's experts
+        e0, e1 = sp.part(E)
+        dispatch, combine = dispatch[:, :, e0:e1], combine[:, :, e0:e1]
+    elif sp is not None and sharding == "cap":    # this rank's slots
+        c0, c1 = sp.span(C)
+        dispatch, combine = dispatch[..., c0:c1], combine[..., c0:c1]
+
+    xe = torch.einsum("bsec,bsd->ebcd", dispatch, xd)           # (E,B,C,d)
     g = torch.einsum("ebcd,edf->ebcf", xe, p["w_gate"].to(x.dtype))
     u = torch.einsum("ebcd,edf->ebcf", xe, p["w_up"].to(x.dtype))
     h = F.silu(g) * u
     del g, u
     ye = torch.einsum("ebcf,efd->ebcd", h, p["w_down"].to(x.dtype))
     y = torch.einsum("bsec,ebcd->bsd", combine, ye)
+    if sp is not None:
+        y = sp.g(y)
     if regroup:
         y = y.reshape(B0, S0, d)
     return y, aux.float()

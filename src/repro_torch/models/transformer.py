@@ -12,6 +12,18 @@ the reference's grouped scan of same-window layers (``_layer_groups``)
 has no counterpart here. The encoder-decoder family (whisper) is
 ``models/whisper.py``.
 
+A train step across ranks (a ``layout``, ``distribution/sharding``)
+computes the ``"model"`` axis where the reference's ``shard()``
+constraints split it (``split_plan``): each rank of a model group runs
+its own H/m query heads (``_maybe_head_shard``'s rule, H % m == 0; the
+kv heads G/m where G % m == 0, else the kv heads its query heads read),
+its SSM heads, hidden columns, experts or capacity slots and vocab rows,
+and joins them with ``f`` and ``g``. A block whose counts do not divide
+keeps the gather at use (every rank computes it whole, as without the
+split): a layout, not a fallback, and ``split_plan`` names it; hymba-1.5b
+at its published width (25 heads, 25 SSM heads) keeps its mixer so at
+any model axis of 2 or 4, and splits its FFN.
+
 Decode updates the cache in place instead of returning a copy: the kv
 cache (``write_slot`` at the step's slot; 24 layers at 2,056 positions
 are 400 MB) and the SSM state and conv caches (``copy_``; mamba2-370m's
@@ -34,7 +46,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssd
 from repro_torch.models.attention import apply_rope, attend, decode_attend
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
-                                       padded_vocab, rms_norm, softmax_xent)
+                                       padded_vocab, rms_norm,
+                                       rms_norm_split, softmax_xent)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.options import RunOptions
 
@@ -192,23 +205,167 @@ def model_meta(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 # ===========================================================================
+# The model axis's split
+# ===========================================================================
+@dataclass(frozen=True)
+class SplitPlan:
+    """Which blocks a model group of ``m`` ranks splits (each True where
+    its counts divide by m): ``attn`` the query heads (and ``kv`` the kv
+    heads too), ``ssm`` the SSM heads and the G N columns of B and C
+    (the hybrid's mixer needs both ``attn`` and ``ssm``), ``mlp`` the
+    hidden columns, ``moe`` the experts' part under
+    ``RunOptions.moe_sharding``, ``vocab`` the vocab rows."""
+    attn: bool = False
+    kv: bool = False
+    ssm: bool = False
+    mlp: bool = False
+    moe: bool = False
+    vocab: bool = False
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(cfg: ArchConfig, opts: RunOptions, m: int) -> SplitPlan:
+    """The blocks of ``cfg`` a model axis of ``m`` splits. The rule is
+    the reference's: a dim splits where the mesh's ``"model"`` size
+    divides it (the query heads as ``_maybe_head_shard`` asks); the SSM
+    also needs its B and C groups to line up with its heads (G % m == 0
+    or m % G == 0). Whatever does not split is gathered at use."""
+    H, G = cfg.n_heads, cfg.n_kv_heads
+    attn = bool(H) and H % m == 0
+    ssm = False
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        di = cfg.d_inner if cfg.family == "ssm" else H * cfg.hd
+        groups = s.n_groups
+        ssm = ((di // s.head_dim) % m == 0 and (groups * s.d_state) % m == 0
+               and (groups % m == 0 or m % groups == 0))
+    if cfg.family == "ssm":
+        attn = False
+    if cfg.family == "hybrid":          # the mixer splits both or neither
+        attn = ssm = attn and ssm
+    moe = False
+    if cfg.moe is not None:
+        moe = {"tp": cfg.d_ff % m == 0, "ep": cfg.moe.n_experts % m == 0,
+               "cap": True}[opts.moe_sharding]
+    return SplitPlan(
+        attn=attn, kv=attn and G % m == 0, ssm=ssm,
+        mlp=cfg.family not in ("ssm", "moe") and cfg.d_ff % m == 0,
+        moe=moe, vocab=padded_vocab(cfg.vocab) % m == 0)
+
+
+_ATTN_LOCAL = ("wq", "bq", "wo", "x_wq", "x_bq", "x_wo")
+_KV = ("wk", "wv", "bk", "bv", "x_wk", "x_wv", "x_bv")
+_SSM_LOCAL = ("wx", "wz", "wb", "wc", "wdt", "conv_wx", "conv_bx",
+              "conv_wb", "conv_bb", "conv_wc", "conv_bc", "gln", "wout",
+              "norm_attn", "norm_ssm")
+_SSM_PER_HEAD = ("dt_bias", "A_log", "Dskip")
+_FFN = ("w_gate", "w_up", "w_down", "b_up")
+
+
+def layer_modes(plan: Optional[SplitPlan], opts: RunOptions
+                ) -> Optional[Dict[str, str]]:
+    """Each layer leaf's mode at its use (``sharding.MODES``) under
+    ``plan``: its ``"model"`` dim kept local where a split block
+    consumes its block; its gradient summed over the group where a split
+    block reads a replicated leaf (or a gathered one) in part; else
+    gathered whole."""
+    if plan is None:
+        return None
+    modes: Dict[str, str] = {}
+    if plan.attn:
+        modes.update(dict.fromkeys(_ATTN_LOCAL, "local"))
+        modes.update(dict.fromkeys(_KV, "local" if plan.kv else "shared"))
+    if plan.ssm:
+        modes.update(dict.fromkeys(_SSM_LOCAL, "local"))
+        modes.update(dict.fromkeys(_SSM_PER_HEAD, "shared"))
+    if plan.mlp:
+        modes.update(dict.fromkeys(_FFN, "local"))
+    if plan.moe:
+        modes.update(dict.fromkeys(
+            _FFN, "shared" if opts.moe_sharding == "cap" else "local"))
+    return modes
+
+
+def top_modes(plan: Optional[SplitPlan]) -> Optional[Dict[str, str]]:
+    """The embedding's and the head's modes: local where the vocab
+    splits."""
+    if plan is None or not plan.vocab:
+        return None
+    return {"embed": "local", "head": "local"}
+
+
+@dataclass(frozen=True)
+class Splits:
+    """The ``sharding.ModelSplit`` each block runs under (None: whole)."""
+    plan: Optional[SplitPlan] = None
+    attn: Any = None
+    ssm: Any = None
+    mlp: Any = None
+    moe: Any = None
+    vocab: Any = None
+
+
+def splits(layout, cfg: ArchConfig, opts: RunOptions) -> Splits:
+    """The blocks' splits of a train step's ``layout`` (none without a
+    layout or where ``"model"`` holds one rank)."""
+    sp = None if layout is None else layout.split
+    if sp is None:
+        return Splits()
+    plan = split_plan(cfg, opts, sp.m)
+    return Splits(plan, **{k: sp if getattr(plan, k) else None
+                           for k in ("attn", "ssm", "mlp", "moe", "vocab")})
+
+
+def kv_heads(H: int, G: int, sp) -> list:
+    """The kv heads this rank's H/m query heads read, in order, where the
+    kv heads do not split over the group: each once where every one is
+    read by a run of the same number of consecutive query heads (GQA
+    over the local heads), else one per query head."""
+    R = H // G
+    h0, h1 = sp.part(H)
+    need = [h // R for h in range(h0, h1)]
+    uniq = sorted(set(need))
+    run = len(need) // len(uniq)
+    return uniq if need == [u for u in uniq for _ in range(run)] else need
+
+
+def _kv_cols(w, idx, hd: int):
+    """The columns of the kv heads ``idx`` of a (..., G*hd) leaf."""
+    return w.reshape(w.shape[:-1] + (-1, hd))[..., idx, :].reshape(
+        w.shape[:-1] + (len(idx) * hd,))
+
+
+# ===========================================================================
 # Blocks: forward (prefill) and decode
 # ===========================================================================
-def _qkv(p, xn, cfg: ArchConfig):
+def _qkv(p, xn, cfg: ArchConfig, sp=None):
+    """q, k, v of the normed input (entered through ``f`` by the caller
+    when ``sp``: this rank's query heads, and its kv heads or the kv
+    heads they read)."""
     B, S, _ = xn.shape
     H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = xn @ p["wq"], xn @ p["wk"], xn @ p["wv"]
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    if sp is not None:
+        if wk.shape[-1] == G * hd:       # whole: the kv heads to read
+            idx = kv_heads(H, G, sp)
+            wk, wv = _kv_cols(wk, idx, hd), _kv_cols(wv, idx, hd)
+            if cfg.qkv_bias:
+                bk, bv = _kv_cols(bk, idx, hd), _kv_cols(bv, idx, hd)
+        H, G = H // sp.m, wk.shape[-1] // hd
+    q, k, v = xn @ p["wq"], xn @ wk, xn @ wv
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + bk, v + bv
     return (q.reshape(B, S, H, hd), k.reshape(B, S, G, hd),
             v.reshape(B, S, G, hd))
 
 
 def _attention(p, xn, cfg: ArchConfig, opts: RunOptions, *,
-               window: Optional[int], pos_offset: int = 0):
+               window: Optional[int], pos_offset: int = 0, sp=None):
     """The attention of the normed input xn (B,S,d), before ``wo``:
-    (o (B,S,H*hd), k, v) with RoPE applied to q and k."""
-    q, k, v = _qkv(p, xn, cfg)
+    (o (B,S,H*hd), k, v) with RoPE applied to q and k (this rank's heads
+    with ``sp``)."""
+    q, k, v = _qkv(p, xn, cfg, sp)
     B, S = xn.shape[:2]
     positions = pos_offset + torch.arange(S, device=xn.device)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -220,10 +377,17 @@ def _attention(p, xn, cfg: ArchConfig, opts: RunOptions, *,
 
 def attn_apply(p, x, cfg: ArchConfig, opts: RunOptions, *,
                window: Optional[int], pos_offset: int = 0,
-               return_kv: bool = False):
-    o, k, v = _attention(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg, opts,
-                         window=window, pos_offset=pos_offset)
-    out = x + o @ p["wo"]
+               return_kv: bool = False, sp=None):
+    """x + attention(norm(x)) @ wo; with ``sp`` this rank's heads, the
+    normed input through ``f`` and ``wo``'s row-parallel parts summed by
+    ``g``."""
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if sp is not None:
+        xn = sp.f(xn)
+    o, k, v = _attention(p, xn, cfg, opts, window=window,
+                         pos_offset=pos_offset, sp=sp)
+    y = o @ p["wo"]
+    out = x + (y if sp is None else sp.g(y))
     return (out, (k, v)) if return_kv else out
 
 
@@ -271,37 +435,63 @@ def _ssm_pre(p, xn):
 
 
 def ssm_apply(p, x, cfg: ArchConfig, opts: RunOptions, *, di: int,
-              own_norm: bool = True, return_state: bool = False):
+              own_norm: bool = True, return_state: bool = False, sp=None):
     """Mamba2 block over the full sequence. x (B,S,d); ``di`` the inner
     width, with di / head_dim heads. Returns (y, the decode cache or
     None): with ``return_state`` the final SSM state and the last cw-1
     positions of each conv input. ``own_norm=False`` (the hybrid's SSM
     branch): x is already normed, and y is the gated, normed (B,S,di)
-    branch output, without ``wout`` or the residual."""
+    branch output, without ``wout`` or the residual.
+
+    With ``sp`` this rank's H/m heads: its columns of the projections and
+    the convs, K4 on its heads, the per-head leaves' rows; B and C (its
+    G N / m columns) gathered over the group after their convs, since
+    every head of a group reads all N (the gather's backward sums the
+    ranks' parts); ``gln``'s norm over the split ``di`` (its sum of
+    squares summed over the group); ``wout`` row-parallel, then ``g``.
+    The block's own input enters through ``f``; the hybrid's branch
+    (``own_norm=False``) takes it entered."""
     s = cfg.ssm
     B, S, _ = x.shape
     H, P = di // s.head_dim, s.head_dim
     G, N = s.n_groups, s.d_state
     xn = rms_norm(x, p["ln1"], cfg.norm_eps) if own_norm else x
+    if sp is not None and own_norm:
+        xn = sp.f(xn)
     x_raw, z, b, c, dtr = _ssm_pre(p, xn)
     x_in = F.silu(ssd.causal_conv(x_raw, p["conv_wx"], p["conv_bx"]))
     b_c = F.silu(ssd.causal_conv(b, p["conv_wb"], p["conv_bb"]))
     c_c = F.silu(ssd.causal_conv(c, p["conv_wc"], p["conv_bc"]))
+    dt_bias, A_log, Dskip = p["dt_bias"], p["A_log"], p["Dskip"]
+    if sp is not None:
+        h0, h1 = sp.part(H)
+        R = H // G                       # heads per group
+        g0, g1 = h0 // R, (h1 - 1) // R + 1
+        b_c = sp.gather(b_c).reshape(B, S, G, N)[:, :, g0:g1]
+        c_c = sp.gather(c_c).reshape(B, S, G, N)[:, :, g0:g1]
+        dt_bias, A_log, Dskip = dt_bias[h0:h1], A_log[h0:h1], Dskip[h0:h1]
+        H, G = h1 - h0, g1 - g0
     Bm = b_c.reshape(B, S, G, N)
     Cm = c_c.reshape(B, S, G, N)
-    dt = F.softplus(dtr + p["dt_bias"])
-    A = -torch.exp(p["A_log"].float())
+    dt = F.softplus(dtr + dt_bias)
+    A = -torch.exp(A_log.float())
     xh = x_in.reshape(B, S, H, P)
     y, state = ssd.ssd_scan(xh, dt, A, Bm, Cm, chunk=opts.ssd_chunk)
-    y = y + p["Dskip"][None, None, :, None] * xh
-    y = rms_norm(y.reshape(B, S, di) * F.silu(z), p["gln"], cfg.norm_eps)
+    y = y + Dskip[None, None, :, None] * xh
+    if sp is None:
+        y = rms_norm(y.reshape(B, S, di) * F.silu(z), p["gln"],
+                     cfg.norm_eps)
+    else:
+        y = rms_norm_split(y.reshape(B, S, H * P) * F.silu(z), p["gln"], sp,
+                           di, cfg.norm_eps)
     cache = None
     if return_state:
         cw = s.conv_width
         cache = {"ssm": state, "conv_x": x_raw[:, -(cw - 1):],
                  "conv_b": b[:, -(cw - 1):], "conv_c": c[:, -(cw - 1):]}
     if own_norm:
-        y = x + y @ p["wout"]
+        y = y @ p["wout"]
+        y = x + (y if sp is None else sp.g(y))
     return y, cache
 
 
@@ -337,27 +527,43 @@ def ssm_decode(p, x, cfg: ArchConfig, cache_l, *, di: int,
     return x + y @ p["wout"] if own_norm else y
 
 
-def _combine(p, o_attn, y_ssm, cfg: ArchConfig):
+def _combine(p, o_attn, y_ssm, cfg: ArchConfig, sp=None):
     """The hybrid's mix: each branch through its own RMSNorm, averaged,
-    then the output projection."""
-    comb = 0.5 * (rms_norm(o_attn, p["norm_attn"], cfg.norm_eps)
-                  + rms_norm(y_ssm, p["norm_ssm"], cfg.norm_eps))
-    return comb @ p["wo"]
+    then the output projection (with ``sp``: the norms over the split
+    width, ``wo`` row-parallel, then ``g``)."""
+    if sp is None:
+        comb = 0.5 * (rms_norm(o_attn, p["norm_attn"], cfg.norm_eps)
+                      + rms_norm(y_ssm, p["norm_ssm"], cfg.norm_eps))
+        return comb @ p["wo"]
+    di = cfg.n_heads * cfg.hd
+    comb = 0.5 * (rms_norm_split(o_attn, p["norm_attn"], sp, di,
+                                 cfg.norm_eps)
+                  + rms_norm_split(y_ssm, p["norm_ssm"], sp, di,
+                                   cfg.norm_eps))
+    return sp.g(comb @ p["wo"])
 
 
 def hybrid_parallel(p, x, cfg: ArchConfig, opts: RunOptions, *,
                     window: Optional[int], pos_offset: int = 0,
-                    return_cache: bool = False):
+                    return_cache: bool = False, sps=None):
     """Hymba: attention and mamba heads in parallel on the same normed
     input, their outputs normed and averaged, then the FFN. Returns (x,
-    the layer's cache {k, v, ssm, conv_x, conv_b, conv_c} or None, aux)."""
+    the layer's cache {k, v, ssm, conv_x, conv_b, conv_c} or None, aux).
+    ``sps`` (``Splits``): with its ``attn`` split the mixer runs this
+    rank's attention and SSM heads on the normed input entered once
+    through ``f``; with its ``mlp`` split the FFN its hidden columns."""
+    sps = sps or Splits()
+    sp = sps.attn
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if sp is not None:
+        xn = sp.f(xn)
     o_attn, k, v = _attention(p, xn, cfg, opts, window=window,
-                              pos_offset=pos_offset)
+                              pos_offset=pos_offset, sp=sp)
     y_ssm, ssm_cache = ssm_apply(p, xn, cfg, opts, di=cfg.n_heads * cfg.hd,
-                                 own_norm=False, return_state=return_cache)
-    x = x + _combine(p, o_attn, y_ssm, cfg)
-    x, aux = _ffn(p, x, cfg, opts)
+                                 own_norm=False, return_state=return_cache,
+                                 sp=sp)
+    x = x + _combine(p, o_attn, y_ssm, cfg, sp)
+    x, aux = _ffn(p, x, cfg, opts, sp=sps.mlp)
     cache = {"k": k, "v": v, **ssm_cache} if return_cache else None
     return x, cache, aux
 
@@ -377,19 +583,21 @@ def hybrid_decode(p, x, cfg: ArchConfig, opts: RunOptions, *, window,
     return x
 
 
-def _ffn(p, x, cfg: ArchConfig, opts: RunOptions, layout=None):
+def _ffn(p, x, cfg: ArchConfig, opts: RunOptions, layout=None, sp=None):
     """The FFN block with its residual: (x + FFN(norm(x)), the float32 aux
     loss, 0 without experts; with a ``layout``, this rank's share of the
-    global batch's aux loss, ``moe_ffn``)."""
+    global batch's aux loss, ``moe_ffn``). With ``sp`` this rank's part
+    of the products (``mlp``, ``moe_ffn``)."""
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
         y, aux = moe_ffn(p, xn, n_experts=cfg.moe.n_experts,
                          top_k=cfg.moe.top_k,
                          capacity_factor=opts.capacity_factor,
-                         group_size=opts.moe_group, layout=layout)
+                         group_size=opts.moe_group, layout=layout, sp=sp,
+                         sharding=opts.moe_sharding)
         return x + y, aux
-    return x + mlp(p, xn, cfg.mlp), torch.zeros((), dtype=torch.float32,
-                                                 device=x.device)
+    return x + mlp(p, xn, cfg.mlp, sp), torch.zeros((), dtype=torch.float32,
+                                                     device=x.device)
 
 
 # ===========================================================================
@@ -408,22 +616,23 @@ def _layer(params, li: int) -> Dict[str, torch.Tensor]:
 
 
 def _block_fwd(lp, x, cfg, opts, *, window, return_cache, layout=None):
+    sps = splits(layout, cfg, opts)
     if layout is not None:
-        lp = layout.layer(lp)
+        lp = layout.layer(lp, modes=layer_modes(sps.plan, opts))
     if cfg.family == "ssm":
         y, c = ssm_apply(lp, x, cfg, opts, di=cfg.d_inner,
-                         return_state=return_cache)
+                         return_state=return_cache, sp=sps.ssm)
         return y, c, torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         return hybrid_parallel(lp, x, cfg, opts, window=window,
-                               return_cache=return_cache)
+                               return_cache=return_cache, sps=sps)
     if return_cache:
         y, (k, v) = attn_apply(lp, x, cfg, opts, window=window,
                                return_kv=True)
         y, aux = _ffn(lp, y, cfg, opts)
         return y, {"k": k, "v": v}, aux
-    y = attn_apply(lp, x, cfg, opts, window=window)
-    y, aux = _ffn(lp, y, cfg, opts, layout)
+    y = attn_apply(lp, x, cfg, opts, window=window, sp=sps.attn)
+    y, aux = _ffn(lp, y, cfg, opts, layout, sps.mlp or sps.moe)
     return y, None, aux
 
 
@@ -551,15 +760,17 @@ def lm_forward(params, cfg: ArchConfig, opts: RunOptions, tokens,
     params are this rank's blocks, gathered at use (``run_stack``)."""
     cdt = getattr(torch, opts.compute_dtype)
     params = _compute_params(params, cdt)
+    sps = splits(layout, cfg, opts)
+    vsp = sps.vocab
     if layout is not None:
-        params = layout.top(params)
-    x = embed_tokens(params["embed"], tokens).to(cdt)
+        params = layout.top(params, top_modes(sps.plan))
+    x = embed_tokens(params["embed"], tokens, vsp).to(cdt)
     if embeds is not None:
         x = torch.cat([embeds.to(cdt), x], dim=1)
     x, cache, aux = run_stack(params, x, cfg, opts, return_cache=return_cache,
                               layout=layout)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return lm_logits(x, _head(params, cfg), cfg.vocab), cache, aux
+    return lm_logits(x, _head(params, cfg), cfg.vocab, vsp), cache, aux
 
 
 def lm_loss(params, cfg: ArchConfig, opts: RunOptions, batch, layout=None):
@@ -575,7 +786,8 @@ def lm_loss(params, cfg: ArchConfig, opts: RunOptions, batch, layout=None):
                                 layout=layout)
     F_ = 0 if embeds is None else embeds.shape[1]
     S = tokens.shape[1]
-    loss = softmax_xent(logits[:, F_:F_ + S - 1], tokens[:, 1:], cfg.vocab)
+    loss = softmax_xent(logits[:, F_:F_ + S - 1], tokens[:, 1:], cfg.vocab,
+                        splits(layout, cfg, opts).vocab)
     if layout is not None and layout.n_batch > 1:
         loss = loss / layout.n_batch
     return loss + opts.aux_loss_weight * aux

@@ -26,6 +26,14 @@ the decoder's self-attention, written in place at each step's slot,
 The reference's ``forward_logits`` leaves float32 weights uncast, and
 jnp promotes a bfloat16 activation times a float32 weight to float32;
 ``_mm`` does the same, where torch would refuse the mix.
+
+A train step across ranks splits the ``"model"`` axis as the decoder
+families do (``transformer.split_plan``): each rank of a model group
+runs its own heads of the encoder's self-attention and the decoder's
+self- and cross-attention (the encoder's output entering each
+cross-attention through ``f``), its hidden columns of both GELU MLPs,
+and its vocab rows of the embedding and head; ``bo`` and ``b_down`` are
+added once, after ``g``.
 """
 from __future__ import annotations
 
@@ -41,8 +49,9 @@ from repro_torch.models.layers import (embed_tokens, layer_norm, lm_logits,
                                        sinusoidal_positions, softmax_xent)
 from repro_torch.models.options import RunOptions
 from repro_torch.models.transformer import (ParamMeta, _compute_params,
-                                            _stack, remat, unbind_layers,
-                                            write_slot)
+                                            _stack, layer_modes, remat,
+                                            splits, top_modes,
+                                            unbind_layers, write_slot)
 
 PM = ParamMeta
 
@@ -121,50 +130,68 @@ def _ln(x, p, cfg: ArchConfig):
 
 
 def _proj_qkv(p, xq, xkv, cfg: ArchConfig, prefix: str = ""):
+    """q, k, v; their heads are the weights' (this rank's, split)."""
     B, Sq, _ = xq.shape
     Skv = xkv.shape[1]
-    H, hd = cfg.n_heads, cfg.hd
+    hd = cfg.hd
+    H = p[prefix + "wq"].shape[-1] // hd
     q = (_mm(xq, p[prefix + "wq"]) + p[prefix + "bq"]).reshape(B, Sq, H, hd)
     k = _mm(xkv, p[prefix + "wk"]).reshape(B, Skv, H, hd)
     v = (_mm(xkv, p[prefix + "wv"]) + p[prefix + "bv"]).reshape(B, Skv, H, hd)
     return q, k, v
 
 
-def _out(p, o, prefix: str = ""):
-    """The attention output o (B,S,H,hd) through ``wo`` and ``bo``."""
+def _out(p, o, prefix: str = "", sp=None):
+    """The attention output o (B,S,H,hd) through ``wo`` and ``bo`` (with
+    ``sp``: ``wo``'s row-parallel parts summed by ``g``, then ``bo``)."""
     B, S = o.shape[:2]
-    return _mm(o.reshape(B, S, -1), p[prefix + "wo"]) + p[prefix + "bo"]
+    y = _mm(o.reshape(B, S, -1), p[prefix + "wo"])
+    return (y if sp is None else sp.g(y)) + p[prefix + "bo"]
 
 
 def _attn(p, xq, xkv, cfg: ArchConfig, opts: RunOptions, *, causal: bool,
-          prefix: str = "", return_kv: bool = False):
+          prefix: str = "", return_kv: bool = False, sp=None):
+    """Attention of xq over xkv (with ``sp``, this rank's heads: both
+    enter through ``f``, once where they are one tensor)."""
+    if sp is not None:
+        same = xkv is xq
+        xq = sp.f(xq)
+        xkv = xq if same else sp.f(xkv)
     q, k, v = _proj_qkv(p, xq, xkv, cfg, prefix)
     o = attend(q, k, v, causal=causal, window=None,
                q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
-    return (_out(p, o, prefix), k, v) if return_kv else _out(p, o, prefix)
+    out = _out(p, o, prefix, sp)
+    return (out, k, v) if return_kv else out
 
 
-def _ffn(p, x, cfg: ArchConfig):
+def _ffn(p, x, cfg: ArchConfig, sp=None):
     xn = _ln(x, p["ln2"], cfg)
+    if sp is not None:
+        xn = sp.f(xn)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(_mm(xn, p["w_up"]) + p["b_up"], approximate="tanh")
-    return x + (_mm(h, p["w_down"]) + p["b_down"])
+    y = _mm(h, p["w_down"])
+    return x + ((y if sp is None else sp.g(y)) + p["b_down"])
 
 
 def encode(params, cfg: ArchConfig, opts: RunOptions, frames, layout=None):
     """frames (B, S_enc, d) precomputed embeddings (frontend stub) ->
     the encoder's output (B, S_enc, d). With a ``layout`` each layer's
-    leaves are this rank's blocks, gathered inside the remat region."""
+    leaves are this rank's blocks, gathered inside the remat region
+    (this rank's heads and hidden columns where the model axis
+    splits)."""
     cdt = getattr(torch, opts.compute_dtype)
     x = frames.to(cdt) + sinusoidal_positions(
         frames.shape[1], cfg.d_model, frames.device).to(cdt)
+    sps = splits(layout, cfg, opts)
 
     def block(lp, x):
         if layout is not None:
-            lp = layout.layer(lp, "enc_layers")
+            lp = layout.layer(lp, "enc_layers",
+                              layer_modes(sps.plan, opts))
         xn = _ln(x, lp["ln"], cfg)
-        x = x + _attn(lp, xn, xn, cfg, opts, causal=False)
-        return _ffn(lp, x, cfg)
+        x = x + _attn(lp, xn, xn, cfg, opts, causal=False, sp=sps.attn)
+        return _ffn(lp, x, cfg, sps.mlp)
 
     block = remat(block, _remat(opts))
     for lp in unbind_layers(params["enc_layers"], cfg.n_enc_layers):
@@ -173,15 +200,19 @@ def encode(params, cfg: ArchConfig, opts: RunOptions, frames, layout=None):
 
 
 def _dec_block(lp, x, enc_out, cfg: ArchConfig, opts: RunOptions, *,
-               return_kv: bool = False):
+               return_kv: bool = False, sps=None):
     """One decoder layer: causal self-attention, cross-attention over
-    ``enc_out``, the FFN. With ``return_kv`` also (k, v, xk, xv)."""
+    ``enc_out``, the FFN. With ``return_kv`` also (k, v, xk, xv). With
+    ``sps`` (``transformer.Splits``) this rank's heads and hidden
+    columns."""
+    sp, fsp = (None, None) if sps is None else (sps.attn, sps.mlp)
     xn = _ln(x, lp["ln"], cfg)
-    o, k, v = _attn(lp, xn, xn, cfg, opts, causal=True, return_kv=True)
+    o, k, v = _attn(lp, xn, xn, cfg, opts, causal=True, return_kv=True,
+                    sp=sp)
     x = x + o
     ox, kx, vx = _attn(lp, _ln(x, lp["x_ln"], cfg), enc_out, cfg, opts,
-                       causal=False, prefix="x_", return_kv=True)
-    x = _ffn(lp, x + ox, cfg)
+                       causal=False, prefix="x_", return_kv=True, sp=sp)
+    x = _ffn(lp, x + ox, cfg, fsp)
     return (x, (k, v, kx, vx)) if return_kv else x
 
 
@@ -189,20 +220,22 @@ def decode_train(params, cfg: ArchConfig, opts: RunOptions, tokens,
                  enc_out, layout=None):
     """tokens (B,S) integer, enc_out (B,S_enc,d) -> logits (B,S,Vp). With
     a ``layout`` each layer's leaves are this rank's blocks, gathered
-    inside the remat region (the others already whole)."""
+    inside the remat region (the others already whole; where the model
+    axis splits, this rank's vocab columns of the logits)."""
     cdt = getattr(torch, opts.compute_dtype)
-    x = embed_tokens(params["embed"], tokens).to(cdt)
+    sps = splits(layout, cfg, opts)
+    x = embed_tokens(params["embed"], tokens, sps.vocab).to(cdt)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(cdt)
 
     def dec(lp, x, enc):
         if layout is not None:
-            lp = layout.layer(lp, "dec_layers")
-        return _dec_block(lp, x, enc, cfg, opts)
+            lp = layout.layer(lp, "dec_layers", layer_modes(sps.plan, opts))
+        return _dec_block(lp, x, enc, cfg, opts, sps=sps)
     block = remat(dec, _remat(opts))
     for lp in unbind_layers(params["dec_layers"], cfg.n_layers):
         x = block(lp, x, enc_out)
     x = _ln(x, params["final_ln"], cfg)
-    return lm_logits(x, params["head"], cfg.vocab)
+    return lm_logits(x, params["head"], cfg.vocab, sps.vocab)
 
 
 def loss_fn(params, cfg: ArchConfig, opts: RunOptions, batch, layout=None):
@@ -212,12 +245,14 @@ def loss_fn(params, cfg: ArchConfig, opts: RunOptions, batch, layout=None):
     ``layout`` whose batch is split over n ranks, params are this rank's
     blocks (gathered at use) and the result its rows' mean over n."""
     params = _compute_params(params, getattr(torch, opts.compute_dtype))
+    sps = splits(layout, cfg, opts)
     if layout is not None:
-        params = layout.top(params)
+        params = layout.top(params, top_modes(sps.plan))
     enc_out = encode(params, cfg, opts, batch["frames"], layout)
     logits = decode_train(params, cfg, opts, batch["tokens"], enc_out,
                           layout)
-    loss = softmax_xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab)
+    loss = softmax_xent(logits[:, :-1], batch["tokens"][:, 1:], cfg.vocab,
+                        sps.vocab)
     if layout is not None and layout.n_batch > 1:
         loss = loss / layout.n_batch
     return loss

@@ -29,13 +29,16 @@ AdamW on the blocks. The loss and the norm come back the same on every
 rank. On one rank every collective is the identity, and the step is the
 step without a mesh, bit for bit.
 
-The boundary of this slice: on the ``"model"`` axis the state is stored
-as the specs say (the reference's layout and memory per card), but the
-ranks of a model group gather those dims too and compute the same rows;
-their gradients, equal bit for bit, are sliced, not summed. Splitting
-the compute over ``"model"`` (K3 and K4 on each rank's own heads,
-row-parallel all-reduces, a vocab-parallel cross entropy) is the next
-slice (ROADMAP, Queue 1).
+The ``"model"`` axis is computed, as the reference's activation
+constraints make GSPMD compute it: the ranks of a model group run the
+same rows, each its own heads (K3 and K4 at H/m), hidden columns,
+experts or capacity slots and vocab rows, joined by Megatron's ``f``
+and ``g`` (``sharding.ModelSplit``, ``models.transformer.split_plan``);
+the leaves they consume keep their ``"model"`` dims local, gathered only
+over ``"data"`` / ``"pod"``. The clip sums each split leaf's squares
+over ``"model"`` once (its spec has the axis) and leaves the replicated
+leaves alone, whose gradients come back equal on every rank. At a model
+axis of 1 the step is the one without the split, bit for bit.
 """
 from __future__ import annotations
 
@@ -137,7 +140,7 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
     batch this rank's rows of the global batch, its microbatches in
     order (``data.tokens.local_rows``); every rank of the mesh calls the
     step alike. The step's ``layout`` (``sharding.StepLayout``) counts
-    the bytes it gathered and reduced."""
+    the bytes it gathered, reduced and moved over ``"model"``."""
     n_mb = model.opts.microbatches
     layout = None if mesh is None else shd.StepLayout(
         mesh, model.param_specs(mesh), model.batch_axes(mesh))

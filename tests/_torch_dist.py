@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import datetime
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -552,9 +553,9 @@ def flat(tree, prefix=""):
     return {prefix[:-1]: np.asarray(tree)}
 
 
-def update_bound(m, v, count, lr):
+def update_bound(m, v, count, lr, tol=GRAD_TOL):
     """Per element, how far one AdamW update (b1 0.9, b2 0.95, eps 1e-8)
-    may move from the reference's when the moments are within GRAD_TOL
+    may move from the reference's when the moments are within ``tol``
     of each leaf's largest magnitude of the reference's ``m`` and ``v``.
 
     The update is p - lr (s + wd p), s = m^ / (sqrt(v^) + eps), m^ and v^
@@ -563,14 +564,14 @@ def update_bound(m, v, count, lr):
     bc2) / d) / d, d = max(sqrt(v^) - sqrt(t_v / bc2), 0) + eps."""
     m, v = m.astype(np.float64), v.astype(np.float64)
     bc1, bc2 = 1 - 0.9 ** count, 1 - 0.95 ** count
-    t_m = GRAD_TOL * float(np.abs(m).max()) / bc1
-    t_s = np.sqrt(GRAD_TOL * float(np.abs(v).max()) / bc2)
+    t_m = tol * float(np.abs(m).max()) / bc1
+    t_s = np.sqrt(tol * float(np.abs(v).max()) / bc2)
     d = np.maximum(np.sqrt(v / bc2) - t_s, 0.0) + 1e-8
     return lr * (t_m + np.abs(m / bc1) * t_s / d) / d
 
 
-def close_state(got, want, lr, what):
-    """The moments within GRAD_TOL of each leaf's largest magnitude, the
+def close_state(got, want, lr, what, tol=GRAD_TOL):
+    """The moments within ``tol`` of each leaf's largest magnitude, the
     params within that plus ``update_bound`` of the one update at rate
     ``lr``; counts equal."""
     g, w = flat(got), flat(want)
@@ -585,25 +586,28 @@ def close_state(got, want, lr, what):
         if not w[k].size:
             continue
         err = np.abs(g[k].astype(np.float64) - w[k])
-        tol = GRAD_TOL * float(np.abs(w[k]).max())
+        bound = tol * float(np.abs(w[k]).max())
         if k.startswith("params/"):
-            tol = tol + update_bound(w["opt/m/" + k[7:]],
-                                     w["opt/v/" + k[7:]], count, lr)
-        bad = err > tol
+            bound = bound + update_bound(w["opt/m/" + k[7:]],
+                                         w["opt/v/" + k[7:]], count, lr,
+                                         tol)
+        bad = err > bound
         assert not bad.any(), (what, k, float(err.max()),
-                               float(np.max(err - tol)))
+                               float(np.max(err - bound)))
 
 
-def held(run, ref, what):
-    """A sharded run's metrics and whole state against the reference's:
-    runs whose updates but the last have rate 0."""
+def held(run, ref, what, tol=GRAD_TOL):
+    """A sharded run's metrics and whole state against the reference's
+    (the moments within ``tol``, ``close_state``): runs whose updates but
+    the last have rate 0."""
     for n, (m, r) in enumerate(zip(run["metrics"], ref["metrics"])):
-        for key, tol in (("loss", LOSS_TOL), ("gnorm", LOSS_TOL),
+        for key, rel in (("loss", LOSS_TOL), ("gnorm", LOSS_TOL),
                          ("lr", ULP32)):
-            assert abs(m[key] - r[key]) <= tol * abs(r[key]) + 1e-30, \
+            assert abs(m[key] - r[key]) <= rel * abs(r[key]) + 1e-30, \
                 (what, n, key, m[key], r[key])
     assert all(r["lr"] == 0 for r in ref["metrics"][:-1]), what
-    close_state(run["state"], ref["state"], ref["metrics"][-1]["lr"], what)
+    close_state(run["state"], ref["state"], ref["metrics"][-1]["lr"], what,
+                tol)
 
 
 def same_bits(a, b, what):
@@ -615,16 +619,24 @@ def same_bits(a, b, what):
             x.view(np.uint8), y.view(np.uint8)), (what, k)
 
 
-def train_setup(arch, opts, mesh_shape, names=("data", "model"),
-                device="cpu"):
-    """The reduced ``arch`` with run options ``opts`` (a dict) and a
-    ``TrainMesh`` of ``mesh_shape`` over this world."""
+def reduced_model(arch, opts, cfg=None):
+    """The reduced ``arch`` (with ``cfg``'s fields replaced, a dict) and
+    run options ``opts`` (a dict)."""
+    import dataclasses
     from repro_torch.configs.base import get
-    from repro_torch.launch.mesh import TrainMesh
     from repro_torch.models.model import Model
     from repro_torch.models.options import RunOptions
-    model = Model(get(arch).reduced(), RunOptions(**opts))
-    return model, TrainMesh(mesh_shape, names, device=device)
+    return Model(dataclasses.replace(get(arch).reduced(), **(cfg or {})),
+                 RunOptions(**opts))
+
+
+def train_setup(arch, opts, mesh_shape, names=("data", "model"),
+                device="cpu", cfg=None):
+    """``reduced_model`` and a ``TrainMesh`` of ``mesh_shape`` over this
+    world."""
+    from repro_torch.launch.mesh import TrainMesh
+    return (reduced_model(arch, opts, cfg),
+            TrainMesh(mesh_shape, names, device=device))
 
 
 def my_rows(model, mesh, batch):
@@ -660,36 +672,82 @@ def host(tree):
     return tree.detach().cpu().numpy().copy()
 
 
+def whole_grads(model, state, mesh, batch):
+    """The gradient of ``batch``'s global loss at ``state`` (this rank's
+    blocks; ``runtime.steps.value_and_grad`` with the step's layout),
+    every leaf gathered whole: numpy in ``leaves`` order on rank 0, None
+    elsewhere."""
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.runtime.steps import value_and_grad
+    specs = model.param_specs(mesh)
+    layout = shd.StepLayout(mesh, specs, model.batch_axes(mesh))
+    _, grads = value_and_grad(model, state["params"],
+                              my_rows(model, mesh, batch), layout)
+    out = [shd.full_tensor(g, spec, mesh).numpy().copy()
+           for g, spec in zip(grads, shd.tree_leaves(specs))]
+    return out if dist.get_rank() == 0 else None
+
+
 def sharded_steps(case, device="cpu"):
     """``case``: ``arch``, ``opts``, ``mesh`` (its shape, over ``("data",
     "model")`` unless ``names``), ``state`` (a whole train state, numpy),
-    ``batches`` (global, numpy) and ``kw`` (the step's arguments). The
-    sharded step from that state over those batches: each step's metrics
-    (the same on every rank), the bytes the step moved, and the whole
-    final state (rank 0)."""
+    ``batches`` (global, numpy), ``kw`` (the step's arguments), and
+    optionally ``cfg`` (fields of the reduced config replaced) and
+    ``grads`` (True: also the first batch's whole gradient at the initial
+    state, ``whole_grads``). The sharded step from that state over those
+    batches: each step's metrics (the same on every rank), the bytes the
+    step moved, and the whole final state (rank 0)."""
     from repro_torch.convert import params_from_arrays
     from repro_torch.runtime.steps import make_train_step, shard_train_state
     model, mesh = train_setup(case["arch"], case["opts"], case["mesh"],
-                              case.get("names", ("data", "model")), device)
+                              case.get("names", ("data", "model")), device,
+                              case.get("cfg"))
     state = shard_train_state(model, params_from_arrays(case["state"], "cpu"),
                               mesh)
+    out = {}
+    if case.get("grads"):
+        out["grads"] = whole_grads(model, state, mesh, case["batches"][0])
     step = make_train_step(model, mesh=mesh, **case["kw"])
     metrics = []
-    for b in case["batches"]:
-        state, m = step(state, my_rows(model, mesh, b))
-        metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics, "bytes": dict(step.layout.bytes),
+    with heads_seen() as seen:
+        for b in case["batches"]:
+            state, m = step(state, my_rows(model, mesh, b))
+            metrics.append({k: float(v) for k, v in m.items()})
+    return {**out, "metrics": metrics, "bytes": dict(step.layout.bytes),
+            "heads": sorted(set(seen)),
             "state": whole_state(model, state, mesh)}
+
+
+@contextmanager
+def heads_seen():
+    """The head counts the model path hands K3 (``("attention", q heads,
+    kv heads)``, through ``attend``) and K4 (``("ssd", heads, groups)``,
+    through ``ssd.ssd_scan``) inside the block, in a list."""
+    from repro_torch.models import ssd, transformer, whisper
+    seen = []
+    attend, scan = transformer.attend, ssd.ssd_scan
+
+    def attend_(q, k, v, **kw):
+        seen.append(("attention", q.shape[2], k.shape[2]))
+        return attend(q, k, v, **kw)
+
+    def scan_(x, dt, A, Bm, Cm, **kw):
+        seen.append(("ssd", x.shape[2], Bm.shape[2]))
+        return scan(x, dt, A, Bm, Cm, **kw)
+    transformer.attend = whisper.attend = attend_
+    ssd.ssd_scan = scan_
+    try:
+        yield seen
+    finally:
+        transformer.attend = whisper.attend = attend
+        ssd.ssd_scan = scan
 
 
 def plain_steps(case, device="cpu"):
     """The same steps without a mesh, on this rank's device."""
-    from repro_torch.configs.base import get
     from repro_torch.convert import params_from_arrays
-    from repro_torch.models.model import Model
-    from repro_torch.models.options import RunOptions
     from repro_torch.runtime.steps import make_train_step
-    model = Model(get(case["arch"]).reduced(), RunOptions(**case["opts"]))
+    model = reduced_model(case["arch"], case["opts"], case.get("cfg"))
     state = params_from_arrays(case["state"], device)
     step = make_train_step(model, **case["kw"])
     metrics = []
@@ -701,10 +759,11 @@ def plain_steps(case, device="cpu"):
 
 
 def rank_train(rank, world, *, cases, plain=False):
-    """``sharded_steps`` of every case (and, with ``plain``, the same
-    steps without a mesh, in this rank)."""
-    return [{**sharded_steps(c), **({"plain": plain_steps(c)} if plain
-                                    else {})} for c in cases]
+    """``sharded_steps`` of every case (and, with ``plain`` or the case's
+    own ``plain``, the same steps without a mesh, in this rank)."""
+    return [{**sharded_steps(c), **({"plain": plain_steps(c)}
+                                    if plain or c.get("plain") else {})}
+            for c in cases]
 
 
 def rank_train_card(rank, world, *, cases):

@@ -28,6 +28,10 @@ streams.
   reduction): its selection ``k_hist`` and its sums equal.
 - ``solve_lp_scipy`` equal to the reference's, the infeasible case too;
   ``pad_window`` and ``run_window`` equal to the reference's.
+- On MOT as well (a fit on one day of unlabeled video, carried across):
+  each baseline's ``RunResult`` and ``run_optimum``'s selection and sums
+  equal on a 0.05-day stream (1,080 segments of 4 s), the optimum with
+  and without a cloud budget.
 """
 import dataclasses
 import functools
@@ -38,13 +42,14 @@ import pytest
 import torch
 
 from _torch_parity import arrays_of, port_fitted, ref_fitted
-from repro.configs.workloads import COVID
+from repro.configs.workloads import COVID, MOT
 from repro.core import ingest as RI
 from repro.core import switcher as RS
 from repro.core.offline import fit
 from repro.core.planner import solve_lp_scipy as ref_scipy
 from repro.data.stream import generate
 from repro_torch.configs.workloads import COVID as P_COVID
+from repro_torch.configs.workloads import MOT as P_MOT
 from repro_torch.convert import fitted_from_arrays
 from repro_torch.core import ingest as PI
 from repro_torch.core import switcher as PS
@@ -60,9 +65,18 @@ SUMS = ("quality_sum", "quality_max_sum", "onprem_core_s", "cloud_core_s",
         "buffer_peak_s", "overflow")
 
 
-def _streams(days, seed):
-    return generate(COVID, days=days, seed=seed), \
-        p_generate(P_COVID, days=days, seed=seed)
+def _streams(days, seed, workload="covid"):
+    ref, port = {"covid": (COVID, P_COVID), "mot": (MOT, P_MOT)}[workload]
+    return generate(ref, days=days, seed=seed), \
+        p_generate(port, days=days, seed=seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _mot_fitted():
+    """The reference's MOT fit on one day of unlabeled video, and the
+    same carried across to the port."""
+    f = fit(MOT, n_cores=8, days_unlabeled=1.0, seed=0)
+    return f, fitted_from_arrays("mot", arrays_of(f), device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,6 +233,17 @@ def test_baseline_run_result_equal(name):
         assert got.overflow          # the buffer-agnostic baseline drops
 
 
+@pytest.mark.parametrize("name", sorted(BASELINES))
+def test_baseline_run_result_equal_on_mot(name):
+    rs, ps = _streams(0.05, 42, "mot")
+    rf, pf = _mot_fitted()
+    ref = BASELINES[name](RI, rf, rs)
+    got = BASELINES[name](PI, pf, ps)
+    for field in SUMS:
+        assert getattr(got, field) == getattr(ref, field), field
+    np.testing.assert_array_equal(got.k_hist, ref.k_hist)
+
+
 def test_best_static_config_equal():
     f, pf = ref_fitted(), port_fitted()
     for cores in (1, 2, 4, 8, 16, 64):
@@ -236,6 +261,19 @@ def test_optimum_selection_exact_at_a_camera_day(cloud):
     got = PI.run_optimum(port_fitted(), ps, n_cores=8,
                          cloud_budget_core_s=cloud, device="cpu")
     assert got.k_hist.sum() == 43_200
+    np.testing.assert_array_equal(got.k_hist, ref.k_hist)
+    for field in SUMS:
+        assert getattr(got, field) == getattr(ref, field), field
+
+
+@pytest.mark.parametrize("cloud", [0.0, 2_000.0])
+def test_optimum_selection_exact_on_mot(cloud):
+    rs, ps = _streams(0.05, 42, "mot")
+    rf, pf = _mot_fitted()
+    ref = RI.run_optimum(rf, rs, n_cores=8, cloud_budget_core_s=cloud)
+    got = PI.run_optimum(pf, ps, n_cores=8, cloud_budget_core_s=cloud,
+                         device="cpu")
+    assert got.k_hist.sum() == ps.n_segments
     np.testing.assert_array_equal(got.k_hist, ref.k_hist)
     for field in SUMS:
         assert getattr(got, field) == getattr(ref, field), field

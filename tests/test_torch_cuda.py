@@ -1744,3 +1744,60 @@ def test_train_step_over_nccl_ranks_matches_the_unsharded_step(cuda,
             TD.same_bits(got["state"], want["state"], case["arch"])
         else:
             TD.held(got, want, (case["arch"], world))
+
+
+# the split's moments against the steps without a mesh, of each leaf's
+# largest magnitude: K3 and K4 at H/m heads lay their 3xTF32 products
+# and their head slices' partial sums out otherwise than at H heads, so
+# a gradient moves by up to their error bounds (about 1e-3 of a sum's
+# magnitudes at these lengths: chip_smoke.py's TRAIN_GRAD_TOL and
+# DIST_MOMENT_TOL); measured on four H100s, mamba2's dt_bias second
+# moment at 5.8e-5 of its largest value, above the CPU tests' 1e-5
+SPLIT_MOMENT_TOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", (2, 4))
+def test_model_axis_split_over_nccl_ranks_matches_the_unsharded_step(
+        cuda, tmp_path, world):
+    """The model axis computed over NCCL ranks, one a card: reduced qwen,
+    mixtral (``moe_sharding="ep"``), mamba2 and hymba at (1, W) and, at
+    4 ranks, (2, 2), each rank running K3 and K4 both ways on its own
+    heads, against the same two steps without a mesh on card 0 within
+    ``tests/_torch_dist.held``'s train-step tolerances, the moments
+    within SPLIT_MOMENT_TOL of each leaf's largest magnitude; at (1, W)
+    no leaf gathered. Needs ``world`` cards (NCCL refuses a card twice;
+    ``chip_smoke.py``'s ``train_dist`` part (d) runs two ranks on one
+    card through gloo)."""
+    import _torch_dist as TD
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"{world} NCCL ranks need {world} cards; "
+                    f"{torch.cuda.device_count()} visible")
+    rng = np.random.default_rng(1)
+    opts = dict(remat="none", compute_dtype="float32")
+    kw = dict(peak_lr=1e-2, warmup=2, total_steps=10)
+    meshes = [(1, world)] + ([(2, 2)] if world == 4 else [])
+    cases = []
+    for arch, moe in (("qwen1.5-0.5b", "tp"), ("mixtral-8x7b", "ep"),
+                      ("mamba2-370m", "tp"), ("hymba-1.5b", "tp")):
+        cfg = get(arch).reduced()
+        o = {**opts, "moe_sharding": moe}
+        model = Model(cfg, RunOptions(**o))
+        init = S.init_train_state(model, torch.Generator().manual_seed(0),
+                                  "cpu")
+        batches = [{"tokens": rng.integers(0, cfg.vocab, (4, 64))}
+                   for _ in range(2)]
+        cases += [{"arch": arch, "opts": o, "mesh": mesh,
+                   "state": TD.host(init), "kw": kw, "batches": batches}
+                  for mesh in meshes]
+    ranks, _ = TD.run_world(TD.rank_train_card, world, tmp_path,
+                            device=None, cases=cases)
+    for i, case in enumerate(cases):
+        want = TD.plain_steps(case, device="cuda")
+        got = ranks[0][i]
+        for r in ranks[1:]:
+            assert r[i]["metrics"] == got["metrics"]
+        TD.held(got, want, (case["arch"], case["mesh"]), SPLIT_MOMENT_TOL)
+        assert got["bytes"]["model"] > 0
+        if case["mesh"][0] == 1:
+            assert got["bytes"]["gathered"] == 0, (case, got["bytes"])

@@ -41,7 +41,19 @@ Tolerances, each with its reason:
   agreement with the reference ``tests/test_torch_train.py`` holds on
   other rows, within the same tolerances, and must be finite.
 - checkpoints and their restore: bit for bit.
+
+The model axis's split (``"model"`` over more than one rank: each rank
+its own heads, hidden columns, experts or slots and vocab rows, joined
+by ``f`` and ``g``) only reorders float32 sums too (the row-parallel
+products' parts added by an all-reduce, the vocab's log-sum-exp in
+parts), so its steps are held to the same tolerances; each leaf's
+gradient of one split step is held to GRAD_TOL of the leaf's largest
+magnitude against the step without a mesh. Layouts the reference's
+rules cannot split (heads that do not divide by the model axis), and the
+kv heads that do not, run on custom reduced configs against the port's
+step without a mesh (the reference has no such config).
 """
+import dataclasses
 import os
 import socket
 import subprocess
@@ -63,11 +75,13 @@ from repro.models.model import Model as RefModel
 from repro.models.options import RunOptions as RefOptions
 from repro.runtime import steps as RS
 from repro_torch.checkpoint import ckpt
+from repro_torch.convert import params_from_arrays
 from repro_torch.distribution.sharding import tree_leaves
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models.model import Model
 from repro_torch.configs.base import get
 from repro_torch.models.options import RunOptions
+from repro_torch.models.transformer import layer_modes, split_plan
 from repro_torch.optim.adamw import leaves
 from repro_torch.runtime import steps as S
 from _torch_threads import cap_torch_threads
@@ -86,6 +100,25 @@ BATCH, SEQ, STEPS = 4, 32, 2
 MESH4 = {"qwen1.5-0.5b": (2, 2), "mixtral-8x7b": (4, 1),
          "mamba2-370m": (4, 1), "hymba-1.5b": (2, 2),
          "whisper-large-v3": (4, 1), "internvl2-26b": (2, 2)}
+# the model axis's split: (world, mesh, arch, moe_sharding), beside the
+# (2, 2) cases of MESH4
+SPLIT_ARCHS = ("qwen1.5-0.5b", "mamba2-370m", "whisper-large-v3",
+               "internvl2-26b", "hymba-1.5b")
+SPLIT = ([(2, (1, 2), a, "tp") for a in SPLIT_ARCHS]
+         + [(2, (1, 2), "mixtral-8x7b", r) for r in ("tp", "cap", "ep")]
+         + [(4, (1, 4), a, "tp") for a in SPLIT_ARCHS]
+         + [(4, (2, 2), a, "tp") for a in ("mamba2-370m",
+                                           "whisper-large-v3")])
+# layouts on custom reduced configs at (1, 4), against the port's step
+# without a mesh: each rank's one query head reads one of 2 kv heads; 12
+# query heads over 3 kv heads (a rank's 3 read kv heads 0, 1, 1: one
+# kv head per query head); hymba with 6 heads and 6 SSM heads, which do
+# not split over 4 (its mixer gathered at use, its FFN split)
+LAYOUTS = {"kv_one": ("qwen1.5-0.5b", {"n_kv_heads": 2}),
+           "kv_per_query_head": ("qwen1.5-0.5b",
+                                 {"n_heads": 12, "n_kv_heads": 3}),
+           "heads_gathered": ("hymba-1.5b", {"n_heads": 6,
+                                             "n_kv_heads": 2})}
 
 
 def _np(tree):
@@ -113,10 +146,25 @@ def _reference(arch, microbatches=1):
     return {"init": init, "metrics": metrics, "state": _np(state)}
 
 
-def _case(arch, ref, mesh, microbatches=1):
+def _case(arch, ref, mesh, microbatches=1, **extra):
     return {"arch": arch, "opts": {**OPTS, "microbatches": microbatches},
             "mesh": mesh, "state": ref["init"], "batches": _batches(arch),
-            "kw": KW}
+            "kw": KW, "plain": arch == "hymba-1.5b", **extra}
+
+
+def _split_case(ref, mesh, arch, moe):
+    c = _case(arch, ref, mesh, grads=True)
+    c["opts"]["moe_sharding"] = moe
+    return c
+
+
+def _layout_case(name, mesh=(1, 4)):
+    arch, cfg = LAYOUTS[name]
+    model = TD.reduced_model(arch, OPTS, cfg)
+    init = S.init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    return {"arch": arch, "opts": dict(OPTS), "cfg": cfg, "mesh": mesh,
+            "state": TD.host(init), "batches": _batches(arch), "kw": KW,
+            "plain": True}
 
 
 # ------------------------------ the reference --------------------------------
@@ -192,7 +240,8 @@ def refs(mesh_ref):
 @pytest.fixture(scope="module")
 def worlds(refs, tmp_path_factory):
     """Each world's runs of every family (and, at 2 ranks, qwen with 2
-    microbatches)."""
+    microbatches), then the split cases of that world (``SPLIT``, in
+    order) and, at 4 ranks, the ``LAYOUTS``."""
     out = {}
     for world in (2, 4):
         cases = [_case(a, refs[a], (2, 1) if world == 2 else MESH4[a])
@@ -200,10 +249,28 @@ def worlds(refs, tmp_path_factory):
         if world == 2:
             cases.append(_case("qwen1.5-0.5b", refs["qwen1.5-0.5b"], (2, 1),
                                microbatches=2))
+        cases += [_split_case(refs[a], mesh, a, moe)
+                  for w, mesh, a, moe in SPLIT if w == world]
+        if world == 4:
+            cases += [_layout_case(n) for n in LAYOUTS]
         out[world] = TD.run_world(TD.rank_train, world,
                                   tmp_path_factory.mktemp(f"w{world}"),
-                                  cases=cases, plain=True)[0]
+                                  cases=cases)[0]
     return out
+
+
+def _split_runs(worlds, case):
+    """Every rank's run of a ``SPLIT`` case."""
+    world = case[0]
+    at = [c for c in SPLIT if c[0] == world].index(case)
+    first = len(ARCHS) + (1 if world == 2 else 0)
+    return [r[first + at] for r in worlds[world]]
+
+
+def _split_id(case):
+    world, mesh, arch, moe = case
+    return f"{arch}-{mesh[0]}x{mesh[1]}" + (f"-{moe}" if arch ==
+                                            "mixtral-8x7b" else "")
 
 
 # ------------------------------- the step -----------------------------------
@@ -225,6 +292,130 @@ def test_sharded_step_matches_the_reference(worlds, refs, world, arch):
     for r in runs[1:]:
         assert r["metrics"] == runs[0]["metrics"] and r["state"] is None
     assert runs[0]["bytes"]["gathered"] > 0 and runs[0]["bytes"]["reduced"] > 0
+    split = (world == 4 and MESH4[arch][1] > 1)
+    assert (runs[0]["bytes"]["model"] > 0) == split
+
+
+# ---------------------------- the model axis --------------------------------
+@pytest.mark.parametrize("case", SPLIT, ids=_split_id)
+def test_model_axis_split_matches_the_reference(worlds, refs, case):
+    """Each family split over the model axis (mixtral under each of the
+    three ``moe_sharding`` rules) within the train-step tolerances of the
+    reference's step; every rank's metrics the same. At (1, m) no leaf
+    is gathered (each ``"model"`` dim is used where it lies), the
+    activations' collectives move bytes over ``"model"``, and K3 and K4
+    see this rank's H/m heads (the kv heads G/m, the SSM's B and C one
+    group)."""
+    world, mesh, arch, moe = case
+    runs = _split_runs(worlds, case)
+    ref = refs[arch]
+    if arch == "hymba-1.5b":                   # the reference's NaN
+        ref = runs[0]["plain"]
+    TD.held(runs[0], ref, case)
+    for r in runs[1:]:
+        assert r["metrics"] == runs[0]["metrics"] and r["state"] is None
+    m = mesh[1]
+    got = runs[0]["bytes"]
+    assert got["model"] > 0
+    if mesh[0] == 1:
+        assert got["gathered"] == 0, got
+    cfg = get(arch).reduced()
+    want = set()
+    if cfg.family != "ssm":
+        want.add(("attention", cfg.n_heads // m, cfg.n_kv_heads // m))
+    if cfg.ssm is not None:
+        di = cfg.d_inner if cfg.family == "ssm" else cfg.n_heads * cfg.hd
+        want.add(("ssd", di // cfg.ssm.head_dim // m, 1))
+    for r in runs:
+        assert set(r["heads"]) == want, (r["heads"], want)
+
+
+@pytest.mark.parametrize("case", SPLIT, ids=_split_id)
+def test_model_axis_split_gradients_leaf_by_leaf(worlds, refs, case):
+    """Every leaf's gradient of one split step (the first batch at the
+    initial state, gathered whole) within GRAD_TOL of the leaf's largest
+    magnitude of the step's without a mesh: a replicated leaf summed
+    twice over the model group, or a per-head leaf not summed, is off by
+    its whole size."""
+    world, mesh, arch, moe = case
+    got = _split_runs(worlds, case)[0]["grads"]
+    model = Model(get(arch).reduced(), RunOptions(**OPTS, moe_sharding=moe))
+    params = params_from_arrays(refs[arch]["init"], "cpu")["params"]
+    names = list(TD.flat(params))
+    _, want = S.value_and_grad(model, params, _batches(arch)[0])
+    assert len(got) == len(want) == len(names)
+    for name, g, w in zip(names, got, want):
+        w = w.numpy()
+        err = float(np.abs(g.astype(np.float64) - w).max())
+        assert err <= TD.GRAD_TOL * float(np.abs(w).max()) + 1e-30, \
+            (case, name, err, float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_model_axis_layouts_the_heads_do_not_split(worlds, name):
+    """Custom reduced configs at (1, 4) against the port's step without a
+    mesh: kv heads that do not divide by the model axis (each rank reads
+    the kv heads its query heads read, their projections gathered and
+    their gradients summed over the group), and heads that do not divide
+    (hymba's mixer gathered at use and computed whole on every rank, its
+    FFN split)."""
+    at = len(ARCHS) + sum(c[0] == 4 for c in SPLIT) \
+        + list(LAYOUTS).index(name)
+    runs = [r[at] for r in worlds[4]]
+    TD.held(runs[0], runs[0]["plain"], name)
+    for r in runs[1:]:
+        assert r["metrics"] == runs[0]["metrics"]
+    arch, over = LAYOUTS[name]
+    cfg = dataclasses.replace(get(arch).reduced(), **over)
+    H, G = cfg.n_heads, cfg.n_kv_heads
+    got = runs[0]["bytes"]
+    if name == "heads_gathered":
+        plan = split_plan(cfg, RunOptions(**OPTS), 4)
+        assert (plan.attn, plan.ssm, plan.mlp, plan.vocab) == \
+            (False, False, True, True)
+        assert got["gathered"] > 0
+        assert set(runs[0]["heads"]) == {("attention", H, G),
+                                        ("ssd", H, 1)}
+        return
+    assert got["gathered"] > 0 and got["reduced"] > 0    # wk, wv: shared
+    # (query heads, kv heads) on ranks 0-3: kv_one 1 over 1 each;
+    # kv_per_query_head 3 over kv heads (0), (0, 1, 1), (1, 2, 2), (2)
+    reads = ([{("attention", 1, 1)}] * 4 if name == "kv_one" else
+             [{("attention", 3, 1)}, {("attention", 3, 3)},
+              {("attention", 3, 3)}, {("attention", 3, 1)}])
+    assert [set(r["heads"]) for r in runs] == reads
+
+
+@pytest.mark.parametrize("m", (2, 4, 16))
+def test_split_plan_names_what_stays_gathered(m):
+    """The zoo at its published widths: every leaf a split block keeps
+    local has its ``"model"`` dim in the reference's spec, and a leaf
+    whose gradient is summed over the group is replicated there or
+    gathered whole; hymba-1.5b (25 heads, 25 SSM heads) keeps its mixer
+    gathered at any model axis of 2, 4 or 16, and llama3-8b at 16 reads
+    its 8 kv heads in part (``"shared"``)."""
+    from repro_torch.configs.base import registry
+    from repro_torch.launch.mesh import MeshShape
+    layout = MeshShape((1, m), ("data", "model"))
+    for name, cfg in sorted(registry().items()):
+        for moe in ("tp", "cap", "ep"):
+            model = Model(cfg, RunOptions(moe_sharding=moe))
+            plan = split_plan(cfg, model.opts, m)
+            specs = model.param_specs(layout)
+            modes = layer_modes(plan, model.opts)
+            for key in ("layers", "enc_layers", "dec_layers"):
+                for leaf, spec in specs.get(key, {}).items():
+                    if isinstance(spec, dict):
+                        continue
+                    mode = modes.get(leaf)
+                    if mode == "local":
+                        assert "model" in spec[1:], (name, m, leaf, spec)
+            if plan.vocab:
+                assert specs["embed"][0] == "model", (name, m)
+    hymba = split_plan(get("hymba-1.5b"), RunOptions(), m)
+    assert not hymba.attn and not hymba.ssm and hymba.mlp == (5504 % m == 0)
+    llama = split_plan(get("llama3-8b"), RunOptions(), m)
+    assert llama.attn and llama.kv == (m <= 8) and llama.mlp and llama.vocab
 
 
 def test_microbatches_match_the_reference(worlds):
@@ -260,7 +451,7 @@ def test_a_world_of_one_is_the_unsharded_step_bit_for_bit(refs, arch,
     for run in runs:
         assert run["metrics"] == run["plain"]["metrics"]
         TD.same_bits(run["state"], run["plain"]["state"], arch)
-        assert run["bytes"] == {"gathered": 0, "reduced": 0}
+        assert run["bytes"] == {"gathered": 0, "reduced": 0, "model": 0}
 
 
 # ------------------------- checkpoints and elastic ---------------------------
@@ -377,6 +568,35 @@ def test_launcher_fails_on_two_ranks_and_resumes_on_one(tmp_path):
     assert p2.returncode == 0, p2.stdout + p2.stderr
     assert "resumed from step 10" in p2.stdout
     assert int(ckpt.restore(ck, 30, device="cpu")["step"]) == 30
+
+
+def test_launcher_splits_the_model_axis_on_two_ranks():
+    """``torchrun``'s environment on 2 gloo ranks with ``--model-axis 2``:
+    finite losses, and the step line shows nothing gathered and the
+    activations' bytes moved over ``"model"``."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+           "cpu", "--arch", "qwen1.5-0.5b", "--reduced", "--steps", "6",
+           "--batch", "4", "--seq", "32", "--lr", "1e-2", "--log-every",
+           "5", "--model-axis", "2"]
+    port = _free_port()
+    procs = [subprocess.Popen(
+        cmd, env={**os.environ, "PYTHONPATH": SRC, "RANK": str(r),
+                  "LOCAL_RANK": str(r), "WORLD_SIZE": "2",
+                  "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                  "OMP_NUM_THREADS": "1"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    steps = [line for line in outs[0].splitlines()
+             if line.startswith("step")]
+    assert len(steps) == 2 and not outs[1].strip().startswith("step")
+    for line in steps:
+        assert "bytes/step gathered 0 reduced 0 model " in line, line
+        assert int(line.split("model ")[1]) > 0
+    losses = [float(line.split("loss")[1].split()[0]) for line in steps]
+    assert all(np.isfinite(losses))
 
 
 def test_a_raising_rank_ends_its_world(tmp_path):
