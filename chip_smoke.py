@@ -407,6 +407,23 @@ script fails before it prints a result.
               B 4, S 2,048, H 8, G 2, D 128; mamba2-370m's 8 of 32
               heads), each held against its plain version, beside its
               plain version's time, the library call's and the bound.
+12f. serve_dist  serving across ranks: two gloo ranks on card 0 laid
+              out as (1, 2) over ("data", "model"), each serving one
+              batch of 4 x 2,048-token prompts and 8 generated tokens
+              through the prefill and decode steps with the mesh,
+              ``init_params`` drawing each layer slice on the card and
+              keeping this rank's block, K3's and K4's counts set to 0
+              just before each part's prefill and read after its last
+              decode step. (a) llama3-8b at its published width cut to 2
+              layers, then mamba2-370m at full width, bfloat16: each rank
+              K3 (16 of 32 heads over 4 of 8 kv heads) or K4 (16 of 32
+              heads) on its heads, k and v moved to its half of the
+              cache's slots by one all-to-all, each decode step's q, k
+              and v gathered, its slots attended and the softmax merged
+              over "model", the next token over the vocab split; against
+              one card's serve from the same draws. Prints seconds, peak
+              memory and bytes a rank for the prefill and a decode step,
+              and the launches a rank.
 13. tiers     the main store in a ``TieredStore``, all but the newest
               camera-day spilled to int8; the main plans over the
               two-tier view through K1, against the float64 oracle of
@@ -510,6 +527,14 @@ there), and every param within one float32 ulp of its leaf's largest
 magnitude an update plus the sum over the updates of ``_update_bound``:
 how far an AdamW step may move when the moments are within their
 tolerances.
+Serving across ranks: the ranks' logits (bfloat16 compute) within
+``bf16_logit_tolerance`` of ``bf16_boundaries`` of one card's from the
+same draws, each decode step of the one card fed the ranks' tokens; a
+token may differ from the one card's argmax only where its top two
+logits lie within that tolerance (the row-parallel products' parts
+added by an all-reduce, K3 and K4 at half the heads and the decode's
+softmax merged over the ranks' slots are other float32 sums of the same
+terms, rounded to bfloat16 at the same layer boundaries).
 """
 from __future__ import annotations
 
@@ -639,6 +664,13 @@ TRAIN_DIST_B_MESH = (2, 2)
 # G, N, Q)
 SPLIT_K3 = (4, 2048, 8, 2, 128)
 SPLIT_K4 = (4, 2048, 8, 64, 1, 128, 256)
+# serving across ranks (``serve_dist``): one batch of 4 prompts of 2,048
+# tokens and 8 generated; part (a), llama3-8b cut to 2 of its 32 layers
+# and mamba2-370m at full depth over two gloo ranks on card 0
+SERVE_DIST = dict(batch=4, prompt_len=2048, gen=8)
+SERVE_DIST_LAYERS = 2
+SERVE_DIST_SHARED = 2
+SERVE_DIST_DEADLINE = 600           # s before the serve_dist world is killed
 
 
 def emit(phase: str, **fields) -> None:
@@ -5149,6 +5181,382 @@ def phase_time_split(dev, td):
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving across ranks
+# ---------------------------------------------------------------------------
+
+def _serve_dist_part(mesh, cfg, opts, name, profile=False):
+    """One batch of SERVE_DIST through the prefill and decode steps of
+    ``runtime.steps`` across ``mesh`` (this rank's rows and blocks; the
+    params drawn a layer slice at a time on the card from
+    ``torch.Generator("cuda")``, seed 0, ``init_params``): a warm-up
+    prefill and decode step first (the groups' first collectives set up
+    their communicators), then K3's and K4's counts and the steps' byte
+    counts set to 0, the timed prefill and decode steps, the counts read
+    after the last. With ``profile`` one more decode step under
+    ``torch.profiler`` (``_profile_step``). Returns this rank's seconds,
+    peak memory, bytes a step and launches, and (rank 0) every step's
+    tokens and whole logits over the vocabulary."""
+    import torch.distributed as dist
+    from repro_torch.data.tokens import SyntheticCorpus, local_rows
+    from repro_torch.distribution.sharding import _all_gather
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import (init_params, make_decode_step,
+                                           make_prefill_step)
+    B, S, n_gen = (SERVE_DIST[k] for k in ("batch", "prompt_len", "gen"))
+    model = Model(cfg, opts)
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, init_s = timed(lambda: init_params(
+        model, torch.Generator(device=dev).manual_seed(0), mesh=mesh))
+    axes = model.batch_axes(mesh)
+    n = mesh.axis_size(axes)
+    toks = SyntheticCorpus(cfg.vocab, 0).batch(B, S, 0)
+    rows = local_rows(B, mesh.index(axes), n) if n > 1 else slice(None)
+    batch = {"tokens": torch.as_tensor(toks[rows], device=dev)}
+    prefill = make_prefill_step(model, mesh, logits=True)
+    decode = make_decode_step(model, mesh, logits=True)
+
+    def whole(x):
+        x = _all_gather(x, 0, mesh.group(axes), n) if n > 1 else x
+        return x[:, :cfg.vocab].float().cpu().numpy() if x.dim() > 1 \
+            else x.cpu().numpy()
+    with torch.no_grad():
+        tok, cache, _ = prefill(params, batch, cache_len=S + n_gen)
+        decode(params, cache, tok)
+        del tok, cache
+    for step in (prefill, decode):
+        step.layout.bytes.update(dict.fromkeys(step.layout.bytes, 0))
+    FA.LAUNCHES = FA.WINDOW_LAUNCHES = SSD.LAUNCHES = 0
+    with torch.no_grad():
+        (tok, cache, lg), prefill_s = timed(lambda: prefill(
+            params, batch, cache_len=S + n_gen))
+        steps = [(whole(tok), whole(lg))]
+        t0 = time.perf_counter()
+        for _ in range(n_gen - 1):
+            tok, cache, lg = decode(params, cache, tok)
+            steps.append((whole(tok), whole(lg)))
+        sync()
+        decode_s = time.perf_counter() - t0
+    launches = {"k3": FA.LAUNCHES, "k4": SSD.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = (_profile_step(lambda: decode(params, cache, tok)) if profile
+            else None)
+    del params, cache
+    torch.cuda.empty_cache()
+    dist.barrier()
+    lead = mesh.rank == 0
+    return {"part": name, "arch": cfg.name, "layers": cfg.n_layers,
+            "mesh": list(mesh.devices.shape), "rows": B, "prompt": S,
+            "gen": n_gen, "init_s": init_s, "prefill_s": prefill_s,
+            "decode_s": decode_s, "decode_step_s": decode_s / (n_gen - 1),
+            "tok_per_s": B * n_gen / (prefill_s + decode_s),
+            "peak_mem_bytes": peak,
+            "bytes_prefill": dict(prefill.layout.bytes),
+            "bytes_decode_step": {k: v / (n_gen - 1) for k, v in
+                                  decode.layout.bytes.items()},
+            "launches": launches, "profile_decode_step": prof,
+            "tokens": np.stack([t for t, _ in steps], 1),
+            "logits": [g for _, g in steps] if lead else None}
+
+
+def _profile_step(fn, top=8):
+    """``fn`` once under ``torch.profiler`` (CPU and CUDA activities):
+    the host's wall ms, the CUDA events' device ms summed (``device_type``
+    CUDA only: the aten ops that launched them report it again), and the
+    ``top`` ops by self CPU ms and the ``top`` kernels by device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    ev = p.key_averages()
+    cuda = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    return {"wall_ms": wall * 1e3,
+            "device_ms": sum(dev_us(e) for e in cuda) / 1e3,
+            "top_cpu": [[e.key, e.self_cpu_time_total / 1e3, e.count]
+                        for e in sorted(ev, key=lambda e:
+                                        -e.self_cpu_time_total)[:top]],
+            "top_device": [[e.key, dev_us(e) / 1e3, e.count]
+                           for e in sorted(cuda, key=lambda e:
+                                           -dev_us(e))[:top]]}
+
+
+def _serve_plain(cfg, opts, tokens, dev):
+    """The same batch on one card without a mesh from the same draws
+    (``init_params`` without a mesh), each decode step fed the tokens
+    the ranks chose (``tokens``, (B, gen)): every step's logits over the
+    vocabulary."""
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import (init_params, make_decode_step,
+                                           make_prefill_step)
+    B, S, n_gen = (SERVE_DIST[k] for k in ("batch", "prompt_len", "gen"))
+    model = Model(cfg, opts)
+    params = init_params(model, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    toks = torch.as_tensor(SyntheticCorpus(cfg.vocab, 0).batch(B, S, 0),
+                           device=dev)
+    prefill, decode = (make_prefill_step(model, logits=True),
+                       make_decode_step(model, logits=True))
+    with torch.no_grad():
+        _, cache, lg = prefill(params, {"tokens": toks}, cache_len=S + n_gen)
+        out = [lg[:, :cfg.vocab].float().cpu().numpy()]
+        for i in range(n_gen - 1):
+            fed = torch.as_tensor(tokens[:, i], device=dev)
+            _, cache, lg = decode(params, cache, fed)
+            out.append(lg[:, :cfg.vocab].float().cpu().numpy())
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _held_serve(run, plain, cfg):
+    """The ranks' logits against one card's within
+    ``bf16_logit_tolerance`` of ``bf16_boundaries(cfg)`` at the one
+    card's largest |logit|; each chosen token the one card's argmax
+    except where its top two logits lie within that tolerance."""
+    from repro_torch.models.options import (bf16_boundaries,
+                                            bf16_logit_tolerance)
+    scale = max(float(np.abs(p).max()) for p in plain)
+    tol = bf16_logit_tolerance(bf16_boundaries(cfg), scale)
+    err = max(float(np.abs(g - p).max())
+              for g, p in zip(run["logits"], plain))
+    flips, near = 0, 0
+    for i, p in enumerate(plain):
+        top2 = np.sort(p, -1)[:, -2:]
+        gap = top2[:, 1] - top2[:, 0]
+        diff = run["tokens"][:, i] != p.argmax(-1)
+        flips += int(diff.sum())
+        near += int((diff & (gap > tol)).sum())
+    finite = all(np.isfinite(g).all() for g in run["logits"])
+    held = {"logits_max_abs_err": err, "logits_tol": tol,
+            "logits_max_abs": scale, "token_flips": flips,
+            "token_flips_past_tol": near, "finite": finite}
+    if not (err <= tol and near == 0 and finite):
+        raise AssertionError(f"{run['part']} {cfg.name} at {run['mesh']}: "
+                             f"{held}")
+    return held
+
+
+def _serve_dist_summary(run):
+    return {k: v for k, v in run.items() if k not in ("tokens", "logits")}
+
+
+def _serve_dist_shared_rank(rank, world, tmp):
+    """One rank of ``serve_dist``, in its own process (spawned): ``world``
+    ranks on card 0 joined through gloo (NCCL refuses a card twice),
+    laid out as (1, world): llama3-8b at its published width cut to
+    SERVE_DIST_LAYERS layers, then mamba2-370m at full width, bfloat16
+    params and compute; what it saw goes to ``tmp/rank<r>.pt``."""
+    import dataclasses
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs.base import get
+    from repro_torch.launch.mesh import TrainMesh, init_shard_group
+    from repro_torch.models.options import RunOptions
+    tmp = Path(tmp)
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT)
+    dev = init_shard_group(init_method=f"file://{tmp / 'pg_init'}",
+                           rank=rank, world_size=world, timeout=timeout,
+                           backend="gloo")
+    try:
+        mesh = TrainMesh((1, world), ("data", "model"), device=dev,
+                         timeout=timeout, backend="gloo")
+        opts = RunOptions(param_dtype="bfloat16")
+        llama = dataclasses.replace(get("llama3-8b"),
+                                    n_layers=SERVE_DIST_LAYERS)
+        torch.save([_serve_dist_part(mesh, llama, opts, "a"),
+                    _serve_dist_part(mesh, get("mamba2-370m"), opts, "a")],
+                   tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_dist(smi):
+    """Serving across ranks on one card: SERVE_DIST_SHARED gloo ranks
+    on card 0 (as ``train_dist``'s part (d)), laid out as (1, 2) over
+    ``("data", "model")``, each serving one batch of 4 x 2,048-token
+    prompts and 8 generated tokens through ``make_prefill_step`` /
+    ``make_decode_step`` with the mesh (``launch/serve.py``'s steps):
+
+    (a) llama3-8b at its published width (d_model 4,096, 32 heads over 8
+        kv heads of 128, d_ff 14,336, vocab 128,256) cut to 2 layers, then
+        mamba2-370m at its published width (48 layers, 32 SSM heads),
+        bfloat16 params and compute, drawn a layer slice at a time on the
+        card (``init_params``). Each rank runs K3 at 16 of 32 query heads
+        over 4 of 8 kv heads, or K4 at 16 of 32 heads, on its half of the
+        prompt's heads; moves k and v from heads to its half of the
+        cache's slots (one all-to-all); in each decode step gathers the
+        new token's q, k and v, attends over its own slots and merges
+        the softmax over ``"model"``; takes the next token over the
+        vocab split.
+
+    Held: every rank's tokens the same; the ranks' logits against one
+    card's (``_serve_plain``: the same draws without a mesh, each decode
+    step fed the ranks' tokens) within ``bf16_logit_tolerance``, the
+    tokens the one card's argmax except where its top two logits lie
+    within it (``_held_serve``); K3 (llama) or K4 (mamba2) once a layer
+    and prefill on every rank. Prints each part's seconds (init,
+    prefill, decode; two processes sharing one card and the host's
+    copies of every collective: not a speed), peak memory a rank, the
+    bytes a rank gathered, reduced and moved over ``"model"`` for the
+    prefill and a decode step, and the launches a rank; the card's name
+    and power limit."""
+    import shutil
+    from repro_torch.configs.base import get
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models.options import RunOptions
+    import dataclasses
+    t_phase = time.perf_counter()
+    n = SERVE_DIST_SHARED
+    tmp = ROOT / "build" / "chip_smoke_serve_dist"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    _, spawn_s = timed(lambda: spawn_world(
+        _serve_dist_shared_rank, n, (n, str(tmp)),
+        deadline=SERVE_DIST_DEADLINE))
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(n)]
+    shutil.rmtree(tmp)
+    opts = RunOptions(param_dtype="bfloat16")
+    cfgs = [dataclasses.replace(get("llama3-8b"), n_layers=SERVE_DIST_LAYERS),
+            get("mamba2-370m")]
+    parts, k3, k4 = [], 0, 0
+    for i, cfg in enumerate(cfgs):
+        runs = [r[i] for r in ranks]
+        for r in runs[1:]:
+            if not np.array_equal(r["tokens"], runs[0]["tokens"]):
+                raise AssertionError(f"serve_dist {cfg.name}: the ranks' "
+                                     "tokens differ")
+        want = cfg.n_layers if cfg.family == "ssm" else 0
+        for r in runs:
+            got = r["launches"]
+            if (cfg.family == "ssm" and got["k4"] != want) or (
+                    cfg.family != "ssm" and got["k3"] != cfg.n_layers):
+                raise AssertionError(f"serve_dist {cfg.name}: launches "
+                                     f"{got} a rank")
+            k3 += got["k3"]
+            k4 += got["k4"]
+        plain = _serve_plain(cfg, opts, runs[0]["tokens"],
+                             torch.device("cuda", 0))
+        parts.append({**_serve_dist_summary(runs[0]),
+                      **_held_serve(runs[0], plain, cfg),
+                      "per_rank": [_serve_dist_summary(r) for r in runs]})
+    emit("serve_dist", ranks=n, backend="gloo, two ranks on card 0",
+         spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase,
+         parts=parts, nvidia_smi=smi)
+    return {"k3": k3, "k4": k4}
+
+
+def _serve_dist_rank(rank, world, tmp):
+    """One rank of ``scripts/chip_serve_dist.py``'s four-card parts, in
+    its own process (spawned): one NCCL rank a card. (b) llama3-8b at
+    full depth, bfloat16, at (1, 4) and (2, 2); (c) qwen1.5-110b at its
+    published width with a float8 kv cache, its first SERVE_DIST_LAYERS
+    layers at (1, 4), then all 80 at (1, 4). What it saw goes to
+    ``tmp/rank<r>.pt``."""
+    import dataclasses
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs.base import get
+    from repro_torch.launch.mesh import init_shard_group, make_host_mesh
+    from repro_torch.models.options import RunOptions
+    tmp = Path(tmp)
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT)
+    dev = init_shard_group(init_method=f"file://{tmp / 'pg_init'}",
+                           rank=rank, world_size=world, timeout=timeout)
+    try:
+        bf16 = RunOptions(param_dtype="bfloat16")
+        fp8 = RunOptions(param_dtype="bfloat16", kv_cache_dtype=FP8)
+        qwen = get("qwen1.5-110b")
+        out = []
+        for m in (4, 2):
+            out.append(_serve_dist_part(make_host_mesh(m, dev, timeout),
+                                        get("llama3-8b"), bf16, "b",
+                                        profile=m == 4))
+        mesh = make_host_mesh(4, dev, timeout)
+        out.append(_serve_dist_part(mesh, dataclasses.replace(
+            qwen, n_layers=SERVE_DIST_LAYERS), fp8, "c cut"))
+        out.append(_serve_dist_part(mesh, qwen, fp8, "c"))
+        torch.save(out, tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_dist_cards(smi):
+    """``scripts/chip_serve_dist.py``'s four-card parts (``_serve_dist_rank``):
+    (b) llama3-8b at full depth (8.03B parameters, 16 GB in bfloat16) at
+    (1, 4) and (2, 2), held against one card's serve from the same draws
+    (``_held_serve``); (c) qwen1.5-110b at its published width (80
+    layers, d_model 8,192, 64 heads over 8 kv heads of 128, d_ff 49,152,
+    vocab 152,064; 111.2B parameters, 222 GB in bfloat16) with a float8
+    kv cache: its first 2 layers at (1, 4) held against one card, then
+    all 80 at (1, 4), which no one card holds: every rank's tokens the
+    same and every logit finite. K3 once a layer and prefill on every
+    rank. Prints each part as ``serve_dist`` does."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs.base import get
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models.options import RunOptions
+    t_phase = time.perf_counter()
+    n = 4
+    tmp = ROOT / "build" / "chip_smoke_serve_dist_cards"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    _, spawn_s = timed(lambda: spawn_world(
+        _serve_dist_rank, n, (n, str(tmp)), deadline=SERVE_DIST_DEADLINE))
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(n)]
+    shutil.rmtree(tmp)
+    bf16 = RunOptions(param_dtype="bfloat16")
+    fp8 = RunOptions(param_dtype="bfloat16", kv_cache_dtype=FP8)
+    qwen = get("qwen1.5-110b")
+    plan = [(get("llama3-8b"), bf16, True), (get("llama3-8b"), bf16, True),
+            (dataclasses.replace(qwen, n_layers=SERVE_DIST_LAYERS), fp8,
+             True), (qwen, fp8, False)]
+    parts, misses, k3 = [], [], 0
+    dev = torch.device("cuda", 0)
+    for i, (cfg, opts, compare) in enumerate(plan):
+        runs = [r[i] for r in ranks]
+        part = {**_serve_dist_summary(runs[0]),
+                "per_rank": [_serve_dist_summary(r) for r in runs]}
+        try:
+            for r in runs:
+                if not np.array_equal(r["tokens"], runs[0]["tokens"]):
+                    raise AssertionError(f"{r['part']}: the ranks' tokens "
+                                         "differ")
+                if r["launches"]["k3"] != cfg.n_layers:
+                    raise AssertionError(f"{r['part']}: K3 launched "
+                                         f"{r['launches']} a rank")
+                k3 += r["launches"]["k3"]
+            if compare:
+                part.update(_held_serve(runs[0], _serve_plain(
+                    cfg, opts, runs[0]["tokens"], dev), cfg))
+            elif not all(np.isfinite(g).all() for g in runs[0]["logits"]):
+                raise AssertionError(f"{cfg.name}: a logit is not finite")
+        except AssertionError as e:
+            misses.append(str(e))
+            part["miss"] = str(e)
+        parts.append(part)
+    emit("serve_dist_cards", ranks=n, backend="nccl", spawn_s=spawn_s,
+         phase_s=time.perf_counter() - t_phase, parts=parts,
+         nvidia_smi=smi)
+    if misses:
+        raise AssertionError("; ".join(misses))
+    return {"k3": k3, "parts": parts}
+
+
 def time_shards(store, plans, host):
     """K1 as one shard's partial at the main plans' shape: every shard's
     five partials timed together (kernel only; the median over the
@@ -5558,6 +5966,7 @@ def run(dev) -> None:
     phase_dist(m, sd, smi)
     td = phase_train_dist(smi)
     phase_time_split(dev, td)
+    sdp = phase_serve_dist(smi)
     tt = phase_tiers(m)
     many = phase_time_many(mm, pp, tt)
     phase_obs(dev)
@@ -5601,7 +6010,7 @@ def run(dev) -> None:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:67",
         "launches": (t["launches"]["flash_attention"] + sv["launches"]
-                     + tr["fwd_launches"] + td["k3_fwd"]),
+                     + tr["fwd_launches"] + td["k3_fwd"] + sdp["k3"]),
         "max_abs_err": k3_err,
         "ms": k3["kernel_ms"],
         "plain_ms": k3["plain_ms"],
@@ -5613,7 +6022,8 @@ def run(dev) -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd.py:63",
-        "launches": ss["launches"] + tssm["fwd_launches"] + td["k4_fwd"],
+        "launches": (ss["launches"] + tssm["fwd_launches"] + td["k4_fwd"]
+                     + sdp["k4"]),
         "max_abs_err": k4_err,
         "ms": k4["kernel_ms"],
         "plain_ms": k4["plain_ms"],

@@ -57,6 +57,21 @@ consumes is used at its use in one of three ways (``leaf``'s ``mode``):
 The batch's rows are laid out by the port itself
 (``data/tokens.local_rows``): each rank of a model group runs the same
 rows, its own part of each product.
+
+Serving across ranks (``runtime.steps.make_prefill_step`` /
+``make_decode_step`` with a mesh) adds three collectives of the model
+group, counted in ``bytes["model"]`` beside ``f`` and ``g``:
+``ModelSplit.heads_to`` (the all-to-all that moves a prefill's k and v
+from heads to the cache's slots, and gathers a decode step's new q, k
+and v), ``merge_softmax`` (a decode step's attention over each rank's
+slots, merged by max, rescale and sum) and ``argmax`` (the next token
+over the vocab-split logits).
+
+A mesh whose groups are ``CountingGroup`` objects (``launch.mesh.
+AccountMesh``, used by ``launch/dryrun.py``) takes the counting path:
+every collective here moves nothing and returns a tensor of the shape
+it would return, on its input's device (``meta``), and the byte counts
+grow by the same lines as on the card.
 """
 from __future__ import annotations
 
@@ -70,6 +85,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.optim.adamw import tree_map
+
+NEG_INF = -1e30          # a masked score (``models.layers.NEG_INF``)
 
 # logical axis -> preferred physical axes (in order; tuples mean "use all")
 DEFAULT_RULES = {
@@ -231,20 +248,44 @@ def full_tensor(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # collectives along one dim
 # ---------------------------------------------------------------------------
+class CountingGroup:
+    """A group of ``n`` ranks that moves nothing: what an accounting
+    mesh's ``group`` returns (``launch.mesh.AccountMesh``). Each
+    collective given one returns an uninitialised tensor of the shape it
+    would return."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+
+def _moves(group) -> bool:
+    """True where ``group`` is a real group (not None, not counting)."""
+    return group is not None and not isinstance(group, CountingGroup)
+
+
 def _all_gather(x, dim: int, group, n: int) -> torch.Tensor:
     if group is None:
         return x
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + xt.shape[1:])
-    dist.all_gather_into_tensor(out, xt, group=group)
+    if _moves(group):
+        dist.all_gather_into_tensor(out, xt, group=group)
     return out.movedim(0, dim).contiguous()
 
 
 def _reduce_scatter(g, dim: int, group, n: int) -> torch.Tensor:
     gt = g.movedim(dim, 0).contiguous()
     out = gt.new_empty((gt.shape[0] // n,) + gt.shape[1:])
-    dist.reduce_scatter_tensor(out, gt, group=group)
+    if _moves(group):
+        dist.reduce_scatter_tensor(out, gt, group=group)
     return out.movedim(0, dim).contiguous()
+
+
+def _all_reduce_(x, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over ``group`` in place (and returned)."""
+    if _moves(group):
+        dist.all_reduce(x, op=op, group=group)
+    return x
 
 
 def _block(g, dim: int, n: int, i: int) -> torch.Tensor:
@@ -288,6 +329,15 @@ class _Plan:
 
 # a leaf's use under the model axis's split (``StepLayout.leaf``)
 MODES = (None, "local", "shared")
+
+
+def _key(t: torch.Tensor):
+    """What names the storage of ``t`` (a gathered leaf or a view of
+    one) while it lives: its address, or on ``meta`` (where every
+    storage is at 0) the view's base tensor."""
+    if t.device.type == "meta":
+        return ("meta", id(t if t._base is None else t._base))
+    return t.untyped_storage().data_ptr()
 
 
 class StepLayout:
@@ -374,8 +424,7 @@ class StepLayout:
     def _all_reduce(self, g, axes):
         g = g.clone()
         self.bytes["reduced"] += g.numel() * g.element_size()
-        dist.all_reduce(g, group=self.mesh.group(axes))
-        return g
+        return _all_reduce_(g, self.mesh.group(axes))
 
     # ------------------------------- use ----------------------------------
     def leaf(self, x: torch.Tensor, spec: Spec,
@@ -393,7 +442,7 @@ class StepLayout:
             return x
         full = _Gather.apply(x, self, plan)
         full._shard = (x.detach(), plan)
-        self._full[full.untyped_storage().data_ptr()] = full
+        self._full[_key(full)] = full
         return full
 
     def tree(self, tree, specs, modes=None):
@@ -422,9 +471,7 @@ class StepLayout:
         group = self.mesh.group(self.batch_axes)
         if group is None:
             return x
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
+        return _all_reduce_(x.clone(), group)
 
     def norm_sums(self, sq):
         """Each leaf's sum of squares (``sq``, in ``tree_leaves`` order of
@@ -438,8 +485,8 @@ class StepLayout:
                 by_axes.setdefault(axes, []).append(i)
         sq = list(sq)
         for axes, idx in by_axes.items():
-            summed = torch.stack([sq[i] for i in idx])
-            dist.all_reduce(summed, group=self.mesh.group(axes))
+            summed = _all_reduce_(torch.stack([sq[i] for i in idx]),
+                                  self.mesh.group(axes))
             for j, i in enumerate(idx):
                 sq[i] = summed[j]
         return sq
@@ -451,8 +498,7 @@ class StepLayout:
         autograd saves for the backward is kept as this rank's block and
         gathered again when the backward needs it."""
         def pack(t):
-            base = t if t._base is None else t._base
-            full = self._full.get(base.untyped_storage().data_ptr())
+            full = self._full.get(_key(t))
             if full is None:
                 return t
             x, plan = full._shard
@@ -570,8 +616,7 @@ class ModelSplit:
         """``x`` reduced over the group (a new tensor; no gradient)."""
         x = x.detach().clone()
         self.layout.bytes[MODEL] += x.numel() * x.element_size()
-        dist.all_reduce(x, op=op, group=self.group)
-        return x
+        return _all_reduce_(x, self.group, op)
 
     def f(self, x: torch.Tensor) -> torch.Tensor:
         return _F.apply(x, self)
@@ -584,3 +629,82 @@ class ModelSplit:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         return _GatherLast.apply(x, self)
+
+    # ------------------------------ serving --------------------------------
+    @torch.no_grad()
+    def heads_to(self, x: torch.Tensor, lists, *,
+                 slots: bool) -> torch.Tensor:
+        """Heads to positions, one all-to-all of the group. ``x`` (B, S,
+        k, D) holds the heads ``lists[self.index]`` (global indices;
+        ``lists`` has every rank's, which together cover heads 0 ..
+        n - 1, a head possibly on several ranks); each head is taken
+        from the first rank that holds it. Returns (B, S / m, n, D), this
+        rank's block of the positions, with ``slots`` (S a multiple of
+        m), else (B, S, n, D), every position. Counts the bytes it
+        returns."""
+        m, i = self.m, self.index
+        seen, own = set(), []
+        for lst in lists:
+            own.append([h for h in dict.fromkeys(lst) if h not in seen])
+            seen.update(own[-1])
+        n_heads = len(seen)
+        if sorted(seen) != list(range(n_heads)):
+            raise ValueError(f"the ranks' heads {lists} are not 0 .. "
+                             f"{n_heads - 1}")
+        B, S, _, D = x.shape
+        Sb = S // m if slots else S
+        if slots and S % m:
+            raise ValueError(f"{S} positions do not split over {m} ranks")
+        if x.is_floating_point() and x.element_size() == 1:
+            return self.heads_to(x.view(torch.uint8), lists,
+                                 slots=slots).view(x.dtype)
+        pos = [lists[i].index(h) for h in own[i]]
+        mine = x[:, :, pos]                              # (B, S, k_own, D)
+        send = (mine.reshape(B, m, Sb, len(pos), D).movedim(1, 0) if slots
+                else mine.expand(m, *mine.shape))
+        send = send.contiguous()
+        recv = x.new_empty((B * Sb * n_heads * D,))
+        sizes = [B * Sb * len(o) * D for o in own]
+        if _moves(self.group):
+            dist.all_to_all_single(recv, send.reshape(-1),
+                                   output_split_sizes=sizes,
+                                   input_split_sizes=[send[0].numel()] * m,
+                                   group=self.group)
+        out = x.new_empty((B, Sb, n_heads, D))
+        at = 0
+        for o, n in zip(own, sizes):
+            if o:
+                out[:, :, o] = recv[at:at + n].view(B, Sb, len(o), D)
+            at += n
+        self.layout.bytes[MODEL] += out.numel() * out.element_size()
+        return out
+
+    @torch.no_grad()
+    def merge_softmax(self, o: torch.Tensor, l: torch.Tensor,
+                      mx: torch.Tensor) -> torch.Tensor:
+        """A softmax-weighted sum over positions split over the group:
+        each rank's unnormalised float32 ``o`` (..., D), its row sums
+        ``l`` (...) and row maxima ``mx`` (...; ``NEG_INF`` or below
+        where it sees no position). Returns sum_r w_r o_r / sum_r w_r
+        l_r with w_r = exp(mx_r - max_r mx_r): a rank that sees nothing
+        enters with weight 0 (two all-reduces: the max, then o and l
+        together)."""
+        M = self.all_reduce(mx, dist.ReduceOp.MAX)
+        w = torch.where(mx > NEG_INF / 2, torch.exp(mx - M),
+                        torch.zeros((), dtype=mx.dtype, device=mx.device))
+        both = self.all_reduce(torch.cat([o * w[..., None],
+                                          (l * w)[..., None]], -1))
+        return both[..., :-1] / both[..., -1:]
+
+    @torch.no_grad()
+    def argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """``torch.argmax`` over the last dim of logits split over the
+        group, each rank its block of the columns: the global index of
+        the largest, ties to the lowest global index (two
+        all-reduces: the max, then the least index holding it)."""
+        i = torch.argmax(logits, dim=-1)
+        v = torch.gather(logits, -1, i[..., None])[..., 0].float()
+        top = self.all_reduce(v, dist.ReduceOp.MAX)
+        at = torch.where(v == top, i + self.index * logits.shape[-1],
+                         torch.full_like(i, torch.iinfo(i.dtype).max))
+        return self.all_reduce(at, dist.ReduceOp.MIN)

@@ -44,6 +44,11 @@ dP take one TF32 product and dV, dK, dQ two (P and dS are float32), the
 same numbers as three. ``attention_bwd_tf32`` is a float64 model of that
 arithmetic, ``flash_attention_bwd_ref`` its plain version (the explicit
 formula, float64-capable) and ``bwd_error_bound`` its stated bound.
+
+On a ``meta`` tensor (the dry run's account, ``launch/dryrun.py``) the
+wrappers compute nothing: they return ``meta`` tensors of the kernels'
+output shapes and add the kernels' operation count (``work``, the count
+of ``PERF.md``'s bounds) to ``META_OPS``.
 """
 from __future__ import annotations
 
@@ -57,6 +62,8 @@ from repro_torch.kernels.nograd import refuse_grad
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 BWD_LAUNCHES = 0
+# the operations the meta shape path reckoned: forward and backward
+META_OPS = {"forward": 0, "backward": 0}
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)      # the kernel's operand dtypes
@@ -126,6 +133,28 @@ def _visible(Sq: int, Skv: int, causal: bool, window: Optional[int],
     if window is not None:
         mask &= kp > qp - window
     return mask
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """The (query, key) pairs ``_visible``'s mask keeps, from the
+    positions alone: query i sees keys max(0, i - window + 1) ..
+    min(Skv - 1, i) (causal) or .. Skv - 1."""
+    import numpy as np
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full_like(i, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(q_shape, Skv: int, causal: bool, window: Optional[int],
+         backward: bool = False) -> int:
+    """The operations the kernel does on q (B,Sq,H,D) against Skv keys,
+    2 a multiply-add: QK^T and PV over the visible pairs (4 D a pair and
+    head), its backward's five products (10 D)."""
+    B, Sq, H, D = q_shape
+    return (10 if backward else 4) * D * H * B * visible_pairs(
+        Sq, Skv, causal, window)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -516,6 +545,9 @@ def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.device.type == "meta":
+        META_OPS["forward"] += work(q.shape, Skv, causal, window)
+        return out, lse
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
                  B, Sq, Skv, H, G, D, int(causal), int(window or 0),
@@ -535,7 +567,7 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return (flash_attention_ref(q, k, v, causal=causal, window=window),
                 lse_ref(q, k, causal=causal, window=window))
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
     refuse_grad("flash_attention_fwd_lse", q, k, v)
     return _forward(q, k, v, causal, window, True)
@@ -551,7 +583,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                        window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, window)
     for name, x in (("o", o), ("do", do)):
@@ -566,6 +598,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         raise ValueError(f"lse must be a contiguous float32 tensor of shape "
                          f"{(B, H, Sq)} on {q.device}")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.device.type == "meta":
+        META_OPS["backward"] += work(q.shape, Skv, causal, window, True)
+        return dq, dk, dv
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -607,7 +642,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     gradient, through ``FlashAttentionFn``."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -53,6 +53,11 @@ version ``ssd_scan_bwd_ref`` composes the five passes reversed
 vector-Jacobian product of its forward pass's plain version;
 ``bwd_error_bound`` states how far the kernel may lie from the exact
 gradient. The one-pass entry ``launch`` still refuses a gradient.
+
+On a ``meta`` tensor (the dry run's account, ``launch/dryrun.py``)
+``ssd_scan`` and ``ssd_scan_bwd`` compute nothing: they return ``meta``
+tensors of the kernels' output shapes and add the kernels' operation
+count (``work``, the count of ``PERF.md``'s bounds) to ``META_OPS``.
 """
 from __future__ import annotations
 
@@ -137,6 +142,30 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
         ys.append(y)
     y = torch.stack(ys, 1).reshape(B, nc * Q, H, P)[:, :S]
     return y.to(x.dtype), state.reshape(B, H, P, N)
+
+
+# the operations the meta shape path reckoned: forward and backward
+META_OPS = {"forward": 0, "backward": 0}
+
+
+def work(x_shape, G: int, N: int, chunk: int, backward: bool = False
+         ) -> int:
+    """The operations the kernel does on x (B,S,H,P) with G groups of N
+    states, 2 a multiply-add, per chunk of Q = min(chunk, S) positions
+    (pairs = Q (Q + 1) / 2). Forward: the causal half of C.B^T per group
+    (N a pair), of the scores times x per head (P a pair), C . state and
+    the state update per head (Q P N each). Backward: per head D = dy . x
+    and dx's intra term (P a pair each), dstates, dC's inter term, dB's
+    state term and dx's state term (Q P N each); per group dcb times B
+    and times C (N a pair each)."""
+    B, S, H, P = x_shape
+    Q, nc, _ = geometry(S, chunk)
+    pairs = Q * (Q + 1) // 2
+    if backward:
+        macs = H * (4 * Q * P * N + 2 * P * pairs) + G * 2 * N * pairs
+    else:
+        macs = G * N * pairs + H * P * pairs + 2 * H * Q * N * P
+    return 2 * macs * B * nc
 
 
 def geometry(S: int, chunk: int):
@@ -868,7 +897,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None, scr=None, *,
     if x.device.type == "cpu":
         return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate, chunk=chunk,
                                 init_state=init_state)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {x.device}")
     _check(x, dt, A, Bm, Cm, chunk, init_state)
     B, S, H, P = x.shape
@@ -890,10 +919,12 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None, scr=None, *,
     grads = (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
              torch.empty_like(Bm), torch.empty_like(Cm),
              None if init_state is None else torch.empty_like(init_state))
-    work = bwd_scratch(x, Bm, chunk)
+    if x.device.type == "meta":
+        META_OPS["backward"] += work(x.shape, Bm.shape[2], N, chunk, True)
+        return grads
+    ws = bwd_scratch(x, Bm, chunk)
     for name in BWD_PASSES:
-        launch_bwd(name, x, dt, A, Bm, Cm, dy, dstate, scr, grads, work,
-                   chunk)
+        launch_bwd(name, x, dt, A, Bm, Cm, dy, dstate, scr, grads, ws, chunk)
     BWD_LAUNCHES += 1
     return grads
 
@@ -907,6 +938,9 @@ def _forward(x, dt, A, Bm, Cm, init_state, chunk: int):
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     scr = scratch(x, Bm, chunk)
+    if x.device.type == "meta":
+        META_OPS["forward"] += work(x.shape, Bm.shape[2], N, chunk)
+        return y, state, scr
     for name in PASSES:
         launch(name, x, dt, A, Bm, Cm, init_state, y, state, scr, chunk)
     LAUNCHES += 1
@@ -952,7 +986,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None):
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad

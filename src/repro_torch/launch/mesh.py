@@ -34,7 +34,9 @@ this world's ranks: this rank's device and place on it, and a group for
 every set of axes larger than one rank (the port's counterpart of
 ``make_mesh_compat``'s mesh; the gathers of a spec entry such as
 ``("pod", "data")`` need a group over both axes, which a per-axis
-``DeviceMesh`` does not give). ``make_host_mesh`` lays the world out
+``DeviceMesh`` does not give). An ``AccountMesh`` is a layout seen
+from one rank with no world at all: the dry run's, whose collectives
+only count. ``make_host_mesh`` lays the world out
 as (world / model, model), ``make_production_mesh`` as the reference's
 (16, 16) or (2, 16, 16); a mesh that needs more ranks than the world has
 raises, naming both.
@@ -218,6 +220,14 @@ class MeshShape:
     def axis_size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape[a] for a in axes)
 
+    def ordered(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        """``axes`` as a tuple; raises unless in the mesh's axis order."""
+        axes = tuple(axes)
+        if [a for a in self.axis_names if a in axes] != list(axes):
+            raise ValueError(f"axes {axes} are not in the mesh's order "
+                             f"{self.axis_names}")
+        return axes
+
     def coords(self, rank: int) -> Dict[str, int]:
         """The place of ``rank`` on the mesh, axis by axis."""
         at = np.argwhere(self.devices == rank)
@@ -287,10 +297,7 @@ class TrainMesh(MeshShape):
     def group(self, axes: Sequence[str]):
         """This rank's group over ``axes`` (in the mesh's axis order), or
         None when they hold one rank."""
-        axes = tuple(axes)
-        if [a for a in self.axis_names if a in axes] != list(axes):
-            raise ValueError(f"axes {axes} are not in the mesh's order "
-                             f"{self.axis_names}")
+        axes = self.ordered(axes)
         if self.axis_size(axes) == 1:
             return None
         return self._groups[axes]
@@ -303,6 +310,29 @@ class TrainMesh(MeshShape):
         for a in axes:
             i = i * self.shape[a] + self._at[a]
         return i
+
+
+class AccountMesh(MeshShape):
+    """A ``MeshShape`` seen from one of its ranks without a world: the
+    dry run's mesh (``launch/dryrun.py``). Its device is ``meta``, its
+    groups are ``sharding.CountingGroup`` objects, so a step laid out on
+    it runs on shapes alone: every collective moves nothing and returns a
+    tensor of the shape it would return, and the step's byte counts grow
+    as they would on ``rank``'s card."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 devices: Sequence[int] = None, rank: int = 0):
+        super().__init__(shape, axis_names, devices)
+        self.device = torch.device("meta")
+        self.rank = rank
+        self._at = self.coords(rank)
+
+    def group(self, axes: Sequence[str]):
+        from repro_torch.distribution.sharding import CountingGroup
+        n = self.axis_size(self.ordered(axes))
+        return None if n == 1 else CountingGroup(n)
+
+    index = TrainMesh.index
 
 
 def make_train_mesh(layout: MeshShape, device=None,

@@ -8,7 +8,8 @@ port of ``repro/models/attention.py``.
   K3's plain version, one masked softmax, which autograd differentiates.
 - ``decode_attend``: one query step against a (possibly ring-buffer) kv
   cache with per-slot absolute positions, plain PyTorch (the reference
-  has no kernel for it).
+  has no kernel for it); ``decode_attend_parts`` the same over a rank's
+  part of the slots, unnormalised, for a merge across ranks.
 - ``banded_mha``: causal sliding-window prefill. On a CUDA tensor it is
   K3 with its window; on the CPU the reference's banded form, each query
   chunk against its gathered kv band ``[qs - W, qs + qc)``.
@@ -70,26 +71,50 @@ def mha(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 
 # ------------------------------- decode ------------------------------------
+def _decode_scores(q, k_cache, slot_pos, cur_pos, window, scale):
+    """The float32 scores (B,G,R,1,Sc) of one decode step, NEG_INF where
+    a slot is not visible, and the (B,1,1,1,Sc) mask of those that are."""
+    B, _, H, D = q.shape
+    G = k_cache.shape[2]
+    scale = scale or D ** -0.5
+    qg = (q * scale).reshape(B, 1, G, H // G, D)
+    s = torch.einsum("bqgrd,bsgd->bgrqs", qg, k_cache.to(q.dtype)).float()
+    ok = (slot_pos >= 0) & (slot_pos <= cur_pos[:, None])
+    if window is not None:
+        ok &= slot_pos > (cur_pos[:, None] - window)
+    ok = ok[:, None, None, None, :]
+    return torch.where(ok, s, NEG_INF), ok
+
+
 def decode_attend(q, k_cache, v_cache, slot_pos, cur_pos, *,
                   window: Optional[int] = None,
                   scale: Optional[float] = None):
     """One decode step. q (B,1,H,D); caches (B,Sc,G,D); slot_pos (B,Sc)
     absolute position per slot (-1 = empty); cur_pos (B,)."""
     B, _, H, D = q.shape
-    _, Sc, G, _ = k_cache.shape
-    R = H // G
-    scale = scale or D ** -0.5
-    k_cache = k_cache.to(q.dtype)
-    v_cache = v_cache.to(q.dtype)
-    qg = (q * scale).reshape(B, 1, G, R, D)
-    s = torch.einsum("bqgrd,bsgd->bgrqs", qg, k_cache).float()
-    ok = (slot_pos >= 0) & (slot_pos <= cur_pos[:, None])
-    if window is not None:
-        ok &= slot_pos > (cur_pos[:, None] - window)
-    s = torch.where(ok[:, None, None, None, :], s, NEG_INF)
+    s, _ = _decode_scores(q, k_cache, slot_pos, cur_pos, window, scale)
     p = torch.softmax(s, dim=-1)
+    v_cache = v_cache.to(q.dtype)
     o = torch.einsum("bgrqs,bsgd->bgrqd", p.to(v_cache.dtype), v_cache)
     return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_attend_parts(q, k_cache, v_cache, slot_pos, cur_pos, *,
+                        window: Optional[int] = None):
+    """``decode_attend`` over a part of the cache's slots, before the
+    softmax's normalisation: (o (B,1,H,D) float32, unnormalised; the row
+    sums (B,1,H); the row maxima (B,1,H), NEG_INF where no slot of the
+    part is visible, whose o and sums are then 0). Parts over disjoint
+    slots merge into ``decode_attend`` (``ModelSplit.merge_softmax``)."""
+    B, _, H, D = q.shape
+    s, ok = _decode_scores(q, k_cache, slot_pos, cur_pos, window, None)
+    mx = s.amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - mx), torch.zeros((), dtype=s.dtype,
+                                                       device=s.device))
+    v_cache = v_cache.to(q.dtype)
+    o = torch.einsum("bgrqs,bsgd->bgrqd", p.to(v_cache.dtype), v_cache)
+    return (o.float().reshape(B, 1, H, D), p.sum(-1).reshape(B, 1, H),
+            mx.reshape(B, 1, H))
 
 
 def _gqa_scores(qg, kc):

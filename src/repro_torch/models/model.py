@@ -168,20 +168,27 @@ class Model:
                                      embeds)
         return logits
 
-    def prefill(self, params, batch, cache_len: Optional[int] = None):
+    def prefill(self, params, batch, cache_len: Optional[int] = None,
+                layout=None, logits: bool = False):
+        """(next token, cache), and with ``logits`` the last position's
+        logits. With a ``layout`` (``runtime.steps.make_prefill_step``
+        across ranks) ``params`` are this rank's blocks and ``batch`` its
+        rows."""
+        kw = dict(cache_len=cache_len, layout=layout, logits=logits)
         if self.cfg.family == "encdec":
             return wp.prefill(params, self.cfg, self.opts,
-                              self._encdec_batch(params, batch),
-                              cache_len=cache_len)
+                              self._encdec_batch(params, batch), **kw)
         return tf.lm_prefill(params, self.cfg, self.opts,
                              self._tokens(params, batch["tokens"]),
-                             batch.get("embeds"), cache_len=cache_len)
+                             batch.get("embeds"), **kw)
 
-    def decode_step(self, params, cache, token):
+    def decode_step(self, params, cache, token, layout=None,
+                    logits: bool = False):
         step = (wp.decode_step if self.cfg.family == "encdec"
                 else tf.lm_decode_step)
         return step(params, self.cfg, self.opts, cache,
-                    self._tokens(params, token))
+                    self._tokens(params, token), layout=layout,
+                    logits=logits)
 
     # ------------------------- cache metadata ----------------------------
     def cache_len(self, seq_len: int) -> int:

@@ -44,7 +44,8 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssd
-from repro_torch.models.attention import apply_rope, attend, decode_attend
+from repro_torch.models.attention import (apply_rope, attend, decode_attend,
+                                          decode_attend_parts)
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
                                        padded_vocab, rms_norm,
                                        rms_norm_split, softmax_xent)
@@ -321,12 +322,37 @@ def kv_heads(H: int, G: int, sp) -> list:
     kv heads do not split over the group: each once where every one is
     read by a run of the same number of consecutive query heads (GQA
     over the local heads), else one per query head."""
-    R = H // G
-    h0, h1 = sp.part(H)
-    need = [h // R for h in range(h0, h1)]
+    return _kv_heads_at(H, G, sp.m, sp.index)
+
+
+def _kv_heads_at(H: int, G: int, m: int, i: int) -> list:
+    R, n = H // G, H // m
+    need = [h // R for h in range(i * n, (i + 1) * n)]
     uniq = sorted(set(need))
     run = len(need) // len(uniq)
     return uniq if need == [u for u in uniq for _ in range(run)] else need
+
+
+def head_lists(H: int, G: int, m: int):
+    """Every rank's query heads and kv heads under a split of the H
+    heads over m ranks (``ModelSplit.heads_to``'s ``lists``): the query
+    heads in m blocks, the kv heads in m blocks where G divides by m
+    (``split_plan``'s ``kv``) and else the ones each rank's query heads
+    read (``kv_heads``)."""
+    q = [list(range(i * H // m, (i + 1) * H // m)) for i in range(m)]
+    kv = ([list(range(i * G // m, (i + 1) * G // m)) for i in range(m)]
+          if G % m == 0 else [_kv_heads_at(H, G, m, i) for i in range(m)])
+    return q, kv
+
+
+def slot_split(layout, Sc: int):
+    """The ``ModelSplit`` whose ranks each hold a block of a serving
+    cache's ``Sc`` slots (the reference's ``"cache_seq"`` on
+    ``"model"``), or None where the cache is whole on every rank: no
+    model axis, or ``Sc`` not a multiple of it (``spec_for`` drops the
+    axis)."""
+    sp = None if layout is None else layout.split
+    return sp if sp is not None and Sc % sp.m == 0 else None
 
 
 def _kv_cols(w, idx, hd: int):
@@ -391,40 +417,94 @@ def attn_apply(p, x, cfg: ArchConfig, opts: RunOptions, *,
     return (out, (k, v)) if return_kv else out
 
 
-def write_slot(cache, slot, x) -> None:
+def write_slot(cache, slot, x, mine=None) -> None:
     """cache[:, slot] = x in cache's dtype, in place; cache (B,Sc,G,hd),
     x (B,1,G,hd), slot (1,) integer tensor. ``index_copy_`` has no
     float8 kernel, so a float8 cache takes the codes of x's cast through
-    uint8 views of both: the same bytes, and no wider copy."""
+    uint8 views of both: the same bytes, and no wider copy. ``mine`` (a
+    (1,) bool tensor, or None for True): where False the slot keeps what
+    it holds (a rank that does not hold the step's slot, with ``slot``
+    any of its own), without a host sync."""
     x = x.to(cache.dtype)
     if cache.is_floating_point() and cache.element_size() == 1:
         cache, x = cache.view(torch.uint8), x.view(torch.uint8)
+    if mine is not None:
+        x = torch.where(mine, x, cache.index_select(1, slot))
     cache.index_copy_(1, slot, x)
 
 
 def _attention_step(p, xn, cfg: ArchConfig, *, window, kc, vc, slot_pos,
-                    cur_pos):
+                    cur_pos, sp=None, ssp=None):
     """One decode step's attention of the normed input xn (B,1,d), before
     ``wo``: (B,1,H*hd). kc, vc (B,Sc,G,hd) are written in place at slot
-    ``cur_pos % Sc``; slot_pos (Sc,); cur_pos () integer tensor."""
+    ``cur_pos % Sc``; slot_pos (Sc,); cur_pos () integer tensor.
+
+    With ``sp`` (the heads split) q, k and v are this rank's heads,
+    gathered over the group (``heads_to``), and the result this rank's
+    heads. With ``ssp`` (the slots split, ``slot_split``) kc and vc are
+    this rank's block of the slots: the rank that holds the step's slot
+    writes it, each attends every head over its own slots, and the parts
+    are merged over the group (``merge_softmax``)."""
     B = xn.shape[0]
-    q, k, v = _qkv(p, xn, cfg)
+    q, k, v = _qkv(p, xn, cfg, sp)
     pos = cur_pos.reshape(1)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    slot = torch.remainder(pos, kc.shape[1]).long()
-    write_slot(kc, slot, k)
-    write_slot(vc, slot, v)
-    o = decode_attend(q, kc, vc, slot_pos[None, :], cur_pos.expand(B),
-                      window=window)
+    lists = (None if sp is None
+             else head_lists(cfg.n_heads, cfg.n_kv_heads, sp.m))
+    o = cache_attend(q, k, v, kc, vc, slot_pos, cur_pos, window=window,
+                     sp=sp, ssp=ssp, lists=lists)
     return o.reshape(B, 1, -1)
 
 
-def attn_decode(p, x, cfg: ArchConfig, *, window, kc, vc, slot_pos, cur_pos):
-    """x (B,1,d); the caches as in ``_attention_step``."""
+def cache_attend(q, k, v, kc, vc, slot_pos, cur_pos, *, window=None,
+                 sp=None, ssp=None, lists=None):
+    """One decode step's q (B,1,H,hd), k and v (B,1,G,hd) against the
+    cache: k and v written at slot ``cur_pos % Sc`` (in place), then
+    ``decode_attend``; (B,1,H,hd). With ``sp`` q, k and v are this
+    rank's heads, ``lists`` every rank's (``head_lists``): gathered
+    first (``heads_to``), and the result is this rank's heads. With
+    ``ssp`` kc and vc are this rank's block of the slots: the rank that
+    holds the step's slot writes it, each attends over its own slots,
+    and the parts are merged (``merge_softmax``)."""
+    B = q.shape[0]
+    pos = cur_pos.reshape(1)
+    if sp is not None:
+        q = sp.heads_to(q, lists[0], slots=False)
+        k = sp.heads_to(k, lists[1], slots=False)
+        v = sp.heads_to(v, lists[1], slots=False)
+    if ssp is None:
+        slot = torch.remainder(pos, kc.shape[1]).long()
+        write_slot(kc, slot, k)
+        write_slot(vc, slot, v)
+        o = decode_attend(q, kc, vc, slot_pos[None, :], cur_pos.expand(B),
+                          window=window)
+    else:
+        n = kc.shape[1]
+        at = torch.remainder(pos, n * ssp.m) - ssp.index * n
+        mine = (at >= 0) & (at < n)
+        slot = at.clamp(0, n - 1).long()
+        write_slot(kc, slot, k, mine)
+        write_slot(vc, slot, v, mine)
+        lo = ssp.index * n
+        parts = decode_attend_parts(q, kc, vc, slot_pos[None, lo:lo + n],
+                                    cur_pos.expand(B), window=window)
+        o = ssp.merge_softmax(*parts).to(q.dtype)
+    if sp is not None:
+        h0, h1 = sp.part(o.shape[2])
+        o = o[:, :, h0:h1]
+    return o
+
+
+def attn_decode(p, x, cfg: ArchConfig, *, window, kc, vc, slot_pos, cur_pos,
+                sp=None, ssp=None):
+    """x (B,1,d); the caches and splits as in ``_attention_step`` (with
+    ``sp``, ``wo``'s row-parallel parts summed by ``g``)."""
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    return x + _attention_step(p, xn, cfg, window=window, kc=kc, vc=vc,
-                               slot_pos=slot_pos, cur_pos=cur_pos) @ p["wo"]
+    y = _attention_step(p, xn, cfg, window=window, kc=kc, vc=vc,
+                        slot_pos=slot_pos, cur_pos=cur_pos, sp=sp,
+                        ssp=ssp) @ p["wo"]
+    return x + (y if sp is None else sp.g(y))
 
 
 def _ssm_pre(p, xn):
@@ -496,10 +576,13 @@ def ssm_apply(p, x, cfg: ArchConfig, opts: RunOptions, *, di: int,
 
 
 def ssm_decode(p, x, cfg: ArchConfig, cache_l, *, di: int,
-               own_norm: bool = True):
+               own_norm: bool = True, sp=None):
     """One step. x (B,1,d); cache_l holds this layer's ssm (B,H,P,N)
     float32, conv_x (B,cw-1,di), conv_b and conv_c (B,cw-1,GN), all
-    updated in place. ``di`` and ``own_norm`` as in ``ssm_apply``."""
+    updated in place. ``di`` and ``own_norm`` as in ``ssm_apply``. With
+    ``sp`` this rank's heads and columns, as ``ssm_apply`` splits them:
+    its block of the state and of each conv cache, B and C gathered
+    after their convs, ``gln``'s norm split, ``wout`` row-parallel."""
     s = cfg.ssm
     B = x.shape[0]
     H, P = di // s.head_dim, s.head_dim
@@ -514,17 +597,34 @@ def ssm_decode(p, x, cfg: ArchConfig, cache_l, *, di: int,
         cache_l[name].copy_(new)
         outs.append(o)
     x_in = F.silu(outs[0])
-    Bm = F.silu(outs[1]).reshape(B, G, N)
-    Cm = F.silu(outs[2]).reshape(B, G, N)
-    dt = F.softplus(dtr + p["dt_bias"])                  # (B,H)
-    A = -torch.exp(p["A_log"].float())
+    b_c, c_c = F.silu(outs[1]), F.silu(outs[2])
+    dt_bias, A_log, Dskip = p["dt_bias"], p["A_log"], p["Dskip"]
+    if sp is not None:
+        h0, h1 = sp.part(H)
+        R = H // G
+        g0, g1 = h0 // R, (h1 - 1) // R + 1
+        b_c = sp.gather(b_c).reshape(B, G, N)[:, g0:g1]
+        c_c = sp.gather(c_c).reshape(B, G, N)[:, g0:g1]
+        dt_bias, A_log, Dskip = dt_bias[h0:h1], A_log[h0:h1], Dskip[h0:h1]
+        H, G = h1 - h0, g1 - g0
+    Bm = b_c.reshape(B, G, N)
+    Cm = c_c.reshape(B, G, N)
+    dt = F.softplus(dtr + dt_bias)                       # (B,H)
+    A = -torch.exp(A_log.float())
     xh = x_in.reshape(B, H, P)
     y, new_state = ssd.ssd_decode_step(cache_l["ssm"], xh, dt, A, Bm, Cm)
     cache_l["ssm"].copy_(new_state)
-    y = y + p["Dskip"][None, :, None] * xh
-    y = rms_norm(y.reshape(B, 1, di) * F.silu(z[:, None]), p["gln"],
-                 cfg.norm_eps)
-    return x + y @ p["wout"] if own_norm else y
+    y = y + Dskip[None, :, None] * xh
+    if sp is None:
+        y = rms_norm(y.reshape(B, 1, di) * F.silu(z[:, None]), p["gln"],
+                     cfg.norm_eps)
+    else:
+        y = rms_norm_split(y.reshape(B, 1, H * P) * F.silu(z[:, None]),
+                           p["gln"], sp, di, cfg.norm_eps)
+    if not own_norm:
+        return y
+    y = y @ p["wout"]
+    return x + (y if sp is None else sp.g(y))
 
 
 def _combine(p, o_attn, y_ssm, cfg: ArchConfig, sp=None):
@@ -569,17 +669,21 @@ def hybrid_parallel(p, x, cfg: ArchConfig, opts: RunOptions, *,
 
 
 def hybrid_decode(p, x, cfg: ArchConfig, opts: RunOptions, *, window,
-                  cache_l, slot_pos, cur_pos):
+                  cache_l, slot_pos, cur_pos, sps=None, ssp=None):
     """One hybrid step. x (B,1,d); cache_l holds this layer's k, v (written
-    at slot ``cur_pos % Sc``), ssm and conv caches, all updated in place."""
+    at slot ``cur_pos % Sc``), ssm and conv caches, all updated in place.
+    ``sps`` and ``ssp`` as in ``hybrid_parallel`` and
+    ``_attention_step``."""
+    sps = sps or Splits()
+    sp = sps.attn
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     o_attn = _attention_step(p, xn, cfg, window=window, kc=cache_l["k"],
                              vc=cache_l["v"], slot_pos=slot_pos,
-                             cur_pos=cur_pos)
+                             cur_pos=cur_pos, sp=sp, ssp=ssp)
     y_ssm = ssm_decode(p, xn, cfg, cache_l, di=cfg.n_heads * cfg.hd,
-                       own_norm=False)
-    x = x + _combine(p, o_attn, y_ssm, cfg)
-    x, _ = _ffn(p, x, cfg, opts)
+                       own_norm=False, sp=sp)
+    x = x + _combine(p, o_attn, y_ssm, cfg, sp)
+    x, _ = _ffn(p, x, cfg, opts, sp=sps.mlp)
     return x
 
 
@@ -626,14 +730,12 @@ def _block_fwd(lp, x, cfg, opts, *, window, return_cache, layout=None):
     if cfg.family == "hybrid":
         return hybrid_parallel(lp, x, cfg, opts, window=window,
                                return_cache=return_cache, sps=sps)
-    if return_cache:
-        y, (k, v) = attn_apply(lp, x, cfg, opts, window=window,
-                               return_kv=True)
-        y, aux = _ffn(lp, y, cfg, opts)
-        return y, {"k": k, "v": v}, aux
-    y = attn_apply(lp, x, cfg, opts, window=window, sp=sps.attn)
-    y, aux = _ffn(lp, y, cfg, opts, layout, sps.mlp or sps.moe)
-    return y, None, aux
+    y, (k, v) = attn_apply(lp, x, cfg, opts, window=window, return_kv=True,
+                           sp=sps.attn)
+    # a prefill's aux loss is dropped: no batch sum for it
+    y, aux = _ffn(lp, y, cfg, opts, None if return_cache else layout,
+                  sps.mlp or sps.moe)
+    return y, ({"k": k, "v": v} if return_cache else None), aux
 
 
 # the products whose outputs ``remat="dots"`` keeps (the reference's
@@ -713,26 +815,37 @@ def run_stack(params, x, cfg: ArchConfig, opts: RunOptions, *,
 
 
 def run_stack_decode(params, cache, x, cfg: ArchConfig, opts: RunOptions, *,
-                     slot_pos, cur_pos):
+                     slot_pos, cur_pos, layout=None):
     """One decode step through all layers; ``cache["layers"]`` (stacked
-    on L) is updated in place and returned."""
+    on L) is updated in place and returned. With a ``layout`` (serving
+    across ranks) each layer's leaves are this rank's blocks, gathered
+    at use as a train step's, the split blocks run this rank's part,
+    and the kv cache is this rank's block of the slots where
+    ``slot_split`` says so."""
     check_family(cfg)
     layers = cache["layers"]
+    sps = splits(layout, cfg, opts)
+    modes = layer_modes(sps.plan, opts)
+    ssp = None if slot_pos is None else slot_split(layout,
+                                                   slot_pos.shape[0])
     for li in range(cfg.n_layers):
         lp = _layer(params, li)
+        if layout is not None:
+            lp = layout.layer(lp, modes=modes)
         cache_l = {k: v[li] for k, v in layers.items()}
         if cfg.family == "ssm":
-            x = ssm_decode(lp, x, cfg, cache_l, di=cfg.d_inner)
+            x = ssm_decode(lp, x, cfg, cache_l, di=cfg.d_inner, sp=sps.ssm)
             continue
         if cfg.family == "hybrid":
             x = hybrid_decode(lp, x, cfg, opts, window=_layer_window(cfg, li),
                               cache_l=cache_l, slot_pos=slot_pos,
-                              cur_pos=cur_pos)
+                              cur_pos=cur_pos, sps=sps, ssp=ssp)
             continue
         x = attn_decode(lp, x, cfg, window=_layer_window(cfg, li),
                         kc=cache_l["k"], vc=cache_l["v"],
-                        slot_pos=slot_pos, cur_pos=cur_pos)
-        x, _ = _ffn(lp, x, cfg, opts)
+                        slot_pos=slot_pos, cur_pos=cur_pos, sp=sps.attn,
+                        ssp=ssp)
+        x, _ = _ffn(lp, x, cfg, opts, sp=sps.mlp or sps.moe)
     return x, layers
 
 
@@ -793,27 +906,76 @@ def lm_loss(params, cfg: ArchConfig, opts: RunOptions, batch, layout=None):
     return loss + opts.aux_loss_weight * aux
 
 
+def next_token(logits, vsp=None):
+    """The argmax of the last dim as int32; with ``vsp`` the logits are
+    this rank's vocab columns and the argmax the global one
+    (``ModelSplit.argmax``: ties to the lowest index, as here)."""
+    if vsp is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return vsp.argmax(logits).to(torch.int32)
+
+
+def kv_to_slots(k, v, layout, lists):
+    """A prefill's stacked k and v (L,B,Sc,k,hd), as this rank computed
+    them, into the cache the reference lays out (``"cache_seq"`` on
+    ``"model"``): this rank's block of the Sc slots for every kv head,
+    or every slot where Sc is not a multiple of the model axis
+    (``slot_split``). Where the heads split (``lists``: every rank's kv
+    heads, ``head_lists``) one all-to-all of k and v together over the
+    group moves them (``heads_to``: a kv head computed on several ranks
+    is taken from the first); where they do not (``lists`` None: a
+    mixer gathered at use), each rank has every head and keeps its own
+    slots."""
+    sp = None if layout is None else layout.split
+    if sp is None:
+        return k, v
+    L, B, Sc = k.shape[:3]
+    slots = slot_split(layout, Sc) is not None
+    if lists is None:
+        if not slots:
+            return k, v
+        lo, hi = sp.part(Sc)
+        return k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+    both = torch.stack([k, v]).reshape((2 * L * B,) + k.shape[2:])
+    out = sp.heads_to(both, lists, slots=slots)
+    out = out.reshape((2, L, B) + out.shape[1:])
+    return out[0], out[1]
+
+
 def lm_prefill(params, cfg: ArchConfig, opts: RunOptions, tokens,
-               embeds=None, cache_len: Optional[int] = None):
+               embeds=None, cache_len: Optional[int] = None, layout=None,
+               logits: bool = False):
     """Returns (last-position argmax token (B,) int32, cache), k and v
     in ``opts.kv_cache_dtype`` when it is set. A
     ``cache_len`` past the prompt reserves decode head-room in ``k`` and
     ``v`` (empty slots at position -1), as the reference's ``pad_kv``:
     the hybrid's SSM state and conv caches keep their shapes. The SSM
     family's cache has no positions, so it ignores ``cache_len`` and has
-    no ``slot_pos``."""
-    logits, layer_cache, _ = lm_forward(params, cfg, opts, tokens, embeds,
-                                        return_cache=True)
-    S_total = logits.shape[1]
-    next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    dev = logits.device
+    no ``slot_pos``. With ``logits`` also the last position's logits
+    (this rank's vocab columns where the vocab splits).
+
+    With a ``layout`` (serving across ranks) the params are this rank's
+    blocks and ``tokens`` its rows: the forward is the train step's
+    split (``lm_forward``), the next token the argmax over the vocab
+    split, k and v moved to the slots (``kv_to_slots``); the SSM state
+    and conv caches stay as this rank computed them (its heads and
+    columns where the SSM splits)."""
+    out, layer_cache, _ = lm_forward(params, cfg, opts, tokens, embeds,
+                                     return_cache=True, layout=layout)
+    sps = splits(layout, cfg, opts)
+    S_total = out.shape[1]
+    last = out[:, -1]
+    del out
+    next_tok = next_token(last, sps.vocab)
+    dev = last.device
     pos = torch.tensor(S_total, dtype=torch.int32, device=dev)
     if opts.kv_cache_dtype:
         kvdt = getattr(torch, opts.kv_cache_dtype)
         layer_cache = {k: (v.to(kvdt) if k in ("k", "v") else v)
                        for k, v in layer_cache.items()}
     if cfg.family == "ssm":
-        return next_tok, {"layers": layer_cache, "pos": pos}
+        cache = {"layers": layer_cache, "pos": pos}
+        return (next_tok, cache, last) if logits else (next_tok, cache)
     Sc = layer_cache["k"].shape[2]
     slot_pos = torch.arange(Sc, dtype=torch.int32, device=dev)
     if cache_len is not None and cache_len > Sc:
@@ -824,28 +986,40 @@ def lm_prefill(params, cfg: ArchConfig, opts: RunOptions, tokens,
         slot_pos = torch.cat([slot_pos, torch.full((pad,), -1,
                                                    dtype=torch.int32,
                                                    device=dev)])
-    return next_tok, {"layers": layer_cache, "pos": pos,
-                      "slot_pos": slot_pos}
+    lists = None if sps.attn is None else head_lists(
+        cfg.n_heads, cfg.n_kv_heads, sps.attn.m)[1]
+    layer_cache["k"], layer_cache["v"] = kv_to_slots(
+        layer_cache["k"], layer_cache["v"], layout, lists)
+    cache = {"layers": layer_cache, "pos": pos, "slot_pos": slot_pos}
+    return (next_tok, cache, last) if logits else (next_tok, cache)
 
 
-def lm_decode_step(params, cfg: ArchConfig, opts: RunOptions, cache, token):
+def lm_decode_step(params, cfg: ArchConfig, opts: RunOptions, cache, token,
+                   layout=None, logits: bool = False):
     """token (B,) integer -> (next token (B,) int32, cache). The cache's
     layers and slot_pos (absent for the SSM family) are updated in
-    place; ``pos`` advances by one."""
+    place; ``pos`` advances by one. With ``logits`` also the step's
+    logits. With a ``layout`` the params are this rank's blocks and the
+    cache is ``lm_prefill``'s across ranks (``run_stack_decode``); the
+    next token is the argmax over the vocab split."""
     cdt = getattr(torch, opts.compute_dtype)
     params = _compute_params(params, cdt)
+    sps = splits(layout, cfg, opts)
+    if layout is not None:
+        params = layout.top(params, top_modes(sps.plan))
     cur = cache["pos"]
-    x = embed_tokens(params["embed"], token[:, None]).to(cdt)
+    x = embed_tokens(params["embed"], token[:, None], sps.vocab).to(cdt)
     slot_pos = cache.get("slot_pos")
     if slot_pos is not None:
         slot = torch.remainder(cur.reshape(1), slot_pos.shape[0]).long()
         slot_pos.index_copy_(0, slot, cur.reshape(1).to(slot_pos.dtype))
     x, layers = run_stack_decode(params, cache, x, cfg, opts,
-                                 slot_pos=slot_pos, cur_pos=cur)
+                                 slot_pos=slot_pos, cur_pos=cur,
+                                 layout=layout)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = lm_logits(x[:, 0], _head(params, cfg), cfg.vocab)
-    next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = lm_logits(x[:, 0], _head(params, cfg), cfg.vocab, sps.vocab)
+    next_tok = next_token(out, sps.vocab)
     new_cache = {"layers": layers, "pos": cur + 1}
     if slot_pos is not None:
         new_cache["slot_pos"] = slot_pos
-    return next_tok, new_cache
+    return (next_tok, new_cache, out) if logits else (next_tok, new_cache)

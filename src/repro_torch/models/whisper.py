@@ -43,15 +43,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import attend, decode_attend, mha
+from repro_torch.models.attention import attend, mha
 from repro_torch.models.layers import (embed_tokens, layer_norm, lm_logits,
                                        padded_vocab, sinusoid_div,
                                        sinusoidal_positions, softmax_xent)
 from repro_torch.models.options import RunOptions
 from repro_torch.models.transformer import (ParamMeta, _compute_params,
-                                            _stack, layer_modes, remat,
+                                            _stack,
+                                            cache_attend, head_lists,
+                                            kv_to_slots, layer_modes,
+                                            next_token, remat, slot_split,
                                             splits, top_modes,
-                                            unbind_layers, write_slot)
+                                            unbind_layers)
 
 PM = ParamMeta
 
@@ -262,27 +265,43 @@ def loss_fn(params, cfg: ArchConfig, opts: RunOptions, batch, layout=None):
 # Serving: prefill and one decode step
 # ===========================================================================
 def prefill(params, cfg: ArchConfig, opts: RunOptions, batch,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, layout=None,
+            logits: bool = False):
     """batch {"frames" (B,S_enc,d), "tokens" (B,St)}: encode the frames,
     prefill the decoder prompt. Returns (last-position argmax token (B,)
-    int32, cache). A ``cache_len`` past St reserves decode head-room in
-    ``k`` and ``v`` (empty slots at position -1). The reference leaves
-    ``opts.kv_cache_dtype`` to the decoder families, and so does this."""
+    int32, cache), and with ``logits`` the last position's logits. A
+    ``cache_len`` past St reserves decode head-room in ``k`` and ``v``
+    (empty slots at position -1). The reference leaves
+    ``opts.kv_cache_dtype`` to the decoder families, and so does this.
+
+    With a ``layout`` (serving across ranks) the params are this rank's
+    blocks, gathered at use, and the batch its rows; the encoder and the
+    decoder run the train step's split, the next token is the argmax
+    over the vocab split, k and v move to the cache's slots
+    (``transformer.kv_to_slots``), and the cross-attention's xk and xv
+    stay as this rank computed them: its heads where they split."""
     cdt = getattr(torch, opts.compute_dtype)
     params = _compute_params(params, cdt)
-    enc_out = encode(params, cfg, opts, batch["frames"])
+    sps = splits(layout, cfg, opts)
+    if layout is not None:
+        params = layout.top(params, top_modes(sps.plan))
+    enc_out = encode(params, cfg, opts, batch["frames"], layout)
     tokens = batch["tokens"]
     St = tokens.shape[1]
     dev = enc_out.device
-    x = embed_tokens(params["embed"], tokens).to(cdt)
+    x = embed_tokens(params["embed"], tokens, sps.vocab).to(cdt)
     x = x + sinusoidal_positions(St, cfg.d_model, dev).to(cdt)
+    modes = layer_modes(sps.plan, opts)
     kvs = []
     for li in range(cfg.n_layers):
-        x, kv = _dec_block(_layer(params["dec_layers"], li), x, enc_out,
-                           cfg, opts, return_kv=True)
+        lp = _layer(params["dec_layers"], li)
+        if layout is not None:
+            lp = layout.layer(lp, "dec_layers", modes)
+        x, kv = _dec_block(lp, x, enc_out, cfg, opts, return_kv=True,
+                           sps=sps)
         kvs.append(kv)
     x = _ln(x, params["final_ln"], cfg)
-    logits = lm_logits(x[:, -1], params["head"], cfg.vocab)
+    last = lm_logits(x[:, -1], params["head"], cfg.vocab, sps.vocab)
     k, v, xk, xv = (torch.stack(t) for t in zip(*kvs))
     del kvs
     slot_pos = torch.arange(St, dtype=torch.int32, device=dev)
@@ -292,44 +311,66 @@ def prefill(params, cfg: ArchConfig, opts: RunOptions, batch,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         slot_pos = torch.cat([slot_pos, torch.full(
             (pad,), -1, dtype=torch.int32, device=dev)])
+    lists = None if sps.attn is None else head_lists(
+        cfg.n_heads, cfg.n_heads, sps.attn.m)[1]
+    k, v = kv_to_slots(k, v, layout, lists)
     cache = {"k": k, "v": v, "xk": xk, "xv": xv,
              "pos": torch.tensor(St, dtype=torch.int32, device=dev),
              "slot_pos": slot_pos}
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    tok = next_token(last, sps.vocab)
+    return (tok, cache, last) if logits else (tok, cache)
 
 
-def decode_step(params, cfg: ArchConfig, opts: RunOptions, cache, token):
-    """token (B,) integer -> (next token (B,) int32, cache). ``k``, ``v``
-    and ``slot_pos`` are written in place at slot ``pos % Sc``; ``pos``
-    advances by one."""
+def decode_step(params, cfg: ArchConfig, opts: RunOptions, cache, token,
+                layout=None, logits: bool = False):
+    """token (B,) integer -> (next token (B,) int32, cache), and with
+    ``logits`` the step's logits. ``k``, ``v`` and ``slot_pos`` are
+    written in place at slot ``pos % Sc``; ``pos`` advances by one. With
+    a ``layout`` the cache is ``prefill``'s across ranks: the
+    self-attention as the decoder families' (``transformer.
+    cache_attend``: q, k, v gathered over the heads, the slots' parts
+    merged), the cross-attention on this rank's heads of xq, xk and xv,
+    the FFN its hidden columns, the next token the split argmax."""
     cdt = getattr(torch, opts.compute_dtype)
     params = _compute_params(params, cdt)
+    sps = splits(layout, cfg, opts)
+    if layout is not None:
+        params = layout.top(params, top_modes(sps.plan))
+    sp = sps.attn
     cur = cache["pos"]
     B = token.shape[0]
-    H, hd = cfg.n_heads, cfg.hd
-    x = embed_tokens(params["embed"], token[:, None]).to(cdt)
+    hd = cfg.hd
+    x = embed_tokens(params["embed"], token[:, None], sps.vocab).to(cdt)
     # the sinusoid at position ``cur``, in float32
     ang = cur.float() * sinusoid_div(cfg.d_model, x.device)
     pos_vec = torch.stack([torch.sin(ang), torch.cos(ang)], -1).reshape(-1)
     x = x + pos_vec.to(cdt)
     slot_pos = cache["slot_pos"]
+    ssp = slot_split(layout, slot_pos.shape[0])
     slot = torch.remainder(cur.reshape(1), slot_pos.shape[0]).long()
     slot_pos.index_copy_(0, slot, cur.reshape(1).to(slot_pos.dtype))
+    modes = layer_modes(sps.plan, opts)
+    lists = None if sp is None else head_lists(cfg.n_heads, cfg.n_heads,
+                                               sp.m)
     for li in range(cfg.n_layers):
         lp = _layer(params["dec_layers"], li)
+        if layout is not None:
+            lp = layout.layer(lp, "dec_layers", modes)
         kc, vc = cache["k"][li], cache["v"][li]
         xn = _ln(x, lp["ln"], cfg)
         q, k, v = _proj_qkv(lp, xn, xn, cfg)
-        write_slot(kc, slot, k)
-        write_slot(vc, slot, v)
-        o = decode_attend(q, kc, vc, slot_pos[None, :], cur.expand(B))
-        x = x + _out(lp, o)
+        o = cache_attend(q, k, v, kc, vc, slot_pos, cur, sp=sp, ssp=ssp,
+                         lists=lists)
+        x = x + _out(lp, o, sp=sp)
         xn = _ln(x, lp["x_ln"], cfg)
-        qx = (_mm(xn, lp["x_wq"]) + lp["x_bq"]).reshape(B, 1, H, hd)
+        qx = _mm(xn, lp["x_wq"]) + lp["x_bq"]
+        qx = qx.reshape(B, 1, qx.shape[-1] // hd, hd)
         ox = mha(qx, cache["xk"][li], cache["xv"][li], causal=False,
                  q_chunk=1, kv_chunk=opts.kv_chunk)
-        x = _ffn(lp, x + _out(lp, ox, "x_"), cfg)
+        x = _ffn(lp, x + _out(lp, ox, "x_", sp), cfg, sps.mlp)
     x = _ln(x, params["final_ln"], cfg)
-    logits = lm_logits(x[:, 0], params["head"], cfg.vocab)
+    out = lm_logits(x[:, 0], params["head"], cfg.vocab, sps.vocab)
     new_cache = {**cache, "pos": cur + 1}
-    return torch.argmax(logits, dim=-1).to(torch.int32), new_cache
+    tok = next_token(out, sps.vocab)
+    return (tok, new_cache, out) if logits else (tok, new_cache)
+

@@ -50,6 +50,7 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.distribution import sharding as shd
 from repro_torch.models.model import Model, _leaves, _set, materialize
+from repro_torch.models.transformer import ParamMeta, splits
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                      clip_by_global_norm, leaves,
                                      tree_map, warmup_cosine)
@@ -189,13 +190,114 @@ def _micro(x, n: int, i: int):
     return x[i * b:(i + 1) * b]
 
 
-def make_prefill_step(model: Model):
-    def prefill_step(params, batch):
-        return model.prefill(params, batch)
+def init_params(model: Model, generator: torch.Generator, device=None,
+                mesh=None) -> Dict:
+    """Serving params drawn from ``generator`` a layer slice at a time,
+    so no whole stacked leaf is ever drawn (qwen1.5-110b's ``w_gate`` is
+    (80, 8,192, 49,152): 129 GB in float32): each leaf in sorted key
+    order, a stacked one layer by layer, each slice scaled as the whole
+    leaf's rows are. On ``device`` (None means CUDA) without a ``mesh``;
+    with one (a ``TrainMesh``) each slice is cut to this rank's block
+    as it is drawn (``param_specs``), on the mesh's device.
+
+    The draws are ``Model.init``'s on the CPU's generator wherever a
+    slice's element count is a multiple of 16 (torch's normal sampler
+    fills blocks of 16), so at every width of the zoo; a CUDA
+    generator's Philox offset moves by a call's launch shape, so there
+    the draws differ from the whole-leaf ones. Compare only params drawn
+    alike: both sides of a comparison call this."""
+    dev = mesh.device if mesh is not None else resolve(device)
+    specs = None if mesh is None else model.param_specs(mesh)
+
+    def put(x, spec):
+        return (x.to(dev) if spec is None
+                else shd.shard_tensor(x, spec, mesh))
+    params: Dict = {}
+    for path, meta in _leaves(model.meta()):
+        spec = specs
+        for k in path if specs is not None else ():
+            spec = spec[k]
+        if path[0] not in shd.LAYER_KEYS:
+            _set(params, path, put(materialize(meta, generator,
+                                               generator.device), spec))
+            continue
+        row = ParamMeta(meta.shape[1:], meta.init, meta.dtype,
+                        tuple(d - 1 for d in meta.fan_in_dims),
+                        meta.axes[1:])
+        rspec = None if spec is None else shd.Spec(spec[1:])
+        block = None
+        for li in range(meta.shape[0]):
+            x = put(materialize(row, generator, generator.device), rspec)
+            if block is None:
+                block = torch.empty((meta.shape[0],) + x.shape,
+                                    dtype=x.dtype, device=dev)
+            block[li] = x
+            del x
+        _set(params, path, block)
+    return params
+
+
+def _serve_layout(model: Model, mesh):
+    return None if mesh is None else shd.StepLayout(
+        mesh, model.param_specs(mesh), model.batch_axes(mesh))
+
+
+def _whole_logits(model: Model, layout, logits):
+    """A vocab-split step's logits gathered whole over the model group
+    (not counted: only the comparisons ask for them)."""
+    vsp = splits(layout, model.cfg, model.opts).vocab
+    if vsp is None:
+        return logits
+    return shd._all_gather(logits, logits.dim() - 1, vsp.group, vsp.m)
+
+
+def make_prefill_step(model: Model, mesh=None, *, logits: bool = False):
+    """``prefill_step(params, batch, cache_len=None) -> (next token,
+    cache)``, and with ``logits`` the last position's logits, whole.
+
+    With a ``mesh`` (a ``TrainMesh``; the reference's ``lower_cell``
+    lays prefill out so) ``params`` are this rank's blocks by
+    ``param_shardings`` (``init_params(..., mesh=)``, or
+    ``shard_tensor`` of whole ones): ZeRO-3 over ``"data"``, gathered a
+    layer at a time at use, and ``"model"`` computed as the train step
+    computes it (``sharding.ModelSplit``: K3 and K4 on this rank's
+    heads). ``batch`` is this rank's rows of the global batch, cut over
+    ``("pod", "data")`` (``data.tokens.local_rows``); rows that do not
+    split over those axes are whole on every rank, as ``spec_for`` drops
+    an axis that does not divide, and so is every leaf dim that does not
+    divide its axes. The cache comes back as the reference lays it out:
+    k and v this rank's block of the slots (``"cache_seq"`` on
+    ``"model"``, moved from heads to slots by one all-to-all; whole where
+    the slots do not divide), the SSM state and conv caches as this rank
+    computed them. The step's ``layout.bytes`` counts what it moved. At
+    one rank it is the step without a mesh, bit for bit."""
+    layout = _serve_layout(model, mesh)
+
+    def prefill_step(params, batch, cache_len=None):
+        out = model.prefill(params, batch, cache_len=cache_len,
+                            layout=layout, logits=logits)
+        if logits:
+            return out[0], out[1], _whole_logits(model, layout, out[2])
+        return out
+    prefill_step.layout = layout
     return prefill_step
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, mesh=None, *, logits: bool = False):
+    """``decode_step(params, cache, token) -> (next token, cache)``, and
+    with ``logits`` the step's logits, whole. With a ``mesh``, ``params``
+    and ``token`` as ``make_prefill_step``'s and ``cache`` its: the new
+    token's q, k and v gathered over ``"model"``, its slot written by the
+    rank that holds it, each rank's slots attended and the softmax
+    merged over ``"model"``, the next token the argmax over the vocab
+    split. The cache is updated in place."""
+    layout = _serve_layout(model, mesh)
+
     def decode_step(params, cache, token):
-        return model.decode_step(params, cache, token)
+        out = model.decode_step(params, cache, token, layout=layout,
+                                logits=logits)
+        if logits:
+            return out[0], out[1], _whole_logits(model, layout, out[2])
+        return out
+    decode_step.layout = layout
     return decode_step

@@ -824,3 +824,211 @@ def rank_raises(rank, world, *, arch, opts, batch, kw):
         raise RuntimeError("rank 1 fails on purpose")
     make_train_step(model, mesh=m, **kw)(state, my_rows(model, m, batch))
     return {}
+
+
+# ---------------------------------------------------------------------------
+# serving across ranks
+# ---------------------------------------------------------------------------
+
+def serve_rows(model, mesh, n_rows):
+    """This rank's rows of a global batch of ``n_rows`` (all of them
+    where they do not split over the batch's axes) and whether they
+    split."""
+    from repro_torch.data.tokens import local_rows
+    axes = model.batch_axes(mesh)
+    n = mesh.axis_size(axes)
+    if n_rows % n:
+        return np.arange(n_rows), False
+    return local_rows(n_rows, mesh.index(axes), n), n > 1
+
+
+def _gather_dim(x, dim, mesh, axes):
+    from repro_torch.distribution.sharding import _all_gather
+    axes = tuple(a for a in mesh.axis_names if a in axes)
+    return _all_gather(x, dim, mesh.group(axes), mesh.axis_size(axes))
+
+
+def cache_arrays(cache):
+    """A serving cache's leaves as numpy by name (the layers' and the
+    top level's; a float8 leaf widened to float32)."""
+    out = {}
+    for k, v in {**cache.get("layers", {}), **cache}.items():
+        if k == "layers":
+            continue
+        if v.is_floating_point() and v.element_size() == 1:
+            v = v.float()
+        out[k] = v.cpu().numpy().copy()
+    return out
+
+
+def whole_cache(model, cache, layout, rows_split):
+    """A serving cache across ranks gathered whole (every rank must call
+    it), as numpy (``cache_arrays``): k and v over their slots where
+    ``slot_split`` cut them, the SSM state's heads and the conv caches'
+    columns where the SSM splits, whisper's xk and xv heads where the
+    heads split, then every per-row leaf over the batch's ranks where
+    the rows split (``rows_split``)."""
+    from repro_torch.models.transformer import slot_split, splits
+    mesh = layout.mesh
+    plan = splits(layout, model.cfg, model.opts).plan
+    ssp = (slot_split(layout, cache["slot_pos"].shape[0])
+           if "slot_pos" in cache else None)
+    whole = {}
+    for k, v in {**cache.get("layers", {}), **cache}.items():
+        if k in ("layers", "pos", "slot_pos"):
+            continue
+        if k in ("k", "v") and ssp is not None:
+            v = _gather_dim(v, 2, mesh, ("model",))
+        if plan is not None and plan.ssm and k in ("ssm", "conv_x", "conv_b",
+                                                   "conv_c"):
+            v = _gather_dim(v, 2 if k == "ssm" else 3, mesh, ("model",))
+        if plan is not None and plan.attn and k in ("xk", "xv"):
+            v = _gather_dim(v, 3, mesh, ("model",))
+        if rows_split:
+            v = _gather_dim(v, 1, mesh, layout.batch_axes)
+        whole[k] = v
+    for k in ("pos", "slot_pos"):
+        if k in cache:
+            whole[k] = cache[k]
+    return cache_arrays(whole)
+
+
+def serve_steps(case, device="cpu"):
+    """``case``: ``arch``, ``opts``, ``mesh`` (over ``("data", "model")``
+    unless ``names``), ``params`` (whole, numpy), ``batch`` (the global
+    prefill batch, numpy), ``cache_len``, ``steps`` (decode steps), and
+    optionally ``cfg``. The prefill and ``steps`` decode steps across
+    ranks (``make_prefill_step`` / ``make_decode_step`` with the mesh):
+    each step's tokens and logits (whole, every rank), the whole cache
+    after the prefill and after the last step (rank 0), each step's
+    bytes, and the heads the kernels saw."""
+    from repro_torch.convert import params_from_arrays
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    model, mesh = train_setup(case["arch"], case["opts"], case["mesh"],
+                              case.get("names", ("data", "model")), device,
+                              case.get("cfg"))
+    params = shd.shard_tree(params_from_arrays(case["params"], "cpu"),
+                            model.param_shardings(mesh))
+    n_rows = len(next(iter(case["batch"].values())))
+    rows, split = serve_rows(model, mesh, n_rows)
+    batch = {k: torch.as_tensor(v[rows], device=mesh.device)
+             for k, v in case["batch"].items()}
+    prefill = make_prefill_step(model, mesh, logits=True)
+    decode = make_decode_step(model, mesh, logits=True)
+    axes = model.batch_axes(mesh)
+    FA.LAUNCHES = SSD.LAUNCHES = 0
+
+    def whole(x):
+        return (_gather_dim(x, 0, mesh, axes) if split else x).cpu().numpy()
+    steps = []
+    with heads_seen() as seen:
+        tok, cache, lg = prefill(params, batch, cache_len=case["cache_len"])
+        steps.append({"tokens": whole(tok), "logits": whole(lg)})
+        caches = [whole_cache(model, cache, prefill.layout, split)]
+        for _ in range(case["steps"]):
+            tok, cache, lg = decode(params, cache, tok)
+            steps.append({"tokens": whole(tok), "logits": whole(lg)})
+    caches.append(whole_cache(model, cache, decode.layout, split))
+    return {"steps": steps, "caches": caches if mesh.rank == 0 else None,
+            "bytes": {"prefill": dict(prefill.layout.bytes),
+                      "decode": dict(decode.layout.bytes)},
+            "heads": sorted(set(seen)),
+            "launches": {"k3": FA.LAUNCHES, "k4": SSD.LAUNCHES}}
+
+
+def plain_serve(case, device="cpu"):
+    """``serve_steps``' steps without a mesh, on this rank's device:
+    each step's tokens and logits, the caches after the prefill and
+    after the last step (numpy)."""
+    from repro_torch.convert import params_from_arrays
+    model = reduced_model(case["arch"], case["opts"], case.get("cfg"))
+    params = params_from_arrays(case["params"], device)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in case["batch"].items()}
+    tok, cache, lg = model.prefill(params, batch,
+                                   cache_len=case["cache_len"], logits=True)
+    steps = [{"tokens": tok.cpu().numpy(), "logits": lg.cpu().numpy()}]
+    caches = [cache_arrays(cache)]
+    for _ in range(case["steps"]):
+        tok, cache, lg = model.decode_step(params, cache, tok, logits=True)
+        steps.append({"tokens": tok.cpu().numpy(),
+                      "logits": lg.cpu().numpy()})
+    caches.append(cache_arrays(cache))
+    return {"steps": steps, "caches": caches}
+
+
+def rank_serve(rank, world, *, cases):
+    """``serve_steps`` of every case (and, with the case's ``plain``,
+    ``plain_serve`` in this rank)."""
+    return [{**serve_steps(c), **({"plain": plain_serve(c)}
+                                  if c.get("plain") else {})}
+            for c in cases]
+
+
+def rank_serve_card(rank, world, *, cases):
+    """``serve_steps`` of every case on this rank's card over NCCL."""
+    return [serve_steps(c, device=None) for c in cases]
+
+
+def rank_serve_cli(rank, world):
+    """``launch.serve.serve`` of the reduced qwen1.5-0.5b over a (world /
+    2, 2) mesh (params from ``init_params(..., mesh=)``, seed 0), and
+    without a mesh in this rank on the same draws: both runs' outputs
+    and the mesh run's ``per_step_bytes``."""
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import per_step_bytes, serve
+    from repro_torch.runtime.steps import init_params
+    model = reduced_model("qwen1.5-0.5b", dict(
+        remat="none", layer_loop="scan", compute_dtype="float32",
+        q_chunk=16, kv_chunk=16))
+    kw = dict(requests=8, batch=4, prompt_len=12, gen=4, log=lambda s: None)
+    corpus = SyntheticCorpus(model.cfg.vocab, 0)
+    mesh = make_host_mesh(2, "cpu")
+    stats = serve(model, init_params(model, torch.Generator().manual_seed(0),
+                                     mesh=mesh), corpus, mesh=mesh, **kw)
+    plain = serve(model, init_params(model, torch.Generator().manual_seed(0),
+                                     "cpu"), corpus, **kw)
+    return {"outputs": stats["outputs"], "plain": plain["outputs"],
+            "per": per_step_bytes(stats, 2, 4)}
+
+
+def rank_step_bytes(rank, world, *, cases):
+    """For each case (``arch``, ``opts``, ``mesh``, ``shapes``: the
+    ``ShapeSpec`` of a ``"train"``, a ``"prefill"`` and a ``"decode"``
+    step), the bytes one sharded step of each kind counts on this rank
+    (``StepLayout.bytes``): a train step, a prefill of the shape's
+    batch, and one decode step against a cache of the decode shape's
+    length (filled by a prefill of half of it)."""
+    from repro_torch.runtime.steps import (init_train_state, make_decode_step,
+                                           make_prefill_step, make_train_step)
+    out = []
+    for case in cases:
+        model, mesh = train_setup(case["arch"], case["opts"], case["mesh"])
+        state = init_train_state(model, torch.Generator().manual_seed(0),
+                                 "cpu", mesh)
+        rng = np.random.default_rng(0)
+        res = {}
+        for kind, shape in case["shapes"].items():
+            B, S = shape.global_batch, shape.seq_len
+            prompt = S // 2 if kind == "decode" else S
+            toks = rng.integers(0, model.cfg.vocab, (B, prompt)).astype(
+                np.int32)
+            batch = my_rows(model, mesh, {"tokens": toks})
+            if kind == "train":
+                step = make_train_step(model, mesh=mesh)
+                step(state, batch)
+            elif kind == "prefill":
+                step = make_prefill_step(model, mesh)
+                step(state["params"], batch)
+            else:
+                tok, cache = make_prefill_step(model, mesh)(
+                    state["params"], batch, cache_len=S)
+                step = make_decode_step(model, mesh)
+                step(state["params"], cache, tok)
+            res[kind] = dict(step.layout.bytes)
+        out.append(res)
+    return out

@@ -1801,3 +1801,71 @@ def test_model_axis_split_over_nccl_ranks_matches_the_unsharded_step(
         assert got["bytes"]["model"] > 0
         if case["mesh"][0] == 1:
             assert got["bytes"]["gathered"] == 0, (case, got["bytes"])
+
+
+# the split serving's logits against one rank's on the card: K3's
+# 3xTF32 products (``error_bound``: about 1e-5 of a row's magnitudes at
+# these lengths, the same per head at any head count) and the
+# row-parallel products' parts added by an all-reduce, the decode's
+# softmax merged over the ranks' slots: float32 sums of the same terms
+# in another order, far inside 1e-4 of these reduced models' logits
+SERVE_SPLIT_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", (2, 4))
+def test_split_serving_over_nccl_ranks_matches_one_rank(cuda, tmp_path,
+                                                        world):
+    """Serving across NCCL ranks, one a card: reduced qwen, mixtral
+    (``moe_sharding="ep"``), mamba2, hymba and whisper at (1, W) and, at
+    4 ranks, (2, 2), each rank's prefill through K3 and K4 on its own
+    heads, k and v moved to its slots, 3 decode steps each merging the
+    softmax over the ranks' slots; against the same steps without a
+    mesh on card 0: the logits within SERVE_SPLIT_TOL, the tokens equal
+    except where the top two logits lie within it; K3 (and K4 for the
+    SSM and hybrid families) launched on every rank. Needs ``world``
+    cards (``chip_smoke.py``'s ``serve_dist`` runs two ranks on one card
+    through gloo)."""
+    import _torch_dist as TD
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"{world} NCCL ranks need {world} cards; "
+                    f"{torch.cuda.device_count()} visible")
+    rng = np.random.default_rng(2)
+    opts = dict(remat="none", compute_dtype="float32")
+    meshes = [(1, world)] + ([(2, 2)] if world == 4 else [])
+    cases = []
+    for arch, moe in (("qwen1.5-0.5b", "tp"), ("mixtral-8x7b", "ep"),
+                      ("mamba2-370m", "tp"), ("hymba-1.5b", "tp"),
+                      ("whisper-large-v3", "tp")):
+        cfg = get(arch).reduced()
+        o = {**opts, "moe_sharding": moe}
+        model = Model(cfg, RunOptions(**o))
+        params = TD.host(model.init(torch.Generator().manual_seed(0), "cpu"))
+        batch = {"tokens": rng.integers(0, cfg.vocab, (4, 40))
+                 .astype(np.int32)}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (4, 48, cfg.d_model)).astype(np.float32)
+        cases += [{"arch": arch, "opts": o, "mesh": mesh, "params": params,
+                   "batch": batch, "cache_len": 48, "steps": 3}
+                  for mesh in meshes]
+    ranks, _ = TD.run_world(TD.rank_serve_card, world, tmp_path,
+                            device=None, cases=cases)
+    for i, case in enumerate(cases):
+        want = TD.plain_serve(case, device="cuda")
+        fam = get(case["arch"]).family
+        for r in ranks:
+            got = r[i]
+            assert got["launches"]["k3"] > 0 or fam == "ssm", case["arch"]
+            assert got["launches"]["k4"] > 0 or fam not in ("ssm",
+                                                            "hybrid")
+            for st, w in zip(got["steps"], want["steps"]):
+                assert np.isfinite(st["logits"]).all()
+                np.testing.assert_allclose(st["logits"], w["logits"],
+                                           rtol=0, atol=SERVE_SPLIT_TOL,
+                                           err_msg=str(case["mesh"]))
+                top2 = np.sort(w["logits"], -1)[:, -2:]
+                flip = st["tokens"] != w["tokens"]
+                assert not (flip & (top2[:, 1] - top2[:, 0]
+                                    > SERVE_SPLIT_TOL)).any(), case["arch"]
+

@@ -51,6 +51,21 @@ def cuda():
     return torch.device("cuda")
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that says it lives on a device the kernels have no path
+    for (``xpu``) and holds no data: the wrappers must refuse it before
+    they read it. (``meta`` has a path: the dry run's shape path.)"""
+
+    @staticmethod
+    def __new__(cls, like):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, like.shape, dtype=like.dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} read a tensor with no data")
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -198,8 +213,11 @@ def test_ssd_cpu_tensors_take_the_plain_version():
     assert float((y - want).abs().max()) < 1e-5
     assert float((state - want_state).abs().max()) < 1e-5
     with pytest.raises(ValueError, match="no kernel"):
-        K.ssd_scan(x.to("meta"), dt.to("meta"), A.to("meta"),
-                   Bm.to("meta"), Cm.to("meta"))
+        K.ssd_scan(*map(_Elsewhere, (x, dt, A, Bm, Cm)))
+    # meta is the dry run's shape path: shapes back, nothing computed
+    y, state = K.ssd_scan(x.to("meta"), dt.to("meta"), A.to("meta"),
+                          Bm.to("meta"), Cm.to("meta"))
+    assert y.shape == x.shape and y.device.type == "meta"
 
 
 def test_ssm_entry_points_raise_without_cuda(monkeypatch):
@@ -348,7 +366,7 @@ def test_encdec_runs_on_cpu_tensors_with_the_port_alone():
     q = torch.randn(1, 1, 4, 16, generator=gen)
     kv = torch.randn(1, 20, 4, 16, generator=gen)
     with pytest.raises(ValueError, match="no kernel"):
-        A.mha(q.to("meta"), kv.to("meta"), kv.to("meta"), causal=False)
+        A.mha(_Elsewhere(q), _Elsewhere(kv), _Elsewhere(kv), causal=False)
 
 
 def test_moe_runs_on_cpu_tensors_with_the_port_alone():
@@ -454,7 +472,7 @@ def test_windowed_attention_on_cpu_takes_the_plain_version():
     want = FA.flash_attention_ref(q, k, v, causal=True, window=6)
     assert float((got - want).abs().max()) < 1e-5
     with pytest.raises(ValueError, match="no kernel"):
-        A.banded_mha(q.to("meta"), k.to("meta"), v.to("meta"), window=6)
+        A.banded_mha(_Elsewhere(q), _Elsewhere(k), _Elsewhere(v), window=6)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
