@@ -659,6 +659,11 @@ TRAIN_DIST_SHARED = 2               # ranks on the one card of part (d)
 # activations of all 4 rows at a quarter of the width (reckoned 1.43 GB a
 # layer, 45.9 GB for 32, over 80 GB with the logits: PERF.md, PR 30)
 TRAIN_DIST_B_MESH = (2, 2)
+# the sequence-split parts and the part each is held against, from the
+# same draws: (d seq) llama3-8b 2 layers at (1, 2) on one card; with
+# four cards (b seq) at (2, 2) and (f), all 32 layers at (1, 4)
+SEQ_BASE = {"d seq": "d", "b seq": "b", "f": "b"}
+LAST_PARTS: dict = {}               # the last train_dist phase's parts
 # K3 and K4 (forward and backward) at the split's local shapes: llama3-8b
 # at m = 4 (B, S, H, G, D) and mamba2-370m's 8 of 32 heads (B, S, H, P,
 # G, N, Q)
@@ -4758,7 +4763,9 @@ def _train_dist_rank(rank, world, tmp):
 def _train_dist_drive(dev, world):
     """Parts (a) and (c) at (W, 1) on every machine; with TRAIN_DIST_FULL
     ranks or more, (a) and (c) again at (1, 4) and (2, 2) (the model
-    axis split), (e) and (b)."""
+    axis split), (e), (b), (b) sequence-split and (f): llama3-8b at full
+    depth at (1, 4), sequence-split, from (b)'s draws (or, where it does
+    not fit, its peak and the allocator's summary)."""
     import dataclasses
     import datetime
     from repro_torch.configs.base import get
@@ -4789,10 +4796,22 @@ def _train_dist_drive(dev, world):
             dataclasses.replace(get("mixtral-8x7b"),
                                 n_layers=TRAIN_DIST_SPLIT_LAYERS),
             TRAIN_DIST["batch"], {"k3": FA}, compare=True, moe="ep")
-        out["b"] = _dist_part(make_host_mesh(TRAIN_DIST_B_MESH[1], dev,
-                                             timeout),
-                              llama, TRAIN_DIST["batch"], {"k3": FA},
+        b_mesh = make_host_mesh(TRAIN_DIST_B_MESH[1], dev, timeout)
+        out["b"] = _dist_part(b_mesh, llama, TRAIN_DIST["batch"], {"k3": FA},
                               compare=False)
+        out["b seq"] = _dist_part(b_mesh, llama, TRAIN_DIST["batch"],
+                                  {"k3": FA}, compare=False, seq_split=True)
+        try:
+            out["f"] = _dist_part(make_host_mesh(4, dev, timeout), llama,
+                                  TRAIN_DIST["batch"], {"k3": FA},
+                                  compare=False, seq_split=True)
+        except torch.cuda.OutOfMemoryError as e:
+            out["f"] = {"oom": str(e)[:400],
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                        "memory_summary": torch.cuda.memory_summary(
+                            abbreviated=True)}
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -4800,7 +4819,9 @@ def _train_dist_shared_rank(rank, world, tmp):
     """One rank of part (d), in its own process (spawned): ``world``
     ranks on card 0 joined through gloo (NCCL refuses a card twice),
     laid out as (1, world) over ("data", "model"), llama3-8b cut to
-    TRAIN_DIST_SPLIT_LAYERS layers; what it saw goes to
+    TRAIN_DIST_SPLIT_LAYERS layers; then (d seq), the same steps
+    sequence-split (``seq_shard_activations``) from the same draws, its
+    moments held against (d)'s; what it saw goes to
     ``tmp/rank<r>.pt``."""
     import dataclasses
     import datetime
@@ -4818,16 +4839,19 @@ def _train_dist_shared_rank(rank, world, tmp):
                          timeout=timeout, backend="gloo")
         cfg = dataclasses.replace(get("llama3-8b"),
                                   n_layers=TRAIN_DIST_SPLIT_LAYERS)
-        torch.save({"rank": mesh.rank, "shape": [1, world],
-                    "d": _dist_part(mesh, cfg, TRAIN_DIST["batch"],
-                                    {"k3": FA}, compare=True, turns=True)},
-                   tmp / f"rank{rank}.pt")
+        d = _dist_part(mesh, cfg, TRAIN_DIST["batch"], {"k3": FA},
+                       compare=True, turns=True, keep=True)
+        d_seq = _dist_part(mesh, cfg, TRAIN_DIST["batch"], {"k3": FA},
+                           compare=False, seq_split=True,
+                           against=d.pop("moments"))
+        torch.save({"rank": mesh.rank, "shape": [1, world], "d": d,
+                    "d seq": d_seq}, tmp / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
 def _dist_part(mesh, cfg, batch, kernels, *, compare, moe=None,
-               turns=False):
+               turns=False, seq_split=False, keep=False, against=None):
     """``TRAIN_DIST["steps"]`` sharded steps of the launcher's step on
     ``cfg`` at ``batch`` x 2,048 tokens over ``mesh``, this rank's rows,
     the counts of ``kernels`` set to 0 just before the steps and read
@@ -4838,7 +4862,12 @@ def _dist_part(mesh, cfg, batch, kernels, *, compare, moe=None,
     where the ranks share a card, one rank at a time). Without it each
     leaf is drawn whole on the card (``torch.Generator("cuda")``, seed 0:
     other draws than the CPU's) and this rank keeps its block. ``moe``:
-    the run options' ``moe_sharding``."""
+    the run options' ``moe_sharding``; ``seq_split``: their
+    ``seq_shard_activations``. ``keep``: the run also returns this
+    rank's blocks of the moments (``"moments"``, on the host);
+    ``against``: such blocks of another run from the same CPU draws,
+    which this one's are held to instead of the steps without a mesh
+    (``_moments_vs``)."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.data.tokens import local_rows, make_batch_iter
@@ -4849,7 +4878,9 @@ def _dist_part(mesh, cfg, batch, kernels, *, compare, moe=None,
     from repro_torch.runtime.steps import init_train_state, make_train_step
 
     dev, steps, seq = mesh.device, TRAIN_DIST["steps"], TRAIN_DIST["seq"]
-    opts = LT.train_options(seq)
+    cpu_draws = compare or against is not None
+    opts = dataclasses.replace(LT.train_options(seq),
+                               seq_shard_activations=seq_split)
     if moe is not None:
         opts = dataclasses.replace(opts, moe_sharding=moe)
     model = Model(cfg, opts)
@@ -4860,7 +4891,7 @@ def _dist_part(mesh, cfg, batch, kernels, *, compare, moe=None,
                          device=dev)
     batches = [next(it) for _ in range(steps)]
     t0 = time.perf_counter()
-    if compare:
+    if cpu_draws:
         full = model.init(torch.Generator().manual_seed(0), "cpu")
         params = shd.shard_tree(full, model.param_shardings(mesh))
         state = {"params": params, "opt": adamw_init(params),
@@ -4883,10 +4914,12 @@ def _dist_part(mesh, cfg, batch, kernels, *, compare, moe=None,
         metrics.append(met)
         secs.append(sec)
     launches = {n: [k.LAUNCHES, k.BWD_LAUNCHES] for n, k in kernels.items()}
-    run = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
-           "seq": seq, "mesh": list(mesh.devices.shape), "moe": moe,
-           "rows": len(rows), "params": _n_params(full)
-           if compare else None, "init_s": init_s, "metrics": metrics,
+    run = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": batch, "seq": seq, "mesh": list(mesh.devices.shape),
+           "moe": moe,
+           "seq_split": seq_split, "rows": len(rows),
+           "params": _n_params(full) if cpu_draws else None,
+           "init_s": init_s, "metrics": metrics,
            "step_s": secs, "launches": launches,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "bytes_per_step": {k: v / steps
@@ -4895,10 +4928,14 @@ def _dist_part(mesh, cfg, batch, kernels, *, compare, moe=None,
                                     for x in leaves(state["params"]))}
     mine = ({k: [x.cpu() for x in leaves(t)] for k, t in (
         ("params", state["params"]), ("m", state["opt"]["m"]),
-        ("v", state["opt"]["v"]))} if compare else None)
+        ("v", state["opt"]["v"]))} if cpu_draws else None)
     del state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
+    if against is not None:
+        run["vs"] = _moments_vs(mine, against)
+    if keep:
+        run["moments"] = {k: mine[k] for k in ("m", "v")}
     if compare and turns:
         for r in range(mesh.size):
             if r == mesh.rank:
@@ -4908,6 +4945,74 @@ def _dist_part(mesh, cfg, batch, kernels, *, compare, moe=None,
     elif compare:
         run["plain"] = _dist_compare(model, mesh, full, batches, mine)
     return run
+
+
+def _moments_vs(mine, want):
+    """This rank's blocks of the moments (``mine``) against another
+    run's from the same draws (``want``), on the host: each kind's
+    largest error over its tolerance (DIST_MOMENT_TOL of the leaf's
+    largest magnitude for m, twice that for v, as ``_dist_compare``)
+    and its largest absolute error."""
+    worst, err = {}, {}
+    for kind, scale in (("m", 1.0), ("v", 2.0)):
+        worst[kind] = err[kind] = 0.0
+        for got, w in zip(mine[kind], want[kind]):
+            e = float((got - w).abs().max())
+            top = float(w.abs().max())
+            err[kind] = max(err[kind], e)
+            worst[kind] = max(worst[kind],
+                              e / max(scale * DIST_MOMENT_TOL * top, 1e-30))
+    return {"err_over_tol": worst, "abs_err": err}
+
+
+def seq_model_bytes(layers, rows, seq, d, elt=4):
+    """The bytes over ``"model"`` a rank counts in one sequence-split
+    train step of a dense model whose vocab splits (remat none), as
+    ``StepLayout.bytes`` counts them: X = rows x seq x d x ``elt`` for
+    each collective of the (rows, seq, d) stream, a reduce-scatter by
+    its input, an all-gather by its output. Forward: the embedding's
+    ``g`` (a reduce-scatter), each layer's attention and FFN ``f``
+    (gathers) and ``g`` (reduce-scatters), the head's ``f``: 4 L + 2.
+    Backward: their adjoints, 4 L + 2, and the gathers again of each
+    saved input kept as this rank's rows (each layer's two normed inputs
+    and the head's), 2 L + 1. So X (10 L + 5), plus the vocab-parallel
+    cross entropy's three float32 all-reduces of (rows, seq - 1)."""
+    X = rows * seq * d * elt
+    return X * (10 * layers + 5) + 3 * 4 * rows * (seq - 1)
+
+
+def _held_seq(what, runs, base):
+    """A sequence-split part's runs against the same part without the
+    flag (``base``, every rank's, from the same draws): the losses and
+    norms within TRAIN_LOSS_TOL relative, every rank's moments within
+    their tolerances (``_moments_vs``, where the run holds them), the
+    bytes over ``"model"`` a rank a step equal to ``seq_model_bytes``.
+    Returns what to add to the part's summary."""
+    first, b0 = runs[0], base[0]
+    rel = max(abs(m[k] - p[k]) / abs(p[k]) for m, p in
+              zip(first["metrics"], b0["metrics"]) for k in ("loss",
+                                                             "gnorm"))
+    worst = ({k: max(r["vs"]["err_over_tol"][k] for r in runs)
+              for k in ("m", "v")} if "vs" in first else None)
+    want = seq_model_bytes(first["layers"], first["rows"], first["seq"],
+                           first["d_model"])
+    got = [r["bytes_per_step"]["model"] for r in runs]
+    out = {"vs_flag_off": {
+        "losses_off": [m["loss"] for m in b0["metrics"]],
+        "metrics_rel_err": rel, "tol": TRAIN_LOSS_TOL,
+        "moments_err_over_tol": worst,
+        "model_bytes_reckoned": want,
+        "step_s_median_off": statistics.median(
+            [s for r in base for s in r["step_s"][1:]]),
+        "peak_mem_bytes_off": [r["peak_mem_bytes"] for r in base],
+        "bytes_per_step_off": [r["bytes_per_step"] for r in base]}}
+    if rel > TRAIN_LOSS_TOL or (worst and max(worst.values()) > 1.0) or \
+            any(g != want for g in got):
+        raise AssertionError(f"train_dist {what} vs the same steps without "
+                             f"the sequence split: metrics rel {rel}, "
+                             f"moments over their tolerance {worst}, bytes "
+                             f"over model {got} (reckoned {want})")
+    return out
 
 
 def _update_bound(m, v, count, lr):
@@ -5084,11 +5189,19 @@ def phase_train_dist(smi):
         hidden columns and vocab rows, 3 steps against the steps without
         a mesh (the ranks take turns on the card). Its seconds a step
         are two processes sharing one card and the host's copies of
-        every all-reduce: not a speed.
+        every all-reduce: not a speed. Then (d seq): the same steps from
+        the same draws with ``seq_shard_activations`` (the residual
+        stream's rows split over ``"model"``, f and g as gathers and
+        scatters of rows), held against (d) (``_held_seq``: losses and
+        norms within TRAIN_LOSS_TOL, moments within DIST_MOMENT_TOL, the
+        bytes over ``"model"`` a step equal to ``seq_model_bytes``).
     With four cards also (a) and (c) at (1, 4) and (2, 2) (the split
     over 4 and over 2 ranks with ZeRO-3 over 2), (e) mixtral-8x7b cut
     to 2 layers at (1, 4) under ``moe_sharding="ep"`` against the steps
-    without a mesh, and (b) at TRAIN_DIST_B_MESH.
+    without a mesh, (b) at TRAIN_DIST_B_MESH, (b seq) the same
+    sequence-split, and (f) llama3-8b at full depth at (1, 4),
+    sequence-split, both held against (b) from the same draws as (d
+    seq) is against (d) but for the moments (not kept at full depth).
 
     Held: every rank's losses and norms the same; at one rank the sharded
     steps bit for bit the steps without a mesh (losses, norms, every
@@ -5104,6 +5217,7 @@ def phase_train_dist(smi):
     t_phase = time.perf_counter()
     world = _dist_world(TRAIN_DIST["batch"])
     parts, misses, k3, k4 = {}, [], [0, 0], [0, 0]
+    all_runs = {}
     spawn_s = {}
     for name, fn, n in (("nccl", _train_dist_rank, world),
                         ("gloo", _train_dist_shared_rank,
@@ -5120,12 +5234,23 @@ def phase_train_dist(smi):
             if p in ("rank", "shape"):
                 continue
             runs = [g[p] for g in ranks]
+            if "oom" in runs[0]:
+                parts[p] = {"oom": runs[0]["oom"], "peak_mem_bytes": [
+                    r["peak_mem_bytes"] for r in runs],
+                    "memory_summary": runs[0]["memory_summary"]}
+                misses.append(f"train_dist {p}: out of memory, peak "
+                              f"{parts[p]['peak_mem_bytes']}")
+                continue
+            all_runs[p] = runs
             for g in runs:
                 for i in (0, 1):
                     k3[i] += g["launches"].get("k3", [0, 0])[i]
                     k4[i] += g["launches"].get("k4", [0, 0])[i]
             try:
                 parts[p] = _held_dist(p, n, runs)
+                base = SEQ_BASE.get(p)
+                if base is not None:
+                    parts[p].update(_held_seq(p, runs, all_runs[base]))
             except AssertionError as e:     # raised below, after the line
                 misses.append(str(e))
                 parts[p] = {"miss": str(e)}
@@ -5138,6 +5263,8 @@ def phase_train_dist(smi):
             f"the part needs {TRAIN_DIST_FULL} cards (32 GB of state each)")}
         print(f"train_dist (b): skipped, {parts['b']['skipped']}",
               flush=True)
+    LAST_PARTS.clear()
+    LAST_PARTS.update(parts)
     emit("train_dist", world=world, backend="nccl; (d) gloo, "
          f"{TRAIN_DIST_SHARED} ranks on card 0", spawn_s=spawn_s,
          phase_s=time.perf_counter() - t_phase, parts=parts,
@@ -5355,15 +5482,11 @@ def _serve_dist_summary(run):
 def _serve_dist_shared_rank(rank, world, tmp):
     """One rank of ``serve_dist``, in its own process (spawned): ``world``
     ranks on card 0 joined through gloo (NCCL refuses a card twice),
-    laid out as (1, world): llama3-8b at its published width cut to
-    SERVE_DIST_LAYERS layers, then mamba2-370m at full width, bfloat16
-    params and compute; what it saw goes to ``tmp/rank<r>.pt``."""
-    import dataclasses
+    laid out as (1, world): the parts of ``_serve_dist_a``; what it saw
+    goes to ``tmp/rank<r>.pt``."""
     import datetime
     import torch.distributed as dist
-    from repro_torch.configs.base import get
     from repro_torch.launch.mesh import TrainMesh, init_shard_group
-    from repro_torch.models.options import RunOptions
     tmp = Path(tmp)
     timeout = datetime.timedelta(seconds=DIST_TIMEOUT)
     dev = init_shard_group(init_method=f"file://{tmp / 'pg_init'}",
@@ -5372,14 +5495,27 @@ def _serve_dist_shared_rank(rank, world, tmp):
     try:
         mesh = TrainMesh((1, world), ("data", "model"), device=dev,
                          timeout=timeout, backend="gloo")
-        opts = RunOptions(param_dtype="bfloat16")
-        llama = dataclasses.replace(get("llama3-8b"),
-                                    n_layers=SERVE_DIST_LAYERS)
-        torch.save([_serve_dist_part(mesh, llama, opts, "a"),
-                    _serve_dist_part(mesh, get("mamba2-370m"), opts, "a")],
+        torch.save([_serve_dist_part(mesh, cfg, opts, name)
+                    for name, cfg, opts in _serve_dist_a()],
                    tmp / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def _serve_dist_a():
+    """Part (a)'s runs, (name, config, run options): llama3-8b at its
+    published width cut to SERVE_DIST_LAYERS layers, mamba2-370m at
+    full width, bfloat16 params and compute; then llama3-8b's prefill
+    sequence-split (``seq_shard_activations``; its decode steps ignore
+    the flag)."""
+    import dataclasses
+    from repro_torch.configs.base import get
+    from repro_torch.models.options import RunOptions
+    opts = RunOptions(param_dtype="bfloat16")
+    llama = dataclasses.replace(get("llama3-8b"), n_layers=SERVE_DIST_LAYERS)
+    return [("a", llama, opts), ("a", get("mamba2-370m"), opts),
+            ("a seq", llama, dataclasses.replace(
+                opts, seq_shard_activations=True))]
 
 
 def phase_serve_dist(smi):
@@ -5393,7 +5529,9 @@ def phase_serve_dist(smi):
         kv heads of 128, d_ff 14,336, vocab 128,256) cut to 2 layers, then
         mamba2-370m at its published width (48 layers, 32 SSM heads),
         bfloat16 params and compute, drawn a layer slice at a time on the
-        card (``init_params``). Each rank runs K3 at 16 of 32 query heads
+        card (``init_params``); then llama3-8b again with its prefill
+        sequence-split (``seq_shard_activations``: each rank's half of
+        the rows between the blocks), held as the first. Each rank runs K3 at 16 of 32 query heads
         over 4 of 8 kv heads, or K4 at 16 of 32 heads, on its half of the
         prompt's heads; moves k and v from heads to its half of the
         cache's slots (one all-to-all); in each decode step gathers the
@@ -5413,10 +5551,7 @@ def phase_serve_dist(smi):
     prefill and a decode step, and the launches a rank; the card's name
     and power limit."""
     import shutil
-    from repro_torch.configs.base import get
     from repro_torch.launch.mesh import spawn_world
-    from repro_torch.models.options import RunOptions
-    import dataclasses
     t_phase = time.perf_counter()
     n = SERVE_DIST_SHARED
     tmp = ROOT / "build" / "chip_smoke_serve_dist"
@@ -5428,11 +5563,8 @@ def phase_serve_dist(smi):
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
              for r in range(n)]
     shutil.rmtree(tmp)
-    opts = RunOptions(param_dtype="bfloat16")
-    cfgs = [dataclasses.replace(get("llama3-8b"), n_layers=SERVE_DIST_LAYERS),
-            get("mamba2-370m")]
     parts, k3, k4 = [], 0, 0
-    for i, cfg in enumerate(cfgs):
+    for i, (_, cfg, opts) in enumerate(_serve_dist_a()):
         runs = [r[i] for r in ranks]
         for r in runs[1:]:
             if not np.array_equal(r["tokens"], runs[0]["tokens"]):

@@ -25,7 +25,9 @@ that its place on the mesh selects (``shard_tensor``).
   replicated leaf).
 - ``saved_as_shards`` keeps a gathered weight that autograd saves for
   the backward as its local block, gathered again when the backward
-  unpacks it, so a step holds one gathered layer at a time.
+  unpacks it, so a step holds one gathered layer at a time (and a
+  sequence-split step's gathered rows as this rank's rows); it counts
+  the bytes the saves hold (``saved``).
 - ``batch_sum`` all-reduces over the batch's axes (the loss, the MoE
   load-balance counts); ``norm_sums`` sums each leaf's sum of squares
   over the axes it is sharded on (the global-norm clip).
@@ -56,7 +58,11 @@ consumes is used at its use in one of three ways (``leaf``'s ``mode``):
 
 The batch's rows are laid out by the port itself
 (``data/tokens.local_rows``): each rank of a model group runs the same
-rows, its own part of each product.
+rows, its own part of each product. With the reference's
+``RunOptions.seq_shard_activations`` (``"seq"`` on ``"model"``) a train
+step or a prefill also splits the residual stream's sequence over the
+group (Megatron's sequence parallelism: ``ModelSplit.seq``, the layout's
+``seq_split``): ``f`` and ``g`` become a gather and a scatter of rows.
 
 Serving across ranks (``runtime.steps.make_prefill_step`` /
 ``make_decode_step`` with a mesh) adds three collectives of the model
@@ -75,6 +81,7 @@ grow by the same lines as on the card.
 """
 from __future__ import annotations
 
+import functools
 import math
 import weakref
 from contextlib import contextmanager
@@ -333,11 +340,43 @@ MODES = (None, "local", "shared")
 
 def _key(t: torch.Tensor):
     """What names the storage of ``t`` (a gathered leaf or a view of
-    one) while it lives: its address, or on ``meta`` (where every
-    storage is at 0) the view's base tensor."""
+    one, or a detached alias) while it lives: its address, or on
+    ``meta`` (where every storage is at 0) the storage object's own."""
     if t.device.type == "meta":
-        return ("meta", id(t if t._base is None else t._base))
+        return ("meta", t.untyped_storage()._cdata)
     return t.untyped_storage().data_ptr()
+
+
+class _Kept:
+    """A gathered tensor that autograd saves, kept as this rank's block
+    (``shard``) with the call that gathers it again (``regather``). The
+    saves of one gathered tensor share one ``_Kept``: the first unpack
+    of the backward gathers it, the others reuse that until the last
+    (``n`` saves not yet unpacked) lets it go."""
+
+    def __init__(self, shard: torch.Tensor, regather):
+        self.shard, self.regather = shard, regather
+        self.n = 0
+        self.full = None
+
+    def unpack(self, shape, stride, offset) -> torch.Tensor:
+        full = self.full
+        if full is None:
+            with torch.no_grad():
+                full = self.regather(self.shard)
+        self.n -= 1
+        self.full = full if self.n > 0 else None
+        return full.as_strided(shape, stride, offset)
+
+
+class _Saved:
+    """One tensor autograd saves (``t``, or a ``_Kept`` and the view of
+    its gathered tensor), with the storage its bytes count against while
+    the save lives (``StepLayout.saved``)."""
+    __slots__ = ("t", "kept", "view", "__weakref__")
+
+    def __init__(self, t=None, kept=None, view=None):
+        self.t, self.kept, self.view = t, kept, view
 
 
 class StepLayout:
@@ -351,13 +390,16 @@ class StepLayout:
     each gather of a leaf returned (``gathered``), the bytes each
     reduce-scatter and all-reduce of a leaf's gradient took in
     (``reduced``), and the bytes the model axis's collectives on
-    activations took in (``model``: ``f``'s and ``g``'s all-reduces,
-    the split norms' and cross entropy's, the SSM's gathers of B and C
-    and their reduce-scatters).
+    activations moved (``model``: ``f``'s and ``g``'s all-reduces, the
+    split norms' and cross entropy's, the SSM's gathers of B and C and
+    their reduce-scatters, a sequence-split step's gathers and
+    scatters of rows; an all-reduce and a reduce-scatter counted by
+    their input, an all-gather by its output).
 
     ``split`` is the model axis's ``ModelSplit`` where ``"model"`` holds
     more than one rank, else None (every leaf then gathered whole, the
-    step without the split, bit for bit)."""
+    step without the split, bit for bit); ``seq_split`` the same group
+    sequence-split (``ModelSplit.seq``)."""
 
     def __init__(self, mesh, specs: Dict, batch_axes: Tuple[str, ...]):
         self.mesh = mesh
@@ -367,10 +409,14 @@ class StepLayout:
         self.layer_specs = {k: tree_map(lambda s: Spec(s[1:]), specs[k])
                             for k in LAYER_KEYS if k in specs}
         self.bytes = {"gathered": 0, "reduced": 0, "model": 0}
+        self.saved = {"live": 0, "peak": 0}
         self._plans: Dict[Tuple[Spec, Optional[str]], _Plan] = {}
         self._full = weakref.WeakValueDictionary()
-        self.split = (ModelSplit(self) if mesh.shape.get(MODEL, 1) > 1
-                      else None)
+        self._live: Dict = {}        # storage key -> [saves, bytes]
+        self._params = frozenset()
+        m = mesh.shape.get(MODEL, 1)
+        self.split = ModelSplit(self) if m > 1 else None
+        self.seq_split = ModelSplit(self, seq=True) if m > 1 else None
 
     # ------------------------------ plans ---------------------------------
     def plan(self, spec: Spec, mode: Optional[str] = None) -> _Plan:
@@ -441,9 +487,16 @@ class StepLayout:
         if not plan.dims:
             return x
         full = _Gather.apply(x, self, plan)
-        full._shard = (x.detach(), plan)
-        self._full[_key(full)] = full
+        self.keep(full, x.detach(), functools.partial(self._gather,
+                                                      plan=plan))
         return full
+
+    def keep(self, full: torch.Tensor, shard: torch.Tensor, regather):
+        """Where autograd saves ``full`` (or a view of it) inside
+        ``saved_as_shards``, keep ``shard`` and ``regather(shard)`` in
+        the backward instead."""
+        full._kept = _Kept(shard, regather)
+        self._full[_key(full)] = full
 
     def tree(self, tree, specs, modes=None):
         """``leaf`` of every leaf of ``tree``; ``modes`` maps a key of
@@ -493,27 +546,54 @@ class StepLayout:
 
     # --------------------------- saved tensors ----------------------------
     @contextmanager
-    def saved_as_shards(self):
-        """Inside the block, a gathered leaf (or a view of one) that
+    def saved_as_shards(self, params: Sequence[torch.Tensor] = ()):
+        """Inside the block, a gathered tensor (or a view of one) that
         autograd saves for the backward is kept as this rank's block and
-        gathered again when the backward needs it."""
-        def pack(t):
-            full = self._full.get(_key(t))
-            if full is None:
-                return t
-            x, plan = full._shard
-            return (x, plan, t.shape, t.stride(), t.storage_offset())
-
-        def unpack(p):
-            if isinstance(p, torch.Tensor):
-                return p
-            x, plan, shape, stride, offset = p
-            with torch.no_grad():
-                full = self._gather(x, plan)
-            return full.as_strided(shape, stride, offset)
-
-        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        gathered again when the backward needs it: a gathered leaf
+        (``leaf``), and the rows of the residual stream gathered by a
+        sequence-split step's ``f`` (``ModelSplit``). ``saved`` counts
+        the bytes the saves hold, each storage once and ``params``'
+        storages (the state, held anyway) not at all: ``live`` now and
+        its ``peak`` since the layout was made."""
+        self._params = frozenset(_key(p) for p in params)
+        with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                      self._unpack):
             yield
+
+    def _pack(self, t: torch.Tensor) -> _Saved:
+        full = self._full.get(_key(t))
+        if full is None:
+            saved, held = _Saved(t=t), t
+        else:
+            kept = full._kept
+            kept.n += 1
+            saved = _Saved(kept=kept, view=(t.shape, t.stride(),
+                                            t.storage_offset()))
+            held = kept.shard
+        key = _key(held)
+        if key not in self._params:
+            entry = self._live.get(key)
+            if entry is None:
+                entry = self._live[key] = [0, held.untyped_storage().nbytes()]
+                self.saved["live"] += entry[1]
+                self.saved["peak"] = max(self.saved["peak"],
+                                         self.saved["live"])
+            entry[0] += 1
+            weakref.finalize(saved, self._release, key)
+        return saved
+
+    def _release(self, key) -> None:
+        entry = self._live[key]
+        entry[0] -= 1
+        if not entry[0]:
+            del self._live[key]
+            self.saved["live"] -= entry[1]
+
+    @staticmethod
+    def _unpack(saved: _Saved) -> torch.Tensor:
+        if saved.kept is None:
+            return saved.t
+        return saved.kept.unpack(*saved.view)
 
 
 # ---------------------------------------------------------------------------
@@ -581,6 +661,69 @@ class _GatherLast(torch.autograd.Function):
         return _reduce_scatter(g, g.dim() - 1, split.group, split.m), None
 
 
+class _GatherRows(torch.autograd.Function):
+    """Megatron's f under sequence parallelism: every rank's rows (dim 1)
+    of the residual stream, in rank order; the backward reduce-scatters
+    the gradient (each rank's part of a column-parallel product gives a
+    part of every row's gradient). Where autograd saves the result it
+    keeps this rank's rows (``StepLayout.saved_as_shards``)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        full = split.gather_rows(x)
+        split.layout.keep(full, x.detach(), split.gather_rows)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.scatter_rows(g), None
+
+
+class _ScatterRows(torch.autograd.Function):
+    """Megatron's g under sequence parallelism: the row-parallel
+    products' parts summed over the group, each rank keeping its rows (a
+    reduce-scatter); the backward all-gathers the rows' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return split.scatter_rows(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.gather_rows(g), None
+
+
+class _GatherAlike(torch.autograd.Function):
+    """Every rank's rows of a tensor that each rank then uses alike (a
+    block computed whole, the MoE's router logits): the backward's
+    gradient is the same on every rank, and each keeps its own rows."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return split.gather_rows(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.own_rows(g).contiguous(), None
+
+
+class _SplitAlike(torch.autograd.Function):
+    """This rank's rows of a tensor every rank holds alike; the backward
+    all-gathers the rows' gradients, so each rank has them all."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return split.own_rows(x).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.gather_rows(g), None
+
+
 class ModelSplit:
     """One rank's part of the model group (the ranks that differ only on
     ``"model"``): ``m`` ranks, this one the ``index``-th. Each rank of
@@ -588,14 +731,27 @@ class ModelSplit:
     block whose counts divide by ``m`` (heads, hidden columns, experts,
     capacity slots, vocab rows) and join them with ``f`` and ``g``.
     Every collective is one of the group's, counted in the layout's
-    ``bytes["model"]``."""
+    ``bytes["model"]``.
 
-    def __init__(self, layout: "StepLayout"):
+    ``seq`` (the layout's ``seq_split``): the step is sequence-split
+    (``RunOptions.seq_shard_activations``; Megatron's sequence
+    parallelism, Korthikanti et al., 2022). The residual stream between
+    the blocks is then each rank's S/m rows (dim 1), and the norms run on
+    them; ``f`` all-gathers the rows before the split products
+    (reduce-scatter in the backward) and ``g`` reduce-scatters the
+    row-parallel sums back to rows (all-gather in the backward). A
+    reduce-scatter is counted by its input and an all-gather by its
+    output, so the pair counts twice the bytes of the all-reduce it
+    replaces: the same traffic on the wire, as a ring all-reduce is a
+    reduce-scatter then an all-gather."""
+
+    def __init__(self, layout: "StepLayout", seq: bool = False):
         mesh = layout.mesh
         self.layout = layout
         self.m = mesh.shape[MODEL]
         self.index = mesh.index((MODEL,))
         self.group = mesh.group((MODEL,))
+        self.seq = seq
 
     def part(self, n: int) -> Tuple[int, int]:
         """This rank's block [lo, hi) of ``n`` rows cut into ``m`` equal
@@ -619,10 +775,40 @@ class ModelSplit:
         return _all_reduce_(x, self.group, op)
 
     def f(self, x: torch.Tensor) -> torch.Tensor:
-        return _F.apply(x, self)
+        return (_GatherRows if self.seq else _F).apply(x, self)
 
     def g(self, x: torch.Tensor) -> torch.Tensor:
-        return _G.apply(x, self)
+        return (_ScatterRows if self.seq else _G).apply(x, self)
+
+    def sum_grads(self, x: torch.Tensor) -> torch.Tensor:
+        """The identity; the backward all-reduces the gradient (``f``
+        without the sequence split, for a tensor whose rows are whole
+        on every rank)."""
+        return _F.apply(x, self)
+
+    def gather_alike(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherAlike.apply(x, self)
+
+    def split_alike(self, x: torch.Tensor) -> torch.Tensor:
+        return _SplitAlike.apply(x, self)
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the rows (dim 1) of ``x``."""
+        lo, hi = self.part(x.shape[1])
+        return x[:, lo:hi]
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows (dim 1) of ``x``, in rank order (no
+        gradient; counted by what it returns)."""
+        out = _all_gather(x, 1, self.group, self.m)
+        self.layout.bytes[MODEL] += out.numel() * out.element_size()
+        return out
+
+    def scatter_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the group, this rank's block of its rows
+        (no gradient; counted by what it takes)."""
+        self.layout.bytes[MODEL] += x.numel() * x.element_size()
+        return _reduce_scatter(x, 1, self.group, self.m)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         return _Sum.apply(x, self)

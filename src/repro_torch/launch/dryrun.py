@@ -23,7 +23,22 @@ A record holds:
 
 - ``memory``: the bytes of the step's arguments (params, moments and
   counts for train; the batch, or the cache and the token) and of what
-  it returns, on this rank;
+  it returns, on this rank; and ``saved_bytes``, the bytes autograd
+  saves for the backward in this rank's train step (0 for a prefill or
+  a decode step, which save nothing): counted by the step's
+  ``saved_tensors_hooks`` (``StepLayout.saved_as_shards``), each
+  storage once, the params' own storages not at all, at the peak of
+  what the saves hold, as the layer loop keeps them all until the
+  backward (a gathered leaf or row block kept as this rank's block
+  counts that block). It is the port's counterpart of the reference's
+  ``temp_bytes`` but not the same thing: not the compiler's scratch,
+  and it leaves out the backward's own temporaries (the gradients, the
+  re-gathers, the kernels' workspaces) and the allocator's slack, so it
+  is a lower bound on the activations' memory, not a peak. Under
+  ``remat`` ``full`` or ``dots`` torch's checkpoint keeps the layers'
+  saves out of sight of the hooks (it recomputes them in the backward),
+  so there the count holds only what the step saves outside the
+  layers;
 - ``collectives``: the bytes the step's ``StepLayout.bytes`` counts on
   this rank, gathered, reduced and moved over ``"model"``;
 - ``flops``: the products by ``torch.utils.flop_counter.FlopCounterMode``
@@ -46,9 +61,12 @@ from XLA's compiler: ``compile_s`` and ``lower_s`` (nothing is lowered
 or compiled here; ``account_s`` is the account's own seconds),
 ``temp_bytes`` (the compiler's scratch), ``code_bytes`` (its
 executable), ``hlo`` (``hlo_analysis.analyze``'s count of the HLO
-text's ops) and ``hlo_text`` (``as_text``). Of the reference's flags
-``--seq-shard`` is left out: the port has no ``seq_shard_activations``
-(``models/options.py``).
+text's ops) and ``hlo_text`` (``as_text``).
+
+``--seq-shard`` is the reference's flag: ``seq_shard_activations``, the
+train steps and prefills split their residual stream's rows over
+``"model"`` (``models/transformer.splits``); tag its records with
+``--tag``, as the reference's are.
 """
 from __future__ import annotations
 
@@ -191,7 +209,8 @@ def run_step(model: Model, shape, mesh, cache_len=None) -> Dict:
     attn = FA.META_OPS["forward"] + FA.META_OPS["backward"]
     scan = SSD.META_OPS["forward"] + SSD.META_OPS["backward"]
     products = fc.get_total_flops()
-    return {"memory": {"argument_bytes": args, "output_bytes": _nbytes(out)},
+    return {"memory": {"argument_bytes": args, "output_bytes": _nbytes(out),
+                       "saved_bytes": step.layout.saved["peak"]},
             "collectives": dict(step.layout.bytes),
             "flops": {"products": products, "attention": attn, "scan": scan,
                       "total": products + attn + scan}}
@@ -263,6 +282,7 @@ def main(argv=None):
     ap.add_argument("--kv-dtype", default="",
                     choices=["", "bfloat16", "float8_e4m3fn"])
     ap.add_argument("--fsdp-pods", action="store_true")
+    ap.add_argument("--seq-shard", action="store_true")
     ap.add_argument("--q-chunk", type=int, default=512)
     ap.add_argument("--capacity-factor", type=float, default=1.25)
     ap.add_argument("--out", default="build/dryrun_torch.json")
@@ -274,7 +294,9 @@ def main(argv=None):
                       moe_sharding=args.moe_shard, moe_group=args.moe_group,
                       fsdp=not args.no_fsdp, param_dtype=args.param_dtype,
                       kv_cache_dtype=args.kv_dtype,
-                      fsdp_pods=args.fsdp_pods, q_chunk=args.q_chunk,
+                      fsdp_pods=args.fsdp_pods,
+                      seq_shard_activations=args.seq_shard,
+                      q_chunk=args.q_chunk,
                       capacity_factor=args.capacity_factor)
     archs = sorted(registry()) if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]

@@ -22,9 +22,11 @@ With ``WORLD_SIZE`` > 1 in the environment the process joins the world
 (``make_host_mesh``; the world must divide by ``--model-axis``), cuts
 the train state into its blocks (``runtime/steps.py``) and runs its
 rows of each global batch; the ranks of a model group split each
-layer's heads, hidden columns and vocab between them. Rank 0 prints the
-log, each logged step with the bytes a rank gathered, reduced and moved
-over ``"model"`` a step so far.
+layer's heads, hidden columns and vocab between them; with
+``--seq-shard`` (``RunOptions.seq_shard_activations``) also the rows of
+the residual stream between the blocks (sequence parallelism). Rank 0
+prints the log, each logged step with the bytes a rank gathered, reduced
+and moved over ``"model"`` a step so far.
 
 The reference's flags and run options: ``remat="none"``, float32
 compute, microbatches from ``--microbatches``, a warmup of 20 steps.
@@ -38,6 +40,7 @@ ways (its five forward passes and its backward kernel).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -76,6 +79,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--seq-shard", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -101,7 +105,9 @@ def _run(args, dev, world):
     cfg = get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = Model(cfg, train_options(args.seq, args.microbatches))
+    model = Model(cfg, dataclasses.replace(
+        train_options(args.seq, args.microbatches),
+        seq_shard_activations=args.seq_shard))
     mesh = make_host_mesh(args.model_axis, dev) if world > 1 else None
     lead = mesh is None or mesh.rank == 0
     say = print if lead else (lambda *a, **k: None)

@@ -9,7 +9,10 @@ Where the reference's ``shard(...)`` constraints split a product over
 ``embed_tokens`` a vocab-parallel lookup (rows outside this rank's give
 0, then ``g``); ``lm_logits`` this rank's vocab columns;
 ``softmax_xent`` the vocab-parallel cross entropy (``_VocabXent``);
-``rms_norm_split`` a norm over a dim split over the group."""
+``rms_norm_split`` a norm over a dim split over the group. A
+sequence-split ``sp`` (``sp.seq``) turns ``f`` and ``g`` into a gather
+and a scatter of rows, so ``mlp`` takes and returns this rank's rows,
+``embed_tokens`` returns them and ``lm_logits`` gathers every row."""
 from __future__ import annotations
 
 import torch

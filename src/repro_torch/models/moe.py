@@ -38,6 +38,13 @@ comes out whole. The reference's ``"expert"`` rule would want an
 all-to-all only if the batch's rows ran over ``"model"``; they do not
 (the rules put ``"batch"`` on ``("pod", "data")``), so each rank
 dispatches the tokens it already has to its own experts.
+
+Sequence-split (``sp.seq``: each rank holds its rows of ``x``), the
+router runs on this rank's rows and its logits are gathered (each rank
+then routes every token alike, as without the split, and keeps its own
+rows of their gradient), ``f`` gathers the experts' input and ``g``
+scatters ``y`` back to rows; the router's gradient is then a part on
+each rank, summed over the group (``transformer.layer_modes``).
 """
 from __future__ import annotations
 
@@ -71,21 +78,28 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int,
     module's docstring): w_gate, w_up and w_down its ``expert_ff``
     columns (``"tp"``) or its experts (``"ep"``), or whole
     (``"cap"``)."""
+    E, K = n_experts, top_k
+    seq = sp is not None and sp.seq
+    if seq:         # this rank's rows: route them, then gather every row
+        logits = sp.gather_alike(x.float() @ p["router"].to(x.dtype).float())
+        x = sp.f(x)
     B0, S0, d = x.shape
     regroup = group_size and S0 > group_size and S0 % group_size == 0
     if regroup:
         x = x.reshape(B0 * (S0 // group_size), group_size, d)
     B, S, _ = x.shape
-    E, K = n_experts, top_k
     C = max(1, int(-(-K * S * capacity_factor // E)))
 
-    logits = x.float() @ p["router"].to(x.dtype).float()        # (B,S,E)
+    if seq:
+        logits = logits.reshape(B, S, E)
+    else:
+        logits = x.float() @ p["router"].to(x.dtype).float()    # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = route(probs, K)                                 # (B,S,K)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
-    xd = x if sp is None else sp.f(x)     # the experts' input
+    xd = x if sp is None or seq else sp.f(x)     # the experts' input
     if sp is not None:
-        gate = sp.f(gate)
+        gate = sp.sum_grads(gate)
 
     # load-balance aux loss (Switch): E * sum_e fraction_e * prob_e
     if layout is None or layout.n_batch == 1:
@@ -129,8 +143,8 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int,
     del g, u
     ye = torch.einsum("ebcf,efd->ebcd", h, p["w_down"].to(x.dtype))
     y = torch.einsum("bsec,ebcd->bsd", combine, ye)
-    if sp is not None:
-        y = sp.g(y)
     if regroup:
         y = y.reshape(B0, S0, d)
+    if sp is not None:
+        y = sp.g(y)
     return y, aux.float()

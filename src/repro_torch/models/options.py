@@ -1,5 +1,5 @@
 """Runtime options (orthogonal to ``ArchConfig``): the port's copy of
-``repro/models/options.py``, the reference's fields but two: the kv
+``repro/models/options.py``, the reference's fields but one: the kv
 cache's dtype, the MoE's capacity factor and token-group size, the
 training knobs (``remat``, ``microbatches``, ``aux_loss_weight``) and
 the mesh knobs with ``rules()``, the logical-axis overrides that
@@ -8,13 +8,13 @@ layout across cards). Also the stated tolerance of logits at the
 default bfloat16 compute dtype (``bf16_logit_tolerance``, with
 ``bf16_boundaries``).
 
-Two of the reference's fields are left out, since nothing in the port
-would read them: ``compress_pod_grads`` (read by no step in the
-reference either) and ``seq_shard_activations``, whose only effect
-there is the ``"seq"`` rule of the activations' ``shard()``
-constraints, which the port does not put into its models. Passing
-either raises ``TypeError``; the layout of every parameter, train
-state and batch is the same with or without them."""
+``seq_shard_activations`` adds the reference's ``"seq"`` rule, and the
+port computes it: a train step or a prefill across ranks splits the
+residual stream's rows over ``"model"`` (Megatron's sequence
+parallelism, ``transformer.splits``, ``sharding.ModelSplit``); a decode
+step and the encoder-decoder family ignore it, as the reference's do.
+``compress_pod_grads`` is left out, since no step reads it (in the
+reference neither): passing it raises ``TypeError``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -38,6 +38,7 @@ class RunOptions:
     moe_group: int = 0             # GShard token-group size (0 = whole seq)
     fsdp: bool = True              # ZeRO-3 params over 'data' (off: pure TP)
     fsdp_pods: bool = False        # shard params over ('pod','data')
+    seq_shard_activations: bool = False   # sequence parallelism on "model"
     capacity_factor: float = 1.25  # MoE expert capacity, of K * S / E
     aux_loss_weight: float = 0.01  # the MoE load-balance loss in lm_loss
 
@@ -54,6 +55,8 @@ class RunOptions:
             r["fsdp"] = ()
         elif self.fsdp_pods:
             r["fsdp"] = ("pod", "data")
+        if self.seq_shard_activations:
+            r["seq"] = ("model",)
         return r
 
 

@@ -24,6 +24,17 @@ split): a layout, not a fallback, and ``split_plan`` names it; hymba-1.5b
 at its published width (25 heads, 25 SSM heads) keeps its mixer so at
 any model axis of 2 or 4, and splits its FFN.
 
+With ``RunOptions.seq_shard_activations`` a train step or a prefill is
+sequence-split (``splits``' ``rows``): between the blocks each rank holds
+its S/m rows of the residual stream and runs the norms on them, ``f``
+gathers every row before the split products and ``g`` scatters the sums
+back to rows, so K3 and K4 see the whole sequence at the same local
+head counts; a block that does not split runs on every row
+(``_rows_whole``). The reference names this layout but lowers it only
+where no head split is asked for (its q, k and v would put ``"seq"``
+and ``"tensor"`` on one mesh axis: ``DuplicateSpecError``); the port
+computes both.
+
 Decode updates the cache in place instead of returning a copy: the kv
 cache (``write_slot`` at the step's slot; 24 layers at 2,056 positions
 are 400 MB) and the SSM state and conv caches (``copy_``; mamba2-370m's
@@ -263,13 +274,17 @@ _SSM_PER_HEAD = ("dt_bias", "A_log", "Dskip")
 _FFN = ("w_gate", "w_up", "w_down", "b_up")
 
 
-def layer_modes(plan: Optional[SplitPlan], opts: RunOptions
-                ) -> Optional[Dict[str, str]]:
+def layer_modes(plan: Optional[SplitPlan], opts: RunOptions,
+                seq: bool = False) -> Optional[Dict[str, str]]:
     """Each layer leaf's mode at its use (``sharding.MODES``) under
     ``plan``: its ``"model"`` dim kept local where a split block
     consumes its block; its gradient summed over the group where a split
     block reads a replicated leaf (or a gathered one) in part; else
-    gathered whole."""
+    gathered whole. A sequence-split step (``seq``) reads a split
+    block's norm (and the gelu MLP's ``b_down``, the MoE's router) on
+    this rank's rows only: those gradients are summed over the group
+    too. A block that does not split runs on every row alike
+    (``_rows_whole``), so its leaves keep their mode."""
     if plan is None:
         return None
     modes: Dict[str, str] = {}
@@ -284,37 +299,83 @@ def layer_modes(plan: Optional[SplitPlan], opts: RunOptions
     if plan.moe:
         modes.update(dict.fromkeys(
             _FFN, "shared" if opts.moe_sharding == "cap" else "local"))
+    if seq:
+        rows = (("ln1",) if plan.attn or plan.ssm else ()) + (
+            ("ln2", "b_down") if plan.mlp else ()) + (
+            ("ln2", "router") if plan.moe else ())
+        modes.update(dict.fromkeys(rows, "shared"))
     return modes
 
 
-def top_modes(plan: Optional[SplitPlan]) -> Optional[Dict[str, str]]:
+def top_modes(plan: Optional[SplitPlan], seq: bool = False
+              ) -> Optional[Dict[str, str]]:
     """The embedding's and the head's modes: local where the vocab
-    splits."""
+    splits; a sequence-split step's final norm, on this rank's rows,
+    shared."""
     if plan is None or not plan.vocab:
         return None
-    return {"embed": "local", "head": "local"}
+    return {"embed": "local", "head": "local",
+            **({"final_ln": "shared"} if seq else {})}
 
 
 @dataclass(frozen=True)
 class Splits:
-    """The ``sharding.ModelSplit`` each block runs under (None: whole)."""
+    """The ``sharding.ModelSplit`` each block runs under (None: whole),
+    and ``rows``, the split of a sequence-split step's residual stream
+    (None: every rank holds every row)."""
     plan: Optional[SplitPlan] = None
     attn: Any = None
     ssm: Any = None
     mlp: Any = None
     moe: Any = None
     vocab: Any = None
+    rows: Any = None
 
 
-def splits(layout, cfg: ArchConfig, opts: RunOptions) -> Splits:
+def splits(layout, cfg: ArchConfig, opts: RunOptions,
+           rows: Optional[int] = None) -> Splits:
     """The blocks' splits of a train step's ``layout`` (none without a
-    layout or where ``"model"`` holds one rank)."""
+    layout or where ``"model"`` holds one rank). ``rows``: the step's
+    sequence length, where it may be sequence-split (a train step or a
+    prefill, not a decode step).
+
+    The step is sequence-split (Megatron's sequence parallelism over
+    ``"model"``) where ``opts.seq_shard_activations`` asks for it, the
+    model axis divides ``rows`` and the vocab splits (the embedding's
+    ``g`` is then a reduce-scatter of rows, the head's ``f`` their
+    gather; a vocab padded to 256 splits over every power of two up to
+    256). Else every rank keeps whole rows, as ``spec_for`` drops an
+    axis that does not divide."""
     sp = None if layout is None else layout.split
     if sp is None:
         return Splits()
     plan = split_plan(cfg, opts, sp.m)
-    return Splits(plan, **{k: sp if getattr(plan, k) else None
-                           for k in ("attn", "ssm", "mlp", "moe", "vocab")})
+    seq = (rows is not None and opts.seq_shard_activations and plan.vocab
+           and rows % sp.m == 0)
+    if seq:
+        sp = layout.seq_split
+    return Splits(plan, rows=sp if seq else None,
+                  **{k: sp if getattr(plan, k) else None
+                     for k in ("attn", "ssm", "mlp", "moe", "vocab")})
+
+
+def _rows_whole(sps: Splits, sp, fn, x):
+    """``fn(x)``, a block whose first result is its output, or where the
+    step is sequence-split (``sps.rows``) and the block does not split
+    (``sp`` None) ``fn`` on every row: the rows gathered at entry, the
+    block computed whole and alike on every rank of the group, and this
+    rank's rows of its output kept. The backward gathers the output's
+    row gradients, so every rank runs the block's backward on them all:
+    the block's leaves get their whole gradient, no sum over the group
+    (``layer_modes``), and its input's gradient, the same on every
+    rank, is cut to this rank's rows."""
+    sq = sps.rows
+    if sq is None or sp is not None:
+        return fn(x)
+    out = fn(sq.gather_alike(x))
+    if isinstance(out, tuple):
+        return (sq.split_alike(out[0]),) + tuple(out[1:])
+    return sq.split_alike(out)
 
 
 def kv_heads(H: int, G: int, sp) -> list:
@@ -532,12 +593,12 @@ def ssm_apply(p, x, cfg: ArchConfig, opts: RunOptions, *, di: int,
     The block's own input enters through ``f``; the hybrid's branch
     (``own_norm=False``) takes it entered."""
     s = cfg.ssm
-    B, S, _ = x.shape
     H, P = di // s.head_dim, s.head_dim
     G, N = s.n_groups, s.d_state
     xn = rms_norm(x, p["ln1"], cfg.norm_eps) if own_norm else x
     if sp is not None and own_norm:
         xn = sp.f(xn)
+    B, S, _ = xn.shape
     x_raw, z, b, c, dtr = _ssm_pre(p, xn)
     x_in = F.silu(ssd.causal_conv(x_raw, p["conv_wx"], p["conv_bx"]))
     b_c = F.silu(ssd.causal_conv(b, p["conv_wb"], p["conv_bb"]))
@@ -651,19 +712,26 @@ def hybrid_parallel(p, x, cfg: ArchConfig, opts: RunOptions, *,
     the layer's cache {k, v, ssm, conv_x, conv_b, conv_c} or None, aux).
     ``sps`` (``Splits``): with its ``attn`` split the mixer runs this
     rank's attention and SSM heads on the normed input entered once
-    through ``f``; with its ``mlp`` split the FFN its hidden columns."""
+    through ``f``; with its ``mlp`` split the FFN its hidden columns.
+    With ``sps.rows`` (sequence-split) a part that does not split runs
+    on every row (``_rows_whole``)."""
     sps = sps or Splits()
     sp = sps.attn
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if sp is not None:
-        xn = sp.f(xn)
-    o_attn, k, v = _attention(p, xn, cfg, opts, window=window,
-                              pos_offset=pos_offset, sp=sp)
-    y_ssm, ssm_cache = ssm_apply(p, xn, cfg, opts, di=cfg.n_heads * cfg.hd,
-                                 own_norm=False, return_state=return_cache,
-                                 sp=sp)
-    x = x + _combine(p, o_attn, y_ssm, cfg, sp)
-    x, aux = _ffn(p, x, cfg, opts, sp=sps.mlp)
+
+    def mixer(x):
+        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if sp is not None:
+            xn = sp.f(xn)
+        o_attn, k, v = _attention(p, xn, cfg, opts, window=window,
+                                  pos_offset=pos_offset, sp=sp)
+        y_ssm, ssm_cache = ssm_apply(p, xn, cfg, opts,
+                                     di=cfg.n_heads * cfg.hd,
+                                     own_norm=False,
+                                     return_state=return_cache, sp=sp)
+        return x + _combine(p, o_attn, y_ssm, cfg, sp), k, v, ssm_cache
+    x, k, v, ssm_cache = _rows_whole(sps, sp, mixer, x)
+    x, aux = _rows_whole(sps, sps.mlp,
+                         lambda x: _ffn(p, x, cfg, opts, sp=sps.mlp), x)
     cache = {"k": k, "v": v, **ssm_cache} if return_cache else None
     return x, cache, aux
 
@@ -719,22 +787,25 @@ def _layer(params, li: int) -> Dict[str, torch.Tensor]:
     return {k: v[li] for k, v in params["layers"].items()}
 
 
-def _block_fwd(lp, x, cfg, opts, *, window, return_cache, layout=None):
-    sps = splits(layout, cfg, opts)
+def _block_fwd(lp, x, cfg, opts, *, window, return_cache, sps,
+               layout=None):
     if layout is not None:
-        lp = layout.layer(lp, modes=layer_modes(sps.plan, opts))
+        lp = layout.layer(lp, modes=layer_modes(sps.plan, opts,
+                                                sps.rows is not None))
     if cfg.family == "ssm":
-        y, c = ssm_apply(lp, x, cfg, opts, di=cfg.d_inner,
-                         return_state=return_cache, sp=sps.ssm)
+        y, c = _rows_whole(sps, sps.ssm, lambda x: ssm_apply(
+            lp, x, cfg, opts, di=cfg.d_inner, return_state=return_cache,
+            sp=sps.ssm), x)
         return y, c, torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         return hybrid_parallel(lp, x, cfg, opts, window=window,
                                return_cache=return_cache, sps=sps)
-    y, (k, v) = attn_apply(lp, x, cfg, opts, window=window, return_kv=True,
-                           sp=sps.attn)
+    y, (k, v) = _rows_whole(sps, sps.attn, lambda x: attn_apply(
+        lp, x, cfg, opts, window=window, return_kv=True, sp=sps.attn), x)
     # a prefill's aux loss is dropped: no batch sum for it
-    y, aux = _ffn(lp, y, cfg, opts, None if return_cache else layout,
-                  sps.mlp or sps.moe)
+    ffn = sps.mlp or sps.moe
+    y, aux = _rows_whole(sps, ffn, lambda y: _ffn(
+        lp, y, cfg, opts, None if return_cache else layout, ffn), y)
     return y, ({"k": k, "v": v} if return_cache else None), aux
 
 
@@ -788,7 +859,7 @@ def unbind_layers(tree, L: int) -> list:
     return [{k: c[li] for k, c in cols.items()} for li in range(L)]
 
 
-def run_stack(params, x, cfg: ArchConfig, opts: RunOptions, *,
+def run_stack(params, x, cfg: ArchConfig, opts: RunOptions, *, sps: Splits,
               return_cache: bool = False, layout=None):
     """Forward through all layers; returns (x, cache | None, aux) with
     each cache entry (k and v, or the ssm state and conv caches) stacked
@@ -796,14 +867,17 @@ def run_stack(params, x, cfg: ArchConfig, opts: RunOptions, *,
     cache to return (training). With a ``layout`` (a train step across
     ranks) each layer's leaves are this rank's blocks, gathered inside
     the remat region, so ``remat="full"`` gathers them again in the
-    backward."""
+    backward; ``sps`` its ``splits`` (with ``rows``, x is this rank's
+    rows, and the rows' gathers run inside the remat region too, so the
+    saved block input is this rank's rows)."""
     check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for li, lp in enumerate(unbind_layers(params["layers"], cfg.n_layers)):
         block = functools.partial(_block_fwd, cfg=cfg, opts=opts,
                                   window=_layer_window(cfg, li),
-                                  return_cache=return_cache, layout=layout)
+                                  return_cache=return_cache, layout=layout,
+                                  sps=sps)
         if not return_cache:
             block = remat(block, opts.remat)
         x, c, a = block(lp, x)
@@ -870,18 +944,29 @@ def lm_forward(params, cfg: ArchConfig, opts: RunOptions, tokens,
                embeds=None, *, return_cache: bool = False, layout=None):
     """tokens (B,S) integer; embeds (B,F,d) optional frontend stub output.
     Returns (logits (B,S,Vp), cache | None, aux). With a ``layout`` the
-    params are this rank's blocks, gathered at use (``run_stack``)."""
+    params are this rank's blocks, gathered at use (``run_stack``).
+
+    Sequence-split (``splits``' ``rows``): the embedding's ``g`` leaves
+    each rank its F+S / m rows (the frontend's rows too: the rows are
+    cut after the concatenation), the layers run on them, the final norm
+    too, and the head's ``f`` gathers every row before the logits, so
+    the logits and the loss are the step's without the split."""
     cdt = getattr(torch, opts.compute_dtype)
     params = _compute_params(params, cdt)
-    sps = splits(layout, cfg, opts)
+    F_ = 0 if embeds is None else embeds.shape[1]
+    sps = splits(layout, cfg, opts, rows=F_ + tokens.shape[1])
     vsp = sps.vocab
     if layout is not None:
-        params = layout.top(params, top_modes(sps.plan))
-    x = embed_tokens(params["embed"], tokens, vsp).to(cdt)
-    if embeds is not None:
-        x = torch.cat([embeds.to(cdt), x], dim=1)
+        params = layout.top(params, top_modes(sps.plan, sps.rows is not None))
+    if sps.rows is not None and embeds is not None:
+        x = embed_tokens(params["embed"], tokens, layout.split).to(cdt)
+        x = sps.rows.split_alike(torch.cat([embeds.to(cdt), x], dim=1))
+    else:
+        x = embed_tokens(params["embed"], tokens, vsp).to(cdt)
+        if embeds is not None:
+            x = torch.cat([embeds.to(cdt), x], dim=1)
     x, cache, aux = run_stack(params, x, cfg, opts, return_cache=return_cache,
-                              layout=layout)
+                              layout=layout, sps=sps)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return lm_logits(x, _head(params, cfg), cfg.vocab, vsp), cache, aux
 

@@ -38,7 +38,10 @@ the leaves they consume keep their ``"model"`` dims local, gathered only
 over ``"data"`` / ``"pod"``. The clip sums each split leaf's squares
 over ``"model"`` once (its spec has the axis) and leaves the replicated
 leaves alone, whose gradients come back equal on every rank. At a model
-axis of 1 the step is the one without the split, bit for bit.
+axis of 1 the step is the one without the split, bit for bit. With
+``seq_shard_activations`` (in ``model.opts``) the train step and the
+prefill also split the residual stream's rows over ``"model"``
+(``models.transformer.splits``); the decode step ignores it.
 """
 from __future__ import annotations
 
@@ -117,7 +120,7 @@ def value_and_grad(model: Model, params, batch, layout=None
     its block of the global gradient."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), params)
     ps = leaves(params)
-    with nullcontext() if layout is None else layout.saved_as_shards():
+    with nullcontext() if layout is None else layout.saved_as_shards(ps):
         loss = model.loss(params, batch, layout=layout)
     grads = torch.autograd.grad(loss, ps, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p, dtype=torch.float32)

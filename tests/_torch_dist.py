@@ -709,13 +709,47 @@ def sharded_steps(case, device="cpu"):
         out["grads"] = whole_grads(model, state, mesh, case["batches"][0])
     step = make_train_step(model, mesh=mesh, **case["kw"])
     metrics = []
-    with heads_seen() as seen:
+    with heads_seen() as seen, rows_seen() as rows:
         for b in case["batches"]:
             state, m = step(state, my_rows(model, mesh, b))
             metrics.append({k: float(v) for k, v in m.items()})
     return {**out, "metrics": metrics, "bytes": dict(step.layout.bytes),
             "heads": sorted(set(seen)),
+            "rows": {k: sorted(set(v)) for k, v in rows.items()},
             "state": whole_state(model, state, mesh)}
+
+
+@contextmanager
+def rows_seen():
+    """The shapes of the residual stream between the blocks (``"stream"``:
+    each layer's input and output, ``transformer._block_fwd``) and of the
+    rows a sequence-split step keeps for a gathered activation that
+    autograd saves (``"kept"``: ``StepLayout._pack`` of a tensor that
+    ``ModelSplit.f`` gathered), in lists."""
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.models import transformer
+    rows = {"stream": [], "kept": []}
+    block, pack = transformer._block_fwd, shd.StepLayout._pack
+
+    def block_(lp, x, *a, **kw):
+        out = block(lp, x, *a, **kw)
+        rows["stream"] += [tuple(x.shape), tuple(out[0].shape)]
+        return out
+
+    def pack_(self, t):
+        saved = pack(self, t)
+        kept = saved.kept
+        if kept is not None and getattr(kept.regather, "__name__",
+                                        "") == "gather_rows":
+            rows["kept"].append(tuple(kept.shard.shape))
+        return saved
+    transformer._block_fwd = block_
+    shd.StepLayout._pack = pack_
+    try:
+        yield rows
+    finally:
+        transformer._block_fwd = block
+        shd.StepLayout._pack = pack
 
 
 @contextmanager
@@ -960,10 +994,45 @@ def plain_serve(case, device="cpu"):
     return {"steps": steps, "caches": caches}
 
 
+def decode_with_and_without(case, device="cpu"):
+    """``case`` as ``serve_steps``'. A prefill across ranks without
+    ``seq_shard_activations``, then one decode step from a copy of its
+    cache by the model with the flag and by the model without it: each
+    one's token, logits (whole), cache (whole, rank 0) and bytes."""
+    import dataclasses
+    from repro_torch.convert import params_from_arrays
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    model, mesh = train_setup(case["arch"], case["opts"], case["mesh"],
+                              device=device, cfg=case.get("cfg"))
+    params = shd.shard_tree(params_from_arrays(case["params"], "cpu"),
+                            model.param_shardings(mesh))
+    rows, split = serve_rows(model, mesh, len(case["batch"]["tokens"]))
+    batch = {k: torch.as_tensor(v[rows], device=mesh.device)
+             for k, v in case["batch"].items()}
+    tok, cache = make_prefill_step(model, mesh)(params, batch,
+                                                cache_len=case["cache_len"])
+    out = {}
+    for seq in (False, True):
+        m = Model(model.cfg, dataclasses.replace(
+            model.opts, seq_shard_activations=seq))
+        step = make_decode_step(m, mesh, logits=True)
+        c = {k: ({j: x.clone() for j, x in v.items()} if isinstance(v, dict)
+                 else v.clone()) for k, v in cache.items()}
+        t, c, lg = step(params, c, tok)
+        out[seq] = {"token": t.cpu().numpy(), "logits": lg.cpu().numpy(),
+                    "cache": whole_cache(m, c, step.layout, split),
+                    "bytes": dict(step.layout.bytes)}
+    return out
+
+
 def rank_serve(rank, world, *, cases):
     """``serve_steps`` of every case (and, with the case's ``plain``,
-    ``plain_serve`` in this rank)."""
-    return [{**serve_steps(c), **({"plain": plain_serve(c)}
+    ``plain_serve`` in this rank), or where the case says ``pair``,
+    ``decode_with_and_without``."""
+    return [decode_with_and_without(c) if c.get("pair") else
+            {**serve_steps(c), **({"plain": plain_serve(c)}
                                   if c.get("plain") else {})}
             for c in cases]
 

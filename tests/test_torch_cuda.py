@@ -1757,13 +1757,16 @@ SPLIT_MOMENT_TOL = 1e-3
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seq", (False, True))
 @pytest.mark.parametrize("world", (2, 4))
 def test_model_axis_split_over_nccl_ranks_matches_the_unsharded_step(
-        cuda, tmp_path, world):
+        cuda, tmp_path, world, seq):
     """The model axis computed over NCCL ranks, one a card: reduced qwen,
     mixtral (``moe_sharding="ep"``), mamba2 and hymba at (1, W) and, at
     4 ranks, (2, 2), each rank running K3 and K4 both ways on its own
-    heads, against the same two steps without a mesh on card 0 within
+    heads, with and without the sequence split (``seq``:
+    ``seq_shard_activations``, the residual stream's rows split over
+    ``"model"``), against the same two steps without a mesh on card 0 within
     ``tests/_torch_dist.held``'s train-step tolerances, the moments
     within SPLIT_MOMENT_TOL of each leaf's largest magnitude; at (1, W)
     no leaf gathered. Needs ``world`` cards (NCCL refuses a card twice;
@@ -1781,7 +1784,7 @@ def test_model_axis_split_over_nccl_ranks_matches_the_unsharded_step(
     for arch, moe in (("qwen1.5-0.5b", "tp"), ("mixtral-8x7b", "ep"),
                       ("mamba2-370m", "tp"), ("hymba-1.5b", "tp")):
         cfg = get(arch).reduced()
-        o = {**opts, "moe_sharding": moe}
+        o = {**opts, "moe_sharding": moe, "seq_shard_activations": seq}
         model = Model(cfg, RunOptions(**o))
         init = S.init_train_state(model, torch.Generator().manual_seed(0),
                                   "cpu")

@@ -35,6 +35,13 @@ at (1, 2) (19 slots: the cache whole on both ranks, no merge); mixtral
 sees no key and must enter the merge with weight 0, not NaN. At (1, 4)
 the default cases (24 slots, 6 a rank) leave rank 3's slots empty (-1)
 through every decode step: the same trap.
+
+With ``seq_shard_activations`` (``SEQ_CASES``: qwen, mamba2 and hymba at
+(1, 2) and (1, 4)) the prefill splits its residual stream's rows over
+``"model"``; the same reference (the flag changes no value there) and
+TOL hold its tokens, caches and logits. A decode step, which ignores
+the flag, is bit for bit the same with and without it from one cache,
+and so is whisper's whole serving path (``FLAG_IGNORED``).
 """
 import jax
 import jax.numpy as jnp
@@ -66,6 +73,13 @@ CASES = ([(2, (1, 2), a, "tp", PROMPT) for a in FAMILIES]
          + [(4, (2, 2), a, "tp", PROMPT) for a in FAMILIES]
          + [(4, (1, 4), "mixtral-8x7b", "tp", 44)])
 ONE = FAMILIES + ("mixtral-8x7b",)
+SEQ_OPTS = {"seq_shard_activations": True}
+# sequence-split prefills: (world, mesh, arch)
+SEQ_CASES = [(w, m, a) for w, m in ((2, (1, 2)), (4, (1, 4)))
+             for a in ("qwen1.5-0.5b", "mamba2-370m", "hymba-1.5b")]
+# with and without the flag, at (1, 2): a decode step from one cache
+# (qwen, hymba), whisper's prefill and decode steps
+FLAG_IGNORED = ("qwen1.5-0.5b", "hymba-1.5b", "whisper-large-v3")
 # layouts on custom reduced configs at (1, 4), against the port's steps
 # without a mesh (the reference has no such config): each rank's one
 # query head reads one of 2 kv heads; 12 query heads over 3 kv heads (a
@@ -120,6 +134,30 @@ def _layout_case(name):
             "steps": STEPS}
 
 
+def _seq_case(case):
+    world, mesh, arch = case
+    c = _case((world, mesh, arch, "tp", PROMPT))
+    c["opts"] = {**c["opts"], **SEQ_OPTS}
+    return c
+
+
+def _flag_case(arch):
+    """Whisper's serving path with the flag (held against its ``CASES``
+    run without it), or a decode step with and without it."""
+    c = _case((2, (1, 2), arch, "tp", PROMPT))
+    if arch == "whisper-large-v3":
+        c["opts"] = {**c["opts"], **SEQ_OPTS}
+        return c
+    return {**c, "pair": True}
+
+
+def _after_cases(worlds, world):
+    """Every rank's runs after a world's ``CASES`` and ``LAYOUTS``."""
+    first = (sum(c[0] == world for c in CASES)
+             + (len(LAYOUTS) if world == 4 else 0))
+    return [r[first:] for r in worlds[world]]
+
+
 def _reference(arch, prompt):
     """The reference's tokens and caches (numpy) of the prefill and each
     decode step, on the port's params."""
@@ -162,6 +200,9 @@ def worlds(tmp_path_factory):
         cases = [_case(c) for c in CASES if c[0] == world]
         if world == 4:
             cases += [_layout_case(n) for n in LAYOUTS]
+        cases += [_seq_case(c) for c in SEQ_CASES if c[0] == world]
+        if world == 2:
+            cases += [_flag_case(a) for a in FLAG_IGNORED]
         out[world] = TD.run_world(TD.rank_serve, world,
                                   tmp_path_factory.mktemp(f"s{world}"),
                                   cases=cases)[0]
@@ -338,3 +379,61 @@ def test_serving_layouts_the_heads_do_not_split(worlds, name):
     else:
         assert {h for h, _ in heads} == {cfg.n_heads // 4}, heads
 
+
+
+@pytest.mark.parametrize("case", SEQ_CASES,
+                         ids=[f"{a}-{m[0]}x{m[1]}" for _, m, a in SEQ_CASES])
+def test_sequence_split_prefill_matches_the_reference(worlds, refs, case):
+    """A sequence-split prefill and the decode steps after it: tokens
+    equal to the reference's on every rank and step, the whole caches
+    within TOL of the reference's, the logits within TOL of the port's
+    steps without a mesh; K3 / K4 at this rank's heads over every row;
+    the prefill's bytes over ``"model"`` more than without the flag
+    (each ``g`` a reduce-scatter and each ``f`` an all-gather, counted
+    by their inputs and outputs), the decode steps' the same."""
+    world, mesh, arch = case
+    at = [c for c in SEQ_CASES if c[0] == world].index(case)
+    runs = [r[at] for r in _after_cases(worlds, world)]
+    ref = refs[(arch, PROMPT)]
+    plain = _plain((world, mesh, arch, "tp", PROMPT))
+    for r in runs:
+        for i, (st, want, (_, lg)) in enumerate(zip(r["steps"],
+                                                    ref["tokens"], plain)):
+            np.testing.assert_array_equal(st["tokens"], want,
+                                          err_msg=f"{case} step {i}")
+            assert np.isfinite(st["logits"]).all(), (case, i)
+            np.testing.assert_allclose(st["logits"], lg, rtol=0, atol=TOL,
+                                       err_msg=f"{case} step {i}")
+    for got, want in zip(runs[0]["caches"], ref["caches"]):
+        want = _flat_cache(want)
+        for k, v in got.items():
+            assert np.isfinite(v).all(), (case, k)
+            np.testing.assert_allclose(v, want[k], rtol=0, atol=TOL,
+                                       err_msg=f"{case} {k}")
+    without = _runs(worlds, (world, mesh, arch, "tp", PROMPT))
+    assert set(runs[0]["heads"]) == set(without[0]["heads"])
+    for r, w in zip(runs, without):
+        assert r["bytes"]["decode"] == w["bytes"]["decode"]
+        assert r["bytes"]["prefill"]["model"] > w["bytes"]["prefill"]["model"]
+
+
+@pytest.mark.parametrize("arch", FLAG_IGNORED)
+def test_decode_and_whisper_ignore_the_sequence_split(worlds, arch):
+    """At (1, 2): a decode step from one cache gives the same token,
+    logits, cache and bytes, bit for bit, with the flag and without it;
+    whisper's prefill and decode steps with the flag are its ``CASES``
+    run without it, bit for bit."""
+    n = sum(c[0] == 2 for c in SEQ_CASES)
+    runs = [r[n + FLAG_IGNORED.index(arch)] for r in _after_cases(worlds, 2)]
+    if arch == "whisper-large-v3":
+        without = _runs(worlds, (2, (1, 2), arch, "tp", PROMPT))
+        for r, w in zip(runs, without):
+            TD.same_bits(dict(enumerate(r["steps"])),
+                         dict(enumerate(w["steps"])), arch)
+            assert r["bytes"] == w["bytes"]
+        TD.same_bits(dict(enumerate(runs[0]["caches"])),
+                     dict(enumerate(without[0]["caches"])), arch)
+        return
+    for r in runs:
+        TD.same_bits(r[True], r[False], arch)
+        assert r[True]["bytes"]["model"] > 0

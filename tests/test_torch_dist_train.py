@@ -100,15 +100,22 @@ BATCH, SEQ, STEPS = 4, 32, 2
 MESH4 = {"qwen1.5-0.5b": (2, 2), "mixtral-8x7b": (4, 1),
          "mamba2-370m": (4, 1), "hymba-1.5b": (2, 2),
          "whisper-large-v3": (4, 1), "internvl2-26b": (2, 2)}
-# the model axis's split: (world, mesh, arch, moe_sharding), beside the
-# (2, 2) cases of MESH4
+# the model axis's split: (world, mesh, arch, moe_sharding,
+# seq_shard_activations), beside the (2, 2) cases of MESH4; the
+# sequence-split steps of every family that reads the flag
 SPLIT_ARCHS = ("qwen1.5-0.5b", "mamba2-370m", "whisper-large-v3",
                "internvl2-26b", "hymba-1.5b")
-SPLIT = ([(2, (1, 2), a, "tp") for a in SPLIT_ARCHS]
-         + [(2, (1, 2), "mixtral-8x7b", r) for r in ("tp", "cap", "ep")]
-         + [(4, (1, 4), a, "tp") for a in SPLIT_ARCHS]
-         + [(4, (2, 2), a, "tp") for a in ("mamba2-370m",
-                                           "whisper-large-v3")])
+SEQ_ARCHS = ("qwen1.5-0.5b", "mamba2-370m", "internvl2-26b", "hymba-1.5b")
+MOE = ("tp", "cap", "ep")
+SPLIT = ([(2, (1, 2), a, "tp", False) for a in SPLIT_ARCHS]
+         + [(2, (1, 2), "mixtral-8x7b", r, False) for r in MOE]
+         + [(4, (1, 4), a, "tp", False) for a in SPLIT_ARCHS]
+         + [(4, (2, 2), a, "tp", False) for a in ("mamba2-370m",
+                                                  "whisper-large-v3")]
+         + [(2, (1, 2), a, "tp", True) for a in SEQ_ARCHS]
+         + [(2, (1, 2), "mixtral-8x7b", r, True) for r in MOE]
+         + [(4, (1, 4), a, "tp", True) for a in SEQ_ARCHS]
+         + [(4, (2, 2), "mamba2-370m", "tp", True)])
 # layouts on custom reduced configs at (1, 4), against the port's step
 # without a mesh: each rank's one query head reads one of 2 kv heads; 12
 # query heads over 3 kv heads (a rank's 3 read kv heads 0, 1, 1: one
@@ -119,6 +126,13 @@ LAYOUTS = {"kv_one": ("qwen1.5-0.5b", {"n_kv_heads": 2}),
                                  {"n_heads": 12, "n_kv_heads": 3}),
            "heads_gathered": ("hymba-1.5b", {"n_heads": 6,
                                              "n_kv_heads": 2})}
+# sequence-split layouts at (1, 4), against the port's step without a
+# mesh: hymba's mixer computed whole (its rows gathered at entry, its
+# own rows kept), and 30 rows, which do not split over 4 (whole rows)
+SEQ_LAYOUTS = {"heads_gathered": ("hymba-1.5b", {"n_heads": 6,
+                                                 "n_kv_heads": 2}, SEQ),
+               "rows_do_not_divide": ("qwen1.5-0.5b", {}, SEQ - 2)}
+SEQ_OPTS = {"seq_shard_activations": True}
 
 
 def _np(tree):
@@ -152,19 +166,24 @@ def _case(arch, ref, mesh, microbatches=1, **extra):
             "kw": KW, "plain": arch == "hymba-1.5b", **extra}
 
 
-def _split_case(ref, mesh, arch, moe):
+def _split_case(ref, mesh, arch, moe, seq=False):
     c = _case(arch, ref, mesh, grads=True)
-    c["opts"]["moe_sharding"] = moe
+    c["opts"].update(moe_sharding=moe, seq_shard_activations=seq)
     return c
 
 
-def _layout_case(name, mesh=(1, 4)):
-    arch, cfg = LAYOUTS[name]
+def _layout_case(name, mesh=(1, 4), seq=False):
+    """A ``LAYOUTS`` case, or with ``seq`` a ``SEQ_LAYOUTS`` one (its
+    batches cut to its rows)."""
+    arch, cfg, rows = SEQ_LAYOUTS[name] if seq else LAYOUTS[name] + (SEQ,)
     model = TD.reduced_model(arch, OPTS, cfg)
     init = S.init_train_state(model, torch.Generator().manual_seed(0), "cpu")
-    return {"arch": arch, "opts": dict(OPTS), "cfg": cfg, "mesh": mesh,
-            "state": TD.host(init), "batches": _batches(arch), "kw": KW,
-            "plain": True}
+    batches = _batches(arch)
+    if rows != SEQ:
+        batches = [{"tokens": b["tokens"][:, :rows]} for b in batches]
+    return {"arch": arch, "opts": {**OPTS, **(SEQ_OPTS if seq else {})},
+            "cfg": cfg, "mesh": mesh, "state": TD.host(init),
+            "batches": batches, "kw": KW, "plain": True}
 
 
 # ------------------------------ the reference --------------------------------
@@ -173,7 +192,10 @@ def mesh_main(out_dir):
     ``XLA_FLAGS`` force 8 of them): qwen's jitted step with its in/out
     shardings on a (2, 2) mesh over ``_batches`` (``sharded.npz``), and a
     train state stepped once on a (4, 2) mesh and saved (zlib) under
-    ``out_dir/ck42`` at step 1."""
+    ``out_dir/ck42`` at step 1. Then with ``seq_shard_activations`` on
+    a (2, 2) mesh (``seq.npz``): mamba2's step, and the error qwen's
+    raises (its q, k and v ask for ``"seq"`` and ``"tensor"`` on the
+    same mesh axis)."""
     import jax.numpy as jnp
     from repro.distribution import sharding as shd
     from repro.runtime.elastic import make_mesh_from
@@ -205,6 +227,29 @@ def mesh_main(out_dir):
                          step=1)
                 assert jnp.isfinite(state["params"]["embed"]).all()
     np.savez(Path(out_dir) / "sharded.npz", **res)
+    res = {}
+    mesh = make_mesh_from(jax.devices()[:4], model_axis=2)
+    for arch in ("mamba2-370m", "qwen1.5-0.5b"):
+        model = RefModel(ref_get(arch).reduced(),
+                         RefOptions(**OPTS, seq_shard_activations=True))
+        with shd.use_mesh(mesh, model.opts.rules()):
+            sh = RS.train_state_shardings(model, mesh)
+            state = jax.device_put(
+                RS.init_train_state(model, jax.random.PRNGKey(0)), sh)
+            step = jax.jit(RS.make_train_step(model, **KW),
+                           in_shardings=(sh, None),
+                           out_shardings=(sh, None))
+            try:
+                for i, b in enumerate(_batches(arch)):
+                    state, m = step(state, b)
+                    for k, v in m.items():
+                        res[f"{arch}/metrics/{i}/{k}"] = np.asarray(v)
+            except Exception as e:      # noqa: BLE001 (recorded)
+                res[f"{arch}/error"] = np.asarray(f"{type(e).__name__}: {e}")
+                continue
+            for k, v in TD.flat(_np(state)).items():
+                res[f"{arch}/state/{k}"] = v
+    np.savez(Path(out_dir) / "seq.npz", **res)
 
 
 @pytest.fixture(scope="module")
@@ -241,7 +286,8 @@ def refs(mesh_ref):
 def worlds(refs, tmp_path_factory):
     """Each world's runs of every family (and, at 2 ranks, qwen with 2
     microbatches), then the split cases of that world (``SPLIT``, in
-    order) and, at 4 ranks, the ``LAYOUTS``."""
+    order), and at 4 ranks the ``LAYOUTS`` and the ``SEQ_LAYOUTS``, at 2
+    qwen at (2, 1) with the sequence split asked for (``_extra``)."""
     out = {}
     for world in (2, 4):
         cases = [_case(a, refs[a], (2, 1) if world == 2 else MESH4[a])
@@ -249,10 +295,15 @@ def worlds(refs, tmp_path_factory):
         if world == 2:
             cases.append(_case("qwen1.5-0.5b", refs["qwen1.5-0.5b"], (2, 1),
                                microbatches=2))
-        cases += [_split_case(refs[a], mesh, a, moe)
-                  for w, mesh, a, moe in SPLIT if w == world]
+        cases += [_split_case(refs[a], mesh, a, moe, seq)
+                  for w, mesh, a, moe, seq in SPLIT if w == world]
         if world == 4:
             cases += [_layout_case(n) for n in LAYOUTS]
+            cases += [_layout_case(n, seq=True) for n in SEQ_LAYOUTS]
+        else:
+            c = _case("qwen1.5-0.5b", refs["qwen1.5-0.5b"], (2, 1))
+            c["opts"].update(SEQ_OPTS)
+            cases.append(c)
         out[world] = TD.run_world(TD.rank_train, world,
                                   tmp_path_factory.mktemp(f"w{world}"),
                                   cases=cases)[0]
@@ -267,10 +318,19 @@ def _split_runs(worlds, case):
     return [r[first + at] for r in worlds[world]]
 
 
+def _extra(worlds, world, at=0):
+    """Every rank's run of the ``at``-th case after a world's ``SPLIT``
+    cases and ``LAYOUTS``."""
+    first = (len(ARCHS) + (1 if world == 2 else len(LAYOUTS))
+             + sum(c[0] == world for c in SPLIT))
+    return [r[first + at] for r in worlds[world]]
+
+
 def _split_id(case):
-    world, mesh, arch, moe = case
-    return f"{arch}-{mesh[0]}x{mesh[1]}" + (f"-{moe}" if arch ==
-                                            "mixtral-8x7b" else "")
+    world, mesh, arch, moe, seq = case
+    return (f"{arch}-{mesh[0]}x{mesh[1]}"
+            + (f"-{moe}" if arch == "mixtral-8x7b" else "")
+            + ("-seq" if seq else ""))
 
 
 # ------------------------------- the step -----------------------------------
@@ -301,12 +361,17 @@ def test_sharded_step_matches_the_reference(worlds, refs, world, arch):
 def test_model_axis_split_matches_the_reference(worlds, refs, case):
     """Each family split over the model axis (mixtral under each of the
     three ``moe_sharding`` rules) within the train-step tolerances of the
-    reference's step; every rank's metrics the same. At (1, m) no leaf
-    is gathered (each ``"model"`` dim is used where it lies), the
-    activations' collectives move bytes over ``"model"``, and K3 and K4
-    see this rank's H/m heads (the kv heads G/m, the SSM's B and C one
-    group)."""
-    world, mesh, arch, moe = case
+    reference's step, with and without the sequence split (the
+    reference's numbers without it: a sharding constraint changes no
+    value); every rank's metrics the same. At (1, m) no leaf is gathered
+    (each ``"model"`` dim is used where it lies), the activations'
+    collectives move bytes over ``"model"``, and K3 and K4 see this
+    rank's H/m heads (the kv heads G/m, the SSM's B and C one group),
+    over every row. The residual stream between the blocks is each
+    rank's (B / data, S, d), or with the sequence split its S/m rows,
+    and then every gathered input that autograd saves is kept as those
+    rows."""
+    world, mesh, arch, moe, seq = case
     runs = _split_runs(worlds, case)
     ref = refs[arch]
     if arch == "hymba-1.5b":                   # the reference's NaN
@@ -328,16 +393,24 @@ def test_model_axis_split_matches_the_reference(worlds, refs, case):
         want.add(("ssd", di // cfg.ssm.head_dim // m, 1))
     for r in runs:
         assert set(r["heads"]) == want, (r["heads"], want)
+    rows = sum(v.shape[1] for v in _batches(arch, 1)[0].values())
+    local = (BATCH // mesh[0], rows // m if seq else rows, cfg.d_model)
+    for r in runs:
+        if cfg.family == "encdec":      # its own layer loops, no flag
+            break
+        assert r["rows"]["stream"] == [local], (case, r["rows"])
+        assert r["rows"]["kept"] == ([local] if seq else []), (case, r["rows"])
 
 
 @pytest.mark.parametrize("case", SPLIT, ids=_split_id)
 def test_model_axis_split_gradients_leaf_by_leaf(worlds, refs, case):
     """Every leaf's gradient of one split step (the first batch at the
     initial state, gathered whole) within GRAD_TOL of the leaf's largest
-    magnitude of the step's without a mesh: a replicated leaf summed
-    twice over the model group, or a per-head leaf not summed, is off by
-    its whole size."""
-    world, mesh, arch, moe = case
+    magnitude of the step's without a mesh (and without the sequence
+    split): a replicated leaf summed twice over the model group, or a
+    per-head leaf not summed, is off by its whole size; so is a norm
+    that a sequence-split step reads on its own rows, not summed."""
+    world, mesh, arch, moe, seq = case
     got = _split_runs(worlds, case)[0]["grads"]
     model = Model(get(arch).reduced(), RunOptions(**OPTS, moe_sharding=moe))
     params = params_from_arrays(refs[arch]["init"], "cpu")["params"]
@@ -384,6 +457,93 @@ def test_model_axis_layouts_the_heads_do_not_split(worlds, name):
              [{("attention", 3, 1)}, {("attention", 3, 3)},
               {("attention", 3, 3)}, {("attention", 3, 1)}])
     assert [set(r["heads"]) for r in runs] == reads
+
+
+@pytest.mark.parametrize("name", list(SEQ_LAYOUTS))
+def test_sequence_split_layouts(worlds, name):
+    """Sequence-split custom layouts at (1, 4) against the port's step
+    without a mesh: hymba's mixer, whose heads do not split, computed
+    whole on every row between its rows' gather and its own rows' cut
+    (its FFN split on the rows), and 30 rows, which do not split over 4:
+    the step keeps whole rows, its bytes those of the step without the
+    flag."""
+    runs = _extra(worlds, 4, list(SEQ_LAYOUTS).index(name))
+    TD.held(runs[0], runs[0]["plain"], name)
+    for r in runs[1:]:
+        assert r["metrics"] == runs[0]["metrics"]
+    arch, over, rows = SEQ_LAYOUTS[name]
+    cfg = dataclasses.replace(get(arch).reduced(), **over)
+    d = cfg.d_model
+    if name == "heads_gathered":
+        assert set(runs[0]["heads"]) == {("attention", cfg.n_heads,
+                                          cfg.n_kv_heads),
+                                         ("ssd", cfg.n_heads, 1)}
+        for r in runs:
+            assert r["rows"] == {"stream": [(BATCH, rows // 4, d)],
+                                 "kept": [(BATCH, rows // 4, d)]}
+        return
+    for r in runs:
+        assert r["rows"] == {"stream": [(BATCH, rows, d)], "kept": []}
+    assert set(runs[0]["heads"]) == {("attention", cfg.n_heads // 4,
+                                      cfg.n_kv_heads // 4)}
+
+
+def test_a_model_axis_of_one_ignores_the_sequence_split(worlds):
+    """qwen at (2, 1) with the sequence split asked for: bit for bit the
+    step without it (every metric, the whole state, the bytes)."""
+    want = [r[ARCHS.index("qwen1.5-0.5b")] for r in worlds[2]]
+    got = _extra(worlds, 2)
+    for g, w in zip(got, want):
+        assert g["metrics"] == w["metrics"] and g["bytes"] == w["bytes"]
+    TD.same_bits(got[0]["state"], want[0]["state"], "(2, 1) seq")
+
+
+@pytest.mark.parametrize("arch", SEQ_ARCHS)
+def test_a_world_of_one_with_the_sequence_split_is_bit_for_bit(
+        refs, arch, seq_one):
+    """At (1, 1) the flag changes nothing: the step with it is the step
+    without a mesh, bit for bit."""
+    run = seq_one[SEQ_ARCHS.index(arch)]
+    assert run["metrics"] == run["plain"]["metrics"]
+    TD.same_bits(run["state"], run["plain"]["state"], arch)
+    assert run["bytes"] == {"gathered": 0, "reduced": 0, "model": 0}
+
+
+@pytest.fixture(scope="module")
+def seq_one(refs, tmp_path_factory):
+    cases = [_case(a, refs[a], (1, 1)) for a in SEQ_ARCHS]
+    for c in cases:
+        c["opts"].update(SEQ_OPTS)
+    return TD.run_world(TD.rank_train, 1, tmp_path_factory.mktemp("seq1"),
+                        cases=cases, plain=True)[0][0]
+
+
+def test_sequence_split_matches_the_references_mesh_step(worlds, mesh_ref):
+    """mamba2 at (2, 2) with the sequence split against the reference's
+    own step with ``seq_shard_activations`` jitted with the train
+    state's shardings on a (2, 2) mesh of host devices."""
+    got = np.load(mesh_ref() / "seq.npz")
+    arch = "mamba2-370m"
+    ref = {"metrics": [{k: float(got[f"{arch}/metrics/{i}/{k}"])
+                        for k in ("loss", "gnorm", "lr")}
+                       for i in range(STEPS)],
+           "state": {k[len(arch) + 7:]: got[k] for k in got.files
+                     if k.startswith(f"{arch}/state/")}}
+    run = _split_runs(worlds, (4, (2, 2), arch, "tp", True))[0]
+    TD.held({"metrics": run["metrics"], "state": TD.flat(run["state"])},
+            ref, "(2, 2) mesh, sequence split")
+
+
+def test_the_references_sequence_split_refuses_split_heads(mesh_ref):
+    """The reference lowers its sequence split only where no head split
+    is asked for: qwen's q, k and v ask for ``"seq"`` and ``"tensor"``
+    on ``"model"`` at once, and its step raises (a deliberate difference:
+    the port computes both)."""
+    got = np.load(mesh_ref() / "seq.npz")
+    err = str(got["qwen1.5-0.5b/error"])
+    assert err.startswith("DuplicateSpecError"), err
+    assert "duplicate entries for `model`" in err, err
+    assert "mamba2-370m/error" not in got.files
 
 
 @pytest.mark.parametrize("m", (2, 4, 16))
@@ -597,6 +757,43 @@ def test_launcher_splits_the_model_axis_on_two_ranks():
         assert int(line.split("model ")[1]) > 0
     losses = [float(line.split("loss")[1].split()[0]) for line in steps]
     assert all(np.isfinite(losses))
+
+
+def test_launcher_sequence_split_on_two_ranks():
+    """``--seq-shard`` on 2 gloo ranks with ``--model-axis 2``: finite
+    losses equal to the launcher's without it within LOSS_TOL and the
+    log's rounding (the same draws and batches), and more bytes over
+    ``"model"`` a step (each f a
+    gather and each g a scatter of rows, and the kept rows gathered
+    again in the backward)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+           "cpu", "--arch", "qwen1.5-0.5b", "--reduced", "--steps", "2",
+           "--batch", "4", "--seq", "32", "--lr", "1e-2", "--log-every",
+           "1", "--model-axis", "2"]
+    got = {}
+    for flag in ([], ["--seq-shard"]):
+        port = _free_port()
+        procs = [subprocess.Popen(
+            cmd + flag, env={**os.environ, "PYTHONPATH": SRC,
+                             "RANK": str(r), "LOCAL_RANK": str(r),
+                             "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+                             "MASTER_PORT": str(port),
+                             "OMP_NUM_THREADS": "1"},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out
+        steps = [line for line in outs[0].splitlines()
+                 if line.startswith("step")]
+        got[bool(flag)] = ([float(line.split("loss")[1].split()[0])
+                            for line in steps],
+                           [int(line.split("model ")[1]) for line in steps])
+    (off, b_off), (on, b_on) = got[False], got[True]
+    assert len(on) == len(off) == 2 and all(np.isfinite(on))
+    for a, b in zip(on, off):       # the log prints 4 decimals: 1e-4
+        assert abs(a - b) <= TD.LOSS_TOL * abs(b) + 1e-4
+    assert all(x > y > 0 for x, y in zip(b_on, b_off))
 
 
 def test_a_raising_rank_ends_its_world(tmp_path):

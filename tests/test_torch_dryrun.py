@@ -35,6 +35,7 @@ import math
 import os
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +58,7 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch.mesh import AccountMesh
 from repro_torch.models import ssd as models_ssd
 from repro_torch.models import transformer, whisper
+from repro_torch.optim.adamw import leaves, tree_map
 from repro_torch.runtime import steps as S
 from _torch_threads import cap_torch_threads
 
@@ -68,48 +70,71 @@ OPTS = dict(remat="full", layer_loop="scan", compute_dtype="float32",
 SMALL = {"train": ShapeSpec("t", "train", 16, 4),
          "prefill": ShapeSpec("p", "prefill", 16, 4),
          "decode": ShapeSpec("d", "decode", 24, 4)}
-# (world, mesh, arch, remat): the train step's backward re-gathers its
-# saved weights under remat full (the recompute) and none (the saved
-# blocks, ``StepLayout.saved_as_shards``)
-BYTES_CASES = ([(world, mesh, arch, "full") for world, mesh in
+# (world, mesh, arch, remat, seq_shard_activations): the train step's
+# backward re-gathers its saved weights (and, sequence-split, the rows
+# of its saved inputs) under remat full (the recompute) and none (the
+# saved blocks, ``StepLayout.saved_as_shards``)
+BYTES_CASES = ([(world, mesh, arch, "full", False) for world, mesh in
                 ((2, (1, 2)), (4, (2, 2)))
                 for arch in ("qwen1.5-0.5b", "mamba2-370m")]
-               + [(4, (2, 2), "qwen1.5-0.5b", "none")])
+               + [(4, (2, 2), "qwen1.5-0.5b", "none", False)]
+               + [(world, mesh, arch, remat, True)
+                  for world, mesh, remats in ((2, (1, 2), ("none", "full")),
+                                              (4, (2, 2), ("full", "none")))
+                  for arch, remat in zip(("qwen1.5-0.5b", "mamba2-370m"),
+                                         remats)])
+SEQ_OPTS = {"seq_shard_activations": True}
 
 
 @pytest.fixture(scope="module", autouse=True)
 def cli(tmp_path_factory):
-    """Starts the CLI over every cell of the single mesh in a subprocess
-    at the module's start (it runs while the module's other tests work:
-    the tests that read its records come last); a callable that waits
-    for it and returns its records."""
-    out = tmp_path_factory.mktemp("dryrun") / "cells.json"
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
-         "--shape", "all", "--mesh", "single", "--out", str(out)],
-        env={**os.environ, "PYTHONPATH": SRC}, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    """Starts the CLI over every cell of the single mesh in two
+    subprocesses at the module's start, without and with
+    ``--seq-shard`` (they run while the module's other tests work: the
+    tests that read their records come last); a callable that waits for
+    them and returns each one's records."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    procs = {}
+    for name, extra in (("cells", []), ("seq", ["--seq-shard", "--tag",
+                                                 "seq"])):
+        out = tmp / f"{name}.json"
+        procs[name] = (out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "all", "--shape", "all", "--mesh", "single", "--out", str(out)]
+            + extra, env={**os.environ, "PYTHONPATH": SRC},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 
-    def wait():
+    def wait(name):
+        out, proc = procs[name]
         log, _ = proc.communicate(timeout=900)
         assert proc.returncode == 0, log
         return json.loads(out.read_text())
     yield wait
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    for _, proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 @pytest.fixture(scope="module")
 def records(cli):
-    return cli()
+    return cli("cells")
+
+
+@pytest.fixture(scope="module")
+def seq_records(cli):
+    return cli("seq")
 
 
 # --------------------------- collective bytes -------------------------------
-def _account_bytes(arch, mesh, rank, remat):
+def _opts(remat, seq):
+    return {**OPTS, "remat": remat, **(SEQ_OPTS if seq else {})}
+
+
+def _account_bytes(arch, mesh, rank, remat, seq):
     out = {}
     for kind, shape in SMALL.items():
-        model = TD.reduced_model(arch, {**OPTS, "remat": remat})
+        model = TD.reduced_model(arch, _opts(remat, seq))
         am = AccountMesh(mesh, ("data", "model"), rank=rank)
         out[kind] = DR.run_step(model, shape, am)["collectives"]
     return out
@@ -119,9 +144,9 @@ def _account_bytes(arch, mesh, rank, remat):
 def bytes_worlds(tmp_path_factory):
     out = {}
     for world in (2, 4):
-        cases = [{"arch": a, "opts": {**OPTS, "remat": r}, "mesh": m,
+        cases = [{"arch": a, "opts": _opts(r, q), "mesh": m,
                   "shapes": SMALL}
-                 for w, m, a, r in BYTES_CASES if w == world]
+                 for w, m, a, r, q in BYTES_CASES if w == world]
         out[world] = TD.run_world(TD.rank_step_bytes, world,
                                   tmp_path_factory.mktemp(f"b{world}"),
                                   cases=cases)[0]
@@ -130,15 +155,142 @@ def bytes_worlds(tmp_path_factory):
 
 @pytest.mark.parametrize("case", BYTES_CASES,
                          ids=[f"{a}-{m[0]}x{m[1]}-remat_{r}"
-                              for _, m, a, r in BYTES_CASES])
+                              + ("-seq" if q else "")
+                              for _, m, a, r, q in BYTES_CASES])
 def test_collective_bytes_equal_the_steps_counts(bytes_worlds, case):
-    world, mesh, arch, remat = case
+    world, mesh, arch, remat, seq = case
     at = [c for c in BYTES_CASES if c[0] == world].index(case)
     for rank, res in enumerate(bytes_worlds[world]):
-        got = _account_bytes(arch, mesh, rank, remat)
+        got = _account_bytes(arch, mesh, rank, remat, seq)
         assert got == res[at], (case, rank, got, res[at])
         assert got["decode"]["model"] > 0 and got["prefill"]["model"] > 0
         assert (got["prefill"]["gathered"] > 0) == (mesh[0] > 1)
+
+
+# ------------------------------ saved bytes ---------------------------------
+class _KernelSaves(torch.autograd.Function):
+    """``fn(*args)``'s value, saving what the kernel's own autograd
+    function saves on the card and no more: K3's ``FlashAttentionFn``
+    q, k, v, o and the (B, H, S) float32 log-sum-exp; K4's ``SsdScanFn``
+    its inputs and the forward's four scratch tensors. The backward's
+    values do not matter here (zeros)."""
+
+    @staticmethod
+    def forward(ctx, fn, kw, kind, *args):
+        with torch.no_grad():
+            out = fn(*args, **kw).contiguous()    # as a kernel writes it
+        if kind == "attention":
+            q = args[0]
+            B, S_, H, _ = q.shape
+            lse = torch.empty((B, H, S_), dtype=torch.float32)
+            ctx.save_for_backward(*args, out, lse)
+        else:
+            x, Bm = args[0], args[3]
+            scr = SSD.scratch(x, Bm, kw.get("chunk", 256))
+            ctx.save_for_backward(*args, scr["dts"], scr["cum"], scr["cb"],
+                                  scr["states"])
+        ctx.n = len(args)
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        args = ctx.saved_tensors[:ctx.n]
+        return (None, None, None) + tuple(torch.zeros_like(a) for a in args)
+
+
+class _Box:
+    def __init__(self, t):
+        self.t = t
+
+
+def _cpu_saved(arch, shape):
+    """The peak bytes the train step's saves hold on the CPU without a
+    mesh, counted here by hooks of this test's own: each storage once,
+    the params' storages not at all; K3 and K4 saving what their
+    kernels' autograd functions save (``_KernelSaves``)."""
+    model = TD.reduced_model(arch, _opts("none", False))
+    params = S.init_train_state(model, torch.Generator().manual_seed(0),
+                                "cpu")["params"]
+    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    ps = leaves(params)
+    skip = {p.untyped_storage().data_ptr() for p in ps}
+    held, count = {}, {"live": 0, "peak": 0}
+
+    def release(key):
+        held[key][0] -= 1
+        if not held[key][0]:
+            count["live"] -= held.pop(key)[1]
+
+    def pack(t):
+        key = t.untyped_storage().data_ptr()
+        if key in skip:
+            return t
+        if key not in held:
+            held[key] = [0, t.untyped_storage().nbytes()]
+            count["live"] += held[key][1]
+            count["peak"] = max(count["peak"], count["live"])
+        held[key][0] += 1
+        box = _Box(t)
+        weakref.finalize(box, release, key)
+        return box
+
+    attend, scan = transformer.attend, models_ssd.ssd_scan
+
+    def attend_(q, k, v, **kw):
+        return _KernelSaves.apply(attend, kw, "attention", q, k, v)
+
+    def scan_(x, dt, A, Bm, Cm, **kw):
+        y, state = scan(x.detach(), dt.detach(), A.detach(), Bm.detach(),
+                        Cm.detach(), **kw)
+        return (_KernelSaves.apply(lambda *a, **k: scan(*a, **k)[0], kw,
+                                   "scan", x, dt, A, Bm, Cm), state)
+    transformer.attend, models_ssd.ssd_scan = attend_, scan_
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(
+        0, model.cfg.vocab, tuple(v.shape)).astype(np.int32))
+        for k, v in model.input_specs(shape)["batch"].items()}
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(
+                pack, lambda b: b if isinstance(b, torch.Tensor) else b.t):
+            loss = model.loss(params, batch)
+        torch.autograd.grad(loss, ps, allow_unused=True)
+    finally:
+        transformer.attend, models_ssd.ssd_scan = attend, scan
+    return count["peak"]
+
+
+@pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "mamba2-370m"))
+def test_saved_bytes_at_one_rank_equal_the_cpu_steps(arch):
+    """``memory.saved_bytes`` of a train step at one rank (remat none) is
+    the CPU step's peak of saved bytes, counted apart; a prefill and a
+    decode step save nothing."""
+    shape = SMALL["train"]
+    model = TD.reduced_model(arch, _opts("none", False))
+    am = AccountMesh((1, 1), ("data", "model"))
+    got = DR.run_step(model, shape, am)["memory"]["saved_bytes"]
+    assert got == _cpu_saved(arch, shape) > 0, arch
+    for kind in ("prefill", "decode"):
+        assert DR.run_step(model, SMALL[kind], am)["memory"][
+            "saved_bytes"] == 0
+
+
+@pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "mamba2-370m"))
+def test_sequence_split_saves_fewer_bytes(arch):
+    """At (1, 4) the sequence-split train step saves fewer bytes than the
+    step without the split (the norms on a quarter of the rows, the
+    gathered inputs kept as this rank's rows), and moves more over
+    ``"model"``; at (1, 1) the flag changes neither."""
+    shape = SMALL["train"]
+    got = {}
+    for mesh in ((1, 1), (1, 4)):
+        for seq in (False, True):
+            model = TD.reduced_model(arch, _opts("none", seq))
+            got[mesh, seq] = DR.run_step(model, shape, AccountMesh(
+                mesh, ("data", "model")))
+    assert got[(1, 1), True]["memory"] == got[(1, 1), False]["memory"]
+    on, off = got[(1, 4), True], got[(1, 4), False]
+    assert on["memory"]["saved_bytes"] < off["memory"]["saved_bytes"]
+    assert on["collectives"]["model"] > off["collectives"]["model"] > 0
 
 
 # --------------------------------- FLOPs ------------------------------------
@@ -385,3 +537,30 @@ def test_argument_bytes_are_the_references_specs(records):
             continue
         assert r["memory"]["argument_bytes"] == _ref_argument_bytes(
             r["arch"], r["shape"]), (r["arch"], r["shape"])
+
+
+def test_the_cli_writes_seq_shard_records_for_every_cell(records,
+                                                         seq_records):
+    """``--seq-shard``: a record or the same named skip for every cell,
+    tagged, with ``saved_bytes``; a decode step and whisper ignore the
+    flag (their collectives are the records' without it), the train
+    steps and prefills of the other families move at least as many
+    bytes over ``"model"`` (their f and g as gathers and scatters of
+    rows) and llama3-8b's train step more."""
+    assert len(seq_records) == len(records) == 40
+    base = {(r["arch"], r["shape"]): r for r in records}
+    for r in seq_records:
+        b = base[r["arch"], r["shape"]]
+        assert r["tag"] == "seq" and "error" not in r, r
+        if "skipped" in b:
+            assert r["skipped"] == b["skipped"]
+            continue
+        assert r["memory"]["saved_bytes"] >= 0
+        kind = REF_SHAPES[r["shape"]].kind
+        if kind == "decode" or ref_get(r["arch"]).family == "encdec":
+            assert r["collectives"] == b["collectives"], r["arch"]
+        else:
+            assert r["collectives"]["model"] >= b["collectives"]["model"]
+    on = {(r["arch"], r["shape"]): r for r in seq_records}
+    assert on["llama3-8b", "train_4k"]["collectives"]["model"] > \
+        base["llama3-8b", "train_4k"]["collectives"]["model"]
