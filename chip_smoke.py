@@ -13,7 +13,8 @@ script fails before it prints a result.
               power limit (also printed as its own line before the last).
 2. build      one nvcc per kernel source in ``src/repro_torch/csrc``,
               all started together: K1 ``warehouse_agg.cu``, K2
-              ``frame_preproc.cu``, K3 ``flash_attention.cu`` and its
+              ``frame_preproc.cu``, K3 ``flash_attention.cu`` (float32),
+              ``flash_attention_bf16.cu`` (bfloat16) and its
               backward ``flash_attention_bwd.cu``, K4 ``ssd_scan.cu`` and
               its backward ``ssd_scan_bwd.cu`` (K3 and K4 include the
               shared ``hopper.cuh``).
@@ -34,9 +35,14 @@ script fails before it prints a result.
               to 128 (a D = 128 ragged window), hymba-1.5b's prefill
               (B=4, S=2048, 25 heads over 5 kv heads, D=64) with its
               window of 1,024 and causal, and a stress case with |q|, |k|
-              up to 8; then bfloat16 q, k, v (the serve prefills, GQA, a
-              window, D = 128, 8 and 12), the output in bfloat16 against
-              the plain version on the widened inputs; mixtral-8x7b's
+              up to 8; then bfloat16 q, k, v through the bfloat16
+              kernel (``K3_BF16_CASES``: the serve prefills,
+              qwen1.5-110b's local one at (1, 4), GQA, a window, D = 128
+              with a ragged Skv over B > 1, D = 8 and 12, bases off 16
+              bytes, one query against 1,500 keys, the log-sum-exp held
+              to ``lse_error_bound``), the output in bfloat16 against
+              the plain version on the widened inputs, each case's
+              ``of_bound`` and launch shape printed; mixtral-8x7b's
               prefill (B=4, S=2048, 32 heads over 8 kv heads, D=128,
               window 4,096) in both dtypes.
 5a. kernel_k3_bwd  K3's backward (``csrc/flash_attention_bwd.cu``)
@@ -256,7 +262,9 @@ script fails before it prints a result.
               (3xTF32 at the dense TF32 peak, the kernel's; FP32
               CUDA-core peak, a float32 kernel's), its plain version and
               ``F.scaled_dot_product_attention``, and at the serve
-              prefill in bfloat16 beside the dense bf16 bound; K4 at the
+              prefill in bfloat16 beside the dense bf16 bound and the
+              bfloat16 kernel's own (1.5 times: three bf16 products
+              where the function needs two) and its launch shape; K4 at the
               mamba2-370m
               serve prefill beside both operation bounds (3xTF32, its
               arithmetic and its bound; FP32) and its plain version (no
@@ -406,7 +414,10 @@ script fails before it prints a result.
               both ways, at the split's local shapes (llama3-8b at m = 4:
               B 4, S 2,048, H 8, G 2, D 128; mamba2-370m's 8 of 32
               heads), each held against its plain version, beside its
-              plain version's time, the library call's and the bound.
+              plain version's time, the library call's and the bound;
+              and K3 in bfloat16 at qwen1.5-110b's local prefill shape
+              at (1, 4) (B 4, S 2,048, H 16, G 2, D 128) beside SDPA and
+              both bounds.
 12f. serve_dist  serving across ranks: two gloo ranks on card 0 laid
               out as (1, 2) over ("data", "model"), each serving one
               batch of 4 x 2,048-token prompts and 8 generated tokens
@@ -466,7 +477,9 @@ the worst case of reordering float32 sums over Skv keys, Skv * 2^-24 *
 max|v| (the bound of the FP32 kernel before it), plus the 3xTF32 terms,
 3 * 2^-22 of the scaled sum of |q_d k_d| on each score carried through
 the softmax (with the float32 score sums over D) and of max|v| on each
-output. K4: y and the
+output; for bfloat16 q, k, v the bfloat16 kernel's own terms (exact
+products: (2 D + 1) 2^-24 of that sum on a score; P in two bfloat16
+parts: 2^-16 max|v| on an output) and the output's rounding. K4: y and the
 final state within ``kernels.ssd.error_bound`` of the plain version in
 float64: 2^-24 * (N + 3 S' + 32 Lambda + 16 + 24) times the largest sum
 of magnitudes of one output (S' the padded length, Lambda the largest
@@ -669,6 +682,9 @@ LAST_PARTS: dict = {}               # the last train_dist phase's parts
 # G, N, Q)
 SPLIT_K3 = (4, 2048, 8, 2, 128)
 SPLIT_K4 = (4, 2048, 8, 64, 1, 128, 256)
+# B, S, H, G, D: qwen1.5-110b's local prefill at (1, 4) (64 heads over 8
+# kv heads of 128, cut by m = 4), bfloat16: serve_dist's part (c)
+SERVE_SPLIT_K3 = (4, 2048, 16, 2, 128)
 # serving across ranks (``serve_dist``): one batch of 4 prompts of 2,048
 # tokens and 8 generated; part (a), llama3-8b cut to 2 of its 32 layers
 # and mamba2-370m at full depth over two gloo ranks on card 0
@@ -1104,21 +1120,32 @@ def _k3_cases():
 
 
 K3_STRESS = (1, 256, 256, 4, 2, 64, True, None)     # |q|, |k| up to 8
-# bfloat16 q, k, v (the models' default compute dtype): the serve prefill,
-# hymba-1.5b's windowed and global prefill, mixtral-8x7b's prefill, GQA,
-# windows, D = 128, the
-# Transform's D = 8, D = 12 (no 16-byte loads)
+# bfloat16 q, k, v (the models' default compute dtype), the bfloat16
+# kernel: the serve prefill, hymba-1.5b's windowed and global prefill,
+# mixtral-8x7b's prefill, qwen1.5-110b's local prefill at (1, 4) (two
+# warpgroups at D = 128), GQA, windows, D = 128 (ragged Skv with B > 1:
+# TMA's zero fill must stay in its batch row), the Transform's D = 8
+# (cp.async), D = 12 (through registers; also at G = 1), one query against
+# 1,500 keys; a trailing "shift" starts q, k and v one value past an
+# aligned base (no TMA, no 16-byte loads), "lse" runs the forward with
+# its log-sum-exp, held to lse_error_bound
 K3_BF16_CASES = (
     (2, 2048, 2048, 16, 16, 64, True, None),
     (4, 2048, 2048, 25, 5, 64, True, 1024),
     (4, 2048, 2048, 25, 5, 64, True, None),
     (4, 2048, 2048, 32, 8, 128, True, 4096),
+    (4, 2048, 2048, 16, 2, 128, True, None),
     (2, 300, 300, 8, 2, 64, True, None),
     (1, 500, 500, 8, 4, 64, True, 32),
     (3, 130, 130, 4, 1, 128, True, None),
+    (3, 300, 157, 4, 2, 128, False, None),
     (30, 16, 16, 4, 4, 8, True, None),
     (4, 77, 77, 4, 4, 12, False, 32),
+    (2, 90, 90, 4, 1, 12, True, None),
     (2, 1, 9, 4, 4, 64, False, None),
+    (4, 1, 1500, 20, 20, 64, False, None),
+    (2, 100, 120, 4, 2, 64, True, None, "shift"),
+    (2, 300, 333, 8, 2, 128, True, 100, "lse"),
 )
 
 
@@ -1150,32 +1177,58 @@ def phase_kernel_k3(dev):
                                  f"{ratio:.3g}x error_bound")
         errs[name] = {"err": err, "of_bound": ratio}
         del q, k, v, got, want, bound
-    for B, Sq, Skv, H, G, D, causal, window in K3_BF16_CASES:
-        q, k, v = (torch.randn(shape, generator=gen, device=dev)
-                   .to(torch.bfloat16) for shape in
+    bf16_errs, bf16_before = {}, FA.BF16_LAUNCHES
+    for B, Sq, Skv, H, G, D, causal, window, *extra in K3_BF16_CASES:
+        shift = 1 if "shift" in extra else 0
+        q, k, v = (torch.randn(math.prod(shape) + shift, generator=gen,
+                               device=dev).to(torch.bfloat16)[shift:]
+                   .view(shape) for shape in
                    ((B, Sq, H, D), (B, Skv, G, D), (B, Skv, G, D)))
-        got = FA.flash_attention(q, k, v, causal=causal, window=window)
+        if "lse" in extra:
+            got, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                                  window=window)
+        else:
+            got = FA.flash_attention(q, k, v, causal=causal, window=window)
         sync()
-        qf, kf, vf = q.float(), k.float(), v.float()
-        want = FA.flash_attention_ref(qf, kf, vf, causal=causal,
-                                      window=window)
+        want = FA.flash_attention_ref(q.float(), k.float(), v.float(),
+                                      causal=causal, window=window)
         name = (f"B{B}_Sq{Sq}_Skv{Skv}_H{H}_G{G}_D{D}"
                 f"{'_causal' if causal else ''}"
-                f"{f'_w{window}' if window else ''}_bf16")
+                f"{f'_w{window}' if window else ''}_bf16"
+                + "".join(f"_{e}" for e in extra))
         if got.dtype != torch.bfloat16:
             raise AssertionError(f"K3 {name}: output in {got.dtype}")
         err = _max_err(got, want)
-        bound = FA.error_bound(qf, kf, vf, causal=causal, window=window,
+        bound = FA.error_bound(q, k, v, causal=causal, window=window,
                                ref=want)
         ratio = float(((got.float() - want).abs() / bound).max())
         if not ratio <= 1.0:
             raise AssertionError(f"K3 {name}: max error {err}, "
                                  f"{ratio:.3g}x error_bound")
-        errs[name] = {"err": err, "of_bound": ratio}
-        del q, k, v, qf, kf, vf, got, want, bound
-    emit("kernel_k3", cases=len(errs), launches=FA.LAUNCHES - before,
-         max_abs_err=errs)
-    return max(e["err"] for e in errs.values())
+        bf16_errs[name] = {"err": err, "of_bound": ratio,
+                           "launch": FA.bf16_launch_shape(q, k, v)}
+        if "lse" in extra:
+            l64 = FA.lse_ref(q.double(), k.double(), causal=causal,
+                             window=window)
+            lb = FA.lse_error_bound(q.float(), k.float(), l64,
+                                    causal=causal, window=window)
+            fin = torch.isfinite(l64)
+            lse_ratio = float(((lse.double() - l64).abs()[fin]
+                               / lb[fin]).max())
+            if not (torch.equal(fin, torch.isfinite(lse))
+                    and lse_ratio <= 1.0):
+                raise AssertionError(f"K3 {name}: log-sum-exp "
+                                     f"{lse_ratio:.3g}x lse_error_bound")
+            bf16_errs[name]["lse_of_bound"] = lse_ratio
+        del q, k, v, got, want, bound
+    if FA.BF16_LAUNCHES - bf16_before != len(K3_BF16_CASES):
+        raise AssertionError(f"K3: {FA.BF16_LAUNCHES - bf16_before} of "
+                             f"{len(K3_BF16_CASES)} bfloat16 cases took "
+                             "the bfloat16 kernel")
+    emit("kernel_k3", cases=len(errs) + len(bf16_errs),
+         launches=FA.LAUNCHES - before, max_abs_err={**errs, **bf16_errs})
+    return (max(e["err"] for e in errs.values()),
+            max(e["err"] for e in bf16_errs.values()))
 
 
 def _k3_bwd_cases():
@@ -2290,6 +2343,21 @@ def _zero(kernels):
         k.LAUNCHES = 0
         if hasattr(k, "WINDOW_LAUNCHES"):
             k.WINDOW_LAUNCHES = 0
+        if hasattr(k, "BF16_LAUNCHES"):
+            k.BF16_LAUNCHES = 0
+
+
+def _bf16_k3(kernels, launches, what):
+    """K3's launches of a bfloat16 run (its count set to 0 with the
+    others just before), each of which must have taken the bfloat16
+    kernel (``csrc/flash_attention_bf16.cu``): the count, 0 without K3."""
+    if "flash_attention" not in kernels:
+        return 0
+    n = kernels["flash_attention"].BF16_LAUNCHES
+    if n != launches["flash_attention"]:
+        raise AssertionError(f"{what}: {n} of {launches['flash_attention']} "
+                             f"K3 launches took the bfloat16 kernel")
+    return n
 
 
 def serve_bf16(cfg, params, toks, plain, kernels, want, sv=SERVE):
@@ -2336,6 +2404,7 @@ def serve_bf16(cfg, params, toks, plain, kernels, want, sv=SERVE):
         caches = []
         nxt, prefill_s = timed(lambda: prefill(caches))
         launches = _counts(kernels)
+        k3_bf16 = _bf16_k3(kernels, launches, f"{cfg.name} bfloat16")
         gen, decode_s = timed(lambda: decode(
             nxt.to(params["embed"].device), caches.pop()))
         with plain():
@@ -2362,7 +2431,8 @@ def serve_bf16(cfg, params, toks, plain, kernels, want, sv=SERVE):
     return {"prefill_bf16_s": prefill_s, "prefill_bf16_plain_s": plain_s,
             "decode_bf16_s": decode_s, "decode_bf16_steps": sv["gen"] - 1,
             "generated_bf16_first": gen[0].tolist(),
-            "launches_bf16": launches, "logits_bf16_max_abs_err": err,
+            "launches_bf16": launches, "launches_bf16_kernel": k3_bf16,
+            "logits_bf16_max_abs_err": err,
             "logits_bf16_tol": tol, "logits_bf16_max_abs": scale,
             "next_token_agreement_bf16": agree,
             "prefill_bf16_next_equal": float((nxt == nxt_plain).float()
@@ -2444,8 +2514,8 @@ def phase_serve(dev):
          generated_first=out[0].tolist(),
          logits_max_abs_err=err, logits_max_abs=scale,
          next_token_agreement=agree, **bf16, **fp8)
-    return dict(launches=launches + bf16["launches_bf16"]["flash_attention"]
-                + fp8["launches_fp8"], err=err)
+    return dict(launches=launches, err=err,
+                k3_bf16=bf16["launches_bf16_kernel"] + fp8["launches_fp8"])
 
 
 def serve_fp8(cfg, params, toks):
@@ -2482,9 +2552,11 @@ def serve_fp8(cfg, params, toks):
         caches = []
         nxt_w = run(wide, caches)
         run(narrow, [])
-        FA.LAUNCHES = 0
+        _zero({"flash_attention": FA})
         nxt_n, prefill_s = timed(lambda: run(narrow, caches))
         launches = FA.LAUNCHES
+        _bf16_k3({"flash_attention": FA}, {"flash_attention": launches},
+                 f"{cfg.name} float8 cache")
         cache_w, cache_n = caches
         codes = {name: cache_n["layers"][name].dtype == fp8 and torch.equal(
             cache_n["layers"][name].view(torch.uint8),
@@ -2613,11 +2685,10 @@ def phase_serve_hybrid(dev):
          logits_max_abs_err=err, logits_max_abs=scale,
          next_token_agreement=agree, **bf16,
          phase_s=time.perf_counter() - t0)
-    k3 = launches["flash_attention"] + bf16["launches_bf16"][
-        "flash_attention"]
-    k3_window = launches["flash_attention_window"] + bf16["launches_bf16"][
-        "flash_attention_window"]
-    return dict(k3_window=k3_window, k3_global=k3 - k3_window,
+    k3_window = launches["flash_attention_window"]
+    return dict(k3_window=k3_window,
+                k3_global=launches["flash_attention"] - k3_window,
+                k3_bf16=bf16["launches_bf16_kernel"],
                 k4=launches["ssd_scan"] + bf16["launches_bf16"]["ssd_scan"],
                 err=err)
 
@@ -2696,8 +2767,8 @@ def phase_serve_moe(dev):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches["flash_attention"]
-                + bf16["launches_bf16"]["flash_attention"], err=err)
+    return dict(launches=launches["flash_attention"], err=err,
+                k3_bf16=bf16["launches_bf16_kernel"])
 
 
 def whisper_frames(b, row0, dev):
@@ -2792,8 +2863,8 @@ def phase_serve_encdec(dev):
     del params, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches["flash_attention"]
-                + bf16["launches_bf16"]["flash_attention"], err=err)
+    return dict(launches=launches["flash_attention"], err=err,
+                k3_bf16=bf16["launches_bf16_kernel"])
 
 
 def _library_call(cols, n, spec, fvals):
@@ -2884,9 +2955,14 @@ def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32, *,
     ``enable_gqa`` for fewer kv heads (a window of S or more is the
     causal mask, and SDPA gets ``is_causal``).
     The kernel's output on the timed inputs is held against the plain
-    version's within ``error_bound`` (bfloat16: on the widened inputs,
-    the output's rounding added), and SDPA's distance from the plain
-    version is reported."""
+    version's within ``error_bound`` (bfloat16: the bfloat16 kernel's
+    bound, against the plain version on the widened inputs, the
+    output's rounding added), and SDPA's distance from the plain
+    version is reported (SDPA in bfloat16 runs P in one bfloat16 part,
+    the bfloat16 kernel in two). For bfloat16 also the bfloat16
+    kernel's own floor, ``bound_design_ms``: its three bf16 products
+    where the function needs two (1.5 times the operations), and the
+    launch it makes (``FA.bf16_launch_shape``)."""
     B, S, H, D = shape
     G, Skv = kv_heads or H, skv or S
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
@@ -2911,8 +2987,9 @@ def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32, *,
     qf, kf, vf = q.float(), k.float(), v.float()
     want = FA.flash_attention_ref(qf, kf, vf, causal=causal, window=window)
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
-    bound = FA.error_bound(qf, kf, vf, causal=causal, window=window,
-                           ref=want if dtype == torch.bfloat16 else None)
+    bf16 = dtype == torch.bfloat16
+    bound = FA.error_bound(q, k, v, causal=causal, window=window,
+                           ref=want if bf16 else None)
     ratio = float(((got.float() - want).abs() / bound).max())
     if not ratio <= 1.0:
         raise AssertionError(f"K3 at {list(shape)} Skv={Skv} G={G} "
@@ -2921,6 +2998,9 @@ def _time_k3(FA, F, shape, gen, dev, reps, dtype=torch.float32, *,
     lib = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
     held = {"max_abs_err": _max_err(got, want), "of_bound": ratio,
             "library_max_abs_err": _max_err(lib.transpose(1, 2), want)}
+    if bf16:
+        held["bound_design_ms"] = max(1.5 * least_ms, byte_ms)
+        held["launch"] = FA.bf16_launch_shape(q, k, v)
     del qf, kf, vf, want, got, bound, lib
     return {"dtype": str(dtype).replace("torch.", ""), **held,
             "kernel_ms": cuda_ms(lambda: FA.flash_attention(
@@ -5287,7 +5367,9 @@ def phase_time_split(dev, td):
     ``_time_k3_bwd``, ``_time_k4_bwd``), beside the bounds and the
     launches a rank in ``train_dist``'s split parts (``td["split"]``:
     (d) at m = 2 on one card, and (a) and (c) at (1, 4) with four
-    cards)."""
+    cards). Then K3 in bfloat16 at qwen1.5-110b's local prefill shape
+    (``SERVE_SPLIT_K3``, serve_dist's (c)) beside SDPA and both bounds:
+    the bfloat16 kernel at two warpgroups and D = 128."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd as SSD
@@ -5300,9 +5382,13 @@ def phase_time_split(dev, td):
     k4 = _time_ssd(SSD, args, SPLIT_K4)
     del args
     k4_bwd = _time_k4_bwd("split", SPLIT_K4, gen, dev, torch.float32)
+    B, S, H, G, D = SERVE_SPLIT_K3
+    k3_serve = _time_k3(FA, F, (B, S, H, D), gen, dev, reps=20, kv_heads=G,
+                        dtype=torch.bfloat16)
     torch.cuda.empty_cache()
     out = {"flash_attention": k3, "flash_attention_bwd": k3_bwd,
            "ssd_scan": k4, "ssd_scan_bwd": k4_bwd,
+           "flash_attention_serve_bf16": k3_serve,
            "launches_per_rank": td["split"]}
     emit("time_split", **out)
     return out
@@ -5356,7 +5442,7 @@ def _serve_dist_part(mesh, cfg, opts, name, profile=False):
         del tok, cache
     for step in (prefill, decode):
         step.layout.bytes.update(dict.fromkeys(step.layout.bytes, 0))
-    FA.LAUNCHES = FA.WINDOW_LAUNCHES = SSD.LAUNCHES = 0
+    FA.LAUNCHES = FA.WINDOW_LAUNCHES = FA.BF16_LAUNCHES = SSD.LAUNCHES = 0
     with torch.no_grad():
         (tok, cache, lg), prefill_s = timed(lambda: prefill(
             params, batch, cache_len=S + n_gen))
@@ -5367,7 +5453,8 @@ def _serve_dist_part(mesh, cfg, opts, name, profile=False):
             steps.append((whole(tok), whole(lg)))
         sync()
         decode_s = time.perf_counter() - t0
-    launches = {"k3": FA.LAUNCHES, "k4": SSD.LAUNCHES}
+    launches = {"k3": FA.LAUNCHES, "k3_bf16": FA.BF16_LAUNCHES,
+                "k4": SSD.LAUNCHES}
     peak = torch.cuda.max_memory_allocated(dev)
     prof = (_profile_step(lambda: decode(params, cache, tok)) if profile
             else None)
@@ -5574,7 +5661,8 @@ def phase_serve_dist(smi):
         for r in runs:
             got = r["launches"]
             if (cfg.family == "ssm" and got["k4"] != want) or (
-                    cfg.family != "ssm" and got["k3"] != cfg.n_layers):
+                    cfg.family != "ssm" and got["k3"] != cfg.n_layers) or \
+                    got["k3_bf16"] != got["k3"]:
                 raise AssertionError(f"serve_dist {cfg.name}: launches "
                                      f"{got} a rank")
             k3 += got["k3"]
@@ -6062,7 +6150,7 @@ def run(dev) -> None:
     phase_build()
     k1_err = phase_kernel(dev)
     k2_err = phase_kernel_k2(dev)
-    k3_err = phase_kernel_k3(dev)
+    k3_err, k3_bf16_err = phase_kernel_k3(dev)
     k3b_err = phase_kernel_k3_bwd(dev)
     k4_err = phase_kernel_k4(dev)
     k4b_err = phase_kernel_k4_bwd(dev)
@@ -6142,13 +6230,26 @@ def run(dev) -> None:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:67",
         "launches": (t["launches"]["flash_attention"] + sv["launches"]
-                     + tr["fwd_launches"] + td["k3_fwd"] + sdp["k3"]),
+                     + tr["fwd_launches"] + td["k3_fwd"]),
         "max_abs_err": k3_err,
         "ms": k3["kernel_ms"],
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+    }, {
+        "name": "flash_attention[bf16]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bf16.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:67",
+        "launches": (sv["k3_bf16"] + sh["k3_bf16"] + sm["k3_bf16"]
+                     + se["k3_bf16"] + sdp["k3"]),
+        "max_abs_err": k3_bf16_err,
+        "ms": k3["bf16"]["kernel_ms"],
+        "plain_ms": k3["bf16"]["plain_ms"],
+        "bound_ms": k3["bf16"]["bound_ms"],
+        "bound_by": k3["bf16"]["bound_by"],
+        "library_ms": k3["bf16"]["library_ms"],
     }, {
         "name": "ssd_scan",
         "route": "cuda",

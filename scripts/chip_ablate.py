@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by ablation, on one NVIDIA card.
 
-    python3 scripts/chip_ablate.py [k4 k3 k3_bwd k4_bwd k1]   # repo root
+    python3 scripts/chip_ablate.py [k4 k3 k3_bf16 k3_bwd k4_bwd k1]
 
-With no names it runs all five.
+from the repository root. With no names it runs all six.
 
 The card's machine has no profiler that reads kernel counters, so this
 script builds edited copies of a kernel source (a loop bound set to 0,
@@ -17,6 +17,16 @@ part taken out.
   H=G=16, D=64, causal: ``no_split`` (tiles not split into TF32
   halves), ``no_softmax`` (scores go to PV as they are), ``one_pass``
   (big*big only, the two small 3xTF32 terms dropped).
+- K3 in bfloat16 (``csrc/flash_attention_bf16.cu``) at qwen1.5-0.5b's
+  serve prefill (B=4, S=2048, H=G=16, D=64), qwen1.5-110b's local one
+  at (1, 4) (H=16, G=2, D=128) and mixtral-8x7b's (H=32, G=8, D=128,
+  window 4,096), all causal: ``one_part`` (P V in one bf16 product, the
+  lo part dropped: the second part's cost), ``no_exp`` (the softmax's
+  expf taken out: its cost), and the design's alternatives, each
+  computing the same function: ``wg1`` (one warpgroup a block
+  everywhere), ``stages2`` (a ring of 2 stages instead of 3) and
+  ``blocks2`` (at D = 64, registers capped for two blocks an SM). Each
+  reports whether it gave the kernel's bits.
 - K4 (``csrc/ssd_scan.cu``) at the mamba2-370m serve prefill, B=4,
   S=2048, H=32, P=64, G=1, N=128, Q=256: each of its five passes timed
   alone, then the whole scan and each pass again with ``one_pass``
@@ -88,6 +98,20 @@ K3_CUTS = {
                  ("      wgmma_rs<DP>(o, ps[j], vbd);\n"
                   "      wgmma_rs<DP>(o, pb[j], vsd);\n", "")],
 }
+K3_BF16_CUTS = {
+    "one_part": [("        wgmma_bf16_rs<DP>(o, pl[j], vd);\n", "")],
+    "no_exp": [("const float p = expf(sc[4 * j + 2 * r + c] - m_new);",
+                "const float p = sc[4 * j + 2 * r + c] - m_new;")],
+    "wg1": [("int warpgroups(int Sq) { return Sq >= 256 ? 2 : 1; }",
+             "int warpgroups(int Sq) { return 1; }")],
+    "stages2": [("constexpr int STAGES = 3; ", "constexpr int STAGES = 2; ")],
+    "blocks2": [("__launch_bounds__(WG * 128 + 32, 1)",
+                 "__launch_bounds__(WG * 128 + 32, DP == 64 ? 2 : 1)")],
+}
+# B, S, H, G, D, window: the shapes k3_bf16 times
+K3_BF16_SHAPES = {"qwen": (4, 2048, 16, 16, 64, None),
+                  "qwen110b_local": (4, 2048, 16, 2, 128, None),
+                  "mixtral": (4, 2048, 32, 8, 128, 4096)}
 K4_CUTS = {
     "one_pass": [("    wgmma_ss_n64(acc, as, bb);\n"
                   "    wgmma_ss_n64(acc, ab, bs);\n", ""),
@@ -191,13 +215,51 @@ def k3(dev) -> dict:
     res = {"kernel": C.cuda_ms(lambda: FA.flash_attention(q, k, v), 20)}
     for cut, edits in K3_CUTS.items():
         fn = ablated("flash_attention", cut, edits).flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         res[cut] = C.cuda_ms(lambda: fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            B, S,
             S, H, H, D, 1, 0, D ** -0.5,
             torch.cuda.current_stream().cuda_stream), 20)
     return res
+
+
+def k3_bf16(dev) -> dict:
+    fns = {}
+    for cut, edits in K3_BF16_CUTS.items():
+        fn = ablated("flash_attention_bf16", cut,
+                     edits).flash_attention_bf16_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[cut] = fn
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, (B, S, H, G, D, window) in K3_BF16_SHAPES.items():
+        q = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, S, G, D), generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        want = FA.flash_attention(q, k, v, window=window)
+        got = torch.empty_like(q)
+
+        def cut_call(fn):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     got.data_ptr(), None, B, S, S, H, G, D, 1,
+                     int(window or 0), D ** -0.5,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"K3 bf16 cut: cudaError {err}")
+        res = {"kernel": C.cuda_ms(lambda: FA.flash_attention(
+            q, k, v, window=window), 20)}
+        for cut, fn in fns.items():
+            cut_call(fn)
+            C.sync()
+            res[cut + "_same_bits"] = torch.equal(got, want)
+            res[cut] = C.cuda_ms(lambda: cut_call(fn), 20)
+        out[name] = res
+        del q, k, v, want, got
+    return out
 
 
 def k3_bwd(dev) -> dict:
@@ -348,6 +410,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     parts = {"k4": ("k4_ms", k4), "k3": ("k3_ms", k3),
+             "k3_bf16": ("k3_bf16_ms", k3_bf16),
              "k3_bwd": ("k3_bwd_ms", k3_bwd),
              "k4_bwd": ("k4_bwd_ms", k4_bwd),
              "k1": ("k1_window_x_category_ms", k1)}

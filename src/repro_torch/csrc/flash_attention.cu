@@ -28,15 +28,9 @@
 // about 3 * 2^-22 of |a||b|). Both products use it: S = (q * scale) K^T
 // and O += P V. kernels/flash_attention.py:error_bound states the bound.
 //
-// Operands: q, k and v all float32, or all bfloat16 (the models' default
-// compute dtype). A bfloat16 operand is widened to float32 as its tile
-// lands, and everything after the load is the float32 kernel's: the
-// 3xTF32 splits (a widened bfloat16 splits exactly, small half 0), the
-// float32 accumulators and softmax. The output is written in the
-// operands' type (bfloat16 rounded to nearest even). bfloat16 k and v
-// tiles come through registers (16-byte loads, 8 values each, widened
-// and stored to the float32 staging buffer), issued after the tile's S
-// product so that the loads overlap it.
+// Operands: q, k and v all float32. bfloat16 ones (the models' default
+// compute dtype) take csrc/flash_attention_bf16.cu, designed for bf16
+// wgmma on bf16 tiles.
 //
 // Design. One block owns one (b, h, q tile) and walks the kv tiles in a
 // loop that stands in for the TPU grid's sequential kv axis. A
@@ -53,8 +47,7 @@
 // - K and V tiles (64 kv rows, 32 at D = 128) come through a 2-stage ring
 //   of float32 staging buffers filled by cp.async (16-byte copies where
 //   D % 4 == 0 and the bases are aligned, else 4-byte ones; zero-fill past
-//   Skv and D; bfloat16: 16-byte loads where D % 8 == 0 and the bases are
-//   aligned, else one value at a time), the next tile in flight while the
+//   Skv and D), the next tile in flight while the
 //   block computes on this one. As a tile lands the block splits each
 //   element once into big and small, writing the core-matrix layouts
 //   with 16-byte stores (8 lanes
@@ -95,7 +88,7 @@
 #define FULL_MASK 0xffffffffu
 
 struct FaArgs {
-  const void* q;              // float or bf16, as k, v and o
+  const void* q;              // float, as k, v and o
   const void* k;
   const void* v;
   void* o;
@@ -150,47 +143,6 @@ __device__ __forceinline__ void load_tile(float* st, const float* kb,
       const int64_t off = ok ? s * kv_row + d : 0;
       cp_async4(ks + r * SP + d, kb + off, ok ? 4 : 0);
       cp_async4(vs + r * SP + d, vb + off, ok ? 4 : 0);
-    }
-  }
-}
-
-// bfloat16 kv rows [k0, k0 + BK) of k and v, widened into a staging stage
-// (the same float32 layout): every 16-byte load of the thread issued
-// before the first store
-template <int DP, int BK, int THREADS, int SP>
-__device__ __forceinline__ void load_tile(float* st, const bf16* kb,
-                                          const bf16* vb, int64_t kv_row,
-                                          int k0, const FaArgs& a) {
-  float* ks = st;
-  float* vs = st + BK * SP;
-  if (a.vec) {
-    constexpr int CH = DP / 8;
-    constexpr int PER = (BK * CH + THREADS - 1) / THREADS;
-    uint4 ku[PER], vu[PER];
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = threadIdx.x + j * THREADS;
-      const int r = i / CH, c = i % CH, s = k0 + r;
-      const bool ok = i < BK * CH && s < a.Skv && 8 * c < a.D;
-      const int64_t off = ok ? s * kv_row + 8 * c : 0;
-      ku[j] = ok ? ld16(kb + off) : make_uint4(0u, 0u, 0u, 0u);
-      vu[j] = ok ? ld16(vb + off) : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = threadIdx.x + j * THREADS;
-      if (i >= BK * CH) break;
-      const int r = i / CH, c = i % CH;
-      store_widened8(ks + r * SP + 8 * c, ku[j]);
-      store_widened8(vs + r * SP + 8 * c, vu[j]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < BK * DP; i += THREADS) {
-      const int r = i / DP, d = i % DP, s = k0 + r;
-      const bool ok = s < a.Skv && d < a.D;
-      const int64_t off = ok ? s * kv_row + d : 0;
-      ks[r * SP + d] = ok ? widen(kb[off]) : 0.f;
-      vs[r * SP + d] = ok ? widen(vb[off]) : 0.f;
     }
   }
 }
@@ -305,10 +257,11 @@ __global__ void __launch_bounds__(WG * 128, 1) fa_fwd_kernel(FaArgs a) {
     split_tile<DP, BK, THREADS>(stage + (it & 1) * T::STAGE, Kb);
     __syncthreads();                  // split tile ready; stage it & 1 free
 
-    // tile it + 2: float32 tiles by cp.async before this tile's products;
-    // bfloat16 tiles by loads through registers once the S product is
-    // issued, so that they overlap it (a warpgroup that skips the tile
-    // loads its share at once)
+    // tile it + 2 by cp.async before this tile's products. (LOAD_AFTER_S,
+    // loads issued after the S product, served the widened bfloat16
+    // operands this kernel no longer takes; for float32 it is false. The
+    // statements stay as they were, so the float32 code compiles as
+    // before: their order moves ptxas's register allocation.)
     constexpr bool LOAD_AFTER_S = sizeof(In) == 2;
     const bool more = it + 2 < n_tiles;
     float* next = stage + (it & 1) * T::STAGE;
@@ -478,22 +431,20 @@ static int launch_dims(const FaArgs& a, cudaStream_t stream) {
   return -1;
 }
 
-// q (B,Sq,H,D), k and v (B,Skv,G,D), o (B,Sq,H,D), all contiguous on the
-// device, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1); lse (B,H,Sq)
-// float32, or null for no log-sum-exp. D <= 128,
+// q (B,Sq,H,D), k and v (B,Skv,G,D), o (B,Sq,H,D), all float32 and
+// contiguous on the device; lse (B,H,Sq) float32, or null for no
+// log-sum-exp. D <= 128,
 // H % G == 0, Skv >= 1. Returns a cudaError_t (0 on success); -1 for a
 // D the kernel does not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int B, int Sq,
                                    int Skv, int H, int G, int D, int causal,
-                                   int window, int bf16_in, float scale,
+                                   int window, float scale,
                                    cudaStream_t stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
-  const int lanes = bf16_in ? 8 : 4;          // values in 16 bytes
-  const int vec = D % lanes == 0 && ((uintptr_t)k % 16) == 0 &&
+  const int vec = D % 4 == 0 && ((uintptr_t)k % 16) == 0 &&
                   ((uintptr_t)v % 16) == 0;
   FaArgs a{q, k, v, o, lse, B, Sq, Skv, H, G, D, causal, window, scale, vec};
-  return bf16_in ? launch_dims<bf16>(a, stream)
-                 : launch_dims<float>(a, stream);
+  return launch_dims<float>(a, stream);
 }

@@ -11,7 +11,8 @@
 // D^-0.5, the mask of the forward (causal, window, keys past Skv).
 //
 // The FlashAttention-2 decomposition, with the forward's log-sum-exp
-// (lse, (B,H,Sq) float32, from csrc/flash_attention.cu) standing in for
+// (lse, (B,H,Sq) float32, from csrc/flash_attention.cu, or
+// csrc/flash_attention_bf16.cu for bfloat16 operands) standing in for
 // the softmax's max and sum:
 //   (a) delta = rowsum(dO * O) per (b, h, q) row (a warp a row, fmaf);
 //   (b) dK, dV: one block per (kv head, batch, 64 kv rows). The block

@@ -1,12 +1,15 @@
 // Hopper (sm_90a) device helpers shared by the port's tensor-core kernels:
 // TF32 rounding and the 3xTF32 split (two ways), bfloat16 operands
 // widened to float32 as they land, cp.async, the wgmma fences, the
-// shared-memory matrix descriptor and the m64nNk8 tf32 wgmma wrappers.
+// shared-memory matrix descriptor and the m64nNk8 tf32 wgmma wrappers;
+// then, for bfloat16 operands kept as they are: the 128-byte swizzle, its
+// descriptor, mbarriers, TMA and the m64nNk16 bf16 wgmma wrappers.
 //
-// Layout the descriptors assume (settled on the card for K3): no swizzle,
-// core matrices of 8 rows x 4 32-bit words (16 bytes a row, 128 bytes a
-// matrix) stored contiguously; tf32 wgmma reads both shared operands
-// K-major only. Included by csrc/flash_attention.cu,
+// Layout the tf32 descriptors assume (settled on the card for K3): no
+// swizzle, core matrices of 8 rows x 4 32-bit words (16 bytes a row, 128
+// bytes a matrix) stored contiguously; tf32 wgmma reads both shared
+// operands K-major only. The bf16 layout is at its section below.
+// Included by csrc/flash_attention.cu, csrc/flash_attention_bf16.cu,
 // csrc/flash_attention_bwd.cu and csrc/ssd_scan.cu.
 #pragma once
 #include <cuda_bf16.h>
@@ -236,4 +239,149 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
+}
+
+
+// ------------------------------------------------ bfloat16 as it is -----
+// 128-byte swizzle, the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
+// and bf16 wgmma reads with layout type 1: a tile of `rows` rows and up to
+// 128 columns is stored as column halves of 64 values, each half `rows`
+// rows of 128 bytes; within each 8 rows (1,024 bytes, the swizzle's
+// period, at a 1,024-byte aligned address) the 16-byte chunk c of row r
+// sits at chunk c ^ (r % 8).
+
+// byte offset of element (r, c) in such a tile
+__device__ __forceinline__ uint32_t sw128(int r, int c, int rows) {
+  return (uint32_t)((c >> 6) * rows * 128 + r * 128 +
+                    ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1));
+}
+
+// Descriptor of a swizzled operand at shared address `a`. K-major (the
+// K index contiguous): sbo = 1,024 bytes between 8-row groups, lbo unused
+// (a k16 step lies in one 128-byte row; the step's start is a + 32 k).
+// MN-major (read with the transpose bit): sbo = bytes between groups of 8
+// K rows, lbo = bytes between 64-value column halves.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t a, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// makes the initialised barriers visible to the other threads (and to TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// one arrival that also expects `bytes` of asynchronous copies
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// waits until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3) of the 4-D tensor map at
+// `map` (a __grid_constant__ kernel parameter) into shared address `dst`,
+// its bytes counted on the barrier `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3) : "memory");
+}
+
+// cp.async of 16 bytes to shared address `dst` (zero-filled past `bytes`)
+__device__ __forceinline__ void cp_async16_to(uint32_t dst, const void* src,
+                                              int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// barrier `id` (1..15) over the first `threads` threads of the block
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// x = hi + lo, both bfloat16 rounded to nearest even: hi = bf16(x), off
+// by at most 2^-8 |x|, and lo = bf16(x - hi) (x - hi exact in float32),
+// so |x - hi - lo| <= 2^-16 |x| (for |x| >= 2^-118; 2^-16 |x| + 2^-133
+// for every float32 x, subnormals included); two values packed as the
+// halves of a 32-bit A-fragment register (x0 in the low half)
+__device__ __forceinline__ void split_bf16x2(float x0, float x1,
+                                             uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      x0 - __low2float(h), x1 - __high2float(h));
+  hi = *(const uint32_t*)&h;
+  lo = *(const uint32_t*)&r;
+}
+
+// d += A * B, m64n64k16 bf16, A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_bf16_ss_n64(float (&d)[32], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A * B, m64n64k16 bf16, A from registers, B from shared memory
+// MN-major (the transpose bit: B stored (k, n), n contiguous)
+__device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A * B, m64n128k16 bf16, A from registers, B from shared memory
+// MN-major (the transpose bit: B stored (k, n), n contiguous)
+__device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (N == 64) wgmma_bf16_rs_n64(d, a, db);
+  else wgmma_bf16_rs_n128(d, a, db);
 }

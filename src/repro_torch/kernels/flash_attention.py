@@ -3,9 +3,10 @@
 ``flash_attention`` is the port of ``repro/kernels/flash_attention.py``'s
 Pallas kernel: q (B,Sq,H,D), k and v (B,Skv,G,D) with H = G*R, head h
 reading kv head h // R; scale D^-0.5; masked scores at -1e30; the output
-(B,Sq,H,D). On a CUDA tensor the wrapper launches the hand-written
-Hopper kernel ``csrc/flash_attention.cu`` (built with nvcc at first use,
-bound through ctypes) or raises; it never falls back. When a gradient is
+(B,Sq,H,D). On a CUDA tensor the wrapper launches a hand-written Hopper
+kernel (built with nvcc at first use, bound through ctypes) or raises; it
+never falls back: ``csrc/flash_attention.cu`` for float32 q, k and v,
+``csrc/flash_attention_bf16.cu`` for bfloat16 ones. When a gradient is
 needed (grad mode on and an input that requires it) the launch goes
 through ``FlashAttentionFn``: its forward has the kernel also write each
 row's log-sum-exp, and its backward launches ``csrc/flash_attention_bwd.cu``
@@ -16,27 +17,31 @@ plain version ``flash_attention_ref``, the reference's
 ``ref.flash_attention_ref`` written in PyTorch: one masked softmax over
 the whole score matrix, which autograd differentiates. ``LAUNCHES``
 counts forward launches, ``WINDOW_LAUNCHES`` those of them with a
-sliding window, and ``BWD_LAUNCHES`` backward launches.
+sliding window, ``BF16_LAUNCHES`` those of the bfloat16 kernel, and
+``BWD_LAUNCHES`` backward launches.
 
-The kernel takes q, k and v all in float32 or all in bfloat16 (the
+The kernels take q, k and v all in float32 or all in bfloat16 (the
 models' default compute dtype; the reference's kernel takes any float
-dtype, float16 is still to come here), D up to ``MAX_HEAD_DIM``. A
-bfloat16 operand is widened to float32 as its tile lands and the output
-is written in the input dtype, as the reference widens inside and
-writes ``o`` in q's dtype. Both products run on the tensor cores in
-3xTF32: each operand is split into two TF32 numbers (``tf32_round``)
-and each product is the sum of three TF32 products, accumulated in
-float32 (a widened bfloat16 splits exactly, with a zero small half);
-``attention_tf32`` is a float64 model of that arithmetic and
-``error_bound`` the stated bound against the plain version. The switches
-for ``torch.matmul`` stay off: only this kernel uses TF32, inside its
-own code. It skips kv tiles the mask rules out, which changes no row
-that sees at least one key. A row that sees none is 0 in the plain
-version and, when the kernel writes the log-sum-exp (a gradient is
-needed), in the kernel, with log-sum-exp +inf: no gradient reaches its
-q, and it gives nothing to k and v. Without the log-sum-exp (serving)
-the kernel leaves that row outside its contract, as before (its value
-there depends on the block size, as the TPU kernel's does).
+dtype, float16 is still to come here and is refused by name), D up to
+``MAX_HEAD_DIM``; the output is in the input dtype, as the reference
+writes ``o`` in q's dtype. float32: both products run on the tensor
+cores in 3xTF32: each operand is split into two TF32 numbers
+(``tf32_round``) and each product is the sum of three TF32 products,
+accumulated in float32; ``attention_tf32`` is a float64 model of that
+arithmetic. bfloat16: the tiles stay bfloat16 from device memory to
+bf16 ``wgmma``; S = q K^T is one bf16 product on the unscaled values
+(exact products, a float32 sum) scaled after in float32, and P V two,
+P split into two bfloat16 parts (``bf16_split``); ``attention_bf16`` is
+a float64 model of that arithmetic. ``error_bound`` states each
+kernel's bound against the plain version. The switches for
+``torch.matmul`` stay off: only the kernels use TF32 or bf16 products,
+inside their own code. Both skip kv tiles the mask rules out, which
+changes no row that sees at least one key. A row that sees none is 0 in
+the plain version and, when the kernel writes the log-sum-exp (a
+gradient is needed), in the kernel, with log-sum-exp +inf: no gradient
+reaches its q, and it gives nothing to k and v. Without the log-sum-exp
+(serving) the kernel leaves that row outside its contract, as before
+(its value there depends on the block size, as the TPU kernel's does).
 
 The backward (``flash_attention_bwd``) runs its seven products on the
 tensor cores too: 3xTF32 for float32 operands; for bfloat16 ones S and
@@ -61,6 +66,7 @@ from repro_torch.kernels.nograd import refuse_grad
 
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
+BF16_LAUNCHES = 0
 BWD_LAUNCHES = 0
 # the operations the meta shape path reckoned: forward and backward
 META_OPS = {"forward": 0, "backward": 0}
@@ -157,6 +163,17 @@ def work(q_shape, Skv: int, causal: bool, window: Optional[int],
         Sq, Skv, causal, window)
 
 
+def bf16_split(p: torch.Tensor):
+    """float32 ``p`` as hi + lo, both bfloat16 rounded to nearest even
+    (returned in float32): hi = bf16(p), lo = bf16(p - hi), the bfloat16
+    kernel's split of P. hi is off by at most 2^-8 |p| and p - hi is
+    exact in float32, so |p - hi - lo| <= 2^-16 |p| for |p| >= 2^-118;
+    below that, bfloat16's subnormals (2^-133 apart) add up to 2^-133."""
+    p = p.float()
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """float32 ``x`` rounded to TF32 (10 explicit mantissa bits) to the
     nearest, ties away from zero, as ``cvt.rna.tf32.f32`` does: add half
@@ -208,6 +225,34 @@ def attention_tf32(q, k, v, *, causal: bool = True,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 
+def attention_bf16(q, k, v, *, causal: bool = True,
+                   window: Optional[int] = None, parts: int = 2):
+    """A float64 model of the bfloat16 kernel's arithmetic on bfloat16 q,
+    k, v (float32 ones holding bfloat16 values): S = q K^T from the
+    values exactly (each product of two bfloat16 numbers is exact in
+    float32; the model sums in float64), times the float32 scale after the
+    product; the softmax in float64 with the kernel's masks; P rounded to
+    float32 and split into ``parts`` bfloat16 parts (2: hi + lo, the
+    kernel; 1: hi alone, one bf16 product); O = the parts' products with
+    V summed exactly, over l, the float64 sum of the float32 P. It leaves
+    out the float32 roundings of the sums, which ``error_bound`` counts
+    separately. Returns (B,Sq,H,D) in float64."""
+    if parts not in (1, 2):
+        raise ValueError(f"parts must be 1 or 2, not {parts}")
+    B, Sq, Skv, H, G, R, D = _groups(q, k)
+    scale = float(torch.tensor(D ** -0.5, dtype=torch.float32))
+    qg = q.reshape(B, Sq, G, R, D).double()
+    s = torch.einsum("bqgrd,bsgd->bgrqs", qg, k.double()) * scale
+    mask = _visible(Sq, Skv, causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).float()
+    hi, lo = bf16_split(p)
+    w = hi.double() + lo.double() if parts == 2 else hi.double()
+    o = torch.einsum("bgrqs,bsgd->bgrqd", w, v.double())
+    o = o / p.double().sum(-1, keepdim=True)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
 def attention_bwd_tf32(q, k, v, o, do, lse, *, causal: bool = True,
                        window: Optional[int] = None, passes: int = 3):
     """A float64 model of the backward kernel's arithmetic: (dq, dk, dv) in
@@ -255,13 +300,18 @@ def attention_bwd_tf32(q, k, v, o, do, lse, *, causal: bool = True,
 # 3xTF32 drops the small*small term and the two residuals of the split:
 # at most about 3 * 2^-22 of |a||b| per product
 PRODUCT_ERR = 3 * 2.0 ** -22
+# the bfloat16 kernel's P in two bfloat16 parts: |p - hi - lo| <= 2^-16 p
+# (``bf16_split``; the absolute 2^-133 below 2^-118 is inside error_bound's
+# 1e-6)
+P_SPLIT_ERR = 2.0 ** -16
 
 
 def error_bound(q, k, v, *, causal: bool = True,
                 window: Optional[int] = None, ref=None) -> torch.Tensor:
     """Bound on |kernel - plain version| per output row, (B, Sq, H, 1)
-    float32, broadcast over D, on float32 q, k, v (bfloat16 ones widened:
-    the kernel and the plain version both compute on the widened values).
+    float32, broadcast over D: for float32 q, k, v that of the 3xTF32
+    kernel, for bfloat16 ones that of the bfloat16 kernel, both against
+    the plain version in float32 on the same (widened) values.
 
     Derivation. Let sigma_ij = sum_d |q_id k_jd| * D^-0.5 (the scaled
     magnitudes of one score). The kernel's score differs from the exact
@@ -280,6 +330,18 @@ def error_bound(q, k, v, *, causal: bool = True,
     near 0. A plain 1xTF32 kernel (about 2^-11 per operand) breaks this
     bound (``tests/test_torch_attention.py``).
 
+    The bfloat16 kernel (its own terms, the same steps). Its S products
+    are exact (two bfloat16 numbers multiply exactly in float32), so
+    PRODUCT_ERR leaves the score term: its D-term float32 sum is off by
+    D 2^-24 sigma_ij and its product by the scale, applied after, by 2^-24
+    sigma_ij; the plain version's scaled q and its sum by D 2^-24 sigma_ij
+    again: delta_ij = (2 D + 1) 2^-24 sigma_ij. On the output, P in two
+    bfloat16 parts moves each weight by at most P_SPLIT_ERR of itself
+    (its products with V are exact, their sum float32), so P_SPLIT_ERR
+    max|v| takes PRODUCT_ERR's place, beside the same reordering term
+    Skv 2^-24 max|v| and 1e-6. One bfloat16 part (2^-8 a weight) breaks
+    it (``tests/test_torch_attention_bf16.py``).
+
     bfloat16 output. For bfloat16 q, k, v the kernel rounds its float32
     result to bfloat16, off by at most half an ulp, BF16_ROUND times the
     result's magnitude. With ``ref``, the plain version's float32 output
@@ -292,9 +354,13 @@ def error_bound(q, k, v, *, causal: bool = True,
     sigma = torch.einsum("bqgrd,bsgd->bgrqs", qa, k.float().abs())
     mask = _visible(Sq, Skv, causal, window, q.device)
     sig_max = torch.where(mask, sigma, 0.0).amax(-1)        # (B,G,R,Sq)
-    delta = (PRODUCT_ERR + 2 * D * 2.0 ** -24) * sig_max.double()
-    vmax = float(v.abs().max()) if v.numel() else 0.0
-    bound = (torch.expm1(2 * delta) + PRODUCT_ERR
+    if q.dtype == torch.bfloat16:
+        score_err, out_err = (2 * D + 1) * 2.0 ** -24, P_SPLIT_ERR
+    else:
+        score_err, out_err = PRODUCT_ERR + 2 * D * 2.0 ** -24, PRODUCT_ERR
+    delta = score_err * sig_max.double()
+    vmax = float(v.float().abs().max()) if v.numel() else 0.0
+    bound = (torch.expm1(2 * delta) + out_err
              + Skv * 2.0 ** -24) * vmax + 1e-6
     bound = bound.permute(0, 3, 1, 2).reshape(B, Sq, H, 1).float()
     if ref is None:
@@ -462,7 +528,9 @@ def lse_error_bound(q, k, lse64, *, causal: bool = True,
     """Bound on |kernel's log-sum-exp - ``lse_ref`` in float64| per row,
     (B,H,Sq) float64, on float32 inputs (bfloat16 widened), ``lse64`` the
     float64 plain version. The kernel's scores are off by at most
-    Delta_i (``error_bound``'s: 3xTF32 and the D-term sums), which moves
+    Delta_i (``error_bound``'s: 3xTF32 and the D-term sums; the bfloat16
+    kernel's exact products, D-term sums and scale after the product are
+    off by less), which moves
     a log-sum-exp by at most as much; its running sum over Skv keys in
     float32, the rescalings of each kv tile and expf's 2 ulp each move
     log l by at most (2 Skv + 8) u; the exponents' roundings u |s - m| by
@@ -483,14 +551,40 @@ def lse_error_bound(q, k, lse64, *, causal: bool = True,
                        + 4 * u * torch.where(fin, lse64.abs(), 0.0), 0.0)
 
 
-def _lib():
+def _lib(dtype=torch.float32):
+    """The forward kernel's C entry point for ``dtype``'s operands."""
     from repro_torch.kernels import build
-    fn = build.load("flash_attention").flash_attention_fwd
+    if dtype == torch.bfloat16:
+        fn = build.load("flash_attention_bf16").flash_attention_bf16_fwd
+    else:
+        fn = build.load("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+BF16_SHAPE_KEYS = ("head_dim_padded", "warpgroups", "q_rows", "kv_rows",
+                   "stages", "load", "smem_bytes", "threads")
+BF16_LOADS = ("tma", "cp.async", "registers")
+
+
+def bf16_launch_shape(q, k, v) -> dict:
+    """The launch the bfloat16 kernel makes for these CUDA tensors, as it
+    reports it (``flash_attention_bf16_shape``): D padded, warpgroups, q
+    rows a block, kv rows a tile, stages of its ring, how K and V land,
+    shared memory bytes and threads a block."""
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention_bf16").flash_attention_bf16_shape
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * len(BF16_SHAPE_KEYS))()
+    fn(k.data_ptr(), v.data_ptr(), q.shape[1], q.shape[3], out)
+    shape = dict(zip(BF16_SHAPE_KEYS, out))
+    shape["load"] = BF16_LOADS[shape["load"]]
+    return shape
 
 
 def _bwd_lib():
@@ -538,7 +632,7 @@ def _check(q, k, v, window) -> None:
 
 def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
     """One launch of the forward kernel: (o, lse or None)."""
-    global LAUNCHES, WINDOW_LAUNCHES
+    global LAUNCHES, WINDOW_LAUNCHES, BF16_LAUNCHES
     _check(q, k, v, window)
     B, Sq, H, D = q.shape
     Skv, G = k.shape[1], k.shape[2]
@@ -548,15 +642,19 @@ def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
     if q.device.type == "meta":
         META_OPS["forward"] += work(q.shape, Skv, causal, window)
         return out, lse
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
-                 B, Sq, Skv, H, G, D, int(causal), int(window or 0),
-                 int(q.dtype == torch.bfloat16), D ** -0.5,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    err = _lib(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(),
+                        None if lse is None else lse.data_ptr(),
+                        B, Sq, Skv, H, G, D, int(causal), int(window or 0),
+                        D ** -0.5,
+                        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+        why = "a TMA tensor map was refused" if err == -2 \
+            else f"cudaError {err}"
+        raise RuntimeError(f"flash_attention launch failed: {why}")
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
+    BF16_LAUNCHES += q.dtype == torch.bfloat16
     return out, lse
 
 

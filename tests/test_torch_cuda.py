@@ -36,7 +36,8 @@ of K4's five passes within the bound ``kernels.ssd.pass_errors`` states
 for it, against its plain version in float64 on the same inputs. The
 models' logits: 1e-4 (float32 matmuls, attention and scans in other
 orders, two layers). bfloat16 operands: K3 and K4 within their
-``error_bound`` on the widened inputs plus the rounding of the output to
+``error_bound`` on the widened inputs (K3's with the bfloat16 kernel's
+own terms) plus the rounding of the output to
 bfloat16 (``BF16_ROUND``, half an ulp, times |out|); the reduced models
 at the default RunOptions (bfloat16) on the card against the port's CPU
 run within ``models.options.bf16_logit_tolerance`` (mixtral's with its
@@ -62,6 +63,8 @@ are exact.
 
 This file imports neither JAX nor ``repro``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -606,26 +609,78 @@ def test_hybrid_on_card_matches_cpu(cuda, S):
 
 
 # ------------------------------------------------------- bfloat16 ----
+# chip_smoke.K3_BF16_CASES' shapes beyond K3_CASES: qwen1.5-110b's local
+# prefill at (1, 4) (two warpgroups at D = 128), D = 128 with a ragged
+# Skv over B > 1 (TMA's zero fill stays in its batch row), D = 12 at G =
+# 1, one query against 1,500 keys; a trailing "shift" starts q, k and v
+# one value past an aligned base, "lse" runs the forward with its
+# log-sum-exp
+K3_BF16_EXTRA = (
+    (4, 2048, 2048, 16, 2, 128, True, None),
+    (3, 300, 157, 4, 2, 128, False, None),
+    (2, 90, 90, 4, 1, 12, True, None),
+    (4, 1, 1500, 20, 20, 64, False, None),
+    (2, 100, 120, 4, 2, 64, True, None, "shift"),
+    (2, 300, 333, 8, 2, 128, True, 100, "lse"),
+)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", K3_CASES)
+@pytest.mark.parametrize("case", K3_CASES + K3_BF16_EXTRA)
 def test_k3_bfloat16_within_error_bound(cuda, case):
-    """bfloat16 q, k, v: the output in bfloat16, within the float32 bound
-    on the widened inputs plus its rounding, against the plain version
-    on the widened inputs in float32."""
-    B, Sq, Skv, H, G, D, causal, window = case
+    """bfloat16 q, k, v through the bfloat16 kernel: the output in
+    bfloat16, within the bfloat16 kernel's bound plus its rounding,
+    against the plain version on the widened inputs in float32; with the
+    log-sum-exp, that within ``lse_error_bound``."""
+    B, Sq, Skv, H, G, D, causal, window, *extra = case
     gen = torch.Generator(device=cuda).manual_seed(11)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
-               .to(torch.bfloat16) for shape in
+    shift = 1 if "shift" in extra else 0
+    q, k, v = (torch.randn(math.prod(shape) + shift, generator=gen,
+                           device=cuda).to(torch.bfloat16)[shift:]
+               .view(shape) for shape in
                ((B, Sq, H, D), (B, Skv, G, D), (B, Skv, G, D)))
-    before = FA.LAUNCHES
-    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    before, before_bf16 = FA.LAUNCHES, FA.BF16_LAUNCHES
+    if "lse" in extra:
+        got, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                              window=window)
+    else:
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert FA.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
-    qf, kf, vf = q.float(), k.float(), v.float()
-    ref = FA.flash_attention_ref(qf, kf, vf, causal=causal, window=window)
-    bound = FA.error_bound(qf, kf, vf, causal=causal, window=window,
-                           ref=ref)
+    assert FA.BF16_LAUNCHES == before_bf16 + 1
+    ref = FA.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal, window=window)
+    bound = FA.error_bound(q, k, v, causal=causal, window=window, ref=ref)
     assert bool(((got.float() - ref).abs() <= bound).all())
+    if "lse" in extra:
+        l64 = FA.lse_ref(q.double(), k.double(), causal=causal,
+                         window=window)
+        lb = FA.lse_error_bound(q.float(), k.float(), l64, causal=causal,
+                                window=window)
+        fin = torch.isfinite(l64)
+        assert torch.equal(fin, torch.isfinite(lse))
+        assert bool(((lse.double() - l64).abs()[fin] <= lb[fin]).all())
+
+
+@pytest.mark.cuda
+def test_k3_bfloat16_launch_shape(cuda):
+    """The bfloat16 kernel's launch: 128 q rows (two warpgroups) a block
+    from Sq = 256 on at D = 128 as at D = 64, one below; TMA where D %
+    8 == 0, D >= 64 and the bases are 16-byte aligned, cp.async for
+    D < 64, loads through registers otherwise."""
+    def shape(Sq, D, shift=0):
+        x = torch.zeros(Sq * D + shift, device=cuda,
+                        dtype=torch.bfloat16)[shift:].view(1, Sq, 1, D)
+        return FA.bf16_launch_shape(x, x, x)
+    for D in (64, 128):
+        got = shape(2048, D)
+        assert (got["warpgroups"], got["q_rows"], got["load"]) == \
+            (2, 128, "tma")
+        assert got["head_dim_padded"] == D and got["threads"] == 288
+        assert shape(255, D)["warpgroups"] == 1
+    assert shape(300, 16)["load"] == "cp.async"
+    assert shape(300, 12)["load"] == "registers"
+    assert shape(300, 64, shift=1)["load"] == "registers"
 
 
 @pytest.mark.cuda
@@ -1266,7 +1321,8 @@ WHISPER_K3 = ((4, 1500, 1500, 20, 20, 64, False, None),
 @pytest.mark.parametrize("case", WHISPER_K3)
 def test_k3_at_whisper_shapes(cuda, case, dtype):
     """K3 at whisper's shapes within ``error_bound`` of the plain version
-    (bfloat16: on the widened inputs, the output's rounding added)."""
+    (bfloat16: the bfloat16 kernel's bound, against the plain version on
+    the widened inputs, the output's rounding added)."""
     B, Sq, Skv, H, G, D, causal, window = case
     gen = torch.Generator(device=cuda).manual_seed(21)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda)
@@ -1276,9 +1332,9 @@ def test_k3_at_whisper_shapes(cuda, case, dtype):
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert FA.LAUNCHES == before + 1 and got.dtype == q.dtype
-    qf, kf, vf = q.float(), k.float(), v.float()
-    want = FA.flash_attention_ref(qf, kf, vf, causal=causal, window=window)
-    bound = FA.error_bound(qf, kf, vf, causal=causal, window=window,
+    want = FA.flash_attention_ref(q.float(), k.float(), v.float(),
+                                  causal=causal, window=window)
+    bound = FA.error_bound(q, k, v, causal=causal, window=window,
                            ref=want if dtype == "bfloat16" else None)
     assert bool(((got.float() - want).abs() <= bound).all())
 
