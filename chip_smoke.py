@@ -15,9 +15,11 @@ script fails before it prints a result.
               all started together: K1 ``warehouse_agg.cu``, K2
               ``frame_preproc.cu``, K3 ``flash_attention.cu`` (float32),
               ``flash_attention_bf16.cu`` (bfloat16) and its
-              backward ``flash_attention_bwd.cu``, K4 ``ssd_scan.cu`` and
-              its backward ``ssd_scan_bwd.cu`` (K3 and K4 include the
-              shared ``hopper.cuh``).
+              backward ``flash_attention_bwd.cu``, K4 ``ssd_scan.cu``
+              (float32), ``ssd_scan_bf16.cu`` (bfloat16) and its
+              backward ``ssd_scan_bwd.cu`` (K3 and K4 include the shared
+              ``hopper.cuh``; the two K4 forwards ``ssd_common.cuh``, the
+              two bfloat16 forwards ``tma.cuh``).
 3. kernel     K1 against its plain version on the same CUDA tensors over
               the test matrix at 1M rows (shared- and global-memory
               accumulators), and against a float64 host oracle; then
@@ -73,9 +75,14 @@ script fails before it prints a result.
               dt = softplus(dt_bias + z) with dt_bias from the ``dt_bias``
               init range, A = -exp(A_log) from the ``ssm_a`` range. Then
               bfloat16 x, B and C (dt in bfloat16 as the model passes it,
-              or float32; a bfloat16 state in): both serve prefills, a
-              state in, S % Q != 0, G > 1, Q 16, and P 12, N 20; y in
-              bfloat16, the state in float32.
+              or float32; a bfloat16 state in) through the bfloat16
+              kernels (``ssd_scan_bf16.cu``, ``SSD.BF16_LAUNCHES``), held
+              to that bound's bfloat16 terms and each pass to
+              ``pass_errors``' bfloat16 bounds: both serve prefills, a
+              state in, S % Q != 0, G > 1, Q 16, and P 12, N 20 (loads
+              through registers; hymba's N 16 by cp.async, the rest by
+              TMA, ``SSD.bf16_launch_shape``); y in bfloat16, the state
+              in float32.
 5c. kernel_k4_bwd  K4's backward (``csrc/ssd_scan_bwd.cu``, nine
               passes, 3xTF32 ``wgmma``) on the forward kernels' own
               scratch against its
@@ -270,7 +277,10 @@ script fails before it prints a result.
               arithmetic and its bound; FP32) and its plain version (no
               PyTorch call computes the SSD scan), each of its five
               passes alone and the bytes of its scratch, and in bfloat16
-              beside the dense bf16 bound; then K3 at hymba-1.5b's
+              (``ssd_scan_bf16.cu``) beside the dense bf16 bound, its
+              design's own floor (``ssd_bf16_design``: its float32
+              scratch through device memory and the second bf16 parts)
+              and each of its passes alone; then K3 at hymba-1.5b's
               prefill with its window and in its global layers (SDPA
               given the same band as a boolean mask, with
               ``enable_gqa``) and K4 at its prefill, in float32 and
@@ -485,8 +495,11 @@ float64: 2^-24 * (N + 3 S' + 32 Lambda + 16 + 24) times the largest sum
 of magnitudes of one output (S' the padded length, Lambda the largest
 sum of |dt * A| over a chunk; the bound follows the float32 sums'
 lengths, the cumsum's roundings inside each decay exponent and, the
-24, two 3xTF32 products in a row at 3 * 2^-22 each); each pass within
-its own bound of the same kind (``kernels.ssd.pass_errors``). Transform
+24, two 3xTF32 products in a row at 3 * 2^-22 each); for bfloat16 x,
+B and C the bfloat16 kernels' 512 in place of the 24 (two products in a
+row through an operand split into two bfloat16 parts, 2^-16 each; C.B^T
+exact) and y's rounding; each pass within its own bound of the same
+kind (``kernels.ssd.pass_errors``). Transform
 qualities: 1e-5 against the CPU run. Serve: logits within 1e-3 of the
 plain-attention model (3xTF32 attention summed in another order moves
 each layer by about 1e-6 relative, as float32 did; 24 layers and the
@@ -1447,22 +1460,23 @@ def phase_kernel_k4(dev):
                       "of_bound": max(err_y / tol_y, err_state / tol_state),
                       "passes_of_bound": passes}
         del args, init, y, state, want_y, want_state
+    bf16_before = SSD.BF16_LAUNCHES
     for B, S, H, P, G, N, chunk, with_init, dt_type in _k4_bf16_cases():
         x, dt, A, Bm, Cm, init = ssd_inputs(B, S, H, P, G, N, gen, dev)
         bf = torch.bfloat16
         x, Bm, Cm = x.to(bf), Bm.to(bf), Cm.to(bf)
         dt = dt.to(getattr(torch, dt_type))
         init = init.to(bf) if with_init else None
+        passes = SSD.pass_errors(x, dt, A, Bm, Cm, chunk=chunk,
+                                 init_state=init)
         y, state = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                                 init_state=init)
         sync()
-        wide = [t.float() for t in (x, dt, A, Bm, Cm)]
-        init_w = None if init is None else init.float()
         want_y, want_state = SSD.ssd_scan_ref(
-            *[t.double() for t in wide], chunk=chunk,
-            init_state=None if init_w is None else init_w.double())
-        tol_y, tol_state = SSD.error_bound(*wide, chunk=chunk,
-                                           init_state=init_w, ref_y=want_y)
+            *[t.double() for t in (x, dt, A, Bm, Cm)], chunk=chunk,
+            init_state=None if init is None else init.double())
+        tol_y, tol_state = SSD.error_bound(x, dt, A, Bm, Cm, chunk=chunk,
+                                           init_state=init, ref_y=want_y)
         name = (f"B{B}_S{S}_H{H}_P{P}_G{G}_N{N}_Q{chunk}"
                 f"{'_init' if with_init else ''}_bf16_dt_{dt_type}")
         if y.dtype != bf or state.dtype != torch.float32:
@@ -1474,17 +1488,30 @@ def phase_kernel_k4(dev):
         if not (of_y <= 1.0 and err_state <= tol_state):
             raise AssertionError(f"K4 {name}: y at {of_y:.3g}x its bound "
                                  f"or state {err_state} > {tol_state}")
+        bad = {k: v for k, v in passes.items() if not v <= 1.0}
+        if bad:
+            raise AssertionError(f"K4 {name}: passes beyond their bounds "
+                                 f"(shares) {bad}")
         errs[name] = {"y": err_y, "state": err_state,
                       "tol_state": tol_state,
-                      "of_bound": max(of_y, err_state / tol_state)}
-        del x, dt, A, Bm, Cm, init, wide, y, state, want_y, want_state, tol_y
+                      "of_bound": max(of_y, err_state / tol_state),
+                      "passes_of_bound": passes,
+                      "launch": SSD.bf16_launch_shape(x, Bm, Cm)}
+        del x, dt, A, Bm, Cm, init, y, state, want_y, want_state, tol_y
+    bf16_n = SSD.BF16_LAUNCHES - bf16_before
+    if bf16_n != len(list(_k4_bf16_cases())):
+        raise AssertionError(f"K4: {bf16_n} of the bfloat16 cases took the "
+                             f"bfloat16 kernels")
     emit("kernel_k4", cases=len(errs), launches=SSD.LAUNCHES - before,
+         launches_bf16=bf16_n,
          max_of_bound=max(e["of_bound"] for e in errs.values()),
          max_pass_of_bound=max(max(e["passes_of_bound"].values())
                                for e in errs.values()
                                if "passes_of_bound" in e),
          max_abs_err=errs)
-    return max(max(e["y"], e["state"]) for e in errs.values())
+    return {dtype: max(max(e["y"], e["state"]) for name, e in errs.items()
+                       if ("_bf16_" in name) == (dtype == "bf16"))
+            for dtype in ("f32", "bf16")}
 
 
 def _k4_bwd_cases():
@@ -2347,16 +2374,18 @@ def _zero(kernels):
             k.BF16_LAUNCHES = 0
 
 
-def _bf16_k3(kernels, launches, what):
-    """K3's launches of a bfloat16 run (its count set to 0 with the
-    others just before), each of which must have taken the bfloat16
-    kernel (``csrc/flash_attention_bf16.cu``): the count, 0 without K3."""
-    if "flash_attention" not in kernels:
+def _bf16_launches(kernels, launches, name, what):
+    """The launches of kernel ``name`` (``flash_attention``: K3,
+    ``ssd_scan``: K4) in a bfloat16 run (its counts set to 0 just
+    before), each of which must have taken its bfloat16 kernel
+    (``csrc/flash_attention_bf16.cu``, ``csrc/ssd_scan_bf16.cu``): the
+    count, 0 where the run has no such kernel."""
+    if name not in kernels:
         return 0
-    n = kernels["flash_attention"].BF16_LAUNCHES
-    if n != launches["flash_attention"]:
-        raise AssertionError(f"{what}: {n} of {launches['flash_attention']} "
-                             f"K3 launches took the bfloat16 kernel")
+    n = kernels[name].BF16_LAUNCHES
+    if n != launches[name]:
+        raise AssertionError(f"{what}: {n} of {launches[name]} {name} "
+                             f"launches took the bfloat16 kernel")
     return n
 
 
@@ -2404,7 +2433,9 @@ def serve_bf16(cfg, params, toks, plain, kernels, want, sv=SERVE):
         caches = []
         nxt, prefill_s = timed(lambda: prefill(caches))
         launches = _counts(kernels)
-        k3_bf16 = _bf16_k3(kernels, launches, f"{cfg.name} bfloat16")
+        k3_bf16, k4_bf16 = (
+            _bf16_launches(kernels, launches, name, f"{cfg.name} bfloat16")
+            for name in ("flash_attention", "ssd_scan"))
         gen, decode_s = timed(lambda: decode(
             nxt.to(params["embed"].device), caches.pop()))
         with plain():
@@ -2432,6 +2463,7 @@ def serve_bf16(cfg, params, toks, plain, kernels, want, sv=SERVE):
             "decode_bf16_s": decode_s, "decode_bf16_steps": sv["gen"] - 1,
             "generated_bf16_first": gen[0].tolist(),
             "launches_bf16": launches, "launches_bf16_kernel": k3_bf16,
+            "launches_bf16_k4_kernel": k4_bf16,
             "logits_bf16_max_abs_err": err,
             "logits_bf16_tol": tol, "logits_bf16_max_abs": scale,
             "next_token_agreement_bf16": agree,
@@ -2555,8 +2587,8 @@ def serve_fp8(cfg, params, toks):
         _zero({"flash_attention": FA})
         nxt_n, prefill_s = timed(lambda: run(narrow, caches))
         launches = FA.LAUNCHES
-        _bf16_k3({"flash_attention": FA}, {"flash_attention": launches},
-                 f"{cfg.name} float8 cache")
+        _bf16_launches({"flash_attention": FA}, {"flash_attention": launches},
+                       "flash_attention", f"{cfg.name} float8 cache")
         cache_w, cache_n = caches
         codes = {name: cache_n["layers"][name].dtype == fp8 and torch.equal(
             cache_n["layers"][name].view(torch.uint8),
@@ -2618,7 +2650,7 @@ def phase_serve_ssm(dev):
          generated_first=out[0].tolist(),
          logits_max_abs_err=err, logits_max_abs=scale,
          next_token_agreement=agree, **bf16)
-    return dict(launches=launches + bf16["launches_bf16"]["ssd_scan"],
+    return dict(launches=launches, k4_bf16=bf16["launches_bf16_k4_kernel"],
                 err=err)
 
 
@@ -2689,8 +2721,8 @@ def phase_serve_hybrid(dev):
     return dict(k3_window=k3_window,
                 k3_global=launches["flash_attention"] - k3_window,
                 k3_bf16=bf16["launches_bf16_kernel"],
-                k4=launches["ssd_scan"] + bf16["launches_bf16"]["ssd_scan"],
-                err=err)
+                k4=launches["ssd_scan"],
+                k4_bf16=bf16["launches_bf16_k4_kernel"], err=err)
 
 
 def phase_serve_moe(dev):
@@ -3033,6 +3065,47 @@ def ssd_work(B, S, H, P, G, N, Q, width=4):
     return flops, nbytes
 
 
+def ssd_bf16_design(B, S, H, P, G, N, Q):
+    """(FLOPs, bytes) of the bfloat16 kernels' own design
+    (``csrc/ssd_scan_bf16.cu``) at a shape whose S is a multiple of Q,
+    with no state in: ``ssd_work``'s products with the second bfloat16
+    part of each product that has a float32 operand (the decayed x times
+    B, the weights times x, C times S_in), and each pass's inputs read
+    once and outputs written once, its float32 scratch included: (1) dt
+    in, dts and cum out; (2) B and C in, cb's lower 64 x 64 tiles out;
+    (3) x, B, dts and cum in, the states out; (4) the states and cum in,
+    S_in and the final state out; (5) x, C, cb's lower tiles, S_in, dts
+    and cum in, y out."""
+    nc, pairs = S // Q, Q * (Q + 1) // 2
+    QP = -(-Q // 64) * 64
+    flops = (2 * N * pairs * B * G * nc + 2 * 2 * P * pairs * B * H * nc
+             + 2 * 2 * 2 * Q * N * P * B * H * nc)
+    x = y = 2 * B * S * H * P
+    bc = 2 * B * S * G * N
+    scan = 4 * B * H * nc * QP                  # dts or cum
+    cb = 4 * B * nc * G * (QP // 64) * (QP // 64 + 1) // 2 * 64 * 64
+    states = 4 * B * H * nc * P * N
+    nbytes = ((2 * B * S * H + 2 * scan) + (2 * bc + cb)
+              + (x + bc + 2 * scan + states)
+              + (2 * states + scan + 4 * B * H * P * N)
+              + (x + bc + cb + states + 2 * scan + y))
+    return flops, nbytes
+
+
+def _ssd_pass_ms(SSD, args, Q, reps=20):
+    """Each of K4's five passes alone on ``args`` (x, dt, A, B, C), the
+    scratch filled first by one run of all five: CUDA-event medians."""
+    x, Bm = args[0], args[3]
+    B, S, H, P = x.shape
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, Bm.shape[3]), device=x.device)
+    scr = SSD.scratch(x, Bm, Q)
+    for name in SSD.PASSES:              # the scratch holds every input
+        SSD.launch(name, *args, None, y, state, scr, Q)
+    return {name: cuda_ms(lambda: SSD.launch(
+        name, *args, None, y, state, scr, Q), reps) for name in SSD.PASSES}
+
+
 def _time_ssd(SSD, args, shape, reps=20):
     """K4 and its plain version at ``shape`` (B, S, H, P, G, N, Q) on
     ``args`` (x, dt, A, B, C in float32), then on bfloat16 x, dt, B and C
@@ -3040,7 +3113,8 @@ def _time_ssd(SSD, args, shape, reps=20):
     the bounds: float32 at both operation bounds (3xTF32 at the dense
     TF32 peak, the kernels' arithmetic and their bound; FP32 CUDA cores)
     and the byte bound; bfloat16 at the dense bf16 peak (the least time
-    for the same function) and its bytes."""
+    for the same function) and its bytes, beside the bfloat16 kernels'
+    own floor (``ssd_bf16_design``) and each of their passes alone."""
     B, S, H, P, G, N, Q = shape
     flops, nbytes = ssd_work(B, S, H, P, G, N, Q)
     tf32_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
@@ -3057,35 +3131,34 @@ def _time_ssd(SSD, args, shape, reps=20):
     flops, nbytes = ssd_work(B, S, H, P, G, N, Q, width=2)
     least_ms = flops / BF16_FLOP_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    d_flops, d_bytes = ssd_bf16_design(B, S, H, P, G, N, Q)
+    design_ms = max(d_flops / BF16_FLOP_PER_S, d_bytes / HBM_BYTES_PER_S) \
+        * 1e3
     out["bf16"] = {
         "kernel_ms": cuda_ms(lambda: SSD.ssd_scan(*bf, chunk=Q), reps),
         "plain_ms": cuda_ms(lambda: SSD.ssd_scan_ref(*bf, chunk=Q), 5),
         "library_ms": None, "bytes": nbytes,
         "bound_ms": max(least_ms, byte_ms),
         "bound_by": "operations" if least_ms > byte_ms else "bytes",
-        "bound_3xtf32_ms": out["bound_3xtf32_ms"]}
+        "bound_design_ms": design_ms, "design_flops": d_flops,
+        "design_bytes": d_bytes,
+        "bound_3xtf32_ms": out["bound_3xtf32_ms"],
+        "pass_ms": _ssd_pass_ms(SSD, bf, Q)}
     return out
 
 
 def phase_time_k4(dev):
     """K4 at the mamba2-370m serve prefill (``_time_ssd``), and each of
-    its five passes alone, with the bytes of its scratch."""
+    its five passes alone (float32 here, bfloat16 in ``_time_ssd``), with
+    the bytes of its scratch."""
     from repro_torch.kernels import ssd as SSD
     gen = torch.Generator(device=dev).manual_seed(6)
     B, S, H, P, G, N, Q = SSD_TIME
     *args, _ = ssd_inputs(B, S, H, P, G, N, gen, dev)
-    x, Bm = args[0], args[3]
-    y = torch.empty_like(x)
-    state = torch.empty((B, H, P, N), device=dev)
-    scr = SSD.scratch(x, Bm, Q)
-    for name in SSD.PASSES:              # the scratch holds every input
-        SSD.launch(name, *args, None, y, state, scr, Q)
-    passes = {name: cuda_ms(lambda: SSD.launch(
-        name, *args, None, y, state, scr, Q), 20) for name in SSD.PASSES}
     k4 = _time_ssd(SSD, args, SSD_TIME)
-    k4.update(pass_ms=passes,
-              scratch_bytes=sum(t.numel() * t.element_size()
-                                for t in scr.values()))
+    k4.update(pass_ms=_ssd_pass_ms(SSD, args, Q),
+              scratch_bytes=sum(math.prod(v) * 4 for v in SSD.scratch_shapes(
+                  args[0], args[3], Q).values()))
     emit("time_k4", ssd_scan=k4)
     return k4
 
@@ -5443,6 +5516,7 @@ def _serve_dist_part(mesh, cfg, opts, name, profile=False):
     for step in (prefill, decode):
         step.layout.bytes.update(dict.fromkeys(step.layout.bytes, 0))
     FA.LAUNCHES = FA.WINDOW_LAUNCHES = FA.BF16_LAUNCHES = SSD.LAUNCHES = 0
+    SSD.BF16_LAUNCHES = 0
     with torch.no_grad():
         (tok, cache, lg), prefill_s = timed(lambda: prefill(
             params, batch, cache_len=S + n_gen))
@@ -5454,7 +5528,7 @@ def _serve_dist_part(mesh, cfg, opts, name, profile=False):
         sync()
         decode_s = time.perf_counter() - t0
     launches = {"k3": FA.LAUNCHES, "k3_bf16": FA.BF16_LAUNCHES,
-                "k4": SSD.LAUNCHES}
+                "k4": SSD.LAUNCHES, "k4_bf16": SSD.BF16_LAUNCHES}
     peak = torch.cuda.max_memory_allocated(dev)
     prof = (_profile_step(lambda: decode(params, cache, tok)) if profile
             else None)
@@ -5662,7 +5736,8 @@ def phase_serve_dist(smi):
             got = r["launches"]
             if (cfg.family == "ssm" and got["k4"] != want) or (
                     cfg.family != "ssm" and got["k3"] != cfg.n_layers) or \
-                    got["k3_bf16"] != got["k3"]:
+                    got["k3_bf16"] != got["k3"] or \
+                    got["k4_bf16"] != got["k4"]:
                 raise AssertionError(f"serve_dist {cfg.name}: launches "
                                      f"{got} a rank")
             k3 += got["k3"]
@@ -6255,15 +6330,28 @@ def run(dev) -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd.py:63",
-        "launches": (ss["launches"] + tssm["fwd_launches"] + td["k4_fwd"]
-                     + sdp["k4"]),
-        "max_abs_err": k4_err,
+        "launches": ss["launches"] + tssm["fwd_launches"] + td["k4_fwd"],
+        "max_abs_err": k4_err["f32"],
         "ms": k4["kernel_ms"],
         "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
-    }, {
+    }] + [{
+        "name": f"ssd_scan_bf16{suffix}",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bf16.cu",
+        "replaces": "src/repro/kernels/ssd.py:63",
+        "launches": launches,
+        "max_abs_err": k4_err["bf16"],
+        "ms": rec["bf16"]["kernel_ms"],
+        "plain_ms": rec["bf16"]["plain_ms"],
+        "bound_ms": rec["bf16"]["bound_ms"],
+        "bound_by": rec["bf16"]["bound_by"],
+        "library_ms": rec["bf16"]["library_ms"],
+    } for suffix, rec, launches in (
+        ("", k4, ss["k4_bf16"] + sdp["k4"]),
+        ("[hymba-1.5b]", h4, sh["k4_bf16"]))] + [{
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -6333,7 +6421,7 @@ def run(dev) -> None:
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd.py:63",
         "launches": sh["k4"],
-        "max_abs_err": k4_err,
+        "max_abs_err": k4_err["f32"],
         "ms": h4["kernel_ms"],
         "plain_ms": h4["plain_ms"],
         "bound_ms": h4["bound_ms"],

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by ablation, on one NVIDIA card.
 
-    python3 scripts/chip_ablate.py [k4 k3 k3_bf16 k3_bwd k4_bwd k1]
+    python3 scripts/chip_ablate.py [k4 k4_bf16 k3 k3_bf16 k3_bwd k4_bwd k1]
 
-from the repository root. With no names it runs all six.
+from the repository root. With no names it runs all seven.
 
 The card's machine has no profiler that reads kernel counters, so this
 script builds edited copies of a kernel source (a loop bound set to 0,
@@ -35,6 +35,17 @@ part taken out.
   term dropped from the chunk scan), ``no_load`` (no tile loads after
   each block's first two steps: the copies' cost) and ``no_exp`` (the
   chunk scan's weights without their decay, CB as it stands).
+- K4 in bfloat16 (``csrc/ssd_scan_bf16.cu``) at mamba2-370m's serve
+  prefill and hymba-1.5b's (H=25, N=16), bfloat16 x, dt, B and C: the
+  whole scan and each of its five passes, with ``one_part`` (every
+  product with a split operand in one bf16 product, the lo parts
+  dropped: their cost), ``three_parts`` (a third bf16 product beside
+  each of those two, as a third part of the split operand would add: its
+  cost), ``no_exp`` (the chunk scan's weights without their decay, cb as
+  it stands) and ``no_inter`` (the C . S_in term dropped), and the
+  design's alternative ``cp_async`` (every tile by 16-byte cp.async
+  instead of TMA, the same function, with a flag for the kernel's
+  bits).
 - K3's backward (``csrc/flash_attention_bwd.cu``) at each shape of
   ``chip_smoke.K3_BWD_TIME`` (qwen1.5-0.5b's and mixtral-8x7b's training
   shapes, whisper-large-v3's encoder), float32 and bfloat16. Its cuts
@@ -129,6 +140,25 @@ K4_CUTS = {
                ("v.x * (rf * colv[sl])", "v.x"),
                ("v.y * (rf * colv[sl + 1])", "v.y")],
 }
+P3_LO = "      wgmma_bf16_rs<64 * NH>(acc, al[kk], bd);\n"
+P5_INTER_LO = ("        wgmma_bf16_ss_n64(acc, cd, sw128_desc(sa(sl) + o, 16, "
+               "1024));\n")
+P5_LO = "        wgmma_bf16_rs_n64(acc, wlo[kk], xd);\n"
+K4_BF16_CUTS = {
+    "one_part": [(P3_LO, ""), (P5_INTER_LO, ""), (P5_LO, "")],
+    "three_parts": [(P3_LO, P3_LO * 2), (P5_INTER_LO, P5_INTER_LO * 2),
+                    (P5_LO, P5_LO * 2)],
+    "no_exp": [("v.x * (rf * colv[sc])", "v.x"),
+               ("v.y * (rf * colv[sc + 1])", "v.y"),
+               ("v.x * (expf(ct_ - cumv[sp]) * dtv[sp])", "v.x"),
+               ("v.y * (expf(ct_ - cumv[sp + 1]) * dtv[sp + 1])", "v.y")],
+    "no_inter": [("const bool inter = !(c == 0 && a.init == nullptr);",
+                  "const bool inter = false;")],
+    "cp_async": [("return cols >= 64 ? LOAD_TMA : LOAD_CP_ASYNC;",
+                  "return LOAD_CP_ASYNC;")],
+}
+# the cuts that compute the same function
+K4_BF16_SAME = ("cp_async",)
 K3_BWD_CUTS = {
     "wg1": [("constexpr int WG = sizeof(In) == 4 && DP == 128 ? 1 : 2;",
              "constexpr int WG = 1;")],
@@ -331,8 +361,46 @@ def k4(dev) -> dict:
     try:
         for cut, edits in K4_CUTS.items():
             fns = SSD.bind(ablated("ssd_scan", cut, edits))
-            SSD._lib = lambda fns=fns: fns
+            SSD._lib = lambda dtype=None, fns=fns: fns
             out[cut] = times()
+    finally:
+        SSD._lib = real
+    return out
+
+
+def k4_bf16(dev) -> dict:
+    cuts = {cut: SSD.bind(ablated("ssd_scan_bf16", cut, edits))
+            for cut, edits in K4_BF16_CUTS.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    real = SSD._lib
+    try:
+        for name, shape in (("mamba2", C.SSD_TIME), ("hymba", C.HYMBA_SSD)):
+            B, S, H, P, G, N, Q = shape
+            *args, _ = C.ssd_inputs(B, S, H, P, G, N, gen, dev)
+            args = [a.to(torch.bfloat16) if i != 2 else a
+                    for i, a in enumerate(args)]
+            want = SSD.ssd_scan(*args, chunk=Q)
+
+            def times() -> dict:
+                got = SSD.ssd_scan(*args, chunk=Q)
+                C.sync()
+                res = {"same_bits": all(torch.equal(a, b)
+                                        for a, b in zip(got, want)),
+                       "scan": C.cuda_ms(lambda: SSD.ssd_scan(*args,
+                                                              chunk=Q), 20)}
+                res.update(C._ssd_pass_ms(SSD, args, Q))
+                return res
+            res = {"kernel": times()}
+            for cut, fns in cuts.items():
+                SSD._lib = lambda dtype=None, fns=fns: fns
+                res[cut] = times()
+                SSD._lib = real
+                if cut in K4_BF16_SAME and not res[cut]["same_bits"]:
+                    raise AssertionError(f"k4_bf16 {name}: {cut} changed "
+                                         f"the kernel's bits")
+            out[name] = res
+            del args, want
     finally:
         SSD._lib = real
     return out
@@ -409,7 +477,8 @@ def main() -> int:
         print("chip_ablate: no CUDA device is visible", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    parts = {"k4": ("k4_ms", k4), "k3": ("k3_ms", k3),
+    parts = {"k4": ("k4_ms", k4), "k4_bf16": ("k4_bf16_ms", k4_bf16),
+             "k3": ("k3_ms", k3),
              "k3_bf16": ("k3_bf16_ms", k3_bf16),
              "k3_bwd": ("k3_bwd_ms", k3_bwd),
              "k4_bwd": ("k4_bwd_ms", k4_bwd),

@@ -58,8 +58,8 @@
 // - Loads: TMA (cp.async.bulk.tensor, one box of 64 kv rows x 64 d
 //   values a column half, each stage's bytes counted on its full
 //   barrier) through a 4-D tensor map (D, G, Skv, B) built on the host
-//   with cuTensorMapEncodeTiled (reached through
-//   cudaGetDriverEntryPoint: no library linked), so that a tile past Skv
+//   with cuTensorMapEncodeTiled (tma.cuh: reached through
+//   cudaGetDriverEntryPoint, no library linked), so that a tile past Skv
 //   is zero-filled inside its own batch row and never reads the next.
 //   TMA needs 16-byte strides and bases: where D % 8 != 0, a base is off
 //   16 bytes, or D < 64, the producer warp copies the tile itself to the
@@ -109,6 +109,7 @@
 #include <stdint.h>
 #include <string.h>
 #include "hopper.cuh"
+#include "tma.cuh"
 
 #define NEG_INF (-1e30f)
 #define FULL_MASK 0xffffffffu
@@ -422,48 +423,10 @@ __global__ void __launch_bounds__(WG * 128 + 32, 1)
   }
 }
 
-// cuTensorMapEncodeTiled's signature (cuda.h), reached through the runtime
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // k or v (B, Skv, G, D) as a 4-D map (D, G, Skv, B), boxes of 64 d values
-// x 64 kv rows, 128-byte swizzle, zero fill outside the tensor
+// x 64 kv rows (tma.cuh)
 bool kv_map(CUtensorMap* m, const void* x, const Args& a) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)a.D, (cuuint64_t)a.G,
-                              (cuuint64_t)a.Skv, (cuuint64_t)a.B};
-  const cuuint64_t strides[3] = {(cuuint64_t)a.D * 2,
-                                 (cuuint64_t)a.G * a.D * 2,
-                                 (cuuint64_t)a.Skv * a.G * a.D * 2};
-  const cuuint32_t box[4] = {ATOM, 1, BK, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
-             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return bf16_map_4d(m, x, a.D, a.G, a.Skv, a.B, BK);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p % 16) == 0; }

@@ -56,16 +56,12 @@
 //   by cp.async (16-byte copies where P and N are multiples of 4 and the
 //   bases are aligned; zero-fill past the chunk, P and N): the next
 //   step's tile is in flight while the block multiplies this one.
-// - Operands: x, B and C all float32 or all bfloat16 (the models' default
-//   compute dtype), dt float32 or in x's dtype, A float32, the state in
-//   float32 or bfloat16. A bfloat16 tile is widened to float32 as it
-//   lands: 16-byte loads of 8 values into registers (P and N multiples
-//   of 8, aligned bases; else one value at a time), stored widened to the
-//   same float32 staging buffer, issued after the step's products so
-//   that they overlap them. Everything after the load is the float32
-//   kernels' (a widened bfloat16 splits exactly, small half 0); y is
-//   written in x's dtype (bfloat16 rounded to nearest even), the final
-//   state and the scratch in float32.
+// - Operands: x, B and C float32 (bfloat16 ones take
+//   csrc/ssd_scan_bf16.cu, which keeps them bfloat16 to the tensor
+//   cores), dt float32, A float32, the state in float32 or bfloat16; y,
+//   the final state and the scratch in float32. The chunk cumsum and the
+//   state passing (passes 1 and 4) are csrc/ssd_common.cuh's, shared with
+//   the bfloat16 library.
 // - tf32 wgmma reads shared operands K-major only, as core matrices of 8
 //   rows x 4 words without swizzle (K3's layout and descriptors). C, B
 //   and S_in are stored with the K index (n) contiguous and split as they
@@ -91,7 +87,10 @@
 #include <math.h>
 #include <stdint.h>
 #include "hopper.cuh"
+#include "ssd_common.cuh"
 #include "ssd_tiles.cuh"
+
+#define BF16_LIB 0            // x, B and C in float32 only
 
 #define T 64                  // rows of a t or s tile; the wgmma M
 #define PMAX 64               // head dim P, zero-padded: wgmma N of y, upd^T
@@ -106,36 +105,7 @@
 #define SPI (KI + 4)          // ... of C and S_in in the chunk scan
 #define SPT (T + 8)           // of a staged CB or x tile (float2 reads of CB)
 #define SPB (NMAX + 8)        // of a staged B chunk (pass 3's A fragments)
-#define FULL_MASK 0xffffffffu
 static_assert(KI == T, "an inter step's split S_in is as large as x's");
-
-struct SsdArgs {
-  const void* x;              // (B,S,H,P), float or bf16 as Bm, Cm and y
-  const void* dt;             // (B,S,H), float or bf16 (dt_bf16)
-  const float* A;             // (H,)
-  const void* Bm;             // (B,S,G,N)
-  const void* Cm;             // (B,S,G,N)
-  const void* init;           // (B,H,P,N), float or bf16 (init_bf16), or
-                              // null: zeros
-  void* y;                    // (B,S,H,P)
-  float* state;               // (B,H,P,N)
-  float* dts;                 // (B,H,nc,QP) scratch: dt, zeros past the chunk
-  float* cum;                 // (B,H,nc,QP) scratch: inclusive cumsum of dt*A
-  float* cb;                  // (B,nc,G,QP,QP) scratch: C.B^T, lower tiles
-  float* states;              // (B,H,nc,P,N) scratch: upd_c, then S_in[c]
-  int B, S, H, P, G, N, Q, QP, nc;
-  int vec;                    // 16-byte copies of x, y, B, C and state rows
-  int dt_bf16, init_bf16;
-};
-
-__device__ __forceinline__ float load_dt(const SsdArgs& a, int64_t i) {
-  return a.dt_bf16 ? widen(((const bf16*)a.dt)[i]) : ((const float*)a.dt)[i];
-}
-
-__device__ __forceinline__ float load_init(const SsdArgs& a, int64_t i) {
-  return a.init_bf16 ? widen(((const bf16*)a.init)[i])
-                     : ((const float*)a.init)[i];
-}
 
 // acc (m64n64) += A . B^T over one KC-wide step: A and B are split 64 x KC
 // K-major tiles at sa and sb (big, then small)
@@ -153,36 +123,6 @@ __device__ __forceinline__ void nt_step(float (&acc)[32], const uint32_t* sa,
     wgmma_ss_n64(acc, ab, bs);
     wgmma_ss_n64(acc, ab, bb);
   }
-}
-
-__device__ __forceinline__ int chunk_len(const SsdArgs& a, int c) {
-  return (int)min((int64_t)a.Q, (int64_t)a.S - (int64_t)c * a.Q);
-}
-
-// ---------------------------------------------------------------- 1 ----
-// grid (nc * H, B), QP threads: dt and the inclusive cumsum of dt * A
-// (a warp shuffle scan, then the warps' totals added in order)
-__global__ void ssd_cumsum_kernel(SsdArgs a) {
-  __shared__ float wsum[QMAX / 32];
-  const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
-  const int h = blockIdx.x % a.H, c = blockIdx.x / a.H, b = blockIdx.y;
-  const int64_t c0 = (int64_t)c * a.Q;
-  const int len = chunk_len(a, c);
-  const float d = i < len ? load_dt(a, ((int64_t)b * a.S + c0 + i) * a.H + h)
-                          : 0.f;
-  float v = d * a.A[h];
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_up_sync(FULL_MASK, v, o);
-    if (lane >= o) v += u;
-  }
-  if (lane == 31) wsum[warp] = v;
-  __syncthreads();
-  float off = 0.f;
-  for (int w = 0; w < warp; ++w) off += wsum[w];
-  const int64_t o = (((int64_t)b * a.H + h) * a.nc + c) * a.QP + i;
-  a.cum[o] = off + v;
-  a.dts[o] = d;
 }
 
 // ---------------------------------------------------------------- 2 ----
@@ -352,55 +292,6 @@ __global__ void __launch_bounds__(THREADS2, 2)
         const int p = 8 * j + 2 * t4 + e, n = n0 + 8 * r;
         if (p < a.P && n < a.N) out[p * a.N + n] = acc[4 * j + 2 * r + e];
       }
-}
-
-// ---------------------------------------------------------------- 4 ----
-// grid (ceil(P*N / (256 V)) * H, B), 256 threads of V elements each
-// (V = 4: float4 rows): S_in over the chunks in order, written over upd_c;
-// the final state. The loads of CG chunks are in flight together.
-template <int V>
-__global__ void __launch_bounds__(256) ssd_state_passing_kernel(SsdArgs a) {
-  constexpr int CG = 8;
-  const int nv = a.P * a.N / V, per = (nv + 255) / 256;
-  const int h = blockIdx.x / per, b = blockIdx.y;
-  const int e = (blockIdx.x % per) * 256 + threadIdx.x;
-  if (e >= nv) return;
-  const int64_t bh = (int64_t)b * a.H + h;
-  const int64_t pn = (int64_t)a.P * a.N;
-  float s[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v)
-    s[v] = a.init != nullptr ? load_init(a, bh * pn + (int64_t)V * e + v)
-                             : 0.f;
-  for (int c0 = 0; c0 < a.nc; c0 += CG) {
-    float u[CG][V], tot[CG];
-#pragma unroll
-    for (int k = 0; k < CG; ++k) {
-      if (c0 + k >= a.nc) break;
-      const int64_t bhc = bh * a.nc + c0 + k;
-      tot[k] = a.cum[bhc * a.QP + a.QP - 1];
-      const float* src = a.states + bhc * pn + (int64_t)V * e;
-      if constexpr (V == 4) {
-        const float4 f = *(const float4*)src;
-        u[k][0] = f.x; u[k][1] = f.y; u[k][2] = f.z; u[k][3] = f.w;
-      } else {
-        u[k][0] = src[0];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < CG; ++k) {
-      if (c0 + k >= a.nc) break;
-      float* dst = a.states + (bh * a.nc + c0 + k) * pn + (int64_t)V * e;
-      if constexpr (V == 4) *(float4*)dst = make_float4(s[0], s[1], s[2], s[3]);
-      else dst[0] = s[0];
-      const float d = expf(tot[k]);
-#pragma unroll
-      for (int v = 0; v < V; ++v) s[v] = fmaf(d, s[v], u[k][v]);
-    }
-  }
-  float* out = a.state + bh * pn + (int64_t)V * e;
-#pragma unroll
-  for (int v = 0; v < V; ++v) out[v] = s[v];
 }
 
 // ---------------------------------------------------------------- 5 ----
@@ -624,60 +515,7 @@ static size_t chunk_scan_smem() {
   return 4 * ((size_t)2 * 2 * T * SPT + 2 * T * T + 2 * QMAX + T);
 }
 
-template <typename K>
-static int raise_smem(K kern, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-static bool make_args(SsdArgs& a, const void* x, const void* dt,
-                      const float* A, const void* Bm, const void* Cm,
-                      const void* init, void* y, float* state, float* dts,
-                      float* cum, float* cb, float* states, int B, int S,
-                      int H, int P, int G, int N, int Q, int in_bf16,
-                      int dt_bf16, int init_bf16) {
-  if (P < 1 || P > PMAX || N < 1 || N > NMAX || Q < 1 || Q > QMAX ||
-      S < 1 || G < 1 || H % G != 0 || B > 65535)
-    return false;
-  const int QP = (Q + T - 1) / T * T;
-  const int nc = (S + Q - 1) / Q;
-  auto al = [](const void* p) { return ((uintptr_t)p % 16) == 0; };
-  const int lanes = in_bf16 ? 8 : 4;          // values in 16 bytes
-  const int vec = P % lanes == 0 && N % lanes == 0 && al(x) && al(Bm) &&
-                  al(Cm) && al(y) && al(states);
-  a = SsdArgs{x, dt, A, Bm, Cm, init, y, state, dts, cum, cb, states,
-              B, S, H, P, G, N, Q, QP, nc, vec, dt_bf16, init_bf16};
-  return true;
-}
-
-#define SSD_PASS(name)                                                      \
-  extern "C" int name(const void* x, const void* dt, const float* A,       \
-                      const void* Bm, const void* Cm, const void* init,    \
-                      void* y, float* state, float* dts, float* cum,       \
-                      float* cb, float* states, int B, int S, int H, int P, \
-                      int G, int N, int Q, int in_bf16, int dt_bf16,       \
-                      int init_bf16, cudaStream_t stream)
-
-// Arguments of every pass: x (B,S,H,P), dt (B,S,H), A (H,), Bm and Cm
-// (B,S,G,N), init (B,H,P,N) or null, y (B,S,H,P), state (B,H,P,N), and
-// the scratch dts and cum (B,H,nc,QP), cb (B,nc,G,QP,QP) and states
-// (B,H,nc,P,N), nc = ceil(S/Q), QP = Q rounded up to 64; all contiguous
-// on the device, float32 except x, Bm, Cm and y, bfloat16 with in_bf16,
-// dt with dt_bf16 and init with init_bf16. P <= 64, N <= 128,
-// 1 <= Q <= 256, H % G == 0, B <= 65535. The passes run in order:
-// cumsum, bmm, chunk_state, state_passing, chunk_scan.
-#define SSD_ARGS                                                            \
-  if (B == 0 || H == 0) return 0;                                           \
-  SsdArgs a;                                                                \
-  if (!make_args(a, x, dt, A, Bm, Cm, init, y, state, dts, cum, cb, states, \
-                 B, S, H, P, G, N, Q, in_bf16, dt_bf16, init_bf16))         \
-    return -1;
-
-SSD_PASS(ssd_cumsum) {
-  SSD_ARGS
-  ssd_cumsum_kernel<<<dim3(a.nc * H, B), a.QP, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
+SSD_SHARED_PASSES
 
 template <typename In>
 static int bmm(const SsdArgs& a, cudaStream_t stream) {
@@ -691,7 +529,7 @@ static int bmm(const SsdArgs& a, cudaStream_t stream) {
 
 SSD_PASS(ssd_bmm) {
   SSD_ARGS
-  return in_bf16 ? bmm<bf16>(a, stream) : bmm<float>(a, stream);
+  return bmm<float>(a, stream);
 }
 
 template <typename In>
@@ -705,21 +543,7 @@ static int chunk_state(const SsdArgs& a, cudaStream_t stream) {
 
 SSD_PASS(ssd_chunk_state) {
   SSD_ARGS
-  return in_bf16 ? chunk_state<bf16>(a, stream)
-                 : chunk_state<float>(a, stream);
-}
-
-SSD_PASS(ssd_state_passing) {
-  SSD_ARGS
-  // float4 rows where P * N is a multiple of 4 and the state in is aligned
-  if ((P * N) % 4 == 0 && ((uintptr_t)init % 16) == 0) {
-    const int per = (P * N / 4 + 255) / 256;
-    ssd_state_passing_kernel<4><<<dim3(per * H, B), 256, 0, stream>>>(a);
-  } else {
-    const int per = (P * N + 255) / 256;
-    ssd_state_passing_kernel<1><<<dim3(per * H, B), 256, 0, stream>>>(a);
-  }
-  return (int)cudaGetLastError();
+  return chunk_state<float>(a, stream);
 }
 
 template <typename In>
@@ -735,5 +559,5 @@ static int chunk_scan(const SsdArgs& a, cudaStream_t stream) {
 
 SSD_PASS(ssd_chunk_scan) {
   SSD_ARGS
-  return in_bf16 ? chunk_scan<bf16>(a, stream) : chunk_scan<float>(a, stream);
+  return chunk_scan<float>(a, stream);
 }

@@ -9,15 +9,18 @@ the model path's signature (``repro/models/ssd.py:ssd_scan``): x
 one padded with dt = 0 and x = 0, which decays the state by exp(0) = 1
 and adds nothing.
 
-On a CUDA tensor the wrapper runs the hand-written Hopper kernels of
-``csrc/ssd_scan.cu`` (built with nvcc at first use, bound through
-ctypes) or raises; it never falls back. They are five passes on the
-current stream (``PASSES``): the chunk cumsum of dt * A, C.B^T once per
-(batch, chunk, group), each chunk's contribution to the state, the
-state passed across chunks, and the chunk scan that forms y; the
-scratch between them is allocated here with ``torch.empty``, and each
-pass's launch error is raised on. ``LAUNCHES`` counts ``ssd_scan``
-calls that launched the kernels, one per call. On a CPU tensor it runs
+On a CUDA tensor the wrapper runs hand-written Hopper kernels (built
+with nvcc at first use, bound through ctypes) or raises; it never falls
+back: ``csrc/ssd_scan.cu`` for float32 x, B and C, ``csrc/ssd_scan_bf16.cu``
+for bfloat16 ones (``_lib``). Each is five passes on the current stream
+(``PASSES``): the chunk cumsum of dt * A, C.B^T once per (batch, chunk,
+group), each chunk's contribution to the state, the state passed across
+chunks, and the chunk scan that forms y (the first and the fourth are
+shared, ``csrc/ssd_common.cuh``); the scratch between them is allocated
+here with ``torch.empty``, in one layout for both, and each pass's
+launch error is raised on. ``LAUNCHES`` counts ``ssd_scan`` calls that
+launched the kernels, one per call, and ``BF16_LAUNCHES`` those of them
+that took the bfloat16 library. On a CPU tensor it runs
 the plain version ``ssd_scan_ref``, the reference model path's chunked
 form written in PyTorch (einsums per chunk, a loop over chunks), so the
 CPU path keeps the reference's arithmetic order.
@@ -28,15 +31,19 @@ kernels' scratch layouts; ``ssd_scan_passes`` composes them. The
 kernels take x, Bm and Cm all in float32 or all in bfloat16 (the models'
 default compute dtype), dt in float32 or in x's dtype, A in float32 and
 ``init_state`` in float32 or bfloat16 (the reference's kernel takes any
-float dtype; float16 is still to come here). A bfloat16 operand is
-widened to float32 as its tile lands; y comes back in x's dtype and the
-final state in float32, as the reference writes them. The kernels take
-P up to ``MAX_HEAD_DIM``, N up to ``MAX_STATE``, ``chunk`` up to
-``MAX_CHUNK``, and run every product on the tensor cores in 3xTF32 (each
-operand split into two TF32 numbers, three TF32 products per float32
-one); ``ssd_scan_tf32`` is a float64 model of that arithmetic and
-``error_bound`` states how far the kernels may lie from the exact scan
-(``chip_smoke.py`` and the card tests hold them so).
+float dtype; float16 is still to come here and is refused by name); y
+comes back in x's dtype and the final state in float32, as the
+reference writes them. Both take P up to ``MAX_HEAD_DIM``, N up to
+``MAX_STATE``, ``chunk`` up to ``MAX_CHUNK``, and run every product on
+the tensor cores. float32: in 3xTF32 (each operand split into two TF32
+numbers, three TF32 products per float32 one); ``ssd_scan_tf32`` is a
+float64 model of that arithmetic. bfloat16: the tiles stay bfloat16 to
+bf16 ``wgmma``; C.B^T is one bf16 product (exact products), and the
+three products with a float32 operand (the decayed x times B, the
+weights times x, C times S_in) two, that operand split into two
+bfloat16 parts (``bf16_split``); ``ssd_scan_bf16`` is a float64 model
+of that arithmetic. ``error_bound`` states how far each library may lie
+from the exact scan (``chip_smoke.py`` and the card tests hold them so).
 
 The gradient. On a CUDA tensor that needs one, ``ssd_scan`` runs
 ``SsdScanFn``: the five passes, their scratch (dts, cum, cb and S_in per
@@ -68,10 +75,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import (BF16_ROUND, DTYPES,
-                                                 PRODUCT_ERR, tf32_products)
+                                                 P_SPLIT_ERR, PRODUCT_ERR,
+                                                 bf16_split, tf32_products)
 from repro_torch.kernels.nograd import refuse_grad
 
 LAUNCHES = 0
+BF16_LAUNCHES = 0       # of LAUNCHES, those through csrc/ssd_scan_bf16.cu
 MAX_HEAD_DIM = 64       # P: the kernels' x, y and state tiles
 MAX_STATE = 128         # N: their B, C and state tiles
 MAX_CHUNK = 256         # Q: the per-chunk cumsum
@@ -184,12 +193,37 @@ def _chunked(t, Q: int, nc: int, QP: int):
     return F.pad(t, (0, 0) * (t.ndim - 3) + (0, QP - Q))
 
 
-def _prod(eq: str, a, b, passes: Optional[int]):
+# ``passes`` values of the bfloat16 library's arithmetic: the bfloat16
+# parts a float32 operand is split into
+BF16_PASSES = {"bf16x1": 1, "bf16x2": 2}
+
+
+def bf16_products(a, b, parts: int, eq: str):
+    """float64 sum of the bf16 products of ``a`` and ``b`` (float32), each
+    split into ``parts`` bfloat16 parts (2: hi + lo, ``bf16_split``; 1: hi
+    alone), every pair of parts multiplied exactly. An operand that holds
+    bfloat16 values is its own hi (its lo is 0), so the products of a
+    bfloat16 operand and a float32 one are the bfloat16 kernel's two."""
+    def split(t):
+        hi, lo = bf16_split(t)
+        return (hi,) if parts == 1 else (hi, lo)
+    out = 0
+    for pa in split(a):
+        for pb in split(b):
+            out = out + torch.einsum(eq, pa.double(), pb.double())
+    return out
+
+
+def _prod(eq: str, a, b, passes):
     """einsum ``eq`` of a and b; with ``passes`` (1 or 3) the float64 sum
-    of the TF32 products of their float32 values, as the kernels'
-    tensor cores form it (3xTF32, or big*big alone)."""
+    of the TF32 products of their float32 values, as the float32
+    kernels' tensor cores form it (3xTF32, or big*big alone); with
+    "bf16x2" or "bf16x1" (``BF16_PASSES``) that of their bf16 products,
+    as the bfloat16 kernels form them (``bf16_products``)."""
     if passes is None:
         return torch.einsum(eq, a, b)
+    if passes in BF16_PASSES:
+        return bf16_products(a.float(), b.float(), BF16_PASSES[passes], eq)
     return tf32_products(a.float(), b.float(), passes, eq)
 
 
@@ -456,16 +490,38 @@ def ssd_scan_tf32(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
         passes=passes)
 
 
+def ssd_scan_bf16(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
+                  parts: int = 2):
+    """A float64 model of the bfloat16 kernels' arithmetic on bfloat16 x,
+    Bm and Cm (float32 ones holding bfloat16 values): the passes in
+    float64; C.B^T from the values exactly (a product of two bfloat16
+    numbers is exact in float32); each float32 operand of the other
+    three products (the decayed x of the chunk states, S_in of the inter
+    term, the weights W of the intra term) rounded to float32 and split
+    into ``parts`` bfloat16 parts (2: hi + lo, the kernels; 1: hi alone,
+    one bf16 product), the products with the bfloat16 operand summed
+    exactly. It leaves out the float32 roundings of the sums, which
+    ``error_bound`` counts separately. Returns (y (B,S,H,P), final state
+    (B,H,P,N)) in float64."""
+    if parts not in (1, 2):
+        raise ValueError(f"parts must be 1 or 2, not {parts}")
+    return ssd_scan_passes(
+        *(t.double() for t in (x, dt, A, Bm, Cm)), chunk=chunk,
+        init_state=None if init_state is None else init_state.double(),
+        passes=f"bf16x{parts}")
+
+
 def error_bound(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
                 ref_y=None):
     """The kernels' error against the exact scan, as (bound on y, bound
-    on the final state), on float32 inputs (bfloat16 ones widened: the
-    kernels and the plain version both compute on the widened values):
-    u * L * M with u = 2^-24, M the largest sum of
-    magnitudes of the products that make up one output (the plain
-    version in float64 on |x|, |Bm|, |Cm| and |init_state|: every decay
-    weight and dt is positive) and L = N + 3 S' + 32 Lambda + 16 +
-    2 PRODUCT_ERR / u.
+    on the final state): for float32 x, that of the 3xTF32 kernels, for
+    bfloat16 x (pass the bfloat16 tensors: the bound and the plain
+    version compute on their widened values) that of the bfloat16
+    kernels. u * L * M with u = 2^-24, M the largest sum of magnitudes
+    of the products that make up one output (the plain version in
+    float64 on |x|, |Bm|, |Cm| and |init_state|: every decay weight and
+    dt is positive) and L = N + 3 S' + 32 Lambda + 16 + 2 E / u, E =
+    PRODUCT_ERR for float32 x, P_SPLIT_ERR for bfloat16 x.
 
     Derivation. A float32 sum of n terms is off by at most n u times its
     sum of magnitudes: C.B and C.S_in are sums of N terms, y and the
@@ -489,6 +545,21 @@ def error_bound(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
     on M. A plain TF32 product (big*big, about 2^-10 of |a||b|) breaks
     this bound (``tests/test_torch_ssd.py``).
 
+    The bfloat16 kernels (their own terms, the same steps). C.B^T's
+    products are exact (two bfloat16 numbers), so it adds no product
+    term. The other three products have one bfloat16 operand, exact, and
+    one float32 operand split into hi + lo with |v - hi - lo| <=
+    P_SPLIT_ERR |v| = 2^-16 |v| (``bf16_split``; below 2^-118 an absolute
+    2^-133 more, as for K3, far below u L M at the sizes the models and
+    the tests reach), multiplied
+    exactly: each such product is off by at most P_SPLIT_ERR of its
+    terms' |a||b|. A term of y passes through two in a row (the decayed
+    x times B, then C times S_in; or C.B^T, exact, then the weights times
+    x), a term of the state through one, so 2 P_SPLIT_ERR / u = 512
+    takes the place of 2 PRODUCT_ERR / u = 24 in L (under 8% of L at
+    mamba2-370m's prefill, where 3 S' = 6,144). One bfloat16 part (2^-8
+    of each split value) breaks it (``tests/test_torch_ssd_bf16.py``).
+
     bfloat16 y. For a bfloat16 x the kernels round y to bfloat16, off by
     at most half an ulp, BF16_ROUND times its magnitude. With ``ref_y``,
     the exact y (the plain version in float64), the bound on y against
@@ -506,7 +577,8 @@ def error_bound(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
         Cm.double().abs(), chunk=chunk,
         init_state=None if init_state is None else init_state.double().abs())
     u = 2.0 ** -24
-    L = N + 3 * nc * Q + 32 * lam + 16 + 2 * PRODUCT_ERR / u
+    err = P_SPLIT_ERR if x.dtype == torch.bfloat16 else PRODUCT_ERR
+    L = N + 3 * nc * Q + 32 * lam + 16 + 2 * err / u
     bound_y = u * L * float(mag_y.max())
     if ref_y is not None:
         bound_y = bound_y + BF16_ROUND * (ref_y.double().abs() + bound_y)
@@ -575,7 +647,11 @@ def bwd_error_bound(x, dt, A, Bm, Cm, dy, dstate=None, *, chunk: int = 256,
     within the same PRODUCT_ERR. ``ssd_scan_bwd_ref(..., passes=3)``
     models these products in float64 and lies within this bound;
     ``passes=1`` (one TF32 product, about 2^-10 of |a||b|) breaks it
-    (``tests/test_torch_ssd_grad.py``).
+    (``tests/test_torch_ssd_grad.py``). For bfloat16 x the forward's
+    scratch comes from the bfloat16 kernels: cb exact, S_in within the
+    forward state's bfloat16 bound, whose L is 2 (P_SPLIT_ERR -
+    PRODUCT_ERR) / u = 488 above the float32 one (``error_bound``); S_in
+    enters each chain it starts additively, so L grows by the same 488.
 
     bfloat16 outputs (dx, dB, dC for bfloat16 x; ddt for bfloat16 dt;
     dinit for a bfloat16 state in): the rounding to bfloat16, BF16_ROUND
@@ -599,6 +675,8 @@ def bwd_error_bound(x, dt, A, Bm, Cm, dy, dstate=None, *, chunk: int = 256,
     L = (2 * N + P + H // G + 3 * nc * Q + 2 * QP + 72 * lam
          + nc * (13 * lam + 6) + 104 + -(-P * N // 1024)
          + 2 * PRODUCT_ERR / u)
+    if x.dtype == torch.bfloat16:        # S_in from the bfloat16 forward
+        L += 2 * (P_SPLIT_ERR - PRODUCT_ERR) / u
     bounds = [None if m is None else u * L * m for m in mags]
     bounds[2] = u * (L + B * nc + QP) * mags[2]
     bf = [x.dtype, dt.dtype, None, x.dtype, x.dtype,
@@ -626,14 +704,41 @@ def bind(lib) -> Dict[str, object]:
     return fns
 
 
-_FNS: Dict[str, object] = {}
+_FNS: Dict[torch.dtype, Dict[str, object]] = {}
 
 
-def _lib() -> Dict[str, object]:
-    if not _FNS:
+def _lib(dtype=torch.float32) -> Dict[str, object]:
+    """The passes of the library for x of ``dtype``: ``csrc/ssd_scan.cu``
+    (float32) or ``csrc/ssd_scan_bf16.cu`` (bfloat16)."""
+    if dtype not in _FNS:
         from repro_torch.kernels import build
-        _FNS.update(bind(build.load("ssd_scan")))
-    return _FNS
+        _FNS[dtype] = bind(build.load(
+            "ssd_scan_bf16" if dtype == torch.bfloat16 else "ssd_scan"))
+    return _FNS[dtype]
+
+
+BF16_SHAPE_KEYS = ("x_load", "bc_load", "n_halves", "bmm_smem_bytes",
+                   "chunk_state_smem_bytes", "chunk_scan_smem_bytes")
+BF16_LOADS = ("tma", "cp.async", "registers")
+
+
+def bf16_launch_shape(x, Bm, Cm) -> dict:
+    """The launch the bfloat16 kernels make for these CUDA tensors, as
+    they report it (``ssd_bf16_shape``): how x lands and how B and C land
+    (TMA, cp.async or registers), N's column halves and the shared memory
+    bytes of a block of passes 2, 3 and 5."""
+    from repro_torch.kernels import build
+    fn = build.load("ssd_scan_bf16").ssd_bf16_shape
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * len(BF16_SHAPE_KEYS))()
+    fn(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.shape[3], Bm.shape[3],
+       out)
+    shape = dict(zip(BF16_SHAPE_KEYS, out))
+    for k in ("x_load", "bc_load"):
+        shape[k] = BF16_LOADS[shape[k]]
+    return shape
 
 
 def _check(x, dt, A, Bm, Cm, chunk, init_state) -> None:
@@ -711,7 +816,7 @@ def launch(name: str, x, dt, A, Bm, Cm, init_state, y, state,
     refuse_grad("the SSD kernel (K4)", x, dt, A, Bm, Cm, init_state)
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    err = _lib()[name](
+    err = _lib(x.dtype)[name](
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), None if init_state is None else init_state.data_ptr(),
         y.data_ptr(), state.data_ptr(), scr["dts"].data_ptr(),
@@ -721,7 +826,9 @@ def launch(name: str, x, dt, A, Bm, Cm, init_state, y, state,
         int(init_state is not None and init_state.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan pass {name} failed: cudaError {err}")
+        why = {-1: "a shape it does not take",
+               -2: "a TMA tensor map was refused"}.get(err, f"cudaError {err}")
+        raise RuntimeError(f"ssd_scan pass {name} failed: {why}")
 
 
 def pass_errors(x, dt, A, Bm, Cm, *, chunk: int = 256,
@@ -737,8 +844,12 @@ def pass_errors(x, dt, A, Bm, Cm, *, chunk: int = 256,
     by u Lambda with Lambda the largest |cum|, expf and the products);
     state_passing L = 3 nc + 2 (one fma and expf per chunk); chunk_scan
     L = N + QP + 34 + Lambda (the two products' sums and 3xTF32, the
-    weights' exponents, expf and their products). Only the lower tiles
-    of cb that the scan reads are compared."""
+    weights' exponents, expf and their products). For bfloat16 x (the
+    bfloat16 kernels): bmm L = N + 2 (exact products); chunk_state and
+    chunk_scan the same with P_SPLIT_ERR / u = 256 for 3xTF32's 12 (one
+    split operand in each product), and y's rounding to bfloat16,
+    BF16_ROUND (|plain| + the bound), added to chunk_scan's. Only the
+    lower tiles of cb that the scan reads are compared."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q, nc, QP = geometry(S, chunk)
@@ -756,6 +867,8 @@ def pass_errors(x, dt, A, Bm, Cm, *, chunk: int = 256,
                       / (u * L * mag + 1e-300)).max())
 
     f64 = [t.double() for t in (x, dt, A, Bm, Cm)]
+    bf16 = x.dtype == torch.bfloat16
+    prod = P_SPLIT_ERR / u if bf16 else 12       # a product's share of L
     out = {}
     run("ssd_cumsum")
     dts, cum = scr["dts"].double(), scr["cum"].double()
@@ -776,14 +889,14 @@ def pass_errors(x, dt, A, Bm, Cm, *, chunk: int = 256,
     w_cb = torch.where(read[None, :, None], bmm_ref(f64[3], f64[4],
                                                     chunk=chunk), 0.0)
     m_cb = bmm_ref(f64[3].abs(), f64[4].abs(), chunk=chunk)
-    out["ssd_bmm"] = share(cb, w_cb, m_cb, N + 14)
+    out["ssd_bmm"] = share(cb, w_cb, m_cb, N + (2 if bf16 else 14))
 
     run("ssd_chunk_state")
     w_upd = chunk_state_ref(f64[0], f64[3], dts, cum, chunk=chunk)
     m_upd = chunk_state_ref(f64[0].abs(), f64[3].abs(), dts, cum,
                             chunk=chunk)
     out["ssd_chunk_state"] = share(scr["states"], w_upd, m_upd,
-                                   QP + 20 + lam)
+                                   QP + 8 + prod + lam)
 
     upd = scr["states"].double()
     init64 = None if init_state is None else init_state.double()
@@ -800,7 +913,13 @@ def pass_errors(x, dt, A, Bm, Cm, *, chunk: int = 256,
     w_y = chunk_scan_ref(f64[0], f64[4], dts, cum, cb, s_in, chunk=chunk)
     m_y = chunk_scan_ref(f64[0].abs(), f64[4].abs(), dts, cum, cb.abs(),
                          s_in.abs(), chunk=chunk)
-    out["ssd_chunk_scan"] = share(y, w_y, m_y, N + QP + 34 + lam)
+    L = N + QP + 22 + prod + lam
+    if bf16:                             # y rounded to bfloat16
+        bound = u * L * m_y
+        out["ssd_chunk_scan"] = float(((y.double() - w_y).abs() / (
+            bound + BF16_ROUND * (w_y.abs() + bound) + 1e-300)).max())
+    else:
+        out["ssd_chunk_scan"] = share(y, w_y, m_y, L)
     return out
 
 
@@ -930,8 +1049,9 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None, scr=None, *,
 
 
 def _forward(x, dt, A, Bm, Cm, init_state, chunk: int):
-    """The five passes: (y, state, their scratch). Counts one launch."""
-    global LAUNCHES
+    """The five passes: (y, state, their scratch). Counts one launch (and
+    one bfloat16 launch for bfloat16 x)."""
+    global LAUNCHES, BF16_LAUNCHES
     _check(x, dt, A, Bm, Cm, chunk, init_state)
     B, S, H, P = x.shape
     N = Bm.shape[3]
@@ -944,6 +1064,7 @@ def _forward(x, dt, A, Bm, Cm, init_state, chunk: int):
     for name in PASSES:
         launch(name, x, dt, A, Bm, Cm, init_state, y, state, scr, chunk)
     LAUNCHES += 1
+    BF16_LAUNCHES += x.dtype == torch.bfloat16
     return y, state, scr
 
 

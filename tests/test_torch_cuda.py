@@ -36,8 +36,10 @@ of K4's five passes within the bound ``kernels.ssd.pass_errors`` states
 for it, against its plain version in float64 on the same inputs. The
 models' logits: 1e-4 (float32 matmuls, attention and scans in other
 orders, two layers). bfloat16 operands: K3 and K4 within their
-``error_bound`` on the widened inputs (K3's with the bfloat16 kernel's
-own terms) plus the rounding of the output to
+``error_bound`` on the widened inputs (each with its bfloat16 kernel's
+own terms; K4's bfloat16 passes each within ``pass_errors``' bfloat16
+bound, its gradient through the bfloat16 forward's scratch within
+``bwd_error_bound``) plus the rounding of the output to
 bfloat16 (``BF16_ROUND``, half an ulp, times |out|); the reduced models
 at the default RunOptions (bfloat16) on the card against the port's CPU
 run within ``models.options.bf16_logit_tolerance`` (mixtral's with its
@@ -519,10 +521,10 @@ def test_k4_matches_plain(cuda, case):
     B, S, H, P, G, N, chunk, with_init = case
     args, init = _k4_inputs(B, S, H, P, G, N, cuda)
     init = init if with_init else None
-    before = SSD.LAUNCHES
+    before, before_bf16 = SSD.LAUNCHES, SSD.BF16_LAUNCHES
     y, state = SSD.ssd_scan(*args, chunk=chunk, init_state=init)
     torch.cuda.synchronize()
-    assert SSD.LAUNCHES == before + 1
+    assert SSD.LAUNCHES == before + 1 and SSD.BF16_LAUNCHES == before_bf16
     assert y.shape == (B, S, H, P) and state.shape == (B, H, P, N)
     want_y, want_state = SSD.ssd_scan_ref(
         *[a.double() for a in args], chunk=chunk,
@@ -688,29 +690,129 @@ def test_k3_bfloat16_launch_shape(cuda):
 @pytest.mark.parametrize("dt_dtype", ("bfloat16", "float32"))
 def test_k4_bfloat16_within_error_bound(cuda, case, dt_dtype):
     """bfloat16 x, B, C (dt in bfloat16 as the model passes it, or in
-    float32; the state in, where there is one, in bfloat16): y in
-    bfloat16 within the float32 bound on the widened inputs plus its
-    rounding, the final state in float32 within its bound."""
+    float32; the state in, where there is one, in bfloat16) through the
+    bfloat16 kernels (``csrc/ssd_scan_bf16.cu``): y in bfloat16 within
+    the bfloat16 bound on the widened inputs plus its rounding, the final
+    state in float32 within its bound."""
     B, S, H, P, G, N, chunk, with_init = case
-    (x, dt, A, Bm, Cm), init = _k4_inputs(B, S, H, P, G, N, cuda, seed=2)
-    bf = torch.bfloat16
-    x, Bm, Cm = x.to(bf), Bm.to(bf), Cm.to(bf)
-    dt = dt.to(getattr(torch, dt_dtype))
-    init = init.to(bf) if with_init else None
-    before = SSD.LAUNCHES
+    x, dt, A, Bm, Cm, init = _k4_bf16_inputs(case, dt_dtype, cuda, seed=2)
+    before, before_bf16 = SSD.LAUNCHES, SSD.BF16_LAUNCHES
     y, state = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=init)
     torch.cuda.synchronize()
     assert SSD.LAUNCHES == before + 1
-    assert y.dtype == bf and state.dtype == torch.float32
-    wide = [t.float() for t in (x, dt, A, Bm, Cm)]
-    init_w = None if init is None else init.float()
+    assert SSD.BF16_LAUNCHES == before_bf16 + 1
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
     want_y, want_state = SSD.ssd_scan_ref(
-        *[t.double() for t in wide], chunk=chunk,
-        init_state=None if init_w is None else init_w.double())
-    tol_y, tol_state = SSD.error_bound(*wide, chunk=chunk, init_state=init_w,
-                                       ref_y=want_y)
+        *[t.double() for t in (x, dt, A, Bm, Cm)], chunk=chunk,
+        init_state=None if init is None else init.double())
+    tol_y, tol_state = SSD.error_bound(x, dt, A, Bm, Cm, chunk=chunk,
+                                       init_state=init, ref_y=want_y)
     assert bool(((y.double() - want_y).abs() <= tol_y).all())
     assert float((state.double() - want_state).abs().max()) <= tol_state
+
+
+def _k4_bf16_inputs(case, dt_dtype, device, seed):
+    """``_k4_inputs`` with x, B, C (and the state in, where the case has
+    one) in bfloat16 and dt in ``dt_dtype``."""
+    B, S, H, P, G, N, chunk, with_init = case
+    (x, dt, A, Bm, Cm), init = _k4_inputs(B, S, H, P, G, N, device, seed)
+    bf = torch.bfloat16
+    return (x.to(bf), dt.to(getattr(torch, dt_dtype)), A, Bm.to(bf),
+            Cm.to(bf), init.to(bf) if with_init else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_CASES)
+def test_k4_bfloat16_passes_within_their_bounds(cuda, case):
+    """Each pass of the bfloat16 kernels against its plain version in
+    float64, fed the kernels' own outputs of the passes before it, within
+    ``pass_errors``' bfloat16 bounds; one by one they count no call."""
+    x, dt, A, Bm, Cm, init = _k4_bf16_inputs(case, "bfloat16", cuda, seed=3)
+    before = (SSD.LAUNCHES, SSD.BF16_LAUNCHES)
+    shares = SSD.pass_errors(x, dt, A, Bm, Cm, chunk=case[6],
+                             init_state=init)
+    assert (SSD.LAUNCHES, SSD.BF16_LAUNCHES) == before
+    assert set(shares) == set(SSD.PASSES)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ((2, 300, 4, 64, 1, 128, 256, True),
+                                  (1, 100, 8, 16, 2, 16, 64, False)))
+def test_k4_bfloat16_gradient_through_its_scratch(cuda, case):
+    """bfloat16 operands that need a gradient go through ``SsdScanFn``:
+    the bfloat16 forward (one launch of each count), its scratch kept for
+    the backward kernel, whose gradients lie within ``bwd_error_bound``
+    (its bfloat16 forward's term) of the plain backward in float64."""
+    B, S, H, P, G, N, chunk, with_init = case
+    x, dt, A, Bm, Cm, init = _k4_bf16_inputs(case, "bfloat16", cuda, seed=4)
+    leaves = [t.detach().requires_grad_() if t is not None else None
+              for t in (x, dt, A, Bm, Cm, init)]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    dy = torch.randn(x.shape, generator=gen, device=cuda).to(x.dtype)
+    dfinal = torch.randn((B, H, P, N), generator=gen, device=cuda)
+    n0 = (SSD.LAUNCHES, SSD.BF16_LAUNCHES, SSD.BWD_LAUNCHES)
+    y, state = SSD.ssd_scan(*leaves[:5], chunk=chunk, init_state=leaves[5])
+    torch.autograd.backward((y, state), (dy, dfinal))
+    torch.cuda.synchronize()
+    assert (SSD.LAUNCHES - n0[0], SSD.BF16_LAUNCHES - n0[1],
+            SSD.BWD_LAUNCHES - n0[2]) == (1, 1, 1)
+
+    def f64(t):
+        return None if t is None else t.double()
+    want = SSD.ssd_scan_bwd_ref(*map(f64, (x, dt, A, Bm, Cm, dy, dfinal)),
+                                chunk=chunk, init_state=f64(init))
+    bound = SSD.bwd_error_bound(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk,
+                                init_state=init, refs=want)
+    for leaf, w, b in zip(leaves, want, bound):
+        if leaf is None:
+            continue
+        assert leaf.grad.dtype == leaf.dtype
+        assert bool(((leaf.grad.double() - w).abs() <= b).all())
+
+
+@pytest.mark.cuda
+def test_k4_bfloat16_refusals_and_launch(cuda):
+    """bfloat16 x reaches only the bfloat16 kernels, which refuse by name
+    what they do not take (before launching: no count moves); their
+    launch: TMA for P = 64 and N = 128 on aligned bases, cp.async for N =
+    16, registers for N = 20 or a base off 16 bytes."""
+    (x, dt, A, Bm, Cm), init = _k4_inputs(1, 64, 4, 64, 1, 128, cuda)
+    bf = torch.bfloat16
+    xb, Bb, Cb = x.to(bf), Bm.to(bf), Cm.to(bf)
+    before = (SSD.LAUNCHES, SSD.BF16_LAUNCHES)
+    refused = (
+        (TypeError, "Cm", (xb, dt, A, Bb, Cm), {}),
+        (TypeError, "dt in", (xb, dt.half(), A, Bb, Cb), {}),
+        (TypeError, "init_state in", (xb, dt, A, Bb, Cb),
+         {"init_state": init.half()}),
+        (ValueError, "head dims up to 64",
+         (torch.zeros((1, 64, 4, 65), dtype=bf, device=cuda), dt, A, Bb, Cb),
+         {}),
+        (ValueError, "chunks of 1 to 256", (xb, dt, A, Bb, Cb),
+         {"chunk": 512}),
+        (ValueError, "x is not contiguous",
+         (xb.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bb, Cb),
+         {}),
+    )
+    for err, match, args, kw in refused:
+        with pytest.raises(err, match=match):
+            SSD.ssd_scan(*args, **kw)
+    assert (SSD.LAUNCHES, SSD.BF16_LAUNCHES) == before
+    shape = SSD.bf16_launch_shape(xb, Bb, Cb)
+    assert (shape["x_load"], shape["bc_load"], shape["n_halves"]) == \
+        ("tma", "tma", 2)
+
+    def loads(N, shift=0):
+        x = torch.zeros(64 * 4 * 64 + shift, dtype=bf,
+                        device=cuda)[shift:].view(1, 64, 4, 64)
+        b = torch.zeros(64 * N + shift, dtype=bf,
+                        device=cuda)[shift:].view(1, 64, 1, N)
+        shape = SSD.bf16_launch_shape(x, b, b)
+        return shape["x_load"], shape["bc_load"]
+    assert loads(16) == ("tma", "cp.async")
+    assert loads(20) == ("tma", "registers")
+    assert loads(128, shift=1) == ("registers", "registers")
 
 
 @pytest.mark.cuda
