@@ -15,7 +15,8 @@ script fails before it prints a result.
               all started together: K1 ``warehouse_agg.cu``, K2
               ``frame_preproc.cu``, K3 ``flash_attention.cu`` (float32),
               ``flash_attention_bf16.cu`` (bfloat16) and its
-              backward ``flash_attention_bwd.cu``, K4 ``ssd_scan.cu``
+              backward ``flash_attention_bwd.cu`` (float32) and
+              ``flash_attention_bwd_bf16.cu`` (bfloat16), K4 ``ssd_scan.cu``
               (float32), ``ssd_scan_bf16.cu`` (bfloat16) and its
               backward ``ssd_scan_bwd.cu`` (K3 and K4 include the shared
               ``hopper.cuh``; the two K4 forwards ``ssd_common.cuh``, the
@@ -47,10 +48,17 @@ script fails before it prints a result.
               ``of_bound`` and launch shape printed; mixtral-8x7b's
               prefill (B=4, S=2048, 32 heads over 8 kv heads, D=128,
               window 4,096) in both dtypes.
-5a. kernel_k3_bwd  K3's backward (``csrc/flash_attention_bwd.cu``)
+5a. kernel_k3_bwd  K3's backward (``csrc/flash_attention_bwd.cu`` for
+              float32, ``csrc/flash_attention_bwd_bf16.cu`` for bfloat16,
+              every bfloat16 launch counted in ``FA.BF16_BWD_LAUNCHES``)
               against its plain version ``flash_attention_bwd_ref`` run in
               float64 on the same CUDA tensors and the forward's own o
-              and log-sum-exp, within ``bwd_error_bound``, float32 and
+              and log-sum-exp, within ``bwd_error_bound`` (bfloat16: its
+              bfloat16 terms, the bfloat16 tensors passed to it; every
+              tile route of both passes among the cases,
+              ``FA.bwd_bf16_launch_shape``: TMA, cp.async and registers,
+              one and two warpgroups at D 64 and 128, the dQ pass's one
+              at D = 64), float32 and
               bfloat16: qwen1.5-0.5b's training shape (B=4, S=2,048,
               H=G=16, D=64, causal), hymba-1.5b's (25 heads over 5, a
               window of 1,024, and global), mixtral-8x7b's (32 over 8,
@@ -236,6 +244,17 @@ script fails before it prints a result.
               version (autograd through it), and a reduced config's train
               state saved at step 4 and restored bit for bit, then
               resumed by the launcher to step 6.
+9f'. train_bf16  the same step at the models' default RunOptions
+              (float32 params, bfloat16 compute; otherwise the launcher's
+              options, remat none), counts set to 0 just before the steps
+              and read just after: qwen1.5-0.5b at its published config,
+              4 steps at 4 x 2,048 tokens, K3's bfloat16 forward and its
+              bfloat16 backward kernel (``flash_attention_bwd_bf16.cu``)
+              each once per layer and step; the loss finite and falling.
+              Prints each step's time, the tokens per second, the peak
+              memory and the losses. Then the 4-layer gradient check at
+              bfloat16 compute against the plain-attention step, within
+              ``TRAIN_BF16_LOSS_TOL`` and ``TRAIN_BF16_GRAD_TOL``.
 9g. train_ssm  the same for the SSM family: mamba2-370m at its
               published config (48 layers, d_model 1,024, d_inner 2,048,
               32 heads of 64, d_state 128, chunk 256, vocab 50,280) from
@@ -305,7 +324,9 @@ script fails before it prints a result.
               plain version, the backward alone of
               ``F.scaled_dot_product_attention`` and its bound (the five
               products of the gradient at 3xTF32's rate for float32, the
-              dense bf16 rate for bfloat16); then (``time_k4_bwd``) K4's
+              dense bf16 rate for bfloat16; for bfloat16 also the
+              design's floor, twice the bound: ten bf16 product units for
+              the bound's five); then (``time_k4_bwd``) K4's
               backward at mamba2-370m's and hymba-1.5b's training shapes
               (B=4 and B=1, S=2,048) in both dtypes, the nine passes
               together and each alone, beside its launches per train
@@ -539,7 +560,11 @@ largest magnitude (``TRAIN_GRAD_TOL``: both kernels' float32 sums over
 2,048 terms, 1.2e-4 each, through 4 layers), and so mamba2's against
 the plain-SSD step and hymba's against both plain versions; the reduced
 families on the card against the CPU within 1e-5 (the CPU parity
-tests' tolerance of ``Model.loss``).
+tests' tolerance of ``Model.loss``). The bfloat16 step: the loss within
+``TRAIN_BF16_LOSS_TOL`` and each leaf within ``TRAIN_BF16_GRAD_TOL``
+of the plain-attention step (derived beside them: the backward kernel
+takes delta from the forward's o in bfloat16, the plain step's
+autograd from its float32 o).
 Training across cards: at one rank every collective is the identity,
 so the sharded steps equal the steps without a mesh bit for bit (the
 losses, the norms, every param and both AdamW moments); at more, the
@@ -636,6 +661,28 @@ TRAIN_CHECK_LAYERS = 4              # the gradient check's cut of 24 layers
 # at a gain of about one: 4 x 2 x 1.2e-4 ~ 1e-3
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_LOSS_TOL = 1e-5               # relative, kernel vs plain attention
+# the bfloat16 step (train_bf16): qwen1.5-0.5b at the models' default
+# RunOptions, 4 steps of 4 x 2,048 tokens
+TRAIN_BF16_STEPS = 4
+# of each leaf's largest |gradient|, the bfloat16 step through the
+# kernels against the plain-attention step: the backward kernel takes
+# delta = rowsum(dO o) from the forward's o in bfloat16 (its input, as
+# the plain backward flash_attention_bwd_ref's), each |dO o| term off by
+# up to half an ulp (2^-9), where the plain step's autograd has the
+# float32 o; dS = P (dP - delta) moves by P times that, and dS is a
+# difference that cancels, most in the key bias's gradient (the
+# softmax's shift invariance makes it a sum of cancelling terms). With
+# K3's plain versions in the kernels' place on the CPU (o rounded to
+# bfloat16 as the kernel receives it) it read 1.3% (reduced qwen, 128
+# tokens) and 1.5% (full width, 2 layers, 512 tokens) of a leaf's
+# largest magnitude; 4 layers hand it on at a gain of about one: 5e-2
+TRAIN_BF16_GRAD_TOL = 5e-2
+# relative: the forward kernel's bfloat16 output and the plain version's
+# are float32 results within error_bound's bfloat16 terms of each other,
+# rounded to bfloat16: an element may differ by its last bit (2^-8),
+# which the 4 layers' residual stream and the loss's mean over 8,192
+# tokens average down
+TRAIN_BF16_LOSS_TOL = 1e-3
 FAMILY_TOL = 1e-5                   # the CPU parity tests' Model.loss tolerance
 FAMILY_SEQ = 64                     # past reduced mixtral's window of 32
 # the backward timed at the training shapes, with its launches per step
@@ -1258,6 +1305,7 @@ def _k3_bwd_cases():
     yield 1, 90, 20, 2, 1, 32, False, 8               # rows 27.. see no key
     yield 1, 70, 50, 4, 2, 10, True, None             # D = 10
     yield 2, 100, 120, 4, 2, 64, True, None, 1        # bases off 16 bytes
+    yield 1, 300, 333, 4, 2, 128, True, 100, 1        # and at D = 128
     for case in _k3_cases():
         if case[1] != 2048:
             yield case
@@ -1309,14 +1357,19 @@ def phase_kernel_k3_bwd(dev):
     """K3's backward against its plain version ``flash_attention_bwd_ref``
     run in float64 on the same CUDA tensors (q, k, v, dO and the
     forward's o and log-sum-exp), within ``bwd_error_bound``, float32 and
-    bfloat16 (bfloat16: on the widened inputs, the rounding of dq, dk and
-    dv added); the forward's log-sum-exp against ``lse_ref`` in float64
+    bfloat16 (bfloat16: the bfloat16 kernel's terms, the plain version on
+    the widened inputs, the rounding of dq, dk and dv added; every
+    launch through ``flash_attention_bwd_bf16.cu``, counted in
+    ``FA.BF16_BWD_LAUNCHES``, and every tile route of both passes among
+    the cases); the forward's log-sum-exp against ``lse_ref`` in float64
     within ``lse_error_bound`` (+inf exactly where a row sees no key);
     each case launched twice, the same bits both times (no atomics); then
-    one finite-difference check of the float32 gradient."""
+    one finite-difference check of the float32 gradient. Returns the
+    largest error of each dtype."""
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(12)
     errs, before = {}, FA.BWD_LAUNCHES
+    bf16_before, routes = FA.BF16_BWD_LAUNCHES, set()
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Skv, H, G, D, causal, window, *sh in _k3_bwd_cases():
@@ -1330,6 +1383,7 @@ def phase_kernel_k3_bwd(dev):
             k, v = randn((B, Skv, G, D)), randn((B, Skv, G, D))
             o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
                                                 window=window)
+            b16 = FA.BF16_BWD_LAUNCHES
             got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                          window=window)
             again = FA.flash_attention_bwd(q, k, v, o, do, lse,
@@ -1337,6 +1391,18 @@ def phase_kernel_k3_bwd(dev):
             sync()
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             del again
+            bf16 = dtype == torch.bfloat16
+            if FA.BF16_BWD_LAUNCHES - b16 != (2 if bf16 else 0):
+                raise AssertionError(f"K3 backward {dtype}: "
+                                     f"{FA.BF16_BWD_LAUNCHES - b16} launches "
+                                     f"of the bfloat16 kernel in 2")
+            shape = FA.bwd_bf16_launch_shape(q, k, v, do) if bf16 else None
+            if bf16:
+                routes |= {shape["load"],
+                           ("dkdv", shape["head_dim_padded"],
+                            shape["dkdv_warpgroups"]),
+                           ("dq", shape["head_dim_padded"],
+                            shape["dq_warpgroups"])}
             name = (f"B{B}_Sq{Sq}_Skv{Skv}_H{H}_G{G}_D{D}"
                     f"{'_causal' if causal else ''}"
                     f"{f'_w{window}' if window else ''}"
@@ -1355,10 +1421,9 @@ def phase_kernel_k3_bwd(dev):
             want = FA.flash_attention_bwd_ref(
                 *(x.double() for x in (q, k, v, o, do)), lse.double(),
                 causal=causal, window=window)
-            bound = FA.bwd_error_bound(
-                q.float(), k.float(), v.float(), o.float(), do.float(), lse,
-                causal=causal, window=window,
-                refs=want if dtype == torch.bfloat16 else None)
+            bound = FA.bwd_error_bound(q, k, v, o, do, lse, causal=causal,
+                                       window=window,
+                                       refs=want if bf16 else None)
             ratios = [_ratio((a.double() - b).abs(), c)
                       for a, b, c in zip(got, want, bound)]
             err = max(float((a.double() - b).abs().max())
@@ -1373,13 +1438,26 @@ def phase_kernel_k3_bwd(dev):
                     f"dq dk dv {[round(r, 4) for r in ratios]}x "
                     f"bwd_error_bound")
             errs[name] = {"err": err, "of_bound": max(ratios),
-                          "lse_of_bound": lse_ratio}
+                          "lse_of_bound": lse_ratio,
+                          **({"launch": shape} if bf16 else {})}
             del q, k, v, do, o, lse, got, want, bound, l64
+    # (c) at D = 64 runs one warpgroup a block at every length
+    want_routes = set(FA.BF16_LOADS) | {
+        (p, dp, wg) for p in ("dkdv", "dq") for dp in (64, 128)
+        for wg in (1, 2) if (p, dp, wg) != ("dq", 64, 2)}
+    if not want_routes <= routes:
+        raise AssertionError(f"K3 backward bfloat16: tile routes "
+                             f"{sorted(map(str, want_routes - routes))} "
+                             f"not taken by any case")
     fd = _k3_bwd_fd(FA, dev)
     emit("kernel_k3_bwd", cases=len(errs),
-         launches=FA.BWD_LAUNCHES - before, finite_difference=fd,
-         phase_s=time.perf_counter() - t0, max_abs_err=errs)
-    return max(e["err"] for e in errs.values())
+         launches=FA.BWD_LAUNCHES - before,
+         bf16_launches=FA.BF16_BWD_LAUNCHES - bf16_before,
+         finite_difference=fd, phase_s=time.perf_counter() - t0,
+         max_abs_err=errs)
+    return {dt: max(e["err"] for n, e in errs.items()
+                    if n.endswith("_bf16") == (dt == "bf16"))
+            for dt in ("f32", "bf16")}
 
 
 def _k4_cases():
@@ -3295,35 +3373,37 @@ def _train_step(step_fn, state, batch):
     return state, {k: float(v) for k, v in met.items()}
 
 
-def _train_steps(dev, cfg, batch, seq, kernels, lr=TRAIN["lr"]):
-    """TRAIN["steps"] steps of the launcher's train step
-    (``launch.train.train_options``: remat none, float32; AdamW, the clip
-    and the warmup-cosine schedule at peak rate ``lr``) on ``cfg`` from
-    random weights (seed 0) at ``batch`` x ``seq`` tokens, the launches
-    of ``kernels`` ({name: wrapper module}: the forward's LAUNCHES and the
-    backward's BWD_LAUNCHES) set to 0 just before the steps and read
-    after each. Returns the run's numbers; the state is dropped."""
+def _train_steps(dev, cfg, batch, seq, kernels, lr=TRAIN["lr"], opts=None,
+                 steps=TRAIN["steps"], counters=("LAUNCHES", "BWD_LAUNCHES")):
+    """``steps`` steps of the launcher's train step (run options ``opts``,
+    by default ``launch.train.train_options``: remat none, float32;
+    AdamW, the clip and the warmup-cosine schedule at peak rate ``lr``)
+    on ``cfg`` from random weights (seed 0) at ``batch`` x ``seq`` tokens,
+    the ``counters`` of ``kernels`` ({name: wrapper module}: by default
+    the forward's LAUNCHES and the backward's BWD_LAUNCHES) set to 0 just
+    before the steps and read after each. Returns the run's numbers; the
+    state is dropped."""
     from repro_torch.data.tokens import make_batch_iter
     from repro_torch.launch import train as LT
     from repro_torch.models.model import Model
     from repro_torch.runtime.steps import init_train_state, make_train_step
 
-    model = Model(cfg, LT.train_options(seq))
+    model = Model(cfg, opts or LT.train_options(seq))
     state, init_s = timed(lambda: init_train_state(
         model, torch.Generator(device=dev).manual_seed(0), dev))
     n_params = _n_params(state["params"])
     step_fn = make_train_step(model, peak_lr=lr, warmup=LT.WARMUP,
-                              total_steps=TRAIN["steps"])
+                              total_steps=steps)
     it = make_batch_iter(cfg, global_batch=batch, seq_len=seq, seed=0,
                          device=dev)
-    batches = [next(it) for _ in range(TRAIN["steps"])]
+    batches = [next(it) for _ in range(steps)]
 
     def counts():
-        return [n for k in kernels.values()
-                for n in (k.LAUNCHES, k.BWD_LAUNCHES)]
+        return [getattr(k, c) for k in kernels.values() for c in counters]
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
-        k.LAUNCHES = k.BWD_LAUNCHES = 0
+        for c in counters:
+            setattr(k, c, 0)
         if hasattr(k, "WINDOW_LAUNCHES"):
             k.WINDOW_LAUNCHES = 0
     metrics, secs, per_step = [], [], []
@@ -3356,6 +3436,55 @@ def _check_train(what, run, per_layer):
             or any(p != per_layer for p in run["per_step"]):
         raise AssertionError(f"{what}: losses {losses}, launches per step "
                              f"{run['per_step']} (want {per_layer})")
+
+
+def phase_train_bf16(dev):
+    """The train step at the models' default RunOptions, counts set to 0
+    just before the steps and read just after: qwen1.5-0.5b at its
+    published config, params in float32 and compute in bfloat16
+    (otherwise the launcher's options: remat none), 4 steps at batch 4 x
+    2,048 tokens, K3's bfloat16 forward and its bfloat16 backward kernel
+    (``csrc/flash_attention_bwd_bf16.cu``) each once per layer and step.
+    Then ``train_grad_check`` at bfloat16 compute against the
+    plain-attention step, within TRAIN_BF16_LOSS_TOL and
+    TRAIN_BF16_GRAD_TOL, each layer's backward through the bfloat16
+    kernel."""
+    import dataclasses
+    from repro_torch.configs.base import get
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as LT
+
+    t0 = time.perf_counter()
+    cfg = get("qwen1.5-0.5b")
+    opts = dataclasses.replace(LT.train_options(TRAIN["seq"]),
+                               compute_dtype="bfloat16")
+    counters = ("LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES",
+                "BF16_BWD_LAUNCHES")
+    run = _train_steps(dev, cfg, TRAIN["batch"], TRAIN["seq"],
+                       {"flash_attention": FA}, opts=opts,
+                       steps=TRAIN_BF16_STEPS, counters=counters)
+    _check_train("train_bf16", run, [cfg.n_layers] * len(counters))
+    fwd, bwd, fwd16, bwd16 = run["totals"]
+    b0 = FA.BF16_BWD_LAUNCHES
+    grads = train_grad_check(dev, cfg, opts=opts,
+                             loss_tol=TRAIN_BF16_LOSS_TOL,
+                             grad_tol=TRAIN_BF16_GRAD_TOL)
+    if FA.BF16_BWD_LAUNCHES - b0 != TRAIN_CHECK_LAYERS:
+        raise AssertionError(f"train_bf16 grad check: "
+                             f"{FA.BF16_BWD_LAUNCHES - b0} bfloat16 "
+                             f"backward launches, not {TRAIN_CHECK_LAYERS}")
+    emit("train_bf16", arch=cfg.name, layers=cfg.n_layers,
+         params=run["params"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+         remat=opts.remat, compute_dtype=opts.compute_dtype,
+         param_dtype=opts.param_dtype, lr=TRAIN["lr"], init_s=run["init_s"],
+         losses=run["losses"], gnorms=run["gnorms"], lrs=run["lrs"],
+         step_s=run["step_s"], first_step_s=run["first_step_s"],
+         step_s_median=run["step_s_median"], tok_per_s=run["tok_per_s"],
+         peak_mem_bytes=run["peak_mem_bytes"],
+         k3_launches_per_step=run["per_step"], launches_order=list(counters),
+         grad_check=grads, phase_s=time.perf_counter() - t0)
+    return {"fwd_launches": fwd16, "bwd_launches": bwd16,
+            "step_s": run["step_s_median"]}
 
 
 def phase_train(dev):
@@ -3394,14 +3523,15 @@ def phase_train(dev):
 
 
 def train_grad_check(dev, cfg, batch=TRAIN["batch"], plain=None,
-                     kernels=None):
+                     kernels=None, opts=None, loss_tol=TRAIN_LOSS_TOL,
+                     grad_tol=TRAIN_GRAD_TOL):
     """The first step's loss and per-leaf gradients at full width cut to
     TRAIN_CHECK_LAYERS layers, through the kernels both ways, against the
     same step with them on their plain versions (``plain``, by default
-    ``plain_attention``; autograd through them): the loss within
-    TRAIN_LOSS_TOL relative, each leaf within TRAIN_GRAD_TOL of its
-    largest magnitude, each backward kernel of ``kernels`` (by default
-    K3's) launched once per layer."""
+    ``plain_attention``; autograd through them), at run options ``opts``
+    (by default the launcher's): the loss within ``loss_tol`` relative,
+    each leaf within ``grad_tol`` of its largest magnitude, each backward
+    kernel of ``kernels`` (by default K3's) launched once per layer."""
     import dataclasses
     from repro_torch.data.tokens import make_batch_iter
     from repro_torch.kernels import flash_attention as FA
@@ -3412,7 +3542,7 @@ def train_grad_check(dev, cfg, batch=TRAIN["batch"], plain=None,
     plain = plain or plain_attention
     kernels = kernels or {"flash_attention": FA}
     cut = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
-    model = Model(cut, LT.train_options(TRAIN["seq"]))
+    model = Model(cut, opts or LT.train_options(TRAIN["seq"]))
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     batch = next(make_batch_iter(cut, global_batch=batch,
                                  seq_len=TRAIN["seq"], seed=0, device=dev))
@@ -3427,13 +3557,13 @@ def train_grad_check(dev, cfg, batch=TRAIN["batch"], plain=None,
     gc.collect()
     torch.cuda.empty_cache()
     if any(n != TRAIN_CHECK_LAYERS for n in launches.values()) \
-            or not rel <= TRAIN_LOSS_TOL or not max(errs) <= TRAIN_GRAD_TOL:
+            or not rel <= loss_tol or not max(errs) <= grad_tol:
         raise AssertionError(f"{cfg.name} train grads vs plain versions: "
                              f"loss rel {rel}, leaves {errs}, backward "
                              f"launches {launches}")
     return {"layers": TRAIN_CHECK_LAYERS, "loss": float(loss),
             "loss_rel_err": rel, "grad_rel_err_max": max(errs),
-            "grad_rel_err": errs, "tol": TRAIN_GRAD_TOL,
+            "grad_rel_err": errs, "tol": grad_tol, "loss_tol": loss_tol,
             "bwd_launches": launches}
 
 
@@ -3622,20 +3752,25 @@ def phase_train_families(dev):
     return out
 
 
-def phase_time_k3_bwd(dev, fam):
+def phase_time_k3_bwd(dev, fam, tb):
     """K3's backward at the training shapes (``K3_BWD_TIME``: qwen1.5-0.5b,
     whisper-large-v3's encoder, mixtral-8x7b at D = 128), float32 and
     bfloat16: the kernel, its plain version and the library's backward
     (``scaled_dot_product_attention``'s, through ``torch.autograd.grad``),
     CUDA-event medians, beside its launches per train step at the
     published depth (mixtral's also as counted in ``train_families``,
-    ``fam``) and its bound: the five products of the gradient (2.5 times
-    the forward's QK^T and PV) over the pairs the mask lets through, 2
-    flops a MAC, at the card's peak for the operands' type (float32 at
-    3xTF32, three TF32 products for each float32 one on the tensor cores,
-    the kernel's arithmetic; bfloat16 at the dense bf16 rate), or its
-    bytes (q, k, v, o, dO and lse read once, dq, dk and dv written once)
-    at HBM bandwidth, whichever is larger."""
+    ``fam``; qwen's bfloat16 row as counted in ``train_bf16``, ``tb``) and
+    its bound: the five products of the gradient (2.5 times the forward's
+    QK^T and PV) over the pairs the mask lets through, 2 flops a MAC, at
+    the card's peak for the operands' type (float32 at 3xTF32, three TF32
+    products for each float32 one on the tensor cores, the kernel's
+    arithmetic; bfloat16 at the dense bf16 rate), or its bytes (q, k, v,
+    o, dO and lse read once, dq, dk and dv written once) at HBM
+    bandwidth, whichever is larger. bfloat16 rows also carry the
+    design's floor, ``bound_design_ms``: twice the operations' time, for
+    the ten bf16 product units the kernel runs (S and dP in each of its
+    two passes, dV, dK and dQ each twice: P and dS in two parts) where
+    the bound counts five. Returns every row."""
     gen = torch.Generator(device=dev).manual_seed(13)
     out = {}
     for name, (shape, per_step) in K3_BWD_TIME.items():
@@ -3646,9 +3781,12 @@ def phase_time_k3_bwd(dev, fam):
             if name == "mixtral_train":
                 e["train_families_launches_per_step"] = \
                     fam["mixtral-8x7b"]["k3_launches"][1]
+            if name == "qwen_train" and dtype == torch.bfloat16:
+                e["train_bf16_launches_per_step"] = \
+                    tb["bwd_launches"] // TRAIN_BF16_STEPS
             out[name if dtype == torch.float32 else name + "_bf16"] = e
     emit("time_k3_bwd", flash_attention_bwd=out)
-    return out["qwen_train"]
+    return out
 
 
 def _time_k3_bwd(shape, gen, dev, dtype):
@@ -3672,6 +3810,8 @@ def _time_k3_bwd(shape, gen, dev, dtype):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
              else flops / BF16_FLOP_PER_S) * 1e3
+    design = {} if dtype == torch.float32 else {
+        "bound_design_ms": max(2 * op_ms, byte_ms)}
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
     lib_o = F.scaled_dot_product_attention(
@@ -3686,7 +3826,7 @@ def _time_k3_bwd(shape, gen, dev, dtype):
             "library_ms": cuda_ms(lambda: torch.autograd.grad(
                 lib_o, (qt, kt, vt), lib_do, retain_graph=True), 20),
             "flops": flops, "bytes": nbytes,
-            "bound_ms": max(op_ms, byte_ms),
+            "bound_ms": max(op_ms, byte_ms), **design,
             "bound_by": "operations" if op_ms > byte_ms else "bytes"}
 
 
@@ -6241,6 +6381,7 @@ def run(dev) -> None:
     sm = phase_serve_moe(dev)
     se = phase_serve_encdec(dev)
     tr = phase_train(dev)
+    tb = phase_train_bf16(dev)
     tssm = phase_train_ssm(dev)
     thyb = phase_train_hybrid(dev)
     fam = phase_train_families(dev)
@@ -6250,7 +6391,7 @@ def run(dev) -> None:
     h3, h4 = phase_time_hybrid(dev)
     m3 = phase_time_moe(dev)
     e3 = phase_time_encdec(dev)
-    k3b = phase_time_k3_bwd(dev, fam)
+    k3b = phase_time_k3_bwd(dev, fam, tb)
     k4b = phase_time_k4_bwd(dev, tssm, thyb)
     mm = phase_multi(dev, m)
     multi_err = phase_multi_check(mm)
@@ -6318,7 +6459,7 @@ def run(dev) -> None:
         "source": "src/repro_torch/csrc/flash_attention_bf16.cu",
         "replaces": "src/repro/kernels/flash_attention.py:67",
         "launches": (sv["k3_bf16"] + sh["k3_bf16"] + sm["k3_bf16"]
-                     + se["k3_bf16"] + sdp["k3"]),
+                     + se["k3_bf16"] + sdp["k3"] + tb["fwd_launches"]),
         "max_abs_err": k3_bf16_err,
         "ms": k3["bf16"]["kernel_ms"],
         "plain_ms": k3["bf16"]["plain_ms"],
@@ -6358,12 +6499,25 @@ def run(dev) -> None:
         "replaces": ("XLA's gradient of src/repro/models/attention.py:50 "
                      "(no Pallas kernel)"),
         "launches": tr["bwd_launches"] + td["k3_bwd"],
-        "max_abs_err": k3b_err,
-        "ms": k3b["kernel_ms"],
-        "plain_ms": k3b["plain_ms"],
-        "bound_ms": k3b["bound_ms"],
-        "bound_by": k3b["bound_by"],
-        "library_ms": k3b["library_ms"],
+        "max_abs_err": k3b_err["f32"],
+        "ms": k3b["qwen_train"]["kernel_ms"],
+        "plain_ms": k3b["qwen_train"]["plain_ms"],
+        "bound_ms": k3b["qwen_train"]["bound_ms"],
+        "bound_by": k3b["qwen_train"]["bound_by"],
+        "library_ms": k3b["qwen_train"]["library_ms"],
+    }, {
+        "name": "flash_attention_bwd[bf16]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd_bf16.cu",
+        "replaces": ("XLA's gradient of src/repro/models/attention.py:50 "
+                     "(no Pallas kernel)"),
+        "launches": tb["bwd_launches"],
+        "max_abs_err": k3b_err["bf16"],
+        "ms": k3b["qwen_train_bf16"]["kernel_ms"],
+        "plain_ms": k3b["qwen_train_bf16"]["plain_ms"],
+        "bound_ms": k3b["qwen_train_bf16"]["bound_ms"],
+        "bound_by": k3b["qwen_train_bf16"]["bound_by"],
+        "library_ms": k3b["qwen_train_bf16"]["library_ms"],
     }] + [{
         "name": f"ssd_scan_bwd{suffix}",
         "route": "cuda",

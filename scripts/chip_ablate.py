@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by ablation, on one NVIDIA card.
 
-    python3 scripts/chip_ablate.py [k4 k4_bf16 k3 k3_bf16 k3_bwd k4_bwd k1]
+    python3 scripts/chip_ablate.py [k4 k4_bf16 k3 k3_bf16 k3_bwd k3_bwd_bf16
+                                    k4_bwd k1]
 
-from the repository root. With no names it runs all seven.
+from the repository root. With no names it runs all eight.
 
 The card's machine has no profiler that reads kernel counters, so this
 script builds edited copies of a kernel source (a loop bound set to 0,
@@ -46,16 +47,23 @@ part taken out.
   design's alternative ``cp_async`` (every tile by 16-byte cp.async
   instead of TMA, the same function, with a flag for the kernel's
   bits).
-- K3's backward (``csrc/flash_attention_bwd.cu``) at each shape of
-  ``chip_smoke.K3_BWD_TIME`` (qwen1.5-0.5b's and mixtral-8x7b's training
-  shapes, whisper-large-v3's encoder), float32 and bfloat16. Its cuts
-  are the design's alternatives, each computing the same function:
+- K3's float32 backward (``csrc/flash_attention_bwd.cu``) at each shape
+  of ``chip_smoke.K3_BWD_TIME`` (qwen1.5-0.5b's and mixtral-8x7b's
+  training shapes, whisper-large-v3's encoder). Its cuts are the
+  design's alternatives, each computing the same function:
   ``wg1`` (one warpgroup a block everywhere, no second warpgroup
   sharing the streamed tile), ``dead`` (a branch that skips a
   warpgroup's products on a tile the mask rules out for all its rows)
   and ``cvt_split`` (the TF32 split by two ``cvt.rna`` instead of
   ``split_bits``' integer arithmetic). Each reports whether it gave the
   kernel's bits.
+- K3's bfloat16 backward (``csrc/flash_attention_bwd_bf16.cu``) at the
+  same shapes: ``one_part`` (P and dS in one bf16 part, the lo parts'
+  products dropped: what the second part costs), and the design's
+  alternatives, computing the same function: ``cp_async`` (every
+  streamed tile by 16-byte cp.async from the producer warp instead of
+  TMA) and ``wg1`` (one consumer warpgroup a block everywhere). Each
+  reports whether it gave the kernel's bits.
 - K4's backward (``csrc/ssd_scan_bwd.cu``) at each shape of
   ``chip_smoke.K4_BWD_TIME`` (mamba2-370m's and hymba-1.5b's training
   shapes), float32 and bfloat16, the whole gradient and each of its
@@ -160,7 +168,7 @@ K4_BF16_CUTS = {
 # the cuts that compute the same function
 K4_BF16_SAME = ("cp_async",)
 K3_BWD_CUTS = {
-    "wg1": [("constexpr int WG = sizeof(In) == 4 && DP == 128 ? 1 : 2;",
+    "wg1": [("constexpr int WG = DP == 128 ? 1 : 2;",
              "constexpr int WG = 1;")],
     "dead": [("    const int c0 = tile_row(it);\n",
               "    const int c0 = tile_row(it);\n"
@@ -172,6 +180,16 @@ K3_BWD_CUTS = {
               "    if (dead) continue;\n")],
     "cvt_split": [("split_bits(", "split(")],
 }
+K3_BWD_BF16_CUTS = {
+    "one_part": [("        wgmma_bf16_rs<DP>(acc1, dl[j], y1d);\n", ""),
+                 ("          wgmma_bf16_rs<DP>(acc2, pl[j], y2d);\n", "")],
+    "cp_async": [("  return D >= ATOM ? LOAD_TMA : LOAD_CP_ASYNC;",
+                  "  return LOAD_CP_ASYNC;")],
+    "wg1": [("  return rows >= 256 && (DKDV || DP == 128) ? 2 : 1;",
+             "  return 1;")],
+}
+# the cuts that compute the same function
+K3_BWD_BF16_SAME = ("cp_async", "wg1")
 K4_BWD_CUTS = {
     "hs1": [("#define HSMAX 4 ", "#define HSMAX 1 ")],
     "one_pass": [
@@ -292,11 +310,16 @@ def k3_bf16(dev) -> dict:
     return out
 
 
-def k3_bwd(dev) -> dict:
+def _k3_bwd_cuts(dev, lib: str, symbol: str, cuts, dtype, same=()) -> dict:
+    """K3's backward in ``dtype`` (the real kernel through
+    ``flash_attention_bwd``, each cut of ``cuts`` through its own build of
+    ``csrc/<lib>.cu``) at each shape of ``chip_smoke.K3_BWD_TIME``:
+    CUDA-event medians and whether each cut gave the kernel's bits (an
+    error where a cut in ``same`` did not)."""
     fns = {}
-    for cut, edits in K3_BWD_CUTS.items():
-        fn = ablated("flash_attention_bwd", cut, edits).flash_attention_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    for cut, edits in cuts.items():
+        fn = getattr(ablated(lib, cut, edits), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[cut] = fn
@@ -304,38 +327,50 @@ def k3_bwd(dev) -> dict:
     out = {}
     for name, (shape, _) in C.K3_BWD_TIME.items():
         B, Sq, Skv, H, G, D, causal, window = shape
-        for dtype in (torch.float32, torch.bfloat16):
-            q, do = (torch.randn((B, Sq, H, D), generator=gen, device=dev)
-                     .to(dtype) for _ in range(2))
-            k, v = (torch.randn((B, Skv, G, D), generator=gen, device=dev)
-                    .to(dtype) for _ in range(2))
-            o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
-                                                window=window)
-            want = FA.flash_attention_bwd(q, k, v, o, do, lse,
-                                          causal=causal, window=window)
-            got = [torch.empty_like(x) for x in (q, k, v)]
-            delta = torch.empty((B, H, Sq), device=dev)
+        q, do = (torch.randn((B, Sq, H, D), generator=gen, device=dev)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((B, Skv, G, D), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                            window=window)
+        want = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                      window=window)
+        got = [torch.empty_like(x) for x in (q, k, v)]
+        delta = torch.empty((B, H, Sq), device=dev)
 
-            def cut_call(fn):
-                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                         delta.data_ptr(), *(x.data_ptr() for x in got), B,
-                         Sq, Skv, H, G, D, int(causal), int(window or 0),
-                         int(dtype == torch.bfloat16), D ** -0.5,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"K3 backward cut: cudaError {err}")
-            res = {"kernel": C.cuda_ms(lambda: FA.flash_attention_bwd(
-                q, k, v, o, do, lse, causal=causal, window=window), 20)}
-            for cut, fn in fns.items():
-                cut_call(fn)
-                C.sync()
-                same = all(torch.equal(a, b) for a, b in zip(got, want))
-                res[cut] = C.cuda_ms(lambda: cut_call(fn), 20)
-                res[cut + "_same_bits"] = same
-            out[f"{name}_{str(dtype)[6:]}"] = res
-            del q, k, v, o, do, lse, want, got, delta
+        def cut_call(fn):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     *(x.data_ptr() for x in got), B, Sq, Skv, H, G, D,
+                     int(causal), int(window or 0), D ** -0.5,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"K3 backward cut: cudaError {err}")
+        res = {"kernel": C.cuda_ms(lambda: FA.flash_attention_bwd(
+            q, k, v, o, do, lse, causal=causal, window=window), 20)}
+        for cut, fn in fns.items():
+            cut_call(fn)
+            C.sync()
+            res[cut + "_same_bits"] = all(torch.equal(a, b)
+                                          for a, b in zip(got, want))
+            res[cut] = C.cuda_ms(lambda: cut_call(fn), 20)
+            if cut in same and not res[cut + "_same_bits"]:
+                raise AssertionError(f"{lib} {name}: {cut} changed the "
+                                     f"kernel's bits")
+        out[f"{name}_{str(dtype)[6:]}"] = res
+        del q, k, v, o, do, lse, want, got, delta
     return out
+
+
+def k3_bwd(dev) -> dict:
+    return _k3_bwd_cuts(dev, "flash_attention_bwd", "flash_attention_bwd",
+                        K3_BWD_CUTS, torch.float32)
+
+
+def k3_bwd_bf16(dev) -> dict:
+    return _k3_bwd_cuts(dev, "flash_attention_bwd_bf16",
+                        "flash_attention_bwd_bf16", K3_BWD_BF16_CUTS,
+                        torch.bfloat16, K3_BWD_BF16_SAME)
 
 
 def k4(dev) -> dict:
@@ -481,6 +516,7 @@ def main() -> int:
              "k3": ("k3_ms", k3),
              "k3_bf16": ("k3_bf16_ms", k3_bf16),
              "k3_bwd": ("k3_bwd_ms", k3_bwd),
+             "k3_bwd_bf16": ("k3_bwd_bf16_ms", k3_bwd_bf16),
              "k4_bwd": ("k4_bwd_ms", k4_bwd),
              "k1": ("k1_window_x_category_ms", k1)}
     names = sys.argv[1:] or list(parts)

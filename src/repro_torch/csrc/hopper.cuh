@@ -3,16 +3,20 @@
 // widened to float32 as they land, cp.async, the wgmma fences, the
 // shared-memory matrix descriptor and the m64nNk8 tf32 wgmma wrappers;
 // then, for bfloat16 operands kept as they are: the 128-byte swizzle, its
-// descriptor, mbarriers, TMA and the m64nNk16 bf16 wgmma wrappers.
+// descriptor, mbarriers, TMA and the m64nNk16 bf16 wgmma wrappers; last,
+// what K3's two backward kernels share: the forward's mask and the delta
+// pass.
 //
 // Layout the tf32 descriptors assume (settled on the card for K3): no
 // swizzle, core matrices of 8 rows x 4 32-bit words (16 bytes a row, 128
 // bytes a matrix) stored contiguously; tf32 wgmma reads both shared
 // operands K-major only. The bf16 layout is at its section below.
 // Included by csrc/flash_attention.cu, csrc/flash_attention_bf16.cu,
-// csrc/flash_attention_bwd.cu and csrc/ssd_scan.cu.
+// csrc/flash_attention_bwd.cu, csrc/flash_attention_bwd_bf16.cu and the
+// K4 sources.
 #pragma once
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 // Operand types: float32, or bfloat16 widened to float32 on load (exact:
@@ -322,6 +326,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// moves registers between the warpgroups of a warp-specialised block:
+// this warpgroup's threads drop to / wait for R registers each (all four
+// of its warps execute it; R a multiple of 8 in 24 .. 256)
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
 // barrier `id` (1..15) over the first `threads` threads of the block
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
@@ -350,6 +366,26 @@ __device__ __forceinline__ void wgmma_bf16_ss_n64(float (&d)[32], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A * B, m64n32k16 bf16, A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_bf16_ss_n32(float (&d)[16], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// N of a bf16 product with both operands K-major in shared memory: 32 or
+// 64 (K3 backward's streamed tiles)
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db) {
+  if constexpr (N == 32) wgmma_bf16_ss_n32(d, da, db);
+  else wgmma_bf16_ss_n64(d, da, db);
 }
 
 // d += A * B, m64n64k16 bf16, A from registers, B from shared memory
@@ -384,4 +420,56 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2],
                                               uint64_t db) {
   if constexpr (N == 64) wgmma_bf16_rs_n64(d, a, db);
   else wgmma_bf16_rs_n128(d, a, db);
+}
+
+
+// ------------------------------------------------ K3's backward -------
+// the forward's mask: key kp is visible to query qp (window <= 0: none)
+__device__ __forceinline__ bool attn_visible(int qp, int kp, int Sq, int Skv,
+                                             int causal, int window) {
+  if (qp >= Sq || kp >= Skv) return false;
+  if (causal && kp > qp) return false;
+  if (window > 0 && kp <= qp - window) return false;
+  return true;
+}
+
+#define ATTN_DELTA_THREADS 256        // a warp a row
+
+// pass (a) of both backward kernels: delta[b, h, q] = sum_d dO * O over
+// the D values of each (b, q, h) row of o and dout (B, Sq, H, D), one
+// warp a row (a fmaf chain a lane, then the lanes' sums by xor-shuffle)
+template <typename In>
+__global__ void __launch_bounds__(ATTN_DELTA_THREADS)
+    attn_bwd_delta(const In* o_, const In* dout, float* delta, int B, int Sq,
+                   int H, int D) {
+  const int64_t row =
+      (int64_t)blockIdx.x * (ATTN_DELTA_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= (int64_t)B * Sq * H) return;
+  const In* o = o_ + row * D;
+  const In* d = dout + row * D;
+  float s = 0.f;
+  for (int i = lane; i < D; i += 32) s = fmaf(widen(o[i]), widen(d[i]), s);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const int h = (int)(row % H);
+    const int64_t bq = row / H;
+    const int qp = (int)(bq % Sq), b = (int)(bq / Sq);
+    delta[((int64_t)b * H + h) * Sq + qp] = s;
+  }
+}
+
+// launches pass (a) over the B Sq H rows; returns cudaGetLastError()
+template <typename In>
+static int attn_bwd_delta_launch(const In* o, const In* dout, float* delta,
+                                 int B, int Sq, int H, int D,
+                                 cudaStream_t stream) {
+  const int64_t rows = (int64_t)B * Sq * H;
+  if (rows == 0) return 0;
+  const int64_t warps = ATTN_DELTA_THREADS / 32;
+  attn_bwd_delta<In><<<(unsigned)((rows + warps - 1) / warps),
+                       ATTN_DELTA_THREADS, 0, stream>>>(o, dout, delta, B,
+                                                        Sq, H, D);
+  return (int)cudaGetLastError();
 }

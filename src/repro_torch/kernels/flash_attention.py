@@ -9,16 +9,18 @@ never falls back: ``csrc/flash_attention.cu`` for float32 q, k and v,
 ``csrc/flash_attention_bf16.cu`` for bfloat16 ones. When a gradient is
 needed (grad mode on and an input that requires it) the launch goes
 through ``FlashAttentionFn``: its forward has the kernel also write each
-row's log-sum-exp, and its backward launches ``csrc/flash_attention_bwd.cu``
-(``flash_attention_bwd``), a kernel of this port: the reference
+row's log-sum-exp, and its backward launches ``flash_attention_bwd``, a
+kernel of this port (``csrc/flash_attention_bwd.cu`` for float32,
+``csrc/flash_attention_bwd_bf16.cu`` for bfloat16): the reference
 differentiates its jnp attention through XLA and has no Pallas backward.
 Without a gradient nothing else is written. On a CPU tensor it runs the
 plain version ``flash_attention_ref``, the reference's
 ``ref.flash_attention_ref`` written in PyTorch: one masked softmax over
 the whole score matrix, which autograd differentiates. ``LAUNCHES``
 counts forward launches, ``WINDOW_LAUNCHES`` those of them with a
-sliding window, ``BF16_LAUNCHES`` those of the bfloat16 kernel, and
-``BWD_LAUNCHES`` backward launches.
+sliding window, ``BF16_LAUNCHES`` those of the bfloat16 kernel,
+``BWD_LAUNCHES`` backward launches and ``BF16_BWD_LAUNCHES`` those of
+them by the bfloat16 backward kernel.
 
 The kernels take q, k and v all in float32 or all in bfloat16 (the
 models' default compute dtype; the reference's kernel takes any float
@@ -44,11 +46,15 @@ reaches its q, and it gives nothing to k and v. Without the log-sum-exp
 (its value there depends on the block size, as the TPU kernel's does).
 
 The backward (``flash_attention_bwd``) runs its seven products on the
-tensor cores too: 3xTF32 for float32 operands; for bfloat16 ones S and
-dP take one TF32 product and dV, dK, dQ two (P and dS are float32), the
-same numbers as three. ``attention_bwd_tf32`` is a float64 model of that
-arithmetic, ``flash_attention_bwd_ref`` its plain version (the explicit
-formula, float64-capable) and ``bwd_error_bound`` its stated bound.
+tensor cores too. float32: 3xTF32, ``attention_bwd_tf32`` a float64
+model of that arithmetic. bfloat16: the tiles stay bfloat16 from device
+memory to bf16 ``wgmma``; S and dP are one bf16 product each on the
+values as they are (exact products, float32 sums), S scaled after; P and
+dS, float32, go into dV, dK and dQ in two bfloat16 parts
+(``bf16_split``); ``attention_bwd_bf16`` is a float64 model of that
+arithmetic. ``flash_attention_bwd_ref`` is the plain version (the
+explicit formula, float64-capable) and ``bwd_error_bound`` states each
+kernel's bound.
 
 On a ``meta`` tensor (the dry run's account, ``launch/dryrun.py``) the
 wrappers compute nothing: they return ``meta`` tensors of the kernels'
@@ -68,6 +74,7 @@ LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 BF16_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 # the operations the meta shape path reckoned: forward and backward
 META_OPS = {"forward": 0, "backward": 0}
 MAX_HEAD_DIM = 128
@@ -255,24 +262,21 @@ def attention_bf16(q, k, v, *, causal: bool = True,
 
 def attention_bwd_tf32(q, k, v, o, do, lse, *, causal: bool = True,
                        window: Optional[int] = None, passes: int = 3):
-    """A float64 model of the backward kernel's arithmetic: (dq, dk, dv) in
-    float64 from float32 q, k, v, o, do (bfloat16 ones widened) and the
-    forward's lse. S = q K^T and dP = dO V^T (each computed by both of the
-    kernel's passes, the same products), then dV = P^T dO, dK = scale dS^T
-    Q and dQ = scale dS K with P and dS rounded to float32, as the kernel
-    holds them; every product through ``tf32_products``. ``passes`` 3:
-    3xTF32 throughout (float32 operands); 2: the bfloat16 kernel's, S and
-    dP one TF32 product (a widened bfloat16's small half is 0), dV, dK
-    and dQ two (big*big + small*big of P or dS); 1: one TF32 product
-    throughout (plain TF32). P = exp(scale S - lse) where the mask lets
-    the key through, else 0, and dS = P (dP - delta) in float64. It leaves
-    out the float32 roundings of the sums, of exp and of delta, which
-    ``bwd_error_bound`` counts separately. One batch row at a time."""
-    if passes not in (1, 2, 3):
-        raise ValueError(f"passes must be 1, 2 or 3, not {passes}")
+    """A float64 model of the float32 backward kernel's arithmetic: (dq,
+    dk, dv) in float64 from float32 q, k, v, o, do and the forward's lse.
+    S = q K^T and dP = dO V^T (each computed by both of the kernel's
+    passes, the same products), then dV = P^T dO, dK = scale dS^T Q and dQ
+    = scale dS K with P and dS rounded to float32, as the kernel holds
+    them; every product through ``tf32_products``. ``passes`` 3: 3xTF32
+    throughout (the kernel); 1: one TF32 product throughout (plain TF32).
+    P = exp(scale S - lse) where the mask lets the key through, else 0,
+    and dS = P (dP - delta) in float64. It leaves out the float32
+    roundings of the sums, of exp and of delta, which ``bwd_error_bound``
+    counts separately. One batch row at a time."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, not {passes}")
     B, Sq, Skv, H, G, R, D = _groups(q, k)
     scale = D ** -0.5
-    first = 1 if passes == 2 else passes          # S and dP
     mask = _visible(Sq, Skv, causal, window, q.device)
     f64 = torch.float64
     dq = torch.empty((B, Sq, H, D), dtype=f64, device=q.device)
@@ -282,10 +286,10 @@ def attention_bwd_tf32(q, k, v, o, do, lse, *, causal: bool = True,
         qb = q[b].float().reshape(Sq, G, R, D)
         dob = do[b].float().reshape(Sq, G, R, D)
         kb, vb = k[b].float(), v[b].float()
-        s = tf32_products(qb, kb, first, "qgrd,sgd->grqs") * scale
+        s = tf32_products(qb, kb, passes, "qgrd,sgd->grqs") * scale
         lb = lse[b].to(f64).reshape(G, R, Sq, 1)
         p = torch.where(mask, torch.exp(torch.where(mask, s - lb, 0.0)), 0.0)
-        dp = tf32_products(dob, vb, first, "qgrd,sgd->grqs")
+        dp = tf32_products(dob, vb, passes, "qgrd,sgd->grqs")
         delta = (do[b].to(f64) * o[b].to(f64)).sum(-1).T.reshape(G, R, Sq, 1)
         ds = (p * (dp - delta)).float()
         p = p.float()
@@ -293,6 +297,62 @@ def attention_bwd_tf32(q, k, v, o, do, lse, *, causal: bool = True,
         dv[b] = tf32_products(p, dob, passes, "grqs,qgrd->sgd")
         dk[b] = scale * tf32_products(ds, qb, passes, "grqs,qgrd->sgd")
         dq[b] = (scale * tf32_products(ds, kb, passes, "grqs,sgd->qgrd")
+                 ).reshape(Sq, H, D)
+    return dq, dk, dv
+
+
+def bf16_parts(x: torch.Tensor, parts: int) -> torch.Tensor:
+    """float32 ``x`` as the sum of its first ``parts`` bfloat16 parts, in
+    float64: hi = bf16(x) (1), + lo = bf16(x - hi) (2, ``bf16_split``), +
+    bf16(x - hi - lo) (3). Each remainder is exact in float32."""
+    x = x.float()
+    out = torch.zeros_like(x, dtype=torch.float64)
+    for _ in range(parts):
+        part = x.to(torch.bfloat16).float()
+        out += part.double()
+        x = x - part
+    return out
+
+
+def attention_bwd_bf16(q, k, v, o, do, lse, *, causal: bool = True,
+                       window: Optional[int] = None, parts: int = 2):
+    """A float64 model of the bfloat16 backward kernel's arithmetic: (dq,
+    dk, dv) in float64 from bfloat16 q, k, v, o, do (float32 ones holding
+    bfloat16 values) and the forward's lse. S = q K^T and dP = dO V^T
+    exactly (each product of two bfloat16 numbers is exact in float32;
+    the model sums in float64), S times the float32 scale after the
+    product; P = exp(scale S - lse) where the mask lets the key through,
+    else 0, and dS = P (dP - delta), both rounded to float32 as the kernel
+    holds them, then each as the sum of its first ``parts`` bfloat16 parts
+    (``bf16_parts``; 2: the kernel's hi + lo; 1: hi alone, one bf16
+    product; 3: a third part); dV = P^T dO, dK = scale dS^T Q and dQ =
+    scale dS K from those parts, their products exact. It leaves out the
+    float32 roundings of the sums, of exp and of delta, which
+    ``bwd_error_bound`` counts separately. One batch row at a time."""
+    if parts not in (1, 2, 3):
+        raise ValueError(f"parts must be 1, 2 or 3, not {parts}")
+    B, Sq, Skv, H, G, R, D = _groups(q, k)
+    scale = float(torch.tensor(D ** -0.5, dtype=torch.float32))
+    mask = _visible(Sq, Skv, causal, window, q.device)
+    f64 = torch.float64
+    dq = torch.empty((B, Sq, H, D), dtype=f64, device=q.device)
+    dk = torch.empty((B, Skv, G, D), dtype=f64, device=q.device)
+    dv = torch.empty_like(dk)
+    for b in range(B):
+        qb = q[b].to(f64).reshape(Sq, G, R, D)
+        dob = do[b].to(f64).reshape(Sq, G, R, D)
+        kb, vb = k[b].to(f64), v[b].to(f64)
+        s = torch.einsum("qgrd,sgd->grqs", qb, kb) * scale
+        lb = lse[b].to(f64).reshape(G, R, Sq, 1)
+        p = torch.where(mask, torch.exp(torch.where(mask, s - lb, 0.0)), 0.0)
+        dp = torch.einsum("qgrd,sgd->grqs", dob, vb)
+        delta = (do[b].to(f64) * o[b].to(f64)).sum(-1).T.reshape(G, R, Sq, 1)
+        ds = bf16_parts((p * (dp - delta)).float(), parts)
+        p = bf16_parts(p.float(), parts)
+        del s, dp
+        dv[b] = torch.einsum("grqs,qgrd->sgd", p, dob)
+        dk[b] = scale * torch.einsum("grqs,qgrd->sgd", ds, qb)
+        dq[b] = (scale * torch.einsum("grqs,sgd->qgrd", ds, kb)
                  ).reshape(Sq, H, D)
     return dq, dk, dv
 
@@ -442,14 +502,14 @@ TINY32 = 2.0 ** -126
 def bwd_error_bound(q, k, v, o, do, lse, *, causal: bool = True,
                     window: Optional[int] = None, refs=None):
     """Bounds on |kernel - plain version| of the backward's (dq, dk, dv),
-    per element and in their shapes, float64, on float32 inputs
-    (bfloat16 ones widened: the kernel and the plain version both compute
-    on the widened values) and the same o and lse.
+    per element and in their shapes, float64, the plain version on the
+    same values (bfloat16 ones widened) and the same o and lse: for
+    float32 q, k, v, o, do those of the 3xTF32 kernel, for bfloat16 ones
+    those of the bfloat16 kernel (pass the bfloat16 tensors).
 
-    Derivation, u = 2^-24, e = PRODUCT_ERR (each term of a 3xTF32
-    product is off by at most e of its magnitude; a one- or two-product
-    term on bfloat16 operands is off by less), every sum in float32 in
-    any order (u per term, the forward's model). Let sigma_ij =
+    Derivation (float32), u = 2^-24, e = PRODUCT_ERR (each term of a
+    3xTF32 product is off by at most e of its magnitude), every sum in
+    float32 in any order (u per term, the forward's model). Let sigma_ij =
     scale sum_d |q_id k_jd|, tau_ij = sum_d |do_id v_jd|, rho_i = sum_d
     |do_id o_id| and T = tau + rho.
     - P: the score is a D-term product on the tensor cores, (e + D u)
@@ -471,15 +531,38 @@ def bwd_error_bound(q, k, v, o, do, lse, *, causal: bool = True,
       terms, the sum, the product by scale and scale's own rounding).
     With e = 0 this is the bound of a kernel whose products are exact
     float32 fmaf chains (the first version of this kernel). All sums of
-    magnitudes are taken in float64. For bfloat16 outputs, ``refs`` = the
-    plain version's (dq, dk, dv) in float64 on the widened inputs, and
-    each bound adds BF16_ROUND (|ref| + bound): the rounding of the float32
-    result to bfloat16."""
+    magnitudes are taken in float64.
+
+    The bfloat16 kernel (its own terms, the same steps). S and dP are
+    products of bfloat16 values, exact in float32, summed in float32: e
+    leaves the P and dS - delta terms (e = 0 there). P is 2^y for y =
+    fmaf(S, c, -l), c = scale log2(e) and l = lse log2(e), each product
+    rounded in float32 (c from the float32 scale and log2(e): 3 u of |S|
+    scale <= sigma; l: 2 u |lse| <= 2 u (|x| + sigma)), the fmaf u |x|;
+    2^y by ex2.approx.ftz (what exp2f reduces to, 2 ulp: EXP_ERR, the
+    CUDA Math API's maximum for exp2f; a result below 2^-126 flushed to
+    0: TINY32). The exponent is off by (D + 5) u sigma + 3 u |x| where
+    the float32 kernel's is off by (e + (D + 2) u) sigma + u |x|.
+    P and dS enter dV,
+    dK and dQ in two bfloat16 parts whose sum is off by at most
+    P_SPLIT_ERR of the float32 value, plus TINY32 where a part falls below
+    the normal range (a part there is at most 2^-126, kept or flushed), and
+    their products with dO, Q or K are exact: P_SPLIT_ERR takes e's place
+    in the dV, dK and dQ terms, beside TINY32 times the sum of |dO|, |Q|
+    or |K| over the pairs the mask lets through. One bfloat16 part (2^-8
+    of each) breaks this bound (``tests/test_torch_attention_bwd_bf16.py``).
+    For bfloat16 outputs, ``refs`` = the plain version's (dq, dk, dv) in
+    float64 on the widened inputs, and each bound adds BF16_ROUND (|ref| +
+    bound): the rounding of the float32 result to bfloat16."""
     B, Sq, Skv, H, G, R, D = _groups(q, k)
     f64 = torch.float64
     scale = D ** -0.5
-    u, e = U32, PRODUCT_ERR
+    bf16 = q.dtype == torch.bfloat16
+    # e: S and dP's products; e_out and tiny: those of dV, dK and dQ
+    u, e = U32, 0.0 if bf16 else PRODUCT_ERR
+    e_out, tiny = (P_SPLIT_ERR, TINY32) if bf16 else (PRODUCT_ERR, 0.0)
     mask = _visible(Sq, Skv, causal, window, q.device)
+    maskd = mask.to(f64)
     bq = torch.empty((B, Sq, H, D), dtype=f64, device=q.device)
     bk = torch.empty((B, Skv, G, D), dtype=f64, device=q.device)
     bv = torch.empty_like(bk)
@@ -493,10 +576,11 @@ def bwd_error_bound(q, k, v, o, do, lse, *, causal: bool = True,
         lb = lse[b].to(f64).reshape(G, R, Sq, 1)
         x = torch.where(mask, s - lb, 0.0)
         p = torch.where(mask, torch.exp(x), 0.0)
-        e_p = torch.expm1((e + (D + 2) * u) * sigma + u * x.abs()) \
-            * (1 + EXP_ERR) + EXP_ERR
+        arg = ((D + 5) * u * sigma + 3 * u * x.abs() if bf16
+               else (e + (D + 2) * u) * sigma + u * x.abs())
+        e_p = torch.expm1(arg) * (1 + EXP_ERR) + EXP_ERR
         pe = torch.where(mask, p * e_p + TINY32, 0.0)
-        del s, sigma, x, e_p
+        del s, sigma, x, arg, e_p
         rho = (do[b].to(f64) * o[b].to(f64)).abs().sum(-1)   # (Sq, H)
         T = torch.einsum("qgrd,sgd->grqs", doa.abs(), va.abs()) \
             + rho.T.reshape(G, R, Sq, 1)
@@ -509,14 +593,18 @@ def bwd_error_bound(q, k, v, o, do, lse, *, causal: bool = True,
         n = Sq * R
         m0 = torch.einsum("grqs,qgrd->sgd", p + pe, doa.abs())
         m1 = torch.einsum("grqs,qgrd->sgd", pe, doa.abs())
-        bv[b] = m1 + (e + n * u) * m0
+        bv[b] = m1 + (e_out + n * u) * m0 \
+            + tiny * torch.einsum("qs,qgrd->sgd", maskd, doa.abs())
         A = torch.einsum("grqs,qgrd->sgd", E, qa.abs())
         C = torch.einsum("grqs,qgrd->sgd", ds, qa.abs())
-        bk[b] = scale * (A + (e + (n + 2) * u) * (C + A))
+        bk[b] = scale * (A + (e_out + (n + 2) * u) * (C + A) + tiny
+                         * torch.einsum("qs,qgrd->sgd", maskd, qa.abs()))
         A = torch.einsum("grqs,sgd->qgrd", E, ka.abs()).reshape(Sq, H, D)
         C = torch.einsum("grqs,sgd->qgrd", ds, ka.abs()).reshape(Sq, H, D)
-        bq[b] = scale * (A + (e + (Skv + 2) * u) * (C + A))
-        del p, pe, E, ds, A, C
+        km = torch.einsum("qs,sgd->qgd", maskd, ka.abs())
+        km = km[:, :, None].expand(Sq, G, R, D).reshape(Sq, H, D)
+        bq[b] = scale * (A + (e_out + (Skv + 2) * u) * (C + A) + tiny * km)
+        del p, pe, E, ds, A, C, km
     if refs is None:
         return bq, bk, bv
     return tuple(bd + BF16_ROUND * (r.to(f64).abs() + bd)
@@ -587,14 +675,42 @@ def bf16_launch_shape(q, k, v) -> dict:
     return shape
 
 
-def _bwd_lib():
+def _bwd_lib(dtype=torch.float32):
+    """The backward kernel's C entry point for ``dtype``'s operands."""
     from repro_torch.kernels import build
-    fn = build.load("flash_attention_bwd").flash_attention_bwd
+    if dtype == torch.bfloat16:
+        fn = build.load("flash_attention_bwd_bf16").flash_attention_bwd_bf16
+    else:
+        fn = build.load("flash_attention_bwd").flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+BWD_BF16_SHAPE_KEYS = ("head_dim_padded", "stages", "load",
+                       "dkdv_warpgroups", "dkdv_tile_rows", "dkdv_smem_bytes",
+                       "dq_warpgroups", "dq_tile_rows", "dq_smem_bytes")
+
+
+def bwd_bf16_launch_shape(q, k, v, do) -> dict:
+    """The launches the bfloat16 backward kernel makes for these CUDA
+    tensors, as it reports them (``flash_attention_bwd_bf16_shape``): D
+    padded, stages of its ring, how the tiles land, then for the dK/dV
+    pass and the dQ pass: warpgroups, streamed rows a tile (q rows in the
+    first, kv rows in the second) and shared memory bytes a block."""
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention_bwd_bf16").flash_attention_bwd_bf16_shape
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * len(BWD_BF16_SHAPE_KEYS))()
+    fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), q.shape[1],
+       k.shape[1], q.shape[3], out)
+    shape = dict(zip(BWD_BF16_SHAPE_KEYS, out))
+    shape["load"] = BF16_LOADS[shape["load"]]
+    return shape
 
 
 def _check(q, k, v, window) -> None:
@@ -676,8 +792,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     """The gradient of ``flash_attention`` at (q, k, v) for the output
     gradient ``do``, given the forward's o and lse: (dq, dk, dv) in q's
     dtype. On a CUDA tensor it launches ``csrc/flash_attention_bwd.cu``
-    (or raises); on a CPU tensor it is ``flash_attention_bwd_ref``."""
-    global BWD_LAUNCHES
+    (float32) or ``csrc/flash_attention_bwd_bf16.cu`` (bfloat16), or
+    raises; on a CPU tensor it is ``flash_attention_bwd_ref``."""
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                        window=window)
@@ -700,16 +817,18 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         META_OPS["backward"] += work(q.shape, Skv, causal, window, True)
         return dq, dk, dv
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                     B, Sq, Skv, H, G, D, int(causal), int(window or 0),
-                     int(q.dtype == torch.bfloat16), D ** -0.5,
-                     torch.cuda.current_stream(q.device).cuda_stream)
+    err = _bwd_lib(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, G, D, int(causal),
+        int(window or 0), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: "
-                           f"cudaError {err}")
+        why = "a TMA tensor map was refused" if err == -2 \
+            else f"cudaError {err}"
+        raise RuntimeError(f"flash_attention_bwd launch failed: {why}")
     BWD_LAUNCHES += 1
+    BF16_BWD_LAUNCHES += q.dtype == torch.bfloat16
     return dq, dk, dv
 
 

@@ -8,9 +8,11 @@ the CPU, a short fused run's flight-recorder counters against
 card against the CPU, the reduced whisper on the card against the CPU
 (K3 at whisper's full-size shapes too), the float8 kv cache's writes
 on the card, K3's backward kernel against its plain version
-(``bwd_error_bound``) at every head dim and tile, the same bits on two
-launches, gradients through K3 on the card (the kernel's,
-nonzero), K4's backward kernel (``csrc/ssd_scan_bwd.cu``) within its
+(``bwd_error_bound``) at every head dim and tile, bfloat16 through
+``csrc/flash_attention_bwd_bf16.cu`` (held to that bound's bfloat16
+terms), the same bits on two launches, gradients through K3 on the card
+(the kernel's, nonzero), a bfloat16 train step of a cut qwen1.5-0.5b
+launching the bfloat16 backward once per layer, K4's backward kernel (``csrc/ssd_scan_bwd.cu``) within its
 ``bwd_error_bound`` with the same bits on two launches, the kernels
 without a backward refusing a gradient by name (K2, and K4's one-pass
 ``launch``), and one train step of the reduced dense, MoE, vlm,
@@ -1544,6 +1546,7 @@ K3_BWD_CASES = (
     # the offset, in values): 4-byte copies in float32 at D = 64, one
     # value at a time in bfloat16
     (2, 100, 120, 4, 2, 64, True, None, 1),
+    (1, 300, 333, 4, 2, 128, True, 100, 1),     # and at D = 128
 )
 
 
@@ -1568,7 +1571,8 @@ def _k3_bwd_inputs(case, dtype, device):
 def test_k3_backward_within_its_bound(cuda, case, dtype):
     """The backward kernel against ``flash_attention_bwd_ref`` in float64
     on the same inputs and the forward's o and lse, within
-    ``bwd_error_bound`` (bfloat16: plus the outputs' rounding)."""
+    ``bwd_error_bound`` (bfloat16: its bfloat16 terms, the bfloat16
+    tensors passed to it, plus the outputs' rounding)."""
     B, Sq, Skv, H, G, D, causal, window = case[:8]
     q, k, v, do = _k3_bwd_inputs(case, dtype, cuda)
     o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=causal,
@@ -1581,8 +1585,8 @@ def test_k3_backward_within_its_bound(cuda, case, dtype):
     want = FA.flash_attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
                                       lse.double(), causal=causal,
                                       window=window)
-    bound = FA.bwd_error_bound(q.float(), k.float(), v.float(), o.float(),
-                               do.float(), lse, causal=causal, window=window,
+    bound = FA.bwd_error_bound(q, k, v, o, do, lse, causal=causal,
+                               window=window,
                                refs=want if dtype == torch.bfloat16 else None)
     for a, b, c in zip(got, want, bound):
         assert a.dtype == dtype and bool(torch.isfinite(a).all())
@@ -1609,6 +1613,47 @@ def test_k3_backward_same_bits_on_every_launch(cuda, case, dtype):
     again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                    window=window)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_k3_backward_takes_its_dtypes_library(cuda, dtype):
+    """A bfloat16 backward launches ``csrc/flash_attention_bwd_bf16.cu``
+    (``BF16_BWD_LAUNCHES``), a float32 one does not; the bfloat16 launch
+    shape says how its tiles land."""
+    q, k, v, do = _k3_bwd_inputs(K3_BWD_CASES[0], dtype, cuda)
+    o, lse = FA.flash_attention_fwd_lse(q, k, v, causal=True)
+    n0 = (FA.BWD_LAUNCHES, FA.BF16_BWD_LAUNCHES)
+    FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (FA.BWD_LAUNCHES - n0[0], FA.BF16_BWD_LAUNCHES - n0[1]) == \
+        (1, int(bf16))
+    if bf16:
+        shape = FA.bwd_bf16_launch_shape(q, k, v, do)
+        assert shape["load"] == "tma" and shape["head_dim_padded"] == 64
+        assert (shape["dkdv_warpgroups"], shape["dq_warpgroups"]) == (2, 1)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_launches_the_bf16_backward(cuda):
+    """``value_and_grad`` of a cut qwen1.5-0.5b at bfloat16 compute (the
+    default RunOptions, remat none) on the card: ``FlashAttentionFn``
+    launches K3's bfloat16 forward and its bfloat16 backward once per
+    layer each; the loss and the gradients are finite."""
+    import dataclasses
+    from repro_torch.runtime.steps import value_and_grad
+    cfg = dataclasses.replace(get("qwen1.5-0.5b").reduced(), n_layers=3)
+    model = Model(cfg, RunOptions(remat="none"))
+    assert model.opts.compute_dtype == "bfloat16"
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    tokens = torch.randint(0, 256, (2, 128), device=cuda)
+    n0 = (FA.BF16_LAUNCHES, FA.BF16_BWD_LAUNCHES)
+    loss, grads = value_and_grad(model, params, {"tokens": tokens})
+    assert (FA.BF16_LAUNCHES - n0[0], FA.BF16_BWD_LAUNCHES - n0[1]) == \
+        (cfg.n_layers, cfg.n_layers)
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,7 @@
   of the chip scripts (``scripts/chip_ablate.py``,
   ``scripts/chip_compare.py``, ``scripts/chip_profile.py``,
   ``scripts/chip_examples.py``, ``scripts/chip_k3_bf16.py``,
-  ``scripts/chip_k4_bf16.py``), of the
+  ``scripts/chip_k4_bf16.py``, ``scripts/chip_k3_bwd_bf16.py``), of the
   port's examples (``examples/*_torch.py``) or of the distributed tests'
   rank helper (``tests/_torch_dist.py``, which spawned ranks import)
   imports JAX or anything of the reference package ``repro``;
@@ -91,6 +91,7 @@ def test_port_imports_no_jax_and_no_reference():
         ROOT / "scripts" / "chip_train_dist.py",
         ROOT / "scripts" / "chip_k3_bf16.py",
         ROOT / "scripts" / "chip_k4_bf16.py",
+        ROOT / "scripts" / "chip_k3_bwd_bf16.py",
         ROOT / "tests" / "_torch_dist.py"] + sorted(
         (ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 15
