@@ -683,6 +683,25 @@ TRAIN_BF16_GRAD_TOL = 5e-2
 # which the 4 layers' residual stream and the loss's mean over 8,192
 # tokens average down
 TRAIN_BF16_LOSS_TOL = 1e-3
+# the bfloat16 SSM step (train_ssm_bf16): mamba2-370m at the models'
+# default RunOptions, TRAIN_BF16_STEPS steps of TRAIN_SSM x 2,048 tokens.
+# Its gradient check holds the step through K4's bfloat16 kernels against
+# the plain-SSD step, each leaf within SSM_BF16_GRAD_TOL of its largest
+# |gradient|: both steps round y to bfloat16, from float32 values within
+# error_bound's bfloat16 terms of each other, so an element may differ by
+# its last bit (2^-8), and the backward's split products (2^-16 a term)
+# add less. With the float64 models of the kernels' arithmetic in their
+# place on the CPU (ssd_scan_bf16, ssd_scan_bwd_bf16) it read 0.53%
+# (reduced mamba2, 2 x 128 tokens) and 1.4% (full width, 2 layers, 1 x
+# 512 tokens) of a leaf's largest magnitude; 4 layers hand it on at a
+# gain of about one: 5e-2, TRAIN_BF16_GRAD_TOL's. The loss read 0 and
+# 8.0e-6 relative there: SSM_BF16_LOSS_TOL = 1e-3, TRAIN_BF16_LOSS_TOL's.
+SSM_BF16_GRAD_TOL = 5e-2
+SSM_BF16_LOSS_TOL = 1e-3
+# K4's bfloat16 backward at K4_BWD_TIME's shapes before this design (the
+# float32 library's widened <bf16> instantiations, ms; PERF.md section 6,
+# H100 80GB HBM3 at 700 W), shown beside the time_k4_bwd rows
+K4_BWD_BF16_WIDENED_MS = {"mamba2_train": 0.9244, "hymba_train": 0.2073}
 FAMILY_TOL = 1e-5                   # the CPU parity tests' Model.loss tolerance
 FAMILY_SEQ = 64                     # past reduced mixtral's window of 32
 # the backward timed at the training shapes, with its launches per step
@@ -1598,7 +1617,10 @@ def _k4_bwd_cases():
     hymba-1.5b, S % Q != 0, S < Q, G > 1, G = 1 with R = 25 heads, Q 16
     and 64, P 8 and 12, N 16, 20 and 128, with and without a state in
     and a d(final state); then bfloat16 x, B, C and dy (dt in bfloat16 as
-    the model passes it, or float32; a bfloat16 state in)."""
+    the model passes it, or float32; a bfloat16 state in), which take
+    ``csrc/ssd_scan_bwd_bf16.cu``: every load route (TMA, cp.async for N
+    = 16, registers for P = 12 and N = 20), Q % 64 != 0 (16 and 100: the
+    next chunk's rows inside a chunk's last tile) and G > 1."""
     yield 4, 2048, 32, 64, 1, 128, 256, False, False, None   # mamba2 train
     yield 1, 2048, 25, 64, 1, 16, 256, False, False, None    # hymba train
     yield 2, 1000, 8, 64, 1, 128, 256, True, True, None      # S % Q != 0
@@ -1612,6 +1634,8 @@ def _k4_bwd_cases():
     yield 2, 1000, 8, 64, 1, 128, 256, True, True, "float32"
     yield 1, 777, 25, 64, 1, 16, 64, True, True, "bfloat16"
     yield 2, 200, 4, 12, 2, 20, 64, True, False, "bfloat16"
+    yield 2, 300, 6, 64, 3, 128, 16, True, True, "bfloat16"  # Q 16, G 3
+    yield 2, 1000, 8, 64, 2, 64, 100, True, True, "bfloat16"  # Q 100, G 2
 
 
 def _k4_bwd_fd(SSD, dev):
@@ -1656,17 +1680,22 @@ def _k4_bwd_fd(SSD, dev):
 
 
 def phase_kernel_k4_bwd(dev):
-    """K4's backward (``csrc/ssd_scan_bwd.cu``, its nine passes) on the
-    forward kernels' own scratch against its plain version
+    """K4's backward (``csrc/ssd_scan_bwd.cu`` for float32 operands,
+    ``csrc/ssd_scan_bwd_bf16.cu`` for bfloat16 ones, nine passes each) on
+    the forward kernels' own scratch against its plain version
     ``ssd_scan_bwd_ref`` run in float64 on the same CUDA tensors, every
     gradient (dx, ddt, dA, dB, dC, d(init_state)) within
-    ``bwd_error_bound`` at every element and in its operand's dtype (dA
-    float32), each case launched twice, the same bits both times (no
-    atomics); then one finite-difference check of the float32 gradient
-    (``_k4_bwd_fd``)."""
+    ``bwd_error_bound`` (its bfloat16 terms for bfloat16 operands) at
+    every element and in its operand's dtype (dA float32), each case
+    launched twice, the same bits both times (no atomics), every bfloat16
+    launch through the bfloat16 library (``BF16_BWD_LAUNCHES``) and its
+    cases over every load route (``bwd_bf16_launch_shape``); then one
+    finite-difference check of the float32 gradient (``_k4_bwd_fd``).
+    Returns the largest error of each dtype."""
     from repro_torch.kernels import ssd as SSD
     gen = torch.Generator(device=dev).manual_seed(14)
     errs, before = {}, SSD.BWD_LAUNCHES
+    bf16_before, routes = SSD.BF16_BWD_LAUNCHES, set()
     t0 = time.perf_counter()
     names = ("dx", "ddt", "dA", "dB", "dC", "dinit")
 
@@ -1684,6 +1713,8 @@ def phase_kernel_k4_bwd(dev):
             x, Bm, Cm, dy = (a.to(bf) for a in (x, Bm, Cm, dy))
             dt = dt.to(getattr(torch, dt_type))
             init = None if init is None else init.to(bf)
+            shape = SSD.bwd_bf16_launch_shape(x, dy, Bm, Cm)
+            routes.update((shape["x_load"], shape["bc_load"]))
         _, _, scr = SSD._forward(x, dt, A, Bm, Cm, init, chunk)
         got = SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfinal, scr,
                                chunk=chunk, init_state=init)
@@ -1722,13 +1753,24 @@ def phase_kernel_k4_bwd(dev):
                       "of_bound": max(ratios.values()),
                       "of_bound_by_gradient": ratios}
         del x, dt, A, Bm, Cm, init, dy, dfinal, got, want, bound
+    n_bf16 = sum("_bf16_" in n for n in errs)
+    if SSD.BF16_BWD_LAUNCHES - bf16_before != 2 * n_bf16 \
+            or routes != set(SSD.BF16_LOADS):
+        raise AssertionError(
+            f"K4 backward: {SSD.BF16_BWD_LAUNCHES - bf16_before} bfloat16 "
+            f"library launches for {n_bf16} cases launched twice; routes "
+            f"{sorted(routes)}, not every one of {SSD.BF16_LOADS}")
     fd = _k4_bwd_fd(SSD, dev)
     torch.cuda.empty_cache()
     emit("kernel_k4_bwd", cases=len(errs),
-         launches=SSD.BWD_LAUNCHES - before, finite_difference=fd,
+         launches=SSD.BWD_LAUNCHES - before,
+         bf16_launches=SSD.BF16_BWD_LAUNCHES - bf16_before,
+         bf16_routes=sorted(routes), finite_difference=fd,
          max_of_bound=max(e["of_bound"] for e in errs.values()),
          phase_s=time.perf_counter() - t0, max_abs_err=errs)
-    return max(e["err"] for e in errs.values())
+    return {dtype: max(e["err"] for n, e in errs.items()
+                       if ("_bf16_" in n) == (dtype == "bf16"))
+            for dtype in ("f32", "bf16")}
 
 
 def main_plans(nw):
@@ -3170,6 +3212,46 @@ def ssd_bf16_design(B, S, H, P, G, N, Q):
     return flops, nbytes
 
 
+def ssd_bwd_bf16_design(B, S, H, P, G, N, Q):
+    """(FLOPs, bytes) of the bfloat16 backward kernels' own design
+    (``csrc/ssd_scan_bwd_bf16.cu``) at a shape whose S is a multiple of
+    Q, with no state in or out: ``ssd_bwd_work``'s products with the
+    second bfloat16 part of each product that has a float32 operand
+    (every one but D = dy . x^T), and each pass's inputs read once and
+    outputs written once, its float32 scratch included: (1) dy, C and cum
+    in, dstates out; (2) dstates, S_in and each chunk's total in, G_c
+    out; (3) dy, x, cb's lower tiles, cum and dts in, dcb's slice
+    partials and the row and column sums out; (4) B, G_c, cb, dy, x, cum
+    and dts in, dx, K and ddts out; (5) dy, x, S_in, G_c, C, cum and dts
+    in, the head terms' slice partials and I out; (6) the slices'
+    partials in, their sums out; (7) those sums, B and C in, dB and dC
+    out; (8) the sums, I, K, ddts and dts in, ddt out."""
+    nc, pairs = S // Q, Q * (Q + 1) // 2
+    QP = -(-Q // 64) * 64
+    nt, NH, HS = QP // 64, -(-N // 64), min(H // G, 4)
+    lower = nt * (nt + 1) // 2
+    flops = 2 * B * nc * (H * P * pairs + 2 * (H * P * pairs
+                                               + 4 * H * Q * P * N
+                                               + 2 * G * N * pairs))
+    x = 2 * B * S * H * P                       # x, dy or dx
+    bc = 2 * B * S * G * N                      # B, C, dB or dC
+    scan = 4 * B * H * nc * QP                  # dts, cum, K or ddts
+    cb = 4 * B * nc * G * lower * 64 * 64       # cb's or dcb's lower tiles
+    states = 4 * B * H * nc * P * N             # S_in, dstates or G_c
+    sums = 4 * B * H * nc * lower * 64          # rs or cs
+    pbc = 2 * 4 * B * nc * QP * G * N           # the head terms, a slice
+    pI = 4 * NH * B * H * nc * QP
+    nbytes = ((x + bc + scan + states)
+              + (3 * states + 4 * B * H * nc)
+              + (2 * x + cb + 2 * scan + HS * cb + 2 * sums)
+              + (bc + states + cb + 2 * x + 2 * scan + x + 2 * scan)
+              + (2 * x + 2 * states + bc + 2 * scan + HS * pbc + pI)
+              + ((HS * (cb + pbc) + cb + pbc) if HS > 1 else 0)
+              + (pbc + cb + 2 * bc + 2 * bc)
+              + (2 * sums + pI + 3 * scan + 2 * B * S * H))
+    return flops, nbytes
+
+
 def _ssd_pass_ms(SSD, args, Q, reps=20):
     """Each of K4's five passes alone on ``args`` (x, dt, A, B, C), the
     scratch filled first by one run of all five: CUDA-event medians."""
@@ -3587,6 +3669,7 @@ def phase_train_ssm(dev):
     grads = train_grad_check(dev, cfg, TRAIN_SSM, plain_ssd,
                              {"ssd_scan": SSD})
     fwd, bwd = run["totals"]
+    step_s, tok_s = run["step_s_median"], run["tok_per_s"]
     emit("train_ssm", arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, d_inner=cfg.ssm.d_inner,
          ssm_heads=cfg.ssm.d_inner // cfg.ssm.head_dim,
@@ -3596,7 +3679,60 @@ def phase_train_ssm(dev):
          k4_launches_per_step=run.pop("per_step"), k4_fwd_launches=fwd,
          k4_bwd_launches=bwd, **run, grad_check=grads,
          phase_s=time.perf_counter() - t0)
-    return {"fwd_launches": fwd, "bwd_launches": bwd}
+    return {"fwd_launches": fwd, "bwd_launches": bwd, "step_s": step_s,
+            "tok_per_s": tok_s}
+
+
+def phase_train_ssm_bf16(dev, ssm):
+    """The SSM train step at the models' default RunOptions, counts set
+    to 0 just before the steps and read just after: mamba2-370m at its
+    published config (48 layers, d_model 1,024, 32 heads of 64, d_state
+    128, chunk 256), params in float32 and compute in bfloat16 (otherwise
+    the launcher's options: remat none), TRAIN_BF16_STEPS steps at
+    TRAIN_SSM x 2,048 tokens, K4's bfloat16 forward and its bfloat16
+    backward kernel (``csrc/ssd_scan_bwd_bf16.cu``) each once per layer
+    and step, beside ``train_ssm``'s float32 step (``ssm``) of the same
+    run. Then ``train_grad_check`` at bfloat16 compute against the
+    plain-SSD step, within SSM_BF16_LOSS_TOL and SSM_BF16_GRAD_TOL, each
+    layer's backward through the bfloat16 kernel."""
+    import dataclasses
+    from repro_torch.configs.base import get
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.launch import train as LT
+
+    t0 = time.perf_counter()
+    cfg = get("mamba2-370m")
+    opts = dataclasses.replace(LT.train_options(TRAIN["seq"]),
+                               compute_dtype="bfloat16")
+    counters = ("LAUNCHES", "BWD_LAUNCHES", "BF16_LAUNCHES",
+                "BF16_BWD_LAUNCHES")
+    run = _train_steps(dev, cfg, TRAIN_SSM, TRAIN["seq"], {"ssd_scan": SSD},
+                       opts=opts, steps=TRAIN_BF16_STEPS, counters=counters)
+    _check_train("train_ssm_bf16", run, [cfg.n_layers] * len(counters))
+    fwd, bwd, fwd16, bwd16 = run["totals"]
+    b0 = SSD.BF16_BWD_LAUNCHES
+    grads = train_grad_check(dev, cfg, TRAIN_SSM, plain_ssd,
+                             {"ssd_scan": SSD}, opts=opts,
+                             loss_tol=SSM_BF16_LOSS_TOL,
+                             grad_tol=SSM_BF16_GRAD_TOL)
+    if SSD.BF16_BWD_LAUNCHES - b0 != TRAIN_CHECK_LAYERS:
+        raise AssertionError(f"train_ssm_bf16 grad check: "
+                             f"{SSD.BF16_BWD_LAUNCHES - b0} bfloat16 "
+                             f"backward launches, not {TRAIN_CHECK_LAYERS}")
+    emit("train_ssm_bf16", arch=cfg.name, layers=cfg.n_layers,
+         params=run["params"], batch=TRAIN_SSM, seq=TRAIN["seq"],
+         remat=opts.remat, compute_dtype=opts.compute_dtype,
+         param_dtype=opts.param_dtype, lr=TRAIN["lr"], init_s=run["init_s"],
+         losses=run["losses"], gnorms=run["gnorms"], lrs=run["lrs"],
+         step_s=run["step_s"], first_step_s=run["first_step_s"],
+         step_s_median=run["step_s_median"], tok_per_s=run["tok_per_s"],
+         peak_mem_bytes=run["peak_mem_bytes"],
+         k4_launches_per_step=run["per_step"], launches_order=list(counters),
+         float32_step_s_median=ssm["step_s"],
+         float32_tok_per_s=ssm["tok_per_s"], grad_check=grads,
+         phase_s=time.perf_counter() - t0)
+    return {"fwd_launches": fwd16, "bwd_launches": bwd16,
+            "step_s": run["step_s_median"]}
 
 
 def phase_train_hybrid(dev):
@@ -3846,7 +3982,7 @@ def ssd_bwd_work(B, S, H, P, G, N, Q, width=4):
     return 2 * macs, nbytes
 
 
-def phase_time_k4_bwd(dev, ssm, hybrid):
+def phase_time_k4_bwd(dev, ssm, hybrid, ssm_bf16):
     """K4's backward at the training shapes (``K4_BWD_TIME``: mamba2-370m
     at B=4 and hymba-1.5b at B=1, S=2,048, as ``train_ssm`` and
     ``train_hybrid`` run them), float32 and bfloat16 operands: the nine
@@ -3860,20 +3996,32 @@ def phase_time_k4_bwd(dev, ssm, hybrid):
     ``time_k3_bwd`` counts them, or its bytes at HBM bandwidth, whichever
     is larger. The same products at the FP32 CUDA-core peak stand beside
     it as ``fp32_core_ms`` (the floor of a kernel that keeps them off the
-    tensor cores). No one PyTorch call computes this gradient: library_ms
-    is null. Every timed gradient is held against the plain version's
-    within ``bwd_error_bound``
+    tensor cores). bfloat16 rows (``csrc/ssd_scan_bwd_bf16.cu``) also
+    carry the design's own floor, ``bound_design_ms``
+    (``ssd_bwd_bf16_design``: the second bf16 parts, the float32 scratch
+    through device memory), the widened kernel's time before this design
+    (``K4_BWD_BF16_WIDENED_MS``), and their launches per step as
+    ``train_ssm_bf16`` counted them (``ssm_bf16``; hymba-1.5b has no
+    bfloat16 train step: 0). No one PyTorch call computes this gradient:
+    library_ms is null. Every timed gradient is held against the plain
+    version's within ``bwd_error_bound``
     (``err_of_bwd_error_bound``, the largest share of it)."""
     gen = torch.Generator(device=dev).manual_seed(16)
     per_step = {"mamba2_train": ssm["bwd_launches"] // TRAIN["steps"],
-                "hymba_train": hybrid["k4_bwd"] // TRAIN["steps"]}
+                "hymba_train": hybrid["k4_bwd"] // TRAIN["steps"],
+                "mamba2_train_bf16": ssm_bf16["bwd_launches"]
+                // TRAIN_BF16_STEPS,
+                "hymba_train_bf16": 0}
     out = {}
     for name, shape in K4_BWD_TIME.items():
         for dtype in (torch.float32, torch.bfloat16):
             e = _time_k4_bwd(name, shape, gen, dev, dtype)
-            e["launches_per_step"] = per_step[name]
-            e["per_step_ms"] = per_step[name] * e["kernel_ms"]
-            out[name if dtype == torch.float32 else name + "_bf16"] = e
+            row = name if dtype == torch.float32 else name + "_bf16"
+            e["launches_per_step"] = per_step[row]
+            e["per_step_ms"] = per_step[row] * e["kernel_ms"]
+            if dtype == torch.bfloat16:
+                e["widened_ms_before"] = K4_BWD_BF16_WIDENED_MS[name]
+            out[row] = e
     torch.cuda.empty_cache()
     emit("time_k4_bwd", ssd_scan_bwd=out)
     return out
@@ -3909,6 +4057,12 @@ def _time_k4_bwd(name, shape, gen, dev, dtype):
     op_ms = (3 * flops / TF32_FLOP_PER_S if dtype == torch.float32
              else flops / BF16_FLOP_PER_S) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    design = {}
+    if dtype == torch.bfloat16:
+        dflops, dbytes = ssd_bwd_bf16_design(B, S, H, P, G, N, Q)
+        design = {"design_flops": dflops, "design_bytes": dbytes,
+                  "bound_design_ms": max(dflops / BF16_FLOP_PER_S,
+                                         dbytes / HBM_BYTES_PER_S) * 1e3}
     return {"dtype": str(dtype).replace("torch.", ""),
             "shape": [B, S, H, P, G, N, Q],
             "kernel_ms": cuda_ms(lambda: SSD.ssd_scan_bwd(
@@ -3919,7 +4073,7 @@ def _time_k4_bwd(name, shape, gen, dev, dtype):
             "flops": flops, "bytes": nbytes,
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms > byte_ms else "bytes",
-            "fp32_core_ms": flops / FP32_FLOP_PER_S * 1e3,
+            "fp32_core_ms": flops / FP32_FLOP_PER_S * 1e3, **design,
             "err_of_bwd_error_bound": err_share}
 
 def _k1_counts():
@@ -6383,6 +6537,7 @@ def run(dev) -> None:
     tr = phase_train(dev)
     tb = phase_train_bf16(dev)
     tssm = phase_train_ssm(dev)
+    tsb = phase_train_ssm_bf16(dev, tssm)
     thyb = phase_train_hybrid(dev)
     fam = phase_train_families(dev)
     per = phase_time(m, errs)
@@ -6392,7 +6547,7 @@ def run(dev) -> None:
     m3 = phase_time_moe(dev)
     e3 = phase_time_encdec(dev)
     k3b = phase_time_k3_bwd(dev, fam, tb)
-    k4b = phase_time_k4_bwd(dev, tssm, thyb)
+    k4b = phase_time_k4_bwd(dev, tssm, thyb, tsb)
     mm = phase_multi(dev, m)
     multi_err = phase_multi_check(mm)
     pp = phase_pool(dev, t)
@@ -6491,7 +6646,7 @@ def run(dev) -> None:
         "bound_by": rec["bf16"]["bound_by"],
         "library_ms": rec["bf16"]["library_ms"],
     } for suffix, rec, launches in (
-        ("", k4, ss["k4_bf16"] + sdp["k4"]),
+        ("", k4, ss["k4_bf16"] + sdp["k4"] + tsb["fwd_launches"]),
         ("[hymba-1.5b]", h4, sh["k4_bf16"]))] + [{
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -6525,7 +6680,7 @@ def run(dev) -> None:
         "replaces": ("XLA's gradient of src/repro/models/ssd.py:53 "
                      "(no Pallas kernel)"),
         "launches": launches,
-        "max_abs_err": k4b_err,
+        "max_abs_err": k4b_err["f32"],
         "ms": k4b[shape]["kernel_ms"],
         "plain_ms": k4b[shape]["plain_ms"],
         "bound_ms": k4b[shape]["bound_ms"],
@@ -6534,6 +6689,19 @@ def run(dev) -> None:
     } for suffix, shape, launches in (
         ("", "mamba2_train", tssm["bwd_launches"] + td["k4_bwd"]),
         ("[hymba-1.5b]", "hymba_train", thyb["k4_bwd"]))] + [{
+        "name": "ssd_scan_bwd_bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd_bf16.cu",
+        "replaces": ("XLA's gradient of src/repro/models/ssd.py:53 "
+                     "(no Pallas kernel)"),
+        "launches": tsb["bwd_launches"],
+        "max_abs_err": k4b_err["bf16"],
+        "ms": k4b["mamba2_train_bf16"]["kernel_ms"],
+        "plain_ms": k4b["mamba2_train_bf16"]["plain_ms"],
+        "bound_ms": k4b["mamba2_train_bf16"]["bound_ms"],
+        "bound_by": k4b["mamba2_train_bf16"]["bound_by"],
+        "library_ms": k4b["mamba2_train_bf16"]["library_ms"],
+    }] + [{
         "name": f"flash_attention[hymba-1.5b {kind}]",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -2,9 +2,9 @@
 """Where a kernel's time goes, by ablation, on one NVIDIA card.
 
     python3 scripts/chip_ablate.py [k4 k4_bf16 k3 k3_bf16 k3_bwd k3_bwd_bf16
-                                    k4_bwd k1]
+                                    k4_bwd k4_bwd_bf16 k1]
 
-from the repository root. With no names it runs all eight.
+from the repository root. With no names it runs all nine.
 
 The card's machine has no profiler that reads kernel counters, so this
 script builds edited copies of a kernel source (a loop bound set to 0,
@@ -64,16 +64,22 @@ part taken out.
   streamed tile by 16-byte cp.async from the producer warp instead of
   TMA) and ``wg1`` (one consumer warpgroup a block everywhere). Each
   reports whether it gave the kernel's bits.
-- K4's backward (``csrc/ssd_scan_bwd.cu``) at each shape of
+- K4's float32 backward (``csrc/ssd_scan_bwd.cu``) at each shape of
   ``chip_smoke.K4_BWD_TIME`` (mamba2-370m's and hymba-1.5b's training
-  shapes), float32 and bfloat16, the whole gradient and each of its
-  nine passes: ``hs1`` (one head slice a group: each block of the dcb
-  and heads passes loops over all the group's heads, the same function
-  summed in another order), ``one_pass`` (big*big only, the small
+  shapes), the whole gradient and each of its nine passes: ``hs1``
+  (one head slice a group: each block of the dcb and heads passes loops
+  over all the group's heads, the same function summed in another
+  order), ``one_pass`` (big*big only, the small
   3xTF32 terms dropped), ``no_exp`` (the decays of the dx pass's
   weights and of dcb taken as 1) and ``ring2`` (the dx pass with a
   2-stage ring of staging, 108 KB: two blocks an SM instead of three,
   the same function). Each reports whether it gave the kernel's bits.
+- K4's bfloat16 backward (``csrc/ssd_scan_bwd_bf16.cu``) at the same
+  shapes, the whole gradient and each pass: ``one_part`` (every split
+  operand in one bf16 part, the lo parts' products dropped: what the
+  second parts cost) and the design's alternative ``cp_async`` (every
+  tile by 16-byte cp.async instead of TMA, the same function, with a
+  flag for the kernel's bits).
 - K1 (``csrc/warehouse_agg.cu``) on a window x category plan over a
   (rows, 9) column of 11,059,200 rows with the category changing from
   row to row: ``no_add`` (the wide value's reduction taken out),
@@ -162,8 +168,11 @@ K4_BF16_CUTS = {
                ("v.y * (expf(ct_ - cumv[sp + 1]) * dtv[sp + 1])", "v.y")],
     "no_inter": [("const bool inter = !(c == 0 && a.init == nullptr);",
                   "const bool inter = false;")],
-    "cp_async": [("return cols >= 64 ? LOAD_TMA : LOAD_CP_ASYNC;",
-                  "return LOAD_CP_ASYNC;")],
+    "cp_async": [("int x_route(const SsdArgs& a) { return route(a.x, a.P); }",
+                  "int x_route(const SsdArgs& a) { return LOAD_CP_ASYNC; }"),
+                 ("  const int b = route(a.Bm, a.N), c = route(a.Cm, a.N);\n"
+                  "  return b > c ? b : c;",
+                  "  return LOAD_CP_ASYNC;")],
 }
 # the cuts that compute the same function
 K4_BF16_SAME = ("cp_async",)
@@ -191,13 +200,13 @@ K3_BWD_BF16_CUTS = {
 # the cuts that compute the same function
 K3_BWD_BF16_SAME = ("cp_async", "wg1")
 K4_BWD_CUTS = {
-    "hs1": [("#define HSMAX 4 ", "#define HSMAX 1 ")],
+    "hs1": [("#define BWD_BF16_LIB 0 ",
+             "#define SSD_BWD_HSMAX 1\n#define BWD_BF16_LIB 0 ")],
     "one_pass": [
-        ("  if constexpr (SA) wgmma_rs_n64(acc, as, bb);\n", ""),
-        ("  if constexpr (SB) wgmma_rs_n64(acc, ab, smem_desc(sb + W, "
-         "(T / 8) * 128,\n" + " " * 52 + "128));\n", ""),
-        ("        wgmma_ss_n64(d, smem_desc(ay + W + o, (T / 8) * 128, "
-         "128), bb);\n        wgmma_ss_n64(d, ab, smem_desc(bx + W + "
+        ("  wgmma_rs_n64(acc, as, bb);\n  wgmma_rs_n64(acc, ab, smem_desc("
+         "sb + W, (T / 8) * 128, 128));\n", ""),
+        ("      wgmma_ss_n64(d, smem_desc(ay + W + o, (T / 8) * 128, "
+         "128), bb);\n      wgmma_ss_n64(d, ab, smem_desc(bx + W + "
          "o, (T / 8) * 128, 128));\n", "")],
     "no_exp": [("st[tl * SPT + sl] * expf(cumv[t] - cumv[s])",
                 "st[tl * SPT + sl]"),
@@ -230,6 +239,25 @@ K4_BWD_CUTS["ring2"] = [
     ("return 4 * ((size_t)2 * PMAX * T + 2 * T * SPT + 2 * QMAX);",
      "return 4 * ((size_t)2 * PMAX * T + 2 * 2 * T * SPT + 2 * QMAX);"),
 ]
+# K4's bfloat16 backward (csrc/ssd_scan_bwd_bf16.cu): every lo part's
+# product dropped (one_part), every tile by cp.async instead of TMA
+K4_BWD_BF16_CUTS = {
+    "one_part": [
+        ("      wgmma_bf16_rs<64 * NH>(acc, al[kk], bd);\n", ""),
+        ("      wgmma_bf16_ss_n64(acc, bd, sw128_desc(sa(gl) + o, 16, "
+         "1024));\n", ""),
+        ("      wgmma_bf16_rs_n64(acc, wlo[kk], d);\n", ""),
+        ("      wgmma_bf16_ss_n64_bt(hacc, ad,\n" + " " * 27
+         + "sw128_desc(sa(sl) + kk * 16 * 128, TILE, 1024));\n", ""),
+        ("      wgmma_bf16_rs_n64(acc, al[kk], d);\n", "")],
+    "cp_async": [
+        ("  const int x = route(a.x, a.P), y = route(a.dy, a.P);\n"
+         "  return x > y ? x : y;", "  return LOAD_CP_ASYNC;"),
+        ("  const int b = route(a.Bm, a.N), c = route(a.Cm, a.N);\n"
+         "  return b > c ? b : c;", "  return LOAD_CP_ASYNC;")],
+}
+# the cuts that compute the same function
+K4_BWD_BF16_SAME = ("cp_async",)
 K1_CUTS = {
     "no_add": [("  wide_add(sink, run, slab, order, gq, lane);\n"
                 "  __syncwarp();               // the slabs",
@@ -441,44 +469,60 @@ def k4_bf16(dev) -> dict:
     return out
 
 
-def k4_bwd(dev) -> dict:
+def _k4_bwd_cuts(dev, lib: str, cuts, dtype, same=()) -> dict:
+    """K4's backward in ``dtype`` (the real library, then each cut of
+    ``cuts``, a build of ``csrc/<lib>.cu``, in its place) at each shape of
+    ``chip_smoke.K4_BWD_TIME``: the whole gradient and each pass alone,
+    CUDA-event medians, and whether each cut gave the kernel's bits (an
+    error where a cut in ``same`` did not)."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    cuts = {cut: SSD.bind_bwd(ablated("ssd_scan_bwd", cut, edits))
-            for cut, edits in K4_BWD_CUTS.items()}
+    cuts = {cut: SSD.bind_bwd(ablated(lib, cut, edits))
+            for cut, edits in cuts.items()}
     out = {}
     real = SSD._bwd_lib
     try:
         for name, (B, S, H, P, G, N, Q) in C.K4_BWD_TIME.items():
             x, dt, A, Bm, Cm, _ = C.ssd_inputs(B, S, H, P, G, N, gen, dev)
             dy = torch.randn(x.shape, generator=gen, device=dev)
-            for dtype in (torch.float32, torch.bfloat16):
-                args = [a.to(dtype) if i != 2 else a
-                        for i, a in enumerate((x, dt, A, Bm, Cm, dy))]
-                _, _, scr = SSD._forward(*args[:5], None, Q)
-                want = SSD.ssd_scan_bwd(*args, None, scr, chunk=Q)
+            args = [a.to(dtype) if i != 2 else a
+                    for i, a in enumerate((x, dt, A, Bm, Cm, dy))]
+            _, _, scr = SSD._forward(*args[:5], None, Q)
+            want = SSD.ssd_scan_bwd(*args, None, scr, chunk=Q)
 
-                def times() -> dict:
-                    got = SSD.ssd_scan_bwd(*args, None, scr, chunk=Q)
-                    C.sync()
-                    work = SSD.bwd_scratch(args[0], args[3], Q)
-                    res = {"same_bits": all(a is None or torch.equal(a, b)
-                                            for a, b in zip(got, want)),
-                           "all": C.cuda_ms(lambda: SSD.ssd_scan_bwd(
-                               *args, None, scr, chunk=Q), 20)}
-                    for p in SSD.BWD_PASSES:
-                        res[p] = C.cuda_ms(lambda p=p: SSD.launch_bwd(
-                            p, *args, None, scr, got, work, Q), 20)
-                    return res
-                res = {"kernel": times()}
-                for cut, fns in cuts.items():
-                    SSD._bwd_lib = lambda fns=fns: fns
-                    res[cut] = times()
-                    SSD._bwd_lib = real
-                out[f"{name}_{str(dtype)[6:]}"] = res
-                del args, scr, want
+            def times() -> dict:
+                got = SSD.ssd_scan_bwd(*args, None, scr, chunk=Q)
+                C.sync()
+                work = SSD.bwd_scratch(args[0], args[3], Q)
+                res = {"same_bits": all(a is None or torch.equal(a, b)
+                                        for a, b in zip(got, want)),
+                       "all": C.cuda_ms(lambda: SSD.ssd_scan_bwd(
+                           *args, None, scr, chunk=Q), 20)}
+                for p in SSD.BWD_PASSES:
+                    res[p] = C.cuda_ms(lambda p=p: SSD.launch_bwd(
+                        p, *args, None, scr, got, work, Q), 20)
+                return res
+            res = {"kernel": times()}
+            for cut, fns in cuts.items():
+                SSD._bwd_lib = lambda dtype=None, fns=fns: fns
+                res[cut] = times()
+                SSD._bwd_lib = real
+                if cut in same and not res[cut]["same_bits"]:
+                    raise AssertionError(f"{lib} {name}: {cut} changed the "
+                                         f"kernel's bits")
+            out[f"{name}_{str(dtype)[6:]}"] = res
+            del args, scr, want
     finally:
         SSD._bwd_lib = real
     return out
+
+
+def k4_bwd(dev) -> dict:
+    return _k4_bwd_cuts(dev, "ssd_scan_bwd", K4_BWD_CUTS, torch.float32)
+
+
+def k4_bwd_bf16(dev) -> dict:
+    return _k4_bwd_cuts(dev, "ssd_scan_bwd_bf16", K4_BWD_BF16_CUTS,
+                        torch.bfloat16, K4_BWD_BF16_SAME)
 
 
 def k1(dev) -> dict:
@@ -518,6 +562,7 @@ def main() -> int:
              "k3_bwd": ("k3_bwd_ms", k3_bwd),
              "k3_bwd_bf16": ("k3_bwd_bf16_ms", k3_bwd_bf16),
              "k4_bwd": ("k4_bwd_ms", k4_bwd),
+             "k4_bwd_bf16": ("k4_bwd_bf16_ms", k4_bwd_bf16),
              "k1": ("k1_window_x_category_ms", k1)}
     names = sys.argv[1:] or list(parts)
     if not set(names) <= set(parts):

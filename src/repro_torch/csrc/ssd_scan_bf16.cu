@@ -55,7 +55,8 @@
 //   = 16); one value at a time through registers otherwise (P = 12, N =
 //   20, offset views). TMA zero-fills past S and past P or N; rows of the
 //   next chunk inside a chunk's last tile (Q % 64 != 0) are zeroed in
-//   shared memory after they land, as the other routes zero-fill them.
+//   shared memory after they land, as the other routes zero-fill them
+//   (csrc/bf16_tiles.cuh, shared with the backward).
 // - Pass 2: one warpgroup per (b, chunk, group, lower tile), both tiles
 //   whole (N <= 128: eight k16 steps at most).
 // - Pass 3: per (b, h, chunk), two warpgroups, each half of the chunk's
@@ -93,6 +94,7 @@
 #include <stdint.h>
 #include <string.h>
 #include "hopper.cuh"
+#include "bf16_tiles.cuh"
 #include "ssd_common.cuh"
 #include "tma.cuh"
 
@@ -103,63 +105,6 @@ namespace {
 constexpr int T = SSD_T;                // rows of a tile; the wgmma M
 constexpr int TILE = T * 128;           // bytes of a 64-row column half
 constexpr int NTILE = SSD_QMAX / T;     // tiles of a chunk, at most
-
-enum Load { LOAD_TMA = 0, LOAD_CP_ASYNC = 1, LOAD_REGS = 2 };
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  return p + (((s + 1023u) & ~1023u) - s);
-}
-
-__device__ __forceinline__ uint32_t sa(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Rows [0, 64) x columns [0, 64 halves) of the bf16 matrix at src (row
-// stride ld values) into the swizzled tile at `tile`, rows past rows_ok
-// and columns past cols zero, by threads tid of nt: 16-byte cp.async
-// (route LOAD_CP_ASYNC: cols, ld and src's alignment multiples of 8
-// values) or one value at a time.
-__device__ __forceinline__ void land_tile(uint8_t* tile, const bf16* src,
-                                          int64_t ld, int rows_ok, int cols,
-                                          int halves, int route, int tid,
-                                          int nt) {
-  if (route == LOAD_CP_ASYNC) {
-    const uint32_t s = sa(tile);
-    const int ch = 8 * halves;
-    for (int i = tid; i < T * ch; i += nt) {
-      const int r = i / ch, c = 8 * (i % ch);
-      const bool ok = r < rows_ok && c < cols;
-      cp_async16_to(s + sw128(r, c, T), ok ? src + r * ld + c : src,
-                    ok ? 16 : 0);
-    }
-  } else {
-    const int w = 64 * halves;
-    const bf16 zero = __float2bfloat16_rn(0.f);
-    for (int i = tid; i < T * w; i += nt) {
-      const int r = i / w, c = i % w;
-      *(bf16*)(tile + sw128(r, c, T)) =
-          r < rows_ok && c < cols ? src[r * ld + c] : zero;
-    }
-  }
-}
-
-// Rows [rows_ok, 64) of a swizzled tile set to zero (whole 128-byte rows:
-// the swizzle only permutes a row's chunks)
-__device__ __forceinline__ void zero_tail(uint8_t* tile, int halves,
-                                          int rows_ok, int tid, int nt) {
-  const int per = (T - rows_ok) * 8;      // 16-byte chunks a half
-  for (int i = tid; i < per * halves; i += nt) {
-    const int h = i / per, j = i % per;
-    *(uint4*)(tile + h * TILE + (rows_ok + j / 8) * 128 + (j % 8) * 16) =
-        make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// element (r, c) of a one-half swizzled tile, widened
-__device__ __forceinline__ float at(const uint8_t* tile, int r, int c) {
-  return __bfloat162float(*(const bf16*)(tile + sw128(r, c, T)));
-}
 
 // ---------------------------------------------------------------- 2 ----
 // grid (tiles * nc * G, B), one warpgroup: CB tile (ti, si), si <= ti, of
@@ -680,11 +625,6 @@ __global__ void __launch_bounds__(256, 2)
 }
 
 // ------------------------------------------------------------ launch ----
-int route(const void* p, int cols) {
-  if (cols % 8 != 0 || ((uintptr_t)p % 16) != 0) return LOAD_REGS;
-  return cols >= 64 ? LOAD_TMA : LOAD_CP_ASYNC;
-}
-
 int x_route(const SsdArgs& a) { return route(a.x, a.P); }
 
 int bc_route(const SsdArgs& a) {

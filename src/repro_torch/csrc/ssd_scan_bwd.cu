@@ -1,12 +1,13 @@
 // The gradient of the Mamba2 SSD chunked scan (K4's backward) on the
-// tensor cores (wgmma, 3xTF32), for Hopper (sm_90a), in nine passes.
+// tensor cores (wgmma, 3xTF32), for Hopper (sm_90a), in nine passes, on
+// float32 x, B, C and dy (bfloat16 ones take csrc/ssd_scan_bwd_bf16.cu).
 //
 // Replaces: XLA's gradient of repro/models/ssd.py:ssd_scan (the reference
 // trains through autodiff of its jnp scan; it has no Pallas backward).
 // Given the forward's scratch (csrc/ssd_scan.cu: dts and cum per chunk,
 // cb = C.B^T in its lower 64 x 64 tiles, S_in per chunk), dy (B,S,H,P)
 // and d(final state) or none, it writes dx, ddt, dA, dB, dC and
-// d(init_state), each in its operand's dtype and dA in float32. Within
+// d(init_state), float32 (d(init_state) in the state's dtype). Within
 // chunk c of head h (group g), with L[t,s] = exp(cum_t - cum_s) for
 // s <= t (masked BEFORE the exp: s > t may overflow, and inf * 0 is NaN),
 // D[t,s] = dy_t . x_s, M = cb L dt_s D and G_c the gradient of the state
@@ -35,9 +36,8 @@
 // causal half of dcb times B and times C per group (N Q(Q+1)/2 each):
 // 26.3 GFLOP (chip_smoke.ssd_bwd_work). At 3xTF32 (three TF32 products
 // for each float32 one, 495 TFLOP/s dense on an H100 SXM) that is 0.160
-// ms, above the 220 MB it must move (0.066 ms at 3.35 TB/s): float32 is
-// bound by operations; bfloat16 (989 TFLOP/s: 0.027 ms) by its 110 MB
-// at 0.033 ms.
+// ms, above the 220 MB it must move (0.066 ms at 3.35 TB/s): bound by
+// operations.
 //
 // Design. The passes of the Mamba2 authors' GPU backward (dstates, the
 // state passing backward, the chunk scan's and the chunk state's
@@ -94,13 +94,9 @@
 // Products. Every one is wgmma.mma_async m64n64k8 .tf32, one warpgroup
 // (128 threads) a block. A float32 operand x is split into big =
 // tf32(x) and small = tf32(x - big) (split_bits) and a product is
-// small*big + big*small + big*big, accumulated in float32. A bfloat16
-// operand widened to float32 is its own TF32 big half, its small half 0:
-// D = dy . x^T on two bfloat16 operands is one TF32 product, exact; a
-// product of a bfloat16 operand and a float32 one (W, exp(cum) dy, G_c,
-// S_in, dcb) is two (PR 24's rule for K3's backward), bit for bit what
-// three would give. kernels/ssd.py:ssd_scan_bwd_ref(..., passes=3) is a
-// float64 model of these products.
+// small*big + big*small + big*big, accumulated in float32.
+// kernels/ssd.py:ssd_scan_bwd_ref(..., passes=3) is a float64 model of
+// these products.
 // Layouts. tf32 wgmma reads shared operands K-major only, as 8 x 4-word
 // core matrices without swizzle (hopper.cuh, csrc/ssd_tiles.cuh). The
 // operand that is K-major as stored is split as it stands (split_rows);
@@ -119,107 +115,50 @@
 // order; ddt fused into dx needs dcum at every later position of the
 // chunk, which other blocks write.
 // Shared memory per block (bytes) and registers a thread (ptxas -v, nvcc
-// 12.8, sm_90a), float32 / bfloat16, no spills:
-//       pass        dstates   dcb             dx        heads           dbc
-//       smem        54,272    103,168/70,400  71,680    88,352/71,968   68,608
-//       registers   168/128   204/208         156/161   216/248         149/132
-// and 108 (state passing), 32 (sum, ddt), 30 (dA) registers.
+// 12.8, sm_90a), no spills:
+//       pass        dstates   dcb       dx        heads     dbc
+//       smem        54,272    103,168   71,680    88,352    68,608
+//       registers   168       204       156       216       149
+// and 108 (state passing), 32 (sum, ddt), 30 (dA) registers. Passes 2, 6,
+// 8 and 9 run no products and are csrc/ssd_bwd_common.cuh's, shared with
+// the bfloat16 library.
 //
 // Interface: plain C, loaded with ctypes. Every pass takes the same
-// arguments, launches on the given stream, does not synchronise, and
-// returns cudaGetLastError() (or the error of raising the shared-memory
-// limit); -1 for a shape it does not take.
+// arguments (csrc/ssd_bwd_common.cuh: BWD_ARGS; in_bf16 must be 0),
+// launches on the given stream, does not synchronise, and returns
+// cudaGetLastError() (or the error of raising the shared-memory limit);
+// -1 for a shape it does not take.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include "hopper.cuh"
 #include "ssd_tiles.cuh"
 
+#define BWD_BF16_LIB 0        // x, B, C and dy in float32 only
+#include "ssd_bwd_common.cuh"
+
 #define T 64                  // rows of a t or s tile; the wgmma M and N
 #define PMAX 64               // head dim P, zero-padded
-#define NMAX 128              // state dim N: up to two 64-wide halves
 #define QMAX 256              // chunk length Q
 #define NT 128                // one warpgroup a block (passes 1, 3-6)
 #define KT 32                 // positions per step of pass 1
-#define HSMAX 4               // head slices of a group (passes 3 and 5)
 #define SPA (T + 4)           // staged row read a row per lane group
 #define SPT (T + 8)           // staged row read a column per lane group
-#define SLICE 1024            // (p, n) elements per state-passing block
-#define CG 8                  // chunks in flight in the state passing
-#define FULL_MASK 0xffffffffu
-
-struct BwdArgs {
-  const void* x;              // (B,S,H,P), in_bf16
-  const void* dt;             // (B,S,H), dt_bf16
-  const float* A;             // (H,)
-  const void* Bm;             // (B,S,G,N), in_bf16
-  const void* Cm;             // (B,S,G,N), in_bf16
-  const void* dy;             // (B,S,H,P), in_bf16
-  const float* dfinal;        // (B,H,P,N) or null: zeros
-  const float* dts;           // (B,H,nc,QP) the forward's scratch
-  const float* cum;           // (B,H,nc,QP)
-  const float* cb;            // (B,nc,G,QP,QP), lower tiles
-  const float* s_in;          // (B,H,nc,P,N): S_in per chunk
-  void* dx;                   // (B,S,H,P), in_bf16
-  void* ddt;                  // (B,S,H), dt_bf16
-  float* dA;                  // (H,)
-  void* dB;                   // (B,S,G,N), in_bf16
-  void* dC;                   // (B,S,G,N), in_bf16
-  void* dinit;                // (B,H,P,N), init_bf16, or null: not wanted
-  float* dst;                 // (B,H,nc,P,N) scratch: dstates, then G_c
-  float* dcbp;                // (HS,B,nc,G,QP,QP): dcb per slice, lower tiles
-  float* rs;                  // (B,H,nc,nt,QP): row sums of M by s tile
-  float* cs;                  // (B,H,nc,nt,QP): column sums by t tile
-  float* pI;                  // (NH,B,H,nc,QP): I_t by 64 of N
-  float* pK;                  // (B,H,nc,QP): K_s
-  float* pD;                  // (B,H,nc,QP): ddts
-  float* pbc;                 // (2,HS,B,nc,QP,G,N): dC's, dB's head terms
-  float* ep;                  // (B,H,nc,nsl): partial <G_c, S_in[c]>
-  float* dap;                 // (B,H,nc): each chunk's share of dA
-  int B, S, H, P, G, N, Q, QP, nc, nt, nsl, HS, NH;
-  int in_bf16, dt_bf16, init_bf16;
-  int vx;                     // 16-byte copies of x and dy rows
-  int vbc;                    // ... of B and C rows
-  int v4n;                    // ... of float32 rows of N (G_c, S_in)
-};
-
-template <typename In>
-__device__ __forceinline__ float ldv(const void* p, int64_t i) {
-  return widen(((const In*)p)[i]);
-}
-
-__device__ __forceinline__ void st(void* p, int64_t i, float v, int bf) {
-  if (bf) ((bf16*)p)[i] = narrow<bf16>(v);
-  else ((float*)p)[i] = v;
-}
-
-__device__ __forceinline__ int chunk_len(const BwdArgs& a, int c) {
-  return (int)min((int64_t)a.Q, (int64_t)a.S - (int64_t)c * a.Q);
-}
 
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// the first head of slice hs of group g (R heads in HS slices)
-__device__ __forceinline__ int slice_head(const BwdArgs& a, int g, int hs) {
-  const int R = a.H / a.G;
-  return g * R + hs * R / a.HS;
-}
-
 // one k step of acc (m64n64) += A . B^T, A's fragment in registers (ab,
 // as) and B split at sb (big, then small W words on): small*big,
-// big*small, big*big, leaving out the products of an operand with no
-// small half (SA, SB false: a widened bfloat16)
-template <bool SA, bool SB>
+// big*small, big*big
 __device__ __forceinline__ void step_rs(float (&acc)[32],
                                         const uint32_t (&ab)[4],
                                         const uint32_t (&as)[4],
                                         const uint32_t* sb, int W) {
   const uint64_t bb = smem_desc(sb, (T / 8) * 128, 128);
-  if constexpr (SA) wgmma_rs_n64(acc, as, bb);
-  if constexpr (SB) wgmma_rs_n64(acc, ab, smem_desc(sb + W, (T / 8) * 128,
-                                                    128));
+  wgmma_rs_n64(acc, as, bb);
+  wgmma_rs_n64(acc, ab, smem_desc(sb + W, (T / 8) * 128, 128));
   wgmma_rs_n64(acc, ab, bb);
 }
 
@@ -240,9 +179,7 @@ __device__ __forceinline__ void frag(const float* st, int r0, int k0, int t4,
 // (N), K = t in steps of KT. C is the register operand (rows n, read from
 // the staged chunk as it stands), exp(cum_t) dy_t the shared one, scaled
 // and transposed as it is split.
-template <typename In>
 __global__ void __launch_bounds__(NT) ssd_bwd_dstates_kernel(BwdArgs a) {
-  constexpr bool F32 = sizeof(In) == 4;
   extern __shared__ __align__(128) uint32_t smem[];
   constexpr int XS = KT * SPT, STAGE = 2 * XS, W = PMAX * KT;
   uint32_t* sp = smem;                                  // dy' split (p, t)
@@ -253,9 +190,9 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dstates_kernel(BwdArgs a) {
   const int len = chunk_len(a, c);
   const int64_t c0 = (int64_t)c * a.Q;
   const int64_t xld = (int64_t)a.H * a.P, bld = (int64_t)a.G * a.N;
-  const In* ys = (const In*)a.dy + ((int64_t)b * a.S + c0) * xld +
+  const float* ys = (const float*)a.dy + ((int64_t)b * a.S + c0) * xld +
                  (int64_t)h * a.P;
-  const In* cs = (const In*)a.Cm + ((int64_t)b * a.S + c0) * bld +
+  const float* cs = (const float*)a.Cm + ((int64_t)b * a.S + c0) * bld +
                  (int64_t)g * a.N + T * nh;
   const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
   for (int i = threadIdx.x; i < a.QP; i += NT)
@@ -294,7 +231,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dstates_kernel(BwdArgs a) {
     wg_fence();
 #pragma unroll
     for (int j = 0; j < KT / 8; ++j)
-      step_rs<F32, true>(acc, ab[j], as[j], sp + 2 * j * (PMAX / 8) * 32, W);
+      step_rs(acc, ab[j], as[j], sp + 2 * j * (PMAX / 8) * 32, W);
     wg_commit();
     __syncthreads();                  // every read of stage it & 1 is done
     if (it + 2 < steps) load(it + 2, st);
@@ -316,72 +253,6 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dstates_kernel(BwdArgs a) {
       }
 }
 
-// ---------------------------------------------------------------- 2 ----
-// grid (nsl * H, B), 256 threads of 4 elements each: G_c over the chunks
-// in reverse, written over dstates_c; ep = the block's share of <G_c,
-// S_in[c]> times exp(total_c) (a warp's butterfly sum, then its 8 warps'
-// in a fixed tree); d(init)
-__global__ void __launch_bounds__(256) ssd_bwd_state_passing_kernel(
-    BwdArgs a) {
-  __shared__ float wred[2][8];
-  const int sl = blockIdx.x % a.nsl, h = blockIdx.x / a.nsl, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t bh = (int64_t)b * a.H + h;
-  const int64_t pn = (int64_t)a.P * a.N;
-  int64_t idx[4];
-  float g[4];
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    idx[v] = (int64_t)sl * SLICE + threadIdx.x + v * 256;
-    g[v] = a.dfinal != nullptr && idx[v] < pn ? a.dfinal[bh * pn + idx[v]]
-                                              : 0.f;
-  }
-  int done = 0;
-  for (int c1 = a.nc - 1; c1 >= 0; c1 -= CG) {
-    float ds[CG][4], si[CG][4], dec[CG];
-#pragma unroll
-    for (int k = 0; k < CG; ++k) {
-      if (c1 - k < 0) break;
-      const int64_t bhc = bh * a.nc + c1 - k;
-      dec[k] = expf(a.cum[bhc * a.QP + a.QP - 1]);
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const bool ok = idx[v] < pn;
-        ds[k][v] = ok ? a.dst[bhc * pn + idx[v]] : 0.f;
-        si[k][v] = ok ? a.s_in[bhc * pn + idx[v]] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < CG; ++k) {
-      if (c1 - k < 0) break;
-      const int64_t bhc = bh * a.nc + c1 - k;
-      float part = 0.f;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        part = fmaf(g[v], si[k][v], part);
-        if (idx[v] < pn) a.dst[bhc * pn + idx[v]] = g[v];
-        g[v] = fmaf(dec[k], g[v], ds[k][v]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        part += __shfl_xor_sync(FULL_MASK, part, o);
-      float* w = wred[done & 1];
-      if (lane == 0) w[warp] = part;
-      __syncthreads();
-      if (threadIdx.x == 0)
-        a.ep[bhc * a.nsl + sl] =
-            dec[k] * (((w[0] + w[1]) + (w[2] + w[3])) +
-                      ((w[4] + w[5]) + (w[6] + w[7])));
-      ++done;
-    }
-  }
-  if (a.dinit != nullptr) {
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-      if (idx[v] < pn) st(a.dinit, bh * pn + idx[v], g[v], a.init_bf16);
-  }
-}
-
 // ---------------------------------------------------------------- 3 ----
 // grid (ntri * HS, nc * G, B): the tile pair (ti, si), si <= ti, of chunk
 // c and group g, heads of slice hs. Per head: D (t x s) = dy_t . x_s^T
@@ -389,10 +260,8 @@ __global__ void __launch_bounds__(256) ssd_bwd_state_passing_kernel(
 // dt_s D summed along each row (s < t) into rs[si] and each column
 // (t > s) into cs[ti]. A thread's accumulator rows t = r0, r0 + 8,
 // columns s = 8j + 2 t4 + e.
-template <typename In>
 __global__ void __launch_bounds__(NT) ssd_bwd_dcb_kernel(BwdArgs a) {
-  constexpr bool F32 = sizeof(In) == 4;
-  constexpr int SPL = F32 ? 2 : 1, W = T * PMAX;
+  constexpr int SPL = 2, W = T * PMAX;
   extern __shared__ __align__(128) uint32_t smem[];
   uint32_t* ay = smem;                       // dy split (t, p)
   uint32_t* bx = ay + SPL * W;               // x split (s, p)
@@ -414,8 +283,8 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dcb_kernel(BwdArgs a) {
   const int64_t xld = (int64_t)a.H * a.P;
   const int64_t cbo = (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP +
                       (int64_t)(ti * T) * a.QP + si * T;
-  const In* dys = (const In*)a.dy + ((int64_t)b * a.S + c0 + ti * T) * xld;
-  const In* xs = (const In*)a.x + ((int64_t)b * a.S + c0 + si * T) * xld;
+  const float* dys = (const float*)a.dy + ((int64_t)b * a.S + c0 + ti * T) * xld;
+  const float* xs = (const float*)a.x + ((int64_t)b * a.S + c0 + si * T) * xld;
   auto issue = [&](int h, float* v) {
     load_tile<NT, T, PMAX, SPA>(sdy, dys + (int64_t)h * a.P, xld,
                                 len - ti * T, a.P, a.vx);
@@ -456,8 +325,8 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dcb_kernel(BwdArgs a) {
     const float ref = v[2 * T - 1];   // cum at the s tile's last position
     if (ti > si && threadIdx.x < T)
       cf[threadIdx.x] = expf(ref - v[T + threadIdx.x]) * v[2 * T + threadIdx.x];
-    split_rows<NT, T, PMAX, SPA, F32>(sdy, ay);
-    split_rows<NT, T, PMAX, SPA, F32>(sx, bx);
+    split_rows<NT, T, PMAX, SPA>(sdy, ay);
+    split_rows<NT, T, PMAX, SPA>(sx, bx);
     fence_async_smem();
     __syncthreads();                  // splits ready; the staging is free
     float d[32];
@@ -470,10 +339,8 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dcb_kernel(BwdArgs a) {
       const int o = 2 * kk * (T / 8) * 32;
       const uint64_t ab = smem_desc(ay + o, (T / 8) * 128, 128);
       const uint64_t bb = smem_desc(bx + o, (T / 8) * 128, 128);
-      if constexpr (F32) {
-        wgmma_ss_n64(d, smem_desc(ay + W + o, (T / 8) * 128, 128), bb);
-        wgmma_ss_n64(d, ab, smem_desc(bx + W + o, (T / 8) * 128, 128));
-      }
+      wgmma_ss_n64(d, smem_desc(ay + W + o, (T / 8) * 128, 128), bb);
+      wgmma_ss_n64(d, ab, smem_desc(bx + W + o, (T / 8) * 128, 128));
       wgmma_ss_n64(d, ab, bb);
     }
     wg_commit();
@@ -514,15 +381,15 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dcb_kernel(BwdArgs a) {
     const int64_t o = (((int64_t)b * a.H + h) * a.nc + c) * a.nt * a.QP;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {             // row t: over the 4 lanes t4
-      rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 1);
-      rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 2);
+      rsum[r] += __shfl_xor_sync(SSD_BWD_MASK, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(SSD_BWD_MASK, rsum[r], 2);
       if (t4 == 0) a.rs[o + (int64_t)si * a.QP + ti * T + r0 + 8 * r] = rsum[r];
     }
 #pragma unroll
     for (int q = 0; q < 16; ++q) {            // column s: over the 8 lanes g8
-      csum[q] += __shfl_xor_sync(FULL_MASK, csum[q], 4);
-      csum[q] += __shfl_xor_sync(FULL_MASK, csum[q], 8);
-      csum[q] += __shfl_xor_sync(FULL_MASK, csum[q], 16);
+      csum[q] += __shfl_xor_sync(SSD_BWD_MASK, csum[q], 4);
+      csum[q] += __shfl_xor_sync(SSD_BWD_MASK, csum[q], 8);
+      csum[q] += __shfl_xor_sync(SSD_BWD_MASK, csum[q], 16);
     }
     if (g8 == 0) {
 #pragma unroll
@@ -558,9 +425,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dcb_kernel(BwdArgs a) {
 // times dy (split transposed, rows p). One stage of staging: the next
 // step's tiles load while this step's products run. Then dx = dt_s
 // dxdt, ddts = x . dxdt.
-template <typename In>
 __global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(BwdArgs a) {
-  constexpr bool F32 = sizeof(In) == 4;
   constexpr int W = PMAX * T, STAGE = 2 * T * SPT;
   extern __shared__ __align__(128) uint32_t smem[];
   uint32_t* sp = smem;                       // G or dy^T split (p, k)
@@ -576,11 +441,11 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(BwdArgs a) {
   const int64_t xld = (int64_t)a.H * a.P, bld = (int64_t)a.G * a.N;
   const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
   const int64_t pn = (int64_t)a.P * a.N;
-  const In* bs = (const In*)a.Bm + ((int64_t)b * a.S + c0 + si * T) * bld +
+  const float* bs = (const float*)a.Bm + ((int64_t)b * a.S + c0 + si * T) * bld +
                  (int64_t)g * a.N;
-  const In* ys = (const In*)a.dy + ((int64_t)b * a.S + c0) * xld +
+  const float* ys = (const float*)a.dy + ((int64_t)b * a.S + c0) * xld +
                  (int64_t)h * a.P;
-  const In* xs = (const In*)a.x + ((int64_t)b * a.S + c0) * xld +
+  const float* xs = (const float*)a.x + ((int64_t)b * a.S + c0) * xld +
                  (int64_t)h * a.P;
   const float* gc = a.dst + bhc * pn;
   const float* cbs = a.cb + (((int64_t)b * a.nc + c) * a.G + g) * a.QP * a.QP +
@@ -629,7 +494,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(BwdArgs a) {
       for (int j = 0; j < 8; ++j) frag<SPA, 1>(st, r0, 8 * j, t4, ab[j], as[j]);
     } else {
       const int ti = si + it - ns;
-      split_cols<NT, PMAX, T, SPT, false, false, F32>(st + T * SPT, sp);
+      split_cols<NT, PMAX, T, SPT, false, false>(st + T * SPT, sp);
       // A[s][t] = cb[t][s] exp(cum_t - cum_s), s <= t < len
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -650,11 +515,11 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(BwdArgs a) {
     if (state) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        step_rs<F32, true>(acc, ab[j], as[j], sp + 2 * j * (PMAX / 8) * 32, W);
+        step_rs(acc, ab[j], as[j], sp + 2 * j * (PMAX / 8) * 32, W);
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        step_rs<true, F32>(acc, ab[j], as[j], sp + 2 * j * (PMAX / 8) * 32, W);
+        step_rs(acc, ab[j], as[j], sp + 2 * j * (PMAX / 8) * 32, W);
     }
     wg_commit();
     if (it + 1 < steps) load(it + 1, st);   // in flight with the products
@@ -674,7 +539,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(BwdArgs a) {
             const int i = 4 * j + 2 * r + q, p = 8 * j + 2 * t4 + q;
             acc[i] *= e;
             if (s < len && p < a.P)
-              kp[r] = fmaf(ldv<In>(xs, (int64_t)s * xld + p), acc[i], kp[r]);
+              kp[r] = fmaf(xs[(int64_t)s * xld + p], acc[i], kp[r]);
           }
         kp[r] *= dtv[s];
       }
@@ -695,16 +560,16 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(BwdArgs a) {
         if (s < len && p < a.P) {
           const int64_t o = (int64_t)s * xld + p;
           const float dxdt = acc[4 * j + 2 * r + q];
-          ((In*)a.dx)[((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P + o] =
-              narrow<In>(d * dxdt);
-          pd = fmaf(ldv<In>(xs, o), dxdt, pd);
+          ((float*)a.dx)[((int64_t)b * a.S + c0) * xld + (int64_t)h * a.P +
+                         o] = d * dxdt;
+          pd = fmaf(xs[o], dxdt, pd);
         }
       }
-    pd += __shfl_xor_sync(FULL_MASK, pd, 1);
-    pd += __shfl_xor_sync(FULL_MASK, pd, 2);
+    pd += __shfl_xor_sync(SSD_BWD_MASK, pd, 1);
+    pd += __shfl_xor_sync(SSD_BWD_MASK, pd, 2);
     float k = kp[r];
-    k += __shfl_xor_sync(FULL_MASK, k, 1);
-    k += __shfl_xor_sync(FULL_MASK, k, 2);
+    k += __shfl_xor_sync(SSD_BWD_MASK, k, 1);
+    k += __shfl_xor_sync(SSD_BWD_MASK, k, 2);
     if (t4 == 0) {
       a.pD[bhc * a.QP + s] = pd;
       a.pK[bhc * a.QP + s] = k;
@@ -720,13 +585,11 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(BwdArgs a) {
 // p x n tile) times dy (dC) or x (dB) (split as stored, rows u). Each
 // head's sum is scaled per column, exp(cum_t) (dC) or exp(total - cum_s)
 // dt_s (dB), and added in head order; for dC, I_t's share of these 64 n.
-template <typename In>
 __global__ void __launch_bounds__(NT) ssd_bwd_heads_kernel(BwdArgs a) {
-  constexpr bool F32 = sizeof(In) == 4;
   constexpr int W = T * PMAX;
   extern __shared__ __align__(128) uint32_t smem[];
   uint32_t* sp = smem;                       // dy or x split (u, p)
-  float* sv = (float*)(sp + (F32 ? 2 : 1) * W);   // [T][SPA] dy or x rows u
+  float* sv = (float*)(sp + 2 * W);          // [T][SPA] dy or x rows u
   float* sm = sv + T * SPA;                  // [PMAX][SPT] S_in or G_c
   float* sc = sm + PMAX * SPT;               // [T][SPA] C rows t (dC)
   float* vt = sc + T * SPA;                  // [2][cum, dts][T], total
@@ -748,7 +611,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_heads_kernel(BwdArgs a) {
   // G_c is zero in the last chunk without a d(final): dB gets nothing
   const int h_hi = z == 1 && c == a.nc - 1 && a.dfinal == nullptr
                        ? h_lo : slice_head(a, g, hs + 1);
-  const In* vs = (const In*)(z == 0 ? a.dy : a.x) +
+  const float* vs = (const float*)(z == 0 ? a.dy : a.x) +
                  ((int64_t)b * a.S + c0 + u0) * xld;
   const float* ms = z == 0 ? a.s_in : a.dst;
   auto issue = [&](int h, float* v) {
@@ -772,7 +635,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_heads_kernel(BwdArgs a) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   if (z == 0)
-    load_tile<NT, T, T, SPA>(sc, (const In*)a.Cm + ((int64_t)b * a.S + c0 +
+    load_tile<NT, T, T, SPA>(sc, (const float*)a.Cm + ((int64_t)b * a.S + c0 +
                                                     u0) * bld +
                                      (int64_t)g * a.N + n0,
                              bld, len - u0, a.N - n0, a.vbc);
@@ -790,7 +653,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_heads_kernel(BwdArgs a) {
       fv[threadIdx.x] = z == 0 ? expf(v[threadIdx.x])
                                : expf(v[2 * T] - v[threadIdx.x]) *
                                      v[T + threadIdx.x];
-    split_rows<NT, T, PMAX, SPA, F32>(sv, sp);
+    split_rows<NT, T, PMAX, SPA>(sv, sp);
     // element (n, p) of the register operand is sm[p * SPT + n]
     uint32_t ab[8][4], as[8][4];
 #pragma unroll
@@ -801,7 +664,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_heads_kernel(BwdArgs a) {
     wg_fence();
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      step_rs<true, F32>(hacc, ab[j], as[j], sp + 2 * j * (T / 8) * 32, W);
+      step_rs(hacc, ab[j], as[j], sp + 2 * j * (T / 8) * 32, W);
     wg_commit();
     if (h + 1 < h_hi) issue(h + 1, vt + ((k + 1) & 1) * (2 * T + 4));
     cp_commit();
@@ -828,9 +691,9 @@ __global__ void __launch_bounds__(NT) ssd_bwd_heads_kernel(BwdArgs a) {
     if (z == 0) {                    // I_t: over the 8 lanes g8, the warps
 #pragma unroll
       for (int q = 0; q < 16; ++q) {
-        ip[q] += __shfl_xor_sync(FULL_MASK, ip[q], 4);
-        ip[q] += __shfl_xor_sync(FULL_MASK, ip[q], 8);
-        ip[q] += __shfl_xor_sync(FULL_MASK, ip[q], 16);
+        ip[q] += __shfl_xor_sync(SSD_BWD_MASK, ip[q], 4);
+        ip[q] += __shfl_xor_sync(SSD_BWD_MASK, ip[q], 8);
+        ip[q] += __shfl_xor_sync(SSD_BWD_MASK, ip[q], 16);
       }
       if (g8 == 0) {
 #pragma unroll
@@ -861,45 +724,13 @@ __global__ void __launch_bounds__(NT) ssd_bwd_heads_kernel(BwdArgs a) {
       }
 }
 
-// ---------------------------------------------------------------- 6 ----
-// grid (ceil(max(G QP^2, QP G N) / 1024), B * nc, 3), 256 threads of 4
-// values: the head slices' partials added in slice order into slice 0,
-// z = 0 dcb's lower tiles (G QP^2 values a (b, chunk)), z = 1 and 2 dC's
-// and dB's head terms (QP G N values a (b, chunk)). Launched for HS > 1.
-__global__ void __launch_bounds__(256) ssd_bwd_sum_kernel(BwdArgs a) {
-  const int z = blockIdx.z;
-  const int64_t bc = blockIdx.y;             // b nc + c
-  const int64_t per = z == 0 ? (int64_t)a.G * a.QP * a.QP
-                             : (int64_t)a.QP * a.G * a.N;
-  const int64_t i = 4 * ((int64_t)blockIdx.x * 256 + threadIdx.x);
-  if (i >= per) return;
-  if (z == 0) {                              // an upper tile: never written
-    const int64_t e = i % ((int64_t)a.QP * a.QP);
-    if ((e % a.QP) / T > (e / a.QP) / T) return;
-  }
-  const int64_t stride = (int64_t)a.B * a.nc * per;
-  float* p = (z == 0 ? a.dcbp : a.pbc + (int64_t)(z - 1) * a.HS * stride) +
-             bc * per + i;
-  float4 s = *(const float4*)p;
-  for (int hs = 1; hs < a.HS; ++hs) {
-    const float4 w = *(const float4*)(p + hs * stride);
-    s.x += w.x;
-    s.y += w.y;
-    s.z += w.z;
-    s.w += w.w;
-  }
-  *(float4*)p = s;
-}
-
 // ---------------------------------------------------------------- 7 ----
 // grid (nt * 2 * NH, nc * G, B): the tile of chunk c, group g, z = 0 dC
 // (rows t) or 1 dB (rows s), n in [64 nh, 64 nh + 64): acc[n][u] starts
 // as the head terms (the slices' sum, pass 6), then over the K tiles
 // (dC: s tiles <= ti; dB: t tiles >= si) B^T or C^T (registers, rows n,
 // read from the staged tile) times dcb or dcb^T (split, rows u).
-template <typename In>
 __global__ void __launch_bounds__(NT) ssd_bwd_dbc_kernel(BwdArgs a) {
-  constexpr bool F32 = sizeof(In) == 4;
   constexpr int W = T * T;
   extern __shared__ __align__(128) uint32_t smem[];
   uint32_t* sp = smem;                       // dcb or dcb^T split (u, k)
@@ -914,7 +745,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dbc_kernel(BwdArgs a) {
   const int64_t bld = (int64_t)a.G * a.N;
   const int u0 = tile * T, n0 = T * nh;
   const int last = (len - 1) / T;
-  const In* vs = (const In*)(z == 0 ? a.Bm : a.Cm) +
+  const float* vs = (const float*)(z == 0 ? a.Bm : a.Cm) +
                  ((int64_t)b * a.S + c0) * bld + (int64_t)g * a.N + n0;
   const float* dcb0 = a.dcbp + (((int64_t)b * a.nc + c) * a.G + g) * a.QP *
                                    a.QP;
@@ -960,14 +791,14 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dbc_kernel(BwdArgs a) {
     wg_fence();
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      step_rs<F32, true>(acc, ab[j], as[j], sp + 2 * j * (T / 8) * 32, W);
+      step_rs(acc, ab[j], as[j], sp + 2 * j * (T / 8) * 32, W);
     wg_commit();
     wg_wait_all();
     pin(acc);
     __syncthreads();                  // the staging is free again
   }
-  In* out = (In*)(z == 0 ? a.dC : a.dB) + ((int64_t)b * a.S + c0 + u0) * bld +
-            (int64_t)g * a.N;
+  float* out = (float*)(z == 0 ? a.dC : a.dB) +
+               ((int64_t)b * a.S + c0 + u0) * bld + (int64_t)g * a.N;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -976,88 +807,8 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dbc_kernel(BwdArgs a) {
       for (int e = 0; e < 2; ++e) {
         const int n = n0 + r0 + 8 * r, u = 8 * j + 2 * t4 + e;
         if (n < a.N && u0 + u < len)
-          out[(int64_t)u * bld + n] = narrow<In>(acc[4 * j + 2 * r + e]);
+          out[(int64_t)u * bld + n] = acc[4 * j + 2 * r + e];
       }
-}
-
-// ---------------------------------------------------------------- 8 ----
-// the sum of v over the block's QP threads in a fixed tree order (slots
-// past n hold zeros); every thread gets it (red: QMAX floats)
-__device__ __forceinline__ float block_sum(float v, float* red, int n) {
-  const int u = threadIdx.x;
-  red[u] = v;
-  for (int i = n + u; i < QMAX; i += n) red[i] = 0.f;
-  __syncthreads();
-  for (int o = QMAX / 2; o > 0; o >>= 1) {
-    for (int i = u; i < o; i += n) red[i] += red[i + o];
-    __syncthreads();
-  }
-  const float s = red[0];
-  __syncthreads();
-  return s;
-}
-
-// grid (H * nc, B), QP threads: dcum from the partial sums (rs over the s
-// tiles in order, cs over the live t tiles in order, I over the halves of
-// N in order, K, and at the last slot sum K + the ep shares), its reverse
-// cumsum dla (a warp shuffle scan from the chunk's end, then the warps'
-// totals in order), ddt = ddts + A dla, and dap = sum_u dts_u dla_u.
-__global__ void __launch_bounds__(QMAX) ssd_bwd_ddt_kernel(BwdArgs a) {
-  __shared__ float wsum[QMAX / 32];
-  __shared__ float red[QMAX];
-  const int u = threadIdx.x, lane = u & 31, warp = u >> 5;
-  const int h = blockIdx.x % a.H, c = blockIdx.x / a.H, b = blockIdx.y;
-  const int len = chunk_len(a, c);
-  const int64_t bhc = ((int64_t)b * a.H + h) * a.nc + c;
-  const int64_t o = bhc * a.QP;
-  float K = 0.f, dc = 0.f;
-  if (u < len) {
-    const int tu = u / T, last = (len - 1) / T;
-    float rs = 0.f, cs = 0.f, I = 0.f;
-    for (int k = 0; k <= tu; ++k) rs += a.rs[(bhc * a.nt + k) * a.QP + u];
-    for (int k = tu; k <= last; ++k) cs += a.cs[(bhc * a.nt + k) * a.QP + u];
-    for (int k = 0; k < a.NH; ++k)
-      I += a.pI[(int64_t)k * a.B * a.H * a.nc * a.QP + o + u];
-    K = a.pK[o + u];
-    dc = rs - cs + I - K;
-  }
-  const float ksum = block_sum(K, red, a.QP);
-  if (u == a.QP - 1) {
-    float e = 0.f;
-    for (int k = 0; k < a.nsl; ++k) e += a.ep[bhc * a.nsl + k];
-    dc += ksum + e;
-  }
-  // the reverse inclusive scan
-  float v = dc;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float w = __shfl_down_sync(FULL_MASK, v, d);
-    if (lane + d < 32) v += w;
-  }
-  if (lane == 0) wsum[warp] = v;
-  __syncthreads();
-  float off = 0.f;
-  for (int w = a.QP / 32 - 1; w > warp; --w) off += wsum[w];
-  const float dla = v + off;
-  const float d = a.dts[o + u];
-  if (u < len) {
-    const int64_t at = ((int64_t)b * a.S + (int64_t)c * a.Q + u) * a.H + h;
-    st(a.ddt, at, a.pD[o + u] + a.A[h] * dla, a.dt_bf16);
-  }
-  const float dap = block_sum(u < len ? d * dla : 0.f, red, a.QP);
-  if (u == 0) a.dap[bhc] = dap;
-}
-
-// ---------------------------------------------------------------- 9 ----
-// grid ceil(H / 256): dA[h] = the (b, chunk) shares in order
-__global__ void __launch_bounds__(256) ssd_bwd_dA_kernel(BwdArgs a) {
-  const int h = blockIdx.x * 256 + threadIdx.x;
-  if (h >= a.H) return;
-  float s = 0.f;
-  for (int b = 0; b < a.B; ++b)
-    for (int c = 0; c < a.nc; ++c)
-      s += a.dap[((int64_t)b * a.H + h) * a.nc + c];
-  a.dA[h] = s;
 }
 
 // ------------------------------------------------------------ launch ----
@@ -1065,16 +816,15 @@ __global__ void __launch_bounds__(256) ssd_bwd_dA_kernel(BwdArgs a) {
 static size_t dstates_smem() {
   return 4 * ((size_t)2 * PMAX * KT + 2 * 2 * KT * SPT + QMAX);
 }
-static size_t dcb_smem(bool f32) {
-  return 4 * ((size_t)2 * (f32 ? 2 : 1) * T * PMAX + 2 * T * SPA + 6 * T +
-              4 * T + T);
+static size_t dcb_smem() {
+  return 4 * ((size_t)2 * 2 * T * PMAX + 2 * T * SPA + 6 * T + 4 * T + T);
 }
 static size_t dx_smem() {
   return 4 * ((size_t)2 * PMAX * T + 2 * T * SPT + 2 * QMAX);
 }
-static size_t heads_smem(bool f32) {
-  return 4 * ((size_t)(f32 ? 2 : 1) * T * PMAX + T * SPA + PMAX * SPT +
-              T * SPA + 2 * (2 * T + 4) + 4 * T + T);
+static size_t heads_smem() {
+  return 4 * ((size_t)2 * T * PMAX + T * SPA + PMAX * SPT + T * SPA +
+              2 * (2 * T + 4) + 4 * T + T);
 }
 static size_t dbc_smem() {
   return 4 * ((size_t)2 * T * T + T * SPT + T * SPA);
@@ -1090,118 +840,37 @@ static int launch_smem(K kern, dim3 grid, size_t bytes, const BwdArgs& a,
   return (int)cudaGetLastError();
 }
 
-#define BWD_PASS(name)                                                      \
-  extern "C" int name(                                                      \
-      const void* x, const void* dt, const float* A, const void* Bm,       \
-      const void* Cm, const void* dy, const float* dfinal, const float* dts, \
-      const float* cum, const float* cb, const float* s_in, void* dx,       \
-      void* ddt, float* dA, void* dB, void* dC, void* dinit, float* dst,   \
-      float* dcbp, float* rs, float* cs, float* pI, float* pK, float* pD,  \
-      float* pbc, float* ep, float* dap, int B, int S, int H, int P, int G, \
-      int N, int Q, int in_bf16, int dt_bf16, int init_bf16,               \
-      cudaStream_t stream)
-
-// Arguments of every pass: the forward's operands x (B,S,H,P), dt (B,S,H),
-// A (H,), Bm and Cm (B,S,G,N); dy (B,S,H,P) in x's dtype; dfinal
-// (B,H,P,N) float32 or null; the forward's scratch dts and cum
-// (B,H,nc,QP), cb (B,nc,G,QP,QP) and S_in (B,H,nc,P,N) after its five
-// passes; the gradients dx, ddt, dA (H,) float32, dB, dC and dinit (or
-// null) in their operands' dtypes; the scratch dst (B,H,nc,P,N), dcbp
-// (HS,B,nc,G,QP,QP), rs and cs (B,H,nc,QP/64,QP), pI (NH,B,H,nc,QP), pK
-// and pD (B,H,nc,QP), pbc (2,HS,B,nc,QP,G,N), ep (B,H,nc,ceil(P*N/1024))
-// and dap (B,H,nc), float32; nc = ceil(S/Q), QP = Q rounded up to 64, HS
-// = min(H/G, 4) head slices, NH = ceil(N/64). P <= 64, N <= 128, 1 <= Q
-// <= 256, H % G == 0, B <= 65535, nc G <= 65535. The passes run in order:
-// dstates, state_passing, dcb, dx, heads, sum, dbc, ddt, dA.
-#define BWD_ARGS                                                            \
-  if (B == 0 || H == 0) return 0;                                           \
-  if (P < 1 || P > PMAX || N < 1 || N > NMAX || Q < 1 || Q > QMAX ||        \
-      S < 1 || G < 1 || H % G != 0 || B > 65535 ||                          \
-      (int64_t)((S + Q - 1) / Q) * G > 65535)                               \
-    return -1;                                                              \
-  const int QP = (Q + T - 1) / T * T, nc = (S + Q - 1) / Q;                 \
-  auto al = [](const void* p) { return ((uintptr_t)p % 16) == 0; };         \
-  const int lanes = in_bf16 ? 8 : 4;                                        \
-  const BwdArgs a{x,  dt,  A,  Bm, Cm, dy, dfinal, dts, cum, cb, s_in, dx,   \
-                  ddt, dA, dB, dC, dinit, dst, dcbp, rs, cs, pI, pK, pD,    \
-                  pbc, ep, dap, B, S, H, P, G, N, Q, QP, nc, QP / T,        \
-                  (P * N + SLICE - 1) / SLICE,                              \
-                  H / G < HSMAX ? H / G : HSMAX, (N + T - 1) / T,           \
-                  in_bf16, dt_bf16, init_bf16,                              \
-                  P % lanes == 0 && al(x) && al(dy),                        \
-                  N % lanes == 0 && al(Bm) && al(Cm),                       \
-                  N % 4 == 0 && al(dst) && al(s_in)};
+SSD_BWD_SHARED_PASSES
 
 BWD_PASS(ssd_bwd_dstates) {
   BWD_ARGS
-  const dim3 grid(H * a.nc, B, a.NH);
-  return in_bf16 ? launch_smem(ssd_bwd_dstates_kernel<bf16>, grid,
-                               dstates_smem(), a, stream)
-                 : launch_smem(ssd_bwd_dstates_kernel<float>, grid,
-                               dstates_smem(), a, stream);
-}
-
-BWD_PASS(ssd_bwd_state_passing) {
-  BWD_ARGS
-  ssd_bwd_state_passing_kernel<<<dim3(a.nsl * H, B), 256, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_smem(ssd_bwd_dstates_kernel, dim3(H * a.nc, B, a.NH),
+                     dstates_smem(), a, stream);
 }
 
 BWD_PASS(ssd_bwd_dcb) {
   BWD_ARGS
-  const dim3 grid(a.nt * (a.nt + 1) / 2 * a.HS, a.nc * G, B);
-  return in_bf16 ? launch_smem(ssd_bwd_dcb_kernel<bf16>, grid,
-                               dcb_smem(false), a, stream)
-                 : launch_smem(ssd_bwd_dcb_kernel<float>, grid,
-                               dcb_smem(true), a, stream);
+  return launch_smem(ssd_bwd_dcb_kernel,
+                     dim3(a.nt * (a.nt + 1) / 2 * a.HS, a.nc * G, B),
+                     dcb_smem(), a, stream);
 }
 
 BWD_PASS(ssd_bwd_dx) {
   BWD_ARGS
-  const dim3 grid(a.nt, H * a.nc, B);
   if (H * a.nc > 65535) return -1;
-  return in_bf16 ? launch_smem(ssd_bwd_dx_kernel<bf16>, grid, dx_smem(), a,
-                               stream)
-                 : launch_smem(ssd_bwd_dx_kernel<float>, grid, dx_smem(), a,
-                               stream);
+  return launch_smem(ssd_bwd_dx_kernel, dim3(a.nt, H * a.nc, B), dx_smem(),
+                     a, stream);
 }
 
 BWD_PASS(ssd_bwd_heads) {
   BWD_ARGS
-  const dim3 grid(a.nt * 2 * a.NH * a.HS, a.nc * G, B);
-  return in_bf16 ? launch_smem(ssd_bwd_heads_kernel<bf16>, grid,
-                               heads_smem(false), a, stream)
-                 : launch_smem(ssd_bwd_heads_kernel<float>, grid,
-                               heads_smem(true), a, stream);
-}
-
-BWD_PASS(ssd_bwd_sum) {
-  BWD_ARGS
-  if (a.HS == 1) return 0;
-  if ((int64_t)B * a.nc > 65535) return -1;
-  const int64_t most = (int64_t)QP * G * (QP > N ? QP : N);
-  ssd_bwd_sum_kernel<<<dim3((unsigned)((most + 1023) / 1024), B * a.nc, 3),
-                       256, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_smem(ssd_bwd_heads_kernel,
+                     dim3(a.nt * 2 * a.NH * a.HS, a.nc * G, B), heads_smem(),
+                     a, stream);
 }
 
 BWD_PASS(ssd_bwd_dbc) {
   BWD_ARGS
-  const dim3 grid(a.nt * 2 * a.NH, a.nc * G, B);
-  return in_bf16 ? launch_smem(ssd_bwd_dbc_kernel<bf16>, grid, dbc_smem(), a,
-                               stream)
-                 : launch_smem(ssd_bwd_dbc_kernel<float>, grid, dbc_smem(), a,
-                               stream);
-}
-
-BWD_PASS(ssd_bwd_ddt) {
-  BWD_ARGS
-  ssd_bwd_ddt_kernel<<<dim3(H * a.nc, B), QP, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-BWD_PASS(ssd_bwd_dA) {
-  BWD_ARGS
-  ssd_bwd_dA_kernel<<<(H + 255) / 256, 256, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_smem(ssd_bwd_dbc_kernel, dim3(a.nt * 2 * a.NH, a.nc * G, B),
+                     dbc_smem(), a, stream);
 }

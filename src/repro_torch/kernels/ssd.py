@@ -47,18 +47,24 @@ from the exact scan (``chip_smoke.py`` and the card tests hold them so).
 
 The gradient. On a CUDA tensor that needs one, ``ssd_scan`` runs
 ``SsdScanFn``: the five passes, their scratch (dts, cum, cb and S_in per
-chunk) kept for the backward kernel ``csrc/ssd_scan_bwd.cu``, nine
-passes with every product on the tensor cores in 3xTF32 (one or two
-TF32 products where an operand is bfloat16), a group's heads spread
-over up to ``BWD_HEAD_SLICES`` slices whose partial sums are added in a
-fixed order (``BWD_PASSES``; ``BWD_LAUNCHES`` counts its calls), which
-writes dx, ddt, dA, dB, dC and d(init_state) in their operands' dtypes
-(dA float32) with no atomics, the same bits on every launch. Its plain
-version ``ssd_scan_bwd_ref`` composes the five passes reversed
+chunk) kept for the backward kernels, nine passes each (``BWD_PASSES``),
+a group's heads spread over up to ``BWD_HEAD_SLICES`` slices whose
+partial sums are added in a fixed order, which write dx, ddt, dA, dB,
+dC and d(init_state) in their operands' dtypes (dA float32) with no
+atomics, the same bits on every launch. Two libraries (``_bwd_lib``),
+the four passes without products shared (``csrc/ssd_bwd_common.cuh``):
+``csrc/ssd_scan_bwd.cu`` for float32 x, B, C and dy, every product in
+3xTF32; ``csrc/ssd_scan_bwd_bf16.cu`` for bfloat16 ones, bf16 ``wgmma``
+on the bfloat16 tiles as they land (TMA), D = dy . x^T one bf16 product
+(exact) and every product with a float32 operand two, that operand
+split into two bfloat16 parts; ``ssd_scan_bwd_bf16`` is a float64 model
+of that arithmetic. ``BWD_LAUNCHES`` counts the backward's calls and
+``BF16_BWD_LAUNCHES`` those of them that took the bfloat16 library. Its
+plain version ``ssd_scan_bwd_ref`` composes the five passes reversed
 (``chunk_scan_bwd_ref``, ``state_passing_bwd_ref``,
 ``chunk_state_bwd_ref``, ``bmm_bwd_ref``, ``cumsum_bwd_ref``), each the
 vector-Jacobian product of its forward pass's plain version;
-``bwd_error_bound`` states how far the kernel may lie from the exact
+``bwd_error_bound`` states how far each library may lie from the exact
 gradient. The one-pass entry ``launch`` still refuses a gradient.
 
 On a ``meta`` tensor (the dry run's account, ``launch/dryrun.py``)
@@ -511,6 +517,31 @@ def ssd_scan_bf16(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
         passes=f"bf16x{parts}")
 
 
+def ssd_scan_bwd_bf16(x, dt, A, Bm, Cm, dy, dstate=None, *,
+                      chunk: int = 256, init_state=None, parts: int = 2):
+    """A float64 model of the bfloat16 backward kernels' arithmetic on
+    bfloat16 x, Bm, Cm and dy (float32 ones holding bfloat16 values), the
+    forward's scratch from the bfloat16 forward's model (``ssd_scan_bf16``'s
+    products): the passes in float64; D = dy . x^T from the values exactly
+    (a product of two bfloat16 numbers is exact in float32); each float32
+    operand of every other product (exp(cum) dy of the dstates, S_in and
+    G_c of the head terms, G_c of dx's state term, the weights W of its
+    intra term, dcb of dB's and dC's intra terms) rounded to float32 and
+    split into ``parts`` bfloat16 parts (2: hi + lo, the kernels; 1: hi
+    alone), the products with the bfloat16 operand summed exactly. It
+    leaves out the float32 roundings of the sums, which
+    ``bwd_error_bound`` counts separately. Returns (dx, ddt, dA, dBm, dCm,
+    dinit) in float64 (dinit None without ``init_state``)."""
+    if parts not in (1, 2):
+        raise ValueError(f"parts must be 1 or 2, not {parts}")
+
+    def d64(t):
+        return None if t is None else t.double()
+    return ssd_scan_bwd_ref(*map(d64, (x, dt, A, Bm, Cm, dy, dstate)),
+                            chunk=chunk, init_state=d64(init_state),
+                            passes=f"bf16x{parts}")
+
+
 def error_bound(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
                 ref_y=None):
     """The kernels' error against the exact scan, as (bound on y, bound
@@ -600,7 +631,9 @@ def bwd_error_bound(x, dt, A, Bm, Cm, dy, dstate=None, *, chunk: int = 256,
             + 104 + ceil(P N / 1024) + 2 PRODUCT_ERR / u,
 
     plus B nc + QP for dA (S' = nc Q, R = H / G, Lambda the largest sum
-    of |dt * A| over one chunk, as ``error_bound``'s).
+    of |dt * A| over one chunk, as ``error_bound``'s); for bfloat16 x the
+    last term is 2 P_SPLIT_ERR / u + 2 (P_SPLIT_ERR - PRODUCT_ERR) / u
+    instead (the bfloat16 library's products, below).
 
     Derivation, terms in units of u on a term's magnitude, every sum in
     float32 in any order (n - 1 roundings for n terms). The forward's
@@ -639,19 +672,35 @@ def bwd_error_bound(x, dt, A, Bm, Cm, dy, dstate=None, *, chunk: int = 256,
     and G_c . S_in (the last slot's dcum); x . B (S_in) -> dy . S_in
     (dC's inter term, I). A product whose input a term already carries
     e relative error adds e more, so 2 PRODUCT_ERR bounds each term's
-    share, 2 PRODUCT_ERR / u = 24 in L. bfloat16 operands: a widened
-    bfloat16 is its own TF32 value (small half 0), so the kernel runs one
-    TF32 product where both operands are bfloat16 (D = dy . x^T: exact)
-    and two where one is float32 (small*big and big*big), leaving out only
-    products that are zero: the same terms as 3xTF32 on those values,
-    within the same PRODUCT_ERR. ``ssd_scan_bwd_ref(..., passes=3)``
-    models these products in float64 and lies within this bound;
-    ``passes=1`` (one TF32 product, about 2^-10 of |a||b|) breaks it
-    (``tests/test_torch_ssd_grad.py``). For bfloat16 x the forward's
-    scratch comes from the bfloat16 kernels: cb exact, S_in within the
-    forward state's bfloat16 bound, whose L is 2 (P_SPLIT_ERR -
-    PRODUCT_ERR) / u = 488 above the float32 one (``error_bound``); S_in
-    enters each chain it starts additively, so L grows by the same 488.
+    share, 2 PRODUCT_ERR / u = 24 in L. ``ssd_scan_bwd_ref(...,
+    passes=3)`` models these products in float64 and lies within this
+    bound; ``passes=1`` (one TF32 product, about 2^-10 of |a||b|) breaks
+    it (``tests/test_torch_ssd_grad.py``).
+
+    The bfloat16 library (``csrc/ssd_scan_bwd_bf16.cu``), its own terms
+    in the same steps. Its products: D = dy . x^T has two bfloat16
+    operands and is exact, so the chains through D (D -> dcb, cb . D
+    into M) carry no product term. Every other product has one bfloat16
+    operand, exact, and one float32 operand split into hi + lo with
+    |v - hi - lo| <= P_SPLIT_ERR |v| = 2^-16 |v| (``bf16_split``; below
+    2^-118 an absolute 2^-133 more, far below u L M at the sizes the
+    models and the tests reach), multiplied exactly: each such product
+    is off by at most P_SPLIT_ERR of its terms' |a||b|. On the chains
+    above at most two of them follow each other: exp(cum) dy (split) ->
+    dstates -> G_c (split) -> B G_c^T (dx's state term, K) and x . G_c
+    (dB); D -> dcb (split) -> dcb . B and dcb^T . C (one); cb -> W
+    (split) -> W^T dy (one); dy . S_in (S_in split: one, after the
+    forward's); G_c . S_in (the last slot's dcum, elementwise, after one
+    each). So 2 P_SPLIT_ERR / u = 512 takes the place of 2 PRODUCT_ERR /
+    u = 24. The forward's scratch comes from the bfloat16 forward: cb
+    exact, S_in within the forward state's bfloat16 bound, whose L is 2
+    (P_SPLIT_ERR - PRODUCT_ERR) / u = 488 above the float32 one
+    (``error_bound``); S_in enters each chain it starts additively, so L
+    grows by the same 488, 976 above the float32 library's in all (under
+    9% of L at mamba2-370m's training shape). ``ssd_scan_bwd_bf16``
+    (parts=2) models these products in float64 and lies within this
+    bound; one bfloat16 part (2^-8 of each split value) breaks it
+    (``tests/test_torch_ssd_bwd_bf16.py``).
 
     bfloat16 outputs (dx, dB, dC for bfloat16 x; ddt for bfloat16 dt;
     dinit for a bfloat16 state in): the rounding to bfloat16, BF16_ROUND
@@ -672,11 +721,11 @@ def bwd_error_bound(x, dt, A, Bm, Cm, dy, dstate=None, *, chunk: int = 256,
                             d64(Cm), d64(dy), d64(dstate), chunk=chunk,
                             init_state=d64(init_state), mag=True)
     u = 2.0 ** -24
+    # the products' term: 3xTF32, or the split products and the bf16 S_in
+    prod = (2 * P_SPLIT_ERR / u + 2 * (P_SPLIT_ERR - PRODUCT_ERR) / u
+            if x.dtype == torch.bfloat16 else 2 * PRODUCT_ERR / u)
     L = (2 * N + P + H // G + 3 * nc * Q + 2 * QP + 72 * lam
-         + nc * (13 * lam + 6) + 104 + -(-P * N // 1024)
-         + 2 * PRODUCT_ERR / u)
-    if x.dtype == torch.bfloat16:        # S_in from the bfloat16 forward
-        L += 2 * (P_SPLIT_ERR - PRODUCT_ERR) / u
+         + nc * (13 * lam + 6) + 104 + -(-P * N // 1024) + prod)
     bounds = [None if m is None else u * L * m for m in mags]
     bounds[2] = u * (L + B * nc + QP) * mags[2]
     bf = [x.dtype, dt.dtype, None, x.dtype, x.dtype,
@@ -926,11 +975,12 @@ def pass_errors(x, dt, A, Bm, Cm, *, chunk: int = 256,
 BWD_PASSES = ("ssd_bwd_dstates", "ssd_bwd_state_passing", "ssd_bwd_dcb",
               "ssd_bwd_dx", "ssd_bwd_heads", "ssd_bwd_sum", "ssd_bwd_dbc",
               "ssd_bwd_ddt", "ssd_bwd_dA")
-# the most slices a group's heads are spread over: csrc/ssd_scan_bwd.cu's
-# HSMAX, which sizes the partial sums' scratch here
+# the most slices a group's heads are spread over: ssd_bwd_common.cuh's
+# SSD_BWD_HSMAX, which sizes the partial sums' scratch here
 BWD_HEAD_SLICES = 4
 BWD_LAUNCHES = 0
-_BWD_FNS: Dict[str, object] = {}
+BF16_BWD_LAUNCHES = 0   # of BWD_LAUNCHES, those through ssd_scan_bwd_bf16.cu
+_BWD_FNS: Dict[torch.dtype, Dict[str, object]] = {}
 
 
 def bind_bwd(lib) -> Dict[str, object]:
@@ -944,11 +994,40 @@ def bind_bwd(lib) -> Dict[str, object]:
     return fns
 
 
-def _bwd_lib() -> Dict[str, object]:
-    if not _BWD_FNS:
+def _bwd_lib(dtype=torch.float32) -> Dict[str, object]:
+    """The passes of the backward library for x of ``dtype``:
+    ``csrc/ssd_scan_bwd.cu`` (float32) or ``csrc/ssd_scan_bwd_bf16.cu``
+    (bfloat16)."""
+    if dtype not in _BWD_FNS:
         from repro_torch.kernels import build
-        _BWD_FNS.update(bind_bwd(build.load("ssd_scan_bwd")))
-    return _BWD_FNS
+        _BWD_FNS[dtype] = bind_bwd(build.load(
+            "ssd_scan_bwd_bf16" if dtype == torch.bfloat16
+            else "ssd_scan_bwd"))
+    return _BWD_FNS[dtype]
+
+
+BWD_BF16_SHAPE_KEYS = ("x_load", "bc_load", "n_halves", "dstates_smem_bytes",
+                       "dcb_smem_bytes", "dx_smem_bytes", "heads_smem_bytes",
+                       "dbc_smem_bytes")
+
+
+def bwd_bf16_launch_shape(x, dy, Bm, Cm) -> dict:
+    """The launch the bfloat16 backward kernels make for these CUDA
+    tensors, as they report it (``ssd_bwd_bf16_shape``): how x and dy land
+    and how B and C land (TMA, cp.async or registers), N's column halves
+    and the shared memory bytes of a block of passes 1, 3, 4, 5 and 7."""
+    from repro_torch.kernels import build
+    fn = build.load("ssd_scan_bwd_bf16").ssd_bwd_bf16_shape
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * len(BWD_BF16_SHAPE_KEYS))()
+    fn(x.data_ptr(), dy.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.shape[3],
+       Bm.shape[3], out)
+    shape = dict(zip(BWD_BF16_SHAPE_KEYS, out))
+    for k in ("x_load", "bc_load"):
+        shape[k] = BF16_LOADS[shape[k]]
+    return shape
 
 
 def bwd_scratch(x, Bm, chunk: int) -> Dict[str, torch.Tensor]:
@@ -990,7 +1069,7 @@ def launch_bwd(name: str, x, dt, A, Bm, Cm, dy, dstate, scr, grads, work,
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    err = _bwd_lib()[name](
+    err = _bwd_lib(x.dtype)[name](
         *(ptr(t) for t in (x, dt, A, Bm, Cm, dy, dstate, scr["dts"],
                            scr["cum"], scr["cb"], scr["states"], *grads)),
         *(work[k].data_ptr() for k in ("dst", "dcbp", "rs", "cs", "pI", "pK",
@@ -1000,8 +1079,9 @@ def launch_bwd(name: str, x, dt, A, Bm, Cm, dy, dstate, scr, grads, work,
         int(grads[5] is not None and grads[5].dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan backward pass {name} failed: "
-                           f"cudaError {err}")
+        why = {-1: "a shape it does not take",
+               -2: "a TMA tensor map was refused"}.get(err, f"cudaError {err}")
+        raise RuntimeError(f"ssd_scan backward pass {name} failed: {why}")
 
 
 def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None, scr=None, *,
@@ -1009,10 +1089,12 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None, scr=None, *,
     """The gradient of ``ssd_scan`` at (dy, dstate) (dstate = d(final
     state) or None): (dx, ddt, dA, dBm, dCm, dinit) in the dtypes of x,
     dt, A, Bm, Cm and init_state (dinit None without one). On a CUDA
-    tensor it launches ``csrc/ssd_scan_bwd.cu``'s nine passes on the
-    forward's scratch ``scr`` (``scratch``, after the five forward passes)
-    or raises; on a CPU tensor it is ``ssd_scan_bwd_ref``."""
-    global BWD_LAUNCHES
+    tensor it launches the nine passes of ``_bwd_lib(x.dtype)``
+    (``csrc/ssd_scan_bwd.cu`` for float32 x, ``csrc/ssd_scan_bwd_bf16.cu``
+    for bfloat16) on the forward's scratch ``scr`` (``scratch``, after the
+    five forward passes) or raises, naming the shape or dtype it refuses;
+    on a CPU tensor it is ``ssd_scan_bwd_ref``."""
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES
     if x.device.type == "cpu":
         return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate, chunk=chunk,
                                 init_state=init_state)
@@ -1045,6 +1127,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None, scr=None, *,
     for name in BWD_PASSES:
         launch_bwd(name, x, dt, A, Bm, Cm, dy, dstate, scr, grads, ws, chunk)
     BWD_LAUNCHES += 1
+    BF16_BWD_LAUNCHES += x.dtype == torch.bfloat16
     return grads
 
 

@@ -12,8 +12,11 @@ on the card, K3's backward kernel against its plain version
 ``csrc/flash_attention_bwd_bf16.cu`` (held to that bound's bfloat16
 terms), the same bits on two launches, gradients through K3 on the card
 (the kernel's, nonzero), a bfloat16 train step of a cut qwen1.5-0.5b
-launching the bfloat16 backward once per layer, K4's backward kernel (``csrc/ssd_scan_bwd.cu``) within its
-``bwd_error_bound`` with the same bits on two launches, the kernels
+launching the bfloat16 backward once per layer, K4's backward kernel
+(``csrc/ssd_scan_bwd.cu``; bfloat16 through ``csrc/ssd_scan_bwd_bf16.cu``,
+held to that bound's bfloat16 terms) within its ``bwd_error_bound`` with
+the same bits on two launches, a bfloat16 train step of a reduced
+mamba2-370m launching the bfloat16 backward once per layer, the kernels
 without a backward refusing a gradient by name (K2, and K4's one-pass
 ``launch``), and one train step of the reduced dense, MoE, vlm,
 encoder-decoder, SSM and hybrid models on the card against the CPU
@@ -744,8 +747,9 @@ def test_k4_bfloat16_passes_within_their_bounds(cuda, case):
 def test_k4_bfloat16_gradient_through_its_scratch(cuda, case):
     """bfloat16 operands that need a gradient go through ``SsdScanFn``:
     the bfloat16 forward (one launch of each count), its scratch kept for
-    the backward kernel, whose gradients lie within ``bwd_error_bound``
-    (its bfloat16 forward's term) of the plain backward in float64."""
+    the bfloat16 backward kernel (one launch of each count), whose
+    gradients lie within ``bwd_error_bound``'s bfloat16 terms of the plain
+    backward in float64."""
     B, S, H, P, G, N, chunk, with_init = case
     x, dt, A, Bm, Cm, init = _k4_bf16_inputs(case, "bfloat16", cuda, seed=4)
     leaves = [t.detach().requires_grad_() if t is not None else None
@@ -753,12 +757,14 @@ def test_k4_bfloat16_gradient_through_its_scratch(cuda, case):
     gen = torch.Generator(device=cuda).manual_seed(6)
     dy = torch.randn(x.shape, generator=gen, device=cuda).to(x.dtype)
     dfinal = torch.randn((B, H, P, N), generator=gen, device=cuda)
-    n0 = (SSD.LAUNCHES, SSD.BF16_LAUNCHES, SSD.BWD_LAUNCHES)
+    n0 = (SSD.LAUNCHES, SSD.BF16_LAUNCHES, SSD.BWD_LAUNCHES,
+          SSD.BF16_BWD_LAUNCHES)
     y, state = SSD.ssd_scan(*leaves[:5], chunk=chunk, init_state=leaves[5])
     torch.autograd.backward((y, state), (dy, dfinal))
     torch.cuda.synchronize()
     assert (SSD.LAUNCHES - n0[0], SSD.BF16_LAUNCHES - n0[1],
-            SSD.BWD_LAUNCHES - n0[2]) == (1, 1, 1)
+            SSD.BWD_LAUNCHES - n0[2],
+            SSD.BF16_BWD_LAUNCHES - n0[3]) == (1, 1, 1, 1)
 
     def f64(t):
         return None if t is None else t.double()
@@ -1755,8 +1761,10 @@ K4_BWD_CASES = (             # B, S, H, P, G, N, chunk, init, d(final)
 @pytest.mark.parametrize("case", K4_BWD_CASES)
 def test_k4_backward_within_its_bound_same_bits(cuda, case, dtype):
     """K4's backward kernel on the forward kernels' scratch: every
-    gradient within ``bwd_error_bound`` of the plain version in float64,
-    in its operand's dtype, and the same bits on a second launch."""
+    gradient within ``bwd_error_bound`` of the plain version in float64
+    (for bfloat16 operands its bfloat16 terms: the bfloat16 library's
+    split products), in its operand's dtype, and the same bits on a
+    second launch."""
     B, S, H, P, G, N, chunk, with_init, with_dfinal = case
     gen = torch.Generator(device=cuda).manual_seed(5)
 
@@ -1788,6 +1796,61 @@ def test_k4_backward_within_its_bound_same_bits(cuda, case, dtype):
             continue
         assert g.dtype == t and torch.equal(g, h)
         assert bool(((g.double() - w).abs() <= b).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_k4_backward_takes_its_dtypes_library(cuda, dtype):
+    """A bfloat16 backward launches ``csrc/ssd_scan_bwd_bf16.cu``
+    (``BF16_BWD_LAUNCHES``), a float32 one does not; the bfloat16 launch
+    shape says how each case's tiles land (TMA, cp.async, registers)."""
+    n0 = (SSD.BWD_LAUNCHES, SSD.BF16_BWD_LAUNCHES)
+    B, S, H, P, G, N, chunk = K4_BWD_CASES[0][:7]
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x, dy = (torch.randn((B, S, H, P), generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    dt = torch.rand((B, S, H), generator=gen, device=cuda)
+    A = -torch.rand(H, generator=gen, device=cuda)
+    Bm, Cm = (torch.randn((B, S, G, N), generator=gen, device=cuda).to(dtype)
+              for _ in range(2))
+    _, _, scr = SSD._forward(x, dt, A, Bm, Cm, None, chunk)
+    SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, None, scr, chunk=chunk)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (SSD.BWD_LAUNCHES - n0[0], SSD.BF16_BWD_LAUNCHES - n0[1]) == \
+        (1, int(bf16))
+    if bf16:
+        routes = {}
+        for case in K4_BWD_CASES:
+            B, S, H, P, G, N = case[:6]
+            x = torch.zeros((B, S, H, P), device=cuda, dtype=dtype)
+            Bm = torch.zeros((B, S, G, N), device=cuda, dtype=dtype)
+            shape = SSD.bwd_bf16_launch_shape(x, x, Bm, Bm)
+            routes[case] = (shape["x_load"], shape["bc_load"])
+            assert shape["n_halves"] == (2 if N > 64 else 1)
+        assert set(routes.values()) >= {("tma", "tma"), ("tma", "cp.async"),
+                                        ("cp.async", "cp.async"),
+                                        ("registers", "registers")}
+
+
+@pytest.mark.cuda
+def test_bf16_mamba2_train_step_launches_the_bf16_backward(cuda):
+    """``value_and_grad`` of a reduced mamba2-370m at bfloat16 compute
+    (the default RunOptions, remat none) on the card: ``SsdScanFn``
+    launches K4's bfloat16 forward and its bfloat16 backward once per
+    layer each; the loss and the gradients are finite."""
+    from repro_torch.runtime.steps import value_and_grad
+    cfg = get("mamba2-370m").reduced()
+    model = Model(cfg, RunOptions(remat="none"))
+    assert model.opts.compute_dtype == "bfloat16"
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    tokens = torch.randint(0, 256, (2, 128), device=cuda)
+    n0 = (SSD.BF16_LAUNCHES, SSD.BWD_LAUNCHES, SSD.BF16_BWD_LAUNCHES)
+    loss, grads = value_and_grad(model, params, {"tokens": tokens})
+    assert (SSD.BF16_LAUNCHES - n0[0], SSD.BWD_LAUNCHES - n0[1],
+            SSD.BF16_BWD_LAUNCHES - n0[2]) == (cfg.n_layers,) * 3
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.cuda
